@@ -1,0 +1,349 @@
+// Tabled lmax=1 fused message + aggregation, forward, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel scalable_e3_gnn_tpu/kernels/fused_message.py::
+// _fwd_kernel_tab (via _fwd_tail, _build_inputs, _layer_fwd).  For every
+// receiver i and neighbour slot k it computes the two gated L1 tensor-product
+// layers of the SEGNN message MLP on [h_s || h_r || d^2] with the edge's sh
+// attribute, masks the slot and sums over k:
+//
+//   agg[i] = sum_k mask[i,k] * MLP2(MLP1([h_s || h_r || d2], sh), sh)
+//
+// with the sender row h_s = h[gtab[i / tile, loc[i,k]]] (loc == U: no sender,
+// a zero row).  The TPU kernel expands a per-tile table hu = h[gtab] to slot
+// rows with a one-hot MXU matmul; here each slot reads its sender row directly
+// through the table, so hu is never written to device memory, and h (16 MB in
+// bf16 at 100k x 80) stays in the 50 MB L2.
+//
+// Design.  One block walks over groups of G receivers (G*K slot rows).  The
+// six folded weight blocks (norm constants already folded in, as in the TPU
+// kernel) sit in shared memory in fp32 for the block's whole life.  Per group
+// the block stages the layer-1 inputs of every slot row in shared memory,
+// runs the three small GEMMs of each layer from shared memory (each thread
+// holds a 4-row x 1-column accumulator tile in registers), applies the gates,
+// rounds the layer-1 outputs to the data type (the TPU kernel's rounding
+// point between the layers), and sums the masked messages over K in fp32.
+//
+// Bound.  Per slot the two layers do (S1+V1)(Hs+Hv) + S1 Hv + 3 V1 Hv +
+// (Hs+Hv)^2 + Hs Hv + 3 Hv^2 multiply-adds: 10,816 at Hs=32, Hv=16, about
+// 52 GFLOP per call at 100k x 24 slots, against about 70 MB of bf16 traffic.
+// So the work is bound by operations on this card (about 52 us at the bf16
+// tensor-core peak, 21 us of memory time).  This version runs its products on
+// the fp32 FMA units from shared memory, not on the tensor cores: it is the
+// simple, exact first form; wgmma and TMA staging are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kCG110 = 0.57735026918962576451f;  // 1/sqrt(3)
+constexpr float kCG011 = 0.57735026918962576451f;  // 1/sqrt(3)
+constexpr int kThreads = 256;
+constexpr int kRowTile = 4;     // rows per thread in the small GEMMs
+constexpr int kTargetRows = 48; // slot rows per group (G = max(1, 48 / K))
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// x rounded to the data type and widened back to fp32
+template <typename T> __device__ __forceinline__ float round_dt(float x) {
+  return to_f(from_f<T>(x));
+}
+
+__device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+struct Dims {
+  int hs, hv, k, g, rows, rows_p;  // rows = g*k, rows_p = rows rounded to kRowTile
+  int s1, v1, c0, f;               // 2hs+1, 2hv, hs+hv, hs+3hv
+};
+
+__host__ __device__ inline Dims make_dims(int hs, int hv, int k) {
+  Dims d;
+  d.hs = hs; d.hv = hv; d.k = k;
+  d.g = k >= kTargetRows ? 1 : kTargetRows / k;
+  d.rows = d.g * k;
+  d.rows_p = (d.rows + kRowTile - 1) / kRowTile * kRowTile;
+  d.s1 = 2 * hs + 1; d.v1 = 2 * hv; d.c0 = hs + hv; d.f = hs + 3 * hv;
+  return d;
+}
+
+__host__ __device__ inline long weight_floats(const Dims& d) {
+  return (long)(d.s1 + d.v1) * d.c0 + (long)d.s1 * d.hv + (long)d.v1 * d.hv +
+         (long)d.c0 * d.c0 + (long)d.hs * d.hv + (long)d.hv * d.hv;
+}
+
+// X0 (s1+v1) + XS (s1) + XV (3 v1) + O0 (c0) + OA (hv) + OB (3 hv) + geo (5)
+__host__ __device__ inline long row_floats(const Dims& d) {
+  return (long)(d.s1 + d.v1) + d.s1 + 3L * d.v1 + d.c0 + d.hv + 3L * d.hv + 5;
+}
+
+__host__ inline size_t smem_bytes(const Dims& d) {
+  return sizeof(float) * (weight_floats(d) + row_floats(d) * d.rows_p) +
+         sizeof(int) * d.rows_p;
+}
+
+// Y[r][j] = sum_i X[r][i] W[i][j] for r < nrows (a multiple of kRowTile)
+__device__ __forceinline__ void smem_gemm(const float* __restrict__ X, int nrows, int kdim,
+                                          const float* __restrict__ W, int ncols,
+                                          float* __restrict__ Y) {
+  const int nwork = (nrows / kRowTile) * ncols;
+  for (int w = threadIdx.x; w < nwork; w += blockDim.x) {
+    const int j = w % ncols;
+    const int r0 = (w / ncols) * kRowTile;
+    const float* x = X + (long)r0 * kdim;
+    float acc[kRowTile];
+#pragma unroll
+    for (int t = 0; t < kRowTile; ++t) acc[t] = 0.0f;
+    for (int i = 0; i < kdim; ++i) {
+      const float wv = W[i * ncols + j];
+#pragma unroll
+      for (int t = 0; t < kRowTile; ++t) acc[t] = fmaf(x[t * kdim + i], wv, acc[t]);
+    }
+#pragma unroll
+    for (int t = 0; t < kRowTile; ++t) Y[(long)(r0 + t) * ncols + j] = acc[t];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fused_message_tab_fwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
+                             const T* __restrict__ attr, const T* __restrict__ maskf,
+                             const int* __restrict__ loc, const int* __restrict__ gtab,
+                             const T* __restrict__ w0a, const T* __restrict__ w1sa,
+                             const T* __restrict__ w1va, const T* __restrict__ w0b,
+                             const T* __restrict__ w1sb, const T* __restrict__ w1vb,
+                             T* __restrict__ out, int npad, int hs, int hv, int k,
+                             int tile, int u) {
+  const Dims d = make_dims(hs, hv, k);
+  extern __shared__ float smem[];
+  // weights
+  float* W0a = smem;
+  float* W1Sa = W0a + (d.s1 + d.v1) * d.c0;
+  float* W1Va = W1Sa + d.s1 * d.hv;
+  float* W0b = W1Va + d.v1 * d.hv;
+  float* W1Sb = W0b + d.c0 * d.c0;
+  float* W1Vb = W1Sb + d.hs * d.hv;
+  // per-row buffers
+  float* X0 = W1Vb + d.hv * d.hv;             // [rows_p][s1+v1] (layer 2: [rows_p][c0])
+  float* XS = X0 + d.rows_p * (d.s1 + d.v1);  // [rows_p][s1]    (layer 2: [rows_p][hs])
+  float* XV = XS + d.rows_p * d.s1;           // [rows_p*3][v1]  (layer 2: [rows_p*3][hv])
+  float* O0 = XV + d.rows_p * 3 * d.v1;       // [rows_p][c0]
+  float* OA = O0 + d.rows_p * d.c0;           // [rows_p][hv]
+  float* OB = OA + d.rows_p * d.hv;           // [rows_p*3][hv]
+  float* GEO = OB + d.rows_p * 3 * d.hv;      // [rows_p][5]: s, vx, vy, vz, mask
+  int* SND = reinterpret_cast<int*>(GEO + d.rows_p * 5);  // [rows_p] sender or -1
+
+  {
+    const T* src[6] = {w0a, w1sa, w1va, w0b, w1sb, w1vb};
+    float* dst[6] = {W0a, W1Sa, W1Va, W0b, W1Sb, W1Vb};
+    const int len[6] = {(d.s1 + d.v1) * d.c0, d.s1 * d.hv, d.v1 * d.hv,
+                        d.c0 * d.c0, d.hs * d.hv, d.hv * d.hv};
+    for (int m = 0; m < 6; ++m)
+      for (int i = threadIdx.x; i < len[m]; i += blockDim.x) dst[m][i] = to_f(src[m][i]);
+  }
+
+  const int f = d.f;
+  const int ngroups = (npad + d.g - 1) / d.g;
+  for (int grp = blockIdx.x; grp < ngroups; grp += gridDim.x) {
+    const int node0 = grp * d.g;
+    // ---- per-row sender id and geometry
+    for (int r = threadIdx.x; r < d.rows_p; r += blockDim.x) {
+      const int node = node0 + r / d.k;
+      int snd = -1;
+      float g5[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+      if (r < d.rows && node < npad) {
+        const long e = (long)node * d.k + r % d.k;
+        const int l = loc[e];
+        if (l < u) {
+          const int t = gtab[(long)(node / tile) * u + l];
+          snd = (t >= 0 && t < npad) ? t : -1;
+        }
+        g5[0] = to_f(attr[e * 4 + 0]);
+        g5[1] = to_f(attr[e * 4 + 1]);
+        g5[2] = to_f(attr[e * 4 + 2]);
+        g5[3] = to_f(attr[e * 4 + 3]);
+        g5[4] = to_f(maskf[e]);
+        XS[r * d.s1 + 2 * d.hs] = to_f(d2[e]);
+      } else {
+        XS[r * d.s1 + 2 * d.hs] = 0.f;
+      }
+      SND[r] = snd;
+#pragma unroll
+      for (int q = 0; q < 5; ++q) GEO[r * 5 + q] = g5[q];
+    }
+    __syncthreads();
+
+    // ---- layer-1 inputs: xs = [hs0e || hr0e || d2], xv_c = [hs_c || hr_c]
+    {
+      const int width = 2 * d.hs + d.v1;  // xs without d2, then the vector lanes
+      for (int w = threadIdx.x; w < d.rows_p * width; w += blockDim.x) {
+        const int r = w / width, j = w % width;
+        const int node = node0 + r / d.k;
+        const bool live = r < d.rows && node < npad;
+        const int snd = SND[r];
+        const float s = GEO[r * 5 + 0];
+        if (j < 2 * d.hs) {
+          float x = 0.f;
+          if (j < d.hs) {
+            if (snd >= 0) x = to_f(h[(long)snd * f + j]);
+          } else if (live) {
+            x = to_f(h[(long)node * f + (j - d.hs)]);
+          }
+          XS[r * d.s1 + j] = x;
+          X0[r * (d.s1 + d.v1) + j] = x * s;
+        } else {
+          const int jj = j - 2 * d.hs;  // lane in [0, v1)
+          float dot = 0.f;
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            float x = 0.f;
+            if (jj < d.hv) {
+              if (snd >= 0) x = to_f(h[(long)snd * f + d.hs + c * d.hv + jj]);
+            } else if (live) {
+              x = to_f(h[(long)node * f + d.hs + c * d.hv + (jj - d.hv)]);
+            }
+            XV[(r * 3 + c) * d.v1 + jj] = x * s;
+            dot = fmaf(x, GEO[r * 5 + 1 + c], dot);
+          }
+          X0[r * (d.s1 + d.v1) + d.s1 + jj] = kCG110 * dot;
+        }
+      }
+      // the d2 lane of f0
+      for (int r = threadIdx.x; r < d.rows_p; r += blockDim.x)
+        X0[r * (d.s1 + d.v1) + 2 * d.hs] = XS[r * d.s1 + 2 * d.hs] * GEO[r * 5];
+    }
+    __syncthreads();
+
+    // ---- layer-1 products
+    smem_gemm(X0, d.rows_p, d.s1 + d.v1, W0a, d.c0, O0);
+    smem_gemm(XS, d.rows_p, d.s1, W1Sa, d.hv, OA);
+    smem_gemm(XV, 3 * d.rows_p, d.v1, W1Va, d.hv, OB);
+    __syncthreads();
+
+    // ---- layer-1 gates, rounded to the data type -> layer-2 inputs
+    for (int w = threadIdx.x; w < d.rows_p * d.c0; w += blockDim.x) {
+      const int r = w / d.c0, j = w % d.c0;
+      const float s = GEO[r * 5 + 0];
+      if (j < d.hs) {
+        const float o = O0[r * d.c0 + j];
+        const float m0 = round_dt<T>(o * sigmoid_f(o));
+        XS[r * d.hs + j] = m0;
+        X0[r * d.c0 + j] = m0 * s;
+      } else {
+        const int jj = j - d.hs;
+        const float g = sigmoid_f(O0[r * d.c0 + j]);
+        const float a = OA[r * d.hv + jj];
+        float dot = 0.f;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float v = GEO[r * 5 + 1 + c];
+          const float m1 = round_dt<T>(kCG011 * fmaf(v, a, OB[(r * 3 + c) * d.hv + jj]) * g);
+          XV[(r * 3 + c) * d.hv + jj] = m1 * s;
+          dot = fmaf(m1, v, dot);
+        }
+        X0[r * d.c0 + j] = kCG110 * dot;
+      }
+    }
+    __syncthreads();
+
+    // ---- layer-2 products
+    smem_gemm(X0, d.rows_p, d.c0, W0b, d.c0, O0);
+    smem_gemm(XS, d.rows_p, d.hs, W1Sb, d.hv, OA);
+    smem_gemm(XV, 3 * d.rows_p, d.hv, W1Vb, d.hv, OB);
+    __syncthreads();
+
+    // ---- layer-2 gates, mask, per-slot rounding, fp32 sum over K
+    for (int w = threadIdx.x; w < d.g * f; w += blockDim.x) {
+      const int i = w / f, col = w % f;
+      const int node = node0 + i;
+      if (node >= npad) continue;
+      float acc = 0.f;
+      for (int kk = 0; kk < d.k; ++kk) {
+        const int r = i * d.k + kk;
+        const float mk = GEO[r * 5 + 4];
+        if (mk == 0.f) continue;  // masked or padding slot: contributes 0
+        float m;
+        if (col < d.hs) {
+          const float o = O0[r * d.c0 + col];
+          m = o * sigmoid_f(o);
+        } else {
+          const int c = (col - d.hs) / d.hv, jj = (col - d.hs) % d.hv;
+          const float g = sigmoid_f(O0[r * d.c0 + d.hs + jj]);
+          m = kCG011 * fmaf(GEO[r * 5 + 1 + c], OA[r * d.hv + jj], OB[(r * 3 + c) * d.hv + jj]) * g;
+        }
+        acc += round_dt<T>(m * mk);
+      }
+      out[(long)node * f + col] = from_f<T>(acc);
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T>
+int launch(const void* h, const void* d2, const void* attr, const void* maskf,
+           const int* loc, const int* gtab, const void* w0a, const void* w1sa,
+           const void* w1va, const void* w0b, const void* w1sb, const void* w1vb,
+           void* out, int npad, int hs, int hv, int k, int tile, int u,
+           cudaStream_t stream) {
+  const Dims d = make_dims(hs, hv, k);
+  const size_t smem = smem_bytes(d);
+  auto kern = fused_message_tab_fwd_kernel<T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int ngroups = (npad + d.g - 1) / d.g;
+  int grid = sms * per_sm;
+  if (grid > ngroups) grid = ngroups;
+  if (grid < 1) grid = 1;
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(h), static_cast<const T*>(d2), static_cast<const T*>(attr),
+      static_cast<const T*>(maskf), loc, gtab, static_cast<const T*>(w0a),
+      static_cast<const T*>(w1sa), static_cast<const T*>(w1va), static_cast<const T*>(w0b),
+      static_cast<const T*>(w1sb), static_cast<const T*>(w1vb), static_cast<T*>(out), npad,
+      hs, hv, k, tile, u);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared memory one block needs for these widths (bytes); the wrapper checks
+// it against the card's limit before launching.
+long fused_message_tab_fwd_smem_bytes(int hs, int hv, int k) {
+  return (long)smem_bytes(make_dims(hs, hv, k));
+}
+
+// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
+// launch (0 on success).
+int fused_message_tab_fwd(int dtype, const void* h, const void* d2, const void* attr,
+                          const void* maskf, const void* loc, const void* gtab,
+                          const void* w0a, const void* w1sa, const void* w1va,
+                          const void* w0b, const void* w1sb, const void* w1vb, void* out,
+                          int npad, int hs, int hv, int k, int tile, int u, void* stream) {
+  const int* loc_i = static_cast<const int*>(loc);
+  const int* gtab_i = static_cast<const int*>(gtab);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float>(h, d2, attr, maskf, loc_i, gtab_i, w0a, w1sa, w1va, w0b, w1sb,
+                         w1vb, out, npad, hs, hv, k, tile, u, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(h, d2, attr, maskf, loc_i, gtab_i, w0a, w1sa, w1va, w0b,
+                                 w1sb, w1vb, out, npad, hs, hv, k, tile, u, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

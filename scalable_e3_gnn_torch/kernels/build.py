@@ -1,0 +1,97 @@
+"""Build and load the package's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+for ``sm_90a`` into ``_build/lib<name>-<source hash>.so`` at first use, then
+loaded with ``ctypes``.  The hash in the file name means a library is never
+stale.  Nothing is built or loaded when a module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+__all__ = ["CudaKernel", "build_libraries"]
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cands = [shutil.which("nvcc")]
+    if CUDA_HOME:
+        cands.append(str(Path(CUDA_HOME) / "bin" / "nvcc"))
+    for c in cands:
+        if c and Path(c).exists():
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the toolkit")
+
+
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    return BUILD / f"lib{name}-{digest}.so"
+
+
+def build_libraries(names: Iterable[str]) -> Dict[str, dict]:
+    """Compile every named source not built yet, all ``nvcc`` runs at once.
+
+    Returns per name: ``path``, ``seconds`` (0 when already built) and
+    ``log`` (nvcc's ``-Xptxas -v`` report of registers and shared memory).
+    """
+    BUILD.mkdir(parents=True, exist_ok=True)
+    procs, out = {}, {}
+    for name in names:
+        path = _lib_path(name)
+        if path.exists():
+            out[name] = dict(path=path, seconds=0.0, log="")
+            continue
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                        text=True), path, tmp, time.perf_counter())
+    for name, (proc, path, tmp, t0) in procs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{stdout}{stderr}")
+        os.replace(tmp, path)
+        out[name] = dict(path=path, seconds=time.perf_counter() - t0, log=stdout + stderr)
+    return out
+
+
+class CudaKernel:
+    """One CUDA source's library, loaded at first use, and its launch count.
+
+    ``launches`` is incremented by the kernel's wrapper each time it launches
+    the kernel, and nowhere else.
+    """
+
+    def __init__(self, name: str, signatures: Dict[str, tuple]) -> None:
+        self.name = name
+        self.signatures = signatures  # C function -> (restype, argtypes)
+        self.launches = 0
+        self._lib: Optional[ctypes.CDLL] = None
+
+    @property
+    def source(self) -> Path:
+        return CSRC / f"{self.name}.cu"
+
+    def lib(self) -> ctypes.CDLL:
+        if self._lib is None:
+            path = build_libraries([self.name])[self.name]["path"]
+            lib = ctypes.CDLL(str(path))
+            for fn, (restype, argtypes) in self.signatures.items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = argtypes
+            self._lib = lib
+        return self._lib

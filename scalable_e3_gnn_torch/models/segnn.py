@@ -1,0 +1,265 @@
+"""SEGNN: steerable E(3)-equivariant message passing on fixed-K graphs.
+
+Counterpart of ``scalable_e3_gnn_tpu/models/segnn.py`` for the dense
+(``DenseEdgeGraph``) path without edge chunking or layer remat:
+
+    h = embed(x, node_attr)
+    per layer: agg_i = sum_k mask * MLP([h_s || h_i || d^2], edge_attr)
+               h_i   = h_i + update([h_i || agg_i], node_attr)
+    out = head(pre_head(h, node_attr))
+
+Parameter names follow the JAX ``init`` dict (``embed``, ``layer_i/msg_j``,
+``layer_i/upd_j``, ``pre_head``, ``head``) so ``utils.params.params_from_jax``
+loads JAX weights unchanged.
+
+Message dispatch (``SEGNNLayer``):
+- ``use_pallas=True`` on a graph with gather tables: the tabled fused kernel
+  (``kernels.fused_message.fused_message_aggregate_tabled``), which runs the
+  hand-written CUDA kernel on CUDA tensors;
+- ``use_pallas=True`` without tables (the untabled kernel): not ported yet,
+  raises ``NotImplementedError``;
+- ``use_pallas=False``: the plain PyTorch message path.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..core.irreps import Irreps
+from ..core.spherical import spherical_harmonics
+from ..graph.container import DenseEdgeGraph
+from ..kernels.fused_message import MessageConfig, fused_message_aggregate_tabled
+from ..ops.gate import Gate
+from ..ops.linear import O3Linear
+from ..ops.tensor_product import L1TensorProduct
+from ..utils.device import resolve_device
+
+__all__ = ["O3TensorProductGate", "SEGNNLayer", "SEGNN"]
+
+
+def _make_tp(irreps_in, irreps_attr, irreps_out, layout_in, layout_out, **kw):
+    """The lmax=1 tensor product; the generic one comes in a later slice."""
+    if (irreps_in.lmax <= 1 and irreps_out.lmax <= 1
+            and repr(irreps_attr.regroup()) == "1x0e+1x1o"):
+        return L1TensorProduct(irreps_in, irreps_out, layout_in1=layout_in,
+                               layout_out=layout_out, **kw)
+    raise NotImplementedError(
+        "the generic (lmax >= 2) tensor product is ported in a later slice"
+    )
+
+
+class O3TensorProductGate(nn.Module):
+    """CG tensor product with the attribute, then a gate.  The TP emits
+    ``scalars || gates || gated``; the gate squashes them."""
+
+    def __init__(self, irreps_in, irreps_attr, irreps_out, act: Callable = F.silu,
+                 gated: bool = True, layout_in: str = "mul", layout_out: str = "mul",
+                 device=None, generator: Optional[torch.Generator] = None) -> None:
+        super().__init__()
+        self.irreps_in = Irreps(irreps_in)
+        self.irreps_out = Irreps(irreps_out)
+        self.gated = gated
+        if gated:
+            scalars = Irreps([mi for mi in self.irreps_out if mi.ir.l == 0])
+            non_scalars = Irreps([mi for mi in self.irreps_out if mi.ir.l > 0])
+            self.gate = Gate(scalars, non_scalars, act_scalars=act, layout=layout_out)
+            tp_out = self.gate.irreps_in
+        else:
+            self.gate = None
+            tp_out = self.irreps_out
+        self.tp = _make_tp(self.irreps_in, Irreps(irreps_attr), tp_out, layout_in, layout_out,
+                           device=device, generator=generator)
+
+    def forward(self, x: torch.Tensor, attr: torch.Tensor) -> torch.Tensor:
+        y = self.tp(x, attr)
+        return self.gate(y) if self.gate is not None else y
+
+
+class SEGNNLayer(nn.Module):
+    """One message-passing layer on a fixed-K graph.
+
+    message  m = TPGate([h_s || h_r || |x_rel|^2], edge_attr)  (x2)
+    aggregate  = masked sum over the K slots
+    update     = TPGate([h_i || agg_i], node_attr)  (+ residual)
+    """
+
+    def __init__(self, hidden_irreps, attr_irreps, act: Callable = F.silu,
+                 num_message_layers: int = 2, num_update_layers: int = 2,
+                 layout: str = "mul", use_pallas: bool = False, device=None,
+                 generator: Optional[torch.Generator] = None) -> None:
+        super().__init__()
+        self.layout = layout
+        h = Irreps(hidden_irreps)
+        hr = h.regroup()
+        # the fused kernel: cm layout, 2 gated message layers, hidden = Hs x0e + Hv x1o
+        self.use_pallas = (
+            use_pallas and layout == "cm" and num_message_layers == 2 and act is F.silu
+            and len(hr) == 2 and repr(hr[0].ir) == "0e" and repr(hr[1].ir) == "1o"
+        )
+        self._pallas_hs = hr[0].mul if self.use_pallas else 0
+        self._pallas_hv = hr[1].mul if self.use_pallas else 0
+        a = Irreps(attr_irreps)
+        self.hidden_irreps = h
+        kw = dict(act=act, device=device, generator=generator)
+        edge_in = h + h + Irreps("1x0e")  # h_s || h_r || dist^2
+        self.message_layers = nn.ModuleList()
+        cur = edge_in
+        for _ in range(num_message_layers):
+            self.message_layers.append(
+                O3TensorProductGate(cur, a, h, layout_in=layout, layout_out=layout, **kw))
+            cur = h
+        self.update_layers = nn.ModuleList()
+        cur = h + h
+        for i in range(num_update_layers):
+            self.update_layers.append(O3TensorProductGate(
+                cur, a, h, gated=i < num_update_layers - 1, layout_in=layout,
+                layout_out=layout, **kw))
+            cur = h
+
+    def _folded_weights(self, dt):
+        """Message-layer weights with per-column norm constants folded in,
+        in the data dtype (as the JAX package hands them to its kernel)."""
+        out = []
+        for layer in self.message_layers[:2]:
+            tp = layer.tp
+            n0 = torch.as_tensor(tp._norm["l0e"], device=tp.w_l0e.device).to(dt)
+            n1 = torch.as_tensor(tp._norm_mul["l1o"], device=tp.w_l1o.device).to(dt)
+            out += [(tp.w_l0e.to(dt) * n0[None, :]).contiguous(),
+                    (tp.w_l1o.to(dt) * n1[None, :]).contiguous()]
+        return out
+
+    def _fused_messages_tabled(self, h, edge_attr, edge_dist2, edge_mask, graph):
+        """Kernel dispatch with the graph's per-tile sender tables; pads the
+        node axis to the tables' Npad and cuts the result back to N."""
+        loc, gtab = graph.gather_loc, graph.gather_tab
+        n, k = edge_mask.shape
+        f = h.shape[-1]
+        npad = loc.shape[0]
+        cfg = MessageConfig(hs=self._pallas_hs, hv=self._pallas_hv, k=k,
+                            tile=graph.gather_tile, u=gtab.shape[1])
+        dt = h.dtype
+        attr = edge_attr.reshape(n * k, edge_attr.shape[-1]).to(dt)
+        maskf = edge_mask.to(dt).reshape(n * k, 1)
+        d2 = edge_dist2.reshape(n * k, 1).to(dt)
+        h_p = h
+        if npad != n:
+            pe = (npad - n) * k
+            h_p = torch.cat([h, h.new_zeros((npad - n, f))])
+            attr = torch.cat([attr, attr.new_zeros((pe, attr.shape[-1]))])
+            d2 = torch.cat([d2, d2.new_zeros((pe, 1))])
+            maskf = torch.cat([maskf, maskf.new_zeros((pe, 1))])
+        agg = fused_message_aggregate_tabled(
+            cfg, h_p.contiguous(), d2.contiguous(), attr.contiguous(), maskf.contiguous(),
+            loc.reshape(npad * k, 1).contiguous(), gtab.contiguous(),
+            *self._folded_weights(dt))
+        return agg[:n]
+
+    def _plain_messages(self, h, senders, edge_attr, edge_dist2, edge_mask):
+        hs = h[torch.clamp(senders, max=h.shape[0] - 1).long()]  # [N, K, F]
+        hr = h[:, None, :].expand_as(hs)
+        m = torch.cat([hs, hr, edge_dist2[..., None].to(h.dtype)], dim=-1)
+        for layer in self.message_layers:
+            m = layer(m, edge_attr)
+        m = torch.where(edge_mask[..., None], m, torch.zeros_like(m))
+        return m.sum(dim=1)
+
+    def forward(self, h, graph: DenseEdgeGraph, edge_attr, node_attr, edge_dist2):
+        """h [N, F] -> [N, F] on the fixed-K ``graph`` with [N, K, .] geometry."""
+        if self.use_pallas:
+            if graph.gather_loc is None:
+                raise NotImplementedError(
+                    "the untabled fused message kernel is ported in a later slice; "
+                    "build the graph's gather tables (with_gather_tables) or use "
+                    "use_pallas=False"
+                )
+            agg = self._fused_messages_tabled(h, edge_attr, edge_dist2, graph.edge_mask, graph)
+        else:
+            agg = self._plain_messages(h, graph.senders, edge_attr, edge_dist2, graph.edge_mask)
+        u = torch.cat([h, agg], dim=-1)
+        for layer in self.update_layers:
+            u = layer(u, node_attr)
+        out = h + u
+        return torch.where(graph.node_mask[:, None], out, torch.zeros_like(out))
+
+
+class SEGNN(nn.Module):
+    """Full SEGNN: embed -> message-passing layers -> output head.
+
+    Parameters are created on ``device`` (the GPU unless given) from
+    ``generator``; load JAX weights with ``utils.params.params_from_jax``.
+    """
+
+    def __init__(self, input_irreps, hidden_irreps, output_irreps, lmax_attr: int = 1,
+                 num_layers: int = 4, act: Callable = F.silu, task: str = "node",
+                 layout: Optional[str] = None, use_pallas: bool = False, device=None,
+                 generator: Optional[torch.Generator] = None) -> None:
+        super().__init__()
+        device = resolve_device(device)
+        self.input_irreps = Irreps(input_irreps)
+        self.hidden_irreps = Irreps(hidden_irreps)
+        self.output_irreps = Irreps(output_irreps)
+        self.lmax_attr = lmax_attr
+        self.attr_irreps = Irreps.spherical_harmonics(lmax_attr)
+        self.task = task
+        self.layout = layout or "cm"
+        kw = dict(act=act, device=device, generator=generator)
+        self.embed = O3TensorProductGate(self.input_irreps, self.attr_irreps,
+                                         self.hidden_irreps, gated=False, layout_in="mul",
+                                         layout_out=self.layout, **kw)
+        self.layers = nn.ModuleList(
+            SEGNNLayer(self.hidden_irreps, self.attr_irreps, layout=self.layout,
+                       use_pallas=use_pallas, **kw)
+            for _ in range(num_layers)
+        )
+        self.pre_head = O3TensorProductGate(self.hidden_irreps, self.attr_irreps,
+                                            self.hidden_irreps, layout_in=self.layout,
+                                            layout_out=self.layout, **kw)
+        self.head = O3Linear(self.hidden_irreps, self.output_irreps, bias=True,
+                             layout_in=self.layout, layout_out="mul", device=device,
+                             generator=generator)
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    def compute_attributes_dense(self, graph: DenseEdgeGraph):
+        """``(edge_attr [N,K,A], node_attr [N,A], dist2 [N,K], edge_geo [N,K*(A+2)])``:
+        sh of the relative positions (zero on invalid slots), their mean per
+        receiver with the scalar channel reset to 1, squared distances, and
+        the packed ``attr || d2 || mask`` stream of the JAX package."""
+        rel = graph.rel_positions()
+        dist2 = torch.sum(rel * rel, dim=-1)
+        edge_attr = spherical_harmonics(self.lmax_attr, rel)
+        edge_attr = torch.where(graph.edge_mask[..., None], edge_attr, torch.zeros_like(edge_attr))
+        cnt = torch.clamp(graph.edge_mask.sum(dim=1), min=1)
+        node_attr = edge_attr.sum(dim=1) / cnt[:, None].to(edge_attr.dtype)
+        node_attr[..., 0] = 1.0
+        edge_geo = torch.cat([edge_attr, dist2[..., None],
+                              graph.edge_mask[..., None].to(edge_attr.dtype)], dim=-1)
+        return edge_attr, node_attr, dist2, edge_geo.reshape(edge_geo.shape[0], -1)
+
+    def forward(self, graph: DenseEdgeGraph, attrs: Optional[tuple] = None) -> torch.Tensor:
+        """Per-node outputs [N, output dim] ('graph' task: per-graph sums).
+
+        ``attrs``: precomputed ``compute_attributes_dense`` result (3- or
+        4-tuple); computed here when omitted.  Runs in the dtype of
+        ``graph.nodes`` with the module's parameters (cast the module, e.g.
+        ``.to(torch.bfloat16)``, for bf16 weights)."""
+        if graph.device != self.device:
+            raise ValueError(f"graph is on {graph.device}, model on {self.device}")
+        if attrs is None:
+            attrs = self.compute_attributes_dense(graph)
+        edge_attr, node_attr, dist2 = attrs[:3]
+        h = self.embed(graph.nodes, node_attr)
+        for layer in self.layers:
+            h = layer(h, graph, edge_attr, node_attr, dist2)
+        out = self.head(self.pre_head(h, node_attr))
+        if self.task == "graph":
+            out = torch.where(graph.node_mask[:, None], out, torch.zeros_like(out))
+            pooled = out.new_zeros((graph.n_graphs, out.shape[-1]))
+            out = pooled.index_add_(0, graph.node_graph.long(), out)
+        return out

@@ -1,0 +1,64 @@
+"""PyTorch port, core: Irreps algebra and spherical harmonics vs the JAX package."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from scalable_e3_gnn_tpu.core import irreps as jir
+from scalable_e3_gnn_tpu.core.spherical import spherical_harmonics as jax_sh
+from scalable_e3_gnn_torch.core import irreps as tir
+from scalable_e3_gnn_torch.core.spherical import spherical_harmonics as torch_sh
+
+SPECS = ["8x0e+8x1o", "4x0e+2x0o+3x1o+2x1e", "32x0e+16x1o+32x0e+16x1o+1x0e",
+         "1x1o+2x0e+1x1o", "2x0e+1x1o"]
+
+
+@pytest.mark.parametrize("spec", SPECS)
+def test_irreps_matches_jax(spec):
+    a, b = jir.Irreps(spec), tir.Irreps(spec)
+    assert repr(a) == repr(b)
+    assert (a.dim, a.num_irreps, a.lmax, a.ls) == (b.dim, b.num_irreps, b.lmax, b.ls)
+    assert a.slices() == b.slices()
+    assert repr(a.regroup()) == repr(b.regroup())
+    assert repr(a.sort()) == repr(b.sort())
+    assert a.is_blockwise() == b.is_blockwise()
+    for ir in ("0e", "0o", "1o", "1e"):
+        assert a.mul_for(ir) == b.mul_for(ir)
+        assert a.regroup().contiguous_slice_for(ir) == b.regroup().contiguous_slice_for(ir)
+    assert {repr(k): v for k, v in a.slices_by_irrep().items()} == {
+        repr(k): v for k, v in b.slices_by_irrep().items()}
+
+
+def test_irrep_order_and_products_match_jax():
+    names = ["0e", "0o", "1o", "1e", "2e", "2o"]
+    ja = sorted(jir.Irrep.parse(s) for s in reversed(names))
+    ta = sorted(tir.Irrep.parse(s) for s in reversed(names))
+    assert [repr(x) for x in ja] == [repr(x) for x in ta] == names
+    for x in names:
+        for y in names:
+            assert ([repr(i) for i in jir.Irrep.parse(x) * jir.Irrep.parse(y)]
+                    == [repr(i) for i in tir.Irrep.parse(x) * tir.Irrep.parse(y)])
+    assert repr(tir.Irreps.spherical_harmonics(1)) == "1x0e+1x1o"
+
+
+@pytest.mark.parametrize("lmax", [0, 1])
+@pytest.mark.parametrize("normalization", ["component", "norm", "integral"])
+def test_spherical_harmonics_match_jax(lmax, normalization):
+    """fp32, atol 1e-6: the same elementwise ops in the same order."""
+    rng = np.random.default_rng(lmax)
+    v = rng.standard_normal((64, 5, 3)).astype(np.float32)
+    v[0, 0] = 0.0  # padding vector: embeds to [1, 0, 0, 0]
+    ref = np.asarray(jax_sh(lmax, jnp.asarray(v), normalization=normalization))
+    got = torch_sh(lmax, torch.from_numpy(v), normalization=normalization).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-6)
+
+
+def test_spherical_harmonics_unnormalized_and_lmax2():
+    v = np.random.default_rng(3).standard_normal((16, 3)).astype(np.float32)
+    ref = np.asarray(jax_sh(1, jnp.asarray(v), normalize=False))
+    got = torch_sh(1, torch.from_numpy(v), normalize=False).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-6)
+    with pytest.raises(NotImplementedError):
+        torch_sh(2, torch.from_numpy(v))

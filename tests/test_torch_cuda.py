@@ -1,0 +1,107 @@
+"""PyTorch port on the GPU: the hand-written CUDA kernel against its plain
+PyTorch version at widths other than config 3's, and the SEGNN forward
+through the kernel against the plain path.
+
+These tests need a CUDA card and skip without one.  They import no JAX, so
+they run on a machine without it (``--noconftest`` skips the JAX-only
+conftest):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from scalable_e3_gnn_torch.graph.container import DenseEdgeGraph
+from scalable_e3_gnn_torch.graph.octree import build_octree
+from scalable_e3_gnn_torch.graph.radius import radius_graph_cell, suggest_cell_capacity
+from scalable_e3_gnn_torch.kernels import fused_message as fm
+from scalable_e3_gnn_torch.models import segnn as segnn_mod
+from scalable_e3_gnn_torch.models.segnn import SEGNN
+
+pytestmark = pytest.mark.cuda
+
+LO, HI = (0.0,) * 3, (1.0,) * 3
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _graph(dev, n, k, radius, tile, seed=0):
+    pts = np.random.default_rng(seed).random((n, 3)).astype(np.float32)
+    tree = build_octree(pts, LO, HI, num_levels=5, device=dev)
+    cap = suggest_cell_capacity(tree, radius, LO, HI)
+    e = radius_graph_cell(tree, radius, LO, HI, max_neighbors=k, cell_capacity=cap)
+    feats = np.random.default_rng(seed + 1).standard_normal((n, 5)).astype(np.float32)
+    g = DenseEdgeGraph.from_radius_edges(feats, tree.points, e, symmetrize=True)
+    return g, g.with_gather_tables(tile=tile)
+
+
+@pytest.mark.parametrize("hidden,k,n,tile", [("16x0e+8x1o", 8, 200, 32),
+                                             ("8x0e+12x1o", 13, 1000, 64),
+                                             ("32x0e+16x1o", 24, 3000, 160)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_matches_plain(dev, monkeypatch, hidden, k, n, tile, dtype):
+    """fp32: 1e-4 * max(1, |ref|) (sum order); bf16: 3e-2 * max|ref|
+    (rounding of the layer-1 outputs and the slot messages)."""
+    g, gt = _graph(dev, n, k, 0.25, tile)
+    model = SEGNN("2x0e+1x1o", hidden, "1x1o", num_layers=1, layout="cm", use_pallas=True,
+                  device=dev, generator=torch.Generator().manual_seed(1))
+    layer = model.layers[0]
+    attrs = model.compute_attributes_dense(gt)
+    npad = gt.gather_loc.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    h = torch.randn((n, model.hidden_irreps.dim), generator=gen, device=dev).to(dtype)
+    calls = []
+    real = fm.fused_message_aggregate_tabled
+    monkeypatch.setattr(segnn_mod, "fused_message_aggregate_tabled",
+                        lambda *a: calls.append(a) or real(*a))
+    with torch.no_grad():
+        layer._fused_messages_tabled(h, attrs[0].to(dtype), attrs[2].to(dtype), gt.edge_mask, gt)
+    (args,) = calls
+    assert args[1].shape[0] == npad
+    before = fm.TAB_FWD.launches
+    with torch.no_grad():
+        got = fm.fused_message_aggregate_tabled(*args).float()
+        ref = fm.fused_message_aggregate_tabled_plain(*args).float()
+    torch.cuda.synchronize()
+    assert fm.TAB_FWD.launches == before + 1
+    assert torch.isfinite(got).all()
+    err = (got - ref).abs()
+    if dtype == torch.float32:
+        assert (err <= 1e-4 * ref.abs().clamp(min=1.0)).all(), float(err.max())
+    else:
+        assert float(err.max()) <= 3e-2 * float(ref.abs().max())
+
+
+def test_segnn_forward_kernel_matches_plain_path(dev):
+    g, gt = _graph(dev, 2000, 12, 0.12, 160)
+    m_k = SEGNN("2x0e+1x1o", "16x0e+8x1o", "1x1o", num_layers=2, layout="cm",
+                use_pallas=True, device=dev, generator=torch.Generator().manual_seed(3))
+    m_p = SEGNN("2x0e+1x1o", "16x0e+8x1o", "1x1o", num_layers=2, layout="cm",
+                use_pallas=False, device=dev)
+    m_p.load_state_dict(m_k.state_dict())
+    before = fm.TAB_FWD.launches
+    with torch.no_grad():
+        got, ref = m_k(gt), m_p(g)
+    assert fm.TAB_FWD.launches == before + 2
+    assert (got - ref).abs().max() <= 1e-4 * max(1.0, float(ref.abs().max()))
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    g, gt = _graph(dev, 200, 8, 0.25, 32)
+    cfg = fm.MessageConfig(hs=16, hv=8, k=8, tile=32, u=gt.gather_tab.shape[1])
+    npad = gt.gather_loc.shape[0]
+    h = torch.zeros((npad, cfg.f), device=dev, dtype=torch.float16)
+    geo = lambda w: torch.zeros((npad * 8, w), device=dev, dtype=torch.float16)
+    ws = [torch.zeros(s, device=dev, dtype=torch.float16) for s in
+          ((49, 24), (49, 8), (24, 24), (24, 8))]
+    with pytest.raises(TypeError):
+        fm.fused_message_aggregate_tabled(cfg, h, geo(1), geo(4), geo(1),
+                                          gt.gather_loc.reshape(-1, 1), gt.gather_tab, *ws)

@@ -1,0 +1,146 @@
+"""PyTorch port, SEGNN: the full forward on a symmetrized graph with gather
+tables against the JAX package (Pallas kernel in interpret mode, and its plain
+jnp path), with the JAX weights carried over.  fp32 atol 2e-5: the same math,
+the GEMMs sum in another order.  Also the dispatch rules of the port."""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from scalable_e3_gnn_tpu.core.irreps import Irreps as JIrreps
+from scalable_e3_gnn_tpu.graph.container import DenseEdgeGraph as JGraph
+from scalable_e3_gnn_tpu.graph.octree import build_octree
+from scalable_e3_gnn_tpu.graph.radius import radius_graph_brute
+from scalable_e3_gnn_tpu.models.segnn import SEGNN as JSEGNN
+from scalable_e3_gnn_torch.graph.container import DenseEdgeGraph as TGraph
+from scalable_e3_gnn_torch.kernels import fused_message as tfm
+from scalable_e3_gnn_torch.models.segnn import SEGNN as TSEGNN
+from scalable_e3_gnn_torch.utils.params import params_from_jax
+
+LO, HI = (-4.0,) * 3, (4.0,) * 3
+IRREPS = ("2x0e+1x1o", "16x0e+8x1o", "1x1o")
+
+
+@functools.lru_cache(maxsize=None)
+def _graph(n, seed=0, k=8, tile=32):
+    """JAX graph (symmetrized, tabled) and the port's graph of the same arrays."""
+    rng = np.random.default_rng(seed)
+    pts = rng.standard_normal((n, 3)).astype(np.float32)
+    tree = jax.jit(lambda p: build_octree(p, LO, HI, num_levels=4))(jnp.asarray(pts))
+    e = jax.jit(lambda p: radius_graph_brute(p, 0.7, max_neighbors=k))(tree.points)
+    feats = jnp.asarray(rng.standard_normal((n, 5)), jnp.float32)
+    jg = JGraph.from_radius_edges(feats, tree.points, e, symmetrize=True)
+    jgt = jg.with_gather_tables(tile=tile)
+    t = lambda a: torch.from_numpy(np.array(a))
+    tg = TGraph(nodes=t(jg.nodes), positions=t(jg.positions), senders=t(jg.senders),
+                edge_mask=t(jg.edge_mask), node_mask=t(jg.node_mask),
+                node_graph=t(jg.node_graph), n_graphs=1, reverse_slot=t(jg.reverse_slot))
+    return jg, jgt, tg, tg.with_gather_tables(tile=tile)
+
+
+def _models(use_pallas, seed, num_layers=2, task="node"):
+    jm = JSEGNN(*map(JIrreps, IRREPS), num_layers=num_layers, layout="cm",
+                use_pallas=use_pallas, task=task)
+    params = jm.init(jax.random.key(seed))
+    tm = TSEGNN(*IRREPS, num_layers=num_layers, layout="cm", use_pallas=use_pallas,
+                task=task, device="cpu")
+    params_from_jax(tm, jax.tree.map(np.asarray, params))
+    return jm, params, tm
+
+
+@pytest.mark.parametrize("n", [128, 200])  # 200: the last table tile is partial
+def test_segnn_tabled_forward_matches_jax_pallas(n):
+    jg, jgt, tg, tgt = _graph(n)
+    jm, params, tm = _models(True, seed=n)
+    assert tm.layers[0].use_pallas
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jax.jit(jm.__call__)(params, jgt))
+    with torch.no_grad():
+        got = tm(tgt).numpy()
+    assert got.shape == (n, 3)
+    np.testing.assert_allclose(got, ref, atol=2e-5)
+
+
+@pytest.mark.parametrize("n", [128, 200])
+def test_segnn_plain_forward_matches_jax_jnp(n):
+    jg, jgt, tg, tgt = _graph(n)
+    jm, params, tm = _models(False, seed=n + 1)
+    ref = np.asarray(jax.jit(jm.__call__)(params, jg))
+    with torch.no_grad():
+        got = tm(tg).numpy()
+        got_tab = tm(tgt).numpy()  # tables are ignored by the plain path
+    np.testing.assert_allclose(got, ref, atol=2e-5)
+    np.testing.assert_array_equal(got_tab, got)
+
+
+def test_segnn_attributes_and_graph_task_match_jax():
+    jg, jgt, tg, tgt = _graph(128)
+    jm, params, tm = _models(False, seed=5, num_layers=1, task="graph")
+    ref_attrs = jax.jit(jm.compute_attributes_dense)(jg)
+    for a, b in zip(ref_attrs, tm.compute_attributes_dense(tg), strict=True):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=1e-6)
+    ref = np.asarray(jax.jit(jm.__call__)(params, jg))
+    with torch.no_grad():
+        got = tm(tg).numpy()
+    assert got.shape == (1, 3)
+    np.testing.assert_allclose(got, ref, atol=1e-4)
+
+
+def test_kernel_path_equals_plain_path_in_the_port():
+    """The two dispatches of the port agree on the CPU (fp32, atol 2e-5)."""
+    jg, jgt, tg, tgt = _graph(200)
+    _, params, tm_k = _models(True, seed=7)
+    tm_p = TSEGNN(*IRREPS, num_layers=2, layout="cm", use_pallas=False, device="cpu")
+    tm_p.load_state_dict(tm_k.state_dict())
+    with torch.no_grad():
+        torch.testing.assert_close(tm_k(tgt), tm_p(tg), rtol=0, atol=2e-5)
+
+
+def test_use_pallas_without_tables_raises():
+    jg, jgt, tg, tgt = _graph(128)
+    _, _, tm = _models(True, seed=8)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        tm(tg)
+
+
+def test_unported_tensor_product_raises():
+    with pytest.raises(NotImplementedError, match="later slice"):
+        TSEGNN("2x0e+1x1o", "8x0e+4x1o+2x2e", "1x1o", num_layers=1, device="cpu")
+
+
+def test_entry_points_without_device_need_a_gpu(monkeypatch):
+    """No device= and no GPU: every entry point raises, none runs on the CPU."""
+    from scalable_e3_gnn_torch.graph.octree import build_octree as t_octree
+    from scalable_e3_gnn_torch.graph.radius import radius_graph_brute as t_brute
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = np.random.default_rng(0).random((16, 3)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TSEGNN(*IRREPS, num_layers=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_octree(pts, (0.0,) * 3, (1.0,) * 3, 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_brute(pts, 0.2, 4)
+
+
+def test_model_and_graph_devices_must_agree():
+    jg, jgt, tg, tgt = _graph(128)
+    _, _, tm = _models(True, seed=9)
+    meta = tgt._replace(senders=tgt.senders.to("meta"))
+    with pytest.raises(ValueError, match="graph is on"):
+        tm(meta)
+
+
+def test_wrapper_launch_count_unchanged_by_cpu_forward():
+    jg, jgt, tg, tgt = _graph(128)
+    _, _, tm = _models(True, seed=10)
+    before = tfm.TAB_FWD.launches
+    with torch.no_grad():
+        tm(tgt)
+    assert tfm.TAB_FWD.launches == before
