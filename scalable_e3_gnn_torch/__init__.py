@@ -4,9 +4,10 @@ The same subpackages, module and class names as the JAX package: ``core``
 (irreps, spherical harmonics), ``ops`` (L1 tensor product, gate, linear),
 ``graph`` (Morton codes, octree, radius graphs, the fixed-K container with
 gather tables), ``kernels`` (hand-written CUDA kernels with their plain
-PyTorch versions), ``models`` (SEGNN) and ``utils`` (device choice, JAX
-parameter loading).  It imports neither JAX nor the JAX package.  Entry
-points run on the GPU unless the caller passes ``device="cpu"``.
+PyTorch versions), ``models`` (SEGNN), ``train`` (loss and train step) and
+``utils`` (device choice, JAX parameters in and out).  It imports neither
+JAX nor the JAX package.  Entry points run on the GPU unless the caller
+passes ``device="cpu"``.
 """
 
 from .core.irreps import Irrep, Irreps, MulIrrep
@@ -15,8 +16,8 @@ from .graph.container import DenseEdgeGraph
 from .graph.octree import build_octree
 from .graph.radius import radius_graph_brute, radius_graph_cell, suggest_cell_capacity
 from .models.segnn import SEGNN
-from .utils.params import params_from_jax
+from .utils.params import params_from_jax, params_to_jax
 
 __all__ = ["Irrep", "Irreps", "MulIrrep", "spherical_harmonics", "DenseEdgeGraph",
            "build_octree", "radius_graph_brute", "radius_graph_cell",
-           "suggest_cell_capacity", "SEGNN", "params_from_jax"]
+           "suggest_cell_capacity", "SEGNN", "params_from_jax", "params_to_jax"]

@@ -70,25 +70,28 @@ def build_libraries(names: Iterable[str]) -> Dict[str, dict]:
 
 
 class CudaKernel:
-    """One CUDA source's library, loaded at first use, and its launch count.
+    """One CUDA kernel: its source's library, loaded at first use, and its
+    launch count.  Two kernels of one source share the library.
 
     ``launches`` is incremented by the kernel's wrapper each time it launches
     the kernel, and nowhere else.
     """
 
-    def __init__(self, name: str, signatures: Dict[str, tuple]) -> None:
+    def __init__(self, name: str, signatures: Dict[str, tuple],
+                 source_name: Optional[str] = None) -> None:
         self.name = name
+        self.source_name = source_name or name  # csrc/<source_name>.cu
         self.signatures = signatures  # C function -> (restype, argtypes)
         self.launches = 0
         self._lib: Optional[ctypes.CDLL] = None
 
     @property
     def source(self) -> Path:
-        return CSRC / f"{self.name}.cu"
+        return CSRC / f"{self.source_name}.cu"
 
     def lib(self) -> ctypes.CDLL:
         if self._lib is None:
-            path = build_libraries([self.name])[self.name]["path"]
+            path = build_libraries([self.source_name])[self.source_name]["path"]
             lib = ctypes.CDLL(str(path))
             for fn, (restype, argtypes) in self.signatures.items():
                 getattr(lib, fn).restype = restype

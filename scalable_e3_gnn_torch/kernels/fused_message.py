@@ -1,7 +1,8 @@
 """Fused SEGNN message MLP + neighbourhood aggregation (lmax=1, tabled gather).
 
 Counterpart of ``scalable_e3_gnn_tpu/kernels/fused_message.py::
-fused_message_aggregate_tabled``, forward only.  Per receiver i and slot k:
+fused_message_aggregate_tabled`` and its custom VJP.  Per receiver i and
+slot k:
 
     agg[i] = sum_k mask[i,k] * MLP2(MLP1([h_s || h_r || d^2], sh), sh)
 
@@ -9,16 +10,39 @@ two gated L1 tensor-product layers (silu scalars, sigmoid-gated vectors) with
 the edge's sh attribute, where the sender row is ``h[gtab[i // tile,
 loc[i,k]]]`` and ``loc == U`` means no sender (a zero row).
 
-Two implementations of one function:
+Forward, two implementations of one function:
 
 - ``fused_message_aggregate_tabled_plain``: PyTorch ops with the TPU
   kernel's rounding points (inputs in the data dtype, products accumulated in
   fp32, the layer-1 outputs cast to the data dtype between the layers, each
   masked slot message cast to the data dtype before the fp32 K-sum, the
   output cast at the end).  The CPU tests and the on-card checks use it.
-- ``fused_message_aggregate_tabled``: the wrapper.  A CPU tensor goes to the
-  plain version; a CUDA tensor goes to the hand-written kernel
+- ``fused_message_aggregate_tabled_fwd``: a CPU tensor goes to the plain
+  version; a CUDA tensor goes to the hand-written kernel
   ``csrc/fused_message_tab_fwd.cu`` or raises.
+
+Backward (the counterpart of ``_vjp_bwd_tab``), likewise:
+
+- ``fused_message_aggregate_tabled_bwd_plain``: recompute both layers, then
+  the hand VJP of ``_layer_bwd``.  The cotangent intermediates ``d_o1``,
+  ``d_o0``, ``d_A``, ``d_Xvs``, ``d_f0``, ``d_Xs``, ``d_Xv`` and the masked
+  ``d_m`` are cast to the data dtype; weight gradients accumulate in fp32
+  and are cast to the weights' dtype at the end.  Sender cotangents fold into
+  the per-tile table (``d_hu``), receiver cotangents sum over K (``d_hr``).
+- ``fused_message_aggregate_tabled_bwd``: the hand-written kernel
+  ``csrc/fused_message_tab_bwd.cu`` for CUDA tensors (which gives ``d_hu``,
+  ``d_hr`` and the fp32 weight gradients, reduced over blocks in a fixed
+  order), the plain version for CPU tensors.
+
+Both backward forms end in the same PyTorch epilogue, the split reverse-table
+gather-sum ``d_h = d_hr + sum_q d_hu[revd[:, q]] + segment_sum(d_hu[remp],
+remn)``; its segment sum is ``torch.segment_reduce`` over the node-sorted
+remainder, so it is deterministic on either device.
+
+``fused_message_aggregate_tabled`` is the differentiable entry point
+(``FusedMessageTabled``, the counterpart of the JAX ``custom_vjp``).
+Geometry (``d2``, ``attr``, ``maskf``) and the index tables get no
+cotangent: they are graph constants during training.
 """
 
 from __future__ import annotations
@@ -32,8 +56,12 @@ import torch.nn.functional as F
 
 from .build import CudaKernel
 
-__all__ = ["MessageConfig", "fused_message_aggregate_tabled",
-           "fused_message_aggregate_tabled_plain", "TAB_FWD"]
+__all__ = ["MessageConfig", "FusedMessageTabled", "fused_message_aggregate_tabled",
+           "fused_message_aggregate_tabled_fwd", "fused_message_aggregate_tabled_plain",
+           "fused_message_aggregate_tabled_bwd", "fused_message_aggregate_tabled_bwd_plain",
+           "split_weights", "sender_epilogue", "tab_bwd_plain", "tab_bwd_kernels", "tab_bwd_kernel",
+           "tab_bwd_reduce", "tab_bwd_reduce_plain",
+           "TAB_FWD", "TAB_BWD", "TAB_BWD_REDUCE", "KERNELS"]
 
 CG110 = 1.0 / math.sqrt(3.0)
 CG011 = 1.0 / math.sqrt(3.0)
@@ -48,6 +76,23 @@ TAB_FWD = CudaKernel("fused_message_tab_fwd", {
     # npad, hs, hv, k, tile, u, stream
     "fused_message_tab_fwd": (_I, [_I] + [_P] * 13 + [_I] * 6 + [_P]),
 })
+TAB_BWD = CudaKernel("fused_message_tab_bwd", {
+    # hs, hv, k, tile, u
+    "fused_message_tab_bwd_smem_bytes": (ctypes.c_long, [_I] * 5),
+    # dtype, hs, hv, k, tile, u, ntiles: blocks of the main kernel (sizes its scratch)
+    "fused_message_tab_bwd_grid": (_I, [_I] * 7),
+    # dtype, 13 inputs (h, d2, attr, maskf, loc, gtab, 6 weights, d_agg),
+    # 4 outputs/scratch (d_hu, d_hr, d_hs scratch, weight partials),
+    # npad, hs, hv, k, tile, u, grid, stream
+    "fused_message_tab_bwd": (_I, [_I] + [_P] * 17 + [_I] * 7 + [_P]),
+})
+# the same source's second kernel: the fixed-order sum of the per-block
+# weight-gradient partials ([nblocks, nw] -> [nw] fp32)
+TAB_BWD_REDUCE = CudaKernel("fused_message_tab_bwd_reduce", {
+    "fused_message_tab_bwd_reduce": (_I, [_P, _P, _I, _I, _P]),
+}, source_name="fused_message_tab_bwd")
+
+KERNELS = (TAB_FWD, TAB_BWD, TAB_BWD_REDUCE)
 
 
 @dataclass(frozen=True)
@@ -70,14 +115,27 @@ class MessageConfig:
     def v1(self) -> int:  # vector channels (per component) entering layer 1
         return 2 * self.hv
 
+    def weight_shapes(self):
+        """The six weight blocks (W0, W1S, W1V per layer), as the kernels take them."""
+        s1, v1, hs, hv = self.s1, self.v1, self.hs, self.hv
+        return [(s1 + v1, hs + hv), (s1, hv), (v1, hv), (hs + hv, hs + hv), (hs, hv), (hv, hv)]
 
-def _split_weights(cfg: MessageConfig, w0e1, w1o1, w0e2, w1o2):
+
+def split_weights(cfg: MessageConfig, w0e1, w1o1, w0e2, w1o2):
     """Reference-layout weights -> (W0, W1S, W1V) per layer.
 
     ``W1S`` are the rows of ``w_l1o`` fed by scalars, ``W1V`` the rows fed by
     vectors; the TPU kernel's block-diagonal copy of ``W1V`` is a layout for
     its matrix unit and is not needed here."""
     return (w0e1, w1o1[: cfg.s1], w1o1[cfg.s1 :], w0e2, w1o2[: cfg.hs], w1o2[cfg.hs :])
+
+
+def _join_weight_grads(dws, dtype):
+    """Six fp32 blocks -> the four reference-layout gradients in ``dtype``
+    (``d_w1o*`` is the row concat ``[dW1S; dW1V]``)."""
+    dw0a, dw1sa, dw1va, dw0b, dw1sb, dw1vb = dws
+    return (dw0a.to(dtype), torch.cat([dw1sa, dw1va]).to(dtype),
+            dw0b.to(dtype), torch.cat([dw1sb, dw1vb]).to(dtype))
 
 
 def _check_inputs(cfg, h, d2, attr, maskf, loc, gtab, ws):
@@ -92,9 +150,7 @@ def _check_inputs(cfg, h, d2, attr, maskf, loc, gtab, ws):
             raise ValueError(f"{name} has shape {tuple(x.shape)}, wants {(e, width)}")
     if tuple(gtab.shape) != (npad // cfg.tile, cfg.u):
         raise ValueError(f"gtab has shape {tuple(gtab.shape)}, wants {(npad // cfg.tile, cfg.u)}")
-    s1, v1, hs, hv = cfg.s1, cfg.v1, cfg.hs, cfg.hv
-    want = [(s1 + v1, hs + hv), (s1, hv), (v1, hv), (hs + hv, hs + hv), (hs, hv), (hv, hv)]
-    for i, (w, shp) in enumerate(zip(ws, want)):
+    for i, (w, shp) in enumerate(zip(ws, cfg.weight_shapes())):
         if tuple(w.shape) != shp:
             raise ValueError(f"weight block {i} has shape {tuple(w.shape)}, wants {shp}")
     if loc.dtype != torch.int32 or gtab.dtype != torch.int32:
@@ -104,18 +160,79 @@ def _check_inputs(cfg, h, d2, attr, maskf, loc, gtab, ws):
             raise TypeError(f"{name} is {x.dtype}, h is {h.dtype}")
 
 
+def _check_tables(h, revd, remp, remn):
+    npad = h.shape[0]
+    if revd.dim() != 2 or revd.shape[0] != npad:
+        raise ValueError(f"revd has shape {tuple(revd.shape)}, wants ({npad}, q0)")
+    if remp.dim() != 1 or remp.shape != remn.shape:
+        raise ValueError(f"remp {tuple(remp.shape)} and remn {tuple(remn.shape)} must be equal 1-D")
+    for name, x in (("revd", revd), ("remp", remp), ("remn", remn)):
+        if x.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32")
+
+
 def _layer(xs, xv, s, v, w0, w1s, w1v, hs):
     """One gated L1 TP layer in fp32.  xs [R, S]; xv [R, 3, V]; s [R, 1];
-    v [R, 3].  Returns m0 [R, hs], m1 [R, 3, hv]."""
+    v [R, 3].  Returns m0 [R, hs], m1 [R, 3, hv] and the residuals the VJP
+    reads: (xs, f0, xvs, o0, o1)."""
     dot = xv[:, 0] * v[:, 0:1] + xv[:, 1] * v[:, 1:2] + xv[:, 2] * v[:, 2:3]
     f0 = torch.cat([xs * s, CG110 * dot], dim=-1)
     o0 = f0 @ w0
     a = xs @ w1s
-    b = (xv * s[:, :, None]) @ w1v  # [R, 3, hv]
-    o1 = CG011 * (v[:, :, None] * a[:, None, :] + b)
+    xvs = xv * s[:, :, None]
+    o1 = CG011 * (v[:, :, None] * a[:, None, :] + xvs @ w1v)  # [R, 3, hv]
     m0 = F.silu(o0[:, :hs])
     m1 = o1 * torch.sigmoid(o0[:, hs:])[:, None, :]
-    return m0, m1
+    return m0, m1, (xs, f0, xvs, o0, o1)
+
+
+def _layer_vjp(res, d_m0, d_m1, s, v, w0, w1s, w1v, hs, rnd):
+    """VJP of ``_layer`` with respect to its inputs and weights (s and v are
+    constants), the counterpart of ``_layer_bwd``.  ``rnd`` rounds to the data
+    dtype and widens back to fp32.  Returns d_xs [R, S], d_xv [R, 3, V],
+    dW0, dW1S, dW1V (fp32)."""
+    xs, f0, xvs, o0, o1 = res
+    g = torch.sigmoid(o0[:, hs:])
+    d_o1 = rnd(d_m1 * g[:, None, :])
+    d_g = (d_m1 * o1).sum(dim=1)
+    sg = torch.sigmoid(o0[:, :hs])
+    dsilu = sg * (1.0 + o0[:, :hs] * (1.0 - sg))
+    d_o0 = rnd(torch.cat([d_m0 * dsilu, d_g * g * (1.0 - g)], dim=-1))
+    d_b = CG011 * d_o1  # [R, 3, hv]
+    d_a = rnd(CG011 * (d_o1 * v[:, :, None]).sum(dim=1))  # [R, hv]
+    d_xvs = rnd(d_b @ w1v.T)  # [R, 3, V]
+    dw1v = torch.einsum("rcv,rch->vh", xvs, d_b)
+    d_xs = d_a @ w1s.T
+    dw1s = xs.T @ d_a
+    d_f0 = rnd(d_o0 @ w0.T)
+    dw0 = f0.T @ d_o0
+    n_s = xs.shape[1]
+    d_xs = rnd(d_xs + d_f0[:, :n_s] * s)
+    d_dot = CG110 * d_f0[:, n_s:]
+    d_xv = rnd(d_xvs * s[:, :, None] + d_dot[:, None, :] * v[:, :, None])
+    return d_xs, d_xv, dw0, dw1s, dw1v
+
+
+def _slot_inputs(cfg, h, d2, attr, loc, gtab):
+    """Layer-1 inputs of every slot in fp32: xs [E, S1] = [h_s || h_r || d2],
+    xv [E, 3, V1] = [h_s,c || h_r,c], and the sh scalar s [E, 1] and vector
+    v [E, 3]; also the flat table index of each slot's sender (U*ntiles for
+    no sender)."""
+    npad, f = h.shape
+    hs, hv, k, u = cfg.hs, cfg.hv, cfg.k, cfg.u
+    e = npad * k
+    hf = h.float()
+    # senders through the per-tile table; loc == U selects the zero row
+    flat = gtab.long().reshape(-1)
+    hu = torch.cat([hf[torch.clamp(flat, max=npad - 1)], hf.new_zeros((1, f))])
+    locl = loc.long().reshape(-1)
+    tile_of = torch.arange(e, device=h.device) // (cfg.tile * k)
+    slot_tab = torch.where(locl < u, tile_of * u + locl, flat.numel())
+    hs_rows = hu[slot_tab]  # [E, F]
+    hr_rows = hf.repeat_interleave(k, dim=0)
+    xs = torch.cat([hs_rows[:, :hs], hr_rows[:, :hs], d2.float()], dim=-1)
+    xv = torch.cat([hs_rows[:, hs:].reshape(e, 3, hv), hr_rows[:, hs:].reshape(e, 3, hv)], -1)
+    return xs, xv, attr[:, 0:1].float(), attr[:, 1:4].float(), slot_tab
 
 
 def fused_message_aggregate_tabled_plain(cfg: MessageConfig, h, d2, attr, maskf, loc, gtab,
@@ -127,54 +244,119 @@ def fused_message_aggregate_tabled_plain(cfg: MessageConfig, h, d2, attr, maskf,
     int32 slot -> table index (pad U); gtab [Npad/tile, U] int32 node ids
     (pad Npad); weights with norms folded in, in the reference row layout.
     """
-    ws = _split_weights(cfg, w0e1, w1o1, w0e2, w1o2)
+    ws = split_weights(cfg, w0e1, w1o1, w0e2, w1o2)
     _check_inputs(cfg, h, d2, attr, maskf, loc, gtab, ws)
     dt = h.dtype
     npad, f = h.shape
-    hs, hv, k, u = cfg.hs, cfg.hv, cfg.k, cfg.u
+    e = npad * cfg.k
     w0a, w1sa, w1va, w0b, w1sb, w1vb = (w.float() for w in ws)
-    hf = h.float()
-    # senders through the per-tile table; loc == U selects the zero row
-    flat = gtab.long().reshape(-1)
-    hu = torch.cat([hf[torch.clamp(flat, max=npad - 1)], hf.new_zeros((1, f))])
-    locl = loc.long().reshape(-1)
-    tile_of = torch.arange(npad * k, device=h.device) // (cfg.tile * k)
-    hs_rows = hu[torch.where(locl < u, tile_of * u + locl, flat.numel())]  # [E, F]
-    hr_rows = hf.repeat_interleave(k, dim=0)
-    e = npad * k
-    s = attr[:, 0:1].float()
-    v = attr[:, 1:4].float()
-    xs = torch.cat([hs_rows[:, :hs], hr_rows[:, :hs], d2.float()], dim=-1)
-    xv = torch.cat([hs_rows[:, hs:].reshape(e, 3, hv), hr_rows[:, hs:].reshape(e, 3, hv)], -1)
-    m0, m1 = _layer(xs, xv, s, v, w0a, w1sa, w1va, hs)
+    xs, xv, s, v, _ = _slot_inputs(cfg, h, d2, attr, loc, gtab)
+    m0, m1, _ = _layer(xs, xv, s, v, w0a, w1sa, w1va, cfg.hs)
     m0, m1 = m0.to(dt).float(), m1.to(dt).float()
-    m0, m1 = _layer(m0, m1, s, v, w0b, w1sb, w1vb, hs)
-    msg = (torch.cat([m0, m1.reshape(e, 3 * hv)], dim=-1) * maskf.float()).to(dt).float()
-    return msg.reshape(npad, k, f).sum(dim=1).to(dt)
+    m0, m1, _ = _layer(m0, m1, s, v, w0b, w1sb, w1vb, cfg.hs)
+    msg = (torch.cat([m0, m1.reshape(e, 3 * cfg.hv)], dim=-1) * maskf.float()).to(dt).float()
+    return msg.reshape(npad, cfg.k, f).sum(dim=1).to(dt)
+
+
+def sender_epilogue(d_hr, d_hu, revd, remp, remn):
+    """d_h [Npad, F] = d_hr + the sender cotangents gathered from the tables.
+
+    The counterpart of the split reverse-table epilogue of ``_vjp_bwd_tab``:
+    node v's sender cotangent is the sum of its ``d_hu`` rows over the tiles
+    whose tables hold it; the first ``q0`` of them come through the dense
+    ``revd`` [Npad, q0] (pad ntiles*U: dropped), the rest through the
+    node-sorted remainder ``remp``/``remn`` (pad node Npad: dropped), summed
+    per node in fp32 by ``torch.segment_reduce`` (fixed order, no atomics)."""
+    dt = d_hr.dtype
+    npad = d_hr.shape[0]
+    nrow = d_hu.shape[0]
+    acc = d_hr
+    for q in range(revd.shape[1]):
+        idx = revd[:, q].long()
+        valid = (idx < nrow).to(dt)[:, None]
+        acc = acc + d_hu[torch.clamp(idx, max=nrow - 1)] * valid
+    rem = d_hu[torch.clamp(remp.long(), max=nrow - 1)].float()
+    offsets = torch.searchsorted(remn, torch.arange(npad + 1, dtype=remn.dtype,
+                                                    device=remn.device))
+    seg = torch.segment_reduce(rem, "sum", offsets=offsets.long(), axis=0, unsafe=True)
+    return acc + seg.to(dt)
+
+
+def tab_bwd_plain(cfg: MessageConfig, h, d2, attr, maskf, loc, gtab, ws, d_agg):
+    """The plain backward up to the epilogue, on split weights ``ws`` (six
+    blocks): (d_hu [ntiles*U, F], d_hr [Npad, F], six fp32 weight-gradient
+    blocks)."""
+    dt = h.dtype
+    npad, f = h.shape
+    hs, hv, k, u = cfg.hs, cfg.hv, cfg.k, cfg.u
+    e = npad * k
+    rnd = lambda x: x.to(dt).float()
+    w0a, w1sa, w1va, w0b, w1sb, w1vb = (w.float() for w in ws)
+    xs1, xv1, s, v, slot_tab = _slot_inputs(cfg, h, d2, attr, loc, gtab)
+    # recompute both layers
+    m0, m1, res1 = _layer(xs1, xv1, s, v, w0a, w1sa, w1va, hs)
+    _, _, res2 = _layer(rnd(m0), rnd(m1), s, v, w0b, w1sb, w1vb, hs)
+    # the K-slot expansion of d_agg, masked and cast to the data dtype
+    d_m = rnd(d_agg.float().repeat_interleave(k, dim=0) * maskf.float())
+    d_xs2, d_xv2, dw0b, dw1sb, dw1vb = _layer_vjp(
+        res2, d_m[:, :hs], d_m[:, hs:].reshape(e, 3, hv), s, v, w0b, w1sb, w1vb, hs, rnd)
+    d_xs1, d_xv1, dw0a, dw1sa, dw1va = _layer_vjp(
+        res1, d_xs2, d_xv2, s, v, w0a, w1sa, w1va, hs, rnd)
+    # layer-1 input cotangents -> sender and receiver features (d2 is geometry)
+    d_hs = torch.cat([d_xs1[:, :hs], d_xv1[:, :, :hv].reshape(e, 3 * hv)], dim=-1)
+    d_hrr = torch.cat([d_xs1[:, hs:2 * hs], d_xv1[:, :, hv:].reshape(e, 3 * hv)], dim=-1)
+    d_hr = d_hrr.reshape(npad, k, f).sum(dim=1).to(dt)
+    ntab = gtab.numel()
+    valid = slot_tab < ntab
+    d_hu = h.new_zeros((ntab, f), dtype=torch.float32)
+    d_hu.index_add_(0, slot_tab[valid], d_hs[valid])
+    return d_hu.to(dt), d_hr, (dw0a, dw1sa, dw1va, dw0b, dw1sb, dw1vb)
+
+
+def fused_message_aggregate_tabled_bwd_plain(cfg: MessageConfig, h, d2, attr, maskf, loc, gtab,
+                                             revd, remp, remn, w0e1, w1o1, w0e2, w1o2, d_agg):
+    """(d_h, d_w0e1, d_w1o1, d_w0e2, d_w1o2) by PyTorch ops (any device).
+
+    Arguments as in the plain forward, plus the split reverse table
+    ``revd`` [Npad, q0], ``remp``/``remn`` [M] (int32) and the cotangent
+    ``d_agg`` [Npad, F] in h's dtype.  d_h is in h's dtype, the weight
+    gradients in the weights' dtype."""
+    ws = split_weights(cfg, w0e1, w1o1, w0e2, w1o2)
+    _check_inputs(cfg, h, d2, attr, maskf, loc, gtab, ws)
+    _check_tables(h, revd, remp, remn)
+    if d_agg.shape != h.shape:
+        raise ValueError(f"d_agg has shape {tuple(d_agg.shape)}, wants {tuple(h.shape)}")
+    d_hu, d_hr, dws = tab_bwd_plain(cfg, h, d2, attr, maskf, loc, gtab, ws, d_agg)
+    return (sender_epilogue(d_hr, d_hu, revd, remp, remn),
+            *_join_weight_grads(dws, w0e1.dtype))
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def fused_message_aggregate_tabled(cfg: MessageConfig, h, d2, attr, maskf, loc, gtab,
-                                   w0e1, w1o1, w0e2, w1o2):
-    """agg [Npad, F]: the hand-written CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  Arguments as in the plain version."""
-    if h.device.type == "cpu":
-        return fused_message_aggregate_tabled_plain(cfg, h, d2, attr, maskf, loc, gtab,
-                                                    w0e1, w1o1, w0e2, w1o2)
+def _cuda_args(h, args):
     if h.device.type != "cuda":
         raise ValueError(f"no kernel for device {h.device}")
-    ws = _split_weights(cfg, w0e1, w1o1, w0e2, w1o2)
-    _check_inputs(cfg, h, d2, attr, maskf, loc, gtab, ws)
     if h.dtype not in _DTYPE_CODE:
         raise TypeError(f"the kernel takes float32 or bfloat16, not {h.dtype}")
-    args = (h, d2, attr, maskf, loc, gtab, *ws)
     for x in args:
         if x.device != h.device:
             raise ValueError(f"all inputs must be on {h.device}, found {x.device}")
         if not x.is_contiguous():
             raise ValueError("all inputs must be contiguous")
+
+
+def fused_message_aggregate_tabled_fwd(cfg: MessageConfig, h, d2, attr, maskf, loc, gtab,
+                                       w0e1, w1o1, w0e2, w1o2):
+    """agg [Npad, F]: the hand-written CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors.  Arguments as in the plain version."""
+    if h.device.type == "cpu":
+        return fused_message_aggregate_tabled_plain(cfg, h, d2, attr, maskf, loc, gtab,
+                                                    w0e1, w1o1, w0e2, w1o2)
+    ws = split_weights(cfg, w0e1, w1o1, w0e2, w1o2)
+    _check_inputs(cfg, h, d2, attr, maskf, loc, gtab, ws)
+    args = (h, d2, attr, maskf, loc, gtab, *ws)
+    _cuda_args(h, args)
     lib = TAB_FWD.lib()
     smem = lib.fused_message_tab_fwd_smem_bytes(cfg.hs, cfg.hv, cfg.k)
     if smem > _MAX_SMEM:
@@ -189,3 +371,136 @@ def fused_message_aggregate_tabled(cfg: MessageConfig, h, d2, attr, maskf, loc, 
         raise RuntimeError(f"fused_message_tab_fwd launch failed with CUDA error {rc}")
     TAB_FWD.launches += 1
     return out
+
+
+def tab_bwd_kernel(cfg: MessageConfig, h, d2, attr, maskf, loc, gtab, ws, d_agg):
+    """The backward's main CUDA kernel (``csrc/fused_message_tab_bwd.cu``) on
+    split weights ``ws`` (six blocks): returns ``(d_hu [ntiles*U, F], d_hr
+    [Npad, F], partials [grid, NW] fp32)``, the per-block weight-gradient
+    sums that ``tab_bwd_reduce`` adds up."""
+    _check_inputs(cfg, h, d2, attr, maskf, loc, gtab, ws)
+    if d_agg.shape != h.shape or d_agg.dtype != h.dtype:
+        raise ValueError(f"d_agg is {d_agg.dtype} {tuple(d_agg.shape)}, wants h's dtype and shape")
+    args = (h, d2, attr, maskf, loc, gtab, *ws, d_agg)
+    _cuda_args(h, args)
+    lib = TAB_BWD.lib()
+    dims = (cfg.hs, cfg.hv, cfg.k, cfg.tile, cfg.u)
+    smem = lib.fused_message_tab_bwd_smem_bytes(*dims)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"widths need {smem} bytes of shared memory per block (max {_MAX_SMEM})")
+    npad, f = h.shape
+    ntiles = npad // cfg.tile
+    with torch.cuda.device(h.device):
+        grid = lib.fused_message_tab_bwd_grid(_DTYPE_CODE[h.dtype], *dims, ntiles)
+    if grid < 1:
+        raise RuntimeError(f"fused_message_tab_bwd: no launch configuration (code {grid})")
+    nw = sum(a * b for a, b in cfg.weight_shapes())
+    d_hu = torch.empty((ntiles * cfg.u, f), dtype=h.dtype, device=h.device)
+    d_hr = torch.empty_like(h)
+    # per block: the d_hs rows of the tile it is on (data dtype), and its
+    # fp32 weight-gradient partial sums
+    dhs_scratch = torch.empty((grid, cfg.tile * cfg.k, f), dtype=h.dtype, device=h.device)
+    partials = torch.empty((grid, nw), dtype=torch.float32, device=h.device)
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    with torch.cuda.device(h.device):
+        rc = lib.fused_message_tab_bwd(
+            _DTYPE_CODE[h.dtype], *(x.data_ptr() for x in args), d_hu.data_ptr(),
+            d_hr.data_ptr(), dhs_scratch.data_ptr(), partials.data_ptr(), npad, *dims,
+            grid, stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_message_tab_bwd launch failed with CUDA error {rc}")
+    TAB_BWD.launches += 1
+    return d_hu, d_hr, partials
+
+
+def tab_bwd_reduce_plain(partials):
+    """[nblocks, NW] fp32 -> [NW]: the sum over blocks, by PyTorch."""
+    return partials.sum(dim=0)
+
+
+def tab_bwd_reduce(partials):
+    """[nblocks, NW] fp32 -> [NW] fp32 summed in block order: the CUDA kernel
+    for a CUDA tensor, the plain version for a CPU tensor."""
+    if partials.device.type == "cpu":
+        return tab_bwd_reduce_plain(partials)
+    if partials.device.type != "cuda":
+        raise ValueError(f"no kernel for device {partials.device}")
+    if partials.dtype != torch.float32 or partials.dim() != 2 or not partials.is_contiguous():
+        raise TypeError("partials must be a contiguous 2-D float32 tensor")
+    out = torch.empty((partials.shape[1],), dtype=torch.float32, device=partials.device)
+    stream = torch.cuda.current_stream(partials.device).cuda_stream
+    with torch.cuda.device(partials.device):
+        rc = TAB_BWD_REDUCE.lib().fused_message_tab_bwd_reduce(
+            partials.data_ptr(), out.data_ptr(), partials.shape[0], partials.shape[1], stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_message_tab_bwd_reduce launch failed with CUDA error {rc}")
+    TAB_BWD_REDUCE.launches += 1
+    return out
+
+
+def tab_bwd_kernels(cfg: MessageConfig, h, d2, attr, maskf, loc, gtab, ws, d_agg):
+    """The kernel counterpart of ``tab_bwd_plain``: the main kernel, then the
+    fixed-order reduction of its weight-gradient partials."""
+    d_hu, d_hr, partials = tab_bwd_kernel(cfg, h, d2, attr, maskf, loc, gtab, ws, d_agg)
+    dw = tab_bwd_reduce(partials)
+    dws, off = [], 0
+    for a, b in cfg.weight_shapes():
+        dws.append(dw[off:off + a * b].view(a, b))
+        off += a * b
+    return d_hu, d_hr, tuple(dws)
+
+
+def fused_message_aggregate_tabled_bwd(cfg: MessageConfig, h, d2, attr, maskf, loc, gtab,
+                                       revd, remp, remn, w0e1, w1o1, w0e2, w1o2, d_agg):
+    """(d_h, d_w0e1, d_w1o1, d_w0e2, d_w1o2): the hand-written CUDA kernel
+    plus the epilogue for CUDA tensors, the plain version for CPU tensors.
+    Arguments as in ``fused_message_aggregate_tabled_bwd_plain``."""
+    if h.device.type == "cpu":
+        return fused_message_aggregate_tabled_bwd_plain(
+            cfg, h, d2, attr, maskf, loc, gtab, revd, remp, remn, w0e1, w1o1, w0e2, w1o2,
+            d_agg)
+    _check_tables(h, revd, remp, remn)
+    _cuda_args(h, (revd, remp, remn))
+    ws = split_weights(cfg, w0e1, w1o1, w0e2, w1o2)
+    d_hu, d_hr, dws = tab_bwd_kernels(cfg, h, d2, attr, maskf, loc, gtab, ws, d_agg)
+    return (sender_epilogue(d_hr, d_hu, revd, remp, remn),
+            *_join_weight_grads(dws, w0e1.dtype))
+
+
+class FusedMessageTabled(torch.autograd.Function):
+    """The tabled fused message with its hand-written backward: the
+    counterpart of the JAX ``custom_vjp`` (``_vjp_fwd_tab``/``_vjp_bwd_tab``).
+
+    Only the inputs are saved; the backward recomputes both layers and reads
+    each sender row through the table, so the gathered table ``h[gtab]`` is
+    never stored."""
+
+    @staticmethod
+    def forward(ctx, cfg, h, d2, attr, maskf, loc, gtab, revd, remp, remn,
+                w0e1, w1o1, w0e2, w1o2):
+        ctx.cfg = cfg
+        ctx.save_for_backward(h, d2, attr, maskf, loc, gtab, revd, remp, remn,
+                              w0e1, w1o1, w0e2, w1o2)
+        return fused_message_aggregate_tabled_fwd(cfg, h, d2, attr, maskf, loc, gtab,
+                                                  w0e1, w1o1, w0e2, w1o2)
+
+    @staticmethod
+    def backward(ctx, d_agg):
+        saved = ctx.saved_tensors
+        d_agg = d_agg.to(saved[0].dtype).contiguous()
+        d_h, dw0e1, dw1o1, dw0e2, dw1o2 = fused_message_aggregate_tabled_bwd(
+            ctx.cfg, *saved, d_agg)
+        # cfg, h, d2, attr, maskf, loc, gtab, revd, remp, remn, 4 weights
+        return (None, d_h) + (None,) * 8 + (dw0e1, dw1o1, dw0e2, dw1o2)
+
+
+def fused_message_aggregate_tabled(cfg: MessageConfig, h, d2, attr, maskf, loc, gtab,
+                                   revd, remp, remn, w0e1, w1o1, w0e2, w1o2):
+    """agg [Npad, F], differentiable in h and the four weights.
+
+    Arguments as in the JAX ``fused_message_aggregate_tabled``: those of the
+    plain forward plus the split reverse table (``revd``, ``remp``,
+    ``remn``) that the backward's epilogue reads.  CUDA tensors run the
+    hand-written kernels (or raise), CPU tensors the plain versions."""
+    return FusedMessageTabled.apply(cfg, h, d2, attr, maskf, loc, gtab, revd, remp, remn,
+                                    w0e1, w1o1, w0e2, w1o2)

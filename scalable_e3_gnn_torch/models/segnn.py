@@ -15,7 +15,8 @@ loads JAX weights unchanged.
 Message dispatch (``SEGNNLayer``):
 - ``use_pallas=True`` on a graph with gather tables: the tabled fused kernel
   (``kernels.fused_message.fused_message_aggregate_tabled``), which runs the
-  hand-written CUDA kernel on CUDA tensors;
+  hand-written CUDA kernels (forward, and backward under autograd) on CUDA
+  tensors;
 - ``use_pallas=True`` without tables (the untabled kernel): not ported yet,
   raises ``NotImplementedError``;
 - ``use_pallas=False``: the plain PyTorch message path.
@@ -133,8 +134,10 @@ class SEGNNLayer(nn.Module):
         return out
 
     def _fused_messages_tabled(self, h, edge_attr, edge_dist2, edge_mask, graph):
-        """Kernel dispatch with the graph's per-tile sender tables; pads the
-        node axis to the tables' Npad and cuts the result back to N."""
+        """Kernel dispatch with the graph's per-tile sender tables and split
+        reverse table; pads the node axis to the tables' Npad and cuts the
+        result back to N (both differentiable: gradients reach h and the
+        message weights through the kernel's backward)."""
         loc, gtab = graph.gather_loc, graph.gather_tab
         n, k = edge_mask.shape
         f = h.shape[-1]
@@ -155,7 +158,8 @@ class SEGNNLayer(nn.Module):
         agg = fused_message_aggregate_tabled(
             cfg, h_p.contiguous(), d2.contiguous(), attr.contiguous(), maskf.contiguous(),
             loc.reshape(npad * k, 1).contiguous(), gtab.contiguous(),
-            *self._folded_weights(dt))
+            graph.gather_rev_dense.contiguous(), graph.gather_rem_pos.contiguous(),
+            graph.gather_rem_node.contiguous(), *self._folded_weights(dt))
         return agg[:n]
 
     def _plain_messages(self, h, senders, edge_attr, edge_dist2, edge_mask):
@@ -237,6 +241,8 @@ class SEGNN(nn.Module):
         edge_attr = torch.where(graph.edge_mask[..., None], edge_attr, torch.zeros_like(edge_attr))
         cnt = torch.clamp(graph.edge_mask.sum(dim=1), min=1)
         node_attr = edge_attr.sum(dim=1) / cnt[:, None].to(edge_attr.dtype)
+        # in place: attributes are graph constants, computed once outside the
+        # train step, and carry no gradient
         node_attr[..., 0] = 1.0
         edge_geo = torch.cat([edge_attr, dist2[..., None],
                               graph.edge_mask[..., None].to(edge_attr.dtype)], dim=-1)

@@ -4,7 +4,9 @@ The JAX package keeps parameters as nested dicts (``SEGNN.init``):
 ``embed/{w_l0e,w_l1o}``, ``layer_i/{msg_j,upd_j}/w_l*``, ``pre_head/w_l*``,
 ``head/{w_0e,w_1o,b_0e}``.  ``params_from_jax`` copies such a tree, given as
 nested dicts of numpy arrays (or anything ``np.asarray`` reads), into the
-matching modules of this package, so both compute the same function.
+matching modules of this package, so both compute the same function;
+``params_to_jax`` goes the other way (parameters or their gradients), so the
+two packages' trees compare key by key.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from torch import nn
 
 from ..models.segnn import SEGNN, O3TensorProductGate, SEGNNLayer
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "params_to_jax"]
 
 
 def _children(mod: nn.Module):
@@ -59,3 +61,24 @@ def params_from_jax(module: nn.Module, tree: Mapping) -> nn.Module:
     with torch.no_grad():
         _load(module, tree, "")
     return module
+
+
+def _dump(mod: nn.Module, grad: bool):
+    if isinstance(mod, O3TensorProductGate):
+        return _dump(mod.tp, grad)
+    children = _children(mod)
+    if children is not None:
+        return {key: _dump(child, grad) for key, child in children.items()}
+    out = {}
+    for key, p in mod.named_parameters(recurse=False):
+        t = p.grad if grad else p
+        t = torch.zeros_like(p) if t is None else t
+        out[key] = t.detach().float().cpu().numpy()
+    return out
+
+
+def params_to_jax(module: nn.Module, grad: bool = False) -> dict:
+    """The JAX parameter tree of ``module`` as nested dicts of float32 numpy
+    arrays, with the keys of the JAX ``init``; ``grad=True`` gives the
+    parameters' ``.grad`` instead (zeros where a parameter has none)."""
+    return _dump(module, grad)

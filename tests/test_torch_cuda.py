@@ -1,6 +1,7 @@
-"""PyTorch port on the GPU: the hand-written CUDA kernel against its plain
-PyTorch version at widths other than config 3's, and the SEGNN forward
-through the kernel against the plain path.
+"""PyTorch port on the GPU: the hand-written CUDA kernels (forward, and the
+backward with its epilogue) against their plain PyTorch versions at three
+widths, config 3's among them, the backward's determinism, and the SEGNN
+forward and gradients through the kernels against the plain path.
 
 These tests need a CUDA card and skip without one.  They import no JAX, so
 they run on a machine without it (``--noconftest`` skips the JAX-only
@@ -43,19 +44,18 @@ def _graph(dev, n, k, radius, tile, seed=0):
     return g, g.with_gather_tables(tile=tile)
 
 
-@pytest.mark.parametrize("hidden,k,n,tile", [("16x0e+8x1o", 8, 200, 32),
-                                             ("8x0e+12x1o", 13, 1000, 64),
-                                             ("32x0e+16x1o", 24, 3000, 160)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_matches_plain(dev, monkeypatch, hidden, k, n, tile, dtype):
-    """fp32: 1e-4 * max(1, |ref|) (sum order); bf16: 3e-2 * max|ref|
-    (rounding of the layer-1 outputs and the slot messages)."""
+WIDTHS = [("16x0e+8x1o", 8, 200, 32), ("8x0e+12x1o", 13, 1000, 64),
+          ("32x0e+16x1o", 24, 3000, 160)]
+
+
+def _layer_args(dev, monkeypatch, hidden, k, n, tile, dtype):
+    """The arguments the model hands the tabled kernel (cfg, h, geometry,
+    tables, folded weights), captured from one layer's dispatch."""
     g, gt = _graph(dev, n, k, 0.25, tile)
     model = SEGNN("2x0e+1x1o", hidden, "1x1o", num_layers=1, layout="cm", use_pallas=True,
                   device=dev, generator=torch.Generator().manual_seed(1))
     layer = model.layers[0]
     attrs = model.compute_attributes_dense(gt)
-    npad = gt.gather_loc.shape[0]
     gen = torch.Generator(device=dev).manual_seed(2)
     h = torch.randn((n, model.hidden_irreps.dim), generator=gen, device=dev).to(dtype)
     calls = []
@@ -65,10 +65,23 @@ def test_kernel_matches_plain(dev, monkeypatch, hidden, k, n, tile, dtype):
     with torch.no_grad():
         layer._fused_messages_tabled(h, attrs[0].to(dtype), attrs[2].to(dtype), gt.edge_mask, gt)
     (args,) = calls
-    assert args[1].shape[0] == npad
+    assert args[1].shape[0] == gt.gather_loc.shape[0]
+    return args
+
+
+def _fwd_args(args):
+    return args[:7] + args[10:]  # without the reverse tables
+
+
+@pytest.mark.parametrize("hidden,k,n,tile", WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_matches_plain(dev, monkeypatch, hidden, k, n, tile, dtype):
+    """fp32: 1e-4 * max(1, |ref|) (sum order); bf16: 3e-2 * max|ref|
+    (rounding of the layer-1 outputs and the slot messages)."""
+    args = _fwd_args(_layer_args(dev, monkeypatch, hidden, k, n, tile, dtype))
     before = fm.TAB_FWD.launches
     with torch.no_grad():
-        got = fm.fused_message_aggregate_tabled(*args).float()
+        got = fm.fused_message_aggregate_tabled_fwd(*args).float()
         ref = fm.fused_message_aggregate_tabled_plain(*args).float()
     torch.cuda.synchronize()
     assert fm.TAB_FWD.launches == before + 1
@@ -78,6 +91,73 @@ def test_kernel_matches_plain(dev, monkeypatch, hidden, k, n, tile, dtype):
         assert (err <= 1e-4 * ref.abs().clamp(min=1.0)).all(), float(err.max())
     else:
         assert float(err.max()) <= 3e-2 * float(ref.abs().max())
+
+
+def _bwd_problem(dev, monkeypatch, hidden, k, n, tile, dtype):
+    """Kernel arguments with extra masked slots and a random cotangent."""
+    args = list(_layer_args(dev, monkeypatch, hidden, k, n, tile, dtype))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    maskf = args[4]
+    args[4] = (maskf * (torch.rand(maskf.shape, generator=gen, device=dev) > 0.1)).to(dtype)
+    d_agg = torch.randn(args[1].shape, generator=gen, device=dev).to(dtype)
+    return args, d_agg
+
+
+@pytest.mark.parametrize("hidden,k,n,tile", WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_matches_plain(dev, monkeypatch, hidden, k, n, tile, dtype):
+    """The backward kernel + epilogue against the plain backward.  fp32: d_h
+    1e-4 * max(1, |ref|) elementwise (sum order), each weight gradient 1e-4 *
+    its max|ref| (sums over every slot); bf16: 5e-2 * max|ref| (the cotangent
+    intermediates round to bf16)."""
+    args, d_agg = _bwd_problem(dev, monkeypatch, hidden, k, n, tile, dtype)
+    before = (fm.TAB_BWD.launches, fm.TAB_BWD_REDUCE.launches)
+    got = fm.fused_message_aggregate_tabled_bwd(*args, d_agg)
+    ref = fm.fused_message_aggregate_tabled_bwd_plain(*args, d_agg)
+    torch.cuda.synchronize()
+    assert (fm.TAB_BWD.launches, fm.TAB_BWD_REDUCE.launches) == (before[0] + 1, before[1] + 1)
+    for i, (x, y) in enumerate(zip(got, ref, strict=True)):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        x, y = x.float(), y.float()
+        assert torch.isfinite(x).all()
+        err = (x - y).abs()
+        if dtype == torch.float32 and i == 0:
+            assert (err <= 1e-4 * y.abs().clamp(min=1.0)).all(), float(err.max())
+        elif dtype == torch.float32:
+            assert float(err.max()) <= 1e-4 * float(y.abs().max()), (i, float(err.max()))
+        else:
+            assert float(err.max()) <= 5e-2 * float(y.abs().max()), (i, float(err.max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_is_deterministic(dev, monkeypatch, dtype):
+    """Two runs give bit-identical gradients: the weight-gradient partials
+    are summed in block order and the table rows in slot order."""
+    args, d_agg = _bwd_problem(dev, monkeypatch, *WIDTHS[2], dtype)
+    one = fm.fused_message_aggregate_tabled_bwd(*args, d_agg)
+    two = fm.fused_message_aggregate_tabled_bwd(*args, d_agg)
+    for x, y in zip(one, two, strict=True):
+        assert torch.equal(x, y)
+
+
+def test_segnn_gradients_kernel_match_plain_path(dev):
+    """fp32 MSE-loss gradients of every parameter through the kernels and
+    through autograd of the plain path: 1e-4 * max|ref| per parameter."""
+    g, gt = _graph(dev, 2000, 12, 0.12, 160)
+    m_k = SEGNN("2x0e+1x1o", "16x0e+8x1o", "1x1o", num_layers=2, layout="cm",
+                use_pallas=True, device=dev, generator=torch.Generator().manual_seed(4))
+    m_p = SEGNN("2x0e+1x1o", "16x0e+8x1o", "1x1o", num_layers=2, layout="cm",
+                use_pallas=False, device=dev)
+    m_p.load_state_dict(m_k.state_dict())
+    target = torch.randn((2000, 3), generator=torch.Generator(device=dev).manual_seed(5),
+                         device=dev)
+    before = fm.TAB_BWD.launches
+    ((m_k(gt) - target) ** 2).mean().backward()
+    ((m_p(g) - target) ** 2).mean().backward()
+    assert fm.TAB_BWD.launches == before + 2
+    for (name, a), b in zip(m_k.named_parameters(), m_p.parameters(), strict=True):
+        err = float((a.grad - b.grad).abs().max())
+        assert err <= 1e-4 * float(b.grad.abs().max()), (name, err)
 
 
 def test_segnn_forward_kernel_matches_plain_path(dev):
@@ -102,6 +182,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
     geo = lambda w: torch.zeros((npad * 8, w), device=dev, dtype=torch.float16)
     ws = [torch.zeros(s, device=dev, dtype=torch.float16) for s in
           ((49, 24), (49, 8), (24, 24), (24, 8))]
+    args = (cfg, h, geo(1), geo(4), geo(1), gt.gather_loc.reshape(-1, 1), gt.gather_tab)
+    tabs = (gt.gather_rev_dense, gt.gather_rem_pos, gt.gather_rem_node)
     with pytest.raises(TypeError):
-        fm.fused_message_aggregate_tabled(cfg, h, geo(1), geo(4), geo(1),
-                                          gt.gather_loc.reshape(-1, 1), gt.gather_tab, *ws)
+        fm.fused_message_aggregate_tabled_fwd(*args, *ws)
+    with pytest.raises(TypeError):
+        fm.fused_message_aggregate_tabled_bwd(*args, *tabs, *ws, torch.zeros_like(h))

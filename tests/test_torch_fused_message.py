@@ -1,7 +1,9 @@
-"""PyTorch port, tabled lmax=1 fused message kernel: the plain PyTorch version
-against the JAX Pallas kernel run in interpret mode, fp32 atol 2e-5 (same
-math; the GEMMs sum in another order).  N=128 and N=200 (a ragged tail tile),
-K=8, hidden 16x0e+8x1o, tile 32, with masked slots."""
+"""PyTorch port, tabled lmax=1 fused message kernel: the plain PyTorch versions
+of the forward and of the backward (with its epilogue) against the JAX Pallas
+kernel and its custom VJP run in interpret mode, fp32 atol 2e-5 (same math;
+the GEMMs sum in another order).  N=128 and N=200 (a ragged tail tile), K=8,
+hidden 16x0e+8x1o, tile 32, with masked slots and slots without a sender
+(loc == U)."""
 
 import functools
 
@@ -80,13 +82,18 @@ def test_tabled_plain_matches_pallas(n):
     assert np.abs(ref).max() > 0.1  # the comparison is not of zeros
 
 
+def _tables(g):
+    return [torch.from_numpy(np.array(x)) for x in (g.gather_rev_dense, g.gather_rem_pos,
+                                                     g.gather_rem_node)]
+
+
 def test_wrapper_on_cpu_runs_the_plain_version():
     g, a, ws = _problem(128, seed=128)
     cfg, args, tws = _torch_args(a, ws)
-    before = tfm.TAB_FWD.launches
-    got = tfm.fused_message_aggregate_tabled(cfg, *args, *tws)
+    before = [kern.launches for kern in tfm.KERNELS]
+    got = tfm.fused_message_aggregate_tabled(cfg, *args, *_tables(g), *tws)
     want = tfm.fused_message_aggregate_tabled_plain(cfg, *args, *tws)
-    assert tfm.TAB_FWD.launches == before  # no kernel launch on the CPU
+    assert [kern.launches for kern in tfm.KERNELS] == before  # no kernel launch on the CPU
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
@@ -123,3 +130,114 @@ def test_shape_and_dtype_checks():
     with pytest.raises(TypeError):
         bad = args[:4] + [args[4].long()] + args[5:]
         tfm.fused_message_aggregate_tabled_plain(cfg, *bad, *tws)
+
+
+def _cotangent(a, seed):
+    d = np.random.default_rng(seed).standard_normal(a["h"].shape).astype(np.float32)
+    return d
+
+
+def _jax_vjp(g, a, ws, d_agg):
+    cfg = jfm.MessageConfig(hs=HS, hv=HV, k=K, tile=TILE, u=a["gtab"].shape[1])
+    geo = [jnp.asarray(a[k]) for k in ("d2", "attr", "maskf", "loc", "gtab")]
+    tabs = (g.gather_rev_dense, g.gather_rem_pos, g.gather_rem_node)
+
+    def fn(h, *w):
+        return jfm.fused_message_aggregate_tabled(cfg, h, *geo, *tabs, *w)
+
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(fn, jnp.asarray(a["h"]), *map(jnp.asarray, ws))
+        grads = jax.jit(vjp)(jnp.asarray(d_agg))
+    return [np.asarray(x) for x in grads]
+
+
+@pytest.mark.parametrize("n", [128, 200])
+def test_tabled_vjp_matches_pallas(n):
+    """The port's autograd Function (plain backward on the CPU) against
+    ``jax.vjp`` of the Pallas kernel: d_h and the four weight gradients."""
+    g, a, ws = _problem(n, seed=n)
+    assert (a["loc"] == a["gtab"].shape[1]).any() and (a["maskf"] == 0).any()
+    d_agg = _cotangent(a, n + 1)
+    ref = _jax_vjp(g, a, ws, d_agg)
+    cfg, args, tws = _torch_args(a, ws)
+    h = args[0].requires_grad_(True)
+    wr = [w.requires_grad_(True) for w in tws]
+    out = tfm.fused_message_aggregate_tabled(cfg, h, *args[1:], *_tables(g), *wr)
+    out.backward(torch.from_numpy(d_agg))
+    for want, got in zip(ref, [h.grad, *(w.grad for w in wr)], strict=True):
+        np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+        assert np.abs(want).max() > 0.1
+
+
+@pytest.mark.parametrize("n", [128, 200])
+def test_bwd_plain_matches_autograd_of_plain_forward(n):
+    """A second oracle for the hand VJP: PyTorch autograd through the plain
+    forward, fp32; atol 1e-5 * max(1, max|ref|) per gradient (the same math
+    summed in another order)."""
+    g, a, ws = _problem(n, seed=n)
+    cfg, args, tws = _torch_args(a, ws)
+    d_agg = torch.from_numpy(_cotangent(a, n + 2))
+    h = args[0].clone().requires_grad_(True)
+    wr = [w.clone().requires_grad_(True) for w in tws]
+    out = tfm.fused_message_aggregate_tabled_plain(cfg, h, *args[1:], *wr)
+    ref = torch.autograd.grad(out, [h, *wr], d_agg)
+    got = tfm.fused_message_aggregate_tabled_bwd_plain(cfg, *args, *_tables(g), *tws, d_agg)
+    for want, have in zip(ref, got, strict=True):
+        scale = max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(have, want, rtol=0, atol=1e-5 * scale)
+
+
+def test_sender_epilogue_equals_scatter_of_the_table():
+    """The split reverse-table gather-sum equals scattering every table row
+    back to its node (pad rows dropped): exact on small integers."""
+    g, a, ws = _problem(200, seed=200)
+    gtab = torch.from_numpy(np.array(a["gtab"])).long().reshape(-1)
+    npad, f = a["h"].shape
+    rng = np.random.default_rng(3)
+    d_hu = torch.from_numpy(rng.integers(-8, 8, (gtab.numel(), f)).astype(np.float32))
+    d_hr = torch.from_numpy(rng.integers(-8, 8, (npad, f)).astype(np.float32))
+    got = tfm.sender_epilogue(d_hr, d_hu, *_tables(g))
+    keep = gtab < npad
+    want = d_hr.clone().index_add_(0, gtab[keep], d_hu[keep])
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert _tables(g)[1].numel() > 0  # the remainder path is exercised
+
+
+def test_bwd_wrapper_on_cpu_runs_the_plain_version():
+    g, a, ws = _problem(128, seed=128)
+    cfg, args, tws = _torch_args(a, ws)
+    d_agg = torch.from_numpy(_cotangent(a, 9))
+    before = [kern.launches for kern in tfm.KERNELS]
+    got = tfm.fused_message_aggregate_tabled_bwd(cfg, *args, *_tables(g), *tws, d_agg)
+    want = tfm.fused_message_aggregate_tabled_bwd_plain(cfg, *args, *_tables(g), *tws, d_agg)
+    assert [kern.launches for kern in tfm.KERNELS] == before
+    for x, y in zip(got, want, strict=True):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+def test_bwd_bf16_plain_tracks_fp32():
+    """bf16 storage: each gradient within 3e-2 * max|ref| of fp32 (the
+    cotangent intermediates round to bf16); dtypes follow h and the weights."""
+    g, a, ws = _problem(200, seed=200)
+    cfg, args, tws = _torch_args(a, ws)
+    d_agg = torch.from_numpy(_cotangent(a, 11))
+    ref = tfm.fused_message_aggregate_tabled_bwd_plain(cfg, *args, *_tables(g), *tws, d_agg)
+    bf = [x.to(torch.bfloat16) if x.is_floating_point() else x for x in args]
+    got = tfm.fused_message_aggregate_tabled_bwd_plain(
+        cfg, *bf, *_tables(g), *(w.to(torch.bfloat16) for w in tws), d_agg.to(torch.bfloat16))
+    for x, y in zip(got, ref, strict=True):
+        assert x.dtype == torch.bfloat16
+        assert (x.float() - y).abs().max() <= 3e-2 * y.abs().max()
+
+
+def test_bwd_checks_its_tables():
+    g, a, ws = _problem(128, seed=128)
+    cfg, args, tws = _torch_args(a, ws)
+    revd, remp, remn = _tables(g)
+    d_agg = torch.zeros_like(args[0])
+    with pytest.raises(TypeError):
+        tfm.fused_message_aggregate_tabled_bwd_plain(cfg, *args, revd.long(), remp, remn,
+                                                     *tws, d_agg)
+    with pytest.raises(ValueError):
+        tfm.fused_message_aggregate_tabled_bwd_plain(cfg, *args, revd, remp, remn, *tws,
+                                                     d_agg[:-1])

@@ -1,7 +1,9 @@
-"""PyTorch port, SEGNN: the full forward on a symmetrized graph with gather
-tables against the JAX package (Pallas kernel in interpret mode, and its plain
-jnp path), with the JAX weights carried over.  fp32 atol 2e-5: the same math,
-the GEMMs sum in another order.  Also the dispatch rules of the port."""
+"""PyTorch port, SEGNN: the full forward, and the MSE loss's gradients, on a
+symmetrized graph with gather tables against the JAX package (Pallas kernel
+and its custom VJP in interpret mode, and its plain jnp path), with the JAX
+weights carried over and the gradients compared key by key through
+params_to_jax.  fp32 atol 2e-5: the same math, the GEMMs sum in another order.
+Also the dispatch rules of the port."""
 
 import functools
 
@@ -18,10 +20,13 @@ from scalable_e3_gnn_tpu.graph.container import DenseEdgeGraph as JGraph
 from scalable_e3_gnn_tpu.graph.octree import build_octree
 from scalable_e3_gnn_tpu.graph.radius import radius_graph_brute
 from scalable_e3_gnn_tpu.models.segnn import SEGNN as JSEGNN
+from scalable_e3_gnn_tpu.train.pipeline import mse_loss as j_mse
 from scalable_e3_gnn_torch.graph.container import DenseEdgeGraph as TGraph
 from scalable_e3_gnn_torch.kernels import fused_message as tfm
 from scalable_e3_gnn_torch.models.segnn import SEGNN as TSEGNN
-from scalable_e3_gnn_torch.utils.params import params_from_jax
+from scalable_e3_gnn_torch.train.pipeline import mse_loss as t_mse
+from scalable_e3_gnn_torch.utils.params import params_from_jax, params_to_jax
+from tests.test_torch_ops import _assert_trees_close
 
 LO, HI = (-4.0,) * 3, (4.0,) * 3
 IRREPS = ("2x0e+1x1o", "16x0e+8x1o", "1x1o")
@@ -144,3 +149,35 @@ def test_wrapper_launch_count_unchanged_by_cpu_forward():
     with torch.no_grad():
         tm(tgt)
     assert tfm.TAB_FWD.launches == before
+
+
+@pytest.mark.parametrize("port_pallas,jax_pallas", [(True, True), (True, False),
+                                                    (False, False)])
+def test_segnn_gradients_match_jax(port_pallas, jax_pallas):
+    """MSE-loss gradients of every parameter: the port's kernel path (the
+    autograd Function, plain backward on the CPU) against JAX's Pallas custom
+    VJP and against its jnp path; the port's plain path against jnp."""
+    n = 200  # the last table tile is partial
+    jg, jgt, tg, tgt = _graph(n)
+    jm, params, _ = _models(jax_pallas, seed=21)
+    tm = TSEGNN(*IRREPS, num_layers=2, layout="cm", use_pallas=port_pallas, device="cpu")
+    params_from_jax(tm, jax.tree.map(np.asarray, params))
+    target = np.random.default_rng(22).standard_normal((n, 3)).astype(np.float32)
+    graph_j = jgt if jax_pallas else jg
+    loss = lambda p: j_mse(jm(p, graph_j), jnp.asarray(target))
+    if jax_pallas:
+        with pltpu.force_tpu_interpret_mode():
+            ref_loss, ref = jax.jit(jax.value_and_grad(loss))(params)
+    else:
+        ref_loss, ref = jax.jit(jax.value_and_grad(loss))(params)
+    out = t_mse(tm(tgt if port_pallas else tg), torch.from_numpy(target))
+    out.backward()
+    assert abs(out.item() - float(ref_loss)) <= 1e-5 * float(ref_loss)
+    got = params_to_jax(tm, grad=True)
+    _assert_trees_close(got, jax.tree.map(np.asarray, ref))
+    # the mean loss makes the gradients small (1e-5..4e-3), so also hold
+    # each parameter's gradient to 1e-4 of its own largest entry
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(ref), strict=True):
+        b = np.asarray(b)
+        assert np.abs(b).max() > 0
+        np.testing.assert_allclose(a, b, atol=1e-4 * np.abs(b).max())
