@@ -37,6 +37,22 @@ Phases, each printing one JSON line:
                  its plain version and the epilogue, with the bounds.
 11. profile   -- two train steps traced with ``torch.profiler``: device time
                  per kernel and the device's busy share of the wall time.
+12. graph_lmax2 -- the lmax=2 config-4 proxy of bench.py:223-259: 250k uniform
+                 points, octree (7 levels), radius graph (r = 0.04 *
+                 (100000/250000)^(1/3), K=16, cell capacity 64), symmetrized,
+                 gather tables at the generic tile (200); timed.
+13. kernel_lmax2 -- the generic kernel (#8) against its plain version on the
+                 card at that path's shapes (real tables, geometry and folded
+                 layer-0 weights, random features, a masked tail and extra
+                 masked slots), in fp32 and in bf16 (elementwise in bf16 ulps:
+                 both round at the same points).
+14. forward_lmax2 -- the lmax=2 SEGNN forward (24x0e+12x1o+6x2e, 4 layers, bf16,
+                 geo-only attributes as bench.py passes them) with launch
+                 counts zeroed before and read after: exactly 4 launches of
+                 #8; output finite, [250000, 3]; the fp32 kernel path and the
+                 bf16 forward held against the fp32 plain path.
+15. times_lmax2 -- CUDA-event times of that forward, of #8 (bf16 and fp32) and
+                 its plain version, with #8's bound.
 
 Then the ``kernels`` line, the card line and, last, the result line.  Any
 failed check raises: the script exits non-zero and prints no result.  It
@@ -59,7 +75,9 @@ import torch
 import scalable_e3_gnn_torch as port
 from scalable_e3_gnn_torch.graph.radius import radius_graph_brute
 from scalable_e3_gnn_torch.kernels import fused_message as fm
+from scalable_e3_gnn_torch.kernels import fused_message_generic as fmg
 from scalable_e3_gnn_torch.kernels.build import build_libraries
+from scalable_e3_gnn_torch.models.segnn import SEGNNLayer
 from scalable_e3_gnn_torch.train.pipeline import make_train_step, mse_loss
 
 # config 3 (bench.py of the JAX package)
@@ -79,6 +97,13 @@ LEARNING_RATE = 1e-3  # optax.adam(1e-3) of bench.py
 # grown by 5^(1/3) so the neighbourhoods stay as full as at 100k
 GC_POINTS = 20_000
 GC_RADIUS = RADIUS * 5 ** (1 / 3)
+# the lmax=2 config-4 proxy (bench.py:223-259): not cut
+L2_POINTS = 250_000
+L2_RADIUS = RADIUS * (N_POINTS / L2_POINTS) ** (1 / 3)
+L2_NEIGHBORS = 16
+L2_CELL_CAPACITY = 64
+L2_OCTREE_LEVELS = 7
+L2_HIDDEN = "24x0e+12x1o+6x2e"
 
 # H100 SXM published peaks (NVIDIA data sheet), for the bounds
 PEAK_BF16_FLOPS = 989e12
@@ -88,6 +113,11 @@ PEAK_BYTES = 3.35e12
 # tolerances, each with its reason
 TOL_KERNEL_FP32 = 1e-4  # x max(1, |ref|): the same fp32 math summed in another order
 TOL_KERNEL_BF16 = 3e-2  # x max|ref|: bf16 rounding of layer-1 outputs and slot messages
+# kernel #8 vs its plain version, both bf16 with the same rounding points:
+# elementwise in bf16 ulps of max(|ref|, mean|ref|); they differ only where an
+# fp32 sum in another order lands on the other side of a bf16 rounding step
+TOL_GENERIC_BF16_ULPS = 4
+TOL_GENERIC_BF16_OVER_1ULP = 1e-3  # share of elements more than 1 ulp apart
 TOL_BWD_FP32 = 1e-4  # d_h: x max(1, |ref|); weight blocks: x max|ref| (sums over 2.4M slots)
 TOL_BWD_BF16 = 5e-2  # x max|ref|: bf16 rounding of the cotangent intermediates
 TOL_REDUCE = 1e-5  # x max|ref|: fp32 sums over the blocks in another order
@@ -97,6 +127,8 @@ TOL_GRAD_FP32 = 1e-4  # x max|ref| per parameter: fp32 sums in another order, 4 
 TOL_RADIUS_AGREE = 0.9999  # share of identical (receiver, sender) pairs; d^2 rounding at r
 
 TPU_FILE = "scalable_e3_gnn_tpu/kernels/fused_message.py"
+GENERIC_TPU_FILE = "scalable_e3_gnn_tpu/kernels/fused_message_generic.py"
+ALL_KERNELS = fm.KERNELS + fmg.KERNELS
 
 
 def emit(phase: str, **kw) -> None:
@@ -136,23 +168,24 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def build_graph(pts, radius=None):
-    """The config-3 graph of ``pts`` (radius ``RADIUS`` unless given) on the
-    card; returns (tree, cell capacity, raw edges, graph with tables, timings)."""
+def build_graph(pts, radius=None, levels=None, k=None, cap=None, tile=None):
+    """The config-3 graph of ``pts`` on the card (radius, octree levels, K,
+    cell capacity and table tile as given, config 3's otherwise); returns
+    (tree, cell capacity, raw edges, graph with tables, timings)."""
     radius = RADIUS if radius is None else radius
     dev = torch.device(DEVICE)
     times = {}
     tree, times["octree_ms"] = sync_time(
-        lambda: port.build_octree(pts, LO, HI, num_levels=OCTREE_LEVELS, device=dev))
-    cap = port.suggest_cell_capacity(tree, radius, LO, HI)
+        lambda: port.build_octree(pts, LO, HI, num_levels=levels or OCTREE_LEVELS, device=dev))
+    cap = cap or port.suggest_cell_capacity(tree, radius, LO, HI)
     edges, times["radius_graph_ms"] = sync_time(
-        lambda: port.radius_graph_cell(tree, radius, LO, HI, max_neighbors=MAX_NEIGHBORS,
+        lambda: port.radius_graph_cell(tree, radius, LO, HI, max_neighbors=k or MAX_NEIGHBORS,
                                        cell_capacity=cap))
     feats = np.random.default_rng(SEED + 1).standard_normal((len(pts), 5)).astype(np.float32)
     graph, times["symmetrize_ms"] = sync_time(
         lambda: port.DenseEdgeGraph.from_radius_edges(feats, tree.points, edges,
                                                       symmetrize=True))
-    graph_t, times["tables_ms"] = sync_time(lambda: graph.with_gather_tables(tile=TILE))
+    graph_t, times["tables_ms"] = sync_time(lambda: graph.with_gather_tables(tile=tile or TILE))
     return tree, cap, edges, graph_t, times
 
 
@@ -213,13 +246,22 @@ def compare(got, ref, scale, tol):
     return float(err.max()), int((err > tol * scale).sum()), float(ref.float().abs().max())
 
 
+def bf16_ulps(got, ref):
+    """|got - ref| elementwise in bf16 ulps (8 significant bits) of
+    max(|ref|, mean|ref|): the floor keeps elements near zero, which are sums
+    of larger slot messages, from counting their own tiny ulps."""
+    r = ref.float().abs()
+    scale = torch.clamp(r, min=max(float(r.mean()), 1e-30))
+    return (got.float() - ref.float()).abs() / torch.exp2(torch.floor(torch.log2(scale)) - 7)
+
+
 def reset_launches() -> None:
-    for kern in fm.KERNELS:
+    for kern in ALL_KERNELS:
         kern.launches = 0
 
 
 def launch_counts() -> dict:
-    return {kern.name: kern.launches for kern in fm.KERNELS}
+    return {kern.name: kern.launches for kern in ALL_KERNELS}
 
 
 def profile_steps(step, batch, steps: int = 2, top: int = 14) -> dict:
@@ -246,6 +288,183 @@ def profile_steps(step, batch, steps: int = 2, top: int = 14) -> dict:
                 top=[dict(name=n, ms_per_step=ms, calls_per_step=c) for ms, c, n in rows[:top]])
 
 
+def generic_kernel_inputs(kern, graph, edge_geo, dtype, gen):
+    """Kernel #8's arguments at the lmax=2 path's shapes: the real tables,
+    geometry and folded (column-permuted) layer-0 weights, random features, a
+    masked tail (the last 37 receivers without senders or valid slots) and
+    extra masked slots.  Returns (cfg, args, valid slots)."""
+    n, k = graph.edge_mask.shape
+    dev = graph.device
+    a = edge_geo.shape[1] // k - 2
+    cfg = kern.config(a, graph.gather_tab.shape[1])
+    geo = edge_geo.reshape(n, k, a + 2).clone()
+    geo[..., a + 1] *= (torch.rand((n, k), generator=gen, device=dev) > 0.1).to(geo.dtype)
+    cut = 37
+    geo[n - cut:, :, a + 1] = 0.0
+    loc = graph.gather_loc.clone()
+    loc[n - cut:] = cfg.u
+    h = torch.randn((n, cfg.f), generator=gen, device=dev)
+    h[n - cut:] = 0.0
+    n_valid = int((geo[..., a + 1] > 0).sum())
+    args = (h.to(dtype), geo.reshape(n, -1).to(dtype).contiguous(), loc.contiguous(),
+            graph.gather_tab.contiguous(), [w.contiguous() for w in kern.fold(dtype)],
+            kern.selections(dev))
+    return cfg, args, n_valid
+
+
+def lmax2_phases(card: str) -> dict:
+    """Phases 12-15 (the lmax=2 config-4 proxy); returns kernel #8's numbers
+    for the ``kernels`` line."""
+    dev = torch.device(DEVICE)
+    bf = torch.bfloat16
+    # ---- 12. the graph
+    pts = np.random.default_rng(SEED + 5).random((L2_POINTS, 3)).astype(np.float32)
+    tile = SEGNNLayer._pick_generic_tile(L2_POINTS)
+    kw = dict(radius=L2_RADIUS, levels=L2_OCTREE_LEVELS, k=L2_NEIGHBORS,
+              cap=L2_CELL_CAPACITY, tile=tile)
+    build_graph(pts, **kw)  # warm-up
+    _, cap, edges, graph, gtimes = build_graph(pts, **kw)
+    emit("graph_lmax2", points=L2_POINTS, radius=L2_RADIUS, k=L2_NEIGHBORS, cell_capacity=cap,
+         octree_levels=L2_OCTREE_LEVELS, edges_cell=int(edges.num_edges),
+         edges_symmetrized=int(graph.edge_mask.sum()), tile=tile,
+         table_size=graph.gather_tab.shape[1], card=card, graph_build_ms=sum(gtimes.values()),
+         **gtimes)
+    check(graph.gather_loc.shape[0] == L2_POINTS and graph.gather_tile == tile,
+          f"tables at tile {graph.gather_tile} for {graph.gather_loc.shape[0]} rows")
+    check(int(graph.edge_mask.sum()) > 0, "no edges")
+    del edges
+
+    model = port.SEGNN("2x0e+1x1o", L2_HIDDEN, "1x1o", lmax_attr=2, num_layers=NUM_LAYERS,
+                       layout="cm", use_pallas=True, device=dev,
+                       generator=torch.Generator().manual_seed(SEED))
+    check(all(layer.use_pallas_generic and layer._tab_eligible(L2_POINTS, graph)
+              for layer in model.layers), "the lmax=2 layers do not take the tabled kernel")
+    with torch.no_grad():
+        attrs32 = model.compute_attributes_dense(graph)
+
+    # ---- 13. kernel #8 vs its plain version at this path's shapes
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    kern = fmg.FusedMessageGeneric(model.layers[0].message_layers, L2_NEIGHBORS, tile)
+    kres = {}
+    with torch.no_grad():
+        for dtype, tol in ((torch.float32, TOL_KERNEL_FP32), (bf, TOL_KERNEL_BF16)):
+            cfg, args, n_valid = generic_kernel_inputs(kern, graph, attrs32[3], dtype, gen)
+            got = fmg.generic_tab_fwd(cfg, *args).float()
+            torch.cuda.synchronize()
+            ref = fmg.generic_tab_fwd_plain(cfg, *args).float()
+            err = (got - ref).abs()
+            ulps = {}
+            if dtype == torch.float32:
+                bad = int((err > tol * torch.clamp(ref.abs(), min=1.0)).sum())
+                limit = f"{tol} * max(1, |ref|) elementwise; fp32 sums in another order"
+            else:
+                # the same rounding points: elementwise in bf16 ulps, and the
+                # loose whole-tensor limit beside it
+                u = bf16_ulps(got, ref)
+                ulps = dict(max_ulps=float(u.max()), share_over_1ulp=float((u > 1).float().mean()),
+                            share_equal=float((err == 0).float().mean()))
+                bad = int((err > tol * ref.abs().max()).sum()) + int(
+                    (u > TOL_GENERIC_BF16_ULPS).sum())
+                limit = (f"{TOL_GENERIC_BF16_ULPS} bf16 ulps of max(|ref|, mean|ref|) elementwise "
+                         f"and at most {TOL_GENERIC_BF16_OVER_1ULP} of the elements over 1 ulp "
+                         "(the plain version rounds where the kernel does; fp32 sums in "
+                         f"another order flip a rounding now and then); and {tol} * max|ref|")
+                if ulps["share_over_1ulp"] > TOL_GENERIC_BF16_OVER_1ULP:
+                    bad += 1
+            max_err = float(err.max())
+            kres[dtype] = dict(cfg=cfg, args=args, n_valid=n_valid, max_abs_err=max_err)
+            emit("kernel_lmax2", kernel=fmg.GENERIC_TAB_FWD.name,
+                 dtype=str(dtype).replace("torch.", ""), rows=args[0].shape[0], k=cfg.k,
+                 tile=cfg.tile, u=cfg.u, a=cfg.a, widths=cfg.widths, valid_slots=n_valid,
+                 max_abs_err=max_err, max_rel_err=max_err / max(float(ref.abs().max()), 1e-30),
+                 max_abs_ref=float(ref.abs().max()), mean_abs_ref=float(ref.abs().mean()),
+                 **ulps, elements_over_tolerance=bad, tolerance=limit,
+                 finite=bool(torch.isfinite(got).all()))
+            check(bad == 0 and bool(torch.isfinite(got).all()),
+                  f"kernel #8 vs plain in {dtype}: {bad} elements over tolerance {ulps}")
+        del got, ref, err
+
+    # ---- 14. the bf16 forward through kernel #8, counted (geo-only attributes)
+    model_bf = copy.deepcopy(model).to(bf)
+    attrs_bf = (None, attrs32[1].to(bf), None, attrs32[3].to(bf))
+    graph_bf = graph._replace(nodes=graph.nodes.to(bf))
+    fwd = lambda: model_bf(graph_bf, attrs=attrs_bf)
+    with torch.no_grad():
+        reset_launches()
+        out = fwd()
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        want = {fm.TAB_FWD.name: 0, fm.TAB_BWD.name: 0, fm.TAB_BWD_REDUCE.name: 0,
+                fmg.GENERIC_TAB_FWD.name: NUM_LAYERS}
+        check(launches == want, f"{launches} kernel launches in one forward, expected {want}")
+        check(tuple(out.shape) == (L2_POINTS, 3), f"output shape {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), "non-finite output")
+        # the same (bf16) weights in fp32: through the kernel and the plain path
+        state32 = {k: v.float() for k, v in model_bf.state_dict().items()}
+        attrs_32 = (None, attrs32[1], None, attrs32[3])
+        plain32 = port.SEGNN("2x0e+1x1o", L2_HIDDEN, "1x1o", lmax_attr=2, num_layers=NUM_LAYERS,
+                             layout="cm", use_pallas=False, device=dev)
+        plain32.load_state_dict(state32)
+        ref = plain32(graph, attrs=attrs_32)
+        del plain32
+        model32 = port.SEGNN("2x0e+1x1o", L2_HIDDEN, "1x1o", lmax_attr=2, num_layers=NUM_LAYERS,
+                             layout="cm", use_pallas=True, device=dev)
+        model32.load_state_dict(state32)
+        k32 = model32(graph, attrs=attrs_32)
+        del model32
+        scale = float(ref.abs().max())
+        err32 = float((k32 - ref).abs().max())
+        errbf = float((out.float() - ref).abs().max())
+        emit("forward_lmax2", points=L2_POINTS, layers=NUM_LAYERS, hidden=L2_HIDDEN,
+             dtype="bfloat16", shape=list(out.shape), launches=launches, max_abs_ref=scale,
+             fp32_kernel_vs_plain_max_abs_err=err32,
+             fp32_tolerance=f"{TOL_FORWARD_FP32} * max(1, |ref|); fp32 sums in another order",
+             bf16_kernel_vs_fp32_plain_max_abs_err=errbf,
+             bf16_tolerance=f"{TOL_FORWARD_BF16} * max|ref|; bf16 storage through 4 layers")
+        check(bool(((k32 - ref).abs() <= TOL_FORWARD_FP32 * torch.clamp(ref.abs(), min=1.0)).all()),
+              f"lmax=2 fp32 forward: kernel vs plain max abs err {err32}")
+        check(errbf <= TOL_FORWARD_BF16 * scale, f"lmax=2 bf16 forward vs fp32 plain: {errbf}")
+        del ref, k32, out
+
+    # ---- 15. times (CUDA events after warm-up) and kernel #8's bound
+    kb = kres[bf]
+    cfg, args = kb["cfg"], kb["args"]
+    plain_bf = port.SEGNN("2x0e+1x1o", L2_HIDDEN, "1x1o", lmax_attr=2, num_layers=NUM_LAYERS,
+                          layout="cm", use_pallas=False, device=dev).to(bf)
+    plain_bf.load_state_dict(model_bf.state_dict())
+    with torch.no_grad():
+        fwd_ms = event_ms(fwd, iters=3, warmup=1)
+        fwd_plain_ms = event_ms(lambda: plain_bf(graph_bf, attrs=attrs_bf), iters=2, warmup=1)
+        kern_ms = event_ms(lambda: fmg.generic_tab_fwd(cfg, *args), iters=5, warmup=1)
+        plain_ms = event_ms(lambda: fmg.generic_tab_fwd_plain(cfg, *args), iters=2, warmup=1)
+        k32 = kres[torch.float32]
+        kern_fp32_ms = event_ms(lambda: fmg.generic_tab_fwd(k32["cfg"], *k32["args"]),
+                                iters=2, warmup=1)
+        out8 = fmg.generic_tab_fwd(cfg, *args)
+    # bound: each input read once, the output written once; the multiply-adds
+    # the valid slots need (the nonzeros of the folded weights) at the bf16
+    # tensor-core peak and, beside it, at the fp32 FMA peak; the dense folded
+    # GEMMs the kernel runs are reported beside them
+    h, geo2, loc, gtab, ws, sels = args
+    flops = kern.flops_per_slot() * kb["n_valid"]
+    dense_flops = cfg.dense_flops_per_slot() * kb["n_valid"]
+    n_bytes = nbytes(h, geo2, loc, gtab, *ws, *sels, out8)
+    b_ms, by, bytes_ms, ops_ms = bound(n_bytes, flops)
+    emit("times_lmax2", card=card, points=L2_POINTS, forward_ms=fwd_ms,
+         forward_plain_path_ms=fwd_plain_ms, kernel_ms_per_launch=kern_ms,
+         kernel_ms_per_forward=kern_ms * NUM_LAYERS, plain_ms_per_call=plain_ms,
+         kernel_fp32_ms_per_launch=kern_fp32_ms,
+         bound_ms=b_ms, bound_by=by, bound_bytes_ms=bytes_ms, bound_ops_ms=ops_ms,
+         kernel_gflop=flops / 1e9, kernel_mbytes=n_bytes / 1e6, valid_slots=kb["n_valid"],
+         flops_per_slot=kern.flops_per_slot(), dense_flops_per_slot=cfg.dense_flops_per_slot(),
+         kernel_fp32_fma_bound_ms=flops / PEAK_FP32_FMA_FLOPS * 1e3,
+         dense_gemm_gflop=dense_flops / 1e9,
+         dense_gemm_bf16_ms=dense_flops / PEAK_BF16_FLOPS * 1e3,
+         graph_build_ms=sum(gtimes.values()))
+    return dict(launches=launches[fmg.GENERIC_TAB_FWD.name], max_abs_err=kb["max_abs_err"],
+                ms=kern_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -260,7 +479,7 @@ def main() -> int:
 
     # ---- 2. build every kernel source
     t0 = time.perf_counter()
-    built = build_libraries(sorted({kern.source_name for kern in fm.KERNELS}))
+    built = build_libraries(sorted({kern.source_name for kern in ALL_KERNELS}))
     ptxas = [ln.strip() for b in built.values() for ln in b["log"].splitlines()
              if "registers" in ln or "spill" in ln]
     emit("build", seconds=round(time.perf_counter() - t0, 3),
@@ -393,7 +612,7 @@ def main() -> int:
         torch.cuda.synchronize()
         fwd_launches = launch_counts()
         check(fwd_launches == {fm.TAB_FWD.name: NUM_LAYERS, fm.TAB_BWD.name: 0,
-                               fm.TAB_BWD_REDUCE.name: 0},
+                               fm.TAB_BWD_REDUCE.name: 0, fmg.GENERIC_TAB_FWD.name: 0},
               f"{fwd_launches} kernel launches in one forward, expected {NUM_LAYERS} forward")
         check(tuple(out.shape) == (N_POINTS, 3), f"output shape {tuple(out.shape)}")
         check(bool(torch.isfinite(out).all()), "non-finite output")
@@ -451,7 +670,7 @@ def main() -> int:
     train_s = time.perf_counter() - t0
     train_launches = launch_counts()
     want = {fm.TAB_FWD.name: NUM_LAYERS, fm.TAB_BWD.name: NUM_LAYERS,
-            fm.TAB_BWD_REDUCE.name: NUM_LAYERS}
+            fm.TAB_BWD_REDUCE.name: NUM_LAYERS, fmg.GENERIC_TAB_FWD.name: 0}
     masters = all(p.dtype == torch.float32 for p in model.parameters())
     emit("train", points=N_POINTS, layers=NUM_LAYERS, steps=TRAIN_STEPS,
          compute_dtype="bfloat16", master_dtype="float32" if masters else "mixed",
@@ -564,6 +783,9 @@ def main() -> int:
     emit("profile", card=card, points=N_POINTS, **prof)
     check(prof["device_ms_per_step"] > 0, "the profiler saw no device time")
 
+    # ---- 12-15. the lmax=2 config-4 proxy: graph, kernel #8, forward, times
+    l2 = lmax2_phases(card)
+
     src = lambda kern: str(kern.source.relative_to(Path(__file__).resolve().parent))
     print(json.dumps({"kernels": [
         {"name": fm.TAB_FWD.name, "route": "cuda", "source": src(fm.TAB_FWD),
@@ -578,6 +800,10 @@ def main() -> int:
          "replaces": f"{TPU_FILE}:485", "launches": train_launches[fm.TAB_BWD_REDUCE.name],
          "max_abs_err": kb["reduce_max_abs_err"], "ms": red_ms, "plain_ms": red_plain_ms,
          "bound_ms": red_bound, "bound_by": red_by, "library_ms": red_plain_ms},
+        {"name": fmg.GENERIC_TAB_FWD.name, "route": "cuda", "source": src(fmg.GENERIC_TAB_FWD),
+         "replaces": f"{GENERIC_TPU_FILE}:937", "launches": l2["launches"],
+         "max_abs_err": l2["max_abs_err"], "ms": l2["ms"], "plain_ms": l2["plain_ms"],
+         "bound_ms": l2["bound_ms"], "bound_by": l2["bound_by"], "library_ms": None},
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -13,11 +13,17 @@ Parameter names follow the JAX ``init`` dict (``embed``, ``layer_i/msg_j``,
 loads JAX weights unchanged.
 
 Message dispatch (``SEGNNLayer``):
-- ``use_pallas=True`` on a graph with gather tables: the tabled fused kernel
+- ``use_pallas=True``, hidden ``Hs x0e + Hv x1o`` (lmax=1), on a graph with
+  gather tables: the tabled lmax=1 kernel
   (``kernels.fused_message.fused_message_aggregate_tabled``), which runs the
   hand-written CUDA kernels (forward, and backward under autograd) on CUDA
   tensors;
-- ``use_pallas=True`` without tables (the untabled kernel): not ported yet,
+- ``use_pallas=True`` with any other hidden irreps (the lmax=2 configs), on a
+  graph with gather tables at ``_pick_generic_tile(n)`` and n a multiple of
+  it: the tabled generic kernel
+  (``kernels.fused_message_generic.FusedMessageGeneric.geo_call_tab``),
+  forward only;
+- ``use_pallas=True`` otherwise (the untabled kernels): not ported yet,
   raises ``NotImplementedError``;
 - ``use_pallas=False``: the plain PyTorch message path.
 """
@@ -34,23 +40,23 @@ from ..core.irreps import Irreps
 from ..core.spherical import spherical_harmonics
 from ..graph.container import DenseEdgeGraph
 from ..kernels.fused_message import MessageConfig, fused_message_aggregate_tabled
+from ..kernels.fused_message_generic import FusedMessageGeneric
 from ..ops.gate import Gate
 from ..ops.linear import O3Linear
-from ..ops.tensor_product import L1TensorProduct
+from ..ops.tensor_product import L1TensorProduct, TensorProduct
 from ..utils.device import resolve_device
 
 __all__ = ["O3TensorProductGate", "SEGNNLayer", "SEGNN"]
 
 
 def _make_tp(irreps_in, irreps_attr, irreps_out, layout_in, layout_out, **kw):
-    """The lmax=1 tensor product; the generic one comes in a later slice."""
+    """The lmax=1 fast path when it applies, else the generic CG product."""
     if (irreps_in.lmax <= 1 and irreps_out.lmax <= 1
             and repr(irreps_attr.regroup()) == "1x0e+1x1o"):
         return L1TensorProduct(irreps_in, irreps_out, layout_in1=layout_in,
                                layout_out=layout_out, **kw)
-    raise NotImplementedError(
-        "the generic (lmax >= 2) tensor product is ported in a later slice"
-    )
+    return TensorProduct(irreps_in, irreps_attr, irreps_out, layout_in1=layout_in,
+                         layout_out=layout_out, **kw)
 
 
 class O3TensorProductGate(nn.Module):
@@ -113,6 +119,14 @@ class SEGNNLayer(nn.Module):
             self.message_layers.append(
                 O3TensorProductGate(cur, a, h, layout_in=layout, layout_out=layout, **kw))
             cur = h
+        # the generic fused kernel: any hidden irreps / attribute order, cm
+        # layout, generic TensorProduct message layers, each gated
+        self.use_pallas_generic = (
+            use_pallas and not self.use_pallas and layout == "cm"
+            and all(isinstance(m.tp, TensorProduct) and m.gate is not None
+                    for m in self.message_layers)
+        )
+        self._generic_kernels = {}  # (k, tile) -> FusedMessageGeneric
         self.update_layers = nn.ModuleList()
         cur = h + h
         for i in range(num_update_layers):
@@ -162,6 +176,52 @@ class SEGNNLayer(nn.Module):
             graph.gather_rem_node.contiguous(), *self._folded_weights(dt))
         return agg[:n]
 
+    @staticmethod
+    def _pick_generic_tile(n: int) -> int:
+        """The generic dispatch's tile: the largest multiple of 8 in [48, 224]
+        that divides n, else 64 (as the JAX package picks it)."""
+        for t in range(224, 47, -8):
+            if n % t == 0:
+                return t
+        return 64
+
+    def _tab_eligible(self, n: int, graph: DenseEdgeGraph) -> bool:
+        """True when the generic dispatch takes the tabled kernel: tables
+        built at exactly ``_pick_generic_tile(n)``, with n a multiple of it."""
+        if not self.use_pallas_generic or graph.gather_loc is None:
+            return False
+        if graph.gather_rev_dense is None or graph.gather_rem_pos is None:
+            return False
+        return (graph.gather_tile == self._pick_generic_tile(n)
+                and graph.gather_loc.shape[0] == n)
+
+    @staticmethod
+    def _geo2(edge_geo, edge_attr, edge_dist2, edge_mask, dt):
+        """Node-major packed geometry [N, K*(A+2)] (attr || d2 || mask per
+        slot): the precomputed ``edge_geo`` when given, else built here."""
+        if edge_geo is not None:
+            return edge_geo.to(dt).reshape(edge_geo.shape[0], -1)
+        geo = torch.cat([edge_attr.to(dt), edge_dist2[..., None].to(dt),
+                         edge_mask[..., None].to(dt)], dim=-1)
+        return geo.reshape(edge_attr.shape[0], -1)
+
+    def _fused_messages_generic(self, h, graph, edge_attr, edge_dist2, edge_mask, edge_geo):
+        """Generic-kernel dispatch, tabled path only: the per-tile compact
+        sender tables at ``_pick_generic_tile(n)``."""
+        n, k = edge_mask.shape
+        tile = self._pick_generic_tile(n)
+        if not self._tab_eligible(n, graph):
+            raise NotImplementedError(
+                "the untabled generic fused message kernel (TPU kernel #11, "
+                "FusedMessageGeneric._fwd_call) is ported in a later slice; build the "
+                f"graph's gather tables at tile {tile} (_pick_generic_tile({n})) with n a "
+                "multiple of it, or use use_pallas=False")
+        if (k, tile) not in self._generic_kernels:
+            self._generic_kernels[k, tile] = FusedMessageGeneric(self.message_layers, k, tile=tile)
+        geo2 = self._geo2(edge_geo, edge_attr, edge_dist2, edge_mask, h.dtype)
+        return self._generic_kernels[k, tile].geo_call_tab(h, geo2, graph.gather_loc,
+                                                           graph.gather_tab)
+
     def _plain_messages(self, h, senders, edge_attr, edge_dist2, edge_mask):
         hs = h[torch.clamp(senders, max=h.shape[0] - 1).long()]  # [N, K, F]
         hr = h[:, None, :].expand_as(hs)
@@ -171,8 +231,24 @@ class SEGNNLayer(nn.Module):
         m = torch.where(edge_mask[..., None], m, torch.zeros_like(m))
         return m.sum(dim=1)
 
-    def forward(self, h, graph: DenseEdgeGraph, edge_attr, node_attr, edge_dist2):
-        """h [N, F] -> [N, F] on the fixed-K ``graph`` with [N, K, .] geometry."""
+    def forward(self, h, graph: DenseEdgeGraph, edge_attr, node_attr, edge_dist2,
+                edge_geo=None):
+        """h [N, F] -> [N, F] on the fixed-K ``graph`` with [N, K, .] geometry.
+
+        ``edge_geo`` [N, K*(A+2)] is the packed geometry stream; with it
+        ``edge_attr`` and ``edge_dist2`` may be None (geo-only attributes):
+        they and the slot mask are then read from the stream."""
+        edge_mask = graph.edge_mask
+        if self.use_pallas_generic:
+            agg = self._fused_messages_generic(h, graph, edge_attr, edge_dist2, edge_mask,
+                                               edge_geo)
+            return self._update(h, agg, node_attr, graph)
+        if edge_attr is None:
+            if edge_geo is None:
+                raise ValueError("attrs gave neither edge_attr nor edge_geo")
+            g3 = edge_geo.reshape(edge_geo.shape[0], edge_mask.shape[1], -1)
+            a_dim = g3.shape[-1] - 2
+            edge_attr, edge_dist2, edge_mask = g3[..., :a_dim], g3[..., a_dim], g3[..., a_dim + 1] > 0
         if self.use_pallas:
             if graph.gather_loc is None:
                 raise NotImplementedError(
@@ -180,9 +256,12 @@ class SEGNNLayer(nn.Module):
                     "build the graph's gather tables (with_gather_tables) or use "
                     "use_pallas=False"
                 )
-            agg = self._fused_messages_tabled(h, edge_attr, edge_dist2, graph.edge_mask, graph)
+            agg = self._fused_messages_tabled(h, edge_attr, edge_dist2, edge_mask, graph)
         else:
-            agg = self._plain_messages(h, graph.senders, edge_attr, edge_dist2, graph.edge_mask)
+            agg = self._plain_messages(h, graph.senders, edge_attr, edge_dist2, edge_mask)
+        return self._update(h, agg, node_attr, graph)
+
+    def _update(self, h, agg, node_attr, graph):
         u = torch.cat([h, agg], dim=-1)
         for layer in self.update_layers:
             u = layer(u, node_attr)
@@ -252,7 +331,8 @@ class SEGNN(nn.Module):
         """Per-node outputs [N, output dim] ('graph' task: per-graph sums).
 
         ``attrs``: precomputed ``compute_attributes_dense`` result (3- or
-        4-tuple); computed here when omitted.  Runs in the dtype of
+        4-tuple; the 4-tuple may be geo-only, ``(None, node_attr, None,
+        edge_geo)``); computed here when omitted.  Runs in the dtype of
         ``graph.nodes`` with the module's parameters (cast the module, e.g.
         ``.to(torch.bfloat16)``, for bf16 weights)."""
         if graph.device != self.device:
@@ -260,9 +340,10 @@ class SEGNN(nn.Module):
         if attrs is None:
             attrs = self.compute_attributes_dense(graph)
         edge_attr, node_attr, dist2 = attrs[:3]
+        edge_geo = attrs[3] if len(attrs) == 4 else None
         h = self.embed(graph.nodes, node_attr)
         for layer in self.layers:
-            h = layer(h, graph, edge_attr, node_attr, dist2)
+            h = layer(h, graph, edge_attr, node_attr, dist2, edge_geo)
         out = self.head(self.pre_head(h, node_attr))
         if self.task == "graph":
             out = torch.where(graph.node_mask[:, None], out, torch.zeros_like(out))

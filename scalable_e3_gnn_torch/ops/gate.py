@@ -3,14 +3,15 @@
 Counterpart of ``scalable_e3_gnn_tpu/ops/gate.py::Gate.__call__``.  Input
 layout ``scalars || gates || gated``: scalars pass through ``act_scalars``, one
 l=0 gate per non-scalar irrep copy is squashed by ``act_gates`` and multiplies
-its copy channelwise.  The matmul-form gate used inside the generic kernel
-(``fast_tables``/``fast_apply``) comes with that kernel's slice.
+its copy channelwise.  ``fast_tables``/``fast_apply`` are the selection form
+the generic fused message kernel uses on column-permuted TP outputs.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -50,6 +51,50 @@ class Gate(nn.Module):
         self.act_gates = act_gates
         self._ns = self.irreps_scalars.dim
         self._gated_shapes = [(mi.mul, mi.ir.dim) for mi in self.irreps_gated]
+
+    def fast_tables(self):
+        """(perm, psel, dk) of the selection-form gate.
+
+        Permute the upstream TP's output columns to ``scalars || gated ||
+        gates`` (``perm`` indexes the unpermuted ``scalars || gates ||
+        gated`` columns), then ``out = y[:, :dk] * (sigmoid(y) @ psel)``.
+        ``psel`` [irreps_in.dim, dk] is identity on the scalars, replicates
+        gate g to its gated component lanes and is zero on the gated rows,
+        so every column holds exactly one 1.  Valid when ``act_scalars`` is
+        silu (x * sigmoid(x)) and ``act_gates`` is sigmoid, in 'cm' layout.
+        """
+        ns, ng = self._ns, self.num_gates
+        d_in = self.irreps_in.dim
+        dk = self.irreps_out.dim
+        perm = list(range(ns)) + list(range(ns + ng, d_in)) + list(range(ns, ns + ng))
+        psel = np.zeros((d_in, dk), np.float32)
+        for j in range(ns):
+            psel[j, j] = 1.0
+        col, gi = ns, 0
+        for mul, d in self._gated_shapes:
+            for _comp in range(d):
+                for m in range(mul):
+                    psel[dk + gi + m, col] = 1.0
+                    col += 1
+            gi += mul
+        assert col == dk, (col, dk)
+        return np.asarray(perm, np.int32), psel, dk
+
+    @staticmethod
+    def fast_select(psel) -> torch.Tensor:
+        """The row of the single 1 in each column of ``psel``: the sigmoid
+        lane that multiplies each output lane (int64 [dk])."""
+        return torch.as_tensor(np.asarray(psel)).argmax(dim=0)
+
+    def fast_apply(self, y: torch.Tensor, psel, dk: int) -> torch.Tensor:
+        """The selection-form gate on permuted pre-gate features (see
+        ``fast_tables``): sigmoid in fp32 cast to y's dtype, each output lane
+        times its selected multiplier in y's dtype.  ``psel`` has one 1 per
+        column, so the selection is a lookup, bitwise equal to the product
+        with ``psel``."""
+        sg = torch.sigmoid(y.float()).to(y.dtype)
+        sel = self.fast_select(psel).to(y.device)
+        return y[..., :dk] * sg[..., sel]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ns, ng = self._ns, self.num_gates

@@ -1,10 +1,17 @@
-"""The lmax=1 Clebsch-Gordan tensor product (second operand = sh(1)).
+"""Clebsch-Gordan tensor products.
 
-Counterpart of ``scalable_e3_gnn_tpu/ops/tensor_product.py::L1TensorProduct``:
-the same weight layouts, path concat order, normalization constants (including
-the reference's Q1 fan-in overcount) and 'mul' / 'cm' feature layouts, so the
-JAX parameters load unchanged and activations agree to fp32 tolerance.  The
-generic any-lmax ``TensorProduct`` comes with the lmax=2 slice.
+Counterparts of ``scalable_e3_gnn_tpu/ops/tensor_product.py``:
+
+- ``L1TensorProduct``: lmax=1, second operand sh(1).  The same weight
+  layouts, path concat order, normalization constants (including the
+  reference's Q1 fan-in overcount) and 'mul' / 'cm' feature layouts.
+- ``TensorProduct``: the generic fully-connected ('uvw') product for any
+  lmax, from the real-basis ``wigner_3j`` tensors, evaluated either
+  component-wise (sparse CG) or as C2 narrow GEMMs on the CG-folded weight
+  matrix (``fold_params``).
+
+Both take the JAX parameters unchanged and agree with the JAX modules to fp32
+tolerance.
 """
 
 from __future__ import annotations
@@ -17,9 +24,10 @@ import torch
 from torch import nn
 
 from ..core.irreps import Instruction, Irreps
+from ..core.wigner import wigner_3j
 from ..utils.device import resolve_device
 
-__all__ = ["L1TensorProduct", "CG110", "CG011", "CG111"]
+__all__ = ["L1TensorProduct", "TensorProduct", "CG110", "CG011", "CG111"]
 
 CG110 = 1.0 / math.sqrt(3.0)  # l1.l1 -> l0 dot
 CG011 = 1.0 / math.sqrt(3.0)  # l0.l1 -> l1 scale
@@ -292,3 +300,239 @@ class L1TensorProduct(nn.Module):
                 pieces.append(blk.reshape(lead + (3 * mi.mul,)))
             taken[key] = t + mi.mul
         return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=-1)
+
+
+class TensorProduct(nn.Module):
+    """Generic fully-connected ('uvw') weighted CG tensor product, any lmax.
+
+    A path (i1, i2) -> io exists iff ``ir_out`` is in ``ir_in1 * ir_in2``::
+
+        out_io = norm_io * sum_paths einsum('ui,vj,ijk->uvk', x1, x2, C) @ W_io
+
+    with ``norm_io = sqrt((2 l_out + 1) / fan_in)`` (component/element
+    normalization).  Parameters ``w{io}`` [sum over paths of mul1*mul2,
+    mul_out] have the JAX names and shapes and are drawn standard normal, as
+    the JAX ``init`` draws them.
+
+    ``mode``: 'auto' evaluates through the CG-folded weight matrix
+    (``fold_params``) as C2 narrow GEMMs when in1 is 'cm' and in2 is narrow
+    (at most 32 wide), else component-wise over the sparse CG entries;
+    'sparse' and 'gemm' force one of the two.
+    """
+
+    def __init__(
+        self,
+        irreps_in1: Irreps,
+        irreps_in2: Irreps,
+        irreps_out: Irreps,
+        irrep_normalization: str = "component",
+        path_normalization: str = "element",
+        layout_in1: str = "mul",
+        layout_out: str = "mul",
+        mode: str = "auto",
+        device=None,
+        dtype: torch.dtype = torch.float32,
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        device = resolve_device(device)
+        if mode not in ("auto", "sparse", "gemm"):
+            raise ValueError(f"unknown mode {mode!r}")
+        if mode == "gemm" and layout_in1 != "cm":
+            # the fold plan indexes in1 by its flat cm position
+            raise ValueError("mode='gemm' requires layout_in1='cm'")
+        if layout_in1 not in ("mul", "cm") or layout_out not in ("mul", "cm"):
+            raise ValueError("layouts must be 'mul' or 'cm'")
+        if irrep_normalization != "component" or path_normalization != "element":
+            raise ValueError("only component/element normalization implemented")
+        self.mode = mode
+        self.layout_in1 = layout_in1
+        self.layout_out = layout_out
+        self.irreps_in1 = Irreps(irreps_in1)
+        self.irreps_in2 = Irreps(irreps_in2)
+        self.irreps_out = Irreps(irreps_out)
+        self.in1_dim = self.irreps_in1.dim
+        self.in2_dim = self.irreps_in2.dim
+        self.out_dim = self.irreps_out.dim
+
+        sl1 = self.irreps_in1.slices()
+        sl2 = self.irreps_in2.slices()
+        self.instructions: List[Instruction] = []
+        # per output group: list of (sl1, mul1, l1, sl2, mul2, l2, cg) paths
+        self._paths: List[List[tuple]] = [[] for _ in self.irreps_out]
+        self._norm: List[float] = []
+        self._w_shapes: Dict[str, Tuple[int, int]] = {}
+        for io, mo in enumerate(self.irreps_out):
+            fan_in = 0
+            ins_this_out = []
+            for i2, m2 in enumerate(self.irreps_in2):
+                for i1, m1 in enumerate(self.irreps_in1):
+                    if mo.ir in list(m1.ir * m2.ir):
+                        cg = wigner_3j(m1.ir.l, m2.ir.l, mo.ir.l)
+                        self._paths[io].append(
+                            (sl1[i1], m1.mul, m1.ir.l, sl2[i2], m2.mul, m2.ir.l, cg))
+                        fan_in += m1.mul * m2.mul
+                        ins_this_out.append(Instruction(i1, i2, io, "uvw", True, 0.0,
+                                                        (m1.mul, m2.mul, mo.mul)))
+            a = math.sqrt(mo.ir.dim / fan_in) if fan_in > 0 else 0.0
+            self.instructions.extend(i._replace(path_weight=a) for i in ins_this_out)
+            self._norm.append(a)
+            if fan_in > 0 and mo.mul > 0:
+                self._w_shapes[f"w{io}"] = (fan_in, mo.mul)
+
+        self._build_gemm_plan()
+        self._fold_cache: Dict[str, dict] = {}
+        for name in sorted(self._w_shapes):
+            w = torch.randn(self._w_shapes[name], generator=generator, dtype=torch.float64)
+            self.register_parameter(name, nn.Parameter(w.to(dtype=dtype, device=device)))
+
+    def param_shapes(self) -> Dict[str, Tuple[int, int]]:
+        return dict(self._w_shapes)
+
+    def _build_gemm_plan(self) -> None:
+        """The index plan of the CG-folded weight matrix.
+
+        The product is ``out = z @ W'`` with ``z = outer(in1, in2)`` (rows
+        c2-major: ``zrow = c2 * C1 + c1``) and ``W'`` [C2*C1, out_dim] holding
+        every CG coefficient and norm constant times a path weight.  Per
+        parameter ``w{io}`` the plan is three flat arrays: the positions in
+        ``W'`` (flattened), the positions in ``w{io}`` (flattened) and the fp32
+        coefficients, one entry per nonzero of ``W'``."""
+        C1, C2 = self.in1_dim, self.in2_dim
+        self._gemm_z = C1 * C2
+        off, self._out_cm_off = 0, []
+        for mo in self.irreps_out:
+            self._out_cm_off.append(off)
+            off += mo.dim
+        self._fold_plan: Dict[str, Tuple[np.ndarray, np.ndarray, np.ndarray]] = {}
+        for io, mo in enumerate(self.irreps_out):
+            name = f"w{io}"
+            if name not in self._w_shapes:
+                continue
+            mul = mo.mul
+            tgt, src, coef = [], [], []
+            pathrow = 0
+            for sl_1, mul1, l1, sl_2, mul2, l2, cg in self._paths[io]:
+                d2 = 2 * l2 + 1
+                u = np.arange(mul1)[:, None]
+                v = np.arange(mul2)[None, :]
+                for k in range(mo.ir.dim):
+                    cols = self._out_cm_off[io] + k * mul + np.arange(mul)
+                    for i, j in zip(*np.nonzero(cg[:, :, k])):
+                        c1 = sl_1.start + int(i) * mul1 + u  # [mul1, 1]
+                        c2 = sl_2.start + v * d2 + int(j)  # [1, mul2]
+                        zr = (c2 * C1 + c1).reshape(-1)
+                        wr = (u * mul2 + v).reshape(-1) + pathrow
+                        tgt.append((zr[:, None] * self.out_dim + cols[None, :]).reshape(-1))
+                        src.append((wr[:, None] * mul + np.arange(mul)[None, :]).reshape(-1))
+                        co = np.float32(float(cg[i, j, k]) * self._norm[io])
+                        coef.append(np.full(zr.size * mul, co, np.float32))
+                pathrow += mul1 * mul2
+            self._fold_plan[name] = tuple(np.concatenate(x) for x in (tgt, src, coef))
+
+    def _gemm_default(self) -> bool:
+        if self.mode == "sparse":
+            return False
+        if self.mode == "gemm":
+            return True
+        return self.layout_in1 == "cm" and self.in2_dim <= 32
+
+    def fold_nonzeros(self) -> int:
+        """The entries of ``W'`` that ``fold_params`` can make nonzero."""
+        return sum(len(tgt) for tgt, _, _ in self._fold_plan.values())
+
+    def fold_params(self) -> torch.Tensor:
+        """The CG-folded weight matrix ``W'`` [C2*C1, out_dim] in fp32, columns
+        in cm layout.  Linear in the parameters, so gradients flow through it;
+        no entry of ``W'`` gets two terms, so the sum order is irrelevant."""
+        dev = next(iter(self.parameters()), torch.empty(0)).device
+        key = str(dev)
+        if key not in self._fold_cache:
+            self._fold_cache[key] = {
+                name: tuple(torch.as_tensor(x, device=dev) for x in plan)
+                for name, plan in self._fold_plan.items()}
+        wf = torch.zeros(self._gemm_z * self.out_dim, dtype=torch.float32, device=dev)
+        for name, (tgt, src, coef) in self._fold_cache[key].items():
+            w = getattr(self, name).float().reshape(-1)
+            wf = wf.index_add(0, tgt, coef * w[src])
+        return wf.view(self._gemm_z, self.out_dim)
+
+    def _call_gemm(self, wf: torch.Tensor, in1: torch.Tensor, in2: torch.Tensor) -> torch.Tensor:
+        """``outer(in1, in2) @ W'`` as ``sum_c (in1 * in2_c) @ W'_c``: C2 narrow
+        GEMMs, fp32 products and accumulation, the weights cast to the data
+        dtype first and the sum cast back at the end (as the JAX package)."""
+        lead = in1.shape[:-1]
+        dt = in1.dtype
+        C1, C2 = self.in1_dim, self.in2_dim
+        wt = wf.to(dt)
+        acc = None
+        for c in range(C2):
+            t = _matmul_f32(in1 * in2[..., c : c + 1], wt[c * C1 : (c + 1) * C1])
+            acc = t if acc is None else acc + t
+        out = acc.to(dt)
+        if self.layout_out == "cm":
+            return out
+        parts = []
+        for io, mo in enumerate(self.irreps_out):
+            blk = out[..., self._out_cm_off[io] : self._out_cm_off[io] + mo.dim]
+            if mo.ir.dim > 1:
+                blk = blk.reshape(lead + (mo.ir.dim, mo.mul)).transpose(-1, -2)
+                blk = blk.reshape(lead + (mo.dim,))
+            parts.append(blk)
+        return torch.cat(parts, dim=-1)
+
+    def forward(self, in1: torch.Tensor, in2: torch.Tensor) -> torch.Tensor:
+        if in1.shape[-1] != self.in1_dim:
+            raise ValueError(f"in1 last dim {in1.shape[-1]} != {self.in1_dim}")
+        if in2.shape[-1] != self.in2_dim:
+            raise ValueError(f"in2 last dim {in2.shape[-1]} != {self.in2_dim}")
+        if self._gemm_default():
+            return self._call_gemm(self.fold_params(), in1, in2)
+        return self._forward_sparse(in1, in2)
+
+    def _forward_sparse(self, in1: torch.Tensor, in2: torch.Tensor) -> torch.Tensor:
+        """Component-wise evaluation over the sparse CG entries: per output
+        component k the path features are [..., mul] products, then one
+        [..., P] x [P, w] GEMM (fp32) per component."""
+        lead = in1.shape[:-1]
+        dt = in1.dtype
+
+        def comp1(sl, mul, l, i):
+            """in1 component i of a group as [..., mul] (layout-aware)."""
+            if self.layout_in1 == "cm":
+                return in1[..., sl.start + i * mul : sl.start + (i + 1) * mul]
+            return in1[..., sl].reshape(lead + (mul, 2 * l + 1))[..., :, i]
+
+        out_parts = []
+        for io, mo in enumerate(self.irreps_out):
+            name = f"w{io}"
+            if name not in self._w_shapes:
+                out_parts.append(torch.zeros(lead + (mo.dim,), dtype=dt, device=in1.device))
+                continue
+            comp_res = []
+            for k in range(mo.ir.dim):
+                path_feats = []
+                for sl_1, mul1, l1, sl_2, mul2, l2, cg in self._paths[io]:
+                    acc = None
+                    for i, j in zip(*np.nonzero(cg[:, :, k])):
+                        c = float(cg[i, j, k])
+                        x1i = comp1(sl_1, mul1, l1, int(i))  # [..., mul1]
+                        if mul2 == 1:
+                            x2j = in2[..., sl_2.start + int(j) : sl_2.start + int(j) + 1]
+                            term = c * x1i * x2j
+                        else:
+                            x2j = in2[..., sl_2].reshape(lead + (mul2, 2 * l2 + 1))[..., :, int(j)]
+                            term = (c * x1i[..., :, None] * x2j[..., None, :]).reshape(
+                                lead + (mul1 * mul2,))
+                        acc = term if acc is None else acc + term
+                    if acc is None:
+                        acc = torch.zeros(lead + (mul1 * mul2,), dtype=dt, device=in1.device)
+                    path_feats.append(acc)
+                o = _matmul_f32(torch.cat(path_feats, dim=-1), getattr(self, name))
+                comp_res.append((self._norm[io] * o).to(dt))
+            if self.layout_out == "cm":
+                out_parts.append(torch.cat(comp_res, dim=-1))
+                continue
+            blk = torch.stack(comp_res, dim=-2)  # [..., 2l+1, w]
+            out_parts.append(blk.transpose(-1, -2).reshape(lead + (mo.dim,)))
+        return torch.cat(out_parts, dim=-1)

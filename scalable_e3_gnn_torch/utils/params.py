@@ -2,7 +2,8 @@
 
 The JAX package keeps parameters as nested dicts (``SEGNN.init``):
 ``embed/{w_l0e,w_l1o}``, ``layer_i/{msg_j,upd_j}/w_l*``, ``pre_head/w_l*``,
-``head/{w_0e,w_1o,b_0e}``.  ``params_from_jax`` copies such a tree, given as
+``head/{w_0e,w_1o,b_0e}``; at lmax >= 2 the generic tensor products' keys are
+``w{io}`` (one per output irrep group) and the head's ``w_<irrep>``.  ``params_from_jax`` copies such a tree, given as
 nested dicts of numpy arrays (or anything ``np.asarray`` reads), into the
 matching modules of this package, so both compute the same function;
 ``params_to_jax`` goes the other way (parameters or their gradients), so the
@@ -55,8 +56,8 @@ def params_from_jax(module: nn.Module, tree: Mapping) -> nn.Module:
     """Load the JAX parameter tree ``tree`` into ``module`` in place; returns it.
 
     ``module`` is a ``SEGNN``, ``SEGNNLayer``, ``O3TensorProductGate``,
-    ``L1TensorProduct`` or ``O3Linear`` whose JAX counterpart produced
-    ``tree``.  Keys and shapes must match exactly.
+    ``L1TensorProduct``, ``TensorProduct`` or ``O3Linear`` whose JAX
+    counterpart produced ``tree``.  Keys and shapes must match exactly.
     """
     with torch.no_grad():
         _load(module, tree, "")

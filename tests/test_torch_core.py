@@ -43,10 +43,11 @@ def test_irrep_order_and_products_match_jax():
     assert repr(tir.Irreps.spherical_harmonics(1)) == "1x0e+1x1o"
 
 
-@pytest.mark.parametrize("lmax", [0, 1])
+@pytest.mark.parametrize("lmax", [0, 1, 2, 3])
 @pytest.mark.parametrize("normalization", ["component", "norm", "integral"])
 def test_spherical_harmonics_match_jax(lmax, normalization):
-    """fp32, atol 1e-6: the same elementwise ops in the same order."""
+    """fp32, atol 1e-6: the same elementwise ops (above l=1 the same 3j
+    contractions, summed in another order)."""
     rng = np.random.default_rng(lmax)
     v = rng.standard_normal((64, 5, 3)).astype(np.float32)
     v[0, 0] = 0.0  # padding vector: embeds to [1, 0, 0, 0]
@@ -56,9 +57,13 @@ def test_spherical_harmonics_match_jax(lmax, normalization):
 
 
 def test_spherical_harmonics_unnormalized_and_lmax2():
+    """Unnormalized vectors: lmax=1 (the same elementwise ops) at atol 1e-6;
+    lmax=2 (the recursion scales Y_l with |v|^l and contracts the 3j tensors
+    in another order) at atol 1e-5 relative to the largest entry."""
     v = np.random.default_rng(3).standard_normal((16, 3)).astype(np.float32)
-    ref = np.asarray(jax_sh(1, jnp.asarray(v), normalize=False))
-    got = torch_sh(1, torch.from_numpy(v), normalize=False).numpy()
-    np.testing.assert_allclose(got, ref, atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        torch_sh(2, torch.from_numpy(v))
+    for lmax in (1, 2):
+        ref = np.asarray(jax_sh(lmax, jnp.asarray(v), normalize=False))
+        got = torch_sh(lmax, torch.from_numpy(v), normalize=False).numpy()
+        assert got.shape == (16, (lmax + 1) ** 2)
+        atol = 1e-6 if lmax == 1 else 1e-5 * max(1.0, np.abs(ref).max())
+        np.testing.assert_allclose(got, ref, atol=atol)

@@ -1,7 +1,9 @@
-"""PyTorch port on the GPU: the hand-written CUDA kernels (forward, and the
-backward with its epilogue) against their plain PyTorch versions at three
-widths, config 3's among them, the backward's determinism, and the SEGNN
-forward and gradients through the kernels against the plain path.
+"""PyTorch port on the GPU: the hand-written CUDA kernels (the lmax=1 forward,
+and the backward with its epilogue) against their plain PyTorch versions at
+three widths, config 3's among them, the backward's determinism, and the SEGNN
+forward and gradients through the kernels against the plain path; the generic
+(lmax=2) forward kernel against its plain version at three widths, the
+lmax=2 config's among them, and the lmax=2 SEGNN forward through it.
 
 These tests need a CUDA card and skip without one.  They import no JAX, so
 they run on a machine without it (``--noconftest`` skips the JAX-only
@@ -18,8 +20,9 @@ from scalable_e3_gnn_torch.graph.container import DenseEdgeGraph
 from scalable_e3_gnn_torch.graph.octree import build_octree
 from scalable_e3_gnn_torch.graph.radius import radius_graph_cell, suggest_cell_capacity
 from scalable_e3_gnn_torch.kernels import fused_message as fm
+from scalable_e3_gnn_torch.kernels import fused_message_generic as fmg
 from scalable_e3_gnn_torch.models import segnn as segnn_mod
-from scalable_e3_gnn_torch.models.segnn import SEGNN
+from scalable_e3_gnn_torch.models.segnn import SEGNN, SEGNNLayer
 
 pytestmark = pytest.mark.cuda
 
@@ -188,3 +191,107 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         fm.fused_message_aggregate_tabled_fwd(*args, *ws)
     with pytest.raises(TypeError):
         fm.fused_message_aggregate_tabled_bwd(*args, *tabs, *ws, torch.zeros_like(h))
+
+
+# (hidden irreps, K, points): tiles 160, 192 and 200 (_pick_generic_tile);
+# the last is the lmax=2 config's width
+GENERIC_WIDTHS = [("4x0e+2x1o+2x2e", 8, 480), ("8x0e+4x1o+3x2e", 13, 960),
+                  ("24x0e+12x1o+6x2e", 16, 2000)]
+
+
+def _generic_problem(dev, hidden, k, n, dtype, seed=0):
+    """Kernel #8's arguments from an lmax=2 model's first layer on a real
+    graph: random features, a masked tail (the last 37 receivers without
+    senders or valid slots) and extra masked slots."""
+    tile = SEGNNLayer._pick_generic_tile(n)
+    _, gt = _graph(dev, n, k, 0.25, tile, seed=seed)
+    model = SEGNN("2x0e+1x1o", hidden, "1x1o", lmax_attr=2, num_layers=1, layout="cm",
+                  use_pallas=True, device=dev, generator=torch.Generator().manual_seed(seed))
+    kern = fmg.FusedMessageGeneric(model.layers[0].message_layers, k, tile)
+    geo = model.compute_attributes_dense(gt)[3].reshape(n, k, -1).clone()
+    a = geo.shape[-1] - 2
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    geo[..., a + 1] *= (torch.rand((n, k), generator=gen, device=dev) > 0.1).float()
+    geo[n - 37:, :, a + 1] = 0.0
+    cfg = kern.config(a, gt.gather_tab.shape[1])
+    loc = gt.gather_loc.clone()
+    loc[n - 37:] = cfg.u
+    h = torch.randn((n, cfg.f), generator=gen, device=dev)
+    h[n - 37:] = 0.0
+    args = (h.to(dtype), geo.reshape(n, -1).to(dtype).contiguous(), loc, gt.gather_tab,
+            [w.contiguous() for w in kern.fold(dtype)], kern.selections(dev))
+    return cfg, args
+
+
+def _check_generic(got, ref, dtype):
+    got, ref = got.float(), ref.float()
+    assert torch.isfinite(got).all()
+    err = (got - ref).abs()
+    if dtype == torch.float32:
+        assert (err <= 1e-4 * ref.abs().clamp(min=1.0)).all(), float(err.max())
+    else:
+        r = ref.abs()
+        ulp = torch.exp2(torch.floor(torch.log2(r.clamp(min=float(r.mean())))) - 7)
+        ulps = err / ulp
+        assert float(ulps.max()) <= 4, float(ulps.max())
+        assert float((ulps > 1).float().mean()) <= 0.01
+
+
+@pytest.mark.parametrize("hidden,k,n", GENERIC_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_generic_kernel_matches_plain(dev, hidden, k, n, dtype):
+    """fp32: 1e-4 * max(1, |ref|) (sum order); bf16, where both round at the
+    same points: 4 bf16 ulps of max(|ref|, mean|ref|) elementwise, at most 1%
+    of the elements over 1 ulp (a sum order flips a rounding now and then)."""
+    cfg, args = _generic_problem(dev, hidden, k, n, dtype)
+    before = fmg.GENERIC_TAB_FWD.launches
+    with torch.no_grad():
+        got = fmg.generic_tab_fwd(cfg, *args)
+        ref = fmg.generic_tab_fwd_plain(cfg, *args)
+    torch.cuda.synchronize()
+    assert fmg.GENERIC_TAB_FWD.launches == before + 1
+    assert got.shape == ref.shape == (n, cfg.out_dim) and got.dtype == dtype
+    _check_generic(got, ref, dtype)
+    assert (got[n - 37:] == 0).all()  # no valid slot: an exact zero
+
+
+def test_generic_kernel_wide_bf16_raises(dev):
+    """bf16 widths past the tensor-core engine (C1 > 192, D > 128) are not
+    taken: the wrapper raises before any launch."""
+    cfg, args = _generic_problem(dev, "40x0e+20x1o+10x2e", 8, 480, torch.bfloat16)
+    assert cfg.widths[0][0] > 192 and cfg.widths[0][1] > 128
+    before = fmg.GENERIC_TAB_FWD.launches
+    with pytest.raises(ValueError, match="does not take"):
+        fmg.generic_tab_fwd(cfg, *args)
+    assert fmg.GENERIC_TAB_FWD.launches == before
+
+
+def test_generic_segnn_forward_kernel_matches_plain_path(dev):
+    """The lmax=2 SEGNN forward through kernel #8 (one launch per layer)
+    against the plain path, fp32: 1e-4 * max(1, max|ref|)."""
+    n = 2000
+    g, gt = _graph(dev, n, 16, 0.12, SEGNNLayer._pick_generic_tile(n))
+    m_k = SEGNN("2x0e+1x1o", "24x0e+12x1o+6x2e", "1x1o", lmax_attr=2, num_layers=2,
+                layout="cm", use_pallas=True, device=dev,
+                generator=torch.Generator().manual_seed(3))
+    m_p = SEGNN("2x0e+1x1o", "24x0e+12x1o+6x2e", "1x1o", lmax_attr=2, num_layers=2,
+                layout="cm", use_pallas=False, device=dev)
+    m_p.load_state_dict(m_k.state_dict())
+    before = fmg.GENERIC_TAB_FWD.launches
+    with torch.no_grad():
+        got, ref = m_k(gt), m_p(g)
+    assert fmg.GENERIC_TAB_FWD.launches == before + 2
+    assert (got - ref).abs().max() <= 1e-4 * max(1.0, float(ref.abs().max()))
+
+
+def test_generic_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    cfg, args = _generic_problem(dev, *GENERIC_WIDTHS[0], torch.float32)
+    h, geo2, loc, gtab, ws, sels = args
+    strided = torch.empty((geo2.shape[0], 2 * geo2.shape[1]), device=dev)[:, ::2]
+    strided.copy_(geo2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fmg.generic_tab_fwd(cfg, h, strided, loc, gtab, ws, sels)
+    with pytest.raises(ValueError, match="must be on"):
+        fmg.generic_tab_fwd(cfg, h, geo2, loc.cpu(), gtab, ws, sels)
+    with pytest.raises(TypeError):
+        fmg.generic_tab_fwd(cfg, h.half(), geo2.half(), loc, gtab, [w.half() for w in ws], sels)

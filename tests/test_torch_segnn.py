@@ -115,8 +115,15 @@ def test_use_pallas_without_tables_raises():
 
 
 def test_unported_tensor_product_raises():
+    """The generic tensor product is ported: an lmax=2 model builds.  What is
+    not ported raises: its untabled fused kernel (#11), here without tables."""
+    tm = TSEGNN("2x0e+1x1o", "8x0e+4x1o+2x2e", "1x1o", num_layers=1, lmax_attr=2,
+                use_pallas=True, device="cpu")
+    assert tm.layers[0].use_pallas_generic
+    jg, jgt, tg, tgt = _graph(128)
     with pytest.raises(NotImplementedError, match="later slice"):
-        TSEGNN("2x0e+1x1o", "8x0e+4x1o+2x2e", "1x1o", num_layers=1, device="cpu")
+        with torch.no_grad():
+            tm(tg)
 
 
 def test_entry_points_without_device_need_a_gpu(monkeypatch):
