@@ -53,6 +53,27 @@ Phases, each printing one JSON line:
                  bf16 forward held against the fp32 plain path.
 15. times_lmax2 -- CUDA-event times of that forward, of #8 (bf16 and fp32) and
                  its plain version, with #8's bound.
+16. kernel_bwd_lmax2 -- on phase 13's inputs and a random cotangent, in fp32
+                 and bf16 (elementwise in bf16 ulps): #8's save mode, #9
+                 (residual) and #10 (replay) with the weight-gradient kernel,
+                 the table sum and the reduction against the plain backward
+                 with and without the saved ys, each piece against its own
+                 plain version, the full backward with its epilogue, #9 against
+                 #10, two runs bit-identical.
+17. train_lmax2 -- bench.py's 250k bf16 train step (remat, fp32 masters, MSE,
+                 Adam 1e-3, geo-only attributes), 3 steps with launch counts per
+                 step: 4 of #8, 4 of #9 and its pieces, none of #10; peak memory.
+18. graph_1m, train_1m, kernel_bwd_1m -- bench.py's 1M remat_kernel step: the
+                 1M graph, then 2 steps: 4 of #8, 4 of #10, none of #9 per
+                 step; peak memory; then #8 and #10 (with its pieces and the
+                 epilogue) against their plain versions at the 1M shapes, bf16
+                 elementwise in ulps, and #10's whole time there.
+19. grad_check_lmax2 -- fp32 gradients through #9 and through #10 against
+                 autograd through the plain path, 20k points at the 250k density.
+20. train_times_lmax2 -- step times at 250k and 1M, #9/#10 whole and their
+                 pieces per launch, their plain versions, the reduction, the
+                 epilogue, the bounds, and a torch.profiler trace of two 250k
+                 steps.
 
 Then the ``kernels`` line, the card line and, last, the result line.  Any
 failed check raises: the script exits non-zero and prints no result.  It
@@ -73,7 +94,7 @@ import numpy as np
 import torch
 
 import scalable_e3_gnn_torch as port
-from scalable_e3_gnn_torch.graph.radius import radius_graph_brute
+from scalable_e3_gnn_torch.graph.radius import radius_graph_brute, search_level_for_radius
 from scalable_e3_gnn_torch.kernels import fused_message as fm
 from scalable_e3_gnn_torch.kernels import fused_message_generic as fmg
 from scalable_e3_gnn_torch.kernels.build import build_libraries
@@ -104,6 +125,14 @@ L2_NEIGHBORS = 16
 L2_CELL_CAPACITY = 64
 L2_OCTREE_LEVELS = 7
 L2_HIDDEN = "24x0e+12x1o+6x2e"
+L2_TRAIN_STEPS = 3  # bench.py times 3 steps at 250k ...
+L1M_TRAIN_STEPS = 2  # ... and 2 at 1M
+# the 1M remat_kernel config (bench.py:261-299): not cut
+L1M_POINTS = 1_000_000
+L1M_RADIUS = RADIUS * (N_POINTS / L1M_POINTS) ** (1 / 3)
+# the lmax=2 gradient check's cloud: the 250k cloud's density at 20k points
+GC2_POINTS = 20_000
+GC2_RADIUS = L2_RADIUS * (L2_POINTS / GC2_POINTS) ** (1 / 3)
 
 # H100 SXM published peaks (NVIDIA data sheet), for the bounds
 PEAK_BF16_FLOPS = 989e12
@@ -119,6 +148,11 @@ TOL_KERNEL_BF16 = 3e-2  # x max|ref|: bf16 rounding of layer-1 outputs and slot 
 TOL_GENERIC_BF16_ULPS = 4
 TOL_GENERIC_BF16_OVER_1ULP = 1e-3  # share of elements more than 1 ulp apart
 TOL_BWD_FP32 = 1e-4  # d_h: x max(1, |ref|); weight blocks: x max|ref| (sums over 2.4M slots)
+# the lmax=2 backward kernels vs their plain versions in bf16, both rounding
+# at the same points: elementwise in bf16 ulps of max(|ref|, mean|ref|); the
+# 250k readings were at most 5 ulps and 3.4e-5 of the elements over 1 ulp
+TOL_GENERIC_BWD_BF16_ULPS = 8
+TOL_GENERIC_BWD_BF16_OVER_1ULP = 1e-3  # share of elements more than 1 ulp apart
 TOL_BWD_BF16 = 5e-2  # x max|ref|: bf16 rounding of the cotangent intermediates
 TOL_REDUCE = 1e-5  # x max|ref|: fp32 sums over the blocks in another order
 TOL_FORWARD_FP32 = 1e-4  # x max(1, |ref|): kernel vs plain path, both fp32, 4 layers
@@ -253,6 +287,18 @@ def bf16_ulps(got, ref):
     r = ref.float().abs()
     scale = torch.clamp(r, min=max(float(r.mean()), 1e-30))
     return (got.float() - ref.float()).abs() / torch.exp2(torch.floor(torch.log2(scale)) - 7)
+
+
+def bf16_loss(m, g, a, t):
+    """bench.py's loss: the forward under bf16 copies of the fp32 masters, so
+    the gradients flow back through the casts to fp32."""
+    p = {nm: w.to(torch.bfloat16) for nm, w in m.named_parameters()}
+    return mse_loss(torch.func.functional_call(m, p, (g,), {"attrs": a}).float(), t)
+
+
+def expected(counts: dict) -> dict:
+    """Launch counts of every kernel: those given, zero for the rest."""
+    return {kern.name: counts.get(kern.name, 0) for kern in ALL_KERNELS}
 
 
 def reset_launches() -> None:
@@ -394,8 +440,7 @@ def lmax2_phases(card: str) -> dict:
         out = fwd()
         torch.cuda.synchronize()
         launches = launch_counts()
-        want = {fm.TAB_FWD.name: 0, fm.TAB_BWD.name: 0, fm.TAB_BWD_REDUCE.name: 0,
-                fmg.GENERIC_TAB_FWD.name: NUM_LAYERS}
+        want = expected({fmg.GENERIC_TAB_FWD.name: NUM_LAYERS})
         check(launches == want, f"{launches} kernel launches in one forward, expected {want}")
         check(tuple(out.shape) == (L2_POINTS, 3), f"output shape {tuple(out.shape)}")
         check(bool(torch.isfinite(out).all()), "non-finite output")
@@ -461,8 +506,416 @@ def lmax2_phases(card: str) -> dict:
          dense_gemm_gflop=dense_flops / 1e9,
          dense_gemm_bf16_ms=dense_flops / PEAK_BF16_FLOPS * 1e3,
          graph_build_ms=sum(gtimes.values()))
-    return dict(launches=launches[fmg.GENERIC_TAB_FWD.name], max_abs_err=kb["max_abs_err"],
-                ms=kern_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by)
+    row = dict(launches=launches[fmg.GENERIC_TAB_FWD.name], max_abs_err=kb["max_abs_err"],
+               ms=kern_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by)
+    del model_bf, plain_bf, out8
+    return row, dict(graph=graph, kern=kern, kres=kres, gtimes=gtimes)
+
+
+def bwd_compare(got, ref, elementwise: bool, fp32: bool) -> dict:
+    """One output of a backward kernel against its plain version: fp32
+    elementwise (d_hu, d_hr, d_h, agg, ys) against 1e-4 * max(1, |ref|), or
+    (weight gradients) against 1e-4 * max|ref|; bf16 elementwise in bf16 ulps
+    of max(|ref|, mean|ref|), with a limit on the share over 1 ulp."""
+    err = (got.float() - ref.float()).abs()
+    out = dict(max_abs_err=float(err.max()), max_abs_ref=float(ref.float().abs().max()))
+    if fp32:
+        scale = torch.clamp(ref.float().abs(), min=1.0) if elementwise else out["max_abs_ref"]
+        out["over"] = int((err > TOL_BWD_FP32 * scale).sum())
+    else:
+        u = bf16_ulps(got, ref)
+        out.update(max_ulps=float(u.max()), share_over_1ulp=float((u > 1).float().mean()))
+        out["over"] = int((u > TOL_GENERIC_BWD_BF16_ULPS).sum()) + int(
+            out["share_over_1ulp"] > TOL_GENERIC_BWD_BF16_OVER_1ULP)
+    out["finite"] = bool(torch.isfinite(got.float()).all())
+    return out
+
+
+def bwd_outputs(res) -> list:
+    """(d_hu, d_hr, [dW'_1, dW'_2]) -> [(name, tensor, elementwise)]."""
+    return [("d_hu", res[0], True), ("d_hr", res[1], True), ("dW1", res[2][0], False),
+            ("dW2", res[2][1], False)]
+
+
+def train_run(model, graph, attrs, target, steps, card, phase, want, **info):
+    """``steps`` counted bf16 train steps (fp32 masters, MSE, Adam 1e-3):
+    checks the launches of every step against ``want``, finite losses and
+    gradient norms and fp32 masters; returns the step function."""
+    opt = torch.optim.Adam(model.parameters(), lr=LEARNING_RATE, betas=(0.9, 0.999), eps=1e-8)
+    step = make_train_step(model, bf16_loss, opt)
+    losses, norms, per_step = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        before = launch_counts()
+        m = step(graph, attrs, target)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        per_step.append({k: v - before[k] for k, v in launch_counts().items()})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    masters = all(p.dtype == torch.float32 for p in model.parameters())
+    emit(phase, **info, layers=NUM_LAYERS, hidden=L2_HIDDEN, steps=steps,
+         compute_dtype="bfloat16", master_dtype="float32" if masters else "mixed",
+         optimizer=f"Adam(lr={LEARNING_RATE}, betas=(0.9, 0.999), eps=1e-8)", losses=losses,
+         grad_norms=norms, launches_per_step=per_step, seconds_incl_first_step=seconds,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"non-finite loss or norm: {losses} {norms}")
+    check(all(s == want for s in per_step),
+          f"{phase}: launches per step {per_step}, expected {want}")
+    check(masters, "master weights are not all fp32")
+    return step
+
+
+def lmax2_model(dev, use_pallas=True, **kw):
+    return port.SEGNN("2x0e+1x1o", L2_HIDDEN, "1x1o", lmax_attr=2, num_layers=NUM_LAYERS,
+                      layout="cm", use_pallas=use_pallas, device=dev,
+                      generator=torch.Generator().manual_seed(SEED), **kw)
+
+
+def geo_only(model, graph, dtype):
+    """bench.py's geo-only attributes (None, node_attr, None, edge_geo)."""
+    with torch.no_grad():
+        a = model.compute_attributes_dense(graph)
+    return (None, a[1].to(dtype), None, a[3].to(dtype))
+
+
+def lmax2_train_phases(card: str, ctx: dict) -> dict:
+    """Phases 16-20 (lmax=2 training); returns the ``kernels`` line's rows of
+    #9, #10, the weight-gradient kernel and the table sum."""
+    dev = torch.device(DEVICE)
+    bf = torch.bfloat16
+    graph, kern, kres = ctx["graph"], ctx["kern"], ctx["kres"]
+    tabs = (graph.gather_rev_dense, graph.gather_rem_pos, graph.gather_rem_node)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    res_kernels = (fmg.GENERIC_TAB_BWD_RES, fmg.GENERIC_TAB_BWD_REP)
+
+    # ---- 16. #8's save mode, #9, #10 and their pieces against the plain versions
+    bwd = {}
+    with torch.no_grad():
+        for dtype in (torch.float32, bf):
+            fp32 = dtype == torch.float32
+            cfg, args = kres[dtype]["cfg"], kres[dtype]["args"]
+            h, geo2, loc, gtab, ws, sels = args
+            d_agg = torch.randn((h.shape[0], cfg.out_dim), generator=gen, device=dev).to(dtype)
+            agg, ys = fmg.generic_tab_fwd(cfg, *args, save=True)
+            p_agg, p_ys = fmg.generic_tab_fwd_plain(cfg, *args, save=True)
+            save = {nm: bwd_compare(x, y, True, fp32)
+                    for nm, x, y in (("agg", agg, p_agg), ("y1", ys[0], p_ys[0]),
+                                     ("y2", ys[1], p_ys[1]))}
+            del p_agg, p_ys
+            got = {"res": fmg.generic_tab_bwd_kernels(cfg, *args, d_agg, ys=ys),
+                   "rep": fmg.generic_tab_bwd_kernels(cfg, *args, d_agg)}
+            again = {"res": fmg.generic_tab_bwd_kernels(cfg, *args, d_agg, ys=ys),
+                     "rep": fmg.generic_tab_bwd_kernels(cfg, *args, d_agg)}
+            torch.cuda.synchronize()
+            flat = lambda r: [r[0], r[1], *r[2]]
+            identical = all(torch.equal(x, y) for m in got
+                            for x, y in zip(flat(got[m]), flat(again[m])))
+            res_eq_rep = all(torch.equal(x, y) for x, y in zip(flat(got["res"]), flat(got["rep"])))
+            del again
+            ref = {"res": fmg.generic_tab_bwd_plain(cfg, *args, d_agg, ys=ys),
+                   "rep": fmg.generic_tab_bwd_plain(cfg, *args, d_agg)}
+            cmp = {m: {nm: bwd_compare(x, y, el, fp32) for (nm, x, el), (_, y, _) in
+                       zip(bwd_outputs(got[m]), bwd_outputs(ref[m]))} for m in got}
+            # #9 against #10 within the fp32 limit
+            cmp["res_vs_rep"] = {nm: bwd_compare(x, y, el, True) for (nm, x, el), (_, y, _) in
+                                 zip(bwd_outputs(got["res"]), bwd_outputs(got["rep"]))}
+            # each piece against its own plain version, on the chain's outputs
+            d_hs, d_hr, dy1, dy2, m0, m1 = fmg.generic_tab_bwd_chain(cfg, *args, d_agg, ys)
+            splits = fmg._wgrad_splits(cfg, h.shape[0] * cfg.k,
+                                       torch.cuda.get_device_properties(dev).multi_processor_count)
+            part = fmg.generic_tab_bwd_wgrad(cfg, geo2, m0, m1, dy1, dy2, splits)
+            cmp["wgrad"] = {"partials": bwd_compare(part, fmg.generic_tab_bwd_wgrad_plain(
+                cfg, geo2, m0, m1, dy1, dy2, splits), False, fp32)}
+            d_hu = fmg.generic_tab_bwd_table(cfg, d_hs, loc)
+            cmp["table"] = {"d_hu": bwd_compare(d_hu, fmg.generic_tab_bwd_table_plain(
+                cfg, d_hs, loc), True, fp32)}
+            dw = fm.tab_bwd_reduce(part)
+            cmp["reduction"] = {"dW": bwd_compare(dw, fm.tab_bwd_reduce_plain(part), False, True)}
+            # the full backward: kernels + epilogue against the plain backward + epilogue
+            d_h = fmg.generic_sender_epilogue(got["res"][1], got["res"][0], *tabs)
+            cmp["with_epilogue"] = {"d_h": bwd_compare(
+                d_h, fmg.generic_sender_epilogue(ref["res"][1], ref["res"][0], *tabs), True, fp32)}
+            torch.cuda.synchronize()
+            bad = {f"{m}.{nm}": v for m, c in cmp.items() for nm, v in c.items()
+                   if v["over"] or not v["finite"]}
+            bad.update({f"save.{nm}": v for nm, v in save.items() if v["over"] or not v["finite"]})
+            emit("kernel_bwd_lmax2", kernels=[k_.name for k_ in fmg.KERNELS[1:]] +
+                 [fm.TAB_BWD_REDUCE.name], dtype=str(dtype).replace("torch.", ""),
+                 rows=h.shape[0], valid_slots=kres[dtype]["n_valid"], splits=splits,
+                 save_mode=save, compared=cmp, bit_identical_reruns=identical,
+                 res_bitwise_equal_rep=res_eq_rep,
+                 tolerance=(f"{TOL_BWD_FP32} * max(1, |ref|) elementwise for agg, ys, d_hu, "
+                            f"d_hr, d_h; {TOL_BWD_FP32} * max|ref| for dW' and the partials "
+                            "(fp32 sums in another order)") if fp32 else
+                 (f"{TOL_GENERIC_BWD_BF16_ULPS} bf16 ulps of max(|ref|, mean|ref|) "
+                  f"elementwise and at most {TOL_GENERIC_BWD_BF16_OVER_1ULP} of the elements "
+                  "over 1 ulp (kernel and plain version round at the same points; an fp32 "
+                  "sum in another order flips a rounding of dy or dm now and then and the "
+                  "sums carry it on); #9 vs #10 and the reduction at the fp32 limit"))
+            check(not bad, f"lmax=2 backward kernels vs plain in {dtype}: {bad}")
+            check(identical, f"two lmax=2 backward runs differ in {dtype}")
+            # the bf16 inputs and outputs stay for the times (phase 20)
+            bwd[dtype] = dict(cmp=cmp) if fp32 else dict(
+                cfg=cfg, args=args, d_agg=d_agg, ys=ys, part=part,
+                chain=(d_hs, d_hr, dy1, dy2, m0, m1), got=got["res"], cmp=cmp)
+            del got, ref, d_h, dw, d_hs, d_hr, dy1, dy2, m0, m1, part, ys, d_hu
+
+    # ---- 17. the 250k bf16 train step (bench.py:223-257), 3 steps, counted
+    l2 = L2_POINTS
+    model = lmax2_model(dev, remat=True)
+    attrs_bf = geo_only(model, graph, bf)
+    graph_bf = graph._replace(nodes=graph.nodes.to(bf))
+    target = torch.from_numpy(np.random.default_rng(SEED + 9).standard_normal(
+        (l2, 3)).astype(np.float32)).to(dev)
+    per_layer = {fmg.GENERIC_TAB_FWD.name: NUM_LAYERS, fmg.GENERIC_TAB_BWD_WGRAD.name: NUM_LAYERS,
+                 fmg.GENERIC_TAB_BWD_TABLE.name: NUM_LAYERS, fm.TAB_BWD_REDUCE.name: NUM_LAYERS}
+    step = train_run(model, graph_bf, attrs_bf, target, L2_TRAIN_STEPS, card, "train_lmax2",
+                     expected({**per_layer, fmg.GENERIC_TAB_BWD_RES.name: NUM_LAYERS}),
+                     points=l2, backward="residual (#9)", remat=True)
+    launches_250k = launch_counts()
+    batch = (graph_bf, attrs_bf, target)
+    step_ms_250k = event_ms(lambda: step(*batch), iters=3, warmup=1)
+    prof = profile_steps(step, batch)
+    check(prof["device_ms_per_step"] > 0, "the profiler saw no device time")
+    del step, model, attrs_bf, graph_bf, target, batch
+
+    # ---- 18. the 1M remat_kernel train step (bench.py:261-299), 2 steps, counted
+    n1 = L1M_POINTS
+    pts = np.random.default_rng(SEED + 10).random((n1, 3)).astype(np.float32)
+    levels = max(4, search_level_for_radius(L1M_RADIUS, LO, HI) + 1)
+    tile = SEGNNLayer._pick_generic_tile(n1)
+    _, cap, edges, g1m, gtimes = build_graph(pts, radius=L1M_RADIUS, levels=levels,
+                                             k=L2_NEIGHBORS, tile=tile)
+    emit("graph_1m", points=n1, radius=L1M_RADIUS, k=L2_NEIGHBORS, cell_capacity=cap,
+         octree_levels=levels, edges_cell=int(edges.num_edges),
+         edges_symmetrized=int(g1m.edge_mask.sum()), tile=tile, table_size=g1m.gather_tab.shape[1],
+         card=card, graph_build_ms=sum(gtimes.values()), **gtimes)
+    check(g1m.gather_tile == tile and g1m.gather_loc.shape[0] == n1, "1M tables")
+    del edges, pts
+    model = lmax2_model(dev, remat=True, remat_kernel=True)
+    check(all(layer._tab_eligible(n1, g1m) for layer in model.layers), "1M: not the tabled path")
+    attrs_bf = geo_only(model, g1m, bf)
+    g1m_bf = g1m._replace(nodes=g1m.nodes.to(bf))
+    target = torch.from_numpy(np.random.default_rng(SEED + 11).standard_normal(
+        (n1, 3)).astype(np.float32)).to(dev)
+    step = train_run(model, g1m_bf, attrs_bf, target, L1M_TRAIN_STEPS, card, "train_1m",
+                     expected({**per_layer, fmg.GENERIC_TAB_BWD_REP.name: NUM_LAYERS}),
+                     points=n1, backward="replay (#10)", remat=True, remat_kernel=True)
+    launches_1m = launch_counts()
+    step_ms_1m = event_ms(lambda: step(g1m_bf, attrs_bf, target), iters=2, warmup=0)
+    # this path's kernels against their plain versions at its own shapes (16M
+    # slot rows; the chain's m_0 alone holds 3.1e9 values, past int32
+    # offsets): #8 without save, #10 with the weight-gradient kernel, the table
+    # sum and the reduction, and the epilogue; layer 0's folded weights after
+    # the two steps, random features and cotangent, a masked tail
+    kern1m = fmg.FusedMessageGeneric(model.layers[0].message_layers, L2_NEIGHBORS, tile)
+    del step, model, g1m_bf, target
+    gen1m = torch.Generator(device=dev).manual_seed(SEED + 14)
+    tabs1m = (g1m.gather_rev_dense, g1m.gather_rem_pos, g1m.gather_rem_node)
+    with torch.no_grad():
+        cfg1m, args1m, n_valid_1m = generic_kernel_inputs(kern1m, g1m, attrs_bf[3], bf, gen1m)
+        del attrs_bf
+        d_agg1m = torch.randn((n1, cfg1m.out_dim), generator=gen1m, device=dev).to(bf)
+        got = fmg.generic_tab_bwd_kernels(cfg1m, *args1m, d_agg1m)
+        torch.cuda.synchronize()
+        ref = fmg.generic_tab_bwd_plain(cfg1m, *args1m, d_agg1m)
+        cmp1m = {nm: bwd_compare(x, y, el, False) for (nm, x, el), (_, y, _) in
+                 zip(bwd_outputs(got), bwd_outputs(ref))}
+        cmp1m["d_h"] = bwd_compare(fmg.generic_sender_epilogue(got[1], got[0], *tabs1m),
+                                   fmg.generic_sender_epilogue(ref[1], ref[0], *tabs1m),
+                                   True, False)
+        d_hr1m = got[1]
+        del got, ref
+        cmp1m["agg"] = bwd_compare(fmg.generic_tab_fwd(cfg1m, *args1m),
+                                   fmg.generic_tab_fwd_plain(cfg1m, *args1m), True, False)
+        bad = {nm: v for nm, v in cmp1m.items() if v["over"] or not v["finite"]}
+        emit("kernel_bwd_1m", kernels=[fmg.GENERIC_TAB_FWD.name, fmg.GENERIC_TAB_BWD_REP.name,
+                                       fmg.GENERIC_TAB_BWD_WGRAD.name,
+                                       fmg.GENERIC_TAB_BWD_TABLE.name, fm.TAB_BWD_REDUCE.name],
+             dtype="bfloat16", rows=n1, slot_rows=n1 * L2_NEIGHBORS, u=cfg1m.u,
+             valid_slots=n_valid_1m, compared=cmp1m,
+             tolerance=(f"{TOL_GENERIC_BWD_BF16_ULPS} bf16 ulps of max(|ref|, mean|ref|) "
+                        f"elementwise and at most {TOL_GENERIC_BWD_BF16_OVER_1ULP} of the "
+                        "elements over 1 ulp, as kernel_bwd_lmax2 (the same rounding points; "
+                        "fp32 sums in another order)"))
+        check(not bad, f"1M: #8 / #10 vs plain: {bad}")
+        # #10 whole and its plain version at these shapes, for the kernels line
+        bwd10_1m_ms = event_ms(lambda: fmg.generic_tab_bwd_kernels(cfg1m, *args1m, d_agg1m),
+                               iters=2, warmup=1)
+        plain10_1m_ms = event_ms(lambda: fmg.generic_tab_bwd_plain(cfg1m, *args1m, d_agg1m),
+                                 iters=1, warmup=0)
+    h1, geo1, loc1, gtab1, ws1, sels1 = args1m
+    nw1 = 4 * sum(w.numel() for w in ws1)
+    whole10_1m = bound(nbytes(h1, geo1, loc1, gtab1, *ws1, *sels1, d_agg1m, d_hr1m) + nw1 +
+                       gtab1.numel() * cfg1m.f * 2, 3 * kern1m.flops_per_slot() * n_valid_1m)
+    del kern1m, args1m, d_agg1m, d_hr1m, h1, geo1, loc1, gtab1, ws1, sels1, g1m, tabs1m
+
+    # ---- 19. fp32 gradients through #9 and through #10 against the plain path
+    pts = np.random.default_rng(SEED + 12).random((GC2_POINTS, 3)).astype(np.float32)
+    tile = SEGNNLayer._pick_generic_tile(GC2_POINTS)
+    levels = max(4, search_level_for_radius(GC2_RADIUS, LO, HI) + 1)
+    _, _, _, g_gc, _ = build_graph(pts, radius=GC2_RADIUS, levels=levels, k=L2_NEIGHBORS,
+                                   tile=tile)
+    t_gc = torch.from_numpy(np.random.default_rng(SEED + 13).standard_normal(
+        (GC2_POINTS, 3)).astype(np.float32)).to(dev)
+    m_p = lmax2_model(dev, use_pallas=False)
+    attrs_gc = geo_only(m_p, g_gc, torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    loss_p = mse_loss(m_p(g_gc, attrs=attrs_gc), t_gc)
+    loss_p.backward()
+    ref = {nm: p.grad for nm, p in m_p.named_parameters()}
+    peak_plain = torch.cuda.max_memory_allocated() / 1e9
+    gc = {}
+    for mode, kw, kern_ in (("residual", {}, fmg.GENERIC_TAB_BWD_RES),
+                            ("remat_kernel", dict(remat=True, remat_kernel=True),
+                             fmg.GENERIC_TAB_BWD_REP)):
+        m_k = lmax2_model(dev, **kw)
+        m_k.load_state_dict(m_p.state_dict())
+        check(all(layer._tab_eligible(GC2_POINTS, g_gc) for layer in m_k.layers),
+              "gradient check: not the tabled path")
+        before = kern_.launches
+        loss_k = mse_loss(m_k(g_gc, attrs=attrs_gc), t_gc)
+        loss_k.backward()
+        worst, worst_name = 0.0, ""
+        for nm, p in m_k.named_parameters():
+            rel = float((p.grad - ref[nm]).abs().max()) / max(float(ref[nm].abs().max()), 1e-30)
+            if rel > worst:
+                worst, worst_name = rel, nm
+        gc[mode] = dict(loss_kernel=loss_k.item(), worst_param=worst_name, worst_rel_err=worst,
+                        launches=kern_.launches - before)
+        check(kern_.launches - before == NUM_LAYERS,
+              f"gradient check {mode}: {kern_.name} launches")
+        check(worst <= TOL_GRAD_FP32,
+              f"lmax=2 fp32 gradients ({mode}): {worst_name} off by {worst}")
+        check(abs(loss_k.item() - loss_p.item()) <= 1e-5 * loss_p.item(), f"losses differ ({mode})")
+        del m_k, loss_k
+    emit("grad_check_lmax2", points=GC2_POINTS, radius=GC2_RADIUS, k=L2_NEIGHBORS, tile=tile,
+         layers=NUM_LAYERS, dtype="float32", edges_symmetrized=int(g_gc.edge_mask.sum()),
+         loss_plain=loss_p.item(), modes=gc, peak_mem_gb_plain_path=peak_plain,
+         tolerance=f"{TOL_GRAD_FP32} * max|ref| per parameter; fp32 sums in another order")
+    del m_p, ref, g_gc, attrs_gc, loss_p
+
+    # ---- 20. times (CUDA events) of the lmax=2 backward kernels, their plain
+    # versions, the reduction and the epilogue at the 250k bf16 shapes; bounds
+    b = bwd[bf]
+    cfg, args, d_agg, ys, part = b["cfg"], b["args"], b["d_agg"], b["ys"], b["part"]
+    h, geo2, loc, gtab, ws, sels = args
+    d_hs, d_hr, dy1, dy2, m0, m1 = b["chain"]
+    splits = part.shape[0]
+    n_valid = kres[bf]["n_valid"]
+    with torch.no_grad():
+        t = dict(
+            save_fwd_ms=event_ms(lambda: fmg.generic_tab_fwd(cfg, *args, save=True), iters=3,
+                                 warmup=1),
+            res_ms=event_ms(lambda: fmg.generic_tab_bwd_chain(cfg, *args, d_agg, ys), iters=3,
+                            warmup=1),
+            rep_ms=event_ms(lambda: fmg.generic_tab_bwd_chain(cfg, *args, d_agg), iters=3,
+                            warmup=1),
+            wgrad_ms=event_ms(lambda: fmg.generic_tab_bwd_wgrad(
+                cfg, geo2, m0, m1, dy1, dy2, splits), iters=3, warmup=1),
+            table_ms=event_ms(lambda: fmg.generic_tab_bwd_table(cfg, d_hs, loc), iters=5),
+            reduce_ms=event_ms(lambda: fm.tab_bwd_reduce(part), iters=10),
+            reduce_plain_ms=event_ms(lambda: fm.tab_bwd_reduce_plain(part), iters=10),
+            epilogue_ms=event_ms(lambda: fmg.generic_sender_epilogue(
+                b["got"][1], b["got"][0], *tabs), iters=5),
+            bwd9_ms=event_ms(lambda: fmg.generic_tab_bwd_kernels(cfg, *args, d_agg, ys=ys),
+                             iters=3, warmup=1),
+            bwd10_ms=event_ms(lambda: fmg.generic_tab_bwd_kernels(cfg, *args, d_agg), iters=3,
+                              warmup=1),
+            plain_res_ms=event_ms(lambda: fmg.generic_tab_bwd_plain(cfg, *args, d_agg, ys=ys),
+                                  iters=2, warmup=1),
+            plain_rep_ms=event_ms(lambda: fmg.generic_tab_bwd_plain(cfg, *args, d_agg),
+                                  iters=2, warmup=1),
+            wgrad_plain_ms=event_ms(lambda: fmg.generic_tab_bwd_wgrad_plain(
+                cfg, geo2, m0, m1, dy1, dy2, splits), iters=2, warmup=1),
+            table_plain_ms=event_ms(lambda: fmg.generic_tab_bwd_table_plain(cfg, d_hs, loc),
+                                    iters=3, warmup=1),
+            # the one PyTorch call that computes the table sum: index_add_
+            table_library_ms=event_ms(lambda: torch.zeros(
+                (gtab.numel() + 1, cfg.f), dtype=torch.float32, device=dev).index_add_(
+                0, torch.where(loc.reshape(-1) < cfg.u, (torch.arange(
+                    loc.numel(), device=dev) // (cfg.tile * cfg.k)) * cfg.u + loc.reshape(-1),
+                    gtab.numel()), d_hs.float()), iters=3, warmup=1))
+    # bounds: inputs read once, outputs written once; the multiply-adds the
+    # valid slots need (the folded nonzeros: one pass = flops_per_slot) at the
+    # bf16 tensor-core peak; the dense folded GEMMs beside them
+    fps, dense = kern.flops_per_slot(), cfg.dense_flops_per_slot()
+    wsz = nbytes(*ws, *sels)
+    res_bytes = nbytes(h, geo2, loc, gtab, *ys, d_agg, d_hs, d_hr, dy1, dy2, m0, m1) + wsz
+    rep_bytes = nbytes(h, geo2, loc, gtab, d_agg, d_hs, d_hr, dy1, dy2, m0, m1) + wsz
+    wgrad_bytes = nbytes(geo2, m0, m1, dy1, dy2, part)
+    table_bytes = nbytes(d_hs, loc) + gtab.numel() * cfg.f * 2
+    bounds = {  # the pieces as designed, each from the rows it reads and writes
+        "chain_res": bound(res_bytes, fps * n_valid),
+        "chain_rep": bound(rep_bytes, 2 * fps * n_valid),
+        fmg.GENERIC_TAB_BWD_WGRAD.name: bound(wgrad_bytes, fps * n_valid),
+        fmg.GENERIC_TAB_BWD_TABLE.name: bound(table_bytes, n_valid * cfg.f, PEAK_FP32_FMA_FLOPS),
+    }
+    # #9 and #10 whole (chain + weight gradients + table sum): the bytes of
+    # their inputs and outputs, 2 (#9) and 3 (#10) passes of the folded products
+    nw_bytes = 4 * part.shape[1]
+    whole9 = bound(nbytes(h, geo2, loc, gtab, *ys, d_agg, d_hr) + wsz + nw_bytes +
+                   gtab.numel() * cfg.f * 2, 2 * fps * n_valid)
+    whole10 = bound(nbytes(h, geo2, loc, gtab, d_agg, d_hr) + wsz + nw_bytes +
+                    gtab.numel() * cfg.f * 2, 3 * fps * n_valid)
+    red_bound = bound(nbytes(part) + nw_bytes, part.numel(), PEAK_FP32_FMA_FLOPS)
+    emit("train_times_lmax2", card=card, step_ms_250k=step_ms_250k, step_ms_1m=step_ms_1m,
+         **t, valid_slots=n_valid, flops_per_slot_pass=fps, dense_flops_per_slot_pass=dense,
+         bounds={k_: dict(bound_ms=v[0], bound_by=v[1], bytes_ms=v[2], ops_ms=v[3])
+                 for k_, v in bounds.items()},
+         dense_gemm_bf16_ms={"res": dense * n_valid / PEAK_BF16_FLOPS * 1e3,
+                             "rep": 2 * dense * n_valid / PEAK_BF16_FLOPS * 1e3,
+                             "wgrad": dense * n_valid / PEAK_BF16_FLOPS * 1e3},
+         bwd9_whole_bound=dict(bound_ms=whole9[0], bound_by=whole9[1], bytes_ms=whole9[2],
+                               ops_ms=whole9[3], dense_gemm_bf16_ms=2 * dense * n_valid /
+                               PEAK_BF16_FLOPS * 1e3),
+         bwd10_whole_bound=dict(bound_ms=whole10[0], bound_by=whole10[1], bytes_ms=whole10[2],
+                                ops_ms=whole10[3], dense_gemm_bf16_ms=3 * dense * n_valid /
+                                PEAK_BF16_FLOPS * 1e3),
+         bwd10_1m_ms=bwd10_1m_ms, plain_rep_1m_ms=plain10_1m_ms, valid_slots_1m=n_valid_1m,
+         bwd10_1m_whole_bound=dict(bound_ms=whole10_1m[0], bound_by=whole10_1m[1],
+                                   bytes_ms=whole10_1m[2], ops_ms=whole10_1m[3],
+                                   dense_gemm_bf16_ms=3 * dense * n_valid_1m /
+                                   PEAK_BF16_FLOPS * 1e3),
+         reduce_bound_ms=red_bound[0], reduce_blocks=splits, profile_250k=prof)
+
+    # #9 and #10 are the whole backward (chain + weight-gradient kernel + table
+    # sum + reduction), each on its main path's shapes (#9 250k, #10 1M),
+    # against the bound of the TPU function's own inputs and outputs; the
+    # weight-gradient kernel and the table sum are pieces of both, bound by
+    # the bytes of the rows the chain writes for them
+    cmp = bwd[bf]["cmp"]
+    whole = ("d_hu", "d_hr", "dW1", "dW2")
+    piece = dict(piece_of=[fmg.GENERIC_TAB_BWD_RES.name, fmg.GENERIC_TAB_BWD_REP.name])
+    rows = {
+        fmg.GENERIC_TAB_BWD_RES.name: dict(
+            launches=launches_250k[fmg.GENERIC_TAB_BWD_RES.name],
+            max_abs_err=max(cmp["res"][nm]["max_abs_err"] for nm in whole), ms=t["bwd9_ms"],
+            plain_ms=t["plain_res_ms"], bound_ms=whole9[0], bound_by=whole9[1],
+            library_ms=None, chain_ms=t["res_ms"]),
+        fmg.GENERIC_TAB_BWD_REP.name: dict(
+            launches=launches_1m[fmg.GENERIC_TAB_BWD_REP.name],
+            max_abs_err=max(cmp1m[nm]["max_abs_err"] for nm in whole), ms=bwd10_1m_ms,
+            plain_ms=plain10_1m_ms, bound_ms=whole10_1m[0], bound_by=whole10_1m[1],
+            library_ms=None),
+        fmg.GENERIC_TAB_BWD_WGRAD.name: dict(
+            launches=launches_250k[fmg.GENERIC_TAB_BWD_WGRAD.name],
+            max_abs_err=cmp["wgrad"]["partials"]["max_abs_err"], ms=t["wgrad_ms"],
+            plain_ms=t["wgrad_plain_ms"], bound_ms=bounds[fmg.GENERIC_TAB_BWD_WGRAD.name][0],
+            bound_by=bounds[fmg.GENERIC_TAB_BWD_WGRAD.name][1], library_ms=None, **piece),
+        fmg.GENERIC_TAB_BWD_TABLE.name: dict(
+            launches=launches_250k[fmg.GENERIC_TAB_BWD_TABLE.name],
+            max_abs_err=cmp["table"]["d_hu"]["max_abs_err"], ms=t["table_ms"],
+            plain_ms=t["table_plain_ms"], bound_ms=bounds[fmg.GENERIC_TAB_BWD_TABLE.name][0],
+            bound_by=bounds[fmg.GENERIC_TAB_BWD_TABLE.name][1],
+            library_ms=t["table_library_ms"], **piece),
+    }
+    return rows
 
 
 def main() -> int:
@@ -481,7 +934,7 @@ def main() -> int:
     t0 = time.perf_counter()
     built = build_libraries(sorted({kern.source_name for kern in ALL_KERNELS}))
     ptxas = [ln.strip() for b in built.values() for ln in b["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "Function properties" in ln]
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          per_source={k: round(v["seconds"], 3) for k, v in built.items()}, ptxas=ptxas)
 
@@ -611,8 +1064,7 @@ def main() -> int:
         out = fwd()
         torch.cuda.synchronize()
         fwd_launches = launch_counts()
-        check(fwd_launches == {fm.TAB_FWD.name: NUM_LAYERS, fm.TAB_BWD.name: 0,
-                               fm.TAB_BWD_REDUCE.name: 0, fmg.GENERIC_TAB_FWD.name: 0},
+        check(fwd_launches == expected({fm.TAB_FWD.name: NUM_LAYERS}),
               f"{fwd_launches} kernel launches in one forward, expected {NUM_LAYERS} forward")
         check(tuple(out.shape) == (N_POINTS, 3), f"output shape {tuple(out.shape)}")
         check(bool(torch.isfinite(out).all()), "non-finite output")
@@ -648,14 +1100,8 @@ def main() -> int:
     target = torch.from_numpy(np.random.default_rng(SEED + 2).standard_normal(
         (N_POINTS, 3)).astype(np.float32)).to(dev)
 
-    def loss_fn(m, g, a, t):
-        # bench.py's loss: the forward under bf16 copies of the fp32 masters,
-        # so the gradients flow back through the casts to fp32
-        p = {nm: w.to(bf) for nm, w in m.named_parameters()}
-        return mse_loss(torch.func.functional_call(m, p, (g,), {"attrs": a}).float(), t)
-
     opt = torch.optim.Adam(model.parameters(), lr=LEARNING_RATE, betas=(0.9, 0.999), eps=1e-8)
-    step = make_train_step(model, loss_fn, opt)
+    step = make_train_step(model, bf16_loss, opt)
     losses, norms, per_step = [], [], []
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -669,8 +1115,8 @@ def main() -> int:
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     train_launches = launch_counts()
-    want = {fm.TAB_FWD.name: NUM_LAYERS, fm.TAB_BWD.name: NUM_LAYERS,
-            fm.TAB_BWD_REDUCE.name: NUM_LAYERS, fmg.GENERIC_TAB_FWD.name: 0}
+    want = expected({fm.TAB_FWD.name: NUM_LAYERS, fm.TAB_BWD.name: NUM_LAYERS,
+                     fm.TAB_BWD_REDUCE.name: NUM_LAYERS})
     masters = all(p.dtype == torch.float32 for p in model.parameters())
     emit("train", points=N_POINTS, layers=NUM_LAYERS, steps=TRAIN_STEPS,
          compute_dtype="bfloat16", master_dtype="float32" if masters else "mixed",
@@ -784,7 +1230,11 @@ def main() -> int:
     check(prof["device_ms_per_step"] > 0, "the profiler saw no device time")
 
     # ---- 12-15. the lmax=2 config-4 proxy: graph, kernel #8, forward, times
-    l2 = lmax2_phases(card)
+    l2, l2ctx = lmax2_phases(card)
+
+    # ---- 16-20. lmax=2 training: #9 at 250k, #10 at 1M
+    l2t = lmax2_train_phases(card, l2ctx)
+    del l2ctx
 
     src = lambda kern: str(kern.source.relative_to(Path(__file__).resolve().parent))
     print(json.dumps({"kernels": [
@@ -804,7 +1254,11 @@ def main() -> int:
          "replaces": f"{GENERIC_TPU_FILE}:937", "launches": l2["launches"],
          "max_abs_err": l2["max_abs_err"], "ms": l2["ms"], "plain_ms": l2["plain_ms"],
          "bound_ms": l2["bound_ms"], "bound_by": l2["bound_by"], "library_ms": None},
-    ]}), flush=True)
+    ] + [{"name": kern.name, "route": "cuda", "source": src(kern),
+          "replaces": f"{GENERIC_TPU_FILE}:{line}", **l2t[kern.name]}
+         for kern, line in ((fmg.GENERIC_TAB_BWD_RES, 998), (fmg.GENERIC_TAB_BWD_REP, 1082),
+                            (fmg.GENERIC_TAB_BWD_WGRAD, 1044), (fmg.GENERIC_TAB_BWD_TABLE, 1032))]
+    }), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

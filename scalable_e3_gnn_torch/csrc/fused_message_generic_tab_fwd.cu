@@ -9,6 +9,10 @@
 //   m_l+1  = y_l[:, :dk_l] * sigmoid(y_l)[:, sel_l]                   (l = 0, 1)
 //   agg[i] = sum_k mask[i,k] * m_2
 //
+// With y1/y2 given (the save mode of _fwd_call_tab(save=True), for the
+// residual backward) the kernel also writes each layer's pre-gate y_l, rounded
+// to the data type, one row per slot: y_l[i*K + k] (node-major [N*K, D_l]).
+//
 // W_l [A*C1_l, D_l] are the CG-folded weights with their columns permuted to
 // scalars || gated || gates, sel_l [dk_l] the sigmoid lane of each gate output
 // (the TPU kernel's 0/1 selection matmul with psel, as a lookup: one 1 per
@@ -289,13 +293,24 @@ __device__ __forceinline__ float gate_out(const float* yrow, const int* __restri
   return round_dt<T>(y * s);
 }
 
+// the save mode: y rounded to the data type into y [N*K][D], rows of real
+// receivers only (reads Ys, as the stage after it does)
+template <typename T>
+__device__ __forceinline__ void save_y(T* __restrict__ y, int dd, const float* Ys,
+                                       const int* rnode, int node0, const Dims& d) {
+  for (int w = threadIdx.x; w < d.rows * dd; w += blockDim.x) {
+    const int r = w / dd, j = w % dd;
+    if (rnode[r] >= 0) y[((long)node0 * d.k + r) * dd + j] = from_f<T>(Ys[r * d.ldy + j]);
+  }
+}
+
 template <typename T, bool MMA>
 __global__ void __launch_bounds__(kThreads, 1)
 generic_tab_fwd_kernel(const T* __restrict__ h, const T* __restrict__ geo2,
                        const int* __restrict__ loc, const int* __restrict__ gtab,
                        const T* __restrict__ w1, const int* __restrict__ sel1,
                        const T* __restrict__ w2, const int* __restrict__ sel2,
-                       T* __restrict__ out, Dims d) {
+                       T* __restrict__ out, T* __restrict__ y1, T* __restrict__ y2, Dims d) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* p = smem_raw;
   float* Ys = reinterpret_cast<float*>(p);
@@ -364,6 +379,7 @@ generic_tab_fwd_kernel(const T* __restrict__ h, const T* __restrict__ geo2,
   if constexpr (MMA) layer_mma(w1, d.c1a, d.da, d, Ms, Wsl, Ys, geo);
   else layer_fma<T>(w1, d.c1a, d.da, d, Ms, Wsl, Ys, geo);
   __syncthreads();
+  if (y1 != nullptr) save_y<T>(y1, d.da, Ys, rnode, node0, d);
   // ---- layer-1 gate -> layer-2 input rows, zero-padded to c1p (a warp per row)
   for (int r = warp; r < d.rows; r += nwarps) {
     const float* yrow = Ys + r * d.ldy;
@@ -376,6 +392,7 @@ generic_tab_fwd_kernel(const T* __restrict__ h, const T* __restrict__ geo2,
   if constexpr (MMA) layer_mma(w2, d.c1b, d.db, d, Ms, Wsl, Ys, geo);
   else layer_fma<T>(w2, d.c1b, d.db, d, Ms, Wsl, Ys, geo);
   __syncthreads();
+  if (y2 != nullptr) save_y<T>(y2, d.db, Ys, rnode, node0, d);
   // ---- layer-2 gate, mask, fp32 sum over K in slot order (a warp per receiver)
   for (int i = warp; i < d.rb && node0 + i < d.n; i += nwarps) {
     for (int j = lane; j < d.dk2; j += 32) {
@@ -408,7 +425,7 @@ long smem_for(int dtype, int k, int a, int c1a, int da, int c1b, int db) {
 template <typename T, bool MMA>
 int launch(const Dims& d, const void* h, const void* geo2, const int* loc, const int* gtab,
            const void* w1, const int* sel1, const void* w2, const int* sel2, void* out,
-           cudaStream_t stream) {
+           void* y1, void* y2, cudaStream_t stream) {
   const long smem = smem_bytes<T>(d);
   auto kern = generic_tab_fwd_kernel<T, MMA>;
   cudaError_t err =
@@ -418,7 +435,8 @@ int launch(const Dims& d, const void* h, const void* geo2, const int* loc, const
   if (grid < 1) return 0;
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(h), static_cast<const T*>(geo2), loc, gtab,
-      static_cast<const T*>(w1), sel1, static_cast<const T*>(w2), sel2, static_cast<T*>(out), d);
+      static_cast<const T*>(w1), sel1, static_cast<const T*>(w2), sel2, static_cast<T*>(out),
+      static_cast<T*>(y1), static_cast<T*>(y2), d);
   return (int)cudaGetLastError();
 }
 
@@ -435,11 +453,12 @@ long fused_message_generic_tab_fwd_smem_bytes(int dtype, int k, int a, int c1a, 
 
 // dtype: 0 = float32 (the FMA engine, weights [A*C1][D]), 1 = bfloat16 (the
 // tensor-core engine, weights [A][D rounded up to 8][C1 rounded up to 16],
-// transposed and zero-padded).  Returns cudaGetLastError() after the launch
-// (0 on success).
+// transposed and zero-padded).  y1, y2: null, or the save mode's [N*K, D_l]
+// outputs.  Returns cudaGetLastError() after the launch (0 on success).
 int fused_message_generic_tab_fwd(int dtype, const void* h, const void* geo2, const void* loc,
                                   const void* gtab, const void* w1, const void* sel1,
-                                  const void* w2, const void* sel2, void* out, int n, int f,
+                                  const void* w2, const void* sel2, void* out, void* y1,
+                                  void* y2, int n, int f,
                                   int k, int a, int tile, int u, int c1a, int da, int dk1,
                                   int c1b, int db, int dk2, void* stream) {
   if (smem_for(dtype, k, a, c1a, da, c1b, db) < 0) return (int)cudaErrorInvalidValue;
@@ -450,11 +469,12 @@ int fused_message_generic_tab_fwd(int dtype, const void* h, const void* geo2, co
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     const Dims d = make_dims(false, n, f, k, a, tile, u, c1a, da, dk1, c1b, db, dk2);
-    return launch<float, false>(d, h, geo2, loc_i, gtab_i, w1, s1, w2, s2, out, st);
+    return launch<float, false>(d, h, geo2, loc_i, gtab_i, w1, s1, w2, s2, out, y1, y2, st);
   }
   if (dtype == 1) {
     const Dims d = make_dims(true, n, f, k, a, tile, u, c1a, da, dk1, c1b, db, dk2);
-    return launch<__nv_bfloat16, true>(d, h, geo2, loc_i, gtab_i, w1, s1, w2, s2, out, st);
+    return launch<__nv_bfloat16, true>(d, h, geo2, loc_i, gtab_i, w1, s1, w2, s2, out, y1, y2,
+                                       st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,9 +1,10 @@
-"""Generic fused message MLP + neighbourhood aggregation, tabled gather, forward.
+"""Generic fused message MLP + neighbourhood aggregation, tabled gather.
 
 Counterpart of ``scalable_e3_gnn_tpu/kernels/fused_message_generic.py::
-FusedMessageGeneric.geo_call_tab`` (its forward, ``_fwd_call_tab``) for any
-hidden irreps and attribute order: the lmax=2 configurations.  Per receiver i
-and slot k:
+FusedMessageGeneric.geo_call_tab`` (its forward ``_fwd_call_tab`` and its two
+backwards, ``_bwd_call_res_tab`` and ``_bwd_call_rep_tab``) for any hidden
+irreps and attribute order: the lmax=2 configurations.  Per receiver i and
+slot k:
 
     m_0    = [h[gtab[i // tile, loc[i,k]]] || h[i] || d2[i,k]]     (C1 = 2F+1)
     y_l    = sum_c (m_l @ W'_l,c) * attr_c[i,k]                       (C2 = A)
@@ -17,56 +18,95 @@ sigmoid lane that multiplies each output lane.  ``loc == U`` means no sender
 (a zero row).  The geometry rides the node-major packed stream ``geo2``
 [N, K*(A+2)] (per slot ``attr || d2 || mask``).
 
-Rounding points (the TPU kernel's, in both implementations): operands in the
-data dtype; each component's GEMM accumulated in fp32 and scaled by attr_c in
-fp32, summed over c in fp32, cast to the data dtype (y); sigmoid in fp32 cast
-to the dtype; the gate product in the dtype; ``msg * mask`` in the dtype; the
-K-sum in fp32; the output cast to the dtype.
+Forward rounding points (the TPU kernel's, in both implementations): operands
+in the data dtype; each component's GEMM accumulated in fp32 and scaled by
+attr_c in fp32, summed over c in fp32, cast to the data dtype (y); sigmoid in
+fp32 cast to the dtype; the gate product in the dtype; ``msg * mask`` in the
+dtype; the K-sum in fp32; the output cast to the dtype.  The save mode also
+returns every layer's pre-gate ``y`` [N*K, D] (node-major slot rows).
 
-- ``generic_tab_fwd_plain``: PyTorch ops, in chunks of receivers so the
-  [rows, C1] temporaries stay bounded (a whole [4M, 181] fp32 one is 2.9 GB).
-  The CPU tests and the on-card checks use it.
-- ``generic_tab_fwd``: a CPU tensor goes to the plain version; a CUDA tensor
-  goes to the hand-written kernel ``csrc/fused_message_generic_tab_fwd.cu``
-  or raises.
-- ``fused_message_generic_tabled``: the autograd entry
-  (``FusedMessageGenericTabled``); its backward (TPU kernels #9/#10) is not
-  ported and raises.
-- ``FusedMessageGeneric``: the per-layer object the model dispatches to
-  (folds and permutes the weights, then ``geo_call_tab``).
+Backward rounding points (``_transpose_chain`` with the VJP of
+``Gate.fast_apply`` as JAX's AD computes it): dm_L = (K-repeat of d_agg in
+fp32) * mask cast to the dtype; per layer, last to first, dy = the gate's VJP
+at y (products in the dtype, the sigmoid branch in fp32, the selection
+transpose summed in fp32, each cast to the dtype, the two branches added in
+the dtype); dya_c = dy * attr_c in the dtype; dW'_c = m^T dya_c summed in
+fp32; dm = sum_c dya_c W'_c^T in fp32 cast to the dtype.  d_hu (per tile,
+per table entry) and d_hr (per receiver) are fp32 sums of dm_0's rounded
+sender and receiver columns, cast to the dtype.
+
+- ``generic_tab_fwd_plain`` / ``generic_tab_bwd_plain``: PyTorch ops, in
+  chunks of receivers so the [rows, C1] temporaries stay bounded.  The CPU
+  tests and the on-card checks use them.  The backward replays the forward
+  (``ys=None``, kernel #10's function) or reads the saved ys (#9's).
+- ``generic_tab_fwd`` / ``generic_tab_bwd``: a CPU tensor goes to the plain
+  version; a CUDA tensor goes to the hand-written kernels
+  (``csrc/fused_message_generic_tab_fwd.cu``, ``csrc/
+  fused_message_generic_tab_bwd.cu`` with the fixed-order reduction of
+  ``csrc/fused_message_tab_bwd.cu``) or raises.
+- ``generic_sender_epilogue``: the split reverse-table gather-sum of
+  ``call_tab_bwd``, in its order.
+- ``FusedMessageGenericTabled``: the autograd Function; ``FusedMessageGeneric``
+  the per-layer object the model dispatches to (folds and permutes the
+  weights outside the Function, so autograd carries dW' to the parameters).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import dataclass
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .build import CudaKernel
-from .fused_message import _DTYPE_CODE, _MAX_SMEM, _cuda_args
+from .fused_message import _DTYPE_CODE, _MAX_SMEM, _cuda_args, tab_bwd_reduce
 
 __all__ = ["GenericConfig", "FusedMessageGeneric", "FusedMessageGenericTabled",
            "fused_message_generic_tabled", "generic_tab_fwd", "generic_tab_fwd_plain",
-           "GENERIC_TAB_FWD", "KERNELS"]
+           "generic_tab_bwd", "generic_tab_bwd_plain", "generic_tab_bwd_kernels",
+           "generic_tab_bwd_chain", "generic_tab_bwd_wgrad", "generic_tab_bwd_wgrad_plain",
+           "generic_tab_bwd_table", "generic_tab_bwd_table_plain",
+           "generic_sender_epilogue", "GENERIC_TAB_FWD", "GENERIC_TAB_BWD_RES",
+           "GENERIC_TAB_BWD_REP", "GENERIC_TAB_BWD_WGRAD", "GENERIC_TAB_BWD_TABLE", "KERNELS"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 GENERIC_TAB_FWD = CudaKernel("fused_message_generic_tab_fwd", {
     # dtype, k, a, c1a, da, c1b, db -> bytes (negative: widths not taken)
     "fused_message_generic_tab_fwd_smem_bytes": (ctypes.c_long, [_I] * 7),
-    # dtype, 9 pointers (h, geo2, loc, gtab, w1, sel1, w2, sel2, out),
-    # n, f, k, a, tile, u, c1a, da, dk1, c1b, db, dk2, stream
-    "fused_message_generic_tab_fwd": (_I, [_I] + [_P] * 9 + [_I] * 12 + [_P]),
+    # dtype, 11 pointers (h, geo2, loc, gtab, w1, sel1, w2, sel2, out, y1, y2;
+    # y1/y2 null: no save), n, f, k, a, tile, u, c1a, da, dk1, c1b, db, dk2, stream
+    "fused_message_generic_tab_fwd": (_I, [_I] + [_P] * 11 + [_I] * 12 + [_P]),
 })
+_BWD_SRC = "fused_message_generic_tab_bwd"
+_BWD_SIGS = {
+    # dtype, k, a, c1a, da, c1b, db -> bytes of the chain kernel (negative: not taken)
+    "fused_message_generic_tab_bwd_smem_bytes": (ctypes.c_long, [_I] * 7),
+    # dtype, replay, 17 pointers (h, geo2, loc, gtab, w1, sel1, w2, sel2, y1 in,
+    # y2 in, d_agg, d_hs, d_hr, dy1, dy2, m0, m1), n, f, k, a, tile, u, c1a, da,
+    # dk1, c1b, db, dk2, stream
+    "fused_message_generic_tab_bwd_chain": (_I, [_I, _I] + [_P] * 17 + [_I] * 12 + [_P]),
+    # dtype, 6 pointers (geo2, m0, m1, dy1, dy2, partials), n, k, a, c1a, da, c1b,
+    # db, splits, stream
+    "fused_message_generic_tab_bwd_wgrad": (_I, [_I] + [_P] * 6 + [_I] * 8 + [_P]),
+    # dtype, d_hs, loc, d_hu, n, f, k, tile, u, stream
+    "fused_message_generic_tab_bwd_table": (_I, [_I, _P, _P, _P] + [_I] * 5 + [_P]),
+}
+# kernel #9 (residual) and #10 (replay): one source, one chain kernel each; the
+# two share the weight-gradient kernel, the table sum and PR 2's reduction
+GENERIC_TAB_BWD_RES = CudaKernel("fused_message_generic_tab_bwd_res", _BWD_SIGS,
+                                 source_name=_BWD_SRC)
+GENERIC_TAB_BWD_REP = CudaKernel("fused_message_generic_tab_bwd_rep", _BWD_SIGS,
+                                 source_name=_BWD_SRC)
+GENERIC_TAB_BWD_WGRAD = CudaKernel("fused_message_generic_tab_bwd_wgrad", _BWD_SIGS,
+                                   source_name=_BWD_SRC)
+GENERIC_TAB_BWD_TABLE = CudaKernel("fused_message_generic_tab_bwd_table", _BWD_SIGS,
+                                   source_name=_BWD_SRC)
 
-KERNELS = (GENERIC_TAB_FWD,)
-
-_NOT_PORTED_BWD = (
-    "the backward of the generic tabled message kernel (TPU kernels #9 "
-    "_bwd_call_res_tab and #10 _bwd_call_rep_tab) is ported in a later slice, "
-    "the lmax=2 training slice")
+KERNELS = (GENERIC_TAB_FWD, GENERIC_TAB_BWD_RES, GENERIC_TAB_BWD_REP, GENERIC_TAB_BWD_WGRAD,
+           GENERIC_TAB_BWD_TABLE)
 
 
 @dataclass(frozen=True)
@@ -122,9 +162,78 @@ def _check_inputs(cfg: GenericConfig, h, geo2, loc, gtab, ws, sels):
         c1_next = dk
 
 
+def _check_bwd_inputs(cfg: GenericConfig, h, d_agg, ys):
+    n = h.shape[0]
+    if tuple(d_agg.shape) != (n, cfg.out_dim) or d_agg.dtype != h.dtype:
+        raise ValueError(f"d_agg is {d_agg.dtype} {tuple(d_agg.shape)}, wants "
+                         f"{h.dtype} {(n, cfg.out_dim)}")
+    if ys is not None:
+        if len(ys) != len(cfg.widths):
+            raise ValueError(f"{len(ys)} saved ys for {len(cfg.widths)} layers")
+        for i, (y, (_, d, _)) in enumerate(zip(ys, cfg.widths)):
+            if tuple(y.shape) != (n * cfg.k, d) or y.dtype != h.dtype:
+                raise ValueError(f"saved y {i} is {y.dtype} {tuple(y.shape)}, wants "
+                                 f"{h.dtype} {(n * cfg.k, d)}")
+
+
+def _slot_rows(cfg: GenericConfig, h, geo2, loc, gtab, s: int, e: int):
+    """Layer-1 input rows of receivers [s, e) in the data dtype, m_0 [(e-s)*K,
+    2F+1], with their attributes (fp32 of the dtype values) [rows, A], slot
+    masks [rows, 1] (dtype) and flat table index (ntiles*U: no sender)."""
+    n, f = h.shape
+    k, a, u = cfg.k, cfg.a, cfg.u
+    c = e - s
+    flat = gtab.reshape(-1).long()
+    locc = loc[s:e].long()
+    tile_of = (torch.arange(s, e, device=h.device) // cfg.tile)[:, None]
+    slot_tab = tile_of * u + torch.clamp(locc, max=u - 1)
+    snd = flat[slot_tab]
+    valid = (locc < u) & (snd < n)
+    hs = torch.where(valid[..., None], h[torch.clamp(snd, max=n - 1)], h.new_zeros(()))
+    g3 = geo2[s:e].reshape(c, k, a + 2)
+    m = torch.cat([hs, h[s:e, None, :].expand(c, k, f), g3[..., a:a + 1]], dim=-1)
+    tab = torch.where(locc < u, slot_tab, flat.numel())
+    return (m.reshape(c * k, 2 * f + 1), g3[..., :a].reshape(c * k, a).float(),
+            g3[..., a + 1].reshape(c * k, 1), tab.reshape(-1))
+
+
+def _layer_y(m, w, attr, c1: int, a: int):
+    """y = sum_c (m @ W_c) * attr_c: each product in fp32, scaled in fp32,
+    summed over c in fp32, cast to m's dtype."""
+    mf = m.float()
+    acc = None
+    for cc in range(a):
+        t = (mf @ w[cc * c1:(cc + 1) * c1]) * attr[:, cc:cc + 1]
+        acc = t if acc is None else acc + t
+    return acc.to(m.dtype)
+
+
+def _gate(y, sel, dk: int):
+    sg = torch.sigmoid(y.float()).to(y.dtype)
+    return y[:, :dk] * sg[:, sel]
+
+
+def _gate_vjp(y, dout, sel, dk: int):
+    """dy of ``out = y[:, :dk] * sigmoid(y)[:, sel]`` (``Gate.fast_apply``) as
+    JAX's AD computes it in y's dtype: the direct branch dout * multiplier in
+    the dtype; the selection transpose of dout * y summed in fp32 and cast;
+    the sigmoid's VJP g * (s * (1 - s)) in fp32 and cast; the two branches
+    added in the dtype."""
+    dt = y.dtype
+    sig = torch.sigmoid(y.float())
+    mlt = sig.to(dt)[:, sel]
+    d_direct = dout * mlt
+    d_mlt = (dout * y[:, :dk]).float()
+    d_sg = torch.zeros_like(sig).index_add_(1, sel, d_mlt).to(dt)
+    d_sig = (d_sg.float() * (sig * (1.0 - sig))).to(dt)
+    return torch.cat([d_direct + d_sig[:, :dk], d_sig[:, dk:]], dim=-1)
+
+
 def generic_tab_fwd_plain(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence, sels: Sequence,
-                          chunk_rows: int = 1 << 18):
-    """agg [N, dk_last] in h's dtype, by PyTorch ops (any device).
+                          chunk_rows: int = 1 << 18, save: bool = False):
+    """agg [N, dk_last] in h's dtype, by PyTorch ops (any device); with
+    ``save``, ``(agg, [y_1, y_2])``, each y the pre-gate layer output [N*K, D]
+    in h's dtype, one row per slot (node-major).
 
     h [N, F] cm-layout node features, N a multiple of cfg.tile; geo2
     [N, K*(A+2)] in h's dtype; loc [N, K] int32 slot -> table index (pad U);
@@ -133,60 +242,101 @@ def generic_tab_fwd_plain(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence, 
     Receivers go in chunks of ``chunk_rows // K``."""
     _check_inputs(cfg, h, geo2, loc, gtab, ws, sels)
     dt = h.dtype
-    n, f = h.shape
-    k, a, u = cfg.k, cfg.a, cfg.u
-    flat = gtab.reshape(-1).long()
+    n = h.shape[0]
+    k = cfg.k
     wts = [w.float() for w in ws]
     sels = [s.long() for s in sels]
     out = torch.empty((n, cfg.out_dim), dtype=dt, device=h.device)
+    ys = [torch.empty((n * k, d), dtype=dt, device=h.device) for _, d, _ in cfg.widths] \
+        if save else None
     step = max(1, chunk_rows // k)
     for s in range(0, n, step):
         e = min(n, s + step)
-        c = e - s
-        locc = loc[s:e].long()
-        tile_of = (torch.arange(s, e, device=h.device) // cfg.tile)[:, None]
-        snd = flat[tile_of * u + torch.clamp(locc, max=u - 1)]
-        valid = (locc < u) & (snd < n)
-        hs = torch.where(valid[..., None], h[torch.clamp(snd, max=n - 1)], h.new_zeros(()))
-        g3 = geo2[s:e].reshape(c, k, a + 2)
-        m = torch.cat([hs, h[s:e, None, :].expand(c, k, f), g3[..., a:a + 1]], dim=-1)
-        m = m.reshape(c * k, 2 * f + 1)
-        attr = g3[..., :a].reshape(c * k, a).float()
-        for w, sel, (c1, _, dk) in zip(wts, sels, cfg.widths):
-            mf = m.float()
+        m, attr, mask, _ = _slot_rows(cfg, h, geo2, loc, gtab, s, e)
+        for i, (w, sel, (c1, _, dk)) in enumerate(zip(wts, sels, cfg.widths)):
+            y = _layer_y(m, w, attr, c1, cfg.a)
+            if save:
+                ys[i][s * k:e * k] = y
+            m = _gate(y, sel, dk)
+        out[s:e] = (m * mask).reshape(e - s, k, -1).float().sum(dim=1).to(dt)
+    return (out, ys) if save else out
+
+
+def generic_tab_bwd_plain(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence, sels: Sequence,
+                          d_agg, ys: Optional[Sequence] = None, chunk_rows: int = 1 << 18):
+    """The backward of the tabled generic message up to the epilogue, by
+    PyTorch ops (any device): ``(d_hu [ntiles*U, F], d_hr [N, F], [dW'_1,
+    dW'_2] fp32)`` for the cotangent ``d_agg`` [N, dk_last] in h's dtype.
+
+    ``ys=None`` replays the forward (kernel #10's function); with the saved
+    ``ys`` of ``generic_tab_fwd_plain(save=True)`` it reads them (#9's).
+    Both round y where the forward does, so both give the same result."""
+    _check_inputs(cfg, h, geo2, loc, gtab, ws, sels)
+    _check_bwd_inputs(cfg, h, d_agg, ys)
+    dt = h.dtype
+    n, f = h.shape
+    k, a = cfg.k, cfg.a
+    wts = [w.float() for w in ws]
+    sels = [s.long() for s in sels]
+    ntab = gtab.numel()
+    d_hu = torch.zeros((ntab + 1, f), dtype=torch.float32, device=h.device)
+    d_hr = torch.empty((n, f), dtype=dt, device=h.device)
+    dws = [torch.zeros_like(w) for w in wts]
+    step = max(1, chunk_rows // k)
+    for s in range(0, n, step):
+        e = min(n, s + step)
+        m0, attr, mask, tab = _slot_rows(cfg, h, geo2, loc, gtab, s, e)
+        ms, yts = [m0], []
+        for i, (w, sel, (c1, _, dk)) in enumerate(zip(wts, sels, cfg.widths)):
+            y = ys[i][s * k:e * k] if ys is not None else _layer_y(ms[-1], w, attr, c1, a)
+            yts.append(y)
+            if i + 1 < len(wts):
+                ms.append(_gate(y, sel, dk))
+        attr_dt = attr.to(dt)
+        dm = (d_agg[s:e].float().repeat_interleave(k, dim=0) * mask.float()).to(dt)
+        for i in range(len(wts) - 1, -1, -1):
+            c1, _, dk = cfg.widths[i]
+            dy = _gate_vjp(yts[i], dm, sels[i], dk)
+            mi = ms[i].float()
             acc = None
             for cc in range(a):
-                t = (mf @ w[cc * c1:(cc + 1) * c1]) * attr[:, cc:cc + 1]
+                dya = (dy * attr_dt[:, cc:cc + 1]).float()
+                wc = wts[i][cc * c1:(cc + 1) * c1]
+                dws[i][cc * c1:(cc + 1) * c1] += mi.T @ dya
+                t = dya @ wc.T
                 acc = t if acc is None else acc + t
-            y = acc.to(dt)
-            sg = torch.sigmoid(y.float()).to(dt)
-            m = y[:, :dk] * sg[:, sel]
-        msg = m * g3[..., a + 1].reshape(c * k, 1)
-        out[s:e] = msg.reshape(c, k, -1).float().sum(dim=1).to(dt)
-    return out
+            dm = acc.to(dt)
+        d_hu.index_add_(0, tab, dm[:, :f].float())
+        d_hr[s:e] = dm[:, f:2 * f].reshape(e - s, k, f).float().sum(dim=1).to(dt)
+    return d_hu[:ntab].to(dt), d_hr, dws
 
 
-def _mma_layout(w, a: int, c1: int, d: int):
-    """[A*C1, D] -> [A, D rounded up to 8, C1 rounded up to 16], transposed
-    and zero-padded: the tensor-core engine's weight layout, one contiguous
-    slice per attribute component."""
-    dp, kp = -(-d // 8) * 8, -(-c1 // 16) * 16
+def _mma_layout(w, a: int, c1: int, d: int, dmul: int = 8):
+    """[A*C1, D] -> [A, D rounded up to dmul, C1 rounded up to 16], transposed
+    and zero-padded: the tensor-core engines' weight layout, one contiguous
+    slice per attribute component (the backward pads D to 16)."""
+    dp, kp = -(-d // dmul) * dmul, -(-c1 // 16) * 16
     out = w.new_zeros((a, dp, kp))
     out[:, :d, :c1] = w.view(a, c1, d).transpose(1, 2)
     return out
 
 
-def generic_tab_fwd(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence, sels: Sequence):
-    """agg [N, dk_last]: the hand-written CUDA kernel for CUDA tensors (two
-    message layers), the plain version for CPU tensors.  Arguments as in the
-    plain version."""
+def _widths2(cfg: GenericConfig):
+    if len(cfg.widths) != 2:
+        raise NotImplementedError(f"the CUDA kernels run two message layers, not {len(cfg.widths)}")
+    return cfg.widths
+
+
+def generic_tab_fwd(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence, sels: Sequence,
+                    save: bool = False):
+    """agg [N, dk_last] (with ``save``, ``(agg, [y_1, y_2])``): the hand-written
+    CUDA kernel for CUDA tensors (two message layers), the plain version for
+    CPU tensors.  Arguments as in the plain version."""
     if h.device.type == "cpu":
-        return generic_tab_fwd_plain(cfg, h, geo2, loc, gtab, ws, sels)
+        return generic_tab_fwd_plain(cfg, h, geo2, loc, gtab, ws, sels, save=save)
     _check_inputs(cfg, h, geo2, loc, gtab, ws, sels)
     _cuda_args(h, (h, geo2, loc, gtab, *ws, *sels))
-    if len(cfg.widths) != 2:
-        raise NotImplementedError(f"the CUDA kernel runs two message layers, not {len(cfg.widths)}")
-    (c1a, da, dk1), (c1b, db, dk2) = cfg.widths
+    (c1a, da, dk1), (c1b, db, dk2) = _widths2(cfg)
     n, f = h.shape
     code = _DTYPE_CODE[h.dtype]
     lib = GENERIC_TAB_FWD.lib()
@@ -199,48 +349,280 @@ def generic_tab_fwd(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence, sels: 
     if h.dtype == torch.bfloat16:  # the tensor-core engine's weight layout
         w1, w2 = _mma_layout(w1, cfg.a, c1a, da), _mma_layout(w2, cfg.a, c1b, db)
     out = torch.empty((n, dk2), dtype=h.dtype, device=h.device)
+    ys = [torch.empty((n * cfg.k, d), dtype=h.dtype, device=h.device) for d in (da, db)] \
+        if save else None
     stream = torch.cuda.current_stream(h.device).cuda_stream
-    ptrs = (h, geo2, loc, gtab, w1, sels[0], w2, sels[1], out)
+    ptrs = [x.data_ptr() for x in (h, geo2, loc, gtab, w1, sels[0], w2, sels[1], out)]
+    ptrs += [y.data_ptr() for y in ys] if save else [None, None]
     with torch.cuda.device(h.device):
         rc = lib.fused_message_generic_tab_fwd(
-            code, *(x.data_ptr() for x in ptrs), n, f, cfg.k, cfg.a, cfg.tile, cfg.u,
-            c1a, da, dk1, c1b, db, dk2, stream)
+            code, *ptrs, n, f, cfg.k, cfg.a, cfg.tile, cfg.u, c1a, da, dk1, c1b, db, dk2, stream)
     if rc != 0:
         raise RuntimeError(f"fused_message_generic_tab_fwd launch failed with CUDA error {rc}")
     GENERIC_TAB_FWD.launches += 1
-    return out
+    return (out, ys) if save else out
+
+
+def _wgrad_splits(cfg: GenericConfig, rows: int, sms: int) -> int:
+    """Row ranges of the weight-gradient kernel (its partials' leading dim):
+    the fewest that make its layers x A x ranges blocks whole waves of one
+    block per SM on ``sms`` SMs, at most one per 1024 slot rows (A=9 on 132
+    SMs: 22 ranges, 396 blocks, three waves)."""
+    per_range = len(cfg.widths) * cfg.a
+    return max(1, min(math.lcm(per_range, sms) // per_range, rows // 1024))
+
+
+def _bwd_lib(cfg: GenericConfig, x):
+    """The backward source's library, after checking that its kernels take
+    the widths in x's dtype."""
+    (c1a, da, _), (c1b, db, _) = _widths2(cfg)
+    lib = GENERIC_TAB_BWD_RES.lib()
+    smem = lib.fused_message_generic_tab_bwd_smem_bytes(_DTYPE_CODE[x.dtype], cfg.k, cfg.a,
+                                                         c1a, da, c1b, db)
+    if smem < 0:
+        raise ValueError(f"the kernel does not take K={cfg.k}, widths {cfg.widths} in {x.dtype}")
+    if smem > _MAX_SMEM:
+        raise ValueError(f"widths need {smem} bytes of shared memory per block (max {_MAX_SMEM})")
+    return lib
+
+
+def _launched(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
+
+
+def generic_tab_bwd_chain(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence, sels: Sequence,
+                          d_agg, ys: Optional[Sequence] = None):
+    """The chain kernel: #9 with the saved ``ys``, #10 (replay) without.
+    Returns ``(d_hs [N*K, F], d_hr [N, F], dy_1, dy_2, m_0, m_1)``: the
+    rounded sender cotangent of every slot, the receivers' K-sums, and for
+    the weight-gradient kernel each layer's dy ([N*K, D rounded up to 8]) and
+    input m ([N*K, C1 rounded up to 16]) per slot, zero-padded."""
+    _check_inputs(cfg, h, geo2, loc, gtab, ws, sels)
+    _check_bwd_inputs(cfg, h, d_agg, ys)
+    _cuda_args(h, (h, geo2, loc, gtab, *ws, *sels, d_agg, *(ys or ())))
+    lib = _bwd_lib(cfg, h)
+    (c1a, da, dk1), (c1b, db, dk2) = cfg.widths
+    n, f = h.shape
+    replay = ys is None
+    w1, w2 = ws
+    if h.dtype == torch.bfloat16:  # the tensor-core engines' layout, D padded to 16
+        w1, w2 = _mma_layout(w1, cfg.a, c1a, da, 16), _mma_layout(w2, cfg.a, c1b, db, 16)
+    rows, dev, dt = n * cfg.k, h.device, h.dtype
+    d_hs = torch.empty((rows, f), dtype=dt, device=dev)
+    d_hr = torch.empty((n, f), dtype=dt, device=dev)
+    dy1 = torch.empty((rows, -(-da // 8) * 8), dtype=dt, device=dev)
+    dy2 = torch.empty((rows, -(-db // 8) * 8), dtype=dt, device=dev)
+    m0 = torch.empty((rows, -(-c1a // 16) * 16), dtype=dt, device=dev)
+    m1 = torch.empty((rows, -(-c1b // 16) * 16), dtype=dt, device=dev)
+    y_in = (None, None) if replay else tuple(y.data_ptr() for y in ys)
+    with torch.cuda.device(dev):
+        rc = lib.fused_message_generic_tab_bwd_chain(
+            _DTYPE_CODE[dt], int(replay),
+            *(x.data_ptr() for x in (h, geo2, loc, gtab, w1, sels[0], w2, sels[1])), *y_in,
+            *(x.data_ptr() for x in (d_agg, d_hs, d_hr, dy1, dy2, m0, m1)),
+            n, f, cfg.k, cfg.a, cfg.tile, cfg.u,
+            c1a, da, dk1, c1b, db, dk2, torch.cuda.current_stream(dev).cuda_stream)
+    _launched("fused_message_generic_tab_bwd_chain", rc)
+    (GENERIC_TAB_BWD_REP if replay else GENERIC_TAB_BWD_RES).launches += 1
+    return d_hs, d_hr, dy1, dy2, m0, m1
+
+
+def generic_tab_bwd_wgrad_plain(cfg: GenericConfig, geo2, m0, m1, dy1, dy2, splits: int):
+    """The weight-gradient kernel's function by PyTorch ops: partials
+    [splits, NW] fp32, row ``r`` the sum over the r-th range of slot rows
+    (chunks of 64 rows split evenly) of m_l^T (dy_l * attr_c rounded), the
+    W' of both layers flattened one after the other."""
+    rows = m0.shape[0]
+    attr = geo2.reshape(rows, cfg.a + 2)[:, :cfg.a]
+    nch = -(-rows // 64)
+    out = []
+    for sp in range(splits):
+        s, e = nch * sp // splits * 64, min(rows, nch * (sp + 1) // splits * 64)
+        parts = []
+        for m, dy, (c1, d, _) in zip((m0, m1), (dy1, dy2), cfg.widths):
+            mf, dyr = m[s:e, :c1].float(), dy[s:e, :d]
+            for cc in range(cfg.a):
+                parts.append((mf.T @ (dyr * attr[s:e, cc:cc + 1]).float()).reshape(-1))
+        out.append(torch.cat(parts))
+    return torch.stack(out)
+
+
+def generic_tab_bwd_wgrad(cfg: GenericConfig, geo2, m0, m1, dy1, dy2, splits: int):
+    """The weight-gradient kernel (CUDA tensors; the plain version for CPU
+    tensors): partials [splits, NW] fp32 from the chain's outputs."""
+    if geo2.device.type == "cpu":
+        return generic_tab_bwd_wgrad_plain(cfg, geo2, m0, m1, dy1, dy2, splits)
+    _cuda_args(geo2, (geo2, m0, m1, dy1, dy2))
+    lib = _bwd_lib(cfg, geo2)
+    (c1a, da, _), (c1b, db, _) = cfg.widths
+    rows = m0.shape[0]
+    partials = torch.empty((splits, cfg.a * (c1a * da + c1b * db)), dtype=torch.float32,
+                           device=geo2.device)
+    with torch.cuda.device(geo2.device):
+        rc = lib.fused_message_generic_tab_bwd_wgrad(
+            _DTYPE_CODE[geo2.dtype],
+            *(x.data_ptr() for x in (geo2, m0, m1, dy1, dy2, partials)),
+            rows // cfg.k, cfg.k, cfg.a, c1a, da, c1b, db, splits,
+            torch.cuda.current_stream(geo2.device).cuda_stream)
+    _launched("fused_message_generic_tab_bwd_wgrad", rc)
+    GENERIC_TAB_BWD_WGRAD.launches += 1
+    return partials
+
+
+def generic_tab_bwd_table_plain(cfg: GenericConfig, d_hs, loc):
+    """d_hu [ntiles*U, F]: each table entry's d_hs rows summed in fp32 (the
+    table-sum kernel's function, by PyTorch ops)."""
+    n = loc.shape[0]
+    ntab = n // cfg.tile * cfg.u
+    locl = loc.long()
+    tab = (torch.arange(n, device=loc.device) // cfg.tile)[:, None] * cfg.u + locl
+    tab = torch.where(locl < cfg.u, tab, ntab).reshape(-1)
+    acc = torch.zeros((ntab + 1, d_hs.shape[1]), dtype=torch.float32, device=d_hs.device)
+    return acc.index_add_(0, tab, d_hs.float())[:ntab].to(d_hs.dtype)
+
+
+def generic_tab_bwd_table(cfg: GenericConfig, d_hs, loc):
+    """The table-sum kernel (CUDA tensors; the plain version for CPU
+    tensors): d_hu [ntiles*U, F], each entry's rows summed in slot order."""
+    if d_hs.device.type == "cpu":
+        return generic_tab_bwd_table_plain(cfg, d_hs, loc)
+    _cuda_args(d_hs, (d_hs, loc))
+    n = loc.shape[0]
+    d_hu = torch.empty((n // cfg.tile * cfg.u, d_hs.shape[1]), dtype=d_hs.dtype,
+                       device=d_hs.device)
+    with torch.cuda.device(d_hs.device):
+        rc = GENERIC_TAB_BWD_TABLE.lib().fused_message_generic_tab_bwd_table(
+            _DTYPE_CODE[d_hs.dtype], d_hs.data_ptr(), loc.data_ptr(), d_hu.data_ptr(), n,
+            d_hs.shape[1], cfg.k, cfg.tile, cfg.u,
+            torch.cuda.current_stream(d_hs.device).cuda_stream)
+    _launched("fused_message_generic_tab_bwd_table", rc)
+    GENERIC_TAB_BWD_TABLE.launches += 1
+    return d_hu
+
+
+def generic_tab_bwd_kernels(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence,
+                            sels: Sequence, d_agg, ys: Optional[Sequence] = None):
+    """The CUDA counterpart of ``generic_tab_bwd_plain`` (same arguments and
+    results): the chain kernel (#9 with ``ys``, #10 without), the weight-
+    gradient kernel, the table sum, then PR 2's fixed-order reduction of the
+    weight-gradient partials."""
+    d_hs, d_hr, dy1, dy2, m0, m1 = generic_tab_bwd_chain(cfg, h, geo2, loc, gtab, ws, sels,
+                                                         d_agg, ys)
+    sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+    partials = generic_tab_bwd_wgrad(cfg, geo2, m0, m1, dy1, dy2,
+                                     _wgrad_splits(cfg, h.shape[0] * cfg.k, sms))
+    del m0, m1, dy1, dy2
+    d_hu = generic_tab_bwd_table(cfg, d_hs, loc)
+    dw = tab_bwd_reduce(partials)
+    (c1a, da, _), (c1b, db, _) = cfg.widths
+    n1 = cfg.a * c1a * da
+    return d_hu, d_hr, [dw[:n1].view(cfg.a * c1a, da), dw[n1:].view(cfg.a * c1b, db)]
+
+
+def generic_tab_bwd(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence, sels: Sequence,
+                    d_agg, ys: Optional[Sequence] = None):
+    """``(d_hu, d_hr, [dW'_1, dW'_2] fp32)``: the hand-written CUDA kernels for
+    CUDA tensors, the plain version for CPU tensors.  Arguments as in
+    ``generic_tab_bwd_plain``."""
+    if h.device.type == "cpu":
+        return generic_tab_bwd_plain(cfg, h, geo2, loc, gtab, ws, sels, d_agg, ys)
+    return generic_tab_bwd_kernels(cfg, h, geo2, loc, gtab, ws, sels, d_agg, ys)
+
+
+def _segment_sum_in_order(rows, seg, num: int):
+    """[num, F]: per segment, its rows added one at a time in their order,
+    each sum rounded to the rows' dtype (XLA's sorted ``segment_sum``);
+    segment ids >= num are dropped."""
+    acc = rows.new_zeros((num, rows.shape[1]))
+    seg = seg.long()
+    keep = seg < num
+    rows, seg = rows[keep], seg[keep]
+    if seg.numel() == 0:
+        return acc
+    counts = torch.bincount(seg, minlength=num)
+    starts = torch.cumsum(counts, 0) - counts
+    for j in range(int(counts.max())):
+        nodes = torch.nonzero(counts > j).squeeze(1)
+        acc[nodes] = acc[nodes] + rows[starts[nodes] + j]
+    return acc
+
+
+def generic_sender_epilogue(d_hr, d_hu, revd, remp, remn):
+    """d_h [N, F] from the per-tile sender cotangents ``d_hu`` and the
+    receiver ones ``d_hr``, in the order of the JAX ``call_tab_bwd``: the
+    dense reverse-table gathers ``revd`` [N, q0] (pad ntiles*U: dropped)
+    summed first, then the node-sorted remainder ``remp``/``remn`` (pad node
+    N: dropped) summed per node in order, then d_hr; every add in the data
+    dtype (XLA rounds each one there)."""
+    n = d_hr.shape[0]
+    nrow = d_hu.shape[0]
+    acc = None
+    for q in range(revd.shape[1]):
+        idx = revd[:, q].long()
+        p = d_hu[torch.clamp(idx, max=nrow - 1)] * (idx < nrow).to(d_hu.dtype)[:, None]
+        acc = p if acc is None else acc + p
+    seg = _segment_sum_in_order(d_hu[torch.clamp(remp.long(), max=nrow - 1)], remn, n)
+    acc = seg if acc is None else acc + seg
+    return acc + d_hr
 
 
 class FusedMessageGenericTabled(torch.autograd.Function):
-    """The tabled generic message forward under autograd: the counterpart of
-    the JAX ``custom_vjp`` around ``_fwd_call_tab``.  Its backward is the
-    lmax=2 training slice's work and raises here."""
+    """The tabled generic message with its hand-written backward: the
+    counterpart of the JAX ``custom_vjp`` (``call_tab``/``call_tab_fwd``/
+    ``call_tab_bwd``).  Residual mode saves each layer's pre-gate y (#8 in
+    save mode, then #9); replay mode keeps node-sized tensors only (#10).
+    Sender rows are read through ``gtab`` in both, so ``h[gtab]`` is never
+    kept.  Returns the cotangent of h and of the folded weights, nothing for
+    the geometry or the tables."""
 
     @staticmethod
-    def forward(ctx, cfg, h, geo2, loc, gtab, sels, *ws):
-        return generic_tab_fwd(cfg, h, geo2, loc, gtab, ws, sels)
+    def forward(ctx, cfg, residual, h, geo2, loc, gtab, revd, remp, remn, sels, *ws):
+        ctx.cfg, ctx.sels, ctx.nw = cfg, sels, len(ws)
+        if residual and any(ctx.needs_input_grad):  # no save for inference
+            agg, ys = generic_tab_fwd(cfg, h, geo2, loc, gtab, ws, sels, save=True)
+        else:
+            agg, ys = generic_tab_fwd(cfg, h, geo2, loc, gtab, ws, sels), []
+        ctx.save_for_backward(h, geo2, loc, gtab, revd, remp, remn, *ws, *ys)
+        return agg
 
     @staticmethod
     def backward(ctx, d_agg):
-        raise NotImplementedError(_NOT_PORTED_BWD)
+        saved = ctx.saved_tensors
+        h, geo2, loc, gtab, revd, remp, remn = saved[:7]
+        ws, ys = saved[7:7 + ctx.nw], saved[7 + ctx.nw:] or None
+        d_agg = d_agg.to(h.dtype).contiguous()
+        d_hu, d_hr, dws = generic_tab_bwd(ctx.cfg, h, geo2, loc, gtab, ws, ctx.sels, d_agg, ys)
+        d_h = generic_sender_epilogue(d_hr, d_hu, revd, remp, remn)
+        # cfg, residual, h, geo2, loc, gtab, revd, remp, remn, sels, weights
+        return (None, None, d_h) + (None,) * 7 + tuple(
+            dw.to(w.dtype) for dw, w in zip(dws, ws))
 
 
-def fused_message_generic_tabled(cfg: GenericConfig, h, geo2, loc, gtab, sels, *ws):
-    """agg [N, dk_last]; CUDA tensors run the hand-written kernel (or raise),
-    CPU tensors the plain version.  A backward through it raises."""
-    return FusedMessageGenericTabled.apply(cfg, h, geo2, loc, gtab, tuple(sels), *ws)
+def fused_message_generic_tabled(cfg: GenericConfig, residual: bool, h, geo2, loc, gtab,
+                                 revd, remp, remn, sels, *ws):
+    """agg [N, dk_last], differentiable in h and the folded weights ``ws``;
+    CUDA tensors run the hand-written kernels (or raise), CPU tensors the
+    plain versions.  ``residual`` picks the backward: #9 from the saved ys,
+    or #10, which replays the forward."""
+    return FusedMessageGenericTabled.apply(cfg, residual, h, geo2, loc, gtab, revd, remp, remn,
+                                           tuple(sels), *ws)
 
 
 class FusedMessageGeneric:
     """Fused message MLP + masked K-slot aggregation for one SEGNN layer's
     message layers (``O3TensorProductGate`` with a generic 'cm'
     ``TensorProduct`` on the folded-GEMM path and a silu/sigmoid gate), on a
-    graph with gather tables built at ``tile``."""
+    graph with gather tables built at ``tile``.
 
-    def __init__(self, layers: Sequence, k: int, tile: int) -> None:
+    ``residual_bwd``: the forward saves the pre-gate ys and the backward
+    reads them (#9); otherwise the backward replays the forward (#10)."""
+
+    def __init__(self, layers: Sequence, k: int, tile: int, residual_bwd: bool = True) -> None:
         self.layers = list(layers)
         self.k = k
         self.tile = tile
+        self.residual_bwd = residual_bwd
         self._gate_fast = []
         for layer in self.layers:
             g = getattr(layer, "gate", None)
@@ -285,12 +667,15 @@ class FusedMessageGeneric:
             out.append(wf[:, torch.as_tensor(perm, device=wf.device).long()].to(dtype))
         return out
 
-    def geo_call_tab(self, h, geo2, loc, gtab):
+    def geo_call_tab(self, h, geo2, loc, gtab, rev_dense, rem_pos, rem_node):
         """agg [N, dk_last] for h [N, F] (N a multiple of ``tile``), geo2
-        [N, K*(A+2)], loc [N, K] and gtab [N/tile, U] built at ``tile``."""
+        [N, K*(A+2)], loc [N, K], gtab [N/tile, U] built at ``tile`` and the
+        split reverse table (``rev_dense`` [N, q0], ``rem_pos``/``rem_node``)
+        that the backward's epilogue reads."""
         a = geo2.shape[-1] // self.k - 2
         cfg = self.config(a, gtab.shape[1])
         ws = [w.contiguous() for w in self.fold(h.dtype)]
-        return fused_message_generic_tabled(cfg, h.contiguous(), geo2.contiguous(),
-                                            loc.contiguous(), gtab.contiguous(),
+        tabs = (loc, gtab, rev_dense, rem_pos, rem_node)
+        return fused_message_generic_tabled(cfg, self.residual_bwd, h.contiguous(),
+                                            geo2.contiguous(), *(t.contiguous() for t in tabs),
                                             self.selections(h.device), *ws)

@@ -1,7 +1,8 @@
 """SEGNN: steerable E(3)-equivariant message passing on fixed-K graphs.
 
 Counterpart of ``scalable_e3_gnn_tpu/models/segnn.py`` for the dense
-(``DenseEdgeGraph``) path without edge chunking or layer remat:
+(``DenseEdgeGraph``) path without edge chunking or layer-group remat
+(``edge_chunks``, ``remat_layers``):
 
     h = embed(x, node_attr)
     per layer: agg_i = sum_k mask * MLP([h_s || h_i || d^2], edge_attr)
@@ -21,11 +22,18 @@ Message dispatch (``SEGNNLayer``):
 - ``use_pallas=True`` with any other hidden irreps (the lmax=2 configs), on a
   graph with gather tables at ``_pick_generic_tile(n)`` and n a multiple of
   it: the tabled generic kernel
-  (``kernels.fused_message_generic.FusedMessageGeneric.geo_call_tab``),
-  forward only;
+  (``kernels.fused_message_generic.FusedMessageGeneric.geo_call_tab``), whose
+  backward reads the saved pre-gate ys (``residual_bwd``, kernel #9) or, under
+  ``remat_kernel``, replays the forward (kernel #10);
 - ``use_pallas=True`` otherwise (the untabled kernels): not ported yet,
   raises ``NotImplementedError``;
 - ``use_pallas=False``: the plain PyTorch message path.
+
+Rematerialisation, as in the JAX package: ``remat`` checkpoints the plain
+message path and, where an update layer is a generic ``TensorProduct``, the
+update; ``remat_kernel`` also checkpoints a kernel dispatch whose residuals
+are edge-sized (the lmax=1 tabled kernel), but not the tabled generic one,
+whose replay backward keeps node-sized tensors only.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.irreps import Irreps
 from ..core.spherical import spherical_harmonics
@@ -47,6 +56,27 @@ from ..ops.tensor_product import L1TensorProduct, TensorProduct
 from ..utils.device import resolve_device
 
 __all__ = ["O3TensorProductGate", "SEGNNLayer", "SEGNN"]
+
+
+def _checkpoint(modules: nn.Module, fn: Callable, *args):
+    """``torch.utils.checkpoint`` of ``fn(*args)`` with the parameters of
+    ``modules`` passed in as inputs and put back in place for the recompute,
+    so the backward recomputes from the tensors the forward saw (the bf16
+    copies that ``torch.func.functional_call`` swaps in, for one)."""
+    slots = [(m, nm) for m in modules.modules() for nm, p in m._parameters.items()
+             if p is not None]
+
+    def run(*xs):
+        held = [m._parameters[nm] for m, nm in slots]
+        try:
+            for (m, nm), p in zip(slots, xs):
+                m._parameters[nm] = p
+            return fn(*xs[len(slots):])
+        finally:
+            for (m, nm), p in zip(slots, held):
+                m._parameters[nm] = p
+
+    return checkpoint(run, *(m._parameters[nm] for m, nm in slots), *args, use_reentrant=False)
 
 
 def _make_tp(irreps_in, irreps_attr, irreps_out, layout_in, layout_out, **kw):
@@ -96,10 +126,20 @@ class SEGNNLayer(nn.Module):
 
     def __init__(self, hidden_irreps, attr_irreps, act: Callable = F.silu,
                  num_message_layers: int = 2, num_update_layers: int = 2,
-                 layout: str = "mul", use_pallas: bool = False, device=None,
+                 layout: str = "mul", use_pallas: bool = False, remat: bool = False,
+                 remat_kernel: bool = False, residual_bwd: bool = True, device=None,
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
         self.layout = layout
+        # remat: recompute the per-edge message intermediates (plain path)
+        # and the generic update's outer products in the backward
+        self.remat = remat
+        # remat_kernel: also checkpoint an edge-sized kernel dispatch; the
+        # tabled generic kernel instead replays its forward in its backward
+        self.remat_kernel = remat_kernel
+        # residual_bwd: the generic kernel saves the pre-gate ys (off under
+        # remat_kernel, whose point is not to keep edge-sized tensors)
+        self.residual_bwd = residual_bwd
         h = Irreps(hidden_irreps)
         hr = h.regroup()
         # the fused kernel: cm layout, 2 gated message layers, hidden = Hs x0e + Hv x1o
@@ -126,7 +166,7 @@ class SEGNNLayer(nn.Module):
             and all(isinstance(m.tp, TensorProduct) and m.gate is not None
                     for m in self.message_layers)
         )
-        self._generic_kernels = {}  # (k, tile) -> FusedMessageGeneric
+        self._generic_kernels = {}  # (k, tile, residual) -> FusedMessageGeneric
         self.update_layers = nn.ModuleList()
         cur = h + h
         for i in range(num_update_layers):
@@ -216,11 +256,14 @@ class SEGNNLayer(nn.Module):
                 "FusedMessageGeneric._fwd_call) is ported in a later slice; build the "
                 f"graph's gather tables at tile {tile} (_pick_generic_tile({n})) with n a "
                 "multiple of it, or use use_pallas=False")
-        if (k, tile) not in self._generic_kernels:
-            self._generic_kernels[k, tile] = FusedMessageGeneric(self.message_layers, k, tile=tile)
+        key = (k, tile, self.residual_bwd and not self.remat_kernel)
+        if key not in self._generic_kernels:
+            self._generic_kernels[key] = FusedMessageGeneric(self.message_layers, k, tile=tile,
+                                                             residual_bwd=key[2])
         geo2 = self._geo2(edge_geo, edge_attr, edge_dist2, edge_mask, h.dtype)
-        return self._generic_kernels[k, tile].geo_call_tab(h, geo2, graph.gather_loc,
-                                                           graph.gather_tab)
+        return self._generic_kernels[key].geo_call_tab(
+            h, geo2, graph.gather_loc, graph.gather_tab, graph.gather_rev_dense,
+            graph.gather_rem_pos, graph.gather_rem_node)
 
     def _plain_messages(self, h, senders, edge_attr, edge_dist2, edge_mask):
         hs = h[torch.clamp(senders, max=h.shape[0] - 1).long()]  # [N, K, F]
@@ -239,10 +282,22 @@ class SEGNNLayer(nn.Module):
         ``edge_attr`` and ``edge_dist2`` may be None (geo-only attributes):
         they and the slot mask are then read from the stream."""
         edge_mask = graph.edge_mask
+        pallas = self.use_pallas or self.use_pallas_generic
+        tab = self.use_pallas_generic and self._tab_eligible(edge_mask.shape[0], graph)
+        if (self.remat and not pallas) or (self.remat_kernel and pallas and not tab):
+            agg = _checkpoint(self.message_layers, self._messages, h, graph, edge_attr,
+                              edge_dist2, edge_geo)
+        else:
+            agg = self._messages(h, graph, edge_attr, edge_dist2, edge_geo)
+        return self._update(h, agg, node_attr, graph)
+
+    def _messages(self, h, graph, edge_attr, edge_dist2, edge_geo):
+        """agg [N, F]: the masked K-slot sum of the messages, through the
+        dispatch the layer was built for."""
+        edge_mask = graph.edge_mask
         if self.use_pallas_generic:
-            agg = self._fused_messages_generic(h, graph, edge_attr, edge_dist2, edge_mask,
-                                               edge_geo)
-            return self._update(h, agg, node_attr, graph)
+            return self._fused_messages_generic(h, graph, edge_attr, edge_dist2, edge_mask,
+                                                edge_geo)
         if edge_attr is None:
             if edge_geo is None:
                 raise ValueError("attrs gave neither edge_attr nor edge_geo")
@@ -256,15 +311,22 @@ class SEGNNLayer(nn.Module):
                     "build the graph's gather tables (with_gather_tables) or use "
                     "use_pallas=False"
                 )
-            agg = self._fused_messages_tabled(h, edge_attr, edge_dist2, edge_mask, graph)
-        else:
-            agg = self._plain_messages(h, graph.senders, edge_attr, edge_dist2, edge_mask)
-        return self._update(h, agg, node_attr, graph)
+            return self._fused_messages_tabled(h, edge_attr, edge_dist2, edge_mask, graph)
+        return self._plain_messages(h, graph.senders, edge_attr, edge_dist2, edge_mask)
 
-    def _update(self, h, agg, node_attr, graph):
+    def _update_u(self, h, agg, node_attr):
         u = torch.cat([h, agg], dim=-1)
         for layer in self.update_layers:
             u = layer(u, node_attr)
+        return u
+
+    def _update(self, h, agg, node_attr, graph):
+        if self.remat and any(isinstance(layer.tp, TensorProduct) for layer in self.update_layers):
+            # the generic TP's outer product z ([N, ~1.6k] at lmax=2) is the
+            # largest node-level intermediate: recompute it in the backward
+            u = _checkpoint(self.update_layers, self._update_u, h, agg, node_attr)
+        else:
+            u = self._update_u(h, agg, node_attr)
         out = h + u
         return torch.where(graph.node_mask[:, None], out, torch.zeros_like(out))
 
@@ -278,7 +340,8 @@ class SEGNN(nn.Module):
 
     def __init__(self, input_irreps, hidden_irreps, output_irreps, lmax_attr: int = 1,
                  num_layers: int = 4, act: Callable = F.silu, task: str = "node",
-                 layout: Optional[str] = None, use_pallas: bool = False, device=None,
+                 layout: Optional[str] = None, use_pallas: bool = False, remat: bool = False,
+                 remat_kernel: bool = False, residual_bwd: bool = True, device=None,
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
         device = resolve_device(device)
@@ -295,7 +358,8 @@ class SEGNN(nn.Module):
                                          layout_out=self.layout, **kw)
         self.layers = nn.ModuleList(
             SEGNNLayer(self.hidden_irreps, self.attr_irreps, layout=self.layout,
-                       use_pallas=use_pallas, **kw)
+                       use_pallas=use_pallas, remat=remat, remat_kernel=remat_kernel,
+                       residual_bwd=residual_bwd, **kw)
             for _ in range(num_layers)
         )
         self.pre_head = O3TensorProductGate(self.hidden_irreps, self.attr_irreps,

@@ -3,7 +3,11 @@ and the backward with its epilogue) against their plain PyTorch versions at
 three widths, config 3's among them, the backward's determinism, and the SEGNN
 forward and gradients through the kernels against the plain path; the generic
 (lmax=2) forward kernel against its plain version at three widths, the
-lmax=2 config's among them, and the lmax=2 SEGNN forward through it.
+lmax=2 config's among them, and the lmax=2 SEGNN forward through it; its save
+mode and the generic backward kernels (#9 residual, #10 replay, with the
+weight-gradient kernel, the table sum and the reduction) against their plain
+versions, #9 against #10, their determinism, and lmax=2 SEGNN gradients
+through them against the plain path.
 
 These tests need a CUDA card and skip without one.  They import no JAX, so
 they run on a machine without it (``--noconftest`` skips the JAX-only
@@ -295,3 +299,127 @@ def test_generic_wrapper_rejects_what_the_kernel_does_not_take(dev):
         fmg.generic_tab_fwd(cfg, h, geo2, loc.cpu(), gtab, ws, sels)
     with pytest.raises(TypeError):
         fmg.generic_tab_fwd(cfg, h.half(), geo2.half(), loc, gtab, [w.half() for w in ws], sels)
+
+
+def _generic_bwd_problem(dev, hidden, k, n, dtype):
+    cfg, args = _generic_problem(dev, hidden, k, n, dtype)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    d_agg = torch.randn((n, cfg.out_dim), generator=gen, device=dev).to(dtype)
+    return cfg, args, d_agg
+
+
+def _check_bwd(got, ref, dtype):
+    """d_hu and d_hr elementwise (fp32: 1e-4 * max(1, |ref|)); the weight
+    gradients against their max|ref| (fp32: 1e-4, sums over every slot in
+    another order); bf16, where kernel and plain version round at the same
+    points: elementwise within 8 bf16 ulps of max(|ref|, mean|ref|), at most
+    1% of the elements over 1 ulp (an fp32 sum in another order flips a
+    rounding of dy or dm now and then, and the sums carry it on; at the
+    lmax=2 config's shapes the worst reading was 5 ulps and 3.4e-5)."""
+    d_hu, d_hr, dws = got
+    r_hu, r_hr, rws = ref
+    for i, (x, y) in enumerate([(d_hu, r_hu), (d_hr, r_hr), *zip(dws, rws)]):
+        assert x.shape == y.shape and x.dtype == y.dtype, i
+        x, y = x.float(), y.float()
+        assert torch.isfinite(x).all(), i
+        err = (x - y).abs()
+        if dtype == torch.float32:
+            scale = y.abs().clamp(min=1.0) if i < 2 else float(y.abs().max())
+            assert (err <= 1e-4 * scale).all(), (i, float(err.max()))
+        else:
+            r = y.abs()
+            ulp = torch.exp2(torch.floor(torch.log2(r.clamp(min=float(r.mean())))) - 7)
+            ulps = err / ulp
+            assert float(ulps.max()) <= 8, (i, float(ulps.max()))
+            assert float((ulps > 1).float().mean()) <= 0.01, (i, float((ulps > 1).float().mean()))
+
+
+@pytest.mark.parametrize("hidden,k,n", GENERIC_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_generic_fwd_save_matches_plain(dev, hidden, k, n, dtype):
+    """Kernel #8 in save mode: agg equal to the kernel without save, agg and
+    both ys against the plain version as in test_generic_kernel_matches_plain."""
+    cfg, args = _generic_problem(dev, hidden, k, n, dtype)
+    with torch.no_grad():
+        agg, ys = fmg.generic_tab_fwd(cfg, *args, save=True)
+        ref_agg, ref_ys = fmg.generic_tab_fwd_plain(cfg, *args, save=True)
+        assert torch.equal(agg, fmg.generic_tab_fwd(cfg, *args))
+    torch.cuda.synchronize()
+    for got, ref in [(agg, ref_agg), *zip(ys, ref_ys)]:
+        assert got.shape == ref.shape and got.dtype == dtype
+        _check_generic(got, ref, dtype)
+
+
+@pytest.mark.parametrize("hidden,k,n", GENERIC_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [True, False])
+def test_generic_bwd_kernels_match_plain(dev, hidden, k, n, dtype, residual):
+    """#9 (from #8's saved ys) or #10 (replay), with the weight-gradient
+    kernel, the table sum and the reduction, against the plain backward;
+    each kernel's counter moves by one."""
+    cfg, args, d_agg = _generic_bwd_problem(dev, hidden, k, n, dtype)
+    with torch.no_grad():
+        ys = fmg.generic_tab_fwd(cfg, *args, save=True)[1] if residual else None
+        kerns = (fmg.GENERIC_TAB_BWD_RES, fmg.GENERIC_TAB_BWD_REP, fmg.GENERIC_TAB_BWD_WGRAD,
+                 fmg.GENERIC_TAB_BWD_TABLE, fm.TAB_BWD_REDUCE)
+        before = [kern.launches for kern in kerns]
+        got = fmg.generic_tab_bwd(cfg, *args, d_agg, ys=ys)
+        torch.cuda.synchronize()
+        moved = [kern.launches - b for kern, b in zip(kerns, before)]
+        assert moved == [int(residual), int(not residual), 1, 1, 1]
+        ref = fmg.generic_tab_bwd_plain(cfg, *args, d_agg, ys=ys)
+    _check_bwd(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_generic_bwd_residual_equals_replay_and_reruns(dev, dtype):
+    """#9 from #8's saved ys and #10 replaying them run the same arithmetic:
+    bitwise equal; two runs of each bitwise equal (no float atomics)."""
+    cfg, args, d_agg = _generic_bwd_problem(dev, *GENERIC_WIDTHS[2], dtype)
+    with torch.no_grad():
+        ys = fmg.generic_tab_fwd(cfg, *args, save=True)[1]
+        runs = [fmg.generic_tab_bwd(cfg, *args, d_agg, ys=y) for y in (ys, None, ys, None)]
+    flat = [[r[0], r[1], *r[2]] for r in runs]
+    for other in flat[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(flat[0], other, strict=True))
+
+
+def test_generic_bwd_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    cfg, args, d_agg = _generic_bwd_problem(dev, *GENERIC_WIDTHS[0], torch.float32)
+    h, geo2, loc, gtab, ws, sels = args
+    strided = torch.empty((d_agg.shape[0], 2 * d_agg.shape[1]), device=dev)[:, ::2]
+    strided.copy_(d_agg)
+    with pytest.raises(ValueError, match="contiguous"):
+        fmg.generic_tab_bwd(cfg, *args, strided)
+    with pytest.raises(ValueError, match="must be on"):
+        fmg.generic_tab_bwd(cfg, h, geo2, loc, gtab, ws, sels, d_agg.cpu())
+    wide_cfg, wide_args, wide_d = _generic_bwd_problem(dev, "40x0e+20x1o+10x2e", 8, 480,
+                                                       torch.bfloat16)
+    with pytest.raises(ValueError, match="does not take"):
+        fmg.generic_tab_bwd(wide_cfg, *wide_args, wide_d)
+
+
+@pytest.mark.parametrize("mode", ["residual", "remat_kernel"])
+def test_generic_segnn_gradients_kernel_match_plain_path(dev, mode):
+    """fp32 MSE gradients of every parameter of a 2-layer lmax=2 SEGNN
+    through #8 and #9 (residual) or #10 (remat_kernel) against autograd of
+    the plain path: 1e-4 * max|ref| per parameter."""
+    n = 2000
+    g, gt = _graph(dev, n, 16, 0.12, SEGNNLayer._pick_generic_tile(n))
+    kw = dict(remat=True, remat_kernel=True, residual_bwd=False) if mode == "remat_kernel" else {}
+    m_k = SEGNN("2x0e+1x1o", "24x0e+12x1o+6x2e", "1x1o", lmax_attr=2, num_layers=2,
+                layout="cm", use_pallas=True, device=dev,
+                generator=torch.Generator().manual_seed(6), **kw)
+    m_p = SEGNN("2x0e+1x1o", "24x0e+12x1o+6x2e", "1x1o", lmax_attr=2, num_layers=2,
+                layout="cm", use_pallas=False, device=dev)
+    m_p.load_state_dict(m_k.state_dict())
+    target = torch.randn((n, 3), generator=torch.Generator(device=dev).manual_seed(8),
+                         device=dev)
+    kern = fmg.GENERIC_TAB_BWD_RES if mode == "residual" else fmg.GENERIC_TAB_BWD_REP
+    before = kern.launches
+    ((m_k(gt) - target) ** 2).mean().backward()
+    ((m_p(g) - target) ** 2).mean().backward()
+    assert kern.launches == before + 2
+    for (name, a), b in zip(m_k.named_parameters(), m_p.parameters(), strict=True):
+        err = float((a.grad - b.grad).abs().max())
+        assert err <= 1e-4 * float(b.grad.abs().max()), (name, err)

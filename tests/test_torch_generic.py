@@ -192,8 +192,9 @@ def test_generic_plain_matches_jax_geo_call_tab(n):
                                          jgt.gather_rem_node))
     kern = fmg.FusedMessageGeneric(layer.message_layers, k, tile=tile)
     args = (torch.from_numpy(h), torch.from_numpy(geo2), tgt.gather_loc, tgt.gather_tab)
+    rev = (tgt.gather_rev_dense, tgt.gather_rem_pos, tgt.gather_rem_node)
     with torch.no_grad():
-        got = kern.geo_call_tab(*args).numpy()
+        got = kern.geo_call_tab(*args, *rev).numpy()
         cfg = kern.config(geo2.shape[1] // k - 2, tgt.gather_tab.shape[1])
         sels, ws = kern.selections("cpu"), kern.fold(torch.float32)
         plain = fmg.generic_tab_fwd_plain(cfg, *args, ws, sels).numpy()
@@ -227,7 +228,8 @@ def test_generic_plain_bf16_matches_jax_geo_call_tab(n):
     bf = torch.bfloat16
     with torch.no_grad():
         got = kern.geo_call_tab(torch.from_numpy(h).to(bf), torch.from_numpy(geo2).to(bf),
-                                tgt.gather_loc, tgt.gather_tab)
+                                tgt.gather_loc, tgt.gather_tab, tgt.gather_rev_dense,
+                                tgt.gather_rem_pos, tgt.gather_rem_node)
     assert got.dtype == bf and got.shape == ref.shape
     err = (got.float() - ref).abs()
     r = ref.abs()
@@ -319,7 +321,8 @@ def test_segnn_lmax2_serves_clouds_at_two_tiles():
             tiles.append(tgt.gather_tile)
             torch.testing.assert_close(tm_k(tgt), tm_p(tg), rtol=0, atol=ATOL)
     assert tiles == [96, 120, 96]
-    assert sorted(tm_k.layers[0]._generic_kernels) == [(8, 96), (8, 120)]
+    # one kernel object per (K, tile, residual mode)
+    assert sorted(tm_k.layers[0]._generic_kernels) == [(8, 96, True), (8, 120, True)]
 
 
 def test_segnn_lmax2_attributes_match_jax():
@@ -340,14 +343,6 @@ def test_generic_tables_at_another_tile_raise():
         with pytest.raises(NotImplementedError, match="#11"):
             with torch.no_grad():
                 tm(graph)
-
-
-def test_generic_backward_raises():
-    jg, jgt, tg, tgt = _graph(96)
-    _, _, tm = _models(True, seed=10)
-    out = tm(tgt)
-    with pytest.raises(NotImplementedError, match="#9"):
-        out.square().mean().backward()
 
 
 def test_generic_flops_count_the_folded_nonzeros():
