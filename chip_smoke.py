@@ -75,6 +75,32 @@ Phases, each printing one JSON line:
                  epilogue, the bounds, and a torch.profiler trace of two 250k
                  steps.
 
+21. train_untabled_250k -- the 250k step of phase 17 on the graph without its
+                 gather tables (the runner's path below 500k points): per step
+                 4 of #11 (save mode) and 4 of #12, none of #8/#9/#10/#13.
+22. train_sym_1m -- the 1M step of phase 18 without tables (500k-2M points):
+                 the sym-regather entry, per step 4 of #11 and 4 of #13.
+23. kernel_untabled (1M, 250k), untabled_times -- #11 with and without save,
+                 #12 and #13 whole against their plain versions in bf16 at
+                 both paths' shapes (a d_hs element over the ulp limit passes
+                 only with its slot row explained: the plain last stage fed
+                 the kernel's own dy_1 gives the kernel's row), #12 = #13
+                 bitwise, reruns bit-identical; #12's times at 250k, the step
+                 times.
+24. graph_10m  -- config 5 (bench_scaling.py:113-240): 10M uniform points, the
+                 octree, radius_graph_cell_segments (10 segments, exact "sort"
+                 selection: the port's cell graph), not symmetrized, chunked
+                 bf16 attributes; times.
+25. kernel_untabled (config5_block) -- #11-#13 against their plain versions at
+                 one 400k-node block's shapes, fp32 and bf16; times and bounds.
+26. train_config5, config5 -- the 10M train step (edge_chunks=25, remat,
+                 remat_kernel, remat_layers=2), a warm-up and a timed step:
+                 per step 300 of #11, 100 of #13 (derived in
+                 ``config5_phases``); peak memory, loss.
+27. grad_check_config5 -- fp32 gradients of the chunked model (4 blocks,
+                 remat_layers=2) against the plain path at 20k points of the
+                 10M density.
+
 Then the ``kernels`` line, the card line and, last, the result line.  Any
 failed check raises: the script exits non-zero and prints no result.  It
 exits non-zero as well without a GPU or without the package beside it.
@@ -133,6 +159,19 @@ L1M_RADIUS = RADIUS * (N_POINTS / L1M_POINTS) ** (1 / 3)
 # the lmax=2 gradient check's cloud: the 250k cloud's density at 20k points
 GC2_POINTS = 20_000
 GC2_RADIUS = L2_RADIUS * (L2_POINTS / GC2_POINTS) ** (1 / 3)
+# config 5 (bench_scaling.py:113-240, config5_single_chip): not cut; the one
+# deviation is the exact "sort" neighbour selection where the bench takes
+# lax.approx_min_k ("approx", a TPU primitive)
+C5_POINTS = 10_000_000
+C5_RADIUS = RADIUS * (N_POINTS / C5_POINTS) ** (1 / 3)
+C5_SEGMENTS = 10  # radius_graph_cell_segments(num_segments=points // 1M)
+C5_CHUNKS = 25  # bench_scaling.py --chunks default: 400k-node blocks
+C5_REMAT_LAYERS = 2
+C5_TRAIN_STEPS = 2  # one warm-up step, one timed
+# its gradient check's cloud: 20k points at the 10M density, 4 node blocks
+GC5_POINTS = 20_000
+GC5_RADIUS = C5_RADIUS * (C5_POINTS / GC5_POINTS) ** (1 / 3)
+GC5_CHUNKS = 4
 
 # H100 SXM published peaks (NVIDIA data sheet), for the bounds
 PEAK_BF16_FLOPS = 989e12
@@ -153,6 +192,13 @@ TOL_BWD_FP32 = 1e-4  # d_h: x max(1, |ref|); weight blocks: x max|ref| (sums ove
 # 250k readings were at most 5 ulps and 3.4e-5 of the elements over 1 ulp
 TOL_GENERIC_BWD_BF16_ULPS = 8
 TOL_GENERIC_BWD_BF16_OVER_1ULP = 1e-3  # share of elements more than 1 ulp apart
+# the untabled kernels (#11-#13) are held to the same limits.  A d_hs element
+# over them passes only where its slot row is explained: the plain last stage
+# (dm_0 from dy_1), fed the kernel's own dy_1 of that row, gives the kernel's
+# d_hs row within TOL_FLIP_REFED_ULPS; the excess then comes from dy_1, which
+# the kernel rounded on the other side of a bf16 step than the plain version
+# (an fp32 sum upstream in another order), and the last stage is exact
+TOL_FLIP_REFED_ULPS = 1  # one rounding step of the output itself
 TOL_BWD_BF16 = 5e-2  # x max|ref|: bf16 rounding of the cotangent intermediates
 TOL_REDUCE = 1e-5  # x max|ref|: fp32 sums over the blocks in another order
 TOL_FORWARD_FP32 = 1e-4  # x max(1, |ref|): kernel vs plain path, both fp32, 4 layers
@@ -280,12 +326,14 @@ def compare(got, ref, scale, tol):
     return float(err.max()), int((err > tol * scale).sum()), float(ref.float().abs().max())
 
 
-def bf16_ulps(got, ref):
+def bf16_ulps(got, ref, floor=None):
     """|got - ref| elementwise in bf16 ulps (8 significant bits) of
     max(|ref|, mean|ref|): the floor keeps elements near zero, which are sums
-    of larger slot messages, from counting their own tiny ulps."""
+    of larger slot messages, from counting their own tiny ulps.  ``floor``:
+    that mean, when ``ref`` is a part of the tensor it was taken over."""
     r = ref.float().abs()
-    scale = torch.clamp(r, min=max(float(r.mean()), 1e-30))
+    floor = float(r.mean()) if floor is None else floor
+    scale = torch.clamp(r, min=max(floor, 1e-30))
     return (got.float() - ref.float()).abs() / torch.exp2(torch.floor(torch.log2(scale)) - 7)
 
 
@@ -524,11 +572,58 @@ def bwd_compare(got, ref, elementwise: bool, fp32: bool) -> dict:
         out["over"] = int((err > TOL_BWD_FP32 * scale).sum())
     else:
         u = bf16_ulps(got, ref)
-        out.update(max_ulps=float(u.max()), share_over_1ulp=float((u > 1).float().mean()))
-        out["over"] = int((u > TOL_GENERIC_BWD_BF16_ULPS).sum()) + int(
+        out.update(max_ulps=float(u.max()), share_over_1ulp=float((u > 1).float().mean()),
+                   over_ulps=int((u > TOL_GENERIC_BWD_BF16_ULPS).sum()))
+        out["over"] = out["over_ulps"] + int(
             out["share_over_1ulp"] > TOL_GENERIC_BWD_BF16_OVER_1ULP)
     out["finite"] = bool(torch.isfinite(got.float()).all())
     return out
+
+
+def explain_d_hs(cfg, args, d_agg, ys, got, ref) -> dict:
+    """The slot rows of the untabled d_hs [K, N, F] (bf16) that hold an
+    element over TOL_GENERIC_BWD_BF16_ULPS: the kernel's chain (the mode of
+    ``ys``) gives its dy_1 rows, and the plain last stage (``fmg._layer_dm``:
+    dm_0 = sum_c (dy_1 * attr_c) W'_1,c^T) fed them is held against the
+    kernel's d_hs rows, in ulps of the whole tensor's measure.  ``unexplained``
+    counts the elements over the limit in rows where that does not hold
+    within TOL_FLIP_REFED_ULPS.  For the record: the plain chain's dy_1 on
+    the same rows, and how far the kernel's is from it (elements that differ,
+    the largest difference in ulps of the element itself)."""
+    hs, h, geo2, ws, sels = args
+    k, n, f = got.shape
+    floor = float(ref.float().abs().mean())
+    u = bf16_ulps(got, ref, floor)
+    bad = u > TOL_GENERIC_BWD_BF16_ULPS
+    del u
+    kk, ii = torch.nonzero(bad.any(dim=-1), as_tuple=True)
+    rows = ii * k + kk  # node-major slot rows
+    c1, da, _ = cfg.widths[0]
+    a = cfg.a
+    with torch.no_grad():
+        dy1 = fmg.generic_bwd_chain(cfg, *args, d_agg, ys)[2][rows, :da]
+        attr = geo2.reshape(n * k, a + 2)[rows, :a]
+        refed = fmg._layer_dm(dy1, attr, ws[0].float(), c1, a)[:, :f]
+        r_ulps = bf16_ulps(got[kk, ii], refed, floor)
+        unexplained = int((bad[kk, ii] & (r_ulps > TOL_FLIP_REFED_ULPS)).sum())
+        # the plain chain's dy_1 on the receivers of those rows
+        recv = torch.unique(ii)
+        sub = [hs[:, recv].contiguous(), h[recv], geo2[recv]]
+        m0, at, mask = fmg._slot_rows_km(cfg, *sub, 0, recv.numel())
+        ys_sub = None if ys is None else [
+            y.reshape(n, k, -1)[recv].reshape(recv.numel() * k, -1) for y in ys]
+        dys = []
+        fmg._rows_bwd(cfg, m0, at, mask, [w.float() for w in ws], [s.long() for s in sels],
+                      d_agg[recv], ys_sub, [torch.zeros_like(w, dtype=torch.float32) for w in ws],
+                      dys)
+        pos = torch.searchsorted(recv, ii) * k + kk
+        p_dy1 = dys[0][pos]
+        own = torch.clamp(p_dy1.float().abs(), min=1e-30)
+        dy_diff = (dy1.float() - p_dy1.float()).abs() / torch.exp2(torch.floor(torch.log2(own)) - 7)
+    return dict(rows_over=int(rows.numel()), unexplained=unexplained,
+                refed_max_ulps=float(r_ulps.max()) if rows.numel() else 0.0,
+                dy1_elements_differing=int((dy1 != p_dy1).sum()),
+                dy1_max_ulps_of_element=float(dy_diff.max()) if rows.numel() else 0.0)
 
 
 def bwd_outputs(res) -> list:
@@ -543,16 +638,21 @@ def train_run(model, graph, attrs, target, steps, card, phase, want, **info):
     gradient norms and fp32 masters; returns the step function."""
     opt = torch.optim.Adam(model.parameters(), lr=LEARNING_RATE, betas=(0.9, 0.999), eps=1e-8)
     step = make_train_step(model, bf16_loss, opt)
-    losses, norms, per_step = [], [], []
+    losses, norms, per_step, step_ms = [], [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
     for _ in range(steps):
         before = launch_counts()
+        ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev[0].record()
         m = step(graph, attrs, target)
-        losses.append(m["loss"].item())
+        ev[1].record()
+        losses.append(m["loss"].item())  # synchronises
         norms.append(m["grad_norm"].item())
+        torch.cuda.synchronize()
+        step_ms.append(ev[0].elapsed_time(ev[1]))
         per_step.append({k: v - before[k] for k, v in launch_counts().items()})
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -561,12 +661,13 @@ def train_run(model, graph, attrs, target, steps, card, phase, want, **info):
          compute_dtype="bfloat16", master_dtype="float32" if masters else "mixed",
          optimizer=f"Adam(lr={LEARNING_RATE}, betas=(0.9, 0.999), eps=1e-8)", losses=losses,
          grad_norms=norms, launches_per_step=per_step, seconds_incl_first_step=seconds,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
+         step_ms_events=step_ms, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
     check(all(math.isfinite(x) for x in losses + norms),
           f"non-finite loss or norm: {losses} {norms}")
     check(all(s == want for s in per_step),
           f"{phase}: launches per step {per_step}, expected {want}")
     check(masters, "master weights are not all fp32")
+    step.step_ms = step_ms
     return step
 
 
@@ -644,7 +745,7 @@ def lmax2_train_phases(card: str, ctx: dict) -> dict:
             bad = {f"{m}.{nm}": v for m, c in cmp.items() for nm, v in c.items()
                    if v["over"] or not v["finite"]}
             bad.update({f"save.{nm}": v for nm, v in save.items() if v["over"] or not v["finite"]})
-            emit("kernel_bwd_lmax2", kernels=[k_.name for k_ in fmg.KERNELS[1:]] +
+            emit("kernel_bwd_lmax2", kernels=[k_.name for k_ in fmg.KERNELS[1:5]] +
                  [fm.TAB_BWD_REDUCE.name], dtype=str(dtype).replace("torch.", ""),
                  rows=h.shape[0], valid_slots=kres[dtype]["n_valid"], splits=splits,
                  save_mode=save, compared=cmp, bit_identical_reruns=identical,
@@ -753,7 +854,8 @@ def lmax2_train_phases(card: str, ctx: dict) -> dict:
     nw1 = 4 * sum(w.numel() for w in ws1)
     whole10_1m = bound(nbytes(h1, geo1, loc1, gtab1, *ws1, *sels1, d_agg1m, d_hr1m) + nw1 +
                        gtab1.numel() * cfg1m.f * 2, 3 * kern1m.flops_per_slot() * n_valid_1m)
-    del kern1m, args1m, d_agg1m, d_hr1m, h1, geo1, loc1, gtab1, ws1, sels1, g1m, tabs1m
+    del kern1m, args1m, d_agg1m, d_hr1m, h1, geo1, loc1, gtab1, ws1, sels1, tabs1m
+    ctx["g1m"] = g1m  # the untabled sym-regather phases train on it again
 
     # ---- 19. fp32 gradients through #9 and through #10 against the plain path
     pts = np.random.default_rng(SEED + 12).random((GC2_POINTS, 3)).astype(np.float32)
@@ -916,6 +1018,344 @@ def lmax2_train_phases(card: str, ctx: dict) -> dict:
             library_ms=t["table_library_ms"], **piece),
     }
     return rows
+
+
+NO_TABLES = dict(gather_loc=None, gather_tab=None, gather_rev=None, gather_tile=0,
+                 gather_rev_dense=None, gather_rem_pos=None, gather_rem_node=None)
+UNTAB_OUTPUTS = (("d_hs", True), ("d_hr", True), ("dW1", False), ("dW2", False))
+
+
+def untabled_inputs(kern, senders, edge_geo, h_ext, lo, hi, dtype, gen):
+    """#11-#13's arguments for the receivers [lo, hi) of a graph, as the
+    model hands them over: hs = h_ext[senders.T] (clamped) [K, hi-lo, F], the
+    receivers' rows, the geometry with extra masked slots and a masked tail
+    (the last 37 receivers without a valid slot), layer-0's folded weights.
+    Returns (cfg, args, valid slots)."""
+    n, k = hi - lo, senders.shape[1]
+    dev = senders.device
+    a = edge_geo.shape[1] // k - 2
+    cfg = kern.config(a, 0)
+    geo = edge_geo[lo:hi].float().reshape(n, k, a + 2)
+    geo[..., a + 1] *= (torch.rand((n, k), generator=gen, device=dev) > 0.1).float()
+    geo[n - 37:, :, a + 1] = 0.0
+    n_valid = int((geo[..., a + 1] > 0).sum())
+    hs = h_ext[torch.clamp(senders[lo:hi].t(), max=h_ext.shape[0] - 1).long().contiguous()]
+    args = (hs.to(dtype).contiguous(), h_ext[lo:hi].to(dtype).contiguous(),
+            geo.reshape(n, -1).to(dtype).contiguous(),
+            [w.contiguous() for w in kern.fold(dtype)], kern.selections(dev))
+    return cfg, args, n_valid
+
+
+def untabled_check(label, kern, cfg, args, n_valid, d_agg, times: bool) -> dict:
+    """#11 (without and with save), #12 and #13 (whole: chain, weight
+    gradients, reduction) against their plain versions on one set of
+    inputs; #12 against #13 bitwise; two runs of each bitwise equal.  With
+    ``times``, CUDA-event times of each and of its plain version, and the
+    bounds.  Emits a ``kernel_untabled`` line; returns its numbers."""
+    fp32 = args[1].dtype == torch.float32
+    hs, h, geo2, ws, sels = args
+    with torch.no_grad():
+        agg = fmg.generic_fwd(cfg, *args)
+        agg_s, ys = fmg.generic_fwd(cfg, *args, save=True)
+        save_same = torch.equal(agg, agg_s)
+        p_agg, p_ys = fmg.generic_fwd_plain(cfg, *args, save=True)
+        cmp = {nm: bwd_compare(x, y, True, fp32)
+               for nm, x, y in (("agg", agg, p_agg), ("y1", ys[0], p_ys[0]), ("y2", ys[1], p_ys[1]))}
+        del agg_s, p_agg, p_ys
+        flat = lambda r: [r[0], r[1], *r[2]]
+        res = flat(fmg.generic_bwd_kernels(cfg, *args, d_agg, ys=ys))
+        rep = flat(fmg.generic_bwd_kernels(cfg, *args, d_agg))
+        torch.cuda.synchronize()
+        res_eq_rep = all(torch.equal(x, y) for x, y in zip(res, rep))
+        identical = all(torch.equal(x, y) for x, y in zip(
+            res, flat(fmg.generic_bwd_kernels(cfg, *args, d_agg, ys=ys)))) and all(
+            torch.equal(x, y) for x, y in zip(rep, flat(fmg.generic_bwd_kernels(cfg, *args, d_agg))))
+        ref = flat(fmg.generic_bwd_plain(cfg, *args, d_agg))
+        for (nm, el), x, y, z in zip(UNTAB_OUTPUTS, res, rep, ref):
+            cmp[f"res.{nm}"] = bwd_compare(x, z, el, fp32)
+            cmp[f"rep.{nm}"] = bwd_compare(y, z, el, fp32)
+        for mode, got, ys_m in (("res", res[0], ys), ("rep", rep[0], None)):
+            c = cmp[f"{mode}.d_hs"]
+            if not fp32 and c["over_ulps"]:
+                c["explained"] = explain_d_hs(cfg, args, d_agg, ys_m, got, ref[0])
+                c["over"] = c["explained"]["unexplained"] + int(
+                    c["share_over_1ulp"] > TOL_GENERIC_BWD_BF16_OVER_1ULP)
+        torch.cuda.synchronize()
+    out = dict(label=label, dtype=str(h.dtype).replace("torch.", ""), rows=h.shape[0], k=cfg.k,
+               valid_slots=n_valid, compared=cmp, save_agg_equal=save_same,
+               res_bitwise_equal_rep=res_eq_rep, bit_identical_reruns=identical,
+               max_abs_err=dict(fwd=cmp["agg"]["max_abs_err"],
+                                res=max(cmp[f"res.{nm}"]["max_abs_err"] for nm, _ in UNTAB_OUTPUTS),
+                                rep=max(cmp[f"rep.{nm}"]["max_abs_err"] for nm, _ in UNTAB_OUTPUTS)))
+    if times:
+        with torch.no_grad():
+            t = dict(
+                fwd_ms=event_ms(lambda: fmg.generic_fwd(cfg, *args), iters=5, warmup=1),
+                save_ms=event_ms(lambda: fmg.generic_fwd(cfg, *args, save=True), iters=3, warmup=1),
+                fwd_plain_ms=event_ms(lambda: fmg.generic_fwd_plain(cfg, *args), iters=1),
+                res_ms=event_ms(lambda: fmg.generic_bwd_kernels(cfg, *args, d_agg, ys=ys), iters=3,
+                                warmup=1),
+                rep_ms=event_ms(lambda: fmg.generic_bwd_kernels(cfg, *args, d_agg), iters=3,
+                                warmup=1),
+                rep_chain_ms=event_ms(lambda: fmg.generic_bwd_chain(cfg, *args, d_agg), iters=3,
+                                      warmup=1),
+                res_plain_ms=event_ms(lambda: fmg.generic_bwd_plain(cfg, *args, d_agg, ys=ys),
+                                      iters=1),
+                rep_plain_ms=event_ms(lambda: fmg.generic_bwd_plain(cfg, *args, d_agg), iters=1))
+        # bounds: each input read once, each output written once; 1 (#11), 2
+        # (#12) and 3 (#13) passes of the folded weights' nonzeros per valid
+        # slot at the bf16 tensor-core peak
+        fps = kern.flops_per_slot()
+        wsz = nbytes(*ws, *sels)
+        io = nbytes(hs, h, geo2) + wsz
+        dws = 4 * sum(w.numel() for w in ws)
+        grads = nbytes(d_agg, res[0], res[1]) + dws
+        t["bounds"] = {k_: dict(zip(("bound_ms", "bound_by", "bytes_ms", "ops_ms"), v)) for k_, v in (
+            ("fwd", bound(io + nbytes(agg), fps * n_valid)),
+            ("save", bound(io + nbytes(agg, *ys), fps * n_valid)),
+            ("res", bound(io + nbytes(*ys) + grads, 2 * fps * n_valid)),
+            ("rep", bound(io + grads, 3 * fps * n_valid)))}
+        out["times"] = t
+    emit("kernel_untabled", kernels=[fmg.GENERIC_FWD.name, fmg.GENERIC_BWD_RES.name,
+                                     fmg.GENERIC_BWD_REP.name, fmg.GENERIC_TAB_BWD_WGRAD.name,
+                                     fm.TAB_BWD_REDUCE.name], **out,
+         tolerance=(f"{TOL_BWD_FP32} * max(1, |ref|) elementwise for agg, ys, d_hs, d_hr; "
+                    f"{TOL_BWD_FP32} * max|ref| for dW' (fp32 sums in another order)") if fp32 else
+         (f"{TOL_GENERIC_BWD_BF16_ULPS} bf16 ulps of max(|ref|, mean|ref|) elementwise and at "
+          f"most {TOL_GENERIC_BWD_BF16_OVER_1ULP} of the elements over 1 ulp (kernel and plain "
+          "version round at the same points); a d_hs element over the limit passes only if the "
+          "plain last stage fed the kernel's dy_1 of its slot row gives the kernel's row within "
+          f"{TOL_FLIP_REFED_ULPS} ulp; #12 = #13 and reruns bitwise"))
+    bad = {nm: v for nm, v in cmp.items() if v["over"] or not v["finite"]}
+    check(not bad, f"{label}: untabled kernels vs plain in {h.dtype}: {bad}")
+    check(save_same and res_eq_rep and identical,
+          f"{label}: save mode {save_same}, #12 = #13 {res_eq_rep}, reruns {identical}")
+    return out
+
+
+def untabled_phases(card: str, ctx: dict) -> dict:
+    """Phases 21-23: the lmax=2 train steps on the graphs without gather
+    tables (the runner's paths below 2M points) and the untabled kernels
+    against their plain versions at their shapes.
+
+    21. train_untabled_250k -- bench.py's 250k step (``remat``, residual
+        backward) on the 250k graph with its tables dropped: per step 4 of
+        #11 (in save mode), 4 of #12, and no #8/#9/#10/#13.
+    22. train_sym_1m -- bench.py's 1M ``remat_kernel`` step on the 1M graph
+        with its tables dropped: the sym-regather entry, per step 4 of #11
+        and 4 of #13, no #8/#9/#10/#12.
+    23. kernel_untabled at the 250k and 1M shapes (bf16), #12's times at
+        250k.  Returns #12's row of the ``kernels`` line."""
+    dev = torch.device(DEVICE)
+    bf = torch.bfloat16
+    per_layer = {fmg.GENERIC_FWD.name: NUM_LAYERS, fmg.GENERIC_TAB_BWD_WGRAD.name: NUM_LAYERS,
+                 fm.TAB_BWD_REDUCE.name: NUM_LAYERS}
+    # ---- 21. 250k, residual, untabled
+    g250 = ctx["graph"]._replace(**NO_TABLES)
+    model = lmax2_model(dev, remat=True)
+    check(not any(layer._tab_eligible(L2_POINTS, g250) or layer._sym_regather_eligible(
+        L2_POINTS, True) for layer in model.layers), "250k: not the untabled residual path")
+    attrs_bf = geo_only(model, g250, bf)
+    g_bf = g250._replace(nodes=g250.nodes.to(bf))
+    target = torch.from_numpy(np.random.default_rng(SEED + 15).standard_normal(
+        (L2_POINTS, 3)).astype(np.float32)).to(dev)
+    step = train_run(model, g_bf, attrs_bf, target, L2_TRAIN_STEPS, card, "train_untabled_250k",
+                     expected({**per_layer, fmg.GENERIC_BWD_RES.name: NUM_LAYERS}),
+                     points=L2_POINTS, backward="residual (#12)", remat=True, tables=False)
+    launches_250k = launch_counts()
+    step_ms_250k = event_ms(lambda: step(g_bf, attrs_bf, target), iters=2, warmup=0)
+    kern250 = fmg.FusedMessageGeneric(model.layers[0].message_layers, L2_NEIGHBORS,
+                                      SEGNNLayer._pick_generic_tile(L2_POINTS))
+    del step, model, target
+    # ---- 22. 1M, remat_kernel, sym-regather
+    n1 = L1M_POINTS
+    g1m = ctx.pop("g1m")._replace(**NO_TABLES)
+    model = lmax2_model(dev, remat=True, remat_kernel=True)
+    check(all(layer._sym_regather_eligible(n1, g1m.reverse_slot is not None)
+              and not layer._tab_eligible(n1, g1m) for layer in model.layers),
+          "1M: not the sym-regather path")
+    attrs1 = geo_only(model, g1m, bf)
+    g1_bf = g1m._replace(nodes=g1m.nodes.to(bf))
+    target = torch.from_numpy(np.random.default_rng(SEED + 16).standard_normal(
+        (n1, 3)).astype(np.float32)).to(dev)
+    step = train_run(model, g1_bf, attrs1, target, L1M_TRAIN_STEPS, card, "train_sym_1m",
+                     expected({**per_layer, fmg.GENERIC_BWD_REP.name: NUM_LAYERS}),
+                     points=n1, backward="replay (#13), sym-regather", remat=True,
+                     remat_kernel=True, tables=False)
+    step_ms_1m = step.step_ms[-1]
+    kern1m = fmg.FusedMessageGeneric(model.layers[0].message_layers, L2_NEIGHBORS,
+                                      SEGNNLayer._pick_generic_tile(n1), residual_bwd=False)
+    del step, model, target, g1_bf
+    # ---- 23. the kernels at the 1M and 250k shapes (bf16)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    out = {}
+    for label, kern, g, attrs in (("sym_1m", kern1m, g1m, attrs1),
+                                  ("untabled_250k", kern250, g250, attrs_bf)):
+        n = g.senders.shape[0]
+        h_ext = torch.randn((n, kern.config(9, 0).f), generator=gen, device=dev)
+        cfg, args, n_valid = untabled_inputs(kern, g.senders, attrs[3], h_ext, 0, n, bf, gen)
+        del h_ext
+        d_agg = torch.randn((n, cfg.out_dim), generator=gen, device=dev).to(bf)
+        out[label] = untabled_check(label, kern, cfg, args, n_valid, d_agg,
+                                    times=label == "untabled_250k")
+        del cfg, args, d_agg
+    del g1m, attrs1, g250, attrs_bf, g_bf
+    t = out["untabled_250k"]["times"]
+    emit("untabled_times", card=card, step_ms_250k=step_ms_250k, step_ms_sym_1m=step_ms_1m,
+         kernels_250k=t)
+    return {fmg.GENERIC_BWD_RES.name: dict(
+        launches=launches_250k[fmg.GENERIC_BWD_RES.name],
+        max_abs_err=out["untabled_250k"]["max_abs_err"]["res"], ms=t["res_ms"],
+        plain_ms=t["res_plain_ms"], bound_ms=t["bounds"]["res"]["bound_ms"],
+        bound_by=t["bounds"]["res"]["bound_by"], library_ms=None)}
+
+
+def config5_phases(card: str) -> dict:
+    """Phases 24-27: config 5 (bench_scaling.py:113-240), the 10M-point
+    single-chip train step, at full size and width.
+
+    24. graph_10m -- 10M uniform points (default_rng(0)), r = 0.04 (1e5 /
+        1e7)^(1/3), K=16, octree max(4, search level + 1) levels, cell
+        capacity by suggest_cell_capacity, radius_graph_cell_segments (10
+        segments, the exact "sort" selection), not symmetrized; geo-only bf16
+        attributes by SEGNN.compute_attributes_dense_chunked; times.
+    25. kernel_untabled at one node block's shapes (400k receivers, K=16,
+        tile 200, senders anywhere in the 10M graph), fp32 and bf16, with
+        the times of #11 and #13 and their bounds.
+    26. train_config5 -- edge_chunks=25, remat, remat_kernel, remat_layers=2;
+        bf16 compute on fp32 masters, MSE, Adam 1e-3; one warm-up and one
+        timed step (CUDA events); loss, peak memory.  Launches per step,
+        with L = 4 layers and C = 25 node blocks: the replay backward #13
+        once per layer and block, L C = 100; the forward #11 three times per
+        layer and block, 3 L C = 300: once in the forward, once when the
+        backward of a layer group (remat_layers=2) recomputes the group,
+        whose block checkpoints run their blocks again, and once when each
+        block's own checkpoint recomputes it for its backward; the weight-
+        gradient kernel and the reduction with #13 (100 each); no
+        #8/#9/#10/#12 and no table sum.
+    27. grad_check_config5 -- fp32 gradients of the chunked model
+        (edge_chunks=4, remat_layers=2, remat_kernel) against autograd
+        through the plain path, 20k points at the 10M density.
+    Returns the rows of #11 and #13 for the ``kernels`` line."""
+    dev = torch.device(DEVICE)
+    bf = torch.bfloat16
+    n = C5_POINTS
+    rng = np.random.default_rng(0)  # bench_scaling.py's generator, in its order
+    pts = rng.random((n, 3)).astype(np.float32)
+    levels = max(4, search_level_for_radius(C5_RADIUS, LO, HI) + 1)
+    gt = {}
+    tree, gt["octree_ms"] = sync_time(
+        lambda: port.build_octree(pts, LO, HI, num_levels=levels, device=dev))
+    cap = port.suggest_cell_capacity(tree, C5_RADIUS, LO, HI)
+    edges, gt["radius_segments_ms"] = sync_time(lambda: port.radius_graph_cell_segments(
+        tree, C5_RADIUS, LO, HI, max_neighbors=L2_NEIGHBORS, cell_capacity=cap,
+        num_segments=C5_SEGMENTS, selection="sort"))
+    feats = rng.standard_normal((n, 5)).astype(np.float32)
+    graph, gt["dense_graph_ms"] = sync_time(lambda: port.DenseEdgeGraph.from_radius_edges(
+        feats, tree.points, edges, symmetrize=False))
+    del tree, edges, pts, feats
+    layers = NUM_LAYERS
+    model = lmax2_model(dev, remat=True, remat_kernel=True, edge_chunks=C5_CHUNKS,
+                        remat_layers=C5_REMAT_LAYERS)
+    attrs, gt["attributes_ms"] = sync_time(lambda: model.compute_attributes_dense_chunked(
+        graph.positions, graph.senders, graph.edge_mask, dtype=bf))
+    n_edges = int(graph.edge_mask.sum())
+    emit("graph_10m", points=n, radius=C5_RADIUS, k=L2_NEIGHBORS, cell_capacity=cap,
+         octree_levels=levels, segments=C5_SEGMENTS, selection="sort", edges=n_edges,
+         graph_build_ms=sum(gt.values()), card=card, **gt)
+    check(n_edges > 0 and graph.reverse_slot is None, "the 10M graph")
+
+    # ---- 25. the kernels at one node block's shapes, fp32 and bf16
+    c = n // C5_CHUNKS
+    tile = SEGNNLayer._pick_generic_tile(c)
+    kern = fmg.FusedMessageGeneric(model.layers[0].message_layers, L2_NEIGHBORS, tile,
+                                   residual_bwd=False)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    h_ext = torch.randn((n, kern.config(9, 0).f), generator=gen, device=dev)
+    chk = {}
+    for dtype in (torch.float32, bf):
+        cfg, args, n_valid = untabled_inputs(kern, graph.senders, attrs[3], h_ext, 0, c, dtype, gen)
+        d_agg = torch.randn((c, cfg.out_dim), generator=gen, device=dev).to(dtype)
+        chk[dtype] = untabled_check("config5_block", kern, cfg, args, n_valid, d_agg,
+                                    times=dtype == bf)
+        del cfg, args, d_agg
+    del h_ext
+    t = chk[bf]["times"]
+
+    # ---- 26. the train step
+    graph_bf = graph._replace(nodes=graph.nodes.to(bf))
+    del graph
+    target = torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32)).to(dev)
+    per_step = layers * C5_CHUNKS
+    want = expected({fmg.GENERIC_FWD.name: 3 * per_step, fmg.GENERIC_BWD_REP.name: per_step,
+                     fmg.GENERIC_TAB_BWD_WGRAD.name: per_step, fm.TAB_BWD_REDUCE.name: per_step})
+    step = train_run(model, graph_bf, attrs, target, C5_TRAIN_STEPS, card, "train_config5", want,
+                     points=n, edges=n_edges, edge_chunks=C5_CHUNKS, block_tile=tile,
+                     remat_layers=C5_REMAT_LAYERS, remat=True, remat_kernel=True,
+                     backward="replay (#13)", selection="sort")
+    launches = launch_counts()
+    emit("config5", card=card, step_ms=step.step_ms[-1], warmup_step_ms=step.step_ms[0],
+         graph_build_ms=sum(gt.values()), edges=n_edges,
+         kernel_ms_per_step_estimate=dict(
+             fwd=3 * per_step * t["fwd_ms"], rep=per_step * t["rep_ms"]))
+    del step, model, graph_bf, attrs, target
+
+    # ---- 27. fp32 gradients of the chunked, layer-group-checkpointed model
+    pts = np.random.default_rng(SEED + 19).random((GC5_POINTS, 3)).astype(np.float32)
+    lv = max(4, search_level_for_radius(GC5_RADIUS, LO, HI) + 1)
+    tree = port.build_octree(pts, LO, HI, num_levels=lv, device=dev)
+    cap = port.suggest_cell_capacity(tree, GC5_RADIUS, LO, HI)
+    kw = dict(max_neighbors=L2_NEIGHBORS, cell_capacity=cap)
+    e_seg = port.radius_graph_cell_segments(tree, GC5_RADIUS, LO, HI, num_segments=C5_SEGMENTS,
+                                            **kw)
+    feats = np.random.default_rng(SEED + 20).standard_normal((GC5_POINTS, 5)).astype(np.float32)
+    g = port.DenseEdgeGraph.from_radius_edges(feats, tree.points, e_seg, symmetrize=False)
+    t_gc = torch.from_numpy(np.random.default_rng(SEED + 21).standard_normal(
+        (GC5_POINTS, 3)).astype(np.float32)).to(dev)
+    m_p = lmax2_model(dev, use_pallas=False)
+    attrs_gc = m_p.compute_attributes_dense_chunked(g.positions, g.senders, g.edge_mask,
+                                                    dtype=torch.float32)
+    loss_p = mse_loss(m_p(g, attrs=attrs_gc), t_gc)
+    loss_p.backward()
+    m_k = lmax2_model(dev, remat=True, remat_kernel=True, edge_chunks=GC5_CHUNKS,
+                      remat_layers=C5_REMAT_LAYERS)
+    m_k.load_state_dict(m_p.state_dict())
+    reset_launches()
+    loss_k = mse_loss(m_k(g, attrs=attrs_gc), t_gc)
+    loss_k.backward()
+    got = launch_counts()
+    worst, worst_name = 0.0, ""
+    for (nm, a), b in zip(m_k.named_parameters(), m_p.parameters(), strict=True):
+        rel = float((a.grad - b.grad).abs().max()) / max(float(b.grad.abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, nm
+    gc_want = expected({fmg.GENERIC_FWD.name: 3 * layers * GC5_CHUNKS,
+                        fmg.GENERIC_BWD_REP.name: layers * GC5_CHUNKS,
+                        fmg.GENERIC_TAB_BWD_WGRAD.name: layers * GC5_CHUNKS,
+                        fm.TAB_BWD_REDUCE.name: layers * GC5_CHUNKS})
+    emit("grad_check_config5", points=GC5_POINTS, radius=GC5_RADIUS, k=L2_NEIGHBORS,
+         edge_chunks=GC5_CHUNKS, remat_layers=C5_REMAT_LAYERS, dtype="float32",
+         edges=int(g.edge_mask.sum()),
+         loss_plain=loss_p.item(), loss_kernel=loss_k.item(), worst_param=worst_name,
+         worst_rel_err=worst, launches=got,
+         tolerance=f"{TOL_GRAD_FP32} * max|ref| per parameter; fp32 sums in another order")
+    check(got == gc_want, f"gradient check launches {got}, expected {gc_want}")
+    check(worst <= TOL_GRAD_FP32, f"config-5 fp32 gradients: {worst_name} off by {worst}")
+    check(abs(loss_k.item() - loss_p.item()) <= 1e-5 * loss_p.item(), "losses differ (config 5)")
+    del m_p, m_k, g, attrs_gc
+
+    b = t["bounds"]
+    common = dict(library_ms=None)
+    return {
+        fmg.GENERIC_FWD.name: dict(
+            launches=launches[fmg.GENERIC_FWD.name], max_abs_err=chk[bf]["max_abs_err"]["fwd"],
+            ms=t["fwd_ms"], plain_ms=t["fwd_plain_ms"], bound_ms=b["fwd"]["bound_ms"],
+            bound_by=b["fwd"]["bound_by"], save_ms=t["save_ms"], **common),
+        fmg.GENERIC_BWD_REP.name: dict(
+            launches=launches[fmg.GENERIC_BWD_REP.name], max_abs_err=chk[bf]["max_abs_err"]["rep"],
+            ms=t["rep_ms"], plain_ms=t["rep_plain_ms"], bound_ms=b["rep"]["bound_ms"],
+            bound_by=b["rep"]["bound_by"], chain_ms=t["rep_chain_ms"], **common),
+    }
 
 
 def main() -> int:
@@ -1234,7 +1674,13 @@ def main() -> int:
 
     # ---- 16-20. lmax=2 training: #9 at 250k, #10 at 1M
     l2t = lmax2_train_phases(card, l2ctx)
+
+    # ---- 21-23. the untabled paths at 250k (#11 save, #12) and 1M (#11, #13)
+    l2u = untabled_phases(card, l2ctx)
     del l2ctx
+
+    # ---- 24-27. config 5: 10M points, edge_chunks, remat_layers (#11, #13)
+    c5 = config5_phases(card)
 
     src = lambda kern: str(kern.source.relative_to(Path(__file__).resolve().parent))
     print(json.dumps({"kernels": [
@@ -1258,6 +1704,11 @@ def main() -> int:
           "replaces": f"{GENERIC_TPU_FILE}:{line}", **l2t[kern.name]}
          for kern, line in ((fmg.GENERIC_TAB_BWD_RES, 998), (fmg.GENERIC_TAB_BWD_REP, 1082),
                             (fmg.GENERIC_TAB_BWD_WGRAD, 1044), (fmg.GENERIC_TAB_BWD_TABLE, 1032))]
+      + [{"name": kern.name, "route": "cuda", "source": src(kern),
+          "replaces": f"{GENERIC_TPU_FILE}:{line}", **row}
+         for kern, line, row in ((fmg.GENERIC_FWD, 556, c5[fmg.GENERIC_FWD.name]),
+                                 (fmg.GENERIC_BWD_RES, 802, l2u[fmg.GENERIC_BWD_RES.name]),
+                                 (fmg.GENERIC_BWD_REP, 710, c5[fmg.GENERIC_BWD_REP.name]))]
     }), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

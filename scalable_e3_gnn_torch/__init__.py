@@ -15,12 +15,14 @@ from .core.spherical import spherical_harmonics
 from .core.wigner import wigner_3j
 from .graph.container import DenseEdgeGraph
 from .graph.octree import build_octree
-from .graph.radius import radius_graph_brute, radius_graph_cell, suggest_cell_capacity
+from .graph.radius import (radius_graph_brute, radius_graph_cell, radius_graph_cell_segments,
+                           suggest_cell_capacity)
 from .models.segnn import SEGNN
 from .ops.tensor_product import TensorProduct
 from .utils.params import params_from_jax, params_to_jax
 
 __all__ = ["Irrep", "Irreps", "MulIrrep", "spherical_harmonics", "wigner_3j",
            "DenseEdgeGraph", "build_octree", "radius_graph_brute", "radius_graph_cell",
+           "radius_graph_cell_segments",
            "suggest_cell_capacity", "SEGNN", "TensorProduct", "params_from_jax",
            "params_to_jax"]

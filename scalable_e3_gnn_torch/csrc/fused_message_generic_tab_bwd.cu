@@ -1,19 +1,24 @@
-// Tabled generic fused message + aggregation, backward, for Hopper (sm_90a).
+// Generic fused message + aggregation, backward, for Hopper (sm_90a): the
+// tabled and the untabled sender addressing.
 //
 // Replaces the TPU kernels scalable_e3_gnn_tpu/kernels/fused_message_generic.py::
 // FusedMessageGeneric._bwd_call_res_tab (#9, the residual backward: the forward
 // saved each layer's pre-gate y) and _bwd_call_rep_tab (#10, the replay
-// backward: y recomputed here, node-sized residuals only), both the z-free
+// backward: y recomputed here, node-sized residuals only), and their untabled
+// counterparts _bwd_call_res (#12) and _bwd_call_rep (#13), all the z-free
 // transpose chain _transpose_chain with the VJP of Gate.fast_apply.  Given the
 // cotangent d_agg [N, dk2] of
 //
-//   m0 = [h[gtab[i / tile, loc[i,k]]] || h[i] || d2],  y_l = sum_c (m_l W_l[c]) attr_c,
+//   m0 = [x_s || h[i] || d2],  y_l = sum_c (m_l W_l[c]) attr_c,
 //   m_l+1 = y_l[:, :dk_l] * sigmoid(y_l)[:, sel_l],   agg[i] = sum_k mask * m_2,
 //
-// per slot and layer, last to first: dy = VJP of the gate at y; dya_c = dy attr_c;
-// dW_l[c] += m_l^T dya_c; dm_l-1 = sum_c dya_c W_l[c]^T.  Outputs: d_hu
-// [ntiles*U, F] (sender cotangents summed per table entry), d_hr [N, F]
-// (receiver cotangents summed over the K slots) and the fp32 weight gradients.
+// (x_s = h[gtab[i / tile, loc[i,k]]] tabled, hs[k, i] untabled) per slot and
+// layer, last to first: dy = VJP of the gate at y; dya_c = dy attr_c;
+// dW_l[c] += m_l^T dya_c; dm_l-1 = sum_c dya_c W_l[c]^T.  Outputs: the sender
+// cotangents (tabled: d_hu [ntiles*U, F], summed per table entry; untabled:
+// d_hs [K, N, F], one row per slot, slot-major as the TPU kernel writes it),
+// d_hr [N, F] (receiver cotangents summed over the K slots) and the fp32
+// weight gradients.
 //
 // Rounding points (the TPU kernel's): dm_2 = d_agg * mask rounded to the data
 // type; the gate VJP as JAX's AD computes it (dout * multiplier and dout * y
@@ -24,7 +29,8 @@
 //
 // Design: three kernels in this file, then the fixed-order reduction of
 // csrc/fused_message_tab_bwd.cu.
-// 1. chain (#9 or #10 by a template flag).  One block owns whole receivers
+// 1. chain (#9/#12 or #10/#13 by a template flag; the sender addressing by a
+//    second).  One block owns whole receivers
 //    (128 slot rows in bf16, 64 in fp32), as kernel #8 does, and runs the
 //    chain for its rows: in replay mode the two forward GEMMs of #8 (the same
 //    arithmetic, so both modes give bitwise the same y), in residual mode a
@@ -34,7 +40,8 @@
 //    [A][D16][C16] layout of #8); the dm GEMM reads W_c^T out of the same
 //    slice by ldmatrix.trans.  It writes, per slot row, each layer's input m
 //    and dy (for the weight gradients), the rounded sender cotangent d_hs
-//    [N*K, F], and per receiver d_hr.
+//    (tabled: [N*K, F] node-major, for the table sum; untabled: [K, N, F],
+//    the kernel's output), and per receiver d_hr.
 // 2. wgrad.  dW_l[c] = m_l^T (dy_l attr_c) sums over all N*K slot rows: 1.05
 //    MB of fp32 at the lmax=2 config, far more than a block's shared memory,
 //    and CUDA blocks run in no order, so there is no carried sum as on the
@@ -48,8 +55,8 @@
 //    time on an H100, hence the rows from the chain.  No float atomics; the
 //    partials are summed in range order by the reduction kernel of PR 2, so
 //    reruns are bit-identical.
-// 3. table.  One block per gather tile sums each table entry's d_hs rows in
-//    slot order (a counting sort of loc in shared memory): d_hu.
+// 3. table (tabled only).  One block per gather tile sums each table entry's
+//    d_hs rows in slot order (a counting sort of loc in shared memory): d_hu.
 // bf16 runs the GEMMs on mma.sync m16n8k16 (fp32 accumulate); fp32 (the
 // check path) on the FMA units.  Widths are runtime arguments up to C1 <= 192
 // and D <= 128.
@@ -569,13 +576,13 @@ __device__ void build_inverse(const int* sel, int dk, int dd, int* invs, int* in
   }
 }
 
-// layer-1 input row [h_s || h_r || d2] into mrow, zero-padded to width (a
+// layer-1 input row [hs_s || h_r || d2] into mrow, zero-padded to width (a
 // warp per row; s, rn < 0: zero rows)
 template <typename T>
-__device__ __forceinline__ void m0_row(const T* __restrict__ h, int f, int s, int rn, float d2,
-                                       T* mrow, int width, int lane) {
+__device__ __forceinline__ void m0_row(const T* __restrict__ hs, const T* __restrict__ h, int f,
+                                       int s, int rn, float d2, T* mrow, int width, int lane) {
   for (int j = lane; j < f; j += 32) {
-    const T xs = s >= 0 ? h[(long)s * f + j] : from_f<T>(0.f);
+    const T xs = s >= 0 ? hs[(long)s * f + j] : from_f<T>(0.f);
     const T xr = rn >= 0 ? h[(long)rn * f + j] : from_f<T>(0.f);
     mrow[j] = xs;
     mrow[f + j] = xr;
@@ -608,11 +615,15 @@ __device__ __forceinline__ void store_rows(T* __restrict__ out, int width, const
 }
 
 // ---------------------------------------------------------------------------
-// 1. The chain: kernel #9 (REPLAY = false) and #10 (REPLAY = true).
-template <typename T, bool MMA, bool REPLAY>
+// 1. The chain: kernel #9 (REPLAY = false) and #10 (REPLAY = true) with TAB
+// (senders through loc/gtab, rows of h; d_hs node-major), #12 and #13 without
+// (slot k of receiver i reads row k*N + i of hs [K, N, F] and writes d_hs
+// there).
+template <typename T, bool MMA, bool REPLAY, bool TAB>
 __global__ void __launch_bounds__(kThreads, 1)
-chain_kernel(const T* __restrict__ h, const T* __restrict__ geo2, const int* __restrict__ loc,
-             const int* __restrict__ gtab, const T* __restrict__ w1, const int* __restrict__ sel1g,
+chain_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* __restrict__ geo2,
+             const int* __restrict__ loc, const int* __restrict__ gtab,
+             const T* __restrict__ w1, const int* __restrict__ sel1g,
              const T* __restrict__ w2, const int* __restrict__ sel2g, const T* __restrict__ y1in,
              const T* __restrict__ y2in, const T* __restrict__ dagg, T* __restrict__ dhs,
              T* __restrict__ dhr, T* __restrict__ dy1g, T* __restrict__ dy2g,
@@ -652,7 +663,8 @@ chain_kernel(const T* __restrict__ h, const T* __restrict__ geo2, const int* __r
     if (r < d.rb * d.k && node < d.n) {
       rn = node;
       const long e = (long)node * d.k + r % d.k;
-      s = sender_of(loc, gtab, node, e, d);
+      if constexpr (TAB) s = sender_of(loc, gtab, node, e, d);
+      else s = (r % d.k) * d.n + node;  // the host checks K*N < 2^31
       for (int q = 0; q < d.gs; ++q) geo[r * d.gs + q] = to_f(geo2[e * d.gs + q]);
     } else {
       for (int q = 0; q < d.gs; ++q) geo[r * d.gs + q] = 0.f;
@@ -679,7 +691,7 @@ chain_kernel(const T* __restrict__ h, const T* __restrict__ geo2, const int* __r
   // ---- m_0 and m_1 of every slot row, for the weight-gradient kernel (and,
   // in replay mode, the forward of kernel #8 for these rows: y_1, y_2)
   for (int r = warp; r < d.rows; r += kWarps)
-    m0_row<T>(h, f, snd[r], rnode[r], geo[r * d.gs + a], M + r * d.ldm, d.ldm - 8, lane);
+    m0_row<T>(hs, h, f, snd[r], rnode[r], geo[r * d.gs + a], M + r * d.ldm, d.ldm - 8, lane);
   __syncthreads();
   store_rows<T>(m0g, d.kp0, M, d.ldm, rnode, e0, d);
   if constexpr (REPLAY) {
@@ -726,7 +738,7 @@ chain_kernel(const T* __restrict__ h, const T* __restrict__ geo2, const int* __r
   // ---- the sender cotangent of every slot, and the receivers' K-sums
   for (int w = threadIdx.x; w < d.rows * f; w += blockDim.x) {
     const int r = w / f, j = w % f;
-    if (rnode[r] >= 0) dhs[(e0 + r) * f + j] = M[r * d.ldm + j];
+    if (rnode[r] >= 0) dhs[(TAB ? e0 + r : (long)snd[r]) * f + j] = M[r * d.ldm + j];
   }
   for (int w = threadIdx.x; w < d.rb * f; w += blockDim.x) {
     const int i = w / f, j = w % f;
@@ -990,20 +1002,21 @@ cudaError_t set_smem(K kern, long smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, bool MMA, bool REPLAY>
+template <typename T, bool MMA, bool REPLAY, bool TAB>
 int launch_chain(const Dims& d, const void* const* in, void* const* out, cudaStream_t st) {
   const long smem = chain_smem<T>(d);
-  auto kern = chain_kernel<T, MMA, REPLAY>;
+  auto kern = chain_kernel<T, MMA, REPLAY, TAB>;
   cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (d.n + d.rb - 1) / d.rb;
   if (grid < 1) return 0;
   kern<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(in[0]), static_cast<const T*>(in[1]), static_cast<const int*>(in[2]),
-      static_cast<const int*>(in[3]), static_cast<const T*>(in[4]),
-      static_cast<const int*>(in[5]), static_cast<const T*>(in[6]),
-      static_cast<const int*>(in[7]), static_cast<const T*>(in[8]),
-      static_cast<const T*>(in[9]), static_cast<const T*>(in[10]), static_cast<T*>(out[0]),
+      static_cast<const T*>(in[0]), static_cast<const T*>(in[1]), static_cast<const T*>(in[2]),
+      static_cast<const int*>(in[3]), static_cast<const int*>(in[4]),
+      static_cast<const T*>(in[5]), static_cast<const int*>(in[6]),
+      static_cast<const T*>(in[7]), static_cast<const int*>(in[8]),
+      static_cast<const T*>(in[9]), static_cast<const T*>(in[10]),
+      static_cast<const T*>(in[11]), static_cast<T*>(out[0]),
       static_cast<T*>(out[1]), static_cast<T*>(out[2]), static_cast<T*>(out[3]),
       static_cast<T*>(out[4]), static_cast<T*>(out[5]), d);
   return (int)cudaGetLastError();
@@ -1066,15 +1079,40 @@ int fused_message_generic_tab_bwd_chain(int dtype, int replay, const void* h, co
   if (smem_for(dtype, k, a, c1a, da, c1b, db) < 0) return (int)cudaErrorInvalidValue;
   if (dk1 > da || dk2 > db || dk1 != c1b || 2 * f + 1 != c1a) return (int)cudaErrorInvalidValue;
   if (!replay && (y1in == nullptr || y2in == nullptr)) return (int)cudaErrorInvalidValue;
-  const void* in[11] = {h, geo2, loc, gtab, w1, sel1, w2, sel2, y1in, y2in, dagg};
+  const void* in[12] = {h, h, geo2, loc, gtab, w1, sel1, w2, sel2, y1in, y2in, dagg};
   void* out[6] = {dhs, dhr, dy1, dy2, m0, m1};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dims d = make_dims(dtype == 1, n, f, k, a, tile, u, c1a, da, dk1, c1b, db, dk2);
   if (dtype == 0)
-    return replay ? launch_chain<float, false, true>(d, in, out, st)
-                  : launch_chain<float, false, false>(d, in, out, st);
-  return replay ? launch_chain<bf16, true, true>(d, in, out, st)
-                : launch_chain<bf16, true, false>(d, in, out, st);
+    return replay ? launch_chain<float, false, true, true>(d, in, out, st)
+                  : launch_chain<float, false, false, true>(d, in, out, st);
+  return replay ? launch_chain<bf16, true, true, true>(d, in, out, st)
+                : launch_chain<bf16, true, false, true>(d, in, out, st);
+}
+
+// The untabled chain: kernel #13 (replay = 1) or #12 (replay = 0, y1in/y2in
+// the saved ys).  hs [K, N, F] slot-major sender rows, h [N, F] the receivers;
+// d_hs comes out [K, N, F], the other outputs as above.
+int fused_message_generic_bwd_chain(int dtype, int replay, const void* hs, const void* h,
+                                    const void* geo2, const void* w1, const void* sel1,
+                                    const void* w2, const void* sel2, const void* y1in,
+                                    const void* y2in, const void* dagg, void* dhs, void* dhr,
+                                    void* dy1, void* dy2, void* m0, void* m1, int n, int f,
+                                    int k, int a, int c1a, int da, int dk1, int c1b, int db,
+                                    int dk2, void* stream) {
+  if (smem_for(dtype, k, a, c1a, da, c1b, db) < 0) return (int)cudaErrorInvalidValue;
+  if (dk1 > da || dk2 > db || dk1 != c1b || 2 * f + 1 != c1a) return (int)cudaErrorInvalidValue;
+  if (!replay && (y1in == nullptr || y2in == nullptr)) return (int)cudaErrorInvalidValue;
+  if ((long)k * n > 2147483647L) return (int)cudaErrorInvalidValue;
+  const void* in[12] = {hs, h, geo2, nullptr, nullptr, w1, sel1, w2, sel2, y1in, y2in, dagg};
+  void* out[6] = {dhs, dhr, dy1, dy2, m0, m1};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Dims d = make_dims(dtype == 1, n, f, k, a, 1, 0, c1a, da, dk1, c1b, db, dk2);
+  if (dtype == 0)
+    return replay ? launch_chain<float, false, true, false>(d, in, out, st)
+                  : launch_chain<float, false, false, false>(d, in, out, st);
+  return replay ? launch_chain<bf16, true, true, false>(d, in, out, st)
+                : launch_chain<bf16, true, false, false>(d, in, out, st);
 }
 
 // The weight gradients: partials [splits, NW] fp32, NW = A (C1a Da + C1b Db),

@@ -1,25 +1,35 @@
-// Tabled generic fused message + aggregation, forward, for Hopper (sm_90a).
+// Generic fused message + aggregation, forward, for Hopper (sm_90a): the
+// tabled and the untabled sender addressing, one kernel template.
 //
-// Replaces the TPU kernel scalable_e3_gnn_tpu/kernels/fused_message_generic.py::
-// FusedMessageGeneric._fwd_call_tab (its body: _expand_hu, _message,
-// _layer_tp, Gate.fast_apply).  For every receiver i and neighbour slot k:
+// Replaces the TPU kernels scalable_e3_gnn_tpu/kernels/fused_message_generic.py::
+// FusedMessageGeneric._fwd_call_tab (#8: senders through per-tile tables) and
+// _fwd_call (#11: senders as a slot-major [K, N, F] operand), their body
+// _message / _message_stages with _layer_tp and Gate.fast_apply.  For every
+// receiver i and neighbour slot k:
 //
-//   m0     = [h[gtab[i / tile, loc[i,k]]] || h[i] || d2[i,k]]        (C1 = 2F+1)
+//   m0     = [x_s || h[i] || d2[i,k]]                                 (C1 = 2F+1)
 //   y_l    = sum_c (m_l @ W_l[c]) * attr_c[i,k]                       (c < A)
 //   m_l+1  = y_l[:, :dk_l] * sigmoid(y_l)[:, sel_l]                   (l = 0, 1)
 //   agg[i] = sum_k mask[i,k] * m_2
 //
-// With y1/y2 given (the save mode of _fwd_call_tab(save=True), for the
-// residual backward) the kernel also writes each layer's pre-gate y_l, rounded
-// to the data type, one row per slot: y_l[i*K + k] (node-major [N*K, D_l]).
+// with the sender row x_s = h[gtab[i / tile, loc[i,k]]] (tabled, #8; loc == U
+// means no sender: a zero row) or x_s = hs[k, i] (untabled, #11; every slot is
+// read, masked slots carry some real row and their mask zeroes the message).
+//
+// With y1/y2 given (the save mode, for the residual backward) the kernel also
+// writes each layer's pre-gate y_l, rounded to the data type, one row per
+// slot: y_l[i*K + k] (node-major [N*K, D_l], in both modes; the TPU kernel #11
+// writes [K, N, D_l], a layout only its own backward reads).
 //
 // W_l [A*C1_l, D_l] are the CG-folded weights with their columns permuted to
 // scalars || gated || gates, sel_l [dk_l] the sigmoid lane of each gate output
 // (the TPU kernel's 0/1 selection matmul with psel, as a lookup: one 1 per
-// column, so the result is bitwise the same).  loc == U means no sender: a
-// zero row.  The TPU kernel expands a per-tile table hu = h[gtab] to slot rows
-// with a one-hot matmul; here each slot reads its sender row through the table
-// directly, and h (45 MB in bf16 at 250k x 90) mostly stays in the 50 MB L2.
+// column, so the result is bitwise the same).  The TPU kernel #8 expands a
+// per-tile table hu = h[gtab] to slot rows with a one-hot matmul; here each
+// slot reads its sender row through the table directly, and h (45 MB in bf16
+// at 250k x 90) mostly stays in the 50 MB L2.  The untabled kernel reads hs
+// once, row by row (one warp per 180-byte bf16 row); hs is K times the size of
+// h, so #11 moves more bytes than #8 (1.15 GB per 400k-node chunk at K=16).
 // geo2 [N, K*(A+2)] packs attr || d2 || mask per slot.
 //
 // Rounding points (the TPU kernel's): operands in the data type; each
@@ -304,9 +314,11 @@ __device__ __forceinline__ void save_y(T* __restrict__ y, int dd, const float* Y
   }
 }
 
-template <typename T, bool MMA>
+// TAB: senders through loc/gtab (#8), rows of h; otherwise (#11) slot k of
+// receiver i reads row k*N + i of hs [K, N, F]
+template <typename T, bool MMA, bool TAB>
 __global__ void __launch_bounds__(kThreads, 1)
-generic_tab_fwd_kernel(const T* __restrict__ h, const T* __restrict__ geo2,
+generic_fwd_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* __restrict__ geo2,
                        const int* __restrict__ loc, const int* __restrict__ gtab,
                        const T* __restrict__ w1, const int* __restrict__ sel1,
                        const T* __restrict__ w2, const int* __restrict__ sel2,
@@ -321,7 +333,7 @@ generic_tab_fwd_kernel(const T* __restrict__ h, const T* __restrict__ geo2,
   p += align16((long)sizeof(T) * d.rows * d.ldm);
   T* Wsl = reinterpret_cast<T*>(p);  // one component's weight slice
   p += align16((long)sizeof(T) * d.wrows * d.ldw);
-  int* snd = reinterpret_cast<int*>(p);  // [rows] sender node or -1
+  int* snd = reinterpret_cast<int*>(p);  // [rows] sender row of hs or -1
   int* rnode = snd + d.rows;             // [rows] receiver node or -1
 
   const int node0 = blockIdx.x * d.rb;
@@ -333,10 +345,14 @@ generic_tab_fwd_kernel(const T* __restrict__ h, const T* __restrict__ geo2,
     if (r < d.rb * d.k && node < d.n) {
       rn = node;
       const long e = (long)node * d.k + r % d.k;
-      const int l = loc[e];
-      if (l < d.u) {
-        const int t = gtab[(long)(node / d.tile) * d.u + l];
-        s = (t >= 0 && t < d.n) ? t : -1;
+      if constexpr (TAB) {
+        const int l = loc[e];
+        if (l < d.u) {
+          const int t = gtab[(long)(node / d.tile) * d.u + l];
+          s = (t >= 0 && t < d.n) ? t : -1;
+        }
+      } else {
+        s = (r % d.k) * d.n + node;  // the host checks K*N < 2^31
       }
       const T* g = geo2 + e * d.gs;
       for (int q = 0; q < d.gs; ++q) geo[r * d.gs + q] = to_f(g[q]);
@@ -357,7 +373,7 @@ generic_tab_fwd_kernel(const T* __restrict__ h, const T* __restrict__ geo2,
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int j = lane + 32 * q;
-      xs[q] = (s >= 0 && j < f) ? to_f(h[(long)s * f + j]) : 0.f;
+      xs[q] = (s >= 0 && j < f) ? to_f(hs[(long)s * f + j]) : 0.f;
       xr[q] = (rn >= 0 && j < f) ? to_f(h[(long)rn * f + j]) : 0.f;
     }
 #pragma unroll
@@ -369,7 +385,7 @@ generic_tab_fwd_kernel(const T* __restrict__ h, const T* __restrict__ geo2,
       }
     }
     for (int j = 128 + lane; j < f; j += 32) {  // widths past 128
-      mrow[j] = from_f<T>(s >= 0 ? to_f(h[(long)s * f + j]) : 0.f);
+      mrow[j] = from_f<T>(s >= 0 ? to_f(hs[(long)s * f + j]) : 0.f);
       mrow[f + j] = from_f<T>(rn >= 0 ? to_f(h[(long)rn * f + j]) : 0.f);
     }
     for (int j = 2 * f + lane; j < d.c1p; j += 32)
@@ -422,19 +438,19 @@ long smem_for(int dtype, int k, int a, int c1a, int da, int c1b, int db) {
   return -1;
 }
 
-template <typename T, bool MMA>
-int launch(const Dims& d, const void* h, const void* geo2, const int* loc, const int* gtab,
-           const void* w1, const int* sel1, const void* w2, const int* sel2, void* out,
-           void* y1, void* y2, cudaStream_t stream) {
+template <typename T, bool MMA, bool TAB>
+int launch(const Dims& d, const void* hs, const void* h, const void* geo2, const int* loc,
+           const int* gtab, const void* w1, const int* sel1, const void* w2, const int* sel2,
+           void* out, void* y1, void* y2, cudaStream_t stream) {
   const long smem = smem_bytes<T>(d);
-  auto kern = generic_tab_fwd_kernel<T, MMA>;
+  auto kern = generic_fwd_kernel<T, MMA, TAB>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (d.n + d.rb - 1) / d.rb;
   if (grid < 1) return 0;
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(h), static_cast<const T*>(geo2), loc, gtab,
+      static_cast<const T*>(hs), static_cast<const T*>(h), static_cast<const T*>(geo2), loc, gtab,
       static_cast<const T*>(w1), sel1, static_cast<const T*>(w2), sel2, static_cast<T*>(out),
       static_cast<T*>(y1), static_cast<T*>(y2), d);
   return (int)cudaGetLastError();
@@ -469,12 +485,38 @@ int fused_message_generic_tab_fwd(int dtype, const void* h, const void* geo2, co
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     const Dims d = make_dims(false, n, f, k, a, tile, u, c1a, da, dk1, c1b, db, dk2);
-    return launch<float, false>(d, h, geo2, loc_i, gtab_i, w1, s1, w2, s2, out, y1, y2, st);
+    return launch<float, false, true>(d, h, h, geo2, loc_i, gtab_i, w1, s1, w2, s2, out, y1, y2,
+                                      st);
   }
   if (dtype == 1) {
     const Dims d = make_dims(true, n, f, k, a, tile, u, c1a, da, dk1, c1b, db, dk2);
-    return launch<__nv_bfloat16, true>(d, h, geo2, loc_i, gtab_i, w1, s1, w2, s2, out, y1, y2,
-                                       st);
+    return launch<__nv_bfloat16, true, true>(d, h, h, geo2, loc_i, gtab_i, w1, s1, w2, s2, out,
+                                             y1, y2, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The untabled kernel (#11): hs [K, N, F] slot-major sender rows, h [N, F] the
+// receivers; otherwise as above.  Returns cudaGetLastError() after the launch.
+int fused_message_generic_fwd(int dtype, const void* hs, const void* h, const void* geo2,
+                              const void* w1, const void* sel1, const void* w2,
+                              const void* sel2, void* out, void* y1, void* y2, int n, int f,
+                              int k, int a, int c1a, int da, int dk1, int c1b, int db, int dk2,
+                              void* stream) {
+  if (smem_for(dtype, k, a, c1a, da, c1b, db) < 0) return (int)cudaErrorInvalidValue;
+  if ((long)k * n > 2147483647L) return (int)cudaErrorInvalidValue;
+  const int* s1 = static_cast<const int*>(sel1);
+  const int* s2 = static_cast<const int*>(sel2);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    const Dims d = make_dims(false, n, f, k, a, 1, 0, c1a, da, dk1, c1b, db, dk2);
+    return launch<float, false, false>(d, hs, h, geo2, nullptr, nullptr, w1, s1, w2, s2, out,
+                                       y1, y2, st);
+  }
+  if (dtype == 1) {
+    const Dims d = make_dims(true, n, f, k, a, 1, 0, c1a, da, dk1, c1b, db, dk2);
+    return launch<__nv_bfloat16, true, false>(d, hs, h, geo2, nullptr, nullptr, w1, s1, w2, s2,
+                                              out, y1, y2, st);
   }
   return (int)cudaErrorInvalidValue;
 }

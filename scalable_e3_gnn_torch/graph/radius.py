@@ -9,10 +9,15 @@ Counterpart of ``scalable_e3_gnn_tpu/graph/radius.py``:
   per-candidate-gather branch; its per-cell coordinate table (taken above
   500k points) yields the same edges.
 
-Both select the nearest ``max_neighbors`` per node with a stable sort on
+- ``radius_graph_cell_segments``: the JAX package's segmented entry, with
+  the exact selection only; it returns ``radius_graph_cell``'s edges (the
+  cell-major loop already bounds its temporaries, so segments buy nothing).
+
+All select the nearest ``max_neighbors`` per node with a stable sort on
 (d^2, candidate order), so ties break as in the JAX package, and emit a
-receiver-sorted COO with a validity mask.  The approximate selections and the
-segmented builders come in a later slice.
+receiver-sorted COO with a validity mask.  The JAX package's approximate
+selections (``"approx"``, ``"approx2"``: ``lax.approx_min_k``, a TPU
+primitive) and its row-segmented builder are not ported.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ __all__ = [
     "RadiusEdges",
     "radius_graph_brute",
     "radius_graph_cell",
+    "radius_graph_cell_segments",
     "search_level_for_radius",
     "suggest_cell_capacity",
     "symmetrize_dense",
@@ -200,6 +206,33 @@ def radius_graph_cell(
     )
     return _compact_cell_slots(tree, radius, lo, hi, max_neighbors, cell_capacity,
                                level, senders_cs, mask_cs)
+
+
+def radius_graph_cell_segments(
+    tree: Octree,
+    radius: float,
+    lo: Tuple[float, float, float],
+    hi: Tuple[float, float, float],
+    max_neighbors: int,
+    cell_capacity: int = 64,
+    level: Optional[int] = None,
+    block_size: int = 1024,
+    num_segments: int = 8,
+    selection: str = "sort",
+) -> RadiusEdges:
+    """The JAX package's cell-segmented entry for clouds of millions of
+    points, with the exact selection only: ``radius_graph_cell``'s edges.
+    There the segments bound the size of one compiled program; here
+    ``_cell_major_slots`` already walks the cells in steps of bounded size,
+    so ``num_segments`` changes nothing and is accepted for compatibility."""
+    if selection != "sort":
+        raise NotImplementedError(
+            f"selection={selection!r} (lax.approx_min_k, a TPU primitive) is not ported: "
+            "ROADMAP module 10; use selection='sort'")
+    if num_segments < 1:
+        raise ValueError(f"num_segments must be >= 1, got {num_segments}")
+    return radius_graph_cell(tree, radius, lo, hi, max_neighbors, cell_capacity, level,
+                             block_size)
 
 
 def _cell_major_slots(tree, radius, lo, hi, max_neighbors, cell_capacity, level,

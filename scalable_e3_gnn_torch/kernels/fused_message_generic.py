@@ -1,18 +1,23 @@
-"""Generic fused message MLP + neighbourhood aggregation, tabled gather.
+"""Generic fused message MLP + neighbourhood aggregation.
 
 Counterpart of ``scalable_e3_gnn_tpu/kernels/fused_message_generic.py::
-FusedMessageGeneric.geo_call_tab`` (its forward ``_fwd_call_tab`` and its two
-backwards, ``_bwd_call_res_tab`` and ``_bwd_call_rep_tab``) for any hidden
-irreps and attribute order: the lmax=2 configurations.  Per receiver i and
-slot k:
+FusedMessageGeneric`` for any hidden irreps and attribute order (the lmax=2
+configurations), through its three entries: ``geo_call_tab`` (senders
+through per-tile tables: the forward ``_fwd_call_tab`` #8 and the backwards
+``_bwd_call_res_tab`` #9 and ``_bwd_call_rep_tab`` #10), ``geo_call`` (a
+slot-major sender operand ``hs [K, N, F]``: ``_fwd_call`` #11, ``_bwd_call_res``
+#12 and ``_bwd_call_rep`` #13) and ``geo_call_sym`` (the gather inside the
+autograd Function, #11 and #13, sender gradients by the reverse-slot
+gather-sum).  Per receiver i and slot k:
 
-    m_0    = [h[gtab[i // tile, loc[i,k]]] || h[i] || d2[i,k]]     (C1 = 2F+1)
+    m_0    = [x_s || h[i] || d2[i,k]]                                 (C1 = 2F+1)
     y_l    = sum_c (m_l @ W'_l,c) * attr_c[i,k]                       (C2 = A)
     m_l+1  = y_l[:, :dk] * sigmoid(y_l)[:, sel_l]                     (fast gate)
     agg[i] = sum_k mask[i,k] * m_L
 
-``W'_l`` [A*C1, D] is the message layer's CG-folded weight matrix
-(``TensorProduct.fold_params``, fp32) with its columns permuted to
+with the sender row ``x_s = h[gtab[i // tile, loc[i,k]]]`` (tabled) or
+``x_s = hs[k, i]`` (untabled).  ``W'_l`` [A*C1, D] is the message layer's
+CG-folded weight matrix (``TensorProduct.fold_params``, fp32) with its columns permuted to
 ``scalars || gated || gates`` (``Gate.fast_tables``), and ``sel_l`` [dk] the
 sigmoid lane that multiplies each output lane.  ``loc == U`` means no sender
 (a zero row).  The geometry rides the node-major packed stream ``geo2``
@@ -33,22 +38,29 @@ transpose summed in fp32, each cast to the dtype, the two branches added in
 the dtype); dya_c = dy * attr_c in the dtype; dW'_c = m^T dya_c summed in
 fp32; dm = sum_c dya_c W'_c^T in fp32 cast to the dtype.  d_hu (per tile,
 per table entry) and d_hr (per receiver) are fp32 sums of dm_0's rounded
-sender and receiver columns, cast to the dtype.
+sender and receiver columns, cast to the dtype; untabled, d_hs [K, N, F] is
+dm_0's rounded sender columns, one row per slot.
 
-- ``generic_tab_fwd_plain`` / ``generic_tab_bwd_plain``: PyTorch ops, in
+- ``generic_tab_fwd_plain`` / ``generic_tab_bwd_plain`` (tabled) and
+  ``generic_fwd_plain`` / ``generic_bwd_plain`` (untabled): PyTorch ops, in
   chunks of receivers so the [rows, C1] temporaries stay bounded.  The CPU
-  tests and the on-card checks use them.  The backward replays the forward
-  (``ys=None``, kernel #10's function) or reads the saved ys (#9's).
-- ``generic_tab_fwd`` / ``generic_tab_bwd``: a CPU tensor goes to the plain
-  version; a CUDA tensor goes to the hand-written kernels
-  (``csrc/fused_message_generic_tab_fwd.cu``, ``csrc/
-  fused_message_generic_tab_bwd.cu`` with the fixed-order reduction of
+  tests and the on-card checks use them.  The backwards replay the forward
+  (``ys=None``, kernel #10's / #13's function) or read the saved ys (#9's /
+  #12's).
+- ``generic_tab_fwd`` / ``generic_tab_bwd`` and ``generic_fwd`` /
+  ``generic_bwd``: a CPU tensor goes to the plain version; a CUDA tensor goes
+  to the hand-written kernels (``csrc/fused_message_generic_tab_fwd.cu``,
+  ``csrc/fused_message_generic_tab_bwd.cu``, one source for each direction
+  with a compile-time sender addressing, and the fixed-order reduction of
   ``csrc/fused_message_tab_bwd.cu``) or raises.
 - ``generic_sender_epilogue``: the split reverse-table gather-sum of
   ``call_tab_bwd``, in its order.
-- ``FusedMessageGenericTabled``: the autograd Function; ``FusedMessageGeneric``
+- ``FusedMessageGenericTabled``, ``FusedMessageGenericUntabled`` and
+  ``FusedMessageGenericSym``: the autograd Functions; ``FusedMessageGeneric``
   the per-layer object the model dispatches to (folds and permutes the
-  weights outside the Function, so autograd carries dW' to the parameters).
+  weights outside the Functions, so autograd carries dW' to the parameters).
+  The JAX fallback backward (#14, an in-kernel ``jax.vjp`` for non-foldable
+  layers or ``replay_bwd=False``) is not ported: non-foldable layers raise.
 """
 
 from __future__ import annotations
@@ -61,6 +73,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..ops.gather_scatter import gather_km, reverse_slot_gather_sum
 from .build import CudaKernel
 from .fused_message import _DTYPE_CODE, _MAX_SMEM, _cuda_args, tab_bwd_reduce
 
@@ -69,17 +82,28 @@ __all__ = ["GenericConfig", "FusedMessageGeneric", "FusedMessageGenericTabled",
            "generic_tab_bwd", "generic_tab_bwd_plain", "generic_tab_bwd_kernels",
            "generic_tab_bwd_chain", "generic_tab_bwd_wgrad", "generic_tab_bwd_wgrad_plain",
            "generic_tab_bwd_table", "generic_tab_bwd_table_plain",
-           "generic_sender_epilogue", "GENERIC_TAB_FWD", "GENERIC_TAB_BWD_RES",
-           "GENERIC_TAB_BWD_REP", "GENERIC_TAB_BWD_WGRAD", "GENERIC_TAB_BWD_TABLE", "KERNELS"]
+           "generic_sender_epilogue", "generic_fwd", "generic_fwd_plain", "generic_bwd",
+           "generic_bwd_plain", "generic_bwd_kernels", "generic_bwd_chain",
+           "FusedMessageGenericUntabled", "FusedMessageGenericSym", "GENERIC_TAB_FWD",
+           "GENERIC_TAB_BWD_RES", "GENERIC_TAB_BWD_REP", "GENERIC_TAB_BWD_WGRAD",
+           "GENERIC_TAB_BWD_TABLE", "GENERIC_FWD", "GENERIC_BWD_RES", "GENERIC_BWD_REP",
+           "KERNELS"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-GENERIC_TAB_FWD = CudaKernel("fused_message_generic_tab_fwd", {
+_FWD_SRC = "fused_message_generic_tab_fwd"
+_FWD_SIGS = {
     # dtype, k, a, c1a, da, c1b, db -> bytes (negative: widths not taken)
     "fused_message_generic_tab_fwd_smem_bytes": (ctypes.c_long, [_I] * 7),
     # dtype, 11 pointers (h, geo2, loc, gtab, w1, sel1, w2, sel2, out, y1, y2;
     # y1/y2 null: no save), n, f, k, a, tile, u, c1a, da, dk1, c1b, db, dk2, stream
     "fused_message_generic_tab_fwd": (_I, [_I] + [_P] * 11 + [_I] * 12 + [_P]),
-})
+    # dtype, 10 pointers (hs, h, geo2, w1, sel1, w2, sel2, out, y1, y2; y1/y2
+    # null: no save), n, f, k, a, c1a, da, dk1, c1b, db, dk2, stream
+    "fused_message_generic_fwd": (_I, [_I] + [_P] * 10 + [_I] * 10 + [_P]),
+}
+# kernel #8 (tabled) and #11 (untabled): one source, one kernel template
+GENERIC_TAB_FWD = CudaKernel("fused_message_generic_tab_fwd", _FWD_SIGS, source_name=_FWD_SRC)
+GENERIC_FWD = CudaKernel("fused_message_generic_fwd", _FWD_SIGS, source_name=_FWD_SRC)
 _BWD_SRC = "fused_message_generic_tab_bwd"
 _BWD_SIGS = {
     # dtype, k, a, c1a, da, c1b, db -> bytes of the chain kernel (negative: not taken)
@@ -93,9 +117,15 @@ _BWD_SIGS = {
     "fused_message_generic_tab_bwd_wgrad": (_I, [_I] + [_P] * 6 + [_I] * 8 + [_P]),
     # dtype, d_hs, loc, d_hu, n, f, k, tile, u, stream
     "fused_message_generic_tab_bwd_table": (_I, [_I, _P, _P, _P] + [_I] * 5 + [_P]),
+    # dtype, replay, 16 pointers (hs, h, geo2, w1, sel1, w2, sel2, y1 in, y2 in,
+    # d_agg, d_hs, d_hr, dy1, dy2, m0, m1), n, f, k, a, c1a, da, dk1, c1b, db,
+    # dk2, stream
+    "fused_message_generic_bwd_chain": (_I, [_I, _I] + [_P] * 16 + [_I] * 10 + [_P]),
 }
-# kernel #9 (residual) and #10 (replay): one source, one chain kernel each; the
-# two share the weight-gradient kernel, the table sum and PR 2's reduction
+# kernels #9 / #12 (residual) and #10 / #13 (replay), tabled / untabled: one
+# source, one chain kernel template; all four share the weight-gradient
+# kernel and the lmax=1 backward's fixed-order reduction, the tabled two
+# also the table sum
 GENERIC_TAB_BWD_RES = CudaKernel("fused_message_generic_tab_bwd_res", _BWD_SIGS,
                                  source_name=_BWD_SRC)
 GENERIC_TAB_BWD_REP = CudaKernel("fused_message_generic_tab_bwd_rep", _BWD_SIGS,
@@ -104,9 +134,11 @@ GENERIC_TAB_BWD_WGRAD = CudaKernel("fused_message_generic_tab_bwd_wgrad", _BWD_S
                                    source_name=_BWD_SRC)
 GENERIC_TAB_BWD_TABLE = CudaKernel("fused_message_generic_tab_bwd_table", _BWD_SIGS,
                                    source_name=_BWD_SRC)
+GENERIC_BWD_RES = CudaKernel("fused_message_generic_bwd_res", _BWD_SIGS, source_name=_BWD_SRC)
+GENERIC_BWD_REP = CudaKernel("fused_message_generic_bwd_rep", _BWD_SIGS, source_name=_BWD_SRC)
 
 KERNELS = (GENERIC_TAB_FWD, GENERIC_TAB_BWD_RES, GENERIC_TAB_BWD_REP, GENERIC_TAB_BWD_WGRAD,
-           GENERIC_TAB_BWD_TABLE)
+           GENERIC_TAB_BWD_TABLE, GENERIC_FWD, GENERIC_BWD_RES, GENERIC_BWD_REP)
 
 
 @dataclass(frozen=True)
@@ -132,19 +164,25 @@ class GenericConfig:
 
 
 def _check_inputs(cfg: GenericConfig, h, geo2, loc, gtab, ws, sels):
-    n, f = h.shape
-    if f != cfg.f:
-        raise ValueError(f"h has {f} features, config wants {cfg.f}")
+    """The tabled kernels' arguments (N a multiple of the tile)."""
+    n = h.shape[0]
     if n % cfg.tile:
         raise ValueError(f"rows {n} are not a multiple of the tile {cfg.tile}")
-    if tuple(geo2.shape) != (n, cfg.k * (cfg.a + 2)):
-        raise ValueError(f"geo2 has shape {tuple(geo2.shape)}, wants {(n, cfg.k * (cfg.a + 2))}")
     if tuple(loc.shape) != (n, cfg.k):
         raise ValueError(f"loc has shape {tuple(loc.shape)}, wants {(n, cfg.k)}")
     if tuple(gtab.shape) != (n // cfg.tile, cfg.u):
         raise ValueError(f"gtab has shape {tuple(gtab.shape)}, wants {(n // cfg.tile, cfg.u)}")
     if loc.dtype != torch.int32 or gtab.dtype != torch.int32:
         raise TypeError("loc and gtab must be int32")
+    _check_common(cfg, h, geo2, ws, sels)
+
+
+def _check_common(cfg: GenericConfig, h, geo2, ws, sels):
+    n, f = h.shape
+    if f != cfg.f:
+        raise ValueError(f"h has {f} features, config wants {cfg.f}")
+    if tuple(geo2.shape) != (n, cfg.k * (cfg.a + 2)):
+        raise ValueError(f"geo2 has shape {tuple(geo2.shape)}, wants {(n, cfg.k * (cfg.a + 2))}")
     if geo2.dtype != h.dtype:
         raise TypeError(f"geo2 is {geo2.dtype}, h is {h.dtype}")
     if len(ws) != len(cfg.widths) or len(sels) != len(cfg.widths):
@@ -229,6 +267,56 @@ def _gate_vjp(y, dout, sel, dk: int):
     return torch.cat([d_direct + d_sig[:, :dk], d_sig[:, dk:]], dim=-1)
 
 
+def _rows_fwd(cfg: GenericConfig, m, attr, wts, sels, last_gate: bool = True):
+    """One chunk of slot rows through the message layers: ``(ms, ys)``, each
+    layer's input (then, with ``last_gate``, the message) and pre-gate y."""
+    ms, ys = [m], []
+    for i, (w, sel, (c1, _, dk)) in enumerate(zip(wts, sels, cfg.widths)):
+        y = _layer_y(ms[-1], w, attr, c1, cfg.a)
+        ys.append(y)
+        if last_gate or i + 1 < len(wts):
+            ms.append(_gate(y, sel, dk))
+    return ms, ys
+
+
+def _layer_dm(dy, attr_dt, w, c1: int, a: int, m=None, dw=None):
+    """dm = sum_c (dy * attr_c) W'_c^T of one layer, each dya_c rounded to the
+    dtype, the products and the sum over c in fp32, cast to the dtype; with
+    ``m`` [rows, C1], m^T dya_c is added into ``dw`` (fp32) too."""
+    mf = None if m is None else m.float()
+    acc = None
+    for cc in range(a):
+        dya = (dy * attr_dt[:, cc:cc + 1]).float()
+        if mf is not None:
+            dw[cc * c1:(cc + 1) * c1] += mf.T @ dya
+        t = dya @ w[cc * c1:(cc + 1) * c1].T
+        acc = t if acc is None else acc + t
+    return acc.to(dy.dtype)
+
+
+def _rows_bwd(cfg: GenericConfig, m0, attr, mask, wts, sels, d_agg, ys, dws, dys=None):
+    """dm_0 [rows, C1] (the data dtype) of one chunk of slot rows for the
+    receivers' cotangent ``d_agg`` [rows / K, dk_last]: the forward replayed
+    (``ys=None``) or read from the chunk's saved ys, then the transpose
+    chain; each layer's dW' is added into ``dws`` (fp32), and each layer's dy
+    into the list ``dys`` when given (first layer first)."""
+    dt = m0.dtype
+    if ys is None:
+        ms, ys = _rows_fwd(cfg, m0, attr, wts, sels, last_gate=False)
+    else:
+        ms = [m0] + [_gate(y, sel, dk) for y, sel, (_, _, dk)
+                     in zip(ys[:-1], sels, cfg.widths)]
+    attr_dt = attr.to(dt)
+    dm = (d_agg.float().repeat_interleave(cfg.k, dim=0) * mask.float()).to(dt)
+    for i in range(len(wts) - 1, -1, -1):
+        c1, _, dk = cfg.widths[i]
+        dy = _gate_vjp(ys[i], dm, sels[i], dk)
+        if dys is not None:
+            dys.insert(0, dy)
+        dm = _layer_dm(dy, attr_dt, wts[i], c1, cfg.a, ms[i], dws[i])
+    return dm
+
+
 def generic_tab_fwd_plain(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence, sels: Sequence,
                           chunk_rows: int = 1 << 18, save: bool = False):
     """agg [N, dk_last] in h's dtype, by PyTorch ops (any device); with
@@ -253,12 +341,11 @@ def generic_tab_fwd_plain(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence, 
     for s in range(0, n, step):
         e = min(n, s + step)
         m, attr, mask, _ = _slot_rows(cfg, h, geo2, loc, gtab, s, e)
-        for i, (w, sel, (c1, _, dk)) in enumerate(zip(wts, sels, cfg.widths)):
-            y = _layer_y(m, w, attr, c1, cfg.a)
-            if save:
-                ys[i][s * k:e * k] = y
-            m = _gate(y, sel, dk)
-        out[s:e] = (m * mask).reshape(e - s, k, -1).float().sum(dim=1).to(dt)
+        ms, yc = _rows_fwd(cfg, m, attr, wts, sels)
+        if save:
+            for y, yo in zip(yc, ys):
+                yo[s * k:e * k] = y
+        out[s:e] = (ms[-1] * mask).reshape(e - s, k, -1).float().sum(dim=1).to(dt)
     return (out, ys) if save else out
 
 
@@ -275,7 +362,7 @@ def generic_tab_bwd_plain(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence, 
     _check_bwd_inputs(cfg, h, d_agg, ys)
     dt = h.dtype
     n, f = h.shape
-    k, a = cfg.k, cfg.a
+    k = cfg.k
     wts = [w.float() for w in ws]
     sels = [s.long() for s in sels]
     ntab = gtab.numel()
@@ -286,26 +373,8 @@ def generic_tab_bwd_plain(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence, 
     for s in range(0, n, step):
         e = min(n, s + step)
         m0, attr, mask, tab = _slot_rows(cfg, h, geo2, loc, gtab, s, e)
-        ms, yts = [m0], []
-        for i, (w, sel, (c1, _, dk)) in enumerate(zip(wts, sels, cfg.widths)):
-            y = ys[i][s * k:e * k] if ys is not None else _layer_y(ms[-1], w, attr, c1, a)
-            yts.append(y)
-            if i + 1 < len(wts):
-                ms.append(_gate(y, sel, dk))
-        attr_dt = attr.to(dt)
-        dm = (d_agg[s:e].float().repeat_interleave(k, dim=0) * mask.float()).to(dt)
-        for i in range(len(wts) - 1, -1, -1):
-            c1, _, dk = cfg.widths[i]
-            dy = _gate_vjp(yts[i], dm, sels[i], dk)
-            mi = ms[i].float()
-            acc = None
-            for cc in range(a):
-                dya = (dy * attr_dt[:, cc:cc + 1]).float()
-                wc = wts[i][cc * c1:(cc + 1) * c1]
-                dws[i][cc * c1:(cc + 1) * c1] += mi.T @ dya
-                t = dya @ wc.T
-                acc = t if acc is None else acc + t
-            dm = acc.to(dt)
+        yc = [y[s * k:e * k] for y in ys] if ys is not None else None
+        dm = _rows_bwd(cfg, m0, attr, mask, wts, sels, d_agg[s:e], yc, dws)
         d_hu.index_add_(0, tab, dm[:, :f].float())
         d_hr[s:e] = dm[:, f:2 * f].reshape(e - s, k, f).float().sum(dim=1).to(dt)
     return d_hu[:ntab].to(dt), d_hr, dws
@@ -327,6 +396,20 @@ def _widths2(cfg: GenericConfig):
     return cfg.widths
 
 
+def _fwd_lib(kernel: CudaKernel, cfg: GenericConfig, x):
+    """The forward source's library, after checking that its kernel takes the
+    widths in x's dtype."""
+    (c1a, da, _), (c1b, db, _) = cfg.widths
+    lib = kernel.lib()
+    smem = lib.fused_message_generic_tab_fwd_smem_bytes(_DTYPE_CODE[x.dtype], cfg.k, cfg.a,
+                                                         c1a, da, c1b, db)
+    if smem < 0:
+        raise ValueError(f"the kernel does not take K={cfg.k}, widths {cfg.widths} in {x.dtype}")
+    if smem > _MAX_SMEM:
+        raise ValueError(f"widths need {smem} bytes of shared memory per block (max {_MAX_SMEM})")
+    return lib
+
+
 def generic_tab_fwd(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence, sels: Sequence,
                     save: bool = False):
     """agg [N, dk_last] (with ``save``, ``(agg, [y_1, y_2])``): the hand-written
@@ -339,12 +422,7 @@ def generic_tab_fwd(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence, sels: 
     (c1a, da, dk1), (c1b, db, dk2) = _widths2(cfg)
     n, f = h.shape
     code = _DTYPE_CODE[h.dtype]
-    lib = GENERIC_TAB_FWD.lib()
-    smem = lib.fused_message_generic_tab_fwd_smem_bytes(code, cfg.k, cfg.a, c1a, da, c1b, db)
-    if smem < 0:
-        raise ValueError(f"the kernel does not take K={cfg.k}, widths {cfg.widths} in {h.dtype}")
-    if smem > _MAX_SMEM:
-        raise ValueError(f"widths need {smem} bytes of shared memory per block (max {_MAX_SMEM})")
+    lib = _fwd_lib(GENERIC_TAB_FWD, cfg, h)
     w1, w2 = ws
     if h.dtype == torch.bfloat16:  # the tensor-core engine's weight layout
         w1, w2 = _mma_layout(w1, cfg.a, c1a, da), _mma_layout(w2, cfg.a, c1b, db)
@@ -391,6 +469,17 @@ def _launched(name: str, rc: int) -> None:
         raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
 
 
+def _chain_buffers(cfg: GenericConfig, h):
+    """The chain's outputs but d_hs: d_hr [N, F], dy_1/dy_2 [N*K, D rounded up
+    to 8] and m_0/m_1 [N*K, C1 rounded up to 16], in h's dtype."""
+    (c1a, da, _), (c1b, db, _) = cfg.widths
+    n, f = h.shape
+    rows = n * cfg.k
+    new = lambda *shape: torch.empty(shape, dtype=h.dtype, device=h.device)
+    return (new(n, f), new(rows, -(-da // 8) * 8), new(rows, -(-db // 8) * 8),
+            new(rows, -(-c1a // 16) * 16), new(rows, -(-c1b // 16) * 16))
+
+
 def generic_tab_bwd_chain(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence, sels: Sequence,
                           d_agg, ys: Optional[Sequence] = None):
     """The chain kernel: #9 with the saved ``ys``, #10 (replay) without.
@@ -408,13 +497,9 @@ def generic_tab_bwd_chain(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence, 
     w1, w2 = ws
     if h.dtype == torch.bfloat16:  # the tensor-core engines' layout, D padded to 16
         w1, w2 = _mma_layout(w1, cfg.a, c1a, da, 16), _mma_layout(w2, cfg.a, c1b, db, 16)
-    rows, dev, dt = n * cfg.k, h.device, h.dtype
-    d_hs = torch.empty((rows, f), dtype=dt, device=dev)
-    d_hr = torch.empty((n, f), dtype=dt, device=dev)
-    dy1 = torch.empty((rows, -(-da // 8) * 8), dtype=dt, device=dev)
-    dy2 = torch.empty((rows, -(-db // 8) * 8), dtype=dt, device=dev)
-    m0 = torch.empty((rows, -(-c1a // 16) * 16), dtype=dt, device=dev)
-    m1 = torch.empty((rows, -(-c1b // 16) * 16), dtype=dt, device=dev)
+    dev, dt = h.device, h.dtype
+    d_hs = torch.empty((n * cfg.k, f), dtype=dt, device=dev)
+    d_hr, dy1, dy2, m0, m1 = _chain_buffers(cfg, h)
     y_in = (None, None) if replay else tuple(y.data_ptr() for y in ys)
     with torch.cuda.device(dev):
         rc = lib.fused_message_generic_tab_bwd_chain(
@@ -505,19 +590,13 @@ def generic_tab_bwd_kernels(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence
                             sels: Sequence, d_agg, ys: Optional[Sequence] = None):
     """The CUDA counterpart of ``generic_tab_bwd_plain`` (same arguments and
     results): the chain kernel (#9 with ``ys``, #10 without), the weight-
-    gradient kernel, the table sum, then PR 2's fixed-order reduction of the
+    gradient kernel, the table sum, then the fixed-order reduction of the
     weight-gradient partials."""
     d_hs, d_hr, dy1, dy2, m0, m1 = generic_tab_bwd_chain(cfg, h, geo2, loc, gtab, ws, sels,
                                                          d_agg, ys)
-    sms = torch.cuda.get_device_properties(h.device).multi_processor_count
-    partials = generic_tab_bwd_wgrad(cfg, geo2, m0, m1, dy1, dy2,
-                                     _wgrad_splits(cfg, h.shape[0] * cfg.k, sms))
+    dws = _reduce_wgrad(cfg, geo2, m0, m1, dy1, dy2)
     del m0, m1, dy1, dy2
-    d_hu = generic_tab_bwd_table(cfg, d_hs, loc)
-    dw = tab_bwd_reduce(partials)
-    (c1a, da, _), (c1b, db, _) = cfg.widths
-    n1 = cfg.a * c1a * da
-    return d_hu, d_hr, [dw[:n1].view(cfg.a * c1a, da), dw[n1:].view(cfg.a * c1b, db)]
+    return generic_tab_bwd_table(cfg, d_hs, loc), d_hr, dws
 
 
 def generic_tab_bwd(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence, sels: Sequence,
@@ -528,6 +607,183 @@ def generic_tab_bwd(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence, sels: 
     if h.device.type == "cpu":
         return generic_tab_bwd_plain(cfg, h, geo2, loc, gtab, ws, sels, d_agg, ys)
     return generic_tab_bwd_kernels(cfg, h, geo2, loc, gtab, ws, sels, d_agg, ys)
+
+
+# ---- the untabled kernels: #11 (forward), #12 (residual), #13 (replay)
+
+def _check_untab_inputs(cfg: GenericConfig, hs, h, geo2, ws, sels):
+    """The untabled kernels' arguments: hs [K, N, F] slot-major sender rows, h
+    [N, F] the receivers, geo2 [N, K*(A+2)], weights and selections as in the
+    tabled kernel (no tile or table: the untabled kernels take any N)."""
+    n, f = h.shape
+    if tuple(hs.shape) != (cfg.k, n, f):
+        raise ValueError(f"hs has shape {tuple(hs.shape)}, wants {(cfg.k, n, f)}")
+    if hs.dtype != h.dtype:
+        raise TypeError(f"hs is {hs.dtype}, h is {h.dtype}")
+    _check_common(cfg, h, geo2, ws, sels)
+
+
+def _slot_rows_km(cfg: GenericConfig, hs, h, geo2, s: int, e: int):
+    """Layer-1 input rows of receivers [s, e), m_0 [(e-s)*K, 2F+1] in the data
+    dtype (node-major slot rows, the sender row hs[k, i]), with their
+    attributes (fp32 of the dtype values) [rows, A] and masks [rows, 1]."""
+    k, a = cfg.k, cfg.a
+    c, f = e - s, h.shape[1]
+    g3 = geo2[s:e].reshape(c, k, a + 2)
+    m = torch.cat([hs[:, s:e].transpose(0, 1), h[s:e, None, :].expand(c, k, f),
+                   g3[..., a:a + 1]], dim=-1)
+    return (m.reshape(c * k, 2 * f + 1), g3[..., :a].reshape(c * k, a).float(),
+            g3[..., a + 1].reshape(c * k, 1))
+
+
+def generic_fwd_plain(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Sequence,
+                      chunk_rows: int = 1 << 18, save: bool = False):
+    """Kernel #11's function by PyTorch ops (any device): agg [N, dk_last] in
+    h's dtype; with ``save``, ``(agg, [y_1, y_2])``, each y the pre-gate layer
+    output [N*K, D] in h's dtype, one row per slot (node-major).
+
+    hs [K, N, F] the slot-major sender rows (``h[senders.T]``), h [N, F] the
+    receivers; the rest as in ``generic_tab_fwd_plain``.  The rounding points
+    are the tabled kernel's."""
+    _check_untab_inputs(cfg, hs, h, geo2, ws, sels)
+    dt = h.dtype
+    n, k = h.shape[0], cfg.k
+    wts = [w.float() for w in ws]
+    sels = [s.long() for s in sels]
+    out = torch.empty((n, cfg.out_dim), dtype=dt, device=h.device)
+    ys = [torch.empty((n * k, d), dtype=dt, device=h.device) for _, d, _ in cfg.widths] \
+        if save else None
+    step = max(1, chunk_rows // k)
+    for s in range(0, n, step):
+        e = min(n, s + step)
+        m, attr, mask = _slot_rows_km(cfg, hs, h, geo2, s, e)
+        ms, yc = _rows_fwd(cfg, m, attr, wts, sels)
+        if save:
+            for y, yo in zip(yc, ys):
+                yo[s * k:e * k] = y
+        out[s:e] = (ms[-1] * mask).reshape(e - s, k, -1).float().sum(dim=1).to(dt)
+    return (out, ys) if save else out
+
+
+def generic_bwd_plain(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Sequence, d_agg,
+                      ys: Optional[Sequence] = None, chunk_rows: int = 1 << 18):
+    """The untabled backward by PyTorch ops (any device): ``(d_hs [K, N, F],
+    d_hr [N, F], [dW'_1, dW'_2] fp32)`` for the cotangent ``d_agg`` [N,
+    dk_last] in h's dtype: d_hs the rounded sender cotangent of every slot,
+    d_hr the receivers' fp32 K-sums rounded once.  ``ys=None`` replays the
+    forward (kernel #13's function); the saved ys of
+    ``generic_fwd_plain(save=True)`` are read instead (#12's)."""
+    _check_untab_inputs(cfg, hs, h, geo2, ws, sels)
+    _check_bwd_inputs(cfg, h, d_agg, ys)
+    dt = h.dtype
+    n, f = h.shape
+    k = cfg.k
+    wts = [w.float() for w in ws]
+    sels = [s.long() for s in sels]
+    d_hs = torch.empty((k, n, f), dtype=dt, device=h.device)
+    d_hr = torch.empty((n, f), dtype=dt, device=h.device)
+    dws = [torch.zeros_like(w) for w in wts]
+    step = max(1, chunk_rows // k)
+    for s in range(0, n, step):
+        e = min(n, s + step)
+        m0, attr, mask = _slot_rows_km(cfg, hs, h, geo2, s, e)
+        yc = [y[s * k:e * k] for y in ys] if ys is not None else None
+        dm = _rows_bwd(cfg, m0, attr, mask, wts, sels, d_agg[s:e], yc, dws)
+        d_hs[:, s:e] = dm[:, :f].reshape(e - s, k, f).transpose(0, 1)
+        d_hr[s:e] = dm[:, f:2 * f].reshape(e - s, k, f).float().sum(dim=1).to(dt)
+    return d_hs, d_hr, dws
+
+
+def generic_fwd(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Sequence,
+                save: bool = False):
+    """agg [N, dk_last] (with ``save``, ``(agg, [y_1, y_2])``): kernel #11,
+    hand-written in CUDA, for CUDA tensors (two message layers), the plain
+    version for CPU tensors.  Arguments as in the plain version."""
+    if h.device.type == "cpu":
+        return generic_fwd_plain(cfg, hs, h, geo2, ws, sels, save=save)
+    _check_untab_inputs(cfg, hs, h, geo2, ws, sels)
+    _cuda_args(h, (hs, h, geo2, *ws, *sels))
+    (c1a, da, dk1), (c1b, db, dk2) = _widths2(cfg)
+    n, f = h.shape
+    lib = _fwd_lib(GENERIC_FWD, cfg, h)
+    w1, w2 = ws
+    if h.dtype == torch.bfloat16:  # the tensor-core engine's weight layout
+        w1, w2 = _mma_layout(w1, cfg.a, c1a, da), _mma_layout(w2, cfg.a, c1b, db)
+    out = torch.empty((n, dk2), dtype=h.dtype, device=h.device)
+    ys = [torch.empty((n * cfg.k, d), dtype=h.dtype, device=h.device) for d in (da, db)] \
+        if save else None
+    ptrs = [x.data_ptr() for x in (hs, h, geo2, w1, sels[0], w2, sels[1], out)]
+    ptrs += [y.data_ptr() for y in ys] if save else [None, None]
+    with torch.cuda.device(h.device):
+        rc = lib.fused_message_generic_fwd(
+            _DTYPE_CODE[h.dtype], *ptrs, n, f, cfg.k, cfg.a, c1a, da, dk1, c1b, db, dk2,
+            torch.cuda.current_stream(h.device).cuda_stream)
+    _launched("fused_message_generic_fwd", rc)
+    GENERIC_FWD.launches += 1
+    return (out, ys) if save else out
+
+
+def generic_bwd_chain(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Sequence, d_agg,
+                      ys: Optional[Sequence] = None):
+    """The untabled chain kernel: #12 with the saved ``ys``, #13 (replay)
+    without.  Returns ``(d_hs [K, N, F], d_hr [N, F], dy_1, dy_2, m_0, m_1)``,
+    the last four per slot row for the weight-gradient kernel, as the tabled
+    chain writes them."""
+    _check_untab_inputs(cfg, hs, h, geo2, ws, sels)
+    _check_bwd_inputs(cfg, h, d_agg, ys)
+    _cuda_args(h, (hs, h, geo2, *ws, *sels, d_agg, *(ys or ())))
+    lib = _bwd_lib(cfg, h)
+    (c1a, da, dk1), (c1b, db, dk2) = cfg.widths
+    n, f = h.shape
+    replay = ys is None
+    w1, w2 = ws
+    if h.dtype == torch.bfloat16:  # the tensor-core engines' layout, D padded to 16
+        w1, w2 = _mma_layout(w1, cfg.a, c1a, da, 16), _mma_layout(w2, cfg.a, c1b, db, 16)
+    d_hs = torch.empty((cfg.k, n, f), dtype=h.dtype, device=h.device)
+    d_hr, dy1, dy2, m0, m1 = _chain_buffers(cfg, h)
+    y_in = (None, None) if replay else tuple(y.data_ptr() for y in ys)
+    with torch.cuda.device(h.device):
+        rc = lib.fused_message_generic_bwd_chain(
+            _DTYPE_CODE[h.dtype], int(replay),
+            *(x.data_ptr() for x in (hs, h, geo2, w1, sels[0], w2, sels[1])), *y_in,
+            *(x.data_ptr() for x in (d_agg, d_hs, d_hr, dy1, dy2, m0, m1)),
+            n, f, cfg.k, cfg.a, c1a, da, dk1, c1b, db, dk2,
+            torch.cuda.current_stream(h.device).cuda_stream)
+    _launched("fused_message_generic_bwd_chain", rc)
+    (GENERIC_BWD_REP if replay else GENERIC_BWD_RES).launches += 1
+    return d_hs, d_hr, dy1, dy2, m0, m1
+
+
+def _reduce_wgrad(cfg: GenericConfig, geo2, m0, m1, dy1, dy2):
+    """[dW'_1, dW'_2] fp32 from the chain's rows: the weight-gradient kernel
+    at whole waves on the card's SMs, then the fixed-order reduction of
+    ``csrc/fused_message_tab_bwd.cu``."""
+    sms = torch.cuda.get_device_properties(geo2.device).multi_processor_count
+    partials = generic_tab_bwd_wgrad(cfg, geo2, m0, m1, dy1, dy2,
+                                     _wgrad_splits(cfg, m0.shape[0], sms))
+    dw = tab_bwd_reduce(partials)
+    (c1a, da, _), (c1b, db, _) = cfg.widths
+    n1 = cfg.a * c1a * da
+    return [dw[:n1].view(cfg.a * c1a, da), dw[n1:].view(cfg.a * c1b, db)]
+
+
+def generic_bwd_kernels(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Sequence, d_agg,
+                        ys: Optional[Sequence] = None):
+    """The CUDA counterpart of ``generic_bwd_plain`` (same arguments and
+    results): the untabled chain (#12 with ``ys``, #13 without), the weight-
+    gradient kernel, then the fixed-order reduction."""
+    d_hs, d_hr, dy1, dy2, m0, m1 = generic_bwd_chain(cfg, hs, h, geo2, ws, sels, d_agg, ys)
+    return d_hs, d_hr, _reduce_wgrad(cfg, geo2, m0, m1, dy1, dy2)
+
+
+def generic_bwd(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Sequence, d_agg,
+                ys: Optional[Sequence] = None):
+    """``(d_hs, d_hr, [dW'_1, dW'_2] fp32)``: the hand-written CUDA kernels for
+    CUDA tensors, the plain version for CPU tensors.  Arguments as in
+    ``generic_bwd_plain``."""
+    if h.device.type == "cpu":
+        return generic_bwd_plain(cfg, hs, h, geo2, ws, sels, d_agg, ys)
+    return generic_bwd_kernels(cfg, hs, h, geo2, ws, sels, d_agg, ys)
 
 
 def _segment_sum_in_order(rows, seg, num: int):
@@ -609,14 +865,77 @@ def fused_message_generic_tabled(cfg: GenericConfig, residual: bool, h, geo2, lo
                                            tuple(sels), *ws)
 
 
+class FusedMessageGenericUntabled(torch.autograd.Function):
+    """The untabled generic message with its hand-written backward: the
+    counterpart of the JAX ``custom_vjp`` of ``geo_call`` (``call``/
+    ``call_fwd``/``call_bwd``).  Residual mode saves each layer's pre-gate y
+    (#11 in save mode, then #12); replay mode keeps the inputs only (#13).
+    Returns the cotangents of hs [K, N, F], of h and of the folded weights."""
+
+    @staticmethod
+    def forward(ctx, cfg, residual, hs, h, geo2, sels, *ws):
+        ctx.cfg, ctx.sels, ctx.nw = cfg, sels, len(ws)
+        if residual and any(ctx.needs_input_grad):  # no save for inference
+            agg, ys = generic_fwd(cfg, hs, h, geo2, ws, sels, save=True)
+        else:
+            agg, ys = generic_fwd(cfg, hs, h, geo2, ws, sels), []
+        ctx.save_for_backward(hs, h, geo2, *ws, *ys)
+        return agg
+
+    @staticmethod
+    def backward(ctx, d_agg):
+        saved = ctx.saved_tensors
+        hs, h, geo2 = saved[:3]
+        ws, ys = saved[3:3 + ctx.nw], saved[3 + ctx.nw:] or None
+        d_agg = d_agg.to(h.dtype).contiguous()
+        d_hs, d_hr, dws = generic_bwd(ctx.cfg, hs, h, geo2, ws, ctx.sels, d_agg, ys)
+        # cfg, residual, hs, h, geo2, sels, weights
+        return (None, None, d_hs, d_hr, None, None) + tuple(
+            dw.to(w.dtype) for dw, w in zip(dws, ws))
+
+
+class FusedMessageGenericSym(torch.autograd.Function):
+    """The symmetric-graph entry (the JAX ``call_sym`` custom_vjp): the sender
+    gather ``h[senders.T]`` inside the Function, so only node-sized tensors
+    are kept; the backward gathers hs again, runs the replay backward (#13)
+    and brings the sender cotangents back through the reverse-slot
+    gather-sum, then adds d_hr in the data dtype."""
+
+    @staticmethod
+    def forward(ctx, cfg, h, geo2, senders, reverse_slot, sels, *ws):
+        ctx.cfg, ctx.sels = cfg, sels
+        agg = generic_fwd(cfg, gather_km(h, senders), h, geo2, ws, sels)
+        ctx.save_for_backward(h, geo2, senders, reverse_slot, *ws)
+        return agg
+
+    @staticmethod
+    def backward(ctx, d_agg):
+        h, geo2, senders, reverse_slot, *ws = ctx.saved_tensors
+        d_agg = d_agg.to(h.dtype).contiguous()
+        d_hs, d_hr, dws = generic_bwd(ctx.cfg, gather_km(h, senders), h, geo2, ws, ctx.sels,
+                                      d_agg)
+        d_h = reverse_slot_gather_sum(d_hs, reverse_slot) + d_hr
+        # cfg, h, geo2, senders, reverse_slot, sels, weights
+        return (None, d_h, None, None, None, None) + tuple(
+            dw.to(w.dtype) for dw, w in zip(dws, ws))
+
+
 class FusedMessageGeneric:
     """Fused message MLP + masked K-slot aggregation for one SEGNN layer's
     message layers (``O3TensorProductGate`` with a generic 'cm'
-    ``TensorProduct`` on the folded-GEMM path and a silu/sigmoid gate), on a
-    graph with gather tables built at ``tile``.
+    ``TensorProduct`` on the folded-GEMM path and a silu/sigmoid gate): on a
+    graph with gather tables built at ``tile`` (``geo_call_tab``), on a
+    gathered slot-major sender operand (``geo_call``) or on a symmetric graph
+    with the gather inside (``geo_call_sym``).
 
     ``residual_bwd``: the forward saves the pre-gate ys and the backward
-    reads them (#9); otherwise the backward replays the forward (#10)."""
+    reads them (#9, #12); otherwise the backward replays the forward (#10,
+    #13).  The JAX package's third backward, an in-kernel ``jax.vjp`` (#14,
+    ``_bwd_call``) that its ``replay_bwd=False`` selects, is not ported, and
+    nor is that option: it comes with #14.  ``tile`` is the
+    tabled kernels' gather tile; the JAX package's separate backward tile
+    (``bwd_tile``) caps the TPU kernels' VMEM and changes no result, so there
+    is none here."""
 
     def __init__(self, layers: Sequence, k: int, tile: int, residual_bwd: bool = True) -> None:
         self.layers = list(layers)
@@ -632,7 +951,9 @@ class FusedMessageGeneric:
             if not ok:
                 raise NotImplementedError(
                     "the generic kernel runs folded-GEMM layers with the silu/sigmoid "
-                    "selection gate; other message layers are ported in a later slice")
+                    "selection gate; other message layers, which the JAX package runs with "
+                    "its fallback backward (TPU kernel #14, FusedMessageGeneric._bwd_call), "
+                    "are ported in a later slice")
             self._gate_fast.append(g.fast_tables())
         self.out_dim = self.layers[-1].gate.irreps_out.dim
         self._sels = {}
@@ -678,4 +999,25 @@ class FusedMessageGeneric:
         tabs = (loc, gtab, rev_dense, rem_pos, rem_node)
         return fused_message_generic_tabled(cfg, self.residual_bwd, h.contiguous(),
                                             geo2.contiguous(), *(t.contiguous() for t in tabs),
+                                            self.selections(h.device), *ws)
+
+    def geo_call(self, hs, h, geo2):
+        """agg [N, dk_last] for hs [K, N, F] (the slot-major sender rows,
+        ``h[senders.T]``), h [N, F] and geo2 [N, K*(A+2)]; the sender
+        cotangent goes back through hs (kernels #11, #12 / #13)."""
+        cfg = self.config(geo2.shape[-1] // self.k - 2, 0)
+        ws = [w.contiguous() for w in self.fold(h.dtype)]
+        return FusedMessageGenericUntabled.apply(cfg, self.residual_bwd, hs.contiguous(),
+                                                 h.contiguous(), geo2.contiguous(),
+                                                 self.selections(h.device), *ws)
+
+    def geo_call_sym(self, h, geo2, senders, reverse_slot):
+        """agg [N, dk_last] on a symmetrized fixed-K graph (senders [N, K], the
+        node-major reverse slots [N, K], ``graph.radius.symmetrize_dense``),
+        the gather inside the autograd Function: only node-sized tensors are
+        kept, and the backward replays (#11, #13)."""
+        cfg = self.config(geo2.shape[-1] // self.k - 2, 0)
+        ws = [w.contiguous() for w in self.fold(h.dtype)]
+        return FusedMessageGenericSym.apply(cfg, h.contiguous(), geo2.contiguous(),
+                                            senders.contiguous(), reverse_slot.contiguous(),
                                             self.selections(h.device), *ws)

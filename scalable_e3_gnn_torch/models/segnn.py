@@ -1,8 +1,8 @@
 """SEGNN: steerable E(3)-equivariant message passing on fixed-K graphs.
 
 Counterpart of ``scalable_e3_gnn_tpu/models/segnn.py`` for the dense
-(``DenseEdgeGraph``) path without edge chunking or layer-group remat
-(``edge_chunks``, ``remat_layers``):
+(``DenseEdgeGraph``) path, with its memory ladder (``remat``,
+``remat_kernel``, ``edge_chunks``, ``remat_layers``):
 
     h = embed(x, node_attr)
     per layer: agg_i = sum_k mask * MLP([h_s || h_i || d^2], edge_attr)
@@ -19,21 +19,32 @@ Message dispatch (``SEGNNLayer``):
   (``kernels.fused_message.fused_message_aggregate_tabled``), which runs the
   hand-written CUDA kernels (forward, and backward under autograd) on CUDA
   tensors;
-- ``use_pallas=True`` with any other hidden irreps (the lmax=2 configs), on a
-  graph with gather tables at ``_pick_generic_tile(n)`` and n a multiple of
-  it: the tabled generic kernel
-  (``kernels.fused_message_generic.FusedMessageGeneric.geo_call_tab``), whose
-  backward reads the saved pre-gate ys (``residual_bwd``, kernel #9) or, under
-  ``remat_kernel``, replays the forward (kernel #10);
-- ``use_pallas=True`` otherwise (the untabled kernels): not ported yet,
-  raises ``NotImplementedError``;
+- ``use_pallas=True`` with any other hidden irreps (the lmax=2 configs)
+  (``_fused_messages_generic``, ``kernels.fused_message_generic.
+  FusedMessageGeneric``): on a graph with gather tables at
+  ``_pick_generic_tile(n)`` and n a multiple of it, the tabled kernel
+  (``geo_call_tab``: #8, then #9 from the saved pre-gate ys or, under
+  ``remat_kernel``, #10, which replays the forward); else, on a symmetrized
+  graph under ``remat_kernel`` with n a multiple of the tile, the
+  sym-regather entry (``geo_call_sym``: #11 and #13, node-sized residuals);
+  else the untabled kernel on the gathered senders (``geo_call``: #11, then
+  #12 or #13), the gather ``take_dense_symmetric_km`` on a symmetrized graph
+  (its gradient a reverse-slot gather) and ``h[senders.T]`` otherwise;
+- ``use_pallas=True`` with lmax=1 hidden irreps and no tables, or with
+  ``edge_chunks > 1`` (chunks carry no tables): the untabled lmax=1 kernels,
+  not ported yet: ``NotImplementedError``;
 - ``use_pallas=False``: the plain PyTorch message path.
 
 Rematerialisation, as in the JAX package: ``remat`` checkpoints the plain
 message path and, where an update layer is a generic ``TensorProduct``, the
 update; ``remat_kernel`` also checkpoints a kernel dispatch whose residuals
-are edge-sized (the lmax=1 tabled kernel), but not the tabled generic one,
-whose replay backward keeps node-sized tensors only.
+are edge-sized (the lmax=1 tabled kernel, the untabled generic one), but not
+the tabled generic or the sym-regather one, whose replay backwards keep
+node-sized tensors only.  ``edge_chunks`` streams node blocks of ``n //
+edge_chunks`` (when that divides n) through the messages and the update,
+each block checkpointed under ``remat`` or ``remat_kernel``; the SEGNN then
+also chunks its embed and its head.  ``remat_layers`` checkpoints groups of
+that many layers, so the backward keeps only the group boundaries.
 """
 
 from __future__ import annotations
@@ -51,6 +62,7 @@ from ..graph.container import DenseEdgeGraph
 from ..kernels.fused_message import MessageConfig, fused_message_aggregate_tabled
 from ..kernels.fused_message_generic import FusedMessageGeneric
 from ..ops.gate import Gate
+from ..ops.gather_scatter import gather_km, take_dense_symmetric_km
 from ..ops.linear import O3Linear
 from ..ops.tensor_product import L1TensorProduct, TensorProduct
 from ..utils.device import resolve_device
@@ -127,10 +139,13 @@ class SEGNNLayer(nn.Module):
     def __init__(self, hidden_irreps, attr_irreps, act: Callable = F.silu,
                  num_message_layers: int = 2, num_update_layers: int = 2,
                  layout: str = "mul", use_pallas: bool = False, remat: bool = False,
-                 remat_kernel: bool = False, residual_bwd: bool = True, device=None,
+                 remat_kernel: bool = False, residual_bwd: bool = True,
+                 edge_chunks: int = 1, device=None,
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
         self.layout = layout
+        # edge_chunks: stream node blocks through the messages and the update
+        self.edge_chunks = edge_chunks
         # remat: recompute the per-edge message intermediates (plain path)
         # and the generic update's outer products in the backward
         self.remat = remat
@@ -225,15 +240,23 @@ class SEGNNLayer(nn.Module):
                 return t
         return 64
 
-    def _tab_eligible(self, n: int, graph: DenseEdgeGraph) -> bool:
+    def _tab_eligible(self, n: int, graph: Optional[DenseEdgeGraph]) -> bool:
         """True when the generic dispatch takes the tabled kernel: tables
         built at exactly ``_pick_generic_tile(n)``, with n a multiple of it."""
-        if not self.use_pallas_generic or graph.gather_loc is None:
+        if not self.use_pallas_generic or graph is None or graph.gather_loc is None:
             return False
         if graph.gather_rev_dense is None or graph.gather_rem_pos is None:
             return False
         return (graph.gather_tile == self._pick_generic_tile(n)
                 and graph.gather_loc.shape[0] == n)
+
+    def _sym_regather_eligible(self, n: int, rs_available: bool) -> bool:
+        """True when the generic dispatch takes ``geo_call_sym``: the sender
+        gather inside the autograd Function and node-sized residuals, under
+        ``remat_kernel`` on a symmetrized graph with n a multiple of the
+        tile.  ``forward`` then skips the ``remat_kernel`` checkpoint, which
+        would only add a redundant kernel forward."""
+        return (self.use_pallas_generic and self.remat_kernel and rs_available and n % self._pick_generic_tile(n) == 0)
 
     @staticmethod
     def _geo2(edge_geo, edge_attr, edge_dist2, edge_mask, dt):
@@ -245,30 +268,46 @@ class SEGNNLayer(nn.Module):
                          edge_mask[..., None].to(dt)], dim=-1)
         return geo.reshape(edge_attr.shape[0], -1)
 
-    def _fused_messages_generic(self, h, graph, edge_attr, edge_dist2, edge_mask, edge_geo):
-        """Generic-kernel dispatch, tabled path only: the per-tile compact
-        sender tables at ``_pick_generic_tile(n)``."""
-        n, k = edge_mask.shape
+    def _fused_messages_generic(self, h_local, h_ext, senders, edge_attr, edge_dist2,
+                                edge_mask, reverse_slot=None, edge_geo=None,
+                                graph: Optional[DenseEdgeGraph] = None):
+        """Generic-kernel dispatch (the JAX ``_fused_messages_generic``): the
+        tabled entry when ``graph``'s tables serve this block, the sym-regather
+        entry when eligible, else ``geo_call`` on the slot-major senders, the
+        node axis padded to the tile (64 when no multiple of 8 in [48, 224]
+        divides n)."""
+        n, k = senders.shape
+        f = h_local.shape[-1]
         tile = self._pick_generic_tile(n)
-        if not self._tab_eligible(n, graph):
-            raise NotImplementedError(
-                "the untabled generic fused message kernel (TPU kernel #11, "
-                "FusedMessageGeneric._fwd_call) is ported in a later slice; build the "
-                f"graph's gather tables at tile {tile} (_pick_generic_tile({n})) with n a "
-                "multiple of it, or use use_pallas=False")
+        npad = -(-n // tile) * tile
         key = (k, tile, self.residual_bwd and not self.remat_kernel)
         if key not in self._generic_kernels:
-            self._generic_kernels[key] = FusedMessageGeneric(self.message_layers, k, tile=tile,
-                                                             residual_bwd=key[2])
-        geo2 = self._geo2(edge_geo, edge_attr, edge_dist2, edge_mask, h.dtype)
-        return self._generic_kernels[key].geo_call_tab(
-            h, geo2, graph.gather_loc, graph.gather_tab, graph.gather_rev_dense,
-            graph.gather_rem_pos, graph.gather_rem_node)
+            self._generic_kernels[key] = FusedMessageGeneric(
+                self.message_layers, k, tile=tile, residual_bwd=key[2])
+        kern = self._generic_kernels[key]
+        geo2 = self._geo2(edge_geo, edge_attr, edge_dist2, edge_mask, h_local.dtype)
+        own = h_ext is h_local and npad == n
+        if own and self._tab_eligible(n, graph):
+            return kern.geo_call_tab(h_local, geo2, graph.gather_loc, graph.gather_tab,
+                                     graph.gather_rev_dense, graph.gather_rem_pos,
+                                     graph.gather_rem_node)
+        if own and reverse_slot is not None and self._sym_regather_eligible(n, True):
+            return kern.geo_call_sym(h_local, geo2, senders, reverse_slot)
+        if reverse_slot is not None and h_ext is h_local:
+            hs = take_dense_symmetric_km(h_ext, senders, reverse_slot)
+        else:
+            hs = gather_km(h_ext, senders)
+        h_p = h_local
+        if npad != n:
+            hs = torch.cat([hs, hs.new_zeros((k, npad - n, f))], dim=1)
+            geo2 = torch.cat([geo2, geo2.new_zeros((npad - n, geo2.shape[-1]))])
+            h_p = torch.cat([h_local, h_local.new_zeros((npad - n, f))])
+        return kern.geo_call(hs, h_p, geo2)[:n]
 
-    def _plain_messages(self, h, senders, edge_attr, edge_dist2, edge_mask):
-        hs = h[torch.clamp(senders, max=h.shape[0] - 1).long()]  # [N, K, F]
-        hr = h[:, None, :].expand_as(hs)
-        m = torch.cat([hs, hr, edge_dist2[..., None].to(h.dtype)], dim=-1)
+    def _plain_messages(self, h_ext, h_local, senders, edge_attr, edge_dist2, edge_mask):
+        hs = h_ext[torch.clamp(senders, max=h_ext.shape[0] - 1).long()]  # [N, K, F]
+        hr = h_local[:, None, :].expand_as(hs)
+        m = torch.cat([hs, hr, edge_dist2[..., None].to(h_local.dtype)], dim=-1)
         for layer in self.message_layers:
             m = layer(m, edge_attr)
         m = torch.where(edge_mask[..., None], m, torch.zeros_like(m))
@@ -281,23 +320,50 @@ class SEGNNLayer(nn.Module):
         ``edge_geo`` [N, K*(A+2)] is the packed geometry stream; with it
         ``edge_attr`` and ``edge_dist2`` may be None (geo-only attributes):
         they and the slot mask are then read from the stream."""
-        edge_mask = graph.edge_mask
+        n = h.shape[0]
         pallas = self.use_pallas or self.use_pallas_generic
-        tab = self.use_pallas_generic and self._tab_eligible(edge_mask.shape[0], graph)
-        if (self.remat and not pallas) or (self.remat_kernel and pallas and not tab):
-            agg = _checkpoint(self.message_layers, self._messages, h, graph, edge_attr,
-                              edge_dist2, edge_geo)
-        else:
-            agg = self._messages(h, graph, edge_attr, edge_dist2, edge_geo)
-        return self._update(h, agg, node_attr, graph)
+        chunks = self.edge_chunks if n % max(self.edge_chunks, 1) == 0 else 1
+        if chunks > 1:
+            # node blocks: the per-slot tensors live one block at a time; the
+            # reverse slots and gather tables span the whole graph, so a
+            # block has neither
+            c = n // chunks
 
-    def _messages(self, h, graph, edge_attr, edge_dist2, edge_geo):
-        """agg [N, F]: the masked K-slot sum of the messages, through the
-        dispatch the layer was built for."""
-        edge_mask = graph.edge_mask
+            def block(h_ext, i):
+                sl = slice(i * c, (i + 1) * c)
+                part = lambda x: None if x is None else x[sl]
+                return self._messages(h_ext, h_ext[sl], graph.senders[sl], part(edge_attr),
+                                      part(edge_dist2), graph.edge_mask[sl], part(edge_geo))
+
+            ckpt = self.remat or self.remat_kernel
+            agg = torch.cat([_checkpoint(self.message_layers, block, h, i) if ckpt
+                             else block(h, i) for i in range(chunks)])
+        else:
+            rs = graph.reverse_slot
+            sym = rs is not None and self._sym_regather_eligible(n, True)
+            tab = self._tab_eligible(n, graph)
+
+            def whole(h_):
+                return self._messages(h_, h_, graph.senders, edge_attr, edge_dist2,
+                                      graph.edge_mask, edge_geo, rs, graph)
+
+            if (self.remat and not pallas) or (self.remat_kernel and pallas and not (sym or tab)):
+                agg = _checkpoint(self.message_layers, whole, h)
+            else:
+                agg = whole(h)
+        return self._update(h, agg, node_attr, graph, chunks)
+
+    def _messages(self, h_ext, h_local, senders, edge_attr, edge_dist2, edge_mask, edge_geo,
+                  reverse_slot=None, graph: Optional[DenseEdgeGraph] = None):
+        """agg [N_local, F]: the masked K-slot sum of the messages to the
+        receivers ``h_local`` from senders in ``h_ext``, through the dispatch
+        the layer was built for; ``graph``: the whole graph when the block is
+        (its tables may serve), else None."""
         if self.use_pallas_generic:
-            return self._fused_messages_generic(h, graph, edge_attr, edge_dist2, edge_mask,
-                                                edge_geo)
+            return self._fused_messages_generic(
+                h_local, h_ext, senders, edge_attr, edge_dist2, edge_mask,
+                reverse_slot=reverse_slot, edge_geo=edge_geo,
+                graph=graph if h_ext is h_local else None)
         if edge_attr is None:
             if edge_geo is None:
                 raise ValueError("attrs gave neither edge_attr nor edge_geo")
@@ -305,14 +371,16 @@ class SEGNNLayer(nn.Module):
             a_dim = g3.shape[-1] - 2
             edge_attr, edge_dist2, edge_mask = g3[..., :a_dim], g3[..., a_dim], g3[..., a_dim + 1] > 0
         if self.use_pallas:
-            if graph.gather_loc is None:
+            if graph is None or graph.gather_loc is None or h_ext is not h_local:
                 raise NotImplementedError(
-                    "the untabled fused message kernel is ported in a later slice; "
-                    "build the graph's gather tables (with_gather_tables) or use "
-                    "use_pallas=False"
-                )
-            return self._fused_messages_tabled(h, edge_attr, edge_dist2, edge_mask, graph)
-        return self._plain_messages(h, graph.senders, edge_attr, edge_dist2, edge_mask)
+                    "the untabled lmax=1 fused message kernels (TPU kernels #3-#5, "
+                    "fused_message.py::_fwd_call_km2, _fwd_call_km and _vjp_bwd_km) are "
+                    "ported in a later slice; they run on graphs without gather tables and "
+                    "on every node block under edge_chunks > 1 (blocks carry no tables): "
+                    "build the graph's gather tables (with_gather_tables) with "
+                    "edge_chunks=1, or use use_pallas=False")
+            return self._fused_messages_tabled(h_local, edge_attr, edge_dist2, edge_mask, graph)
+        return self._plain_messages(h_ext, h_local, senders, edge_attr, edge_dist2, edge_mask)
 
     def _update_u(self, h, agg, node_attr):
         u = torch.cat([h, agg], dim=-1)
@@ -320,13 +388,20 @@ class SEGNNLayer(nn.Module):
             u = layer(u, node_attr)
         return u
 
-    def _update(self, h, agg, node_attr, graph):
-        if self.remat and any(isinstance(layer.tp, TensorProduct) for layer in self.update_layers):
-            # the generic TP's outer product z ([N, ~1.6k] at lmax=2) is the
-            # largest node-level intermediate: recompute it in the backward
-            u = _checkpoint(self.update_layers, self._update_u, h, agg, node_attr)
+    def _update(self, h, agg, node_attr, graph, chunks: int = 1):
+        # the generic TP's outer product z ([N, ~1.6k] at lmax=2) is the
+        # largest node-level intermediate: recompute it in the backward
+        # (always when chunked: each block's z would otherwise be kept)
+        ckpt = (self.remat or chunks > 1) and any(
+            isinstance(layer.tp, TensorProduct) for layer in self.update_layers)
+        upd = lambda *xs: (_checkpoint(self.update_layers, self._update_u, *xs) if ckpt
+                           else self._update_u(*xs))
+        if chunks > 1:
+            c = h.shape[0] // chunks
+            u = torch.cat([upd(h[i * c:(i + 1) * c], agg[i * c:(i + 1) * c],
+                               node_attr[i * c:(i + 1) * c]) for i in range(chunks)])
         else:
-            u = self._update_u(h, agg, node_attr)
+            u = upd(h, agg, node_attr)
         out = h + u
         return torch.where(graph.node_mask[:, None], out, torch.zeros_like(out))
 
@@ -336,15 +411,21 @@ class SEGNN(nn.Module):
 
     Parameters are created on ``device`` (the GPU unless given) from
     ``generator``; load JAX weights with ``utils.params.params_from_jax``.
+    ``edge_chunks`` streams node blocks through every layer, the embed and
+    the head; ``remat_layers`` (a group size, 0 for none) checkpoints groups
+    of that many layers, so the backward keeps only the group boundaries
+    ([N, F] each): the config-5 (10M points) memory ladder.
     """
 
     def __init__(self, input_irreps, hidden_irreps, output_irreps, lmax_attr: int = 1,
                  num_layers: int = 4, act: Callable = F.silu, task: str = "node",
                  layout: Optional[str] = None, use_pallas: bool = False, remat: bool = False,
-                 remat_kernel: bool = False, residual_bwd: bool = True, device=None,
+                 remat_kernel: bool = False, residual_bwd: bool = True,
+                 edge_chunks: int = 1, remat_layers: int = 0, device=None,
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
         device = resolve_device(device)
+        self.remat_layers = int(remat_layers)
         self.input_irreps = Irreps(input_irreps)
         self.hidden_irreps = Irreps(hidden_irreps)
         self.output_irreps = Irreps(output_irreps)
@@ -359,7 +440,7 @@ class SEGNN(nn.Module):
         self.layers = nn.ModuleList(
             SEGNNLayer(self.hidden_irreps, self.attr_irreps, layout=self.layout,
                        use_pallas=use_pallas, remat=remat, remat_kernel=remat_kernel,
-                       residual_bwd=residual_bwd, **kw)
+                       residual_bwd=residual_bwd, edge_chunks=edge_chunks, **kw)
             for _ in range(num_layers)
         )
         self.pre_head = O3TensorProductGate(self.hidden_irreps, self.attr_irreps,
@@ -391,6 +472,37 @@ class SEGNN(nn.Module):
                               graph.edge_mask[..., None].to(edge_attr.dtype)], dim=-1)
         return edge_attr, node_attr, dist2, edge_geo.reshape(edge_geo.shape[0], -1)
 
+    def compute_attributes_dense_chunked(self, positions, senders, edge_mask,
+                                         nchunk: Optional[int] = None, dtype=torch.bfloat16):
+        """Geo-only attributes ``(None, node_attr [N, A], None, edge_geo [N,
+        K*(A+2)])`` built in node slabs (about 1M points each, ``nchunk``
+        dividing N), so the fp32 spherical harmonics are never whole-graph
+        (a one-shot [N, K, A] build at 10M points holds 5.8 GB); both cast to
+        ``dtype``.  The same streams as ``compute_attributes_dense`` (the
+        relative positions masked before d^2: padding slots carry zeros)."""
+        n, k = senders.shape
+        if nchunk is None:
+            nchunk = max(n // 1_000_000, 1)
+        while nchunk > 1 and n % nchunk:
+            nchunk -= 1
+        c = n // nchunk
+        geos, nas = [], []
+        for i in range(nchunk):
+            sl = slice(i * c, (i + 1) * c)
+            mk = edge_mask[sl]
+            rel = positions[torch.clamp(senders[sl], max=n - 1).long()] - positions[sl][:, None, :]
+            rel = torch.where(mk[..., None], rel, torch.zeros_like(rel))
+            dist2 = torch.sum(rel * rel, dim=-1)
+            ea = spherical_harmonics(self.lmax_attr, rel)
+            ea = torch.where(mk[..., None], ea, torch.zeros_like(ea))
+            cnt = torch.clamp(mk.sum(dim=1), min=1)
+            na = ea.sum(dim=1) / cnt[:, None].to(ea.dtype)
+            na[..., 0] = 1.0
+            geo = torch.cat([ea, dist2[..., None], mk[..., None].to(ea.dtype)], dim=-1)
+            geos.append(geo.reshape(c, -1).to(dtype))
+            nas.append(na.to(dtype))
+        return None, torch.cat(nas), None, torch.cat(geos)
+
     def forward(self, graph: DenseEdgeGraph, attrs: Optional[tuple] = None) -> torch.Tensor:
         """Per-node outputs [N, output dim] ('graph' task: per-graph sums).
 
@@ -405,10 +517,36 @@ class SEGNN(nn.Module):
             attrs = self.compute_attributes_dense(graph)
         edge_attr, node_attr, dist2 = attrs[:3]
         edge_geo = attrs[3] if len(attrs) == 4 else None
-        h = self.embed(graph.nodes, node_attr)
-        for layer in self.layers:
-            h = layer(h, graph, edge_attr, node_attr, dist2, edge_geo)
-        out = self.head(self.pre_head(h, node_attr))
+        n = graph.nodes.shape[0]
+        ec = self.layers[0].edge_chunks if len(self.layers) else 1
+        chunked = ec > 1 and n % ec == 0
+        blocks = [slice(i * (n // ec), (i + 1) * (n // ec)) for i in range(ec)] if chunked else []
+        if chunked:  # each node block checkpointed: its outer products are not kept
+            h = torch.cat([_checkpoint(self.embed, self.embed, graph.nodes[sl], node_attr[sl])
+                           for sl in blocks])
+        else:
+            h = self.embed(graph.nodes, node_attr)
+        run = lambda layer, h_: layer(h_, graph, edge_attr, node_attr, dist2, edge_geo)
+        g = self.remat_layers
+        if g:
+            for start in range(0, len(self.layers), g):
+                grp = nn.ModuleList(self.layers[start:start + g])
+
+                def body(h_, grp=grp):
+                    for layer in grp:
+                        h_ = run(layer, h_)
+                    return h_
+
+                h = _checkpoint(grp, body, h)
+        else:
+            for layer in self.layers:
+                h = run(layer, h)
+        if chunked:
+            heads = nn.ModuleList([self.pre_head, self.head])
+            head = lambda h_, na_: self.head(self.pre_head(h_, na_))
+            out = torch.cat([_checkpoint(heads, head, h[sl], node_attr[sl]) for sl in blocks])
+        else:
+            out = self.head(self.pre_head(h, node_attr))
         if self.task == "graph":
             out = torch.where(graph.node_mask[:, None], out, torch.zeros_like(out))
             pooled = out.new_zeros((graph.n_graphs, out.shape[-1]))

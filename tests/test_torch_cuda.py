@@ -7,7 +7,11 @@ lmax=2 config's among them, and the lmax=2 SEGNN forward through it; its save
 mode and the generic backward kernels (#9 residual, #10 replay, with the
 weight-gradient kernel, the table sum and the reduction) against their plain
 versions, #9 against #10, their determinism, and lmax=2 SEGNN gradients
-through them against the plain path.
+through them against the plain path; the untabled kernels (#11 with its
+save mode, #12 residual, #13 replay) against their plain versions, #12
+against #13, their determinism, and lmax=2 SEGNN gradients through them
+(no tables, the sym-regather entry, and edge_chunks with remat_layers)
+against the plain path.
 
 These tests need a CUDA card and skip without one.  They import no JAX, so
 they run on a machine without it (``--noconftest`` skips the JAX-only
@@ -420,6 +424,119 @@ def test_generic_segnn_gradients_kernel_match_plain_path(dev, mode):
     ((m_k(gt) - target) ** 2).mean().backward()
     ((m_p(g) - target) ** 2).mean().backward()
     assert kern.launches == before + 2
+    for (name, a), b in zip(m_k.named_parameters(), m_p.parameters(), strict=True):
+        err = float((a.grad - b.grad).abs().max())
+        assert err <= 1e-4 * float(b.grad.abs().max()), (name, err)
+
+
+def _untab_problem(dev, hidden, k, n, dtype):
+    """The untabled kernels' arguments on kernel #8's problem: hs =
+    h[senders.T] (clamped) on the same graph, h, the geometry with its masked
+    tail, the folded weights, and a random cotangent."""
+    cfg_tab, (h, geo2, _, _, ws, sels), d_agg = _generic_bwd_problem(dev, hidden, k, n, dtype)
+    tile = SEGNNLayer._pick_generic_tile(n)
+    g, _ = _graph(dev, n, k, 0.25, tile)
+    hs = h[torch.clamp(g.senders.t(), max=n - 1).long()].contiguous()
+    cfg = fmg.GenericConfig(k=cfg_tab.k, tile=cfg_tab.tile, u=0, a=cfg_tab.a,
+                            widths=cfg_tab.widths)
+    return cfg, (hs, h, geo2, ws, sels), d_agg
+
+
+@pytest.mark.parametrize("hidden,k,n", GENERIC_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("save", [False, True])
+def test_untabled_fwd_kernel_matches_plain(dev, hidden, k, n, dtype, save):
+    """#11 (and its save mode: agg equal to the kernel without save, both ys)
+    against its plain version, as test_generic_kernel_matches_plain."""
+    cfg, args, _ = _untab_problem(dev, hidden, k, n, dtype)
+    before = fmg.GENERIC_FWD.launches
+    with torch.no_grad():
+        got = fmg.generic_fwd(cfg, *args, save=save)
+        ref = fmg.generic_fwd_plain(cfg, *args, save=save)
+        pairs = [(got, ref)]
+        if save:
+            pairs = [(got[0], ref[0]), *zip(got[1], ref[1])]
+            assert torch.equal(got[0], fmg.generic_fwd(cfg, *args))
+    torch.cuda.synchronize()
+    assert fmg.GENERIC_FWD.launches == before + 1 + int(save)
+    for x, y in pairs:
+        assert x.shape == y.shape and x.dtype == dtype
+        _check_generic(x, y, dtype)
+    assert (pairs[0][0][n - 37:] == 0).all()  # no valid slot: an exact zero
+
+
+@pytest.mark.parametrize("hidden,k,n", GENERIC_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [True, False])
+def test_untabled_bwd_kernels_match_plain(dev, hidden, k, n, dtype, residual):
+    """#12 (from #11's saved ys) or #13 (replay), with the weight-gradient
+    kernel and the reduction, against the plain backward (d_hs [K, N, F] in
+    the place of d_hu); each kernel's counter moves by one, the table sum's
+    not at all."""
+    cfg, args, d_agg = _untab_problem(dev, hidden, k, n, dtype)
+    with torch.no_grad():
+        ys = fmg.generic_fwd(cfg, *args, save=True)[1] if residual else None
+        kerns = (fmg.GENERIC_BWD_RES, fmg.GENERIC_BWD_REP, fmg.GENERIC_TAB_BWD_WGRAD,
+                 fmg.GENERIC_TAB_BWD_TABLE, fm.TAB_BWD_REDUCE)
+        before = [kern.launches for kern in kerns]
+        got = fmg.generic_bwd(cfg, *args, d_agg, ys=ys)
+        torch.cuda.synchronize()
+        moved = [kern.launches - b for kern, b in zip(kerns, before)]
+        assert moved == [int(residual), int(not residual), 1, 0, 1]
+        ref = fmg.generic_bwd_plain(cfg, *args, d_agg, ys=ys)
+    assert got[0].shape == (k, n, cfg.f)
+    _check_bwd(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_untabled_bwd_residual_equals_replay_and_reruns(dev, dtype):
+    """#12 from #11's saved ys and #13 replaying them: bitwise equal, and
+    two runs of each bitwise equal (no float atomics)."""
+    cfg, args, d_agg = _untab_problem(dev, *GENERIC_WIDTHS[2], dtype)
+    with torch.no_grad():
+        ys = fmg.generic_fwd(cfg, *args, save=True)[1]
+        runs = [fmg.generic_bwd(cfg, *args, d_agg, ys=y) for y in (ys, None, ys, None)]
+    flat = [[r[0], r[1], *r[2]] for r in runs]
+    for other in flat[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(flat[0], other, strict=True))
+
+
+UNTABLED_MODES = {  # the untabled dispatches: model settings, graph, kernels that must run
+    "residual": (dict(remat=True), True, (fmg.GENERIC_FWD, fmg.GENERIC_BWD_RES)),
+    "sym_regather": (dict(remat=True, remat_kernel=True), True,
+                     (fmg.GENERIC_FWD, fmg.GENERIC_BWD_REP)),
+    "edge_chunks": (dict(remat=True, remat_kernel=True, edge_chunks=4, remat_layers=2), False,
+                    (fmg.GENERIC_FWD, fmg.GENERIC_BWD_REP)),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(UNTABLED_MODES))
+def test_untabled_segnn_gradients_kernel_match_plain_path(dev, mode):
+    """fp32 MSE gradients of every parameter of a 2-layer lmax=2 SEGNN on a
+    graph without tables, through the untabled kernels (take_dense_symmetric_km
+    and #12; the sym-regather entry and #13; node blocks with layer-group
+    remat and #13 on a graph without reverse slots), against autograd of the
+    plain path: 1e-4 * max|ref| per parameter; none of the tabled kernels
+    runs."""
+    n = 2000
+    kw, sym, kerns = UNTABLED_MODES[mode]
+    g, _ = _graph(dev, n, 16, 0.12, SEGNNLayer._pick_generic_tile(n))
+    if not sym:
+        g = g._replace(reverse_slot=None)
+    m_k = SEGNN("2x0e+1x1o", "24x0e+12x1o+6x2e", "1x1o", lmax_attr=2, num_layers=2,
+                layout="cm", use_pallas=True, device=dev,
+                generator=torch.Generator().manual_seed(9), **kw)
+    m_p = SEGNN("2x0e+1x1o", "24x0e+12x1o+6x2e", "1x1o", lmax_attr=2, num_layers=2,
+                layout="cm", use_pallas=False, device=dev)
+    m_p.load_state_dict(m_k.state_dict())
+    target = torch.randn((n, 3), generator=torch.Generator(device=dev).manual_seed(10),
+                         device=dev)
+    tabled = (fmg.GENERIC_TAB_FWD, fmg.GENERIC_TAB_BWD_RES, fmg.GENERIC_TAB_BWD_REP)
+    before = [kern.launches for kern in kerns + tabled]
+    ((m_k(g) - target) ** 2).mean().backward()
+    ((m_p(g) - target) ** 2).mean().backward()
+    moved = [kern.launches - b for kern, b in zip(kerns + tabled, before)]
+    assert all(x > 0 for x in moved[:2]) and moved[2:] == [0, 0, 0], moved
     for (name, a), b in zip(m_k.named_parameters(), m_p.parameters(), strict=True):
         err = float((a.grad - b.grad).abs().max())
         assert err <= 1e-4 * float(b.grad.abs().max()), (name, err)

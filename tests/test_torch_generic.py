@@ -335,14 +335,21 @@ def test_segnn_lmax2_attributes_match_jax():
 
 def test_generic_tables_at_another_tile_raise():
     """Tables at another tile than _pick_generic_tile(n), or none: the
-    untabled generic kernel (#11) is not ported."""
+    untabled generic kernel (#11, here its plain version) serves the layer
+    and agrees with the plain path (fp32 atol 2e-5)."""
     jg, jgt, tg, tgt = _graph(96)
     _, _, tm = _models(True, seed=9)
-    for graph in (tg, tg.with_gather_tables(tile=32)):
-        assert not tm.layers[0]._tab_eligible(96, graph)
-        with pytest.raises(NotImplementedError, match="#11"):
-            with torch.no_grad():
-                tm(graph)
+    tm_p = TSEGNN(*IRREPS, lmax_attr=2, num_layers=2, layout="cm", use_pallas=False,
+                  device="cpu")
+    tm_p.load_state_dict(tm.state_dict())
+    calls = []
+    real = fmg.generic_fwd
+    with torch.no_grad(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fmg, "generic_fwd", lambda *a, **kw: calls.append(a) or real(*a, **kw))
+        for graph in (tg, tg.with_gather_tables(tile=32)):
+            assert not tm.layers[0]._tab_eligible(96, graph)
+            torch.testing.assert_close(tm(graph), tm_p(tg), rtol=0, atol=ATOL)
+    assert len(calls) == 4  # two layers, two graphs
 
 
 def test_generic_flops_count_the_folded_nonzeros():

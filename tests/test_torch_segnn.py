@@ -115,15 +115,29 @@ def test_use_pallas_without_tables_raises():
 
 
 def test_unported_tensor_product_raises():
-    """The generic tensor product is ported: an lmax=2 model builds.  What is
-    not ported raises: its untabled fused kernel (#11), here without tables."""
+    """The generic tensor product and its untabled kernels are ported: an
+    lmax=2 model builds and runs without tables.  What is not ported raises:
+    a message layer off the folded-GEMM path (its JAX backward is the
+    fallback kernel #14), and the untabled lmax=1 kernels (#3-#5), which
+    edge_chunks > 1 reaches even on a graph with tables."""
     tm = TSEGNN("2x0e+1x1o", "8x0e+4x1o+2x2e", "1x1o", num_layers=1, lmax_attr=2,
                 use_pallas=True, device="cpu")
     assert tm.layers[0].use_pallas_generic
     jg, jgt, tg, tgt = _graph(128)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with torch.no_grad():
+        assert torch.isfinite(tm(tg)).all()
+    tm.layers[0].message_layers[0].tp.mode = "sparse"
+    tm.layers[0]._generic_kernels.clear()
+    with pytest.raises(NotImplementedError, match="#14"):
         with torch.no_grad():
             tm(tg)
+    _, _, tm1 = _models(True, seed=8)
+    tm1c = TSEGNN(*IRREPS, num_layers=2, layout="cm", use_pallas=True, edge_chunks=2,
+                  device="cpu")
+    tm1c.load_state_dict(tm1.state_dict())
+    with pytest.raises(NotImplementedError, match="#3-#5.*edge_chunks > 1"):
+        with torch.no_grad():
+            tm1c(tgt)
 
 
 def test_entry_points_without_device_need_a_gpu(monkeypatch):
