@@ -100,6 +100,23 @@ Phases, each printing one JSON line:
 27. grad_check_config5 -- fp32 gradients of the chunked model (4 blocks,
                  remat_layers=2) against the plain path at 20k points of the
                  10M density.
+28. kernel_km  -- the untabled lmax=1 kernels #3 and #5 (with the reduction)
+                 against their plain versions at the 100k shapes (tile 160)
+                 and at one padded 1M block (tile 64), fp32 and bf16
+                 (elementwise in bf16 ulps); reruns bit-identical.
+29. forward_km -- the config-3 forward on the 100k graph without its tables
+                 (take_dense_symmetric_km): exactly 4 launches of #3.
+30. train_km_100k -- 5 counted steps there: 4 of #3 and 4 of #5 per step,
+                 none of #1/#2.
+31. train_km_example_100k -- examples/train_pointcloud.py at its defaults
+                 (100k points, not symmetrized, gather_km, remat): 3 steps,
+                 then a profile of two (device time per kernel, busy share).
+32. train_km_1m -- the example at 1M points (edge_chunks=8, 125,000-node
+                 blocks padded to 125,056): per step 64 of #3 and 32 of #5
+                 (derived in ``km_phases``); peak memory; a profile of one step.
+33. grad_check_km, km_times -- fp32 gradients through #3/#5 against the
+                 plain path at 20k points, symmetrized and with edge_chunks=4;
+                 the kernels' times, bounds and the untabled step times.
 
 Then the ``kernels`` line, the card line and, last, the result line.  Any
 failed check raises: the script exits non-zero and prints no result.  It
@@ -125,6 +142,7 @@ from scalable_e3_gnn_torch.kernels import fused_message as fm
 from scalable_e3_gnn_torch.kernels import fused_message_generic as fmg
 from scalable_e3_gnn_torch.kernels.build import build_libraries
 from scalable_e3_gnn_torch.models.segnn import SEGNNLayer
+from scalable_e3_gnn_torch.ops.gather_scatter import gather_km
 from scalable_e3_gnn_torch.train.pipeline import make_train_step, mse_loss
 
 # config 3 (bench.py of the JAX package)
@@ -172,6 +190,11 @@ C5_TRAIN_STEPS = 2  # one warm-up step, one timed
 GC5_POINTS = 20_000
 GC5_RADIUS = C5_RADIUS * (C5_POINTS / GC5_POINTS) ** (1 / 3)
 GC5_CHUNKS = 4
+# examples/train_pointcloud.py (the untabled lmax=1 path): r = 0.04 (1e5 /
+# n)^(1/3) and edge_chunks = max(1, n // 125,000); run at its default 100k
+# points and at --points 1000000 (L1M_POINTS): not cut
+EX_POINTS = 100_000
+EX_BLOCK = 125_000
 
 # H100 SXM published peaks (NVIDIA data sheet), for the bounds
 PEAK_BF16_FLOPS = 989e12
@@ -560,11 +583,13 @@ def lmax2_phases(card: str) -> dict:
     return row, dict(graph=graph, kern=kern, kres=kres, gtimes=gtimes)
 
 
-def bwd_compare(got, ref, elementwise: bool, fp32: bool) -> dict:
-    """One output of a backward kernel against its plain version: fp32
-    elementwise (d_hu, d_hr, d_h, agg, ys) against 1e-4 * max(1, |ref|), or
-    (weight gradients) against 1e-4 * max|ref|; bf16 elementwise in bf16 ulps
-    of max(|ref|, mean|ref|), with a limit on the share over 1 ulp."""
+def bwd_compare(got, ref, elementwise: bool, fp32: bool,
+                ulps_limit: float = TOL_GENERIC_BWD_BF16_ULPS) -> dict:
+    """One output of a kernel against its plain version: fp32 elementwise
+    (d_hu, d_hr, d_h, agg, ys) against 1e-4 * max(1, |ref|), or (weight
+    gradients) against 1e-4 * max|ref|; bf16 elementwise in bf16 ulps of
+    max(|ref|, mean|ref|) against ``ulps_limit``, with a limit on the share
+    over 1 ulp."""
     err = (got.float() - ref.float()).abs()
     out = dict(max_abs_err=float(err.max()), max_abs_ref=float(ref.float().abs().max()))
     if fp32:
@@ -573,7 +598,7 @@ def bwd_compare(got, ref, elementwise: bool, fp32: bool) -> dict:
     else:
         u = bf16_ulps(got, ref)
         out.update(max_ulps=float(u.max()), share_over_1ulp=float((u > 1).float().mean()),
-                   over_ulps=int((u > TOL_GENERIC_BWD_BF16_ULPS).sum()))
+                   over_ulps=int((u > ulps_limit).sum()))
         out["over"] = out["over_ulps"] + int(
             out["share_over_1ulp"] > TOL_GENERIC_BWD_BF16_OVER_1ULP)
     out["finite"] = bool(torch.isfinite(got.float()).all())
@@ -632,7 +657,7 @@ def bwd_outputs(res) -> list:
             ("dW2", res[2][1], False)]
 
 
-def train_run(model, graph, attrs, target, steps, card, phase, want, **info):
+def train_run(model, graph, attrs, target, steps, card, phase, want, hidden=L2_HIDDEN, **info):
     """``steps`` counted bf16 train steps (fp32 masters, MSE, Adam 1e-3):
     checks the launches of every step against ``want``, finite losses and
     gradient norms and fp32 masters; returns the step function."""
@@ -657,7 +682,7 @@ def train_run(model, graph, attrs, target, steps, card, phase, want, **info):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     masters = all(p.dtype == torch.float32 for p in model.parameters())
-    emit(phase, **info, layers=NUM_LAYERS, hidden=L2_HIDDEN, steps=steps,
+    emit(phase, **info, layers=NUM_LAYERS, hidden=hidden, steps=steps,
          compute_dtype="bfloat16", master_dtype="float32" if masters else "mixed",
          optimizer=f"Adam(lr={LEARNING_RATE}, betas=(0.9, 0.999), eps=1e-8)", losses=losses,
          grad_norms=norms, launches_per_step=per_step, seconds_incl_first_step=seconds,
@@ -1358,6 +1383,376 @@ def config5_phases(card: str) -> dict:
     }
 
 
+def km_model(dev, **kw):
+    """Config 3's SEGNN (weights from the seed), on the untabled lmax=1 path."""
+    return port.SEGNN("2x0e+1x1o", HIDDEN, "1x1o", num_layers=NUM_LAYERS, layout="cm",
+                      use_pallas=True, device=dev, generator=torch.Generator().manual_seed(SEED),
+                      **kw)
+
+
+def km_inputs(model, senders, edge_geo, h_ext, lo, hi, dtype, gen):
+    """#3/#5's arguments for the receivers [lo, hi) of a graph, as the model
+    hands them over: hs3 = h_ext[senders.T] (clamped) [K, hi-lo, F], the
+    receivers' rows and the geometry with extra masked slots and a masked
+    tail (the last 37 receivers without a valid slot), zero-padded to the km
+    tile; layer 0's folded weights.  Returns (cfg, [hs3, hr, geo2], weights,
+    valid slots)."""
+    c, k = hi - lo, senders.shape[1]
+    dev = senders.device
+    layer = model.layers[0]
+    tile = SEGNNLayer._pick_km_tile(c)
+    npad = -(-c // tile) * tile
+    cfg = fm.MessageConfig(hs=layer._pallas_hs, hv=layer._pallas_hv, k=k, tile=tile)
+    geo = edge_geo[lo:hi].float().reshape(c, k, 6).clone()
+    geo[..., 5] *= (torch.rand((c, k), generator=gen, device=dev) > 0.1).float()
+    geo[c - 37:, :, 5] = 0.0
+    n_valid = int((geo[..., 5] > 0).sum())
+    f = cfg.f
+    hs3 = h_ext[torch.clamp(senders[lo:hi].t(), max=h_ext.shape[0] - 1).long().contiguous()]
+    pad = npad - c
+    args = [torch.cat([hs3, hs3.new_zeros((k, pad, f))], dim=1),
+            torch.cat([h_ext[lo:hi], h_ext.new_zeros((pad, f))]),
+            torch.cat([geo.reshape(c, k * 6), geo.new_zeros((pad, k * 6))])]
+    return cfg, [a.to(dtype).contiguous() for a in args], layer._folded_weights(dtype), n_valid
+
+
+KM_OUTPUTS = (("d_hs", True), ("d_hr", True), ("dW0a", False), ("dW1Sa", False),
+              ("dW1Va", False), ("dW0b", False), ("dW1Sb", False), ("dW1Vb", False))
+
+
+def km_check(label, cfg, args, ws, n_valid, d_agg, times: bool) -> dict:
+    """#3 and #5 (main kernel, then the reduction) against their plain
+    versions on one set of inputs, two runs of each bitwise equal; with
+    ``times``, CUDA-event times of each, of #5's main kernel alone and of the
+    plain versions, and the bounds.  Emits a ``kernel_km`` line."""
+    hr = args[1]
+    fp32 = hr.dtype == torch.float32
+    ws6 = fm.split_weights(cfg, *ws)
+    flat = lambda r: [r[0], r[1], *r[2]]
+    with torch.no_grad():
+        agg = fm.fused_message_aggregate_km_fwd(cfg, *args, *ws)
+        agg2 = fm.fused_message_aggregate_km_fwd(cfg, *args, *ws)
+        got = flat(fm.km_bwd_kernels(cfg, *args, ws6, d_agg))
+        again = flat(fm.km_bwd_kernels(cfg, *args, ws6, d_agg))
+        torch.cuda.synchronize()
+        identical = torch.equal(agg, agg2) and all(torch.equal(x, y) for x, y in zip(got, again))
+        del agg2, again
+        cmp = {"agg": bwd_compare(agg, fm.fused_message_aggregate_km_plain(cfg, *args, *ws), True,
+                                  fp32, TOL_GENERIC_BF16_ULPS)}
+        ref = flat(fm.km_bwd_plain(cfg, *args, ws6, d_agg))
+        for (nm, el), x, y in zip(KM_OUTPUTS, got, ref, strict=True):
+            cmp[nm] = bwd_compare(x, y, el, fp32)
+        del ref
+        # the padded receivers and the masked tail carry no valid slot: exact zeros
+        c_live = args[2].reshape(args[2].shape[0], cfg.k, 6)[..., 5].sum(dim=1) > 0
+        zero_rows = bool((agg[~c_live] == 0).all())
+        dead = args[2].reshape(-1, cfg.k, 6)[..., 5].t() == 0
+        zero_dhs = bool((got[0][dead] == 0).all())
+    out = dict(label=label, dtype=str(hr.dtype).replace("torch.", ""), rows=hr.shape[0],
+               k=cfg.k, tile=cfg.tile, valid_slots=n_valid, compared=cmp,
+               bit_identical_reruns=identical, zero_rows_without_valid_slots=zero_rows,
+               zero_d_hs_on_masked_slots=zero_dhs,
+               max_abs_err=dict(fwd=cmp["agg"]["max_abs_err"],
+                                bwd=max(cmp[nm]["max_abs_err"] for nm, _ in KM_OUTPUTS)))
+    if times:
+        with torch.no_grad():
+            t = dict(
+                fwd_ms=event_ms(lambda: fm.fused_message_aggregate_km_fwd(cfg, *args, *ws),
+                                iters=10),
+                fwd_plain_ms=event_ms(lambda: fm.fused_message_aggregate_km_plain(cfg, *args, *ws),
+                                      iters=2, warmup=1),
+                bwd_ms=event_ms(lambda: fm.km_bwd_kernels(cfg, *args, ws6, d_agg), iters=5,
+                                warmup=1),
+                bwd_main_ms=event_ms(lambda: fm.km_bwd_kernel(cfg, *args, ws6, d_agg), iters=5,
+                                     warmup=1),
+                bwd_plain_ms=event_ms(lambda: fm.km_bwd_plain(cfg, *args, ws6, d_agg), iters=2,
+                                      warmup=1))
+        # bounds: each input read once, each output written once; the
+        # multiply-adds of the valid slots (1 pass forward, 3 backward: the
+        # recompute and the two VJP products) at the bf16 tensor-core peak
+        flops = 2 * messages_per_slot(cfg) * n_valid
+        io = nbytes(*args, *ws)
+        dws = 4 * sum(a * b for a, b in cfg.weight_shapes())
+        t["bounds"] = {k_: dict(zip(("bound_ms", "bound_by", "bytes_ms", "ops_ms"), v)) for k_, v in (
+            ("fwd", bound(io + nbytes(agg), flops)),
+            ("bwd", bound(io + nbytes(d_agg, got[0], got[1]) + dws, 3 * flops)))}
+        t["mbytes"] = dict(fwd=(io + nbytes(agg)) / 1e6,
+                           bwd=(io + nbytes(d_agg, got[0], got[1]) + dws) / 1e6)
+        out["times"] = t
+    emit("kernel_km", kernels=[fm.KM_FWD.name, fm.KM_BWD.name, fm.TAB_BWD_REDUCE.name], **out,
+         tolerance=(f"{TOL_BWD_FP32} * max(1, |ref|) elementwise for agg, d_hs, d_hr; "
+                    f"{TOL_BWD_FP32} * max|ref| for the weight blocks (fp32 sums in another "
+                    "order)") if fp32 else
+         (f"agg {TOL_GENERIC_BF16_ULPS}, the backward's outputs {TOL_GENERIC_BWD_BF16_ULPS} "
+          "bf16 ulps of max(|ref|, mean|ref|) elementwise, and at most "
+          f"{TOL_GENERIC_BWD_BF16_OVER_1ULP} of the elements over 1 ulp (kernel and plain "
+          "version round at the same points; fp32 sums in another order flip a rounding now "
+          "and then); reruns bitwise"))
+    bad = {nm: v for nm, v in cmp.items() if v["over"] or not v["finite"]}
+    check(not bad, f"{label}: km kernels vs plain in {hr.dtype}: {bad}")
+    check(identical and zero_rows and zero_dhs,
+          f"{label}: reruns {identical}, zero rows {zero_rows}, zero masked d_hs {zero_dhs}")
+    return out
+
+
+def example_graph(n: int, dev):
+    """``examples/train_pointcloud.py``'s cloud and graph at ``n`` points, at
+    its defaults: points and masses from default_rng(0), r = 0.04 (1e5 /
+    n)^(1/3), K=24, octree min(8, max(4, int(log2(1/r)))) levels, the cell
+    capacity by suggest_cell_capacity, the cell radius graph, not
+    symmetrized; node features [m, 1, 0, 0, 0] in Morton order; the target,
+    the local mass dipole sum_j m_j (x_j - x_i).  Returns (graph, target,
+    info, build ms)."""
+    r = 0.04 * (100_000 / n) ** (1 / 3)
+    rng = np.random.default_rng(0)
+    pts = rng.random((n, 3)).astype(np.float32)
+    masses = rng.random((n, 1)).astype(np.float32)
+    levels = min(8, max(4, int(np.log2(1.0 / r))))
+    t0 = time.perf_counter()
+    tree = port.build_octree(pts, LO, HI, num_levels=levels, device=dev)
+    cap = port.suggest_cell_capacity(tree, r, LO, HI)
+    edges = port.radius_graph_cell(tree, r, LO, HI, max_neighbors=MAX_NEIGHBORS, cell_capacity=cap)
+    ms = torch.from_numpy(masses).to(dev)[tree.order.long()]
+    feats = torch.cat([ms, torch.ones_like(ms), torch.zeros((n, 3), device=dev)], dim=-1)
+    graph = port.DenseEdgeGraph.from_radius_edges(feats, tree.points, edges)
+    rel = graph.rel_positions()
+    mj = ms[:, 0][torch.clamp(graph.senders, max=n - 1).long()]
+    target = (rel * torch.where(graph.edge_mask, mj, 0.0)[..., None]).sum(dim=1)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    info = dict(points=n, radius=r, k=MAX_NEIGHBORS, octree_levels=levels, cell_capacity=cap,
+                edges=int(graph.edge_mask.sum()), symmetrized=False,
+                edge_chunks=max(1, n // EX_BLOCK))
+    del tree, edges, rel, mj
+    return graph, target, info, build_ms
+
+
+def km_grad_check(dev, graph, **kw) -> dict:
+    """fp32 gradients of every parameter of config 3's model through #3/#5
+    against autograd through the plain message path on ``graph`` (no
+    tables); ``kw``: the model's ladder settings.  Returns the readings and
+    the launches of the kernel model's forward and backward."""
+    m_k = km_model(dev, **kw)
+    m_p = port.SEGNN("2x0e+1x1o", HIDDEN, "1x1o", num_layers=NUM_LAYERS, layout="cm",
+                     use_pallas=False, device=dev)
+    m_p.load_state_dict(m_k.state_dict())
+    with torch.no_grad():
+        attrs = m_k.compute_attributes_dense(graph)
+    n = graph.senders.shape[0]
+    t_gc = torch.from_numpy(np.random.default_rng(SEED + 4).standard_normal(
+        (n, 3)).astype(np.float32)).to(dev)
+    reset_launches()
+    loss_k = mse_loss(m_k(graph, attrs=attrs), t_gc)
+    loss_k.backward()
+    launches = launch_counts()
+    loss_p = mse_loss(m_p(graph, attrs=attrs), t_gc)
+    loss_p.backward()
+    worst, worst_name = 0.0, ""
+    for (nm, a), b in zip(m_k.named_parameters(), m_p.parameters(), strict=True):
+        rel = float((a.grad - b.grad).abs().max()) / max(float(b.grad.abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, nm
+    return dict(loss_kernel=loss_k.item(), loss_plain=loss_p.item(), worst_param=worst_name,
+                worst_rel_err=worst, launches=launches)
+
+
+def km_phases(card: str, graph3) -> dict:
+    """Phases 28-33: the untabled lmax=1 path (#3 forward, #5 backward with
+    the fixed-order reduction), config 3's SEGNN (32x0e+16x1o, 4 layers, bf16 compute
+    on fp32 masters, MSE, Adam 1e-3).
+
+    28. kernel_km -- #3 and #5 against their plain versions at the 100k
+        shapes (bench.py's symmetrized graph, tile 160) and at one 1M node
+        block (125,000 receivers padded to 125,056, tile 64), fp32 and bf16,
+        real senders, geometry and folded weights, extra masked slots.
+    29. forward_km -- one config-3 forward on bench.py's 100k graph with its
+        tables dropped (senders by take_dense_symmetric_km): exactly 4 of #3.
+    30. train_km_100k -- 5 steps there: per step 4 of #3, 4 of #5 and 4
+        reductions, none of #1/#2.
+    31. train_km_example_100k -- examples/train_pointcloud.py at its defaults
+        (100k points, not symmetrized: senders by gather_km, edge_chunks=1,
+        remat): 3 counted steps, 4 of #3 and 4 of #5 each; a torch.profiler
+        trace of two more.
+    32. train_km_1m -- the example at --points 1000000 (edge_chunks=8,
+        125,000-node blocks each padded to the km tile 64, remat): a warm-up
+        and 2 more steps, all counted; per step, with L = 4 layers and C = 8
+        blocks, each block checkpointed: #3 in the forward and again in the
+        block's recompute, 2 L C = 64; #5 once per layer and block, L C = 32;
+        peak memory; a torch.profiler trace of one more step.
+    33. grad_check_km -- fp32 gradients through #3/#5 against autograd of
+        the plain path at 20k points (GC_RADIUS): symmetrized without tables,
+        and with edge_chunks=4 (remat; 5,000-node blocks padded to 5,056).
+    Then km_times: the kernels' and the plain versions' times, the bounds,
+    the untabled config-3 forward and step, the 1M step.  Returns the rows
+    of #3 and #5 for the ``kernels`` line."""
+    dev = torch.device(DEVICE)
+    bf = torch.bfloat16
+    n = N_POINTS
+    per_layer = lambda c: {fm.KM_FWD.name: NUM_LAYERS * c, fm.KM_BWD.name: NUM_LAYERS * c,
+                           fm.TAB_BWD_REDUCE.name: NUM_LAYERS * c}
+    g100 = graph3._replace(**NO_TABLES)
+    model = km_model(dev)
+    with torch.no_grad():
+        attrs32 = model.compute_attributes_dense(g100)
+
+    # ---- 28. the kernels at the 100k and the 1M block shapes
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    chk = {}
+    h_ext = torch.randn((n, model.hidden_irreps.dim), generator=gen, device=dev)
+    for dtype in (torch.float32, bf):
+        cfg, args, ws, n_valid = km_inputs(model, g100.senders, attrs32[3], h_ext, 0, n, dtype,
+                                           gen)
+        check(args[1].shape[0] == n, f"100k: padded to {args[1].shape[0]} at tile {cfg.tile}")
+        d_agg = torch.randn(args[1].shape, generator=gen, device=dev).to(dtype)
+        chk[dtype] = km_check("config3_100k", cfg, args, ws, n_valid, d_agg, times=dtype == bf)
+        del cfg, args, d_agg
+    del h_ext
+    g1m, y1m, info1m, build1m_ms = example_graph(L1M_POINTS, dev)
+    c = L1M_POINTS // info1m["edge_chunks"]
+    with torch.no_grad():
+        attrs1m = model.compute_attributes_dense(g1m)
+    h_ext = torch.randn((L1M_POINTS, model.hidden_irreps.dim), generator=gen, device=dev)
+    cfg, args, ws, n_valid = km_inputs(model, g1m.senders, attrs1m[3], h_ext, 0, c, bf, gen)
+    check(cfg.tile == 64 and args[1].shape[0] == -(-c // 64) * 64 > c,
+          f"1M block: {args[1].shape[0]} rows at tile {cfg.tile}, not padded")
+    d_agg = torch.randn(args[1].shape, generator=gen, device=dev).to(bf)
+    chk["1m_block"] = km_check("example_1m_block", cfg, args, ws, n_valid, d_agg, times=False)
+    del h_ext, cfg, args, d_agg, attrs1m
+
+    # ---- 29. the config-3 forward without tables, counted
+    model_bf = copy.deepcopy(model).to(bf)
+    attrs_bf = tuple(a.to(bf) for a in attrs32)
+    g_bf = g100._replace(nodes=g100.nodes.to(bf))
+    check(g100.reverse_slot is not None and g100.gather_loc is None, "100k: not the sym graph")
+    fwd = lambda: model_bf(g_bf, attrs=attrs_bf)
+    with torch.no_grad():
+        reset_launches()
+        out = fwd()
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        check(launches == expected({fm.KM_FWD.name: NUM_LAYERS}),
+              f"{launches} kernel launches in one untabled forward")
+        check(tuple(out.shape) == (n, 3) and bool(torch.isfinite(out).all()),
+              f"untabled forward: shape {tuple(out.shape)} or non-finite")
+        state32 = {k_: v.float() for k_, v in model_bf.state_dict().items()}
+        plain32 = port.SEGNN("2x0e+1x1o", HIDDEN, "1x1o", num_layers=NUM_LAYERS, layout="cm",
+                             use_pallas=False, device=dev)
+        plain32.load_state_dict(state32)
+        ref = plain32(g100, attrs=attrs32)
+        model32 = km_model(dev)
+        model32.load_state_dict(state32)
+        k32 = model32(g100, attrs=attrs32)
+        scale = float(ref.abs().max())
+        err32 = float((k32 - ref).abs().max())
+        errbf = float((out.float() - ref).abs().max())
+        emit("forward_km", points=n, layers=NUM_LAYERS, dtype="bfloat16", tables=False,
+             gather="take_dense_symmetric_km", shape=list(out.shape), launches=launches,
+             max_abs_ref=scale, fp32_kernel_vs_plain_max_abs_err=err32,
+             fp32_tolerance=f"{TOL_FORWARD_FP32} * max(1, |ref|); fp32 sums in another order",
+             bf16_kernel_vs_fp32_plain_max_abs_err=errbf,
+             bf16_tolerance=f"{TOL_FORWARD_BF16} * max|ref|; bf16 storage through 4 layers")
+        check(bool(((k32 - ref).abs() <= TOL_FORWARD_FP32 * torch.clamp(ref.abs(), min=1.0)).all()),
+              f"untabled fp32 forward: kernel vs plain max abs err {err32}")
+        check(errbf <= TOL_FORWARD_BF16 * scale, f"untabled bf16 forward vs fp32 plain: {errbf}")
+        del ref, k32, out, plain32, model32
+        fwd_ms = event_ms(fwd, iters=10)
+
+    # ---- 30. 5 train steps on the 100k graph without tables
+    target = torch.from_numpy(np.random.default_rng(SEED + 2).standard_normal(
+        (n, 3)).astype(np.float32)).to(dev)
+    step = train_run(model, g_bf, attrs_bf, target, TRAIN_STEPS, card, "train_km_100k",
+                     expected(per_layer(1)), hidden=HIDDEN, points=n, tables=False,
+                     gather="take_dense_symmetric_km")
+    launches_100k = launch_counts()
+    step_ms = event_ms(lambda: step(g_bf, attrs_bf, target), iters=5, warmup=1)
+    del step, model, model_bf, target, attrs_bf, attrs32, g_bf
+
+    # ---- 31. the example at its defaults: 100k points, not symmetrized
+    g_ex, y_ex, info_ex, build_ex_ms = example_graph(EX_POINTS, dev)
+    model = km_model(dev, remat=True, edge_chunks=info_ex["edge_chunks"])
+    check(info_ex["edge_chunks"] == 1 and g_ex.reverse_slot is None, "example 100k graph")
+    with torch.no_grad():
+        attrs = tuple(a.to(bf) for a in model.compute_attributes_dense(g_ex))
+    gx_bf = g_ex._replace(nodes=g_ex.nodes.to(bf))
+    step = train_run(model, gx_bf, attrs, y_ex, L2_TRAIN_STEPS, card, "train_km_example_100k",
+                     expected(per_layer(1)), hidden=HIDDEN, remat=True, gather="gather_km",
+                     graph_build_ms=build_ex_ms, **info_ex)
+    step_ex_ms = step.step_ms[-1]
+    prof_ex = profile_steps(step, (gx_bf, attrs, y_ex))
+    emit("profile_km_example_100k", card=card, points=EX_POINTS, **prof_ex)
+    check(prof_ex["device_ms_per_step"] > 0, "the profiler saw no device time")
+    # the unsymmetrized sender gradient is an indexed scatter-add: are two
+    # runs of it bitwise equal on the card?  (a reading, not a check)
+    hx = torch.randn((EX_POINTS, model.hidden_irreps.dim), generator=gen, device=dev).to(bf)
+    gx = torch.randn((MAX_NEIGHBORS, EX_POINTS, hx.shape[1]), generator=gen, device=dev).to(bf)
+    grads = []
+    for _ in range(2):
+        hl = hx.clone().requires_grad_(True)
+        gather_km(hl, g_ex.senders).backward(gx)
+        grads.append(hl.grad)
+    gather_grad_identical = torch.equal(grads[0], grads[1])
+    del step, model, attrs, gx_bf, g_ex, y_ex, hx, gx, grads, hl
+
+    # ---- 32. the example at 1M points: edge_chunks=8, padded blocks
+    chunks = info1m["edge_chunks"]
+    check(chunks == L1M_POINTS // EX_BLOCK == 8 and g1m.reverse_slot is None,
+          f"1M example: {chunks} chunks")
+    model = km_model(dev, remat=True, edge_chunks=chunks)
+    with torch.no_grad():
+        attrs = tuple(a.to(bf) for a in model.compute_attributes_dense(g1m))
+    g1_bf = g1m._replace(nodes=g1m.nodes.to(bf))
+    step = train_run(model, g1_bf, attrs, y1m, 1 + L1M_TRAIN_STEPS, card, "train_km_1m",
+                     expected({fm.KM_FWD.name: 2 * NUM_LAYERS * chunks,
+                               fm.KM_BWD.name: NUM_LAYERS * chunks,
+                               fm.TAB_BWD_REDUCE.name: NUM_LAYERS * chunks}),
+                     hidden=HIDDEN, remat=True, gather="gather_km", block_rows=c,
+                     block_tile=SEGNNLayer._pick_km_tile(c), graph_build_ms=build1m_ms, **info1m)
+    step_1m_ms = step.step_ms[1:]
+    prof_1m = profile_steps(step, (g1_bf, attrs, y1m), steps=1)
+    emit("profile_km_1m", card=card, points=L1M_POINTS, **prof_1m)
+    del step, model, attrs, g1_bf, g1m, y1m
+
+    # ---- 33. fp32 gradients through #3/#5 against the plain path, 20k points
+    pts_gc = np.random.default_rng(SEED + 3).random((GC_POINTS, 3)).astype(np.float32)
+    _, _, _, g_gc, _ = build_graph(pts_gc, GC_RADIUS)
+    g_gc = g_gc._replace(**NO_TABLES)
+    gc_chunks = 4
+    for label, kw, want in (
+            ("symmetrized", {}, per_layer(1)),
+            ("edge_chunks", dict(remat=True, edge_chunks=gc_chunks),
+             {fm.KM_FWD.name: 2 * NUM_LAYERS * gc_chunks, fm.KM_BWD.name: NUM_LAYERS * gc_chunks,
+              fm.TAB_BWD_REDUCE.name: NUM_LAYERS * gc_chunks})):
+        r = km_grad_check(dev, g_gc, **kw)
+        c_gc = GC_POINTS // kw.get("edge_chunks", 1)
+        emit("grad_check_km", case=label, points=GC_POINTS, radius=GC_RADIUS, k=MAX_NEIGHBORS,
+             layers=NUM_LAYERS, dtype="float32", block_rows=c_gc,
+             block_tile=SEGNNLayer._pick_km_tile(c_gc), edges=int(g_gc.edge_mask.sum()), **r,
+             tolerance=f"{TOL_GRAD_FP32} * max|ref| per parameter; fp32 sums in another order")
+        check(r["launches"] == expected(want), f"grad_check_km {label}: launches {r['launches']}")
+        check(r["worst_rel_err"] <= TOL_GRAD_FP32,
+              f"km fp32 gradients ({label}): {r['worst_param']} off by {r['worst_rel_err']}")
+        check(abs(r["loss_kernel"] - r["loss_plain"]) <= 1e-5 * r["loss_plain"],
+              f"km losses differ ({label})")
+    del g_gc
+
+    t = chk[bf]["times"]
+    emit("km_times", card=card, points=n, forward_ms=fwd_ms, step_ms=step_ms,
+         step_ms_example_100k=step_ex_ms, step_ms_1m=step_1m_ms,
+         gather_km_grad_bit_identical_reruns=gather_grad_identical, kernels_100k=t,
+         kernel_ms_per_step_100k=dict(fwd=NUM_LAYERS * t["fwd_ms"], bwd=NUM_LAYERS * t["bwd_ms"]))
+    b = t["bounds"]
+    return {
+        fm.KM_FWD.name: dict(
+            launches=launches_100k[fm.KM_FWD.name], max_abs_err=chk[bf]["max_abs_err"]["fwd"],
+            ms=t["fwd_ms"], plain_ms=t["fwd_plain_ms"], bound_ms=b["fwd"]["bound_ms"],
+            bound_by=b["fwd"]["bound_by"], library_ms=None),
+        fm.KM_BWD.name: dict(
+            launches=launches_100k[fm.KM_BWD.name], max_abs_err=chk[bf]["max_abs_err"]["bwd"],
+            ms=t["bwd_ms"], plain_ms=t["bwd_plain_ms"], bound_ms=b["bwd"]["bound_ms"],
+            bound_by=b["bwd"]["bound_by"], library_ms=None, main_kernel_ms=t["bwd_main_ms"]),
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1682,6 +2077,11 @@ def main() -> int:
     # ---- 24-27. config 5: 10M points, edge_chunks, remat_layers (#11, #13)
     c5 = config5_phases(card)
 
+    # ---- 28-33. the untabled lmax=1 path (#3, #5): config 3 without tables,
+    #      the point-cloud example at 100k and at 1M (edge_chunks=8)
+    km = km_phases(card, graph)
+    del graph
+
     src = lambda kern: str(kern.source.relative_to(Path(__file__).resolve().parent))
     print(json.dumps({"kernels": [
         {"name": fm.TAB_FWD.name, "route": "cuda", "source": src(fm.TAB_FWD),
@@ -1709,6 +2109,9 @@ def main() -> int:
          for kern, line, row in ((fmg.GENERIC_FWD, 556, c5[fmg.GENERIC_FWD.name]),
                                  (fmg.GENERIC_BWD_RES, 802, l2u[fmg.GENERIC_BWD_RES.name]),
                                  (fmg.GENERIC_BWD_REP, 710, c5[fmg.GENERIC_BWD_REP.name]))]
+      + [{"name": kern.name, "route": "cuda", "source": src(kern),
+          "replaces": f"{TPU_FILE}:{line}", **km[kern.name]}
+         for kern, line in ((fm.KM_FWD, 1202), (fm.KM_BWD, 767))]
     }), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

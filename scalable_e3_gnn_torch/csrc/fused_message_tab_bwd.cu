@@ -1,8 +1,12 @@
-// Tabled lmax=1 fused message + aggregation, backward, for Hopper (sm_90a).
+// lmax=1 fused message + aggregation, backward, for Hopper (sm_90a): the
+// tabled kernel (#2) and, by a compile-time sender addressing (KM), the
+// untabled slot-major one (#5).
 //
-// Replaces the TPU kernel scalable_e3_gnn_tpu/kernels/fused_message.py::
+// Replaces the TPU kernels scalable_e3_gnn_tpu/kernels/fused_message.py::
 // _bwd_kernel_tab (via _bwd_tail, _layer_bwd, _accum_weight_grads), launched
-// by _vjp_bwd_tab.  Given the cotangent d_agg [Npad, F] of
+// by _vjp_bwd_tab, and, with KM, _bwd_kernel_km (the default; _bwd_kernel_km2
+// is its GEMM form), launched by _vjp_bwd_km.  Given the cotangent d_agg
+// [Npad, F] of
 //
 //   agg[i] = sum_k mask[i,k] * MLP2(MLP1([h_s || h_r || d2], sh), sh),
 //   h_s = h[gtab[i / tile, loc[i,k]]]  (loc == U: no sender),
@@ -13,6 +17,12 @@
 //   d_hu [ntiles*U, F]   the sender cotangents folded into each tile's table;
 //   partials [grid, NW]  per-block fp32 weight-gradient sums of the six blocks
 //                        (W0a, W1Sa, W1Va, W0b, W1Sb, W1Vb; W1V unexpanded [V, hv]).
+// With KM the senders come pre-gathered, hs3 [K, N, F] (slot k of receiver i
+// is row k*N + i), the geometry from the node-major geo2 [N, K*6] (sh 4, d2,
+// mask per slot), and each slot's rounded sender cotangent goes straight to
+// row k*N + i of d_hs [K, N, F]: no scratch, no per-tile counting sort, no
+// table sum; blocks walk over groups of receivers instead of tiles.  d_hr
+// and the partials are as in the tabled kernel.
 // A second kernel of this file sums the partials over the blocks in block
 // order, so two runs give bit-identical weight gradients.  The split
 // reverse-table epilogue that turns d_hu and d_hr into d_h stays in PyTorch,
@@ -51,6 +61,8 @@
 // by operations (about 0.14 ms at the bf16 tensor-core peak, 2 ms at the fp32
 // FMA peak).  This first version runs on the fp32 FMA units out of shared
 // memory; tensor cores (mma/wgmma on the bf16 operands) are later work.
+// With KM the kernel reads hs3 and writes d_hs, 384 MB each in bf16 at
+// config 3, so it is bound by bytes (about 0.25 ms at 3.35 TB/s).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,11 +103,12 @@ struct Dims {
   long region;                     // floats of the whole row region (also the CSR ints)
 };
 
+// tile = u = 0: the untabled (KM) kernel, which has no table
 __host__ __device__ inline Dims make_dims(int hs, int hv, int k, int tile, int u) {
   Dims d;
   d.hs = hs; d.hv = hv; d.k = k; d.tile = tile; d.u = u;
   d.g = k >= kTargetRows ? 1 : kTargetRows / k;
-  if (d.g > tile) d.g = tile;
+  if (tile > 0 && d.g > tile) d.g = tile;
   d.rows = d.g * k;
   d.rows_p = (d.rows + kMT - 1) / kMT * kMT;
   d.s1 = 2 * hs + 1; d.v1 = 2 * hv; d.c0 = hs + hv; d.f = hs + 3 * hv;
@@ -176,19 +189,24 @@ __device__ void run_mms(const Mm* mms, int count) {
   }
 }
 
-template <typename T>
+// KM: h is hr [N, F], the sender rows come from hs3 [K, N, F], the geometry
+// from geo2 [N, K*6], and the sender cotangents go to dhs [K, N, F]; d2,
+// attr, maskf, loc, gtab, dhu and dhs_scratch are unused (tile = u = 0).
+template <typename T, bool KM>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_message_tab_bwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
                              const T* __restrict__ attr, const T* __restrict__ maskf,
                              const int* __restrict__ loc, const int* __restrict__ gtab,
+                             const T* __restrict__ hs3, const T* __restrict__ geo2,
                              const T* __restrict__ w0a, const T* __restrict__ w1sa,
                              const T* __restrict__ w1va, const T* __restrict__ w0b,
                              const T* __restrict__ w1sb, const T* __restrict__ w1vb,
                              const T* __restrict__ dagg, T* __restrict__ dhu,
                              T* __restrict__ dhr, T* __restrict__ dhs_scratch,
-                             float* __restrict__ partials, int npad, int hs, int hv, int k,
-                             int tile, int u) {
+                             T* __restrict__ dhs3, float* __restrict__ partials, int npad,
+                             int hs, int hv, int k, int tile, int u) {
   const Dims d = make_dims(hs, hv, k, tile, u);
+  const T* __restrict__ hsrc = KM ? hs3 : h;  // where SND rows point
   const int R = d.rows_p, s1 = d.s1, v1 = d.v1, c0 = d.c0, f = d.f;
   extern __shared__ float smem[];
   // weights (padded rows) and the weight gradients (dense, in the partials' order)
@@ -206,7 +224,7 @@ fused_message_tab_bwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
   float* dW1Sb = dW0b + c0 * c0;
   float* dW1Vb = dW1Sb + hs * hv;
   float* RG = DW + d.nw;
-  int* SND = reinterpret_cast<int*>(RG + d.region);  // [R] sender node or -1
+  int* SND = reinterpret_cast<int*>(RG + d.region);  // [R] sender row in hsrc, or -1
   // region A: the layer-1 residuals (later the receiver cotangents RHR)
   float* XS1 = RG;                 // [R][s1]      xs = [h_s || h_r || d2]
   float* X01 = XS1 + R * s1;       // [R][s1+v1]   f0
@@ -249,31 +267,44 @@ fused_message_tab_bwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
   }
   __syncthreads();
 
-  const int ntiles = npad / tile;
-  const int slots = tile * k;
-  T* dhs = dhs_scratch + (long)blockIdx.x * slots * f;
-  const int ngroups = (tile + d.g - 1) / d.g;
-  for (int tl = blockIdx.x; tl < ntiles; tl += gridDim.x) {
+  // the units a block owns: whole tiles (tabled), or groups of G receivers
+  const int units = KM ? (npad + d.g - 1) / d.g : npad / tile;
+  const int span = KM ? d.g : tile;  // receivers per unit
+  const int slots = span * k;
+  T* dhs = KM ? nullptr : dhs_scratch + (long)blockIdx.x * slots * f;
+  const int ngroups = KM ? 1 : (tile + d.g - 1) / d.g;
+  for (int tl = blockIdx.x; tl < units; tl += gridDim.x) {
+    // receivers of this unit: the last group of a KM launch may be short
+    const int end = KM ? min(span, npad - tl * span) : span;
     for (int gi = 0; gi < ngroups; ++gi) {
-      const int first = gi * d.g;  // first receiver of the group within the tile
-      const int node0 = tl * tile + first;
+      const int first = gi * d.g;  // first receiver of the group within the unit
+      const int node0 = tl * span + first;
       // ---- 1. sender ids, geometry, d_agg rows
       for (int r = threadIdx.x; r < R; r += blockDim.x) {
         const int i = r / k;
         int snd = -1;
         float g5[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
         float dd = 0.f;
-        if (r < d.rows && first + i < tile) {
+        if (r < d.rows && first + i < end) {
           const long e = (long)(node0 + i) * k + r % k;
-          const int l = loc[e];
-          if (l < u) {
-            const int t = gtab[(long)tl * u + l];
-            snd = (t >= 0 && t < npad) ? t : -1;
-          }
+          if (KM) {
+            snd = (r % k) * npad + node0 + i;  // K*N < 2^31, checked by the wrapper
+            const T* g = geo2 + e * 6;         // sh 4, d2, mask
 #pragma unroll
-          for (int q = 0; q < 4; ++q) g5[q] = to_f(attr[e * 4 + q]);
-          g5[4] = to_f(maskf[e]);
-          dd = to_f(d2[e]);
+            for (int q = 0; q < 4; ++q) g5[q] = to_f(g[q]);
+            g5[4] = to_f(g[5]);
+            dd = to_f(g[4]);
+          } else {
+            const int l = loc[e];
+            if (l < u) {
+              const int t = gtab[(long)tl * u + l];
+              snd = (t >= 0 && t < npad) ? t : -1;
+            }
+#pragma unroll
+            for (int q = 0; q < 4; ++q) g5[q] = to_f(attr[e * 4 + q]);
+            g5[4] = to_f(maskf[e]);
+            dd = to_f(d2[e]);
+          }
         }
         SND[r] = snd;
         XS1[r * s1 + 2 * hs] = dd;
@@ -282,7 +313,7 @@ fused_message_tab_bwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
       }
       for (int w = threadIdx.x; w < d.g * f; w += blockDim.x) {
         const int i = w / f;
-        DAGG[w] = first + i < tile ? to_f(dagg[(long)(node0 + i) * f + w % f]) : 0.f;
+        DAGG[w] = first + i < end ? to_f(dagg[(long)(node0 + i) * f + w % f]) : 0.f;
       }
       __syncthreads();
 
@@ -292,13 +323,13 @@ fused_message_tab_bwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
         for (int w = threadIdx.x; w < R * width; w += blockDim.x) {
           const int r = w / width, j = w % width;
           const int node = node0 + r / k;
-          const bool live = r < d.rows && first + r / k < tile;
+          const bool live = r < d.rows && first + r / k < end;
           const int snd = SND[r];
           const float s = GEO[r * 5];
           if (j < 2 * hs) {
             float x = 0.f;
             if (j < hs) {
-              if (snd >= 0) x = to_f(h[(long)snd * f + j]);
+              if (snd >= 0) x = to_f(hsrc[(long)snd * f + j]);
             } else if (live) {
               x = to_f(h[(long)node * f + (j - hs)]);
             }
@@ -311,7 +342,7 @@ fused_message_tab_bwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
             for (int c = 0; c < 3; ++c) {
               float x = 0.f;
               if (jj < hv) {
-                if (snd >= 0) x = to_f(h[(long)snd * f + hs + c * hv + jj]);
+                if (snd >= 0) x = to_f(hsrc[(long)snd * f + hs + c * hv + jj]);
               } else if (live) {
                 x = to_f(h[(long)node * f + hs + c * hv + (jj - hv)]);
               }
@@ -480,15 +511,16 @@ fused_message_tab_bwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
       }
       __syncthreads();
 
-      // ---- 11. layer-1 d_Xs, d_Xv: sender parts -> the block's d_hs rows,
-      //          receiver parts -> RHR
+      // ---- 11. layer-1 d_Xs, d_Xv: sender parts -> the block's d_hs rows
+      //          (KM: row k*N + i of d_hs), receiver parts -> RHR
       {
         const int width = 2 * hs + v1;
         for (int w = threadIdx.x; w < R * width; w += blockDim.x) {
           const int r = w / width, j = w % width;
-          if (r >= d.rows || first + r / k >= tile) continue;
+          if (r >= d.rows || first + r / k >= end) continue;
           const float s = GEO[r * 5];
-          T* out = dhs + (long)(first * k + r) * f;
+          T* out = KM ? dhs3 + ((long)(r % k) * npad + node0 + r / k) * f
+                      : dhs + (long)(first * k + r) * f;
           if (j < 2 * hs) {
             const float val = rnd<T>(DXS1[r * 2 * hs + j] + rnd<T>(DF01[r * (s1 + v1) + j]) * s);
             if (j < hs) out[j] = from_f<T>(val);
@@ -511,7 +543,7 @@ fused_message_tab_bwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
       // ---- 12. d_hr: each receiver's K slots summed in fp32
       for (int w = threadIdx.x; w < d.g * f; w += blockDim.x) {
         const int i = w / f, col = w % f;
-        if (first + i >= tile) continue;
+        if (first + i >= end) continue;
         float acc = 0.f;
         for (int kk = 0; kk < k; ++kk) acc += RHR[(i * k + kk) * f + col];
         dhr[(long)(node0 + i) * f + col] = from_f<T>(acc);
@@ -519,6 +551,7 @@ fused_message_tab_bwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
       __syncthreads();
     }
 
+    if (KM) continue;
     // ---- the tile's table rows: d_hu[u] = sum of the d_hs rows of the
     //      tile's slots with loc == u, in slot order
     const int* tloc = loc + (long)tl * slots;
@@ -580,10 +613,11 @@ __global__ void fused_message_tab_bwd_reduce_kernel(const float* __restrict__ pa
   out[w] = acc;
 }
 
-template <typename T>
-int grid_for(const Dims& d, int ntiles) {
+// blocks: SMs x resident blocks, at most one per unit (tile, or KM group)
+template <typename T, bool KM>
+int grid_for(const Dims& d, int units) {
   const size_t smem = smem_bytes(d);
-  auto kern = fused_message_tab_bwd_kernel<T>;
+  auto kern = fused_message_tab_bwd_kernel<T, KM>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return -(int)err;
@@ -594,27 +628,27 @@ int grid_for(const Dims& d, int ntiles) {
   if (err != cudaSuccess) return -(int)err;
   if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
   const int grid = sms * per_sm;
-  return grid < ntiles ? grid : ntiles;
+  return grid < units ? grid : units;
 }
 
-template <typename T>
-int launch(const void* const* in, void* dhu, void* dhr, void* scratch, float* partials,
-           int npad, int hs, int hv, int k, int tile, int u, int grid, cudaStream_t stream) {
+// in: h, d2, attr, maskf, loc, gtab, hs3, geo2, six weights, d_agg (the
+// unused ones null); out: d_hu, d_hr, d_hs scratch, d_hs [K, N, F]
+template <typename T, bool KM>
+int launch(const void* const* in, void* const* out, float* partials, int npad, int hs,
+           int hv, int k, int tile, int u, int grid, cudaStream_t stream) {
   const Dims d = make_dims(hs, hv, k, tile, u);
   const size_t smem = smem_bytes(d);
-  auto kern = fused_message_tab_bwd_kernel<T>;
+  auto kern = fused_message_tab_bwd_kernel<T, KM>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  if (grid < 1 || npad % tile != 0) return (int)cudaErrorInvalidValue;
+  if (grid < 1 || (!KM && npad % tile != 0)) return (int)cudaErrorInvalidValue;
+  auto t = [in](int i) { return static_cast<const T*>(in[i]); };
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(in[0]), static_cast<const T*>(in[1]), static_cast<const T*>(in[2]),
-      static_cast<const T*>(in[3]), static_cast<const int*>(in[4]),
-      static_cast<const int*>(in[5]), static_cast<const T*>(in[6]),
-      static_cast<const T*>(in[7]), static_cast<const T*>(in[8]),
-      static_cast<const T*>(in[9]), static_cast<const T*>(in[10]),
-      static_cast<const T*>(in[11]), static_cast<const T*>(in[12]), static_cast<T*>(dhu),
-      static_cast<T*>(dhr), static_cast<T*>(scratch), partials, npad, hs, hv, k, tile, u);
+      t(0), t(1), t(2), t(3), static_cast<const int*>(in[4]), static_cast<const int*>(in[5]),
+      t(6), t(7), t(8), t(9), t(10), t(11), t(12), t(13), t(14), static_cast<T*>(out[0]),
+      static_cast<T*>(out[1]), static_cast<T*>(out[2]), static_cast<T*>(out[3]), partials,
+      npad, hs, hv, k, tile, u);
   return (int)cudaGetLastError();
 }
 
@@ -632,8 +666,8 @@ long fused_message_tab_bwd_smem_bytes(int hs, int hv, int k, int tile, int u) {
 // which sizes the per-block scratch; negative: -(CUDA error).
 int fused_message_tab_bwd_grid(int dtype, int hs, int hv, int k, int tile, int u, int ntiles) {
   const Dims d = make_dims(hs, hv, k, tile, u);
-  if (dtype == 0) return grid_for<float>(d, ntiles);
-  if (dtype == 1) return grid_for<__nv_bfloat16>(d, ntiles);
+  if (dtype == 0) return grid_for<float, false>(d, ntiles);
+  if (dtype == 1) return grid_for<__nv_bfloat16, false>(d, ntiles);
   return -(int)cudaErrorInvalidValue;
 }
 
@@ -648,14 +682,47 @@ int fused_message_tab_bwd(int dtype, const void* h, const void* d2, const void* 
                           const void* dagg, void* dhu, void* dhr, void* scratch,
                           void* partials, int npad, int hs, int hv, int k, int tile, int u,
                           int grid, void* stream) {
-  const void* in[13] = {h, d2, attr, maskf, loc, gtab, w0a, w1sa, w1va, w0b, w1sb, w1vb, dagg};
+  const void* in[15] = {h,   d2,   attr, maskf, loc,  gtab, nullptr, nullptr,
+                        w0a, w1sa, w1va, w0b,   w1sb, w1vb, dagg};
+  void* const out[4] = {dhu, dhr, scratch, nullptr};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(partials);
   if (dtype == 0)
-    return launch<float>(in, dhu, dhr, scratch, part, npad, hs, hv, k, tile, u, grid, st);
+    return launch<float, false>(in, out, part, npad, hs, hv, k, tile, u, grid, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(in, dhu, dhr, scratch, part, npad, hs, hv, k, tile, u, grid,
-                                 st);
+    return launch<__nv_bfloat16, false>(in, out, part, npad, hs, hv, k, tile, u, grid, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The untabled (km) backward's main kernel.
+long fused_message_km_bwd_smem_bytes(int hs, int hv, int k) {
+  return (long)smem_bytes(make_dims(hs, hv, k, 0, 0));
+}
+
+int fused_message_km_bwd_grid(int dtype, int hs, int hv, int k, int n) {
+  const Dims d = make_dims(hs, hv, k, 0, 0);
+  const int groups = (n + d.g - 1) / d.g;
+  if (dtype == 0) return grid_for<float, true>(d, groups);
+  if (dtype == 1) return grid_for<__nv_bfloat16, true>(d, groups);
+  return -(int)cudaErrorInvalidValue;
+}
+
+// Inputs hs3 [K, N, F], hr [N, F], geo2 [N, K*6], the six weight blocks and
+// d_agg [N, F]; outputs d_hs [K, N, F], d_hr [N, F] and the partials
+// [grid][NW] (fp32).  Returns cudaGetLastError() after the launch.
+int fused_message_km_bwd(int dtype, const void* hs3, const void* hr, const void* geo2,
+                         const void* w0a, const void* w1sa, const void* w1va,
+                         const void* w0b, const void* w1sb, const void* w1vb,
+                         const void* dagg, void* dhs, void* dhr, void* partials, int n,
+                         int hs, int hv, int k, int grid, void* stream) {
+  const void* in[15] = {hr,  nullptr, nullptr, nullptr, nullptr, nullptr, hs3, geo2,
+                        w0a, w1sa,    w1va,    w0b,     w1sb,    w1vb,    dagg};
+  void* const out[4] = {nullptr, dhr, nullptr, dhs};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* part = static_cast<float*>(partials);
+  if (dtype == 0) return launch<float, true>(in, out, part, n, hs, hv, k, 0, 0, grid, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, true>(in, out, part, n, hs, hv, k, 0, 0, grid, st);
   return (int)cudaErrorInvalidValue;
 }
 

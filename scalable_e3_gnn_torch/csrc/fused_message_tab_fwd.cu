@@ -1,7 +1,11 @@
-// Tabled lmax=1 fused message + aggregation, forward, for Hopper (sm_90a).
+// lmax=1 fused message + aggregation, forward, for Hopper (sm_90a): the
+// tabled kernel (#1) and, by a compile-time sender addressing (KM), the
+// untabled slot-major one (#3/#4).
 //
-// Replaces the TPU kernel scalable_e3_gnn_tpu/kernels/fused_message.py::
-// _fwd_kernel_tab (via _fwd_tail, _build_inputs, _layer_fwd).  For every
+// Replaces the TPU kernels scalable_e3_gnn_tpu/kernels/fused_message.py::
+// _fwd_kernel_tab (via _fwd_tail, _build_inputs, _layer_fwd) and, with KM,
+// _fwd_kernel_km2 (the default GEMM form, via _tp_layer_km2) and
+// _fwd_kernel_km (the stacked-lane form of the same function).  For every
 // receiver i and neighbour slot k it computes the two gated L1 tensor-product
 // layers of the SEGNN message MLP on [h_s || h_r || d^2] with the edge's sh
 // attribute, masks the slot and sums over k:
@@ -9,7 +13,10 @@
 //   agg[i] = sum_k mask[i,k] * MLP2(MLP1([h_s || h_r || d2], sh), sh)
 //
 // with the sender row h_s = h[gtab[i / tile, loc[i,k]]] (loc == U: no sender,
-// a zero row).  The TPU kernel expands a per-tile table hu = h[gtab] to slot
+// a zero row).  With KM the senders come pre-gathered slot-major, hs3
+// [K, N, F] (slot k of receiver i is row k*N + i), and the geometry from the
+// node-major geo2 [N, K*6] row of the receiver (sh 4, d2, mask per slot);
+// there is no table.  The TPU kernel expands a per-tile table hu = h[gtab] to slot
 // rows with a one-hot MXU matmul; here each slot reads its sender row directly
 // through the table, so hu is never written to device memory, and h (16 MB in
 // bf16 at 100k x 80) stays in the 50 MB L2.
@@ -29,7 +36,15 @@
 // So the work is bound by operations on this card (about 52 us at the bf16
 // tensor-core peak, 21 us of memory time).  This version runs its products on
 // the fp32 FMA units from shared memory, not on the tensor cores: it is the
-// simple, exact first form; wgmma and TMA staging are later work.
+// simple, exact first form; wgmma and TMA staging are later work.  With KM
+// the kernel reads hs3 whole (384 MB in bf16 at 100k x 24 slots), so bytes
+// bound it (about 0.13 ms at 3.35 TB/s).
+//
+// Rounding.  The tabled kernel rounds as the stacked-lane TPU form: the
+// layer-1 outputs and each masked slot message to the data type.  With KM it
+// also rounds where the km2 form does: the W0 vector rows are scaled by
+// CG110 and rounded in the data type when they are staged (so the dot lanes
+// are not scaled), and A and the gate's sigmoid are rounded before use.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,6 +73,11 @@ template <typename T> __device__ __forceinline__ float round_dt(float x) {
 }
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+// the vector gate sigmoid(x): rounded to the data type in the km2 form
+template <typename T, bool KM> __device__ __forceinline__ float gate(float x) {
+  return KM ? round_dt<T>(sigmoid_f(x)) : sigmoid_f(x);
+}
 
 struct Dims {
   int hs, hv, k, g, rows, rows_p;  // rows = g*k, rows_p = rows rounded to kRowTile
@@ -111,11 +131,14 @@ __device__ __forceinline__ void smem_gemm(const float* __restrict__ X, int nrows
   }
 }
 
-template <typename T>
+// KM: h is hr [N, F]; the sender rows come from hs3 [K, N, F] (row k*N + i)
+// and the geometry from geo2 [N, K*6]; d2, attr, maskf, loc, gtab are unused.
+template <typename T, bool KM>
 __global__ void __launch_bounds__(kThreads)
 fused_message_tab_fwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
                              const T* __restrict__ attr, const T* __restrict__ maskf,
                              const int* __restrict__ loc, const int* __restrict__ gtab,
+                             const T* __restrict__ hs3, const T* __restrict__ geo2,
                              const T* __restrict__ w0a, const T* __restrict__ w1sa,
                              const T* __restrict__ w1va, const T* __restrict__ w0b,
                              const T* __restrict__ w1sb, const T* __restrict__ w1vb,
@@ -138,15 +161,26 @@ fused_message_tab_fwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
   float* OA = O0 + d.rows_p * d.c0;           // [rows_p][hv]
   float* OB = OA + d.rows_p * d.hv;           // [rows_p*3][hv]
   float* GEO = OB + d.rows_p * 3 * d.hv;      // [rows_p][5]: s, vx, vy, vz, mask
-  int* SND = reinterpret_cast<int*>(GEO + d.rows_p * 5);  // [rows_p] sender or -1
+  // [rows_p] the sender's row in hsrc (h by the table, or hs3), or -1
+  int* SND = reinterpret_cast<int*>(GEO + d.rows_p * 5);
+  const T* __restrict__ hsrc = KM ? hs3 : h;
+  // the dot lanes of f0: scaled by CG110 here, or (KM) in the staged weights
+  const float cg_dot = KM ? 1.0f : kCG110;
 
   {
     const T* src[6] = {w0a, w1sa, w1va, w0b, w1sb, w1vb};
     float* dst[6] = {W0a, W1Sa, W1Va, W0b, W1Sb, W1Vb};
     const int len[6] = {(d.s1 + d.v1) * d.c0, d.s1 * d.hv, d.v1 * d.hv,
                         d.c0 * d.c0, d.hs * d.hv, d.hv * d.hv};
+    // KM: the vector rows of W0 (from row s1, resp. hs) times CG110, both
+    // in the data type, as the km2 form folds them (w0v of _km2_mats)
+    const float cg_t = round_dt<T>(kCG110);
+    const int vrow[6] = {d.s1, 1 << 30, 1 << 30, d.hs, 1 << 30, 1 << 30};
     for (int m = 0; m < 6; ++m)
-      for (int i = threadIdx.x; i < len[m]; i += blockDim.x) dst[m][i] = to_f(src[m][i]);
+      for (int i = threadIdx.x; i < len[m]; i += blockDim.x) {
+        const float x = to_f(src[m][i]);
+        dst[m][i] = (KM && i / d.c0 >= vrow[m]) ? round_dt<T>(cg_t * x) : x;
+      }
   }
 
   const int f = d.f;
@@ -160,17 +194,26 @@ fused_message_tab_fwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
       float g5[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
       if (r < d.rows && node < npad) {
         const long e = (long)node * d.k + r % d.k;
-        const int l = loc[e];
-        if (l < u) {
-          const int t = gtab[(long)(node / tile) * u + l];
-          snd = (t >= 0 && t < npad) ? t : -1;
+        if (KM) {
+          snd = (r % d.k) * npad + node;  // K*N < 2^31, checked by the wrapper
+          const T* g = geo2 + e * 6;      // sh 4, d2, mask
+#pragma unroll
+          for (int q = 0; q < 4; ++q) g5[q] = to_f(g[q]);
+          g5[4] = to_f(g[5]);
+          XS[r * d.s1 + 2 * d.hs] = to_f(g[4]);
+        } else {
+          const int l = loc[e];
+          if (l < u) {
+            const int t = gtab[(long)(node / tile) * u + l];
+            snd = (t >= 0 && t < npad) ? t : -1;
+          }
+          g5[0] = to_f(attr[e * 4 + 0]);
+          g5[1] = to_f(attr[e * 4 + 1]);
+          g5[2] = to_f(attr[e * 4 + 2]);
+          g5[3] = to_f(attr[e * 4 + 3]);
+          g5[4] = to_f(maskf[e]);
+          XS[r * d.s1 + 2 * d.hs] = to_f(d2[e]);
         }
-        g5[0] = to_f(attr[e * 4 + 0]);
-        g5[1] = to_f(attr[e * 4 + 1]);
-        g5[2] = to_f(attr[e * 4 + 2]);
-        g5[3] = to_f(attr[e * 4 + 3]);
-        g5[4] = to_f(maskf[e]);
-        XS[r * d.s1 + 2 * d.hs] = to_f(d2[e]);
       } else {
         XS[r * d.s1 + 2 * d.hs] = 0.f;
       }
@@ -192,7 +235,7 @@ fused_message_tab_fwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
         if (j < 2 * d.hs) {
           float x = 0.f;
           if (j < d.hs) {
-            if (snd >= 0) x = to_f(h[(long)snd * f + j]);
+            if (snd >= 0) x = to_f(hsrc[(long)snd * f + j]);
           } else if (live) {
             x = to_f(h[(long)node * f + (j - d.hs)]);
           }
@@ -205,14 +248,14 @@ fused_message_tab_fwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
           for (int c = 0; c < 3; ++c) {
             float x = 0.f;
             if (jj < d.hv) {
-              if (snd >= 0) x = to_f(h[(long)snd * f + d.hs + c * d.hv + jj]);
+              if (snd >= 0) x = to_f(hsrc[(long)snd * f + d.hs + c * d.hv + jj]);
             } else if (live) {
               x = to_f(h[(long)node * f + d.hs + c * d.hv + (jj - d.hv)]);
             }
             XV[(r * 3 + c) * d.v1 + jj] = x * s;
             dot = fmaf(x, GEO[r * 5 + 1 + c], dot);
           }
-          X0[r * (d.s1 + d.v1) + d.s1 + jj] = kCG110 * dot;
+          X0[r * (d.s1 + d.v1) + d.s1 + jj] = cg_dot * dot;
         }
       }
       // the d2 lane of f0
@@ -238,8 +281,8 @@ fused_message_tab_fwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
         X0[r * d.c0 + j] = m0 * s;
       } else {
         const int jj = j - d.hs;
-        const float g = sigmoid_f(O0[r * d.c0 + j]);
-        const float a = OA[r * d.hv + jj];
+        const float g = gate<T, KM>(O0[r * d.c0 + j]);
+        const float a = KM ? round_dt<T>(OA[r * d.hv + jj]) : OA[r * d.hv + jj];
         float dot = 0.f;
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
@@ -248,7 +291,7 @@ fused_message_tab_fwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
           XV[(r * 3 + c) * d.hv + jj] = m1 * s;
           dot = fmaf(m1, v, dot);
         }
-        X0[r * d.c0 + j] = kCG110 * dot;
+        X0[r * d.c0 + j] = cg_dot * dot;
       }
     }
     __syncthreads();
@@ -275,8 +318,9 @@ fused_message_tab_fwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
           m = o * sigmoid_f(o);
         } else {
           const int c = (col - d.hs) / d.hv, jj = (col - d.hs) % d.hv;
-          const float g = sigmoid_f(O0[r * d.c0 + d.hs + jj]);
-          m = kCG011 * fmaf(GEO[r * 5 + 1 + c], OA[r * d.hv + jj], OB[(r * 3 + c) * d.hv + jj]) * g;
+          const float g = gate<T, KM>(O0[r * d.c0 + d.hs + jj]);
+          const float a = KM ? round_dt<T>(OA[r * d.hv + jj]) : OA[r * d.hv + jj];
+          m = kCG011 * fmaf(GEO[r * 5 + 1 + c], a, OB[(r * 3 + c) * d.hv + jj]) * g;
         }
         acc += round_dt<T>(m * mk);
       }
@@ -286,15 +330,15 @@ fused_message_tab_fwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
   }
 }
 
-template <typename T>
+template <typename T, bool KM>
 int launch(const void* h, const void* d2, const void* attr, const void* maskf,
-           const int* loc, const int* gtab, const void* w0a, const void* w1sa,
-           const void* w1va, const void* w0b, const void* w1sb, const void* w1vb,
-           void* out, int npad, int hs, int hv, int k, int tile, int u,
-           cudaStream_t stream) {
+           const int* loc, const int* gtab, const void* hs3, const void* geo2,
+           const void* w0a, const void* w1sa, const void* w1va, const void* w0b,
+           const void* w1sb, const void* w1vb, void* out, int npad, int hs, int hv, int k,
+           int tile, int u, cudaStream_t stream) {
   const Dims d = make_dims(hs, hv, k);
   const size_t smem = smem_bytes(d);
-  auto kern = fused_message_tab_fwd_kernel<T>;
+  auto kern = fused_message_tab_fwd_kernel<T, KM>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -310,7 +354,8 @@ int launch(const void* h, const void* d2, const void* attr, const void* maskf,
   if (grid < 1) grid = 1;
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(h), static_cast<const T*>(d2), static_cast<const T*>(attr),
-      static_cast<const T*>(maskf), loc, gtab, static_cast<const T*>(w0a),
+      static_cast<const T*>(maskf), loc, gtab, static_cast<const T*>(hs3),
+      static_cast<const T*>(geo2), static_cast<const T*>(w0a),
       static_cast<const T*>(w1sa), static_cast<const T*>(w1va), static_cast<const T*>(w0b),
       static_cast<const T*>(w1sb), static_cast<const T*>(w1vb), static_cast<T*>(out), npad,
       hs, hv, k, tile, u);
@@ -338,11 +383,29 @@ int fused_message_tab_fwd(int dtype, const void* h, const void* d2, const void* 
   const int* gtab_i = static_cast<const int*>(gtab);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(h, d2, attr, maskf, loc_i, gtab_i, w0a, w1sa, w1va, w0b, w1sb,
-                         w1vb, out, npad, hs, hv, k, tile, u, st);
+    return launch<float, false>(h, d2, attr, maskf, loc_i, gtab_i, nullptr, nullptr, w0a,
+                                w1sa, w1va, w0b, w1sb, w1vb, out, npad, hs, hv, k, tile, u, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(h, d2, attr, maskf, loc_i, gtab_i, w0a, w1sa, w1va, w0b,
-                                 w1sb, w1vb, out, npad, hs, hv, k, tile, u, st);
+    return launch<__nv_bfloat16, false>(h, d2, attr, maskf, loc_i, gtab_i, nullptr, nullptr,
+                                        w0a, w1sa, w1va, w0b, w1sb, w1vb, out, npad, hs, hv, k,
+                                        tile, u, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The untabled (km) forward: hs3 [K, N, F], hr [N, F], geo2 [N, K*6], the six
+// weight blocks; out [N, F].  Returns cudaGetLastError() after the launch.
+int fused_message_km_fwd(int dtype, const void* hs3, const void* hr, const void* geo2,
+                         const void* w0a, const void* w1sa, const void* w1va,
+                         const void* w0b, const void* w1sb, const void* w1vb, void* out,
+                         int n, int hs, int hv, int k, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float, true>(hr, nullptr, nullptr, nullptr, nullptr, nullptr, hs3, geo2,
+                               w0a, w1sa, w1va, w0b, w1sb, w1vb, out, n, hs, hv, k, n, 0, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, true>(hr, nullptr, nullptr, nullptr, nullptr, nullptr, hs3,
+                                       geo2, w0a, w1sa, w1va, w0b, w1sb, w1vb, out, n, hs, hv,
+                                       k, n, 0, st);
   return (int)cudaErrorInvalidValue;
 }
 

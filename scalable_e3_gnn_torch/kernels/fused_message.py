@@ -1,8 +1,9 @@
-"""Fused SEGNN message MLP + neighbourhood aggregation (lmax=1, tabled gather).
+"""Fused SEGNN message MLP + neighbourhood aggregation (lmax=1): the tabled
+gather and the untabled slot-major (km) form.
 
 Counterpart of ``scalable_e3_gnn_tpu/kernels/fused_message.py::
-fused_message_aggregate_tabled`` and its custom VJP.  Per receiver i and
-slot k:
+fused_message_aggregate_tabled`` and ``fused_message_aggregate_km`` with
+their custom VJPs.  Per receiver i and slot k:
 
     agg[i] = sum_k mask[i,k] * MLP2(MLP1([h_s || h_r || d^2], sh), sh)
 
@@ -43,6 +44,15 @@ remainder, so it is deterministic on either device.
 (``FusedMessageTabled``, the counterpart of the JAX ``custom_vjp``).
 Geometry (``d2``, ``attr``, ``maskf``) and the index tables get no
 cotangent: they are graph constants during training.
+
+The km form (``fused_message_aggregate_km``, ``FusedMessageKm``) takes the
+senders pre-gathered slot-major, hs3 [K, N, F] (row k*N + i), and the
+geometry node-major, geo2 [N, K*6]; the same two CUDA sources serve it under
+a compile-time addressing flag (#3/#4 forward, #5 backward with the same
+reduction), beside their plain versions ``fused_message_aggregate_km_plain``
+(the km2 form's rounding points) and ``km_bwd_plain``.  Its backward returns
+d_hs per slot; the caller's gather (``take_dense_symmetric_km`` or
+``gather_km``) carries it back to the nodes.
 """
 
 from __future__ import annotations
@@ -61,7 +71,11 @@ __all__ = ["MessageConfig", "FusedMessageTabled", "fused_message_aggregate_table
            "fused_message_aggregate_tabled_bwd", "fused_message_aggregate_tabled_bwd_plain",
            "split_weights", "sender_epilogue", "tab_bwd_plain", "tab_bwd_kernels", "tab_bwd_kernel",
            "tab_bwd_reduce", "tab_bwd_reduce_plain",
-           "TAB_FWD", "TAB_BWD", "TAB_BWD_REDUCE", "KERNELS"]
+           "FusedMessageKm", "fused_message_aggregate_km", "fused_message_aggregate_km_fwd",
+           "fused_message_aggregate_km_plain", "fused_message_aggregate_km_bwd",
+           "fused_message_aggregate_km_bwd_plain", "km_bwd_plain", "km_bwd_kernel",
+           "km_bwd_kernels",
+           "TAB_FWD", "TAB_BWD", "TAB_BWD_REDUCE", "KM_FWD", "KM_BWD", "KERNELS"]
 
 CG110 = 1.0 / math.sqrt(3.0)
 CG011 = 1.0 / math.sqrt(3.0)
@@ -92,7 +106,24 @@ TAB_BWD_REDUCE = CudaKernel("fused_message_tab_bwd_reduce", {
     "fused_message_tab_bwd_reduce": (_I, [_P, _P, _I, _I, _P]),
 }, source_name="fused_message_tab_bwd")
 
-KERNELS = (TAB_FWD, TAB_BWD, TAB_BWD_REDUCE)
+# the untabled (km) kernels #3/#4 and #5: the same two sources, the senders
+# read from the slot-major hs3 [K, N, F] (row k*N + i) and the geometry from
+# the node-major geo2 [N, K*6]
+KM_FWD = CudaKernel("fused_message_km_fwd", {
+    "fused_message_tab_fwd_smem_bytes": (ctypes.c_long, [_I] * 3),
+    # dtype, 10 pointers (hs3, hr, geo2, 6 weights, out), n, hs, hv, k, stream
+    "fused_message_km_fwd": (_I, [_I] + [_P] * 10 + [_I] * 4 + [_P]),
+}, source_name="fused_message_tab_fwd")
+KM_BWD = CudaKernel("fused_message_km_bwd", {
+    "fused_message_km_bwd_smem_bytes": (ctypes.c_long, [_I] * 3),
+    # dtype, hs, hv, k, n: blocks of the main kernel
+    "fused_message_km_bwd_grid": (_I, [_I] * 5),
+    # dtype, 10 inputs (hs3, hr, geo2, 6 weights, d_agg), 3 outputs (d_hs,
+    # d_hr, weight partials), n, hs, hv, k, grid, stream
+    "fused_message_km_bwd": (_I, [_I] + [_P] * 13 + [_I] * 5 + [_P]),
+}, source_name="fused_message_tab_bwd")
+
+KERNELS = (TAB_FWD, TAB_BWD, TAB_BWD_REDUCE, KM_FWD, KM_BWD)
 
 
 @dataclass(frozen=True)
@@ -160,6 +191,13 @@ def _check_inputs(cfg, h, d2, attr, maskf, loc, gtab, ws):
             raise TypeError(f"{name} is {x.dtype}, h is {h.dtype}")
 
 
+def _check_d_agg(h, d_agg):
+    """The cotangent of agg: the receivers' shape and dtype."""
+    if d_agg.shape != h.shape or d_agg.dtype != h.dtype:
+        raise ValueError(f"d_agg is {d_agg.dtype} {tuple(d_agg.shape)}, wants "
+                         f"{h.dtype} {tuple(h.shape)}")
+
+
 def _check_tables(h, revd, remp, remn):
     npad = h.shape[0]
     if revd.dim() != 2 or revd.shape[0] != npad:
@@ -171,18 +209,27 @@ def _check_tables(h, revd, remp, remn):
             raise TypeError(f"{name} must be int32")
 
 
-def _layer(xs, xv, s, v, w0, w1s, w1v, hs):
+def _layer(xs, xv, s, v, w0, w1s, w1v, hs, rnd=None):
     """One gated L1 TP layer in fp32.  xs [R, S]; xv [R, 3, V]; s [R, 1];
     v [R, 3].  Returns m0 [R, hs], m1 [R, 3, hv] and the residuals the VJP
-    reads: (xs, f0, xvs, o0, o1)."""
+    reads: (xs, f0, xvs, o0, o1).
+
+    ``rnd`` (rounds to the data dtype and widens back) selects the km2
+    form's rounding points (``_tp_layer_km2``): w0's vector rows come
+    already scaled by CG110 and rounded (``_fold_cg``), so the dot lanes
+    are not scaled here, and A and the gate's sigmoid are rounded before
+    they are used."""
     dot = xv[:, 0] * v[:, 0:1] + xv[:, 1] * v[:, 1:2] + xv[:, 2] * v[:, 2:3]
-    f0 = torch.cat([xs * s, CG110 * dot], dim=-1)
+    f0 = torch.cat([xs * s, dot if rnd else CG110 * dot], dim=-1)
     o0 = f0 @ w0
     a = xs @ w1s
+    if rnd:
+        a = rnd(a)
     xvs = xv * s[:, :, None]
     o1 = CG011 * (v[:, :, None] * a[:, None, :] + xvs @ w1v)  # [R, 3, hv]
     m0 = F.silu(o0[:, :hs])
-    m1 = o1 * torch.sigmoid(o0[:, hs:])[:, None, :]
+    g = torch.sigmoid(o0[:, hs:])
+    m1 = o1 * (rnd(g) if rnd else g)[:, None, :]
     return m0, m1, (xs, f0, xvs, o0, o1)
 
 
@@ -282,22 +329,21 @@ def sender_epilogue(d_hr, d_hu, revd, remp, remn):
     return acc + seg.to(dt)
 
 
-def tab_bwd_plain(cfg: MessageConfig, h, d2, attr, maskf, loc, gtab, ws, d_agg):
-    """The plain backward up to the epilogue, on split weights ``ws`` (six
-    blocks): (d_hu [ntiles*U, F], d_hr [Npad, F], six fp32 weight-gradient
-    blocks)."""
-    dt = h.dtype
-    npad, f = h.shape
-    hs, hv, k, u = cfg.hs, cfg.hv, cfg.k, cfg.u
-    e = npad * k
+def _rows_bwd(cfg: MessageConfig, xs1, xv1, s, v, maskf, ws, d_rows, dt):
+    """The backward over slot rows (the stacked-lane ``_layer_bwd`` of the
+    TPU kernels): recompute both layers, then the hand VJP, the cotangent
+    intermediates rounded to ``dt``.  ``d_rows`` [E, F] is the receiver
+    cotangent of every slot row (fp32).  Returns the sender and receiver
+    parts of the layer-1 input cotangents, d_hs and d_hr rows [E, F] (fp32
+    holding ``dt`` values), and the six fp32 weight-gradient blocks."""
+    hs, hv = cfg.hs, cfg.hv
+    e = xs1.shape[0]
     rnd = lambda x: x.to(dt).float()
     w0a, w1sa, w1va, w0b, w1sb, w1vb = (w.float() for w in ws)
-    xs1, xv1, s, v, slot_tab = _slot_inputs(cfg, h, d2, attr, loc, gtab)
-    # recompute both layers
     m0, m1, res1 = _layer(xs1, xv1, s, v, w0a, w1sa, w1va, hs)
     _, _, res2 = _layer(rnd(m0), rnd(m1), s, v, w0b, w1sb, w1vb, hs)
-    # the K-slot expansion of d_agg, masked and cast to the data dtype
-    d_m = rnd(d_agg.float().repeat_interleave(k, dim=0) * maskf.float())
+    # d_agg at every slot, masked and cast to the data dtype
+    d_m = rnd(d_rows * maskf.float())
     d_xs2, d_xv2, dw0b, dw1sb, dw1vb = _layer_vjp(
         res2, d_m[:, :hs], d_m[:, hs:].reshape(e, 3, hv), s, v, w0b, w1sb, w1vb, hs, rnd)
     d_xs1, d_xv1, dw0a, dw1sa, dw1va = _layer_vjp(
@@ -305,12 +351,25 @@ def tab_bwd_plain(cfg: MessageConfig, h, d2, attr, maskf, loc, gtab, ws, d_agg):
     # layer-1 input cotangents -> sender and receiver features (d2 is geometry)
     d_hs = torch.cat([d_xs1[:, :hs], d_xv1[:, :, :hv].reshape(e, 3 * hv)], dim=-1)
     d_hrr = torch.cat([d_xs1[:, hs:2 * hs], d_xv1[:, :, hv:].reshape(e, 3 * hv)], dim=-1)
+    return d_hs, d_hrr, (dw0a, dw1sa, dw1va, dw0b, dw1sb, dw1vb)
+
+
+def tab_bwd_plain(cfg: MessageConfig, h, d2, attr, maskf, loc, gtab, ws, d_agg):
+    """The plain backward up to the epilogue, on split weights ``ws`` (six
+    blocks): (d_hu [ntiles*U, F], d_hr [Npad, F], six fp32 weight-gradient
+    blocks)."""
+    dt = h.dtype
+    npad, f = h.shape
+    k = cfg.k
+    xs1, xv1, s, v, slot_tab = _slot_inputs(cfg, h, d2, attr, loc, gtab)
+    d_hs, d_hrr, dws = _rows_bwd(cfg, xs1, xv1, s, v, maskf, ws,
+                                 d_agg.float().repeat_interleave(k, dim=0), dt)
     d_hr = d_hrr.reshape(npad, k, f).sum(dim=1).to(dt)
     ntab = gtab.numel()
     valid = slot_tab < ntab
     d_hu = h.new_zeros((ntab, f), dtype=torch.float32)
     d_hu.index_add_(0, slot_tab[valid], d_hs[valid])
-    return d_hu.to(dt), d_hr, (dw0a, dw1sa, dw1va, dw0b, dw1sb, dw1vb)
+    return d_hu.to(dt), d_hr, dws
 
 
 def fused_message_aggregate_tabled_bwd_plain(cfg: MessageConfig, h, d2, attr, maskf, loc, gtab,
@@ -379,8 +438,7 @@ def tab_bwd_kernel(cfg: MessageConfig, h, d2, attr, maskf, loc, gtab, ws, d_agg)
     [Npad, F], partials [grid, NW] fp32)``, the per-block weight-gradient
     sums that ``tab_bwd_reduce`` adds up."""
     _check_inputs(cfg, h, d2, attr, maskf, loc, gtab, ws)
-    if d_agg.shape != h.shape or d_agg.dtype != h.dtype:
-        raise ValueError(f"d_agg is {d_agg.dtype} {tuple(d_agg.shape)}, wants h's dtype and shape")
+    _check_d_agg(h, d_agg)
     args = (h, d2, attr, maskf, loc, gtab, *ws, d_agg)
     _cuda_args(h, args)
     lib = TAB_BWD.lib()
@@ -442,12 +500,7 @@ def tab_bwd_kernels(cfg: MessageConfig, h, d2, attr, maskf, loc, gtab, ws, d_agg
     """The kernel counterpart of ``tab_bwd_plain``: the main kernel, then the
     fixed-order reduction of its weight-gradient partials."""
     d_hu, d_hr, partials = tab_bwd_kernel(cfg, h, d2, attr, maskf, loc, gtab, ws, d_agg)
-    dw = tab_bwd_reduce(partials)
-    dws, off = [], 0
-    for a, b in cfg.weight_shapes():
-        dws.append(dw[off:off + a * b].view(a, b))
-        off += a * b
-    return d_hu, d_hr, tuple(dws)
+    return d_hu, d_hr, _split_partials(cfg, tab_bwd_reduce(partials))
 
 
 def fused_message_aggregate_tabled_bwd(cfg: MessageConfig, h, d2, attr, maskf, loc, gtab,
@@ -504,3 +557,235 @@ def fused_message_aggregate_tabled(cfg: MessageConfig, h, d2, attr, maskf, loc, 
     hand-written kernels (or raise), CPU tensors the plain versions."""
     return FusedMessageTabled.apply(cfg, h, d2, attr, maskf, loc, gtab, revd, remp, remn,
                                     w0e1, w1o1, w0e2, w1o2)
+
+
+# ---------------------------------------------------------------------------
+# Untabled, slot-major (km): the counterpart of ``fused_message_aggregate_km``.
+# The senders come pre-gathered as hs3 [K, N, F] (row k*N + i = slot k of
+# receiver i) and the geometry as the node-major packed geo2 [N, K*6] (sh 4,
+# d2, mask per slot).  The forward rounds where the TPU's default form, km2,
+# rounds; the backward where its default backward, the stacked-lane
+# ``_bwd_kernel_km``, rounds (the tabled backward's rounding, no table fold).
+# ---------------------------------------------------------------------------
+
+
+def _check_km(cfg: MessageConfig, hs3, hr, geo2, ws):
+    """The shapes ``_fwd_call_km`` asserts, and one dtype for all inputs."""
+    n, f = hr.shape
+    if f != cfg.f:
+        raise ValueError(f"hr has {f} features, config wants {cfg.f}")
+    if n % cfg.tile:
+        raise ValueError(f"rows {n} are not a multiple of the tile {cfg.tile}")
+    if tuple(hs3.shape) != (cfg.k, n, cfg.f):
+        raise ValueError(f"hs3 has shape {tuple(hs3.shape)}, wants {(cfg.k, n, cfg.f)}")
+    if tuple(geo2.shape) != (n, cfg.k * 6):
+        raise ValueError(f"geo2 has shape {tuple(geo2.shape)}, wants {(n, cfg.k * 6)}")
+    for i, (w, shp) in enumerate(zip(ws, cfg.weight_shapes())):
+        if tuple(w.shape) != shp:
+            raise ValueError(f"weight block {i} has shape {tuple(w.shape)}, wants {shp}")
+    for name, x in (("hs3", hs3), ("geo2", geo2), *(("weight", w) for w in ws)):
+        if x.dtype != hr.dtype:
+            raise TypeError(f"{name} is {x.dtype}, hr is {hr.dtype}")
+
+
+def _km_slot_inputs(cfg: MessageConfig, hs3, hr, geo2):
+    """Layer-1 inputs of every slot row (slot-major, row k*N + i) in fp32:
+    xs [E, S1], xv [E, 3, V1], the sh scalar s [E, 1] and vector v [E, 3],
+    and the mask [E, 1]."""
+    k, n, f = hs3.shape
+    hs, hv = cfg.hs, cfg.hv
+    e = k * n
+    hsf = hs3.float().reshape(e, f)
+    hrf = hr.float().repeat(k, 1)
+    g = geo2.float().reshape(n, k, 6).transpose(0, 1).reshape(e, 6)
+    xs = torch.cat([hsf[:, :hs], hrf[:, :hs], g[:, 4:5]], dim=-1)
+    xv = torch.cat([hsf[:, hs:].reshape(e, 3, hv), hrf[:, hs:].reshape(e, 3, hv)], dim=-1)
+    return xs, xv, g[:, 0:1], g[:, 1:4], g[:, 5:6]
+
+
+def _ksum(x):
+    """[K, N, F] -> [N, F]: the slots added in slot order in fp32 (``_ksum_km``)."""
+    acc = x[0].float()
+    for j in range(1, x.shape[0]):
+        acc = acc + x[j].float()
+    return acc
+
+
+def _fold_cg(w0, n_s):
+    """W0 with its vector rows (row n_s on) scaled by CG110 and rounded in
+    the weight dtype: the km2 form's ``w0v`` (``_km2_mats``)."""
+    cg = torch.tensor(CG110, dtype=w0.dtype, device=w0.device)
+    return torch.cat([w0[:n_s], cg * w0[n_s:]])
+
+
+def fused_message_aggregate_km_plain(cfg: MessageConfig, hs3, hr, geo2, w0e1, w1o1, w0e2, w1o2):
+    """agg [N, F] in hr's dtype, by PyTorch ops (any device).
+
+    hs3 [K, N, F] slot-major sender rows; hr [N, F] receiver rows, N a
+    multiple of cfg.tile; geo2 [N, K*6] node-major geometry (sh 4, d2, mask
+    per slot); weights with norms folded in, in the reference row layout.
+    Rounds to the data dtype where the km2 form does: the CG110-scaled W0
+    vector rows, A, the gate's sigmoid and each layer's output; the masked
+    slot messages sum over K in fp32 in slot order."""
+    ws = split_weights(cfg, w0e1, w1o1, w0e2, w1o2)
+    _check_km(cfg, hs3, hr, geo2, ws)
+    dt = hr.dtype
+    k, n, f = hs3.shape
+    rnd = lambda x: x.to(dt).float()
+    w0a, w1sa, w1va, w0b, w1sb, w1vb = ws
+    w0a, w0b = _fold_cg(w0a, cfg.s1), _fold_cg(w0b, cfg.hs)
+    w0a, w1sa, w1va, w0b, w1sb, w1vb = (w.float() for w in (w0a, w1sa, w1va, w0b, w1sb, w1vb))
+    xs, xv, s, v, mask = _km_slot_inputs(cfg, hs3, hr, geo2)
+    m0, m1, _ = _layer(xs, xv, s, v, w0a, w1sa, w1va, cfg.hs, rnd)
+    m0, m1, _ = _layer(rnd(m0), rnd(m1), s, v, w0b, w1sb, w1vb, cfg.hs, rnd)
+    msg = rnd(torch.cat([m0, m1.reshape(k * n, 3 * cfg.hv)], dim=-1)) * mask
+    return _ksum(msg.reshape(k, n, f)).to(dt)
+
+
+def km_bwd_plain(cfg: MessageConfig, hs3, hr, geo2, ws, d_agg):
+    """The plain km backward on split weights ``ws`` (six blocks): (d_hs
+    [K, N, F] written per slot, d_hr [N, F] (the fp32 K-sum, cast), six fp32
+    weight-gradient blocks).  Rounds where ``_bwd_kernel_km`` does."""
+    dt = hr.dtype
+    k, n, f = hs3.shape
+    xs1, xv1, s, v, mask = _km_slot_inputs(cfg, hs3, hr, geo2)
+    d_hs, d_hrr, dws = _rows_bwd(cfg, xs1, xv1, s, v, mask, ws, d_agg.float().repeat(k, 1), dt)
+    return (d_hs.to(dt).reshape(k, n, f), _ksum(d_hrr.reshape(k, n, f)).to(dt), dws)
+
+
+def fused_message_aggregate_km_bwd_plain(cfg: MessageConfig, hs3, hr, geo2, w0e1, w1o1, w0e2,
+                                         w1o2, d_agg):
+    """(d_hs, d_hr, d_w0e1, d_w1o1, d_w0e2, d_w1o2) by PyTorch ops (any
+    device): arguments as in the plain forward plus the cotangent d_agg
+    [N, F]; the weight gradients in the weights' dtype."""
+    ws = split_weights(cfg, w0e1, w1o1, w0e2, w1o2)
+    _check_km(cfg, hs3, hr, geo2, ws)
+    _check_d_agg(hr, d_agg)
+    d_hs, d_hr, dws = km_bwd_plain(cfg, hs3, hr, geo2, ws, d_agg)
+    return (d_hs, d_hr, *_join_weight_grads(dws, w0e1.dtype))
+
+
+def _km_rows(hs3):
+    k, n, _ = hs3.shape
+    if k * n >= 2 ** 31:
+        raise ValueError(f"K*N = {k * n} slot rows: the kernels index rows in 32 bits")
+
+
+def fused_message_aggregate_km_fwd(cfg: MessageConfig, hs3, hr, geo2, w0e1, w1o1, w0e2, w1o2):
+    """agg [N, F]: the hand-written CUDA kernel (#3/#4) for CUDA tensors, the
+    plain version for CPU tensors.  Arguments as in the plain version."""
+    if hr.device.type == "cpu":
+        return fused_message_aggregate_km_plain(cfg, hs3, hr, geo2, w0e1, w1o1, w0e2, w1o2)
+    ws = split_weights(cfg, w0e1, w1o1, w0e2, w1o2)
+    _check_km(cfg, hs3, hr, geo2, ws)
+    args = (hs3, hr, geo2, *ws)
+    _cuda_args(hr, args)
+    _km_rows(hs3)
+    lib = KM_FWD.lib()
+    smem = lib.fused_message_tab_fwd_smem_bytes(cfg.hs, cfg.hv, cfg.k)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"widths need {smem} bytes of shared memory per block (max {_MAX_SMEM})")
+    out = torch.empty_like(hr)
+    stream = torch.cuda.current_stream(hr.device).cuda_stream
+    with torch.cuda.device(hr.device):
+        rc = lib.fused_message_km_fwd(_DTYPE_CODE[hr.dtype], *(x.data_ptr() for x in args),
+                                      out.data_ptr(), hr.shape[0], cfg.hs, cfg.hv, cfg.k, stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_message_km_fwd launch failed with CUDA error {rc}")
+    KM_FWD.launches += 1
+    return out
+
+
+def km_bwd_kernel(cfg: MessageConfig, hs3, hr, geo2, ws, d_agg):
+    """The km backward's main CUDA kernel (#5, ``csrc/fused_message_tab_bwd.cu``)
+    on split weights ``ws``: returns ``(d_hs [K, N, F], d_hr [N, F],
+    partials [grid, NW] fp32)``, the per-block weight-gradient sums that
+    ``tab_bwd_reduce`` adds up."""
+    _check_km(cfg, hs3, hr, geo2, ws)
+    _check_d_agg(hr, d_agg)
+    args = (hs3, hr, geo2, *ws, d_agg)
+    _cuda_args(hr, args)
+    _km_rows(hs3)
+    lib = KM_BWD.lib()
+    dims = (cfg.hs, cfg.hv, cfg.k)
+    smem = lib.fused_message_km_bwd_smem_bytes(*dims)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"widths need {smem} bytes of shared memory per block (max {_MAX_SMEM})")
+    n = hr.shape[0]
+    with torch.cuda.device(hr.device):
+        grid = lib.fused_message_km_bwd_grid(_DTYPE_CODE[hr.dtype], *dims, n)
+    if grid < 1:
+        raise RuntimeError(f"fused_message_km_bwd: no launch configuration (code {grid})")
+    nw = sum(a * b for a, b in cfg.weight_shapes())
+    d_hs = torch.empty_like(hs3)
+    d_hr = torch.empty_like(hr)
+    partials = torch.empty((grid, nw), dtype=torch.float32, device=hr.device)
+    stream = torch.cuda.current_stream(hr.device).cuda_stream
+    with torch.cuda.device(hr.device):
+        rc = lib.fused_message_km_bwd(_DTYPE_CODE[hr.dtype], *(x.data_ptr() for x in args),
+                                      d_hs.data_ptr(), d_hr.data_ptr(), partials.data_ptr(), n,
+                                      *dims, grid, stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_message_km_bwd launch failed with CUDA error {rc}")
+    KM_BWD.launches += 1
+    return d_hs, d_hr, partials
+
+
+def _split_partials(cfg: MessageConfig, dw):
+    """[NW] -> the six weight-gradient blocks (views)."""
+    dws, off = [], 0
+    for a, b in cfg.weight_shapes():
+        dws.append(dw[off:off + a * b].view(a, b))
+        off += a * b
+    return tuple(dws)
+
+
+def km_bwd_kernels(cfg: MessageConfig, hs3, hr, geo2, ws, d_agg):
+    """The kernel counterpart of ``km_bwd_plain``: the main kernel, then
+    the fixed-order reduction of its weight-gradient partials."""
+    d_hs, d_hr, partials = km_bwd_kernel(cfg, hs3, hr, geo2, ws, d_agg)
+    return d_hs, d_hr, _split_partials(cfg, tab_bwd_reduce(partials))
+
+
+def fused_message_aggregate_km_bwd(cfg: MessageConfig, hs3, hr, geo2, w0e1, w1o1, w0e2, w1o2,
+                                   d_agg):
+    """(d_hs, d_hr, d_w0e1, d_w1o1, d_w0e2, d_w1o2): the hand-written CUDA
+    kernels (#5 and the reduction) for CUDA tensors, the plain version for
+    CPU tensors.  Arguments as in ``fused_message_aggregate_km_bwd_plain``."""
+    if hr.device.type == "cpu":
+        return fused_message_aggregate_km_bwd_plain(cfg, hs3, hr, geo2, w0e1, w1o1, w0e2, w1o2,
+                                                    d_agg)
+    ws = split_weights(cfg, w0e1, w1o1, w0e2, w1o2)
+    d_hs, d_hr, dws = km_bwd_kernels(cfg, hs3, hr, geo2, ws, d_agg)
+    return (d_hs, d_hr, *_join_weight_grads(dws, w0e1.dtype))
+
+
+class FusedMessageKm(torch.autograd.Function):
+    """The untabled fused message with its hand-written backward: the
+    counterpart of the JAX ``custom_vjp`` of ``fused_message_aggregate_km``
+    (``_vjp_fwd_km``/``_vjp_bwd_km``).  Saves its inputs; the backward
+    recomputes both layers.  The geometry gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, cfg, hs3, hr, geo2, w0e1, w1o1, w0e2, w1o2):
+        ctx.cfg = cfg
+        ctx.save_for_backward(hs3, hr, geo2, w0e1, w1o1, w0e2, w1o2)
+        return fused_message_aggregate_km_fwd(cfg, hs3, hr, geo2, w0e1, w1o1, w0e2, w1o2)
+
+    @staticmethod
+    def backward(ctx, d_agg):
+        saved = ctx.saved_tensors
+        d_agg = d_agg.to(saved[1].dtype).contiguous()
+        d_hs, d_hr, *dws = fused_message_aggregate_km_bwd(ctx.cfg, *saved, d_agg)
+        return (None, d_hs, d_hr, None, *dws)
+
+
+def fused_message_aggregate_km(cfg: MessageConfig, hs3, hr, geo2, w0e1, w1o1, w0e2, w1o2):
+    """agg [N, F], differentiable in hs3, hr and the four weights.
+
+    Arguments as in the JAX ``fused_message_aggregate_km``: hs3 [K, N, F]
+    slot-major sender rows (``gather_km`` or ``take_dense_symmetric_km``),
+    hr [N, F], geo2 [N, K*6], the folded weights; N a multiple of cfg.tile.
+    CUDA tensors run the hand-written kernels (or raise), CPU tensors the
+    plain versions."""
+    return FusedMessageKm.apply(cfg, hs3, hr, geo2, w0e1, w1o1, w0e2, w1o2)

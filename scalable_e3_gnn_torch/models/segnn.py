@@ -31,8 +31,11 @@ Message dispatch (``SEGNNLayer``):
   #12 or #13), the gather ``take_dense_symmetric_km`` on a symmetrized graph
   (its gradient a reverse-slot gather) and ``h[senders.T]`` otherwise;
 - ``use_pallas=True`` with lmax=1 hidden irreps and no tables, or with
-  ``edge_chunks > 1`` (chunks carry no tables): the untabled lmax=1 kernels,
-  not ported yet: ``NotImplementedError``;
+  ``edge_chunks > 1`` (chunks carry no tables): the untabled lmax=1 kernel
+  (``_fused_messages_km``, ``kernels.fused_message.
+  fused_message_aggregate_km``: #3 forward, #5 backward) on the slot-major
+  senders, gathered by ``take_dense_symmetric_km`` on a whole symmetrized
+  graph (its gradient a reverse-slot gather) and by ``gather_km`` otherwise;
 - ``use_pallas=False``: the plain PyTorch message path.
 
 Rematerialisation, as in the JAX package: ``remat`` checkpoints the plain
@@ -59,7 +62,8 @@ from torch.utils.checkpoint import checkpoint
 from ..core.irreps import Irreps
 from ..core.spherical import spherical_harmonics
 from ..graph.container import DenseEdgeGraph
-from ..kernels.fused_message import MessageConfig, fused_message_aggregate_tabled
+from ..kernels.fused_message import (MessageConfig, fused_message_aggregate_km,
+                                     fused_message_aggregate_tabled)
 from ..kernels.fused_message_generic import FusedMessageGeneric
 from ..ops.gate import Gate
 from ..ops.gather_scatter import gather_km, take_dense_symmetric_km
@@ -232,6 +236,38 @@ class SEGNNLayer(nn.Module):
         return agg[:n]
 
     @staticmethod
+    def _pick_km_tile(n: int) -> int:
+        """The untabled lmax=1 dispatch's tile: the largest multiple of 16 in
+        [16, 256] that divides n, else 64 (as the JAX ``_fused_messages_km``
+        picks it)."""
+        for t in range(256, 15, -16):
+            if n % t == 0:
+                return t
+        return 64
+
+    def _fused_messages_km(self, h_local, h_ext, senders, edge_attr, edge_dist2, edge_mask,
+                           reverse_slot=None, edge_geo=None):
+        """Untabled lmax=1 dispatch (the JAX ``_fused_messages_km``): the
+        senders gathered slot-major [K, N, F] (``take_dense_symmetric_km`` on
+        a whole symmetrized graph, else ``gather_km``), the geometry as the
+        node-major [N, K*6] stream, the node axis zero-padded to the tile;
+        the result cut back to N.  Differentiable in h and the weights."""
+        n, k = senders.shape
+        tile = self._pick_km_tile(n)
+        npad = -(-n // tile) * tile
+        cfg = MessageConfig(hs=self._pallas_hs, hv=self._pallas_hv, k=k, tile=tile)
+        dt = h_local.dtype
+        if reverse_slot is not None and h_ext is h_local:
+            hs3 = take_dense_symmetric_km(h_ext, senders, reverse_slot)
+        else:
+            hs3 = gather_km(h_ext, senders)
+        geo2 = self._geo2(edge_geo, edge_attr, edge_dist2, edge_mask, dt)
+        hs3, geo2, h_p = self._pad_nodes(hs3, geo2, h_local, npad)
+        agg = fused_message_aggregate_km(cfg, hs3.contiguous(), h_p.contiguous(),
+                                         geo2.contiguous(), *self._folded_weights(dt))
+        return agg[:n]
+
+    @staticmethod
     def _pick_generic_tile(n: int) -> int:
         """The generic dispatch's tile: the largest multiple of 8 in [48, 224]
         that divides n, else 64 (as the JAX package picks it)."""
@@ -259,6 +295,17 @@ class SEGNNLayer(nn.Module):
         return (self.use_pallas_generic and self.remat_kernel and rs_available and n % self._pick_generic_tile(n) == 0)
 
     @staticmethod
+    def _pad_nodes(hs, geo2, h, npad):
+        """Slot-major senders hs [K, n, F], geometry geo2 [n, G] and receivers
+        h [n, F] zero-padded to npad nodes (mask 0 on the padded slots)."""
+        k, n, f = hs.shape
+        if npad == n:
+            return hs, geo2, h
+        return (torch.cat([hs, hs.new_zeros((k, npad - n, f))], dim=1),
+                torch.cat([geo2, geo2.new_zeros((npad - n, geo2.shape[-1]))]),
+                torch.cat([h, h.new_zeros((npad - n, f))]))
+
+    @staticmethod
     def _geo2(edge_geo, edge_attr, edge_dist2, edge_mask, dt):
         """Node-major packed geometry [N, K*(A+2)] (attr || d2 || mask per
         slot): the precomputed ``edge_geo`` when given, else built here."""
@@ -277,7 +324,6 @@ class SEGNNLayer(nn.Module):
         node axis padded to the tile (64 when no multiple of 8 in [48, 224]
         divides n)."""
         n, k = senders.shape
-        f = h_local.shape[-1]
         tile = self._pick_generic_tile(n)
         npad = -(-n // tile) * tile
         key = (k, tile, self.residual_bwd and not self.remat_kernel)
@@ -297,11 +343,7 @@ class SEGNNLayer(nn.Module):
             hs = take_dense_symmetric_km(h_ext, senders, reverse_slot)
         else:
             hs = gather_km(h_ext, senders)
-        h_p = h_local
-        if npad != n:
-            hs = torch.cat([hs, hs.new_zeros((k, npad - n, f))], dim=1)
-            geo2 = torch.cat([geo2, geo2.new_zeros((npad - n, geo2.shape[-1]))])
-            h_p = torch.cat([h_local, h_local.new_zeros((npad - n, f))])
+        hs, geo2, h_p = self._pad_nodes(hs, geo2, h_local, npad)
         return kern.geo_call(hs, h_p, geo2)[:n]
 
     def _plain_messages(self, h_ext, h_local, senders, edge_attr, edge_dist2, edge_mask):
@@ -371,15 +413,11 @@ class SEGNNLayer(nn.Module):
             a_dim = g3.shape[-1] - 2
             edge_attr, edge_dist2, edge_mask = g3[..., :a_dim], g3[..., a_dim], g3[..., a_dim + 1] > 0
         if self.use_pallas:
-            if graph is None or graph.gather_loc is None or h_ext is not h_local:
-                raise NotImplementedError(
-                    "the untabled lmax=1 fused message kernels (TPU kernels #3-#5, "
-                    "fused_message.py::_fwd_call_km2, _fwd_call_km and _vjp_bwd_km) are "
-                    "ported in a later slice; they run on graphs without gather tables and "
-                    "on every node block under edge_chunks > 1 (blocks carry no tables): "
-                    "build the graph's gather tables (with_gather_tables) with "
-                    "edge_chunks=1, or use use_pallas=False")
-            return self._fused_messages_tabled(h_local, edge_attr, edge_dist2, edge_mask, graph)
+            if graph is not None and graph.gather_loc is not None and h_ext is h_local:
+                return self._fused_messages_tabled(h_local, edge_attr, edge_dist2, edge_mask,
+                                                   graph)
+            return self._fused_messages_km(h_local, h_ext, senders, edge_attr, edge_dist2,
+                                           edge_mask, reverse_slot, edge_geo)
         return self._plain_messages(h_ext, h_local, senders, edge_attr, edge_dist2, edge_mask)
 
     def _update_u(self, h, agg, node_attr):

@@ -11,7 +11,10 @@ through them against the plain path; the untabled kernels (#11 with its
 save mode, #12 residual, #13 replay) against their plain versions, #12
 against #13, their determinism, and lmax=2 SEGNN gradients through them
 (no tables, the sym-regather entry, and edge_chunks with remat_layers)
-against the plain path.
+against the plain path; the untabled lmax=1 kernels (#3 forward, #5
+backward with the reduction) against their plain versions at three widths,
+#5's determinism, and config-3-width SEGNN gradients through them
+(symmetrized, unsymmetrized, node blocks) against the plain path.
 
 These tests need a CUDA card and skip without one.  They import no JAX, so
 they run on a machine without it (``--noconftest`` skips the JAX-only
@@ -537,6 +540,143 @@ def test_untabled_segnn_gradients_kernel_match_plain_path(dev, mode):
     ((m_p(g) - target) ** 2).mean().backward()
     moved = [kern.launches - b for kern, b in zip(kerns + tabled, before)]
     assert all(x > 0 for x in moved[:2]) and moved[2:] == [0, 0, 0], moved
+    for (name, a), b in zip(m_k.named_parameters(), m_p.parameters(), strict=True):
+        err = float((a.grad - b.grad).abs().max())
+        assert err <= 1e-4 * float(b.grad.abs().max()), (name, err)
+
+
+# the untabled lmax=1 kernels (#3 forward, #5 backward): (hidden, K, points,
+# node blocks); the last is config 3's width, its 1000-node blocks pad to 1024
+KM_WIDTHS = [("16x0e+8x1o", 8, 256, 1), ("8x0e+12x1o", 13, 960, 1),
+             ("32x0e+16x1o", 24, 2000, 2)]
+
+
+def _km_problem(dev, hidden, k, n, chunks, dtype, seed=0):
+    """#3/#5's arguments as the model hands them over for its first node
+    block: hs3 = h[senders.T] [K, Npad, F], the receivers' rows and the
+    geometry (with extra masked slots and a masked tail of 37 receivers),
+    zero-padded to the km tile; the folded weights of a model's layer; a
+    random cotangent."""
+    g, _ = _graph(dev, n, k, 0.25, 32, seed=seed)
+    model = SEGNN("2x0e+1x1o", hidden, "1x1o", num_layers=1, layout="cm", use_pallas=True,
+                  device=dev, generator=torch.Generator().manual_seed(seed))
+    c = n // chunks
+    tile = SEGNNLayer._pick_km_tile(c)
+    npad = -(-c // tile) * tile
+    geo = model.compute_attributes_dense(g)[3][:c].reshape(c, k, 6).clone()
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    geo[..., 5] *= (torch.rand((c, k), generator=gen, device=dev) > 0.1).float()
+    geo[c - 37:, :, 5] = 0.0
+    f = model.hidden_irreps.dim
+    h = torch.randn((n, f), generator=gen, device=dev)
+    hs3 = h[torch.clamp(g.senders[:c].t(), max=n - 1).long()]
+    pad = npad - c
+    hs3 = torch.cat([hs3, hs3.new_zeros((k, pad, f))], dim=1)
+    hr = torch.cat([h[:c], h.new_zeros((pad, f))])
+    geo2 = torch.cat([geo.reshape(c, k * 6), geo.new_zeros((pad, k * 6))])
+    layer = model.layers[0]
+    cfg = fm.MessageConfig(hs=layer._pallas_hs, hv=layer._pallas_hv, k=k, tile=tile)
+    d_agg = torch.randn((npad, f), generator=gen, device=dev).to(dtype)
+    args = [x.to(dtype).contiguous() for x in (hs3, hr, geo2)]
+    return cfg, args, layer._folded_weights(dtype), d_agg
+
+
+@pytest.mark.parametrize("hidden,k,n,chunks", KM_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_km_fwd_kernel_matches_plain(dev, hidden, k, n, chunks, dtype):
+    """#3 against its plain version (the same km2 rounding points): fp32 1e-4
+    * max(1, |ref|); bf16 within 4 ulps of max(|ref|, mean|ref|), at most 1%
+    of the elements over 1 ulp (fp32 sums in another order flip a rounding
+    now and then); receivers without a valid slot give exact zeros."""
+    cfg, args, ws, _ = _km_problem(dev, hidden, k, n, chunks, dtype)
+    before = fm.KM_FWD.launches
+    with torch.no_grad():
+        got = fm.fused_message_aggregate_km_fwd(cfg, *args, *ws)
+        ref = fm.fused_message_aggregate_km_plain(cfg, *args, *ws)
+    torch.cuda.synchronize()
+    assert fm.KM_FWD.launches == before + 1
+    assert got.shape == ref.shape and got.dtype == dtype
+    _check_generic(got, ref, dtype)
+    c = n // chunks
+    assert (got[c - 37:] == 0).all()
+
+
+@pytest.mark.parametrize("hidden,k,n,chunks", KM_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_km_bwd_kernels_match_plain(dev, hidden, k, n, chunks, dtype):
+    """#5 and the reduction against the plain backward, as
+    test_untabled_bwd_kernels_match_plain (d_hs [K, N, F] in the place of
+    d_hu); d_hs is zero on masked slots; no tabled kernel runs."""
+    cfg, args, ws, d_agg = _km_problem(dev, hidden, k, n, chunks, dtype)
+    ws6 = fm.split_weights(cfg, *ws)
+    kerns = (fm.KM_BWD, fm.TAB_BWD_REDUCE, fm.TAB_BWD)
+    before = [kern.launches for kern in kerns]
+    with torch.no_grad():
+        got = fm.km_bwd_kernels(cfg, *args, ws6, d_agg)
+        torch.cuda.synchronize()
+        assert [kern.launches - b for kern, b in zip(kerns, before)] == [1, 1, 0]
+        ref = fm.km_bwd_plain(cfg, *args, ws6, d_agg)
+    assert got[0].shape == (k,) + tuple(args[1].shape)
+    _check_bwd(got, ref, dtype)
+    dead = args[2].reshape(-1, k, 6)[..., 5].t() == 0
+    assert (got[0][dead] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_km_bwd_is_deterministic(dev, dtype):
+    """Two runs of #5 + the reduction are bitwise equal (no float atomics)."""
+    cfg, args, ws, d_agg = _km_problem(dev, *KM_WIDTHS[2], dtype)
+    one = fm.fused_message_aggregate_km_bwd(cfg, *args, *ws, d_agg)
+    two = fm.fused_message_aggregate_km_bwd(cfg, *args, *ws, d_agg)
+    for x, y in zip(one, two, strict=True):
+        assert torch.equal(x, y)
+
+
+def test_km_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    cfg, args, ws, d_agg = _km_problem(dev, *KM_WIDTHS[0], torch.float32)
+    with pytest.raises(TypeError):
+        fm.fused_message_aggregate_km_fwd(cfg, *(x.half() for x in args), *(w.half() for w in ws))
+    with pytest.raises(ValueError, match="contiguous"):
+        fm.fused_message_aggregate_km_fwd(cfg, args[0].transpose(1, 2).contiguous().transpose(1, 2),
+                                          *args[1:], *ws)
+    with pytest.raises(ValueError, match="must be on"):
+        fm.fused_message_aggregate_km_bwd(cfg, *args[:2], args[2].cpu(), *ws, d_agg)
+
+
+KM_MODES = {  # model settings, symmetrized graph
+    "symmetrized": (dict(), True),
+    "unsymmetrized": (dict(remat=True), False),
+    "edge_chunks": (dict(remat=True, edge_chunks=2), True),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(KM_MODES))
+def test_km_segnn_gradients_kernel_match_plain_path(dev, mode):
+    """fp32 MSE gradients of every parameter of a 2-layer config-3-width
+    SEGNN on a graph without tables, through #3 and #5 (senders by
+    take_dense_symmetric_km, by gather_km, and in node blocks of 1000 padded
+    to 1024), against autograd of the plain path: 1e-4 * max|ref| per
+    parameter; none of the tabled kernels runs."""
+    n = 2000
+    kw, sym = KM_MODES[mode]
+    g, _ = _graph(dev, n, 24, 0.12, 160)
+    if not sym:
+        g = g._replace(reverse_slot=None)
+    m_k = SEGNN("2x0e+1x1o", "32x0e+16x1o", "1x1o", num_layers=2, layout="cm",
+                use_pallas=True, device=dev, generator=torch.Generator().manual_seed(11), **kw)
+    m_p = SEGNN("2x0e+1x1o", "32x0e+16x1o", "1x1o", num_layers=2, layout="cm",
+                use_pallas=False, device=dev)
+    m_p.load_state_dict(m_k.state_dict())
+    target = torch.randn((n, 3), generator=torch.Generator(device=dev).manual_seed(12),
+                         device=dev)
+    kerns = (fm.KM_FWD, fm.KM_BWD, fm.TAB_FWD, fm.TAB_BWD)
+    before = [kern.launches for kern in kerns]
+    ((m_k(g) - target) ** 2).mean().backward()
+    ((m_p(g) - target) ** 2).mean().backward()
+    moved = [kern.launches - b for kern, b in zip(kerns, before)]
+    blocks = kw.get("edge_chunks", 1)
+    # each block checkpointed under remat recomputes its forward: 2 x #3
+    assert moved == [(2 if blocks > 1 else 1) * 2 * blocks, 2 * blocks, 0, 0], moved
     for (name, a), b in zip(m_k.named_parameters(), m_p.parameters(), strict=True):
         err = float((a.grad - b.grad).abs().max())
         assert err <= 1e-4 * float(b.grad.abs().max()), (name, err)

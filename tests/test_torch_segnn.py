@@ -1,10 +1,13 @@
 """PyTorch port, SEGNN: the full forward, and the MSE loss's gradients, on a
-symmetrized graph with gather tables against the JAX package (Pallas kernel
-and its custom VJP in interpret mode, and its plain jnp path), with the JAX
+symmetrized graph with gather tables and, through the untabled lmax=1
+kernel, on graphs without them (symmetrized, unsymmetrized, and in padded
+node blocks under edge_chunks) against the JAX package (Pallas kernels and
+their custom VJPs in interpret mode, and its plain jnp path), with the JAX
 weights carried over and the gradients compared key by key through
 params_to_jax.  fp32 atol 2e-5: the same math, the GEMMs sum in another order.
 Also the dispatch rules of the port."""
 
+import contextlib
 import functools
 
 import numpy as np
@@ -33,28 +36,31 @@ IRREPS = ("2x0e+1x1o", "16x0e+8x1o", "1x1o")
 
 
 @functools.lru_cache(maxsize=None)
-def _graph(n, seed=0, k=8, tile=32):
-    """JAX graph (symmetrized, tabled) and the port's graph of the same arrays."""
+def _graph(n, seed=0, k=8, tile=32, symmetrize=True):
+    """JAX graph (symmetrized and tabled unless told otherwise) and the port's
+    graph of the same arrays."""
     rng = np.random.default_rng(seed)
     pts = rng.standard_normal((n, 3)).astype(np.float32)
     tree = jax.jit(lambda p: build_octree(p, LO, HI, num_levels=4))(jnp.asarray(pts))
     e = jax.jit(lambda p: radius_graph_brute(p, 0.7, max_neighbors=k))(tree.points)
     feats = jnp.asarray(rng.standard_normal((n, 5)), jnp.float32)
-    jg = JGraph.from_radius_edges(feats, tree.points, e, symmetrize=True)
-    jgt = jg.with_gather_tables(tile=tile)
+    jg = JGraph.from_radius_edges(feats, tree.points, e, symmetrize=symmetrize)
     t = lambda a: torch.from_numpy(np.array(a))
     tg = TGraph(nodes=t(jg.nodes), positions=t(jg.positions), senders=t(jg.senders),
                 edge_mask=t(jg.edge_mask), node_mask=t(jg.node_mask),
-                node_graph=t(jg.node_graph), n_graphs=1, reverse_slot=t(jg.reverse_slot))
-    return jg, jgt, tg, tg.with_gather_tables(tile=tile)
+                node_graph=t(jg.node_graph), n_graphs=1,
+                reverse_slot=None if jg.reverse_slot is None else t(jg.reverse_slot))
+    if not symmetrize:
+        return jg, None, tg, None
+    return jg, jg.with_gather_tables(tile=tile), tg, tg.with_gather_tables(tile=tile)
 
 
-def _models(use_pallas, seed, num_layers=2, task="node"):
+def _models(use_pallas, seed, num_layers=2, task="node", **kw):
     jm = JSEGNN(*map(JIrreps, IRREPS), num_layers=num_layers, layout="cm",
-                use_pallas=use_pallas, task=task)
+                use_pallas=use_pallas, task=task, **kw)
     params = jm.init(jax.random.key(seed))
     tm = TSEGNN(*IRREPS, num_layers=num_layers, layout="cm", use_pallas=use_pallas,
-                task=task, device="cpu")
+                task=task, device="cpu", **kw)
     params_from_jax(tm, jax.tree.map(np.asarray, params))
     return jm, params, tm
 
@@ -107,19 +113,81 @@ def test_kernel_path_equals_plain_path_in_the_port():
         torch.testing.assert_close(tm_k(tgt), tm_p(tg), rtol=0, atol=2e-5)
 
 
-def test_use_pallas_without_tables_raises():
-    jg, jgt, tg, tgt = _graph(128)
-    _, _, tm = _models(True, seed=8)
-    with pytest.raises(NotImplementedError, match="later slice"):
+# graphs without gather tables: the untabled lmax=1 kernel (#3/#5).  n=128
+# takes tile 128 unpadded; n=200 pads to 256 (tile 64); edge_chunks=2 at n=200
+# gives 100-node blocks, each padded to 128 and checkpointed under remat
+UNTABLED_CASES = {
+    "symmetrized": (128, True, {}),
+    "unsymmetrized": (200, False, {}),
+    "edge_chunks": (200, True, dict(edge_chunks=2, remat=True)),
+}
+
+
+@pytest.mark.parametrize("jax_pallas", [True, False])
+@pytest.mark.parametrize("case", sorted(UNTABLED_CASES))
+def test_segnn_untabled_matches_jax(case, jax_pallas):
+    """The port's untabled lmax=1 kernel path (the autograd Function, plain
+    versions on the CPU; take_dense_symmetric_km or gather_km for the
+    senders) against JAX's Pallas km kernels (interpret mode) and its jnp
+    path: the forward at atol 2e-5, the MSE loss at rtol 1e-5, and every
+    parameter's gradient as in test_segnn_gradients_match_jax.  Under
+    edge_chunks the JAX kernel model runs its blocks without remat (Pallas in
+    interpret mode cannot run under jax.checkpoint); remat changes no result."""
+    n, sym, kw = UNTABLED_CASES[case]
+    jg, _, tg, _ = _graph(n, seed=n + 30, symmetrize=sym)
+    assert (tg.reverse_slot is not None) == sym and tg.gather_loc is None
+    jkw = {k: v for k, v in kw.items() if not (jax_pallas and k == "remat")}
+    jm, params, tm = _models(jax_pallas, seed=n + 31, **jkw)
+    tm_k = TSEGNN(*IRREPS, num_layers=2, layout="cm", use_pallas=True, device="cpu", **kw)
+    tm_k.load_state_dict(tm.state_dict())
+    assert tm_k.layers[0].use_pallas and not tm_k.layers[0].use_pallas_generic
+    target = np.random.default_rng(n + 32).standard_normal((n, 3)).astype(np.float32)
+    loss = lambda p: j_mse(jm(p, jg), jnp.asarray(target))
+    ctx = pltpu.force_tpu_interpret_mode() if jax_pallas else contextlib.nullcontext()
+    with ctx:
+        ref_out = np.asarray(jax.jit(jm.__call__)(params, jg))
+        ref_loss, ref = jax.jit(jax.value_and_grad(loss))(params)
+    out = tm_k(tg)
+    np.testing.assert_allclose(out.detach().numpy(), ref_out, atol=2e-5)
+    before = [tfm.KM_FWD.launches, tfm.KM_BWD.launches, tfm.TAB_FWD.launches]
+    val = t_mse(out, torch.from_numpy(target))
+    val.backward()
+    assert [tfm.KM_FWD.launches, tfm.KM_BWD.launches, tfm.TAB_FWD.launches] == before
+    assert abs(val.item() - float(ref_loss)) <= 1e-5 * float(ref_loss)
+    got = params_to_jax(tm_k, grad=True)
+    _assert_trees_close(got, jax.tree.map(np.asarray, ref))
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(ref), strict=True):
+        b = np.asarray(b)
+        assert np.abs(b).max() > 0
+        np.testing.assert_allclose(a, b, atol=1e-4 * np.abs(b).max())
+
+
+def test_untabled_dispatch_pads_to_the_km_tile(monkeypatch):
+    """The km dispatch's tile (the largest multiple of 16 in [16, 256]
+    dividing n, else 64) and its zero padding: the kernel sees [K, Npad, F]
+    senders, an [Npad, K*6] geometry whose padded rows are zero (mask 0)."""
+    from scalable_e3_gnn_torch.models import segnn as segnn_mod
+
+    assert [segnn_mod.SEGNNLayer._pick_km_tile(n) for n in (128, 200, 100_000, 125_000)] == [
+        128, 64, 160, 64]
+    jg, _, tg, _ = _graph(200, seed=230, symmetrize=False)
+    _, _, tm = _models(True, seed=231, num_layers=1)
+    calls = []
+    real = segnn_mod.fused_message_aggregate_km
+    monkeypatch.setattr(segnn_mod, "fused_message_aggregate_km",
+                        lambda *a: calls.append(a) or real(*a))
+    with torch.no_grad():
         tm(tg)
+    ((cfg, hs3, hr, geo2, *_),) = calls
+    assert cfg.tile == 64 and hs3.shape == (8, 256, 40) and hr.shape == (256, 40)
+    assert geo2.shape == (256, 48) and not geo2[200:].any() and not hs3[:, 200:].any()
 
 
 def test_unported_tensor_product_raises():
     """The generic tensor product and its untabled kernels are ported: an
     lmax=2 model builds and runs without tables.  What is not ported raises:
     a message layer off the folded-GEMM path (its JAX backward is the
-    fallback kernel #14), and the untabled lmax=1 kernels (#3-#5), which
-    edge_chunks > 1 reaches even on a graph with tables."""
+    fallback kernel #14)."""
     tm = TSEGNN("2x0e+1x1o", "8x0e+4x1o+2x2e", "1x1o", num_layers=1, lmax_attr=2,
                 use_pallas=True, device="cpu")
     assert tm.layers[0].use_pallas_generic
@@ -131,13 +199,6 @@ def test_unported_tensor_product_raises():
     with pytest.raises(NotImplementedError, match="#14"):
         with torch.no_grad():
             tm(tg)
-    _, _, tm1 = _models(True, seed=8)
-    tm1c = TSEGNN(*IRREPS, num_layers=2, layout="cm", use_pallas=True, edge_chunks=2,
-                  device="cpu")
-    tm1c.load_state_dict(tm1.state_dict())
-    with pytest.raises(NotImplementedError, match="#3-#5.*edge_chunks > 1"):
-        with torch.no_grad():
-            tm1c(tgt)
 
 
 def test_entry_points_without_device_need_a_gpu(monkeypatch):

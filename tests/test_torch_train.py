@@ -122,6 +122,52 @@ def test_train_loop_matches_jax():
         np.testing.assert_allclose(a, np.asarray(b), atol=1e-6)
 
 
+@pytest.mark.parametrize("symmetrize", [True, False])
+def test_train_loop_untabled_matches_jax(symmetrize):
+    """Three steps as test_train_loop_matches_jax on a graph without gather
+    tables (n=200: the node axis pads to the km tile 64): the port's untabled
+    lmax=1 kernel path (take_dense_symmetric_km or gather_km, the km autograd
+    Function) against JAX's Pallas km kernels in interpret mode; the same
+    tolerances."""
+    n = 200
+    rng = np.random.default_rng(40)
+    pts = rng.standard_normal((n, 3)).astype(np.float32)
+    tree = jax.jit(lambda p: build_octree(p, LO, HI, num_levels=4))(jnp.asarray(pts))
+    e = jax.jit(lambda p: radius_graph_brute(p, 0.7, max_neighbors=8))(tree.points)
+    feats = jnp.asarray(rng.standard_normal((n, 5)), jnp.float32)
+    jg = JGraph.from_radius_edges(feats, tree.points, e, symmetrize=symmetrize)
+    t = lambda a: None if a is None else torch.from_numpy(np.array(a))
+    tg = TGraph(nodes=t(jg.nodes), positions=t(jg.positions), senders=t(jg.senders),
+                edge_mask=t(jg.edge_mask), node_mask=t(jg.node_mask),
+                node_graph=t(jg.node_graph), n_graphs=1, reverse_slot=t(jg.reverse_slot))
+    target = rng.standard_normal((n, 3)).astype(np.float32)
+    jm = JSEGNN(*map(JIrreps, IRREPS), num_layers=2, layout="cm", use_pallas=True)
+    params = jm.init(jax.random.key(41))
+    opt = optax.adam(1e-3)
+    jstep = jpipe.make_train_step(lambda p, g, y: jpipe.mse_loss(jm(p, g), y), opt,
+                                  donate=False)
+    state = jpipe.make_train_state(params, opt)
+    want = []
+    with pltpu.force_tpu_interpret_mode():
+        for _ in range(3):
+            state, m = jstep(state, jg, jnp.asarray(target))
+            want.append((float(m["loss"]), float(m["grad_norm"])))
+
+    tm = TSEGNN(*IRREPS, num_layers=2, layout="cm", use_pallas=True, device="cpu")
+    params_from_jax(tm, jax.tree.map(np.asarray, params))
+    topt = torch.optim.Adam(tm.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
+    tstep = tpipe.make_train_step(tm, lambda m, g, y: tpipe.mse_loss(m(g), y), topt)
+    got = []
+    for _ in range(3):
+        m = tstep(tg, torch.from_numpy(target))
+        got.append((m["loss"].item(), m["grad_norm"].item()))
+    np.testing.assert_allclose(np.array(got), np.array(want), rtol=1e-4)
+    assert want[2][0] < want[0][0]
+    final = params_to_jax(tm)
+    for a, b in zip(jax.tree.leaves(final), jax.tree.leaves(state.params), strict=True):
+        np.testing.assert_allclose(a, np.asarray(b), atol=1e-6)
+
+
 def test_bf16_compute_with_fp32_masters():
     """The loss of the config-3 train step in ``chip_smoke.py``: the forward
     runs on bf16 copies of fp32 parameters (``torch.func.functional_call``),
