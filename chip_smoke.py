@@ -117,6 +117,19 @@ Phases, each printing one JSON line:
 33. grad_check_km, km_times -- fp32 gradients through #3/#5 against the
                  plain path at 20k points, symmetrized and with edge_chunks=4;
                  the kernels' times, bounds and the untabled step times.
+34. kernel_flat -- the packed lmax=1 kernels #6 and #7 (with the reduction)
+                 against their plain versions at the 100k shapes (tile 160)
+                 at pack 2 and 4, fp32 and bf16, and at 99,990 receivers
+                 padded to the km tile; reruns bit-identical.
+35. forward_pack -- the config-3 forward at pack 2 on the 100k graph without
+                 its tables (take_dense_symmetric): exactly 4 launches of #6.
+36. train_pack_100k -- 5 counted steps at each of pack 2, 3, 4
+                 (tools/exp_pack.py's A/B): 4 of #6 and 4 of #7 per step,
+                 none of #1/#2/#3/#5; step times beside the pack-1 step.
+37. grad_check_pack, pack_times -- fp32 gradients through #6/#7 at 20k
+                 points against the plain path and against pack 1 (#3/#5),
+                 symmetrized and with edge_chunks=4; the kernels' times,
+                 bounds and the step times.
 
 Then the ``kernels`` line, the card line and, last, the result line.  Any
 failed check raises: the script exits non-zero and prints no result.  It
@@ -227,6 +240,9 @@ TOL_REDUCE = 1e-5  # x max|ref|: fp32 sums over the blocks in another order
 TOL_FORWARD_FP32 = 1e-4  # x max(1, |ref|): kernel vs plain path, both fp32, 4 layers
 TOL_FORWARD_BF16 = 5e-2  # x max|ref|: bf16 storage through 4 layers vs fp32 plain path
 TOL_GRAD_FP32 = 1e-4  # x max|ref| per parameter: fp32 sums in another order, 4 layers
+# x max(1, |ref|) elementwise: the packed model against itself at pack 1 (#3/#5), both
+# fp32 (the JAX package's pack test holds them within 2e-6)
+TOL_PACK_VS_KM = 1e-5
 TOL_RADIUS_AGREE = 0.9999  # share of identical (receiver, sender) pairs; d^2 rounding at r
 
 TPU_FILE = "scalable_e3_gnn_tpu/kernels/fused_message.py"
@@ -1420,36 +1436,61 @@ KM_OUTPUTS = (("d_hs", True), ("d_hr", True), ("dW0a", False), ("dW1Sa", False),
               ("dW1Va", False), ("dW0b", False), ("dW1Sb", False), ("dW1Vb", False))
 
 
-def km_check(label, cfg, args, ws, n_valid, d_agg, times: bool) -> dict:
-    """#3 and #5 (main kernel, then the reduction) against their plain
-    versions on one set of inputs, two runs of each bitwise equal; with
-    ``times``, CUDA-event times of each, of #5's main kernel alone and of the
-    plain versions, and the bounds.  Emits a ``kernel_km`` line."""
+# the untabled lmax=1 kernel forms: the kernels, and the names in
+# kernels/fused_message.py of the forward wrapper, its plain version, the
+# backward (main kernel and reduction), its main kernel and its plain version
+# (looked up at call time)
+LMAX1_FORMS = {
+    "km": ((fm.KM_FWD, fm.KM_BWD), ("fused_message_aggregate_km_fwd",
+            "fused_message_aggregate_km_plain", "km_bwd_kernels", "km_bwd_kernel",
+            "km_bwd_plain")),
+    "flat": ((fm.FLAT_FWD, fm.FLAT_BWD), ("fused_message_aggregate_fwd",
+              "fused_message_aggregate_plain", "flat_bwd_kernels", "flat_bwd_kernel",
+              "flat_bwd_plain")),
+}
+
+
+def km_check(label, cfg, args, ws, n_valid, d_agg, times: bool, form: str = "km") -> dict:
+    """The forward and backward kernels of an untabled lmax=1 ``form`` (#3
+    and #5, or #6 and #7; the backward's main kernel, then the reduction)
+    against their plain versions on one set of inputs, two runs of each
+    bitwise equal; with ``times``, CUDA-event times of each, of the
+    backward's main kernel alone and of the plain versions, and the bounds.
+    Emits a ``kernel_<form>`` line."""
+    kerns, names = LMAX1_FORMS[form]
+    fwd, fwd_plain, bwd, bwd_main, bwd_plain = (getattr(fm, nm) for nm in names)
     hr = args[1]
+    npad, k, f = hr.shape[0], cfg.k, cfg.f
     fp32 = hr.dtype == torch.float32
     ws6 = fm.split_weights(cfg, *ws)
     flat = lambda r: [r[0], r[1], *r[2]]
     with torch.no_grad():
-        agg = fm.fused_message_aggregate_km_fwd(cfg, *args, *ws)
-        agg2 = fm.fused_message_aggregate_km_fwd(cfg, *args, *ws)
-        got = flat(fm.km_bwd_kernels(cfg, *args, ws6, d_agg))
-        again = flat(fm.km_bwd_kernels(cfg, *args, ws6, d_agg))
+        agg = fwd(cfg, *args, *ws)
+        agg2 = fwd(cfg, *args, *ws)
+        got = flat(bwd(cfg, *args, ws6, d_agg))
+        again = flat(bwd(cfg, *args, ws6, d_agg))
         torch.cuda.synchronize()
         identical = torch.equal(agg, agg2) and all(torch.equal(x, y) for x, y in zip(got, again))
         del agg2, again
-        cmp = {"agg": bwd_compare(agg, fm.fused_message_aggregate_km_plain(cfg, *args, *ws), True,
-                                  fp32, TOL_GENERIC_BF16_ULPS)}
-        ref = flat(fm.km_bwd_plain(cfg, *args, ws6, d_agg))
+        cmp = {"agg": bwd_compare(agg, fwd_plain(cfg, *args, *ws), True, fp32,
+                                  TOL_GENERIC_BF16_ULPS)}
+        ref = flat(bwd_plain(cfg, *args, ws6, d_agg))
         for (nm, el), x, y in zip(KM_OUTPUTS, got, ref, strict=True):
             cmp[nm] = bwd_compare(x, y, el, fp32)
         del ref
+        # slot validity [Npad, K] and d_hs node-major [Npad, K, F]
+        if form == "km":
+            mask = args[2].reshape(npad, k, 6)[..., 5]
+            d_hs = got[0].transpose(0, 1)
+        else:
+            mask = args[4].reshape(npad, k)
+            d_hs = got[0].reshape(npad, k, f)
         # the padded receivers and the masked tail carry no valid slot: exact zeros
-        c_live = args[2].reshape(args[2].shape[0], cfg.k, 6)[..., 5].sum(dim=1) > 0
-        zero_rows = bool((agg[~c_live] == 0).all())
-        dead = args[2].reshape(-1, cfg.k, 6)[..., 5].t() == 0
-        zero_dhs = bool((got[0][dead] == 0).all())
-    out = dict(label=label, dtype=str(hr.dtype).replace("torch.", ""), rows=hr.shape[0],
-               k=cfg.k, tile=cfg.tile, valid_slots=n_valid, compared=cmp,
+        zero_rows = bool((agg[mask.sum(dim=1) == 0] == 0).all())
+        zero_dhs = bool((d_hs[mask == 0] == 0).all())
+        del d_hs
+    out = dict(label=label, dtype=str(hr.dtype).replace("torch.", ""), rows=npad, k=k,
+               tile=cfg.tile, pack=cfg.pack, valid_slots=n_valid, compared=cmp,
                bit_identical_reruns=identical, zero_rows_without_valid_slots=zero_rows,
                zero_d_hs_on_masked_slots=zero_dhs,
                max_abs_err=dict(fwd=cmp["agg"]["max_abs_err"],
@@ -1457,15 +1498,12 @@ def km_check(label, cfg, args, ws, n_valid, d_agg, times: bool) -> dict:
     if times:
         with torch.no_grad():
             t = dict(
-                fwd_ms=event_ms(lambda: fm.fused_message_aggregate_km_fwd(cfg, *args, *ws),
-                                iters=10),
-                fwd_plain_ms=event_ms(lambda: fm.fused_message_aggregate_km_plain(cfg, *args, *ws),
-                                      iters=2, warmup=1),
-                bwd_ms=event_ms(lambda: fm.km_bwd_kernels(cfg, *args, ws6, d_agg), iters=5,
-                                warmup=1),
-                bwd_main_ms=event_ms(lambda: fm.km_bwd_kernel(cfg, *args, ws6, d_agg), iters=5,
+                fwd_ms=event_ms(lambda: fwd(cfg, *args, *ws), iters=10),
+                fwd_plain_ms=event_ms(lambda: fwd_plain(cfg, *args, *ws), iters=2, warmup=1),
+                bwd_ms=event_ms(lambda: bwd(cfg, *args, ws6, d_agg), iters=5, warmup=1),
+                bwd_main_ms=event_ms(lambda: bwd_main(cfg, *args, ws6, d_agg), iters=5,
                                      warmup=1),
-                bwd_plain_ms=event_ms(lambda: fm.km_bwd_plain(cfg, *args, ws6, d_agg), iters=2,
+                bwd_plain_ms=event_ms(lambda: bwd_plain(cfg, *args, ws6, d_agg), iters=2,
                                       warmup=1))
         # bounds: each input read once, each output written once; the
         # multiply-adds of the valid slots (1 pass forward, 3 backward: the
@@ -1479,7 +1517,7 @@ def km_check(label, cfg, args, ws, n_valid, d_agg, times: bool) -> dict:
         t["mbytes"] = dict(fwd=(io + nbytes(agg)) / 1e6,
                            bwd=(io + nbytes(d_agg, got[0], got[1]) + dws) / 1e6)
         out["times"] = t
-    emit("kernel_km", kernels=[fm.KM_FWD.name, fm.KM_BWD.name, fm.TAB_BWD_REDUCE.name], **out,
+    emit(f"kernel_{form}", kernels=[kerns[0].name, kerns[1].name, fm.TAB_BWD_REDUCE.name], **out,
          tolerance=(f"{TOL_BWD_FP32} * max(1, |ref|) elementwise for agg, d_hs, d_hr; "
                     f"{TOL_BWD_FP32} * max|ref| for the weight blocks (fp32 sums in another "
                     "order)") if fp32 else
@@ -1489,7 +1527,7 @@ def km_check(label, cfg, args, ws, n_valid, d_agg, times: bool) -> dict:
           "version round at the same points; fp32 sums in another order flip a rounding now "
           "and then); reruns bitwise"))
     bad = {nm: v for nm, v in cmp.items() if v["over"] or not v["finite"]}
-    check(not bad, f"{label}: km kernels vs plain in {hr.dtype}: {bad}")
+    check(not bad, f"{label}: {form} kernels vs plain in {hr.dtype}: {bad}")
     check(identical and zero_rows and zero_dhs,
           f"{label}: reruns {identical}, zero rows {zero_rows}, zero masked d_hs {zero_dhs}")
     return out
@@ -1527,33 +1565,49 @@ def example_graph(n: int, dev):
     return graph, target, info, build_ms
 
 
-def km_grad_check(dev, graph, **kw) -> dict:
-    """fp32 gradients of every parameter of config 3's model through #3/#5
-    against autograd through the plain message path on ``graph`` (no
-    tables); ``kw``: the model's ladder settings.  Returns the readings and
-    the launches of the kernel model's forward and backward."""
-    m_k = km_model(dev, **kw)
-    m_p = port.SEGNN("2x0e+1x1o", HIDDEN, "1x1o", num_layers=NUM_LAYERS, layout="cm",
-                     use_pallas=False, device=dev)
-    m_p.load_state_dict(m_k.state_dict())
+def km_grad_check(dev, graph, pack: int = 1, **kw) -> dict:
+    """fp32 gradients of every parameter of config 3's model through the
+    untabled lmax=1 kernels (#3/#5; at ``pack`` > 1 #6/#7) against autograd
+    through the plain message path on ``graph`` (no tables), and at pack > 1
+    also against the same model at pack 1 (#3/#5), elementwise; ``kw``: the
+    model's ladder settings.  Returns the readings and the launches of the
+    kernel model's forward and backward."""
+    models = {"kernel": km_model(dev, pack=pack, **kw),
+              "plain": port.SEGNN("2x0e+1x1o", HIDDEN, "1x1o", num_layers=NUM_LAYERS,
+                                  layout="cm", use_pallas=False, device=dev)}
+    if pack > 1:
+        models["pack1"] = km_model(dev, **kw)
+    for m in list(models.values())[1:]:
+        m.load_state_dict(models["kernel"].state_dict())
     with torch.no_grad():
-        attrs = m_k.compute_attributes_dense(graph)
+        attrs = models["kernel"].compute_attributes_dense(graph)
     n = graph.senders.shape[0]
     t_gc = torch.from_numpy(np.random.default_rng(SEED + 4).standard_normal(
         (n, 3)).astype(np.float32)).to(dev)
-    reset_launches()
-    loss_k = mse_loss(m_k(graph, attrs=attrs), t_gc)
-    loss_k.backward()
-    launches = launch_counts()
-    loss_p = mse_loss(m_p(graph, attrs=attrs), t_gc)
-    loss_p.backward()
-    worst, worst_name = 0.0, ""
-    for (nm, a), b in zip(m_k.named_parameters(), m_p.parameters(), strict=True):
+    out = {}
+    for name, m in models.items():
+        if name == "kernel":
+            reset_launches()
+        loss = mse_loss(m(graph, attrs=attrs), t_gc)
+        loss.backward()
+        out[f"loss_{name}"] = loss.item()
+        if name == "kernel":
+            out["launches"] = launch_counts()
+    params = [list(m.named_parameters()) for m in models.values()]
+    worst, worst_name, worst1, worst1_name = 0.0, "", 0.0, ""
+    for (nm, a), (_, b), *rest in zip(*params, strict=True):
         rel = float((a.grad - b.grad).abs().max()) / max(float(b.grad.abs().max()), 1e-30)
         if rel > worst:
             worst, worst_name = rel, nm
-    return dict(loss_kernel=loss_k.item(), loss_plain=loss_p.item(), worst_param=worst_name,
-                worst_rel_err=worst, launches=launches)
+        if rest:  # against pack 1: elementwise, TOL_PACK_VS_KM * max(1, |ref|)
+            c = rest[0][1].grad
+            err1 = float(((a.grad - c).abs() / c.abs().clamp(min=1.0)).max())
+            if err1 > worst1:
+                worst1, worst1_name = err1, nm
+    out.update(worst_param=worst_name, worst_rel_err=worst)
+    if pack > 1:
+        out.update(worst_param_vs_pack1=worst1_name, worst_err_vs_pack1=worst1)
+    return out
 
 
 def km_phases(card: str, graph3) -> dict:
@@ -1753,6 +1807,196 @@ def km_phases(card: str, graph3) -> dict:
     }
 
 
+PACKS = (2, 3, 4)  # tools/exp_pack.py's A/B: every p divides K = 24
+PACK_MAIN = 2  # the pack of the counted forward and of the kernels line
+
+
+def flat_inputs(model, senders, edge_geo, h_ext, lo, hi, p, dtype, gen):
+    """#6/#7's arguments for the receivers [lo, hi) of a graph, as the model
+    hands them over at pack p: hs = h_ext[senders] (clamped) reshaped to
+    [Npad*K/p, p*F], the receivers' rows, d2, attr and maskf [Npad*K/p, .]
+    with extra masked slots and a masked tail (the last 37 receivers without
+    a valid slot), zero-padded to the km tile; layer 0's folded weights.
+    Returns (cfg, [hs, hr, d2, attr, maskf], weights, valid slots)."""
+    c, k = hi - lo, senders.shape[1]
+    dev = senders.device
+    layer = model.layers[0]
+    tile = SEGNNLayer._pick_km_tile(c)
+    npad = -(-c // tile) * tile
+    cfg = fm.MessageConfig(hs=layer._pallas_hs, hv=layer._pallas_hv, k=k, tile=tile, pack=p)
+    geo = edge_geo[lo:hi].float().reshape(c, k, 6).clone()
+    geo[..., 5] *= (torch.rand((c, k), generator=gen, device=dev) > 0.1).float()
+    geo[c - 37:, :, 5] = 0.0
+    n_valid = int((geo[..., 5] > 0).sum())
+    pad = lambda x: torch.cat([x, x.new_zeros((npad - c,) + x.shape[1:])])
+    r = npad * k // p
+    hs = pad(h_ext[torch.clamp(senders[lo:hi], max=h_ext.shape[0] - 1).long()])
+    geo = pad(geo)
+    args = [hs.reshape(r, p * cfg.f), pad(h_ext[lo:hi]), geo[..., 4].reshape(r, p),
+            geo[..., :4].reshape(r, 4 * p), geo[..., 5].reshape(r, p)]
+    return cfg, [a.to(dtype).contiguous() for a in args], layer._folded_weights(dtype), n_valid
+
+
+def pack_phases(card: str, graph3) -> dict:
+    """Phases 34-37: the packed lmax=1 path (``SEGNN(pack=p)``: #6 forward,
+    #7 backward with the fixed-order reduction), config 3's SEGNN (32x0e+16x1o,
+    4 layers, bf16 compute on fp32 masters, MSE, Adam 1e-3) on bench.py's 100k
+    graph with its tables dropped, as tools/exp_pack.py runs it.
+
+    34. kernel_flat -- #6 and #7 against their plain versions at the 100k
+        shapes (tile 160) at p = 2 and 4 in fp32 and bf16, and at 99,990
+        receivers (padded to 100,032 at the km tile 64) at p = 2 in bf16,
+        real senders, geometry and folded weights, extra masked slots.
+    35. forward_pack -- one config-3 forward at p = 2 (senders by
+        take_dense_symmetric): exactly 4 of #6, none of #1 or #3.
+    36. train_pack_100k -- 5 counted steps at each of p = 2, 3, 4: per step 4
+        of #6, 4 of #7 and 4 reductions, none of #1, #2, #3, #5; the step
+        times by CUDA events after a warm-up, beside the pack-1 (km) step
+        timed in the same phase.
+    37. grad_check_pack -- fp32 gradients at p = 2 through #6/#7 against
+        autograd of the plain path (TOL_GRAD_FP32 * max|ref|) and against
+        the pack-1 model through #3/#5 (TOL_PACK_VS_KM * max(1, |ref|)) at
+        20k points (GC_RADIUS): symmetrized without tables, and with
+        edge_chunks=4 (remat; 5,000-node blocks padded to 5,056).
+    Then pack_times.  Returns the rows of #6 and #7 for the ``kernels`` line."""
+    dev = torch.device(DEVICE)
+    bf = torch.bfloat16
+    n = N_POINTS
+    per_layer = lambda c: {fm.FLAT_FWD.name: NUM_LAYERS * c, fm.FLAT_BWD.name: NUM_LAYERS * c,
+                           fm.TAB_BWD_REDUCE.name: NUM_LAYERS * c}
+    g100 = graph3._replace(**NO_TABLES)
+    model = km_model(dev, pack=PACK_MAIN)
+    with torch.no_grad():
+        attrs32 = model.compute_attributes_dense(g100)
+
+    # ---- 34. the kernels at the 100k shapes, and one padded case
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    chk = {}
+    h_ext = torch.randn((n, model.hidden_irreps.dim), generator=gen, device=dev)
+    for p, dtype, hi in ((2, torch.float32, n), (2, bf, n), (4, torch.float32, n), (4, bf, n),
+                         (2, bf, n - 10)):
+        cfg, args, ws, n_valid = flat_inputs(model, g100.senders, attrs32[3], h_ext, 0, hi, p,
+                                             dtype, gen)
+        check((args[1].shape[0] == n and cfg.tile == TILE) if hi == n else
+              (cfg.tile == 64 and args[1].shape[0] == -(-hi // 64) * 64 > hi),
+              f"{hi} receivers: {args[1].shape[0]} rows at tile {cfg.tile}")
+        d_agg = torch.randn(args[1].shape, generator=gen, device=dev).to(dtype)
+        label = f"config3_100k_p{p}" if hi == n else f"config3_{hi}_padded_p{p}"
+        chk[(p, dtype, hi)] = km_check(label, cfg, args, ws, n_valid, d_agg,
+                                       times=dtype == bf and hi == n, form="flat")
+        del cfg, args, d_agg
+    del h_ext
+
+    # ---- 35. the config-3 forward at p = 2, counted
+    model_bf = copy.deepcopy(model).to(bf)
+    attrs_bf = tuple(a.to(bf) for a in attrs32)
+    g_bf = g100._replace(nodes=g100.nodes.to(bf))
+    check(g100.reverse_slot is not None and g100.gather_loc is None, "100k: not the sym graph")
+    fwd = lambda: model_bf(g_bf, attrs=attrs_bf)
+    with torch.no_grad():
+        reset_launches()
+        out = fwd()
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        check(launches == expected({fm.FLAT_FWD.name: NUM_LAYERS}),
+              f"{launches} kernel launches in one packed forward")
+        check(tuple(out.shape) == (n, 3) and bool(torch.isfinite(out).all()),
+              f"packed forward: shape {tuple(out.shape)} or non-finite")
+        state32 = {k_: v.float() for k_, v in model_bf.state_dict().items()}
+        plain32 = port.SEGNN("2x0e+1x1o", HIDDEN, "1x1o", num_layers=NUM_LAYERS, layout="cm",
+                             use_pallas=False, device=dev)
+        plain32.load_state_dict(state32)
+        ref = plain32(g100, attrs=attrs32)
+        model32 = km_model(dev, pack=PACK_MAIN)
+        model32.load_state_dict(state32)
+        k32 = model32(g100, attrs=attrs32)
+        scale = float(ref.abs().max())
+        err32 = float((k32 - ref).abs().max())
+        errbf = float((out.float() - ref).abs().max())
+        emit("forward_pack", points=n, layers=NUM_LAYERS, pack=PACK_MAIN, dtype="bfloat16",
+             tables=False, gather="take_dense_symmetric", shape=list(out.shape),
+             launches=launches, max_abs_ref=scale, fp32_kernel_vs_plain_max_abs_err=err32,
+             fp32_tolerance=f"{TOL_FORWARD_FP32} * max(1, |ref|); fp32 sums in another order",
+             bf16_kernel_vs_fp32_plain_max_abs_err=errbf,
+             bf16_tolerance=f"{TOL_FORWARD_BF16} * max|ref|; bf16 storage through 4 layers")
+        check(bool(((k32 - ref).abs() <= TOL_FORWARD_FP32 * torch.clamp(ref.abs(), min=1.0)).all()),
+              f"packed fp32 forward: kernel vs plain max abs err {err32}")
+        check(errbf <= TOL_FORWARD_BF16 * scale, f"packed bf16 forward vs fp32 plain: {errbf}")
+        del ref, k32, out, plain32, model32
+        fwd_ms = event_ms(fwd, iters=10)
+    del model_bf
+
+    # ---- 36. 5 counted train steps at each pack, and the pack-1 step beside them
+    target = torch.from_numpy(np.random.default_rng(SEED + 2).standard_normal(
+        (n, 3)).astype(np.float32)).to(dev)
+    step_ms, launches_main = {}, None
+    for p in PACKS:
+        m = km_model(dev, pack=p)
+        step = train_run(m, g_bf, attrs_bf, target, TRAIN_STEPS, card, "train_pack_100k",
+                         expected(per_layer(1)), hidden=HIDDEN, points=n, pack=p, tables=False,
+                         gather="take_dense_symmetric")
+        if p == PACK_MAIN:
+            launches_main = launch_counts()
+        step_ms[p] = event_ms(lambda: step(g_bf, attrs_bf, target), iters=5, warmup=1)
+        del step, m
+    m = km_model(dev)
+    opt = torch.optim.Adam(m.parameters(), lr=LEARNING_RATE, betas=(0.9, 0.999), eps=1e-8)
+    step = make_train_step(m, bf16_loss, opt)
+    step_ms[1] = event_ms(lambda: step(g_bf, attrs_bf, target), iters=5, warmup=1)
+    del step, m, opt, model, attrs_bf, g_bf, target
+
+    # ---- 37. fp32 gradients at p = 2 against the plain path and pack 1, 20k points
+    pts_gc = np.random.default_rng(SEED + 3).random((GC_POINTS, 3)).astype(np.float32)
+    _, _, _, g_gc, _ = build_graph(pts_gc, GC_RADIUS)
+    g_gc = g_gc._replace(**NO_TABLES)
+    gc_chunks = 4
+    for label, kw, want in (
+            ("symmetrized", {}, per_layer(1)),
+            ("edge_chunks", dict(remat=True, edge_chunks=gc_chunks),
+             {fm.FLAT_FWD.name: 2 * NUM_LAYERS * gc_chunks,
+              fm.FLAT_BWD.name: NUM_LAYERS * gc_chunks,
+              fm.TAB_BWD_REDUCE.name: NUM_LAYERS * gc_chunks})):
+        r = km_grad_check(dev, g_gc, pack=PACK_MAIN, **kw)
+        c_gc = GC_POINTS // kw.get("edge_chunks", 1)
+        emit("grad_check_pack", case=label, points=GC_POINTS, radius=GC_RADIUS, k=MAX_NEIGHBORS,
+             layers=NUM_LAYERS, pack=PACK_MAIN, dtype="float32", block_rows=c_gc,
+             block_tile=SEGNNLayer._pick_km_tile(c_gc), edges=int(g_gc.edge_mask.sum()), **r,
+             tolerance=(f"vs plain {TOL_GRAD_FP32} * max|ref| per parameter; vs pack 1 "
+                        f"{TOL_PACK_VS_KM} * max(1, |ref|) elementwise; fp32 sums in another "
+                        "order"))
+        check(r["launches"] == expected(want), f"grad_check_pack {label}: launches {r['launches']}")
+        check(r["worst_rel_err"] <= TOL_GRAD_FP32,
+              f"packed fp32 gradients ({label}): {r['worst_param']} off by {r['worst_rel_err']}")
+        check(r["worst_err_vs_pack1"] <= TOL_PACK_VS_KM,
+              f"packed vs pack-1 gradients ({label}): {r['worst_param_vs_pack1']} off by "
+              f"{r['worst_err_vs_pack1']}")
+        check(abs(r["loss_kernel"] - r["loss_plain"]) <= 1e-5 * r["loss_plain"],
+              f"packed losses differ ({label})")
+    del g_gc
+
+    t = chk[(PACK_MAIN, bf, n)]["times"]
+    t4 = chk[(4, bf, n)]["times"]
+    emit("pack_times", card=card, points=n, forward_ms_p2=fwd_ms,
+         step_ms={f"pack_{p}": v for p, v in step_ms.items()},
+         kernels_100k_p2=t, kernels_100k_p4=t4,
+         kernel_ms_per_step_100k_p2=dict(fwd=NUM_LAYERS * t["fwd_ms"],
+                                         bwd=NUM_LAYERS * t["bwd_ms"]))
+    b = t["bounds"]
+    return {
+        fm.FLAT_FWD.name: dict(
+            launches=launches_main[fm.FLAT_FWD.name],
+            max_abs_err=chk[(PACK_MAIN, bf, n)]["max_abs_err"]["fwd"], ms=t["fwd_ms"],
+            plain_ms=t["fwd_plain_ms"], bound_ms=b["fwd"]["bound_ms"],
+            bound_by=b["fwd"]["bound_by"], library_ms=None, pack=PACK_MAIN),
+        fm.FLAT_BWD.name: dict(
+            launches=launches_main[fm.FLAT_BWD.name],
+            max_abs_err=chk[(PACK_MAIN, bf, n)]["max_abs_err"]["bwd"], ms=t["bwd_ms"],
+            plain_ms=t["bwd_plain_ms"], bound_ms=b["bwd"]["bound_ms"],
+            bound_by=b["bwd"]["bound_by"], library_ms=None, main_kernel_ms=t["bwd_main_ms"],
+            pack=PACK_MAIN),
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1769,7 +2013,8 @@ def main() -> int:
     t0 = time.perf_counter()
     built = build_libraries(sorted({kern.source_name for kern in ALL_KERNELS}))
     ptxas = [ln.strip() for b in built.values() for ln in b["log"].splitlines()
-             if "registers" in ln or "spill" in ln or "Function properties" in ln]
+             if "registers" in ln or "spill" in ln or "Function properties" in ln
+             or "Compiling entry function" in ln]
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          per_source={k: round(v["seconds"], 3) for k, v in built.items()}, ptxas=ptxas)
 
@@ -2080,6 +2325,10 @@ def main() -> int:
     # ---- 28-33. the untabled lmax=1 path (#3, #5): config 3 without tables,
     #      the point-cloud example at 100k and at 1M (edge_chunks=8)
     km = km_phases(card, graph)
+
+    # ---- 34-37. the packed lmax=1 path (#6, #7): SEGNN(pack=p) on config 3
+    #      without tables
+    pk = pack_phases(card, graph)
     del graph
 
     src = lambda kern: str(kern.source.relative_to(Path(__file__).resolve().parent))
@@ -2112,6 +2361,9 @@ def main() -> int:
       + [{"name": kern.name, "route": "cuda", "source": src(kern),
           "replaces": f"{TPU_FILE}:{line}", **km[kern.name]}
          for kern, line in ((fm.KM_FWD, 1202), (fm.KM_BWD, 767))]
+      + [{"name": kern.name, "route": "cuda", "source": src(kern),
+          "replaces": f"{TPU_FILE}:{line}", **pk[kern.name]}
+         for kern, line in ((fm.FLAT_FWD, 394), (fm.FLAT_BWD, 497))]
     }), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

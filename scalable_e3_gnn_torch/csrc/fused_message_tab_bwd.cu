@@ -1,11 +1,12 @@
 // lmax=1 fused message + aggregation, backward, for Hopper (sm_90a): the
-// tabled kernel (#2) and, by a compile-time sender addressing (KM), the
-// untabled slot-major one (#5).
+// tabled kernel (#2) and, by a compile-time sender addressing (Addr), the
+// untabled slot-major one (#5) and the packed node-major one (#7).
 //
 // Replaces the TPU kernels scalable_e3_gnn_tpu/kernels/fused_message.py::
 // _bwd_kernel_tab (via _bwd_tail, _layer_bwd, _accum_weight_grads), launched
-// by _vjp_bwd_tab, and, with KM, _bwd_kernel_km (the default; _bwd_kernel_km2
-// is its GEMM form), launched by _vjp_bwd_km.  Given the cotangent d_agg
+// by _vjp_bwd_tab; with KM, _bwd_kernel_km (the default; _bwd_kernel_km2
+// is its GEMM form), launched by _vjp_bwd_km; and with FLAT, _bwd_kernel (via
+// _bwd_tail, the pack > 1 path), launched by _vjp_bwd.  Given the cotangent d_agg
 // [Npad, F] of
 //
 //   agg[i] = sum_k mask[i,k] * MLP2(MLP1([h_s || h_r || d2], sh), sh),
@@ -22,7 +23,11 @@
 // mask per slot), and each slot's rounded sender cotangent goes straight to
 // row k*N + i of d_hs [K, N, F]: no scratch, no per-tile counting sort, no
 // table sum; blocks walk over groups of receivers instead of tiles.  d_hr
-// and the partials are as in the tabled kernel.
+// and the partials are as in the tabled kernel.  With FLAT the senders come
+// pre-gathered node-major, hs [N*K, F] (slot k of receiver i is row e = i*K
+// + k: the TPU's packed [N*K/p, p*F] rows are the same memory), the geometry
+// from the flat d2, attr and maskf rows e, and the sender cotangent goes to
+// row e of d_hs [N*K, F]; blocks walk over groups of receivers as with KM.
 // A second kernel of this file sums the partials over the blocks in block
 // order, so two runs give bit-identical weight gradients.  The split
 // reverse-table epilogue that turns d_hu and d_hr into d_h stays in PyTorch,
@@ -31,7 +36,10 @@
 // Rounding points, as in the TPU kernel: the masked d_m, d_o1, d_o0, d_A,
 // d_Xvs, d_f0, d_Xs and d_Xv are rounded to the data type; products and
 // sums run in fp32; d_hu and d_hr are fp32 sums of rounded terms, written
-// once in the data type.
+// once in the data type.  FLAT rounds d_hr as the TPU's packed form
+// (_bwd_tail with pack = p): the receiver parts of p slots summed in fp32 and
+// rounded once, the K/p groups summed in fp32; pack = 1 is the tabled
+// kernel's rounding.
 //
 // Design.  What the TPU kernel gets from its ordered grid, this kernel gets
 // from ownership:
@@ -62,7 +70,8 @@
 // FMA peak).  This first version runs on the fp32 FMA units out of shared
 // memory; tensor cores (mma/wgmma on the bf16 operands) are later work.
 // With KM the kernel reads hs3 and writes d_hs, 384 MB each in bf16 at
-// config 3, so it is bound by bytes (about 0.25 ms at 3.35 TB/s).
+// config 3, so it is bound by bytes (about 0.25 ms at 3.35 TB/s); so with
+// FLAT, which reads hs and writes d_hs of the same size.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,6 +102,13 @@ __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf
 
 __host__ __device__ inline int odd(int n) { return n | 1; }
 
+// where a slot's sender row, geometry and sender cotangent are
+enum class Addr {
+  kTab,   // h[gtab[tile, loc[e]]]; d2, attr, maskf at e = i*K + k; d_hu by the table
+  kKm,    // row k*N + i of hs3 [K, N, F] and of d_hs; geo2 [N, K*6]
+  kFlat,  // row e = i*K + k of hs [N*K, F] and of d_hs; d2, attr, maskf at e
+};
+
 struct Dims {
   int hs, hv, k, g, rows, rows_p;  // rows = g*k, rows_p = rows rounded to kMT
   int s1, v1, c0, f;               // 2hs+1, 2hv, hs+hv, hs+3hv
@@ -103,7 +119,7 @@ struct Dims {
   long region;                     // floats of the whole row region (also the CSR ints)
 };
 
-// tile = u = 0: the untabled (KM) kernel, which has no table
+// tile = u = 0: the untabled kernels (KM, FLAT), which have no table
 __host__ __device__ inline Dims make_dims(int hs, int hv, int k, int tile, int u) {
   Dims d;
   d.hs = hs; d.hv = hv; d.k = k; d.tile = tile; d.u = u;
@@ -189,24 +205,29 @@ __device__ void run_mms(const Mm* mms, int count) {
   }
 }
 
-// KM: h is hr [N, F], the sender rows come from hs3 [K, N, F], the geometry
-// from geo2 [N, K*6], and the sender cotangents go to dhs [K, N, F]; d2,
-// attr, maskf, loc, gtab, dhu and dhs_scratch are unused (tile = u = 0).
-template <typename T, bool KM>
+// KM: h is hr [N, F], the sender rows come from hsp = hs3 [K, N, F], the
+// geometry from geo2 [N, K*6], and the sender cotangents go to dhsp [K, N,
+// F]; d2, attr, maskf, loc, gtab, dhu and dhs_scratch are unused (tile = u =
+// 0).  FLAT: as KM, but hsp = hs and dhsp = d_hs are [N*K, F], node-major,
+// and the geometry comes from d2, attr, maskf (geo2 unused); pack is d_hr's
+// group size (1 for the others).
+template <typename T, Addr A>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_message_tab_bwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
                              const T* __restrict__ attr, const T* __restrict__ maskf,
                              const int* __restrict__ loc, const int* __restrict__ gtab,
-                             const T* __restrict__ hs3, const T* __restrict__ geo2,
+                             const T* __restrict__ hsp, const T* __restrict__ geo2,
                              const T* __restrict__ w0a, const T* __restrict__ w1sa,
                              const T* __restrict__ w1va, const T* __restrict__ w0b,
                              const T* __restrict__ w1sb, const T* __restrict__ w1vb,
                              const T* __restrict__ dagg, T* __restrict__ dhu,
                              T* __restrict__ dhr, T* __restrict__ dhs_scratch,
-                             T* __restrict__ dhs3, float* __restrict__ partials, int npad,
-                             int hs, int hv, int k, int tile, int u) {
+                             T* __restrict__ dhsp, float* __restrict__ partials, int npad,
+                             int hs, int hv, int k, int tile, int u, int pack) {
+  constexpr bool KM = A == Addr::kKm;
+  constexpr bool TAB = A == Addr::kTab;
   const Dims d = make_dims(hs, hv, k, tile, u);
-  const T* __restrict__ hsrc = KM ? hs3 : h;  // where SND rows point
+  const T* __restrict__ hsrc = TAB ? h : hsp;  // where SND rows point
   const int R = d.rows_p, s1 = d.s1, v1 = d.v1, c0 = d.c0, f = d.f;
   extern __shared__ float smem[];
   // weights (padded rows) and the weight gradients (dense, in the partials' order)
@@ -268,14 +289,14 @@ fused_message_tab_bwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
   __syncthreads();
 
   // the units a block owns: whole tiles (tabled), or groups of G receivers
-  const int units = KM ? (npad + d.g - 1) / d.g : npad / tile;
-  const int span = KM ? d.g : tile;  // receivers per unit
+  const int units = TAB ? npad / tile : (npad + d.g - 1) / d.g;
+  const int span = TAB ? tile : d.g;  // receivers per unit
   const int slots = span * k;
-  T* dhs = KM ? nullptr : dhs_scratch + (long)blockIdx.x * slots * f;
-  const int ngroups = KM ? 1 : (tile + d.g - 1) / d.g;
+  T* dhs = TAB ? dhs_scratch + (long)blockIdx.x * slots * f : nullptr;
+  const int ngroups = TAB ? (tile + d.g - 1) / d.g : 1;
   for (int tl = blockIdx.x; tl < units; tl += gridDim.x) {
-    // receivers of this unit: the last group of a KM launch may be short
-    const int end = KM ? min(span, npad - tl * span) : span;
+    // receivers of this unit: the last group of an untabled launch may be short
+    const int end = TAB ? span : min(span, npad - tl * span);
     for (int gi = 0; gi < ngroups; ++gi) {
       const int first = gi * d.g;  // first receiver of the group within the unit
       const int node0 = tl * span + first;
@@ -295,10 +316,14 @@ fused_message_tab_bwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
             g5[4] = to_f(g[5]);
             dd = to_f(g[4]);
           } else {
-            const int l = loc[e];
-            if (l < u) {
-              const int t = gtab[(long)tl * u + l];
-              snd = (t >= 0 && t < npad) ? t : -1;
+            if (A == Addr::kFlat) {
+              snd = (int)e;  // N*K < 2^31, checked by the wrapper
+            } else {
+              const int l = loc[e];
+              if (l < u) {
+                const int t = gtab[(long)tl * u + l];
+                snd = (t >= 0 && t < npad) ? t : -1;
+              }
             }
 #pragma unroll
             for (int q = 0; q < 4; ++q) g5[q] = to_f(attr[e * 4 + q]);
@@ -512,15 +537,17 @@ fused_message_tab_bwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
       __syncthreads();
 
       // ---- 11. layer-1 d_Xs, d_Xv: sender parts -> the block's d_hs rows
-      //          (KM: row k*N + i of d_hs), receiver parts -> RHR
+      //          (KM: row k*N + i of d_hs; FLAT: row i*K + k), receiver
+      //          parts -> RHR
       {
         const int width = 2 * hs + v1;
         for (int w = threadIdx.x; w < R * width; w += blockDim.x) {
           const int r = w / width, j = w % width;
           if (r >= d.rows || first + r / k >= end) continue;
           const float s = GEO[r * 5];
-          T* out = KM ? dhs3 + ((long)(r % k) * npad + node0 + r / k) * f
-                      : dhs + (long)(first * k + r) * f;
+          T* out = KM ? dhsp + ((long)(r % k) * npad + node0 + r / k) * f
+                   : TAB ? dhs + (long)(first * k + r) * f
+                         : dhsp + ((long)node0 * k + r) * f;
           if (j < 2 * hs) {
             const float val = rnd<T>(DXS1[r * 2 * hs + j] + rnd<T>(DF01[r * (s1 + v1) + j]) * s);
             if (j < hs) out[j] = from_f<T>(val);
@@ -540,18 +567,29 @@ fused_message_tab_bwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
       }
       __syncthreads();
 
-      // ---- 12. d_hr: each receiver's K slots summed in fp32
+      // ---- 12. d_hr: each receiver's K slots summed in fp32 (FLAT: groups
+      //          of pack slots summed in fp32 and rounded, then added)
       for (int w = threadIdx.x; w < d.g * f; w += blockDim.x) {
         const int i = w / f, col = w % f;
         if (first + i >= end) continue;
-        float acc = 0.f;
-        for (int kk = 0; kk < k; ++kk) acc += RHR[(i * k + kk) * f + col];
+        float acc = 0.f, gsum = 0.f;
+        for (int kk = 0; kk < k; ++kk) {
+          if (A == Addr::kFlat) {
+            gsum += RHR[(i * k + kk) * f + col];
+            if ((kk + 1) % pack == 0) {
+              acc += rnd<T>(gsum);
+              gsum = 0.f;
+            }
+          } else {
+            acc += RHR[(i * k + kk) * f + col];
+          }
+        }
         dhr[(long)(node0 + i) * f + col] = from_f<T>(acc);
       }
       __syncthreads();
     }
 
-    if (KM) continue;
+    if (!TAB) continue;
     // ---- the tile's table rows: d_hu[u] = sum of the d_hs rows of the
     //      tile's slots with loc == u, in slot order
     const int* tloc = loc + (long)tl * slots;
@@ -613,11 +651,11 @@ __global__ void fused_message_tab_bwd_reduce_kernel(const float* __restrict__ pa
   out[w] = acc;
 }
 
-// blocks: SMs x resident blocks, at most one per unit (tile, or KM group)
-template <typename T, bool KM>
+// blocks: SMs x resident blocks, at most one per unit (tile, or group)
+template <typename T, Addr A>
 int grid_for(const Dims& d, int units) {
   const size_t smem = smem_bytes(d);
-  auto kern = fused_message_tab_bwd_kernel<T, KM>;
+  auto kern = fused_message_tab_bwd_kernel<T, A>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return -(int)err;
@@ -631,24 +669,25 @@ int grid_for(const Dims& d, int units) {
   return grid < units ? grid : units;
 }
 
-// in: h, d2, attr, maskf, loc, gtab, hs3, geo2, six weights, d_agg (the
-// unused ones null); out: d_hu, d_hr, d_hs scratch, d_hs [K, N, F]
-template <typename T, bool KM>
+// in: h, d2, attr, maskf, loc, gtab, hs3 or hs, geo2, six weights, d_agg
+// (the unused ones null); out: d_hu, d_hr, d_hs scratch, d_hs (KM, FLAT)
+template <typename T, Addr A>
 int launch(const void* const* in, void* const* out, float* partials, int npad, int hs,
-           int hv, int k, int tile, int u, int grid, cudaStream_t stream) {
+           int hv, int k, int tile, int u, int pack, int grid, cudaStream_t stream) {
   const Dims d = make_dims(hs, hv, k, tile, u);
   const size_t smem = smem_bytes(d);
-  auto kern = fused_message_tab_bwd_kernel<T, KM>;
+  auto kern = fused_message_tab_bwd_kernel<T, A>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  if (grid < 1 || (!KM && npad % tile != 0)) return (int)cudaErrorInvalidValue;
+  if (grid < 1 || (A == Addr::kTab && npad % tile != 0) || pack < 1 || k % pack != 0)
+    return (int)cudaErrorInvalidValue;
   auto t = [in](int i) { return static_cast<const T*>(in[i]); };
   kern<<<grid, kThreads, smem, stream>>>(
       t(0), t(1), t(2), t(3), static_cast<const int*>(in[4]), static_cast<const int*>(in[5]),
       t(6), t(7), t(8), t(9), t(10), t(11), t(12), t(13), t(14), static_cast<T*>(out[0]),
       static_cast<T*>(out[1]), static_cast<T*>(out[2]), static_cast<T*>(out[3]), partials,
-      npad, hs, hv, k, tile, u);
+      npad, hs, hv, k, tile, u, pack);
   return (int)cudaGetLastError();
 }
 
@@ -666,8 +705,8 @@ long fused_message_tab_bwd_smem_bytes(int hs, int hv, int k, int tile, int u) {
 // which sizes the per-block scratch; negative: -(CUDA error).
 int fused_message_tab_bwd_grid(int dtype, int hs, int hv, int k, int tile, int u, int ntiles) {
   const Dims d = make_dims(hs, hv, k, tile, u);
-  if (dtype == 0) return grid_for<float, false>(d, ntiles);
-  if (dtype == 1) return grid_for<__nv_bfloat16, false>(d, ntiles);
+  if (dtype == 0) return grid_for<float, Addr::kTab>(d, ntiles);
+  if (dtype == 1) return grid_for<__nv_bfloat16, Addr::kTab>(d, ntiles);
   return -(int)cudaErrorInvalidValue;
 }
 
@@ -688,9 +727,10 @@ int fused_message_tab_bwd(int dtype, const void* h, const void* d2, const void* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(partials);
   if (dtype == 0)
-    return launch<float, false>(in, out, part, npad, hs, hv, k, tile, u, grid, st);
+    return launch<float, Addr::kTab>(in, out, part, npad, hs, hv, k, tile, u, 1, grid, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16, false>(in, out, part, npad, hs, hv, k, tile, u, grid, st);
+    return launch<__nv_bfloat16, Addr::kTab>(in, out, part, npad, hs, hv, k, tile, u, 1, grid,
+                                             st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -702,8 +742,8 @@ long fused_message_km_bwd_smem_bytes(int hs, int hv, int k) {
 int fused_message_km_bwd_grid(int dtype, int hs, int hv, int k, int n) {
   const Dims d = make_dims(hs, hv, k, 0, 0);
   const int groups = (n + d.g - 1) / d.g;
-  if (dtype == 0) return grid_for<float, true>(d, groups);
-  if (dtype == 1) return grid_for<__nv_bfloat16, true>(d, groups);
+  if (dtype == 0) return grid_for<float, Addr::kKm>(d, groups);
+  if (dtype == 1) return grid_for<__nv_bfloat16, Addr::kKm>(d, groups);
   return -(int)cudaErrorInvalidValue;
 }
 
@@ -720,9 +760,43 @@ int fused_message_km_bwd(int dtype, const void* hs3, const void* hr, const void*
   void* const out[4] = {nullptr, dhr, nullptr, dhs};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(partials);
-  if (dtype == 0) return launch<float, true>(in, out, part, n, hs, hv, k, 0, 0, grid, st);
+  if (dtype == 0)
+    return launch<float, Addr::kKm>(in, out, part, n, hs, hv, k, 0, 0, 1, grid, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16, true>(in, out, part, n, hs, hv, k, 0, 0, grid, st);
+    return launch<__nv_bfloat16, Addr::kKm>(in, out, part, n, hs, hv, k, 0, 0, 1, grid, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The packed node-major backward's main kernel (#7); its shared memory is
+// the km kernel's (fused_message_km_bwd_smem_bytes).
+int fused_message_flat_bwd_grid(int dtype, int hs, int hv, int k, int n) {
+  const Dims d = make_dims(hs, hv, k, 0, 0);
+  const int groups = (n + d.g - 1) / d.g;
+  if (dtype == 0) return grid_for<float, Addr::kFlat>(d, groups);
+  if (dtype == 1) return grid_for<__nv_bfloat16, Addr::kFlat>(d, groups);
+  return -(int)cudaErrorInvalidValue;
+}
+
+// Inputs hs [N*K, F] (the TPU's [N*K/p, p*F]), hr [N, F], d2 [N*K], attr
+// [N*K, 4], maskf [N*K], the six weight blocks and d_agg [N, F]; outputs
+// d_hs [N*K, F], d_hr [N, F] and the partials [grid][NW] (fp32); pack
+// divides K.  Returns cudaGetLastError() after the launch.
+int fused_message_flat_bwd(int dtype, const void* hs_rows, const void* hr, const void* d2,
+                           const void* attr, const void* maskf, const void* w0a,
+                           const void* w1sa, const void* w1va, const void* w0b,
+                           const void* w1sb, const void* w1vb, const void* dagg, void* dhs,
+                           void* dhr, void* partials, int n, int hs, int hv, int k, int pack,
+                           int grid, void* stream) {
+  const void* in[15] = {hr,  d2,   attr, maskf, nullptr, nullptr, hs_rows, nullptr,
+                        w0a, w1sa, w1va, w0b,   w1sb,    w1vb,    dagg};
+  void* const out[4] = {nullptr, dhr, nullptr, dhs};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* part = static_cast<float*>(partials);
+  if (dtype == 0)
+    return launch<float, Addr::kFlat>(in, out, part, n, hs, hv, k, 0, 0, pack, grid, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, Addr::kFlat>(in, out, part, n, hs, hv, k, 0, 0, pack, grid,
+                                              st);
   return (int)cudaErrorInvalidValue;
 }
 

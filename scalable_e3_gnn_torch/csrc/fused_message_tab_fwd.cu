@@ -1,11 +1,12 @@
 // lmax=1 fused message + aggregation, forward, for Hopper (sm_90a): the
-// tabled kernel (#1) and, by a compile-time sender addressing (KM), the
-// untabled slot-major one (#3/#4).
+// tabled kernel (#1) and, by a compile-time sender addressing (Addr), the
+// untabled slot-major one (#3/#4) and the packed node-major one (#6).
 //
 // Replaces the TPU kernels scalable_e3_gnn_tpu/kernels/fused_message.py::
-// _fwd_kernel_tab (via _fwd_tail, _build_inputs, _layer_fwd) and, with KM,
+// _fwd_kernel_tab (via _fwd_tail, _build_inputs, _layer_fwd), with KM
 // _fwd_kernel_km2 (the default GEMM form, via _tp_layer_km2) and
-// _fwd_kernel_km (the stacked-lane form of the same function).  For every
+// _fwd_kernel_km (the stacked-lane form of the same function), and with
+// FLAT _fwd_kernel (via _fwd_tail, the pack > 1 path).  For every
 // receiver i and neighbour slot k it computes the two gated L1 tensor-product
 // layers of the SEGNN message MLP on [h_s || h_r || d^2] with the edge's sh
 // attribute, masks the slot and sums over k:
@@ -16,7 +17,10 @@
 // a zero row).  With KM the senders come pre-gathered slot-major, hs3
 // [K, N, F] (slot k of receiver i is row k*N + i), and the geometry from the
 // node-major geo2 [N, K*6] row of the receiver (sh 4, d2, mask per slot);
-// there is no table.  The TPU kernel expands a per-tile table hu = h[gtab] to slot
+// there is no table.  With FLAT the senders come pre-gathered node-major, hs
+// [N*K, F] (slot k of receiver i is row e = i*K + k: the TPU's [N*K/p, p*F]
+// packed rows are the same memory), and the geometry from the flat d2, attr
+// and maskf rows e, as the tabled kernel reads them.  The TPU kernel expands a per-tile table hu = h[gtab] to slot
 // rows with a one-hot MXU matmul; here each slot reads its sender row directly
 // through the table, so hu is never written to device memory, and h (16 MB in
 // bf16 at 100k x 80) stays in the 50 MB L2.
@@ -38,13 +42,17 @@
 // the fp32 FMA units from shared memory, not on the tensor cores: it is the
 // simple, exact first form; wgmma and TMA staging are later work.  With KM
 // the kernel reads hs3 whole (384 MB in bf16 at 100k x 24 slots), so bytes
-// bound it (about 0.13 ms at 3.35 TB/s).
+// bound it (about 0.13 ms at 3.35 TB/s); FLAT reads hs whole the same way.
 //
 // Rounding.  The tabled kernel rounds as the stacked-lane TPU form: the
 // layer-1 outputs and each masked slot message to the data type.  With KM it
 // also rounds where the km2 form does: the W0 vector rows are scaled by
 // CG110 and rounded in the data type when they are staged (so the dot lanes
 // are not scaled), and A and the gate's sigmoid are rounded before use.
+// FLAT rounds as the tabled kernel, except in the K-sum: the TPU's packed
+// form (_fwd_tail with pack = p) adds the p masked slot messages of a group
+// in fp32, rounds that sum once to the data type, and sums the K/p groups in
+// fp32; pack = 1 is the tabled kernel's rounding.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,6 +81,13 @@ template <typename T> __device__ __forceinline__ float round_dt(float x) {
 }
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+// where a slot's sender row and geometry come from
+enum class Addr {
+  kTab,   // h[gtab[i / tile, loc[e]]]; d2, attr, maskf at e = i*K + k
+  kKm,    // row k*N + i of hs [K, N, F]; geo2 [N, K*6]
+  kFlat,  // row e = i*K + k of hs [N*K, F]; d2, attr, maskf at e
+};
 
 // the vector gate sigmoid(x): rounded to the data type in the km2 form
 template <typename T, bool KM> __device__ __forceinline__ float gate(float x) {
@@ -131,19 +146,23 @@ __device__ __forceinline__ void smem_gemm(const float* __restrict__ X, int nrows
   }
 }
 
-// KM: h is hr [N, F]; the sender rows come from hs3 [K, N, F] (row k*N + i)
-// and the geometry from geo2 [N, K*6]; d2, attr, maskf, loc, gtab are unused.
-template <typename T, bool KM>
+// KM: h is hr [N, F]; the sender rows come from hsp = hs3 [K, N, F] (row
+// k*N + i) and the geometry from geo2 [N, K*6]; d2, attr, maskf, loc, gtab
+// are unused.  FLAT: h is hr [N, F]; the sender rows come from hsp = hs
+// [N*K, F] (row i*K + k); loc, gtab, geo2 are unused; pack is the K-sum's
+// group size (1 for the others).
+template <typename T, Addr A>
 __global__ void __launch_bounds__(kThreads)
 fused_message_tab_fwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
                              const T* __restrict__ attr, const T* __restrict__ maskf,
                              const int* __restrict__ loc, const int* __restrict__ gtab,
-                             const T* __restrict__ hs3, const T* __restrict__ geo2,
+                             const T* __restrict__ hsp, const T* __restrict__ geo2,
                              const T* __restrict__ w0a, const T* __restrict__ w1sa,
                              const T* __restrict__ w1va, const T* __restrict__ w0b,
                              const T* __restrict__ w1sb, const T* __restrict__ w1vb,
                              T* __restrict__ out, int npad, int hs, int hv, int k,
-                             int tile, int u) {
+                             int tile, int u, int pack) {
+  constexpr bool KM = A == Addr::kKm;
   const Dims d = make_dims(hs, hv, k);
   extern __shared__ float smem[];
   // weights
@@ -161,9 +180,9 @@ fused_message_tab_fwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
   float* OA = O0 + d.rows_p * d.c0;           // [rows_p][hv]
   float* OB = OA + d.rows_p * d.hv;           // [rows_p*3][hv]
   float* GEO = OB + d.rows_p * 3 * d.hv;      // [rows_p][5]: s, vx, vy, vz, mask
-  // [rows_p] the sender's row in hsrc (h by the table, or hs3), or -1
+  // [rows_p] the sender's row in hsrc (h by the table, or hsp), or -1
   int* SND = reinterpret_cast<int*>(GEO + d.rows_p * 5);
-  const T* __restrict__ hsrc = KM ? hs3 : h;
+  const T* __restrict__ hsrc = A == Addr::kTab ? h : hsp;
   // the dot lanes of f0: scaled by CG110 here, or (KM) in the staged weights
   const float cg_dot = KM ? 1.0f : kCG110;
 
@@ -202,10 +221,14 @@ fused_message_tab_fwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
           g5[4] = to_f(g[5]);
           XS[r * d.s1 + 2 * d.hs] = to_f(g[4]);
         } else {
-          const int l = loc[e];
-          if (l < u) {
-            const int t = gtab[(long)(node / tile) * u + l];
-            snd = (t >= 0 && t < npad) ? t : -1;
+          if (A == Addr::kFlat) {
+            snd = (int)e;  // N*K < 2^31, checked by the wrapper
+          } else {
+            const int l = loc[e];
+            if (l < u) {
+              const int t = gtab[(long)(node / tile) * u + l];
+              snd = (t >= 0 && t < npad) ? t : -1;
+            }
           }
           g5[0] = to_f(attr[e * 4 + 0]);
           g5[1] = to_f(attr[e * 4 + 1]);
@@ -302,27 +325,34 @@ fused_message_tab_fwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
     smem_gemm(XV, 3 * d.rows_p, d.hv, W1Vb, d.hv, OB);
     __syncthreads();
 
-    // ---- layer-2 gates, mask, per-slot rounding, fp32 sum over K
+    // ---- layer-2 gates, mask, per-slot rounding, fp32 sum over K (FLAT:
+    //      per-group rounding of the fp32 sum of pack slots)
     for (int w = threadIdx.x; w < d.g * f; w += blockDim.x) {
       const int i = w / f, col = w % f;
       const int node = node0 + i;
       if (node >= npad) continue;
-      float acc = 0.f;
+      float acc = 0.f, gsum = 0.f;
       for (int kk = 0; kk < d.k; ++kk) {
         const int r = i * d.k + kk;
         const float mk = GEO[r * 5 + 4];
-        if (mk == 0.f) continue;  // masked or padding slot: contributes 0
-        float m;
-        if (col < d.hs) {
-          const float o = O0[r * d.c0 + col];
-          m = o * sigmoid_f(o);
-        } else {
-          const int c = (col - d.hs) / d.hv, jj = (col - d.hs) % d.hv;
-          const float g = gate<T, KM>(O0[r * d.c0 + d.hs + jj]);
-          const float a = KM ? round_dt<T>(OA[r * d.hv + jj]) : OA[r * d.hv + jj];
-          m = kCG011 * fmaf(GEO[r * 5 + 1 + c], a, OB[(r * 3 + c) * d.hv + jj]) * g;
+        if (mk != 0.f) {  // a masked or padding slot contributes 0
+          float m;
+          if (col < d.hs) {
+            const float o = O0[r * d.c0 + col];
+            m = o * sigmoid_f(o);
+          } else {
+            const int c = (col - d.hs) / d.hv, jj = (col - d.hs) % d.hv;
+            const float g = gate<T, KM>(O0[r * d.c0 + d.hs + jj]);
+            const float a = KM ? round_dt<T>(OA[r * d.hv + jj]) : OA[r * d.hv + jj];
+            m = kCG011 * fmaf(GEO[r * 5 + 1 + c], a, OB[(r * 3 + c) * d.hv + jj]) * g;
+          }
+          if (A == Addr::kFlat) gsum += m * mk;
+          else acc += round_dt<T>(m * mk);
         }
-        acc += round_dt<T>(m * mk);
+        if (A == Addr::kFlat && (kk + 1) % pack == 0) {
+          acc += round_dt<T>(gsum);
+          gsum = 0.f;
+        }
       }
       out[(long)node * f + col] = from_f<T>(acc);
     }
@@ -330,15 +360,16 @@ fused_message_tab_fwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
   }
 }
 
-template <typename T, bool KM>
+template <typename T, Addr A>
 int launch(const void* h, const void* d2, const void* attr, const void* maskf,
-           const int* loc, const int* gtab, const void* hs3, const void* geo2,
+           const int* loc, const int* gtab, const void* hsp, const void* geo2,
            const void* w0a, const void* w1sa, const void* w1va, const void* w0b,
            const void* w1sb, const void* w1vb, void* out, int npad, int hs, int hv, int k,
-           int tile, int u, cudaStream_t stream) {
+           int tile, int u, int pack, cudaStream_t stream) {
   const Dims d = make_dims(hs, hv, k);
   const size_t smem = smem_bytes(d);
-  auto kern = fused_message_tab_fwd_kernel<T, KM>;
+  if (pack < 1 || k % pack != 0) return (int)cudaErrorInvalidValue;
+  auto kern = fused_message_tab_fwd_kernel<T, A>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -354,11 +385,11 @@ int launch(const void* h, const void* d2, const void* attr, const void* maskf,
   if (grid < 1) grid = 1;
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(h), static_cast<const T*>(d2), static_cast<const T*>(attr),
-      static_cast<const T*>(maskf), loc, gtab, static_cast<const T*>(hs3),
+      static_cast<const T*>(maskf), loc, gtab, static_cast<const T*>(hsp),
       static_cast<const T*>(geo2), static_cast<const T*>(w0a),
       static_cast<const T*>(w1sa), static_cast<const T*>(w1va), static_cast<const T*>(w0b),
       static_cast<const T*>(w1sb), static_cast<const T*>(w1vb), static_cast<T*>(out), npad,
-      hs, hv, k, tile, u);
+      hs, hv, k, tile, u, pack);
   return (int)cudaGetLastError();
 }
 
@@ -383,12 +414,13 @@ int fused_message_tab_fwd(int dtype, const void* h, const void* d2, const void* 
   const int* gtab_i = static_cast<const int*>(gtab);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float, false>(h, d2, attr, maskf, loc_i, gtab_i, nullptr, nullptr, w0a,
-                                w1sa, w1va, w0b, w1sb, w1vb, out, npad, hs, hv, k, tile, u, st);
+    return launch<float, Addr::kTab>(h, d2, attr, maskf, loc_i, gtab_i, nullptr, nullptr, w0a,
+                                     w1sa, w1va, w0b, w1sb, w1vb, out, npad, hs, hv, k, tile, u,
+                                     1, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16, false>(h, d2, attr, maskf, loc_i, gtab_i, nullptr, nullptr,
-                                        w0a, w1sa, w1va, w0b, w1sb, w1vb, out, npad, hs, hv, k,
-                                        tile, u, st);
+    return launch<__nv_bfloat16, Addr::kTab>(h, d2, attr, maskf, loc_i, gtab_i, nullptr,
+                                             nullptr, w0a, w1sa, w1va, w0b, w1sb, w1vb, out,
+                                             npad, hs, hv, k, tile, u, 1, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -400,12 +432,33 @@ int fused_message_km_fwd(int dtype, const void* hs3, const void* hr, const void*
                          int n, int hs, int hv, int k, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float, true>(hr, nullptr, nullptr, nullptr, nullptr, nullptr, hs3, geo2,
-                               w0a, w1sa, w1va, w0b, w1sb, w1vb, out, n, hs, hv, k, n, 0, st);
+    return launch<float, Addr::kKm>(hr, nullptr, nullptr, nullptr, nullptr, nullptr, hs3,
+                                    geo2, w0a, w1sa, w1va, w0b, w1sb, w1vb, out, n, hs, hv, k,
+                                    n, 0, 1, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16, true>(hr, nullptr, nullptr, nullptr, nullptr, nullptr, hs3,
-                                       geo2, w0a, w1sa, w1va, w0b, w1sb, w1vb, out, n, hs, hv,
-                                       k, n, 0, st);
+    return launch<__nv_bfloat16, Addr::kKm>(hr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                            hs3, geo2, w0a, w1sa, w1va, w0b, w1sb, w1vb, out, n,
+                                            hs, hv, k, n, 0, 1, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The packed node-major forward (#6): hs [N*K, F] (the TPU's [N*K/p, p*F]),
+// hr [N, F], d2 [N*K], attr [N*K, 4], maskf [N*K], the six weight blocks;
+// out [N, F]; pack divides K.  Returns cudaGetLastError() after the launch.
+int fused_message_flat_fwd(int dtype, const void* hs_rows, const void* hr, const void* d2,
+                           const void* attr, const void* maskf, const void* w0a,
+                           const void* w1sa, const void* w1va, const void* w0b,
+                           const void* w1sb, const void* w1vb, void* out, int n, int hs,
+                           int hv, int k, int pack, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float, Addr::kFlat>(hr, d2, attr, maskf, nullptr, nullptr, hs_rows, nullptr,
+                                      w0a, w1sa, w1va, w0b, w1sb, w1vb, out, n, hs, hv, k, n,
+                                      0, pack, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, Addr::kFlat>(hr, d2, attr, maskf, nullptr, nullptr, hs_rows,
+                                              nullptr, w0a, w1sa, w1va, w0b, w1sb, w1vb, out,
+                                              n, hs, hv, k, n, 0, pack, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,9 +1,9 @@
 """Fused SEGNN message MLP + neighbourhood aggregation (lmax=1): the tabled
-gather and the untabled slot-major (km) form.
+gather, the untabled slot-major (km) form and the packed node-major form.
 
 Counterpart of ``scalable_e3_gnn_tpu/kernels/fused_message.py::
-fused_message_aggregate_tabled`` and ``fused_message_aggregate_km`` with
-their custom VJPs.  Per receiver i and slot k:
+fused_message_aggregate_tabled``, ``fused_message_aggregate_km`` and
+``fused_message_aggregate`` with their custom VJPs.  Per receiver i and slot k:
 
     agg[i] = sum_k mask[i,k] * MLP2(MLP1([h_s || h_r || d^2], sh), sh)
 
@@ -53,6 +53,18 @@ reduction), beside their plain versions ``fused_message_aggregate_km_plain``
 (the km2 form's rounding points) and ``km_bwd_plain``.  Its backward returns
 d_hs per slot; the caller's gather (``take_dense_symmetric_km`` or
 ``gather_km``) carries it back to the nodes.
+
+The packed form (``fused_message_aggregate``, ``FusedMessage``; the TPU's
+``pack > 1`` path) takes the senders pre-gathered node-major and the
+geometry flat, in the JAX operand shapes: hs [N*K/p, p*F], d2 and maskf
+[N*K/p, p], attr [N*K/p, 4p], contiguous views of the [N*K, .] rows (row
+i*K + k = slot k of receiver i).  The same two CUDA sources serve it under a
+third addressing (#6 forward, #7 backward with the same reduction).  The
+TPU's lane packing is a layout; what ``pack`` changes in the result is where
+bf16 rounds: the p masked slot messages of a group are summed in fp32 and
+rounded once before the fp32 sum over the K/p groups, and likewise the
+receiver cotangent ``d_hr``; otherwise the rounding is the tabled kernel's
+(``fused_message_aggregate_plain``, ``flat_bwd_plain``).
 """
 
 from __future__ import annotations
@@ -75,7 +87,12 @@ __all__ = ["MessageConfig", "FusedMessageTabled", "fused_message_aggregate_table
            "fused_message_aggregate_km_plain", "fused_message_aggregate_km_bwd",
            "fused_message_aggregate_km_bwd_plain", "km_bwd_plain", "km_bwd_kernel",
            "km_bwd_kernels",
-           "TAB_FWD", "TAB_BWD", "TAB_BWD_REDUCE", "KM_FWD", "KM_BWD", "KERNELS"]
+           "FusedMessage", "fused_message_aggregate", "fused_message_aggregate_fwd",
+           "fused_message_aggregate_plain", "fused_message_aggregate_bwd",
+           "fused_message_aggregate_bwd_plain", "flat_bwd_plain", "flat_bwd_kernel",
+           "flat_bwd_kernels",
+           "TAB_FWD", "TAB_BWD", "TAB_BWD_REDUCE", "KM_FWD", "KM_BWD", "FLAT_FWD", "FLAT_BWD",
+           "KERNELS"]
 
 CG110 = 1.0 / math.sqrt(3.0)
 CG011 = 1.0 / math.sqrt(3.0)
@@ -123,7 +140,25 @@ KM_BWD = CudaKernel("fused_message_km_bwd", {
     "fused_message_km_bwd": (_I, [_I] + [_P] * 13 + [_I] * 5 + [_P]),
 }, source_name="fused_message_tab_bwd")
 
-KERNELS = (TAB_FWD, TAB_BWD, TAB_BWD_REDUCE, KM_FWD, KM_BWD)
+# the packed node-major kernels #6 and #7: the same two sources, the senders
+# read from hs [N*K, F] (row i*K + k) and the geometry from the flat d2,
+# attr, maskf rows; pack sets where the K-sum and d_hr round
+FLAT_FWD = CudaKernel("fused_message_flat_fwd", {
+    "fused_message_tab_fwd_smem_bytes": (ctypes.c_long, [_I] * 3),
+    # dtype, 12 pointers (hs, hr, d2, attr, maskf, 6 weights, out), n, hs, hv,
+    # k, pack, stream
+    "fused_message_flat_fwd": (_I, [_I] + [_P] * 12 + [_I] * 5 + [_P]),
+}, source_name="fused_message_tab_fwd")
+FLAT_BWD = CudaKernel("fused_message_flat_bwd", {
+    "fused_message_km_bwd_smem_bytes": (ctypes.c_long, [_I] * 3),
+    # dtype, hs, hv, k, n: blocks of the main kernel
+    "fused_message_flat_bwd_grid": (_I, [_I] * 5),
+    # dtype, 12 inputs (hs, hr, d2, attr, maskf, 6 weights, d_agg), 3 outputs
+    # (d_hs, d_hr, weight partials), n, hs, hv, k, pack, grid, stream
+    "fused_message_flat_bwd": (_I, [_I] + [_P] * 15 + [_I] * 6 + [_P]),
+}, source_name="fused_message_tab_bwd")
+
+KERNELS = (TAB_FWD, TAB_BWD, TAB_BWD_REDUCE, KM_FWD, KM_BWD, FLAT_FWD, FLAT_BWD)
 
 
 @dataclass(frozen=True)
@@ -133,6 +168,13 @@ class MessageConfig:
     k: int  # neighbour slots per node
     tile: int = 64  # receivers per gather-table tile
     u: int = 0  # compact sender-table size
+    # slots per group of the packed form (K % pack == 0): the K-sum and d_hr
+    # round once per group
+    pack: int = 1
+
+    def __post_init__(self):
+        if self.pack < 1 or self.k % self.pack:
+            raise ValueError(f"pack {self.pack} does not divide K = {self.k}")
 
     @property
     def f(self) -> int:  # flat hidden dim (cm layout)
@@ -169,6 +211,17 @@ def _join_weight_grads(dws, dtype):
             dw0b.to(dtype), torch.cat([dw1sb, dw1vb]).to(dtype))
 
 
+def _check_blocks(cfg, ws, ref_name, ref, named):
+    """The six weight blocks' shapes, and the named inputs and the weights in
+    the dtype of ``ref``."""
+    for i, (w, shp) in enumerate(zip(ws, cfg.weight_shapes())):
+        if tuple(w.shape) != shp:
+            raise ValueError(f"weight block {i} has shape {tuple(w.shape)}, wants {shp}")
+    for name, x in (*named, *(("weight", w) for w in ws)):
+        if x.dtype != ref.dtype:
+            raise TypeError(f"{name} is {x.dtype}, {ref_name} is {ref.dtype}")
+
+
 def _check_inputs(cfg, h, d2, attr, maskf, loc, gtab, ws):
     npad, f = h.shape
     if f != cfg.f:
@@ -181,14 +234,9 @@ def _check_inputs(cfg, h, d2, attr, maskf, loc, gtab, ws):
             raise ValueError(f"{name} has shape {tuple(x.shape)}, wants {(e, width)}")
     if tuple(gtab.shape) != (npad // cfg.tile, cfg.u):
         raise ValueError(f"gtab has shape {tuple(gtab.shape)}, wants {(npad // cfg.tile, cfg.u)}")
-    for i, (w, shp) in enumerate(zip(ws, cfg.weight_shapes())):
-        if tuple(w.shape) != shp:
-            raise ValueError(f"weight block {i} has shape {tuple(w.shape)}, wants {shp}")
     if loc.dtype != torch.int32 or gtab.dtype != torch.int32:
         raise TypeError("loc and gtab must be int32")
-    for name, x in (("d2", d2), ("attr", attr), ("maskf", maskf), *(("weight", w) for w in ws)):
-        if x.dtype != h.dtype:
-            raise TypeError(f"{name} is {x.dtype}, h is {h.dtype}")
+    _check_blocks(cfg, ws, "h", h, (("d2", d2), ("attr", attr), ("maskf", maskf)))
 
 
 def _check_d_agg(h, d_agg):
@@ -580,12 +628,7 @@ def _check_km(cfg: MessageConfig, hs3, hr, geo2, ws):
         raise ValueError(f"hs3 has shape {tuple(hs3.shape)}, wants {(cfg.k, n, cfg.f)}")
     if tuple(geo2.shape) != (n, cfg.k * 6):
         raise ValueError(f"geo2 has shape {tuple(geo2.shape)}, wants {(n, cfg.k * 6)}")
-    for i, (w, shp) in enumerate(zip(ws, cfg.weight_shapes())):
-        if tuple(w.shape) != shp:
-            raise ValueError(f"weight block {i} has shape {tuple(w.shape)}, wants {shp}")
-    for name, x in (("hs3", hs3), ("geo2", geo2), *(("weight", w) for w in ws)):
-        if x.dtype != hr.dtype:
-            raise TypeError(f"{name} is {x.dtype}, hr is {hr.dtype}")
+    _check_blocks(cfg, ws, "hr", hr, (("hs3", hs3), ("geo2", geo2)))
 
 
 def _km_slot_inputs(cfg: MessageConfig, hs3, hr, geo2):
@@ -665,8 +708,7 @@ def fused_message_aggregate_km_bwd_plain(cfg: MessageConfig, hs3, hr, geo2, w0e1
     return (d_hs, d_hr, *_join_weight_grads(dws, w0e1.dtype))
 
 
-def _km_rows(hs3):
-    k, n, _ = hs3.shape
+def _check_slot_rows(n, k):
     if k * n >= 2 ** 31:
         raise ValueError(f"K*N = {k * n} slot rows: the kernels index rows in 32 bits")
 
@@ -680,7 +722,7 @@ def fused_message_aggregate_km_fwd(cfg: MessageConfig, hs3, hr, geo2, w0e1, w1o1
     _check_km(cfg, hs3, hr, geo2, ws)
     args = (hs3, hr, geo2, *ws)
     _cuda_args(hr, args)
-    _km_rows(hs3)
+    _check_slot_rows(hr.shape[0], cfg.k)
     lib = KM_FWD.lib()
     smem = lib.fused_message_tab_fwd_smem_bytes(cfg.hs, cfg.hv, cfg.k)
     if smem > _MAX_SMEM:
@@ -705,7 +747,7 @@ def km_bwd_kernel(cfg: MessageConfig, hs3, hr, geo2, ws, d_agg):
     _check_d_agg(hr, d_agg)
     args = (hs3, hr, geo2, *ws, d_agg)
     _cuda_args(hr, args)
-    _km_rows(hs3)
+    _check_slot_rows(hr.shape[0], cfg.k)
     lib = KM_BWD.lib()
     dims = (cfg.hs, cfg.hv, cfg.k)
     smem = lib.fused_message_km_bwd_smem_bytes(*dims)
@@ -789,3 +831,218 @@ def fused_message_aggregate_km(cfg: MessageConfig, hs3, hr, geo2, w0e1, w1o1, w0
     CUDA tensors run the hand-written kernels (or raise), CPU tensors the
     plain versions."""
     return FusedMessageKm.apply(cfg, hs3, hr, geo2, w0e1, w1o1, w0e2, w1o2)
+
+
+# ---------------------------------------------------------------------------
+# Packed, node-major: the counterpart of ``fused_message_aggregate`` (the
+# TPU's pack > 1 path).  The senders come pre-gathered as hs [N*K/p, p*F]
+# and the geometry as d2, maskf [N*K/p, p] and attr [N*K/p, 4p]: contiguous
+# views of the node-major rows (row i*K + k = slot k of receiver i).  The
+# rounding is the tabled kernel's, except that the K-sum of the forward and
+# d_hr of the backward round once per group of p slots.
+# ---------------------------------------------------------------------------
+
+
+def _check_flat(cfg: MessageConfig, hs, hr, d2, attr, maskf, ws):
+    """The shapes ``_fwd_call`` asserts, and one dtype for all inputs."""
+    n, f = hr.shape
+    p = cfg.pack
+    if f != cfg.f:
+        raise ValueError(f"hr has {f} features, config wants {cfg.f}")
+    if n % cfg.tile:
+        raise ValueError(f"rows {n} are not a multiple of the tile {cfg.tile}")
+    r = n * cfg.k // p
+    for name, x, width in (("hs", hs, p * f), ("d2", d2, p), ("attr", attr, 4 * p),
+                           ("maskf", maskf, p)):
+        if tuple(x.shape) != (r, width):
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, wants {(r, width)}")
+    _check_blocks(cfg, ws, "hr", hr, (("hs", hs), ("d2", d2), ("attr", attr), ("maskf", maskf)))
+
+
+def _flat_slot_inputs(cfg: MessageConfig, hs, hr, d2, attr, maskf):
+    """Layer-1 inputs of every slot row (node-major, row i*K + k) in fp32:
+    xs [E, S1], xv [E, 3, V1], the sh scalar s [E, 1] and vector v [E, 3],
+    and the mask [E, 1]."""
+    n, f = hr.shape
+    e = n * cfg.k
+    hsf = hs.float().reshape(e, f)
+    hrf = hr.float().repeat_interleave(cfg.k, dim=0)
+    a = attr.float().reshape(e, 4)
+    xs = torch.cat([hsf[:, :cfg.hs], hrf[:, :cfg.hs], d2.float().reshape(e, 1)], dim=-1)
+    xv = torch.cat([hsf[:, cfg.hs:].reshape(e, 3, cfg.hv),
+                    hrf[:, cfg.hs:].reshape(e, 3, cfg.hv)], dim=-1)
+    return xs, xv, a[:, 0:1], a[:, 1:4], maskf.float().reshape(e, 1)
+
+
+def _group_sum(cfg: MessageConfig, rows, dt):
+    """[N*K, F] fp32 slot rows -> [N, F] in ``dt``: per receiver, each group
+    of ``pack`` consecutive slots summed in fp32 in slot order and rounded to
+    ``dt`` (the packed form's ``msum``), the K/pack groups summed in fp32 (its
+    ``E^T`` product)."""
+    n = rows.shape[0] // cfg.k
+    g = rows.reshape(n, cfg.k // cfg.pack, cfg.pack, -1)
+    acc = g[:, :, 0]
+    for j in range(1, cfg.pack):
+        acc = acc + g[:, :, j]
+    return acc.to(dt).float().sum(dim=1).to(dt)
+
+
+def fused_message_aggregate_plain(cfg: MessageConfig, hs, hr, d2, attr, maskf, w0e1, w1o1, w0e2,
+                                  w1o2):
+    """agg [N, F] in hr's dtype, by PyTorch ops (any device).
+
+    hs [N*K/p, p*F] node-major sender rows (p = cfg.pack); hr [N, F]
+    receiver rows, N a multiple of cfg.tile; d2, maskf [N*K/p, p] and attr
+    [N*K/p, 4p] the geometry of the same slots; weights with norms folded in,
+    in the reference row layout.  Rounds where the tabled kernel does, the
+    K-sum once per group of p slots."""
+    ws = split_weights(cfg, w0e1, w1o1, w0e2, w1o2)
+    _check_flat(cfg, hs, hr, d2, attr, maskf, ws)
+    dt = hr.dtype
+    e = hr.shape[0] * cfg.k
+    w0a, w1sa, w1va, w0b, w1sb, w1vb = (w.float() for w in ws)
+    xs, xv, s, v, mask = _flat_slot_inputs(cfg, hs, hr, d2, attr, maskf)
+    m0, m1, _ = _layer(xs, xv, s, v, w0a, w1sa, w1va, cfg.hs)
+    m0, m1 = m0.to(dt).float(), m1.to(dt).float()
+    m0, m1, _ = _layer(m0, m1, s, v, w0b, w1sb, w1vb, cfg.hs)
+    return _group_sum(cfg, torch.cat([m0, m1.reshape(e, 3 * cfg.hv)], dim=-1) * mask, dt)
+
+
+def flat_bwd_plain(cfg: MessageConfig, hs, hr, d2, attr, maskf, ws, d_agg):
+    """The plain packed backward on split weights ``ws`` (six blocks): (d_hs
+    [N*K/p, p*F] written per slot, d_hr [N, F] (per-group rounded), six fp32
+    weight-gradient blocks).  Rounds where ``_bwd_kernel`` does."""
+    dt = hr.dtype
+    xs1, xv1, s, v, mask = _flat_slot_inputs(cfg, hs, hr, d2, attr, maskf)
+    d_hs, d_hrr, dws = _rows_bwd(cfg, xs1, xv1, s, v, mask, ws,
+                                 d_agg.float().repeat_interleave(cfg.k, dim=0), dt)
+    return d_hs.to(dt).reshape(hs.shape), _group_sum(cfg, d_hrr, dt), dws
+
+
+def fused_message_aggregate_bwd_plain(cfg: MessageConfig, hs, hr, d2, attr, maskf, w0e1, w1o1,
+                                      w0e2, w1o2, d_agg):
+    """(d_hs, d_hr, d_w0e1, d_w1o1, d_w0e2, d_w1o2) by PyTorch ops (any
+    device): arguments as in the plain forward plus the cotangent d_agg
+    [N, F]; the weight gradients in the weights' dtype.  The geometry gets no
+    cotangent."""
+    ws = split_weights(cfg, w0e1, w1o1, w0e2, w1o2)
+    _check_flat(cfg, hs, hr, d2, attr, maskf, ws)
+    _check_d_agg(hr, d_agg)
+    d_hs, d_hr, dws = flat_bwd_plain(cfg, hs, hr, d2, attr, maskf, ws, d_agg)
+    return (d_hs, d_hr, *_join_weight_grads(dws, w0e1.dtype))
+
+
+def fused_message_aggregate_fwd(cfg: MessageConfig, hs, hr, d2, attr, maskf, w0e1, w1o1, w0e2,
+                                w1o2):
+    """agg [N, F]: the hand-written CUDA kernel (#6) for CUDA tensors, the
+    plain version for CPU tensors.  Arguments as in the plain version."""
+    if hr.device.type == "cpu":
+        return fused_message_aggregate_plain(cfg, hs, hr, d2, attr, maskf, w0e1, w1o1, w0e2,
+                                             w1o2)
+    ws = split_weights(cfg, w0e1, w1o1, w0e2, w1o2)
+    _check_flat(cfg, hs, hr, d2, attr, maskf, ws)
+    args = (hs, hr, d2, attr, maskf, *ws)
+    _cuda_args(hr, args)
+    _check_slot_rows(hr.shape[0], cfg.k)
+    lib = FLAT_FWD.lib()
+    smem = lib.fused_message_tab_fwd_smem_bytes(cfg.hs, cfg.hv, cfg.k)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"widths need {smem} bytes of shared memory per block (max {_MAX_SMEM})")
+    out = torch.empty_like(hr)
+    stream = torch.cuda.current_stream(hr.device).cuda_stream
+    with torch.cuda.device(hr.device):
+        rc = lib.fused_message_flat_fwd(_DTYPE_CODE[hr.dtype], *(x.data_ptr() for x in args),
+                                        out.data_ptr(), hr.shape[0], cfg.hs, cfg.hv, cfg.k,
+                                        cfg.pack, stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_message_flat_fwd launch failed with CUDA error {rc}")
+    FLAT_FWD.launches += 1
+    return out
+
+
+def flat_bwd_kernel(cfg: MessageConfig, hs, hr, d2, attr, maskf, ws, d_agg):
+    """The packed backward's main CUDA kernel (#7, ``csrc/fused_message_tab_bwd.cu``)
+    on split weights ``ws``: returns ``(d_hs [N*K/p, p*F], d_hr [N, F],
+    partials [grid, NW] fp32)``, the per-block weight-gradient sums that
+    ``tab_bwd_reduce`` adds up."""
+    _check_flat(cfg, hs, hr, d2, attr, maskf, ws)
+    _check_d_agg(hr, d_agg)
+    args = (hs, hr, d2, attr, maskf, *ws, d_agg)
+    _cuda_args(hr, args)
+    _check_slot_rows(hr.shape[0], cfg.k)
+    lib = FLAT_BWD.lib()
+    dims = (cfg.hs, cfg.hv, cfg.k)
+    smem = lib.fused_message_km_bwd_smem_bytes(*dims)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"widths need {smem} bytes of shared memory per block (max {_MAX_SMEM})")
+    n = hr.shape[0]
+    with torch.cuda.device(hr.device):
+        grid = lib.fused_message_flat_bwd_grid(_DTYPE_CODE[hr.dtype], *dims, n)
+    if grid < 1:
+        raise RuntimeError(f"fused_message_flat_bwd: no launch configuration (code {grid})")
+    nw = sum(a * b for a, b in cfg.weight_shapes())
+    d_hs = torch.empty_like(hs)
+    d_hr = torch.empty_like(hr)
+    partials = torch.empty((grid, nw), dtype=torch.float32, device=hr.device)
+    stream = torch.cuda.current_stream(hr.device).cuda_stream
+    with torch.cuda.device(hr.device):
+        rc = lib.fused_message_flat_bwd(_DTYPE_CODE[hr.dtype], *(x.data_ptr() for x in args),
+                                        d_hs.data_ptr(), d_hr.data_ptr(), partials.data_ptr(), n,
+                                        *dims, cfg.pack, grid, stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_message_flat_bwd launch failed with CUDA error {rc}")
+    FLAT_BWD.launches += 1
+    return d_hs, d_hr, partials
+
+
+def flat_bwd_kernels(cfg: MessageConfig, hs, hr, d2, attr, maskf, ws, d_agg):
+    """The kernel counterpart of ``flat_bwd_plain``: the main kernel, then
+    the fixed-order reduction of its weight-gradient partials."""
+    d_hs, d_hr, partials = flat_bwd_kernel(cfg, hs, hr, d2, attr, maskf, ws, d_agg)
+    return d_hs, d_hr, _split_partials(cfg, tab_bwd_reduce(partials))
+
+
+def fused_message_aggregate_bwd(cfg: MessageConfig, hs, hr, d2, attr, maskf, w0e1, w1o1, w0e2,
+                                w1o2, d_agg):
+    """(d_hs, d_hr, d_w0e1, d_w1o1, d_w0e2, d_w1o2): the hand-written CUDA
+    kernels (#7 and the reduction) for CUDA tensors, the plain version for
+    CPU tensors.  Arguments as in ``fused_message_aggregate_bwd_plain``."""
+    if hr.device.type == "cpu":
+        return fused_message_aggregate_bwd_plain(cfg, hs, hr, d2, attr, maskf, w0e1, w1o1, w0e2,
+                                                 w1o2, d_agg)
+    ws = split_weights(cfg, w0e1, w1o1, w0e2, w1o2)
+    d_hs, d_hr, dws = flat_bwd_kernels(cfg, hs, hr, d2, attr, maskf, ws, d_agg)
+    return (d_hs, d_hr, *_join_weight_grads(dws, w0e1.dtype))
+
+
+class FusedMessage(torch.autograd.Function):
+    """The packed fused message with its hand-written backward: the
+    counterpart of the JAX ``custom_vjp`` of ``fused_message_aggregate``
+    (``_vjp_fwd``/``_vjp_bwd``).  Saves its inputs; the backward recomputes
+    both layers.  The geometry gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, cfg, hs, hr, d2, attr, maskf, w0e1, w1o1, w0e2, w1o2):
+        ctx.cfg = cfg
+        ctx.save_for_backward(hs, hr, d2, attr, maskf, w0e1, w1o1, w0e2, w1o2)
+        return fused_message_aggregate_fwd(cfg, hs, hr, d2, attr, maskf, w0e1, w1o1, w0e2, w1o2)
+
+    @staticmethod
+    def backward(ctx, d_agg):
+        saved = ctx.saved_tensors
+        d_agg = d_agg.to(saved[1].dtype).contiguous()
+        d_hs, d_hr, *dws = fused_message_aggregate_bwd(ctx.cfg, *saved, d_agg)
+        # cfg, hs, hr, d2, attr, maskf, 4 weights
+        return (None, d_hs, d_hr, None, None, None, *dws)
+
+
+def fused_message_aggregate(cfg: MessageConfig, hs, hr, d2, attr, maskf, w0e1, w1o1, w0e2, w1o2):
+    """agg [N, F], differentiable in hs, hr and the four weights.
+
+    Arguments as in the JAX ``fused_message_aggregate``: with p = cfg.pack,
+    hs [N*K/p, p*F] node-major sender rows (``take_dense_symmetric`` or
+    ``gather``, reshaped), hr [N, F], d2 and maskf [N*K/p, p], attr
+    [N*K/p, 4p], the folded weights; N a multiple of cfg.tile, K % p == 0.
+    CUDA tensors run the hand-written kernels (or raise), CPU tensors the
+    plain versions."""
+    return FusedMessage.apply(cfg, hs, hr, d2, attr, maskf, w0e1, w1o1, w0e2, w1o2)

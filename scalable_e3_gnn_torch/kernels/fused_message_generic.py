@@ -73,7 +73,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..ops.gather_scatter import gather_km, reverse_slot_gather_sum
+from ..ops.gather_scatter import gather_km, reverse_slot_gather_sum_km
 from .build import CudaKernel
 from .fused_message import _DTYPE_CODE, _MAX_SMEM, _cuda_args, tab_bwd_reduce
 
@@ -914,7 +914,7 @@ class FusedMessageGenericSym(torch.autograd.Function):
         d_agg = d_agg.to(h.dtype).contiguous()
         d_hs, d_hr, dws = generic_bwd(ctx.cfg, gather_km(h, senders), h, geo2, ws, ctx.sels,
                                       d_agg)
-        d_h = reverse_slot_gather_sum(d_hs, reverse_slot) + d_hr
+        d_h = reverse_slot_gather_sum_km(d_hs, reverse_slot) + d_hr
         # cfg, h, geo2, senders, reverse_slot, sels, weights
         return (None, d_h, None, None, None, None) + tuple(
             dw.to(w.dtype) for dw, w in zip(dws, ws))

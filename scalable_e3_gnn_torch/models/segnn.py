@@ -31,8 +31,12 @@ Message dispatch (``SEGNNLayer``):
   #12 or #13), the gather ``take_dense_symmetric_km`` on a symmetrized graph
   (its gradient a reverse-slot gather) and ``h[senders.T]`` otherwise;
 - ``use_pallas=True`` with lmax=1 hidden irreps and no tables, or with
-  ``edge_chunks > 1`` (chunks carry no tables): the untabled lmax=1 kernel
-  (``_fused_messages_km``, ``kernels.fused_message.
+  ``edge_chunks > 1`` (chunks carry no tables) (``_fused_messages``): with
+  ``pack`` p > 1 dividing K, the packed lmax=1 kernel
+  (``kernels.fused_message.fused_message_aggregate``: #6 forward, #7
+  backward) on the node-major senders, gathered by ``take_dense_symmetric``
+  on a whole symmetrized graph and by ``gather`` otherwise; else the
+  untabled lmax=1 kernel (``_fused_messages_km``, ``kernels.fused_message.
   fused_message_aggregate_km``: #3 forward, #5 backward) on the slot-major
   senders, gathered by ``take_dense_symmetric_km`` on a whole symmetrized
   graph (its gradient a reverse-slot gather) and by ``gather_km`` otherwise;
@@ -62,11 +66,11 @@ from torch.utils.checkpoint import checkpoint
 from ..core.irreps import Irreps
 from ..core.spherical import spherical_harmonics
 from ..graph.container import DenseEdgeGraph
-from ..kernels.fused_message import (MessageConfig, fused_message_aggregate_km,
-                                     fused_message_aggregate_tabled)
+from ..kernels.fused_message import (MessageConfig, fused_message_aggregate,
+                                     fused_message_aggregate_km, fused_message_aggregate_tabled)
 from ..kernels.fused_message_generic import FusedMessageGeneric
 from ..ops.gate import Gate
-from ..ops.gather_scatter import gather_km, take_dense_symmetric_km
+from ..ops.gather_scatter import gather, gather_km, take_dense_symmetric, take_dense_symmetric_km
 from ..ops.linear import O3Linear
 from ..ops.tensor_product import L1TensorProduct, TensorProduct
 from ..utils.device import resolve_device
@@ -144,10 +148,14 @@ class SEGNNLayer(nn.Module):
                  num_message_layers: int = 2, num_update_layers: int = 2,
                  layout: str = "mul", use_pallas: bool = False, remat: bool = False,
                  remat_kernel: bool = False, residual_bwd: bool = True,
-                 edge_chunks: int = 1, device=None,
+                 edge_chunks: int = 1, pack: int = 1, device=None,
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
         self.layout = layout
+        # pack: slots per rounding group of the packed lmax=1 kernel (#6/#7);
+        # ignored where it does not divide K (the km kernel runs), and where
+        # gather tables serve
+        self.pack = max(1, pack)
         # edge_chunks: stream node blocks through the messages and the update
         self.edge_chunks = edge_chunks
         # remat: recompute the per-edge message intermediates (plain path)
@@ -233,6 +241,38 @@ class SEGNNLayer(nn.Module):
             loc.reshape(npad * k, 1).contiguous(), gtab.contiguous(),
             graph.gather_rev_dense.contiguous(), graph.gather_rem_pos.contiguous(),
             graph.gather_rem_node.contiguous(), *self._folded_weights(dt))
+        return agg[:n]
+
+    def _fused_messages(self, h_local, h_ext, senders, edge_attr, edge_dist2, edge_mask,
+                        reverse_slot=None, edge_geo=None):
+        """Untabled lmax=1 dispatch (the JAX ``_fused_messages``): ``pack`` 1
+        or not dividing K takes ``_fused_messages_km``; else the packed
+        kernel on the node-major senders (``take_dense_symmetric`` on a whole
+        symmetrized graph, else ``gather``), [N*K/p, p*F], with the flat
+        geometry, the node axis zero-padded to the km tile (mask 0); the
+        result cut back to N.  Differentiable in h and the weights."""
+        n, k = senders.shape
+        p = self.pack
+        if p == 1 or k % p:
+            return self._fused_messages_km(h_local, h_ext, senders, edge_attr, edge_dist2,
+                                           edge_mask, reverse_slot, edge_geo)
+        tile = self._pick_km_tile(n)
+        npad = -(-n // tile) * tile
+        cfg = MessageConfig(hs=self._pallas_hs, hv=self._pallas_hv, k=k, tile=tile, pack=p)
+        dt = h_local.dtype
+        f = h_local.shape[-1]
+        if reverse_slot is not None and h_ext is h_local:
+            hs = take_dense_symmetric(h_ext, senders, reverse_slot)
+        else:
+            hs = gather(h_ext, senders)
+        pad = lambda x: x if npad == n else torch.cat([x, x.new_zeros((npad - n,) + x.shape[1:])])
+        hs = pad(hs).reshape(npad * k // p, p * f)
+        attr = pad(edge_attr.to(dt)).reshape(npad * k // p, 4 * p)
+        d2 = pad(edge_dist2.to(dt)).reshape(npad * k // p, p)
+        maskf = pad(edge_mask.to(dt)).reshape(npad * k // p, p)
+        agg = fused_message_aggregate(cfg, hs.contiguous(), pad(h_local).contiguous(),
+                                      d2.contiguous(), attr.contiguous(), maskf.contiguous(),
+                                      *self._folded_weights(dt))
         return agg[:n]
 
     @staticmethod
@@ -416,8 +456,8 @@ class SEGNNLayer(nn.Module):
             if graph is not None and graph.gather_loc is not None and h_ext is h_local:
                 return self._fused_messages_tabled(h_local, edge_attr, edge_dist2, edge_mask,
                                                    graph)
-            return self._fused_messages_km(h_local, h_ext, senders, edge_attr, edge_dist2,
-                                           edge_mask, reverse_slot, edge_geo)
+            return self._fused_messages(h_local, h_ext, senders, edge_attr, edge_dist2,
+                                        edge_mask, reverse_slot, edge_geo)
         return self._plain_messages(h_ext, h_local, senders, edge_attr, edge_dist2, edge_mask)
 
     def _update_u(self, h, agg, node_attr):
@@ -452,14 +492,17 @@ class SEGNN(nn.Module):
     ``edge_chunks`` streams node blocks through every layer, the embed and
     the head; ``remat_layers`` (a group size, 0 for none) checkpoints groups
     of that many layers, so the backward keeps only the group boundaries
-    ([N, F] each): the config-5 (10M points) memory ladder.
+    ([N, F] each): the config-5 (10M points) memory ladder.  ``pack`` (p > 1
+    dividing K) sends the untabled lmax=1 messages through the packed kernel
+    (#6/#7), whose K-sum and receiver cotangent round once per group of p
+    slots; it adds no parameter.
     """
 
     def __init__(self, input_irreps, hidden_irreps, output_irreps, lmax_attr: int = 1,
                  num_layers: int = 4, act: Callable = F.silu, task: str = "node",
                  layout: Optional[str] = None, use_pallas: bool = False, remat: bool = False,
                  remat_kernel: bool = False, residual_bwd: bool = True,
-                 edge_chunks: int = 1, remat_layers: int = 0, device=None,
+                 edge_chunks: int = 1, remat_layers: int = 0, pack: int = 1, device=None,
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
         device = resolve_device(device)
@@ -478,7 +521,7 @@ class SEGNN(nn.Module):
         self.layers = nn.ModuleList(
             SEGNNLayer(self.hidden_irreps, self.attr_irreps, layout=self.layout,
                        use_pallas=use_pallas, remat=remat, remat_kernel=remat_kernel,
-                       residual_bwd=residual_bwd, edge_chunks=edge_chunks, **kw)
+                       residual_bwd=residual_bwd, edge_chunks=edge_chunks, pack=pack, **kw)
             for _ in range(num_layers)
         )
         self.pre_head = O3TensorProductGate(self.hidden_irreps, self.attr_irreps,

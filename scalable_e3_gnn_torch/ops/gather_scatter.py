@@ -1,18 +1,31 @@
-"""Gathers whose gradients are gathers, on symmetric fixed-K graphs.
+"""Sender gathers of fixed-K graphs, and gathers whose gradients are gathers
+on symmetric ones.
 
-Counterpart of ``scalable_e3_gnn_tpu/ops/gather_scatter.py::
-take_dense_symmetric_km``: ``h[senders.T]`` in the slot-major [K, N, F] order
-the untabled generic message kernel reads, whose VJP sums each node's
-cotangents at the reverse slots of its own K edges (a dense gather and a sum
-over K) instead of scattering them.  Valid only for symmetrized graphs
-(``graph.radius.symmetrize_dense``).
+Counterpart of ``scalable_e3_gnn_tpu/ops/gather_scatter.py::gather``,
+``take_dense_symmetric`` and ``take_dense_symmetric_km``: ``h[senders]``
+node-major [N, K, F] (the packed lmax=1 message kernel's order) and
+``h[senders.T]`` slot-major [K, N, F] (the untabled kernels' order), clamped
+as JAX's ``mode="clip"``.  The ``take_dense_symmetric*`` forms have a VJP
+that sums each node's cotangents at the reverse slots of its own K edges (a
+dense gather and a sum over K) instead of scattering them; they are valid
+only for symmetrized graphs (``graph.radius.symmetrize_dense``).  The plain
+gathers' gradient is PyTorch's indexed accumulate, as JAX's is XLA's
+scatter-add.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["gather_km", "take_dense_symmetric_km", "reverse_slot_gather_sum"]
+__all__ = ["gather", "gather_km", "take_dense_symmetric", "take_dense_symmetric_km",
+           "reverse_slot_gather_sum", "reverse_slot_gather_sum_km"]
+
+
+def gather(h, senders):
+    """h[senders] [N, K, F], the indices clamped into [0, N) (JAX's
+    ``jnp.take(h, senders, axis=0, mode="clip")``: rows of invalid slots hold
+    some real row and every consumer masks them)."""
+    return h[torch.clamp(senders, 0, h.shape[0] - 1).long()]
 
 
 def gather_km(h, senders):
@@ -24,23 +37,61 @@ def gather_km(h, senders):
     return h[torch.clamp(senders.t(), 0, h.shape[0] - 1).long().contiguous()]
 
 
+def _slot_sum(gf, rows, valid):
+    """[N, F]: per node t, the sum over k of ``gf[rows[t, k]] * valid[t, k]``,
+    each picked row times its 0/1 validity in gf's dtype, the K terms summed
+    in fp32 in slot order and rounded once to gf's dtype.  XLA on the CPU
+    sums the JAX VJPs' bf16 ``.sum(axis=1)`` so: in fp32, rounded once (bit
+    for bit; sequential bf16 adds differ)."""
+    acc = None
+    for j in range(rows.shape[1]):
+        p = (gf[rows[:, j]] * valid[:, j:j + 1]).float()
+        acc = p if acc is None else acc + p
+    return acc.to(gf.dtype)
+
+
 def reverse_slot_gather_sum(g, reverse_slot):
+    """d_h [N, F] from node-major cotangents g [N, K, F]: per node t, the sum
+    over its slots k of g at the reverse slot ``reverse_slot[t, k]`` (flat
+    ``s*K + k'``); slots without a reverse edge (``reverse_slot == N*K``) add
+    zero.  As the JAX ``_tds_bwd``."""
+    n, k, f = g.shape
+    rs = reverse_slot.long()
+    valid = (rs < n * k).to(g.dtype)
+    return _slot_sum(g.reshape(n * k, f), torch.clamp(rs, 0, n * k - 1), valid)
+
+
+def reverse_slot_gather_sum_km(g, reverse_slot):
     """d_h [N, F] from slot-major cotangents g [K, N, F]: per node t, the sum
     over its slots k of g at the reverse slot ``reverse_slot[t, k]`` (node-major
     flat ``s*K + k'``, remapped to slot-major ``k'*N + s``); slots without a
-    reverse edge (``reverse_slot == N*K``) add zero.  As the JAX ``_tds_km_bwd``:
-    each picked row times its 0/1 validity in g's dtype, then the K terms summed
-    in fp32 in slot order and rounded once to g's dtype."""
+    reverse edge (``reverse_slot == N*K``) add zero.  As the JAX
+    ``_tds_km_bwd``."""
     k, n, f = g.shape
-    gf = g.reshape(k * n, f)
     rs = reverse_slot.long()
     valid = (rs < n * k).to(g.dtype)
     rs_km = torch.clamp((rs % k) * n + rs // k, 0, k * n - 1)
-    acc = None
-    for j in range(k):
-        p = (gf[rs_km[:, j]] * valid[:, j:j + 1]).float()
-        acc = p if acc is None else acc + p
-    return acc.to(g.dtype)
+    return _slot_sum(g.reshape(k * n, f), rs_km, valid)
+
+
+class _TakeDenseSymmetric(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, senders, reverse_slot):
+        ctx.save_for_backward(reverse_slot)
+        return gather(h, senders)
+
+    @staticmethod
+    def backward(ctx, g):
+        (reverse_slot,) = ctx.saved_tensors
+        return reverse_slot_gather_sum(g.contiguous(), reverse_slot), None, None
+
+
+def take_dense_symmetric(h, senders, reverse_slot):
+    """``gather(h, senders)``, [N, K, F] with ``out[t, k] = h[senders[t, k]]``,
+    whose gradient in h is ``reverse_slot_gather_sum``.  The JAX function's
+    ``mask`` argument is not taken: the reverse slots already mark the slots
+    without a partner."""
+    return _TakeDenseSymmetric.apply(h, senders, reverse_slot)
 
 
 class _TakeDenseSymmetricKm(torch.autograd.Function):
@@ -52,12 +103,12 @@ class _TakeDenseSymmetricKm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (reverse_slot,) = ctx.saved_tensors
-        return reverse_slot_gather_sum(g.contiguous(), reverse_slot), None, None
+        return reverse_slot_gather_sum_km(g.contiguous(), reverse_slot), None, None
 
 
 def take_dense_symmetric_km(h, senders, reverse_slot):
     """``gather_km(h, senders)``, [K, N, F] with ``out[k, t] = h[senders[t,
-    k]]``, whose gradient in h is ``reverse_slot_gather_sum``.  The JAX
+    k]]``, whose gradient in h is ``reverse_slot_gather_sum_km``.  The JAX
     function's ``mask`` argument is not taken: the reverse slots already mark
     the slots without a partner."""
     return _TakeDenseSymmetricKm.apply(h, senders, reverse_slot)

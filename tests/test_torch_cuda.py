@@ -14,7 +14,10 @@ against #13, their determinism, and lmax=2 SEGNN gradients through them
 against the plain path; the untabled lmax=1 kernels (#3 forward, #5
 backward with the reduction) against their plain versions at three widths,
 #5's determinism, and config-3-width SEGNN gradients through them
-(symmetrized, unsymmetrized, node blocks) against the plain path.
+(symmetrized, unsymmetrized, node blocks) against the plain path; the packed
+lmax=1 kernels (#6 forward, #7 backward with the reduction) against their
+plain versions at p = 2, 3, 4 and three widths, their determinism, and
+``SEGNN(pack=p)`` gradients through them against the plain path.
 
 These tests need a CUDA card and skip without one.  They import no JAX, so
 they run on a machine without it (``--noconftest`` skips the JAX-only
@@ -677,6 +680,149 @@ def test_km_segnn_gradients_kernel_match_plain_path(dev, mode):
     blocks = kw.get("edge_chunks", 1)
     # each block checkpointed under remat recomputes its forward: 2 x #3
     assert moved == [(2 if blocks > 1 else 1) * 2 * blocks, 2 * blocks, 0, 0], moved
+    for (name, a), b in zip(m_k.named_parameters(), m_p.parameters(), strict=True):
+        err = float((a.grad - b.grad).abs().max())
+        assert err <= 1e-4 * float(b.grad.abs().max()), (name, err)
+
+
+# the packed lmax=1 kernels (#6 forward, #7 backward): (hidden, K, points,
+# node blocks, pack); the last two are config 3's width, whose 1000-node
+# blocks pad to 1024
+FLAT_CASES = [("16x0e+8x1o", 8, 256, 1, 2), ("16x0e+8x1o", 8, 256, 1, 4),
+              ("8x0e+12x1o", 12, 960, 1, 3), ("32x0e+16x1o", 24, 2000, 2, 2),
+              ("32x0e+16x1o", 24, 2000, 2, 4)]
+
+
+def _flat_problem(dev, hidden, k, n, chunks, p, dtype, seed=0):
+    """#6/#7's arguments as the model hands them over for its first node
+    block: hs = h[senders] [Npad*K/p, p*F], the receivers' rows, d2, attr and
+    maskf [Npad*K/p, .] (with extra masked slots and a masked tail of 37
+    receivers), zero-padded to the km tile; the folded weights of a model's
+    layer; a random cotangent."""
+    g, _ = _graph(dev, n, k, 0.25, 32, seed=seed)
+    model = SEGNN("2x0e+1x1o", hidden, "1x1o", num_layers=1, layout="cm", use_pallas=True,
+                  device=dev, generator=torch.Generator().manual_seed(seed))
+    c = n // chunks
+    tile = SEGNNLayer._pick_km_tile(c)
+    npad = -(-c // tile) * tile
+    geo = model.compute_attributes_dense(g)[3][:c].reshape(c, k, 6).clone()
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    geo[..., 5] *= (torch.rand((c, k), generator=gen, device=dev) > 0.1).float()
+    geo[c - 37:, :, 5] = 0.0
+    f = model.hidden_irreps.dim
+    h = torch.randn((n, f), generator=gen, device=dev)
+    pad = lambda x: torch.cat([x, x.new_zeros((npad - c,) + x.shape[1:])])
+    r = npad * k // p
+    hs = pad(h[torch.clamp(g.senders[:c], max=n - 1).long()]).reshape(r, p * f)
+    geo = pad(geo)
+    args = [hs, pad(h[:c]), geo[..., 4].reshape(r, p), geo[..., :4].reshape(r, 4 * p),
+            geo[..., 5].reshape(r, p)]
+    layer = model.layers[0]
+    cfg = fm.MessageConfig(hs=layer._pallas_hs, hv=layer._pallas_hv, k=k, tile=tile, pack=p)
+    d_agg = torch.randn((npad, f), generator=gen, device=dev).to(dtype)
+    return cfg, [x.to(dtype).contiguous() for x in args], layer._folded_weights(dtype), d_agg
+
+
+@pytest.mark.parametrize("hidden,k,n,chunks,p", FLAT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flat_fwd_kernel_matches_plain(dev, hidden, k, n, chunks, p, dtype):
+    """#6 against its plain version (the same rounding points): as
+    test_km_fwd_kernel_matches_plain; receivers without a valid slot give
+    exact zeros; two runs are bitwise equal."""
+    cfg, args, ws, _ = _flat_problem(dev, hidden, k, n, chunks, p, dtype)
+    before = fm.FLAT_FWD.launches
+    with torch.no_grad():
+        got = fm.fused_message_aggregate_fwd(cfg, *args, *ws)
+        again = fm.fused_message_aggregate_fwd(cfg, *args, *ws)
+        ref = fm.fused_message_aggregate_plain(cfg, *args, *ws)
+    torch.cuda.synchronize()
+    assert fm.FLAT_FWD.launches == before + 2
+    assert got.shape == ref.shape and got.dtype == dtype
+    assert torch.equal(got, again)
+    _check_generic(got, ref, dtype)
+    c = n // chunks
+    assert (got[c - 37:] == 0).all()
+
+
+@pytest.mark.parametrize("hidden,k,n,chunks,p", FLAT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flat_bwd_kernels_match_plain(dev, hidden, k, n, chunks, p, dtype):
+    """#7 and the reduction against the plain backward, as
+    test_km_bwd_kernels_match_plain (d_hs [Npad*K/p, p*F]); d_hs is zero on
+    masked slots; no other lmax=1 backward runs."""
+    cfg, args, ws, d_agg = _flat_problem(dev, hidden, k, n, chunks, p, dtype)
+    ws6 = fm.split_weights(cfg, *ws)
+    kerns = (fm.FLAT_BWD, fm.TAB_BWD_REDUCE, fm.TAB_BWD, fm.KM_BWD)
+    before = [kern.launches for kern in kerns]
+    with torch.no_grad():
+        got = fm.flat_bwd_kernels(cfg, *args, ws6, d_agg)
+        torch.cuda.synchronize()
+        assert [kern.launches - b for kern, b in zip(kerns, before)] == [1, 1, 0, 0]
+        ref = fm.flat_bwd_plain(cfg, *args, ws6, d_agg)
+    assert got[0].shape == args[0].shape
+    _check_bwd(got, ref, dtype)
+    f = args[1].shape[1]
+    dead = args[4].reshape(-1) == 0
+    assert (got[0].reshape(-1, f)[dead] == 0).all()
+
+
+@pytest.mark.parametrize("p", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flat_bwd_is_deterministic(dev, dtype, p):
+    """Two runs of #7 + the reduction are bitwise equal (no float atomics)."""
+    cfg, args, ws, d_agg = _flat_problem(dev, *FLAT_CASES[3][:4], p, dtype)
+    one = fm.fused_message_aggregate_bwd(cfg, *args, *ws, d_agg)
+    two = fm.fused_message_aggregate_bwd(cfg, *args, *ws, d_agg)
+    for x, y in zip(one, two, strict=True):
+        assert torch.equal(x, y)
+
+
+def test_flat_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    cfg, args, ws, d_agg = _flat_problem(dev, *FLAT_CASES[0], torch.float32)
+    with pytest.raises(TypeError):
+        fm.fused_message_aggregate_fwd(cfg, *(x.half() for x in args), *(w.half() for w in ws))
+    with pytest.raises(ValueError, match="contiguous"):
+        fm.fused_message_aggregate_fwd(cfg, args[0].t().contiguous().t(), *args[1:], *ws)
+    with pytest.raises(ValueError, match="must be on"):
+        fm.fused_message_aggregate_bwd(cfg, *args[:2], args[2].cpu(), *args[3:], *ws, d_agg)
+
+
+FLAT_MODES = {  # model settings, symmetrized graph
+    "symmetrized": (dict(), True),
+    "unsymmetrized": (dict(remat=True), False),
+    "edge_chunks": (dict(remat=True, edge_chunks=2), True),
+}
+
+
+@pytest.mark.parametrize("p", [2, 4])
+@pytest.mark.parametrize("mode", sorted(FLAT_MODES))
+def test_flat_segnn_gradients_kernel_match_plain_path(dev, mode, p):
+    """fp32 MSE gradients of every parameter of a 2-layer config-3-width
+    ``SEGNN(pack=p)`` on a graph without tables, through #6 and #7 (senders
+    by take_dense_symmetric, by gather, and in node blocks of 1000 padded to
+    1024), against autograd of the plain path: 1e-4 * max|ref| per parameter;
+    none of the other lmax=1 kernels runs."""
+    n = 2000
+    kw, sym = FLAT_MODES[mode]
+    g, _ = _graph(dev, n, 24, 0.12, 160)
+    if not sym:
+        g = g._replace(reverse_slot=None)
+    m_k = SEGNN("2x0e+1x1o", "32x0e+16x1o", "1x1o", num_layers=2, layout="cm",
+                use_pallas=True, pack=p, device=dev,
+                generator=torch.Generator().manual_seed(13), **kw)
+    m_p = SEGNN("2x0e+1x1o", "32x0e+16x1o", "1x1o", num_layers=2, layout="cm",
+                use_pallas=False, device=dev)
+    m_p.load_state_dict(m_k.state_dict())
+    target = torch.randn((n, 3), generator=torch.Generator(device=dev).manual_seed(14),
+                         device=dev)
+    kerns = (fm.FLAT_FWD, fm.FLAT_BWD, fm.KM_FWD, fm.KM_BWD, fm.TAB_FWD, fm.TAB_BWD)
+    before = [kern.launches for kern in kerns]
+    ((m_k(g) - target) ** 2).mean().backward()
+    ((m_p(g) - target) ** 2).mean().backward()
+    moved = [kern.launches - b for kern, b in zip(kerns, before)]
+    blocks = kw.get("edge_chunks", 1)
+    # each block checkpointed under remat recomputes its forward: 2 x #6
+    assert moved == [(2 if blocks > 1 else 1) * 2 * blocks, 2 * blocks, 0, 0, 0, 0], moved
     for (name, a), b in zip(m_k.named_parameters(), m_p.parameters(), strict=True):
         err = float((a.grad - b.grad).abs().max())
         assert err <= 1e-4 * float(b.grad.abs().max()), (name, err)
