@@ -130,6 +130,26 @@ Phases, each printing one JSON line:
                  points against the plain path and against pack 1 (#3/#5),
                  symmetrized and with edge_chunks=4; the kernels' times,
                  bounds and the step times.
+38. graph_vjp, train_vjp_250k -- tools/exp_residual_bwd.py's A/B of the
+                 three generic backwards on its 250k graph (no tables, bf16,
+                 remat; run after phase 23): replay_bwd=False (4 of #11 and 4
+                 of #14 per step, #14's weight-gradient kernel and the
+                 reduction once per group of backward tiles), #13 and #12.
+39. kernel_vjp -- #14 against its plain version there in fp32 and bf16 at
+                 backward tiles 200 and 80; reruns bit-identical; times.
+40. train_vjp_1m -- the 1M remat_kernel step with replay_bwd=False (no
+                 tables): 8 of #11 (the checkpoint replays it), 4 of #14 at
+                 backward tile 80 per step.
+41. grad_check_vjp -- fp32 gradients through #14 at 20k points against the
+                 plain path and against #13.
+42. forward_sparse, train_sparse -- the lmax_attr=5 model (non-foldable
+                 message layers, A=36) on the 250k graph: a counted forward
+                 (4 of #11) and 3 counted steps (4 of #11, 4 of #14); peak
+                 memory.
+43. kernel_sparse, grad_check_sparse, vjp_times -- #11 and #14 at A=36
+                 against their plain versions (bf16), fp32 gradients of the
+                 lmax_attr=5 model at 20k points against the plain path; the
+                 times.
 
 Then the ``kernels`` line, the card line and, last, the result line.  Any
 failed check raises: the script exits non-zero and prints no result.  It
@@ -621,7 +641,7 @@ def bwd_compare(got, ref, elementwise: bool, fp32: bool,
     return out
 
 
-def explain_d_hs(cfg, args, d_agg, ys, got, ref) -> dict:
+def explain_d_hs(cfg, args, d_agg, ys, got, ref, vjp: bool = False) -> dict:
     """The slot rows of the untabled d_hs [K, N, F] (bf16) that hold an
     element over TOL_GENERIC_BWD_BF16_ULPS: the kernel's chain (the mode of
     ``ys``) gives its dy_1 rows, and the plain last stage (``fmg._layer_dm``:
@@ -630,7 +650,8 @@ def explain_d_hs(cfg, args, d_agg, ys, got, ref) -> dict:
     counts the elements over the limit in rows where that does not hold
     within TOL_FLIP_REFED_ULPS.  For the record: the plain chain's dy_1 on
     the same rows, and how far the kernel's is from it (elements that differ,
-    the largest difference in ulps of the element itself)."""
+    the largest difference in ulps of the element itself).  ``vjp``: #14's
+    chain and last stage (``fmg._layer_vjp``), without that record."""
     hs, h, geo2, ws, sels = args
     k, n, f = got.shape
     floor = float(ref.float().abs().mean())
@@ -642,11 +663,17 @@ def explain_d_hs(cfg, args, d_agg, ys, got, ref) -> dict:
     c1, da, _ = cfg.widths[0]
     a = cfg.a
     with torch.no_grad():
-        dy1 = fmg.generic_bwd_chain(cfg, *args, d_agg, ys)[2][rows, :da]
+        dy1 = fmg.generic_bwd_chain(cfg, *args, d_agg, ys, vjp=vjp)[2][rows, :da]
         attr = geo2.reshape(n * k, a + 2)[rows, :a]
-        refed = fmg._layer_dm(dy1, attr, ws[0].float(), c1, a)[:, :f]
+        if vjp:
+            refed = fmg._layer_vjp(dy1, attr.float(), ws[0].float(), None, c1, a, 1)[0][:, :f]
+        else:
+            refed = fmg._layer_dm(dy1, attr, ws[0].float(), c1, a)[:, :f]
         r_ulps = bf16_ulps(got[kk, ii], refed, floor)
         unexplained = int((bad[kk, ii] & (r_ulps > TOL_FLIP_REFED_ULPS)).sum())
+        if vjp:
+            return dict(rows_over=int(rows.numel()), unexplained=unexplained,
+                        refed_max_ulps=float(r_ulps.max()) if rows.numel() else 0.0)
         # the plain chain's dy_1 on the receivers of those rows
         recv = torch.unique(ii)
         sub = [hs[:, recv].contiguous(), h[recv], geo2[recv]]
@@ -1240,6 +1267,7 @@ def untabled_phases(card: str, ctx: dict) -> dict:
         out[label] = untabled_check(label, kern, cfg, args, n_valid, d_agg,
                                     times=label == "untabled_250k")
         del cfg, args, d_agg
+    ctx["g1m_untabled"] = g1m  # #14's 1M remat_kernel step trains on it again
     del g1m, attrs1, g250, attrs_bf, g_bf
     t = out["untabled_250k"]["times"]
     emit("untabled_times", card=card, step_ms_250k=step_ms_250k, step_ms_sym_1m=step_ms_1m,
@@ -1997,6 +2025,357 @@ def pack_phases(card: str, graph3) -> dict:
     }
 
 
+VJP_TILES = (200, 80)  # #14's backward tiles: the 250k step's (= the tile) and under
+#                        remat_kernel at 1M (the largest of 80, 64, ... dividing N)
+SPARSE_LMAX_ATTR = 5  # attributes 36 wide: non-foldable message layers
+
+
+def vjp_graph(dev):
+    """tools/exp_residual_bwd.py's graph: 250k uniform points, their features
+    and the target from one default_rng(0), 7 octree levels, r = 0.04 *
+    (100000/250000)^(1/3), K=16, the suggested cell capacity, symmetrized, no
+    gather tables.  Returns (graph, target, cell capacity, times)."""
+    rng = np.random.default_rng(0)
+    pts = rng.random((L2_POINTS, 3)).astype(np.float32)
+    t = {}
+    tree, t["octree_ms"] = sync_time(
+        lambda: port.build_octree(pts, LO, HI, num_levels=L2_OCTREE_LEVELS, device=dev))
+    cap = port.suggest_cell_capacity(tree, L2_RADIUS, LO, HI)
+    edges, t["radius_graph_ms"] = sync_time(
+        lambda: port.radius_graph_cell(tree, L2_RADIUS, LO, HI, max_neighbors=L2_NEIGHBORS,
+                                       cell_capacity=cap))
+    feats = rng.standard_normal((L2_POINTS, 5)).astype(np.float32)
+    graph, t["symmetrize_ms"] = sync_time(
+        lambda: port.DenseEdgeGraph.from_radius_edges(feats, tree.points, edges,
+                                                      symmetrize=True))
+    target = torch.from_numpy(rng.standard_normal((L2_POINTS, 3)).astype(np.float32)).to(dev)
+    return graph, target, cap, t
+
+
+def vjp_launches(model, n: int, tile: int) -> dict:
+    """#14's launches per train step of ``model`` on n receivers: per message
+    layer one chain, and one weight-gradient launch and one reduction per group
+    of backward tiles (``fmg.vjp_group``)."""
+    kern = fmg.FusedMessageGeneric(model.layers[0].message_layers, L2_NEIGHBORS, tile)
+    cfg = kern.config(model.attr_irreps.dim, 0)
+    ntiles = n // model.layers[0]._pick_bwd_tile(n)
+    groups = -(-ntiles // fmg.vjp_group(cfg, ntiles))
+    return {fmg.GENERIC_BWD_VJP.name: NUM_LAYERS,
+            fmg.GENERIC_BWD_VJP_WGRAD.name: NUM_LAYERS * groups,
+            fm.TAB_BWD_REDUCE.name: NUM_LAYERS * groups}
+
+
+def vjp_check(label, kern, cfg, args, n_valid, d_agg, bwd_tile: int, times: bool) -> dict:
+    """#14 whole (the vjp chain, the per-tile weight-gradient kernel, the
+    reduction) against its plain version on one set of inputs; two runs
+    bitwise equal.  With ``times``, CUDA-event times of #14, of its chain, of
+    one weight-gradient launch (a group of tiles) and of their plain versions,
+    and the bounds.  Emits a ``kernel_vjp`` line; returns its numbers."""
+    fp32 = args[1].dtype == torch.float32
+    hs, h, geo2, ws, sels = args
+    flat = lambda r: [r[0], r[1], *r[2]]
+    with torch.no_grad():
+        got = flat(fmg.generic_bwd_vjp_kernels(cfg, *args, d_agg, bwd_tile))
+        again = flat(fmg.generic_bwd_vjp_kernels(cfg, *args, d_agg, bwd_tile))
+        torch.cuda.synchronize()
+        identical = all(torch.equal(x, y) for x, y in zip(got, again))
+        del again
+        ref = flat(fmg.generic_bwd_vjp_plain(cfg, *args, d_agg, bwd_tile))
+        cmp = {nm: bwd_compare(x, y, el, fp32) for (nm, el), x, y in zip(UNTAB_OUTPUTS, got, ref)}
+        c = cmp["d_hs"]
+        if not fp32 and c["over_ulps"]:
+            c["explained"] = explain_d_hs(cfg, args, d_agg, None, got[0], ref[0], vjp=True)
+            c["over"] = c["explained"]["unexplained"] + int(
+                c["share_over_1ulp"] > TOL_GENERIC_BWD_BF16_OVER_1ULP)
+        del ref
+    n, k = h.shape[0], cfg.k
+    ntiles = n // bwd_tile
+    out = dict(label=label, dtype=str(h.dtype).replace("torch.", ""), rows=n, k=k, a=cfg.a,
+               bwd_tile=bwd_tile, tiles=ntiles, group=fmg.vjp_group(cfg, ntiles),
+               valid_slots=n_valid, compared=cmp, bit_identical_reruns=identical,
+               max_abs_err=max(v["max_abs_err"] for v in cmp.values()))
+    if times:
+        g = out["group"]
+        with torch.no_grad():
+            rows = fmg.generic_bwd_chain(cfg, *args, d_agg, vjp=True)[2:]
+            t = dict(
+                ms=event_ms(lambda: fmg.generic_bwd_vjp_kernels(cfg, *args, d_agg, bwd_tile),
+                            iters=3, warmup=1),
+                chain_ms=event_ms(lambda: fmg.generic_bwd_chain(cfg, *args, d_agg, vjp=True),
+                                  iters=3, warmup=1),
+                wgrad_ms=event_ms(lambda: fmg.generic_bwd_vjp_wgrad(
+                    cfg, geo2, *rows, bwd_tile * k, 0, g), iters=3, warmup=1),
+                plain_ms=event_ms(lambda: fmg.generic_bwd_vjp_plain(cfg, *args, d_agg, bwd_tile),
+                                  iters=1, warmup=1),
+                wgrad_plain_ms=event_ms(lambda: fmg.generic_bwd_vjp_wgrad_plain(
+                    cfg, geo2, *rows, bwd_tile * k, 0, g), iters=1, warmup=1))
+        # bounds: each input read once, each output written once; #14 whole
+        # makes 3 passes of the folded weights' nonzeros per valid slot (the
+        # replay, dm, dW'), as #13; its chain 2 (the replay, dm) against the
+        # rows it writes for the weight gradients; one weight-gradient launch
+        # one pass over the valid slots of its tiles against their rows and
+        # its partials
+        fps = kern.flops_per_slot()
+        wsz = nbytes(*ws, *sels)
+        dws = 4 * sum(w.numel() for w in ws)
+        a = cfg.a
+        valid_g = int((geo2[:g * bwd_tile].reshape(g * bwd_tile, k, a + 2)[..., a + 1] > 0).sum())
+        row_bytes = lambda x, r: x[:r].numel() * x.element_size()
+        t["bounds"] = {k_: dict(zip(("bound_ms", "bound_by", "bytes_ms", "ops_ms"), v)) for k_, v in (
+            ("whole", bound(nbytes(hs, h, geo2, d_agg, got[0], got[1]) + wsz + dws,
+                            3 * fps * n_valid)),
+            ("chain", bound(nbytes(hs, h, geo2, d_agg, got[0], got[1], *rows) + wsz,
+                            2 * fps * n_valid)),
+            ("wgrad", bound(sum(row_bytes(x, g * bwd_tile * k) for x in rows) +
+                            row_bytes(geo2, g * bwd_tile) + g * dws, fps * valid_g)))}
+        t["valid_slots_group"] = valid_g
+        out["times"] = t
+        del rows
+    emit("kernel_vjp", kernels=[fmg.GENERIC_BWD_VJP.name, fmg.GENERIC_BWD_VJP_WGRAD.name,
+                                fm.TAB_BWD_REDUCE.name], **out,
+         tolerance=(f"{TOL_BWD_FP32} * max(1, |ref|) elementwise for d_hs, d_hr; "
+                    f"{TOL_BWD_FP32} * max|ref| for dW' (fp32 sums in another order)") if fp32 else
+         (f"{TOL_GENERIC_BWD_BF16_ULPS} bf16 ulps of max(|ref|, mean|ref|) elementwise and at "
+          f"most {TOL_GENERIC_BWD_BF16_OVER_1ULP} of the elements over 1 ulp (kernel and plain "
+          "version round at the same points); a d_hs element over the limit passes only if "
+          "#14's plain last stage fed the kernel's dy_1 of its slot row gives the kernel's row "
+          f"within {TOL_FLIP_REFED_ULPS} ulp; reruns bitwise"))
+    bad = {nm: v for nm, v in cmp.items() if v["over"] or not v["finite"]}
+    check(not bad, f"{label}: #14 vs plain in {h.dtype} at bwd_tile {bwd_tile}: {bad}")
+    check(identical, f"{label}: two runs of #14 differ")
+    return out
+
+
+def vjp_grad_check(dev, lmax_attr: int) -> dict:
+    """fp32 gradients of every parameter through #11/#14 at GC2_POINTS (the
+    250k density, no tables) against autograd through the plain path, and
+    at lmax_attr=2 also against the replay backward (#13) elementwise."""
+    pts = np.random.default_rng(SEED + 40).random((GC2_POINTS, 3)).astype(np.float32)
+    levels = max(4, search_level_for_radius(GC2_RADIUS, LO, HI) + 1)
+    _, _, _, g_gc, _ = build_graph(pts, radius=GC2_RADIUS, levels=levels, k=L2_NEIGHBORS,
+                                   tile=SEGNNLayer._pick_generic_tile(GC2_POINTS))
+    g_gc = g_gc._replace(**NO_TABLES)
+    t_gc = torch.from_numpy(np.random.default_rng(SEED + 41).standard_normal(
+        (GC2_POINTS, 3)).astype(np.float32)).to(dev)
+    mk = lambda use_pallas, **kw: port.SEGNN(
+        "2x0e+1x1o", L2_HIDDEN, "1x1o", lmax_attr=lmax_attr, num_layers=NUM_LAYERS, layout="cm",
+        use_pallas=use_pallas, device=dev, generator=torch.Generator().manual_seed(SEED), **kw)
+    m_p = mk(False)
+    attrs = geo_only(m_p, g_gc, torch.float32)
+    loss_p = mse_loss(m_p(g_gc, attrs=attrs), t_gc)
+    loss_p.backward()
+    ref = {nm: p.grad for nm, p in m_p.named_parameters()}
+    legs = {"vjp": (dict(remat=True, residual_bwd=False, replay_bwd=False), fmg.GENERIC_BWD_VJP)}
+    if lmax_attr == 2:
+        legs["replay"] = (dict(remat=True, residual_bwd=False), fmg.GENERIC_BWD_REP)
+    out, grads = {}, {}
+    for leg, (kw, kern_) in legs.items():
+        m_k = mk(True, **kw)
+        before = kern_.launches
+        loss_k = mse_loss(m_k(g_gc, attrs=attrs), t_gc)
+        loss_k.backward()
+        grads[leg] = {nm: p.grad for nm, p in m_k.named_parameters()}
+        worst, worst_name = 0.0, ""
+        for nm, gr in grads[leg].items():
+            rel = float((gr - ref[nm]).abs().max()) / max(float(ref[nm].abs().max()), 1e-30)
+            if rel > worst:
+                worst, worst_name = rel, nm
+        out[leg] = dict(loss_kernel=loss_k.item(), worst_param=worst_name, worst_rel_err=worst,
+                        launches=kern_.launches - before)
+        check(kern_.launches - before == NUM_LAYERS, f"gradient check {leg}: {kern_.name}")
+        check(worst <= TOL_GRAD_FP32, f"fp32 gradients ({leg}): {worst_name} off by {worst}")
+        check(abs(loss_k.item() - loss_p.item()) <= 1e-5 * loss_p.item(), f"losses ({leg})")
+        del m_k, loss_k
+    if "replay" in grads:
+        worst = max(float(((grads["vjp"][nm] - gr).abs() / gr.abs().clamp(min=1.0)).max())
+                    for nm, gr in grads["replay"].items())
+        out["vjp_vs_replay_worst"] = worst
+        check(worst <= TOL_PACK_VS_KM, f"#14 vs #13 fp32 gradients: {worst}")
+    return dict(points=GC2_POINTS, lmax_attr=lmax_attr, edges_symmetrized=int(
+        g_gc.edge_mask.sum()), loss_plain=loss_p.item(), legs=out)
+
+
+def vjp_phases(card: str, ctx: dict) -> dict:
+    """Phases 38-43: the fallback backward #14 (``replay_bwd=False``, and the
+    non-foldable message layers of ``lmax_attr=5``).  Returns the ``kernels``
+    rows of #14, its weight-gradient kernel and #11's A=36 instance.
+
+    38. graph_vjp, train_vjp_250k -- tools/exp_residual_bwd.py's A/B on its
+        250k graph (no tables), bf16, ``remat``: the three generic backwards
+        in one phase, each 3 counted steps and a timed step: replay_bwd=False
+        (4 of #11 and 4 of #14 per step, #14's weight-gradient kernel and the
+        reduction once per group of tiles), replay (#11, #13) and residual
+        (#11 save, #12); none of #8-#10 in any.
+    39. kernel_vjp -- #14 against its plain version at those shapes in fp32
+        and bf16, at backward tiles 200 and 80; times at 200 (bf16).
+    40. train_vjp_1m -- the 1M ``remat_kernel`` step with replay_bwd=False on
+        the 1M graph without tables: the checkpoint replays #11 (8 per step),
+        4 of #14 at backward tile 80.
+    41. grad_check_vjp -- fp32 gradients through #11/#14 at 20k points
+        against the plain path and against #13 (1e-5 * max(1, |ref|)).
+    42. forward_sparse, train_sparse -- the lmax_attr=5 model (the lmax=2
+        config's widths; message layers off the folded-GEMM path) on the
+        250k graph: a counted bf16 forward (4 of #11) and 3 counted steps
+        (4 of #11, 4 of #14); peak memory.
+    43. kernel_sparse, grad_check_sparse -- #11 and #14 at A=36 against their
+        plain versions at the 250k shapes (bf16); fp32 gradients of the
+        lmax_attr=5 model at 20k points against the plain path."""
+    dev = torch.device(DEVICE)
+    bf = torch.bfloat16
+    n = L2_POINTS
+    tile = SEGNNLayer._pick_generic_tile(n)
+    # ---- 38. the graph and the A/B
+    graph, target, cap, gtimes = vjp_graph(dev)
+    emit("graph_vjp", points=n, radius=L2_RADIUS, k=L2_NEIGHBORS, cell_capacity=cap,
+         octree_levels=L2_OCTREE_LEVELS, edges_symmetrized=int(graph.edge_mask.sum()),
+         tables=False, card=card, graph_build_ms=sum(gtimes.values()), **gtimes)
+    g_bf = graph._replace(nodes=graph.nodes.to(bf))
+    fwd4 = {fmg.GENERIC_FWD.name: NUM_LAYERS}
+    red4 = {fmg.GENERIC_TAB_BWD_WGRAD.name: NUM_LAYERS, fm.TAB_BWD_REDUCE.name: NUM_LAYERS}
+    legs = (("replay_bwd=False (#14)", dict(residual_bwd=False, replay_bwd=False), None),
+            ("replay (#13)", dict(residual_bwd=False), {fmg.GENERIC_BWD_REP.name: NUM_LAYERS}),
+            ("residual (#12)", {}, {fmg.GENERIC_BWD_RES.name: NUM_LAYERS}))
+    ab, launches_vjp, kern = {}, None, None
+    for leg, kw, bwd in legs:
+        model = lmax2_model(dev, remat=True, **kw)
+        check(not any(layer._tab_eligible(n, graph) or layer._sym_regather_eligible(n, True)
+                      for layer in model.layers), f"{leg}: not the untabled path")
+        attrs_bf = geo_only(model, graph, bf)
+        want = expected({**fwd4, **(vjp_launches(model, n, tile) if bwd is None
+                                    else {**bwd, **red4})})
+        step = train_run(model, g_bf, attrs_bf, target, L2_TRAIN_STEPS, card, "train_vjp_250k",
+                         want, points=n, leg=leg, backward_tile=model.layers[0]._pick_bwd_tile(n),
+                         remat=True, tables=False)
+        if bwd is None:
+            launches_vjp = launch_counts()
+            kern = fmg.FusedMessageGeneric(model.layers[0].message_layers, L2_NEIGHBORS, tile,
+                                           residual_bwd=False, replay_bwd=False)
+        ab[leg] = dict(step_ms=event_ms(lambda: step(g_bf, attrs_bf, target), iters=2, warmup=0),
+                       step_ms_counted=step.step_ms)
+        del step, model
+    emit("train_vjp_250k_ab", card=card, points=n, steps=ab,
+         tool="tools/exp_residual_bwd.py: (residual_bwd, replay_bwd) = (False, False), "
+              "(False, True), (True, True)")
+    # ---- 39. #14 against its plain version at the 250k shapes
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    kv = {}
+    for dtype in (torch.float32, bf):
+        h_ext = torch.randn((n, kern.config(9, 0).f), generator=gen, device=dev)
+        cfg, args, n_valid = untabled_inputs(kern, graph.senders, attrs_bf[3], h_ext, 0, n,
+                                             dtype, gen)
+        del h_ext
+        d_agg = torch.randn((n, cfg.out_dim), generator=gen, device=dev).to(dtype)
+        for bt in VJP_TILES:
+            kv[(dtype, bt)] = vjp_check("vjp_250k", kern, cfg, args, n_valid, d_agg, bt,
+                                        times=dtype == bf and bt == VJP_TILES[0])
+        del cfg, args, d_agg
+    t14 = kv[(bf, VJP_TILES[0])]["times"]
+    # ---- 40. the 1M remat_kernel step with replay_bwd=False
+    n1 = L1M_POINTS
+    g1m = ctx.pop("g1m_untabled")
+    model = lmax2_model(dev, remat=True, remat_kernel=True, replay_bwd=False)
+    layer = model.layers[0]
+    check(layer._pick_bwd_tile(n1) == VJP_TILES[1] and not layer._tab_eligible(n1, g1m)
+          and not layer._sym_regather_eligible(n1, True), "1M: not #14 at backward tile 80")
+    attrs1 = geo_only(model, g1m, bf)
+    g1_bf = g1m._replace(nodes=g1m.nodes.to(bf))
+    target1 = torch.from_numpy(np.random.default_rng(SEED + 43).standard_normal(
+        (n1, 3)).astype(np.float32)).to(dev)
+    want = expected({fmg.GENERIC_FWD.name: 2 * NUM_LAYERS,
+                     **vjp_launches(model, n1, SEGNNLayer._pick_generic_tile(n1))})
+    step = train_run(model, g1_bf, attrs1, target1, L1M_TRAIN_STEPS, card, "train_vjp_1m", want,
+                     points=n1, backward_tile=VJP_TILES[1], remat=True, remat_kernel=True,
+                     tables=False)
+    step_ms_1m = step.step_ms[-1]
+    del step, model, g1_bf, attrs1, g1m, target1
+    # ---- 41. fp32 gradients through #14
+    gc = vjp_grad_check(dev, 2)
+    emit("grad_check_vjp", **gc, tolerance=(
+        f"{TOL_GRAD_FP32} * max|ref| per parameter against the plain path; #14 against #13 "
+        f"{TOL_PACK_VS_KM} * max(1, |ref|) elementwise (fp32: every rounding of #14 is the "
+        "identity, sums in another order)"))
+    # ---- 42. the lmax_attr=5 model: forward and train step
+    model = port.SEGNN("2x0e+1x1o", L2_HIDDEN, "1x1o", lmax_attr=SPARSE_LMAX_ATTR,
+                       num_layers=NUM_LAYERS, layout="cm", use_pallas=True, device=dev,
+                       generator=torch.Generator().manual_seed(SEED))
+    layer = model.layers[0]
+    check(not layer.message_layers[0].tp._gemm_default() and layer.use_pallas_generic,
+          "lmax_attr=5: the message layers are on the folded-GEMM path")
+    attrs5 = geo_only(model, graph, bf)
+    p_bf = {nm: w.to(bf) for nm, w in model.named_parameters()}
+    fwd5 = lambda: torch.func.functional_call(model, p_bf, (g_bf,), {"attrs": attrs5})
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        out5 = fwd5()
+        torch.cuda.synchronize()
+        fwd_launches = launch_counts()
+        fwd_peak = torch.cuda.max_memory_allocated() / 1e9
+        fwd5_ms = event_ms(fwd5, iters=2, warmup=1)
+    emit("forward_sparse", points=n, lmax_attr=SPARSE_LMAX_ATTR, attr_width=model.attr_irreps.dim,
+         layers=NUM_LAYERS, dtype="bfloat16", shape=list(out5.shape), launches=fwd_launches,
+         finite=bool(torch.isfinite(out5).all()), forward_ms=fwd5_ms, peak_mem_gb=fwd_peak,
+         card=card)
+    check(fwd_launches == expected(fwd4), f"lmax_attr=5 forward launches {fwd_launches}")
+    check(tuple(out5.shape) == (n, 3) and bool(torch.isfinite(out5).all()),
+          "lmax_attr=5 forward: shape or finite")
+    del out5, p_bf
+    want = expected({**fwd4, **vjp_launches(model, n, tile)})
+    step = train_run(model, g_bf, attrs5, target, L2_TRAIN_STEPS, card, "train_sparse", want,
+                     points=n, lmax_attr=SPARSE_LMAX_ATTR, backward="#14 (non-foldable layers)",
+                     tables=False)
+    launches5 = launch_counts()
+    step5_ms = event_ms(lambda: step(g_bf, attrs5, target), iters=1, warmup=0)
+    kern5 = fmg.FusedMessageGeneric(layer.message_layers, L2_NEIGHBORS, tile)
+    del step, model
+    # ---- 43. #11 and #14 at A=36 against their plain versions; fp32 gradients
+    h_ext = torch.randn((n, kern5.config(36, 0).f), generator=gen, device=dev)
+    cfg5, args5, n_valid5 = untabled_inputs(kern5, graph.senders, attrs5[3], h_ext, 0, n, bf, gen)
+    del h_ext
+    with torch.no_grad():
+        agg = fmg.generic_fwd(cfg5, *args5)
+        fwd_cmp = bwd_compare(agg, fmg.generic_fwd_plain(cfg5, *args5), True, False)
+        fwd36 = dict(
+            ms=event_ms(lambda: fmg.generic_fwd(cfg5, *args5), iters=3, warmup=1),
+            plain_ms=event_ms(lambda: fmg.generic_fwd_plain(cfg5, *args5), iters=1, warmup=1))
+        hs5, h5, geo5, ws5, sels5 = args5
+        b = bound(nbytes(hs5, h5, geo5, *ws5, *sels5, agg), kern5.flops_per_slot() * n_valid5)
+        fwd36.update(bound_ms=b[0], bound_by=b[1], bytes_ms=b[2], ops_ms=b[3])
+    d_agg5 = torch.randn((n, cfg5.out_dim), generator=gen, device=dev).to(bf)
+    k36 = vjp_check("vjp_250k_attr36", kern5, cfg5, args5, n_valid5, d_agg5, VJP_TILES[0],
+                    times=True)
+    gc5 = vjp_grad_check(dev, SPARSE_LMAX_ATTR)
+    emit("kernel_sparse", card=card, a=cfg5.a, valid_slots=n_valid5, fwd_compared=fwd_cmp,
+         fwd_times=fwd36, vjp_times=k36["times"], step_ms_250k=step5_ms,
+         tolerance=f"#11: {TOL_GENERIC_BWD_BF16_ULPS} bf16 ulps, as kernel_untabled")
+    check(not fwd_cmp["over"] and fwd_cmp["finite"], f"#11 at A=36 vs plain: {fwd_cmp}")
+    emit("grad_check_sparse", **gc5,
+         tolerance=f"{TOL_GRAD_FP32} * max|ref| per parameter; fp32 sums in another order")
+    emit("vjp_times", card=card, step_ms_250k=ab, step_ms_1m=step_ms_1m, kernel_250k=t14,
+         sparse_step_ms_250k=step5_ms, sparse_forward_ms=fwd5_ms)
+    del graph, g_bf, attrs_bf, attrs5, args5, d_agg5, agg
+    piece = dict(piece_of=[fmg.GENERIC_BWD_VJP.name])
+    return {
+        fmg.GENERIC_BWD_VJP.name: dict(
+            launches=launches_vjp[fmg.GENERIC_BWD_VJP.name],
+            max_abs_err=kv[(bf, VJP_TILES[0])]["max_abs_err"], ms=t14["ms"],
+            plain_ms=t14["plain_ms"], bound_ms=t14["bounds"]["whole"]["bound_ms"],
+            bound_by=t14["bounds"]["whole"]["bound_by"], library_ms=None,
+            chain_ms=t14["chain_ms"], bwd_tile=VJP_TILES[0]),
+        fmg.GENERIC_BWD_VJP_WGRAD.name: dict(
+            launches=launches_vjp[fmg.GENERIC_BWD_VJP_WGRAD.name],
+            max_abs_err=kv[(bf, VJP_TILES[0])]["compared"]["dW1"]["max_abs_err"],
+            ms=t14["wgrad_ms"], plain_ms=t14["wgrad_plain_ms"],
+            bound_ms=t14["bounds"]["wgrad"]["bound_ms"],
+            bound_by=t14["bounds"]["wgrad"]["bound_by"], library_ms=None,
+            tiles_per_launch=kv[(bf, VJP_TILES[0])]["group"], **piece),
+        "generic_fwd_attr36": dict(
+            launches=launches5[fmg.GENERIC_FWD.name], max_abs_err=fwd_cmp["max_abs_err"],
+            ms=fwd36["ms"], plain_ms=fwd36["plain_ms"], bound_ms=fwd36["bound_ms"],
+            bound_by=fwd36["bound_by"], library_ms=None, instance="A=36 (lmax_attr=5)"),
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2317,6 +2696,10 @@ def main() -> int:
 
     # ---- 21-23. the untabled paths at 250k (#11 save, #12) and 1M (#11, #13)
     l2u = untabled_phases(card, l2ctx)
+
+    # ---- 38-43. the fallback backward #14: replay_bwd=False at 250k and 1M,
+    #      the lmax_attr=5 model
+    vj = vjp_phases(card, l2ctx)
     del l2ctx
 
     # ---- 24-27. config 5: 10M points, edge_chunks, remat_layers (#11, #13)
@@ -2358,6 +2741,11 @@ def main() -> int:
          for kern, line, row in ((fmg.GENERIC_FWD, 556, c5[fmg.GENERIC_FWD.name]),
                                  (fmg.GENERIC_BWD_RES, 802, l2u[fmg.GENERIC_BWD_RES.name]),
                                  (fmg.GENERIC_BWD_REP, 710, c5[fmg.GENERIC_BWD_REP.name]))]
+      + [{"name": kern.name, "route": "cuda", "source": src(kern),
+          "replaces": f"{GENERIC_TPU_FILE}:{line}", **vj[key]}
+         for kern, line, key in ((fmg.GENERIC_BWD_VJP, 617, fmg.GENERIC_BWD_VJP.name),
+                                 (fmg.GENERIC_BWD_VJP_WGRAD, 674, fmg.GENERIC_BWD_VJP_WGRAD.name),
+                                 (fmg.GENERIC_FWD, 556, "generic_fwd_attr36"))]
       + [{"name": kern.name, "route": "cuda", "source": src(kern),
           "replaces": f"{TPU_FILE}:{line}", **km[kern.name]}
          for kern, line in ((fm.KM_FWD, 1202), (fm.KM_BWD, 767))]

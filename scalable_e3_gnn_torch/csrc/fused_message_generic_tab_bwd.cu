@@ -4,10 +4,12 @@
 // Replaces the TPU kernels scalable_e3_gnn_tpu/kernels/fused_message_generic.py::
 // FusedMessageGeneric._bwd_call_res_tab (#9, the residual backward: the forward
 // saved each layer's pre-gate y) and _bwd_call_rep_tab (#10, the replay
-// backward: y recomputed here, node-sized residuals only), and their untabled
+// backward: y recomputed here, node-sized residuals only), their untabled
 // counterparts _bwd_call_res (#12) and _bwd_call_rep (#13), all the z-free
-// transpose chain _transpose_chain with the VJP of Gate.fast_apply.  Given the
-// cotangent d_agg [N, dk2] of
+// transpose chain _transpose_chain with the VJP of Gate.fast_apply, and the
+// fallback _bwd_call (#14: an in-kernel jax.vjp of the tile forward, the same
+// chain with the rounding of JAX's AD, see below).  Given the cotangent
+// d_agg [N, dk2] of
 //
 //   m0 = [x_s || h[i] || d2],  y_l = sum_c (m_l W_l[c]) attr_c,
 //   m_l+1 = y_l[:, :dk_l] * sigmoid(y_l)[:, sel_l],   agg[i] = sum_k mask * m_2,
@@ -25,12 +27,16 @@
 // rounded; the selection transpose summed in fp32 and rounded; the sigmoid's
 // VJP g * (s * (1 - s)) in fp32 and rounded; the two branches added and
 // rounded); dya_c = dy * attr_c rounded; the products in fp32; dm rounded; the
-// d_hu and d_hr sums in fp32 of rounded terms, rounded once.
+// d_hu and d_hr sums in fp32 of rounded terms, rounded once.  #14 rounds as
+// JAX's AD of the layer: dya_c stays fp32; each component's dm_c is rounded
+// and the components are added in the data type, the last first; dW_l[c] is
+// summed in fp32 per backward tile (bwd_tile receivers, the TPU kernel's grid
+// step), rounded, and the tiles are added in fp32 in tile order.
 //
 // Design: three kernels in this file, then the fixed-order reduction of
 // csrc/fused_message_tab_bwd.cu.
-// 1. chain (#9/#12 or #10/#13 by a template flag; the sender addressing by a
-//    second).  One block owns whole receivers
+// 1. chain (#9/#12, #10/#13 or #14 by a template mode; the sender addressing
+//    by a flag).  One block owns whole receivers
 //    (128 slot rows in bf16, 64 in fp32), as kernel #8 does, and runs the
 //    chain for its rows: in replay mode the two forward GEMMs of #8 (the same
 //    arithmetic, so both modes give bitwise the same y), in residual mode a
@@ -53,18 +59,28 @@
 //    a per-range partial [splits, NW].  Rebuilding m here instead (the
 //    gathers and the gate, once per component) took most of the kernel's
 //    time on an H100, hence the rows from the chain.  No float atomics; the
-//    partials are summed in range order by the reduction kernel of PR 2, so
-//    reruns are bit-identical.
+//    partials are summed in range order by the fixed-order reduction of
+//    csrc/fused_message_tab_bwd.cu, so reruns are bit-identical.  For #14 a
+//    block owns one (layer, component, backward tile) and writes the tile's
+//    rounded partial; a group of tiles (as many partials as fit a fixed
+//    budget, 127 at the lmax=2 config) is launched at once, and the reduction
+//    adds the group in tile order onto the running sum in its first row: the
+//    per-tile partials of a 1M-point backward (13 GB at tile 80) are never
+//    all held.
+//
 // 3. table (tabled only).  One block per gather tile sums each table entry's
 //    d_hs rows in slot order (a counting sort of loc in shared memory): d_hu.
 // bf16 runs the GEMMs on mma.sync m16n8k16 (fp32 accumulate); fp32 (the
 // check path) on the FMA units.  Widths are runtime arguments up to C1 <= 192
-// and D <= 128.
+// and D <= 128; the chain keeps the geometry in the data type in shared
+// memory, so A = 36 (lmax_attr = 5, 38 values per slot) fits a block at the
+// lmax=2 widths (227,600 of the 232,448 bytes a block may use, in bf16).
 //
 // Work and bound.  Per valid slot the function needs 2 x the folded nonzeros
 // for the dW and the dm products (#9: 120,960 flops at the lmax=2 config) and
-// once more for the replay (#10: 181,440); the kernels run the dense folded
-// GEMMs (2 and 3 x 526,824 per slot).  #9 also reads the saved ys (1.7 GB at
+// once more for the replay (#10, #13, #14: 181,440); the kernels run the
+// dense folded GEMMs (2 and 3 x 526,824 per slot; #14's weight gradients
+// twice, dya = hi + lo).  #9 also reads the saved ys (1.7 GB at
 // 250k points in bf16), so it is bound by bytes; #10 by operations.  This
 // first version is simple: one block per SM, mma.sync, dense folded GEMMs,
 // the m and dy rows through device memory and read once per component;
@@ -163,6 +179,7 @@ struct Dims {
   int kp0, kp1;    // m_0 / m_1 rows in global memory (C1 rounded up to 16)
   int splits;      // wgrad: row ranges
   int ldz;         // wgrad: dya row stride
+  int trows, tile0;  // wgrad, per tile (#14): slot rows per tile, the first tile
 };
 
 __host__ __device__ inline Dims make_dims(bool mma, int n, int f, int k, int a, int tile, int u,
@@ -194,6 +211,8 @@ __host__ __device__ inline Dims make_dims(bool mma, int n, int f, int k, int a, 
   d.kp0 = round_up(c1a, 16);
   d.kp1 = round_up(c1b, 16);
   d.splits = 1;
+  d.trows = 0;
+  d.tile0 = 0;
   return d;
 }
 
@@ -204,15 +223,16 @@ __host__ __device__ inline long chain_ints(const Dims& d) {
 }
 template <typename T>
 __host__ __device__ inline long chain_smem(const Dims& d) {
-  return align16(4L * d.rows * d.gs) + align16(4L * chain_ints(d)) +
+  return align16((long)sizeof(T) * d.rows * d.gs) + align16(4L * chain_ints(d)) +
          align16(4L * kWarps * kMaxD) + align16((long)sizeof(T) * d.rows * d.ldm) +
          2 * align16((long)sizeof(T) * d.rows * d.ldy) +
          align16((long)sizeof(T) * d.nbuf * d.wbuf);
 }
+// (per tile, #14: one more dya buffer, the low halves of dya in bf16)
 template <typename T>
-__host__ __device__ inline long wgrad_smem(const Dims& d) {
+__host__ __device__ inline long wgrad_smem(const Dims& d, bool tiles) {
   return 2 * align16((long)sizeof(T) * kChunk * d.ldm) +
-         2 * align16((long)sizeof(T) * kChunk * d.ldz) + 8L * kChunk;
+         (tiles ? 3 : 2) * align16((long)sizeof(T) * kChunk * d.ldz) + 8L * kChunk;
 }
 
 // ---------------------------------------------------------------------------
@@ -236,7 +256,7 @@ __device__ __forceinline__ void load_slice(const bf16* __restrict__ Wk, int c, i
 // (columns up to D rounded to 16; the pad is zero).  The arithmetic of kernel
 // #8's layer_mma, so the replay gives bitwise the forward's y.
 __device__ void layer_fwd_mma(const bf16* __restrict__ Wk, int c1, int dd, const Dims& d,
-                              const bf16* M, bf16* Wt, bf16* Y, const float* geo) {
+                              const bf16* M, bf16* Wt, bf16* Y, const bf16* geo) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int r0 = warp * 16;
@@ -280,7 +300,7 @@ __device__ void layer_fwd_mma(const bf16* __restrict__ Wk, int c1, int dd, const
         }
       }
     }
-    const float at0 = geo[(r0 + g) * d.gs + c], at1 = geo[(r0 + g + 8) * d.gs + c];
+    const float at0 = to_f(geo[(r0 + g) * d.gs + c]), at1 = to_f(geo[(r0 + g + 8) * d.gs + c]);
 #pragma unroll
     for (int nt = 0; nt < kMaxNT; ++nt) {
       acc[nt][0] = __fadd_rn(acc[nt][0], __fmul_rn(at0, t[nt][0]));
@@ -306,7 +326,7 @@ __device__ void layer_fwd_mma(const bf16* __restrict__ Wk, int c1, int dd, const
 // rounded to bf16 into Out (columns up to C1 rounded to 8).  W[c]^T comes out
 // of the same [D16][C16] slices by ldmatrix.trans.
 __device__ void layer_bwd_mma(const bf16* __restrict__ Wk, int c1, int dd, const Dims& d,
-                              const bf16* DY, bf16* Wt, bf16* Out, const float* geo) {
+                              const bf16* DY, bf16* Wt, bf16* Out, const bf16* geo) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int r0 = warp * 16;
@@ -328,7 +348,7 @@ __device__ void layer_bwd_mma(const bf16* __restrict__ Wk, int c1, int dd, const
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float at0 = geo[(r0 + g) * d.gs + c], at1 = geo[(r0 + g + 8) * d.gs + c];
+    const float at0 = to_f(geo[(r0 + g) * d.gs + c]), at1 = to_f(geo[(r0 + g + 8) * d.gs + c]);
 #pragma unroll
     for (int ds = 0; ds < kMaxDS; ++ds) {
       if (ds < ds_n) {
@@ -362,6 +382,83 @@ __device__ void layer_bwd_mma(const bf16* __restrict__ Wk, int c1, int dd, const
   }
 }
 
+// Kernel #14's dm (JAX's AD of _layer_tp in bf16): per component dya_c = dy *
+// attr_c in fp32 (exact: a product of two bf16 values), dm_c = dya_c @ W[c]^T
+// in fp32 rounded to bf16, the A terms added in bf16, last component first
+// (the order in which JAX's backward pass accumulates the cotangent of m).
+// attr_c leaves the sum over D (dm_c = attr_c * (dy @ W[c]^T), one more fp32
+// rounding), so the A fragments are the unscaled dy rows, loaded once.  Each
+// column tile's product over D completes in a fresh fp32 accumulator before
+// it is rounded and added.  Rounded to bf16 into Out (columns up to C1
+// rounded to 8).
+__device__ void layer_bwd_vjp_mma(const bf16* __restrict__ Wk, int c1, int dd, const Dims& d,
+                                  const bf16* DY, bf16* Wt, bf16* Out, const bf16* geo) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = warp * 16;
+  const int kp = round_up(c1, 16), dpl = round_up(dd, 16);
+  const int ds_n = dpl / 16, ct_n = (c1 + 7) / 8;
+  __syncthreads();
+  load_slice(Wk, d.a - 1, dpl, kp, d.ldw, Wt);
+  const bf16* a0 = DY + (r0 + g) * d.ldy + t4 * 2;
+  const bf16* a1 = a0 + 8 * d.ldy;
+  uint32_t af[kMaxDS][4];
+#pragma unroll
+  for (int ds = 0; ds < kMaxDS; ++ds) {
+    if (ds < ds_n) {
+      af[ds][0] = *reinterpret_cast<const uint32_t*>(a0 + ds * 16);
+      af[ds][1] = *reinterpret_cast<const uint32_t*>(a1 + ds * 16);
+      af[ds][2] = *reinterpret_cast<const uint32_t*>(a0 + ds * 16 + 8);
+      af[ds][3] = *reinterpret_cast<const uint32_t*>(a1 + ds * 16 + 8);
+    }
+  }
+  float acc[kMaxCT][4];  // the running bf16 sum, held in fp32
+#pragma unroll
+  for (int ct = 0; ct < kMaxCT; ++ct) acc[ct][0] = acc[ct][1] = acc[ct][2] = acc[ct][3] = 0.f;
+  for (int i = 0; i < d.a; ++i) {
+    const int c = d.a - 1 - i;
+    const bf16* cur = Wt + (i & 1) * d.wbuf;
+    if (i + 1 < d.a) {
+      load_slice(Wk, c - 1, dpl, kp, d.ldw, Wt + ((i + 1) & 1) * d.wbuf);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float at0 = to_f(geo[(r0 + g) * d.gs + c]), at1 = to_f(geo[(r0 + g + 8) * d.gs + c]);
+#pragma unroll
+    for (int ct = 0; ct < kMaxCT; ++ct) {
+      if (ct < ct_n) {
+        float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int ds = 0; ds < kMaxDS; ++ds) {
+          if (ds < ds_n) {
+            uint32_t b0, b1;
+            ldsm_x2_t(b0, b1, cur + (ds * 16 + (lane & 15)) * d.ldw + ct * 8);
+            mma_bf16_16816(t, af[ds], b0, b1);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float dmc = rnd<bf16>(__fmul_rn(q < 2 ? at0 : at1, t[q]));
+          acc[ct][q] = i == 0 ? dmc : rnd<bf16>(__fadd_rn(acc[ct][q], dmc));
+        }
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int ct = 0; ct < kMaxCT; ++ct) {
+    if (ct < ct_n) {
+      const int col = ct * 8 + t4 * 2;
+      *reinterpret_cast<__nv_bfloat162*>(Out + (r0 + g) * d.ldm + col) =
+          __floats2bfloat162_rn(acc[ct][0], acc[ct][1]);
+      *reinterpret_cast<__nv_bfloat162*>(Out + (r0 + g + 8) * d.ldm + col) =
+          __floats2bfloat162_rn(acc[ct][2], acc[ct][3]);
+    }
+  }
+}
+
 // the natural-layout slice W[c] [C1][D] into Ws [C1][ldw], zero past D
 template <typename T>
 __device__ __forceinline__ void stage_slice_fma(const T* __restrict__ W, int c, int c1, int dd,
@@ -378,7 +475,7 @@ __device__ __forceinline__ void stage_slice_fma(const T* __restrict__ W, int c, 
 // up to D rounded to 16; the pad is zero).
 template <typename T>
 __device__ void layer_fwd_fma(const T* __restrict__ W, int c1, int dd, const Dims& d,
-                              const T* M, T* Ws, T* Y, const float* geo) {
+                              const T* M, T* Ws, T* Y, const T* geo) {
   const int cg_n = (dd + kCT - 1) / kCT;
   const int items = (d.rows / kRT) * cg_n;
   float y[kItChain][kRT][kCT];
@@ -415,7 +512,7 @@ __device__ void layer_fwd_fma(const T* __restrict__ W, int c1, int dd, const Dim
         }
 #pragma unroll
         for (int i = 0; i < kRT; ++i) {
-          const float at = geo[(r0 + i) * d.gs + c];
+          const float at = to_f(geo[(r0 + i) * d.gs + c]);
 #pragma unroll
           for (int j = 0; j < kCT; ++j)
             y[it][i][j] = c == 0 ? __fmul_rn(at, t[i][j])
@@ -446,7 +543,7 @@ __device__ void layer_fwd_fma(const T* __restrict__ W, int c1, int dd, const Dim
 // Out (columns up to C1 rounded to 4).
 template <typename T>
 __device__ void layer_bwd_fma(const T* __restrict__ W, int c1, int dd, const Dims& d,
-                              const T* DY, T* Ws, T* Out, const float* geo) {
+                              const T* DY, T* Ws, T* Out, const T* geo) {
   const int cq_n = (c1 + kCT - 1) / kCT;
   const int items = (d.rows / kRT) * cq_n;
   float acc[kItChain][kRT][kCT];
@@ -467,7 +564,7 @@ __device__ void layer_bwd_fma(const T* __restrict__ W, int c1, int dd, const Dim
         const int r0 = (item / cq_n) * kRT, k0 = (item % cq_n) * kCT;
         float at[kRT];
 #pragma unroll
-        for (int i = 0; i < kRT; ++i) at[i] = geo[(r0 + i) * d.gs + c];
+        for (int i = 0; i < kRT; ++i) at[i] = to_f(geo[(r0 + i) * d.gs + c]);
         for (int dd_ = 0; dd_ < dd; ++dd_) {
           float z[kRT], w[kCT];
 #pragma unroll
@@ -615,11 +712,15 @@ __device__ __forceinline__ void store_rows(T* __restrict__ out, int width, const
 }
 
 // ---------------------------------------------------------------------------
-// 1. The chain: kernel #9 (REPLAY = false) and #10 (REPLAY = true) with TAB
-// (senders through loc/gtab, rows of h; d_hs node-major), #12 and #13 without
-// (slot k of receiver i reads row k*N + i of hs [K, N, F] and writes d_hs
-// there).
-template <typename T, bool MMA, bool REPLAY, bool TAB>
+// 1. The chain: kernel #9 (Mode::kResidual) and #10 (Mode::kReplay) with TAB
+// (senders through loc/gtab, rows of h; d_hs node-major), #12, #13 and #14
+// (Mode::kVjp) without (slot k of receiver i reads row k*N + i of hs [K, N, F]
+// and writes d_hs there).  kVjp replays as kReplay and differs in the dm
+// GEMMs' rounding (layer_bwd_vjp_mma); in fp32 that rounding is the identity,
+// so the fp32 instance of kVjp is kReplay's.
+enum class Mode { kResidual, kReplay, kVjp };
+
+template <typename T, bool MMA, Mode MODE, bool TAB>
 __global__ void __launch_bounds__(kThreads, 1)
 chain_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* __restrict__ geo2,
              const int* __restrict__ loc, const int* __restrict__ gtab,
@@ -630,8 +731,8 @@ chain_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* __restr
              T* __restrict__ m0g, T* __restrict__ m1g, Dims d) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* p = smem_raw;
-  float* geo = reinterpret_cast<float*>(p);  // [rows][a+2]: attr, d2, mask
-  p += align16(4L * d.rows * d.gs);
+  T* geo = reinterpret_cast<T*>(p);  // [rows][a+2]: attr, d2, mask
+  p += align16((long)sizeof(T) * d.rows * d.gs);
   int* snd = reinterpret_cast<int*>(p);
   int* rnode = snd + d.rows;
   int* sel1 = rnode + d.rows;
@@ -665,9 +766,9 @@ chain_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* __restr
       const long e = (long)node * d.k + r % d.k;
       if constexpr (TAB) s = sender_of(loc, gtab, node, e, d);
       else s = (r % d.k) * d.n + node;  // the host checks K*N < 2^31
-      for (int q = 0; q < d.gs; ++q) geo[r * d.gs + q] = to_f(geo2[e * d.gs + q]);
+      for (int q = 0; q < d.gs; ++q) geo[r * d.gs + q] = geo2[e * d.gs + q];
     } else {
-      for (int q = 0; q < d.gs; ++q) geo[r * d.gs + q] = 0.f;
+      for (int q = 0; q < d.gs; ++q) geo[r * d.gs + q] = from_f<T>(0.f);
     }
     snd[r] = s;
     rnode[r] = rn;
@@ -676,7 +777,8 @@ chain_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* __restr
   build_inverse(sel1, d.dk1, d.da, inv1s, inv1l);
   build_inverse(sel2, d.dk2, d.db, inv2s, inv2l);
   const long e0 = (long)node0 * d.k;  // the block's first slot row
-  if constexpr (!REPLAY) {
+  constexpr bool kReplays = MODE != Mode::kResidual;
+  if constexpr (!kReplays) {
     // ---- the saved y of both layers (zero rows past the receivers, zero pad)
     const int p1 = round_up(d.da, 16), p2 = round_up(d.db, 16);
     for (int w = threadIdx.x; w < d.rows * p1; w += blockDim.x) {
@@ -691,10 +793,11 @@ chain_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* __restr
   // ---- m_0 and m_1 of every slot row, for the weight-gradient kernel (and,
   // in replay mode, the forward of kernel #8 for these rows: y_1, y_2)
   for (int r = warp; r < d.rows; r += kWarps)
-    m0_row<T>(hs, h, f, snd[r], rnode[r], geo[r * d.gs + a], M + r * d.ldm, d.ldm - 8, lane);
+    m0_row<T>(hs, h, f, snd[r], rnode[r], to_f(geo[r * d.gs + a]), M + r * d.ldm, d.ldm - 8,
+              lane);
   __syncthreads();
   store_rows<T>(m0g, d.kp0, M, d.ldm, rnode, e0, d);
-  if constexpr (REPLAY) {
+  if constexpr (kReplays) {
     if constexpr (MMA) layer_fwd_mma(w1, d.c1a, d.da, d, M, Wsl, Y1, geo);
     else layer_fwd_fma<T>(w1, d.c1a, d.da, d, M, Wsl, Y1, geo);
   }
@@ -705,7 +808,7 @@ chain_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* __restr
   }
   __syncthreads();
   store_rows<T>(m1g, d.kp1, M, d.ldm, rnode, e0, d);
-  if constexpr (REPLAY) {
+  if constexpr (kReplays) {
     if constexpr (MMA) layer_fwd_mma(w2, d.c1b, d.db, d, M, Wsl, Y2, geo);
     else layer_fwd_fma<T>(w2, d.c1b, d.db, d, M, Wsl, Y2, geo);
   }
@@ -714,14 +817,16 @@ chain_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* __restr
   gate_vjp<T>(Y2, d.db, d.dk2, sel2, inv2s, inv2l, scratch, d, [&](int r, int j) {
     const int rn = rnode[r];
     return rn < 0 ? 0.f
-                  : rnd<T>(__fmul_rn(to_f(dagg[(long)rn * d.dk2 + j]), geo[r * d.gs + a + 1]));
+                  : rnd<T>(__fmul_rn(to_f(dagg[(long)rn * d.dk2 + j]),
+                                     to_f(geo[r * d.gs + a + 1])));
   });
   __syncthreads();
   for (int w = threadIdx.x; w < d.rows * d.ldg2; w += blockDim.x) {
     const int r = w / d.ldg2, j = w % d.ldg2;
     if (rnode[r] >= 0) dy2g[(e0 + r) * d.ldg2 + j] = Y2[r * d.ldy + j];
   }
-  if constexpr (MMA) layer_bwd_mma(w2, d.c1b, d.db, d, Y2, Wsl, M, geo);
+  if constexpr (MMA && MODE == Mode::kVjp) layer_bwd_vjp_mma(w2, d.c1b, d.db, d, Y2, Wsl, M, geo);
+  else if constexpr (MMA) layer_bwd_mma(w2, d.c1b, d.db, d, Y2, Wsl, M, geo);
   else layer_bwd_fma<T>(w2, d.c1b, d.db, d, Y2, Wsl, M, geo);
   __syncthreads();
   // ---- layer 1: the gate VJP at y_1 with dout = dm_1, then dm_0
@@ -732,7 +837,8 @@ chain_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* __restr
     const int r = w / d.ldg1, j = w % d.ldg1;
     if (rnode[r] >= 0) dy1g[(e0 + r) * d.ldg1 + j] = Y1[r * d.ldy + j];
   }
-  if constexpr (MMA) layer_bwd_mma(w1, d.c1a, d.da, d, Y1, Wsl, M, geo);
+  if constexpr (MMA && MODE == Mode::kVjp) layer_bwd_vjp_mma(w1, d.c1a, d.da, d, Y1, Wsl, M, geo);
+  else if constexpr (MMA) layer_bwd_mma(w1, d.c1a, d.da, d, Y1, Wsl, M, geo);
   else layer_bwd_fma<T>(w1, d.c1a, d.da, d, Y1, Wsl, M, geo);
   __syncthreads();
   // ---- the sender cotangent of every slot, and the receivers' K-sums
@@ -755,7 +861,13 @@ chain_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* __restr
 // chain wrote m_l and dy_l per slot row; chunks of 64 rows stream in by
 // cp.async into a double buffer (chunk i+1 loads while chunk i multiplies),
 // and dy is scaled by attr_c in shared memory.
-template <typename T, bool MMA>
+// TILES (kernel #14, JAX's AD of _layer_tp): range sp is the backward tile
+// tile0 + sp (trows slot rows), dya = dy_l attr_c stays fp32 and the tile's
+// fp32 sum is rounded to the data type, as the TPU kernel's per-grid-step
+// dW'.  In bf16 dya (a product of two bf16 values, 16 significant bits) is
+// split into hi = rnd(dya) and lo = rnd(dya - hi), both exact, and each
+// multiplies on the tensor cores: the products stay exact.
+template <typename T, bool MMA, bool TILES>
 __global__ void __launch_bounds__(kThreads, 1)
 wgrad_kernel(const T* __restrict__ geo2, const T* __restrict__ m0g, const T* __restrict__ m1g,
              const T* __restrict__ dy1, const T* __restrict__ dy2, float* __restrict__ partials,
@@ -766,6 +878,8 @@ wgrad_kernel(const T* __restrict__ geo2, const T* __restrict__ m0g, const T* __r
   p += 2 * align16((long)sizeof(T) * kChunk * d.ldm);
   T* Zb = reinterpret_cast<T*>(p);  // [2][kChunk][ldz]: dy rows, then rnd(dy * attr_c)
   p += 2 * align16((long)sizeof(T) * kChunk * d.ldz);
+  T* Zlo = reinterpret_cast<T*>(p);  // TILES, bf16: [kChunk][ldz] the low halves
+  if (TILES) p += align16((long)sizeof(T) * kChunk * d.ldz);
   float* att = reinterpret_cast<float*>(p);  // [2][kChunk]: attr_c per row
 
   const int c = blockIdx.x, sp = blockIdx.y, layer = blockIdx.z;
@@ -776,38 +890,48 @@ wgrad_kernel(const T* __restrict__ geo2, const T* __restrict__ m0g, const T* __r
   const int ldg = layer ? d.ldg2 : d.ldg1;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long rows_total = (long)d.n * d.k;
-  const long nch = (rows_total + kChunk - 1) / kChunk;
-  const long ch0 = nch * sp / d.splits, ch1 = nch * (sp + 1) / d.splits;
+  long r0, r1;  // this block's slot rows
+  if constexpr (TILES) {
+    r0 = (long)(d.tile0 + sp) * d.trows;
+    r1 = r0 + d.trows < rows_total ? r0 + d.trows : rows_total;
+  } else {
+    const long nch = (rows_total + kChunk - 1) / kChunk;
+    r0 = nch * sp / d.splits * kChunk;
+    r1 = nch * (sp + 1) / d.splits * kChunk;
+    if (r1 > rows_total) r1 = rows_total;
+  }
+  constexpr bool kSplit = TILES && MMA;  // dya as hi + lo
   const int dpl = round_up(dd, 16);
   const long mbuf = align16((long)sizeof(T) * kChunk * d.ldm) / sizeof(T);
   const long zbuf = align16((long)sizeof(T) * kChunk * d.ldz) / sizeof(T);
   constexpr int V = 16 / sizeof(T);
 
-  // dy columns past its global row (ldg .. D16) stay zero in both buffers
-  for (int w = threadIdx.x; w < 2 * kChunk * (dpl - ldg); w += blockDim.x) {
+  // dy columns past its global row (ldg .. D16) stay zero in every buffer
+  const int nz = kSplit ? 3 : 2;
+  for (int w = threadIdx.x; w < nz * kChunk * (dpl - ldg); w += blockDim.x) {
     const int b = w / (kChunk * (dpl - ldg)), x = w % (kChunk * (dpl - ldg));
-    Zb[b * zbuf + (x / (dpl - ldg)) * d.ldz + ldg + x % (dpl - ldg)] = from_f<T>(0.f);
+    T* Z = b < 2 ? Zb + b * zbuf : Zlo;
+    Z[(x / (dpl - ldg)) * d.ldz + ldg + x % (dpl - ldg)] = from_f<T>(0.f);
   }
-  // chunk ch into buffer b: its m and dy rows by cp.async (zero rows past
-  // the last slot), its attr_c by plain loads
-  auto issue = [&](long ch, int b) {
-    const long e0 = ch * kChunk;
+  // the chunk of rows from e0 into buffer b: its m and dy rows by cp.async
+  // (zero rows past r1), its attr_c by plain loads
+  auto load_chunk = [&](long e0, int b) {
     T* M = Mb + b * mbuf;
     T* Z = Zb + b * zbuf;
     for (int w = threadIdx.x; w < kChunk * (kp / V); w += blockDim.x) {
       const int r = w / (kp / V), q = (w % (kp / V)) * V;
-      if (e0 + r < rows_total) cp_async16(M + r * d.ldm + q, mg + (e0 + r) * kp + q);
+      if (e0 + r < r1) cp_async16(M + r * d.ldm + q, mg + (e0 + r) * kp + q);
       else *reinterpret_cast<uint4*>(M + r * d.ldm + q) = make_uint4(0, 0, 0, 0);
     }
     for (int w = threadIdx.x; w < kChunk * (ldg / V); w += blockDim.x) {
       const int r = w / (ldg / V), q = (w % (ldg / V)) * V;
-      if (e0 + r < rows_total) cp_async16(Z + r * d.ldz + q, dy + (e0 + r) * ldg + q);
+      if (e0 + r < r1) cp_async16(Z + r * d.ldz + q, dy + (e0 + r) * ldg + q);
       else *reinterpret_cast<uint4*>(Z + r * d.ldz + q) = make_uint4(0, 0, 0, 0);
     }
     cp_async_commit();
     if (threadIdx.x < kChunk) {
       const long e = e0 + threadIdx.x;
-      att[b * kChunk + threadIdx.x] = e < rows_total ? to_f(geo2[e * d.gs + c]) : 0.f;
+      att[b * kChunk + threadIdx.x] = e < r1 ? to_f(geo2[e * d.gs + c]) : 0.f;
     }
   };
 
@@ -826,21 +950,23 @@ wgrad_kernel(const T* __restrict__ geo2, const T* __restrict__ m0g, const T* __r
       for (int z = 0; z < (MMA ? 4 : kCT); ++z) acc[x][y][z] = 0.f;
 
   __syncthreads();
-  if (ch0 < ch1) issue(ch0, 0);
-  for (long ch = ch0; ch < ch1; ++ch) {
-    const int b = (int)((ch - ch0) & 1);
-    if (ch + 1 < ch1) {
-      issue(ch + 1, b ^ 1);
+  if (r0 < r1) load_chunk(r0, 0);
+  for (long e0 = r0; e0 < r1; e0 += kChunk) {
+    const int b = (int)(((e0 - r0) / kChunk) & 1);
+    if (e0 + kChunk < r1) {
+      load_chunk(e0 + kChunk, b ^ 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
-    __syncthreads();  // chunk ch has landed for every thread
+    __syncthreads();  // the chunk has landed for every thread
     const T* M = Mb + b * mbuf;
     T* Z = Zb + b * zbuf;
     for (int w = threadIdx.x; w < kChunk * ldg; w += blockDim.x) {
       const int r = w / ldg, j = w % ldg;
-      Z[r * d.ldz + j] = from_f<T>(__fmul_rn(to_f(Z[r * d.ldz + j]), att[b * kChunk + r]));
+      const float v = __fmul_rn(to_f(Z[r * d.ldz + j]), att[b * kChunk + r]);
+      Z[r * d.ldz + j] = from_f<T>(v);
+      if constexpr (kSplit) Zlo[r * d.ldz + j] = from_f<T>(__fsub_rn(v, rnd<T>(v)));
     }
     __syncthreads();
     if constexpr (MMA) {
@@ -864,6 +990,12 @@ wgrad_kernel(const T* __restrict__ geo2, const T* __restrict__ m0g, const T* __r
 #pragma unroll
             for (int mi = 0; mi < kWMT; ++mi)
               if (mi < mtw && wm * mtw + mi < mt_n) mma_bf16_16816(acc[mi][ni], af[mi], b0, b1);
+            if constexpr (kSplit) {
+              ldsm_x2_t(b0, b1, Zlo + (ks * 16 + (lane & 15)) * d.ldz + nt * 8);
+#pragma unroll
+              for (int mi = 0; mi < kWMT; ++mi)
+                if (mi < mtw && wm * mtw + mi < mt_n) mma_bf16_16816(acc[mi][ni], af[mi], b0, b1);
+            }
           }
         }
       }
@@ -903,7 +1035,8 @@ wgrad_kernel(const T* __restrict__ geo2, const T* __restrict__ m0g, const T* __r
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             const int m = mt * 16 + g + (q >> 1) * 8, n = nt * 8 + t4 * 2 + (q & 1);
-            if (m < c1 && n < dd) out[(long)m * dd + n] = acc[mi][ni][q];
+            if (m < c1 && n < dd) out[(long)m * dd + n] = TILES ? rnd<T>(acc[mi][ni][q])
+                                                                 : acc[mi][ni][q];
           }
         }
       }
@@ -918,7 +1051,8 @@ wgrad_kernel(const T* __restrict__ geo2, const T* __restrict__ m0g, const T* __r
         for (int i = 0; i < kRT; ++i)
 #pragma unroll
           for (int j = 0; j < kCT; ++j)
-            if (m0 + i < c1 && n0 + j < dd) out[(long)(m0 + i) * dd + n0 + j] = acc[it][i][j];
+            if (m0 + i < c1 && n0 + j < dd)
+              out[(long)(m0 + i) * dd + n0 + j] = TILES ? rnd<T>(acc[it][i][j]) : acc[it][i][j];
       }
     }
   }
@@ -993,7 +1127,7 @@ long smem_for(int dtype, int k, int a, int c1a, int da, int c1b, int db) {
   const Dims d = make_dims(dtype == 1, 1, 0, k, a, 1, 1, c1a, da, da, c1b, db, db);
   if (d.rb < 1) return -1;
   const long cs = dtype == 1 ? chain_smem<bf16>(d) : chain_smem<float>(d);
-  const long ws = dtype == 1 ? wgrad_smem<bf16>(d) : wgrad_smem<float>(d);
+  const long ws = dtype == 1 ? wgrad_smem<bf16>(d, true) : wgrad_smem<float>(d, true);
   return cs > ws ? cs : ws;
 }
 
@@ -1002,10 +1136,10 @@ cudaError_t set_smem(K kern, long smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, bool MMA, bool REPLAY, bool TAB>
+template <typename T, bool MMA, Mode MODE, bool TAB>
 int launch_chain(const Dims& d, const void* const* in, void* const* out, cudaStream_t st) {
   const long smem = chain_smem<T>(d);
-  auto kern = chain_kernel<T, MMA, REPLAY, TAB>;
+  auto kern = chain_kernel<T, MMA, MODE, TAB>;
   cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (d.n + d.rb - 1) / d.rb;
@@ -1022,13 +1156,13 @@ int launch_chain(const Dims& d, const void* const* in, void* const* out, cudaStr
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool MMA>
+template <typename T, bool MMA, bool TILES>
 int launch_wgrad(const Dims& d, const void* const* in, float* partials, cudaStream_t st) {
-  const long smem = wgrad_smem<T>(d);
-  auto kern = wgrad_kernel<T, MMA>;
+  const long smem = wgrad_smem<T>(d, TILES);
+  auto kern = wgrad_kernel<T, MMA, TILES>;
   cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
-  if ((long)d.n * d.k < 1) return 0;
+  if ((long)d.n * d.k < 1 || d.splits < 1) return 0;
   kern<<<dim3(d.a, d.splits, 2), kThreads, smem, st>>>(
       static_cast<const T*>(in[0]), static_cast<const T*>(in[1]), static_cast<const T*>(in[2]),
       static_cast<const T*>(in[3]), static_cast<const T*>(in[4]), partials, d);
@@ -1084,16 +1218,17 @@ int fused_message_generic_tab_bwd_chain(int dtype, int replay, const void* h, co
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dims d = make_dims(dtype == 1, n, f, k, a, tile, u, c1a, da, dk1, c1b, db, dk2);
   if (dtype == 0)
-    return replay ? launch_chain<float, false, true, true>(d, in, out, st)
-                  : launch_chain<float, false, false, true>(d, in, out, st);
-  return replay ? launch_chain<bf16, true, true, true>(d, in, out, st)
-                : launch_chain<bf16, true, false, true>(d, in, out, st);
+    return replay ? launch_chain<float, false, Mode::kReplay, true>(d, in, out, st)
+                  : launch_chain<float, false, Mode::kResidual, true>(d, in, out, st);
+  return replay ? launch_chain<bf16, true, Mode::kReplay, true>(d, in, out, st)
+                : launch_chain<bf16, true, Mode::kResidual, true>(d, in, out, st);
 }
 
-// The untabled chain: kernel #13 (replay = 1) or #12 (replay = 0, y1in/y2in
-// the saved ys).  hs [K, N, F] slot-major sender rows, h [N, F] the receivers;
-// d_hs comes out [K, N, F], the other outputs as above.
-int fused_message_generic_bwd_chain(int dtype, int replay, const void* hs, const void* h,
+// The untabled chain: kernel #12 (mode = 0, y1in/y2in the saved ys), #13
+// (mode = 1, replay) or #14's chain (mode = 2, replay with JAX's AD rounding
+// of the dm GEMMs).  hs [K, N, F] slot-major sender rows, h [N, F] the
+// receivers; d_hs comes out [K, N, F], the other outputs as above.
+int fused_message_generic_bwd_chain(int dtype, int mode, const void* hs, const void* h,
                                     const void* geo2, const void* w1, const void* sel1,
                                     const void* w2, const void* sel2, const void* y1in,
                                     const void* y2in, const void* dagg, void* dhs, void* dhr,
@@ -1102,17 +1237,19 @@ int fused_message_generic_bwd_chain(int dtype, int replay, const void* hs, const
                                     int dk2, void* stream) {
   if (smem_for(dtype, k, a, c1a, da, c1b, db) < 0) return (int)cudaErrorInvalidValue;
   if (dk1 > da || dk2 > db || dk1 != c1b || 2 * f + 1 != c1a) return (int)cudaErrorInvalidValue;
-  if (!replay && (y1in == nullptr || y2in == nullptr)) return (int)cudaErrorInvalidValue;
+  if (mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
+  if (mode == 0 && (y1in == nullptr || y2in == nullptr)) return (int)cudaErrorInvalidValue;
   if ((long)k * n > 2147483647L) return (int)cudaErrorInvalidValue;
   const void* in[12] = {hs, h, geo2, nullptr, nullptr, w1, sel1, w2, sel2, y1in, y2in, dagg};
   void* out[6] = {dhs, dhr, dy1, dy2, m0, m1};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dims d = make_dims(dtype == 1, n, f, k, a, 1, 0, c1a, da, dk1, c1b, db, dk2);
   if (dtype == 0)
-    return replay ? launch_chain<float, false, true, false>(d, in, out, st)
-                  : launch_chain<float, false, false, false>(d, in, out, st);
-  return replay ? launch_chain<bf16, true, true, false>(d, in, out, st)
-                : launch_chain<bf16, true, false, false>(d, in, out, st);
+    return mode ? launch_chain<float, false, Mode::kReplay, false>(d, in, out, st)
+                : launch_chain<float, false, Mode::kResidual, false>(d, in, out, st);
+  if (mode == 2) return launch_chain<bf16, true, Mode::kVjp, false>(d, in, out, st);
+  return mode ? launch_chain<bf16, true, Mode::kReplay, false>(d, in, out, st)
+              : launch_chain<bf16, true, Mode::kResidual, false>(d, in, out, st);
 }
 
 // The weight gradients: partials [splits, NW] fp32, NW = A (C1a Da + C1b Db),
@@ -1128,8 +1265,32 @@ int fused_message_generic_tab_bwd_wgrad(int dtype, const void* geo2, const void*
   const void* in[5] = {geo2, m0, m1, dy1, dy2};
   float* part = static_cast<float*>(partials);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_wgrad<float, false>(d, in, part, st);
-  return launch_wgrad<bf16, true>(d, in, part, st);
+  if (dtype == 0) return launch_wgrad<float, false, false>(d, in, part, st);
+  return launch_wgrad<bf16, true, false>(d, in, part, st);
+}
+
+// Kernel #14's weight gradients: partials [ntiles, NW] fp32, row t the sum over
+// the slot rows of backward tile tile0 + t (tile_rows of them; the last tile
+// may be short) of m_l^T (dy_l attr_c), dya in fp32, rounded to the data type;
+// layouts as above.
+int fused_message_generic_bwd_wgrad_tiles(int dtype, const void* geo2, const void* m0,
+                                          const void* m1, const void* dy1, const void* dy2,
+                                          void* partials, int n, int k, int a, int c1a, int da,
+                                          int c1b, int db, int tile_rows, int tile0, int ntiles,
+                                          void* stream) {
+  if (smem_for(dtype, k, a, c1a, da, c1b, db) < 0 || tile_rows < 1 || tile0 < 0 || ntiles < 0)
+    return (int)cudaErrorInvalidValue;
+  if ((long)(tile0 + ntiles - 1) * tile_rows >= (long)n * k && ntiles > 0)
+    return (int)cudaErrorInvalidValue;
+  Dims d = make_dims(dtype == 1, n, 0, k, a, 1, 1, c1a, da, da, c1b, db, db);
+  d.splits = ntiles;
+  d.trows = tile_rows;
+  d.tile0 = tile0;
+  const void* in[5] = {geo2, m0, m1, dy1, dy2};
+  float* part = static_cast<float*>(partials);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_wgrad<float, false, true>(d, in, part, st);
+  return launch_wgrad<bf16, true, true>(d, in, part, st);
 }
 
 // The table sum: d_hu [N/tile * U, F] from d_hs [N*K, F] and loc [N, K].

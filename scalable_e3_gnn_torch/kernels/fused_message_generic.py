@@ -6,9 +6,9 @@ configurations), through its three entries: ``geo_call_tab`` (senders
 through per-tile tables: the forward ``_fwd_call_tab`` #8 and the backwards
 ``_bwd_call_res_tab`` #9 and ``_bwd_call_rep_tab`` #10), ``geo_call`` (a
 slot-major sender operand ``hs [K, N, F]``: ``_fwd_call`` #11, ``_bwd_call_res``
-#12 and ``_bwd_call_rep`` #13) and ``geo_call_sym`` (the gather inside the
-autograd Function, #11 and #13, sender gradients by the reverse-slot
-gather-sum).  Per receiver i and slot k:
+#12, ``_bwd_call_rep`` #13 and the fallback ``_bwd_call`` #14) and
+``geo_call_sym`` (the gather inside the autograd Function, #11 and #13, sender
+gradients by the reverse-slot gather-sum).  Per receiver i and slot k:
 
     m_0    = [x_s || h[i] || d2[i,k]]                                 (C1 = 2F+1)
     y_l    = sum_c (m_l @ W'_l,c) * attr_c[i,k]                       (C2 = A)
@@ -23,6 +23,13 @@ sigmoid lane that multiplies each output lane.  ``loc == U`` means no sender
 (a zero row).  The geometry rides the node-major packed stream ``geo2``
 [N, K*(A+2)] (per slot ``attr || d2 || mask``).
 
+Non-foldable message layers (attributes wider than 32, ``lmax_attr >= 5``, or
+``TensorProduct(mode="sparse")``) take the same kernels on their CG-folded
+weights and the selection gate: #11 and #14.  The JAX kernel evaluates them
+component-wise (its sparse TP) with the concat gate: the same function, with
+other bf16 rounding points (fp32 agrees within 2e-5; ``ROADMAP.md`` records
+the bf16 gap).
+
 Forward rounding points (the TPU kernel's, in both implementations): operands
 in the data dtype; each component's GEMM accumulated in fp32 and scaled by
 attr_c in fp32, summed over c in fp32, cast to the data dtype (y); sigmoid in
@@ -30,7 +37,7 @@ fp32 cast to the dtype; the gate product in the dtype; ``msg * mask`` in the
 dtype; the K-sum in fp32; the output cast to the dtype.  The save mode also
 returns every layer's pre-gate ``y`` [N*K, D] (node-major slot rows).
 
-Backward rounding points (``_transpose_chain`` with the VJP of
+Backward rounding points of #9-#13 (``_transpose_chain`` with the VJP of
 ``Gate.fast_apply`` as JAX's AD computes it): dm_L = (K-repeat of d_agg in
 fp32) * mask cast to the dtype; per layer, last to first, dy = the gate's VJP
 at y (products in the dtype, the sigmoid branch in fp32, the selection
@@ -39,28 +46,32 @@ the dtype); dya_c = dy * attr_c in the dtype; dW'_c = m^T dya_c summed in
 fp32; dm = sum_c dya_c W'_c^T in fp32 cast to the dtype.  d_hu (per tile,
 per table entry) and d_hr (per receiver) are fp32 sums of dm_0's rounded
 sender and receiver columns, cast to the dtype; untabled, d_hs [K, N, F] is
-dm_0's rounded sender columns, one row per slot.
+dm_0's rounded sender columns, one row per slot.  #14 (JAX's AD of the tile
+forward, ``_layer_vjp``) differs in three places: dya_c stays fp32; each
+component's dm_c is cast to the dtype and the components are added in the
+dtype, the last first; dW'_c is summed per backward tile (``bwd_tile``
+receivers) in fp32, cast to the dtype, and the tiles are added in fp32 in
+tile order, so in bf16 the tile changes dW'.  In fp32 #14 is #13's function.
 
-- ``generic_tab_fwd_plain`` / ``generic_tab_bwd_plain`` (tabled) and
-  ``generic_fwd_plain`` / ``generic_bwd_plain`` (untabled): PyTorch ops, in
-  chunks of receivers so the [rows, C1] temporaries stay bounded.  The CPU
-  tests and the on-card checks use them.  The backwards replay the forward
-  (``ys=None``, kernel #10's / #13's function) or read the saved ys (#9's /
-  #12's).
-- ``generic_tab_fwd`` / ``generic_tab_bwd`` and ``generic_fwd`` /
-  ``generic_bwd``: a CPU tensor goes to the plain version; a CUDA tensor goes
-  to the hand-written kernels (``csrc/fused_message_generic_tab_fwd.cu``,
+- ``generic_tab_fwd_plain`` / ``generic_tab_bwd_plain`` (tabled),
+  ``generic_fwd_plain`` / ``generic_bwd_plain`` and ``generic_bwd_vjp_plain``
+  (untabled): PyTorch ops, in chunks of receivers so the [rows, C1]
+  temporaries stay bounded.  The CPU tests and the on-card checks use them.
+  The backwards replay the forward (``ys=None``, kernel #10's / #13's
+  function) or read the saved ys (#9's / #12's).
+- ``generic_tab_fwd`` / ``generic_tab_bwd``, ``generic_fwd`` / ``generic_bwd``
+  and ``generic_bwd_vjp``: a CPU tensor goes to the plain version; a CUDA
+  tensor goes to the hand-written kernels (``csrc/fused_message_generic_tab_fwd.cu``,
   ``csrc/fused_message_generic_tab_bwd.cu``, one source for each direction
-  with a compile-time sender addressing, and the fixed-order reduction of
-  ``csrc/fused_message_tab_bwd.cu``) or raises.
+  with a compile-time sender addressing and, in the backward, a chain mode,
+  and the fixed-order reduction of ``csrc/fused_message_tab_bwd.cu``) or
+  raises.
 - ``generic_sender_epilogue``: the split reverse-table gather-sum of
   ``call_tab_bwd``, in its order.
 - ``FusedMessageGenericTabled``, ``FusedMessageGenericUntabled`` and
   ``FusedMessageGenericSym``: the autograd Functions; ``FusedMessageGeneric``
   the per-layer object the model dispatches to (folds and permutes the
   weights outside the Functions, so autograd carries dW' to the parameters).
-  The JAX fallback backward (#14, an in-kernel ``jax.vjp`` for non-foldable
-  layers or ``replay_bwd=False``) is not ported: non-foldable layers raise.
 """
 
 from __future__ import annotations
@@ -74,6 +85,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.gather_scatter import gather_km, reverse_slot_gather_sum_km
+from ..ops.tensor_product import TensorProduct
 from .build import CudaKernel
 from .fused_message import _DTYPE_CODE, _MAX_SMEM, _cuda_args, tab_bwd_reduce
 
@@ -84,10 +96,12 @@ __all__ = ["GenericConfig", "FusedMessageGeneric", "FusedMessageGenericTabled",
            "generic_tab_bwd_table", "generic_tab_bwd_table_plain",
            "generic_sender_epilogue", "generic_fwd", "generic_fwd_plain", "generic_bwd",
            "generic_bwd_plain", "generic_bwd_kernels", "generic_bwd_chain",
+           "generic_bwd_vjp", "generic_bwd_vjp_plain", "generic_bwd_vjp_kernels",
+           "generic_bwd_vjp_wgrad", "generic_bwd_vjp_wgrad_plain",
            "FusedMessageGenericUntabled", "FusedMessageGenericSym", "GENERIC_TAB_FWD",
            "GENERIC_TAB_BWD_RES", "GENERIC_TAB_BWD_REP", "GENERIC_TAB_BWD_WGRAD",
            "GENERIC_TAB_BWD_TABLE", "GENERIC_FWD", "GENERIC_BWD_RES", "GENERIC_BWD_REP",
-           "KERNELS"]
+           "GENERIC_BWD_VJP", "GENERIC_BWD_VJP_WGRAD", "KERNELS", "vjp_group"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_SRC = "fused_message_generic_tab_fwd"
@@ -117,10 +131,13 @@ _BWD_SIGS = {
     "fused_message_generic_tab_bwd_wgrad": (_I, [_I] + [_P] * 6 + [_I] * 8 + [_P]),
     # dtype, d_hs, loc, d_hu, n, f, k, tile, u, stream
     "fused_message_generic_tab_bwd_table": (_I, [_I, _P, _P, _P] + [_I] * 5 + [_P]),
-    # dtype, replay, 16 pointers (hs, h, geo2, w1, sel1, w2, sel2, y1 in, y2 in,
-    # d_agg, d_hs, d_hr, dy1, dy2, m0, m1), n, f, k, a, c1a, da, dk1, c1b, db,
-    # dk2, stream
+    # dtype, mode (0 residual, 1 replay, 2 vjp), 16 pointers (hs, h, geo2, w1,
+    # sel1, w2, sel2, y1 in, y2 in, d_agg, d_hs, d_hr, dy1, dy2, m0, m1), n, f,
+    # k, a, c1a, da, dk1, c1b, db, dk2, stream
     "fused_message_generic_bwd_chain": (_I, [_I, _I] + [_P] * 16 + [_I] * 10 + [_P]),
+    # dtype, 6 pointers (geo2, m0, m1, dy1, dy2, partials), n, k, a, c1a, da, c1b,
+    # db, tile_rows, tile0, ntiles, stream
+    "fused_message_generic_bwd_wgrad_tiles": (_I, [_I] + [_P] * 6 + [_I] * 10 + [_P]),
 }
 # kernels #9 / #12 (residual) and #10 / #13 (replay), tabled / untabled: one
 # source, one chain kernel template; all four share the weight-gradient
@@ -136,9 +153,15 @@ GENERIC_TAB_BWD_TABLE = CudaKernel("fused_message_generic_tab_bwd_table", _BWD_S
                                    source_name=_BWD_SRC)
 GENERIC_BWD_RES = CudaKernel("fused_message_generic_bwd_res", _BWD_SIGS, source_name=_BWD_SRC)
 GENERIC_BWD_REP = CudaKernel("fused_message_generic_bwd_rep", _BWD_SIGS, source_name=_BWD_SRC)
+# kernel #14 (the JAX fallback backward): the chain in its vjp mode, the
+# per-tile weight-gradient kernel, then the fixed-order reduction
+GENERIC_BWD_VJP = CudaKernel("fused_message_generic_bwd_vjp", _BWD_SIGS, source_name=_BWD_SRC)
+GENERIC_BWD_VJP_WGRAD = CudaKernel("fused_message_generic_bwd_vjp_wgrad", _BWD_SIGS,
+                                   source_name=_BWD_SRC)
 
 KERNELS = (GENERIC_TAB_FWD, GENERIC_TAB_BWD_RES, GENERIC_TAB_BWD_REP, GENERIC_TAB_BWD_WGRAD,
-           GENERIC_TAB_BWD_TABLE, GENERIC_FWD, GENERIC_BWD_RES, GENERIC_BWD_REP)
+           GENERIC_TAB_BWD_TABLE, GENERIC_FWD, GENERIC_BWD_RES, GENERIC_BWD_REP,
+           GENERIC_BWD_VJP, GENERIC_BWD_VJP_WGRAD)
 
 
 @dataclass(frozen=True)
@@ -724,18 +747,23 @@ def generic_fwd(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Sequence,
 
 
 def generic_bwd_chain(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Sequence, d_agg,
-                      ys: Optional[Sequence] = None):
+                      ys: Optional[Sequence] = None, vjp: bool = False):
     """The untabled chain kernel: #12 with the saved ``ys``, #13 (replay)
-    without.  Returns ``(d_hs [K, N, F], d_hr [N, F], dy_1, dy_2, m_0, m_1)``,
-    the last four per slot row for the weight-gradient kernel, as the tabled
-    chain writes them."""
+    without, #14's chain with ``vjp`` (replay, then the dm GEMMs rounded as
+    JAX's AD of the layer: fp32 dya, each component's dm rounded, the
+    components added in the dtype).  Returns ``(d_hs [K, N, F], d_hr [N, F],
+    dy_1, dy_2, m_0, m_1)``, the last four per slot row for the
+    weight-gradient kernel, as the tabled chain writes them."""
     _check_untab_inputs(cfg, hs, h, geo2, ws, sels)
     _check_bwd_inputs(cfg, h, d_agg, ys)
+    if vjp and ys is not None:
+        raise ValueError("the vjp chain replays the forward: no saved ys")
     _cuda_args(h, (hs, h, geo2, *ws, *sels, d_agg, *(ys or ())))
     lib = _bwd_lib(cfg, h)
     (c1a, da, dk1), (c1b, db, dk2) = cfg.widths
     n, f = h.shape
     replay = ys is None
+    mode = 2 if vjp else int(replay)
     w1, w2 = ws
     if h.dtype == torch.bfloat16:  # the tensor-core engines' layout, D padded to 16
         w1, w2 = _mma_layout(w1, cfg.a, c1a, da, 16), _mma_layout(w2, cfg.a, c1b, db, 16)
@@ -744,13 +772,13 @@ def generic_bwd_chain(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Seque
     y_in = (None, None) if replay else tuple(y.data_ptr() for y in ys)
     with torch.cuda.device(h.device):
         rc = lib.fused_message_generic_bwd_chain(
-            _DTYPE_CODE[h.dtype], int(replay),
+            _DTYPE_CODE[h.dtype], mode,
             *(x.data_ptr() for x in (hs, h, geo2, w1, sels[0], w2, sels[1])), *y_in,
             *(x.data_ptr() for x in (d_agg, d_hs, d_hr, dy1, dy2, m0, m1)),
             n, f, cfg.k, cfg.a, c1a, da, dk1, c1b, db, dk2,
             torch.cuda.current_stream(h.device).cuda_stream)
     _launched("fused_message_generic_bwd_chain", rc)
-    (GENERIC_BWD_REP if replay else GENERIC_BWD_RES).launches += 1
+    (GENERIC_BWD_VJP if vjp else GENERIC_BWD_REP if replay else GENERIC_BWD_RES).launches += 1
     return d_hs, d_hr, dy1, dy2, m0, m1
 
 
@@ -784,6 +812,175 @@ def generic_bwd(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Sequence, d
     if h.device.type == "cpu":
         return generic_bwd_plain(cfg, hs, h, geo2, ws, sels, d_agg, ys)
     return generic_bwd_kernels(cfg, hs, h, geo2, ws, sels, d_agg, ys)
+
+
+# ---- kernel #14: the fallback backward (JAX's in-kernel ``jax.vjp``)
+
+def _check_bwd_tile(h, bwd_tile: int) -> None:
+    n = h.shape[0]
+    if bwd_tile < 1 or n % bwd_tile:
+        raise ValueError(f"rows {n} are not a multiple of the backward tile {bwd_tile}")
+
+
+def _layer_vjp(dy, attr, w, m, c1: int, a: int, tile_rows: int):
+    """One layer's transpose as JAX's AD of ``_layer_tp`` rounds it: per
+    component dya_c = dy * attr_c in fp32, dm_c = dya_c W'_c^T in fp32 cast to
+    the dtype and the C2 terms added in the dtype, last component first (the
+    order in which JAX's backward pass accumulates m's cotangent); dW'_c per
+    backward tile of ``tile_rows`` slot rows, m^T dya_c in fp32 cast to the
+    dtype.  Returns ``(dm, parts [tiles, A*C1, D] fp32)``; ``m=None``: dm
+    only (parts None)."""
+    dt = dy.dtype
+    rows, d = dy.shape
+    dyf = dy.float()
+    parts = None
+    if m is not None:
+        nt = rows // tile_rows
+        mt = m.float().reshape(nt, tile_rows, c1).transpose(1, 2)
+        parts = torch.empty((nt, a * c1, d), dtype=torch.float32, device=dy.device)
+    dm = None
+    for cc in range(a - 1, -1, -1):
+        dya = dyf * attr[:, cc:cc + 1]
+        if m is not None:
+            parts[:, cc * c1:(cc + 1) * c1] = torch.bmm(
+                mt, dya.view(nt, tile_rows, d)).to(dt).float()
+        t = (dya @ w[cc * c1:(cc + 1) * c1].T).to(dt)
+        dm = t if dm is None else dm + t
+    return dm, parts
+
+
+def generic_bwd_vjp_plain(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Sequence, d_agg,
+                          bwd_tile: int, chunk_rows: int = 1 << 17):
+    """Kernel #14's function by PyTorch ops (any device): ``(d_hs [K, N, F],
+    d_hr [N, F], [dW'_1, dW'_2] fp32)`` as ``generic_bwd_plain`` returns them,
+    with the rounding of JAX's AD of the tile forward: the forward replayed;
+    per layer the gate's VJP (``_gate_vjp``), then ``_layer_vjp``; d_hs the
+    rounded sender columns of dm_0, d_hr the fp32 K-sum of its rounded
+    receiver columns cast once; dW' the per-tile partials (tiles of
+    ``bwd_tile`` receivers, N a multiple of it), each rounded to the dtype,
+    added in fp32 in tile order.  In fp32 every rounding is the identity and
+    this is #13's function.  Receivers go in chunks of whole tiles, about
+    ``chunk_rows`` slot rows each."""
+    _check_untab_inputs(cfg, hs, h, geo2, ws, sels)
+    _check_bwd_inputs(cfg, h, d_agg, None)
+    _check_bwd_tile(h, bwd_tile)
+    dt = h.dtype
+    n, f = h.shape
+    k = cfg.k
+    wts = [w.float() for w in ws]
+    sels = [s.long() for s in sels]
+    d_hs = torch.empty((k, n, f), dtype=dt, device=h.device)
+    d_hr = torch.empty((n, f), dtype=dt, device=h.device)
+    dws = [torch.zeros_like(w) for w in wts]
+    step = max(1, chunk_rows // (bwd_tile * k)) * bwd_tile
+    for s in range(0, n, step):
+        e = min(n, s + step)
+        m0, attr, mask = _slot_rows_km(cfg, hs, h, geo2, s, e)
+        ms, ys = _rows_fwd(cfg, m0, attr, wts, sels, last_gate=False)
+        dm = (d_agg[s:e].float().repeat_interleave(k, dim=0) * mask.float()).to(dt)
+        for i in range(len(wts) - 1, -1, -1):
+            c1, _, dk = cfg.widths[i]
+            dy = _gate_vjp(ys[i], dm, sels[i], dk)
+            dm, parts = _layer_vjp(dy, attr, wts[i], ms[i], c1, cfg.a, bwd_tile * k)
+            for part in parts:  # the TPU grid's order
+                dws[i] += part
+        d_hs[:, s:e] = dm[:, :f].reshape(e - s, k, f).transpose(0, 1)
+        d_hr[s:e] = dm[:, f:2 * f].reshape(e - s, k, f).float().sum(dim=1).to(dt)
+    return d_hs, d_hr, dws
+
+
+def generic_bwd_vjp_wgrad_plain(cfg: GenericConfig, geo2, m0, m1, dy1, dy2, tile_rows: int,
+                                tile0: int, ntiles: int):
+    """The per-tile weight-gradient kernel's function by PyTorch ops:
+    partials [ntiles, NW] fp32, row t over the slot rows of backward tile
+    tile0 + t of m_l^T (dy_l * attr_c in fp32), rounded to the dtype; the
+    chain's row layouts and W' order as ``generic_tab_bwd_wgrad_plain``."""
+    rows = m0.shape[0]
+    attr = geo2.reshape(rows, cfg.a + 2)[:, :cfg.a].float()
+    out = []
+    for t in range(tile0, tile0 + ntiles):
+        s, e = t * tile_rows, min(rows, (t + 1) * tile_rows)
+        parts = []
+        for m, dy, (c1, d, _) in zip((m0, m1), (dy1, dy2), cfg.widths):
+            mf, dyf = m[s:e, :c1].float(), dy[s:e, :d].float()
+            for cc in range(cfg.a):
+                parts.append((mf.T @ (dyf * attr[s:e, cc:cc + 1])).to(m0.dtype).reshape(-1))
+        out.append(torch.cat(parts).float())
+    return torch.stack(out)
+
+
+def generic_bwd_vjp_wgrad(cfg: GenericConfig, geo2, m0, m1, dy1, dy2, tile_rows: int,
+                          tile0: int, ntiles: int, out=None):
+    """The per-tile weight-gradient kernel (CUDA tensors; the plain version for
+    CPU tensors): partials [ntiles, NW] fp32 (on the card into ``out`` when
+    given)."""
+    if geo2.device.type == "cpu":
+        return generic_bwd_vjp_wgrad_plain(cfg, geo2, m0, m1, dy1, dy2, tile_rows, tile0, ntiles)
+    _cuda_args(geo2, (geo2, m0, m1, dy1, dy2))
+    lib = _bwd_lib(cfg, geo2)
+    (c1a, da, _), (c1b, db, _) = cfg.widths
+    nw = cfg.a * (c1a * da + c1b * db)
+    if out is None:
+        out = torch.empty((ntiles, nw), dtype=torch.float32, device=geo2.device)
+    if tuple(out.shape) != (ntiles, nw) or out.dtype != torch.float32 or not out.is_contiguous():
+        raise ValueError(f"out must be contiguous float32 {(ntiles, nw)}")
+    with torch.cuda.device(geo2.device):
+        rc = lib.fused_message_generic_bwd_wgrad_tiles(
+            _DTYPE_CODE[geo2.dtype], *(x.data_ptr() for x in (geo2, m0, m1, dy1, dy2, out)),
+            m0.shape[0] // cfg.k, cfg.k, cfg.a, c1a, da, c1b, db, tile_rows, tile0, ntiles,
+            torch.cuda.current_stream(geo2.device).cuda_stream)
+    _launched("fused_message_generic_bwd_wgrad_tiles", rc)
+    GENERIC_BWD_VJP_WGRAD.launches += 1
+    return out
+
+
+# bytes of per-tile partials held at once (one group of tiles; 1.05 MB per
+# tile at the lmax=2 config, 4.2 MB at lmax_attr=5)
+_VJP_PARTIAL_BYTES = 1 << 27
+
+
+def vjp_group(cfg: GenericConfig, ntiles: int) -> int:
+    """Backward tiles per launch of #14's weight-gradient kernel: as many
+    per-tile partials [NW] fp32 as fit in ``_VJP_PARTIAL_BYTES``."""
+    (c1a, da, _), (c1b, db, _) = cfg.widths
+    nw = cfg.a * (c1a * da + c1b * db)
+    return max(1, min(ntiles, _VJP_PARTIAL_BYTES // (4 * nw)))
+
+
+def generic_bwd_vjp_kernels(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Sequence,
+                            d_agg, bwd_tile: int):
+    """The CUDA counterpart of ``generic_bwd_vjp_plain`` (same arguments and
+    results): the chain in its vjp mode, then per group of backward tiles the
+    per-tile weight-gradient kernel and the fixed-order reduction, whose
+    first row is the running sum: every tile's rounded partial is added in
+    fp32 in tile order, and only one group's partials are held."""
+    _check_bwd_tile(h, bwd_tile)
+    d_hs, d_hr, dy1, dy2, m0, m1 = generic_bwd_chain(cfg, hs, h, geo2, ws, sels, d_agg,
+                                                     vjp=True)
+    (c1a, da, _), (c1b, db, _) = cfg.widths
+    nw = cfg.a * (c1a * da + c1b * db)
+    ntiles = h.shape[0] // bwd_tile
+    group = vjp_group(cfg, ntiles)
+    buf = torch.zeros((group + 1, nw), dtype=torch.float32, device=h.device)
+    dw = buf[0]
+    for t0 in range(0, ntiles, group):
+        g = min(group, ntiles - t0)
+        generic_bwd_vjp_wgrad(cfg, geo2, m0, m1, dy1, dy2, bwd_tile * cfg.k, t0, g,
+                              out=buf[1:1 + g])
+        dw = tab_bwd_reduce(buf[:1 + g])
+        buf[0].copy_(dw)
+    n1 = cfg.a * c1a * da
+    return d_hs, d_hr, [dw[:n1].view(cfg.a * c1a, da), dw[n1:].view(cfg.a * c1b, db)]
+
+
+def generic_bwd_vjp(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Sequence, d_agg,
+                    bwd_tile: int):
+    """``(d_hs, d_hr, [dW'_1, dW'_2] fp32)`` of kernel #14: the hand-written
+    CUDA kernels for CUDA tensors, the plain version for CPU tensors.
+    Arguments as in ``generic_bwd_vjp_plain``."""
+    if h.device.type == "cpu":
+        return generic_bwd_vjp_plain(cfg, hs, h, geo2, ws, sels, d_agg, bwd_tile)
+    return generic_bwd_vjp_kernels(cfg, hs, h, geo2, ws, sels, d_agg, bwd_tile)
 
 
 def _segment_sum_in_order(rows, seg, num: int):
@@ -868,14 +1065,16 @@ def fused_message_generic_tabled(cfg: GenericConfig, residual: bool, h, geo2, lo
 class FusedMessageGenericUntabled(torch.autograd.Function):
     """The untabled generic message with its hand-written backward: the
     counterpart of the JAX ``custom_vjp`` of ``geo_call`` (``call``/
-    ``call_fwd``/``call_bwd``).  Residual mode saves each layer's pre-gate y
-    (#11 in save mode, then #12); replay mode keeps the inputs only (#13).
-    Returns the cotangents of hs [K, N, F], of h and of the folded weights."""
+    ``call_fwd``/``call_bwd``).  ``mode`` picks the backward as ``call_bwd``
+    does: "residual" saves each layer's pre-gate y (#11 in save mode, then
+    #12); "replay" keeps the inputs only (#13); "vjp" keeps the inputs only
+    and runs #14 at ``bwd_tile``.  Returns the cotangents of hs [K, N, F], of
+    h and of the folded weights."""
 
     @staticmethod
-    def forward(ctx, cfg, residual, hs, h, geo2, sels, *ws):
-        ctx.cfg, ctx.sels, ctx.nw = cfg, sels, len(ws)
-        if residual and any(ctx.needs_input_grad):  # no save for inference
+    def forward(ctx, cfg, mode, bwd_tile, hs, h, geo2, sels, *ws):
+        ctx.cfg, ctx.mode, ctx.bwd_tile, ctx.sels, ctx.nw = cfg, mode, bwd_tile, sels, len(ws)
+        if mode == "residual" and any(ctx.needs_input_grad):  # no save for inference
             agg, ys = generic_fwd(cfg, hs, h, geo2, ws, sels, save=True)
         else:
             agg, ys = generic_fwd(cfg, hs, h, geo2, ws, sels), []
@@ -888,9 +1087,13 @@ class FusedMessageGenericUntabled(torch.autograd.Function):
         hs, h, geo2 = saved[:3]
         ws, ys = saved[3:3 + ctx.nw], saved[3 + ctx.nw:] or None
         d_agg = d_agg.to(h.dtype).contiguous()
-        d_hs, d_hr, dws = generic_bwd(ctx.cfg, hs, h, geo2, ws, ctx.sels, d_agg, ys)
-        # cfg, residual, hs, h, geo2, sels, weights
-        return (None, None, d_hs, d_hr, None, None) + tuple(
+        if ctx.mode == "vjp":
+            d_hs, d_hr, dws = generic_bwd_vjp(ctx.cfg, hs, h, geo2, ws, ctx.sels, d_agg,
+                                              ctx.bwd_tile)
+        else:
+            d_hs, d_hr, dws = generic_bwd(ctx.cfg, hs, h, geo2, ws, ctx.sels, d_agg, ys)
+        # cfg, mode, bwd_tile, hs, h, geo2, sels, weights
+        return (None, None, None, d_hs, d_hr, None, None) + tuple(
             dw.to(w.dtype) for dw, w in zip(dws, ws))
 
 
@@ -923,37 +1126,43 @@ class FusedMessageGenericSym(torch.autograd.Function):
 class FusedMessageGeneric:
     """Fused message MLP + masked K-slot aggregation for one SEGNN layer's
     message layers (``O3TensorProductGate`` with a generic 'cm'
-    ``TensorProduct`` on the folded-GEMM path and a silu/sigmoid gate): on a
-    graph with gather tables built at ``tile`` (``geo_call_tab``), on a
-    gathered slot-major sender operand (``geo_call``) or on a symmetric graph
-    with the gather inside (``geo_call_sym``).
+    ``TensorProduct`` and a silu/sigmoid gate): on a graph with gather tables
+    built at ``tile`` (``geo_call_tab``), on a gathered slot-major sender
+    operand (``geo_call``) or on a symmetric graph with the gather inside
+    (``geo_call_sym``).
 
-    ``residual_bwd``: the forward saves the pre-gate ys and the backward
-    reads them (#9, #12); otherwise the backward replays the forward (#10,
-    #13).  The JAX package's third backward, an in-kernel ``jax.vjp`` (#14,
-    ``_bwd_call``) that its ``replay_bwd=False`` selects, is not ported, and
-    nor is that option: it comes with #14.  ``tile`` is the
-    tabled kernels' gather tile; the JAX package's separate backward tile
-    (``bwd_tile``) caps the TPU kernels' VMEM and changes no result, so there
-    is none here."""
+    The backward, as the JAX ``call_bwd`` picks it: ``residual_bwd``, the
+    forward saves the pre-gate ys and the backward reads them (#9, #12);
+    else ``replay_bwd``, the backward replays the forward (#10, #13); else
+    the fallback backward #14 (``geo_call`` only), at ``bwd_tile`` receivers
+    per tile (default ``max(tile // 2, 8)``, as JAX): its bf16 weight
+    gradient rounds once per tile, so the tile changes that result.  Both
+    hand-structured backwards need every layer on the folded-GEMM path
+    (``TensorProduct._gemm_default``), so a non-foldable layer (attributes
+    wider than 32, ``lmax_attr >= 5``, or ``mode="sparse"``) turns both off.
+    Such a layer still runs the same kernels on its CG-folded weights: the
+    forward #11 and the backward #14, the folded product and the selection
+    gate where the JAX kernel evaluates the layer component-wise with the
+    concat gate.  Both compute the same function; in bf16 they round at other
+    places (the gate's silu once more, the sparse TP per output component)."""
 
-    def __init__(self, layers: Sequence, k: int, tile: int, residual_bwd: bool = True) -> None:
+    def __init__(self, layers: Sequence, k: int, tile: int, bwd_tile: int = 0,
+                 residual_bwd: bool = True, replay_bwd: bool = True) -> None:
         self.layers = list(layers)
         self.k = k
         self.tile = tile
-        self.residual_bwd = residual_bwd
+        self.bwd_tile = bwd_tile or max(tile // 2, 8)
+        foldable = all(getattr(layer.tp, "_gemm_default", lambda: False)()
+                       for layer in self.layers)
+        self.residual_bwd = residual_bwd and foldable
+        self.replay_bwd = replay_bwd and foldable
         self._gate_fast = []
         for layer in self.layers:
             g = getattr(layer, "gate", None)
-            ok = (g is not None and g.layout == "cm" and g.act_scalars is F.silu
-                  and g.act_gates is torch.sigmoid
-                  and getattr(layer.tp, "_gemm_default", lambda: False)())
-            if not ok:
-                raise NotImplementedError(
-                    "the generic kernel runs folded-GEMM layers with the silu/sigmoid "
-                    "selection gate; other message layers, which the JAX package runs with "
-                    "its fallback backward (TPU kernel #14, FusedMessageGeneric._bwd_call), "
-                    "are ported in a later slice")
+            if not (g is not None and g.layout == "cm" and g.act_scalars is F.silu
+                    and g.act_gates is torch.sigmoid and isinstance(layer.tp, TensorProduct)):
+                raise ValueError("the generic kernels run generic TensorProduct message layers "
+                                 "with the silu/sigmoid gate in the cm layout")
             self._gate_fast.append(g.fast_tables())
         self.out_dim = self.layers[-1].gate.irreps_out.dim
         self._sels = {}
@@ -988,11 +1197,17 @@ class FusedMessageGeneric:
             out.append(wf[:, torch.as_tensor(perm, device=wf.device).long()].to(dtype))
         return out
 
+    def _bwd_mode(self) -> str:
+        return "residual" if self.residual_bwd else "replay" if self.replay_bwd else "vjp"
+
     def geo_call_tab(self, h, geo2, loc, gtab, rev_dense, rem_pos, rem_node):
         """agg [N, dk_last] for h [N, F] (N a multiple of ``tile``), geo2
         [N, K*(A+2)], loc [N, K], gtab [N/tile, U] built at ``tile`` and the
         split reverse table (``rev_dense`` [N, q0], ``rem_pos``/``rem_node``)
-        that the backward's epilogue reads."""
+        that the backward's epilogue reads.  Needs a hand-structured backward
+        (folded layers, ``residual_bwd`` or ``replay_bwd``), as in JAX."""
+        if not (self.residual_bwd or self.replay_bwd):
+            raise ValueError("geo_call_tab needs a hand-structured backward (folded layers)")
         a = geo2.shape[-1] // self.k - 2
         cfg = self.config(a, gtab.shape[1])
         ws = [w.contiguous() for w in self.fold(h.dtype)]
@@ -1004,18 +1219,24 @@ class FusedMessageGeneric:
     def geo_call(self, hs, h, geo2):
         """agg [N, dk_last] for hs [K, N, F] (the slot-major sender rows,
         ``h[senders.T]``), h [N, F] and geo2 [N, K*(A+2)]; the sender
-        cotangent goes back through hs (kernels #11, #12 / #13)."""
+        cotangent goes back through hs (kernels #11, then #12, #13 or #14;
+        for #14 N is a multiple of ``bwd_tile``)."""
         cfg = self.config(geo2.shape[-1] // self.k - 2, 0)
         ws = [w.contiguous() for w in self.fold(h.dtype)]
-        return FusedMessageGenericUntabled.apply(cfg, self.residual_bwd, hs.contiguous(),
-                                                 h.contiguous(), geo2.contiguous(),
-                                                 self.selections(h.device), *ws)
+        return FusedMessageGenericUntabled.apply(cfg, self._bwd_mode(), self.bwd_tile,
+                                                 hs.contiguous(), h.contiguous(),
+                                                 geo2.contiguous(), self.selections(h.device),
+                                                 *ws)
 
     def geo_call_sym(self, h, geo2, senders, reverse_slot):
         """agg [N, dk_last] on a symmetrized fixed-K graph (senders [N, K], the
         node-major reverse slots [N, K], ``graph.radius.symmetrize_dense``),
         the gather inside the autograd Function: only node-sized tensors are
-        kept, and the backward replays (#11, #13)."""
+        kept, and the backward replays (#11, #13).  Needs the replay backward,
+        as in JAX: a non-foldable layer, or ``replay_bwd=False``, raises."""
+        if not self.replay_bwd:
+            raise ValueError("geo_call_sym needs the replay backward (folded layers, "
+                             "replay_bwd=True)")
         cfg = self.config(geo2.shape[-1] // self.k - 2, 0)
         ws = [w.contiguous() for w in self.fold(h.dtype)]
         return FusedMessageGenericSym.apply(cfg, h.contiguous(), geo2.contiguous(),

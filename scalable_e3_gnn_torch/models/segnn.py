@@ -22,14 +22,19 @@ Message dispatch (``SEGNNLayer``):
 - ``use_pallas=True`` with any other hidden irreps (the lmax=2 configs)
   (``_fused_messages_generic``, ``kernels.fused_message_generic.
   FusedMessageGeneric``): on a graph with gather tables at
-  ``_pick_generic_tile(n)`` and n a multiple of it, the tabled kernel
-  (``geo_call_tab``: #8, then #9 from the saved pre-gate ys or, under
-  ``remat_kernel``, #10, which replays the forward); else, on a symmetrized
-  graph under ``remat_kernel`` with n a multiple of the tile, the
-  sym-regather entry (``geo_call_sym``: #11 and #13, node-sized residuals);
-  else the untabled kernel on the gathered senders (``geo_call``: #11, then
-  #12 or #13), the gather ``take_dense_symmetric_km`` on a symmetrized graph
-  (its gradient a reverse-slot gather) and ``h[senders.T]`` otherwise;
+  ``_pick_generic_tile(n)`` and n a multiple of it, and a kernel with a
+  hand-structured backward, the tabled kernel (``geo_call_tab``: #8, then #9
+  from the saved pre-gate ys or, under ``remat_kernel``, #10, which replays
+  the forward); else, on a symmetrized graph under ``remat_kernel`` with n a
+  multiple of the tile and ``replay_bwd``, the sym-regather entry
+  (``geo_call_sym``: #11 and #13, node-sized residuals); else the untabled
+  kernel on the gathered senders (``geo_call``: #11, then #12, #13 or, with
+  ``replay_bwd=False`` or non-foldable message layers (``lmax_attr >= 5``),
+  the fallback #14 at ``_pick_bwd_tile(n)``), the gather
+  ``take_dense_symmetric_km`` on a symmetrized graph (its gradient a
+  reverse-slot gather) and ``h[senders.T]`` otherwise.  As in JAX, a
+  non-foldable model under ``remat_kernel`` on a symmetrized graph reaches
+  the sym-regather entry, which has no replay backward for it, and raises;
 - ``use_pallas=True`` with lmax=1 hidden irreps and no tables, or with
   ``edge_chunks > 1`` (chunks carry no tables) (``_fused_messages``): with
   ``pack`` p > 1 dividing K, the packed lmax=1 kernel
@@ -148,7 +153,7 @@ class SEGNNLayer(nn.Module):
                  num_message_layers: int = 2, num_update_layers: int = 2,
                  layout: str = "mul", use_pallas: bool = False, remat: bool = False,
                  remat_kernel: bool = False, residual_bwd: bool = True,
-                 edge_chunks: int = 1, pack: int = 1, device=None,
+                 replay_bwd: bool = True, edge_chunks: int = 1, pack: int = 1, device=None,
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
         self.layout = layout
@@ -167,6 +172,9 @@ class SEGNNLayer(nn.Module):
         # residual_bwd: the generic kernel saves the pre-gate ys (off under
         # remat_kernel, whose point is not to keep edge-sized tensors)
         self.residual_bwd = residual_bwd
+        # replay_bwd: without the residuals, the generic kernel's backward
+        # replays the forward (#10, #13); False selects the fallback #14
+        self.replay_bwd = replay_bwd
         h = Irreps(hidden_irreps)
         hr = h.regroup()
         # the fused kernel: cm layout, 2 gated message layers, hidden = Hs x0e + Hv x1o
@@ -193,7 +201,7 @@ class SEGNNLayer(nn.Module):
             and all(isinstance(m.tp, TensorProduct) and m.gate is not None
                     for m in self.message_layers)
         )
-        self._generic_kernels = {}  # (k, tile, residual) -> FusedMessageGeneric
+        self._generic_kernels = {}  # (k, tile, bwd_tile, residual, replay) -> kernel
         self.update_layers = nn.ModuleList()
         cur = h + h
         for i in range(num_update_layers):
@@ -316,9 +324,23 @@ class SEGNNLayer(nn.Module):
                 return t
         return 64
 
+    def _pick_bwd_tile(self, n: int) -> int:
+        """The generic kernel's backward tile (#14's per-tile weight-gradient
+        rounding): the tile, except under ``remat_kernel`` with a tile above
+        80, where it is the largest of 80, 64, 48, 32, 16, 8 that divides the
+        padded row count (the JAX dispatch's VMEM cap)."""
+        tile = self._pick_generic_tile(n)
+        if self.remat_kernel and tile > 80:
+            npad = -(-n // tile) * tile
+            for b in (80, 64, 48, 32, 16, 8):
+                if npad % b == 0:
+                    return b
+        return tile
+
     def _tab_eligible(self, n: int, graph: Optional[DenseEdgeGraph]) -> bool:
-        """True when the generic dispatch takes the tabled kernel: tables
-        built at exactly ``_pick_generic_tile(n)``, with n a multiple of it."""
+        """True when the graph carries tables for the generic dispatch: built
+        at exactly ``_pick_generic_tile(n)``, with n a multiple of it (the
+        dispatch then also needs a hand-structured backward)."""
         if not self.use_pallas_generic or graph is None or graph.gather_loc is None:
             return False
         if graph.gather_rev_dense is None or graph.gather_rem_pos is None:
@@ -330,9 +352,12 @@ class SEGNNLayer(nn.Module):
         """True when the generic dispatch takes ``geo_call_sym``: the sender
         gather inside the autograd Function and node-sized residuals, under
         ``remat_kernel`` on a symmetrized graph with n a multiple of the
-        tile.  ``forward`` then skips the ``remat_kernel`` checkpoint, which
-        would only add a redundant kernel forward."""
-        return (self.use_pallas_generic and self.remat_kernel and rs_available and n % self._pick_generic_tile(n) == 0)
+        tile and the replay backward.  ``forward`` then skips the
+        ``remat_kernel`` checkpoint, which would only add a redundant kernel
+        forward.  As in JAX the layer's ``replay_bwd`` is read, not the
+        kernel's: non-foldable layers take this entry and raise there."""
+        return (self.use_pallas_generic and self.remat_kernel and self.replay_bwd
+                and rs_available and n % self._pick_generic_tile(n) == 0)
 
     @staticmethod
     def _pad_nodes(hs, geo2, h, npad):
@@ -366,14 +391,16 @@ class SEGNNLayer(nn.Module):
         n, k = senders.shape
         tile = self._pick_generic_tile(n)
         npad = -(-n // tile) * tile
-        key = (k, tile, self.residual_bwd and not self.remat_kernel)
+        key = (k, tile, self._pick_bwd_tile(n), self.residual_bwd and not self.remat_kernel,
+               self.replay_bwd)
         if key not in self._generic_kernels:
             self._generic_kernels[key] = FusedMessageGeneric(
-                self.message_layers, k, tile=tile, residual_bwd=key[2])
+                self.message_layers, k, tile=tile, bwd_tile=key[2], residual_bwd=key[3],
+                replay_bwd=key[4])
         kern = self._generic_kernels[key]
         geo2 = self._geo2(edge_geo, edge_attr, edge_dist2, edge_mask, h_local.dtype)
         own = h_ext is h_local and npad == n
-        if own and self._tab_eligible(n, graph):
+        if own and self._tab_eligible(n, graph) and (kern.residual_bwd or kern.replay_bwd):
             return kern.geo_call_tab(h_local, geo2, graph.gather_loc, graph.gather_tab,
                                      graph.gather_rev_dense, graph.gather_rem_pos,
                                      graph.gather_rem_node)
@@ -495,14 +522,18 @@ class SEGNN(nn.Module):
     ([N, F] each): the config-5 (10M points) memory ladder.  ``pack`` (p > 1
     dividing K) sends the untabled lmax=1 messages through the packed kernel
     (#6/#7), whose K-sum and receiver cotangent round once per group of p
-    slots; it adds no parameter.
+    slots; it adds no parameter.  ``replay_bwd=False`` makes the generic
+    kernel's backward, where it does not save the ys, the fallback #14
+    instead of the replay #13 (and skips the tabled and sym-regather entries,
+    which need the replay), as the JAX package's option does.
     """
 
     def __init__(self, input_irreps, hidden_irreps, output_irreps, lmax_attr: int = 1,
                  num_layers: int = 4, act: Callable = F.silu, task: str = "node",
                  layout: Optional[str] = None, use_pallas: bool = False, remat: bool = False,
                  remat_kernel: bool = False, residual_bwd: bool = True,
-                 edge_chunks: int = 1, remat_layers: int = 0, pack: int = 1, device=None,
+                 replay_bwd: bool = True, edge_chunks: int = 1, remat_layers: int = 0,
+                 pack: int = 1, device=None,
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
         device = resolve_device(device)
@@ -521,7 +552,8 @@ class SEGNN(nn.Module):
         self.layers = nn.ModuleList(
             SEGNNLayer(self.hidden_irreps, self.attr_irreps, layout=self.layout,
                        use_pallas=use_pallas, remat=remat, remat_kernel=remat_kernel,
-                       residual_bwd=residual_bwd, edge_chunks=edge_chunks, pack=pack, **kw)
+                       residual_bwd=residual_bwd, replay_bwd=replay_bwd,
+                       edge_chunks=edge_chunks, pack=pack, **kw)
             for _ in range(num_layers)
         )
         self.pre_head = O3TensorProductGate(self.hidden_irreps, self.attr_irreps,

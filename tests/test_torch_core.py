@@ -67,3 +67,38 @@ def test_spherical_harmonics_unnormalized_and_lmax2():
         assert got.shape == (16, (lmax + 1) ** 2)
         atol = 1e-6 if lmax == 1 else 1e-5 * max(1.0, np.abs(ref).max())
         np.testing.assert_allclose(got, ref, atol=atol)
+
+
+@pytest.mark.parametrize("lmax", [4, 5])
+@pytest.mark.parametrize("normalization", ["component", "norm"])
+def test_spherical_harmonics_lmax4_5_match_jax(lmax, normalization):
+    """The attributes of ``lmax_attr`` 4 and 5 (the non-foldable message
+    layers, 25 and 36 wide): fp32, atol 1e-6 * max(1, max|ref|), as for
+    lmax <= 3 in units of the largest entry (the component normalization
+    scales Y_5 up to 3.2, and each side is 1.4e-6 from a float64 evaluation
+    there)."""
+    rng = np.random.default_rng(10 + lmax)
+    v = rng.standard_normal((64, 5, 3)).astype(np.float32)
+    v[0, 0] = 0.0
+    ref = np.asarray(jax_sh(lmax, jnp.asarray(v), normalization=normalization))
+    got = torch_sh(lmax, torch.from_numpy(v), normalization=normalization).numpy()
+    assert got.shape == (64, 5, (lmax + 1) ** 2)
+    np.testing.assert_allclose(got, ref, atol=1e-6 * max(1.0, float(np.abs(ref).max())))
+
+
+@pytest.mark.parametrize("l1", [0, 1, 2, 3, 4, 5])
+def test_wigner_3j_l4_l5_triples_equal_jax(l1):
+    """Every triple up to l = 5 with an l of 4 or 5 (the lmax_attr=5 tensor
+    products reach (2, 4, 2); the lmax=5 spherical harmonics use (4, 1, 5)):
+    bitwise equal to the JAX package's, as the l <= 3 triples are."""
+    from scalable_e3_gnn_tpu.core.wigner import wigner_3j as j_w3j
+    from scalable_e3_gnn_torch.core.wigner import wigner_3j as t_w3j
+
+    met = 0
+    for l2 in range(6):
+        for l3 in range(6):
+            if max(l1, l2, l3) < 4 or not abs(l1 - l2) <= l3 <= l1 + l2:
+                continue
+            np.testing.assert_array_equal(t_w3j(l1, l2, l3), j_w3j(l1, l2, l3))
+            met += 1
+    assert met > 0

@@ -548,6 +548,121 @@ def test_untabled_segnn_gradients_kernel_match_plain_path(dev, mode):
         assert err <= 1e-4 * float(b.grad.abs().max()), (name, err)
 
 
+# ---- kernel #14: the fallback backward (the vjp chain, the per-tile weight
+# gradients, the reduction)
+
+def _vjp_problem(dev, hidden, k, n, dtype, lmax_attr=2):
+    """#14's arguments on kernel #8's problem (the masked tail of 37
+    receivers: zero rows, no valid slot), at the model's attribute order."""
+    tile = SEGNNLayer._pick_generic_tile(n)
+    g, _ = _graph(dev, n, k, 0.25, tile)
+    model = SEGNN("2x0e+1x1o", hidden, "1x1o", lmax_attr=lmax_attr, num_layers=1, layout="cm",
+                  use_pallas=True, device=dev, generator=torch.Generator().manual_seed(3))
+    kern = fmg.FusedMessageGeneric(model.layers[0].message_layers, k, tile)
+    geo = model.compute_attributes_dense(g)[3].reshape(n, k, -1).clone()
+    a = geo.shape[-1] - 2
+    gen = torch.Generator(device=dev).manual_seed(4)
+    geo[..., a + 1] *= (torch.rand((n, k), generator=gen, device=dev) > 0.1).float()
+    geo[n - 37:, :, a + 1] = 0.0
+    cfg = kern.config(a, 0)
+    h = torch.randn((n, cfg.f), generator=gen, device=dev)
+    h[n - 37:] = 0.0
+    hs = h[torch.clamp(g.senders.t(), max=n - 1).long()].contiguous()
+    d_agg = torch.randn((n, cfg.out_dim), generator=gen, device=dev).to(dtype)
+    args = (hs.to(dtype), h.to(dtype), geo.reshape(n, -1).to(dtype).contiguous(),
+            [w.contiguous() for w in kern.fold(dtype)], kern.selections(dev))
+    return cfg, args, d_agg
+
+
+@pytest.mark.parametrize("bwd_tile", [200, 80])
+@pytest.mark.parametrize("hidden,k,n", [GENERIC_WIDTHS[0], GENERIC_WIDTHS[2]])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vjp_bwd_kernels_match_plain(dev, hidden, k, n, dtype, bwd_tile):
+    """#14 (the vjp chain, the per-tile weight-gradient kernel, the reduction)
+    against its plain version at two backward tiles, as the untabled
+    backwards (``_check_bwd``); the tail's rows are exact zeros; one chain,
+    one weight-gradient launch per group of tiles and one reduction each."""
+    if n % bwd_tile:
+        bwd_tile = 40
+    cfg, args, d_agg = _vjp_problem(dev, hidden, k, n, dtype)
+    kerns = (fmg.GENERIC_BWD_VJP, fmg.GENERIC_BWD_VJP_WGRAD, fm.TAB_BWD_REDUCE,
+             fmg.GENERIC_BWD_REP, fmg.GENERIC_TAB_BWD_WGRAD)
+    with torch.no_grad():
+        before = [kern.launches for kern in kerns]
+        got = fmg.generic_bwd_vjp(cfg, *args, d_agg, bwd_tile)
+        torch.cuda.synchronize()
+        assert [kern.launches - b for kern, b in zip(kerns, before)] == [1, 1, 1, 0, 0]
+        ref = fmg.generic_bwd_vjp_plain(cfg, *args, d_agg, bwd_tile)
+    _check_bwd(got, ref, dtype)
+    assert (got[0][:, n - 37:] == 0).all() and (got[1][n - 37:] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vjp_bwd_reruns_bitwise_and_groups_of_tiles(dev, dtype, monkeypatch):
+    """Two runs of #14 bitwise equal (no float atomics), also when the
+    partials are held in groups of 3 tiles (9 weight-gradient launches):
+    the tiles are added in the same order."""
+    cfg, args, d_agg = _vjp_problem(dev, *GENERIC_WIDTHS[2], dtype)
+    with torch.no_grad():
+        runs = [fmg.generic_bwd_vjp(cfg, *args, d_agg, 80) for _ in range(2)]
+        (c1a, da, _), (c1b, db, _) = cfg.widths
+        monkeypatch.setattr(fmg, "_VJP_PARTIAL_BYTES", 3 * 4 * cfg.a * (c1a * da + c1b * db))
+        before = fmg.GENERIC_BWD_VJP_WGRAD.launches
+        runs.append(fmg.generic_bwd_vjp(cfg, *args, d_agg, 80))
+        assert fmg.GENERIC_BWD_VJP_WGRAD.launches - before == 9
+    flat = [[r[0], r[1], *r[2]] for r in runs]
+    for other in flat[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(flat[0], other, strict=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attr36_kernels_match_plain(dev, dtype):
+    """At lmax_attr=5 (A = 36, the geometry 38 values per slot) the forward
+    #11 and the backward #14 against their plain versions, at the lmax=2
+    config's hidden width."""
+    cfg, args, d_agg = _vjp_problem(dev, *GENERIC_WIDTHS[2], dtype, lmax_attr=5)
+    assert cfg.a == 36
+    with torch.no_grad():
+        _check_generic(fmg.generic_fwd(cfg, *args), fmg.generic_fwd_plain(cfg, *args), dtype)
+        got = fmg.generic_bwd_vjp(cfg, *args, d_agg, 200)
+        ref = fmg.generic_bwd_vjp_plain(cfg, *args, d_agg, 200)
+    _check_bwd(got, ref, dtype)
+
+
+VJP_MODELS = {  # model settings of the two #14 paths
+    "replay_off": dict(lmax_attr=2, remat=True, residual_bwd=False, replay_bwd=False),
+    "lmax_attr5": dict(lmax_attr=5),
+}
+
+
+@pytest.mark.parametrize("name", sorted(VJP_MODELS))
+def test_vjp_segnn_gradients_kernel_match_plain_path(dev, name):
+    """fp32 MSE gradients of every parameter of a 2-layer SEGNN whose message
+    backward is #14 (``replay_bwd=False``; ``lmax_attr=5``), on a graph with
+    tables (which #14 bypasses), against autograd of the plain path: 1e-4 *
+    max|ref| per parameter; per step two launches each of #11 and #14, none
+    of the tabled kernels, #12 or #13."""
+    n = 2000
+    _, gt = _graph(dev, n, 16, 0.12, SEGNNLayer._pick_generic_tile(n))
+    kw = VJP_MODELS[name]
+    m_k = SEGNN("2x0e+1x1o", "24x0e+12x1o+6x2e", "1x1o", num_layers=2, layout="cm",
+                use_pallas=True, device=dev, generator=torch.Generator().manual_seed(9), **kw)
+    m_p = SEGNN("2x0e+1x1o", "24x0e+12x1o+6x2e", "1x1o", num_layers=2, layout="cm",
+                use_pallas=False, device=dev, lmax_attr=kw["lmax_attr"])
+    m_p.load_state_dict(m_k.state_dict())
+    target = torch.randn((n, 3), generator=torch.Generator(device=dev).manual_seed(10),
+                         device=dev)
+    kerns = (fmg.GENERIC_FWD, fmg.GENERIC_BWD_VJP, fmg.GENERIC_TAB_FWD, fmg.GENERIC_TAB_BWD_RES,
+             fmg.GENERIC_TAB_BWD_REP, fmg.GENERIC_BWD_RES, fmg.GENERIC_BWD_REP)
+    before = [kern.launches for kern in kerns]
+    ((m_k(gt) - target) ** 2).mean().backward()
+    assert [kern.launches - b for kern, b in zip(kerns, before)] == [2, 2, 0, 0, 0, 0, 0]
+    ((m_p(gt) - target) ** 2).mean().backward()
+    for (nm, a), b in zip(m_k.named_parameters(), m_p.parameters(), strict=True):
+        err = float((a.grad - b.grad).abs().max())
+        assert err <= 1e-4 * float(b.grad.abs().max()), (nm, err)
+
+
 # the untabled lmax=1 kernels (#3 forward, #5 backward): (hidden, K, points,
 # node blocks); the last is config 3's width, its 1000-node blocks pad to 1024
 KM_WIDTHS = [("16x0e+8x1o", 8, 256, 1), ("8x0e+12x1o", 13, 960, 1),

@@ -321,8 +321,9 @@ def test_segnn_lmax2_serves_clouds_at_two_tiles():
             tiles.append(tgt.gather_tile)
             torch.testing.assert_close(tm_k(tgt), tm_p(tg), rtol=0, atol=ATOL)
     assert tiles == [96, 120, 96]
-    # one kernel object per (K, tile, residual mode)
-    assert sorted(tm_k.layers[0]._generic_kernels) == [(8, 96, True), (8, 120, True)]
+    # one kernel object per (K, tile, backward tile, residual mode, replay_bwd)
+    assert sorted(tm_k.layers[0]._generic_kernels) == [(8, 96, 96, True, True),
+                                                        (8, 120, 120, True, True)]
 
 
 def test_segnn_lmax2_attributes_match_jax():

@@ -184,21 +184,31 @@ def test_untabled_dispatch_pads_to_the_km_tile(monkeypatch):
 
 
 def test_unported_tensor_product_raises():
-    """The generic tensor product and its untabled kernels are ported: an
-    lmax=2 model builds and runs without tables.  What is not ported raises:
-    a message layer off the folded-GEMM path (its JAX backward is the
-    fallback kernel #14)."""
+    """The generic tensor product and its kernels are ported: an lmax=2 model
+    builds and runs without tables, and so does a message layer off the
+    folded-GEMM path (``mode="sparse"``: the forward #11 and the fallback
+    backward #14 on its CG-folded weights), equal to the folded layer's
+    result within 1e-5.  What is not ported raises: a message layer whose
+    gate is not silu/sigmoid (the kernels evaluate the selection gate)."""
     tm = TSEGNN("2x0e+1x1o", "8x0e+4x1o+2x2e", "1x1o", num_layers=1, lmax_attr=2,
                 use_pallas=True, device="cpu")
     assert tm.layers[0].use_pallas_generic
     jg, jgt, tg, tgt = _graph(128)
     with torch.no_grad():
-        assert torch.isfinite(tm(tg)).all()
+        want = tm(tg)
+        assert torch.isfinite(want).all()
     tm.layers[0].message_layers[0].tp.mode = "sparse"
     tm.layers[0]._generic_kernels.clear()
-    with pytest.raises(NotImplementedError, match="#14"):
+    with torch.no_grad():
+        got = tm(tg)
+    (kern,) = tm.layers[0]._generic_kernels.values()
+    assert not (kern.residual_bwd or kern.replay_bwd)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    other = TSEGNN("2x0e+1x1o", "8x0e+4x1o+2x2e", "1x1o", num_layers=1, lmax_attr=2,
+                   act=torch.tanh, use_pallas=True, device="cpu")
+    with pytest.raises(ValueError, match="silu/sigmoid"):
         with torch.no_grad():
-            tm(tg)
+            other(tg)
 
 
 def test_entry_points_without_device_need_a_gpu(monkeypatch):
