@@ -150,6 +150,29 @@ Phases, each printing one JSON line:
                  against their plain versions (bf16), fp32 gradients of the
                  lmax_attr=5 model at 20k points against the plain path; the
                  times.
+44. dist_partition -- the dense partitioner on config 3's 100k graph at P = 1
+                 and 4: host ms, NI/NB/H, both transpose tables' q; every
+                 valid edge of the input found once over the partitions.
+45. kernel_ring -- the halo ring #15 against its plain version at P = 2, 4, 8
+                 (odd H and F) and at config 3's P=4 [H, 80] in bf16 and fp32,
+                 bitwise; 20 launches back to back with no reset (the epoch);
+                 device times (torch.profiler) of the kernel, its plain
+                 version and the library call, and its bound.
+46. dist_forward -- config 3's bf16 forward partitioned (all P partitions on
+                 the card) at P=1 (all_gather) and P=4 (all_gather, ring):
+                 against the unpartitioned fp32 plain path, bit for bit the
+                 unpartitioned bf16 kernel forward, ring = all_gather
+                 bitwise, launches of #3 (2 blocks x P x 4 layers) and #15 (4).
+47. dist_train -- bench_scaling.py's measure: 5 timed bf16 steps after a
+                 warm-up at P=1 and at P=4 with each backend, launches per
+                 step, peak memory, the single-card untabled step beside, a
+                 profile of two steps at each P and backend.
+48. dist_grad_check -- fp32 gradients of the P=4 partitioned step (both
+                 backends) against the unpartitioned plain path at 20k points.
+49. dist_lmax2 -- the 250k lmax=2 model at P=4 (ring): a counted forward
+                 (#11 per block) against the unpartitioned fp32 plain path and
+                 bit for bit the unpartitioned bf16 kernel forward, and 2
+                 counted train steps (#11, #12).
 
 Then the ``kernels`` line, the card line and, last, the result line.  Any
 failed check raises: the script exits non-zero and prints no result.  It
@@ -173,9 +196,12 @@ import scalable_e3_gnn_torch as port
 from scalable_e3_gnn_torch.graph.radius import radius_graph_brute, search_level_for_radius
 from scalable_e3_gnn_torch.kernels import fused_message as fm
 from scalable_e3_gnn_torch.kernels import fused_message_generic as fmg
+from scalable_e3_gnn_torch.kernels import halo_ring as hr
 from scalable_e3_gnn_torch.kernels.build import build_libraries
 from scalable_e3_gnn_torch.models.segnn import SEGNNLayer
 from scalable_e3_gnn_torch.ops.gather_scatter import gather_km
+from scalable_e3_gnn_torch.parallel import halo as dist
+from scalable_e3_gnn_torch.parallel.partition import partition_graph_dense
 from scalable_e3_gnn_torch.train.pipeline import make_train_step, mse_loss
 
 # config 3 (bench.py of the JAX package)
@@ -267,7 +293,7 @@ TOL_RADIUS_AGREE = 0.9999  # share of identical (receiver, sender) pairs; d^2 ro
 
 TPU_FILE = "scalable_e3_gnn_tpu/kernels/fused_message.py"
 GENERIC_TPU_FILE = "scalable_e3_gnn_tpu/kernels/fused_message_generic.py"
-ALL_KERNELS = fm.KERNELS + fmg.KERNELS
+ALL_KERNELS = fm.KERNELS + fmg.KERNELS + hr.KERNELS
 
 
 def emit(phase: str, **kw) -> None:
@@ -417,9 +443,11 @@ def launch_counts() -> dict:
     return {kern.name: kern.launches for kern in ALL_KERNELS}
 
 
-def profile_steps(step, batch, steps: int = 2, top: int = 14) -> dict:
+def profile_steps(step, batch, steps: int = 2, top: int = 14, host_top: int = 0) -> dict:
     """Device time per kernel over ``steps`` train steps (torch.profiler),
-    per step, and the device's busy share of the wall time."""
+    per step, and the device's busy share of the wall time; with
+    ``host_top``, that many host operators by their own host time per step
+    (the CPU-side rows, without their children)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -436,9 +464,37 @@ def profile_steps(step, batch, steps: int = 2, top: int = 14) -> dict:
             rows.append((ev.self_device_time_total / 1e3 / steps, ev.count / steps, ev.key[:90]))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    return dict(steps=steps, wall_ms_per_step=wall_ms / steps, device_ms_per_step=busy,
-                device_busy_share=busy * steps / wall_ms if wall_ms else 0.0,
-                top=[dict(name=n, ms_per_step=ms, calls_per_step=c) for ms, c, n in rows[:top]])
+    out = dict(steps=steps, wall_ms_per_step=wall_ms / steps, device_ms_per_step=busy,
+               device_busy_share=busy * steps / wall_ms if wall_ms else 0.0,
+               top=[dict(name=n, ms_per_step=ms, calls_per_step=c) for ms, c, n in rows[:top]])
+    if host_top:
+        host = sorted(((ev.self_cpu_time_total / 1e3 / steps, ev.count / steps, ev.key[:60])
+                       for ev in prof.key_averages()
+                       if ev.device_type == torch.autograd.DeviceType.CPU), reverse=True)
+        out["host_ms_per_step"] = sum(h[0] for h in host)
+        out["host_top"] = [dict(name=n, ms_per_step=ms, calls_per_step=c)
+                           for ms, c, n in host[:host_top]]
+    return out
+
+
+def kernel_device_ms(fn, iters: int = 50, warmup: int = 5) -> tuple:
+    """(device ms, traced launches) of the one kernel that each call of
+    ``fn`` launches, from a torch.profiler trace of ``iters`` calls: the mean
+    over the launches the trace holds (it may hold fewer than ``iters``),
+    without the host time between them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0]
+    check(len(evs) == 1, f"one kernel per call expected, traced {[ev.key for ev in evs]}")
+    return evs[0].self_device_time_total / 1e3 / evs[0].count, evs[0].count
 
 
 def generic_kernel_inputs(kern, graph, edge_geo, dtype, gen):
@@ -2376,6 +2432,420 @@ def vjp_phases(card: str, ctx: dict) -> dict:
     }
 
 
+DIST_PARTS = 4  # the partitioned runs' P (and 1, the degenerate halo)
+DIST_LMAX2_STEPS = 2
+RING_SMALL = ((2, 37, 13), (4, 129, 80), (8, 61, 7))  # (P, H, F): odd H and F, F=80 of config 3
+RING_BACK_TO_BACK = 20  # launches with no reset between them (the epoch path)
+HALO_TPU_FILE = "scalable_e3_gnn_tpu/kernels/halo_rdma.py"
+
+
+def partition_arrays(graph):
+    """(positions, features, senders, edge_mask) of a graph, host numpy."""
+    return tuple(x.cpu().numpy() for x in (graph.positions, graph.nodes, graph.senders,
+                                           graph.edge_mask))
+
+
+def partition_edges(part, n: int) -> np.ndarray:
+    """The sorted (receiver * n + sender) keys, in input node ids, of every
+    valid slot of both blocks of every partition (halo senders through the
+    pool to their owner's row)."""
+    ni, npp, hcap = part.n_interior, part.n_per_part, part.halo_cap
+    keys = []
+    for p in range(part.num_parts):
+        gid = part.global_ids[p].astype(np.int64)
+        s_i = part.senders_int[p]
+        keys.append((gid[:ni, None] * n + gid[np.minimum(s_i, npp - 1)])[part.mask_int[p]])
+        s_b = part.senders_bnd[p]
+        pool = part.halo_map[p][np.clip(s_b - npp, 0, hcap - 1)]
+        q, j = pool // hcap, pool % hcap
+        halo_gid = part.global_ids[q, part.boundary_idx[q, j]].astype(np.int64)
+        sender = np.where(s_b < npp, gid[np.minimum(s_b, npp - 1)], halo_gid)
+        keys.append((gid[ni:, None] * n + sender)[part.mask_bnd[p]])
+    return np.sort(np.concatenate(keys))
+
+
+def dist_inputs(model, part, dev, dtype):
+    """The group, the shards and the precomputed attributes of a partition,
+    the float arrays cast to ``dtype`` (bench_scaling.py's measure)."""
+    group = dist.PartitionGroup(part.num_parts, dev)
+    shards = dist.shard_partitioned_dense(part, group)
+    attrs = dist.make_dist_geometry_dense(model, group)(shards)
+    shards = [sh._replace(nodes=sh.nodes.to(dtype), positions_ext=sh.positions_ext.to(dtype))
+              for sh in shards]
+    return group, shards, [tuple(a.to(dtype) for a in at) for at in attrs]
+
+
+def unpermute(out, part, n: int):
+    """[P, Np, F] partition rows -> [n, F] input order."""
+    gids = torch.as_tensor(part.global_ids.ravel(), device=out.device).long()
+    flat = out.reshape(-1, out.shape[-1])
+    res = flat.new_zeros((n, out.shape[-1]))
+    res[gids[gids >= 0]] = flat[gids >= 0]
+    return res
+
+
+def dist_targets(target, part):
+    """target[clip(global_ids, 0)]: [P, Np, F] (pad rows are masked)."""
+    idx = torch.as_tensor(np.clip(part.global_ids, 0, None), device=target.device).long()
+    return target[idx]
+
+
+def dist_train_run(step, shards, targets, attrs, steps: int, want: dict) -> dict:
+    """``steps`` counted steps, each timed by CUDA events: per-step launches
+    against ``want``, finite losses; returns the losses, times and peak memory."""
+    losses, per_step, step_ms = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(steps):
+        before = launch_counts()
+        ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev[0].record()
+        m = step(shards, targets, attrs)
+        ev[1].record()
+        losses.append(m["loss"].item())
+        torch.cuda.synchronize()
+        step_ms.append(ev[0].elapsed_time(ev[1]))
+        per_step.append({k: v - before[k] for k, v in launch_counts().items()})
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+    check(all(s == want for s in per_step), f"launches per step {per_step}, expected {want}")
+    return dict(losses=losses, step_ms=step_ms, launches_per_step=per_step[-1],
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def dist_phases(card: str, graph3) -> dict:
+    """Phases 44-48: the dense partitioned path (``parallel.partition``,
+    ``parallel.halo``: all P partitions on the card, stepped layer by layer)
+    and kernel #15, the halo ring, on config 3's 100k graph (K=24,
+    symmetrized; its tables unused) and the 250k lmax=2 graph.
+
+    44. dist_partition -- partition_graph_dense at P = 1 and 4: host ms,
+        NI, NB, H, the q of both transpose tables; every valid edge of the
+        input found exactly once over the partitions' blocks.
+    45. kernel_ring -- #15 against its plain version at P = 2, 4, 8 on small
+        shapes (odd H and F) and at config 3's P=4 [H, 80] in bf16 and fp32:
+        bitwise equal (it only copies); 20 launches back to back with no
+        reset (the epoch advancing); device times (torch.profiler) of the
+        kernel, its plain version and the one PyTorch call that builds the
+        same pools, and its bound.
+    46. dist_forward -- config 3's bf16 forward through make_dist_forward_dense
+        at P=1 (all_gather) and P=4 (all_gather, ring), un-permuted by
+        global_ids against the unpartitioned fp32 plain path on the same
+        weights (TOL_FORWARD_BF16 * max|ref|) and bit for bit the
+        unpartitioned bf16 kernel forward; ring and all_gather bitwise
+        equal; per forward 2 blocks x P partitions x 4 layers of #3, and 4 of
+        #15 under ring (one per layer).
+    47. dist_train -- bench_scaling.py's measure at P=1 and at P=4 with each
+        backend: a warm-up and 5 timed bf16 steps (fp32 masters, Adam 1e-3,
+        precomputed geometry, the float shard arrays and attributes in
+        bf16); per step 2 P 4 of #3, of #5 and of the reduction, and 4 of #15
+        under ring; peak memory; the single-card untabled step timed beside;
+        a torch.profiler trace of two steps at each P and backend.
+    48. dist_grad_check -- fp32 at 20k points, P=4, both backends: the
+        partitioned gradients and loss against autograd of the unpartitioned
+        plain path.
+    Then dist_lmax2 (``dist_lmax2_phase``).  Returns #15's row of the
+    ``kernels`` line."""
+    dev = torch.device(DEVICE)
+    bf = torch.bfloat16
+    n = N_POINTS
+    g100 = graph3._replace(**NO_TABLES)
+    arrays = partition_arrays(g100)
+
+    # ---- 44. the partitions
+    parts = {}
+    n_edges = int(arrays[3].sum())
+    want_keys = np.sort((np.arange(n, dtype=np.int64)[:, None] * n
+                         + arrays[2].astype(np.int64))[arrays[3]])
+    for p in (1, DIST_PARTS):
+        t0 = time.perf_counter()
+        part = partition_graph_dense(*arrays, num_parts=p)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        parts[p] = part
+        found = partition_edges(part, n)
+        emit("dist_partition", points=n, k=MAX_NEIGHBORS, num_parts=p, host_ms=host_ms,
+             n_interior=part.n_interior, n_boundary=part.n_boundary, halo_cap=part.halo_cap,
+             q_int=part.rev_int.shape[-1], q_ext=part.rev_ext.shape[-1],
+             edges=n_edges, edges_found=int(found.size),
+             interior_edges=int(part.mask_int.sum()), boundary_edges=int(part.mask_bnd.sum()))
+        check(np.array_equal(found, want_keys),
+              f"P={p}: the partitions' edges are not the input's, each once")
+    del want_keys
+
+    # ---- 45. kernel #15 against its plain version; times
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    hcap, f3 = parts[DIST_PARTS].halo_cap, port.Irreps(HIDDEN).dim
+    cases = [(p, h, f, dt) for p, h, f in RING_SMALL for dt in (torch.float32, bf)]
+    cases += [(DIST_PARTS, hcap, f3, dt) for dt in (bf, torch.float32)]
+    rows = []
+    for p, h, f, dt in cases:
+        x = torch.randn((p, h, f), generator=gen, device=dev).to(dt)
+        got = hr.ring_all_gather_fwd(x)
+        ref = hr.ring_all_gather_plain(x)
+        rows.append(dict(p=p, h=h, f=f, dtype=str(dt).replace("torch.", ""),
+                         bitwise_equal=bool(torch.equal(got, ref)),
+                         max_abs_err=float((got.float() - ref.float()).abs().max())))
+    xs = [torch.randn((DIST_PARTS, hcap, f3), generator=gen, device=dev).to(bf)
+          for _ in range(RING_BACK_TO_BACK)]
+    epochs_before = hr.ring_epochs()
+    pools = [hr.ring_all_gather_launch(x) for x in xs]
+    hr.ring_error_check(xs[0].device)
+    b2b_err = max(float((po.float() - hr.ring_all_gather_plain(x).float()).abs().max())
+                  for po, x in zip(pools, xs))
+    b2b = all(torch.equal(po, hr.ring_all_gather_plain(x)) for po, x in zip(pools, xs))
+    epochs = {str(k): (epochs_before.get(k, 0), e) for k, e in hr.ring_epochs().items()}
+    del pools
+    ring_err = max([r["max_abs_err"] for r in rows] + [b2b_err])
+    x = xs[0]
+    # device times per launch from a profiler trace of the kernel (the per-call
+    # host time of the wrapper is read apart, by CUDA events around the
+    # queue); the plain version and the library call the same way
+    ring_ms, ring_traced = kernel_device_ms(lambda: hr.ring_all_gather_launch(x))
+    hr.ring_error_check(x.device)
+    x32 = x.float()
+    ring32_ms, _ = kernel_device_ms(lambda: hr.ring_all_gather_launch(x32))
+    hr.ring_error_check(x.device)
+    ring_event_ms = event_ms(lambda: hr.ring_all_gather_launch(x), iters=50, warmup=5)
+    hr.ring_error_check(x.device)
+    wrapper_ms = event_ms(lambda: hr.ring_all_gather_fwd(x), iters=50, warmup=5)
+    plain_ms, plain_traced = kernel_device_ms(lambda: hr.ring_all_gather_plain(x))
+    plain_event_ms = event_ms(lambda: hr.ring_all_gather_plain(x), iters=50, warmup=5)
+    lib_out = torch.empty((DIST_PARTS,) + tuple(x.shape), dtype=x.dtype, device=dev)
+    lib_call = lambda: lib_out.copy_(x.expand(DIST_PARTS, *x.shape))
+    lib_ms, lib_traced = kernel_device_ms(lib_call)
+    lib_event_ms = event_ms(lib_call, iters=50, warmup=5)
+    check(torch.equal(lib_out, hr.ring_all_gather_plain(x)), "the library call's pools differ")
+    del xs, lib_out
+    # bound: the function reads every export once and writes every pool
+    # once, P + P^2 chunks; no arithmetic (the ring's forwarding, another P^2
+    # - P reads, is its algorithm's, not the function's)
+    ring_bytes = (DIST_PARTS * DIST_PARTS + DIST_PARTS) * nbytes(x[0])
+    ring_bound, ring_by, _, _ = bound(ring_bytes, 0)
+    emit("kernel_ring", kernel=hr.RING.name, cases=rows, back_to_back=dict(
+        launches=RING_BACK_TO_BACK, bitwise_equal=b2b, max_abs_err=b2b_err,
+        epochs_before_after=epochs), max_abs_err=ring_err,
+        shape=[DIST_PARTS, hcap, f3], dtype="bfloat16", ms=ring_ms, ms_fp32=ring32_ms,
+        traced_launches_of_50=dict(ring=ring_traced, plain=plain_traced, library=lib_traced),
+        event_ms=dict(ring=ring_event_ms, ring_with_error_check=wrapper_ms,
+                      plain=plain_event_ms, library=lib_event_ms),
+        plain_ms=plain_ms, library_ms=lib_ms,
+        library_call="pools.copy_(exports.expand(P, P, H, F))",
+        bound_ms=ring_bound, bound_by=ring_by, bound_mbytes=ring_bytes / 1e6, card=card)
+    check(all(r["bitwise_equal"] for r in rows), f"#15 vs plain: {rows}")
+    check(b2b, "#15 launched back to back differs from its plain version")
+
+    # ---- 46. the partitioned config-3 forward (bf16), counted
+    model = km_model(dev)
+    model_bf = copy.deepcopy(model).to(bf)
+    state32 = {k_: v.float() for k_, v in model_bf.state_dict().items()}
+    plain32 = port.SEGNN("2x0e+1x1o", HIDDEN, "1x1o", num_layers=NUM_LAYERS, layout="cm",
+                         use_pallas=False, device=dev)
+    plain32.load_state_dict(state32)
+    runs = ((1, "all_gather"), (DIST_PARTS, "all_gather"), (DIST_PARTS, "ring"))
+    outs, fwd_ms, fwd_launches = {}, {}, {}
+    with torch.no_grad():
+        attrs32 = plain32.compute_attributes_dense(g100)
+        ref = plain32(g100, attrs=attrs32)
+        uni = model_bf(g100._replace(nodes=g100.nodes.to(bf)),
+                       attrs=tuple(a.to(bf) for a in attrs32)).float()
+        del plain32, attrs32
+        scale = float(ref.abs().max())
+        for p, backend in runs:
+            group, shards, attrs = dist_inputs(model_bf, parts[p], dev, bf)
+            fwd = dist.make_dist_forward_dense(model_bf, group, backend)
+            reset_launches()
+            out = fwd(shards, attrs)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            want = expected({fm.KM_FWD.name: 2 * p * NUM_LAYERS,
+                             hr.RING.name: NUM_LAYERS if backend == "ring" else 0})
+            full = unpermute(out, parts[p], n).float()
+            err = float((full - ref).abs().max())
+            err_uni = float((full - uni).abs().max())
+            fwd_ms[f"P{p}_{backend}"] = event_ms(lambda: fwd(shards, attrs), iters=5, warmup=1)
+            fwd_launches[f"P{p}_{backend}"] = launches
+            outs[(p, backend)] = out
+            emit("dist_forward", points=n, num_parts=p, backend=backend, dtype="bfloat16",
+                 shape=list(out.shape), launches=launches, max_abs_ref=scale,
+                 bf16_vs_fp32_plain_unpartitioned_max_abs_err=err,
+                 vs_bf16_kernel_unpartitioned_max_abs_err=err_uni,
+                 bf16_tolerance=f"{TOL_FORWARD_BF16} * max|ref|; bf16 storage through 4 layers",
+                 forward_ms=fwd_ms[f"P{p}_{backend}"], card=card)
+            check(launches == want, f"P={p} {backend}: {launches} launches, expected {want}")
+            check(bool(torch.isfinite(out).all()), f"P={p} {backend}: non-finite output")
+            check(err <= TOL_FORWARD_BF16 * scale,
+                  f"P={p} {backend}: bf16 forward vs fp32 plain max abs err {err}")
+            # a receiver's slot sum does not depend on the block it sits in
+            check(err_uni == 0.0,
+                  f"P={p} {backend}: not the unpartitioned bf16 forward bit for bit ({err_uni})")
+            del shards, attrs, out, full
+        same = torch.equal(outs[(DIST_PARTS, "ring")], outs[(DIST_PARTS, "all_gather")])
+        emit("dist_forward_backends", num_parts=DIST_PARTS, ring_equals_all_gather=same)
+        check(same, f"P={DIST_PARTS}: ring and all_gather forwards differ")
+        del outs, ref, uni, model_bf
+
+    # ---- 47. the partitioned train step (bench_scaling.py's measure)
+    target = torch.from_numpy(np.random.default_rng(SEED + 2).standard_normal(
+        (n, 3)).astype(np.float32)).to(dev)
+    model_u = km_model(dev)
+    opt = torch.optim.Adam(model_u.parameters(), lr=LEARNING_RATE, betas=(0.9, 0.999), eps=1e-8)
+    step_u = make_train_step(model_u, bf16_loss, opt)
+    with torch.no_grad():
+        attrs_u = tuple(a.to(bf) for a in model_u.compute_attributes_dense(g100))
+    g_bf = g100._replace(nodes=g100.nodes.to(bf))
+    single_ms = event_ms(lambda: step_u(g_bf, attrs_u, target), iters=TRAIN_STEPS, warmup=1)
+    del model_u, opt, step_u, attrs_u, g_bf
+    train = {}
+    for p, backend in runs:
+        m = km_model(dev, remat=True)
+        opt = torch.optim.Adam(m.parameters(), lr=LEARNING_RATE, betas=(0.9, 0.999), eps=1e-8)
+        group, shards, attrs = dist_inputs(m, parts[p], dev, bf)
+        targets = dist_targets(target, parts[p])
+        step = dist.make_dist_train_step_dense(m, opt, group, backend, compute_dtype=bf)
+        want = expected({fm.KM_FWD.name: 2 * p * NUM_LAYERS, fm.KM_BWD.name: 2 * p * NUM_LAYERS,
+                         fm.TAB_BWD_REDUCE.name: 2 * p * NUM_LAYERS,
+                         hr.RING.name: NUM_LAYERS if backend == "ring" else 0})
+        warm = dist_train_run(step, shards, targets, attrs, 1, want)
+        r = dist_train_run(step, shards, targets, attrs, TRAIN_STEPS, want)
+        r["step_ms_mean"] = sum(r["step_ms"]) / len(r["step_ms"])
+        train[f"P{p}_{backend}"] = r
+        masters = all(q.dtype == torch.float32 for q in m.parameters())
+        # where the device time of a step goes, at each P and backend
+        emit("dist_profile", card=card, points=n, num_parts=p, backend=backend,
+             **profile_steps(step, (shards, targets, attrs), host_top=12))
+        emit("dist_train", points=n, num_parts=p, backend=backend, layers=NUM_LAYERS,
+             compute_dtype="bfloat16", master_dtype="float32" if masters else "mixed",
+             optimizer=f"Adam(lr={LEARNING_RATE}, betas=(0.9, 0.999), eps=1e-8)",
+             warmup_ms=warm["step_ms"], **r, card=card)
+        check(masters, "master weights are not all fp32")
+        del m, opt, step, shards, attrs, targets
+    p1 = train["P1_all_gather"]["step_ms_mean"]
+    emit("dist_train_vs_single_card", single_card_untabled_step_ms=single_ms,
+         dist_p1_step_ms=p1, ratio_p1_over_single=p1 / single_ms,
+         dist_p4_step_ms={k: v["step_ms_mean"] for k, v in train.items()}, card=card)
+
+    # ---- 48. fp32 gradients of the partitioned step against the plain path
+    pts_gc = np.random.default_rng(SEED + 3).random((GC_POINTS, 3)).astype(np.float32)
+    _, _, _, graph_gc, _ = build_graph(pts_gc, GC_RADIUS)
+    graph_gc = graph_gc._replace(**NO_TABLES)
+    m_p = port.SEGNN("2x0e+1x1o", HIDDEN, "1x1o", num_layers=NUM_LAYERS, layout="cm",
+                     use_pallas=False, device=dev)
+    m_k = km_model(dev)
+    m_p.load_state_dict(m_k.state_dict())
+    with torch.no_grad():
+        attrs_gc = m_p.compute_attributes_dense(graph_gc)
+    t_gc = torch.from_numpy(np.random.default_rng(SEED + 4).standard_normal(
+        (GC_POINTS, 3)).astype(np.float32)).to(dev)
+    loss_p = mse_loss(m_p(graph_gc, attrs=attrs_gc), t_gc)
+    loss_p.backward()
+    part_gc = partition_graph_dense(*partition_arrays(graph_gc), num_parts=DIST_PARTS)
+    group, shards, attrs = dist_inputs(m_k, part_gc, dev, torch.float32)
+    targets = dist_targets(t_gc, part_gc)
+    for backend in dist.BACKENDS:
+        # lr 0: the step leaves the weights as they are and the gradients in .grad
+        step = dist.make_dist_train_step_dense(m_k, torch.optim.SGD(m_k.parameters(), lr=0.0),
+                                               group, backend)
+        reset_launches()
+        loss_k = step(shards, targets, attrs)["loss"].item()
+        launches = launch_counts()
+        worst, worst_name = 0.0, ""
+        for (nm, a), b in zip(m_k.named_parameters(), m_p.parameters(), strict=True):
+            rel = float((a.grad - b.grad).abs().max()) / max(float(b.grad.abs().max()), 1e-30)
+            if rel > worst:
+                worst, worst_name = rel, nm
+        want = expected({fm.KM_FWD.name: 2 * DIST_PARTS * NUM_LAYERS,
+                         fm.KM_BWD.name: 2 * DIST_PARTS * NUM_LAYERS,
+                         fm.TAB_BWD_REDUCE.name: 2 * DIST_PARTS * NUM_LAYERS,
+                         hr.RING.name: NUM_LAYERS if backend == "ring" else 0})
+        emit("dist_grad_check", points=GC_POINTS, radius=GC_RADIUS, num_parts=DIST_PARTS,
+             backend=backend, dtype="float32", n_interior=part_gc.n_interior,
+             n_boundary=part_gc.n_boundary, halo_cap=part_gc.halo_cap, loss_dist=loss_k,
+             loss_plain=loss_p.item(), worst_param=worst_name, worst_rel_err=worst,
+             launches=launches,
+             tolerance=f"{TOL_GRAD_FP32} * max|ref| per parameter; fp32 sums in another order")
+        check(worst <= TOL_GRAD_FP32, f"{backend}: fp32 gradients {worst_name} off by {worst}")
+        check(abs(loss_k - loss_p.item()) <= 1e-5 * loss_p.item(), f"{backend}: losses differ")
+        check(launches == want, f"{backend}: {launches} launches, expected {want}")
+    del m_p, m_k, graph_gc, shards, attrs
+
+    return {hr.RING.name: dict(
+        launches=fwd_launches[f"P{DIST_PARTS}_ring"][hr.RING.name],
+        max_abs_err=ring_err, ms=ring_ms, plain_ms=plain_ms, bound_ms=ring_bound,
+        bound_by=ring_by, library_ms=lib_ms, shape=[DIST_PARTS, hcap, f3], dtype="bfloat16",
+        times="device time from torch.profiler", event_ms=ring_event_ms,
+        wrapper_ms_with_error_check=wrapper_ms)}
+
+
+def dist_lmax2_phase(card: str) -> None:
+    """Phase 49, dist_lmax2: the 250k lmax=2 graph and model of bench.py:225-240
+    (remat, bf16, the residual backward) partitioned at P=4 with the ring
+    exchange: a counted forward (2 blocks x 4 partitions x 4 layers of #11,
+    4 of #15) against the unpartitioned fp32 plain path on the same weights
+    (TOL_FORWARD_BF16 * max|ref|) and bit for bit against the unpartitioned
+    bf16 kernel forward, then 2 counted train steps (per step 32
+    each of #11 in save mode, #12, its weight-gradient kernel and the
+    reduction; 4 of #15)."""
+    dev = torch.device(DEVICE)
+    bf = torch.bfloat16
+    n = L2_POINTS
+    pts = np.random.default_rng(SEED + 5).random((n, 3)).astype(np.float32)
+    tile = SEGNNLayer._pick_generic_tile(n)
+    _, _, _, graph, _ = build_graph(pts, radius=L2_RADIUS, levels=L2_OCTREE_LEVELS,
+                                    k=L2_NEIGHBORS, cap=L2_CELL_CAPACITY, tile=tile)
+    graph = graph._replace(**NO_TABLES)
+    t0 = time.perf_counter()
+    part = partition_graph_dense(*partition_arrays(graph), num_parts=DIST_PARTS)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    model = lmax2_model(dev, remat=True)
+    model_bf = copy.deepcopy(model).to(bf)
+    plain32 = lmax2_model(dev, use_pallas=False)
+    plain32.load_state_dict({k: v.float() for k, v in model_bf.state_dict().items()})
+    blocks = 2 * DIST_PARTS * NUM_LAYERS
+    with torch.no_grad():
+        attrs32 = plain32.compute_attributes_dense(graph)
+        ref = plain32(graph, attrs=attrs32)
+        uni = model_bf(graph._replace(nodes=graph.nodes.to(bf)),
+                       attrs=tuple(a.to(bf) for a in attrs32)).float()
+        del plain32, attrs32
+        group, shards, attrs = dist_inputs(model_bf, part, dev, bf)
+        fwd = dist.make_dist_forward_dense(model_bf, group, "ring")
+        reset_launches()
+        out = fwd(shards, attrs)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        full = unpermute(out, part, n).float()
+        scale = float(ref.abs().max())
+        err = float((full - ref).abs().max())
+        err_uni = float((full - uni).abs().max())
+        fwd_ms = event_ms(lambda: fwd(shards, attrs), iters=2, warmup=1)
+    want = expected({fmg.GENERIC_FWD.name: blocks, hr.RING.name: NUM_LAYERS})
+    emit("dist_lmax2_forward", points=n, num_parts=DIST_PARTS, backend="ring",
+         launches=launches, max_abs_ref=scale, bf16_vs_fp32_plain_unpartitioned_max_abs_err=err,
+         vs_bf16_kernel_unpartitioned_max_abs_err=err_uni, forward_ms=fwd_ms, card=card)
+    check(launches == want, f"lmax=2 P={DIST_PARTS}: {launches} launches, expected {want}")
+    check(bool(torch.isfinite(out).all()), "lmax=2 partitioned forward: non-finite output")
+    check(err <= TOL_FORWARD_BF16 * scale, f"lmax=2 partitioned bf16 forward: {err}")
+    check(err_uni == 0.0, f"lmax=2 P={DIST_PARTS}: not the unpartitioned bf16 forward bit for "
+          f"bit ({err_uni})")
+    del ref, uni, out, full, model_bf, shards, attrs
+    target = torch.from_numpy(np.random.default_rng(SEED + 15).standard_normal(
+        (n, 3)).astype(np.float32)).to(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=LEARNING_RATE, betas=(0.9, 0.999), eps=1e-8)
+    group, shards, attrs = dist_inputs(model, part, dev, bf)
+    step = dist.make_dist_train_step_dense(model, opt, group, "ring", compute_dtype=bf)
+    want_step = expected({fmg.GENERIC_FWD.name: blocks, fmg.GENERIC_BWD_RES.name: blocks,
+                          fmg.GENERIC_TAB_BWD_WGRAD.name: blocks,
+                          fm.TAB_BWD_REDUCE.name: blocks, hr.RING.name: NUM_LAYERS})
+    r = dist_train_run(step, shards, dist_targets(target, part), attrs, DIST_LMAX2_STEPS,
+                       want_step)
+    emit("dist_lmax2", points=n, hidden=L2_HIDDEN, num_parts=DIST_PARTS, backend="ring",
+         partition_host_ms=host_ms, n_interior=part.n_interior, n_boundary=part.n_boundary,
+         halo_cap=part.halo_cap, forward_launches=launches, max_abs_ref=scale,
+         bf16_vs_fp32_plain_unpartitioned_max_abs_err=err,
+         bf16_tolerance=f"{TOL_FORWARD_BF16} * max|ref|; bf16 storage through 4 layers",
+         forward_ms=fwd_ms, train=r, card=card)
+    del model, opt, step, shards, attrs, graph
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2712,7 +3182,12 @@ def main() -> int:
     # ---- 34-37. the packed lmax=1 path (#6, #7): SEGNN(pack=p) on config 3
     #      without tables
     pk = pack_phases(card, graph)
+
+    # ---- 44-49. the dense partitioned path (#3/#5, #11/#12 per block) and
+    #      the halo ring #15
+    dr = dist_phases(card, graph)
     del graph
+    dist_lmax2_phase(card)
 
     src = lambda kern: str(kern.source.relative_to(Path(__file__).resolve().parent))
     print(json.dumps({"kernels": [
@@ -2752,6 +3227,8 @@ def main() -> int:
       + [{"name": kern.name, "route": "cuda", "source": src(kern),
           "replaces": f"{TPU_FILE}:{line}", **pk[kern.name]}
          for kern, line in ((fm.FLAT_FWD, 394), (fm.FLAT_BWD, 497))]
+      + [{"name": hr.RING.name, "route": "cuda", "source": src(hr.RING),
+          "replaces": f"{HALO_TPU_FILE}:43", **dr[hr.RING.name]}]
     }), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -5,7 +5,9 @@ The same subpackages, module and class names as the JAX package: ``core``
 products, gate, linear), ``graph`` (Morton codes, octree, radius graphs, the
 fixed-K container with gather tables), ``kernels`` (hand-written CUDA kernels with their plain
 PyTorch versions), ``models`` (SEGNN), ``train`` (loss and train step) and
-``utils`` (device choice, JAX parameters in and out).  It imports neither
+``utils`` (device choice, JAX parameters in and out) and ``parallel`` (the
+dense partitioner and the partitioned forward and train step with their halo
+exchange).  It imports neither
 JAX nor the JAX package.  Entry points run on the GPU unless the caller
 passes ``device="cpu"``.
 """

@@ -47,6 +47,12 @@ Message dispatch (``SEGNNLayer``):
   graph (its gradient a reverse-slot gather) and by ``gather_km`` otherwise;
 - ``use_pallas=False``: the plain PyTorch message path.
 
+``SEGNNLayer.apply_dense_split`` is the layer of the dense partitioned path
+(``parallel.halo``): the interior and boundary receiver blocks of a
+partition, each through the same dispatch on senders pre-gathered by
+``take_dense_rev`` (``hs``), which skips the tabled and sym-regather
+entries.
+
 Rematerialisation, as in the JAX package: ``remat`` checkpoints the plain
 message path and, where an update layer is a generic ``TensorProduct``, the
 update; ``remat_kernel`` also checkpoints a kernel dispatch whose residuals
@@ -75,7 +81,8 @@ from ..kernels.fused_message import (MessageConfig, fused_message_aggregate,
                                      fused_message_aggregate_km, fused_message_aggregate_tabled)
 from ..kernels.fused_message_generic import FusedMessageGeneric
 from ..ops.gate import Gate
-from ..ops.gather_scatter import gather, gather_km, take_dense_symmetric, take_dense_symmetric_km
+from ..ops.gather_scatter import (gather, gather_km, take_dense_rev, take_dense_symmetric,
+                                  take_dense_symmetric_km)
 from ..ops.linear import O3Linear
 from ..ops.tensor_product import L1TensorProduct, TensorProduct
 from ..utils.device import resolve_device
@@ -252,27 +259,29 @@ class SEGNNLayer(nn.Module):
         return agg[:n]
 
     def _fused_messages(self, h_local, h_ext, senders, edge_attr, edge_dist2, edge_mask,
-                        reverse_slot=None, edge_geo=None):
+                        reverse_slot=None, edge_geo=None, hs=None):
         """Untabled lmax=1 dispatch (the JAX ``_fused_messages``): ``pack`` 1
         or not dividing K takes ``_fused_messages_km``; else the packed
-        kernel on the node-major senders (``take_dense_symmetric`` on a whole
-        symmetrized graph, else ``gather``), [N*K/p, p*F], with the flat
-        geometry, the node axis zero-padded to the km tile (mask 0); the
-        result cut back to N.  Differentiable in h and the weights."""
+        kernel on the node-major senders (``hs`` [N, K, F] when given
+        pre-gathered, else ``take_dense_symmetric`` on a whole symmetrized
+        graph or ``gather``), [N*K/p, p*F], with the flat geometry, the node
+        axis zero-padded to the km tile (mask 0); the result cut back to N.
+        Differentiable in h (and ``hs``) and the weights."""
         n, k = senders.shape
         p = self.pack
         if p == 1 or k % p:
             return self._fused_messages_km(h_local, h_ext, senders, edge_attr, edge_dist2,
-                                           edge_mask, reverse_slot, edge_geo)
+                                           edge_mask, reverse_slot, edge_geo, hs=hs)
         tile = self._pick_km_tile(n)
         npad = -(-n // tile) * tile
         cfg = MessageConfig(hs=self._pallas_hs, hv=self._pallas_hv, k=k, tile=tile, pack=p)
         dt = h_local.dtype
         f = h_local.shape[-1]
-        if reverse_slot is not None and h_ext is h_local:
-            hs = take_dense_symmetric(h_ext, senders, reverse_slot)
-        else:
-            hs = gather(h_ext, senders)
+        if hs is None:
+            if reverse_slot is not None and h_ext is h_local:
+                hs = take_dense_symmetric(h_ext, senders, reverse_slot)
+            else:
+                hs = gather(h_ext, senders)
         pad = lambda x: x if npad == n else torch.cat([x, x.new_zeros((npad - n,) + x.shape[1:])])
         hs = pad(hs).reshape(npad * k // p, p * f)
         attr = pad(edge_attr.to(dt)).reshape(npad * k // p, 4 * p)
@@ -294,18 +303,21 @@ class SEGNNLayer(nn.Module):
         return 64
 
     def _fused_messages_km(self, h_local, h_ext, senders, edge_attr, edge_dist2, edge_mask,
-                           reverse_slot=None, edge_geo=None):
+                           reverse_slot=None, edge_geo=None, hs=None):
         """Untabled lmax=1 dispatch (the JAX ``_fused_messages_km``): the
-        senders gathered slot-major [K, N, F] (``take_dense_symmetric_km`` on
-        a whole symmetrized graph, else ``gather_km``), the geometry as the
-        node-major [N, K*6] stream, the node axis zero-padded to the tile;
-        the result cut back to N.  Differentiable in h and the weights."""
+        senders slot-major [K, N, F] (a pre-gathered node-major ``hs`` [N, K,
+        F] transposed, else gathered by ``take_dense_symmetric_km`` on a whole
+        symmetrized graph or ``gather_km``), the geometry as the node-major
+        [N, K*6] stream, the node axis zero-padded to the tile; the result
+        cut back to N.  Differentiable in h (and ``hs``) and the weights."""
         n, k = senders.shape
         tile = self._pick_km_tile(n)
         npad = -(-n // tile) * tile
         cfg = MessageConfig(hs=self._pallas_hs, hv=self._pallas_hv, k=k, tile=tile)
         dt = h_local.dtype
-        if reverse_slot is not None and h_ext is h_local:
+        if hs is not None:  # pre-gathered node-major (the take_dense_rev path)
+            hs3 = hs.transpose(0, 1)
+        elif reverse_slot is not None and h_ext is h_local:
             hs3 = take_dense_symmetric_km(h_ext, senders, reverse_slot)
         else:
             hs3 = gather_km(h_ext, senders)
@@ -382,12 +394,13 @@ class SEGNNLayer(nn.Module):
 
     def _fused_messages_generic(self, h_local, h_ext, senders, edge_attr, edge_dist2,
                                 edge_mask, reverse_slot=None, edge_geo=None,
-                                graph: Optional[DenseEdgeGraph] = None):
+                                graph: Optional[DenseEdgeGraph] = None, hs=None):
         """Generic-kernel dispatch (the JAX ``_fused_messages_generic``): the
         tabled entry when ``graph``'s tables serve this block, the sym-regather
-        entry when eligible, else ``geo_call`` on the slot-major senders, the
-        node axis padded to the tile (64 when no multiple of 8 in [48, 224]
-        divides n)."""
+        entry when eligible (neither when ``hs`` is given), else ``geo_call``
+        on the slot-major senders (a pre-gathered node-major ``hs`` [N, K, F]
+        transposed), the node axis padded to the tile (64 when no multiple
+        of 8 in [48, 224] divides n)."""
         n, k = senders.shape
         tile = self._pick_generic_tile(n)
         npad = -(-n // tile) * tile
@@ -399,22 +412,26 @@ class SEGNNLayer(nn.Module):
                 replay_bwd=key[4])
         kern = self._generic_kernels[key]
         geo2 = self._geo2(edge_geo, edge_attr, edge_dist2, edge_mask, h_local.dtype)
-        own = h_ext is h_local and npad == n
+        own = hs is None and h_ext is h_local and npad == n
         if own and self._tab_eligible(n, graph) and (kern.residual_bwd or kern.replay_bwd):
             return kern.geo_call_tab(h_local, geo2, graph.gather_loc, graph.gather_tab,
                                      graph.gather_rev_dense, graph.gather_rem_pos,
                                      graph.gather_rem_node)
         if own and reverse_slot is not None and self._sym_regather_eligible(n, True):
             return kern.geo_call_sym(h_local, geo2, senders, reverse_slot)
-        if reverse_slot is not None and h_ext is h_local:
+        if hs is not None:  # pre-gathered node-major (the take_dense_rev path)
+            hs = hs.transpose(0, 1)
+        elif reverse_slot is not None and h_ext is h_local:
             hs = take_dense_symmetric_km(h_ext, senders, reverse_slot)
         else:
             hs = gather_km(h_ext, senders)
         hs, geo2, h_p = self._pad_nodes(hs, geo2, h_local, npad)
         return kern.geo_call(hs, h_p, geo2)[:n]
 
-    def _plain_messages(self, h_ext, h_local, senders, edge_attr, edge_dist2, edge_mask):
-        hs = h_ext[torch.clamp(senders, max=h_ext.shape[0] - 1).long()]  # [N, K, F]
+    def _plain_messages(self, h_ext, h_local, senders, edge_attr, edge_dist2, edge_mask,
+                        hs=None):
+        if hs is None:
+            hs = h_ext[torch.clamp(senders, max=h_ext.shape[0] - 1).long()]  # [N, K, F]
         hr = h_local[:, None, :].expand_as(hs)
         m = torch.cat([hs, hr, edge_dist2[..., None].to(h_local.dtype)], dim=-1)
         for layer in self.message_layers:
@@ -486,6 +503,43 @@ class SEGNNLayer(nn.Module):
             return self._fused_messages(h_local, h_ext, senders, edge_attr, edge_dist2,
                                         edge_mask, reverse_slot, edge_geo)
         return self._plain_messages(h_ext, h_local, senders, edge_attr, edge_dist2, edge_mask)
+
+    def apply_dense_split(self, h_local, h_ext, int_edges, bnd_edges, node_attr, node_mask):
+        """One layer of a partition of the dense partitioned path (the JAX
+        ``apply_dense_split``; ``parallel.partition.DensePartitionedGraph``).
+
+        ``h_local`` [NI + NB, F] holds the interior rows then the boundary
+        rows, ``h_ext`` [NI + NB + H, F] the local rows then the halo slots.
+        ``int_edges`` = (senders [NI, K] local rows, attr, dist2, mask[, rev])
+        and ``bnd_edges`` = (senders [NB, K] extended rows, ...): the interior
+        block reads only ``h_local``, the boundary block ``h_ext``.  Both go
+        through the dispatch the layer was built for; a block without rows
+        gives zeros and launches nothing.  With the fifth entry (the block's
+        transpose table) the sender gather is ``take_dense_rev``, whose
+        gradient is a gather.  The update layers and the node mask follow."""
+        ni = int_edges[0].shape[0]
+        f = h_local.shape[-1]
+        pallas = self.use_pallas or self.use_pallas_generic
+
+        def msgs(h_r, h_src, senders, eattr, d2, mask, rev=None):
+            if h_r.shape[0] == 0:
+                return h_local.new_zeros((0, f))
+            hs = None if rev is None else take_dense_rev(h_src, senders, rev)
+            if self.use_pallas:
+                return self._fused_messages(h_r, h_src, senders, eattr, d2, mask, hs=hs)
+            if self.use_pallas_generic:
+                return self._fused_messages_generic(h_r, h_src, senders, eattr, d2, mask, hs=hs)
+            return self._plain_messages(h_src, h_r, senders, eattr, d2, mask, hs=hs)
+
+        def block(h_r, h_src, edges):
+            if (self.remat and not pallas) or (self.remat_kernel and pallas):
+                return _checkpoint(self.message_layers, msgs, h_r, h_src, *edges)
+            return msgs(h_r, h_src, *edges)
+
+        agg = torch.cat([block(h_local[:ni], h_local, int_edges),
+                         block(h_local[ni:], h_ext, bnd_edges)])
+        out = h_local + self._update_u(h_local, agg, node_attr)
+        return torch.where(node_mask[:, None], out, torch.zeros_like(out))
 
     def _update_u(self, h, agg, node_attr):
         u = torch.cat([h, agg], dim=-1)

@@ -8,7 +8,9 @@ node-major [N, K, F] (the packed lmax=1 message kernel's order) and
 as JAX's ``mode="clip"``.  The ``take_dense_symmetric*`` forms have a VJP
 that sums each node's cotangents at the reverse slots of its own K edges (a
 dense gather and a sum over K) instead of scattering them; they are valid
-only for symmetrized graphs (``graph.radius.symmetrize_dense``).  The plain
+only for symmetrized graphs (``graph.radius.symmetrize_dense``).
+``take_dense_rev`` (the partitioned path's sender gather) has the same kind
+of VJP over a precomputed transpose table, for any graph.  The plain
 gathers' gradient is PyTorch's indexed accumulate, as JAX's is XLA's
 scatter-add.
 """
@@ -18,7 +20,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["gather", "gather_km", "take_dense_symmetric", "take_dense_symmetric_km",
-           "reverse_slot_gather_sum", "reverse_slot_gather_sum_km"]
+           "take_dense_rev", "reverse_slot_gather_sum", "reverse_slot_gather_sum_km",
+           "rev_gather_sum"]
 
 
 def gather(h, senders):
@@ -112,3 +115,52 @@ def take_dense_symmetric_km(h, senders, reverse_slot):
     function's ``mask`` argument is not taken: the reverse slots already mark
     the slots without a partner."""
     return _TakeDenseSymmetricKm.apply(h, senders, reverse_slot)
+
+
+# columns of the transpose table summed per block once it has more than this
+_REV_BLOCK = 16
+
+
+def rev_gather_sum(g, rev):
+    """d_h [M, F] from node-major cotangents g [R, K, F]: per row m, the sum of
+    g at the flat slots ``rev[m, q] - 1`` (the +1 encoding: 0 is empty and
+    adds zero).  As the JAX ``_tdr_bwd``: up to 16 columns one sum over the
+    columns (in fp32 in column order, rounded once to g's dtype); beyond, the
+    columns in blocks of 16 (zero-padded), each block summed so and added to
+    an accumulator in g's dtype, so the [M, Q, F] transient stays bounded."""
+    r, k, f = g.shape
+    gf = g.reshape(r * k, f)
+    rv = rev.long()
+    valid = (rv > 0).to(g.dtype)
+    rows = torch.clamp(rv - 1, 0, r * k - 1)
+    q = rv.shape[1]
+    if q <= _REV_BLOCK:
+        return _slot_sum(gf, rows, valid)
+    acc = g.new_zeros((rv.shape[0], f))
+    for lo in range(0, q, _REV_BLOCK):
+        # the zero padding of the last block's columns adds exact zeros
+        acc = acc + _slot_sum(gf, rows[:, lo:lo + _REV_BLOCK], valid[:, lo:lo + _REV_BLOCK])
+    return acc
+
+
+class _TakeDenseRev(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, senders, rev):
+        ctx.save_for_backward(rev)
+        ctx.shape = tuple(senders.shape)
+        return gather(h, senders)
+
+    @staticmethod
+    def backward(ctx, g):
+        (rev,) = ctx.saved_tensors
+        return rev_gather_sum(g.contiguous().reshape(*ctx.shape, -1), rev), None, None
+
+
+def take_dense_rev(h, senders, rev):
+    """``gather(h, senders)``, [R, K, F] with ``out[t, k] = h[senders[t, k]]``
+    (indices clamped; padding slots hold some real row and every consumer
+    masks them), whose gradient in h is ``rev_gather_sum`` over ``rev`` [M,
+    Q], the flat slots (+1, 0 empty) where each row of h is a sender: a gather
+    instead of a scatter, for any graph whose transpose table is built
+    (``parallel.partition.partition_graph_dense``'s ``rev_int``/``rev_ext``)."""
+    return _TakeDenseRev.apply(h, senders, rev)

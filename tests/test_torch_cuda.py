@@ -17,7 +17,11 @@ backward with the reduction) against their plain versions at three widths,
 (symmetrized, unsymmetrized, node blocks) against the plain path; the packed
 lmax=1 kernels (#6 forward, #7 backward with the reduction) against their
 plain versions at p = 2, 3, 4 and three widths, their determinism, and
-``SEGNN(pack=p)`` gradients through them against the plain path.
+``SEGNN(pack=p)`` gradients through them against the plain path; the halo
+ring (#15) against its plain version bit for bit at P = 2-8 (odd H and F,
+and F = 80 in both dtypes), its launches back to back without a reset (the
+epoch), its gradient and wrapper checks, and a 4-way partitioned SEGNN on
+the card (both exchange backends) against the unpartitioned plain path.
 
 These tests need a CUDA card and skip without one.  They import no JAX, so
 they run on a machine without it (``--noconftest`` skips the JAX-only
@@ -35,8 +39,11 @@ from scalable_e3_gnn_torch.graph.octree import build_octree
 from scalable_e3_gnn_torch.graph.radius import radius_graph_cell, suggest_cell_capacity
 from scalable_e3_gnn_torch.kernels import fused_message as fm
 from scalable_e3_gnn_torch.kernels import fused_message_generic as fmg
+from scalable_e3_gnn_torch.kernels import halo_ring as hr
 from scalable_e3_gnn_torch.models import segnn as segnn_mod
 from scalable_e3_gnn_torch.models.segnn import SEGNN, SEGNNLayer
+from scalable_e3_gnn_torch.parallel import halo as dist
+from scalable_e3_gnn_torch.parallel.partition import partition_graph_dense
 
 pytestmark = pytest.mark.cuda
 
@@ -941,3 +948,91 @@ def test_flat_segnn_gradients_kernel_match_plain_path(dev, mode, p):
     for (name, a), b in zip(m_k.named_parameters(), m_p.parameters(), strict=True):
         err = float((a.grad - b.grad).abs().max())
         assert err <= 1e-4 * float(b.grad.abs().max()), (name, err)
+
+
+# the halo ring (#15): (P, H, F); odd H and F take the element path, F = 80
+# (config 3's hidden width) the 16-byte path in both dtypes
+RING_CASES = [(p, h, f) for p in range(2, 9) for h, f in ((37, 13), (129, 80))]
+
+
+@pytest.mark.parametrize("p,h,f", RING_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_kernel_matches_plain_bitwise(dev, p, h, f, dtype):
+    x = torch.randn((p, h, f), generator=torch.Generator(device=dev).manual_seed(p * h),
+                    device=dev).to(dtype)
+    before = hr.RING.launches
+    got = hr.ring_all_gather_fwd(x)
+    torch.cuda.synchronize()
+    assert hr.RING.launches == before + 1
+    assert torch.equal(got, hr.ring_all_gather_plain(x))
+
+
+def test_ring_kernel_back_to_back_without_reset(dev):
+    """Launches with no reset between them: each raises its flags to a new
+    epoch, so no flag of an earlier launch satisfies a later one's wait."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    xs = [torch.randn((4, 500, 80), generator=gen, device=dev).to(torch.bfloat16)
+          for _ in range(30)]
+    before = hr.ring_epochs()
+    pools = [hr.ring_all_gather_launch(x) for x in xs]
+    hr.ring_error_check(xs[0].device)
+    after = hr.ring_epochs()
+    moved = {k: e - before.get(k, 0) for k, e in after.items() if e != before.get(k, 0)}
+    assert list(moved.values()) == [30], moved
+    for x, po in zip(xs, pools):
+        assert torch.equal(po, hr.ring_all_gather_plain(x))
+
+
+def test_ring_gradient_and_wrapper_checks(dev):
+    x = torch.randn((4, 33, 80), device=dev, requires_grad=True)
+    (hr.ring_all_gather(x) ** 2).sum().backward()
+    torch.testing.assert_close(x.grad, 8 * x.detach(), rtol=1e-6, atol=0)
+    with pytest.raises(TypeError):
+        hr.ring_all_gather_fwd(torch.zeros((2, 4, 4), dtype=torch.float16, device=dev))
+    with pytest.raises(ValueError):
+        hr.ring_all_gather_fwd(torch.zeros((2, 4, 8), device=dev)[:, :, ::2])
+
+
+@pytest.mark.parametrize("backend", ["all_gather", "ring"])
+def test_dist_segnn_on_card_matches_plain_path(dev, backend):
+    """A 2-layer config-3-width SEGNN partitioned 4 ways on the card through
+    #3/#5 (and #15 under ring): the fp32 forward un-permuted and the MSE
+    gradients against the unpartitioned plain path (1e-4 * max(1, |ref|) and
+    1e-4 * max|ref| per parameter), and the ring forward equal to the
+    all_gather one bit for bit."""
+    n = 2000
+    g, _ = _graph(dev, n, 24, 0.12, 160)
+    m_k = SEGNN("2x0e+1x1o", "32x0e+16x1o", "1x1o", num_layers=2, layout="cm",
+                use_pallas=True, device=dev, generator=torch.Generator().manual_seed(15))
+    m_p = SEGNN("2x0e+1x1o", "32x0e+16x1o", "1x1o", num_layers=2, layout="cm",
+                use_pallas=False, device=dev)
+    m_p.load_state_dict(m_k.state_dict())
+    part = partition_graph_dense(*(x.cpu().numpy() for x in (g.positions, g.nodes, g.senders,
+                                                             g.edge_mask)), num_parts=4)
+    group = dist.PartitionGroup(4, dev)
+    shards = dist.shard_partitioned_dense(part, group)
+    gids = torch.as_tensor(part.global_ids, device=dev).long()
+    target = torch.randn((n, 3), generator=torch.Generator(device=dev).manual_seed(16),
+                         device=dev)
+    kerns = (fm.KM_FWD, fm.KM_BWD, hr.RING)
+    before = [kern.launches for kern in kerns]
+    step = dist.make_dist_train_step_dense(m_k, torch.optim.SGD(m_k.parameters(), lr=0.0),
+                                           group, backend)
+    loss = step(shards, target[gids.clamp(min=0)])["loss"]
+    moved = [kern.launches - b for kern, b in zip(kerns, before)]
+    assert moved == [2 * 4 * 2, 2 * 4 * 2, 2 if backend == "ring" else 0], moved
+    ref_loss = ((m_p(g) - target) ** 2).mean()
+    ref_loss.backward()
+    torch.testing.assert_close(loss, ref_loss.detach(), rtol=1e-5, atol=0)
+    for (name, a), b in zip(m_k.named_parameters(), m_p.parameters(), strict=True):
+        err = float((a.grad - b.grad).abs().max())
+        assert err <= 1e-4 * float(b.grad.abs().max()), (name, err)
+    with torch.no_grad():
+        out = dist.make_dist_forward_dense(m_k, group, backend)(shards)
+        other = dist.make_dist_forward_dense(m_k, group, "all_gather")(shards)
+        ref = m_p(g)
+    assert torch.equal(out, other)
+    flat, keep = out.reshape(-1, 3), gids.reshape(-1) >= 0
+    full = torch.zeros_like(ref)
+    full[gids.reshape(-1)[keep]] = flat[keep]
+    assert bool(((full - ref).abs() <= 1e-4 * ref.abs().clamp(min=1.0)).all())
