@@ -33,8 +33,12 @@ Phases, each printing one JSON line:
                  density (the plain path's autograd at 100k would need tens of GB).
 9. times      -- CUDA-event times of the forward, the forward kernel and its
                  plain version, and the graph build.
-10. train_times -- CUDA-event times of the train step, each backward kernel,
+10. train_times -- CUDA-event times of the train step, the backward kernel,
                  its plain version and the epilogue, with the bounds.
+10b. kernel_reduce -- the weight-gradient reduction at its three shapes on
+                 the main paths (config 3's #2 partials, #12's and #14's at
+                 250k) bitwise against the in-order fold and against
+                 ``torch.sum``; device times of both, event times, bounds.
 11. profile   -- two train steps traced with ``torch.profiler``: device time
                  per kernel and the device's busy share of the wall time.
 12. graph_lmax2 -- the lmax=2 config-4 proxy of bench.py:223-259: 250k uniform
@@ -153,11 +157,10 @@ Phases, each printing one JSON line:
 44. dist_partition -- the dense partitioner on config 3's 100k graph at P = 1
                  and 4: host ms, NI/NB/H, both transpose tables' q; every
                  valid edge of the input found once over the partitions.
-45. kernel_ring -- the halo ring #15 against its plain version at P = 2, 4, 8
-                 (odd H and F) and at config 3's P=4 [H, 80] in bf16 and fp32,
-                 bitwise; 20 launches back to back with no reset (the epoch);
-                 device times (torch.profiler) of the kernel, its plain
-                 version and the library call, and its bound.
+45. kernel_ring -- the halo ring #15 against its plain version at P = 1, 2,
+                 4, 8 (odd H and F) and at config 3's P=4 [H, 80] in bf16 and
+                 fp32, bitwise; device times (torch.profiler) of the kernel,
+                 its plain version and the library call, and its bound.
 46. dist_forward -- config 3's bf16 forward partitioned (all P partitions on
                  the card) at P=1 (all_gather) and P=4 (all_gather, ring):
                  against the unpartitioned fp32 plain path, bit for bit the
@@ -283,6 +286,7 @@ TOL_GENERIC_BWD_BF16_OVER_1ULP = 1e-3  # share of elements more than 1 ulp apart
 TOL_FLIP_REFED_ULPS = 1  # one rounding step of the output itself
 TOL_BWD_BF16 = 5e-2  # x max|ref|: bf16 rounding of the cotangent intermediates
 TOL_REDUCE = 1e-5  # x max|ref|: fp32 sums over the blocks in another order
+TOL_REDUCE_LIB = 1e-6  # x max(1, max|ref|): the same sums, torch.sum's order against the rows'
 TOL_FORWARD_FP32 = 1e-4  # x max(1, |ref|): kernel vs plain path, both fp32, 4 layers
 TOL_FORWARD_BF16 = 5e-2  # x max|ref|: bf16 storage through 4 layers vs fp32 plain path
 TOL_GRAD_FP32 = 1e-4  # x max|ref| per parameter: fp32 sums in another order, 4 layers
@@ -477,11 +481,12 @@ def profile_steps(step, batch, steps: int = 2, top: int = 14, host_top: int = 0)
     return out
 
 
-def kernel_device_ms(fn, iters: int = 50, warmup: int = 5) -> tuple:
+def kernel_device_ms(fn, iters: int = 50, warmup: int = 5, one: bool = True) -> tuple:
     """(device ms, traced launches) of the one kernel that each call of
     ``fn`` launches, from a torch.profiler trace of ``iters`` calls: the mean
     over the launches the trace holds (it may hold fewer than ``iters``),
-    without the host time between them."""
+    without the host time between them.  ``one=False`` (a library call): the
+    sum of each kernel's mean, and the fewest launches traced of any."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -493,8 +498,76 @@ def kernel_device_ms(fn, iters: int = 50, warmup: int = 5) -> tuple:
         torch.cuda.synchronize()
     evs = [ev for ev in prof.key_averages()
            if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0]
-    check(len(evs) == 1, f"one kernel per call expected, traced {[ev.key for ev in evs]}")
-    return evs[0].self_device_time_total / 1e3 / evs[0].count, evs[0].count
+    check(len(evs) == 1 or (not one and evs), f"one kernel per call expected, traced "
+          f"{[ev.key for ev in evs]}")
+    return (sum(ev.self_device_time_total / 1e3 / ev.count for ev in evs),
+            min(ev.count for ev in evs))
+
+
+def reduce_shapes(dev) -> dict:
+    """The reduction's partials on the lmax=2 paths at 250k points: #12's
+    weight-gradient kernel leaves [_wgrad_splits, NW], #14 folds [1 + a group
+    of tiles, NW] (its running sum first)."""
+    n, tile = L2_POINTS, SEGNNLayer._pick_generic_tile(L2_POINTS)
+    model = lmax2_model(dev)
+    kern = fmg.FusedMessageGeneric(model.layers[0].message_layers, L2_NEIGHBORS, tile)
+    cfg = kern.config(model.attr_irreps.dim, 0)
+    (c1a, da, _), (c1b, db, _) = cfg.widths
+    nw = cfg.a * (c1a * da + c1b * db)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ntiles = n // model.layers[0]._pick_bwd_tile(n)
+    return {"generic_bwd_res_250k": (fmg._wgrad_splits(cfg, n * L2_NEIGHBORS, sms), nw),
+            "generic_bwd_vjp_250k": (1 + fmg.vjp_group(cfg, ntiles), nw)}
+
+
+def reduce_phase(card: str, partials3) -> list:
+    """Phase 10b, kernel_reduce: the fixed-order weight-gradient reduction at
+    its three shapes on the main paths -- config 3's #2 partials (phase 5's,
+    bf16 run), #12's and #14's at 250k (random, from a seed) -- bitwise
+    against the in-order fold on the card (``acc += partials[b]`` in fp32,
+    b = 0..n-1) and within TOL_REDUCE_LIB of ``torch.sum``; device times
+    (torch.profiler) of the kernel and of ``torch.sum`` (its plain version and
+    the library call), CUDA-event times of both, and the bound: the partials
+    read once, the sums written once."""
+    dev = partials3.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    cases = [("config3_tab_bwd", partials3)]
+    cases += [(label, torch.randn(shape, generator=gen, device=dev))
+              for label, shape in reduce_shapes(dev).items()]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for label, x in cases:
+        got = fm.tab_bwd_reduce(x)
+        plan = fm.reduce_plan(x.shape[0], x.shape[1], (x.data_ptr(), got.data_ptr()), sms)
+        fold = torch.zeros_like(got)
+        for row in x:
+            fold += row
+        lib = fm.tab_bwd_reduce_plain(x)
+        scale = max(1.0, float(lib.abs().max()))
+        err = float((got - lib).abs().max())
+        ms, traced = kernel_device_ms(lambda: fm.tab_bwd_reduce(x))
+        lib_ms, lib_traced = kernel_device_ms(lambda: fm.tab_bwd_reduce_plain(x), one=False)
+        b_ms, b_by, _, _ = bound(nbytes(x) + 4 * x.shape[1], x.numel(), PEAK_FP32_FMA_FLOPS)
+        rows.append(dict(label=label, shape=list(x.shape), mbytes=nbytes(x) / 1e6, plan=plan,
+                         bitwise_equal_in_order_fold=bool(torch.equal(got, fold)),
+                         max_abs_err_vs_torch_sum=err, max_abs_ref=scale,
+                         ms=ms, torch_sum_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                         traced_launches_of_50=dict(kernel=traced, torch_sum=lib_traced),
+                         event_ms=dict(kernel=event_ms(lambda: fm.tab_bwd_reduce(x), iters=50,
+                                                       warmup=5),
+                                       torch_sum=event_ms(lambda: fm.tab_bwd_reduce_plain(x),
+                                                          iters=50, warmup=5))))
+        del got, fold, lib
+    emit("kernel_reduce", kernel=fm.TAB_BWD_REDUCE.name, cases=rows, card=card,
+         times="device time from torch.profiler; event_ms: CUDA events around 50 calls",
+         tolerance=f"bitwise vs the in-order fold; {TOL_REDUCE_LIB} * max(1, max|ref|) vs "
+                   "torch.sum (fp32 sums in another order)")
+    for r in rows:
+        check(r["bitwise_equal_in_order_fold"], f"{r['label']}: the reduction is not the "
+              "in-order fold bit for bit")
+        check(r["max_abs_err_vs_torch_sum"] <= TOL_REDUCE_LIB * r["max_abs_ref"],
+              f"{r['label']}: the reduction vs torch.sum {r['max_abs_err_vs_torch_sum']}")
+    return rows
 
 
 def generic_kernel_inputs(kern, graph, edge_geo, dtype, gen):
@@ -2434,8 +2507,8 @@ def vjp_phases(card: str, ctx: dict) -> dict:
 
 DIST_PARTS = 4  # the partitioned runs' P (and 1, the degenerate halo)
 DIST_LMAX2_STEPS = 2
-RING_SMALL = ((2, 37, 13), (4, 129, 80), (8, 61, 7))  # (P, H, F): odd H and F, F=80 of config 3
-RING_BACK_TO_BACK = 20  # launches with no reset between them (the epoch path)
+# (P, H, F): odd H and F, F=80 of config 3, and P=1
+RING_SMALL = ((1, 37, 13), (2, 37, 13), (4, 129, 80), (8, 61, 7))
 HALO_TPU_FILE = "scalable_e3_gnn_tpu/kernels/halo_rdma.py"
 
 
@@ -2512,6 +2585,63 @@ def dist_train_run(step, shards, targets, attrs, steps: int, want: dict) -> dict
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
+def ring_phase(card: str, hcap: int) -> dict:
+    """Phase 45, kernel_ring: #15 against its plain version at P = 1, 2, 4, 8
+    on small shapes (odd H and F) and at config 3's P=4 [H, 80] (``hcap``
+    rows) in bf16 and fp32, bitwise; device times of the kernel, its plain
+    version and the library call at the P=4 bf16 shape; returns the numbers
+    of #15's ``kernels`` row (but its launches)."""
+    dev = torch.device(DEVICE)
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    f3 = port.Irreps(HIDDEN).dim
+    cases = [(p, h, f, dt) for p, h, f in RING_SMALL for dt in (torch.float32, bf)]
+    cases += [(DIST_PARTS, hcap, f3, dt) for dt in (bf, torch.float32)]
+    rows = []
+    for p, h, f, dt in cases:
+        x = torch.randn((p, h, f), generator=gen, device=dev).to(dt)
+        got = hr.ring_all_gather_fwd(x)
+        ref = hr.ring_all_gather_plain(x)
+        plan = hr.ring_plan(p, nbytes(x[0]), (x.data_ptr(), got.data_ptr()))
+        rows.append(dict(p=p, h=h, f=f, dtype=str(dt).replace("torch.", ""),
+                         vec_bytes=plan["vec_bytes"], grid=plan["grid"],
+                         bitwise_equal=bool(torch.equal(got, ref)),
+                         max_abs_err=float((got.float() - ref.float()).abs().max())))
+    ring_err = max(r["max_abs_err"] for r in rows)
+    # device times per launch from a profiler trace (the per-call host time
+    # of the wrapper is read apart, by CUDA events around the queue); the
+    # plain version and the library call the same way
+    x = torch.randn((DIST_PARTS, hcap, f3), generator=gen, device=dev).to(bf)
+    ring_ms, ring_traced = kernel_device_ms(lambda: hr.ring_all_gather_fwd(x))
+    x32 = x.float()
+    ring32_ms, _ = kernel_device_ms(lambda: hr.ring_all_gather_fwd(x32))
+    ring_event_ms = event_ms(lambda: hr.ring_all_gather_fwd(x), iters=50, warmup=5)
+    plain_ms, plain_traced = kernel_device_ms(lambda: hr.ring_all_gather_plain(x))
+    plain_event_ms = event_ms(lambda: hr.ring_all_gather_plain(x), iters=50, warmup=5)
+    lib_out = torch.empty((DIST_PARTS,) + tuple(x.shape), dtype=x.dtype, device=dev)
+    lib_call = lambda: lib_out.copy_(x.expand(DIST_PARTS, *x.shape))
+    lib_ms, lib_traced = kernel_device_ms(lib_call)
+    lib_event_ms = event_ms(lib_call, iters=50, warmup=5)
+    check(torch.equal(lib_out, hr.ring_all_gather_plain(x)), "the library call's pools differ")
+    del lib_out
+    # bound: the function reads every export once and writes every pool
+    # once, P + P^2 chunks; no arithmetic
+    ring_bytes = (DIST_PARTS * DIST_PARTS + DIST_PARTS) * nbytes(x[0])
+    ring_bound, ring_by, _, _ = bound(ring_bytes, 0)
+    emit("kernel_ring", kernel=hr.RING.name, cases=rows, max_abs_err=ring_err,
+         shape=[DIST_PARTS, hcap, f3], dtype="bfloat16", ms=ring_ms, ms_fp32=ring32_ms,
+         traced_launches_of_50=dict(ring=ring_traced, plain=plain_traced, library=lib_traced),
+         event_ms=dict(ring=ring_event_ms, plain=plain_event_ms, library=lib_event_ms),
+         plain_ms=plain_ms, library_ms=lib_ms,
+         library_call="pools.copy_(exports.expand(P, P, H, F))",
+         bound_ms=ring_bound, bound_by=ring_by, bound_mbytes=ring_bytes / 1e6, card=card)
+    check(all(r["bitwise_equal"] for r in rows), f"#15 vs plain: {rows}")
+    return dict(max_abs_err=ring_err, ms=ring_ms, plain_ms=plain_ms, bound_ms=ring_bound,
+                bound_by=ring_by, library_ms=lib_ms, shape=[DIST_PARTS, hcap, f3],
+                dtype="bfloat16", times="device time from torch.profiler",
+                event_ms=ring_event_ms)
+
+
 def dist_phases(card: str, graph3) -> dict:
     """Phases 44-48: the dense partitioned path (``parallel.partition``,
     ``parallel.halo``: all P partitions on the card, stepped layer by layer)
@@ -2521,12 +2651,11 @@ def dist_phases(card: str, graph3) -> dict:
     44. dist_partition -- partition_graph_dense at P = 1 and 4: host ms,
         NI, NB, H, the q of both transpose tables; every valid edge of the
         input found exactly once over the partitions' blocks.
-    45. kernel_ring -- #15 against its plain version at P = 2, 4, 8 on small
-        shapes (odd H and F) and at config 3's P=4 [H, 80] in bf16 and fp32:
-        bitwise equal (it only copies); 20 launches back to back with no
-        reset (the epoch advancing); device times (torch.profiler) of the
-        kernel, its plain version and the one PyTorch call that builds the
-        same pools, and its bound.
+    45. kernel_ring -- #15 against its plain version at P = 1, 2, 4, 8 on
+        small shapes (odd H and F) and at config 3's P=4 [H, 80] in bf16 and
+        fp32: bitwise equal (it only copies); device times (torch.profiler)
+        of the kernel, its plain version and the one PyTorch call that
+        builds the same pools, and its bound.
     46. dist_forward -- config 3's bf16 forward through make_dist_forward_dense
         at P=1 (all_gather) and P=4 (all_gather, ring), un-permuted by
         global_ids against the unpartitioned fp32 plain path on the same
@@ -2572,66 +2701,7 @@ def dist_phases(card: str, graph3) -> dict:
     del want_keys
 
     # ---- 45. kernel #15 against its plain version; times
-    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
-    hcap, f3 = parts[DIST_PARTS].halo_cap, port.Irreps(HIDDEN).dim
-    cases = [(p, h, f, dt) for p, h, f in RING_SMALL for dt in (torch.float32, bf)]
-    cases += [(DIST_PARTS, hcap, f3, dt) for dt in (bf, torch.float32)]
-    rows = []
-    for p, h, f, dt in cases:
-        x = torch.randn((p, h, f), generator=gen, device=dev).to(dt)
-        got = hr.ring_all_gather_fwd(x)
-        ref = hr.ring_all_gather_plain(x)
-        rows.append(dict(p=p, h=h, f=f, dtype=str(dt).replace("torch.", ""),
-                         bitwise_equal=bool(torch.equal(got, ref)),
-                         max_abs_err=float((got.float() - ref.float()).abs().max())))
-    xs = [torch.randn((DIST_PARTS, hcap, f3), generator=gen, device=dev).to(bf)
-          for _ in range(RING_BACK_TO_BACK)]
-    epochs_before = hr.ring_epochs()
-    pools = [hr.ring_all_gather_launch(x) for x in xs]
-    hr.ring_error_check(xs[0].device)
-    b2b_err = max(float((po.float() - hr.ring_all_gather_plain(x).float()).abs().max())
-                  for po, x in zip(pools, xs))
-    b2b = all(torch.equal(po, hr.ring_all_gather_plain(x)) for po, x in zip(pools, xs))
-    epochs = {str(k): (epochs_before.get(k, 0), e) for k, e in hr.ring_epochs().items()}
-    del pools
-    ring_err = max([r["max_abs_err"] for r in rows] + [b2b_err])
-    x = xs[0]
-    # device times per launch from a profiler trace of the kernel (the per-call
-    # host time of the wrapper is read apart, by CUDA events around the
-    # queue); the plain version and the library call the same way
-    ring_ms, ring_traced = kernel_device_ms(lambda: hr.ring_all_gather_launch(x))
-    hr.ring_error_check(x.device)
-    x32 = x.float()
-    ring32_ms, _ = kernel_device_ms(lambda: hr.ring_all_gather_launch(x32))
-    hr.ring_error_check(x.device)
-    ring_event_ms = event_ms(lambda: hr.ring_all_gather_launch(x), iters=50, warmup=5)
-    hr.ring_error_check(x.device)
-    wrapper_ms = event_ms(lambda: hr.ring_all_gather_fwd(x), iters=50, warmup=5)
-    plain_ms, plain_traced = kernel_device_ms(lambda: hr.ring_all_gather_plain(x))
-    plain_event_ms = event_ms(lambda: hr.ring_all_gather_plain(x), iters=50, warmup=5)
-    lib_out = torch.empty((DIST_PARTS,) + tuple(x.shape), dtype=x.dtype, device=dev)
-    lib_call = lambda: lib_out.copy_(x.expand(DIST_PARTS, *x.shape))
-    lib_ms, lib_traced = kernel_device_ms(lib_call)
-    lib_event_ms = event_ms(lib_call, iters=50, warmup=5)
-    check(torch.equal(lib_out, hr.ring_all_gather_plain(x)), "the library call's pools differ")
-    del xs, lib_out
-    # bound: the function reads every export once and writes every pool
-    # once, P + P^2 chunks; no arithmetic (the ring's forwarding, another P^2
-    # - P reads, is its algorithm's, not the function's)
-    ring_bytes = (DIST_PARTS * DIST_PARTS + DIST_PARTS) * nbytes(x[0])
-    ring_bound, ring_by, _, _ = bound(ring_bytes, 0)
-    emit("kernel_ring", kernel=hr.RING.name, cases=rows, back_to_back=dict(
-        launches=RING_BACK_TO_BACK, bitwise_equal=b2b, max_abs_err=b2b_err,
-        epochs_before_after=epochs), max_abs_err=ring_err,
-        shape=[DIST_PARTS, hcap, f3], dtype="bfloat16", ms=ring_ms, ms_fp32=ring32_ms,
-        traced_launches_of_50=dict(ring=ring_traced, plain=plain_traced, library=lib_traced),
-        event_ms=dict(ring=ring_event_ms, ring_with_error_check=wrapper_ms,
-                      plain=plain_event_ms, library=lib_event_ms),
-        plain_ms=plain_ms, library_ms=lib_ms,
-        library_call="pools.copy_(exports.expand(P, P, H, F))",
-        bound_ms=ring_bound, bound_by=ring_by, bound_mbytes=ring_bytes / 1e6, card=card)
-    check(all(r["bitwise_equal"] for r in rows), f"#15 vs plain: {rows}")
-    check(b2b, "#15 launched back to back differs from its plain version")
+    ring_row = ring_phase(card, parts[DIST_PARTS].halo_cap)
 
     # ---- 46. the partitioned config-3 forward (bf16), counted
     model = km_model(dev)
@@ -2767,12 +2837,8 @@ def dist_phases(card: str, graph3) -> dict:
         check(launches == want, f"{backend}: {launches} launches, expected {want}")
     del m_p, m_k, graph_gc, shards, attrs
 
-    return {hr.RING.name: dict(
-        launches=fwd_launches[f"P{DIST_PARTS}_ring"][hr.RING.name],
-        max_abs_err=ring_err, ms=ring_ms, plain_ms=plain_ms, bound_ms=ring_bound,
-        bound_by=ring_by, library_ms=lib_ms, shape=[DIST_PARTS, hcap, f3], dtype="bfloat16",
-        times="device time from torch.profiler", event_ms=ring_event_ms,
-        wrapper_ms_with_error_check=wrapper_ms)}
+    return {hr.RING.name: dict(launches=fwd_launches[f"P{DIST_PARTS}_ring"][hr.RING.name],
+                               **ring_row)}
 
 
 def dist_lmax2_phase(card: str) -> None:
@@ -3119,10 +3185,6 @@ def main() -> int:
     d_hu, d_hr, partials = kb["bwd_parts"]
     with torch.no_grad():
         bwd_ms = event_ms(lambda: fm.tab_bwd_kernel(cfg, *args, ws6, d_agg), iters=5, warmup=1)
-        red_ms = event_ms(lambda: fm.tab_bwd_reduce(partials), iters=20)
-        # the plain version is one PyTorch call (torch.sum over the blocks):
-        # its time is also the library time
-        red_plain_ms = event_ms(lambda: fm.tab_bwd_reduce_plain(partials), iters=20)
         bwd_plain_ms = event_ms(lambda: fm.tab_bwd_plain(cfg, *args, ws6, d_agg),
                                 iters=2, warmup=1)
         bwd_full_plain_ms = event_ms(lambda: fm.fused_message_aggregate_tabled_bwd_plain(
@@ -3137,21 +3199,17 @@ def main() -> int:
     bwd_flops = 2 * 3 * messages_per_slot(cfg) * kb["n_valid"]
     bwd_bytes = nbytes(*args, *ws6, d_agg, d_hu, d_hr) + 4 * nw
     bwd_bound, bwd_by, bwd_b_ms, bwd_o_ms = bound(bwd_bytes, bwd_flops)
-    # the reduction: the partials read once, the sums written once; one fp32
-    # add per partial on the non-tensor units
-    red_bound, red_by, _, _ = bound(nbytes(partials) + 4 * nw, partials.numel(),
-                                    PEAK_FP32_FMA_FLOPS)
     emit("train_times", card=card, points=N_POINTS, step_ms=step_ms,
          bwd_kernel_ms_per_launch=bwd_ms, bwd_kernel_ms_per_step=bwd_ms * NUM_LAYERS,
-         bwd_plain_ms_per_call=bwd_plain_ms, reduce_kernel_ms=red_ms,
-         reduce_plain_ms=red_plain_ms,
-         epilogue_ms=epi_ms, bwd_with_epilogue_ms=bwd_full_ms,
+         bwd_plain_ms_per_call=bwd_plain_ms, epilogue_ms=epi_ms, bwd_with_epilogue_ms=bwd_full_ms,
          bwd_with_epilogue_plain_ms=bwd_full_plain_ms, bwd_bound_ms=bwd_bound,
          bwd_bound_bytes_ms=bwd_b_ms, bwd_bound_ops_ms=bwd_o_ms,
          bwd_gflop=bwd_flops / 1e9, bwd_mbytes=bwd_bytes / 1e6,
          bwd_fp32_fma_bound_ms=bwd_flops / PEAK_FP32_FMA_FLOPS * 1e3,
-         reduce_bound_ms=red_bound, reduce_blocks=partials.shape[0],
          valid_slots=kb["n_valid"])
+
+    # ---- 10b. the weight-gradient reduction at its three shapes, device times
+    red3 = reduce_phase(card, partials)[0]
 
     # ---- 11. where a train step's device time goes
     prof = profile_steps(step, (graph_bf, attrs_bf, target))
@@ -3201,8 +3259,11 @@ def main() -> int:
          "bound_ms": bwd_bound, "bound_by": bwd_by, "library_ms": None},
         {"name": fm.TAB_BWD_REDUCE.name, "route": "cuda", "source": src(fm.TAB_BWD_REDUCE),
          "replaces": f"{TPU_FILE}:485", "launches": train_launches[fm.TAB_BWD_REDUCE.name],
-         "max_abs_err": kb["reduce_max_abs_err"], "ms": red_ms, "plain_ms": red_plain_ms,
-         "bound_ms": red_bound, "bound_by": red_by, "library_ms": red_plain_ms},
+         "max_abs_err": kb["reduce_max_abs_err"], "ms": red3["ms"],
+         "plain_ms": red3["torch_sum_ms"], "bound_ms": red3["bound_ms"],
+         "bound_by": red3["bound_by"], "library_ms": red3["torch_sum_ms"],
+         "shape": red3["shape"], "times": "device time from torch.profiler",
+         "event_ms": red3["event_ms"]["kernel"]},
         {"name": fmg.GENERIC_TAB_FWD.name, "route": "cuda", "source": src(fmg.GENERIC_TAB_FWD),
          "replaces": f"{GENERIC_TPU_FILE}:937", "launches": l2["launches"],
          "max_abs_err": l2["max_abs_err"], "ms": l2["ms"], "plain_ms": l2["plain_ms"],

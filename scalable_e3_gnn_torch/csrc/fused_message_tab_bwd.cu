@@ -28,8 +28,8 @@
 // + k: the TPU's packed [N*K/p, p*F] rows are the same memory), the geometry
 // from the flat d2, attr and maskf rows e, and the sender cotangent goes to
 // row e of d_hs [N*K, F]; blocks walk over groups of receivers as with KM.
-// A second kernel of this file sums the partials over the blocks in block
-// order, so two runs give bit-identical weight gradients.  The split
+// The reduction kernels of this file sum the partials over the blocks in
+// block order, so two runs give bit-identical weight gradients.  The split
 // reverse-table epilogue that turns d_hu and d_hr into d_h stays in PyTorch,
 // as it stays in XLA in the JAX package.
 //
@@ -640,14 +640,93 @@ fused_message_tab_bwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
     partials[(long)blockIdx.x * d.nw + i] = DW[i];
 }
 
-// out[w] = sum over blocks b, in order, of partials[b][w]
-__global__ void fused_message_tab_bwd_reduce_kernel(const float* __restrict__ partials,
-                                                    float* __restrict__ out, int nblocks,
-                                                    int nw) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= nw) return;
+// The fixed-order reduction: out[w] = sum over blocks b = 0..n-1, in order,
+// of partials[b][w] (the port's form of the TPU's grid-sequential
+// _accum_weight_grads, fused_message.py:485).  Every weight gradient of the
+// port goes through it: #2, #5, #7, and the weight-gradient kernels of
+// #9, #10, #12, #13 and #14 (#14 folds a group of tiles onto its running
+// sum, row 0).
+//
+// Bound: bytes, the partials read once and the sums written once (4.9 MB at
+// config 3's [132, 9280]: 1.5 us at 3.35 TB/s).  Each column is summed by one
+// thread in row order, so the output is the in-order fold bit for bit
+// whichever kernel runs and however the rows are fetched.  A loop of loads
+// and adds, one column a thread, keeps too few bytes in flight; the two
+// kernels below fetch the rows ahead of the adds:
+// - reduce_strips (any NW and alignment; taken where the other does not
+//   apply or would leave SMs without a block): a block of kStripWarps warps
+//   owns kStripCols columns.
+//   All its warps load a stage of kStripRows rows into shared memory
+//   (kStripRows / kStripWarps loads in flight a thread, all issued at once),
+//   then warp 0 adds the stage in row order while the others fetch the next
+//   stage into registers.  At config 3 the 132 rows are one stage: one trip
+//   to L2 for the whole strip.
+// - reduce_cols (wide NW, a multiple of 4, both bases 16-byte aligned:
+//   #9-#14's 263,412 weights): one thread owns 4 columns, one 16-byte load
+//   a row, and issues the loads of kColRows rows before the first add of
+//   the batch.
+// The wrapper's plan (kernels/fused_message.py::reduce_plan) picks one.
+constexpr int kStripCols = 32;
+constexpr int kStripWarps = 8;
+constexpr int kStripRows = 136;
+constexpr int kColThreads = 64;
+constexpr int kColRows = 16;
+
+__global__ void __launch_bounds__(kStripWarps * 32)
+    fused_message_tab_bwd_reduce_strips(const float* __restrict__ partials,
+                                        float* __restrict__ out, int nblocks, int nw) {
+  __shared__ float stage[2][kStripRows][kStripCols];
+  constexpr int kPer = kStripRows / kStripWarps;  // rows a thread loads per stage
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int col = blockIdx.x * kStripCols + lane;
+  const bool live = col < nw;
+  float v[kPer];
+  auto fetch = [&](int b0) {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int b = b0 + warp + i * kStripWarps;
+      v[i] = live && b < nblocks ? __ldg(partials + (long long)b * nw + col) : 0.f;
+    }
+  };
   float acc = 0.f;
-  for (int b = 0; b < nblocks; ++b) acc += partials[(long)b * nw + w];
+  fetch(0);
+  int s = 0;
+  for (int b0 = 0; b0 < nblocks; b0 += kStripRows, s ^= 1) {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) stage[s][warp + i * kStripWarps][lane] = v[i];
+    // also orders warp 0's adds of the previous stage (buffer s ^ 1)
+    // before the next iteration's stores into it
+    __syncthreads();
+    if (b0 + kStripRows < nblocks) fetch(b0 + kStripRows);
+    if (warp == 0) {
+      const int rows = nblocks - b0 < kStripRows ? nblocks - b0 : kStripRows;
+      for (int j = 0; j < rows; ++j) acc += stage[s][j][lane];
+    }
+  }
+  if (warp == 0 && live) out[col] = acc;
+}
+
+__global__ void __launch_bounds__(kColThreads)
+    fused_message_tab_bwd_reduce_cols(const float4* __restrict__ partials,
+                                      float4* __restrict__ out, int nblocks, int nv) {
+  const int w = blockIdx.x * kColThreads + threadIdx.x;
+  if (w >= nv) return;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int b0 = 0; b0 < nblocks; b0 += kColRows) {
+    float4 v[kColRows];
+#pragma unroll
+    for (int j = 0; j < kColRows; ++j)
+      if (b0 + j < nblocks) v[j] = __ldg(partials + (long long)(b0 + j) * nv + w);
+#pragma unroll
+    for (int j = 0; j < kColRows; ++j) {
+      if (b0 + j < nblocks) {
+        acc.x += v[j].x;
+        acc.y += v[j].y;
+        acc.z += v[j].z;
+        acc.w += v[j].w;
+      }
+    }
+  }
   out[w] = acc;
 }
 
@@ -800,13 +879,26 @@ int fused_message_flat_bwd(int dtype, const void* hs_rows, const void* hr, const
   return (int)cudaErrorInvalidValue;
 }
 
-// The fixed-order reduction of the weight-gradient partials.
-int fused_message_tab_bwd_reduce(const void* partials, void* out, int nblocks, int nw,
+// The fixed-order reduction of the weight-gradient partials [nblocks, nw]
+// into out [nw]: reduce_cols where cols is 1, else reduce_strips.  Returns
+// cudaGetLastError() after the launch.
+int fused_message_tab_bwd_reduce(const void* partials, void* out, int nblocks, int nw, int cols,
                                  void* stream) {
-  const int threads = 256;
-  fused_message_tab_bwd_reduce_kernel<<<(nw + threads - 1) / threads, threads, 0,
-                                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(partials), static_cast<float*>(out), nblocks, nw);
+  if (nw < 1 || nblocks < 0 ||
+      (cols && (nw % 4 || (reinterpret_cast<uintptr_t>(partials) |
+                           reinterpret_cast<uintptr_t>(out)) % 16)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cols) {
+    const int nv = nw / 4;
+    fused_message_tab_bwd_reduce_cols<<<(nv + kColThreads - 1) / kColThreads, kColThreads, 0,
+                                        st>>>(static_cast<const float4*>(partials),
+                                              static_cast<float4*>(out), nblocks, nv);
+  } else {
+    fused_message_tab_bwd_reduce_strips<<<(nw + kStripCols - 1) / kStripCols, kStripWarps * 32,
+                                          0, st>>>(static_cast<const float*>(partials),
+                                                   static_cast<float*>(out), nblocks, nw);
+  }
   return (int)cudaGetLastError();
 }
 

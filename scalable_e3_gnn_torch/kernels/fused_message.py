@@ -82,7 +82,7 @@ __all__ = ["MessageConfig", "FusedMessageTabled", "fused_message_aggregate_table
            "fused_message_aggregate_tabled_fwd", "fused_message_aggregate_tabled_plain",
            "fused_message_aggregate_tabled_bwd", "fused_message_aggregate_tabled_bwd_plain",
            "split_weights", "sender_epilogue", "tab_bwd_plain", "tab_bwd_kernels", "tab_bwd_kernel",
-           "tab_bwd_reduce", "tab_bwd_reduce_plain",
+           "tab_bwd_reduce", "tab_bwd_reduce_plain", "reduce_plan",
            "FusedMessageKm", "fused_message_aggregate_km", "fused_message_aggregate_km_fwd",
            "fused_message_aggregate_km_plain", "fused_message_aggregate_km_bwd",
            "fused_message_aggregate_km_bwd_plain", "km_bwd_plain", "km_bwd_kernel",
@@ -117,11 +117,17 @@ TAB_BWD = CudaKernel("fused_message_tab_bwd", {
     # npad, hs, hv, k, tile, u, grid, stream
     "fused_message_tab_bwd": (_I, [_I] + [_P] * 17 + [_I] * 7 + [_P]),
 })
-# the same source's second kernel: the fixed-order sum of the per-block
+# the same source's reduction: the fixed-order sum of the per-block
 # weight-gradient partials ([nblocks, nw] -> [nw] fp32)
 TAB_BWD_REDUCE = CudaKernel("fused_message_tab_bwd_reduce", {
-    "fused_message_tab_bwd_reduce": (_I, [_P, _P, _I, _I, _P]),
+    # partials, out, nblocks, nw, the column kernel (1) or the strips (0), stream
+    "fused_message_tab_bwd_reduce": (_I, [_P, _P, _I, _I, _I, _P]),
 }, source_name="fused_message_tab_bwd")
+# the reduction's two kernels (the constants of the source): strips of
+# STRIP_COLS columns, STRIP_THREADS threads loading STRIP_ROWS rows a stage;
+# four columns a thread in blocks of COL_THREADS, COL_ROWS rows a batch
+STRIP_COLS, STRIP_THREADS, STRIP_ROWS = 32, 256, 136
+COL_THREADS, COL_ROWS = 64, 16
 
 # the untabled (km) kernels #3/#4 and #5: the same two sources, the senders
 # read from the slot-major hs3 [K, N, F] (row k*N + i) and the geometry from
@@ -524,6 +530,21 @@ def tab_bwd_reduce_plain(partials):
     return partials.sum(dim=0)
 
 
+def reduce_plan(nblocks: int, nw: int, ptrs, sms: int) -> dict:
+    """The reduction's launch for partials [nblocks, nw] at base addresses
+    ``ptrs`` (partials, out) on a card of ``sms`` SMs: the column kernel
+    (``cols``, four columns a thread, one 16-byte load a row) where nw is a
+    multiple of 4, every base 16-byte aligned and nw / 4 columns give each SM
+    a block of COL_THREADS; else the strip kernel (any nw and alignment).
+    ``grid`` blocks of ``threads``; ``batches`` trips over ``rows`` rows each
+    (the rows a block has in flight at once)."""
+    if nw % 4 == 0 and all(p % 16 == 0 for p in ptrs) and nw >= 4 * COL_THREADS * sms:
+        return dict(cols=True, threads=COL_THREADS, grid=-(-nw // (4 * COL_THREADS)),
+                    rows=COL_ROWS, batches=-(-nblocks // COL_ROWS))
+    return dict(cols=False, threads=STRIP_THREADS, grid=-(-nw // STRIP_COLS), rows=STRIP_ROWS,
+                batches=-(-nblocks // STRIP_ROWS))
+
+
 def tab_bwd_reduce(partials):
     """[nblocks, NW] fp32 -> [NW] fp32 summed in block order: the CUDA kernel
     for a CUDA tensor, the plain version for a CPU tensor."""
@@ -533,11 +554,16 @@ def tab_bwd_reduce(partials):
         raise ValueError(f"no kernel for device {partials.device}")
     if partials.dtype != torch.float32 or partials.dim() != 2 or not partials.is_contiguous():
         raise TypeError("partials must be a contiguous 2-D float32 tensor")
-    out = torch.empty((partials.shape[1],), dtype=torch.float32, device=partials.device)
+    nblocks, nw = partials.shape
+    out = torch.empty((nw,), dtype=torch.float32, device=partials.device)
+    if nw == 0:
+        return out
+    sms = torch.cuda.get_device_properties(partials.device).multi_processor_count
+    plan = reduce_plan(nblocks, nw, (partials.data_ptr(), out.data_ptr()), sms)
     stream = torch.cuda.current_stream(partials.device).cuda_stream
     with torch.cuda.device(partials.device):
         rc = TAB_BWD_REDUCE.lib().fused_message_tab_bwd_reduce(
-            partials.data_ptr(), out.data_ptr(), partials.shape[0], partials.shape[1], stream)
+            partials.data_ptr(), out.data_ptr(), nblocks, nw, int(plan["cols"]), stream)
     if rc != 0:
         raise RuntimeError(f"fused_message_tab_bwd_reduce launch failed with CUDA error {rc}")
     TAB_BWD_REDUCE.launches += 1

@@ -24,10 +24,7 @@ Two exchange backends, as in JAX, which differ in how the pool is built:
 - ``"all_gather"`` (JAX ``"xla"``, the default): the pool is the stack of
   the exports, in PyTorch;
 - ``"ring"`` (JAX ``"rdma"``): the pools built by kernel #15
-  (``kernels.halo_ring``), one pool per partition.  The kernel's error word
-  (a wait that ran over its bound) is read once per forward, or once per
-  train step after the backward: reading it waits for the card, so no
-  exchange reads it.
+  (``kernels.halo_ring``), one pool per partition.
 Both share one backward (``_HaloExchange``), the JAX
 ``_exchange_halo_xla_bwd``: the halo cotangents scattered into each
 partition's pool, the reduce-scatter ``d_bound[p] = sum_q d_pool_q[p]`` in
@@ -43,7 +40,7 @@ import torch
 from torch import nn
 
 from ..core.spherical import spherical_harmonics
-from ..kernels.halo_ring import ring_all_gather_fwd, ring_error_check
+from ..kernels.halo_ring import ring_all_gather_fwd
 from ..models.segnn import SEGNN
 from ..utils.device import resolve_device
 from .partition import DensePartitionedGraph
@@ -86,15 +83,15 @@ class DenseShard(NamedTuple):
 class _HaloExchange(torch.autograd.Function):
     """h_ext_p = [h_p ; pool_p[halo_map_p]], every pool_p the stacked exports
     ``h_q[boundary_idx_q]`` of every partition q: one shared pool, or with
-    ``ring`` partition p's own pool from kernel #15 (its error word unread);
-    the backward is the JAX ``_exchange_halo_xla_bwd``."""
+    ``ring`` partition p's own pool from kernel #15; the backward is the JAX
+    ``_exchange_halo_xla_bwd``."""
 
     @staticmethod
     def forward(ctx, ring, bidx, hmap, *hs):
         p, f = len(hs), hs[0].shape[-1]
         exports = torch.stack([h[b] for h, b in zip(hs, bidx)])  # [P, H, F]
         if ring:
-            pools = ring_all_gather_fwd(exports, check=False).reshape(p, -1, f)
+            pools = ring_all_gather_fwd(exports).reshape(p, -1, f)
         else:
             pools = [exports.reshape(-1, f)] * p
         ctx.save_for_backward(bidx, hmap)
@@ -127,8 +124,7 @@ def exchange_halo(hs: Sequence[torch.Tensor], boundary_idx: torch.Tensor,
     ``hs``: P tensors [Np, F]; ``boundary_idx``, ``halo_map``: [P, H] (the
     partitions' export rows and the pool index of each halo slot).
     ``backend``: ``"all_gather"`` (the JAX ``"xla"``) or ``"ring"`` (the JAX
-    ``"rdma"``: kernel #15 on a CUDA tensor, whose error word the caller
-    reads with ``ring_error_check``)."""
+    ``"rdma"``: kernel #15 on a CUDA tensor)."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, not {backend!r}")
     return list(_HaloExchange.apply(backend == "ring", boundary_idx, halo_map, *hs))
@@ -198,19 +194,15 @@ def make_dist_geometry_dense(model: SEGNN, group: PartitionGroup) -> Callable:
 
 class _DistDense(nn.Module):
     """The partitioned forward of ``model`` as a module, so a train step can
-    run it on swapped-in parameters (``torch.func.functional_call``).
-    ``check_ring``: read #15's error word at the end of the forward (the train
-    step reads it after its backward instead)."""
+    run it on swapped-in parameters (``torch.func.functional_call``)."""
 
-    def __init__(self, model: SEGNN, group: PartitionGroup, backend: str,
-                 check_ring: bool = True) -> None:
+    def __init__(self, model: SEGNN, group: PartitionGroup, backend: str) -> None:
         super().__init__()
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, not {backend!r}")
         self.model = model
         self.group = group
         self.backend = backend
-        self.check_ring = check_ring
 
     def forward(self, shards: Sequence[DenseShard], attrs=None) -> torch.Tensor:
         """[P, Np, F_out]: every partition's outputs, zero on its pad rows."""
@@ -237,15 +229,7 @@ class _DistDense(nn.Module):
         for h, sh, a in zip(hs, shards, attrs):
             out = model.head(model.pre_head(h, a[4]))
             outs.append(torch.where(sh.node_mask[:, None], out, torch.zeros_like(out)))
-        if self.check_ring:
-            _check_ring(self.backend, self.group)
         return torch.stack(outs)
-
-
-def _check_ring(backend: str, group: PartitionGroup) -> None:
-    """Raise if a launch of #15 on the group's card ran over its wait bound."""
-    if backend == "ring" and group.device.type == "cuda":
-        ring_error_check(group.device)
 
 
 def make_dist_forward_dense(model: SEGNN, group: PartitionGroup,
@@ -269,7 +253,7 @@ def make_dist_train_step_dense(model: SEGNN, optimizer: torch.optim.Optimizer,
     added in order.  ``compute_dtype``: the forward runs on copies of the
     parameters in that dtype (bf16 compute on fp32 masters); the gradients
     reach the masters through the casts, and the optimizer updates them."""
-    dist = _DistDense(model, group, backend, check_ring=False)
+    dist = _DistDense(model, group, backend)
     params = [p for p in model.parameters() if p.requires_grad]
 
     def step(shards: Sequence[DenseShard], targets: torch.Tensor, attrs=None):
@@ -288,7 +272,6 @@ def make_dist_train_step_dense(model: SEGNN, optimizer: torch.optim.Optimizer,
             part = torch.where(m[:, None], err, torch.zeros_like(err)).sum() / denom
             loss = part if loss is None else loss + part
         loss.backward()
-        _check_ring(backend, group)
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)

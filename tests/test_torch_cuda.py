@@ -17,11 +17,13 @@ backward with the reduction) against their plain versions at three widths,
 (symmetrized, unsymmetrized, node blocks) against the plain path; the packed
 lmax=1 kernels (#6 forward, #7 backward with the reduction) against their
 plain versions at p = 2, 3, 4 and three widths, their determinism, and
-``SEGNN(pack=p)`` gradients through them against the plain path; the halo
-ring (#15) against its plain version bit for bit at P = 2-8 (odd H and F,
-and F = 80 in both dtypes), its launches back to back without a reset (the
-epoch), its gradient and wrapper checks, and a 4-way partitioned SEGNN on
-the card (both exchange backends) against the unpartitioned plain path.
+``SEGNN(pack=p)`` gradients through them against the plain path; the
+weight-gradient reduction bit for bit against the in-order fold at its three
+main-path shapes, odd widths and an unaligned base; the halo ring (#15)
+against its plain version bit for bit at P = 1-8 (odd H and F, and F = 80
+in both dtypes), its gradient and wrapper checks, and a 4-way partitioned
+SEGNN on the card (both exchange backends) against the unpartitioned plain
+path.
 
 These tests need a CUDA card and skip without one.  They import no JAX, so
 they run on a machine without it (``--noconftest`` skips the JAX-only
@@ -951,8 +953,8 @@ def test_flat_segnn_gradients_kernel_match_plain_path(dev, mode, p):
 
 
 # the halo ring (#15): (P, H, F); odd H and F take the element path, F = 80
-# (config 3's hidden width) the 16-byte path in both dtypes
-RING_CASES = [(p, h, f) for p in range(2, 9) for h, f in ((37, 13), (129, 80))]
+# (config 3's hidden width) the 16-byte path in both dtypes; P = 1 copies
+RING_CASES = [(p, h, f) for p in range(1, 9) for h, f in ((37, 13), (129, 80))]
 
 
 @pytest.mark.parametrize("p,h,f", RING_CASES)
@@ -967,20 +969,37 @@ def test_ring_kernel_matches_plain_bitwise(dev, p, h, f, dtype):
     assert torch.equal(got, hr.ring_all_gather_plain(x))
 
 
-def test_ring_kernel_back_to_back_without_reset(dev):
-    """Launches with no reset between them: each raises its flags to a new
-    epoch, so no flag of an earlier launch satisfies a later one's wait."""
-    gen = torch.Generator(device=dev).manual_seed(3)
-    xs = [torch.randn((4, 500, 80), generator=gen, device=dev).to(torch.bfloat16)
-          for _ in range(30)]
-    before = hr.ring_epochs()
-    pools = [hr.ring_all_gather_launch(x) for x in xs]
-    hr.ring_error_check(xs[0].device)
-    after = hr.ring_epochs()
-    moved = {k: e - before.get(k, 0) for k, e in after.items() if e != before.get(k, 0)}
-    assert list(moved.values()) == [30], moved
-    for x, po in zip(xs, pools):
-        assert torch.equal(po, hr.ring_all_gather_plain(x))
+# the weight-gradient reduction: config 3's #2 partials (strips), #12's and
+# #14's at 250k (16-byte columns), two stages of strips, and odd NW (strips,
+# wide and narrow), with one row
+REDUCE_SHAPES = [(132, 9280), (22, 263412), (128, 263412), (264, 9280), (22, 263413),
+                 (7, 1001), (1, 4099), (33, 3)]
+
+
+@pytest.mark.parametrize("nblocks,nw", REDUCE_SHAPES)
+def test_reduce_kernel_is_the_in_order_fold_bitwise(dev, nblocks, nw):
+    x = torch.randn((nblocks, nw), generator=torch.Generator(device=dev).manual_seed(nw),
+                    device=dev)
+    before = fm.TAB_BWD_REDUCE.launches
+    got = fm.tab_bwd_reduce(x)
+    torch.cuda.synchronize()
+    assert fm.TAB_BWD_REDUCE.launches == before + 1
+    fold = torch.zeros(nw, device=dev)
+    for row in x:
+        fold += row
+    assert torch.equal(got, fold)
+    ref = fm.tab_bwd_reduce_plain(x)
+    assert float((got - ref).abs().max()) <= 1e-6 * max(1.0, float(ref.abs().max()))
+
+
+def test_reduce_kernel_on_an_unaligned_view(dev):
+    """A view whose base is not 16-byte aligned takes one column a thread."""
+    buf = torch.randn(5 * 1024 + 1, device=dev)
+    x = buf[1:].view(5, 1024)
+    fold = torch.zeros(1024, device=dev)
+    for row in x:
+        fold += row
+    assert torch.equal(fm.tab_bwd_reduce(x), fold)
 
 
 def test_ring_gradient_and_wrapper_checks(dev):

@@ -51,6 +51,19 @@ from tests.test_torch_generic_untabled import DTYPES, _close, _f32
 SPARSE_IRREPS = ("2x0e+1x1o", "2x0e+1x2e", "3x0e")  # with lmax_attr=5: (2, 4, 2) paths
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread.  The bitwise checks of this file are
+    about the port's order of sums (per tile, tiles folded in order); the
+    plain versions' CPU GEMMs block their sums by the thread count, so two
+    GEMMs of one product can differ in their last bit between thread counts
+    and the checks would depend on the machine rather than on the order."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _problem(n, seed, dtype, lmax_attr=2, bwd_tile=0, irreps=IRREPS):
     """One layer's untabled kernel inputs on both sides (hs = h[senders.T],
     the packed geometry with extra masked slots, a cotangent), the JAX kernel
