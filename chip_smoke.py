@@ -96,7 +96,9 @@ Phases, each printing one JSON line:
                  selection: the port's cell graph), not symmetrized, chunked
                  bf16 attributes; times.
 25. kernel_untabled (config5_block) -- #11-#13 against their plain versions at
-                 one 400k-node block's shapes, fp32 and bf16; times and bounds.
+                 one 400k-node block's shapes, fp32 and bf16; times and bounds,
+                 device times per launch of #11, the chains, the weight
+                 gradients and the reduction.
 26. train_config5, config5 -- the 10M train step (edge_chunks=25, remat,
                  remat_kernel, remat_layers=2), a warm-up and a timed step:
                  per step 300 of #11, 100 of #13 (derived in
@@ -502,6 +504,32 @@ def kernel_device_ms(fn, iters: int = 50, warmup: int = 5, one: bool = True) -> 
           f"{[ev.key for ev in evs]}")
     return (sum(ev.self_device_time_total / 1e3 / ev.count for ev in evs),
             min(ev.count for ev in evs))
+
+
+def kernels_device_ms(calls, names: dict, rounds: int = 2) -> dict:
+    """Device ms per launch of each named kernel from one torch.profiler
+    trace of ``rounds`` rounds of ``calls`` (after one untraced round):
+    ``names`` maps a label to the substrings its kernel's name holds; a
+    label the trace holds no launch of reads None (the profiler may drop
+    records)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            for fn in calls:
+                fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0]
+    out = {}
+    for label, subs in names.items():
+        hits = [ev for ev in evs if all(x in ev.key for x in subs)]
+        out[label] = (sum(ev.self_device_time_total for ev in hits) / 1e3
+                      / sum(ev.count for ev in hits)) if hits else None
+    return out
 
 
 def reduce_shapes(dev) -> dict:
@@ -1247,8 +1275,8 @@ def untabled_check(label, kern, cfg, args, n_valid, d_agg, times: bool) -> dict:
     """#11 (without and with save), #12 and #13 (whole: chain, weight
     gradients, reduction) against their plain versions on one set of
     inputs; #12 against #13 bitwise; two runs of each bitwise equal.  With
-    ``times``, CUDA-event times of each and of its plain version, and the
-    bounds.  Emits a ``kernel_untabled`` line; returns its numbers."""
+    ``times``, CUDA-event times of each and of its plain version, device
+    times per launch of the kernels (torch.profiler), and the bounds.  Emits a ``kernel_untabled`` line; returns its numbers."""
     fp32 = args[1].dtype == torch.float32
     hs, h, geo2, ws, sels = args
     with torch.no_grad():
@@ -1286,6 +1314,10 @@ def untabled_check(label, kern, cfg, args, n_valid, d_agg, times: bool) -> dict:
                                 rep=max(cmp[f"rep.{nm}"]["max_abs_err"] for nm, _ in UNTAB_OUTPUTS)))
     if times:
         with torch.no_grad():
+            _, _, dy1, dy2, _, m1 = fmg.generic_bwd_chain(cfg, *args, d_agg)
+            rows = (m1, dy1, dy2)
+            splits = fmg._wgrad_splits(cfg, m1.shape[0], torch.cuda.get_device_properties(
+                h.device).multi_processor_count)
             t = dict(
                 fwd_ms=event_ms(lambda: fmg.generic_fwd(cfg, *args), iters=5, warmup=1),
                 save_ms=event_ms(lambda: fmg.generic_fwd(cfg, *args, save=True), iters=3, warmup=1),
@@ -1296,9 +1328,23 @@ def untabled_check(label, kern, cfg, args, n_valid, d_agg, times: bool) -> dict:
                                 warmup=1),
                 rep_chain_ms=event_ms(lambda: fmg.generic_bwd_chain(cfg, *args, d_agg), iters=3,
                                       warmup=1),
+                rep_wgrad_ms=event_ms(lambda: fmg.generic_bwd_wgrad(cfg, hs, h, geo2, *rows, splits),
+                                      iters=3, warmup=1),
                 res_plain_ms=event_ms(lambda: fmg.generic_bwd_plain(cfg, *args, d_agg, ys=ys),
                                       iters=1),
                 rep_plain_ms=event_ms(lambda: fmg.generic_bwd_plain(cfg, *args, d_agg), iters=1))
+            # device time per launch (torch.profiler, one trace) of each
+            # kernel, beside the CUDA-event times per call above
+            t["device_ms"] = kernels_device_ms(
+                [lambda: fmg.generic_fwd(cfg, *args),
+                 lambda: fmg.generic_bwd_chain(cfg, *args, d_agg),
+                 lambda: fmg.generic_bwd_chain(cfg, *args, d_agg, ys=ys),
+                 lambda: fm.tab_bwd_reduce(fmg.generic_bwd_wgrad(cfg, hs, h, geo2, *rows,
+                                                                 splits))],
+                dict(fwd=("generic_fwd_kernel",), rep_chain=("chain_kernel", "Mode)1"),
+                     res_chain=("chain_kernel", "Mode)0"), wgrad=("wgrad_kernel",),
+                     reduce=("tab_bwd_reduce",)))
+            del rows, dy1, dy2, m1
         # bounds: each input read once, each output written once; 1 (#11), 2
         # (#12) and 3 (#13) passes of the folded weights' nonzeros per valid
         # slot at the bf16 tensor-core peak
@@ -1548,11 +1594,15 @@ def config5_phases(card: str) -> dict:
         fmg.GENERIC_FWD.name: dict(
             launches=launches[fmg.GENERIC_FWD.name], max_abs_err=chk[bf]["max_abs_err"]["fwd"],
             ms=t["fwd_ms"], plain_ms=t["fwd_plain_ms"], bound_ms=b["fwd"]["bound_ms"],
-            bound_by=b["fwd"]["bound_by"], save_ms=t["save_ms"], **common),
+            bound_by=b["fwd"]["bound_by"], save_ms=t["save_ms"],
+            device_ms=t["device_ms"]["fwd"], **common),
         fmg.GENERIC_BWD_REP.name: dict(
             launches=launches[fmg.GENERIC_BWD_REP.name], max_abs_err=chk[bf]["max_abs_err"]["rep"],
             ms=t["rep_ms"], plain_ms=t["rep_plain_ms"], bound_ms=b["rep"]["bound_ms"],
-            bound_by=b["rep"]["bound_by"], chain_ms=t["rep_chain_ms"], **common),
+            bound_by=b["rep"]["bound_by"], chain_ms=t["rep_chain_ms"],
+            wgrad_ms=t["rep_wgrad_ms"], chain_device_ms=t["device_ms"]["rep_chain"],
+            wgrad_device_ms=t["device_ms"]["wgrad"], reduce_device_ms=t["device_ms"]["reduce"],
+            **common),
     }
 
 

@@ -37,29 +37,35 @@
 // csrc/fused_message_tab_bwd.cu.
 // 1. chain (#9/#12, #10/#13 or #14 by a template mode; the sender addressing
 //    by a flag).  One block owns whole receivers
-//    (128 slot rows in bf16, 64 in fp32), as kernel #8 does, and runs the
+//    (64 slot rows: 4 warps, two blocks an SM, in bf16; 8 warps in fp32), as
+//    kernel #8 does, and runs the
 //    chain for its rows: in replay mode the two forward GEMMs of #8 (the same
-//    arithmetic, so both modes give bitwise the same y), in residual mode a
-//    load of the saved y; then per layer the gate VJP (a warp per row, in
-//    place over y) and the dm GEMM.  The weights stream one attribute
-//    component at a time through shared memory (cp.async, double buffer, the
-//    [A][D16][C16] layout of #8); the dm GEMM reads W_c^T out of the same
-//    slice by ldmatrix.trans.  It writes, per slot row, each layer's input m
-//    and dy (for the weight gradients), the rounded sender cotangent d_hs
-//    (tabled: [N*K, F] node-major, for the table sum; untabled: [K, N, F],
-//    the kernel's output), and per receiver d_hr.
+//    engine, csrc/generic_mma.cuh, so both modes give bitwise the same y), in
+//    residual mode a load of the saved y; then per layer the gate VJP (a warp
+//    per row, in place over y) and the dm GEMM.  In bf16 every GEMM runs on
+//    that engine: mma.sync over only the 16x8 weight tiles that hold a
+//    structural nonzero (the forward's tiles for the replay, a second tiling
+//    of W^T for dm, components last first for #14), streamed by cp.async.bulk
+//    through a 4-stage mbarrier ring that runs across the GEMMs (the next
+//    GEMM's tiles load during the gate VJP).  It writes, per slot row, each
+//    layer's dy and m_1 (for the weight gradients; m_0 only where a kernel
+//    reads it: tabled, and #14), the rounded sender cotangent d_hs (tabled:
+//    [N*K, F] node-major, for the table sum; untabled: [K, N, F], the
+//    kernel's output), and per receiver d_hr.
 // 2. wgrad.  dW_l[c] = m_l^T (dy_l attr_c) sums over all N*K slot rows: 1.05
 //    MB of fp32 at the lmax=2 config, far more than a block's shared memory,
 //    and CUDA blocks run in no order, so there is no carried sum as on the
-//    TPU.  Each block owns one (layer, component, row range) output tile
-//    [C1, D] in registers and streams its rows' m and dy in chunks of 64 by
-//    cp.async into a double buffer (chunk i+1 loads while chunk i
-//    multiplies), scales dy by attr_c in shared memory and multiplies on the
-//    tensor cores (both operands by ldmatrix.trans); it writes its tile into
-//    a per-range partial [splits, NW].  Rebuilding m here instead (the
-//    gathers and the gate, once per component) took most of the kernel's
-//    time on an H100, hence the rows from the chain.  No float atomics; the
-//    partials are summed in range order by the fixed-order reduction of
+//    TPU.  Each block owns one (layer, row range, group of G components)
+//    and its G output tiles [C1, D] in registers (G = 2 in bf16), and streams
+//    its rows' m and dy in chunks of 64 by cp.async (bf16: four buffers,
+//    three chunks in flight while one multiplies; fp32 and #14: two): each
+//    chunk is read once for all G components.  On the tensor cores both operands come by
+//    ldmatrix.trans; each dy fragment is scaled by attr_c in registers, once
+//    per component.  Untabled, layer 1's m_0 rows are rebuilt from hs, h and
+//    geo2 (bit for bit the chain's m_0: 4-byte cp.async of the two feature
+//    rows, d2, zeros), so the chain does not write them.  It writes its tiles
+//    into a per-range partial [splits, NW].  No float atomics; the partials
+//    are summed in range order by the fixed-order reduction of
 //    csrc/fused_message_tab_bwd.cu, so reruns are bit-identical.  For #14 a
 //    block owns one (layer, component, backward tile) and writes the tile's
 //    rounded partial; a group of tiles (as many partials as fit a fixed
@@ -70,39 +76,58 @@
 //
 // 3. table (tabled only).  One block per gather tile sums each table entry's
 //    d_hs rows in slot order (a counting sort of loc in shared memory): d_hu.
-// bf16 runs the GEMMs on mma.sync m16n8k16 (fp32 accumulate); fp32 (the
-// check path) on the FMA units.  Widths are runtime arguments up to C1 <= 192
-// and D <= 128; the chain keeps the geometry in the data type in shared
-// memory, so A = 36 (lmax_attr = 5, 38 values per slot) fits a block at the
-// lmax=2 widths (227,600 of the 232,448 bytes a block may use, in bf16).
+// fp32 (the check path) runs the GEMMs on the FMA units, dense.  Widths are
+// runtime arguments up to C1 <= 192 and D <= 128; the chain keeps the
+// geometry in the data type in shared memory, so A = 36 (lmax_attr = 5, 38
+// values per slot) fits a block at the lmax=2 widths.
 //
 // Work and bound.  Per valid slot the function needs 2 x the folded nonzeros
 // for the dW and the dm products (#9: 120,960 flops at the lmax=2 config) and
-// once more for the replay (#10, #13, #14: 181,440); the kernels run the
-// dense folded GEMMs (2 and 3 x 526,824 per slot; #14's weight gradients
-// twice, dya = hi + lo).  #9 also reads the saved ys (1.7 GB at
-// 250k points in bf16), so it is bound by bytes; #10 by operations.  This
-// first version is simple: one block per SM, mma.sync, dense folded GEMMs,
-// the m and dy rows through device memory and read once per component;
-// wgmma/TMA, block-sparse W' and fewer passes over the rows are later work.
+// once more for the replay (#10, #13, #14: 181,440); the chain multiplies
+// the listed tiles (182,016 flops a slot for the replay, 173,568 for dm),
+// the weight gradients are dense (dW' is written everywhere, 526,824 flops a
+// slot; #14's twice, dya = hi + lo).  #9 also reads the saved ys (1.7 GB at
+// 250k points in bf16), so it is bound by bytes; #10 by operations.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "generic_mma.cuh"
+
+// GENERIC_WGRAD_CLOCKS (a profiling build of kernels/generic_ab.py, never the
+// package's library): thread 0 of each weight-gradient block adds the
+// cycles spent waiting for each chunk and multiplying it to wgrad_cycles[].
+#ifdef GENERIC_WGRAD_CLOCKS
+__device__ unsigned long long wgrad_cycles[4];
+#define WG_CLOCK(i)                                                                   \
+  do {                                                                                \
+    if (threadIdx.x == 0) {                                                           \
+      const long long now = clock64();                                                \
+      atomicAdd(&wgrad_cycles[i], (unsigned long long)(now - wg_t0));                 \
+      wg_t0 = now;                                                                    \
+    }                                                                                 \
+  } while (0)
+#else
+#define WG_CLOCK(i) \
+  do {              \
+  } while (0)
+#endif
+
 namespace {
+
+using gmma::mma_bf16_16816;
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsMma = 128;  // chain, bf16: 8 warps x 16 rows
+constexpr int kThreads = 256;        // weight gradients, table sum; the chain in fp32
+constexpr int kWarps = kThreads / 32;  // the most warps of a block
+constexpr int kThreadsChainMma = 128;  // chain, bf16: 4 warps x 16 rows, two blocks an SM
+constexpr int kRowsMma = 64;
 constexpr int kRowsFma = 64;   // chain, fp32
 constexpr int kMaxC1 = 192;    // widths taken: C1 <= 192, D <= 128
 constexpr int kMaxD = 128;
-constexpr int kMaxKS = kMaxC1 / 16;  // replay GEMM: k-steps over C1
 constexpr int kMaxNT = kMaxD / 8;    // replay GEMM: n-tiles over D
-constexpr int kMaxDS = kMaxD / 16;   // dm GEMM: k-steps over D
 constexpr int kMaxCT = kMaxC1 / 8;   // dm GEMM: n-tiles over C1
 constexpr int kMaxLanes = kMaxD / 32;  // gate VJP: columns per lane
 constexpr int kRT = 4, kCT = 4;        // FMA engine: rows x columns per work item
@@ -110,6 +135,8 @@ constexpr int kItChain = 3;            // FMA chain: work items per thread
 constexpr int kItW = 6;                // FMA wgrad: work items per thread
 constexpr int kChunk = 64;             // wgrad: slot rows per chunk
 constexpr int kWMT = 3, kWNT = 8;      // wgrad mma: m-tiles x n-tiles per warp
+constexpr int kGroup = 2;              // wgrad, bf16: attribute components per block
+constexpr int kWgradBufs = 4;          // wgrad, bf16: chunks in shared memory (3 in flight)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -134,15 +161,6 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // two 8x8 b16 matrices, transposed: rows from lanes 0-7 and 8-15
 __device__ __forceinline__ void ldsm_x2_t(uint32_t& r0, uint32_t& r1, const void* p) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -156,13 +174,6 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
 }
 
-// two bf16 at p scaled by s, each product rounded to bf16, packed (low = p[0])
-__device__ __forceinline__ uint32_t scale2(const bf16* p, float s) {
-  const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  __nv_bfloat162 o = __floats2bfloat162_rn(__fmul_rn(v.x, s), __fmul_rn(v.y, s));
-  return *reinterpret_cast<uint32_t*>(&o);
-}
-
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 __host__ __device__ inline long align16(long bytes) { return (bytes + 15) / 16 * 16; }
 
@@ -172,14 +183,16 @@ struct Dims {
   int rows, rb;    // chain: slot rows per block, receivers per block
   int ldm;         // m / dm row stride (elements)
   int ldy;         // y / dy row stride (elements)
-  int ldw, wbuf;   // weight-slice row stride, elements per weight buffer
-  int nbuf;        // weight buffers (2: double buffer, mma; 1: fma)
+  int ldw, wbuf;   // fp32: weight-slice row stride, elements per weight buffer
+  int nbuf;        // fp32: one weight buffer (bf16: none, the engine's ring)
   int gs;          // geometry per slot: a + 2
   int ldg1, ldg2;  // dy rows in global memory (D rounded up to 8)
   int kp0, kp1;    // m_0 / m_1 rows in global memory (C1 rounded up to 16)
   int splits;      // wgrad: row ranges
   int ldz;         // wgrad: dya row stride
   int trows, tile0;  // wgrad, per tile (#14): slot rows per tile, the first tile
+  int stages;        // chain, bf16: the depth of the engine's ring
+  int nmasks;        // chain, bf16: the plan's masks (A x (C1/16 + D/16) per layer)
 };
 
 __host__ __device__ inline Dims make_dims(bool mma, int n, int f, int k, int a, int tile, int u,
@@ -197,9 +210,9 @@ __host__ __device__ inline Dims make_dims(bool mma, int n, int f, int k, int a, 
   d.ldy = round_up(dmax, 16) + 8;
   d.ldz = d.ldy;
   if (mma) {
-    d.ldw = d.ldm;                     // slices [D16][ldw], C1 contiguous
-    d.wbuf = round_up(dmax, 16) * d.ldw;
-    d.nbuf = 2;
+    d.ldw = 0;                         // the weights stream through the engine's ring
+    d.wbuf = 0;
+    d.nbuf = 0;
   } else {
     d.ldw = round_up(dmax, 4);         // slices [C1][ldw], D contiguous
     d.wbuf = c1max * d.ldw;
@@ -213,6 +226,8 @@ __host__ __device__ inline Dims make_dims(bool mma, int n, int f, int k, int a, 
   d.splits = 1;
   d.trows = 0;
   d.tile0 = 0;
+  d.stages = 0;
+  d.nmasks = a * ((c1a + 15) / 16 + (c1b + 15) / 16 + (da + 15) / 16 + (db + 15) / 16);
   return d;
 }
 
@@ -222,94 +237,52 @@ __host__ __device__ inline long chain_ints(const Dims& d) {
   return 2L * d.rows + 2L * d.dk1 + 2L * d.dk2 + d.da + d.db + 2;
 }
 template <typename T>
-__host__ __device__ inline long chain_smem(const Dims& d) {
+__host__ __device__ inline long chain_rows_smem(const Dims& d) {
   return align16((long)sizeof(T) * d.rows * d.gs) + align16(4L * chain_ints(d)) +
          align16(4L * kWarps * kMaxD) + align16((long)sizeof(T) * d.rows * d.ldm) +
-         2 * align16((long)sizeof(T) * d.rows * d.ldy) +
-         align16((long)sizeof(T) * d.nbuf * d.wbuf);
+         2 * align16((long)sizeof(T) * d.rows * d.ldy);
 }
-// (per tile, #14: one more dya buffer, the low halves of dya in bf16)
+// bf16: as deep a ring as leaves two blocks an SM beside the rows and the
+// plan's tables
+__host__ __device__ inline int chain_stages(const Dims& d) {
+  return gmma::ring_stages(chain_rows_smem<bf16>(d) + gmma::table_bytes(d.nmasks));
+}
 template <typename T>
-__host__ __device__ inline long wgrad_smem(const Dims& d, bool tiles) {
-  return 2 * align16((long)sizeof(T) * kChunk * d.ldm) +
-         (tiles ? 3 : 2) * align16((long)sizeof(T) * kChunk * d.ldz) + 8L * kChunk;
+__host__ __device__ inline long chain_smem(const Dims& d) {
+  return chain_rows_smem<T>(d) +
+         (sizeof(T) == 2 ? gmma::ring_bytes(chain_stages(d)) + gmma::table_bytes(d.nmasks)
+                         : align16((long)sizeof(T) * d.nbuf * d.wbuf));
+}
+// nbufs chunks of m and dy rows and of attributes (per tile, #14: one more
+// dya buffer, the low halves of dya in bf16)
+template <typename T>
+__host__ __device__ inline long wgrad_smem(const Dims& d, int nbufs, bool tiles) {
+  return nbufs * align16((long)sizeof(T) * kChunk * d.ldm) +
+         (nbufs + (tiles ? 1 : 0)) * align16((long)sizeof(T) * kChunk * d.ldz) +
+         4L * nbufs * kChunk * kGroup;
 }
 
 // ---------------------------------------------------------------------------
 // GEMM engines.  Each starts with a block barrier (its inputs complete, the
 // weight buffers free) and leaves its output in shared memory.
 
-// Copy attribute component c's weight slice [dpl][kp] (global, contiguous)
-// into dst [dpl][ldw] by cp.async, then commit the group.
-__device__ __forceinline__ void load_slice(const bf16* __restrict__ Wk, int c, int dpl, int kp,
-                                           int ldw, bf16* dst) {
-  const bf16* src = Wk + (long)c * dpl * kp;
-  const int row_chunks = kp / 8;  // 16-byte pieces per row
-  for (int i = threadIdx.x; i < dpl * row_chunks; i += blockDim.x) {
-    const int nn = i / row_chunks, ch = i % row_chunks;
-    cp_async16(dst + nn * ldw + ch * 8, src + (long)nn * kp + ch * 8);
-  }
-  cp_async_commit();
-}
+// The bf16 products on the engine of generic_mma.cuh, over the weight
+// stream of the ring (the plan's masks of that GEMM at masks).  Each starts
+// with a block barrier (its input rows complete) and writes its bf16 output
+// into shared memory.
 
-// y = sum_c attr_c * (M @ W[c]) on the tensor cores, rounded to bf16 into Y
-// (columns up to D rounded to 16; the pad is zero).  The arithmetic of kernel
-// #8's layer_mma, so the replay gives bitwise the forward's y.
-__device__ void layer_fwd_mma(const bf16* __restrict__ Wk, int c1, int dd, const Dims& d,
-                              const bf16* M, bf16* Wt, bf16* Y, const bf16* geo) {
+// y = sum_c attr_c * (M @ W[c]), rounded to bf16 into Y (columns up to D
+// rounded to 16; the pad is zero): the arithmetic of kernel #8's layer_mma,
+// so the replay gives bitwise the forward's y.
+__device__ void layer_fwd_mma(gmma::Ring& ring, int stream, const uint32_t* masks, int c1,
+                              int dd, const Dims& d, const bf16* M, bf16* Y, const bf16* geo) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int r0 = warp * 16;
-  const int kp = round_up(c1, 16), dpl = round_up(dd, 16);
-  const int ks_n = kp / 16, nt_n = dpl / 8;
+  const int nt_n = round_up(dd, 16) / 8;
   __syncthreads();
-  load_slice(Wk, 0, dpl, kp, d.ldw, Wt);
   float acc[kMaxNT][4];
-#pragma unroll
-  for (int nt = 0; nt < kMaxNT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  const bf16* a0 = M + (r0 + g) * d.ldm + t4 * 2;
-  const bf16* a1 = a0 + 8 * d.ldm;
-  for (int c = 0; c < d.a; ++c) {
-    const bf16* cur = Wt + (c & 1) * d.wbuf;
-    if (c + 1 < d.a) {
-      load_slice(Wk, c + 1, dpl, kp, d.ldw, Wt + ((c + 1) & 1) * d.wbuf);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // slice c has landed for every thread
-    float t[kMaxNT][4];
-#pragma unroll
-    for (int nt = 0; nt < kMaxNT; ++nt) t[nt][0] = t[nt][1] = t[nt][2] = t[nt][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kMaxKS; ++ks) {
-      if (ks < ks_n) {
-        uint32_t af[4];
-        af[0] = *reinterpret_cast<const uint32_t*>(a0 + ks * 16);
-        af[1] = *reinterpret_cast<const uint32_t*>(a1 + ks * 16);
-        af[2] = *reinterpret_cast<const uint32_t*>(a0 + ks * 16 + 8);
-        af[3] = *reinterpret_cast<const uint32_t*>(a1 + ks * 16 + 8);
-        const bf16* wb = cur + g * d.ldw + ks * 16 + t4 * 2;
-#pragma unroll
-        for (int nt = 0; nt < kMaxNT; ++nt) {
-          if (nt < nt_n) {
-            const uint32_t b0 = *reinterpret_cast<const uint32_t*>(wb + nt * 8 * d.ldw);
-            const uint32_t b1 = *reinterpret_cast<const uint32_t*>(wb + nt * 8 * d.ldw + 8);
-            mma_bf16_16816(t[nt], af, b0, b1);
-          }
-        }
-      }
-    }
-    const float at0 = to_f(geo[(r0 + g) * d.gs + c]), at1 = to_f(geo[(r0 + g + 8) * d.gs + c]);
-#pragma unroll
-    for (int nt = 0; nt < kMaxNT; ++nt) {
-      acc[nt][0] = __fadd_rn(acc[nt][0], __fmul_rn(at0, t[nt][0]));
-      acc[nt][1] = __fadd_rn(acc[nt][1], __fmul_rn(at0, t[nt][1]));
-      acc[nt][2] = __fadd_rn(acc[nt][2], __fmul_rn(at1, t[nt][2]));
-      acc[nt][3] = __fadd_rn(acc[nt][3], __fmul_rn(at1, t[nt][3]));
-    }
-    __syncthreads();  // every warp is done with slice c before its buffer refills
-  }
+  gmma::gemm_fwd<kMaxNT>(ring, stream, masks, d.a, (c1 + 15) / 16, M, d.ldm, geo, d.gs, acc);
 #pragma unroll
   for (int nt = 0; nt < kMaxNT; ++nt) {
     if (nt < nt_n) {
@@ -322,131 +295,22 @@ __device__ void layer_fwd_mma(const bf16* __restrict__ Wk, int c1, int dd, const
   }
 }
 
-// dm = sum_c (dy * attr_c, rounded to bf16) @ W[c]^T on the tensor cores,
-// rounded to bf16 into Out (columns up to C1 rounded to 8).  W[c]^T comes out
-// of the same [D16][C16] slices by ldmatrix.trans.
-__device__ void layer_bwd_mma(const bf16* __restrict__ Wk, int c1, int dd, const Dims& d,
-                              const bf16* DY, bf16* Wt, bf16* Out, const bf16* geo) {
+// dm = sum_c (dy * attr_c, rounded to bf16) @ W[c]^T, rounded to bf16 into
+// Out (columns up to C1 rounded to 8); with VJP kernel #14's rounding
+// (gmma::gemm_dm_vjp: per component dm_c rounded, added in bf16, last first).
+template <bool VJP>
+__device__ void layer_bwd_mma(gmma::Ring& ring, int stream, const uint32_t* masks, int c1,
+                              int dd, const Dims& d, const bf16* DY, bf16* Out, const bf16* geo) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int r0 = warp * 16;
-  const int kp = round_up(c1, 16), dpl = round_up(dd, 16);
-  const int ds_n = dpl / 16, ct_n = (c1 + 7) / 8;
+  const int ct_n = (c1 + 7) / 8, ds_n = round_up(dd, 16) / 16;
   __syncthreads();
-  load_slice(Wk, 0, dpl, kp, d.ldw, Wt);
   float acc[kMaxCT][4];
-#pragma unroll
-  for (int ct = 0; ct < kMaxCT; ++ct) acc[ct][0] = acc[ct][1] = acc[ct][2] = acc[ct][3] = 0.f;
-  const bf16* a0 = DY + (r0 + g) * d.ldy + t4 * 2;
-  const bf16* a1 = a0 + 8 * d.ldy;
-  for (int c = 0; c < d.a; ++c) {
-    const bf16* cur = Wt + (c & 1) * d.wbuf;
-    if (c + 1 < d.a) {
-      load_slice(Wk, c + 1, dpl, kp, d.ldw, Wt + ((c + 1) & 1) * d.wbuf);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float at0 = to_f(geo[(r0 + g) * d.gs + c]), at1 = to_f(geo[(r0 + g + 8) * d.gs + c]);
-#pragma unroll
-    for (int ds = 0; ds < kMaxDS; ++ds) {
-      if (ds < ds_n) {
-        uint32_t af[4];
-        af[0] = scale2(a0 + ds * 16, at0);
-        af[1] = scale2(a1 + ds * 16, at1);
-        af[2] = scale2(a0 + ds * 16 + 8, at0);
-        af[3] = scale2(a1 + ds * 16 + 8, at1);
-        const bf16* wrow = cur + (ds * 16 + (lane & 15)) * d.ldw;
-#pragma unroll
-        for (int ct = 0; ct < kMaxCT; ++ct) {
-          if (ct < ct_n) {
-            uint32_t b0, b1;
-            ldsm_x2_t(b0, b1, wrow + ct * 8);
-            mma_bf16_16816(acc[ct], af, b0, b1);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int ct = 0; ct < kMaxCT; ++ct) {
-    if (ct < ct_n) {
-      const int col = ct * 8 + t4 * 2;
-      *reinterpret_cast<__nv_bfloat162*>(Out + (r0 + g) * d.ldm + col) =
-          __floats2bfloat162_rn(acc[ct][0], acc[ct][1]);
-      *reinterpret_cast<__nv_bfloat162*>(Out + (r0 + g + 8) * d.ldm + col) =
-          __floats2bfloat162_rn(acc[ct][2], acc[ct][3]);
-    }
-  }
-}
-
-// Kernel #14's dm (JAX's AD of _layer_tp in bf16): per component dya_c = dy *
-// attr_c in fp32 (exact: a product of two bf16 values), dm_c = dya_c @ W[c]^T
-// in fp32 rounded to bf16, the A terms added in bf16, last component first
-// (the order in which JAX's backward pass accumulates the cotangent of m).
-// attr_c leaves the sum over D (dm_c = attr_c * (dy @ W[c]^T), one more fp32
-// rounding), so the A fragments are the unscaled dy rows, loaded once.  Each
-// column tile's product over D completes in a fresh fp32 accumulator before
-// it is rounded and added.  Rounded to bf16 into Out (columns up to C1
-// rounded to 8).
-__device__ void layer_bwd_vjp_mma(const bf16* __restrict__ Wk, int c1, int dd, const Dims& d,
-                                  const bf16* DY, bf16* Wt, bf16* Out, const bf16* geo) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int r0 = warp * 16;
-  const int kp = round_up(c1, 16), dpl = round_up(dd, 16);
-  const int ds_n = dpl / 16, ct_n = (c1 + 7) / 8;
-  __syncthreads();
-  load_slice(Wk, d.a - 1, dpl, kp, d.ldw, Wt);
-  const bf16* a0 = DY + (r0 + g) * d.ldy + t4 * 2;
-  const bf16* a1 = a0 + 8 * d.ldy;
-  uint32_t af[kMaxDS][4];
-#pragma unroll
-  for (int ds = 0; ds < kMaxDS; ++ds) {
-    if (ds < ds_n) {
-      af[ds][0] = *reinterpret_cast<const uint32_t*>(a0 + ds * 16);
-      af[ds][1] = *reinterpret_cast<const uint32_t*>(a1 + ds * 16);
-      af[ds][2] = *reinterpret_cast<const uint32_t*>(a0 + ds * 16 + 8);
-      af[ds][3] = *reinterpret_cast<const uint32_t*>(a1 + ds * 16 + 8);
-    }
-  }
-  float acc[kMaxCT][4];  // the running bf16 sum, held in fp32
-#pragma unroll
-  for (int ct = 0; ct < kMaxCT; ++ct) acc[ct][0] = acc[ct][1] = acc[ct][2] = acc[ct][3] = 0.f;
-  for (int i = 0; i < d.a; ++i) {
-    const int c = d.a - 1 - i;
-    const bf16* cur = Wt + (i & 1) * d.wbuf;
-    if (i + 1 < d.a) {
-      load_slice(Wk, c - 1, dpl, kp, d.ldw, Wt + ((i + 1) & 1) * d.wbuf);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float at0 = to_f(geo[(r0 + g) * d.gs + c]), at1 = to_f(geo[(r0 + g + 8) * d.gs + c]);
-#pragma unroll
-    for (int ct = 0; ct < kMaxCT; ++ct) {
-      if (ct < ct_n) {
-        float t[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int ds = 0; ds < kMaxDS; ++ds) {
-          if (ds < ds_n) {
-            uint32_t b0, b1;
-            ldsm_x2_t(b0, b1, cur + (ds * 16 + (lane & 15)) * d.ldw + ct * 8);
-            mma_bf16_16816(t, af[ds], b0, b1);
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float dmc = rnd<bf16>(__fmul_rn(q < 2 ? at0 : at1, t[q]));
-          acc[ct][q] = i == 0 ? dmc : rnd<bf16>(__fadd_rn(acc[ct][q], dmc));
-        }
-      }
-    }
-    __syncthreads();
-  }
+  if constexpr (VJP)
+    gmma::gemm_dm_vjp<kMaxCT>(ring, stream, masks, d.a, ds_n, DY, d.ldy, geo, d.gs, acc);
+  else
+    gmma::gemm_dm<kMaxCT>(ring, stream, masks, d.a, ds_n, DY, d.ldy, geo, d.gs, acc);
 #pragma unroll
   for (int ct = 0; ct < kMaxCT; ++ct) {
     if (ct < ct_n) {
@@ -618,7 +482,7 @@ __device__ void gate_vjp(T* Y, int dd, int dk, const int* sel, const int* invs, 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* dml = scratch + warp * kMaxD;
   const int dpad = round_up(dd, 16);
-  for (int r = warp; r < d.rows; r += kWarps) {
+  for (int r = warp; r < d.rows; r += blockDim.x >> 5) {
     T* y = Y + r * d.ldy;
     float direct[kMaxLanes];
 #pragma unroll
@@ -674,10 +538,19 @@ __device__ void build_inverse(const int* sel, int dk, int dd, int* invs, int* in
 }
 
 // layer-1 input row [hs_s || h_r || d2] into mrow, zero-padded to width (a
-// warp per row; s, rn < 0: zero rows)
+// warp per row; s, rn < 0: zero rows).  bf16 rows of even width go by 4-byte
+// cp.async (the caller waits for them before its block barrier).
 template <typename T>
 __device__ __forceinline__ void m0_row(const T* __restrict__ hs, const T* __restrict__ h, int f,
                                        int s, int rn, float d2, T* mrow, int width, int lane) {
+  if constexpr (sizeof(T) == 2) {
+    if (f % 2 == 0) {
+      gmma::gather_row(mrow, s >= 0 ? hs + (long)s * f : nullptr, f, lane);
+      gmma::gather_row(mrow + f, rn >= 0 ? h + (long)rn * f : nullptr, f, lane);
+      for (int j = 2 * f + lane; j < width; j += 32) mrow[j] = from_f<T>(j == 2 * f ? d2 : 0.f);
+      return;
+    }
+  }
   for (int j = lane; j < f; j += 32) {
     const T xs = s >= 0 ? hs[(long)s * f + j] : from_f<T>(0.f);
     const T xr = rn >= 0 ? h[(long)rn * f + j] : from_f<T>(0.f);
@@ -696,8 +569,8 @@ __device__ __forceinline__ int sender_of(const int* __restrict__ loc, const int*
   return (t >= 0 && t < d.n) ? t : -1;
 }
 
-// rows [rows][ld] of shared memory into out [N*K][width] (width a multiple of
-// 16 bytes), rows of real receivers only, 16 bytes per thread
+// rows [rows][ld] of shared memory into out [N*K][width] (width and ld
+// multiples of 16 bytes), rows of real receivers only, 16 bytes per thread
 template <typename T>
 __device__ __forceinline__ void store_rows(T* __restrict__ out, int width, const T* src, int ld,
                                            const int* rnode, long e0, const Dims& d) {
@@ -716,19 +589,24 @@ __device__ __forceinline__ void store_rows(T* __restrict__ out, int width, const
 // (senders through loc/gtab, rows of h; d_hs node-major), #12, #13 and #14
 // (Mode::kVjp) without (slot k of receiver i reads row k*N + i of hs [K, N, F]
 // and writes d_hs there).  kVjp replays as kReplay and differs in the dm
-// GEMMs' rounding (layer_bwd_vjp_mma); in fp32 that rounding is the identity,
-// so the fp32 instance of kVjp is kReplay's.
+// GEMMs' rounding (gmma::gemm_dm_vjp); in fp32 that rounding is the identity,
+// so the fp32 instance of kVjp is kReplay's.  bf16 weight streams, in the
+// order the chain takes them: layer 1's and layer 2's forward tiles (replay
+// modes only), then layer 2's and layer 1's dm tiles.  m0g may be null (the
+// untabled weight gradients of #12 / #13 rebuild m_0).
 enum class Mode { kResidual, kReplay, kVjp };
 
 template <typename T, bool MMA, Mode MODE, bool TAB>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(MMA ? kThreadsChainMma : kThreads, MMA ? 2 : 1)
 chain_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* __restrict__ geo2,
              const int* __restrict__ loc, const int* __restrict__ gtab,
              const T* __restrict__ w1, const int* __restrict__ sel1g,
              const T* __restrict__ w2, const int* __restrict__ sel2g, const T* __restrict__ y1in,
              const T* __restrict__ y2in, const T* __restrict__ dagg, T* __restrict__ dhs,
              T* __restrict__ dhr, T* __restrict__ dy1g, T* __restrict__ dy2g,
-             T* __restrict__ m0g, T* __restrict__ m1g, Dims d) {
+             T* __restrict__ m0g, T* __restrict__ m1g, const bf16* __restrict__ wpk,
+             const uint32_t* __restrict__ masks, const int* __restrict__ chunks,
+             gmma::Streams streams, Dims d) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* p = smem_raw;
   T* geo = reinterpret_cast<T*>(p);  // [rows][a+2]: attr, d2, mask
@@ -750,7 +628,23 @@ chain_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* __restr
   p += align16((long)sizeof(T) * d.rows * d.ldy);
   T* Y2 = reinterpret_cast<T*>(p);  // [rows][ldy]: y_2, then dy_2
   p += align16((long)sizeof(T) * d.rows * d.ldy);
-  T* Wsl = reinterpret_cast<T*>(p);
+  T* Wsl = reinterpret_cast<T*>(p);  // fp32: one component's weight slice
+  constexpr bool kReplays = MODE != Mode::kResidual;
+  gmma::Ring ring;  // bf16: the engine's ring of weight tiles
+  // bf16: the plan's masks (forward layers 1, 2, dm layers 1, 2), then its
+  // chunk table, in shared memory past the ring
+  uint32_t* mf1 = reinterpret_cast<uint32_t*>(p + gmma::ring_bytes(chain_stages(d)));
+  if constexpr (MMA) {
+    gmma::load_tables(masks, d.nmasks, chunks, gmma::total_chunks(streams), mf1);
+    __syncthreads();
+    ring.setup(p, chain_stages(d), wpk, reinterpret_cast<const int*>(mf1 + d.nmasks), streams);
+    ring.start(blockDim.x >> 5);  // the first GEMM's tiles load during the gathers
+  }
+  const int s_dm2 = kReplays ? 2 : 0, s_dm1 = s_dm2 + 1;  // stream of each GEMM
+  const int ks1 = (d.c1a + 15) / 16, ks2 = (d.c1b + 15) / 16;
+  const uint32_t* mf2 = mf1 + d.a * ks1;
+  const uint32_t* md1 = mf2 + d.a * ks2;
+  const uint32_t* md2 = md1 + d.a * ((d.da + 15) / 16);
 
   const int node0 = blockIdx.x * d.rb;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -766,18 +660,31 @@ chain_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* __restr
       const long e = (long)node * d.k + r % d.k;
       if constexpr (TAB) s = sender_of(loc, gtab, node, e, d);
       else s = (r % d.k) * d.n + node;  // the host checks K*N < 2^31
-      for (int q = 0; q < d.gs; ++q) geo[r * d.gs + q] = geo2[e * d.gs + q];
-    } else {
-      for (int q = 0; q < d.gs; ++q) geo[r * d.gs + q] = from_f<T>(0.f);
     }
     snd[r] = s;
     rnode[r] = rn;
+  }
+  {  // the block's geometry: its slot rows are contiguous in geo2; a batch
+     // of loads a thread before the stores
+    const int nreal = (d.n - node0 < d.rb ? d.n - node0 : d.rb) * d.k * d.gs;
+    const T* g = geo2 + (long)node0 * d.k * d.gs;
+    constexpr int kBatch = 8;
+    for (int w0 = threadIdx.x; w0 < d.rows * d.gs; w0 += kBatch * blockDim.x) {
+      T v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int w = w0 + u * blockDim.x;
+        v[u] = w < nreal ? g[w] : from_f<T>(0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (w0 + u * blockDim.x < d.rows * d.gs) geo[w0 + u * blockDim.x] = v[u];
+    }
   }
   __syncthreads();
   build_inverse(sel1, d.dk1, d.da, inv1s, inv1l);
   build_inverse(sel2, d.dk2, d.db, inv2s, inv2l);
   const long e0 = (long)node0 * d.k;  // the block's first slot row
-  constexpr bool kReplays = MODE != Mode::kResidual;
   if constexpr (!kReplays) {
     // ---- the saved y of both layers (zero rows past the receivers, zero pad)
     const int p1 = round_up(d.da, 16), p2 = round_up(d.db, 16);
@@ -792,24 +699,26 @@ chain_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* __restr
   }
   // ---- m_0 and m_1 of every slot row, for the weight-gradient kernel (and,
   // in replay mode, the forward of kernel #8 for these rows: y_1, y_2)
-  for (int r = warp; r < d.rows; r += kWarps)
+  const int nwarps = blockDim.x >> 5;
+  for (int r = warp; r < d.rows; r += nwarps)
     m0_row<T>(hs, h, f, snd[r], rnode[r], to_f(geo[r * d.gs + a]), M + r * d.ldm, d.ldm - 8,
               lane);
+  if (sizeof(T) == 2 && f % 2 == 0) gmma::cp_async_wait_all();
   __syncthreads();
-  store_rows<T>(m0g, d.kp0, M, d.ldm, rnode, e0, d);
+  if (m0g != nullptr) store_rows<T>(m0g, d.kp0, M, d.ldm, rnode, e0, d);
   if constexpr (kReplays) {
-    if constexpr (MMA) layer_fwd_mma(w1, d.c1a, d.da, d, M, Wsl, Y1, geo);
+    if constexpr (MMA) layer_fwd_mma(ring, 0, mf1, d.c1a, d.da, d, M, Y1, geo);
     else layer_fwd_fma<T>(w1, d.c1a, d.da, d, M, Wsl, Y1, geo);
   }
   __syncthreads();
-  for (int r = warp; r < d.rows; r += kWarps) {
+  for (int r = warp; r < d.rows; r += nwarps) {
     for (int j = lane; j < d.ldm - 8; j += 32)
       M[r * d.ldm + j] = from_f<T>(j < d.dk1 ? gate_out<T>(Y1 + r * d.ldy, sel1, j) : 0.f);
   }
   __syncthreads();
   store_rows<T>(m1g, d.kp1, M, d.ldm, rnode, e0, d);
   if constexpr (kReplays) {
-    if constexpr (MMA) layer_fwd_mma(w2, d.c1b, d.db, d, M, Wsl, Y2, geo);
+    if constexpr (MMA) layer_fwd_mma(ring, 1, mf2, d.c1b, d.db, d, M, Y2, geo);
     else layer_fwd_fma<T>(w2, d.c1b, d.db, d, M, Wsl, Y2, geo);
   }
   __syncthreads();
@@ -821,24 +730,18 @@ chain_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* __restr
                                      to_f(geo[r * d.gs + a + 1])));
   });
   __syncthreads();
-  for (int w = threadIdx.x; w < d.rows * d.ldg2; w += blockDim.x) {
-    const int r = w / d.ldg2, j = w % d.ldg2;
-    if (rnode[r] >= 0) dy2g[(e0 + r) * d.ldg2 + j] = Y2[r * d.ldy + j];
-  }
-  if constexpr (MMA && MODE == Mode::kVjp) layer_bwd_vjp_mma(w2, d.c1b, d.db, d, Y2, Wsl, M, geo);
-  else if constexpr (MMA) layer_bwd_mma(w2, d.c1b, d.db, d, Y2, Wsl, M, geo);
+  store_rows<T>(dy2g, d.ldg2, Y2, d.ldy, rnode, e0, d);
+  if constexpr (MMA)
+    layer_bwd_mma<MODE == Mode::kVjp>(ring, s_dm2, md2, d.c1b, d.db, d, Y2, M, geo);
   else layer_bwd_fma<T>(w2, d.c1b, d.db, d, Y2, Wsl, M, geo);
   __syncthreads();
   // ---- layer 1: the gate VJP at y_1 with dout = dm_1, then dm_0
   gate_vjp<T>(Y1, d.da, d.dk1, sel1, inv1s, inv1l, scratch, d,
               [&](int r, int j) { return to_f(M[r * d.ldm + j]); });
   __syncthreads();
-  for (int w = threadIdx.x; w < d.rows * d.ldg1; w += blockDim.x) {
-    const int r = w / d.ldg1, j = w % d.ldg1;
-    if (rnode[r] >= 0) dy1g[(e0 + r) * d.ldg1 + j] = Y1[r * d.ldy + j];
-  }
-  if constexpr (MMA && MODE == Mode::kVjp) layer_bwd_vjp_mma(w1, d.c1a, d.da, d, Y1, Wsl, M, geo);
-  else if constexpr (MMA) layer_bwd_mma(w1, d.c1a, d.da, d, Y1, Wsl, M, geo);
+  store_rows<T>(dy1g, d.ldg1, Y1, d.ldy, rnode, e0, d);
+  if constexpr (MMA)
+    layer_bwd_mma<MODE == Mode::kVjp>(ring, s_dm1, md1, d.c1a, d.da, d, Y1, M, geo);
   else layer_bwd_fma<T>(w1, d.c1a, d.da, d, Y1, Wsl, M, geo);
   __syncthreads();
   // ---- the sender cotangent of every slot, and the receivers' K-sums
@@ -856,38 +759,57 @@ chain_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* __restr
 }
 
 // ---------------------------------------------------------------------------
-// 2. The weight gradients: block (c, range, layer) sums m_l^T rnd(dy_l attr_c)
-// over its slot rows into the fp32 tile [C1][D] of partials[range].  The
-// chain wrote m_l and dy_l per slot row; chunks of 64 rows stream in by
-// cp.async into a double buffer (chunk i+1 loads while chunk i multiplies),
-// and dy is scaled by attr_c in shared memory.
-// TILES (kernel #14, JAX's AD of _layer_tp): range sp is the backward tile
-// tile0 + sp (trows slot rows), dya = dy_l attr_c stays fp32 and the tile's
-// fp32 sum is rounded to the data type, as the TPU kernel's per-grid-step
-// dW'.  In bf16 dya (a product of two bf16 values, 16 significant bits) is
-// split into hi = rnd(dya) and lo = rnd(dya - hi), both exact, and each
-// multiplies on the tensor cores: the products stay exact.
-template <typename T, bool MMA, bool TILES>
+// 2. The weight gradients: block (group, range, layer) sums m_l^T rnd(dy_l
+// attr_c) over its slot rows for the G components c = G group .. into the
+// fp32 tiles [C1][D] of partials[range].  The chain wrote dy_l and m_1 per
+// slot row (and m_0 where REBUILD is off); chunks of 64 rows stream in by
+// cp.async into NB buffers (NB - 1 chunks load while one multiplies), each
+// read once for all G components.  bf16 (G = kGroup): dy stays unscaled
+// in shared memory and each B fragment is scaled by attr_c in registers;
+// fp32 (G = 1): dy is scaled by attr_c in shared memory.
+// REBUILD (untabled, #12 / #13): layer 1's m_0 row of slot e = i*K + k is
+// [hs[k*N + i] || h[i] || d2 || 0], built here as the chain builds it.
+// TILES (kernel #14, JAX's AD of _layer_tp; G = 1): range sp is the backward
+// tile tile0 + sp (trows slot rows), dya = dy_l attr_c stays fp32 and the
+// tile's fp32 sum is rounded to the data type, as the TPU kernel's
+// per-grid-step dW'.  In bf16 dya (a product of two bf16 values, 16
+// significant bits) is split into hi = rnd(dya) and lo = rnd(dya - hi), both
+// exact, and each multiplies on the tensor cores: the products stay exact.
+
+// a pair of bf16 (low first) scaled by (s0, s1), each product rounded to bf16
+__device__ __forceinline__ uint32_t scale_pair(uint32_t v, float s0, float s1) {
+  const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+  __nv_bfloat162 o = __floats2bfloat162_rn(__fmul_rn(x.x, s0), __fmul_rn(x.y, s1));
+  return *reinterpret_cast<uint32_t*>(&o);
+}
+
+using gmma::cp_async4;
+
+template <typename T, bool MMA, bool TILES, int G, bool REBUILD>
 __global__ void __launch_bounds__(kThreads, 1)
 wgrad_kernel(const T* __restrict__ geo2, const T* __restrict__ m0g, const T* __restrict__ m1g,
-             const T* __restrict__ dy1, const T* __restrict__ dy2, float* __restrict__ partials,
-             Dims d) {
+             const T* __restrict__ dy1, const T* __restrict__ dy2, const T* __restrict__ hs,
+             const T* __restrict__ h, float* __restrict__ partials, Dims d) {
+  static_assert(G == 1 || (MMA && !TILES), "groups of components: bf16, one range each");
+  constexpr int NB = MMA && !TILES ? kWgradBufs : 2;  // chunk buffers
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* p = smem_raw;
-  T* Mb = reinterpret_cast<T*>(p);  // [2][kChunk][ldm]: m_l rows
-  p += 2 * align16((long)sizeof(T) * kChunk * d.ldm);
-  T* Zb = reinterpret_cast<T*>(p);  // [2][kChunk][ldz]: dy rows, then rnd(dy * attr_c)
-  p += 2 * align16((long)sizeof(T) * kChunk * d.ldz);
+  T* Mb = reinterpret_cast<T*>(p);  // [NB][kChunk][ldm]: m_l rows
+  p += NB * align16((long)sizeof(T) * kChunk * d.ldm);
+  T* Zb = reinterpret_cast<T*>(p);  // [NB][kChunk][ldz]: dy rows (fp32 / TILES: then scaled)
+  p += NB * align16((long)sizeof(T) * kChunk * d.ldz);
   T* Zlo = reinterpret_cast<T*>(p);  // TILES, bf16: [kChunk][ldz] the low halves
   if (TILES) p += align16((long)sizeof(T) * kChunk * d.ldz);
-  float* att = reinterpret_cast<float*>(p);  // [2][kChunk]: attr_c per row
+  float* att = reinterpret_cast<float*>(p);  // [NB][kChunk][G]: attr_c per row and component
 
-  const int c = blockIdx.x, sp = blockIdx.y, layer = blockIdx.z;
+  const int c0 = blockIdx.x * G, sp = blockIdx.y, layer = blockIdx.z;
+  const int ng = d.a - c0 < G ? d.a - c0 : G;  // components of this block
   const int c1 = layer ? d.c1b : d.c1a, dd = layer ? d.db : d.da;
   const int kp = layer ? d.kp1 : d.kp0;
   const T* mg = layer ? m1g : m0g;
   const T* dy = layer ? dy2 : dy1;
   const int ldg = layer ? d.ldg2 : d.ldg1;
+  const bool rebuild = REBUILD && layer == 0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long rows_total = (long)d.n * d.k;
   long r0, r1;  // this block's slot rows
@@ -900,28 +822,68 @@ wgrad_kernel(const T* __restrict__ geo2, const T* __restrict__ m0g, const T* __r
     r1 = nch * (sp + 1) / d.splits * kChunk;
     if (r1 > rows_total) r1 = rows_total;
   }
-  constexpr bool kSplit = TILES && MMA;  // dya as hi + lo
+  constexpr bool kSplit = TILES && MMA;            // dya as hi + lo
+  constexpr bool kRegScale = MMA && !TILES;        // dy scaled in registers
   const int dpl = round_up(dd, 16);
   const long mbuf = align16((long)sizeof(T) * kChunk * d.ldm) / sizeof(T);
   const long zbuf = align16((long)sizeof(T) * kChunk * d.ldz) / sizeof(T);
   constexpr int V = 16 / sizeof(T);
+  const int f = d.f;
+  // m_0 words of 4 bytes per feature row when they align (F even in bf16)
+  const bool words = sizeof(T) == 4 || f % 2 == 0;
+  const int fw = sizeof(T) == 4 ? f : f / 2;
 
-  // dy columns past its global row (ldg .. D16) stay zero in every buffer
-  const int nz = kSplit ? 3 : 2;
+  // dy columns past its global row (ldg .. D16) stay zero in every buffer;
+  // rebuilt m_0 rows: the columns past 2F+1 too
+  const int nz = kSplit ? NB + 1 : NB;
   for (int w = threadIdx.x; w < nz * kChunk * (dpl - ldg); w += blockDim.x) {
     const int b = w / (kChunk * (dpl - ldg)), x = w % (kChunk * (dpl - ldg));
-    T* Z = b < 2 ? Zb + b * zbuf : Zlo;
+    T* Z = b < NB ? Zb + b * zbuf : Zlo;
     Z[(x / (dpl - ldg)) * d.ldz + ldg + x % (dpl - ldg)] = from_f<T>(0.f);
   }
+  if (rebuild) {
+    const int tail = kp - (2 * f + 1);
+    for (int w = threadIdx.x; w < NB * kChunk * tail; w += blockDim.x) {
+      const int b = w / (kChunk * tail), x = w % (kChunk * tail);
+      Mb[b * mbuf + (x / tail) * d.ldm + 2 * f + 1 + x % tail] = from_f<T>(0.f);
+    }
+  }
   // the chunk of rows from e0 into buffer b: its m and dy rows by cp.async
-  // (zero rows past r1), its attr_c by plain loads
+  // (zero rows past r1), its attributes by plain loads
   auto load_chunk = [&](long e0, int b) {
     T* M = Mb + b * mbuf;
     T* Z = Zb + b * zbuf;
-    for (int w = threadIdx.x; w < kChunk * (kp / V); w += blockDim.x) {
-      const int r = w / (kp / V), q = (w % (kp / V)) * V;
-      if (e0 + r < r1) cp_async16(M + r * d.ldm + q, mg + (e0 + r) * kp + q);
-      else *reinterpret_cast<uint4*>(M + r * d.ldm + q) = make_uint4(0, 0, 0, 0);
+    if (rebuild) {  // a warp per row: [hs[k*N + i] || h[i] || d2] (the tail is zero)
+      for (int r = warp; r < kChunk; r += kWarps) {
+        const long e = e0 + r;
+        T* mrow = M + r * d.ldm;
+        if (e < r1) {
+          const long node = e / d.k, kk = e % d.k;
+          const T* xs = hs + (kk * d.n + node) * f;
+          const T* xr = h + node * f;
+          if (words) {
+            for (int q = lane; q < fw; q += 32) {
+              const int el = sizeof(T) == 4 ? q : 2 * q;  // the word's first element
+              cp_async4(mrow + el, xs + el);
+              cp_async4(mrow + f + el, xr + el);
+            }
+          } else {
+            for (int j = lane; j < f; j += 32) {
+              mrow[j] = xs[j];
+              mrow[f + j] = xr[j];
+            }
+          }
+          if (lane == 0) mrow[2 * f] = geo2[e * d.gs + d.a];
+        } else {
+          for (int j = lane; j <= 2 * f; j += 32) mrow[j] = from_f<T>(0.f);
+        }
+      }
+    } else {
+      for (int w = threadIdx.x; w < kChunk * (kp / V); w += blockDim.x) {
+        const int r = w / (kp / V), q = (w % (kp / V)) * V;
+        if (e0 + r < r1) cp_async16(M + r * d.ldm + q, mg + (e0 + r) * kp + q);
+        else *reinterpret_cast<uint4*>(M + r * d.ldm + q) = make_uint4(0, 0, 0, 0);
+      }
     }
     for (int w = threadIdx.x; w < kChunk * (ldg / V); w += blockDim.x) {
       const int r = w / (ldg / V), q = (w % (ldg / V)) * V;
@@ -929,10 +891,14 @@ wgrad_kernel(const T* __restrict__ geo2, const T* __restrict__ m0g, const T* __r
       else *reinterpret_cast<uint4*>(Z + r * d.ldz + q) = make_uint4(0, 0, 0, 0);
     }
     cp_async_commit();
-    if (threadIdx.x < kChunk) {
-      const long e = e0 + threadIdx.x;
-      att[b * kChunk + threadIdx.x] = e < r1 ? to_f(geo2[e * d.gs + c]) : 0.f;
-    }
+  };
+  // a thread's attribute of the chunk from e0 (row w / G, component w % G),
+  // loaded into a register and stored once the current chunk is multiplied
+  static_assert(kChunk * G <= kThreads, "one attribute a thread");
+  auto load_att = [&](long e0) -> float {
+    const int w = threadIdx.x;
+    const long e = e0 + w / G;
+    return w < kChunk * G && e < r1 && w % G < ng ? to_f(geo2[e * d.gs + c0 + w % G]) : 0.f;
   };
 
   // mma: warps 4 (C1) x 2 (D); fma: 4 x 4 work items over [C1][D]
@@ -941,34 +907,56 @@ wgrad_kernel(const T* __restrict__ geo2, const T* __restrict__ m0g, const T* __r
   const int wm = warp & 3, wn = warp >> 2;
   const int g = lane >> 2, t4 = lane & 3;
   const int mq_n = (c1 + 3) / 4, nq_n = (dd + 3) / 4, items = mq_n * nq_n;
-  float acc[MMA ? kWMT : kItW][MMA ? kWNT : kRT][MMA ? 4 : kCT];
+  float acc[G][MMA ? kWMT : kItW][MMA ? kWNT : kRT][MMA ? 4 : kCT];
 #pragma unroll
-  for (int x = 0; x < (MMA ? kWMT : kItW); ++x)
+  for (int gi = 0; gi < G; ++gi)
 #pragma unroll
-    for (int y = 0; y < (MMA ? kWNT : kRT); ++y)
+    for (int x = 0; x < (MMA ? kWMT : kItW); ++x)
 #pragma unroll
-      for (int z = 0; z < (MMA ? 4 : kCT); ++z) acc[x][y][z] = 0.f;
+      for (int y = 0; y < (MMA ? kWNT : kRT); ++y)
+#pragma unroll
+        for (int z = 0; z < (MMA ? 4 : kCT); ++z) acc[gi][x][y][z] = 0.f;
 
   __syncthreads();
-  if (r0 < r1) load_chunk(r0, 0);
+#ifdef GENERIC_WGRAD_CLOCKS
+  long long wg_t0 = clock64();
+#endif
+  // chunks 0 .. NB-2 first; at chunk i, chunk i + NB - 1 is issued into the
+  // buffer that chunk i - 1 used, so NB - 1 chunks are in flight
+  for (int j = 0; j < NB - 1; ++j) {
+    if (r0 + (long)j * kChunk < r1) {
+      load_chunk(r0 + (long)j * kChunk, j);
+      const float v = load_att(r0 + (long)j * kChunk);
+      if (threadIdx.x < kChunk * G) att[j * kChunk * G + threadIdx.x] = v;
+    }
+  }
   for (long e0 = r0; e0 < r1; e0 += kChunk) {
-    const int b = (int)(((e0 - r0) / kChunk) & 1);
-    if (e0 + kChunk < r1) {
-      load_chunk(e0 + kChunk, b ^ 1);
-      cp_async_wait<1>();
+    const int i = (int)((e0 - r0) / kChunk);
+    const int b = i % NB, bn = (i + NB - 1) % NB;
+    const long en = e0 + (long)(NB - 1) * kChunk;
+    const bool more = en < r1;
+    float att_next = 0.f;
+    if (more) {
+      load_chunk(en, bn);
+      att_next = load_att(en);
+      cp_async_wait<NB - 1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();  // the chunk has landed for every thread
+    WG_CLOCK(0);      // issuing the next chunk, waiting for this one
     const T* M = Mb + b * mbuf;
     T* Z = Zb + b * zbuf;
-    for (int w = threadIdx.x; w < kChunk * ldg; w += blockDim.x) {
-      const int r = w / ldg, j = w % ldg;
-      const float v = __fmul_rn(to_f(Z[r * d.ldz + j]), att[b * kChunk + r]);
-      Z[r * d.ldz + j] = from_f<T>(v);
-      if constexpr (kSplit) Zlo[r * d.ldz + j] = from_f<T>(__fsub_rn(v, rnd<T>(v)));
+    const float* at_b = att + b * kChunk * G;
+    if constexpr (!kRegScale) {
+      for (int w = threadIdx.x; w < kChunk * ldg; w += blockDim.x) {
+        const int r = w / ldg, j = w % ldg;
+        const float v = __fmul_rn(to_f(Z[r * d.ldz + j]), at_b[r]);
+        Z[r * d.ldz + j] = from_f<T>(v);
+        if constexpr (kSplit) Zlo[r * d.ldz + j] = from_f<T>(__fsub_rn(v, rnd<T>(v)));
+      }
+      __syncthreads();
     }
-    __syncthreads();
     if constexpr (MMA) {
 #pragma unroll
       for (int ks = 0; ks < kChunk / 16; ++ks) {
@@ -981,20 +969,43 @@ wgrad_kernel(const T* __restrict__ geo2, const T* __restrict__ m0g, const T* __r
             ldsm_x4_t(af[mi], M + (ks * 16 + i + (q >> 1) * 8) * d.ldm + mt * 16 + (q & 1) * 8);
           }
         }
+        // this lane's B rows: ks*16 + 2 t4 (+1) in b0, + 8 (+1) in b1
+        float at[G][4];
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi) {
+          const int rr = ks * 16 + t4 * 2;
+          at[gi][0] = at_b[rr * G + gi];
+          at[gi][1] = at_b[(rr + 1) * G + gi];
+          at[gi][2] = at_b[(rr + 8) * G + gi];
+          at[gi][3] = at_b[(rr + 9) * G + gi];
+        }
 #pragma unroll
         for (int ni = 0; ni < kWNT; ++ni) {
           const int nt = wn * ntw + ni;
           if (ni < ntw && nt < nt_n) {
             uint32_t b0, b1;
             ldsm_x2_t(b0, b1, Z + (ks * 16 + (lane & 15)) * d.ldz + nt * 8);
+            if constexpr (kRegScale) {
 #pragma unroll
-            for (int mi = 0; mi < kWMT; ++mi)
-              if (mi < mtw && wm * mtw + mi < mt_n) mma_bf16_16816(acc[mi][ni], af[mi], b0, b1);
-            if constexpr (kSplit) {
-              ldsm_x2_t(b0, b1, Zlo + (ks * 16 + (lane & 15)) * d.ldz + nt * 8);
+              for (int gi = 0; gi < G; ++gi) {
+                if (gi < ng) {
+                  const uint32_t s0 = scale_pair(b0, at[gi][0], at[gi][1]);
+                  const uint32_t s1 = scale_pair(b1, at[gi][2], at[gi][3]);
+#pragma unroll
+                  for (int mi = 0; mi < kWMT; ++mi)
+                    if (mi < mtw && wm * mtw + mi < mt_n) mma_bf16_16816(acc[gi][mi][ni], af[mi], s0, s1);
+                }
+              }
+            } else {
 #pragma unroll
               for (int mi = 0; mi < kWMT; ++mi)
-                if (mi < mtw && wm * mtw + mi < mt_n) mma_bf16_16816(acc[mi][ni], af[mi], b0, b1);
+                if (mi < mtw && wm * mtw + mi < mt_n) mma_bf16_16816(acc[0][mi][ni], af[mi], b0, b1);
+              if constexpr (kSplit) {
+                ldsm_x2_t(b0, b1, Zlo + (ks * 16 + (lane & 15)) * d.ldz + nt * 8);
+#pragma unroll
+                for (int mi = 0; mi < kWMT; ++mi)
+                  if (mi < mtw && wm * mtw + mi < mt_n) mma_bf16_16816(acc[0][mi][ni], af[mi], b0, b1);
+              }
             }
           }
         }
@@ -1014,45 +1025,54 @@ wgrad_kernel(const T* __restrict__ geo2, const T* __restrict__ m0g, const T* __r
 #pragma unroll
             for (int i = 0; i < kRT; ++i)
 #pragma unroll
-              for (int j = 0; j < kCT; ++j) acc[it][i][j] = fmaf(x[i], z[j], acc[it][i][j]);
+              for (int j = 0; j < kCT; ++j) acc[0][it][i][j] = fmaf(x[i], z[j], acc[0][it][i][j]);
           }
         }
       }
     }
+    WG_CLOCK(1);  // multiplying (thread 0's warp)
+    if (more && threadIdx.x < kChunk * G) att[bn * kChunk * G + threadIdx.x] = att_next;
     __syncthreads();  // every thread is done with buffer b before it refills
+    WG_CLOCK(2);      // the other warps' multiplies
   }
-  // ---- this range's tile of dW_layer[c] (rows c*C1 + m of W' [A*C1, D])
+  // ---- this range's tiles of dW_layer[c] (rows c*C1 + m of W' [A*C1, D])
   const long nw = (long)d.a * ((long)d.c1a * d.da + (long)d.c1b * d.db);
-  float* out = partials + sp * nw + (layer ? (long)d.a * d.c1a * d.da : 0L) + (long)c * c1 * dd;
-  if constexpr (MMA) {
 #pragma unroll
-    for (int mi = 0; mi < kWMT; ++mi) {
-      const int mt = wm * mtw + mi;
+  for (int gi = 0; gi < G; ++gi) {
+    if (gi >= ng) continue;
+    float* out = partials + sp * nw + (layer ? (long)d.a * d.c1a * d.da : 0L) +
+                 (long)(c0 + gi) * c1 * dd;
+    if constexpr (MMA) {
 #pragma unroll
-      for (int ni = 0; ni < kWNT; ++ni) {
-        const int nt = wn * ntw + ni;
-        if (mi < mtw && mt < mt_n && ni < ntw && nt < nt_n) {
+      for (int mi = 0; mi < kWMT; ++mi) {
+        const int mt = wm * mtw + mi;
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int m = mt * 16 + g + (q >> 1) * 8, n = nt * 8 + t4 * 2 + (q & 1);
-            if (m < c1 && n < dd) out[(long)m * dd + n] = TILES ? rnd<T>(acc[mi][ni][q])
-                                                                 : acc[mi][ni][q];
+        for (int ni = 0; ni < kWNT; ++ni) {
+          const int nt = wn * ntw + ni;
+          if (mi < mtw && mt < mt_n && ni < ntw && nt < nt_n) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int m = mt * 16 + g + (q >> 1) * 8, n = nt * 8 + t4 * 2 + (q & 1);
+              if (m < c1 && n < dd) out[(long)m * dd + n] = TILES ? rnd<T>(acc[gi][mi][ni][q])
+                                                                   : acc[gi][mi][ni][q];
+            }
           }
         }
       }
-    }
-  } else {
+    } else {
 #pragma unroll
-    for (int it = 0; it < kItW; ++it) {
-      const int item = threadIdx.x + it * blockDim.x;
-      if (item < items) {
-        const int m0 = (item / nq_n) * kRT, n0 = (item % nq_n) * kCT;
+      for (int it = 0; it < kItW; ++it) {
+        const int item = threadIdx.x + it * blockDim.x;
+        if (item < items) {
+          const int m0 = (item / nq_n) * kRT, n0 = (item % nq_n) * kCT;
 #pragma unroll
-        for (int i = 0; i < kRT; ++i)
+          for (int i = 0; i < kRT; ++i)
 #pragma unroll
-          for (int j = 0; j < kCT; ++j)
-            if (m0 + i < c1 && n0 + j < dd)
-              out[(long)(m0 + i) * dd + n0 + j] = TILES ? rnd<T>(acc[it][i][j]) : acc[it][i][j];
+            for (int j = 0; j < kCT; ++j)
+              if (m0 + i < c1 && n0 + j < dd)
+                out[(long)(m0 + i) * dd + n0 + j] = TILES ? rnd<T>(acc[gi][it][i][j])
+                                                          : acc[gi][it][i][j];
+        }
       }
     }
   }
@@ -1127,7 +1147,10 @@ long smem_for(int dtype, int k, int a, int c1a, int da, int c1b, int db) {
   const Dims d = make_dims(dtype == 1, 1, 0, k, a, 1, 1, c1a, da, da, c1b, db, db);
   if (d.rb < 1) return -1;
   const long cs = dtype == 1 ? chain_smem<bf16>(d) : chain_smem<float>(d);
-  const long ws = dtype == 1 ? wgrad_smem<bf16>(d, true) : wgrad_smem<float>(d, true);
+  const long ws = dtype == 1 ? (wgrad_smem<bf16>(d, 2, true) > wgrad_smem<bf16>(d, kWgradBufs, false)
+                                    ? wgrad_smem<bf16>(d, 2, true)
+                                    : wgrad_smem<bf16>(d, kWgradBufs, false))
+                             : wgrad_smem<float>(d, 2, true);
   return cs > ws ? cs : ws;
 }
 
@@ -1136,15 +1159,26 @@ cudaError_t set_smem(K kern, long smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// the chain's bf16 weight streams (kernels/tile_plan.py): wpk the packed
+// tiles, masks the plan's bit masks, the chunk table, the streams' chunks in
+// the order the chain takes them
+struct Packed {
+  const void* wpk;
+  const void* masks;
+  const void* chunks;
+  gmma::Streams streams;
+};
+
 template <typename T, bool MMA, Mode MODE, bool TAB>
-int launch_chain(const Dims& d, const void* const* in, void* const* out, cudaStream_t st) {
+int launch_chain(const Dims& d, const void* const* in, void* const* out, const Packed& pk,
+                 cudaStream_t st) {
   const long smem = chain_smem<T>(d);
   auto kern = chain_kernel<T, MMA, MODE, TAB>;
   cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (d.n + d.rb - 1) / d.rb;
   if (grid < 1) return 0;
-  kern<<<grid, kThreads, smem, st>>>(
+  kern<<<grid, MMA ? kThreadsChainMma : kThreads, smem, st>>>(
       static_cast<const T*>(in[0]), static_cast<const T*>(in[1]), static_cast<const T*>(in[2]),
       static_cast<const int*>(in[3]), static_cast<const int*>(in[4]),
       static_cast<const T*>(in[5]), static_cast<const int*>(in[6]),
@@ -1152,21 +1186,53 @@ int launch_chain(const Dims& d, const void* const* in, void* const* out, cudaStr
       static_cast<const T*>(in[9]), static_cast<const T*>(in[10]),
       static_cast<const T*>(in[11]), static_cast<T*>(out[0]),
       static_cast<T*>(out[1]), static_cast<T*>(out[2]), static_cast<T*>(out[3]),
-      static_cast<T*>(out[4]), static_cast<T*>(out[5]), d);
+      static_cast<T*>(out[4]), static_cast<T*>(out[5]), static_cast<const bf16*>(pk.wpk),
+      static_cast<const uint32_t*>(pk.masks), static_cast<const int*>(pk.chunks), pk.streams, d);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool MMA, bool TILES>
-int launch_wgrad(const Dims& d, const void* const* in, float* partials, cudaStream_t st) {
-  const long smem = wgrad_smem<T>(d, TILES);
-  auto kern = wgrad_kernel<T, MMA, TILES>;
+// the chain's streams: the forward tiles of both layers (replay modes), then
+// the dm tiles of layer 2 and layer 1; chunks of each
+Packed chain_packed(bool replays, const void* wpk, const void* masks, const void* chunks,
+                    int qf1, int qf2, int qd1, int qd2) {
+  Packed pk;
+  pk.wpk = wpk;
+  pk.masks = masks;
+  pk.chunks = chunks;
+  const int q[4] = {qf1, qf2, qd2, qd1};
+  pk.streams.n = replays ? 4 : 2;
+  for (int i = 0; i < 4; ++i) pk.streams.chunks[i] = i < pk.streams.n ? q[replays ? i : i + 2] : 0;
+  return pk;
+}
+
+// (a chunk holds at least one row: no more chunks than masks)
+bool packed_ok(int dtype, const Packed& pk, const Dims& d) {
+  if (dtype != 1) return true;
+  for (int i = 0; i < pk.streams.n; ++i)
+    if (pk.streams.chunks[i] < 0) return false;
+  return pk.wpk != nullptr && pk.masks != nullptr && pk.chunks != nullptr &&
+         gmma::total_chunks(pk.streams) <= d.nmasks;
+}
+
+// in: geo2, m0, m1, dy1, dy2, hs, h (hs non-null: m_0 rebuilt from hs, h)
+template <typename T, bool MMA, bool TILES, int G, bool REBUILD>
+int launch_wgrad_as(const Dims& d, const void* const* in, float* partials, cudaStream_t st) {
+  const long smem = wgrad_smem<T>(d, MMA && !TILES ? kWgradBufs : 2, TILES);
+  auto kern = wgrad_kernel<T, MMA, TILES, G, REBUILD>;
   cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   if ((long)d.n * d.k < 1 || d.splits < 1) return 0;
-  kern<<<dim3(d.a, d.splits, 2), kThreads, smem, st>>>(
+  kern<<<dim3((d.a + G - 1) / G, d.splits, 2), kThreads, smem, st>>>(
       static_cast<const T*>(in[0]), static_cast<const T*>(in[1]), static_cast<const T*>(in[2]),
-      static_cast<const T*>(in[3]), static_cast<const T*>(in[4]), partials, d);
+      static_cast<const T*>(in[3]), static_cast<const T*>(in[4]), static_cast<const T*>(in[5]),
+      static_cast<const T*>(in[6]), partials, d);
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool MMA, bool TILES, int G>
+int launch_wgrad(const Dims& d, const void* const* in, float* partials, cudaStream_t st) {
+  return in[5] != nullptr ? launch_wgrad_as<T, MMA, TILES, G, true>(d, in, partials, st)
+                          : launch_wgrad_as<T, MMA, TILES, G, false>(d, in, partials, st);
 }
 
 template <typename T>
@@ -1197,82 +1263,98 @@ long fused_message_generic_tab_bwd_smem_bytes(int dtype, int k, int a, int c1a, 
 
 // The chain: kernel #10 (replay = 1: y recomputed) or #9 (replay = 0:
 // y1in/y2in are the saved [N*K, D] ys).  dtype: 0 = float32 (FMA engine,
-// weights [A*C1][D]), 1 = bfloat16 (tensor cores, weights [A][D rounded up to
-// 16][C1 rounded up to 16]).  Outputs d_hs [N*K, F], d_hr [N, F], dy1/dy2
-// [N*K, D rounded up to 8] and, for the weight-gradient kernel, m0/m1 [N*K,
-// C1 rounded up to 16] (zero-padded).  Returns cudaGetLastError() after the
-// launch.
+// weights w1, w2 [A*C1][D]), 1 = bfloat16 (the engine of generic_mma.cuh:
+// wpk the listed 16x8 tiles of the streams the chain takes, forward layer 1
+// (qf1 chunks) and layer 2 (qf2) in replay mode, then dm layer 2 (qd2) and
+// layer 1 (qd1), chunks [total + 1] their first tiles; masks the plan's bit
+// masks; w1, w2 unused).  Outputs d_hs
+// [N*K, F], d_hr [N, F], dy1/dy2 [N*K, D rounded up to 8] and, for the
+// weight-gradient kernel, m0/m1 [N*K, C1 rounded up to 16] (zero-padded).
+// Returns cudaGetLastError() after the launch.
 int fused_message_generic_tab_bwd_chain(int dtype, int replay, const void* h, const void* geo2,
                                         const void* loc, const void* gtab, const void* w1,
                                         const void* sel1, const void* w2, const void* sel2,
                                         const void* y1in, const void* y2in, const void* dagg,
                                         void* dhs, void* dhr, void* dy1, void* dy2, void* m0,
-                                        void* m1,
-                                        int n, int f, int k, int a, int tile, int u, int c1a,
-                                        int da, int dk1, int c1b, int db, int dk2, void* stream) {
+                                        void* m1, const void* wpk, const void* masks,
+                                        const void* chunks, int n, int f, int k, int a, int tile,
+                                        int u, int c1a, int da, int dk1, int c1b, int db, int dk2,
+                                        int qf1, int qf2, int qd1, int qd2, void* stream) {
   if (smem_for(dtype, k, a, c1a, da, c1b, db) < 0) return (int)cudaErrorInvalidValue;
   if (dk1 > da || dk2 > db || dk1 != c1b || 2 * f + 1 != c1a) return (int)cudaErrorInvalidValue;
   if (!replay && (y1in == nullptr || y2in == nullptr)) return (int)cudaErrorInvalidValue;
+  const Packed pk = chain_packed(replay != 0, wpk, masks, chunks, qf1, qf2, qd1, qd2);
+  const Dims d = make_dims(dtype == 1, n, f, k, a, tile, u, c1a, da, dk1, c1b, db, dk2);
+  if (!packed_ok(dtype, pk, d) || m0 == nullptr) return (int)cudaErrorInvalidValue;
   const void* in[12] = {h, h, geo2, loc, gtab, w1, sel1, w2, sel2, y1in, y2in, dagg};
   void* out[6] = {dhs, dhr, dy1, dy2, m0, m1};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dims d = make_dims(dtype == 1, n, f, k, a, tile, u, c1a, da, dk1, c1b, db, dk2);
   if (dtype == 0)
-    return replay ? launch_chain<float, false, Mode::kReplay, true>(d, in, out, st)
-                  : launch_chain<float, false, Mode::kResidual, true>(d, in, out, st);
-  return replay ? launch_chain<bf16, true, Mode::kReplay, true>(d, in, out, st)
-                : launch_chain<bf16, true, Mode::kResidual, true>(d, in, out, st);
+    return replay ? launch_chain<float, false, Mode::kReplay, true>(d, in, out, pk, st)
+                  : launch_chain<float, false, Mode::kResidual, true>(d, in, out, pk, st);
+  return replay ? launch_chain<bf16, true, Mode::kReplay, true>(d, in, out, pk, st)
+                : launch_chain<bf16, true, Mode::kResidual, true>(d, in, out, pk, st);
 }
 
 // The untabled chain: kernel #12 (mode = 0, y1in/y2in the saved ys), #13
 // (mode = 1, replay) or #14's chain (mode = 2, replay with JAX's AD rounding
-// of the dm GEMMs).  hs [K, N, F] slot-major sender rows, h [N, F] the
-// receivers; d_hs comes out [K, N, F], the other outputs as above.
+// of the dm GEMMs; its dm streams hold the components last first).  hs [K,
+// N, F] slot-major sender rows, h [N, F] the receivers; d_hs comes out [K, N,
+// F], the other outputs as above; m0 may be null (the weight gradients
+// rebuild it).
 int fused_message_generic_bwd_chain(int dtype, int mode, const void* hs, const void* h,
                                     const void* geo2, const void* w1, const void* sel1,
                                     const void* w2, const void* sel2, const void* y1in,
                                     const void* y2in, const void* dagg, void* dhs, void* dhr,
-                                    void* dy1, void* dy2, void* m0, void* m1, int n, int f,
-                                    int k, int a, int c1a, int da, int dk1, int c1b, int db,
-                                    int dk2, void* stream) {
+                                    void* dy1, void* dy2, void* m0, void* m1, const void* wpk,
+                                    const void* masks, const void* chunks, int n, int f, int k,
+                                    int a, int c1a, int da, int dk1, int c1b, int db, int dk2,
+                                    int qf1, int qf2, int qd1, int qd2, void* stream) {
   if (smem_for(dtype, k, a, c1a, da, c1b, db) < 0) return (int)cudaErrorInvalidValue;
   if (dk1 > da || dk2 > db || dk1 != c1b || 2 * f + 1 != c1a) return (int)cudaErrorInvalidValue;
   if (mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
   if (mode == 0 && (y1in == nullptr || y2in == nullptr)) return (int)cudaErrorInvalidValue;
   if ((long)k * n > 2147483647L) return (int)cudaErrorInvalidValue;
+  const Packed pk = chain_packed(mode != 0, wpk, masks, chunks, qf1, qf2, qd1, qd2);
+  const Dims d = make_dims(dtype == 1, n, f, k, a, 1, 0, c1a, da, dk1, c1b, db, dk2);
+  if (!packed_ok(dtype, pk, d)) return (int)cudaErrorInvalidValue;
   const void* in[12] = {hs, h, geo2, nullptr, nullptr, w1, sel1, w2, sel2, y1in, y2in, dagg};
   void* out[6] = {dhs, dhr, dy1, dy2, m0, m1};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dims d = make_dims(dtype == 1, n, f, k, a, 1, 0, c1a, da, dk1, c1b, db, dk2);
   if (dtype == 0)
-    return mode ? launch_chain<float, false, Mode::kReplay, false>(d, in, out, st)
-                : launch_chain<float, false, Mode::kResidual, false>(d, in, out, st);
-  if (mode == 2) return launch_chain<bf16, true, Mode::kVjp, false>(d, in, out, st);
-  return mode ? launch_chain<bf16, true, Mode::kReplay, false>(d, in, out, st)
-              : launch_chain<bf16, true, Mode::kResidual, false>(d, in, out, st);
+    return mode ? launch_chain<float, false, Mode::kReplay, false>(d, in, out, pk, st)
+                : launch_chain<float, false, Mode::kResidual, false>(d, in, out, pk, st);
+  if (mode == 2) return launch_chain<bf16, true, Mode::kVjp, false>(d, in, out, pk, st);
+  return mode ? launch_chain<bf16, true, Mode::kReplay, false>(d, in, out, pk, st)
+              : launch_chain<bf16, true, Mode::kResidual, false>(d, in, out, pk, st);
 }
 
 // The weight gradients: partials [splits, NW] fp32, NW = A (C1a Da + C1b Db),
 // each row the sum over one range of slot rows (W' layouts [A*C1, D] one after
-// the other), from the chain's m0/m1 and dy1/dy2 and the attributes in geo2.
+// the other), from the chain's m1, dy1/dy2, the attributes in geo2 and m0:
+// the chain's rows, or (hs non-null, untabled) rebuilt from hs [K, N, F] and
+// h [N, F].  group: the components per block, the kernel's (bf16 2, fp32 1).
 int fused_message_generic_tab_bwd_wgrad(int dtype, const void* geo2, const void* m0,
                                         const void* m1, const void* dy1, const void* dy2,
-                                        void* partials, int n, int k, int a, int c1a, int da,
-                                        int c1b, int db, int splits, void* stream) {
+                                        const void* hs, const void* h, void* partials, int n,
+                                        int f, int k, int a, int c1a, int da, int c1b, int db,
+                                        int splits, int group, void* stream) {
   if (smem_for(dtype, k, a, c1a, da, c1b, db) < 0 || splits < 1) return (int)cudaErrorInvalidValue;
-  Dims d = make_dims(dtype == 1, n, 0, k, a, 1, 1, c1a, da, da, c1b, db, db);
+  if (group != (dtype == 1 ? kGroup : 1) || 2 * f + 1 != c1a) return (int)cudaErrorInvalidValue;
+  if (hs == nullptr ? m0 == nullptr : h == nullptr) return (int)cudaErrorInvalidValue;
+  Dims d = make_dims(dtype == 1, n, f, k, a, 1, 1, c1a, da, da, c1b, db, db);
   d.splits = splits;
-  const void* in[5] = {geo2, m0, m1, dy1, dy2};
+  const void* in[7] = {geo2, m0, m1, dy1, dy2, hs, h};
   float* part = static_cast<float*>(partials);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_wgrad<float, false, false>(d, in, part, st);
-  return launch_wgrad<bf16, true, false>(d, in, part, st);
+  if (dtype == 0) return launch_wgrad<float, false, false, 1>(d, in, part, st);
+  return launch_wgrad<bf16, true, false, kGroup>(d, in, part, st);
 }
 
 // Kernel #14's weight gradients: partials [ntiles, NW] fp32, row t the sum over
 // the slot rows of backward tile tile0 + t (tile_rows of them; the last tile
 // may be short) of m_l^T (dy_l attr_c), dya in fp32, rounded to the data type;
-// layouts as above.
+// layouts as above (m0 from the chain).
 int fused_message_generic_bwd_wgrad_tiles(int dtype, const void* geo2, const void* m0,
                                           const void* m1, const void* dy1, const void* dy2,
                                           void* partials, int n, int k, int a, int c1a, int da,
@@ -1286,11 +1368,11 @@ int fused_message_generic_bwd_wgrad_tiles(int dtype, const void* geo2, const voi
   d.splits = ntiles;
   d.trows = tile_rows;
   d.tile0 = tile0;
-  const void* in[5] = {geo2, m0, m1, dy1, dy2};
+  const void* in[7] = {geo2, m0, m1, dy1, dy2, nullptr, nullptr};
   float* part = static_cast<float*>(partials);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_wgrad<float, false, true>(d, in, part, st);
-  return launch_wgrad<bf16, true, true>(d, in, part, st);
+  if (dtype == 0) return launch_wgrad_as<float, false, true, 1, false>(d, in, part, st);
+  return launch_wgrad_as<bf16, true, true, 1, false>(d, in, part, st);
 }
 
 // The table sum: d_hu [N/tile * U, F] from d_hs [N*K, F] and loc [N, K].
@@ -1303,5 +1385,16 @@ int fused_message_generic_tab_bwd_table(int dtype, const void* dhs, const void* 
   if (dtype == 1) return launch_table<bf16>(dhs, loc_i, dhu, n, f, k, tile, u, st);
   return (int)cudaErrorInvalidValue;
 }
+
+#ifdef GENERIC_WGRAD_CLOCKS
+// the weight-gradient blocks' cycles (wait, own multiply, barrier), summed
+// over every block since the last call (then 0)
+int generic_wgrad_cycles(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, wgrad_cycles, sizeof(wgrad_cycles));
+  if (err != cudaSuccess) return (int)err;
+  static const unsigned long long zero[4] = {0, 0, 0, 0};
+  return (int)cudaMemcpyToSymbol(wgrad_cycles, zero, sizeof(zero));
+}
+#endif
 
 }  // extern "C"

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``_build/lib<name>-<source hash>.so`` at first use, then
-loaded with ``ctypes``.  The hash in the file name means a library is never
-stale.  Nothing is built or loaded when a module is imported.
+loaded with ``ctypes``.  The hash covers the source and every header of
+``csrc/`` that it includes (``#include "x.cuh"``, and theirs), so a library
+is never stale.  Nothing is built or loaded when a module is imported.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -38,9 +40,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> list:
+    """``csrc/<name>.cu`` and the headers of ``csrc/`` it includes, directly
+    or through another, each once, in the order first met."""
+    out, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        todo += [CSRC / inc.decode() for inc in _INCLUDE.findall(path.read_bytes())
+                 if (CSRC / inc.decode()).is_file()]
+    return out
+
+
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD / f"lib{name}-{digest}.so"
+    h = hashlib.sha1()
+    for path in _sources(name):
+        h.update(path.read_bytes())
+    return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_libraries(names: Iterable[str]) -> Dict[str, dict]:

@@ -65,7 +65,9 @@ tile order, so in bf16 the tile changes dW'.  In fp32 #14 is #13's function.
   ``csrc/fused_message_generic_tab_bwd.cu``, one source for each direction
   with a compile-time sender addressing and, in the backward, a chain mode,
   and the fixed-order reduction of ``csrc/fused_message_tab_bwd.cu``) or
-  raises.
+  raises.  In bf16 their GEMMs multiply only the folded weights' nonzero
+  tiles (``cfg.plan``, ``kernels/tile_plan.py``; a config without a plan
+  takes every tile), bitwise the dense product.
 - ``generic_sender_epilogue``: the split reverse-table gather-sum of
   ``call_tab_bwd``, in its order.
 - ``FusedMessageGenericTabled``, ``FusedMessageGenericUntabled`` and
@@ -78,7 +80,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -88,6 +90,7 @@ from ..ops.gather_scatter import gather_km, reverse_slot_gather_sum_km
 from ..ops.tensor_product import TensorProduct
 from .build import CudaKernel
 from .fused_message import _DTYPE_CODE, _MAX_SMEM, _cuda_args, tab_bwd_reduce
+from .tile_plan import TilePlan, fold_structure
 
 __all__ = ["GenericConfig", "FusedMessageGeneric", "FusedMessageGenericTabled",
            "fused_message_generic_tabled", "generic_tab_fwd", "generic_tab_fwd_plain",
@@ -97,7 +100,8 @@ __all__ = ["GenericConfig", "FusedMessageGeneric", "FusedMessageGenericTabled",
            "generic_sender_epilogue", "generic_fwd", "generic_fwd_plain", "generic_bwd",
            "generic_bwd_plain", "generic_bwd_kernels", "generic_bwd_chain",
            "generic_bwd_vjp", "generic_bwd_vjp_plain", "generic_bwd_vjp_kernels",
-           "generic_bwd_vjp_wgrad", "generic_bwd_vjp_wgrad_plain",
+           "generic_bwd_vjp_wgrad", "generic_bwd_vjp_wgrad_plain", "generic_bwd_wgrad",
+           "generic_bwd_wgrad_plain",
            "FusedMessageGenericUntabled", "FusedMessageGenericSym", "GENERIC_TAB_FWD",
            "GENERIC_TAB_BWD_RES", "GENERIC_TAB_BWD_REP", "GENERIC_TAB_BWD_WGRAD",
            "GENERIC_TAB_BWD_TABLE", "GENERIC_FWD", "GENERIC_BWD_RES", "GENERIC_BWD_REP",
@@ -108,12 +112,15 @@ _FWD_SRC = "fused_message_generic_tab_fwd"
 _FWD_SIGS = {
     # dtype, k, a, c1a, da, c1b, db -> bytes (negative: widths not taken)
     "fused_message_generic_tab_fwd_smem_bytes": (ctypes.c_long, [_I] * 7),
-    # dtype, 11 pointers (h, geo2, loc, gtab, w1, sel1, w2, sel2, out, y1, y2;
-    # y1/y2 null: no save), n, f, k, a, tile, u, c1a, da, dk1, c1b, db, dk2, stream
-    "fused_message_generic_tab_fwd": (_I, [_I] + [_P] * 11 + [_I] * 12 + [_P]),
-    # dtype, 10 pointers (hs, h, geo2, w1, sel1, w2, sel2, out, y1, y2; y1/y2
-    # null: no save), n, f, k, a, c1a, da, dk1, c1b, db, dk2, stream
-    "fused_message_generic_fwd": (_I, [_I] + [_P] * 10 + [_I] * 10 + [_P]),
+    # dtype, 14 pointers (h, geo2, loc, gtab, w1, sel1, w2, sel2, out, y1, y2;
+    # y1/y2 null: no save; bf16: the packed tiles, the plan's masks, the chunk
+    # table), n, f, k, a, tile, u, c1a, da, dk1, c1b, db, dk2, the two forward
+    # streams' chunks, stream
+    "fused_message_generic_tab_fwd": (_I, [_I] + [_P] * 14 + [_I] * 14 + [_P]),
+    # dtype, 13 pointers (hs, h, geo2, w1, sel1, w2, sel2, out, y1, y2; y1/y2
+    # null: no save; packed tiles, masks, chunk table), n, f, k, a, c1a, da,
+    # dk1, c1b, db, dk2, the two forward streams' chunks, stream
+    "fused_message_generic_fwd": (_I, [_I] + [_P] * 13 + [_I] * 12 + [_P]),
 }
 # kernel #8 (tabled) and #11 (untabled): one source, one kernel template
 GENERIC_TAB_FWD = CudaKernel("fused_message_generic_tab_fwd", _FWD_SIGS, source_name=_FWD_SRC)
@@ -122,19 +129,22 @@ _BWD_SRC = "fused_message_generic_tab_bwd"
 _BWD_SIGS = {
     # dtype, k, a, c1a, da, c1b, db -> bytes of the chain kernel (negative: not taken)
     "fused_message_generic_tab_bwd_smem_bytes": (ctypes.c_long, [_I] * 7),
-    # dtype, replay, 17 pointers (h, geo2, loc, gtab, w1, sel1, w2, sel2, y1 in,
-    # y2 in, d_agg, d_hs, d_hr, dy1, dy2, m0, m1), n, f, k, a, tile, u, c1a, da,
-    # dk1, c1b, db, dk2, stream
-    "fused_message_generic_tab_bwd_chain": (_I, [_I, _I] + [_P] * 17 + [_I] * 12 + [_P]),
-    # dtype, 6 pointers (geo2, m0, m1, dy1, dy2, partials), n, k, a, c1a, da, c1b,
-    # db, splits, stream
-    "fused_message_generic_tab_bwd_wgrad": (_I, [_I] + [_P] * 6 + [_I] * 8 + [_P]),
+    # dtype, replay, 20 pointers (h, geo2, loc, gtab, w1, sel1, w2, sel2, y1 in,
+    # y2 in, d_agg, d_hs, d_hr, dy1, dy2, m0, m1, packed tiles, masks, chunk
+    # table), n, f, k, a, tile, u, c1a, da, dk1, c1b, db, dk2, chunks of the
+    # forward streams of layers 1 and 2 and of the dm streams of layers 1 and
+    # 2, stream
+    "fused_message_generic_tab_bwd_chain": (_I, [_I, _I] + [_P] * 20 + [_I] * 16 + [_P]),
+    # dtype, 8 pointers (geo2, m0, m1, dy1, dy2, hs, h, partials; hs, h null:
+    # m0 read), n, f, k, a, c1a, da, c1b, db, splits, group, stream
+    "fused_message_generic_tab_bwd_wgrad": (_I, [_I] + [_P] * 8 + [_I] * 10 + [_P]),
     # dtype, d_hs, loc, d_hu, n, f, k, tile, u, stream
     "fused_message_generic_tab_bwd_table": (_I, [_I, _P, _P, _P] + [_I] * 5 + [_P]),
-    # dtype, mode (0 residual, 1 replay, 2 vjp), 16 pointers (hs, h, geo2, w1,
-    # sel1, w2, sel2, y1 in, y2 in, d_agg, d_hs, d_hr, dy1, dy2, m0, m1), n, f,
-    # k, a, c1a, da, dk1, c1b, db, dk2, stream
-    "fused_message_generic_bwd_chain": (_I, [_I, _I] + [_P] * 16 + [_I] * 10 + [_P]),
+    # dtype, mode (0 residual, 1 replay, 2 vjp), 19 pointers (hs, h, geo2, w1,
+    # sel1, w2, sel2, y1 in, y2 in, d_agg, d_hs, d_hr, dy1, dy2, m0 (null: not
+    # written), m1, packed tiles, masks, chunk table), n, f, k, a, c1a, da,
+    # dk1, c1b, db, dk2, the four streams' chunks as the tabled chain, stream
+    "fused_message_generic_bwd_chain": (_I, [_I, _I] + [_P] * 19 + [_I] * 14 + [_P]),
     # dtype, 6 pointers (geo2, m0, m1, dy1, dy2, partials), n, k, a, c1a, da, c1b,
     # db, tile_rows, tile0, ntiles, stream
     "fused_message_generic_bwd_wgrad_tiles": (_I, [_I] + [_P] * 6 + [_I] * 10 + [_P]),
@@ -171,6 +181,9 @@ class GenericConfig:
     u: int  # compact sender-table size
     a: int  # attribute width (C2 = (lmax+1)^2)
     widths: Tuple[Tuple[int, int, int], ...]  # per message layer (C1, D, dk)
+    # the folded weights' nonzero tiles (kernels/tile_plan.py); None: every
+    # tile, for weights of unknown structure
+    plan: Optional[TilePlan] = field(default=None, compare=False, repr=False)
 
     @property
     def f(self) -> int:  # hidden feature width: layer 1 takes 2F+1
@@ -405,12 +418,55 @@ def generic_tab_bwd_plain(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence, 
 
 def _mma_layout(w, a: int, c1: int, d: int, dmul: int = 8):
     """[A*C1, D] -> [A, D rounded up to dmul, C1 rounded up to 16], transposed
-    and zero-padded: the tensor-core engines' weight layout, one contiguous
-    slice per attribute component (the backward pads D to 16)."""
+    and zero-padded: each attribute component's W^T as the tensor cores read
+    it (the dense reference of the tile plan's packed tiles)."""
     dp, kp = -(-d // dmul) * dmul, -(-c1 // 16) * 16
     out = w.new_zeros((a, dp, kp))
     out[:, :d, :c1] = w.view(a, c1, d).transpose(1, 2)
     return out
+
+
+_DENSE_PLANS: dict = {}
+_FWD_STREAMS = (("fwd", 0, False), ("fwd", 1, False))
+
+
+def _tile_plan(cfg: GenericConfig) -> TilePlan:
+    """The plan of cfg's folded weights, or one of every tile when cfg has
+    none (weights of unknown structure: the same engine, no tile skipped)."""
+    key = (cfg.a, tuple((c1, d) for c1, d, _ in cfg.widths))
+    plan = cfg.plan
+    if plan is None:
+        plan = _DENSE_PLANS.get(key)
+        if plan is None:
+            plan = _DENSE_PLANS[key] = TilePlan.dense(*key)
+    if (plan.a, plan.widths) != key:
+        raise ValueError(f"the tile plan is for A={plan.a}, widths {plan.widths}, not {key}")
+    return plan
+
+
+def _fwd_weights(cfg: GenericConfig, ws):
+    """The forward kernel's weight arguments (w1, w2, packed tiles, masks,
+    chunk table, chunks of each layer's stream): fp32 the weights as they
+    are, bf16 the plan's forward tiles of both layers."""
+    if ws[0].dtype != torch.bfloat16:
+        return ws[0], ws[1], None, None, None, 0, 0
+    wpk, masks, table, per = _tile_plan(cfg).args(ws, _FWD_STREAMS)
+    return None, None, wpk, masks, table, *per
+
+
+def _chain_weights(cfg: GenericConfig, ws, replay: bool, vjp: bool = False):
+    """The chain kernel's weight arguments (w1, w2, packed tiles, masks,
+    chunk table, chunks of the forward streams of both layers and of the dm
+    streams of both): bf16 the streams in the chain's order, the forward
+    tiles of both layers (replay only), then the dm tiles of layer 2 and
+    layer 1 (components last first for #14's ``vjp``)."""
+    if ws[0].dtype != torch.bfloat16:
+        return ws[0], ws[1], None, None, None, 0, 0, 0, 0
+    streams = (_FWD_STREAMS if replay else ()) + (("dm", 1, vjp), ("dm", 0, vjp))
+    wpk, masks, table, per = _tile_plan(cfg).args(ws, streams)
+    qf = per[:2] if replay else (0, 0)
+    qd2, qd1 = per[-2:]
+    return None, None, wpk, masks, table, *qf, qd1, qd2
 
 
 def _widths2(cfg: GenericConfig):
@@ -446,29 +502,36 @@ def generic_tab_fwd(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence, sels: 
     n, f = h.shape
     code = _DTYPE_CODE[h.dtype]
     lib = _fwd_lib(GENERIC_TAB_FWD, cfg, h)
-    w1, w2 = ws
-    if h.dtype == torch.bfloat16:  # the tensor-core engine's weight layout
-        w1, w2 = _mma_layout(w1, cfg.a, c1a, da), _mma_layout(w2, cfg.a, c1b, db)
+    w1, w2, wpk, masks, chunks, q1, q2 = _fwd_weights(cfg, ws)
     out = torch.empty((n, dk2), dtype=h.dtype, device=h.device)
     ys = [torch.empty((n * cfg.k, d), dtype=h.dtype, device=h.device) for d in (da, db)] \
         if save else None
     stream = torch.cuda.current_stream(h.device).cuda_stream
-    ptrs = [x.data_ptr() for x in (h, geo2, loc, gtab, w1, sels[0], w2, sels[1], out)]
+    ptr = lambda x: None if x is None else x.data_ptr()
+    ptrs = [ptr(x) for x in (h, geo2, loc, gtab, w1, sels[0], w2, sels[1], out)]
     ptrs += [y.data_ptr() for y in ys] if save else [None, None]
     with torch.cuda.device(h.device):
         rc = lib.fused_message_generic_tab_fwd(
-            code, *ptrs, n, f, cfg.k, cfg.a, cfg.tile, cfg.u, c1a, da, dk1, c1b, db, dk2, stream)
+            code, *ptrs, ptr(wpk), ptr(masks), ptr(chunks), n, f, cfg.k, cfg.a, cfg.tile, cfg.u,
+            c1a, da, dk1, c1b, db, dk2, q1, q2, stream)
     if rc != 0:
         raise RuntimeError(f"fused_message_generic_tab_fwd launch failed with CUDA error {rc}")
     GENERIC_TAB_FWD.launches += 1
     return (out, ys) if save else out
 
 
+# attribute components per block of the weight-gradient kernel (the CUDA
+# source's kGroup in bf16; one in fp32)
+WGRAD_GROUP = {torch.bfloat16: 2, torch.float32: 1}
+
+
 def _wgrad_splits(cfg: GenericConfig, rows: int, sms: int) -> int:
     """Row ranges of the weight-gradient kernel (its partials' leading dim):
-    the fewest that make its layers x A x ranges blocks whole waves of one
-    block per SM on ``sms`` SMs, at most one per 1024 slot rows (A=9 on 132
-    SMs: 22 ranges, 396 blocks, three waves)."""
+    the fewest that make layers x A x ranges whole waves of ``sms``, at most
+    one per 1024 slot rows (A=9 on 132 SMs: 22 ranges).  The ranges do not
+    depend on how many components a block takes (two in bf16: 220 blocks at
+    A=9), so each range's partial sums, and dW', are bitwise those of one
+    component a block."""
     per_range = len(cfg.widths) * cfg.a
     return max(1, min(math.lcm(per_range, sms) // per_range, rows // 1024))
 
@@ -492,15 +555,16 @@ def _launched(name: str, rc: int) -> None:
         raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
 
 
-def _chain_buffers(cfg: GenericConfig, h):
+def _chain_buffers(cfg: GenericConfig, h, m0: bool = True):
     """The chain's outputs but d_hs: d_hr [N, F], dy_1/dy_2 [N*K, D rounded up
-    to 8] and m_0/m_1 [N*K, C1 rounded up to 16], in h's dtype."""
+    to 8] and m_0 (None without ``m0``)/m_1 [N*K, C1 rounded up to 16], in h's
+    dtype."""
     (c1a, da, _), (c1b, db, _) = cfg.widths
     n, f = h.shape
     rows = n * cfg.k
     new = lambda *shape: torch.empty(shape, dtype=h.dtype, device=h.device)
     return (new(n, f), new(rows, -(-da // 8) * 8), new(rows, -(-db // 8) * 8),
-            new(rows, -(-c1a // 16) * 16), new(rows, -(-c1b // 16) * 16))
+            new(rows, -(-c1a // 16) * 16) if m0 else None, new(rows, -(-c1b // 16) * 16))
 
 
 def generic_tab_bwd_chain(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence, sels: Sequence,
@@ -517,20 +581,19 @@ def generic_tab_bwd_chain(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence, 
     (c1a, da, dk1), (c1b, db, dk2) = cfg.widths
     n, f = h.shape
     replay = ys is None
-    w1, w2 = ws
-    if h.dtype == torch.bfloat16:  # the tensor-core engines' layout, D padded to 16
-        w1, w2 = _mma_layout(w1, cfg.a, c1a, da, 16), _mma_layout(w2, cfg.a, c1b, db, 16)
+    w1, w2, wpk, masks, chunks, *nchunks = _chain_weights(cfg, ws, replay)
     dev, dt = h.device, h.dtype
     d_hs = torch.empty((n * cfg.k, f), dtype=dt, device=dev)
     d_hr, dy1, dy2, m0, m1 = _chain_buffers(cfg, h)
     y_in = (None, None) if replay else tuple(y.data_ptr() for y in ys)
+    ptr = lambda x: None if x is None else x.data_ptr()
     with torch.cuda.device(dev):
         rc = lib.fused_message_generic_tab_bwd_chain(
             _DTYPE_CODE[dt], int(replay),
-            *(x.data_ptr() for x in (h, geo2, loc, gtab, w1, sels[0], w2, sels[1])), *y_in,
-            *(x.data_ptr() for x in (d_agg, d_hs, d_hr, dy1, dy2, m0, m1)),
-            n, f, cfg.k, cfg.a, cfg.tile, cfg.u,
-            c1a, da, dk1, c1b, db, dk2, torch.cuda.current_stream(dev).cuda_stream)
+            *(ptr(x) for x in (h, geo2, loc, gtab, w1, sels[0], w2, sels[1])), *y_in,
+            *(x.data_ptr() for x in (d_agg, d_hs, d_hr, dy1, dy2, m0, m1)), ptr(wpk), ptr(masks),
+            ptr(chunks), n, f, cfg.k, cfg.a, cfg.tile, cfg.u,
+            c1a, da, dk1, c1b, db, dk2, *nchunks, torch.cuda.current_stream(dev).cuda_stream)
     _launched("fused_message_generic_tab_bwd_chain", rc)
     (GENERIC_TAB_BWD_REP if replay else GENERIC_TAB_BWD_RES).launches += 1
     return d_hs, d_hr, dy1, dy2, m0, m1
@@ -556,26 +619,64 @@ def generic_tab_bwd_wgrad_plain(cfg: GenericConfig, geo2, m0, m1, dy1, dy2, spli
     return torch.stack(out)
 
 
+def _wgrad_launch(cfg: GenericConfig, geo2, m0, m1, dy1, dy2, hs, h, splits: int):
+    """The weight-gradient kernel on CUDA tensors: m_0 from the chain, or
+    (``hs`` given) rebuilt from hs and h.  Partials [splits, NW] fp32."""
+    _cuda_args(geo2, tuple(x for x in (geo2, m0, m1, dy1, dy2, hs, h) if x is not None))
+    lib = _bwd_lib(cfg, geo2)
+    (c1a, da, _), (c1b, db, _) = cfg.widths
+    rows = m1.shape[0]
+    partials = torch.empty((splits, cfg.a * (c1a * da + c1b * db)), dtype=torch.float32,
+                           device=geo2.device)
+    ptr = lambda x: None if x is None else x.data_ptr()
+    with torch.cuda.device(geo2.device):
+        rc = lib.fused_message_generic_tab_bwd_wgrad(
+            _DTYPE_CODE[geo2.dtype], *(ptr(x) for x in (geo2, m0, m1, dy1, dy2, hs, h, partials)),
+            rows // cfg.k, cfg.f, cfg.k, cfg.a, c1a, da, c1b, db, splits,
+            WGRAD_GROUP[geo2.dtype], torch.cuda.current_stream(geo2.device).cuda_stream)
+    _launched("fused_message_generic_tab_bwd_wgrad", rc)
+    GENERIC_TAB_BWD_WGRAD.launches += 1
+    return partials
+
+
 def generic_tab_bwd_wgrad(cfg: GenericConfig, geo2, m0, m1, dy1, dy2, splits: int):
     """The weight-gradient kernel (CUDA tensors; the plain version for CPU
     tensors): partials [splits, NW] fp32 from the chain's outputs."""
     if geo2.device.type == "cpu":
         return generic_tab_bwd_wgrad_plain(cfg, geo2, m0, m1, dy1, dy2, splits)
-    _cuda_args(geo2, (geo2, m0, m1, dy1, dy2))
-    lib = _bwd_lib(cfg, geo2)
-    (c1a, da, _), (c1b, db, _) = cfg.widths
-    rows = m0.shape[0]
-    partials = torch.empty((splits, cfg.a * (c1a * da + c1b * db)), dtype=torch.float32,
-                           device=geo2.device)
-    with torch.cuda.device(geo2.device):
-        rc = lib.fused_message_generic_tab_bwd_wgrad(
-            _DTYPE_CODE[geo2.dtype],
-            *(x.data_ptr() for x in (geo2, m0, m1, dy1, dy2, partials)),
-            rows // cfg.k, cfg.k, cfg.a, c1a, da, c1b, db, splits,
-            torch.cuda.current_stream(geo2.device).cuda_stream)
-    _launched("fused_message_generic_tab_bwd_wgrad", rc)
-    GENERIC_TAB_BWD_WGRAD.launches += 1
-    return partials
+    return _wgrad_launch(cfg, geo2, m0, m1, dy1, dy2, None, None, splits)
+
+
+def _m0_rows(cfg: GenericConfig, hs, h, geo2):
+    """The untabled m_0 of every slot row e = i*K + k as the weight-gradient
+    kernel rebuilds it: [hs[k, i] || h[i] || d2 || 0], [N*K, C1 rounded up
+    to 16] in h's dtype (the chain's m_0 rows, bit for bit)."""
+    n, f = h.shape
+    k, a = cfg.k, cfg.a
+    e = torch.arange(n * k, device=h.device)
+    node, kk = e // k, e % k
+    m0 = h.new_zeros((n * k, -(-(2 * f + 1) // 16) * 16))
+    m0[:, :f] = hs.reshape(k * n, f)[kk * n + node]
+    m0[:, f:2 * f] = h[node]
+    m0[:, 2 * f] = geo2.reshape(n * k, a + 2)[:, a]
+    return m0
+
+
+def generic_bwd_wgrad_plain(cfg: GenericConfig, hs, h, geo2, m1, dy1, dy2, splits: int):
+    """The untabled weight-gradient kernel's function by PyTorch ops: m_0
+    rebuilt from hs, h and geo2 (``_m0_rows``), then as
+    ``generic_tab_bwd_wgrad_plain``."""
+    return generic_tab_bwd_wgrad_plain(cfg, geo2, _m0_rows(cfg, hs, h, geo2), m1, dy1, dy2,
+                                       splits)
+
+
+def generic_bwd_wgrad(cfg: GenericConfig, hs, h, geo2, m1, dy1, dy2, splits: int):
+    """The untabled weight-gradient kernel (CUDA tensors; the plain version
+    for CPU tensors): partials [splits, NW] fp32 from the chain's m_1 and dy
+    rows, m_0 rebuilt from hs [K, N, F] and h [N, F] (#12, #13)."""
+    if geo2.device.type == "cpu":
+        return generic_bwd_wgrad_plain(cfg, hs, h, geo2, m1, dy1, dy2, splits)
+    return _wgrad_launch(cfg, geo2, None, m1, dy1, dy2, hs, h, splits)
 
 
 def generic_tab_bwd_table_plain(cfg: GenericConfig, d_hs, loc):
@@ -729,18 +830,17 @@ def generic_fwd(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Sequence,
     (c1a, da, dk1), (c1b, db, dk2) = _widths2(cfg)
     n, f = h.shape
     lib = _fwd_lib(GENERIC_FWD, cfg, h)
-    w1, w2 = ws
-    if h.dtype == torch.bfloat16:  # the tensor-core engine's weight layout
-        w1, w2 = _mma_layout(w1, cfg.a, c1a, da), _mma_layout(w2, cfg.a, c1b, db)
+    w1, w2, wpk, masks, chunks, q1, q2 = _fwd_weights(cfg, ws)
     out = torch.empty((n, dk2), dtype=h.dtype, device=h.device)
     ys = [torch.empty((n * cfg.k, d), dtype=h.dtype, device=h.device) for d in (da, db)] \
         if save else None
-    ptrs = [x.data_ptr() for x in (hs, h, geo2, w1, sels[0], w2, sels[1], out)]
+    ptr = lambda x: None if x is None else x.data_ptr()
+    ptrs = [ptr(x) for x in (hs, h, geo2, w1, sels[0], w2, sels[1], out)]
     ptrs += [y.data_ptr() for y in ys] if save else [None, None]
     with torch.cuda.device(h.device):
         rc = lib.fused_message_generic_fwd(
-            _DTYPE_CODE[h.dtype], *ptrs, n, f, cfg.k, cfg.a, c1a, da, dk1, c1b, db, dk2,
-            torch.cuda.current_stream(h.device).cuda_stream)
+            _DTYPE_CODE[h.dtype], *ptrs, ptr(wpk), ptr(masks), ptr(chunks), n, f, cfg.k, cfg.a,
+            c1a, da, dk1, c1b, db, dk2, q1, q2, torch.cuda.current_stream(h.device).cuda_stream)
     _launched("fused_message_generic_fwd", rc)
     GENERIC_FWD.launches += 1
     return (out, ys) if save else out
@@ -753,7 +853,8 @@ def generic_bwd_chain(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Seque
     JAX's AD of the layer: fp32 dya, each component's dm rounded, the
     components added in the dtype).  Returns ``(d_hs [K, N, F], d_hr [N, F],
     dy_1, dy_2, m_0, m_1)``, the last four per slot row for the
-    weight-gradient kernel, as the tabled chain writes them."""
+    weight-gradient kernel, as the tabled chain writes them; m_0 only for
+    ``vjp`` (else None: #12's and #13's weight gradients rebuild it)."""
     _check_untab_inputs(cfg, hs, h, geo2, ws, sels)
     _check_bwd_inputs(cfg, h, d_agg, ys)
     if vjp and ys is not None:
@@ -764,31 +865,32 @@ def generic_bwd_chain(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Seque
     n, f = h.shape
     replay = ys is None
     mode = 2 if vjp else int(replay)
-    w1, w2 = ws
-    if h.dtype == torch.bfloat16:  # the tensor-core engines' layout, D padded to 16
-        w1, w2 = _mma_layout(w1, cfg.a, c1a, da, 16), _mma_layout(w2, cfg.a, c1b, db, 16)
+    w1, w2, wpk, masks, chunks, *nchunks = _chain_weights(cfg, ws, replay, vjp)
     d_hs = torch.empty((cfg.k, n, f), dtype=h.dtype, device=h.device)
-    d_hr, dy1, dy2, m0, m1 = _chain_buffers(cfg, h)
+    d_hr, dy1, dy2, m0, m1 = _chain_buffers(cfg, h, m0=vjp)
     y_in = (None, None) if replay else tuple(y.data_ptr() for y in ys)
+    ptr = lambda x: None if x is None else x.data_ptr()
     with torch.cuda.device(h.device):
         rc = lib.fused_message_generic_bwd_chain(
             _DTYPE_CODE[h.dtype], mode,
-            *(x.data_ptr() for x in (hs, h, geo2, w1, sels[0], w2, sels[1])), *y_in,
-            *(x.data_ptr() for x in (d_agg, d_hs, d_hr, dy1, dy2, m0, m1)),
-            n, f, cfg.k, cfg.a, c1a, da, dk1, c1b, db, dk2,
+            *(ptr(x) for x in (hs, h, geo2, w1, sels[0], w2, sels[1])), *y_in,
+            *(ptr(x) for x in (d_agg, d_hs, d_hr, dy1, dy2, m0, m1, wpk, masks, chunks)),
+            n, f, cfg.k, cfg.a, c1a, da, dk1, c1b, db, dk2, *nchunks,
             torch.cuda.current_stream(h.device).cuda_stream)
     _launched("fused_message_generic_bwd_chain", rc)
     (GENERIC_BWD_VJP if vjp else GENERIC_BWD_REP if replay else GENERIC_BWD_RES).launches += 1
     return d_hs, d_hr, dy1, dy2, m0, m1
 
 
-def _reduce_wgrad(cfg: GenericConfig, geo2, m0, m1, dy1, dy2):
-    """[dW'_1, dW'_2] fp32 from the chain's rows: the weight-gradient kernel
-    at whole waves on the card's SMs, then the fixed-order reduction of
+def _reduce_wgrad(cfg: GenericConfig, geo2, m0, m1, dy1, dy2, hs=None, h=None):
+    """[dW'_1, dW'_2] fp32 from the chain's rows (m_0 rebuilt from ``hs`` and
+    ``h`` when given): the weight-gradient kernel at whole waves on the
+    card's SMs, then the fixed-order reduction of
     ``csrc/fused_message_tab_bwd.cu``."""
     sms = torch.cuda.get_device_properties(geo2.device).multi_processor_count
-    partials = generic_tab_bwd_wgrad(cfg, geo2, m0, m1, dy1, dy2,
-                                     _wgrad_splits(cfg, m0.shape[0], sms))
+    splits = _wgrad_splits(cfg, m1.shape[0], sms)
+    partials = (generic_tab_bwd_wgrad(cfg, geo2, m0, m1, dy1, dy2, splits) if hs is None
+                else generic_bwd_wgrad(cfg, hs, h, geo2, m1, dy1, dy2, splits))
     dw = tab_bwd_reduce(partials)
     (c1a, da, _), (c1b, db, _) = cfg.widths
     n1 = cfg.a * c1a * da
@@ -799,9 +901,10 @@ def generic_bwd_kernels(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Seq
                         ys: Optional[Sequence] = None):
     """The CUDA counterpart of ``generic_bwd_plain`` (same arguments and
     results): the untabled chain (#12 with ``ys``, #13 without), the weight-
-    gradient kernel, then the fixed-order reduction."""
-    d_hs, d_hr, dy1, dy2, m0, m1 = generic_bwd_chain(cfg, hs, h, geo2, ws, sels, d_agg, ys)
-    return d_hs, d_hr, _reduce_wgrad(cfg, geo2, m0, m1, dy1, dy2)
+    gradient kernel (m_0 rebuilt from hs and h), then the fixed-order
+    reduction."""
+    d_hs, d_hr, dy1, dy2, _, m1 = generic_bwd_chain(cfg, hs, h, geo2, ws, sels, d_agg, ys)
+    return d_hs, d_hr, _reduce_wgrad(cfg, geo2, None, m1, dy1, dy2, hs, h)
 
 
 def generic_bwd(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Sequence, d_agg,
@@ -1166,11 +1269,26 @@ class FusedMessageGeneric:
             self._gate_fast.append(g.fast_tables())
         self.out_dim = self.layers[-1].gate.irreps_out.dim
         self._sels = {}
+        self._plan: Optional[TilePlan] = None
+
+    def tile_plan(self) -> TilePlan:
+        """The nonzero 16x8 tiles of the folded weights (``fold`` at seeded
+        random parameters), built once: what the bf16 kernels multiply."""
+        if self._plan is None:
+            nz = fold_structure(self.layers, [perm for perm, _, _ in self._gate_fast])
+            self._plan = TilePlan(self.layers[0].tp.in2_dim,
+                                  [(layer.tp.in1_dim, layer.tp.out_dim) for layer in self.layers],
+                                  nz)
+        return self._plan
 
     def config(self, a: int, u: int) -> GenericConfig:
+        """The kernels' configuration at attribute width ``a``, with the tile
+        plan of these layers' folded weights (their ``fold``: the kernels
+        take no other weights with it)."""
         widths = tuple((layer.tp.in1_dim, layer.tp.out_dim, dk)
                        for layer, (_, _, dk) in zip(self.layers, self._gate_fast))
-        return GenericConfig(k=self.k, tile=self.tile, u=u, a=a, widths=widths)
+        plan = self.tile_plan() if a == self.layers[0].tp.in2_dim else None
+        return GenericConfig(k=self.k, tile=self.tile, u=u, a=a, widths=widths, plan=plan)
 
     def flops_per_slot(self) -> int:
         """Multiply-adds x 2 that one slot needs: the nonzeros of every

@@ -1,0 +1,251 @@
+"""Before/after A/B of the untabled generic message kernels #11 and #13 at one
+config-5 node block, for two checkouts of the port on one card.
+
+    python scalable_e3_gnn_torch/kernels/generic_ab.py [--repo DIR] [--tag NAME]
+
+Imports ``scalable_e3_gnn_torch`` from DIR (default: the checkout holding
+this file), makes the same bf16 inputs from a seed on the card (400,000
+receivers of a 10M-node cloud, K=16, the lmax=2 message layers of
+``chip_smoke.py``'s config 5, random senders, attributes and masks, the last
+37 receivers without a valid slot), runs #11 (without and with save) and
+#13 (whole; its chain; its weight gradients) and prints one JSON line: a
+SHA-256 of every output's bytes (two checkouts computed the same bits where
+the hashes agree), the device time per launch of every kernel by
+torch.profiler, CUDA-event times per call, peak memory, and the card's name
+and power limit.  Compare two checkouts only within one call, in turns
+(parent, change, change, parent).
+
+``--clocks`` (this checkout's sources only) builds both sources once more
+with ``GENERIC_FWD_CLOCKS`` / ``GENERIC_WGRAD_CLOCKS`` into a scratch
+directory and prints #11's cycles per block in each phase (rows and gather,
+layer 1, gate, layer 2, K-sum; each ending at a block barrier) and the
+weight-gradient kernel's cycles per block waiting for its chunks, in thread
+0's multiplies and at the barrier after them, read by ``clock64`` on thread
+0.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+N_BLOCK = 400_000  # config 5: 10M points in 25 node blocks
+N_CLOUD = 10_000_000
+K = 16
+HIDDEN = "24x0e+12x1o+6x2e"
+SEED = 11
+
+
+def _digest(t) -> str:
+    return hashlib.sha256(t.contiguous().view(-1).view(torch.uint8).cpu().numpy()).hexdigest()
+
+
+def _events(fn, iters: int, warmup: int = 1) -> float:
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _device(fn, iters: int) -> dict:
+    """Per CUDA kernel name: device ms per launch and launches per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
+            out[ev.key[:80]] = dict(ms=ev.self_device_time_total / 1e3 / ev.count,
+                                    per_call=ev.count / iters)
+    return out
+
+
+def _profiling_lib(name: str, macro: str, out_dir: Path):
+    import ctypes
+    import subprocess as sp
+
+    from scalable_e3_gnn_torch.kernels import build
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib_path = out_dir / f"lib{name}-{macro.lower()}.so"
+    sp.run([build._nvcc(), *build.NVCC_FLAGS, f"-D{macro}", "-o", str(lib_path),
+            str(build.CSRC / f"{name}.cu")], check=True, capture_output=True)
+    return ctypes.CDLL(str(lib_path))
+
+
+def wgrad_clocks(fmg, cfg, hs, h, geo2, m1, dy1, dy2, splits: int, out_dir: Path) -> dict:
+    """The untabled weight-gradient kernel's cycles per block, from the
+    profiling build: waiting for chunks, thread 0's multiplies, the barrier
+    after them."""
+    import ctypes
+
+    lib = _profiling_lib("fused_message_generic_tab_bwd", "GENERIC_WGRAD_CLOCKS", out_dir)
+    fn = lib.fused_message_generic_tab_bwd_wgrad
+    fn.restype, fn.argtypes = fmg._BWD_SIGS["fused_message_generic_tab_bwd_wgrad"]
+    lib.generic_wgrad_cycles.restype = ctypes.c_int
+    lib.generic_wgrad_cycles.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+    (c1a, da, _), (c1b, db, _) = cfg.widths
+    rows = m1.shape[0]
+    part = torch.empty((splits, cfg.a * (c1a * da + c1b * db)), dtype=torch.float32,
+                       device=h.device)
+    call = lambda: fn(1, geo2.data_ptr(), None, m1.data_ptr(), dy1.data_ptr(), dy2.data_ptr(),
+                      hs.data_ptr(), h.data_ptr(), part.data_ptr(), rows // cfg.k, cfg.f, cfg.k,
+                      cfg.a, c1a, da, c1b, db, splits, fmg.WGRAD_GROUP[torch.bfloat16],
+                      torch.cuda.current_stream().cuda_stream)
+    cyc = (ctypes.c_ulonglong * 4)()
+    assert call() == 0
+    torch.cuda.synchronize()
+    lib.generic_wgrad_cycles(cyc)
+    assert call() == 0
+    torch.cuda.synchronize()
+    assert lib.generic_wgrad_cycles(cyc) == 0
+    blocks = 2 * -(-cfg.a // fmg.WGRAD_GROUP[torch.bfloat16]) * splits
+    chunks = -(-rows // 64)
+    names = ("wait", "multiply", "barrier")
+    return dict(cycles_per_block={names[i]: cyc[i] / blocks for i in range(3)},
+                chunks_per_block=chunks / splits,
+                partials_equal=bool(torch.equal(part, fmg.generic_bwd_wgrad(
+                    cfg, hs, h, geo2, m1, dy1, dy2, splits))))
+
+
+def phase_clocks(fmg, cfg, hs, h, geo2, ws, sels, out_dir: Path) -> dict:
+    """#11's cycles per block in each phase, from the profiling build."""
+    import ctypes
+
+    lib = _profiling_lib("fused_message_generic_tab_fwd", "GENERIC_FWD_CLOCKS", out_dir)
+    restype, argtypes = fmg._FWD_SIGS["fused_message_generic_fwd"]
+    lib.fused_message_generic_fwd.restype, lib.fused_message_generic_fwd.argtypes = \
+        restype, argtypes
+    lib.generic_fwd_phase_cycles.restype = ctypes.c_int
+    lib.generic_fwd_phase_cycles.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+    (c1a, da, dk1), (c1b, db, dk2) = cfg.widths
+    n, f = h.shape
+    _, _, wpk, masks, chunks, q1, q2 = fmg._fwd_weights(cfg, ws)
+    out = torch.empty((n, dk2), dtype=h.dtype, device=h.device)
+    cyc = (ctypes.c_ulonglong * 8)()
+    ptrs = [hs.data_ptr(), h.data_ptr(), geo2.data_ptr(), None, sels[0].data_ptr(), None,
+            sels[1].data_ptr(), out.data_ptr(), None, None, wpk.data_ptr(), masks.data_ptr(),
+            chunks.data_ptr()]
+    call = lambda: lib.fused_message_generic_fwd(
+        1, *ptrs, n, f, cfg.k, cfg.a, c1a, da, dk1, c1b, db, dk2, q1, q2,
+        torch.cuda.current_stream().cuda_stream)
+    assert call() == 0
+    torch.cuda.synchronize()
+    lib.generic_fwd_phase_cycles(cyc)  # drop the warm-up
+    iters = 3
+    for _ in range(iters):
+        assert call() == 0
+    torch.cuda.synchronize()
+    assert lib.generic_fwd_phase_cycles(cyc) == 0
+    blocks = iters * -(-n // (64 // cfg.k))
+    names = ("", "rows_gather", "layer1", "gate1", "layer2", "ksum_store")
+    per_block = {names[i]: cyc[i] / blocks for i in range(1, 6)}
+    return dict(cycles_per_block=per_block, total=sum(per_block.values()),
+                fwd_out_equal=bool(torch.equal(out, fmg.generic_fwd(cfg, hs, h, geo2, ws, sels))))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--repo", default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--clocks", default="", help="scratch directory for the profiling build")
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.repo).resolve()))
+    import scalable_e3_gnn_torch
+    from scalable_e3_gnn_torch.kernels import fused_message_generic as fmg
+    from scalable_e3_gnn_torch.models.segnn import SEGNN
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    model = SEGNN("2x0e+1x1o", HIDDEN, "1x1o", lmax_attr=2, num_layers=1, layout="cm",
+                  use_pallas=True, device=dev, generator=torch.Generator().manual_seed(0))
+    kern = fmg.FusedMessageGeneric(model.layers[0].message_layers, K, 200, residual_bwd=False)
+    cfg = kern.config(9, 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n = N_BLOCK
+    h_ext = torch.randn((N_CLOUD, cfg.f), generator=gen, device=dev).to(bf)
+    senders = torch.randint(0, N_CLOUD, (n, K), generator=gen, device=dev)
+    hs = h_ext[senders.t()].contiguous()
+    h = h_ext[:n].contiguous()
+    del h_ext, senders
+    geo = torch.randn((n, K, cfg.a + 2), generator=gen, device=dev)
+    geo[..., cfg.a] = torch.rand((n, K), generator=gen, device=dev) * 0.01
+    geo[..., cfg.a + 1] = (torch.rand((n, K), generator=gen, device=dev) > 0.1).float()
+    geo[n - 37:, :, cfg.a + 1] = 0.0
+    geo2 = geo.reshape(n, -1).to(bf).contiguous()
+    del geo
+    d_agg = torch.randn((n, cfg.out_dim), generator=gen, device=dev).to(bf)
+    ws = [w.contiguous() for w in kern.fold(bf)]
+    sels = kern.selections(dev)
+    a = (hs, h, geo2, ws, sels)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    new = hasattr(fmg, "generic_bwd_wgrad")
+    splits = fmg._wgrad_splits(cfg, n * K, sms)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        agg = fmg.generic_fwd(cfg, *a)
+        agg_s, ys = fmg.generic_fwd(cfg, *a, save=True)
+        d_hs, d_hr, dws = fmg.generic_bwd_kernels(cfg, *a, d_agg)
+        _, _, dy1, dy2, m0, m1 = fmg.generic_bwd_chain(cfg, *a, d_agg)
+
+        def wgrad():
+            if new:
+                return fmg.generic_bwd_wgrad(cfg, hs, h, geo2, m1, dy1, dy2, splits)
+            return fmg.generic_tab_bwd_wgrad(cfg, geo2, m0, m1, dy1, dy2, splits)
+
+        part = wgrad()
+        torch.cuda.synchronize()
+        digests = {nm: _digest(t) for nm, t in (
+            ("agg", agg), ("agg_save", agg_s), ("y1", ys[0]), ("y2", ys[1]), ("d_hs", d_hs),
+            ("d_hr", d_hr), ("dw1", dws[0]), ("dw2", dws[1]), ("dy1", dy1), ("dy2", dy2),
+            ("m1", m1))}
+        digests["wgrad_sum"] = _digest(part.sum(0))
+        del agg_s, ys, d_hs, d_hr, dws
+        times = dict(
+            fwd_ms=_events(lambda: fmg.generic_fwd(cfg, *a), 5),
+            save_ms=_events(lambda: fmg.generic_fwd(cfg, *a, save=True), 3),
+            rep_ms=_events(lambda: fmg.generic_bwd_kernels(cfg, *a, d_agg), 3),
+            chain_ms=_events(lambda: fmg.generic_bwd_chain(cfg, *a, d_agg), 3),
+            wgrad_ms=_events(wgrad, 3))
+        device = dict(fwd=_device(lambda: fmg.generic_fwd(cfg, *a), 5),
+                      rep=_device(lambda: fmg.generic_bwd_kernels(cfg, *a, d_agg), 3))
+        clocks = dict(fwd=phase_clocks(fmg, cfg, *a, Path(args.clocks)),
+                      wgrad=wgrad_clocks(fmg, cfg, hs, h, geo2, m1, dy1, dy2, splits,
+                                         Path(args.clocks))) if args.clocks else None
+    print(json.dumps(dict(
+        tag=args.tag, package=scalable_e3_gnn_torch.__file__, card=card, block=n, k=K,
+        splits=splits, valid_slots=int((geo2.view(n, K, -1)[..., -1] > 0).sum()),
+        plan_tiles=dict(fwd=cfg.plan.counts("fwd"), dm=cfg.plan.counts("dm"))
+        if getattr(cfg, "plan", None) is not None else None,
+        digests=digests, times=times, device=device, phase_clocks=clocks,
+        sm_clock_mhz=subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                                     "--format=csv,noheader"], capture_output=True, text=True,
+                                    timeout=60).stdout.strip(),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -32,6 +32,8 @@ conftest):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -514,6 +516,91 @@ def test_untabled_bwd_residual_equals_replay_and_reruns(dev, dtype):
     flat = [[r[0], r[1], *r[2]] for r in runs]
     for other in flat[1:]:
         assert all(torch.equal(x, y) for x, y in zip(flat[0], other, strict=True))
+
+
+def _planned(cfg, args, d_agg):
+    """The untabled problem with its folded layers' tile plan (``kern.config``)
+    beside a copy of the config without one (every tile: the dense product)."""
+    assert cfg.plan is not None
+    return cfg, dataclasses.replace(cfg, plan=None), args, d_agg
+
+
+@pytest.mark.parametrize("hidden,k,n", GENERIC_WIDTHS)
+def test_untabled_sparse_tiles_equal_every_tile_bitwise(dev, hidden, k, n):
+    """bf16 #11 (with and without save), #12, #13 and #14 over the plan's
+    nonzero tiles are bitwise the same kernels over every tile (a skipped
+    tile adds exactly 0), and within the plain versions' limits; the widths
+    include an odd F (35: m_0 rebuilt element by element)."""
+    cfg, dense, args, d_agg = _planned(*_vjp_problem(dev, hidden, k, n, torch.bfloat16))
+    assert sum(cfg.plan.counts("fwd")) < sum(fmg._tile_plan(dense).counts("fwd"))
+    bt = 40
+    with torch.no_grad():
+        for c in (cfg, dense):
+            c_out = [fmg.generic_fwd(c, *args), *fmg.generic_fwd(c, *args, save=True)[1]]
+            ys = c_out[1:]
+            c_out += [*fmg.generic_bwd(c, *args, d_agg)[:2], *fmg.generic_bwd(c, *args, d_agg)[2]]
+            c_out += [*fmg.generic_bwd(c, *args, d_agg, ys=ys)[:2],
+                      *fmg.generic_bwd(c, *args, d_agg, ys=ys)[2]]
+            v = fmg.generic_bwd_vjp(c, *args, d_agg, bt)
+            c_out += [v[0], v[1], *v[2]]
+            if c is cfg:
+                got = c_out
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, c_out, strict=True))
+        _check_generic(got[0], fmg.generic_fwd_plain(cfg, *args), torch.bfloat16)
+        ref = fmg.generic_bwd_plain(cfg, *args, d_agg)
+    _check_bwd((got[3], got[4], got[5:7]), ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attr36_sparse_tiles_equal_every_tile_bitwise(dev, dtype):
+    """At A = 36 (14% of the tiles listed) #11 and #14 over the plan's tiles
+    equal the kernels over every tile bitwise, and the plain versions within
+    their limits."""
+    cfg, dense, args, d_agg = _planned(*_vjp_problem(dev, *GENERIC_WIDTHS[2], dtype,
+                                                     lmax_attr=5))
+    assert cfg.a == 36
+    with torch.no_grad():
+        got = [fmg.generic_fwd(c, *args) for c in (cfg, dense)]
+        bwd = [fmg.generic_bwd_vjp(c, *args, d_agg, 200) for c in (cfg, dense)]
+        torch.cuda.synchronize()
+        assert torch.equal(*got)
+        assert all(torch.equal(x, y) for x, y in zip([bwd[0][0], bwd[0][1], *bwd[0][2]],
+                                                     [bwd[1][0], bwd[1][1], *bwd[1][2]]))
+        _check_generic(got[0], fmg.generic_fwd_plain(cfg, *args), dtype)
+        _check_bwd(bwd[0], fmg.generic_bwd_vjp_plain(cfg, *args, d_agg, 200), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_untabled_planned_residual_equals_replay_and_reruns(dev, dtype):
+    """With the tile plan, #12 from #11's saved ys and #13 replaying them are
+    bitwise equal, and two runs of each bitwise equal."""
+    cfg, _, args, d_agg = _planned(*_vjp_problem(dev, *GENERIC_WIDTHS[2], dtype))
+    with torch.no_grad():
+        ys = fmg.generic_fwd(cfg, *args, save=True)[1]
+        runs = [fmg.generic_bwd(cfg, *args, d_agg, ys=y) for y in (ys, None, ys, None)]
+    flat = [[r[0], r[1], *r[2]] for r in runs]
+    for other in flat[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(flat[0], other, strict=True))
+
+
+@pytest.mark.parametrize("hidden,k,n", GENERIC_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wgrad_rebuilt_m0_equals_the_chains_bitwise(dev, hidden, k, n, dtype):
+    """The weight-gradient kernel's m_0 rebuilt from hs, h and geo2 (#12 /
+    #13) gives bitwise the partials of the same kernel reading the chain's
+    m_0 rows, and ``_m0_rows`` is the chain's m_0 bit for bit (the vjp chain
+    still writes it)."""
+    cfg, args, d_agg = _vjp_problem(dev, hidden, k, n, dtype)
+    hs, h, geo2 = args[:3]
+    with torch.no_grad():
+        _, _, dy1, dy2, m0, m1 = fmg.generic_bwd_chain(cfg, *args, d_agg, vjp=True)
+        assert torch.equal(fmg._m0_rows(cfg, hs, h, geo2), m0)
+        for splits in (1, 5):
+            got = fmg.generic_bwd_wgrad(cfg, hs, h, geo2, m1, dy1, dy2, splits)
+            ref = fmg.generic_tab_bwd_wgrad(cfg, geo2, m0, m1, dy1, dy2, splits)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), splits
 
 
 UNTABLED_MODES = {  # the untabled dispatches: model settings, graph, kernels that must run
