@@ -14,11 +14,13 @@ Phases, each printing one JSON line:
                  against the brute-force radius graph on the same card.
 4. kernel     -- the forward kernel's wrapper against its plain PyTorch
                  version on the card, at the main path's shapes, in fp32 and
-                 bf16, with a partial tail tile and extra masked slots.
+                 bf16, with a partial tail tile and extra masked slots; in
+                 bf16 also a reading of the bf16 ulps (max, share over 1).
 5. kernel_bwd -- the backward kernels (main kernel and the weight-gradient
                  reduction) and the full backward with its epilogue against
                  their plain versions on the same inputs and a random
-                 cotangent, in fp32 and bf16; two runs bit-identical.
+                 cotangent, in fp32 and bf16; two runs bit-identical; the
+                 bf16 ulps of every output (a reading).
 6. forward    -- the config-3 SEGNN forward (4 layers, bf16 storage, weights
                  from a seed) with launch counts zeroed before and read after;
                  output finite and of shape [100000, 3]; held against the
@@ -35,8 +37,9 @@ Phases, each printing one JSON line:
                  plain version, and the graph build.
 10. train_times -- CUDA-event times of the train step, the backward kernel,
                  its plain version and the epilogue, with the bounds.
-10b. kernel_reduce -- the weight-gradient reduction at its three shapes on
-                 the main paths (config 3's #2 partials, #12's and #14's at
+10b. kernel_reduce -- the weight-gradient reduction at its shapes on the
+                 main paths (config 3's #2 partials as its grid leaves them,
+                 their first 132 rows (one block an SM), #12's and #14's at
                  250k) bitwise against the in-order fold and against
                  ``torch.sum``; device times of both, event times, bounds.
 11. profile   -- two train steps traced with ``torch.profiler``: device time
@@ -428,6 +431,13 @@ def bf16_ulps(got, ref, floor=None):
     return (got.float() - ref.float()).abs() / torch.exp2(torch.floor(torch.log2(scale)) - 7)
 
 
+def ulps_reading(got, ref) -> dict:
+    """A bf16 output's ulps against its plain version (``bf16_ulps``): the
+    max and the share of elements over 1 ulp; a reading, not a check."""
+    u = bf16_ulps(got, ref)
+    return dict(max=float(u.max()), share_over_1ulp=float((u > 1).float().mean()))
+
+
 def bf16_loss(m, g, a, t):
     """bench.py's loss: the forward under bf16 copies of the fp32 masters, so
     the gradients flow back through the casts to fp32."""
@@ -550,8 +560,9 @@ def reduce_shapes(dev) -> dict:
 
 def reduce_phase(card: str, partials3) -> list:
     """Phase 10b, kernel_reduce: the fixed-order weight-gradient reduction at
-    its three shapes on the main paths -- config 3's #2 partials (phase 5's,
-    bf16 run), #12's and #14's at 250k (random, from a seed) -- bitwise
+    its shapes on the main paths -- config 3's #2 partials (phase 5's, bf16
+    run) and their first 132 rows, #12's and #14's at 250k (random, from a
+    seed) -- bitwise
     against the in-order fold on the card (``acc += partials[b]`` in fp32,
     b = 0..n-1) and within TOL_REDUCE_LIB of ``torch.sum``; device times
     (torch.profiler) of the kernel and of ``torch.sum`` (its plain version and
@@ -559,7 +570,10 @@ def reduce_phase(card: str, partials3) -> list:
     read once, the sums written once."""
     dev = partials3.device
     gen = torch.Generator(device=dev).manual_seed(SEED + 50)
-    cases = [("config3_tab_bwd", partials3)]
+    # #2's partials as its grid leaves them, and their first 132 rows (one
+    # block an SM: the [132, 9280] whose times the kernel table keeps)
+    cases = [("config3_tab_bwd", partials3),
+             ("config3_tab_bwd_132", partials3[:132].contiguous())]
     cases += [(label, torch.randn(shape, generator=gen, device=dev))
               for label, shape in reduce_shapes(dev).items()]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1696,8 +1710,11 @@ def km_check(label, cfg, args, ws, n_valid, d_agg, times: bool, form: str = "km"
         zero_rows = bool((agg[mask.sum(dim=1) == 0] == 0).all())
         zero_dhs = bool((d_hs[mask == 0] == 0).all())
         del d_hs
+    readings = None if fp32 else {
+        nm: dict(max=v["max_ulps"], share_over_1ulp=v["share_over_1ulp"]) for nm, v in cmp.items()}
     out = dict(label=label, dtype=str(hr.dtype).replace("torch.", ""), rows=npad, k=k,
                tile=cfg.tile, pack=cfg.pack, valid_slots=n_valid, compared=cmp,
+               bf16_ulps=readings,
                bit_identical_reruns=identical, zero_rows_without_valid_slots=zero_rows,
                zero_d_hs_on_masked_slots=zero_dhs,
                max_abs_err=dict(fwd=cmp["agg"]["max_abs_err"],
@@ -3029,7 +3046,8 @@ def main() -> int:
                  rows=args[0].shape[0], k=cfg.k, tile=cfg.tile, u=cfg.u, valid_slots=n_valid,
                  max_abs_err=max_err, max_rel_err=max_err / max(float(ref.abs().max()), 1e-30),
                  max_abs_ref=float(ref.abs().max()), elements_over_tolerance=bad,
-                 tolerance=limit, finite=bool(torch.isfinite(got).all()))
+                 tolerance=limit, finite=bool(torch.isfinite(got).all()),
+                 bf16_ulps=None if dtype == torch.float32 else ulps_reading(got, ref))
             check(bad == 0 and bool(torch.isfinite(got).all()),
                   f"kernel vs plain in {dtype}: {bad} elements over tolerance")
         del got, ref, err
@@ -3076,6 +3094,9 @@ def main() -> int:
                 scale = torch.clamp(y.float().abs(), min=1.0) if fp32 and nm == "d_h" else ym
                 full[nm] = compare(x, y, scale, TOL_BWD_FP32 if fp32 else TOL_BWD_BF16)
             finite = all(bool(torch.isfinite(x).all()) for x in (*got, d_hu, d_hr, dw))
+            readings = None if fp32 else {
+                nm: ulps_reading(x, y) for nm, x, y in
+                zip((*part_names, *names), (d_hu, d_hr, *pieces, *got), (*ref_parts, *ref))}
             kr["bwd_max_abs_err"] = max(v[0] for v in parts.values())
             kr["reduce_max_abs_err"] = red[0]
             kr["bwd_parts"] = (d_hu, d_hr, partials)
@@ -3093,7 +3114,7 @@ def main() -> int:
                             f"weights: {TOL_BWD_FP32} * max|ref| (fp32 sums over 2.4M slots "
                             "in another order)") if fp32 else
                  f"{TOL_BWD_BF16} * max|ref|; bf16 rounding of the cotangent intermediates",
-                 bit_identical_reruns=identical, finite=finite)
+                 bit_identical_reruns=identical, finite=finite, bf16_ulps=readings)
             bad = {k: v[1] for k, v in {**parts, **full}.items() if v[1]}
             check(not bad and finite, f"backward kernels vs plain in {dtype}: {bad}")
             check(identical, f"two backward runs differ in {dtype}")

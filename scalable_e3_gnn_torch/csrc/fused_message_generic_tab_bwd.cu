@@ -152,27 +152,11 @@ template <typename T> __device__ __forceinline__ float rnd(float x) { return to_
 // rounded reciprocal
 __device__ __forceinline__ float sigmoid_f(float x) { return __frcp_rn(1.0f + __expf(-x)); }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// two 8x8 b16 matrices, transposed: rows from lanes 0-7 and 8-15
-__device__ __forceinline__ void ldsm_x2_t(uint32_t& r0, uint32_t& r1, const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r0), "=r"(r1) : "r"(s));
-}
-// four 8x8 b16 matrices, transposed: rows from lanes 0-7, 8-15, 16-23, 24-31
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
-}
+using gmma::cp_async16;
+using gmma::cp_async_commit;
+using gmma::cp_async_wait;
+using gmma::ldsm_x2_t;
+using gmma::ldsm_x4_t;
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 __host__ __device__ inline long align16(long bytes) { return (bytes + 15) / 16 * 16; }

@@ -47,37 +47,78 @@
 //   other block writes its d_hu rows.  Its fp32 [U, F] table accumulator
 //   (205 KB at config 3) does not fit in shared memory beside the weights,
 //   so the block writes each slot's rounded sender cotangent to its own
-//   scratch rows in global memory (L2-resident), then, per tile, builds the
-//   inverse of loc in shared memory (counting sort, each bucket sorted by
-//   slot) and sums every table row's slots in slot order: no float atomics.
-// - The weight gradients accumulate in shared memory, each entry owned by
-//   one thread, and are written once per block.
+//   scratch rows in global memory, then, per tile, builds the inverse of loc
+//   in shared memory (counting sort, each bucket sorted by slot) and sums
+//   every table row's slots in slot order: no float atomics.
+// - Each block's weight gradients are written once, into partials[block].
 // - The TPU's one-hot MXU expansions (onehot, onehot^T, the E/E^T expand
 //   matrices) are layouts for its matrix unit: here each slot reads its sender
-//   row as h[gtab[tile, loc]] and receivers sum their K slots in shared memory.
-// Per group of G receivers (G*K slot rows, 48 at K=24) the block stages the
-// layer-1 inputs, runs the small GEMMs of both layers forward and backward
-// from shared memory on the fp32 FMA units (each thread a 4-row x 1-column
-// register tile; the GEMMs of one phase share one work list), and keeps the
-// residuals of both layers for the VJP.  Weights sit in shared memory with
-// an odd row stride, so the transposed reads of the VJP are conflict-free.
+//   row as h[gtab[tile, loc]] and receivers sum their K slots in order.
+// bf16 (the engine of lmax1_mma.cuh): every product, forward, VJP and
+// weight gradient, runs on the tensor cores (mma.sync m16n8k16, bf16
+// operands, fp32 accumulators).  A block of eight warps (one an SM) walks
+// rounds of 128 slot rows, a 16-row tile of each warp's unit of whole
+// receivers: the recompute of both layers, the VJP of both gates and the
+// input-cotangent products run per warp (layer 1 computed twice, for the
+// layer-2 inputs and for its own VJP: its residuals held through layer 2
+// would crowd the weight-gradient accumulators), the K-sum of d_hr per warp
+// in slot order; the round's weight-gradient operands are staged in shared
+// memory, and after one block barrier every warp accumulates 9 of the 72
+// 16x8 weight-gradient tiles over the 128 rows, the products of two bf16
+// values split into hi + lo bf16 (exact), in registers for the block's whole
+// run.  Per 16 rows: about 450 mma.  The table sum fetches a bucket's scratch
+// rows 8 at a time, several table rows a warp.
+// fp32 (the check path): the first form, kept: one block walks groups of G
+// receivers (G*K slot rows, 48 at K=24), stages the layer-1 inputs, runs
+// the small GEMMs of both layers forward and backward from shared memory on
+// the fp32 FMA units (each thread a 4-row x 1-column register tile; the
+// GEMMs of one phase share one work list), keeps the residuals of both
+// layers for the VJP, and accumulates the weight gradients in shared memory,
+// each entry owned by one thread.  Weights sit in shared memory with an odd
+// row stride, so the transposed reads of the VJP are conflict-free.
 //
 // Bound.  Per slot the recompute costs 10,816 multiply-adds at Hs=32, Hv=16
 // and the VJP twice that (an input-gradient and a weight-gradient product for
 // every forward product): 32,448, so about 136 GFLOP for the 2.09M valid
 // slots of config 3, against about 150 MB of traffic.  The kernel is bound
-// by operations (about 0.14 ms at the bf16 tensor-core peak, 2 ms at the fp32
-// FMA peak).  This first version runs on the fp32 FMA units out of shared
-// memory; tensor cores (mma/wgmma on the bf16 operands) are later work.
-// With KM the kernel reads hs3 and writes d_hs, 384 MB each in bf16 at
-// config 3, so it is bound by bytes (about 0.25 ms at 3.35 TB/s); so with
-// FLAT, which reads hs and writes d_hs of the same size.
+// by operations (about 0.14 ms at the bf16 tensor-core peak).  With KM the
+// kernel reads hs3 and writes d_hs, 384 MB each in bf16 at config 3, so it
+// is bound by bytes (about 0.25 ms at 3.35 TB/s); so with FLAT, which reads
+// hs and writes d_hs of the same size.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "lmax1_mma.cuh"
+
+// LMAX1_BWD_CLOCKS (a profiling build of kernels/lmax1_ab.py, never the
+// package's library): thread 0 of each block of the bf16 engine adds the
+// cycles of each phase of its rounds to bwd_phase_cycles[] (and the rounds
+// to its last entry), read back by lmax1_bwd_phase_cycles.  No barrier is
+// added: the phases are thread 0's (warp 0's tile, then the block's
+// barriers and its share of the weight gradients).
+#ifdef LMAX1_BWD_CLOCKS
+__device__ unsigned long long bwd_phase_cycles[12];
+#define BWD_CLOCK(i)                                                           \
+  do {                                                                         \
+    if (threadIdx.x == 0) {                                                    \
+      const long long now = clock64();                                         \
+      atomicAdd(&bwd_phase_cycles[i], (unsigned long long)(now - clock_t0));   \
+      clock_t0 = now;                                                          \
+    }                                                                          \
+  } while (0)
+#else
+#define BWD_CLOCK(i) \
+  do {               \
+  } while (0)
+#endif
+
 namespace {
+
+using l1mma::Addr;
 
 constexpr float kCG110 = 0.57735026918962576451f;  // 1/sqrt(3)
 constexpr float kCG011 = 0.57735026918962576451f;  // 1/sqrt(3)
@@ -87,13 +128,9 @@ constexpr int kTargetRows = 48;  // slot rows per group (G = max(1, 48 / K))
 constexpr int kMaxMm = 6;        // GEMMs in one phase
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // x rounded to the data type and widened back to fp32
 template <typename T> __device__ __forceinline__ float rnd(float x) { return to_f(from_f<T>(x)); }
@@ -101,13 +138,6 @@ template <typename T> __device__ __forceinline__ float rnd(float x) { return to_
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
 
 __host__ __device__ inline int odd(int n) { return n | 1; }
-
-// where a slot's sender row, geometry and sender cotangent are
-enum class Addr {
-  kTab,   // h[gtab[tile, loc[e]]]; d2, attr, maskf at e = i*K + k; d_hu by the table
-  kKm,    // row k*N + i of hs3 [K, N, F] and of d_hs; geo2 [N, K*6]
-  kFlat,  // row e = i*K + k of hs [N*K, F] and of d_hs; d2, attr, maskf at e
-};
 
 struct Dims {
   int hs, hv, k, g, rows, rows_p;  // rows = g*k, rows_p = rows rounded to kMT
@@ -730,6 +760,876 @@ __global__ void __launch_bounds__(kColThreads)
   out[w] = acc;
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core engine (lmax1_mma.cuh).  A block of eight warps walks
+// rounds of 128 slot rows: in a round every warp runs one 16-row tile of its
+// unit (G whole receivers) through the recompute of both layers, the VJP of
+// both gates and the input-cotangent products, all in registers, writes the
+// tile's sender cotangents (TAB: to the block's scratch rows), adds its
+// receiver parts to the running K-sums of d_hr, and stages the weight
+// gradients' operands of its rows (the layer-2 inputs m0, m1 and the
+// rounded cotangents d_o0, d_a, d_o1 of both layers) in shared memory.  Then
+// one block barrier, and every warp multiplies its share of the weight
+// gradients (dW = X^T dY, 9 of the 72 16x8 tiles a warp) over the round's
+// 128 rows: X^T by ldmatrix.trans from the staged rows and from the gather
+// buffers (the layer-1 inputs), dY by ldmatrix.trans, s d_o0 and s d_o1
+// split into hi + lo bf16 in registers, the dot lanes' fp32 dot split into
+// three bf16 parts.  The accumulators stay in registers for the block's
+// whole run and are written once, into partials[block].  A second barrier
+// frees the staging for the next round.
+namespace mma {
+
+using l1mma::align16; using l1mma::bf; using l1mma::bf16; using l1mma::buf_bytes;
+using l1mma::Buf; using l1mma::carve_buf; using l1mma::copy_mode; using l1mma::cp_async_commit;
+using l1mma::cp_async_wait; using l1mma::fits; using l1mma::gate1; using l1mma::gather_tile;
+using l1mma::GatherArgs; using l1mma::kC0; using l1mma::kCG;
+using l1mma::kCopy2; using l1mma::kHS; using l1mma::kHV;
+using l1mma::kLdF; using l1mma::kLdK; using l1mma::kLdW; using l1mma::ldsm_x4; using l1mma::kN; using l1mma::KSum; using l1mma::ksum_init;
+using l1mma::ksum_tile; using l1mma::kW1s; using l1mma::kW1v;
+using l1mma::kW2s; using l1mma::kW2v; using l1mma::kWRows; using l1mma::layer1;
+using l1mma::layer2; using l1mma::ldsm_x2_t; using l1mma::ldsm_x4_t; using l1mma::mma_bf16_16816; using l1mma::mma_pairT;
+using l1mma::pack; using l1mma::rnd; using l1mma::row_geo; using l1mma::RowGeo; using l1mma::sigm;
+using l1mma::stage_weights; using l1mma::TileRef; using l1mma::unit_recv; using l1mma::unit_tiles;
+using l1mma::weight_bytes; using l1mma::zero;
+
+// A block: eight warps, one an SM.  The 72 16x8 weight-gradient tiles
+// spread over them, 9 a warp (36 registers held through the tile phase;
+// four warps holding 18 each ran out of registers).
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTiles = 9;
+constexpr int kRound = 16 * kWarps;  // slot rows a round
+constexpr int kLdY = 120;            // staged cotangent rows: d_o0 48 | d_a 16 | d_o1 3 x 16
+constexpr int kY0 = 0, kYa = kC0, kY1 = kN;
+
+__host__ __device__ inline long staging_bytes() {
+  return align16(2L * kRound * kLdF) + 2 * align16(2L * kRound * kLdY);
+}
+// the table sum's ints (TAB): PERM [tile*k], START [u+1], CUR [u]
+__host__ __device__ inline long csr_bytes(int k, int tile, int u) {
+  return align16(4L * ((long)tile * k + 2L * u + 1));
+}
+__host__ __device__ inline long warp_bytes(int k) {
+  return 2 * buf_bytes(k, true) + align16(2L * 16 * kLdK);
+}
+// shared memory: the weights; the per-warp gather and K-sum buffers; the
+// d2 rows' per-warp sums [kWarps][kN] fp32; the round's staging (aliased by
+// the table sum's ints)
+__host__ __device__ inline long smem_bytes(int k, int tile, int u) {
+  const long st = staging_bytes(), csr = tile > 0 ? csr_bytes(k, tile, u) : 0;
+  return weight_bytes() + kWarps * warp_bytes(k) + align16(4L * kWarps * kN) +
+         (st > csr ? st : csr);
+}
+
+// a bf16 pair (rows r, r + 1 of a B fragment) times s0, s1: the exact fp32
+// products as hi + lo bf16 pairs
+__device__ __forceinline__ void split2(uint32_t v, float s0, float s1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+  const float p0 = x.x * s0, p1 = x.y * s1;
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack(p0 - hf.x, p1 - hf.y);
+}
+
+// an A fragment (k-step of 16 columns from col0) back to row-major rows
+// r0 + g, r0 + g + 8 of a staging array
+__device__ __forceinline__ void store_a(bf16* Y, int ld, int r0, int col0, const uint32_t (&a)[4],
+                                        int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+  uint32_t* p0 = reinterpret_cast<uint32_t*>(Y + (r0 + g) * ld + col0 + 2 * t4);
+  uint32_t* p1 = reinterpret_cast<uint32_t*>(Y + (r0 + g + 8) * ld + col0 + 2 * t4);
+  p0[0] = a[0];
+  p1[0] = a[1];
+  p0[4] = a[2];
+  p1[4] = a[3];
+}
+
+// The VJP of a gate layer on C fragments: the pre-gate o0 [6 n-tiles], A [2]
+// and B_c [3][2] of the layer, and d_m from dm(pc, h) (padded column pc of
+// the lane's row g + 8 h).  Rounds as _layer_vjp: o1 = CG011 (v_c A + B_c),
+// d_o0 = [d_m0 silu'(o0) || d_g g (1 - g)], d_o1 = d_m1 g, d_a = CG011
+// sum_c d_o1 v_c, each to bf16, stored into the staging rows r0 .. r0+15 of
+// Y ([d_o0 | d_a | d_o1_0 | d_o1_1 | d_o1_2]): the weight gradients' dY and
+// the A operands of the input-cotangent products.
+template <typename DM>
+__device__ __forceinline__ void gate_vjp(const float (&o0)[6][4], const float (&oa)[2][4],
+                                         const float (&ob)[3][2][4], DM dm, const RowGeo& rg,
+                                         bf16* Y, int r0, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+  auto put = [&](int h, int col, float x0, float x1) {
+    *reinterpret_cast<__nv_bfloat162*>(Y + (r0 + g + 8 * h) * kLdY + col + 2 * t4) =
+        __floats2bfloat162_rn(x0, x1);
+  };
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    float x[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float o = o0[nt][q], sg = sigm(o);
+      x[q] = dm(nt * 8 + 2 * t4 + (q & 1), q >> 1) * (sg * (1.0f + o * (1.0f - sg)));
+    }
+    put(0, kY0 + nt * 8, x[0], x[1]);
+    put(1, kY0 + nt * 8, x[2], x[3]);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float xg[4], xa[4], x1[3][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int h = q >> 1;
+      const float gv = sigm(o0[4 + i][q]);
+      float d_g = 0.f, d_a = 0.f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float d = dm(kHS + kHV * c + 8 * i + 2 * t4 + (q & 1), h);
+        d_g = fmaf(d, kCG * fmaf(rg.v(h, c), oa[i][q], ob[c][i][q]), d_g);
+        const float d_o1 = rnd(d * gv);
+        x1[c][q] = d_o1;
+        d_a = fmaf(d_o1, rg.v(h, c), d_a);
+      }
+      xg[q] = d_g * (gv * (1.0f - gv));
+      xa[q] = kCG * d_a;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      put(h, kY0 + kHS + 8 * i, xg[2 * h], xg[2 * h + 1]);
+      put(h, kYa + 8 * i, xa[2 * h], xa[2 * h + 1]);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) put(h, kY1 + kHV * c + 8 * i, x1[c][2 * h], x1[c][2 * h + 1]);
+    }
+  }
+}
+
+__device__ __forceinline__ float lo_of(uint32_t v) {
+  return __bfloat162float(reinterpret_cast<const __nv_bfloat162*>(&v)->x);
+}
+__device__ __forceinline__ float hi_of(uint32_t v) {
+  return __bfloat162float(reinterpret_cast<const __nv_bfloat162*>(&v)->y);
+}
+
+// ---- the weight gradients of one k-step (16 staged rows)
+// The k-step's rows as this lane's B rows: 2 t4, 2 t4 + 1, 2 t4 + 8, 2 t4 + 9.
+struct KRows {
+  float s[4], v[3][4];
+};
+__device__ __forceinline__ KRows k_rows(const float* geo, int t4) {
+  KRows kr;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float4 a = *reinterpret_cast<const float4*>(geo + (2 * t4 + (j & 1) + (j >> 1) * 8) * 8);
+    kr.s[j] = a.x;
+    kr.v[0][j] = a.y;
+    kr.v[1][j] = a.z;
+    kr.v[2][j] = a.w;
+  }
+  return kr;
+}
+
+// dY columns 0..63 of the k-step as B fragments: [s d_o0 hi | lo] for the
+// six O0 n-tiles, d_a raw for the two OA n-tiles
+struct BScal {
+  uint32_t hi[6][2], lo[6][2], a[2][2];
+};
+__device__ __forceinline__ void b_scaled(BScal& b, const bf16* Y, int row0, const KRows& kr,
+                                         int lane) {
+  const bf16* p = Y + (row0 + (lane & 15)) * kLdY + (lane >> 4) * 8;
+#pragma unroll
+  for (int np = 0; np < 3; ++np) {
+    uint32_t r[4];
+    ldsm_x4_t(r, p + kY0 + np * 16);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      split2(r[2 * j], kr.s[0], kr.s[1], b.hi[2 * np + j][0], b.lo[2 * np + j][0]);
+      split2(r[2 * j + 1], kr.s[2], kr.s[3], b.hi[2 * np + j][1], b.lo[2 * np + j][1]);
+    }
+  }
+  uint32_t r[4];
+  ldsm_x4_t(r, p + kYa);
+  b.a[0][0] = r[0]; b.a[0][1] = r[1]; b.a[1][0] = r[2]; b.a[1][1] = r[3];
+}
+
+// X^T A fragment of an m-tile: 16 features from column col of the k-step's
+// rows (rows addressed per lane: row(lane's row) -> pointer)
+__device__ __forceinline__ int a_row(int lane) { return (lane & 7) + ((lane >> 4) << 3); }
+__device__ __forceinline__ int a_col(int lane) { return ((lane >> 3) & 1) * 8; }
+
+// the S group: acc[8] += X^T [s d_o0 | d_a]
+__device__ __forceinline__ void wg_s(float (*acc)[4], const uint32_t (&a)[4], const BScal& b) {
+#pragma unroll
+  for (int nt = 0; nt < 6; ++nt) {
+    mma_bf16_16816(acc[nt], a, b.hi[nt][0], b.hi[nt][1]);
+    mma_bf16_16816(acc[nt], a, b.lo[nt][0], b.lo[nt][1]);
+  }
+  mma_bf16_16816(acc[6], a, b.a[0][0], b.a[0][1]);
+  mma_bf16_16816(acc[7], a, b.a[1][0], b.a[1][1]);
+}
+
+// the V tile of component c and n-tile nt: acc += xv_c^T (s d_o1_c), from
+// the staged d_o1_c columns
+__device__ __forceinline__ void wg_v(float (&acc)[4], const uint32_t (&a)[4], const bf16* Y,
+                                     int row0, int c, int nt, const KRows& kr, int lane) {
+  uint32_t b0, b1, h0, h1, l0, l1;
+  ldsm_x2_t(b0, b1, Y + (row0 + (lane & 15)) * kLdY + kY1 + kHV * c + 8 * nt);
+  split2(b0, kr.s[0], kr.s[1], h0, l0);
+  split2(b1, kr.s[2], kr.s[3], h1, l1);
+  mma_bf16_16816(acc, a, h0, h1);
+  mma_bf16_16816(acc, a, l0, l1);
+}
+
+// the D tiles of n-tiles N0 .. N0+NN: acc[j] += dot^T d_o0, the dot (sum_c
+// xv_c v_c, fp32) of the three component fragments split into three bf16
+// parts
+template <int N0, int NN>
+__device__ __forceinline__ void wg_d(float (*acc)[4], const uint32_t (&x)[3][4], const bf16* Y,
+                                     int row0, const KRows& kr, int lane) {
+  uint32_t ap[3][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    // register j holds rows (j < 2 ? 2 t4 : 2 t4 + 8) and + 1
+    float d[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int rr = (j >> 1) * 2 + e;
+      float s = 0.f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) s = fmaf(e ? hi_of(x[c][j]) : lo_of(x[c][j]), kr.v[c][rr], s);
+      d[e] = s;
+    }
+    const float h0 = rnd(d[0]), h1 = rnd(d[1]);
+    const float m0 = rnd(d[0] - h0), m1 = rnd(d[1] - h1);
+    ap[0][j] = pack(h0, h1);
+    ap[1][j] = pack(m0, m1);
+    ap[2][j] = pack(d[0] - h0 - m0, d[1] - h1 - m1);
+  }
+  const bf16* p = Y + (row0 + (lane & 15)) * kLdY + kY0;
+#pragma unroll
+  for (int j = 0; j < NN; ++j) {
+    uint32_t b0, b1;
+    ldsm_x2_t(b0, b1, p + (N0 + j) * 8);
+#pragma unroll
+    for (int pt = 0; pt < 3; ++pt) mma_bf16_16816(acc[j], ap[pt], b0, b1);
+  }
+}
+
+// The table sum of a tile: dhu_t[i] = the sum of its bucket's scratch rows
+// dhs[PERM[START[i] .. START[i+1])] in slot order, fp32, rounded once.  V
+// bf16 columns a lane (V = 8 or 4: 16- or 8-byte loads, f / V lanes a row,
+// 32 V / f rows a warp at once), or V = 1: a warp per row, a lane per
+// column.  A bucket's rows are fetched kBatch at a time before their adds.
+template <int V>
+__device__ __forceinline__ void table_rows(const bf16* dhs, bf16* dhu_t, const int* PERM,
+                                           const int* START, int u, int f, int warp, int lane) {
+  constexpr int kBatch = 8;
+  typedef typename std::conditional<V == 8, uint4, typename std::conditional<V == 4, uint2,
+                                    unsigned short>::type>::type Word;
+  union Bits {
+    Word w;
+    unsigned short h[V];
+  };
+  const int per = V == 1 ? 1 : 32 / (f / V);  // rows a warp at once
+  const int lanes = V == 1 ? 32 : f / V;      // lanes a row
+  const int r = lane / lanes;
+  for (int i0 = warp * per; i0 < u; i0 += kWarps * per) {
+    const int i = i0 + r;
+    const bool on = r < per && i < u;
+    const int q0 = on ? START[i] : 0, q1 = on ? START[i + 1] : 0;
+    for (int c = (lane % lanes) * V; c < (V == 1 ? f : (lane % lanes) * V + 1); c += 32 * V) {
+      float acc[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[e] = 0.f;
+      for (int qb = q0; qb < q1; qb += kBatch) {
+        Bits w[kBatch];
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j)
+          if (qb + j < q1) w[j].w = *reinterpret_cast<const Word*>(dhs + (long)PERM[qb + j] * f + c);
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          if (qb + j >= q1) break;
+#pragma unroll
+          for (int e = 0; e < V; ++e) acc[e] += bf(__ushort_as_bfloat16(w[j].h[e]));
+        }
+      }
+      if (on) {
+        Bits o;
+#pragma unroll
+        for (int e = 0; e < V; ++e) o.h[e] = __bfloat16_as_ushort(__float2bfloat16(acc[e]));
+        *reinterpret_cast<Word*>(dhu_t + (long)i * f + c) = o.w;
+      }
+    }
+  }
+}
+
+// Kernel arguments beyond the gather's
+struct BwdArgs {
+  bf16* dhu;       // TAB: [ntiles*U, F]
+  bf16* dhr;       // [N, F]
+  bf16* scratch;   // TAB: [grid][tile*K][F]
+  bf16* dhsp;      // KM: [K, N, F]; FLAT: [N*K, F]
+  float* partials; // [grid][NW]
+  int pack;
+};
+
+template <Addr A>
+__global__ void __launch_bounds__(kThreads)
+fused_message_bwd_mma(GatherArgs ga, const bf16* __restrict__ w0a, const bf16* __restrict__ w1sa,
+                      const bf16* __restrict__ w1va, const bf16* __restrict__ w0b,
+                      const bf16* __restrict__ w1sb, const bf16* __restrict__ w1vb,
+                      BwdArgs ba) {
+  constexpr bool TAB = A == Addr::kTab, KM = A == Addr::kKm, FLAT = A == Addr::kFlat;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int k = ga.k, hs = ga.hs, hv = ga.hv, f = hs + 3 * hv;
+  const int tile = ga.tile, u = ga.u, npad = ga.npad;
+  unsigned char* p = smem_raw;
+  bf16* W = reinterpret_cast<bf16*>(p);
+  float* d2w = reinterpret_cast<float*>(p + align16(2L * kWRows * kLdW));
+  p += weight_bytes();
+  const long bb = buf_bytes(k, true), wb = warp_bytes(k);
+  unsigned char* wbase = p;  // warp w's buffers at wbase + w * wb
+  p += kWarps * wb;
+  float* d2acc = reinterpret_cast<float*>(p);  // [kWarps][kN]
+  p += align16(4L * kWarps * kN);
+  bf16* X2 = reinterpret_cast<bf16*>(p);       // [kRound][kLdF]: m0 | m1_0 | m1_1 | m1_2
+  bf16* Y2 = reinterpret_cast<bf16*>(p + align16(2L * kRound * kLdF));  // [kRound][kLdY]
+  bf16* Y1 = Y2 + align16(2L * kRound * kLdY) / 2;
+  int* PERM = reinterpret_cast<int*>(p);       // TAB, after a tile's rounds
+  int* START = PERM + tile * k;
+  int* CUR = START + u + 1;
+  unsigned char* wp = wbase + warp * wb;
+  bf16* kbuf = reinterpret_cast<bf16*>(wp + 2 * bb);  // [16][kLdK]: receiver parts of d_xs/d_xv
+
+  for (long x = lane; x < 2 * bb / 16; x += 32)
+    reinterpret_cast<uint4*>(wp)[x] = make_uint4(0u, 0u, 0u, 0u);
+  for (int x = lane; x < kN; x += 32) d2acc[warp * kN + x] = 0.f;
+  stage_weights<false>(W, d2w, w0a, w1sa, w1va, w0b, w1sb, w1vb, hs, hv);
+  __syncthreads();
+
+  // the block's items: gather tiles (TAB), or groups of kWarps units; R
+  // rounds each, the unit of warp w at round rr: unit (rr / T) * kWarps + w
+  // of the item, its tile rr % T
+  const int G = unit_recv(k, TAB ? tile : 0), T = unit_tiles(k, TAB ? tile : 0);
+  // (npad K < 2^31, checked by the wrapper: int arithmetic throughout)
+  const int units = TAB ? (tile + G - 1) / G : (npad + G - 1) / G;
+  const int items = TAB ? npad / tile : (units + kWarps - 1) / kWarps;
+  const int R = TAB ? (units + kWarps - 1) / kWarps * T : T;
+  const int my_items =
+      (int)blockIdx.x < items ? (items - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x : 0;
+  const int nit = my_items * R;
+  auto item_of = [&](int it) { return (int)blockIdx.x + it / R * (int)gridDim.x; };
+  auto ref = [&](int it, int w) {
+    const int item = item_of(it), rr = it % R;
+    TileRef tr;
+    tr.q0 = rr % T * 16;
+    if (TAB) {
+      const int un = rr / T * kWarps + w;
+      tr.node0 = item * tile + un * G;
+      tr.nrecv = un < units ? (tile - un * G < G ? tile - un * G : G) : 0;
+      tr.slot0 = (item * tile + un * G) * k;  // (npad K < 2^31)
+    } else {
+      const int un = item * kWarps + w;
+      tr.node0 = un * G;
+      tr.nrecv = un < units ? (npad - tr.node0 < G ? npad - tr.node0 : G) : 0;
+      tr.slot0 = 0;
+    }
+    return tr;
+  };
+  const bool pairs = ga.mode != kCopy2;  // even widths: bf16 pairs of d_hs at once
+  KSum ks;
+  ksum_init(ks);
+  float wacc[kTiles][4];
+  zero(wacc);
+
+  if (nit > 0) {
+    gather_tile<A>(carve_buf(wp, k, true), ref(0, warp), ga, lane);
+    cp_async_commit();
+  }
+#ifdef LMAX1_BWD_CLOCKS
+  long long clock_t0 = clock64();
+#endif
+  for (int it = 0; it < nit; ++it) {
+    if (it + 1 < nit) {
+      gather_tile<A>(carve_buf(wp + ((it + 1) & 1) * bb, k, true), ref(it + 1, warp), ga, lane);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+#ifdef LMAX1_BWD_CLOCKS
+    if (threadIdx.x == 0) atomicAdd(&bwd_phase_cycles[11], 1ull);
+#endif
+    BWD_CLOCK(0);  // the next tile's gather issued, this one's awaited
+    const Buf b = carve_buf(wp + (it & 1) * bb, k, true);
+    const TileRef tr = ref(it, warp);
+    const RowGeo rg = row_geo(b.geo, g);
+    const int wr = warp * 16;  // this warp's rows in the round's staging
+    // ---- layer 1 (its residuals are recomputed for its VJP below: held
+    //      through layer 2 beside the weight-gradient accumulators, they
+    //      would spill)
+    uint32_t am0[2][4], am1[3][4];
+    {
+      float o0[6][4], oa[2][4], ob[3][2][4];
+      layer1(W, d2w, b, rg, kCG, lane, o0, oa, ob);
+      gate1<false>(o0, oa, ob, rg, am0, am1);
+    }
+    store_a(X2, kLdF, wr, 0, am0[0], lane);
+    store_a(X2, kLdF, wr, 16, am0[1], lane);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) store_a(X2, kLdF, wr, kHS + kHV * c, am1[c], lane);
+    BWD_CLOCK(1);  // layer 1, its gate, the staged layer-2 inputs
+    // ---- layer 2 and the VJP of its gates, d_m = d_agg * mask (rounded)
+    {
+      float o0b[6][4], oab[2][4], obb[3][2][4];
+      layer2(W, rg, kCG, lane, am0, am1, o0b, oab, obb);
+      // d_m = d_agg of the row's receiver times its mask, rounded
+      const bf16* dr0 = b.d + b.ri[g] * kLdF;
+      const bf16* dr1 = b.d + b.ri[g + 8] * kLdF;
+      gate_vjp(o0b, oab, obb,
+               [&](int pc, int h) { return rnd(bf((h ? dr1 : dr0)[pc]) * rg.mk(h)); }, rg, Y2,
+               wr, lane);
+    }
+    __syncwarp();
+    // the staged cotangents as A fragments: row wr + (lane & 15), column col
+    auto a_frag = [&](uint32_t (&a)[4], const bf16* Y, int col) {
+      ldsm_x4(a, Y + (wr + (lane & 15)) * kLdY + (lane >> 4) * 8 + col);
+    };
+    BWD_CLOCK(2);  // layer 2 and its gates' VJP
+    // ---- layer-2 input cotangents -> the layer-1 d_m0, d_m1 (bf16 values),
+    //      kept in the K-sum buffer until the layer-1 VJP reads them
+    // (an n-tile pair of the layer's input rows at a time: d_f0 = d_o0 W0^T
+    // over three k-steps, d_xs = d_a W1S^T, d_xvs_c = d_o1_c W1V^T)
+#pragma unroll
+    for (int np = 0; np < 3; ++np) {
+      float df[2][4];
+      zero(df);
+#pragma unroll
+      for (int ks = 0; ks < 3; ++ks) {
+        uint32_t a[4];
+        a_frag(a, Y2, kY0 + 16 * ks);
+        mma_pairT(df, a, W, kW2s + 16 * np, 16 * ks, lane);
+      }
+      if (np < 2) {  // the m0 rows
+        float dx[2][4];
+        zero(dx);
+        uint32_t a[4];
+        a_frag(a, Y2, kYa);
+        mma_pairT(dx, a, W, kW2s + 16 * np, kC0, lane);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float s = rg.s(h);
+            const float x0 = rnd(dx[j][2 * h] + rnd(df[j][2 * h]) * s);
+            const float x1 = rnd(dx[j][2 * h + 1] + rnd(df[j][2 * h + 1]) * s);
+            *reinterpret_cast<__nv_bfloat162*>(kbuf + (g + 8 * h) * kLdK + (2 * np + j) * 8 +
+                                               2 * t4) = __floats2bfloat162_rn(x0, x1);
+          }
+      } else {  // the dot rows
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          float dv[2][4];
+          zero(dv);
+          uint32_t a[4];
+          a_frag(a, Y2, kY1 + kHV * c);
+          mma_pairT(dv, a, W, kW2v, kC0, lane);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float s = rg.s(h), v = rg.v(h, c);
+              const float x0 = rnd(rnd(kCG * dv[i][2 * h]) * s + kCG * rnd(df[i][2 * h]) * v);
+              const float x1 =
+                  rnd(rnd(kCG * dv[i][2 * h + 1]) * s + kCG * rnd(df[i][2 * h + 1]) * v);
+              *reinterpret_cast<__nv_bfloat162*>(kbuf + (g + 8 * h) * kLdK + kHS + kHV * c +
+                                                 8 * i + 2 * t4) = __floats2bfloat162_rn(x0, x1);
+            }
+        }
+      }
+    }
+    BWD_CLOCK(3);  // layer 2's input cotangents
+    // ---- the VJP of the layer-1 gates, on layer 1 recomputed (o0, A, B)
+    {
+      float o0a[6][4], oaa[2][4], oba[3][2][4];
+      layer1(W, d2w, b, rg, kCG, lane, o0a, oaa, oba);
+      __syncwarp();
+      gate_vjp(o0a, oaa, oba,
+               [&](int pc, int h) { return bf(kbuf[(g + 8 * h) * kLdK + pc]); }, rg, Y1, wr,
+               lane);
+    }
+    __syncwarp();  // Y1's rows are read across lanes, the K-sum buffer written again
+    // the d2 rows of dW0a (d2 s d_o0) and dW1Sa (d2 d_a): this lane's rows,
+    // then the warp's rows (lanes g = 0 hold the sums of their columns)
+    {
+      float pw[16];
+      const float ds0 = rg.d2(0) * rg.s(0), ds1 = rg.d2(1) * rg.s(1);
+      const bf16* y0 = Y1 + (wr + g) * kLdY + 2 * t4;
+      const bf16* y1 = y0 + 8 * kLdY;
+#pragma unroll
+      for (int blk = 0; blk < 8; ++blk) {  // columns blk*8 + 2 t4 (+1): d_o0, then d_a
+        const float2 x0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(y0 + blk * 8));
+        const float2 x1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(y1 + blk * 8));
+        const float f0 = blk < 6 ? ds0 : rg.d2(0), f1 = blk < 6 ? ds1 : rg.d2(1);
+        pw[2 * blk] = fmaf(f1, x1.x, f0 * x0.x);
+        pw[2 * blk + 1] = fmaf(f1, x1.y, f0 * x0.y);
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        pw[j] += __shfl_xor_sync(0xffffffffu, pw[j], 4);
+        pw[j] += __shfl_xor_sync(0xffffffffu, pw[j], 8);
+        pw[j] += __shfl_xor_sync(0xffffffffu, pw[j], 16);
+      }
+      if (g == 0) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int blk = j >> 1, e = j & 1;  // blk: 16-column half-steps 0..7
+          d2acc[warp * kN + blk * 8 + 2 * t4 + e] += pw[j];
+        }
+      }
+    }
+    BWD_CLOCK(4);  // layer 1 again, its gates' VJP, the d2 rows
+    // ---- layer-1 input cotangents: sender parts -> d_hs, receiver parts
+    //      -> the K-sum buffer
+    const int qa = tr.q0 + g, qb = qa + 8;
+    const int live = tr.nrecv * k;
+    auto dhs_row = [&](int q) -> bf16* {
+      if (q >= live) return nullptr;
+      const int rel = q / k, kk = q % k;
+      const long node = tr.node0 + rel;
+      if (TAB) return ba.scratch + ((long)tr.slot0 + q) * f;
+      if (KM) return ba.dhsp + ((long)kk * npad + node) * f;
+      return ba.dhsp + (node * k + kk) * f;
+    };
+    bf16* hrow[2] = {dhs_row(qa), dhs_row(qb)};
+    auto put = [&](int h, int pc, float x0, float x1) {
+      bf16* row = hrow[h];
+      if (row == nullptr) return;
+      const int fc = l1mma::feat_col(pc, hs, hv);
+      if (fc < 0) return;
+      if (pairs) {
+        *reinterpret_cast<__nv_bfloat162*>(row + fc) = __floats2bfloat162_rn(x0, x1);
+      } else {
+        row[fc] = __float2bfloat16(x0);
+        const int fc1 = l1mma::feat_col(pc + 1, hs, hv);
+        if (fc1 >= 0) row[fc1] = __float2bfloat16(x1);
+      }
+    };
+    auto put_k = [&](int h, int pc, float x0, float x1) {
+      *reinterpret_cast<__nv_bfloat162*>(kbuf + (g + 8 * h) * kLdK + pc) =
+          __floats2bfloat162_rn(x0, x1);
+    };
+    // the scalar rows (sender 0..31, receiver 32..63), an n-tile pair at a time
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      float df[2][4], dx[2][4];
+      zero(df);
+      zero(dx);
+#pragma unroll
+      for (int ks = 0; ks < 3; ++ks) {
+        uint32_t a[4];
+        a_frag(a, Y1, kY0 + 16 * ks);
+        mma_pairT(df, a, W, kW1s + 16 * np, 16 * ks, lane);
+      }
+      uint32_t a[4];
+      a_frag(a, Y1, kYa);
+      mma_pairT(dx, a, W, kW1s + 16 * np, kC0, lane);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float s = rg.s(h);
+          const float x0 = rnd(dx[j][2 * h] + rnd(df[j][2 * h]) * s);
+          const float x1 = rnd(dx[j][2 * h + 1] + rnd(df[j][2 * h + 1]) * s);
+          const int pc = ((2 * np + j) & 3) * 8 + 2 * t4;
+          if (np < 2) put(h, pc, x0, x1);
+          else put_k(h, pc, x0, x1);
+        }
+    }
+    // the vector lanes (sender 0..15, receiver 16..31)
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      float df[2][4];
+      zero(df);
+#pragma unroll
+      for (int ks = 0; ks < 3; ++ks) {
+        uint32_t a[4];
+        a_frag(a, Y1, kY0 + 16 * ks);
+        mma_pairT(df, a, W, kW1v + 16 * np, 16 * ks, lane);
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        float dx[2][4];
+        zero(dx);
+        uint32_t a[4];
+        a_frag(a, Y1, kY1 + kHV * c);
+        mma_pairT(dx, a, W, kW1v + 16 * np, kC0, lane);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float s = rg.s(h), v = rg.v(h, c);
+            const float x0 = rnd(rnd(kCG * dx[j][2 * h]) * s + kCG * rnd(df[j][2 * h]) * v);
+            const float x1 =
+                rnd(rnd(kCG * dx[j][2 * h + 1]) * s + kCG * rnd(df[j][2 * h + 1]) * v);
+            const int pc = kHS + kHV * c + j * 8 + 2 * t4;
+            if (np == 0) put(h, pc, x0, x1);
+            else put_k(h, pc, x0, x1);
+          }
+      }
+    }
+    __syncwarp();
+    BWD_CLOCK(5);  // layer 1's input cotangents, d_hs written
+    ksum_tile<FLAT>(ks, kbuf, tr, k, ba.pack, hs, hv, ba.dhr, lane);
+    BWD_CLOCK(6);  // the K-sum of d_hr
+
+    // ---- the round's weight gradients
+    __syncthreads();
+    BWD_CLOCK(7);  // waiting for the other warps' tiles
+    {
+      // the roles (tiles of dW = X^T dY; S: scalar inputs against [s d_o0 |
+      // d_a], V: vector inputs against s d_o1_c, D: the dot lanes against
+      // d_o0): warps 0-3 the S tiles of layer 1's xs (sender 0-15, 16-31,
+      // receiver 0-15, 16-31), 4-5 those of layer 2's m0 (0-15, 16-31), each
+      // with one n-tile of a V group (layer 2's m1; layer 1's sender, then
+      // receiver vector lanes); warps 6-7 the D tiles of layer 1's sender,
+      // receiver dot lanes, each with three n-tiles of layer 2's
+      const int ar = a_row(lane), ac = a_col(lane);
+#pragma unroll 1
+      for (int kw = 0; kw < kWarps; ++kw) {
+        const Buf bk = carve_buf(wbase + kw * wb + (it & 1) * bb, k, true);
+        const KRows kr = k_rows(bk.geo, t4);
+        const int r0 = kw * 16;
+        const bf16* xs_s = bk.s + ar * kLdF + ac;             // sender features
+        const bf16* xs_r = bk.r + bk.ri[ar] * kLdF + ac;      // receiver features
+        const bf16* x2 = X2 + (r0 + ar) * kLdF + ac;          // m0 | m1
+        if (warp < 6) {
+          const bool l1 = warp < 4;
+          BScal bs;
+          b_scaled(bs, l1 ? Y1 : Y2, r0, kr, lane);
+          uint32_t a[4];
+          ldsm_x4_t(a, (l1 ? ((warp & 2) ? xs_r : xs_s) : x2) + 16 * (warp & 1));
+          wg_s(wacc, a, bs);
+          // the V n-tile: warps 0-1 layer 2's m1, 2-3 layer 1's sender and
+          // 4-5 its receiver vector lanes
+          const bf16* xv = warp < 2 ? x2 : warp < 4 ? xs_s : xs_r;
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            ldsm_x4_t(a, xv + kHS + kHV * c);
+            wg_v(wacc[8], a, warp < 2 ? Y2 : Y1, r0, c, warp & 1, kr, lane);
+          }
+        } else {
+          uint32_t x[3][4];
+#pragma unroll
+          for (int c = 0; c < 3; ++c) ldsm_x4_t(x[c], (warp == 6 ? xs_s : xs_r) + kHS + kHV * c);
+          wg_d<0, 6>(wacc, x, Y1, r0, kr, lane);
+#pragma unroll
+          for (int c = 0; c < 3; ++c) ldsm_x4_t(x[c], x2 + kHS + kHV * c);
+          if (warp == 6) wg_d<0, 3>(wacc + 6, x, Y2, r0, kr, lane);
+          else wg_d<3, 3>(wacc + 6, x, Y2, r0, kr, lane);
+        }
+      }
+    }
+    BWD_CLOCK(8);  // warp 0's weight-gradient tiles over the round's rows
+    __syncthreads();
+    BWD_CLOCK(9);  // waiting for the other warps' weight gradients
+  }
+
+  // ---- this block's weight gradients, once: partials[block] in the six
+  //      blocks' dense layout (W0a, W1Sa, W1Va, W0b, W1Sb, W1Vb)
+  const int s1 = 2 * hs + 1, v1 = 2 * hv, c0 = hs + hv;
+  float* out = ba.partials + (long)blockIdx.x * ((long)(s1 + v1) * c0 + (long)s1 * hv +
+                                                 (long)v1 * hv + (long)c0 * c0 + (long)hs * hv +
+                                                 (long)hv * hv);
+  float* o_w0a = out;
+  float* o_w1sa = o_w0a + (s1 + v1) * c0;
+  float* o_w1va = o_w1sa + s1 * hv;
+  float* o_w0b = o_w1va + v1 * hv;
+  float* o_w1sb = o_w0b + c0 * c0;
+  float* o_w1vb = o_w1sb + hs * hv;
+  // an S group's tiles: rows i (-1: a pad) x [O0 columns -> w0 | OA -> w1]
+  auto put_s = [&](const float (*acc)[4], int mt16, int rowbase, int nvalid, float* w0,
+                   float* w1) {
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int m = mt16 + g + 8 * (q >> 1);
+        if (m >= nvalid) continue;
+        const int i = rowbase + m;
+        int o, jj;
+        l1mma::out_col(nt * 8 + 2 * t4 + (q & 1), hs, hv, o, jj);
+        if (o >= 0) w0[i * c0 + o] = acc[nt][q];
+        else if (jj >= 0) w1[i * hv + jj] = acc[nt][q];
+      }
+  };
+  // D tiles, n-tiles n0 .. n0+nn of w0's dot rows (times CG110)
+  auto put_d = [&](const float (*acc)[4], int n0, int nn, int rowbase, float* w0) {
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int m = g + 8 * (q >> 1);
+        if (j >= nn || m >= hv) continue;
+        int o, jj;
+        l1mma::out_col((n0 + j) * 8 + 2 * t4 + (q & 1), hs, hv, o, jj);
+        if (o >= 0) w0[(rowbase + m) * c0 + o] = kCG * acc[j][q];
+      }
+  };
+  // a V tile, n-tile nt of w1v's rows (times CG011)
+  auto put_v = [&](const float (&acc)[4], int nt, int rowbase, float* w1) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int m = g + 8 * (q >> 1), jj = nt * 8 + 2 * t4 + (q & 1);
+      if (m < hv && jj < hv) w1[(rowbase + m) * hv + jj] = kCG * acc[q];
+    }
+  };
+  if (warp < 4) {  // layer 1's xs: sender scalars (warps 0-1), receiver (2-3)
+    put_s(wacc, 16 * (warp & 1), (warp & 2) ? hs : 0, hs, o_w0a, o_w1sa);
+  } else if (warp < 6) {  // layer 2's m0
+    put_s(wacc, 16 * (warp & 1), 0, hs, o_w0b, o_w1sb);
+  } else {  // the dot rows
+    put_d(wacc, 0, 6, warp == 6 ? s1 : s1 + hv, o_w0a);
+    put_d(wacc + 6, warp == 6 ? 0 : 3, 3, hs, o_w0b);
+  }
+  if (warp < 2) put_v(wacc[8], warp & 1, 0, o_w1vb);
+  else if (warp < 6) put_v(wacc[8], warp & 1, warp < 4 ? 0 : hv, o_w1va);
+  // the d2 rows: the warps' sums in warp order
+  for (int col = threadIdx.x; col < kN; col += blockDim.x) {
+    float acc = 0.f;
+    for (int w = 0; w < kWarps; ++w) acc += d2acc[w * kN + col];
+    int o, jj;
+    l1mma::out_col(col, hs, hv, o, jj);
+    if (o >= 0) o_w0a[2 * hs * c0 + o] = acc;
+    else if (jj >= 0) o_w1sa[2 * hs * hv + jj] = acc;
+  }
+  if (!TAB) return;
+
+  // ---- TAB, after every round (the weight-gradient accumulators are written
+  //      and free: inside the rounds the table sum ran out of registers):
+  //      each of the block's gather tiles' table rows, d_hu[u] = the sum of
+  //      the d_hs scratch rows of the tile's slots with loc == u, in slot
+  //      order
+  __syncthreads();  // the staging region becomes the table sum's ints
+  for (int j = 0; j < my_items; ++j) {
+    const long tl = blockIdx.x + (long)j * gridDim.x;  // the gather tile
+    const int slots = tile * k;
+    const int* tloc = ga.loc + tl * slots;
+    const bf16* dhs = ba.scratch + tl * slots * f;
+    for (int i = threadIdx.x; i < u; i += blockDim.x) CUR[i] = 0;
+    __syncthreads();
+    for (int sl = threadIdx.x; sl < slots; sl += blockDim.x) {
+      const int l = tloc[sl];
+      if (l < u) atomicAdd(&CUR[l], 1);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int run = 0;
+      for (int i = 0; i < u; ++i) {
+        START[i] = run;
+        run += CUR[i];
+        CUR[i] = 0;
+      }
+      START[u] = run;
+    }
+    __syncthreads();
+    for (int sl = threadIdx.x; sl < slots; sl += blockDim.x) {
+      const int l = tloc[sl];
+      if (l < u) PERM[START[l] + atomicAdd(&CUR[l], 1)] = sl;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < u; i += blockDim.x) {  // each bucket in slot order
+      for (int q = START[i] + 1; q < START[i + 1]; ++q) {
+        const int x = PERM[q];
+        int y = q - 1;
+        while (y >= START[i] && PERM[y] > x) {
+          PERM[y + 1] = PERM[y];
+          --y;
+        }
+        PERM[y + 1] = x;
+      }
+    }
+    __syncthreads();
+    // a table row per f / V lanes, V = 8 (16-byte loads) or 4 columns a
+    // lane (32 V / f rows a warp at once), else a warp per row and a lane
+    // per column; a bucket's rows are fetched kBatch at a time before their
+    // adds, which run in slot order
+    bf16* dhu_t = ba.dhu + tl * u * f;
+    if (f % 8 == 0) table_rows<8>(dhs, dhu_t, PERM, START, u, f, warp, lane);
+    else if (f % 4 == 0) table_rows<4>(dhs, dhu_t, PERM, START, u, f, warp, lane);
+    else table_rows<1>(dhs, dhu_t, PERM, START, u, f, warp, lane);
+    __syncthreads();
+    BWD_CLOCK(10);  // the tile's table sum
+  }
+}
+
+template <Addr A>
+long grid(int k, int tile, int u, long items) {
+  const long smem = smem_bytes(k, tile, u);
+  auto kern = fused_message_bwd_mma<A>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return -(long)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
+  if (err != cudaSuccess) return -(long)err;
+  if (per_sm < 1) return -(long)cudaErrorInvalidConfiguration;
+  const long gr = (long)sms * per_sm;
+  return gr < items ? gr : items;
+}
+
+// the block count of a launch over n receivers (TAB: tiles of tile)
+template <Addr A>
+long grid_for(int hs, int hv, int k, int tile, int u, long n) {
+  if (!fits(hs, hv)) return -(long)cudaErrorInvalidValue;
+  if (A == Addr::kTab) return grid<A>(k, tile, u, n / tile);
+  const int G = unit_recv(k, 0);
+  const long units = (n + G - 1) / G;
+  return grid<A>(k, 0, 0, (units + kWarps - 1) / kWarps);
+}
+
+// in: h, d2, attr, maskf, loc, gtab, hs3 or hs, geo2, six weights, d_agg
+// (the unused ones null); out: d_hu, d_hr, d_hs scratch, d_hs (KM, FLAT)
+template <Addr A>
+int launch(const void* const* in, void* const* out, float* partials, int npad, int hs, int hv,
+           int k, int tile, int u, int pack, int grid, cudaStream_t stream) {
+  if (!fits(hs, hv) || grid < 1 || (A == Addr::kTab && npad % tile != 0) || pack < 1 ||
+      k % pack != 0)
+    return (int)cudaErrorInvalidValue;
+  const long smem = smem_bytes(k, A == Addr::kTab ? tile : 0, u);
+  auto kern = fused_message_bwd_mma<A>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  GatherArgs ga;
+  ga.h = static_cast<const bf16*>(in[0]);
+  ga.d2 = static_cast<const bf16*>(in[1]);
+  ga.attr = static_cast<const bf16*>(in[2]);
+  ga.maskf = static_cast<const bf16*>(in[3]);
+  ga.loc = static_cast<const int*>(in[4]);
+  ga.gtab = static_cast<const int*>(in[5]);
+  ga.hsp = static_cast<const bf16*>(in[6]);
+  ga.geo2 = static_cast<const bf16*>(in[7]);
+  ga.dagg = static_cast<const bf16*>(in[14]);
+  ga.npad = npad; ga.hs = hs; ga.hv = hv; ga.k = k; ga.tile = tile; ga.u = u;
+  ga.mode = copy_mode(hs, hv, {in[0], in[6], in[14]});
+  BwdArgs ba;
+  ba.dhu = static_cast<bf16*>(out[0]);
+  ba.dhr = static_cast<bf16*>(out[1]);
+  ba.scratch = static_cast<bf16*>(out[2]);
+  ba.dhsp = static_cast<bf16*>(out[3]);
+  ba.partials = partials;
+  ba.pack = pack;
+  auto wt = [in](int i) { return static_cast<const bf16*>(in[i]); };
+  kern<<<grid, kThreads, smem, stream>>>(ga, wt(8), wt(9), wt(10), wt(11), wt(12), wt(13), ba);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace mma
+
 // blocks: SMs x resident blocks, at most one per unit (tile, or group)
 template <typename T, Addr A>
 int grid_for(const Dims& d, int units) {
@@ -774,24 +1674,25 @@ int launch(const void* const* in, void* const* out, float* partials, int npad, i
 
 extern "C" {
 
-// Shared memory one block of the main kernel needs (bytes); the wrapper
-// checks it against the card's limit before launching.
-long fused_message_tab_bwd_smem_bytes(int hs, int hv, int k, int tile, int u) {
-  return (long)smem_bytes(make_dims(hs, hv, k, tile, u));
+// Shared memory one block of the main kernel needs (bytes; dtype 0 =
+// float32, 1 = bfloat16); the wrapper checks it against the card's limit
+// before launching.
+long fused_message_tab_bwd_smem_bytes(int dtype, int hs, int hv, int k, int tile, int u) {
+  return dtype == 1 ? mma::smem_bytes(k, tile, u) : (long)smem_bytes(make_dims(hs, hv, k, tile, u));
 }
 
 // Blocks of the main kernel (SMs x resident blocks, at most one per tile),
-// which sizes the per-block scratch; negative: -(CUDA error).
+// which sizes the per-block scratch and partials; negative: -(CUDA error).
 int fused_message_tab_bwd_grid(int dtype, int hs, int hv, int k, int tile, int u, int ntiles) {
-  const Dims d = make_dims(hs, hv, k, tile, u);
-  if (dtype == 0) return grid_for<float, Addr::kTab>(d, ntiles);
-  if (dtype == 1) return grid_for<__nv_bfloat16, Addr::kTab>(d, ntiles);
+  if (dtype == 0) return grid_for<float, Addr::kTab>(make_dims(hs, hv, k, tile, u), ntiles);
+  if (dtype == 1) return (int)mma::grid_for<Addr::kTab>(hs, hv, k, tile, u, (long)ntiles * tile);
   return -(int)cudaErrorInvalidValue;
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  Inputs h, d2, attr, maskf, loc, gtab,
-// the six weight blocks and d_agg; outputs d_hu, d_hr; scratch [grid][tile*k][F]
-// (data type) and partials [grid][NW] (fp32).  Returns cudaGetLastError()
+// the six weight blocks and d_agg; outputs d_hu, d_hr; scratch (data type;
+// float32 [grid][tile*k][F], bfloat16 [Npad*k][F]) and partials [grid][NW]
+// (fp32).  Returns cudaGetLastError()
 // after the launch (0 on success).
 int fused_message_tab_bwd(int dtype, const void* h, const void* d2, const void* attr,
                           const void* maskf, const void* loc, const void* gtab,
@@ -808,21 +1709,20 @@ int fused_message_tab_bwd(int dtype, const void* h, const void* d2, const void* 
   if (dtype == 0)
     return launch<float, Addr::kTab>(in, out, part, npad, hs, hv, k, tile, u, 1, grid, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16, Addr::kTab>(in, out, part, npad, hs, hv, k, tile, u, 1, grid,
-                                             st);
+    return mma::launch<Addr::kTab>(in, out, part, npad, hs, hv, k, tile, u, 1, grid, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // The untabled (km) backward's main kernel.
-long fused_message_km_bwd_smem_bytes(int hs, int hv, int k) {
-  return (long)smem_bytes(make_dims(hs, hv, k, 0, 0));
+long fused_message_km_bwd_smem_bytes(int dtype, int hs, int hv, int k) {
+  return dtype == 1 ? mma::smem_bytes(k, 0, 0) : (long)smem_bytes(make_dims(hs, hv, k, 0, 0));
 }
 
 int fused_message_km_bwd_grid(int dtype, int hs, int hv, int k, int n) {
   const Dims d = make_dims(hs, hv, k, 0, 0);
   const int groups = (n + d.g - 1) / d.g;
   if (dtype == 0) return grid_for<float, Addr::kKm>(d, groups);
-  if (dtype == 1) return grid_for<__nv_bfloat16, Addr::kKm>(d, groups);
+  if (dtype == 1) return (int)mma::grid_for<Addr::kKm>(hs, hv, k, 0, 0, n);
   return -(int)cudaErrorInvalidValue;
 }
 
@@ -842,7 +1742,7 @@ int fused_message_km_bwd(int dtype, const void* hs3, const void* hr, const void*
   if (dtype == 0)
     return launch<float, Addr::kKm>(in, out, part, n, hs, hv, k, 0, 0, 1, grid, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16, Addr::kKm>(in, out, part, n, hs, hv, k, 0, 0, 1, grid, st);
+    return mma::launch<Addr::kKm>(in, out, part, n, hs, hv, k, 0, 0, 1, grid, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -852,7 +1752,7 @@ int fused_message_flat_bwd_grid(int dtype, int hs, int hv, int k, int n) {
   const Dims d = make_dims(hs, hv, k, 0, 0);
   const int groups = (n + d.g - 1) / d.g;
   if (dtype == 0) return grid_for<float, Addr::kFlat>(d, groups);
-  if (dtype == 1) return grid_for<__nv_bfloat16, Addr::kFlat>(d, groups);
+  if (dtype == 1) return (int)mma::grid_for<Addr::kFlat>(hs, hv, k, 0, 0, n);
   return -(int)cudaErrorInvalidValue;
 }
 
@@ -874,10 +1774,20 @@ int fused_message_flat_bwd(int dtype, const void* hs_rows, const void* hr, const
   if (dtype == 0)
     return launch<float, Addr::kFlat>(in, out, part, n, hs, hv, k, 0, 0, pack, grid, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16, Addr::kFlat>(in, out, part, n, hs, hv, k, 0, 0, pack, grid,
-                                              st);
+    return mma::launch<Addr::kFlat>(in, out, part, n, hs, hv, k, 0, 0, pack, grid, st);
   return (int)cudaErrorInvalidValue;
 }
+
+#ifdef LMAX1_BWD_CLOCKS
+// the bf16 engine's phases' cycles (thread 0 of every block) and rounds,
+// summed since the last call (then 0)
+int lmax1_bwd_phase_cycles(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, bwd_phase_cycles, sizeof(bwd_phase_cycles));
+  if (err != cudaSuccess) return (int)err;
+  static const unsigned long long zero[12] = {};
+  return (int)cudaMemcpyToSymbol(bwd_phase_cycles, zero, sizeof(zero));
+}
+#endif
 
 // The fixed-order reduction of the weight-gradient partials [nblocks, nw]
 // into out [nw]: reduce_cols where cols is 1, else reduce_strips.  Returns

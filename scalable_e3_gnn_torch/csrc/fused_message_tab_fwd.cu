@@ -20,29 +20,34 @@
 // there is no table.  With FLAT the senders come pre-gathered node-major, hs
 // [N*K, F] (slot k of receiver i is row e = i*K + k: the TPU's [N*K/p, p*F]
 // packed rows are the same memory), and the geometry from the flat d2, attr
-// and maskf rows e, as the tabled kernel reads them.  The TPU kernel expands a per-tile table hu = h[gtab] to slot
-// rows with a one-hot MXU matmul; here each slot reads its sender row directly
-// through the table, so hu is never written to device memory, and h (16 MB in
-// bf16 at 100k x 80) stays in the 50 MB L2.
-//
-// Design.  One block walks over groups of G receivers (G*K slot rows).  The
-// six folded weight blocks (norm constants already folded in, as in the TPU
-// kernel) sit in shared memory in fp32 for the block's whole life.  Per group
-// the block stages the layer-1 inputs of every slot row in shared memory,
-// runs the three small GEMMs of each layer from shared memory (each thread
-// holds a 4-row x 1-column accumulator tile in registers), applies the gates,
-// rounds the layer-1 outputs to the data type (the TPU kernel's rounding
-// point between the layers), and sums the masked messages over K in fp32.
+// and maskf rows e, as the tabled kernel reads them.  The TPU kernel expands
+// a per-tile table hu = h[gtab] to slot rows with a one-hot MXU matmul; here
+// each slot reads its sender row directly through the table, so hu is never
+// written to device memory, and h (16 MB in bf16 at 100k x 80) stays in the
+// 50 MB L2.
 //
 // Bound.  Per slot the two layers do (S1+V1)(Hs+Hv) + S1 Hv + 3 V1 Hv +
 // (Hs+Hv)^2 + Hs Hv + 3 Hv^2 multiply-adds: 10,816 at Hs=32, Hv=16, about
-// 52 GFLOP per call at 100k x 24 slots, against about 70 MB of bf16 traffic.
-// So the work is bound by operations on this card (about 52 us at the bf16
-// tensor-core peak, 21 us of memory time).  This version runs its products on
-// the fp32 FMA units from shared memory, not on the tensor cores: it is the
-// simple, exact first form; wgmma and TMA staging are later work.  With KM
+// 52 GFLOP per call at 100k x 24 slots, against about 70 MB of bf16 traffic
+// (h from L2).  So the tabled work is bound by operations on this card
+// (about 52 us at the bf16 tensor-core peak, 21 us of memory time).  With KM
 // the kernel reads hs3 whole (384 MB in bf16 at 100k x 24 slots), so bytes
 // bound it (about 0.13 ms at 3.35 TB/s); FLAT reads hs whole the same way.
+//
+// Design, bf16 (the engine of lmax1_mma.cuh): every product runs on the
+// tensor cores (mma.sync m16n8k16, bf16 operands, fp32 accumulators).  A
+// warp owns 16-row tiles of units of whole receivers (48 slot rows at K=24):
+// both layers, the gates, the mask and the K-sum stay in the warp, the
+// layer-1 outputs pass to layer 2 in registers (C fragments become A
+// fragments), and the only block barrier follows the weights' staging.  Per
+// 16 rows that is 120 mma (1.42x the counted work: the dot lanes run as
+// three products).  Each warp fetches its next tile's rows by cp.async while
+// it multiplies the current one.  Three blocks of four warps share an SM.
+// fp32 (the check path): the first form, kept: one block walks groups of G
+// receivers, stages the layer-1 inputs of every slot row in shared memory
+// and runs the small GEMMs of each layer on the fp32 FMA units (each thread
+// a 4-row x 1-column accumulator tile), with block barriers between the
+// phases.
 //
 // Rounding.  The tabled kernel rounds as the stacked-lane TPU form: the
 // layer-1 outputs and each masked slot message to the data type.  With KM it
@@ -58,7 +63,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lmax1_mma.cuh"
+
 namespace {
+
+using l1mma::Addr;
 
 constexpr float kCG110 = 0.57735026918962576451f;  // 1/sqrt(3)
 constexpr float kCG011 = 0.57735026918962576451f;  // 1/sqrt(3)
@@ -67,13 +76,9 @@ constexpr int kRowTile = 4;     // rows per thread in the small GEMMs
 constexpr int kTargetRows = 48; // slot rows per group (G = max(1, 48 / K))
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // x rounded to the data type and widened back to fp32
 template <typename T> __device__ __forceinline__ float round_dt(float x) {
@@ -81,13 +86,6 @@ template <typename T> __device__ __forceinline__ float round_dt(float x) {
 }
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
-
-// where a slot's sender row and geometry come from
-enum class Addr {
-  kTab,   // h[gtab[i / tile, loc[e]]]; d2, attr, maskf at e = i*K + k
-  kKm,    // row k*N + i of hs [K, N, F]; geo2 [N, K*6]
-  kFlat,  // row e = i*K + k of hs [N*K, F]; d2, attr, maskf at e
-};
 
 // the vector gate sigmoid(x): rounded to the data type in the km2 form
 template <typename T, bool KM> __device__ __forceinline__ float gate(float x) {
@@ -360,12 +358,185 @@ fused_message_tab_fwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
   }
 }
 
-template <typename T, Addr A>
-int launch(const void* h, const void* d2, const void* attr, const void* maskf,
-           const int* loc, const int* gtab, const void* hsp, const void* geo2,
-           const void* w0a, const void* w1sa, const void* w1va, const void* w0b,
-           const void* w1sb, const void* w1vb, void* out, int npad, int hs, int hv, int k,
-           int tile, int u, int pack, cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core engine (lmax1_mma.cuh).  A warp walks its units (G
+// receivers each: units u = blockIdx.x * kWarps + warp, then every
+// gridDim.x * kWarps), each as T tiles of 16 slot rows; tile it + 1 is
+// gathered into the other buffer while tile it multiplies.
+namespace mma {
+
+// the engine's names (declared here, so that they hide the FMA kernel's)
+using l1mma::align16; using l1mma::bf16; using l1mma::buf_bytes; using l1mma::Buf;
+using l1mma::carve_buf; using l1mma::copy_mode; using l1mma::cp_async_commit;
+using l1mma::cp_async_wait;
+using l1mma::fits; using l1mma::gate1; using l1mma::gather_tile; using l1mma::GatherArgs;
+using l1mma::kCG;
+using l1mma::kHS; using l1mma::kHV; using l1mma::kLdK; using l1mma::kLdW; using l1mma::KSum;
+using l1mma::ksum_init; using l1mma::ksum_tile;
+using l1mma::kWRows; using l1mma::layer1; using l1mma::layer2; using l1mma::rnd;
+using l1mma::row_geo; using l1mma::RowGeo; using l1mma::sigm; using l1mma::stage_weights;
+using l1mma::TileRef; using l1mma::unit_recv; using l1mma::unit_tiles;
+using l1mma::weight_bytes;
+
+constexpr int kWarps = 4;  // a block; three blocks share an SM
+constexpr int kThreads = 32 * kWarps;
+
+// shared memory: the weights, then per warp two gather buffers and a K-sum
+// buffer [16][kLdK] fp32
+__host__ inline long smem_bytes(int k) {
+  return weight_bytes() + kWarps * (2 * buf_bytes(k, false) + align16(4L * 16 * kLdK));
+}
+
+template <Addr A>
+__global__ void __launch_bounds__(kThreads)
+fused_message_fwd_mma(GatherArgs ga, const bf16* __restrict__ w0a, const bf16* __restrict__ w1sa,
+                      const bf16* __restrict__ w1va, const bf16* __restrict__ w0b,
+                      const bf16* __restrict__ w1sb, const bf16* __restrict__ w1vb,
+                      bf16* __restrict__ out, int pack) {
+  constexpr bool KM = A == Addr::kKm, FLAT = A == Addr::kFlat;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* W = reinterpret_cast<bf16*>(smem_raw);
+  float* d2w = reinterpret_cast<float*>(smem_raw + align16(2L * kWRows * kLdW));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int k = ga.k;
+  const long bb = buf_bytes(k, false);
+  unsigned char* wp = smem_raw + weight_bytes() + warp * (2 * bb + align16(4L * 16 * kLdK));
+  float* kbuf = reinterpret_cast<float*>(wp + 2 * bb);
+  // the padded lanes of both buffers stay zero
+  for (long x = lane; x < 2 * bb / 16; x += 32)
+    reinterpret_cast<uint4*>(wp)[x] = make_uint4(0u, 0u, 0u, 0u);
+  stage_weights<KM>(W, d2w, w0a, w1sa, w1va, w0b, w1sb, w1vb, ga.hs, ga.hv);
+  __syncthreads();
+
+  // (npad K < 2^31, checked by the wrapper: int arithmetic throughout)
+  const int G = unit_recv(k, 0), T = unit_tiles(k, 0);
+  const int units = (ga.npad + G - 1) / G;
+  const int first = blockIdx.x * kWarps + warp, stride = gridDim.x * kWarps;
+  const int nit = first < units ? (units - first + stride - 1) / stride * T : 0;
+  auto ref = [&](int it) {
+    const int un = first + it / T * stride;
+    TileRef tr;
+    tr.node0 = un * G;
+    tr.nrecv = ga.npad - tr.node0 < G ? ga.npad - tr.node0 : G;
+    tr.q0 = it % T * 16;
+    tr.slot0 = 0;
+    return tr;
+  };
+  const float cgd = KM ? 1.0f : kCG;
+  KSum ks;
+  ksum_init(ks);
+  if (nit > 0) {
+    gather_tile<A>(carve_buf(wp, k, false), ref(0), ga, lane);
+    cp_async_commit();
+  }
+  for (int it = 0; it < nit; ++it) {
+    if (it + 1 < nit) {
+      gather_tile<A>(carve_buf(wp + ((it + 1) & 1) * bb, k, false), ref(it + 1), ga, lane);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+    const Buf b = carve_buf(wp + (it & 1) * bb, k, false);
+    const TileRef tr = ref(it);
+    const RowGeo rg = row_geo(b.geo, g);
+    float o0[6][4], oa[2][4], ob[3][2][4];
+    layer1(W, d2w, b, rg, cgd, lane, o0, oa, ob);
+    uint32_t am0[2][4], am1[3][4];
+    gate1<KM>(o0, oa, ob, rg, am0, am1);
+    layer2(W, rg, cgd, lane, am0, am1, o0, oa, ob);
+    // the layer-2 gates and the mask: each slot's message (TAB, KM rounded
+    // to bf16; FLAT in fp32, rounded per group in the K-sum)
+    auto msg = [&](float m, int h) {
+      const float mk = rg.mk(h);
+      return mk != 0.f ? (FLAT ? m * mk : rnd(m * mk)) : 0.f;
+    };
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* row = kbuf + (g + 8 * h) * kLdK + 2 * t4;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const float x0 = o0[nt][2 * h], x1 = o0[nt][2 * h + 1];
+        *reinterpret_cast<float2*>(row + nt * 8) =
+            make_float2(msg(x0 * sigm(x0), h), msg(x1 * sigm(x1), h));
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float m[3][2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int q = 2 * h + j;
+          const float gt = KM ? rnd(sigm(o0[4 + i][q])) : sigm(o0[4 + i][q]);
+          const float a = KM ? rnd(oa[i][q]) : oa[i][q];
+#pragma unroll
+          for (int c = 0; c < 3; ++c) m[c][j] = msg(kCG * fmaf(rg.v(h, c), a, ob[c][i][q]) * gt, h);
+        }
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          *reinterpret_cast<float2*>(row + kHS + kHV * c + 8 * i) = make_float2(m[c][0], m[c][1]);
+      }
+    }
+    __syncwarp();
+    ksum_tile<FLAT>(ks, kbuf, tr, k, pack, ga.hs, ga.hv, out, lane);
+    __syncwarp();
+  }
+}
+
+template <Addr A>
+int launch(const GatherArgs& ga, const void* const* w, void* out, int pack, cudaStream_t stream) {
+  if (!fits(ga.hs, ga.hv) || pack < 1 || ga.k % pack != 0) return (int)cudaErrorInvalidValue;
+  const long smem = smem_bytes(ga.k);
+  auto kern = fused_message_fwd_mma<A>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int G = unit_recv(ga.k, 0);
+  const long units = (ga.npad + G - 1) / G;
+  long grid = (long)sms * per_sm;
+  if (grid > (units + kWarps - 1) / kWarps) grid = (units + kWarps - 1) / kWarps;
+  if (grid < 1) grid = 1;
+  auto wt = [w](int i) { return static_cast<const bf16*>(w[i]); };
+  kern<<<(int)grid, kThreads, smem, stream>>>(ga, wt(0), wt(1), wt(2), wt(3), wt(4), wt(5),
+                                              static_cast<bf16*>(out), pack);
+  return (int)cudaGetLastError();
+}
+
+inline GatherArgs gather_args(const void* h, const void* hsp, const void* d2, const void* attr,
+                              const void* maskf, const void* loc, const void* gtab,
+                              const void* geo2, int npad, int hs, int hv, int k, int tile, int u) {
+  GatherArgs ga;
+  ga.h = static_cast<const bf16*>(h);
+  ga.hsp = static_cast<const bf16*>(hsp);
+  ga.d2 = static_cast<const bf16*>(d2);
+  ga.attr = static_cast<const bf16*>(attr);
+  ga.maskf = static_cast<const bf16*>(maskf);
+  ga.loc = static_cast<const int*>(loc);
+  ga.gtab = static_cast<const int*>(gtab);
+  ga.geo2 = static_cast<const bf16*>(geo2);
+  ga.dagg = nullptr;
+  ga.npad = npad; ga.hs = hs; ga.hv = hv; ga.k = k; ga.tile = tile; ga.u = u;
+  ga.mode = copy_mode(hs, hv, {h, hsp});
+  return ga;
+}
+
+}  // namespace mma
+
+// fp32: the FMA kernel
+template <Addr A>
+int launch_fma(const void* h, const void* d2, const void* attr, const void* maskf,
+               const int* loc, const int* gtab, const void* hsp, const void* geo2,
+               const void* w0a, const void* w1sa, const void* w1va, const void* w0b,
+               const void* w1sb, const void* w1vb, void* out, int npad, int hs, int hv, int k,
+               int tile, int u, int pack, cudaStream_t stream) {
+  typedef float T;
   const Dims d = make_dims(hs, hv, k);
   const size_t smem = smem_bytes(d);
   if (pack < 1 || k % pack != 0) return (int)cudaErrorInvalidValue;
@@ -397,10 +568,11 @@ int launch(const void* h, const void* d2, const void* attr, const void* maskf,
 
 extern "C" {
 
-// Shared memory one block needs for these widths (bytes); the wrapper checks
-// it against the card's limit before launching.
-long fused_message_tab_fwd_smem_bytes(int hs, int hv, int k) {
-  return (long)smem_bytes(make_dims(hs, hv, k));
+// Shared memory one block needs for these widths (bytes; dtype 0 = float32,
+// 1 = bfloat16); the wrapper checks it against the card's limit before
+// launching.
+long fused_message_tab_fwd_smem_bytes(int dtype, int hs, int hv, int k) {
+  return dtype == 1 ? mma::smem_bytes(k) : (long)smem_bytes(make_dims(hs, hv, k));
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
@@ -410,17 +582,18 @@ int fused_message_tab_fwd(int dtype, const void* h, const void* d2, const void* 
                           const void* w0a, const void* w1sa, const void* w1va,
                           const void* w0b, const void* w1sb, const void* w1vb, void* out,
                           int npad, int hs, int hv, int k, int tile, int u, void* stream) {
-  const int* loc_i = static_cast<const int*>(loc);
-  const int* gtab_i = static_cast<const int*>(gtab);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float, Addr::kTab>(h, d2, attr, maskf, loc_i, gtab_i, nullptr, nullptr, w0a,
-                                     w1sa, w1va, w0b, w1sb, w1vb, out, npad, hs, hv, k, tile, u,
-                                     1, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, Addr::kTab>(h, d2, attr, maskf, loc_i, gtab_i, nullptr,
-                                             nullptr, w0a, w1sa, w1va, w0b, w1sb, w1vb, out,
-                                             npad, hs, hv, k, tile, u, 1, st);
+    return launch_fma<Addr::kTab>(h, d2, attr, maskf, static_cast<const int*>(loc),
+                                  static_cast<const int*>(gtab), nullptr, nullptr, w0a, w1sa,
+                                  w1va, w0b, w1sb, w1vb, out, npad, hs, hv, k, tile, u, 1, st);
+  if (dtype == 1) {
+    const void* w[6] = {w0a, w1sa, w1va, w0b, w1sb, w1vb};
+    return mma::launch<Addr::kTab>(
+        mma::gather_args(h, nullptr, d2, attr, maskf, loc, gtab, nullptr, npad, hs, hv, k,
+                         tile, u),
+        w, out, 1, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -432,13 +605,16 @@ int fused_message_km_fwd(int dtype, const void* hs3, const void* hr, const void*
                          int n, int hs, int hv, int k, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float, Addr::kKm>(hr, nullptr, nullptr, nullptr, nullptr, nullptr, hs3,
-                                    geo2, w0a, w1sa, w1va, w0b, w1sb, w1vb, out, n, hs, hv, k,
-                                    n, 0, 1, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, Addr::kKm>(hr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                                            hs3, geo2, w0a, w1sa, w1va, w0b, w1sb, w1vb, out, n,
-                                            hs, hv, k, n, 0, 1, st);
+    return launch_fma<Addr::kKm>(hr, nullptr, nullptr, nullptr, nullptr, nullptr, hs3, geo2,
+                                 w0a, w1sa, w1va, w0b, w1sb, w1vb, out, n, hs, hv, k, n, 0, 1,
+                                 st);
+  if (dtype == 1) {
+    const void* w[6] = {w0a, w1sa, w1va, w0b, w1sb, w1vb};
+    return mma::launch<Addr::kKm>(
+        mma::gather_args(hr, hs3, nullptr, nullptr, nullptr, nullptr, nullptr, geo2, n, hs, hv,
+                         k, n, 0),
+        w, out, 1, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -452,13 +628,16 @@ int fused_message_flat_fwd(int dtype, const void* hs_rows, const void* hr, const
                            int hv, int k, int pack, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float, Addr::kFlat>(hr, d2, attr, maskf, nullptr, nullptr, hs_rows, nullptr,
-                                      w0a, w1sa, w1va, w0b, w1sb, w1vb, out, n, hs, hv, k, n,
-                                      0, pack, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, Addr::kFlat>(hr, d2, attr, maskf, nullptr, nullptr, hs_rows,
-                                              nullptr, w0a, w1sa, w1va, w0b, w1sb, w1vb, out,
-                                              n, hs, hv, k, n, 0, pack, st);
+    return launch_fma<Addr::kFlat>(hr, d2, attr, maskf, nullptr, nullptr, hs_rows, nullptr,
+                                   w0a, w1sa, w1va, w0b, w1sb, w1vb, out, n, hs, hv, k, n, 0,
+                                   pack, st);
+  if (dtype == 1) {
+    const void* w[6] = {w0a, w1sa, w1va, w0b, w1sb, w1vb};
+    return mma::launch<Addr::kFlat>(
+        mma::gather_args(hr, hs_rows, d2, attr, maskf, nullptr, nullptr, nullptr, n, hs, hv, k,
+                         n, 0),
+        w, out, pack, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

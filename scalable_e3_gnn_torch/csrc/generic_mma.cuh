@@ -33,6 +33,9 @@
 // registers (t per component, acc over components: the TPU kernel's
 // rounding, each product in fp32, scaled by attr_c in fp32, summed over c in
 // fp32).
+//
+// The fragment, ldmatrix and cp.async helpers below also serve the lmax=1
+// engine (lmax1_mma.cuh).
 
 #pragma once
 
@@ -82,6 +85,36 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+// 16 bytes from global to shared memory, asynchronously (L2 only); a
+// group of them is closed by cp_async_commit and awaited by cp_async_wait<N>
+// (at most N groups still in flight)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ldmatrix: four 8x8 b16 matrices from the rows that lanes 0-7, 8-15, 16-23
+// and 24-31 address (16 bytes each), as mma fragments: r[i] holds row
+// lane / 4, elements 2 (lane % 4) and +1 of matrix i; .trans delivers the
+// transposed matrices (column lane / 4, rows 2 (lane % 4) and +1)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+// two transposed matrices, from the rows lanes 0-7 and 8-15 address
+__device__ __forceinline__ void ldsm_x2_t(uint32_t& r0, uint32_t& r1, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1) : "r"(smem_addr(p)));
 }
 
 // a feature row of f bf16 (f even: 4-byte aligned) from global src, or

@@ -1,0 +1,567 @@
+// The lmax=1 message kernels' tensor-core engine (sm_90a, bf16), shared by
+// fused_message_tab_fwd.cu (#1, #3, #6) and fused_message_tab_bwd.cu (#2, #5,
+// #7): both gated L1 tensor-product layers of the SEGNN message MLP on
+// mma.sync m16n8k16 with bf16 operands and fp32 accumulators.
+//
+// Exact operands.  Every operand of an mma is a bf16 value the TPU kernel
+// also has: the gathered feature rows, the rounded layer-1 outputs and
+// cotangents, the folded weights.  The per-row sh factors go onto the fp32
+// accumulators where they factor out, (xs s) W = s (xs W); the dot lanes
+// take sum_c v_c (xv_c W0v), three products of exact operands (the dot
+// itself, a sum of three products, is not a bf16 value).  Where a factor
+// does not factor out (the weight gradients' s d_o0 and s d_o1), the
+// product of two bf16 values is split into hi + lo bf16 in registers, two
+// mma, exactly the fp32 product; the weight gradients' dot lanes split the
+// fp32 dot into three bf16 parts (hi + mid + lo: its 24 bits).  So the
+// engine rounds where the TPU kernel rounds; its fp32 sums run in another
+// order.
+//
+// Padded widths.  Scalars pad to kHS = 32 lanes and vectors to kHV = 16 a
+// component (zero weights and zero inputs in the pads), so every GEMM has a
+// fixed shape: each layer's columns are [O0 (32 scalar + 16 gate) | OA or OB
+// (16)] = 64, four 16-column pairs of n-tiles.  Widths beyond those raise in
+// the wrappers.
+//
+// Shape of the work.  A warp owns 16-row mma tiles of slot rows and walks
+// units of G whole receivers (G K rows rounded up to 16), so the K-sums run
+// inside the warp: its lanes walk a tile's rows in slot order from a shared
+// buffer, each lane three columns, keeping the running receiver sums in
+// registers across the unit's tiles.  The weights sit in shared memory once
+// per block, bf16, row-major [in][out] (144 rows): ldmatrix.trans reads them
+// as the forward's B fragments and plain ldmatrix as the VJP's (W^T), so no
+// transposed copy is kept.  Each warp gathers its next tile's sender rows
+// (through the table, or pre-gathered), receiver rows and geometry by
+// cp.async into the other of two buffers while it multiplies the current one.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#include <initializer_list>
+
+#include "generic_mma.cuh"
+
+namespace l1mma {
+
+typedef __nv_bfloat16 bf16;
+using gmma::cp_async16;
+using gmma::cp_async4;
+using gmma::cp_async_commit;
+using gmma::cp_async_wait;
+using gmma::ldsm_x2_t;
+using gmma::ldsm_x4;
+using gmma::ldsm_x4_t;
+using gmma::mma_bf16_16816;
+
+// where a slot's sender row and geometry come from (and, backward, where its
+// sender cotangent goes)
+enum class Addr {
+  kTab,   // h[gtab[i / tile, loc[e]]]; d2, attr, maskf at e = i*K + k; d_hu by the table
+  kKm,    // row k*N + i of hs3 [K, N, F] (and of d_hs); geo2 [N, K*6]
+  kFlat,  // row e = i*K + k of hs [N*K, F] (and of d_hs); d2, attr, maskf at e
+};
+
+constexpr float kCG = 0.57735026918962576451f;  // CG110 = CG011 = 1/sqrt(3)
+constexpr int kHS = 32, kHV = 16;   // padded scalar / vector widths
+constexpr int kC0 = kHS + kHV;      // 48: O0 columns
+constexpr int kN = kC0 + kHV;       // 64: a layer GEMM's columns [O0 | OA or OB]
+constexpr int kFP = kHS + 3 * kHV;  // 80: a padded feature row [s | v0 | v1 | v2]
+constexpr int kChunks = kFP / 8;    // 16-byte chunks of a padded row
+// row strides (elements) whose 16-byte count is odd: conflict-free ldmatrix
+constexpr int kLdF = 88;  // feature rows
+constexpr int kLdW = 72;  // weight rows
+constexpr int kLdK = 88;  // K-sum rows
+// the weight rows: [in][kN] per GEMM
+constexpr int kW1s = 0;    // 64: sender scalars (32) | receiver scalars (32) -> [O0 | OA]
+constexpr int kW1v = 64;   // 32: sender vector lanes (16) | receiver (16) -> [O0 dot | OB]
+constexpr int kW2s = 96;   // 32: m0 -> [O0 | OA]
+constexpr int kW2v = 128;  // 16: m1 -> [O0 dot | OB]
+constexpr int kWRows = 144;
+constexpr int kTargetRows = 48;  // slot rows per unit (G = max(1, 48 / K))
+
+__host__ __device__ inline bool fits(int hs, int hv) {
+  return hs >= 1 && hs <= kHS && hv >= 0 && hv <= kHV;
+}
+// receivers per unit and 16-row tiles per unit
+__host__ __device__ inline int unit_recv(int k, int tile) {
+  int g = k >= kTargetRows ? 1 : kTargetRows / k;
+  if (tile > 0 && g > tile) g = tile;
+  return g;
+}
+__host__ __device__ inline int unit_tiles(int k, int tile) {
+  return (unit_recv(k, tile) * k + 15) / 16;
+}
+// receiver rows a 16-row tile can touch
+__host__ __device__ inline int tile_recv(int k) { return (15 + k - 1) / k + 1; }
+
+__host__ __device__ inline long align16(long b) { return (b + 15) / 16 * 16; }
+__host__ __device__ inline long weight_bytes() {
+  return align16(2L * kWRows * kLdW) + align16(4L * kN);
+}
+// one warp's gather buffer: sender rows, receiver rows (and, backward,
+// d_agg rows), geometry [16][8] fp32, receiver index [16], sender id [16]
+__host__ __device__ inline long buf_bytes(int k, bool dagg) {
+  return align16(2L * 16 * kLdF) + (dagg ? 2 : 1) * align16(2L * tile_recv(k) * kLdF) +
+         align16(4L * 16 * 8) + align16(4L * 16) + align16(4L * 16);
+}
+
+__device__ __forceinline__ float bf(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float bf(float x) { return x; }
+__device__ __forceinline__ float rnd(float x) { return __bfloat162float(__float2bfloat16(x)); }
+// the sigmoid (the FMA kernels' and the plain versions': the full-precision
+// exponential, so that the bf16 roundings after it flip as rarely as the
+// fp32 sum order lets them)
+__device__ __forceinline__ float sigm(float x) { return 1.0f / (1.0f + expf(-x)); }
+// two fp32 values as a bf16 pair (lo at the lower column)
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// the padded column pc of a feature row -> the feature column, or -1
+__device__ __forceinline__ int feat_col(int pc, int hs, int hv) {
+  if (pc < kHS) return pc < hs ? pc : -1;
+  const int c = (pc - kHS) / kHV, j = (pc - kHS) % kHV;
+  return c < 3 && j < hv ? hs + c * hv + j : -1;
+}
+// the padded output column of a layer (< kN) -> O0 column (o) or OA/OB
+// column (jj), the other -1
+__device__ __forceinline__ void out_col(int col, int hs, int hv, int& o, int& jj) {
+  o = jj = -1;
+  if (col < kHS) { if (col < hs) o = col; }
+  else if (col < kC0) { if (col - kHS < hv) o = hs + col - kHS; }
+  else if (col < kN) { if (col - kC0 < hv) jj = col - kC0; }
+}
+
+// ---------------------------------------------------------------------------
+// The weights, once per block: the six folded blocks (the TPU kernel's,
+// reference row layout split) into W [kWRows][kLdW] bf16 and the d2 rows of
+// W0a and W1Sa into d2w [kN] fp32.  KM: the W0 vector rows are CG110 times
+// the weight, rounded (the km2 form's w0v).
+template <bool KM>
+__device__ void stage_weights(bf16* W, float* d2w, const bf16* w0a, const bf16* w1sa,
+                              const bf16* w1va, const bf16* w0b, const bf16* w1sb,
+                              const bf16* w1vb, int hs, int hv) {
+  const int s1 = 2 * hs + 1, c0 = hs + hv;
+  const float cg_t = rnd(kCG);
+  for (int x = threadIdx.x; x < kWRows * kLdW; x += blockDim.x) {
+    const int r = x / kLdW, col = x % kLdW;
+    int o, jj;
+    out_col(col, hs, hv, o, jj);
+    const bf16 *src0 = nullptr, *src1 = nullptr;
+    int i0 = 0, i1 = 0, w1 = hv;
+    bool vec = false;
+    if (r < kW1v) {
+      const int p = r & 31;
+      if (p < hs) { i0 = i1 = r < 32 ? p : hs + p; src0 = w0a; src1 = w1sa; }
+    } else if (r < kW2s) {
+      const int p = (r - kW1v) & 15;
+      if (p < hv) {
+        const int l = r - kW1v < 16 ? p : hv + p;
+        i0 = s1 + l; i1 = l; src0 = w0a; src1 = w1va; vec = true;
+      }
+    } else if (r < kW2v) {
+      const int p = r - kW2s;
+      if (p < hs) { i0 = i1 = p; src0 = w0b; src1 = w1sb; }
+    } else {
+      const int p = r - kW2v;
+      if (p < hv) { i0 = hs + p; i1 = p; src0 = w0b; src1 = w1vb; vec = true; }
+    }
+    float v = 0.f;
+    if (src0 != nullptr) {
+      if (o >= 0) {
+        v = bf(src0[i0 * c0 + o]);
+        if (KM && vec) v = rnd(cg_t * v);
+      } else if (jj >= 0) {
+        v = bf(src1[i1 * w1 + jj]);
+      }
+    }
+    W[x] = __float2bfloat16(v);
+  }
+  for (int col = threadIdx.x; col < kN; col += blockDim.x) {
+    int o, jj;
+    out_col(col, hs, hv, o, jj);
+    d2w[col] = o >= 0 ? bf(w0a[2 * hs * c0 + o]) : jj >= 0 ? bf(w1sa[2 * hs * hv + jj]) : 0.f;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The gather.  A tile: unit rows q0 .. q0+15 of the unit of receivers
+// [node0, node0 + nrecv) (nrecv 0: an empty tile); unit row q is slot q % K
+// of receiver node0 + q / K, live when q < nrecv K.
+struct TileRef {
+  int node0, nrecv, q0;
+  int slot0;  // the backward's TAB scratch: the unit's first slot in its gather tile
+};
+
+// one warp's buffer in shared memory
+struct Buf {
+  bf16* s;     // [16][kLdF] sender rows (zeros: no sender)
+  bf16* r;     // [tile_recv][kLdF] receiver rows
+  bf16* d;     // [tile_recv][kLdF] d_agg rows (backward)
+  float* geo;  // [16][8]: s, vx, vy, vz, mask, d2
+  int* ri;     // [16] each row's receiver row in r
+  int* snd;    // [16] each row's sender row (-1: none)
+};
+
+__device__ inline Buf carve_buf(unsigned char* p, int k, bool dagg) {
+  Buf b;
+  const int rw = tile_recv(k);
+  b.s = reinterpret_cast<bf16*>(p);
+  p += align16(2L * 16 * kLdF);
+  b.r = reinterpret_cast<bf16*>(p);
+  p += align16(2L * rw * kLdF);
+  b.d = reinterpret_cast<bf16*>(p);
+  if (dagg) p += align16(2L * rw * kLdF);
+  b.geo = reinterpret_cast<float*>(p);
+  p += align16(4L * 16 * 8);
+  b.ri = reinterpret_cast<int*>(p);
+  p += align16(4L * 16);
+  b.snd = reinterpret_cast<int*>(p);
+  return b;
+}
+
+// How a feature row is copied: 16-byte chunks (widths multiples of 8, rows
+// 16-byte aligned), 4-byte words (even widths, 4-byte aligned) or elements.
+enum CopyMode { kCopy16 = 0, kCopy4 = 1, kCopy2 = 2 };
+
+// chunk ch (8 padded columns) of a feature row: src row of F features
+// (null: zeros) into the padded dst row; padded lanes stay as they are (zero)
+__device__ __forceinline__ void copy_chunk(bf16* dst, const bf16* src, int ch, int hs, int hv,
+                                           int mode) {
+  const int pc = ch * 8;
+  int fc, n;
+  if (pc < kHS) {
+    fc = pc;
+    n = hs - pc;
+  } else {
+    const int c = (pc - kHS) / kHV, j = (pc - kHS) % kHV;
+    fc = hs + c * hv + j;
+    n = hv - j;
+  }
+  if (n <= 0) return;
+  if (n > 8) n = 8;
+  bf16* d = dst + pc;
+  if (src == nullptr) {
+    *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+  } else if (mode == kCopy16) {
+    cp_async16(d, src + fc);
+  } else if (mode == kCopy4) {
+    for (int w = 0; w < n; w += 2) cp_async4(d + w, src + fc + w);
+  } else {
+    for (int w = 0; w < n; ++w) d[w] = src[fc + w];
+  }
+}
+
+// the copy mode of rows at these bases: 16-byte chunks where every base is
+// 16-byte aligned and the widths are multiples of 8, words where they are
+// even, else elements
+__host__ inline int copy_mode(int hs, int hv, std::initializer_list<const void*> rows) {
+  uintptr_t any = 0;
+  for (const void* p : rows) any |= reinterpret_cast<uintptr_t>(p);
+  if (hs % 8 == 0 && hv % 8 == 0 && any % 16 == 0) return kCopy16;
+  if (hs % 2 == 0 && hv % 2 == 0 && any % 4 == 0) return kCopy4;
+  return kCopy2;
+}
+
+struct GatherArgs {
+  const bf16* h;      // TAB: the features (senders by the table, receivers); else receivers
+  const bf16* hsp;    // KM: hs3 [K, N, F]; FLAT: hs [N*K, F]
+  const bf16* d2;
+  const bf16* attr;
+  const bf16* maskf;
+  const int* loc;
+  const int* gtab;
+  const bf16* geo2;   // KM
+  const bf16* dagg;   // backward: d_agg [N, F]
+  int npad, hs, hv, k, tile, u, mode;
+};
+
+// the warp gathers tile tr into b (asynchronously: the caller commits and
+// waits); lanes 0-15 own a row's ids and geometry
+template <Addr A>
+__device__ void gather_tile(const Buf& b, const TileRef& tr, const GatherArgs& ga, int lane) {
+  const int k = ga.k, f = ga.hs + 3 * ga.hv;
+  const int rel0 = tr.q0 / k;
+  if (lane < 16) {
+    const int q = tr.q0 + lane;
+    const bool live = q < tr.nrecv * k;
+    const int rel = q / k, kk = q % k;
+    const int node = tr.node0 + rel;
+    int snd = -1;
+    float g[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (live) {
+      const long e = (long)node * k + kk;
+      if (A == Addr::kKm) {
+        snd = kk * ga.npad + node;  // K*N < 2^31, checked by the wrapper
+        const bf16* gg = ga.geo2 + e * 6;  // sh 4, d2, mask
+#pragma unroll
+        for (int c = 0; c < 4; ++c) g[c] = bf(gg[c]);
+        g[4] = bf(gg[5]);
+        g[5] = bf(gg[4]);
+      } else {
+        if (A == Addr::kFlat) {
+          snd = (int)e;  // N*K < 2^31, checked by the wrapper
+        } else {
+          const int l = ga.loc[e];
+          if (l < ga.u) {
+            const int t = ga.gtab[(long)(node / ga.tile) * ga.u + l];
+            snd = (t >= 0 && t < ga.npad) ? t : -1;
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) g[c] = bf(ga.attr[e * 4 + c]);
+        g[4] = bf(ga.maskf[e]);
+        g[5] = bf(ga.d2[e]);
+      }
+    }
+    b.snd[lane] = snd;
+    b.ri[lane] = live ? rel - rel0 : 0;
+    float4* gp = reinterpret_cast<float4*>(b.geo + lane * 8);
+    gp[0] = make_float4(g[0], g[1], g[2], g[3]);
+    gp[1] = make_float4(g[4], g[5], 0.f, 0.f);
+  }
+  __syncwarp();
+  const bf16* hsrc = A == Addr::kTab ? ga.h : ga.hsp;
+  for (int x = lane; x < 16 * kChunks; x += 32) {
+    const int row = x / kChunks, ch = x % kChunks;
+    const int snd = b.snd[row];
+    copy_chunk(b.s + row * kLdF, snd >= 0 ? hsrc + (long)snd * f : nullptr, ch, ga.hs, ga.hv,
+               ga.mode);
+  }
+  const int rw = tile_recv(k);
+  const int nrow = ga.dagg != nullptr ? 2 * rw : rw;
+  for (int x = lane; x < nrow * kChunks; x += 32) {
+    const int j = x / kChunks, ch = x % kChunks;
+    const bool dg = j >= rw;
+    const int jr = dg ? j - rw : j;
+    const bool live = rel0 + jr < tr.nrecv;
+    const long node = tr.node0 + rel0 + jr;
+    const bf16* src = live ? (dg ? ga.dagg : ga.h) + node * f : nullptr;
+    copy_chunk((dg ? b.d : b.r) + jr * kLdF, src, ch, ga.hs, ga.hv, ga.mode);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The products, an n-tile pair at a time (so that few accumulators are
+// live): acc[2][4] += A @ W[wrow .. wrow+16][col0 .. col0+16), the weights
+// by ldmatrix.trans
+__device__ __forceinline__ void mma_pair(float (&acc)[2][4], const uint32_t (&a)[4],
+                                         const bf16* W, int wrow, int col0, int lane) {
+  uint32_t b[4];
+  ldsm_x4_t(b, W + (wrow + (lane & 15)) * kLdW + col0 + (lane >> 4) * 8);
+  mma_bf16_16816(acc[0], a, b[0], b[1]);
+  mma_bf16_16816(acc[1], a, b[2], b[3]);
+}
+
+// The VJP's products: acc[2][4] += A @ W[nrow .. nrow+16][kcol .. kcol+16)^T
+// (n-tiles of input rows), the weights by plain ldmatrix
+__device__ __forceinline__ void mma_pairT(float (&acc)[2][4], const uint32_t (&a)[4],
+                                          const bf16* W, int nrow, int kcol, int lane) {
+  uint32_t b[4];
+  ldsm_x4(b, W + (nrow + (lane & 7) + (lane >> 4) * 8) * kLdW + kcol + ((lane >> 3) & 1) * 8);
+  mma_bf16_16816(acc[0], a, b[0], b[1]);
+  mma_bf16_16816(acc[1], a, b[2], b[3]);
+}
+
+template <int N> __device__ __forceinline__ void zero(float (&x)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i][0] = x[i][1] = x[i][2] = x[i][3] = 0.f;
+}
+
+// A tile's geometry for this lane's rows g and g + 8, read from the
+// buffer where it is used (held in registers for the whole tile, its twelve
+// values would crowd the backward's accumulators)
+struct RowGeo {
+  const float* p;  // row g's [s, vx, vy, vz, mask, d2]; row g + 8 at p + 64
+  __device__ __forceinline__ float s(int h) const { return p[h * 64]; }
+  __device__ __forceinline__ float v(int h, int c) const { return p[h * 64 + 1 + c]; }
+  __device__ __forceinline__ float mk(int h) const { return p[h * 64 + 4]; }
+  __device__ __forceinline__ float d2(int h) const { return p[h * 64 + 5]; }
+};
+__device__ __forceinline__ RowGeo row_geo(const float* geo, int g) { return RowGeo{geo + g * 8}; }
+
+// Layer 1 of a tile: o0 [6 n-tiles], oa [2], ob [3 components][2] (C
+// fragments), from the gathered rows: o0 = s (xs W0s + d2 w0_d2) + cgd sum_c
+// v_c (xv_c W0v), A = xs W1S + d2 w1_d2, B_c = s (xv_c W1V).  cgd: CG110
+// (tabled rounding) or 1 (KM: folded into the staged rows).
+__device__ __forceinline__ void layer1(const bf16* W, const float* d2w, const Buf& b,
+                                       const RowGeo& rg, float cgd, int lane,
+                                       float (&o0)[6][4], float (&oa)[2][4],
+                                       float (&ob)[3][2][4]) {
+  const int t4 = lane & 3;
+  const int ar = lane & 15, ac = (lane >> 4) * 8;
+  const bf16* as = b.s + ar * kLdF + ac;
+  const bf16* arr = b.r + b.ri[ar] * kLdF + ac;
+  {
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      float t[2][4];
+      zero(t);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {  // (the A fragments reloaded per pair: fewer live)
+        uint32_t a[4];
+        ldsm_x4(a, (ks < 2 ? as : arr) + (ks & 1) * 16);
+        mma_pair(t, a, W, kW1s + ks * 16, np * 16, lane);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int h = q >> 1, nt = 2 * np + j, col = nt * 8 + 2 * t4 + (q & 1);
+          const float x = fmaf(rg.d2(h), d2w[col], t[j][q]);
+          if (nt < 6) o0[nt][q] = rg.s(h) * x;
+          else oa[nt - 6][q] = x;
+        }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    uint32_t a[2][4];
+    ldsm_x4(a[0], as + kHS + kHV * c);
+    ldsm_x4(a[1], arr + kHS + kHV * c);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      float t[2][4];
+      zero(t);
+      mma_pair(t, a[0], W, kW1v, np * 16, lane);
+      mma_pair(t, a[1], W, kW1v + 16, np * 16, lane);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int h = q >> 1, nt = 2 * np + j;
+          if (nt < 6) o0[nt][q] = fmaf(cgd * rg.v(h, c), t[j][q], o0[nt][q]);
+          else ob[c][nt - 6][q] = rg.s(h) * t[j][q];
+        }
+    }
+  }
+}
+
+// Layer 2 of a tile on the rounded layer-1 outputs m0 (2 k-steps) and m1_c
+// (1 k-step each), in A fragments.
+__device__ __forceinline__ void layer2(const bf16* W, const RowGeo& rg, float cgd, int lane,
+                                       const uint32_t (&am0)[2][4],
+                                       const uint32_t (&am1)[3][4], float (&o0)[6][4],
+                                       float (&oa)[2][4], float (&ob)[3][2][4]) {
+#pragma unroll
+  for (int np = 0; np < 4; ++np) {
+    float t[2][4];
+    zero(t);
+    mma_pair(t, am0[0], W, kW2s, np * 16, lane);
+    mma_pair(t, am0[1], W, kW2s + 16, np * 16, lane);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int nt = 2 * np + j;
+        if (nt < 6) o0[nt][q] = rg.s(q >> 1) * t[j][q];
+        else oa[nt - 6][q] = t[j][q];
+      }
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      float t[2][4];
+      zero(t);
+      mma_pair(t, am1[c], W, kW2v, np * 16, lane);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int h = q >> 1, nt = 2 * np + j;
+          if (nt < 6) o0[nt][q] = fmaf(cgd * rg.v(h, c), t[j][q], o0[nt][q]);
+          else ob[c][nt - 6][q] = rg.s(h) * t[j][q];
+        }
+    }
+}
+
+// The layer-1 gate: m0 = silu(o0) and m1_c = CG011 (v_c A + B_c) sigmoid(o0v),
+// rounded to bf16, as the layer-2 A fragments.  KM rounds A and the sigmoid
+// first (the km2 form).
+template <bool KM>
+__device__ __forceinline__ void gate1(const float (&o0)[6][4], const float (&oa)[2][4],
+                                      const float (&ob)[3][2][4], const RowGeo& rg,
+                                      uint32_t (&am0)[2][4], uint32_t (&am1)[3][4]) {
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    float m[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) m[q] = o0[nt][q] * sigm(o0[nt][q]);
+    am0[nt >> 1][(nt & 1) * 2 + 0] = pack(m[0], m[1]);
+    am0[nt >> 1][(nt & 1) * 2 + 1] = pack(m[2], m[3]);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float m[3][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int h = q >> 1;
+      const float g = KM ? rnd(sigm(o0[4 + i][q])) : sigm(o0[4 + i][q]);
+      const float a = KM ? rnd(oa[i][q]) : oa[i][q];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) m[c][q] = kCG * fmaf(rg.v(h, c), a, ob[c][i][q]) * g;
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      am1[c][i * 2 + 0] = pack(m[c][0], m[c][1]);
+      am1[c][i * 2 + 1] = pack(m[c][2], m[c][3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The K-sum of a tile's rows held in a per-warp buffer [16][kLdK] (padded
+// columns): the lanes walk the rows in slot order, lane l owns padded columns
+// l, l + 32, l + 64, and each receiver's sum (its K slots in fp32, FLAT in
+// groups of pack rounded once) is written to out [N, F] when its last slot
+// is added.  The running sums carry over the unit's tiles.
+struct KSum {
+  float acc[3], grp[3];
+};
+
+__device__ __forceinline__ void ksum_init(KSum& ks) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j) ks.acc[j] = ks.grp[j] = 0.f;
+}
+
+template <bool FLAT, typename KT>
+__device__ __forceinline__ void ksum_tile(KSum& ks, const KT* buf, const TileRef& tr, int k,
+                                          int pack_, int hs, int hv, bf16* out, int lane) {
+  const int f = hs + 3 * hv;
+  int col[3];  // the feature column of each owned padded column, or -1
+#pragma unroll
+  for (int j = 0; j < 3; ++j) col[j] = lane + 32 * j < kFP ? feat_col(lane + 32 * j, hs, hv) : -1;
+  const int live = tr.nrecv * k - tr.q0;
+  for (int i = 0; i < 16 && i < live; ++i) {
+    const int q = tr.q0 + i;
+    const int kk = q % k;
+    if (kk == 0) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) ks.acc[j] = ks.grp[j] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      if (col[j] < 0) continue;
+      const float x = bf(buf[i * kLdK + lane + 32 * j]);
+      if (FLAT) {
+        ks.grp[j] += x;
+        if ((kk + 1) % pack_ == 0) {
+          ks.acc[j] += rnd(ks.grp[j]);
+          ks.grp[j] = 0.f;
+        }
+      } else {
+        ks.acc[j] += x;
+      }
+    }
+    if (kk == k - 1) {
+      const long node = tr.node0 + q / k;
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        if (col[j] >= 0) out[node * f + col[j]] = __float2bfloat16(ks.acc[j]);
+    }
+  }
+}
+
+}  // namespace l1mma

@@ -35,6 +35,10 @@ Backward (the counterpart of ``_vjp_bwd_tab``), likewise:
   ``d_hr`` and the fp32 weight gradients, reduced over blocks in a fixed
   order), the plain version for CPU tensors.
 
+In bf16 every kernel of this module (#1-#7) runs on the tensor-core engine
+``csrc/lmax1_mma.cuh``, which pads the layers to 32x0e+16x1o (wider bf16
+layers raise); in fp32 (the check path) on the FMA units.
+
 Both backward forms end in the same PyTorch epilogue, the split reverse-table
 gather-sum ``d_h = d_hr + sum_q d_hu[revd[:, q]] + segment_sum(d_hu[remp],
 remn)``; its segment sum is ``torch.segment_reduce`` over the node-sorted
@@ -102,14 +106,15 @@ _MAX_SMEM = 232_448
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 TAB_FWD = CudaKernel("fused_message_tab_fwd", {
-    "fused_message_tab_fwd_smem_bytes": (ctypes.c_long, [_I] * 3),
+    # dtype, hs, hv, k
+    "fused_message_tab_fwd_smem_bytes": (ctypes.c_long, [_I] * 4),
     # dtype, 13 pointers (h, d2, attr, maskf, loc, gtab, 6 weights, out),
     # npad, hs, hv, k, tile, u, stream
     "fused_message_tab_fwd": (_I, [_I] + [_P] * 13 + [_I] * 6 + [_P]),
 })
 TAB_BWD = CudaKernel("fused_message_tab_bwd", {
-    # hs, hv, k, tile, u
-    "fused_message_tab_bwd_smem_bytes": (ctypes.c_long, [_I] * 5),
+    # dtype, hs, hv, k, tile, u
+    "fused_message_tab_bwd_smem_bytes": (ctypes.c_long, [_I] * 6),
     # dtype, hs, hv, k, tile, u, ntiles: blocks of the main kernel (sizes its scratch)
     "fused_message_tab_bwd_grid": (_I, [_I] * 7),
     # dtype, 13 inputs (h, d2, attr, maskf, loc, gtab, 6 weights, d_agg),
@@ -133,12 +138,13 @@ COL_THREADS, COL_ROWS = 64, 16
 # read from the slot-major hs3 [K, N, F] (row k*N + i) and the geometry from
 # the node-major geo2 [N, K*6]
 KM_FWD = CudaKernel("fused_message_km_fwd", {
-    "fused_message_tab_fwd_smem_bytes": (ctypes.c_long, [_I] * 3),
+    "fused_message_tab_fwd_smem_bytes": (ctypes.c_long, [_I] * 4),
     # dtype, 10 pointers (hs3, hr, geo2, 6 weights, out), n, hs, hv, k, stream
     "fused_message_km_fwd": (_I, [_I] + [_P] * 10 + [_I] * 4 + [_P]),
 }, source_name="fused_message_tab_fwd")
 KM_BWD = CudaKernel("fused_message_km_bwd", {
-    "fused_message_km_bwd_smem_bytes": (ctypes.c_long, [_I] * 3),
+    # dtype, hs, hv, k
+    "fused_message_km_bwd_smem_bytes": (ctypes.c_long, [_I] * 4),
     # dtype, hs, hv, k, n: blocks of the main kernel
     "fused_message_km_bwd_grid": (_I, [_I] * 5),
     # dtype, 10 inputs (hs3, hr, geo2, 6 weights, d_agg), 3 outputs (d_hs,
@@ -150,13 +156,13 @@ KM_BWD = CudaKernel("fused_message_km_bwd", {
 # read from hs [N*K, F] (row i*K + k) and the geometry from the flat d2,
 # attr, maskf rows; pack sets where the K-sum and d_hr round
 FLAT_FWD = CudaKernel("fused_message_flat_fwd", {
-    "fused_message_tab_fwd_smem_bytes": (ctypes.c_long, [_I] * 3),
+    "fused_message_tab_fwd_smem_bytes": (ctypes.c_long, [_I] * 4),
     # dtype, 12 pointers (hs, hr, d2, attr, maskf, 6 weights, out), n, hs, hv,
     # k, pack, stream
     "fused_message_flat_fwd": (_I, [_I] + [_P] * 12 + [_I] * 5 + [_P]),
 }, source_name="fused_message_tab_fwd")
 FLAT_BWD = CudaKernel("fused_message_flat_bwd", {
-    "fused_message_km_bwd_smem_bytes": (ctypes.c_long, [_I] * 3),
+    "fused_message_km_bwd_smem_bytes": (ctypes.c_long, [_I] * 4),
     # dtype, hs, hv, k, n: blocks of the main kernel
     "fused_message_flat_bwd_grid": (_I, [_I] * 5),
     # dtype, 12 inputs (hs, hr, d2, attr, maskf, 6 weights, d_agg), 3 outputs
@@ -447,11 +453,20 @@ def fused_message_aggregate_tabled_bwd_plain(cfg: MessageConfig, h, d2, attr, ma
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _cuda_args(h, args):
+# the bf16 kernels' tensor-core engine (csrc/lmax1_mma.cuh) pads every layer
+# to these widths
+ENGINE_HS, ENGINE_HV = 32, 16
+
+
+def _cuda_args(h, args, cfg=None):
     if h.device.type != "cuda":
         raise ValueError(f"no kernel for device {h.device}")
     if h.dtype not in _DTYPE_CODE:
         raise TypeError(f"the kernel takes float32 or bfloat16, not {h.dtype}")
+    if cfg is not None and h.dtype == torch.bfloat16 and (cfg.hs > ENGINE_HS or
+                                                          cfg.hv > ENGINE_HV):
+        raise ValueError(f"the bf16 kernels take at most {ENGINE_HS}x0e+{ENGINE_HV}x1o, not "
+                         f"{cfg.hs}x0e+{cfg.hv}x1o")
     for x in args:
         if x.device != h.device:
             raise ValueError(f"all inputs must be on {h.device}, found {x.device}")
@@ -469,9 +484,10 @@ def fused_message_aggregate_tabled_fwd(cfg: MessageConfig, h, d2, attr, maskf, l
     ws = split_weights(cfg, w0e1, w1o1, w0e2, w1o2)
     _check_inputs(cfg, h, d2, attr, maskf, loc, gtab, ws)
     args = (h, d2, attr, maskf, loc, gtab, *ws)
-    _cuda_args(h, args)
+    _cuda_args(h, args, cfg)
+    _check_slot_rows(h.shape[0], cfg.k)
     lib = TAB_FWD.lib()
-    smem = lib.fused_message_tab_fwd_smem_bytes(cfg.hs, cfg.hv, cfg.k)
+    smem = lib.fused_message_tab_fwd_smem_bytes(_DTYPE_CODE[h.dtype], cfg.hs, cfg.hv, cfg.k)
     if smem > _MAX_SMEM:
         raise ValueError(f"widths need {smem} bytes of shared memory per block (max {_MAX_SMEM})")
     out = torch.empty_like(h)
@@ -494,10 +510,11 @@ def tab_bwd_kernel(cfg: MessageConfig, h, d2, attr, maskf, loc, gtab, ws, d_agg)
     _check_inputs(cfg, h, d2, attr, maskf, loc, gtab, ws)
     _check_d_agg(h, d_agg)
     args = (h, d2, attr, maskf, loc, gtab, *ws, d_agg)
-    _cuda_args(h, args)
+    _cuda_args(h, args, cfg)
+    _check_slot_rows(h.shape[0], cfg.k)
     lib = TAB_BWD.lib()
     dims = (cfg.hs, cfg.hv, cfg.k, cfg.tile, cfg.u)
-    smem = lib.fused_message_tab_bwd_smem_bytes(*dims)
+    smem = lib.fused_message_tab_bwd_smem_bytes(_DTYPE_CODE[h.dtype], *dims)
     if smem > _MAX_SMEM:
         raise ValueError(f"widths need {smem} bytes of shared memory per block (max {_MAX_SMEM})")
     npad, f = h.shape
@@ -509,9 +526,12 @@ def tab_bwd_kernel(cfg: MessageConfig, h, d2, attr, maskf, loc, gtab, ws, d_agg)
     nw = sum(a * b for a, b in cfg.weight_shapes())
     d_hu = torch.empty((ntiles * cfg.u, f), dtype=h.dtype, device=h.device)
     d_hr = torch.empty_like(h)
-    # per block: the d_hs rows of the tile it is on (data dtype), and its
-    # fp32 weight-gradient partial sums
-    dhs_scratch = torch.empty((grid, cfg.tile * cfg.k, f), dtype=h.dtype, device=h.device)
+    # the d_hs rows the table sums read (data dtype): the fp32 kernel's per
+    # block, for the tile it is on; the bf16 kernel's per slot (it sums the
+    # tables after all its rounds), and the per-block fp32 weight-gradient
+    # partial sums
+    rows = npad * cfg.k if h.dtype == torch.bfloat16 else grid * cfg.tile * cfg.k
+    dhs_scratch = torch.empty((rows, f), dtype=h.dtype, device=h.device)
     partials = torch.empty((grid, nw), dtype=torch.float32, device=h.device)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     with torch.cuda.device(h.device):
@@ -747,10 +767,10 @@ def fused_message_aggregate_km_fwd(cfg: MessageConfig, hs3, hr, geo2, w0e1, w1o1
     ws = split_weights(cfg, w0e1, w1o1, w0e2, w1o2)
     _check_km(cfg, hs3, hr, geo2, ws)
     args = (hs3, hr, geo2, *ws)
-    _cuda_args(hr, args)
+    _cuda_args(hr, args, cfg)
     _check_slot_rows(hr.shape[0], cfg.k)
     lib = KM_FWD.lib()
-    smem = lib.fused_message_tab_fwd_smem_bytes(cfg.hs, cfg.hv, cfg.k)
+    smem = lib.fused_message_tab_fwd_smem_bytes(_DTYPE_CODE[hr.dtype], cfg.hs, cfg.hv, cfg.k)
     if smem > _MAX_SMEM:
         raise ValueError(f"widths need {smem} bytes of shared memory per block (max {_MAX_SMEM})")
     out = torch.empty_like(hr)
@@ -772,11 +792,11 @@ def km_bwd_kernel(cfg: MessageConfig, hs3, hr, geo2, ws, d_agg):
     _check_km(cfg, hs3, hr, geo2, ws)
     _check_d_agg(hr, d_agg)
     args = (hs3, hr, geo2, *ws, d_agg)
-    _cuda_args(hr, args)
+    _cuda_args(hr, args, cfg)
     _check_slot_rows(hr.shape[0], cfg.k)
     lib = KM_BWD.lib()
     dims = (cfg.hs, cfg.hv, cfg.k)
-    smem = lib.fused_message_km_bwd_smem_bytes(*dims)
+    smem = lib.fused_message_km_bwd_smem_bytes(_DTYPE_CODE[hr.dtype], *dims)
     if smem > _MAX_SMEM:
         raise ValueError(f"widths need {smem} bytes of shared memory per block (max {_MAX_SMEM})")
     n = hr.shape[0]
@@ -968,10 +988,10 @@ def fused_message_aggregate_fwd(cfg: MessageConfig, hs, hr, d2, attr, maskf, w0e
     ws = split_weights(cfg, w0e1, w1o1, w0e2, w1o2)
     _check_flat(cfg, hs, hr, d2, attr, maskf, ws)
     args = (hs, hr, d2, attr, maskf, *ws)
-    _cuda_args(hr, args)
+    _cuda_args(hr, args, cfg)
     _check_slot_rows(hr.shape[0], cfg.k)
     lib = FLAT_FWD.lib()
-    smem = lib.fused_message_tab_fwd_smem_bytes(cfg.hs, cfg.hv, cfg.k)
+    smem = lib.fused_message_tab_fwd_smem_bytes(_DTYPE_CODE[hr.dtype], cfg.hs, cfg.hv, cfg.k)
     if smem > _MAX_SMEM:
         raise ValueError(f"widths need {smem} bytes of shared memory per block (max {_MAX_SMEM})")
     out = torch.empty_like(hr)
@@ -994,11 +1014,11 @@ def flat_bwd_kernel(cfg: MessageConfig, hs, hr, d2, attr, maskf, ws, d_agg):
     _check_flat(cfg, hs, hr, d2, attr, maskf, ws)
     _check_d_agg(hr, d_agg)
     args = (hs, hr, d2, attr, maskf, *ws, d_agg)
-    _cuda_args(hr, args)
+    _cuda_args(hr, args, cfg)
     _check_slot_rows(hr.shape[0], cfg.k)
     lib = FLAT_BWD.lib()
     dims = (cfg.hs, cfg.hv, cfg.k)
-    smem = lib.fused_message_km_bwd_smem_bytes(*dims)
+    smem = lib.fused_message_km_bwd_smem_bytes(_DTYPE_CODE[hr.dtype], *dims)
     if smem > _MAX_SMEM:
         raise ValueError(f"widths need {smem} bytes of shared memory per block (max {_MAX_SMEM})")
     n = hr.shape[0]

@@ -1,0 +1,247 @@
+"""Before/after A/B of the lmax=1 message kernels at config 3, for two
+checkouts of the port on one card.
+
+    python scalable_e3_gnn_torch/kernels/lmax1_ab.py [--repo DIR] [--tag NAME]
+
+Imports ``scalable_e3_gnn_torch`` from DIR (default: the checkout holding
+this file), builds config 3's graph on the card (100k uniform points from
+seed 0, r = 0.04, K = 24, octree 6 levels, symmetrized, gather tables at
+tile 160), takes layer 0 of config 3's SEGNN (32x0e+16x1o, weights from
+seed 0) and makes bf16 inputs as ``chip_smoke.py`` does (random features,
+extra masked slots, the last 37 receivers without a valid slot), then runs
+the tabled forward #1 and backward #2 (main kernel, the reduction, the whole
+backward with its epilogue), and the untabled #3 and #5 on the same graph
+without its tables, and prints one JSON line: device ms per launch of every
+kernel by torch.profiler, CUDA-event ms per call, the kernels' bf16 ulps
+against their plain versions (max, and the share of elements over 1 ulp, of
+max(|ref|, mean|ref|)), #2's partials shape, and the card's name and power
+limit.  Compare two checkouts only within one call, in turns (parent,
+change, change, parent).
+
+``--clocks DIR`` (this checkout's sources only) builds the backward source
+once more with ``LMAX1_BWD_CLOCKS`` into DIR and prints #2's cycles per
+round in each phase, read by ``clock64`` on thread 0 of every block: the
+gather, layer 1, layer 2 with its gates' VJP, layer 2's input cotangents,
+layer 1 again with its gates' VJP, layer 1's input cotangents, the K-sum,
+the wait at the round's first barrier, warp 0's weight gradients, the wait
+at the second barrier, and the table sums after the rounds (spread per
+round).
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+N_POINTS = 100_000
+RADIUS = 0.04
+K = 24
+TILE = 160
+LEVELS = 6
+HIDDEN = "32x0e+16x1o"
+SEED = 0
+LO, HI = (0.0,) * 3, (1.0,) * 3
+
+
+def _events(fn, iters: int, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _device(fn, iters: int) -> dict:
+    """Per CUDA kernel name: device ms per launch and launches per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
+            out[ev.key[:60]] = dict(ms=ev.self_device_time_total / 1e3 / ev.count,
+                                    per_call=ev.count / iters)
+    return out
+
+
+def _ulps(got, ref) -> dict:
+    """|got - ref| in bf16 ulps of max(|ref|, mean|ref|): the max and the
+    share of elements over 1 ulp (``chip_smoke.bf16_ulps``)."""
+    r = ref.float().abs()
+    scale = torch.clamp(r, min=max(float(r.mean()), 1e-30))
+    d = (got.float() - ref.float()).abs() / torch.exp2(torch.floor(torch.log2(scale)) - 7)
+    return dict(max=round(float(d.max()), 4), over1=float((d > 1).float().mean()))
+
+
+def bwd_clocks(fm, ta, ws, d_agg, out_dir: Path) -> dict:
+    """#2's cycles per round in each phase, from the profiling build."""
+    from scalable_e3_gnn_torch.kernels import build
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "libfused_message_tab_bwd-clocks.so"
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-DLMAX1_BWD_CLOCKS", "-o", str(path),
+                    str(build.CSRC / "fused_message_tab_bwd.cu")], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(path))
+    for fn, (restype, argtypes) in fm.TAB_BWD.signatures.items():
+        getattr(lib, fn).restype, getattr(lib, fn).argtypes = restype, argtypes
+    lib.lmax1_bwd_phase_cycles.restype = ctypes.c_int
+    lib.lmax1_bwd_phase_cycles.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+    cfg, h = ta[0], ta[1]
+    npad, f = h.shape
+    dims = (cfg.hs, cfg.hv, cfg.k, cfg.tile, cfg.u)
+    grid = lib.fused_message_tab_bwd_grid(1, *dims, npad // cfg.tile)
+    nw = sum(a * b for a, b in cfg.weight_shapes())
+    d_hu = torch.empty((npad // cfg.tile * cfg.u, f), dtype=h.dtype, device=h.device)
+    d_hr = torch.empty_like(h)
+    scratch = torch.empty((npad * cfg.k, f), dtype=h.dtype, device=h.device)
+    part = torch.empty((grid, nw), dtype=torch.float32, device=h.device)
+    args = (*ta[1:], *ws, d_agg)
+    call = lambda: lib.fused_message_tab_bwd(
+        1, *(x.data_ptr() for x in args), d_hu.data_ptr(), d_hr.data_ptr(), scratch.data_ptr(),
+        part.data_ptr(), npad, *dims, grid, torch.cuda.current_stream().cuda_stream)
+    cyc = (ctypes.c_ulonglong * 12)()
+    assert call() == 0
+    torch.cuda.synchronize()
+    lib.lmax1_bwd_phase_cycles(cyc)  # drop the warm-up
+    iters = 3
+    for _ in range(iters):
+        assert call() == 0
+    torch.cuda.synchronize()
+    assert lib.lmax1_bwd_phase_cycles(cyc) == 0
+    rounds = cyc[11]
+    names = ("gather", "layer1", "layer2_vjp", "layer2_cotangents", "layer1_again_vjp",
+             "layer1_cotangents", "ksum", "barrier1", "wgrad", "barrier2", "table_sum")
+    per_round = {nm: cyc[i] / rounds for i, nm in enumerate(names)}
+    return dict(cycles_per_round=per_round, total=sum(per_round.values()),
+                rounds_per_block=rounds / iters / grid, blocks=grid)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--repo", default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--clocks", default="", help="scratch directory for the profiling build")
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.repo).resolve()))
+    import scalable_e3_gnn_torch
+    from scalable_e3_gnn_torch.graph.container import DenseEdgeGraph
+    from scalable_e3_gnn_torch.graph.octree import build_octree
+    from scalable_e3_gnn_torch.graph.radius import radius_graph_cell, suggest_cell_capacity
+    from scalable_e3_gnn_torch.kernels import fused_message as fm
+    from scalable_e3_gnn_torch.models.segnn import SEGNN
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    pts = np.random.default_rng(SEED).random((N_POINTS, 3)).astype(np.float32)
+    tree = build_octree(pts, LO, HI, num_levels=LEVELS, device=dev)
+    cap = suggest_cell_capacity(tree, RADIUS, LO, HI)
+    edges = radius_graph_cell(tree, RADIUS, LO, HI, max_neighbors=K, cell_capacity=cap)
+    feats = np.random.default_rng(SEED + 1).standard_normal((N_POINTS, 5)).astype(np.float32)
+    graph = DenseEdgeGraph.from_radius_edges(feats, tree.points, edges, symmetrize=True)
+    graph = graph.with_gather_tables(tile=TILE)
+    model = SEGNN("2x0e+1x1o", HIDDEN, "1x1o", num_layers=4, layout="cm", use_pallas=True,
+                  device=dev, generator=torch.Generator().manual_seed(SEED))
+    layer = model.layers[0]
+    attrs = model.compute_attributes_dense(graph)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    # the tabled inputs (chip_smoke.kernel_inputs)
+    edge_attr, dist2, edge_geo = attrs[0], attrs[2], attrs[3]
+    n, k = graph.edge_mask.shape
+    npad = graph.gather_loc.shape[0]
+    cfg = fm.MessageConfig(hs=layer._pallas_hs, hv=layer._pallas_hv, k=k, tile=TILE,
+                           u=graph.gather_tab.shape[1])
+    mask = graph.edge_mask & (torch.rand((n, k), generator=gen, device=dev) > 0.1)
+    mask[n - 37:] = False
+    loc = graph.gather_loc.clone()
+    loc[n - 37:] = cfg.u
+    h = torch.randn((npad, cfg.f), generator=gen, device=dev)
+    h[n - 37:] = 0.0
+    pad = lambda x: torch.cat([x, x.new_zeros((npad - n,) + x.shape[1:])])
+    targs = [pad(dist2).reshape(npad * k, 1), pad(edge_attr).reshape(npad * k, 4),
+             pad(mask.float()).reshape(npad * k, 1)]
+    h, d2, attr, maskf = (x.to(bf).contiguous() for x in [h] + targs)
+    loc = loc.reshape(npad * k, 1).contiguous()
+    gtab = graph.gather_tab.contiguous()
+    w4 = layer._folded_weights(bf)
+    ws = fm.split_weights(cfg, *w4)
+    tabs = (graph.gather_rev_dense, graph.gather_rem_pos, graph.gather_rem_node)
+    d_agg = torch.randn((npad, cfg.f), generator=gen, device=dev).to(bf)
+    ta = (cfg, h, d2, attr, maskf, loc, gtab)
+    # the untabled inputs on the same graph (chip_smoke.km_inputs): hs3 by
+    # the senders, the geometry with the same masks
+    kcfg = fm.MessageConfig(hs=cfg.hs, hv=cfg.hv, k=k, tile=TILE)
+    geo = edge_geo.float().reshape(n, k, 6).clone()
+    geo[..., 5] = mask.float()
+    senders = torch.clamp(graph.senders.long(), max=n - 1)
+    hs3 = torch.cat([h[:n][senders.t()], h.new_zeros((k, npad - n, cfg.f))], 1).contiguous()
+    geo2 = pad(geo.reshape(n, k * 6)).to(bf).contiguous()
+    ka = (kcfg, hs3, h, geo2)
+
+    with torch.no_grad():
+        agg = fm.fused_message_aggregate_tabled_fwd(*ta, *w4)
+        d_hu, d_hr, part = fm.tab_bwd_kernel(*ta, ws, d_agg)
+        dws = fm._split_partials(cfg, fm.tab_bwd_reduce(part))
+        kagg = fm.fused_message_aggregate_km_fwd(*ka, *w4)
+        k_hs, k_hr, kpart = fm.km_bwd_kernel(*ka, ws, d_agg)
+        kdws = fm._split_partials(cfg, fm.tab_bwd_reduce(kpart))
+        torch.cuda.synchronize()
+        r_agg = fm.fused_message_aggregate_tabled_plain(*ta, *w4)
+        r_hu, r_hr, r_dws = fm.tab_bwd_plain(*ta, ws, d_agg)
+        r_kagg = fm.fused_message_aggregate_km_plain(*ka, *w4)
+        rk_hs, rk_hr, rk_dws = fm.km_bwd_plain(*ka, ws, d_agg)
+        names = ("W0a", "W1Sa", "W1Va", "W0b", "W1Sb", "W1Vb")
+        ulps = {"#1 agg": _ulps(agg, r_agg), "#2 d_hu": _ulps(d_hu, r_hu),
+                "#2 d_hr": _ulps(d_hr, r_hr), "#3 agg": _ulps(kagg, r_kagg),
+                "#5 d_hs": _ulps(k_hs, rk_hs), "#5 d_hr": _ulps(k_hr, rk_hr)}
+        for nm, a, b in zip(names, dws, r_dws):
+            ulps[f"#2 {nm}"] = _ulps(a, b)
+        for nm, a, b in zip(names, kdws, rk_dws):
+            ulps[f"#5 {nm}"] = _ulps(a, b)
+        rerun = fm.tab_bwd_kernel(*ta, ws, d_agg)
+        bitwise = dict(tab_bwd=all(torch.equal(x, y) for x, y in zip((d_hu, d_hr, part), rerun)))
+        del r_agg, r_hu, r_hr, r_kagg, rk_hs, rk_hr, rerun
+        calls = {
+            "#1": lambda: fm.fused_message_aggregate_tabled_fwd(*ta, *w4),
+            "#2 main": lambda: fm.tab_bwd_kernel(*ta, ws, d_agg),
+            "#2 whole": lambda: fm.fused_message_aggregate_tabled_bwd(*ta, *tabs, *w4, d_agg),
+            "#3": lambda: fm.fused_message_aggregate_km_fwd(*ka, *w4),
+            "#5 main": lambda: fm.km_bwd_kernel(*ka, ws, d_agg),
+        }
+        times = {nm: _events(fn, 10) for nm, fn in calls.items()}
+        device = {nm: _device(fn, 10) for nm, fn in calls.items()}
+        clocks = bwd_clocks(fm, ta, ws, d_agg, Path(args.clocks)) if args.clocks else None
+    print(json.dumps(dict(
+        tag=args.tag, package=scalable_e3_gnn_torch.__file__, card=card, receivers=n, npad=npad,
+        valid_slots=int(mask.sum()), u=cfg.u, partials=list(part.shape), event_ms=times,
+        device=device, ulps=ulps, bitwise=bitwise, phase_clocks=clocks,
+        sm_clock_mhz=subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                                     "--format=csv,noheader"], capture_output=True, text=True,
+                                    timeout=60).stdout.strip())), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -72,8 +72,10 @@ def _graph(dev, n, k, radius, tile, seed=0):
     return g, g.with_gather_tables(tile=tile)
 
 
+# (hidden irreps, K, points, table tile); the last two at config 3's width,
+# K = 20 with receivers that straddle the bf16 engine's 16-row tiles
 WIDTHS = [("16x0e+8x1o", 8, 200, 32), ("8x0e+12x1o", 13, 1000, 64),
-          ("32x0e+16x1o", 24, 3000, 160)]
+          ("32x0e+16x1o", 24, 3000, 160), ("32x0e+16x1o", 20, 2000, 160)]
 
 
 def _layer_args(dev, monkeypatch, hidden, k, n, tile, dtype):
@@ -216,6 +218,40 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         fm.fused_message_aggregate_tabled_fwd(*args, *ws)
     with pytest.raises(TypeError):
         fm.fused_message_aggregate_tabled_bwd(*args, *tabs, *ws, torch.zeros_like(h))
+
+
+def test_lmax1_bf16_wide_widths_raise(dev):
+    """The bf16 engine pads to 32x0e+16x1o; wider bf16 layers raise (fp32
+    takes any width)."""
+    for hidden, k in (("48x0e+16x1o", 8), ("32x0e+24x1o", 8)):
+        cfg, args, ws, d_agg = _km_problem(dev, hidden, k, 256, 1, torch.bfloat16)
+        with pytest.raises(ValueError, match="at most 32x0e"):
+            fm.fused_message_aggregate_km_fwd(cfg, *args, *ws)
+        with pytest.raises(ValueError, match="at most 32x0e"):
+            fm.km_bwd_kernel(cfg, *args, fm.split_weights(cfg, *ws), d_agg)
+
+
+def test_lmax1_bf16_kernels_do_not_spill(dev, tmp_path):
+    """The bf16 engine's kernels (#1-#7: fused_message_fwd_mma and
+    fused_message_bwd_mma, each addressing): ptxas reports no spill."""
+    import re
+    import subprocess
+
+    from scalable_e3_gnn_torch.kernels import build
+
+    seen = 0
+    for name in ("fused_message_tab_fwd", "fused_message_tab_bwd"):
+        out = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(tmp_path / f"{name}.so"),
+                              str(build.CSRC / f"{name}.cu")], capture_output=True, text=True,
+                             check=True)
+        log = out.stdout + out.stderr
+        for entry in re.split(r"Compiling entry function", log)[1:]:
+            if "_mma" not in entry.split("'")[1]:
+                continue
+            seen += 1
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
+            assert spill is not None and spill.groups() == ("0", "0"), entry[:300]
+    assert seen == 6  # three addressings, forward and backward
 
 
 # (hidden irreps, K, points): tiles 160, 192 and 200 (_pick_generic_tile);
@@ -760,9 +796,10 @@ def test_vjp_segnn_gradients_kernel_match_plain_path(dev, name):
 
 
 # the untabled lmax=1 kernels (#3 forward, #5 backward): (hidden, K, points,
-# node blocks); the last is config 3's width, its 1000-node blocks pad to 1024
+# node blocks); the third is config 3's width, its 1000-node blocks pad to
+# 1024; the last straddles the bf16 engine's 16-row tiles (K = 20)
 KM_WIDTHS = [("16x0e+8x1o", 8, 256, 1), ("8x0e+12x1o", 13, 960, 1),
-             ("32x0e+16x1o", 24, 2000, 2)]
+             ("32x0e+16x1o", 24, 2000, 2), ("32x0e+16x1o", 20, 1000, 1)]
 
 
 def _km_problem(dev, hidden, k, n, chunks, dtype, seed=0):
@@ -901,7 +938,7 @@ def test_km_segnn_gradients_kernel_match_plain_path(dev, mode):
 # blocks pad to 1024
 FLAT_CASES = [("16x0e+8x1o", 8, 256, 1, 2), ("16x0e+8x1o", 8, 256, 1, 4),
               ("8x0e+12x1o", 12, 960, 1, 3), ("32x0e+16x1o", 24, 2000, 2, 2),
-              ("32x0e+16x1o", 24, 2000, 2, 4)]
+              ("32x0e+16x1o", 24, 2000, 2, 4), ("32x0e+16x1o", 20, 1000, 1, 4)]
 
 
 def _flat_problem(dev, hidden, k, n, chunks, p, dtype, seed=0):
