@@ -181,6 +181,26 @@ Phases, each printing one JSON line:
                  (#11 per block) against the unpartitioned fp32 plain path and
                  bit for bit the unpartitioned bf16 kernel forward, and 2
                  counted train steps (#11, #12).
+50. coo_nbody, coo_qm9 -- configs 1 and 2 of the evaluation ladder on the COO
+                 path (no hand kernel: every count must stay 0), through
+                 ``train.runners``: ``run_nbody`` (256 graphs) and ``run_qm9``
+                 (512 molecules, batches of 64) for 25 fp32 steps and their
+                 held-out evaluation on the card; again, bit for bit; the
+                 first 5 steps on the CPU from the same seed (the same
+                 weights), each loss within 1e-5 relative of the card's; a
+                 resume on the card (2N steps = N, a checkpoint, restored, N)
+                 bit for bit; CUDA-event times of 20 steps after a warm-up,
+                 the host time per step with and without the metrics
+                 logger's per-step reads, the evaluation's time, a profile of
+                 one step (launches, device busy share).
+51. coo_gates  -- the accuracy gates of tests/test_accuracy_gate.py on the card
+                 (N-body: 400 steps on 64 graphs, train loss < 0.009, held-out
+                 MSE < 0.011 and < 0.2x predict-zero; QM9 stand-in: 250 steps
+                 on 48 molecules, loss < 0.16) from JAX's initial weights
+                 (tests/fixtures/gate_init.npz), checked; and from the port's
+                 own seeded weights (seeds 0 and 1, as the JAX test's keys),
+                 read only: at seed 0 the N-body held-out MSE misses 0.011 on
+                 the CPU too (ROADMAP.md section 3).
 
 Then the ``kernels`` line, the card line and, last, the result line.  Any
 failed check raises: the script exits non-zero and prints no result.  It
@@ -190,10 +210,14 @@ exits non-zero as well without a GPU or without the package beside it.
 from __future__ import annotations
 
 import copy
+import dataclasses
+import hashlib
+import itertools
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -461,7 +485,8 @@ def launch_counts() -> dict:
 
 def profile_steps(step, batch, steps: int = 2, top: int = 14, host_top: int = 0) -> dict:
     """Device time per kernel over ``steps`` train steps (torch.profiler),
-    per step, and the device's busy share of the wall time; with
+    per step, the device's busy share of the wall time and the kernel
+    launches per step (every kernel the trace holds); with
     ``host_top``, that many host operators by their own host time per step
     (the CPU-side rows, without their children)."""
     from torch.profiler import ProfilerActivity, profile
@@ -482,6 +507,7 @@ def profile_steps(step, batch, steps: int = 2, top: int = 14, host_top: int = 0)
     busy = sum(r[0] for r in rows)
     out = dict(steps=steps, wall_ms_per_step=wall_ms / steps, device_ms_per_step=busy,
                device_busy_share=busy * steps / wall_ms if wall_ms else 0.0,
+               launches_per_step=sum(r[1] for r in rows),
                top=[dict(name=n, ms_per_step=ms, calls_per_step=c) for ms, c, n in rows[:top]])
     if host_top:
         host = sorted(((ev.self_cpu_time_total / 1e3 / steps, ev.count / steps, ev.key[:60])
@@ -2979,6 +3005,230 @@ def dist_lmax2_phase(card: str) -> None:
     del model, opt, step, shards, attrs, graph
 
 
+# configs 1 and 2 on the COO path (train/runners.py)
+COO_STEPS = 25  # runner steps on the card (the configs train 2,000 and 5,000)
+COO_TIMED = 20  # CUDA-event steps after a warm-up
+COO_CPU_STEPS = 5  # steps run on the card and on the CPU from the same weights
+COO_RESUME = 4  # N of the resume check: 2N steps = N, save, restore, N
+COO_RESUME_SIZE = dict(nbody=dict(graphs=64), qm9=dict(molecules=128))  # full widths
+TOL_COO_CPU = 1e-5  # relative per loss: the same fp32 math, summed in another order
+GATE_INIT = Path(__file__).resolve().parent / "tests" / "fixtures" / "gate_init.npz"
+# tests/test_accuracy_gate.py: (input, hidden, output irreps, model keywords, init
+# seed, learning rate, steps)
+COO_GATES = {
+    "nbody": ("2x0e+1x1o", "16x0e+8x1o", "1x1o", dict(num_layers=3, vel_attr=True), 0,
+              5e-3, 400),
+    "qm9": ("5x0e", "16x0e+8x1o", "1x0e", dict(num_layers=2, task="graph"), 1, 3e-3, 250),
+}
+
+
+def read_log(path) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def untimed(records) -> list:
+    """Metrics records without their host-clock fields."""
+    return [{k: v for k, v in r.items() if k not in ("time_s", "edges_per_s")} for r in records]
+
+
+def digest(module) -> str:
+    """SHA-256 of every parameter's bytes, in order."""
+    h = hashlib.sha256()
+    for p in module.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def coo_phase(card: str, which: str) -> dict:
+    """Config 1 ('nbody') or 2 ('qm9') through its runner: the runs, checks
+    and times of phase 50; returns the phase's readings."""
+    from scalable_e3_gnn_torch.train import runners
+    from scalable_e3_gnn_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+    from scalable_e3_gnn_torch.train.metrics import MetricsLogger
+    from scalable_e3_gnn_torch.train.pipeline import make_train_state
+    from scalable_e3_gnn_torch.utils import config
+
+    dev = torch.device(DEVICE)
+    cfg = getattr(config, f"{which}_config")()
+    run = getattr(runners, f"run_{which}")
+    setup_of = getattr(runners, f"{which}_setup")
+    kw = dict(graphs=256) if which == "nbody" else dict(molecules=512)
+    out = dict(card=card, tf32=torch.backends.cuda.matmul.allow_tf32,
+               fp32_matmul_precision=torch.get_float32_matmul_precision())
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    with tempfile.TemporaryDirectory() as tmp:
+        # the main path: the runner on the card, every launch count zeroed
+        # before and read after (the COO path has no hand kernel)
+        reset_launches()
+        res, run_ms = sync_time(lambda: run(cfg, steps=COO_STEPS, log=f"{tmp}/card.jsonl",
+                                            device=dev, **kw))
+        launches = launch_counts()
+        check(launches == expected({}), f"{which}: hand kernels launched: {launches}")
+        log = read_log(f"{tmp}/card.jsonl")
+        losses = [r["loss"] for r in log[:COO_STEPS]]
+        finite = all(math.isfinite(v) for v in losses) and all(
+            math.isfinite(v) for v in res.values() if isinstance(v, float))
+        check(finite and len(losses) == COO_STEPS, f"{which}: non-finite result {res}")
+        check(losses[-1] < losses[0], f"{which}: the loss did not move: {losses}")
+        # the same run again on the card: the same bits
+        res2 = run(cfg, steps=COO_STEPS, log=f"{tmp}/card2.jsonl", device=dev, **kw)
+        rerun = res2 == res and untimed(read_log(f"{tmp}/card2.jsonl")) == untimed(log)
+        check(rerun, f"{which}: two card runs differ")
+        # the same seed on the CPU: the same weights, the same first losses
+        w_card = digest(setup_of(cfg, device=dev, **kw).model)
+        w_cpu = digest(setup_of(cfg, device="cpu", **kw).model)
+        check(w_card == w_cpu, f"{which}: the initial weights differ between card and CPU")
+        run(cfg, steps=COO_CPU_STEPS, log=f"{tmp}/cpu.jsonl", device="cpu", **kw)
+        cpu_losses = [r["loss"] for r in read_log(f"{tmp}/cpu.jsonl")[:COO_CPU_STEPS]]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+        check(rel <= TOL_COO_CPU, f"{which}: card vs CPU losses off by {rel} relative")
+        # resume on the card: 2N steps = N, save, restore, N, bit for bit
+        rkw = COO_RESUME_SIZE[which]
+        a, b = setup_of(cfg, device=dev, **rkw), setup_of(cfg, device=dev, **rkw)
+        cfg_other = copy.deepcopy(cfg)
+        cfg_other.train.seed += 1  # other weights: all of them must come from the file
+        c = setup_of(cfg_other, device=dev, **rkw)
+        nb = len(a.batches)
+        for i in range(2 * COO_RESUME):
+            a.step(*a.batches[i % nb])
+        state_b = make_train_state(b.model, b.optimizer)
+        for i in range(COO_RESUME):
+            b.step(*a.batches[i % nb])
+            state_b.step += 1
+        save_checkpoint(f"{tmp}/ckpt", COO_RESUME, state_b)
+        state_c, at = restore_checkpoint(f"{tmp}/ckpt", make_train_state(c.model, c.optimizer))
+        for i in range(at, 2 * COO_RESUME):
+            c.step(*a.batches[i % nb])
+        resume = (digest(a.model) == digest(c.model) and all(
+            torch.equal(x, y) for sa, sc in zip(a.optimizer.state.values(),
+                                                c.optimizer.state.values())
+            for x, y in zip(sa.values(), sc.values())))
+        check(resume, f"{which}: the resumed run differs from the straight one")
+        if which == "nbody":  # and through the runner's own resume
+            rcfg = copy.deepcopy(cfg)
+            rcfg.train.checkpoint_every = COO_RESUME
+            straight = run(rcfg, steps=2 * COO_RESUME, device=dev, **rkw)
+            run(rcfg, steps=COO_RESUME, ckpt_dir=f"{tmp}/r", device=dev, **rkw)
+            resumed = run(rcfg, steps=2 * COO_RESUME, ckpt_dir=f"{tmp}/r", resume=True,
+                          device=dev, **rkw)
+            check(resumed == straight, f"run_nbody resume: {resumed} != {straight}")
+
+    # times: CUDA events over the steps after a warm-up, the batches in turn
+    s = setup_of(cfg, device=dev, **kw)
+    turn = itertools.cycle(s.batches)
+    stepper = lambda: s.step(*next(turn))
+    for _ in range(3):
+        stepper()
+    step_ms = event_ms(stepper, iters=COO_TIMED, warmup=0)
+    logger = MetricsLogger(None, stdout_every=0)  # the runner's per-step float() reads
+
+    def host_ms(log_each: bool) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(COO_TIMED):
+            m = stepper()
+            if log_each:
+                logger.log(i, m)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / COO_TIMED
+
+    no_log_ms, log_ms = host_ms(False), host_ms(True)
+    eval_res, eval_ms = sync_time(s.evaluate)
+    with torch.no_grad():
+        fwd_ms = event_ms(lambda: s.model(*s.batches[0][:-1]), iters=COO_TIMED)
+    prof = profile_steps(s.step, s.batches[0], steps=1)
+    g0 = s.batches[0][0]
+    out.update(
+        config=dict(model=dataclasses.asdict(cfg.model), learning_rate=cfg.train.learning_rate,
+                    **kw),
+        nodes_per_batch=g0.num_nodes, edges_per_batch=g0.num_edges,
+        valid_edges_per_batch=int(g0.edge_mask.sum()), batches=len(s.batches),
+        result=res, run_ms_incl_data=run_ms, losses=losses, launches=launches,
+        rerun_bit_identical=rerun, cpu_losses=cpu_losses, cpu_max_rel_err=rel,
+        cpu_tolerance=f"{TOL_COO_CPU} relative per loss; fp32 sums in another order",
+        initial_weights_equal=w_card == w_cpu, resume_bitwise=resume,
+        resume_steps=f"{2 * COO_RESUME} = {COO_RESUME} + save/restore + {COO_RESUME}",
+        step_ms=step_ms, step_host_ms_no_logging=no_log_ms, step_host_ms_logging=log_ms,
+        eval_ms_incl_data=eval_ms, eval_result=eval_res, forward_ms=fwd_ms,
+        launches_per_step=prof["launches_per_step"],
+        device_busy_share=prof["device_busy_share"], profile=prof)
+    emit(f"coo_{which}", **out)
+    return out
+
+
+def coo_gates(card: str) -> dict:
+    """Phase 51: the accuracy gates of tests/test_accuracy_gate.py on the card,
+    from JAX's initial weights (checked) and from the port's own (read)."""
+    from scalable_e3_gnn_torch.data.nbody import generate_dataset, make_fully_connected_edges
+    from scalable_e3_gnn_torch.data.qm9 import batch_molecules, generate_molecules
+    from scalable_e3_gnn_torch.graph.batching import batch_same_size
+    from scalable_e3_gnn_torch.utils.params import params_from_jax
+
+    dev = torch.device(DEVICE)
+    with np.load(GATE_INIT) as f:
+        flat = {k: f[k] for k in f.files}
+    s, r = make_fully_connected_edges(5)
+
+    def nbody_batch(graphs, seed):
+        ds = generate_dataset(graphs, num_steps=500, seed=seed)
+        feats = np.concatenate([(ds["vel0"] ** 2).sum(-1, keepdims=True),
+                                ds["charges"][..., None], ds["vel0"]], -1)
+        g = batch_same_size(feats, ds["pos0"], s, r, device=dev).with_plans()
+        t = lambda a: torch.from_numpy(a.reshape(-1, 3)).to(dev)
+        return g, t(ds["vel0"]), t(ds["disp"])
+
+    def jax_tree(which):
+        tree = {}
+        for key in flat:
+            if key.startswith(which + "/"):
+                node = tree
+                *path, leaf = key.split("/")[1:]
+                for p in path:
+                    node = node.setdefault(p, {})
+                node[leaf] = flat[key]
+        return tree
+
+    out = {}
+    for which, (ins, hid, outs, mkw, seed, lr, steps) in COO_GATES.items():
+        if which == "nbody":
+            batch = nbody_batch(64, 0)
+            loss_fn = lambda m, g, v, t: mse_loss(m(g, v), t)
+        else:
+            g, t = batch_molecules(generate_molecules(48, seed=2), device=dev)
+            batch = (g.with_plans(), t)
+            loss_fn = lambda m, g_, t_: torch.mean((m(g_)[:, 0] - t_) ** 2)
+        for init in ("jax", "own"):
+            model = port.SEGNN(ins, hid, outs, device=dev,
+                               generator=torch.Generator().manual_seed(seed), **mkw)
+            if init == "jax":
+                params_from_jax(model, jax_tree(which))
+            step = make_train_step(model, loss_fn, torch.optim.Adam(model.parameters(), lr=lr))
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                m = step(*batch)
+            row = dict(steps=steps, train_loss=m["loss"].item(),
+                       seconds=time.perf_counter() - t0)
+            if which == "nbody":
+                g_e, v_e, t_e = nbody_batch(16, 1)
+                with torch.no_grad():
+                    row["eval_mse"] = torch.mean((model(g_e, v_e) - t_e) ** 2).item()
+                row["predict_zero_mse"] = torch.mean(t_e ** 2).item()
+                row["passes"] = (row["train_loss"] < 0.009 and row["eval_mse"] < 0.011
+                                 and row["eval_mse"] < 0.2 * row["predict_zero_mse"])
+            else:
+                row["target_var"] = batch[1].var(unbiased=False).item()
+                row["passes"] = row["train_loss"] < 0.16
+            out[f"{which}_{init}_init"] = row
+        check(out[f"{which}_jax_init"]["passes"],
+              f"{which} accuracy gate from JAX's initial weights: {out[f'{which}_jax_init']}")
+    emit("coo_gates", card=card, gates=dict(
+        nbody="train loss < 0.009, held-out MSE < 0.011 and < 0.2 x predict-zero",
+        qm9="train loss < 0.16"), checked="jax_init rows; own_init rows are readings",
+         **out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3317,6 +3567,11 @@ def main() -> int:
     dr = dist_phases(card, graph)
     del graph
     dist_lmax2_phase(card)
+
+    # ---- 50-51. configs 1 and 2 on the COO path, through the runners
+    for which in ("nbody", "qm9"):
+        coo_phase(card, which)
+    coo_gates(card)
 
     src = lambda kern: str(kern.source.relative_to(Path(__file__).resolve().parent))
     print(json.dumps({"kernels": [

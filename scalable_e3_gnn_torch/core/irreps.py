@@ -277,3 +277,17 @@ class Irreps(tuple):
         except ValueError:
             return False
 
+
+    def randn(self, generator=None, leading_shape: Tuple[int, ...] = (),
+              normalization: str = "component", device=None, dtype=None):
+        """Random flat features ~ N(0, 1) per component ('component'), or
+        each irrep copy divided by sqrt(2l+1) ('norm'); drawn from the
+        ``torch.Generator`` ``generator`` (the JAX method's key)."""
+        import torch
+
+        x = torch.randn(tuple(leading_shape) + (self.dim,), generator=generator,
+                        device=device, dtype=dtype)
+        if normalization == "norm":
+            x = torch.cat([x[..., sl] / (mi.ir.dim ** 0.5)
+                           for mi, sl in zip(self, self.slices())], dim=-1)
+        return x

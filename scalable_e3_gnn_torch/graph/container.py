@@ -1,22 +1,110 @@
-"""Fixed-degree graph container with per-tile compact sender tables.
+"""Graph containers: the COO ``SteerableGraph`` and the fixed-degree
+``DenseEdgeGraph`` with per-tile compact sender tables.
 
-Counterpart of ``scalable_e3_gnn_tpu/graph/container.py::DenseEdgeGraph``: a
-plain dataclass of tensors with the JAX field names, layouts and pad
-conventions (loc pad = U, tab pad = Npad, rev pad = ntiles*U, rem-node pad =
-Npad), so the two packages can be compared array for array.
+Counterpart of ``scalable_e3_gnn_tpu/graph/container.py``: plain dataclasses
+of tensors with the JAX field names, layouts and pad conventions (COO:
+padding edges carry ``senders == receivers == N``, the trash segment, and
+receivers are sorted; padding nodes sit at the tail with ``node_mask``
+False and ``node_graph`` = G; dense tables: loc pad = U, tab pad = Npad, rev
+pad = ntiles*U, rem-node pad = Npad), so the two packages can be compared
+array for array.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..ops.gather_scatter import SegmentPlan, segment_plan
 from ..utils.device import as_tensor
 
-__all__ = ["DenseEdgeGraph"]
+__all__ = ["SteerableGraph", "DenseEdgeGraph", "CooPlans"]
+
+
+class CooPlans(NamedTuple):
+    """The ``SegmentPlan``s of a COO graph's index arrays, which the model's
+    gathers and segment sums read: the clipped senders (the sender gather's
+    gradient), the clipped receivers (the receiver gather's gradient), the
+    receivers (the aggregation; trash ids drop), the receivers of the valid
+    edges only (the node attributes' mean), and ``node_graph`` (graph
+    pooling; padding nodes drop)."""
+
+    send: SegmentPlan
+    recv_gather: SegmentPlan
+    recv: SegmentPlan
+    attr: SegmentPlan
+    pool: SegmentPlan
+
+
+# fields whose change invalidates a graph's plans
+_TOPOLOGY = ("nodes", "senders", "receivers", "edge_mask", "node_graph", "n_graphs")
+
+
+@dataclasses.dataclass(frozen=True)
+class SteerableGraph:
+    """A batch of graphs flattened into one node/edge address space (COO).
+
+    ``plans`` (``with_plans``): the segment plans of the index arrays, built
+    once per graph; the model builds them per call when absent."""
+
+    nodes: torch.Tensor  # [N_pad, F] steerable node features (flat irreps layout)
+    positions: torch.Tensor  # [N_pad, 3]
+    senders: torch.Tensor  # [E_pad] int32; padding = N_pad
+    receivers: torch.Tensor  # [E_pad] int32, sorted ascending; padding = N_pad
+    node_graph: torch.Tensor  # [N_pad] graph id per node (pooling); padding = G
+    node_mask: torch.Tensor  # [N_pad] bool
+    edge_mask: torch.Tensor  # [E_pad] bool
+    n_graphs: int = 1
+    plans: Optional[CooPlans] = None
+
+    def _replace(self, **kw) -> "SteerableGraph":
+        if "plans" not in kw and any(k in kw for k in _TOPOLOGY):
+            kw["plans"] = None
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def num_nodes(self) -> int:
+        return self.nodes.shape[0]
+
+    @property
+    def num_edges(self) -> int:
+        return self.senders.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.senders.device
+
+    def replace_nodes(self, nodes: torch.Tensor) -> "SteerableGraph":
+        """The same graph with other node features (its plans kept)."""
+        return dataclasses.replace(self, nodes=nodes)
+
+    def rel_positions(self) -> torch.Tensor:
+        """x_s - x_r per edge (pointing from receiver to sender); zero on padding."""
+        n = self.num_nodes
+        xs = self.positions[torch.clamp(self.senders, max=n - 1).long()]
+        xr = self.positions[torch.clamp(self.receivers, max=n - 1).long()]
+        rel = xs - xr
+        return torch.where(self.edge_mask[:, None], rel, torch.zeros_like(rel))
+
+    def build_plans(self) -> CooPlans:
+        """The graph's ``CooPlans`` (stable sorts and binary searches on its
+        device, no host sync)."""
+        n = self.num_nodes
+        recv = self.receivers.long()
+        return CooPlans(
+            send=segment_plan(torch.clamp(self.senders.long(), 0, n - 1), n),
+            recv_gather=segment_plan(torch.clamp(recv, 0, n - 1), n, indices_are_sorted=True),
+            recv=segment_plan(recv, n, indices_are_sorted=True),
+            attr=segment_plan(torch.where(self.edge_mask, recv, n), n),
+            pool=segment_plan(self.node_graph, self.n_graphs),
+        )
+
+    def with_plans(self) -> "SteerableGraph":
+        """This graph with its ``plans`` built."""
+        return dataclasses.replace(self, plans=self.build_plans())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,8 +142,16 @@ class DenseEdgeGraph:
         return self.nodes.shape[0]
 
     @property
+    def num_edges(self) -> int:
+        """Edge slots, N*K, valid or not (as a COO graph counts its padding)."""
+        return self.senders.shape[0] * self.senders.shape[1]
+
+    @property
     def max_neighbors(self) -> int:
         return self.senders.shape[1]
+
+    def replace_nodes(self, nodes: torch.Tensor) -> "DenseEdgeGraph":
+        return self._replace(nodes=nodes)
 
     @property
     def device(self) -> torch.device:

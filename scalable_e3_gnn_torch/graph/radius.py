@@ -228,7 +228,7 @@ def radius_graph_cell_segments(
     if selection != "sort":
         raise NotImplementedError(
             f"selection={selection!r} (lax.approx_min_k, a TPU primitive) is not ported: "
-            "ROADMAP module 10; use selection='sort'")
+            "ROADMAP module 3 (the large-graph builders); use selection='sort'")
     if num_segments < 1:
         raise ValueError(f"num_segments must be >= 1, got {num_segments}")
     return radius_graph_cell(tree, radius, lo, hi, max_neighbors, cell_capacity, level,

@@ -1,8 +1,10 @@
-"""SEGNN: steerable E(3)-equivariant message passing on fixed-K graphs.
+"""SEGNN: steerable E(3)-equivariant message passing.
 
-Counterpart of ``scalable_e3_gnn_tpu/models/segnn.py`` for the dense
-(``DenseEdgeGraph``) path, with its memory ladder (``remat``,
-``remat_kernel``, ``edge_chunks``, ``remat_layers``):
+Counterpart of ``scalable_e3_gnn_tpu/models/segnn.py`` on both of its graph
+forms: the COO ``SteerableGraph`` (batches of small graphs: the N-body and
+QM9 configs) and the fixed-K ``DenseEdgeGraph`` (point clouds), the latter
+with its memory ladder (``remat``, ``remat_kernel``, ``edge_chunks``,
+``remat_layers``):
 
     h = embed(x, node_attr)
     per layer: agg_i = sum_k mask * MLP([h_s || h_i || d^2], edge_attr)
@@ -13,7 +15,15 @@ Parameter names follow the JAX ``init`` dict (``embed``, ``layer_i/msg_j``,
 ``layer_i/upd_j``, ``pre_head``, ``head``) so ``utils.params.params_from_jax``
 loads JAX weights unchanged.
 
-Message dispatch (``SEGNNLayer``):
+On a ``SteerableGraph`` (``SEGNNLayer.apply``, as the JAX ``apply``) the
+messages are plain PyTorch whatever ``use_pallas`` says (JAX's kernels,
+too, serve only the dense graph): senders and receivers gathered by
+``ops.gather_scatter.gather_coo``, the masked messages summed per receiver
+by ``segment_sum``, both over the graph's segment plans, so no float
+atomic runs and two runs on the GPU give the same bits; ``remat``
+checkpoints the messages and the aggregation.
+
+Message dispatch on a ``DenseEdgeGraph`` (``SEGNNLayer``):
 - ``use_pallas=True``, hidden ``Hs x0e + Hv x1o`` (lmax=1), on a graph with
   gather tables: the tabled lmax=1 kernel
   (``kernels.fused_message.fused_message_aggregate_tabled``), which runs the
@@ -76,12 +86,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.irreps import Irreps
 from ..core.spherical import spherical_harmonics
-from ..graph.container import DenseEdgeGraph
+from ..graph.container import CooPlans, DenseEdgeGraph, SteerableGraph
 from ..kernels.fused_message import (MessageConfig, fused_message_aggregate,
                                      fused_message_aggregate_km, fused_message_aggregate_tabled)
 from ..kernels.fused_message_generic import FusedMessageGeneric
 from ..ops.gate import Gate
-from ..ops.gather_scatter import (gather, gather_km, take_dense_rev, take_dense_symmetric,
+from ..ops.gather_scatter import (gather, gather_coo, gather_km, segment_mean, segment_plan,
+                                  segment_sum, take_dense_rev, take_dense_symmetric,
                                   take_dense_symmetric_km)
 from ..ops.linear import O3Linear
 from ..ops.tensor_product import L1TensorProduct, TensorProduct
@@ -149,10 +160,11 @@ class O3TensorProductGate(nn.Module):
 
 
 class SEGNNLayer(nn.Module):
-    """One message-passing layer on a fixed-K graph.
+    """One message-passing layer.
 
     message  m = TPGate([h_s || h_r || |x_rel|^2], edge_attr)  (x2)
-    aggregate  = masked sum over the K slots
+    aggregate  = masked sum over each receiver's edges (COO: a segment sum;
+                 fixed-K: the K slots)
     update     = TPGate([h_i || agg_i], node_attr)  (+ residual)
     """
 
@@ -439,13 +451,53 @@ class SEGNNLayer(nn.Module):
         m = torch.where(edge_mask[..., None], m, torch.zeros_like(m))
         return m.sum(dim=1)
 
-    def forward(self, h, graph: DenseEdgeGraph, edge_attr, node_attr, edge_dist2,
-                edge_geo=None):
-        """h [N, F] -> [N, F] on the fixed-K ``graph`` with [N, K, .] geometry.
+    def apply(self, h_local, h_ext, senders, receivers, edge_attr, node_attr, edge_dist2,
+              edge_mask, node_mask, plans: Optional[CooPlans] = None):
+        """COO message -> aggregate -> update (the JAX ``apply``): messages of
+        the [E] edges from senders in ``h_ext`` [N_ext >= N, F] to receivers
+        in ``h_local`` [N, F] (sorted; padding = N, the trash segment), both
+        gathers clipped, masked by ``edge_mask`` and summed per receiver;
+        then the update with the residual, zero on masked nodes.  Single
+        device: ``h_ext`` is ``h_local``.  ``plans``: the graph's
+        ``CooPlans`` (its ``send`` plan then indexes ``h_ext``), made here
+        when not given."""
+        n, n_ext = h_local.shape[0], h_ext.shape[0]
+        if plans is None:
+            recv = receivers.long()
+            send_p = segment_plan(torch.clamp(senders.long(), 0, n_ext - 1), n_ext)
+            recv_gather_p = segment_plan(torch.clamp(recv, 0, n - 1), n, indices_are_sorted=True)
+            recv_p = segment_plan(recv, n, indices_are_sorted=True)
+        else:
+            send_p, recv_gather_p, recv_p = plans.send, plans.recv_gather, plans.recv
 
-        ``edge_geo`` [N, K*(A+2)] is the packed geometry stream; with it
-        ``edge_attr`` and ``edge_dist2`` may be None (geo-only attributes):
-        they and the slot mask are then read from the stream."""
+        def messages_and_aggregate(h_local_, h_ext_):
+            m = torch.cat([gather_coo(h_ext_, senders, send_p),
+                           gather_coo(h_local_, receivers, recv_gather_p),
+                           edge_dist2[:, None].to(h_local_.dtype)], dim=-1)
+            for layer in self.message_layers:
+                m = layer(m, edge_attr)
+            m = torch.where(edge_mask[:, None], m, torch.zeros_like(m))
+            return segment_sum(m, receivers, n, plan=recv_p)
+
+        if self.remat:
+            agg = _checkpoint(self.message_layers, messages_and_aggregate, h_local, h_ext)
+        else:
+            agg = messages_and_aggregate(h_local, h_ext)
+        out = h_local + self._update_u(h_local, agg, node_attr)
+        return torch.where(node_mask[:, None], out, torch.zeros_like(out))
+
+    def forward(self, h, graph, edge_attr, node_attr, edge_dist2, edge_geo=None):
+        """h [N, F] -> [N, F] on ``graph``, dispatched on its type.
+
+        A ``SteerableGraph`` (the JAX ``__call__``, which returns the graph
+        with these node features) runs ``apply`` with [E, .] geometry.  A
+        fixed-K ``DenseEdgeGraph`` takes [N, K, .] geometry; ``edge_geo``
+        [N, K*(A+2)] is its packed geometry stream, with which ``edge_attr``
+        and ``edge_dist2`` may be None (geo-only attributes): they and the
+        slot mask are then read from the stream."""
+        if isinstance(graph, SteerableGraph):
+            return self.apply(h, h, graph.senders, graph.receivers, edge_attr, node_attr,
+                              edge_dist2, graph.edge_mask, graph.node_mask, plans=graph.plans)
         n = h.shape[0]
         pallas = self.use_pallas or self.use_pallas_generic
         chunks = self.edge_chunks if n % max(self.edge_chunks, 1) == 0 else 1
@@ -566,11 +618,14 @@ class SEGNNLayer(nn.Module):
 
 
 class SEGNN(nn.Module):
-    """Full SEGNN: embed -> message-passing layers -> output head.
+    """Full SEGNN: embed -> message-passing layers -> output head, on a COO
+    ``SteerableGraph`` or a fixed-K ``DenseEdgeGraph``.
 
-    Parameters are created on ``device`` (the GPU unless given) from
-    ``generator``; load JAX weights with ``utils.params.params_from_jax``.
-    ``edge_chunks`` streams node blocks through every layer, the embed and
+    ``vel_attr`` adds sh(velocity) to the node attributes when the forward
+    is given ``velocities``; it adds no parameter.  ``task="graph"`` sums
+    the masked per-node outputs per graph.  Parameters are created on
+    ``device`` (the GPU unless given) from ``generator``; load JAX weights
+    with ``utils.params.params_from_jax``.  ``edge_chunks`` streams node blocks through every layer, the embed and
     the head; ``remat_layers`` (a group size, 0 for none) checkpoints groups
     of that many layers, so the backward keeps only the group boundaries
     ([N, F] each): the config-5 (10M points) memory ladder.  ``pack`` (p > 1
@@ -584,8 +639,8 @@ class SEGNN(nn.Module):
 
     def __init__(self, input_irreps, hidden_irreps, output_irreps, lmax_attr: int = 1,
                  num_layers: int = 4, act: Callable = F.silu, task: str = "node",
-                 layout: Optional[str] = None, use_pallas: bool = False, remat: bool = False,
-                 remat_kernel: bool = False, residual_bwd: bool = True,
+                 vel_attr: bool = False, layout: Optional[str] = None, use_pallas: bool = False,
+                 remat: bool = False, remat_kernel: bool = False, residual_bwd: bool = True,
                  replay_bwd: bool = True, edge_chunks: int = 1, remat_layers: int = 0,
                  pack: int = 1, device=None,
                  generator: Optional[torch.Generator] = None) -> None:
@@ -598,6 +653,7 @@ class SEGNN(nn.Module):
         self.lmax_attr = lmax_attr
         self.attr_irreps = Irreps.spherical_harmonics(lmax_attr)
         self.task = task
+        self.vel_attr = vel_attr
         self.layout = layout or "cm"
         kw = dict(act=act, device=device, generator=generator)
         self.embed = O3TensorProductGate(self.input_irreps, self.attr_irreps,
@@ -621,10 +677,30 @@ class SEGNN(nn.Module):
     def device(self) -> torch.device:
         return next(self.parameters()).device
 
-    def compute_attributes_dense(self, graph: DenseEdgeGraph):
+    def compute_attributes(self, graph: SteerableGraph, velocities=None):
+        """``(edge_attr [E, A], node_attr [N, A], dist2 [E])`` of a COO graph:
+        sh of the relative positions (zero on padding edges), their mean over
+        each receiver's valid edges (padding edges go to the trash segment),
+        plus sh(v) under ``vel_attr`` when ``velocities`` [N, 3] are given,
+        the scalar channel then set to 1; and the squared distances."""
+        rel = graph.rel_positions()
+        dist2 = torch.sum(rel * rel, dim=-1)
+        edge_attr = spherical_harmonics(self.lmax_attr, rel)
+        edge_attr = torch.where(graph.edge_mask[:, None], edge_attr, torch.zeros_like(edge_attr))
+        n = graph.num_nodes
+        plan = graph.plans.attr if graph.plans is not None else None
+        node_attr = segment_mean(edge_attr, torch.where(graph.edge_mask, graph.receivers.long(), n),
+                                 n, plan=plan)
+        if self.vel_attr and velocities is not None:
+            node_attr = node_attr + spherical_harmonics(self.lmax_attr, velocities)
+        node_attr = torch.cat([torch.ones_like(node_attr[:, :1]), node_attr[:, 1:]], dim=-1)
+        return edge_attr, node_attr, dist2
+
+    def compute_attributes_dense(self, graph: DenseEdgeGraph, velocities=None):
         """``(edge_attr [N,K,A], node_attr [N,A], dist2 [N,K], edge_geo [N,K*(A+2)])``:
         sh of the relative positions (zero on invalid slots), their mean per
-        receiver with the scalar channel reset to 1, squared distances, and
+        receiver (plus sh(v) under ``vel_attr`` when ``velocities`` are
+        given) with the scalar channel reset to 1, squared distances, and
         the packed ``attr || d2 || mask`` stream of the JAX package."""
         rel = graph.rel_positions()
         dist2 = torch.sum(rel * rel, dim=-1)
@@ -632,6 +708,8 @@ class SEGNN(nn.Module):
         edge_attr = torch.where(graph.edge_mask[..., None], edge_attr, torch.zeros_like(edge_attr))
         cnt = torch.clamp(graph.edge_mask.sum(dim=1), min=1)
         node_attr = edge_attr.sum(dim=1) / cnt[:, None].to(edge_attr.dtype)
+        if self.vel_attr and velocities is not None:
+            node_attr = node_attr + spherical_harmonics(self.lmax_attr, velocities)
         # in place: attributes are graph constants, computed once outside the
         # train step, and carry no gradient
         node_attr[..., 0] = 1.0
@@ -646,7 +724,11 @@ class SEGNN(nn.Module):
         dividing N), so the fp32 spherical harmonics are never whole-graph
         (a one-shot [N, K, A] build at 10M points holds 5.8 GB); both cast to
         ``dtype``.  The same streams as ``compute_attributes_dense`` (the
-        relative positions masked before d^2: padding slots carry zeros)."""
+        relative positions masked before d^2: padding slots carry zeros).
+        ``vel_attr`` models raise: there is no velocity stream here."""
+        if self.vel_attr:
+            raise NotImplementedError(
+                "chunked attrs have no velocity stream; use compute_attributes_dense")
         n, k = senders.shape
         if nchunk is None:
             nchunk = max(n // 1_000_000, 1)
@@ -670,18 +752,23 @@ class SEGNN(nn.Module):
             nas.append(na.to(dtype))
         return None, torch.cat(nas), None, torch.cat(geos)
 
-    def forward(self, graph: DenseEdgeGraph, attrs: Optional[tuple] = None) -> torch.Tensor:
-        """Per-node outputs [N, output dim] ('graph' task: per-graph sums).
+    def forward(self, graph, velocities=None, attrs: Optional[tuple] = None) -> torch.Tensor:
+        """Per-node outputs [N, output dim] ('graph' task: per-graph sums) on
+        a ``SteerableGraph`` or a ``DenseEdgeGraph``.
 
-        ``attrs``: precomputed ``compute_attributes_dense`` result (3- or
-        4-tuple; the 4-tuple may be geo-only, ``(None, node_attr, None,
-        edge_geo)``); computed here when omitted.  Runs in the dtype of
-        ``graph.nodes`` with the module's parameters (cast the module, e.g.
-        ``.to(torch.bfloat16)``, for bf16 weights)."""
+        ``velocities`` [N, 3]: read under ``vel_attr``.  ``attrs``: the
+        precomputed attributes, computed here when omitted: on a COO graph
+        the ``compute_attributes`` 3-tuple; on a dense one the
+        ``compute_attributes_dense`` result (3- or 4-tuple; the 4-tuple may
+        be geo-only, ``(None, node_attr, None, edge_geo)``).  Runs in the
+        dtype of ``graph.nodes`` with the module's parameters (cast the
+        module, e.g. ``.to(torch.bfloat16)``, for bf16 weights)."""
         if graph.device != self.device:
             raise ValueError(f"graph is on {graph.device}, model on {self.device}")
+        if isinstance(graph, SteerableGraph):
+            return self._forward_coo(graph, velocities, attrs)
         if attrs is None:
-            attrs = self.compute_attributes_dense(graph)
+            attrs = self.compute_attributes_dense(graph, velocities)
         edge_attr, node_attr, dist2 = attrs[:3]
         edge_geo = attrs[3] if len(attrs) == 4 else None
         n = graph.nodes.shape[0]
@@ -714,8 +801,27 @@ class SEGNN(nn.Module):
             out = torch.cat([_checkpoint(heads, head, h[sl], node_attr[sl]) for sl in blocks])
         else:
             out = self.head(self.pre_head(h, node_attr))
-        if self.task == "graph":
-            out = torch.where(graph.node_mask[:, None], out, torch.zeros_like(out))
-            pooled = out.new_zeros((graph.n_graphs, out.shape[-1]))
-            out = pooled.index_add_(0, graph.node_graph.long(), out)
-        return out
+        return self._pool(out, graph)
+
+    def _pool(self, out, graph, plan=None):
+        """'graph' task: the masked node outputs summed per graph in node
+        order (ids >= n_graphs drop); 'node': ``out`` unchanged."""
+        if self.task != "graph":
+            return out
+        out = torch.where(graph.node_mask[:, None], out, torch.zeros_like(out))
+        return segment_sum(out, graph.node_graph, graph.n_graphs, plan=plan)
+
+    def _forward_coo(self, graph: SteerableGraph, velocities=None, attrs=None):
+        """The JAX ``__call__`` on a COO graph; its segment plans built once
+        here when the graph carries none."""
+        if graph.plans is None:
+            graph = graph.with_plans()
+        if attrs is not None:
+            edge_attr, node_attr, dist2 = attrs
+        else:
+            edge_attr, node_attr, dist2 = self.compute_attributes(graph, velocities)
+        h = self.embed(graph.nodes, node_attr)
+        for layer in self.layers:
+            h = layer(h, graph, edge_attr, node_attr, dist2)
+        out = self.head(self.pre_head(h, node_attr))
+        return self._pool(out, graph, graph.plans.pool)

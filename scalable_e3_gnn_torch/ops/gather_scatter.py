@@ -13,15 +13,30 @@ only for symmetrized graphs (``graph.radius.symmetrize_dense``).
 of VJP over a precomputed transpose table, for any graph.  The plain
 gathers' gradient is PyTorch's indexed accumulate, as JAX's is XLA's
 scatter-add.
+
+The COO ops of the JAX module (``segment_sum``, ``segment_mean``,
+``segment_max``, ``scatter_sum``, ``spmm``, ``sddmm``, and the edge gather
+``gather_coo``, JAX's ``gather`` on an [E] index) keep its padding rules:
+ids outside ``[0, num_segments)`` drop, gathers clip.  None of them uses a
+float atomic, so on the GPU two runs give the same bits: a segment
+reduction is ``torch.segment_reduce`` over ids sorted once (a
+``SegmentPlan``: the stable sort order, or none when the ids come sorted,
+and each segment's offset), each segment summed in its own thread in edge
+order; the gradient of ``gather_coo`` is such a sorted segment sum over
+the gather's indices.  A plan depends only on the ids, so a graph builds
+its plans once (``graph.container.SteerableGraph.with_plans``).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
 __all__ = ["gather", "gather_km", "take_dense_symmetric", "take_dense_symmetric_km",
            "take_dense_rev", "reverse_slot_gather_sum", "reverse_slot_gather_sum_km",
-           "rev_gather_sum"]
+           "rev_gather_sum", "SegmentPlan", "segment_plan", "gather_coo", "segment_sum",
+           "segment_mean", "segment_max", "scatter_sum", "spmm", "sddmm"]
 
 
 def gather(h, senders):
@@ -164,3 +179,107 @@ def take_dense_rev(h, senders, rev):
     instead of a scatter, for any graph whose transpose table is built
     (``parallel.partition.partition_graph_dense``'s ``rev_int``/``rev_ext``)."""
     return _TakeDenseRev.apply(h, senders, rev)
+
+
+class SegmentPlan(NamedTuple):
+    """Ids grouped by segment: ``order`` the stable sort of the ids (None
+    when they come sorted), ``offsets`` [S + 1] the first sorted position of
+    each segment and the end; ids outside ``[0, S)`` lie in no segment."""
+
+    order: Optional[torch.Tensor]
+    offsets: torch.Tensor
+
+
+def segment_plan(segment_ids, num_segments: int, indices_are_sorted: bool = False) -> SegmentPlan:
+    """The ``SegmentPlan`` of ``segment_ids`` [E] into ``num_segments``
+    segments (no host sync: a stable sort and a binary search)."""
+    ids = segment_ids.long()
+    order = None
+    if not indices_are_sorted:
+        ids, order = torch.sort(ids, stable=True)
+    bounds = torch.arange(num_segments + 1, dtype=ids.dtype, device=ids.device)
+    return SegmentPlan(order, torch.searchsorted(ids.contiguous(), bounds))
+
+
+def _reduce(data, plan: SegmentPlan, reduce: str):
+    x = data if plan.order is None else data[plan.order]
+    return torch.segment_reduce(x.contiguous(), reduce, offsets=plan.offsets, axis=0,
+                                unsafe=True)
+
+
+class _GatherCoo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, idx, order, offsets):
+        ctx.save_for_backward(order, offsets)
+        return x[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        order, offsets = ctx.saved_tensors
+        return _reduce(g, SegmentPlan(order, offsets), "sum"), None, None, None
+
+
+def gather_coo(x, idx, plan: Optional[SegmentPlan] = None):
+    """Per-edge gather of rows ``x[idx]`` for an [E] index, out-of-range
+    indices clipped into ``[0, N)`` (JAX's ``gather``, ``mode="clip"``).  Its
+    gradient in x is the sorted segment sum of the cotangent rows over the
+    clipped indices; ``plan``: their ``segment_plan`` into N segments, made
+    here when not given."""
+    n = x.shape[0]
+    idx = torch.clamp(idx.long(), 0, n - 1)
+    plan = plan if plan is not None else segment_plan(idx, n)
+    return _GatherCoo.apply(x, idx, plan.order, plan.offsets)
+
+
+def segment_sum(data, segment_ids, num_segments: int, indices_are_sorted: bool = False,
+                plan: Optional[SegmentPlan] = None):
+    """Sum the rows of ``data`` into ``num_segments`` buckets; ids outside
+    ``[0, num_segments)`` drop (the trash segment of padding edges).  Each
+    bucket sums its rows in their order (after a stable sort of unsorted
+    ids); an empty bucket is zero.  ``plan``: ``segment_plan`` of the ids."""
+    plan = plan if plan is not None else segment_plan(segment_ids, num_segments,
+                                                       indices_are_sorted)
+    return _reduce(data, plan, "sum")
+
+
+def segment_mean(data, segment_ids, num_segments: int, indices_are_sorted: bool = False,
+                 eps: float = 1e-9, plan: Optional[SegmentPlan] = None):
+    """``segment_sum`` over the count of each bucket's rows, at least ``eps``."""
+    plan = plan if plan is not None else segment_plan(segment_ids, num_segments,
+                                                       indices_are_sorted)
+    s = _reduce(data, plan, "sum")
+    cnt = _reduce(data.new_ones(data.shape[:1]), plan, "sum")
+    cnt = torch.clamp(cnt, min=eps)
+    return s / (cnt[:, None] if data.dim() > 1 else cnt)
+
+
+def segment_max(data, segment_ids, num_segments: int, indices_are_sorted: bool = False,
+                plan: Optional[SegmentPlan] = None):
+    """Per-bucket maximum of floating ``data``; an empty bucket is -inf (as
+    ``jax.ops.segment_max``); ids outside ``[0, num_segments)`` drop."""
+    plan = plan if plan is not None else segment_plan(segment_ids, num_segments,
+                                                       indices_are_sorted)
+    out = _reduce(data, plan, "max")
+    empty = (plan.offsets[1:] == plan.offsets[:-1]).reshape((-1,) + (1,) * (out.dim() - 1))
+    return torch.where(empty, torch.full_like(out, float("-inf")), out)
+
+
+def scatter_sum(messages, receivers, num_nodes: int, indices_are_sorted: bool = False,
+                plan: Optional[SegmentPlan] = None):
+    """``segment_sum`` with message-passing names."""
+    return segment_sum(messages, receivers, num_nodes, indices_are_sorted, plan)
+
+
+def spmm(edge_weights, node_features, senders, receivers, num_nodes: int,
+         indices_are_sorted: bool = False):
+    """out[r] = sum over edges e with receiver r of w_e * x[s_e] (``edge_weights``
+    None: the unweighted sum); padding edges point at receiver ``num_nodes``."""
+    msgs = gather_coo(node_features, senders)
+    if edge_weights is not None:
+        msgs = msgs * edge_weights[:, None]
+    return segment_sum(msgs, receivers, num_nodes, indices_are_sorted)
+
+
+def sddmm(a, b, senders, receivers):
+    """Per-edge dots <a[s_e], b[r_e]>."""
+    return torch.sum(gather_coo(a, senders) * gather_coo(b, receivers), dim=-1)

@@ -1,8 +1,9 @@
-"""Equivariant linear layer over steerable features.
+"""Equivariant linear layer and norm over steerable features.
 
-Counterpart of ``scalable_e3_gnn_tpu/ops/linear.py::O3Linear``: per-irrep
+Counterpart of ``scalable_e3_gnn_tpu/ops/linear.py``: ``O3Linear``, per-irrep
 multiplicity mixing with a 1/sqrt(mul_in) normalization and an optional bias
-on even scalars.  It is the model's output head.
+on even scalars (the model's output head), and ``O3LayerNorm``, the
+norm-based equivariant layer norm (no model uses it).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from torch import nn
 from ..core.irreps import Irrep, Irreps
 from ..utils.device import resolve_device
 
-__all__ = ["O3Linear"]
+__all__ = ["O3Linear", "O3LayerNorm"]
 
 
 class O3Linear(nn.Module):
@@ -79,3 +80,39 @@ class O3Linear(nn.Module):
                 res = res.transpose(-1, -2)
             out[..., sl_out] = res.reshape(lead + (mul_out * d,))
         return out
+
+
+class O3LayerNorm(nn.Module):
+    """Norm-based equivariant layer norm: the scalars (l=0) of each irrep
+    group normalized by their mean and variance over the group's channels;
+    an l>0 group divided by the RMS of its copies' vector norms (no mean
+    removed, which would break equivariance); then a gain per copy,
+    ``g_<irrep>`` [mul] (ones at init, as the JAX ``init``)."""
+
+    def __init__(self, irreps: Irreps, eps: float = 1e-6, device=None,
+                 dtype: torch.dtype = torch.float32) -> None:
+        super().__init__()
+        device = resolve_device(device)
+        self.irreps = Irreps(irreps).regroup()
+        self.eps = eps
+        for mi in self.irreps:
+            self.register_parameter(
+                f"g_{mi.ir}", nn.Parameter(torch.ones((mi.mul,), device=device, dtype=dtype)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:-1]
+        outs = []
+        for mi, sl in zip(self.irreps, self.irreps.slices()):
+            blk = x[..., sl].reshape(lead + (mi.mul, mi.ir.dim))
+            g = getattr(self, f"g_{mi.ir}")
+            if mi.ir.l == 0:
+                mu = torch.mean(blk, dim=-2, keepdim=True)
+                var = torch.mean((blk - mu) ** 2, dim=-2, keepdim=True)
+                blk = (blk - mu) / torch.sqrt(var + self.eps)
+            else:
+                norms2 = torch.sum(blk * blk, dim=-1)  # [..., mul]
+                rms = torch.sqrt(torch.mean(norms2, dim=-1, keepdim=True) + self.eps)
+                blk = blk / rms[..., None]
+            blk = blk * g[..., :, None]
+            outs.append(blk.reshape(lead + (mi.dim,)))
+        return torch.cat(outs, dim=-1)

@@ -1,8 +1,11 @@
-"""Training step: loss, gradients, one optimizer update.
+"""Training step: loss, gradients, one optimizer update; the train state.
 
 Counterpart of ``scalable_e3_gnn_tpu/train/pipeline.py`` (``mse_loss``,
-``make_train_step``).  PyTorch runs eagerly, so there is no ``jit`` and no
-donation: the step updates the module's parameters in place.
+``make_train_step``, ``TrainState``, ``make_train_state``).  PyTorch runs
+eagerly, so there is no ``jit`` and no donation: the step updates the
+module's parameters and the optimizer's state in place, and the
+``TrainState`` holds the module, the optimizer and the step count (plus,
+optionally, the data generator whose state a checkpoint keeps).
 
 ``optax.adam(1e-3)`` maps onto ``torch.optim.Adam(params, lr=1e-3,
 betas=(0.9, 0.999), eps=1e-8)``: both update with ``m_hat / (sqrt(v_hat) +
@@ -13,12 +16,35 @@ zero moments.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["mse_loss", "make_train_step"]
+__all__ = ["TrainState", "make_train_state", "mse_loss", "make_train_step"]
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The JAX ``TrainState`` (params, opt_state, step): ``model`` holds the
+    parameters, ``optimizer`` their optimizer state, ``step`` the steps
+    taken; ``data_rng``, when a run draws its data from one, the numpy
+    generator (``train.checkpoint`` saves its state, so a resumed run draws
+    the same data)."""
+
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+    data_rng: Optional[np.random.Generator] = None
+
+
+def make_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
+                     data_rng: Optional[np.random.Generator] = None) -> TrainState:
+    """A fresh ``TrainState`` at step 0 (the optimizer's state starts empty:
+    Adam's moments are zero)."""
+    return TrainState(model=model, optimizer=optimizer, step=0, data_rng=data_rng)
 
 
 def mse_loss(pred: torch.Tensor, target: torch.Tensor,
