@@ -7,17 +7,33 @@ Counterpart of ``scalable_e3_gnn_tpu/graph/radius.py``:
   level whose cell side covers the radius, processed cell-major (one row
   block holds whole cells).  This is the JAX package's direct
   per-candidate-gather branch; its per-cell coordinate table (taken above
-  500k points) yields the same edges.
+  500k points) yields the same edges.  ``row_range=(start, count)`` emits
+  only the rows start..start+count, blocked over point rows (the JAX
+  package's row-major entry); candidates still come from the whole cloud.
+- ``radius_graph_cell_segments``: the JAX package's segmented entry; it
+  returns ``radius_graph_cell``'s edges (the cell-major loop already bounds
+  its temporaries, so segments buy nothing).
 
-- ``radius_graph_cell_segments``: the JAX package's segmented entry, with
-  the exact selection only; it returns ``radius_graph_cell``'s edges (the
-  cell-major loop already bounds its temporaries, so segments buy nothing).
+Neighbour selection (``selection``), the nearest ``max_neighbors`` per node:
 
-All select the nearest ``max_neighbors`` per node with a stable sort on
-(d^2, candidate order), so ties break as in the JAX package, and emit a
-receiver-sorted COO with a validity mask.  The JAX package's approximate
-selections (``"approx"``, ``"approx2"``: ``lax.approx_min_k``, a TPU
-primitive) and its row-segmented builder are not ported.
+- ``"sort"``: a stable sort on (d^2, candidate order), so ties break as in
+  the JAX package.
+- ``"approx"``: the K smallest d^2 by ``torch.topk``.  The JAX package
+  calls ``lax.approx_min_k``, approximate on a TPU only; on every other
+  backend it returns the exact K smallest keys, and so does this one: its
+  recall is 1.0 whatever ``approx_recall`` asks (the argument is accepted
+  for compatibility and read nowhere).  The order among keys that tie at
+  the K-th is not stable, as JAX's is not.
+- ``"approx2"`` (cell-major only; the row-major entry maps it to
+  ``"approx"`` on exact d^2, as JAX does): the same selection on JAX's
+  recentred bf16 keys, from the per-cell coordinate table
+  (``_cell_point_table``: invalid slots 1e9, empty receiver slots zeroed),
+  coordinates relative to the first receiver slot of each cell, scaled by
+  1/(4r) and rounded to bf16; the cross term summed in fp32 from the bf16
+  values (products of two bf16 values are exact in fp32), the cutoff 0.25
+  in the scaled space.  Only the choice of neighbours uses these keys.
+
+All emit a receiver-sorted COO with a validity mask.
 """
 
 from __future__ import annotations
@@ -66,13 +82,25 @@ class RadiusEdges(NamedTuple):
     num_edges: torch.Tensor  # [] int32, number of valid edges
 
 
-def _topk_neighbors(d2, cand_idx, valid, radius, self_idx, k):
+_SELECTIONS = ("sort", "approx", "approx2")
+
+
+def _check_selection(selection: str) -> None:
+    if selection not in _SELECTIONS:
+        raise ValueError(f"unknown selection {selection!r}")
+
+
+def _topk_neighbors(d2, cand_idx, valid, radius, self_idx, k, selection="sort"):
     """Nearest-k among masked candidates: d2/cand_idx/valid [rows, M] ->
-    senders [rows, k] (INT_MAX where empty), mask [rows, k]."""
+    senders [rows, k] (INT_MAX where empty), mask [rows, k].  ``selection``
+    "sort": a stable sort; "approx": ``torch.topk`` (exact, ties unstable)."""
     ok = valid & (d2 <= radius * radius) & (cand_idx != self_idx[:, None])
     key = torch.where(ok, d2, torch.full_like(d2, math.inf))
-    skey, order = torch.sort(key, dim=1, stable=True)
-    skey, order = skey[:, :k], order[:, :k]
+    if selection == "approx":
+        skey, order = torch.topk(key, k, dim=1, largest=False, sorted=True)
+    else:
+        skey, order = torch.sort(key, dim=1, stable=True)
+        skey, order = skey[:, :k], order[:, :k]
     senders = torch.gather(cand_idx, 1, order)
     mask = torch.isfinite(skey)
     return torch.where(mask, senders, _INT_MAX).to(torch.int32), mask
@@ -192,17 +220,28 @@ def radius_graph_cell(
     cell_capacity: int = 64,
     level: Optional[int] = None,
     block_size: int = 1024,
+    row_range: Optional[Tuple[int, int]] = None,
+    selection: str = "sort",
+    approx_recall: float = 0.95,
 ) -> RadiusEdges:
     """Radius graph from octree cells; indices are in *sorted* point space.
 
     Runs on the tree's device.  ``cell_capacity`` must cover the max
     occupancy of the search level (``suggest_cell_capacity``); overflowing
     cells are truncated to their first ``cell_capacity`` points, as
-    candidates and as receivers.  ``block_size`` sets the cell padding as in
-    the JAX package (whole blocks of ``block_size // cell_capacity`` cells).
+    candidates and (cell-major) as receivers.  ``block_size`` sets the cell
+    padding as in the JAX package (whole blocks of ``block_size //
+    cell_capacity`` cells), and the rows per block of the row-major entry.
+    ``row_range=(start, count)`` emits the edges of the sorted points
+    start..start+count only (``count * K`` slots).  ``selection`` and
+    ``approx_recall``: the module docstring.
     """
+    _check_selection(selection)
+    if row_range is not None:
+        return _radius_graph_row_major(tree, radius, lo, hi, max_neighbors, cell_capacity,
+                                       level, block_size, row_range, selection)
     senders_cs, mask_cs = _cell_major_slots(
-        tree, radius, lo, hi, max_neighbors, cell_capacity, level, block_size
+        tree, radius, lo, hi, max_neighbors, cell_capacity, level, block_size, selection
     )
     return _compact_cell_slots(tree, radius, lo, hi, max_neighbors, cell_capacity,
                                level, senders_cs, mask_cs)
@@ -219,24 +258,50 @@ def radius_graph_cell_segments(
     block_size: int = 1024,
     num_segments: int = 8,
     selection: str = "sort",
+    approx_recall: float = 0.95,
 ) -> RadiusEdges:
     """The JAX package's cell-segmented entry for clouds of millions of
-    points, with the exact selection only: ``radius_graph_cell``'s edges.
-    There the segments bound the size of one compiled program; here
-    ``_cell_major_slots`` already walks the cells in steps of bounded size,
-    so ``num_segments`` changes nothing and is accepted for compatibility."""
-    if selection != "sort":
-        raise NotImplementedError(
-            f"selection={selection!r} (lax.approx_min_k, a TPU primitive) is not ported: "
-            "ROADMAP module 3 (the large-graph builders); use selection='sort'")
+    points: ``radius_graph_cell``'s edges.  There the segments bound the
+    size of one compiled program; here ``_cell_major_slots`` already walks
+    the cells in steps of bounded size, so ``num_segments`` changes nothing
+    and is accepted for compatibility."""
     if num_segments < 1:
         raise ValueError(f"num_segments must be >= 1, got {num_segments}")
     return radius_graph_cell(tree, radius, lo, hi, max_neighbors, cell_capacity, level,
-                             block_size)
+                             block_size, selection=selection, approx_recall=approx_recall)
+
+
+def _cell_point_table(tree, cap, level, pad_cells):
+    """Cap-padded per-cell coordinate table [C + pad_cells, cap, 3] of the
+    level's C cells: slot o of cell c holds its o-th point, invalid slots
+    (past the count, and the padding cells) the 1e9 sentinel."""
+    n = tree.num_points
+    cell_start = tree.cell_start[level]
+    cell_count = tree.cell_count[level]
+    slot = torch.arange(cap, dtype=torch.int32, device=cell_start.device)
+    idx = torch.clamp(cell_start[:, None] + slot, 0, n - 1).long()
+    tab = tree.points[idx]
+    tab = torch.where((slot < cell_count[:, None])[..., None], tab, 1e9)
+    return torch.cat([tab, tab.new_full((pad_cells, cap, 3), 1e9)])
+
+
+def _approx2_d2(rpts, cpts, radius):
+    """JAX's recentred bf16 keys: ``rpts`` [c, cap, 3], ``cpts`` [c, M, 3]
+    from the cell table -> d^2 [c, cap, M] in the space scaled by 1/(4r),
+    the centre each cell's first receiver slot.  Each product of two bf16
+    values is exact in fp32; the three are summed in fp32."""
+    s = torch.tensor(1.0 / (4.0 * radius), dtype=torch.float32)
+    ctr = rpts[:, :1, :]
+    rb = ((rpts - ctr) * s).to(torch.bfloat16).float()
+    qb = ((cpts - ctr) * s).to(torch.bfloat16).float()
+    rq = torch.bmm(rb, qb.transpose(1, 2))
+    r2 = torch.sum(rb * rb, dim=-1)
+    q2 = torch.sum(qb * qb, dim=-1)
+    return torch.clamp(r2[..., None] + q2[:, None, :] - 2.0 * rq, min=0.0)
 
 
 def _cell_major_slots(tree, radius, lo, hi, max_neighbors, cell_capacity, level,
-                      block_size):
+                      block_size, selection="sort"):
     """Nearest-K selection for all cells, in cell-slot space.
 
     Returns (senders [C*cap, K], mask [C*cap, K]) where slot row c*cap+o is
@@ -261,35 +326,92 @@ def _cell_major_slots(tree, radius, lo, hi, max_neighbors, cell_capacity, level,
     start_p = torch.cat([cell_start, torch.full((pad_c,), n, **i32)])
     count_p = torch.cat([cell_count, torch.zeros((pad_c,), **i32)])
     slot = torch.arange(cap, **i32)
+    celltab = _cell_point_table(tree, cap, level, pad_c) if selection == "approx2" else None
 
     step = max(1, _CELL_STEP_ELEMS // (cap * 27 * cap))
     senders, masks = [], []
     for c0 in range(0, nb * cb, step):
         ccode, cstart, ccount = (a[c0 : c0 + step] for a in (code_p, start_p, count_p))
         c = ccode.shape[0]
-        nstart, ncount, _ = _stencil_lookup(ccode, cell_code, cell_start, cell_count, level)
+        nstart, ncount, npos = _stencil_lookup(ccode, cell_code, cell_start, cell_count, level)
         cand = nstart[..., None] + slot  # [c, 27, cap]
         cvalid = slot < ncount[..., None]
         candf = torch.where(cvalid, cand, 0).reshape(c, 27 * cap)
         cvalidf = cvalid.reshape(c, 27 * cap)
         rows_idx = cstart[:, None] + slot  # [c, cap]
         rvalid = slot < ccount[:, None]
-        cpts = pts[candf.long()]  # [c, 27*cap, 3]
-        rpts = pts[torch.where(rvalid, rows_idx, 0).long()]  # [c, cap, 3]
-        # d^2 = |r|^2 + |q|^2 - 2 r.q ; the cross term is one batched product
-        rq = torch.bmm(rpts, cpts.transpose(1, 2))  # [c, cap, 27*cap]
-        r2 = torch.sum(rpts * rpts, dim=-1)
-        q2 = torch.sum(cpts * cpts, dim=-1)
-        d2 = torch.clamp(r2[..., None] + q2[:, None, :] - 2.0 * rq, min=0.0)
+        r_eff = radius
+        if celltab is not None:
+            cpts = celltab[npos.long()].reshape(c, 27 * cap, 3)  # whole-cell rows
+            rpts = torch.where(rvalid[..., None], celltab[c0 : c0 + c], 0.0)
+            d2 = _approx2_d2(rpts, cpts, radius)
+            r_eff = 0.25  # radius * 1/(4r) in the scaled space
+        else:
+            cpts = pts[candf.long()]  # [c, 27*cap, 3]
+            rpts = pts[torch.where(rvalid, rows_idx, 0).long()]  # [c, cap, 3]
+            # d^2 = |r|^2 + |q|^2 - 2 r.q ; the cross term is one batched product
+            rq = torch.bmm(rpts, cpts.transpose(1, 2))  # [c, cap, 27*cap]
+            r2 = torch.sum(rpts * rpts, dim=-1)
+            q2 = torch.sum(cpts * cpts, dim=-1)
+            d2 = torch.clamp(r2[..., None] + q2[:, None, :] - 2.0 * rq, min=0.0)
         valid = (cvalidf[:, None, :] & rvalid[..., None]).reshape(c * cap, 27 * cap)
         s, m = _topk_neighbors(
             d2.reshape(c * cap, 27 * cap),
             candf[:, None, :].expand(c, cap, 27 * cap).reshape(c * cap, 27 * cap),
-            valid, radius, rows_idx.reshape(c * cap), k,
+            valid, r_eff, rows_idx.reshape(c * cap), k,
+            "approx" if selection == "approx2" else selection,
         )
         senders.append(s)
         masks.append(m)
     return torch.cat(senders), torch.cat(masks)
+
+
+def _radius_graph_row_major(tree, radius, lo, hi, max_neighbors, cell_capacity, level,
+                            block_size, row_range, selection) -> RadiusEdges:
+    """The rows start..start+count of the cell graph, blocked over point
+    rows: each row's 27 stencil cells from its own code at the level."""
+    n = tree.num_points
+    k = max_neighbors
+    cap = cell_capacity
+    row_start, row_count = (int(v) for v in row_range)
+    level = _resolve_level(tree, radius, lo, hi, level)
+    cshift = 3 * (BITS - level)  # full code -> level prefix
+    pts = tree.points
+    dev = pts.device
+    cell_code = tree.cell_code[level]
+    cell_start = tree.cell_start[level]
+    cell_count = tree.cell_count[level]
+    # approx2's bf16 keys are cell-major only: here the approx selection on exact d^2
+    sel = "approx" if selection == "approx2" else selection
+    slot = torch.arange(cap, dtype=torch.int32, device=dev)
+    stop = min(n, row_start + row_count)
+    bs = max(1, min(block_size, _CELL_STEP_ELEMS // (27 * cap)))
+    senders, masks = [], []
+    for b0 in range(row_start, row_start + row_count, bs):
+        row_idx = torch.arange(b0, b0 + bs, dtype=torch.int32, device=dev)
+        rvalid = row_idx < stop
+        ri = torch.where(rvalid, row_idx, 0).long()
+        rows = pts[ri]  # [B, 3]
+        start, count, _ = _stencil_lookup(tree.codes[ri] >> cshift, cell_code, cell_start,
+                                          cell_count, level)  # [B, 27]
+        cand = start[..., None] + slot  # [B, 27, cap]
+        cvalid = slot < count[..., None]
+        cand = torch.where(cvalid, cand, 0).reshape(bs, 27 * cap)
+        cpts = pts[cand.long()]  # [B, 27*cap, 3]
+        rq = torch.bmm(cpts, rows[:, :, None])[..., 0]  # [B, 27*cap]
+        r2 = torch.sum(rows * rows, dim=-1)
+        q2 = torch.sum(cpts * cpts, dim=-1)
+        d2 = torch.clamp(r2[:, None] + q2 - 2.0 * rq, min=0.0)
+        valid = cvalid.reshape(bs, 27 * cap) & rvalid[:, None]
+        s, m = _topk_neighbors(d2, cand, valid, radius, row_idx, k, sel)
+        senders.append(s)
+        masks.append(m)
+    senders = torch.cat(senders).reshape(-1)[: row_count * k]
+    mask = torch.cat(masks).reshape(-1)[: row_count * k]
+    receivers = (row_start + torch.arange(row_count, dtype=torch.int32, device=dev)
+                 ).repeat_interleave(k)
+    senders = torch.where(mask, senders, n).to(torch.int32)
+    return RadiusEdges(senders, receivers, mask, mask.sum().to(torch.int32))
 
 
 def _compact_cell_slots(tree, radius, lo, hi, max_neighbors, cell_capacity, level,

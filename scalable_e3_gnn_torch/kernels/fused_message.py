@@ -389,21 +389,24 @@ def sender_epilogue(d_hr, d_hu, revd, remp, remn):
     return acc + seg.to(dt)
 
 
-def _rows_bwd(cfg: MessageConfig, xs1, xv1, s, v, maskf, ws, d_rows, dt):
+def _rows_bwd(cfg: MessageConfig, xs1, xv1, s, v, maskf, ws, d_rows, dt, acc=torch.float32):
     """The backward over slot rows (the stacked-lane ``_layer_bwd`` of the
     TPU kernels): recompute both layers, then the hand VJP, the cotangent
     intermediates rounded to ``dt``.  ``d_rows`` [E, F] is the receiver
     cotangent of every slot row (fp32).  Returns the sender and receiver
     parts of the layer-1 input cotangents, d_hs and d_hr rows [E, F] (fp32
-    holding ``dt`` values), and the six fp32 weight-gradient blocks."""
+    holding ``dt`` values), and the six fp32 weight-gradient blocks.
+    ``acc``: the dtype of the sums between the roundings (float64: the
+    same rounding points with the sums exact to fp32, a reference for
+    implementations that sum in another order)."""
     hs, hv = cfg.hs, cfg.hv
     e = xs1.shape[0]
-    rnd = lambda x: x.to(dt).float()
-    w0a, w1sa, w1va, w0b, w1sb, w1vb = (w.float() for w in ws)
+    rnd = lambda x: x.to(dt).to(acc)
+    w0a, w1sa, w1va, w0b, w1sb, w1vb = (w.to(acc) for w in ws)
     m0, m1, res1 = _layer(xs1, xv1, s, v, w0a, w1sa, w1va, hs)
     _, _, res2 = _layer(rnd(m0), rnd(m1), s, v, w0b, w1sb, w1vb, hs)
     # d_agg at every slot, masked and cast to the data dtype
-    d_m = rnd(d_rows * maskf.float())
+    d_m = rnd(d_rows * maskf.to(acc))
     d_xs2, d_xv2, dw0b, dw1sb, dw1vb = _layer_vjp(
         res2, d_m[:, :hs], d_m[:, hs:].reshape(e, 3, hv), s, v, w0b, w1sb, w1vb, hs, rnd)
     d_xs1, d_xv1, dw0a, dw1sa, dw1va = _layer_vjp(
@@ -677,16 +680,16 @@ def _check_km(cfg: MessageConfig, hs3, hr, geo2, ws):
     _check_blocks(cfg, ws, "hr", hr, (("hs3", hs3), ("geo2", geo2)))
 
 
-def _km_slot_inputs(cfg: MessageConfig, hs3, hr, geo2):
+def _km_slot_inputs(cfg: MessageConfig, hs3, hr, geo2, acc=torch.float32):
     """Layer-1 inputs of every slot row (slot-major, row k*N + i) in fp32:
     xs [E, S1], xv [E, 3, V1], the sh scalar s [E, 1] and vector v [E, 3],
-    and the mask [E, 1]."""
+    and the mask [E, 1]; in ``acc`` (fp32 unless given)."""
     k, n, f = hs3.shape
     hs, hv = cfg.hs, cfg.hv
     e = k * n
-    hsf = hs3.float().reshape(e, f)
-    hrf = hr.float().repeat(k, 1)
-    g = geo2.float().reshape(n, k, 6).transpose(0, 1).reshape(e, 6)
+    hsf = hs3.to(acc).reshape(e, f)
+    hrf = hr.to(acc).repeat(k, 1)
+    g = geo2.to(acc).reshape(n, k, 6).transpose(0, 1).reshape(e, 6)
     xs = torch.cat([hsf[:, :hs], hrf[:, :hs], g[:, 4:5]], dim=-1)
     xv = torch.cat([hsf[:, hs:].reshape(e, 3, hv), hrf[:, hs:].reshape(e, 3, hv)], dim=-1)
     return xs, xv, g[:, 0:1], g[:, 1:4], g[:, 5:6]
@@ -731,14 +734,16 @@ def fused_message_aggregate_km_plain(cfg: MessageConfig, hs3, hr, geo2, w0e1, w1
     return _ksum(msg.reshape(k, n, f)).to(dt)
 
 
-def km_bwd_plain(cfg: MessageConfig, hs3, hr, geo2, ws, d_agg):
+def km_bwd_plain(cfg: MessageConfig, hs3, hr, geo2, ws, d_agg, acc=torch.float32):
     """The plain km backward on split weights ``ws`` (six blocks): (d_hs
     [K, N, F] written per slot, d_hr [N, F] (the fp32 K-sum, cast), six fp32
-    weight-gradient blocks).  Rounds where ``_bwd_kernel_km`` does."""
+    weight-gradient blocks).  Rounds where ``_bwd_kernel_km`` does; ``acc``
+    as in ``_rows_bwd``."""
     dt = hr.dtype
     k, n, f = hs3.shape
-    xs1, xv1, s, v, mask = _km_slot_inputs(cfg, hs3, hr, geo2)
-    d_hs, d_hrr, dws = _rows_bwd(cfg, xs1, xv1, s, v, mask, ws, d_agg.float().repeat(k, 1), dt)
+    xs1, xv1, s, v, mask = _km_slot_inputs(cfg, hs3, hr, geo2, acc)
+    d_hs, d_hrr, dws = _rows_bwd(cfg, xs1, xv1, s, v, mask, ws, d_agg.to(acc).repeat(k, 1), dt,
+                                 acc)
     return (d_hs.to(dt).reshape(k, n, f), _ksum(d_hrr.reshape(k, n, f)).to(dt), dws)
 
 

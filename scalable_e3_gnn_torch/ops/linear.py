@@ -16,6 +16,7 @@ from torch import nn
 
 from ..core.irreps import Irrep, Irreps
 from ..utils.device import resolve_device
+from .tensor_product import _c, _matmul_f32
 
 __all__ = ["O3Linear", "O3LayerNorm"]
 
@@ -67,13 +68,14 @@ class O3Linear(nn.Module):
         out = torch.zeros(lead + (self.out_dim,), dtype=x.dtype, device=x.device)
         for ir, sl_in, mul_in, sl_out, mul_out in self._maps:
             d = ir.dim
-            w = getattr(self, f"w_{ir}") / math.sqrt(mul_in)
+            w = getattr(self, f"w_{ir}")
+            w = w / _c(math.sqrt(mul_in), w.dtype)
             if d == 1 or self.layout_in == "cm":
                 blk = x[..., sl_in].reshape(lead + (d, mul_in))
-                res = torch.matmul(blk.float(), w.float()).to(x.dtype)  # [..., d, mul_out]
+                res = _matmul_f32(blk, w).to(x.dtype)  # [..., d, mul_out]
             else:
                 blk = x[..., sl_in].reshape(lead + (mul_in, d))
-                res = torch.matmul(blk.transpose(-1, -2).float(), w.float()).to(x.dtype)
+                res = _matmul_f32(blk.transpose(-1, -2), w).to(x.dtype)
             if ir == Irrep(0, 1) and hasattr(self, "b_0e"):
                 res = res + self.b_0e.to(x.dtype)
             if d > 1 and self.layout_out == "mul":

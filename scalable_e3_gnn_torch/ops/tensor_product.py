@@ -16,6 +16,7 @@ tolerance.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -83,9 +84,41 @@ def _dot_cm(a, b):
     return a[..., 0, :] * b[..., 0, :] + a[..., 1, :] * b[..., 1, :] + a[..., 2, :] * b[..., 2, :]
 
 
+@functools.lru_cache(maxsize=None)
+def _c(value: float, dtype) -> torch.Tensor:
+    """A constant in the data dtype, as JAX converts a Python float that
+    multiplies an array: bf16 data is scaled by the bf16-rounded constant.
+    One 0-dim CPU tensor per (value, dtype), made once and never written."""
+    return torch.tensor(value, dtype=dtype)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``f.float() @ w.float()`` ([..., P] x [P, M]) whose backward keeps f
+    and w as given: autograd of the casts would keep their fp32 copies,
+    twice the bytes of bf16 operands (the update layers' features at 10M
+    points).  The gradients are autograd's own: the cotangent times the
+    other operand's fp32 copy (its transpose), cast to each operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, f, w):
+        ctx.save_for_backward(f, w)
+        return torch.matmul(f.float(), w.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        f, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        d_f = d_w = None
+        if ctx.needs_input_grad[0]:
+            d_f = g2.mm(w.float().t()).reshape(f.shape).to(f.dtype)
+        if ctx.needs_input_grad[1]:
+            d_w = f.float().reshape(-1, f.shape[-1]).t().mm(g2).to(w.dtype)
+        return d_f, d_w
+
+
 def _matmul_f32(f, w):
     """f @ w with fp32 products and accumulation, whatever the storage dtype."""
-    return torch.matmul(f.float(), w.float())
+    return _MatmulF32.apply(f, w)
 
 
 class L1TensorProduct(nn.Module):
@@ -256,29 +289,29 @@ class L1TensorProduct(nn.Module):
         if self.dim_o_l0e > 0:
             feats = [x0e * s]
             if self.num_i1_l1o > 0:
-                feats.append(CG110 * _dot_cm(x1o, v))
+                feats.append(_c(CG110, dt) * _dot_cm(x1o, v))
             res = _matmul_f32(torch.cat(feats, dim=-1), self.w_l0e)
             blocks[(0, 1)] = (res * self._const(self._norm["l0e"], in1)).to(dt)
         if self.dim_o_l0o > 0:
             feats = [x0o * s]
             if self.num_i1_l1e > 0:
-                feats.append(CG110 * _dot_cm(x1e, v))
+                feats.append(_c(CG110, dt) * _dot_cm(x1e, v))
             res = _matmul_f32(torch.cat(feats, dim=-1), self.w_l0o)
             blocks[(0, -1)] = (res * self._const(self._norm["l0o"], in1)).to(dt)
         if self.dim_o_l1e > 0:
-            feats = [CG011 * x0o.unsqueeze(-2) * v]  # [..., 3, n0o]
+            feats = [_c(CG011, dt) * x0o.unsqueeze(-2) * v]  # [..., 3, n0o]
             if self.num_i1_l1e > 0:
-                feats.append(CG011 * x1e * s.unsqueeze(-1))
+                feats.append(_c(CG011, dt) * x1e * s.unsqueeze(-1))
             if self.num_i1_l1o > 0:
-                feats.append(CG111 * _cross_cm(x1o, v))
+                feats.append(_c(CG111, dt) * _cross_cm(x1o, v))
             res = _matmul_f32(torch.cat(feats, dim=-1), self.w_l1e)  # [..., 3, m]
             blocks[(1, 1)] = (res * self._const(self._norm_mul["l1e"], in1)).to(dt)
         if self.dim_o_l1o > 0:
-            feats = [CG011 * x0e.unsqueeze(-2) * v]
+            feats = [_c(CG011, dt) * x0e.unsqueeze(-2) * v]
             if self.num_i1_l1o > 0:
-                feats.append(CG011 * x1o * s.unsqueeze(-1))
+                feats.append(_c(CG011, dt) * x1o * s.unsqueeze(-1))
             if self.num_i1_l1e > 0:
-                feats.append(CG111 * _cross_cm(x1e, v))
+                feats.append(_c(CG111, dt) * _cross_cm(x1e, v))
             res = _matmul_f32(torch.cat(feats, dim=-1), self.w_l1o)
             blocks[(1, -1)] = (res * self._const(self._norm_mul["l1o"], in1)).to(dt)
 
@@ -515,7 +548,7 @@ class TensorProduct(nn.Module):
                 for sl_1, mul1, l1, sl_2, mul2, l2, cg in self._paths[io]:
                     acc = None
                     for i, j in zip(*np.nonzero(cg[:, :, k])):
-                        c = float(cg[i, j, k])
+                        c = _c(float(cg[i, j, k]), dt)
                         x1i = comp1(sl_1, mul1, l1, int(i))  # [..., mul1]
                         if mul2 == 1:
                             x2j = in2[..., sl_2.start + int(j) : sl_2.start + int(j) + 1]

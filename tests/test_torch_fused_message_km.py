@@ -193,6 +193,28 @@ def test_km_bwd_plain_matches_autograd_of_plain_forward(n):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_km_bwd_plain_exact_sums(dtype):
+    """``km_bwd_plain(acc=float64)``, the exact-sum reference of the card's
+    d_hs check: the same rounding points as with fp32 sums, so in bf16 the
+    two agree bit for bit but where an fp32 sum lands on the other side of
+    a rounding step (at most 1e-3 of the elements, within 8 ulps), and in
+    fp32 within 1e-6 * max(1, |ref|); d_hs keeps the data dtype."""
+    hs3, hr, geo2, ws, d_agg = _problem(200, seed=7)
+    hs3_t, hr_t, geo_t, *ws_t, d_t = _torch([hs3, hr, geo2, *ws, d_agg], dtype)
+    ws6 = tfm.split_weights(TCFG, *ws_t)
+    fp32 = tfm.km_bwd_plain(TCFG, hs3_t, hr_t, geo_t, ws6, d_t)[0]
+    exact = tfm.km_bwd_plain(TCFG, hs3_t, hr_t, geo_t, ws6, d_t, acc=torch.float64)[0]
+    assert exact.dtype == dtype and exact.shape == fp32.shape == (K, NPAD, F)
+    a, b = fp32.float().numpy(), exact.float().numpy()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-6 * max(1.0, np.abs(b).max()))
+    else:
+        u = _ulps(a, b)
+        assert (a != b).mean() <= 1e-3 and u.max() <= 8
+    assert np.abs(b).max() > 0.1 and not b[:, 200:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_km_wrappers_on_cpu_run_the_plain_versions(dtype):
     """On CPU tensors the wrappers and the autograd Function give the plain
     versions' results bitwise, and no kernel counter moves."""

@@ -569,9 +569,24 @@ def test_radius_graph_cell_segments_match(num_segments):
 
 
 def test_radius_graph_cell_segments_approx_raises():
-    _, tt = _trees()
-    with pytest.raises(NotImplementedError, match="module 3 "):
-        t_segments(tt, 0.1, (0.0,) * 3, (1.0,) * 3, max_neighbors=16, selection="approx")
+    """The selections that raised before the large-graph builders landed run
+    now: "approx" gives JAX's segmented edges (bitwise on this cloud) and
+    "approx2" the whole cell build's at any segment count (their parity with
+    JAX on a larger cloud: ``test_torch_radius_approx.py``); an unknown
+    selection still raises."""
+    jt, tt = _trees()
+    box = ((0.0,) * 3, (1.0,) * 3)
+    kw = dict(max_neighbors=16, cell_capacity=t_cap(tt, 0.1, *box))
+    got = t_segments(tt, 0.1, *box, num_segments=3, selection="approx", **kw)
+    ref = j_segments(jt, 0.1, *box, num_segments=3, selection="approx", **kw)
+    for field in ("senders", "receivers", "mask", "num_edges"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(), np.asarray(getattr(ref, field)))
+    got2 = t_segments(tt, 0.1, *box, num_segments=3, selection="approx2", **kw)
+    whole2 = t_cell(tt, 0.1, *box, selection="approx2", **kw)
+    for field in ("senders", "receivers", "mask", "num_edges"):
+        assert torch.equal(getattr(got2, field), getattr(whole2, field))
+    with pytest.raises(ValueError, match="unknown selection"):
+        t_segments(tt, 0.1, *box, selection="bogus", **kw)
 
 
 def test_radius_graph_cell_segments_needs_a_segment():

@@ -32,7 +32,9 @@ def test_port_imports_without_jax():
     assert len(names) >= 26  # every subpackage and module was imported
     for name in ("train", "train.pipeline", "kernels.fused_message", "utils.params",
                  "data", "data.nbody", "data.qm9", "graph.batching", "core.rotations",
-                 "train.checkpoint", "train.metrics", "train.runners", "utils.config"):
+                 "train.checkpoint", "train.metrics", "train.runners", "utils.config",
+                 "cli", "__main__", "utils.profiling", "examples.train_nbody",
+                 "examples.train_pointcloud"):
         assert f"scalable_e3_gnn_torch.{name}" in names
 
 
