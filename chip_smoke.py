@@ -181,6 +181,17 @@ Phases, each printing one JSON line:
                  (#11 per block) against the unpartitioned fp32 plain path and
                  bit for bit the unpartitioned bf16 kernel forward, and 2
                  counted train steps (#11, #12).
+49b. dist_procs -- the P=4 config-3 train step as two processes on the one
+                 card (torch.distributed, gloo, two partitions each; the
+                 workers of ``parallel.dense_worker`` under the Supervisor):
+                 each rank's bf16 forward bit for bit the one-process P=4
+                 forward, a warm-up and 5 timed steps with a heartbeat and
+                 per-rank checkpoints, the same losses on both ranks within
+                 3e-4 of the one-process curve, parameters equal across the
+                 ranks, per rank and step 16 of #3, #5 and the reduction;
+                 then rank 1 killed after step 3's checkpoint: one restart,
+                 the final parameters bit for bit the fault-free run's;
+                 step ms per rank, collective host ms, detection to resume.
 50. coo_nbody, coo_qm9 -- configs 1 and 2 of the evaluation ladder on the COO
                  path (no hand kernel: every count must stay 0), through
                  ``train.runners``: ``run_nbody`` (256 graphs) and ``run_qm9``
@@ -205,6 +216,8 @@ Phases, each printing one JSON line:
 24b. graph_10m_approx2 -- bench.py:111-126's approx2 build of the 10M graph
                  (10 segments, recall 0.85) beside the exact one: times, its
                  recall of the exact edges (>= 0.85), every edge <= 1.02 r.
+24c. partition_10m -- bench.py:128-140's partition_s_10m_p16: the host
+                 partitioner (native helpers) at P=16 on that graph.
 52. cli_cloud100k -- ``python -m scalable_e3_gnn_torch train --config
                  cloud100k --steps 5`` in this process (``cli.main``): the
                  runner at full size on the card, counts zeroed just before
@@ -253,6 +266,8 @@ from scalable_e3_gnn_torch.kernels import halo_ring as hr
 from scalable_e3_gnn_torch.kernels.build import build_libraries
 from scalable_e3_gnn_torch.models.segnn import SEGNNLayer
 from scalable_e3_gnn_torch.ops.gather_scatter import gather_km
+from scalable_e3_gnn_torch.data import native_loader
+from scalable_e3_gnn_torch.parallel import dense_worker
 from scalable_e3_gnn_torch.parallel import halo as dist
 from scalable_e3_gnn_torch.parallel.partition import partition_graph_dense
 from scalable_e3_gnn_torch.train.pipeline import make_train_step, mse_loss
@@ -1607,6 +1622,31 @@ def approx2_phase(card: str, tree, cap: int, exact, exact_ms: float) -> None:
          limits=f"recall >= {APPROX2_RECALL}; every edge <= {APPROX2_SLACK} r")
     check(recall >= APPROX2_RECALL, f"approx2 recall {recall} < {APPROX2_RECALL}")
     check(far <= APPROX2_SLACK * C5_RADIUS, f"approx2 edge of {far / C5_RADIUS} r")
+    partition_10m(card, tree, e2)
+
+
+def partition_10m(card: str, tree, edges) -> None:
+    """Phase 24c, partition_10m: bench.py:128-140's partition_s_10m_p16,
+    ``partition_graph_dense`` at P=16 on the host over the 10M approx2 graph
+    (the device-to-host copies outside the timed region), through the native
+    helpers of ``data.native_loader``; every valid slot kept once."""
+    n = tree.num_points
+    senders = edges.senders.reshape(n, L2_NEIGHBORS).cpu().numpy()
+    mask = edges.mask.reshape(n, L2_NEIGHBORS).cpu().numpy()
+    pts = tree.points.cpu().numpy()
+    feats = np.zeros((n, 5), np.float32)
+    native = native_loader.available()
+    t0 = time.perf_counter()
+    part = partition_graph_dense(pts, feats, senders, mask, num_parts=PARTITION_10M_PARTS)
+    seconds = time.perf_counter() - t0
+    kept = int(part.mask_int.sum()) + int(part.mask_bnd.sum())
+    emit("partition_10m", card=card, points=n, k=L2_NEIGHBORS, num_parts=PARTITION_10M_PARTS,
+         native=native, partition_s_10m_p16=seconds, n_interior=part.n_interior,
+         n_boundary=part.n_boundary, halo_cap=part.halo_cap, q_int=part.rev_int.shape[-1],
+         q_ext=part.rev_ext.shape[-1], slots_kept=kept, slots_valid=int(mask.sum()),
+         clock="host, perf_counter; the graph's device-to-host copies outside it")
+    check(native, "the native partitioner helpers did not build")
+    check(kept == int(mask.sum()), f"the P=16 partition keeps {kept} of {int(mask.sum())} slots")
 
 
 def config5_phases(card: str) -> dict:
@@ -2732,6 +2772,11 @@ DIST_LMAX2_STEPS = 2
 # (P, H, F): odd H and F, F=80 of config 3, and P=1
 RING_SMALL = ((1, 37, 13), (2, 37, 13), (4, 129, 80), (8, 61, 7))
 HALO_TPU_FILE = "scalable_e3_gnn_tpu/kernels/halo_rdma.py"
+PARTITION_10M_PARTS = 16  # bench.py:128-140's partition_s_10m_p16
+DIST_PROCS_WORLD = 2  # processes on the one card, each owning P / 2 partitions
+DIST_PROCS_STEPS = 1 + TRAIN_STEPS  # a warm-up step, then the timed ones
+DIST_PROCS_DIE_AT = 2  # rank 1 dies after the checkpoint of step 3, first incarnation only
+DIST_PROCS_RTOL = 3e-4  # the partitioned runners' bf16 loss tolerance
 
 
 def partition_arrays(graph):
@@ -3061,6 +3106,148 @@ def dist_phases(card: str, graph3) -> dict:
 
     return {hr.RING.name: dict(launches=fwd_launches[f"P{DIST_PARTS}_ring"][hr.RING.name],
                                **ring_row)}
+
+
+def dist_procs_phase(card: str, graph3) -> dict:
+    """Phase 49b, dist_procs: the dense partitioned train step over
+    ``torch.distributed``, two processes on the one card (gloo; both ranks on
+    ``cuda:0``), each owning two of config 3's four partitions.
+
+    This process writes the graph arrays, the seeded weights and the target
+    once (``parallel.dense_worker.write_inputs``), runs the one-process P=4
+    reference (the bf16 forward, a warm-up and 5 timed bf16 steps, fp32
+    masters, Adam 1e-3), and launches the workers through
+    ``dense_worker.run_world`` (the ``Supervisor``) twice: fault-free, and
+    with rank 1 killed (``inject_failure``) after the checkpoint of step
+    3.  The kernel libraries are already built (phase 2).  Each rank
+    partitions the whole graph, keeps its two partitions, runs their bf16
+    forward, then the steps with a heartbeat and its own checkpoint each.
+    Checked: the ranks' partition equals this process's (digest); each rank's
+    forward equals the one-process forward of its partitions bit for bit;
+    both ranks report the same losses, within ``DIST_PROCS_RTOL`` of the
+    one-process curve; their parameters and optimizer states are equal bit
+    for bit; per rank and step 2 blocks x 2 partitions x 4 layers of #3, of
+    #5 and of the reduction, nothing else; the killed run restarts once and
+    ends on the fault-free run's parameters bit for bit.  Read: step ms per
+    rank (CUDA events) beside the one-process step, the host ms in
+    collectives per step, the supervisor's detection-to-resumed seconds.
+    Returns the launches per kernel that rank 0 measured in its last step
+    (equal on both ranks)."""
+    dev = torch.device(DEVICE)
+    bf = torch.bfloat16
+    n = N_POINTS
+    g100 = graph3._replace(**NO_TABLES)
+    arrays = partition_arrays(g100)
+    target = torch.from_numpy(np.random.default_rng(SEED + 2).standard_normal(
+        (n, 3)).astype(np.float32)).to(dev)
+    model_kw = dict(input_irreps="2x0e+1x1o", hidden_irreps=HIDDEN, output_irreps="1x1o",
+                    num_layers=NUM_LAYERS, layout="cm", use_pallas=True, remat=True)
+    model = port.SEGNN(**model_kw, device=dev, generator=torch.Generator().manual_seed(SEED))
+    weights = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+    # ---- the one-process P=4 reference, in this process
+    part = partition_graph_dense(*arrays, num_parts=DIST_PARTS)
+    group, shards, attrs = dist_inputs(model, part, dev, bf)
+    targets = dist_targets(target, part)
+    with torch.no_grad():
+        ref_fwd = dist.make_dist_forward_dense(copy.deepcopy(model).to(bf), group)(
+            shards, attrs).float().cpu().numpy()
+    opt = torch.optim.Adam(model.parameters(), lr=LEARNING_RATE, betas=(0.9, 0.999), eps=1e-8)
+    step = dist.make_dist_train_step_dense(model, opt, group, compute_dtype=bf)
+    per_rank = {fm.KM_FWD.name: 2 * (DIST_PARTS // DIST_PROCS_WORLD) * NUM_LAYERS,
+                fm.KM_BWD.name: 2 * (DIST_PARTS // DIST_PROCS_WORLD) * NUM_LAYERS,
+                fm.TAB_BWD_REDUCE.name: 2 * (DIST_PARTS // DIST_PROCS_WORLD) * NUM_LAYERS}
+    ref = dist_train_run(step, shards, targets, attrs, DIST_PROCS_STEPS,
+                         expected({k: DIST_PROCS_WORLD * v for k, v in per_rank.items()}))
+    ref_ms = ref["step_ms"][1:]
+    del model, opt, step, shards, attrs, targets, group
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the workers' memory comes from the same card
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        dense_worker.write_inputs(
+            tmp / "in", *arrays, target, model_kw, weights, num_parts=DIST_PARTS,
+            steps=DIST_PROCS_STEPS, lr=LEARNING_RATE, compute_dtype="bfloat16")
+        runs = {}
+        for label, env in (("fault_free", None),
+                           ("rank1_killed", {"E3GNN_DIE_AT_STEP": str(DIST_PROCS_DIE_AT),
+                                             "E3GNN_DIE_PROCESS": "1"})):
+            t0 = time.perf_counter()
+            report, res = dense_worker.run_world(tmp / "in", tmp / label, DIST_PROCS_WORLD,
+                                                 env=env, heartbeat_timeout_s=120.0,
+                                                 startup_timeout_s=240.0, wall_timeout_s=420.0)
+            wall = time.perf_counter() - t0
+            logs = "\n".join(f"{p.name}: {p.read_text()[-1500:]}"
+                             for p in sorted((tmp / label).glob("log_*.txt")))
+            files = {r: dict(np.load(tmp / label / f"rank{r}.npz")) for r in res}
+            runs[label] = dict(report=report, res=res, files=files, wall=wall)
+            want_restarts = 0 if env is None else 1
+            check(report.ok and report.restarts == want_restarts
+                  and sorted(res) == list(range(DIST_PROCS_WORLD)),
+                  f"dist_procs {label}: {report}\n{logs}")
+
+    clean, killed = runs["fault_free"], runs["rank1_killed"]
+    res = clean["res"]
+    sha = dense_worker.partition_digest(part)
+    fwd_equal = {}
+    for r in range(DIST_PROCS_WORLD):
+        lo, hi = res[r]["partitions"]
+        got, want = clean["files"][r]["forward"], ref_fwd[lo:hi]
+        fwd_equal[r] = got.shape == want.shape and got.tobytes() == want.tobytes()
+    losses = res[0]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+    params = sorted(k for k in clean["files"][0] if k.startswith("param/"))
+    same_params = all(clean["files"][0][k].tobytes() == clean["files"][1][k].tobytes()
+                      for k in params)
+    restart_equal = all(killed["files"][r][k].tobytes() == clean["files"][0][k].tobytes()
+                        for r in range(DIST_PROCS_WORLD) for k in params)
+    launches_ok = all(ls == per_rank for r in range(DIST_PROCS_WORLD)
+                      for ls in res[r]["launches_per_step"])
+    kres = killed["res"]
+    detect_s = max(kres[r]["resumed_at"] for r in kres) - killed["report"].failed_at[0]
+    rank_ms = {r: res[r]["step_ms"][1:] for r in range(DIST_PROCS_WORLD)}
+    mean = lambda xs: sum(xs) / len(xs)
+    emit("dist_procs", card=card, points=n, k=MAX_NEIGHBORS, layers=NUM_LAYERS,
+         num_parts=DIST_PARTS, world=DIST_PROCS_WORLD, backend="gloo (all_gather of CUDA tensors)",
+         devices=[res[r]["device"] for r in range(DIST_PROCS_WORLD)],
+         partitions={r: res[r]["partitions"] for r in range(DIST_PROCS_WORLD)},
+         compute_dtype="bfloat16", master_dtype="float32",
+         optimizer=f"Adam(lr={LEARNING_RATE}, betas=(0.9, 0.999), eps=1e-8)",
+         steps=DIST_PROCS_STEPS, timed_steps="all but the first",
+         partition_same_as_parent=all(res[r]["partition_sha"] == sha for r in res),
+         forward_bitwise_one_process=fwd_equal,
+         losses={r: res[r]["losses"] for r in res}, one_process_losses=ref["losses"],
+         max_rel_loss_vs_one_process=max(rel), first_loss_equal=losses[0] == ref["losses"][0],
+         rtol=f"{DIST_PROCS_RTOL}: the partitioned runners' bf16 loss tolerance",
+         params_bitwise_across_ranks=same_params,
+         state_sha={r: res[r]["state_sha"] for r in res},
+         launches_per_rank_step={r: res[r]["launches_per_step"][-1] for r in res},
+         step_ms_per_rank=rank_ms, step_ms_mean_per_rank={r: mean(v) for r, v in rank_ms.items()},
+         one_process_p4_step_ms=ref_ms, one_process_p4_step_ms_mean=mean(ref_ms),
+         collective_host_ms_per_step={r: res[r]["comm_ms"] for r in res},
+         collective_host_ms_mean={r: mean(res[r]["comm_ms"][1:]) for r in res},
+         world_wall_s=clean["wall"],
+         killed=dict(events=killed["report"].events, restarts=killed["report"].restarts,
+                     resumed_from_step={r: kres[r]["start_step"] for r in kres},
+                     detect_to_resumed_s=detect_s, world_wall_s=killed["wall"],
+                     final_params_bitwise_fault_free=restart_equal),
+         scaling="none computed: the two processes time-slice one card")
+    check(all(res[r]["partition_sha"] == sha for r in res), "the ranks' partitions differ")
+    check(all(fwd_equal.values()), f"forward not the one-process P=4 forward: {fwd_equal}")
+    check(res[0]["losses"] == res[1]["losses"], "the ranks report different losses")
+    check(all(math.isfinite(x) for x in losses), f"non-finite losses {losses}")
+    check(max(rel) <= DIST_PROCS_RTOL, f"loss curve {max(rel)} relative off one process")
+    check(same_params and res[0]["state_sha"] == res[1]["state_sha"],
+          "the ranks' parameters or optimizer states differ")
+    check(launches_ok, f"launches per rank and step "
+                       f"{ {r: res[r]['launches_per_step'] for r in res} }, expected {per_rank}")
+    check(restart_equal and all(kres[r]["state_sha"] == res[0]["state_sha"] for r in kres),
+          "the restarted run did not end on the fault-free parameters")
+    measured = res[0]["launches_per_step"][-1]
+    check(all(res[r]["launches_per_step"][-1] == measured for r in res),
+          "the ranks launched different kernels in the last step")
+    return measured
 
 
 def dist_lmax2_phase(card: str) -> None:
@@ -3980,6 +4167,7 @@ def main() -> int:
     # ---- 44-49. the dense partitioned path (#3/#5, #11/#12 per block) and
     #      the halo ring #15
     dr = dist_phases(card, graph)
+    dp = dist_procs_phase(card, graph)
     del graph
     dist_lmax2_phase(card)
 
@@ -4009,7 +4197,8 @@ def main() -> int:
          "plain_ms": red3["torch_sum_ms"], "bound_ms": red3["bound_ms"],
          "bound_by": red3["bound_by"], "library_ms": red3["torch_sum_ms"],
          "shape": red3["shape"], "times": "device time from torch.profiler",
-         "event_ms": red3["event_ms"]["kernel"]},
+         "event_ms": red3["event_ms"]["kernel"],
+         "launches_per_rank_step_dist_procs": dp[fm.TAB_BWD_REDUCE.name]},
         {"name": fmg.GENERIC_TAB_FWD.name, "route": "cuda", "source": src(fmg.GENERIC_TAB_FWD),
          "replaces": f"{GENERIC_TPU_FILE}:937", "launches": l2["launches"],
          "max_abs_err": l2["max_abs_err"], "ms": l2["ms"], "plain_ms": l2["plain_ms"],
@@ -4034,6 +4223,7 @@ def main() -> int:
       + [{"name": kern.name, "route": "cuda", "source": src(kern),
           "replaces": f"{TPU_FILE}:{line}", **km[kern.name],
           "launches_per_step_entry": entry(kern, "cloud100k", "cloud10m"),
+          "launches_per_rank_step_dist_procs": dp[kern.name],
           "cloud10m_block": dict(
               max_abs_err=ent["km_10m"]["max_abs_err"][key],
               ms=ent["km_10m"]["times"][f"{key}_ms"],

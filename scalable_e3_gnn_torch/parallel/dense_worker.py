@@ -1,0 +1,287 @@
+"""One rank of the multi-process dense partitioned train step, and its launcher.
+
+By hand, one process a rank, with PyTorch's variables (``LOCAL_RANK`` picks
+the card, ``RANK`` by default):
+
+    MASTER_ADDR=localhost MASTER_PORT=29500 WORLD_SIZE=2 RANK=0 \\
+        python -m scalable_e3_gnn_torch.parallel.dense_worker IN_DIR OUT_DIR
+
+or every rank at once under the restart-the-world ``Supervisor`` of
+``parallel.failover`` by ``run_world``.  Without ``WORLD_SIZE`` one process
+runs every partition.  ``IN_DIR`` holds what every rank reads, written once
+by ``write_inputs``:
+
+- ``graph.npz``: the whole fixed-K graph as host arrays (``positions`` [N, 3],
+  ``nodes`` [N, F], ``senders`` [N, K], ``edge_mask`` [N, K]) and its
+  ``target`` [N, F_out];
+- ``weights.npz``: the model's initial state dict;
+- ``run.json``: the ``SEGNN`` arguments (``model``), ``num_parts``,
+  ``steps``, Adam's ``lr`` and ``compute_dtype`` (``"float32"`` or
+  ``"bfloat16"``: bf16 compute on fp32 master weights).
+
+The exchange is the process group's all-gather (``backend="all_gather"``;
+the ring raises across processes) and the optimizer is Adam.
+
+Each rank partitions the whole graph (``partition_graph_dense``: the same
+arrays on every rank), keeps its own partitions, runs their forward once in
+the compute dtype, then the train steps: a heartbeat before each step, its
+own checkpoint after each (``OUT_DIR/ckpt``), then ``inject_failure``; a
+restarted rank resumes from the latest complete checkpoint.  It writes
+``OUT_DIR/rank<r>.npz`` (its forward outputs as fp32, its final parameters)
+and prints one line ``DENSE_WORKER {json}`` with its readings: the losses,
+step times (CUDA events on the card), host seconds in collectives, kernel
+launches per step, and digests of the partition and of the final state.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import dataclasses
+import hashlib
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+from pathlib import Path
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..kernels import fused_message as fm
+from ..kernels import fused_message_generic as fmg
+from ..kernels import halo_ring as hr
+from ..models.segnn import SEGNN
+from ..train.checkpoint import save_checkpoint
+from ..train.pipeline import TrainState, make_train_state
+from .failover import Heartbeat, Supervisor, SupervisorReport, inject_failure, resume_or_init
+from .halo import (PartitionGroup, make_dist_forward_dense, make_dist_geometry_dense,
+                   make_dist_train_step_dense, shard_partitioned_dense)
+from .multihost import init_distributed, rank_device
+from .partition import partition_graph_dense
+
+__all__ = ["Rank", "setup", "write_inputs", "partition_digest", "run_world", "main"]
+
+RESULT_PREFIX = "DENSE_WORKER "
+_KERNELS = fm.KERNELS + fmg.KERNELS + hr.KERNELS
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def write_inputs(in_dir, positions, nodes, senders, edge_mask, target, model_kwargs: dict,
+                 state_dict: dict, **run) -> None:
+    """Write ``IN_DIR``: the graph and its target, the initial weights, and
+    ``run.json`` (``model_kwargs`` as ``model``, then ``run``)."""
+    in_dir = Path(in_dir)
+    in_dir.mkdir(parents=True, exist_ok=True)
+    host = lambda x: x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    np.savez(in_dir / "graph.npz", positions=host(positions), nodes=host(nodes),
+             senders=host(senders), edge_mask=host(edge_mask), target=host(target))
+    np.savez(in_dir / "weights.npz", **{k: host(v) for k, v in state_dict.items()})
+    (in_dir / "run.json").write_text(json.dumps({"model": model_kwargs, **run}))
+
+
+def _digest(arrays) -> str:
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(str((a.dtype, a.shape)).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def partition_digest(part) -> str:
+    """SHA-256 of every array of a ``DensePartitionedGraph``: equal on every
+    rank that partitions the same graph."""
+    return _digest(a for a in part if isinstance(a, np.ndarray))
+
+
+def _state_digest(state) -> str:
+    tensors = [p.detach() for p in state.model.parameters()]
+    for entry in state.optimizer.state_dict()["state"].values():
+        tensors += [v for v in entry.values() if torch.is_tensor(v)]
+    return _digest(t.cpu().numpy() for t in tensors)
+
+
+def _launches() -> Dict[str, int]:
+    return {k.name: k.launches for k in _KERNELS}
+
+
+@dataclasses.dataclass
+class Rank:
+    """What one rank holds: its group, its partitions (``shards``, their
+    geometry ``attrs`` and ``targets``, in the compute dtype), the model and
+    its train state, the train step, and a digest of the whole partition."""
+
+    run: dict
+    group: PartitionGroup
+    shards: list
+    attrs: list
+    targets: torch.Tensor
+    model: SEGNN
+    state: TrainState
+    step: Callable
+    dtype: torch.dtype
+    partition_sha: str
+
+
+def setup(in_dir, device=None) -> Rank:
+    """Join the process group (``init_distributed``: one process without
+    ``WORLD_SIZE``), partition the graph of ``in_dir``, keep this rank's
+    partitions on its device (``device``, else its card), and build the
+    model from the weights, the optimizer and the train step."""
+    in_dir = Path(in_dir)
+    run = json.loads((in_dir / "run.json").read_text())
+    multi = init_distributed()
+    dev = rank_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dtype = _DTYPES[run["compute_dtype"]]
+    group = PartitionGroup(run["num_parts"], dev, dist.group.WORLD if multi else None)
+
+    with np.load(in_dir / "graph.npz") as g:
+        arrays = [g[k] for k in ("positions", "nodes", "senders", "edge_mask")]
+        target = g["target"]
+    part = partition_graph_dense(*arrays, num_parts=run["num_parts"])
+    shards = shard_partitioned_dense(part, group)
+    ids = np.clip(part.global_ids[group.lo:group.hi], 0, None)
+    targets = torch.from_numpy(target[ids]).to(dev)
+
+    model = SEGNN(**run["model"], device=dev)
+    with np.load(in_dir / "weights.npz") as w:
+        model.load_state_dict({k: torch.from_numpy(w[k]) for k in w.files})
+    attrs = make_dist_geometry_dense(model, group)(shards)
+    if dtype != torch.float32:
+        shards = [sh._replace(nodes=sh.nodes.to(dtype), positions_ext=sh.positions_ext.to(dtype))
+                  for sh in shards]
+        attrs = [tuple(a.to(dtype) for a in at) for at in attrs]
+    opt = torch.optim.Adam(model.parameters(), lr=run["lr"])
+    step = make_dist_train_step_dense(model, opt, group,
+                                      compute_dtype=None if dtype == torch.float32 else dtype)
+    return Rank(run=run, group=group, shards=shards, attrs=attrs, targets=targets, model=model,
+                state=make_train_state(model, opt), step=step, dtype=dtype,
+                partition_sha=partition_digest(part))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("in_dir")
+    ap.add_argument("out_dir")
+    ap.add_argument("--device", default=None, help="'cpu' to run on the CPU (default: the card)")
+    args = ap.parse_args(argv)
+    out_dir = Path(args.out_dir)
+    r = setup(args.in_dir, args.device)
+    group, run = r.group, r.run
+    state, start = resume_or_init(str(out_dir / "ckpt"), r.state)
+    result = dict(rank=group.rank, world=group.world, device=str(group.device),
+                  incarnation=int(os.environ.get("E3GNN_INCARNATION", "0")),
+                  partitions=[group.lo, group.hi], partition_sha=r.partition_sha,
+                  start_step=start)
+    saved = {}
+    if start == 0:
+        with torch.no_grad():
+            fwd_model = copy.deepcopy(r.model).to(r.dtype)
+            out = make_dist_forward_dense(fwd_model, group)(r.shards, r.attrs)
+            saved["forward"] = out.float().cpu().numpy()
+            del fwd_model, out
+
+    hb = Heartbeat(str(out_dir / "hb"), group.rank)
+    cuda = group.device.type == "cuda"
+    losses, step_ms, comm_ms, launches = [], [], [], []
+    result["resumed_at"] = time.time()
+    for s in range(start, run["steps"]):
+        hb.beat(s)
+        before, comm0 = _launches(), group.comm_seconds
+        if cuda:
+            ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev[0].record()
+        t0 = time.perf_counter()
+        m = r.step(r.shards, r.targets, r.attrs)
+        if cuda:
+            ev[1].record()
+        losses.append(m["loss"].item())
+        if cuda:
+            torch.cuda.synchronize()
+            step_ms.append(ev[0].elapsed_time(ev[1]))
+        else:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        comm_ms.append((group.comm_seconds - comm0) * 1e3)
+        now = _launches()
+        launches.append({k: v - before[k] for k, v in now.items() if v != before[k]})
+        state.step = s + 1
+        save_checkpoint(str(out_dir / "ckpt"), s + 1, state)
+        inject_failure(s)
+
+    result.update(losses=losses, step_ms=step_ms, comm_ms=comm_ms, launches_per_step=launches,
+                  state_sha=_state_digest(state))
+    saved.update({f"param/{nm}": p.detach().cpu().numpy()
+                  for nm, p in r.model.named_parameters()})
+    np.savez(out_dir / f"rank{group.rank}.npz", **saved)
+    print(RESULT_PREFIX + json.dumps(result), flush=True)
+    hb.done()
+    if group.world > 1:
+        dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _read_results(out_dir, incarnation: int, world_size: int) -> Dict[int, dict]:
+    """``{rank: result}`` from the ``DENSE_WORKER`` lines of one incarnation's
+    logs (a rank without such a line is left out)."""
+    results = {}
+    for rank in range(world_size):
+        log = Path(out_dir) / f"log_i{incarnation}_r{rank}.txt"
+        if not log.exists():
+            continue
+        for line in log.read_text().splitlines():
+            if line.startswith(RESULT_PREFIX):
+                results[rank] = json.loads(line[len(RESULT_PREFIX):])
+    return results
+
+
+def run_world(in_dir, out_dir, world_size: int, device: Optional[str] = None,
+              env: Optional[dict] = None, heartbeat_timeout_s: float = 120.0,
+              startup_timeout_s: float = 300.0, wall_timeout_s: float = 900.0,
+              max_restarts: int = 2) -> Tuple[SupervisorReport, Dict[int, dict]]:
+    """Run ``world_size`` ranks of this worker on ``in_dir`` under a
+    ``Supervisor``: a fresh port on this host for each incarnation, every
+    rank's output in ``out_dir/log_i<incarnation>_r<rank>.txt``, the
+    heartbeats in ``out_dir/hb``.  ``env`` adds to each worker's environment
+    (``E3GNN_DIE_AT_STEP`` and ``E3GNN_DIE_PROCESS`` inject a failure).
+    Returns the report and the results of the last incarnation."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    root = str(Path(__file__).resolve().parents[2])
+    ports: Dict[int, int] = {}
+
+    def launch(rank: int, incarnation: int) -> subprocess.Popen:
+        port = ports.setdefault(incarnation, _free_port())
+        wenv = {**os.environ, **(env or {}), "MASTER_ADDR": "127.0.0.1",
+                "MASTER_PORT": str(port), "WORLD_SIZE": str(world_size), "RANK": str(rank),
+                "LOCAL_RANK": str(rank), "E3GNN_INCARNATION": str(incarnation),
+                "PYTHONPATH": os.pathsep.join(
+                    [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+                              if p])}
+        cmd = [sys.executable, "-m", "scalable_e3_gnn_torch.parallel.dense_worker",
+               str(in_dir), str(out_dir)] + (["--device", device] if device else [])
+        with open(out_dir / f"log_i{incarnation}_r{rank}.txt", "w") as log:
+            return subprocess.Popen(cmd, env=wenv, stdout=log, stderr=subprocess.STDOUT,
+                                    cwd=root)
+
+    report = Supervisor(launch, world_size, str(out_dir / "hb"),
+                        heartbeat_timeout_s=heartbeat_timeout_s, max_restarts=max_restarts,
+                        wall_timeout_s=wall_timeout_s, require_done=True,
+                        startup_timeout_s=startup_timeout_s).run()
+    return report, _read_results(out_dir, report.restarts, world_size)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

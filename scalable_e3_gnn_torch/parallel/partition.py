@@ -8,11 +8,11 @@ owned by the receiver's partition; senders on other partitions become halo
 slots, filled by the boundary exchange of every layer
 (``parallel.halo.exchange_halo``).
 
-Host numpy, run once per graph topology.  The output is the JAX function's,
-array for array and bit for bit.  The JAX package runs three passes through
-its native helper library where that library is built (``sender_pass``,
-``take_i32``, ``rev_table_multi``); this module takes the numpy form of each
-(the JAX function's own fallbacks) and loads no native code.
+Host work, run once per graph topology.  The output is the JAX function's,
+array for array and bit for bit.  As in JAX, three passes run through the
+native helpers of ``data.native_loader`` where that library is built (the
+sender pass, the masked gather of local rows, the batched transpose
+tables), and through numpy otherwise; both give the same arrays.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+
+from ..data import native_loader
 
 __all__ = ["DensePartitionedGraph", "partition_graph_dense"]
 
@@ -68,6 +70,17 @@ class DensePartitionedGraph(NamedTuple):
         return self.n_interior + self.n_boundary
 
 
+def _rev_table_native(s_blk: np.ndarray, m_blk: np.ndarray, n_targets: int) -> np.ndarray:
+    """``_rev_table`` through the native counting scatter: the same table
+    (each partition's slots scattered in slot order)."""
+    num_parts = s_blk.shape[0]
+    tgt = np.ascontiguousarray(s_blk.reshape(num_parts, -1), np.int32)
+    mk = native_loader._as_u8(m_blk.reshape(num_parts, -1))
+    q = max(max((int(native_loader.rev_counts(tgt[p], mk[p], n_targets).max())
+                 for p in range(num_parts)), default=0), 1)
+    return native_loader.rev_table_multi(tgt, mk, n_targets, q)
+
+
 def _rev_table(s_blk: np.ndarray, m_blk: np.ndarray, n_targets: int) -> np.ndarray:
     """[P, n_targets, q] transpose tables of one receiver block: per target
     row, the flat slot positions (+1; 0 = empty) of the valid slots whose
@@ -114,13 +127,18 @@ def partition_graph_dense(
     f = features.shape[1]
     npp0 = -(-n // num_parts)  # input rows per partition range
     owner = lambda v: np.minimum(v // npp0, num_parts - 1)
+    native = native_loader.available()
 
-    sd0 = np.where(edge_mask, senders, 0)
-    OWNER = np.minimum(sd0 // npp0, num_parts - 1)
-    OWNER = np.where(edge_mask, OWNER, -1).astype(np.int8)
-    row_own = np.minimum(np.arange(n) // npp0, num_parts - 1)[:, None]
-    REMOTE = edge_mask & (OWNER != row_own)
-    ROW_REMOTE = REMOTE.any(axis=1)
+    sp = native_loader.sender_pass(senders, edge_mask, npp0, num_parts) if native else None
+    if sp is not None:
+        OWNER, REMOTE, ROW_REMOTE = sp
+    else:
+        sd0 = np.where(edge_mask, senders, 0)
+        OWNER = np.minimum(sd0 // npp0, num_parts - 1)
+        OWNER = np.where(edge_mask, OWNER, -1).astype(np.int8)
+        row_own = np.minimum(np.arange(n) // npp0, num_parts - 1)[:, None]
+        REMOTE = edge_mask & (OWNER != row_own)
+        ROW_REMOTE = REMOTE.any(axis=1)
 
     halos, int_rows, bnd_rows = [], [], []
     for p in range(num_parts):
@@ -155,8 +173,9 @@ def partition_graph_dense(
     for p in range(num_parts):
         LOCAL_OF[int_rows[p]] = np.arange(len(int_rows[p]), dtype=np.int32)
         LOCAL_OF[bnd_rows[p]] = NI + np.arange(len(bnd_rows[p]), dtype=np.int32)
-    # the JAX package's native take_i32: table[mask ? idx : 0], masked
-    SLOC = LOCAL_OF[np.where(edge_mask, senders, 0)]
+    # table[mask ? idx : 0]
+    SLOC = (native_loader.take_i32(LOCAL_OF, senders, edge_mask) if native
+            else LOCAL_OF[np.where(edge_mask, senders, 0)])
 
     nodes = np.zeros((num_parts, npp, f), features.dtype)
     pos_ext = np.zeros((num_parts, npp + H, 3), positions.dtype)
@@ -207,10 +226,11 @@ def partition_graph_dense(
             s_bnd[p, :cnt_b], m_bnd[p, :cnt_b] = remap(gb, npp + H, True)
         s_bnd[p, cnt_b:] = npp + H
 
+    rev = _rev_table_native if native else _rev_table
     return DensePartitionedGraph(
         num_parts=num_parts, n_interior=NI, n_boundary=NB, halo_cap=H, k=k,
         nodes=nodes, positions_ext=pos_ext, node_mask=n_mask,
         senders_int=s_int, mask_int=m_int, senders_bnd=s_bnd, mask_bnd=m_bnd,
         boundary_idx=boundary_idx, halo_map=halo_map, global_ids=gids,
-        rev_int=_rev_table(s_int, m_int, npp), rev_ext=_rev_table(s_bnd, m_bnd, npp + H),
+        rev_int=rev(s_int, m_int, npp), rev_ext=rev(s_bnd, m_bnd, npp + H),
     )

@@ -15,6 +15,16 @@ SPECS = ["8x0e+8x1o", "4x0e+2x0o+3x1o+2x1e", "32x0e+16x1o+32x0e+16x1o+1x0e",
          "1x1o+2x0e+1x1o", "2x0e+1x1o"]
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: these shapes are small, and the suite
+    runs several workers on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("spec", SPECS)
 def test_irreps_matches_jax(spec):
     a, b = jir.Irreps(spec), tir.Irreps(spec)

@@ -54,6 +54,16 @@ pytestmark = pytest.mark.cuda
 LO, HI = (0.0,) * 3, (1.0,) * 3
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: these shapes are small, and the suite
+    runs several workers on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():

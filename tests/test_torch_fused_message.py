@@ -27,6 +27,16 @@ LO, HI = (-4.0,) * 3, (4.0,) * 3
 HS, HV, K, TILE = 16, 8, 8, 32
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: these shapes are small, and the suite
+    runs several workers on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def _problem(n, seed):
     rng = np.random.default_rng(seed)

@@ -50,6 +50,16 @@ F = HS + 3 * HV
 NPAD = 256
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: these shapes are small, and the suite
+    runs several workers on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def _problem(n, seed):
     """numpy arrays at NPAD rows, of which n are live: hs3 [K, NPAD, F], hr,

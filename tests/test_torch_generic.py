@@ -43,6 +43,16 @@ LO, HI = (-4.0,) * 3, (4.0,) * 3
 IRREPS = ("2x0e+1x1o", "4x0e+2x1o+2x2e", "1x1o")
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: these shapes are small, and the suite
+    runs several workers on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np_tree(params):
     return jax.tree.map(np.asarray, params)
 

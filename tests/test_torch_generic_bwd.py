@@ -39,6 +39,16 @@ ATOL = 2e-5
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: these shapes are small, and the suite
+    runs several workers on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ulps(got, ref):
     """|got - ref| elementwise in bf16 ulps of max(|ref|, mean|ref|)."""
     got, ref = torch.as_tensor(got).float(), torch.as_tensor(ref).float()

@@ -33,6 +33,16 @@ from tests import test_torch_generic_vjp as vjp_tests
 from tests.test_torch_generic_vjp import N, SPARSE_IRREPS, _problem
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: these shapes are small, and the suite
+    runs several workers on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_nonfoldable_layer_matches_jax_sparse_body(dtype):
     """A non-foldable layer (attributes 36 wide): JAX turns both hand

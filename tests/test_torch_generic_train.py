@@ -34,6 +34,16 @@ N = 128
 MODES = {"residual": {}, "remat_kernel": dict(remat=True, remat_kernel=True, residual_bwd=False)}
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: these shapes are small, and the suite
+    runs several workers on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pair(mode, use_pallas, seed):
     jm = JSEGNN(*map(JIrreps, IRREPS), lmax_attr=2, num_layers=2, layout="cm",
                 use_pallas=use_pallas, **MODES[mode])

@@ -61,6 +61,16 @@ from tests.test_torch_generic import IRREPS, LO, HI, _graph, _kernel_problem
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: these shapes are small, and the suite
+    runs several workers on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _f32(x):
     return torch.from_numpy(np.array(jnp.asarray(x, jnp.float32)))
 

@@ -30,6 +30,16 @@ LO, HI = (0.0,) * 3, (1.0,) * 3
 RADIUS, K, LEVELS = 0.1, 16, 5
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: these shapes are small, and the suite
+    runs several workers on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _eq(a, b):
     np.testing.assert_array_equal(np.asarray(a), b.cpu().numpy())
 

@@ -1,12 +1,17 @@
-"""The PyTorch port imports neither JAX nor the JAX package, and its GPU
-check script ``chip_smoke.py`` refuses to run without a GPU or without the
-package beside it."""
+"""The PyTorch port imports neither JAX nor the JAX package, nor does the
+worker it spawns for the multi-process path, and its GPU check script
+``chip_smoke.py`` refuses to run without a GPU or without the package beside
+it."""
 
 import os
 import pathlib
 import shutil
 import subprocess
 import sys
+
+import numpy as np
+import pytest
+import torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -24,18 +29,67 @@ print(" ".join(names))
 """
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: these shapes are small, and the suite
+    runs several workers on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
-    assert len(names) >= 26  # every subpackage and module was imported
+    assert len(names) >= 52  # every subpackage and module was imported
     for name in ("train", "train.pipeline", "kernels.fused_message", "utils.params",
                  "data", "data.nbody", "data.qm9", "graph.batching", "core.rotations",
                  "train.checkpoint", "train.metrics", "train.runners", "utils.config",
                  "cli", "__main__", "utils.profiling", "examples.train_nbody",
-                 "examples.train_pointcloud"):
+                 "examples.train_pointcloud", "parallel.multihost", "parallel.failover",
+                 "parallel.dense_worker", "data.native_loader"):
         assert f"scalable_e3_gnn_torch.{name}" in names
+
+
+_WORKER_RUN = """
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["scalable_e3_gnn_tpu"] = None
+sys.argv = ["dense_worker", sys.argv[1], sys.argv[2], "--device", "cpu"]
+try:
+    runpy.run_module("scalable_e3_gnn_torch.parallel.dense_worker", run_name="__main__")
+except SystemExit as e:
+    assert not e.code, e.code
+assert not any(m == "jax" or m.startswith(("jax.", "scalable_e3_gnn_tpu"))
+               for m, mod in sys.modules.items() if mod is not None)
+print("NO_JAX")
+"""
+
+
+def test_spawned_worker_runs_without_jax(tmp_path):
+    """The worker of the multi-process path, run as it is spawned (as
+    ``__main__``), here one process over two partitions for one step."""
+    from scalable_e3_gnn_torch import DenseEdgeGraph, SEGNN, radius_graph_brute
+    from scalable_e3_gnn_torch.parallel.dense_worker import write_inputs
+
+    rng = np.random.default_rng(0)
+    pts = torch.from_numpy(rng.standard_normal((48, 3)).astype(np.float32))
+    g = DenseEdgeGraph.from_radius_edges(torch.ones(48, 5), pts,
+                                         radius_graph_brute(pts, 1.0, 6, device="cpu"))
+    kw = dict(input_irreps="2x0e+1x1o", hidden_irreps="4x0e+2x1o", output_irreps="1x1o",
+              num_layers=1)
+    write_inputs(tmp_path / "in", g.positions, g.nodes, g.senders, g.edge_mask,
+                 torch.zeros(48, 3), kw, SEGNN(**kw, device="cpu").state_dict(), num_parts=2,
+                 steps=1, lr=0.1, compute_dtype="float32")
+    env = {k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK")}
+    out = subprocess.run([sys.executable, "-c", _WORKER_RUN, str(tmp_path / "in"),
+                          str(tmp_path / "out")], cwd=REPO, capture_output=True, text=True,
+                         timeout=120, env={**env, "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "DENSE_WORKER " in out.stdout and "NO_JAX" in out.stdout
 
 
 def test_port_sources_name_no_jax_import():

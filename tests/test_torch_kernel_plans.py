@@ -42,6 +42,16 @@ S = dict(cols=False, threads=fm.STRIP_THREADS, rows=fm.STRIP_ROWS)  # the strip 
 C4 = dict(cols=True, threads=fm.COL_THREADS, rows=fm.COL_ROWS)  # 16-byte column loads
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: these shapes are small, and the suite
+    runs several workers on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("nblocks,nw,ptrs,want", [
     # config 3's #2 partials: 9280 / 4 columns would leave SMs without a
     # block, so strips of 32 columns, the 132 rows in one stage

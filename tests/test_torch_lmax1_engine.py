@@ -43,6 +43,16 @@ BF = torch.bfloat16
 WIDTHS = [(16, 8, 8, 96, 32), (8, 12, 13, 128, 64), (32, 16, 24, 160, 160)]
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: these shapes are small, and the suite
+    runs several workers on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def rnd(x):
     return x.to(BF).float()
 

@@ -26,6 +26,16 @@ from scalable_e3_gnn_torch.utils.params import params_from_jax, params_to_jax
 ATOL = 2e-5
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: these shapes are small, and the suite
+    runs several workers on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(n, dim, seed):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((n, dim)).astype(np.float32)

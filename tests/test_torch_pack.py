@@ -71,6 +71,16 @@ PACKS = [1, 2, 3, 4]
 JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: these shapes are small, and the suite
+    runs several workers on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def _problem(seed):
     """numpy arrays, node-major [NPAD*K, .] slot rows of which the first

@@ -35,6 +35,16 @@ LO, HI = (-4.0,) * 3, (4.0,) * 3
 IRREPS = ("2x0e+1x1o", "16x0e+8x1o", "1x1o")
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: these shapes are small, and the suite
+    runs several workers on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def _graph(n, seed=0, k=8, tile=32, symmetrize=True):
     """JAX graph (symmetrized and tabled unless told otherwise) and the port's

@@ -33,6 +33,16 @@ LO, HI = (-4.0,) * 3, (4.0,) * 3
 IRREPS = ("2x0e+1x1o", "16x0e+8x1o", "1x1o")
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: these shapes are small, and the suite
+    runs several workers on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("mask_kind", ["none", "rows", "elements", "empty"])
 def test_mse_loss_matches_jax(mask_kind):
     rng = np.random.default_rng(0)
