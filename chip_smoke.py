@@ -192,6 +192,31 @@ Phases, each printing one JSON line:
                  then rank 1 killed after step 3's checkpoint: one restart,
                  the final parameters bit for bit the fault-free run's;
                  step ms per rank, collective host ms, detection to resume.
+49c. coo_dist  -- config 3 as a COO graph (the 100k cell radius graph, K=24,
+                 not symmetrized; fp32, plain PyTorch) partitioned by
+                 ``partition_graph`` at P=4: every valid edge in one partition;
+                 the forward with each backend within 2e-5 max(1, max|ref|) of
+                 the unpartitioned COO forward, ring = all_gather bitwise, 4 of
+                 #15 per forward under ring, nothing else; 3 ring steps (Adam
+                 1e-3), the first's gradients within 5e-5 max|ref| and loss
+                 within 1e-6 of autograd on the unpartitioned model, 4 of #15 a
+                 step; then a dp x graph step of two clouds (seeds 0, 1) under
+                 shared tight caps, its loss the mean of the two clouds' MSEs
+                 within 1e-5; the steps at the largest halving of the points
+                 that fits the card (the cut printed); forward and step ms,
+                 peak memory, #15's device ms at this path's fp32 shape.
+49d. dp_dense  -- the dense path on two config-3 clouds (seeds 0, 1) x P=4
+                 (bf16 on fp32 masters, Adam 1e-3, #3/#5): in one process the
+                 forward and 5 timed steps after a warm-up, 64 each of #3, #5
+                 and the reduction a step; then 4 processes on the card (2 dp
+                 rows x 2 graph ranks): each rank's forward bit for bit the
+                 one-process one, the same losses on every rank within 3e-4 of
+                 the one-process curve, parameters and Adam states equal, 16
+                 each of #3, #5 and the reduction per rank and step.
+49e. overlap   -- that 4-process world again with the exchange serialized:
+                 forward, losses and final parameters bit for bit the
+                 overlapped run's; step ms per rank and host ms in collectives
+                 per step both ways.
 50. coo_nbody, coo_qm9 -- configs 1 and 2 of the evaluation ladder on the COO
                  path (no hand kernel: every count must stay 0), through
                  ``train.runners``: ``run_nbody`` (256 graphs) and ``run_qm9``
@@ -269,7 +294,8 @@ from scalable_e3_gnn_torch.ops.gather_scatter import gather_km
 from scalable_e3_gnn_torch.data import native_loader
 from scalable_e3_gnn_torch.parallel import dense_worker
 from scalable_e3_gnn_torch.parallel import halo as dist
-from scalable_e3_gnn_torch.parallel.partition import partition_graph_dense
+from scalable_e3_gnn_torch.parallel.partition import (partition_graph, partition_graph_dense,
+                                                      shared_caps)
 from scalable_e3_gnn_torch.train.pipeline import make_train_step, mse_loss
 
 # config 3 (bench.py of the JAX package)
@@ -408,10 +434,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def build_graph(pts, radius=None, levels=None, k=None, cap=None, tile=None):
+def build_graph(pts, radius=None, levels=None, k=None, cap=None, tile=None, tables=True):
     """The config-3 graph of ``pts`` on the card (radius, octree levels, K,
     cell capacity and table tile as given, config 3's otherwise); returns
-    (tree, cell capacity, raw edges, graph with tables, timings)."""
+    (tree, cell capacity, raw edges, graph with tables (without them when
+    ``tables`` is False), timings)."""
     radius = RADIUS if radius is None else radius
     dev = torch.device(DEVICE)
     times = {}
@@ -425,6 +452,8 @@ def build_graph(pts, radius=None, levels=None, k=None, cap=None, tile=None):
     graph, times["symmetrize_ms"] = sync_time(
         lambda: port.DenseEdgeGraph.from_radius_edges(feats, tree.points, edges,
                                                       symmetrize=True))
+    if not tables:
+        return tree, cap, edges, graph, times
     graph_t, times["tables_ms"] = sync_time(lambda: graph.with_gather_tables(tile=tile or TILE))
     return tree, cap, edges, graph_t, times
 
@@ -514,6 +543,11 @@ def bf16_loss(m, g, a, t):
 def expected(counts: dict) -> dict:
     """Launch counts of every kernel: those given, zero for the rest."""
     return {kern.name: counts.get(kern.name, 0) for kern in ALL_KERNELS}
+
+
+def nonzero(counts: dict) -> dict:
+    """The kernels of ``counts`` launched at least once."""
+    return {k: v for k, v in counts.items() if v}
 
 
 def reset_launches() -> None:
@@ -3321,6 +3355,455 @@ def dist_lmax2_phase(card: str) -> None:
     del model, opt, step, shards, attrs, graph
 
 
+# the COO partitioned path, dp over clouds, the overlapped exchange
+COO_DIST_STEPS = 3  # the first checked against autograd, the other two timed
+COO_DIST_MIN_POINTS = 12_500  # the smallest halving the step may fall to
+DP_CLOUDS = 2  # clouds of points seeds 0 and 1
+DP_WORLD = 4  # processes on the one card: 2 dp rows x 2 graph ranks
+DP_STEPS = 1 + TRAIN_STEPS  # a warm-up step, then the timed ones
+TOL_COO_DIST_FWD = 2e-5  # x max(1, max|ref|): JAX's test_partition_invariance_forward
+TOL_COO_DIST_GRAD = 5e-5  # x max|ref| per parameter: its test_gradient_parity_through_halo
+TOL_COO_DIST_LOSS = 1e-6  # relative: the same fp32 sums in another order
+TOL_COO_DP_LOSS = 1e-5  # relative: __graft_entry__.py dryrun_multichip's check
+
+
+def coo_cloud(n: int, seed: int):
+    """Config 3's cloud at ``n`` points (config 3's density: r scaled by
+    (100000 / n)^(1/3); octree 6 levels, K=24) as the receiver-sorted COO
+    graph of ``radius_graph_cell`` (not symmetrized), with its plans, and
+    its host arrays for ``partition_graph``."""
+    dev = torch.device(DEVICE)
+    radius = RADIUS * (N_POINTS / n) ** (1 / 3)
+    pts = np.random.default_rng(seed).random((n, 3)).astype(np.float32)
+    tree = port.build_octree(pts, LO, HI, num_levels=OCTREE_LEVELS, device=dev)
+    cap = port.suggest_cell_capacity(tree, radius, LO, HI)
+    e = port.radius_graph_cell(tree, radius, LO, HI, max_neighbors=MAX_NEIGHBORS,
+                               cell_capacity=cap)
+    feats = torch.from_numpy(np.random.default_rng(SEED + 1).standard_normal(
+        (n, 5)).astype(np.float32)).to(dev)
+    g = port.SteerableGraph(nodes=feats, positions=tree.points, senders=e.senders,
+                            receivers=e.receivers,
+                            node_graph=torch.zeros(n, dtype=torch.int32, device=dev),
+                            node_mask=torch.ones(n, dtype=torch.bool, device=dev),
+                            edge_mask=e.mask).with_plans()
+    arrays = tuple(x.cpu().numpy() for x in (tree.points, feats, e.senders, e.receivers, e.mask))
+    return g, arrays, radius
+
+
+def coo_model(dev):
+    """Config 3's SEGNN (lmax_attr=1, fp32, weights from the seed) for the
+    COO graph: plain PyTorch, no hand kernel."""
+    return port.SEGNN("2x0e+1x1o", HIDDEN, "1x1o", num_layers=NUM_LAYERS, lmax_attr=1,
+                      device=dev, generator=torch.Generator().manual_seed(SEED))
+
+
+def coo_partition_edges(part, n: int) -> np.ndarray:
+    """The sorted (receiver * n + sender) keys, in input node ids, of every
+    valid edge of every COO partition (halo senders through the pool to
+    their owner's row)."""
+    npp, hcap = part.n_per_part, part.halo_cap
+    keys = []
+    for p in range(part.num_parts):
+        s, r, m = part.senders[p], part.receivers[p], part.edge_mask[p]
+        pool = part.halo_map[p][np.clip(s - npp, 0, hcap - 1)]
+        q, j = pool // hcap, pool % hcap
+        halo_gid = q.astype(np.int64) * npp + part.boundary_idx[q, j]
+        sender = np.where(s < npp, p * npp + np.minimum(s, npp - 1), halo_gid)
+        keys.append(((p * npp + r.astype(np.int64)) * n + sender)[m])
+    return np.sort(np.concatenate(keys))
+
+
+def coo_dist_targets(target, part):
+    """target[clip(global_ids, 0)]: [P, Np, F] (pad rows are masked)."""
+    return target[torch.as_tensor(np.clip(part.global_ids, 0, None), device=target.device).long()]
+
+
+def coo_step_run(card: str, n: int) -> dict:
+    """The COO P=4 train step (ring, fp32, Adam 1e-3) on the cloud of ``n``
+    points: autograd of the unpartitioned COO model first (its gradients and
+    loss, and 3 timed steps of it after one), then 3 counted steps of the
+    partitioned one on the same weights, the first held against those
+    gradients and that loss, the other two timed; peak memory."""
+    dev = torch.device(DEVICE)
+    g, arrays, radius = coo_cloud(n, SEED)
+    target = torch.from_numpy(np.random.default_rng(SEED + 2).standard_normal(
+        (n, 3)).astype(np.float32)).to(dev)
+    ref = coo_model(dev)
+    opt_u = torch.optim.Adam(ref.parameters(), lr=LEARNING_RATE, betas=(0.9, 0.999), eps=1e-8)
+    step_u = make_train_step(ref, lambda m, g_, t: mse_loss(m(g_), t), opt_u)
+    torch.cuda.reset_peak_memory_stats()
+    loss_ref = mse_loss(ref(g), target)
+    loss_ref.backward()
+    ref_grads = [p.grad.detach().clone() for p in ref.parameters()]
+    loss_ref = loss_ref.item()
+    single_ms = event_ms(lambda: step_u(g, target), iters=2, warmup=1)
+    single_peak = torch.cuda.max_memory_allocated() / 1e9
+    del ref, opt_u, step_u
+    part = partition_graph(*arrays, num_parts=DIST_PARTS)
+    group = dist.PartitionGroup(DIST_PARTS, dev)
+    shards = dist.shard_partitioned(part, group)
+    targets = coo_dist_targets(target, part)
+    del g
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    model = coo_model(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=LEARNING_RATE, betas=(0.9, 0.999), eps=1e-8)
+    step = dist.make_dist_train_step(model, opt, group, "ring")
+    want = expected({hr.RING.name: NUM_LAYERS})
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, per_step, worst, worst_name = [], [], [], 0.0, ""
+    for i in range(COO_DIST_STEPS):
+        before = launch_counts()
+        ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev[0].record()
+        m = step(shards, targets)
+        ev[1].record()
+        losses.append(m["loss"].item())
+        torch.cuda.synchronize()
+        step_ms.append(ev[0].elapsed_time(ev[1]))
+        per_step.append({k: v - before[k] for k, v in launch_counts().items()})
+        if i == 0:  # the gradients of the first step are the unpartitioned ones
+            for (nm, a), b in zip(model.named_parameters(), ref_grads, strict=True):
+                rel = float((a.grad - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                if rel > worst:
+                    worst, worst_name = rel, nm
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rel_loss = abs(losses[0] - loss_ref) / abs(loss_ref)
+    out = dict(points=n, radius=radius, edges=int(arrays[4].sum()), backend="ring",
+               losses=losses, loss_unpartitioned=loss_ref, loss_rel_err=rel_loss,
+               worst_param=worst_name, worst_grad_rel_err=worst,
+               step_ms=step_ms, step_ms_timed_mean=sum(step_ms[1:]) / len(step_ms[1:]),
+               unpartitioned_step_ms=single_ms, peak_mem_gb=peak,
+               unpartitioned_peak_mem_gb=single_peak, launches_per_step=nonzero(per_step[-1]),
+               halo_cap=part.halo_cap, n_per_part=part.n_per_part)
+    emit("coo_dist_train", card=card, **out,
+         tolerance=f"gradients {TOL_COO_DIST_GRAD} * max|ref| per parameter, loss "
+                   f"{TOL_COO_DIST_LOSS} relative")
+    check(all(math.isfinite(x) for x in losses), f"COO step: non-finite loss {losses}")
+    check(all(s == want for s in per_step), f"COO step launches {per_step}, expected {want}")
+    check(worst <= TOL_COO_DIST_GRAD, f"COO step: gradients {worst_name} off by {worst}")
+    check(rel_loss <= TOL_COO_DIST_LOSS, f"COO step: loss {losses[0]} vs {loss_ref}")
+    return out
+
+
+def coo_dp_run(card: str, n: int) -> dict:
+    """The COO dp x graph step: clouds of points seeds 0 and 1 at ``n``
+    points each, P=4, the caps ``shared_caps`` unifies (tight, as
+    ``dryrun_multichip``); one step (ring, Adam 1e-3) whose loss must be the
+    mean of the two unpartitioned single-cloud MSEs."""
+    dev = torch.device(DEVICE)
+    model = coo_model(dev)
+    clouds = [coo_cloud(n, SEED + d) for d in range(DP_CLOUDS)]
+    gen = np.random.default_rng(SEED + 32)
+    targets = [torch.from_numpy(gen.standard_normal((n, 3)).astype(np.float32)).to(dev)
+               for _ in clouds]
+    with torch.no_grad():
+        singles = [mse_loss(model(g), t).item() for (g, _, _), t in zip(clouds, targets)]
+    parts = [partition_graph(*a, num_parts=DIST_PARTS) for _, a, _ in clouds]
+    caps = shared_caps(parts)
+    parts = [partition_graph(*a, num_parts=DIST_PARTS, **caps) for _, a, _ in clouds]
+    del clouds
+    group = dist.PartitionGroup(DIST_PARTS, dev)
+    cloud_group = dist.CloudGroup(DP_CLOUDS, group)
+    shards = [dist.shard_partitioned(p, group) for p in parts]
+    stacked = torch.stack([coo_dist_targets(t, p) for t, p in zip(targets, parts)])
+    opt = torch.optim.Adam(model.parameters(), lr=LEARNING_RATE, betas=(0.9, 0.999), eps=1e-8)
+    step = dist.make_dist_train_step(model, opt, group, "ring", dp=cloud_group)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    loss, ms = sync_time(lambda: step(shards, stacked)["loss"].item())
+    launches = launch_counts()
+    want_loss = sum(singles) / len(singles)
+    rel = abs(loss - want_loss) / abs(want_loss)
+    out = dict(points_per_cloud=n, clouds=DP_CLOUDS, num_parts=DIST_PARTS, caps=caps,
+               loss=loss, single_cloud_mse=singles, mean_single=want_loss, loss_rel_err=rel,
+               step_ms_host=ms, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=nonzero(launches))
+    emit("coo_dist_dp", card=card, **out, tolerance=f"{TOL_COO_DP_LOSS} relative")
+    check(launches == expected({hr.RING.name: DP_CLOUDS * NUM_LAYERS}),
+          f"COO dp step launches {launches}")
+    check(rel <= TOL_COO_DP_LOSS, f"COO dp loss {loss} vs the clouds' mean MSE {want_loss}")
+    return out
+
+
+def largest_fitting(card: str, label: str, run, n: int) -> dict:
+    """``run(card, n)`` at ``n`` points, halved at config 3's density while
+    the card runs out of memory (not below ``COO_DIST_MIN_POINTS``); the
+    cut, if any, is printed."""
+    tried = []
+    while True:
+        try:
+            out = run(card, n)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            tried.append(dict(points=n, error=str(e).splitlines()[0][:200]))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        n //= 2
+        check(n >= COO_DIST_MIN_POINTS, f"{label}: out of memory down to {n * 2} points")
+    emit("coo_dist_cut", card=card, step=label, points=n, full_points=N_POINTS,
+         out_of_memory_at=tried, cut=n != N_POINTS)
+    return out
+
+
+def coo_dist_phase(card: str) -> dict:
+    """Phase 49c, coo_dist: config 3 as a COO graph (100k points, octree 6
+    levels, radius_graph_cell r=0.04, K=24, not symmetrized; SEGNN 2x0e+1x1o
+    -> 32x0e+16x1o x4 -> 1x1o, lmax_attr=1, fp32, weights from the seed)
+    partitioned by ``partition_graph`` at P=4.
+
+    Checked: every valid edge in exactly one partition; the partitioned
+    forward with each backend within TOL_COO_DIST_FWD * max(1, max|ref|) of
+    the unpartitioned COO forward, ring = all_gather bit for bit, 4 of #15
+    per forward under ring and nothing else; 3 steps (ring, Adam 1e-3), the
+    first's gradients and loss against autograd of the unpartitioned model
+    (``coo_step_run``), 4 of #15 per step and nothing else; then the dp x
+    graph step of two clouds (``coo_dp_run``).  The steps run at the largest
+    halving of the points that fits the card (``largest_fitting``).  Read:
+    forward ms, step ms, peak memory, #15's device ms per launch at this
+    path's export shape.  Returns #15's launches per step."""
+    dev = torch.device(DEVICE)
+    n = N_POINTS
+    g, arrays, _ = coo_cloud(n, SEED)
+    n_edges = int(arrays[4].sum())
+    t0 = time.perf_counter()
+    part = partition_graph(*arrays, num_parts=DIST_PARTS)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    found = coo_partition_edges(part, n)
+    want_keys = np.sort((arrays[3].astype(np.int64) * n + arrays[2])[arrays[4]])
+    emit("coo_dist_partition", points=n, num_parts=DIST_PARTS, host_ms=host_ms,
+         n_per_part=part.n_per_part, halo_cap=part.halo_cap, edges=n_edges,
+         edges_found=int(found.size), edges_per_part=part.senders.shape[1],
+         local_edges=int(part.mask_loc.sum()), remote_edges=int(part.mask_rem.sum()))
+    check(np.array_equal(found, want_keys), "COO P=4: the partitions' edges are not the "
+                                            "input's, each once")
+    del found, want_keys
+    model = coo_model(dev)
+    group = dist.PartitionGroup(DIST_PARTS, dev)
+    shards = dist.shard_partitioned(part, group)
+    outs, fwd = {}, {}
+    with torch.no_grad():
+        ref = model(g)
+        scale = max(1.0, float(ref.abs().max()))
+        single_ms = event_ms(lambda: model(g), iters=3, warmup=1)
+        for backend in dist.BACKENDS:
+            run = dist.make_dist_forward(model, group, backend)
+            reset_launches()
+            out = run(shards)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            err = float((out.reshape(-1, 3)[:n] - ref).abs().max())
+            ms = event_ms(lambda: run(shards), iters=3, warmup=1)
+            fwd[backend] = dict(launches=nonzero(launches), max_abs_err=err, forward_ms=ms)
+            outs[backend] = out
+            check(launches == expected({hr.RING.name: NUM_LAYERS if backend == "ring" else 0}),
+                  f"COO P={DIST_PARTS} {backend}: {launches} launches")
+            check(bool(torch.isfinite(out).all()), f"COO {backend}: non-finite output")
+            check(err <= TOL_COO_DIST_FWD * scale, f"COO {backend}: forward off by {err}")
+        same = torch.equal(outs["ring"], outs["all_gather"])
+    del outs, ref, g
+    # #15 at this path's shape: the fp32 exports [P, H, 80]
+    x = torch.randn((DIST_PARTS, part.halo_cap, port.Irreps(HIDDEN).dim),
+                    generator=torch.Generator(device=dev).manual_seed(SEED + 41), device=dev)
+    ring_ms, _ = kernel_device_ms(lambda: hr.ring_all_gather_fwd(x))
+    ring_bound, ring_by, _, _ = bound((DIST_PARTS * DIST_PARTS + DIST_PARTS) * nbytes(x[0]), 0)
+    emit("coo_dist_forward", card=card, points=n, edges=n_edges, num_parts=DIST_PARTS,
+         dtype="float32", max_abs_ref=scale, tolerance=f"{TOL_COO_DIST_FWD} * max(1, max|ref|)",
+         ring_equals_all_gather=same, unpartitioned_forward_ms=single_ms, **fwd,
+         ring_fp32_shape=list(x.shape), ring_ms_per_launch=ring_ms, ring_bound_ms=ring_bound,
+         ring_bound_by=ring_by)
+    check(same, "COO: ring and all_gather forwards differ")
+    del shards, x
+    torch.cuda.empty_cache()
+    st = largest_fitting(card, "coo_dist_train", coo_step_run, n)
+    dp = largest_fitting(card, "coo_dist_dp", coo_dp_run, st["points"])
+    emit("coo_dist", card=card, points=n, forward_ms={k: v["forward_ms"] for k, v in fwd.items()},
+         unpartitioned_forward_ms=single_ms, step_points=st["points"],
+         step_ms_timed_mean=st["step_ms_timed_mean"],
+         unpartitioned_step_ms=st["unpartitioned_step_ms"], peak_mem_gb=st["peak_mem_gb"],
+         dp_points_per_cloud=dp["points_per_cloud"], dp_step_ms_host=dp["step_ms_host"],
+         dp_peak_mem_gb=dp["peak_mem_gb"], ring_ms_per_launch=ring_ms)
+    return {"launches_per_step": st["launches_per_step"].get(hr.RING.name, 0),
+            "ring_ms_fp32": ring_ms}
+
+
+def dense_cloud(seed: int):
+    """Config 3's dense graph of the points of ``seed`` (symmetrized, no
+    gather tables), as the partitioned path reads it."""
+    pts = np.random.default_rng(seed).random((N_POINTS, 3)).astype(np.float32)
+    return build_graph(pts, tables=False)[3]
+
+
+def world_run(card: str, in_dir: Path, out_dir: Path) -> dict:
+    """``dense_worker.run_world`` with DP_WORLD ranks on the card: the report
+    and results, every rank's file, the wall time; fails unless it ran clean."""
+    t0 = time.perf_counter()
+    report, res = dense_worker.run_world(in_dir, out_dir, DP_WORLD, heartbeat_timeout_s=120.0,
+                                         startup_timeout_s=240.0, wall_timeout_s=420.0,
+                                         max_restarts=0)
+    wall = time.perf_counter() - t0
+    logs = "\n".join(f"{p.name}: {p.read_text()[-1500:]}"
+                     for p in sorted(out_dir.glob("log_*.txt")))
+    check(report.ok and report.restarts == 0 and sorted(res) == list(range(DP_WORLD)),
+          f"{out_dir.name}: {report}\n{logs}")
+    files = {r: dict(np.load(out_dir / f"rank{r}.npz")) for r in res}
+    return dict(res=res, files=files, wall=wall)
+
+
+def dp_phases(card: str) -> dict:
+    """Phases 49d-49e: the dense path with data parallelism over clouds, bf16
+    on fp32 masters, Adam 1e-3, the kernels on (remat), on two config-3
+    clouds (points seeds 0 and 1) x P=4 under the caps ``shared_caps``
+    unifies.
+
+    49d. dp_dense -- in one process (``CloudGroup(2)``): each cloud's bf16
+        forward, a warm-up and 5 timed steps, per step 2 clouds x 4
+        partitions x 2 blocks x 4 layers = 64 each of #3, #5 and the
+        reduction; then ``dense_worker.run_world`` as 4 processes on the
+        card, 2 dp rows x 2 graph ranks (each rank one cloud and two
+        partitions; gloo): each rank's partition digest this process's, its
+        forward bit for bit the one-process forward of its partitions; all
+        ranks report the same losses, within DIST_PROCS_RTOL of the
+        one-process curve; parameters and Adam states equal across ranks bit
+        for bit; 16 each of #3, #5 and the reduction per rank and step.
+    49e. overlap -- the same world again with ``serialize_exchange``: its
+        forward, losses and final parameters equal the overlapped run's bit
+        for bit.  Read: step ms per rank and host ms in collectives per step,
+        both ways.
+    Returns the launches per step of #3, #5 and the reduction, one process
+    and per rank."""
+    dev = torch.device(DEVICE)
+    bf = torch.bfloat16
+    clouds = [dense_cloud(SEED + d) for d in range(DP_CLOUDS)]
+    arrays = [partition_arrays(g) for g in clouds]
+    del clouds
+    caps = shared_caps([partition_graph_dense(*a, num_parts=DIST_PARTS) for a in arrays])
+    parts = [partition_graph_dense(*a, num_parts=DIST_PARTS, **caps) for a in arrays]
+    gen = np.random.default_rng(SEED + 2)
+    targets = [torch.from_numpy(gen.standard_normal((N_POINTS, 3)).astype(np.float32)).to(dev)
+               for _ in range(DP_CLOUDS)]
+    model_kw = dict(input_irreps="2x0e+1x1o", hidden_irreps=HIDDEN, output_irreps="1x1o",
+                    num_layers=NUM_LAYERS, layout="cm", use_pallas=True, remat=True)
+    model = port.SEGNN(**model_kw, device=dev, generator=torch.Generator().manual_seed(SEED))
+    weights = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+    # ---- 49d, one process
+    inputs = [dist_inputs(model, p, dev, bf) for p in parts]
+    group = inputs[0][0]
+    shards, attrs = [i[1] for i in inputs], [i[2] for i in inputs]
+    stacked = torch.stack([dist_targets(t, p) for t, p in zip(targets, parts)])
+    blocks = 2 * DIST_PARTS * NUM_LAYERS
+    with torch.no_grad():
+        fwd = dist.make_dist_forward_dense(copy.deepcopy(model).to(bf), group)
+        reset_launches()
+        ref_fwd = [fwd(s, a).float().cpu().numpy() for s, a in zip(shards, attrs)]
+        fwd_launches = launch_counts()
+        fwd_ms = event_ms(lambda: [fwd(s, a) for s, a in zip(shards, attrs)], iters=3, warmup=1)
+        del fwd
+    check(fwd_launches == expected({fm.KM_FWD.name: DP_CLOUDS * blocks}),
+          f"dp forward launches {fwd_launches}")
+    opt = torch.optim.Adam(model.parameters(), lr=LEARNING_RATE, betas=(0.9, 0.999), eps=1e-8)
+    step = dist.make_dist_train_step_dense(model, opt, group, compute_dtype=bf,
+                                           dp=dist.CloudGroup(DP_CLOUDS, group))
+    per_step = {fm.KM_FWD.name: DP_CLOUDS * blocks, fm.KM_BWD.name: DP_CLOUDS * blocks,
+                fm.TAB_BWD_REDUCE.name: DP_CLOUDS * blocks}
+    ref = dist_train_run(step, shards, stacked, attrs, DP_STEPS, expected(per_step))
+    ref_ms = ref["step_ms"][1:]
+    del model, opt, step, shards, attrs, stacked, inputs, group
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the workers' memory comes from the same card
+
+    per_rank = {k: v // (DP_WORLD // DP_CLOUDS) // DP_CLOUDS for k, v in per_step.items()}
+    mean = lambda xs: sum(xs) / len(xs)
+    sha = dense_worker.partition_digest(*parts)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        stack = lambda i: np.stack([a[i] for a in arrays])
+        common = dict(num_parts=DIST_PARTS, steps=DP_STEPS, lr=LEARNING_RATE,
+                      compute_dtype="bfloat16", num_clouds=DP_CLOUDS)
+        runs = {}
+        for label, serialize in (("overlap", False), ("serialized", True)):
+            dense_worker.write_inputs(
+                tmp / f"in_{label}", stack(0), stack(1), stack(2), stack(3),
+                np.stack([t.cpu().numpy() for t in targets]), model_kw, weights, **common,
+                serialize_exchange=serialize)
+            runs[label] = world_run(card, tmp / f"in_{label}", tmp / label)
+
+    clean = runs["overlap"]
+    res, files = clean["res"], clean["files"]
+    fwd_equal, layout_ok = {}, True
+    for r in range(DP_WORLD):
+        d, g = divmod(r, DP_WORLD // DP_CLOUDS)
+        (c_lo, _), (lo, hi) = res[r]["clouds"], res[r]["partitions"]
+        layout_ok &= res[r]["clouds"] == [d, d + 1] and [lo, hi] == [2 * g, 2 * g + 2]
+        got, want = files[r]["forward"], ref_fwd[c_lo][lo:hi][None]
+        fwd_equal[r] = got.shape == want.shape and got.tobytes() == want.tobytes()
+    losses = res[0]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+    params = sorted(k for k in files[0] if k.startswith("param/"))
+    same_params = all(files[r][k].tobytes() == files[0][k].tobytes()
+                      for r in range(DP_WORLD) for k in params)
+    launches_ok = all(ls == per_rank for r in range(DP_WORLD) for ls in res[r]["launches_per_step"])
+    rank_ms = {r: res[r]["step_ms"][1:] for r in range(DP_WORLD)}
+    emit("dp_dense", card=card, points_per_cloud=N_POINTS, clouds=DP_CLOUDS, num_parts=DIST_PARTS,
+         caps=caps, layers=NUM_LAYERS, compute_dtype="bfloat16", master_dtype="float32",
+         optimizer=f"Adam(lr={LEARNING_RATE}, betas=(0.9, 0.999), eps=1e-8)",
+         one_process=dict(forward_ms_both_clouds=fwd_ms, forward_launches=nonzero(fwd_launches),
+                          step_ms=ref_ms, step_ms_mean=mean(ref_ms), losses=ref["losses"],
+                          launches_per_step=nonzero(ref["launches_per_step"]),
+                          peak_mem_gb=ref["peak_mem_gb"]),
+         world=DP_WORLD, layout="2 dp rows x 2 graph ranks, rank = d * 2 + g",
+         devices=[res[r]["device"] for r in range(DP_WORLD)],
+         clouds_per_rank={r: res[r]["clouds"] for r in res},
+         partitions_per_rank={r: res[r]["partitions"] for r in res},
+         partition_same_as_parent=all(res[r]["partition_sha"] == sha for r in res),
+         forward_bitwise_one_process=fwd_equal, losses={r: res[r]["losses"] for r in res},
+         max_rel_loss_vs_one_process=max(rel), first_loss_equal=losses[0] == ref["losses"][0],
+         rtol=f"{DIST_PROCS_RTOL}: the partitioned runners' bf16 loss tolerance",
+         params_bitwise_across_ranks=same_params,
+         launches_per_rank_step={r: res[r]["launches_per_step"][-1] for r in res},
+         step_ms_per_rank=rank_ms, step_ms_mean_per_rank={r: mean(v) for r, v in rank_ms.items()},
+         collective_host_ms_per_step={r: res[r]["comm_ms"] for r in res},
+         collective_host_ms_mean={r: mean(res[r]["comm_ms"][1:]) for r in res},
+         world_wall_s=clean["wall"],
+         scaling="none computed: the four processes time-slice one card")
+    check(layout_ok, f"ranks not laid out dp-major: {[(res[r]['clouds'], res[r]['partitions']) for r in res]}")
+    check(all(res[r]["partition_sha"] == sha for r in res), "the ranks' partitions differ")
+    check(all(fwd_equal.values()), f"forward not the one-process forward: {fwd_equal}")
+    check(all(res[r]["losses"] == losses for r in res), "the ranks report different losses")
+    check(all(math.isfinite(x) for x in losses), f"non-finite losses {losses}")
+    check(max(rel) <= DIST_PROCS_RTOL, f"dp loss curve {max(rel)} relative off one process")
+    check(same_params and all(res[r]["state_sha"] == res[0]["state_sha"] for r in res),
+          "the ranks' parameters or optimizer states differ")
+    check(launches_ok, f"launches per rank and step "
+                       f"{ {r: res[r]['launches_per_step'] for r in res} }, expected {per_rank}")
+
+    # ---- 49e, overlapped against serialized
+    ser = runs["serialized"]
+    same_fwd = all(ser["files"][r]["forward"].tobytes() == files[r]["forward"].tobytes()
+                   for r in range(DP_WORLD))
+    same_losses = all(ser["res"][r]["losses"] == res[r]["losses"] for r in range(DP_WORLD))
+    same_final = all(ser["files"][r][k].tobytes() == files[r][k].tobytes()
+                     for r in range(DP_WORLD) for k in params)
+    both = {label: dict(
+        step_ms_per_rank={r: run["res"][r]["step_ms"][1:] for r in range(DP_WORLD)},
+        step_ms_mean_per_rank={r: mean(run["res"][r]["step_ms"][1:]) for r in range(DP_WORLD)},
+        collective_host_ms_per_step={r: run["res"][r]["comm_ms"] for r in range(DP_WORLD)},
+        collective_host_ms_mean={r: mean(run["res"][r]["comm_ms"][1:]) for r in range(DP_WORLD)},
+        world_wall_s=run["wall"]) for label, run in runs.items()}
+    emit("overlap", card=card, world=DP_WORLD, forward_bitwise=same_fwd, losses_equal=same_losses,
+         final_params_bitwise=same_final, serialize_flags=[
+             runs[k]["res"][0]["serialize_exchange"] for k in ("overlap", "serialized")],
+         **both)
+    check([runs[k]["res"][0]["serialize_exchange"] for k in ("overlap", "serialized")]
+          == [False, True], "the runs did not take the serialize switch")
+    check(same_fwd and same_losses and same_final,
+          f"overlapped and serialized differ: forward {same_fwd}, losses {same_losses}, "
+          f"parameters {same_final}")
+    return dict(one_process=ref["launches_per_step"], per_rank=res[0]["launches_per_step"][-1])
+
+
 # configs 1 and 2 on the COO path (train/runners.py)
 COO_STEPS = 25  # runner steps on the card (the configs train 2,000 and 5,000)
 COO_TIMED = 20  # CUDA-event steps after a warm-up
@@ -4171,6 +4654,11 @@ def main() -> int:
     del graph
     dist_lmax2_phase(card)
 
+    # ---- 49c-49e. the COO partitioned path, dp over clouds on the dense
+    #      path (one process and 4 processes), the overlapped exchange
+    cd = coo_dist_phase(card)
+    dpl = dp_phases(card)
+
     # ---- 50-51. configs 1 and 2 on the COO path, through the runners
     for which in ("nbody", "qm9"):
         coo_phase(card, which)
@@ -4198,7 +4686,9 @@ def main() -> int:
          "bound_by": red3["bound_by"], "library_ms": red3["torch_sum_ms"],
          "shape": red3["shape"], "times": "device time from torch.profiler",
          "event_ms": red3["event_ms"]["kernel"],
-         "launches_per_rank_step_dist_procs": dp[fm.TAB_BWD_REDUCE.name]},
+         "launches_per_rank_step_dist_procs": dp[fm.TAB_BWD_REDUCE.name],
+         "launches_per_step_dp": dpl["one_process"].get(fm.TAB_BWD_REDUCE.name, 0),
+         "launches_per_rank_step_dp": dpl["per_rank"].get(fm.TAB_BWD_REDUCE.name, 0)},
         {"name": fmg.GENERIC_TAB_FWD.name, "route": "cuda", "source": src(fmg.GENERIC_TAB_FWD),
          "replaces": f"{GENERIC_TPU_FILE}:937", "launches": l2["launches"],
          "max_abs_err": l2["max_abs_err"], "ms": l2["ms"], "plain_ms": l2["plain_ms"],
@@ -4224,6 +4714,8 @@ def main() -> int:
           "replaces": f"{TPU_FILE}:{line}", **km[kern.name],
           "launches_per_step_entry": entry(kern, "cloud100k", "cloud10m"),
           "launches_per_rank_step_dist_procs": dp[kern.name],
+          "launches_per_step_dp": dpl["one_process"].get(kern.name, 0),
+          "launches_per_rank_step_dp": dpl["per_rank"].get(kern.name, 0),
           "cloud10m_block": dict(
               max_abs_err=ent["km_10m"]["max_abs_err"][key],
               ms=ent["km_10m"]["times"][f"{key}_ms"],
@@ -4234,7 +4726,9 @@ def main() -> int:
           "replaces": f"{TPU_FILE}:{line}", **pk[kern.name]}
          for kern, line in ((fm.FLAT_FWD, 394), (fm.FLAT_BWD, 497))]
       + [{"name": hr.RING.name, "route": "cuda", "source": src(hr.RING),
-          "replaces": f"{HALO_TPU_FILE}:43", **dr[hr.RING.name]}]
+          "replaces": f"{HALO_TPU_FILE}:43", **dr[hr.RING.name],
+          "launches_per_step_coo_dist": cd["launches_per_step"],
+          "ms_coo_dist_fp32": cd["ring_ms_fp32"]}]
     }), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

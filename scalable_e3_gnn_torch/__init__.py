@@ -9,9 +9,10 @@ tables), ``kernels`` (hand-written CUDA kernels with their plain PyTorch
 versions), ``models`` (SEGNN), ``data`` (the N-body and QM9 data), ``train``
 (loss, train step and state, metrics, checkpoints, the runners of the
 evaluation ladder), ``utils`` (device choice, configs, JAX parameters in and
-out, profiling hooks), ``parallel`` (the dense partitioner, the
-partitioned forward and train step with their halo exchange, in one process
-or one partition range per process over ``torch.distributed``, with its
+out, profiling hooks), ``parallel`` (the COO and dense partitioners, the
+partitioned forward and train steps with their halo exchange, overlapped
+with the interior work, and data parallelism over clouds, in one process or
+one partition range per process over ``torch.distributed``, with its
 worker, heartbeats and restart-the-world supervisor), ``data`` (also the
 native host helpers), ``cli`` (``python -m scalable_e3_gnn_torch``) and
 ``examples``.  It imports neither JAX nor the
@@ -32,7 +33,9 @@ from .ops.gather_scatter import scatter_sum, sddmm, segment_mean, segment_sum, s
 from .ops.linear import O3LayerNorm, O3Linear
 from .ops.tensor_product import L1TensorProduct, TensorProduct
 from .parallel.failover import Supervisor
+from .parallel.halo import make_dist_forward, make_dist_train_step, shard_partitioned
 from .parallel.multihost import init_distributed, local_shard_slice
+from .parallel.partition import PartitionedGraph, partition_graph
 from .train.runners import run_nbody, run_pointcloud, run_qm9, run_qm9_protocol
 from .utils.params import params_from_jax, params_to_jax
 
@@ -45,4 +48,5 @@ __all__ = ["Instruction", "Irrep", "Irreps", "MulIrrep", "spherical_harmonics", 
            "segment_sum", "spmm", "O3LayerNorm", "O3Linear", "L1TensorProduct", "TensorProduct",
            "run_nbody", "run_pointcloud", "run_qm9", "run_qm9_protocol", "params_from_jax",
            "params_to_jax", "Supervisor", "init_distributed", "local_shard_slice",
-           "__version__"]
+           "PartitionedGraph", "partition_graph", "shard_partitioned", "make_dist_forward",
+           "make_dist_train_step", "__version__"]

@@ -18,7 +18,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..ops.gather_scatter import SegmentPlan, segment_plan
+from ..ops.gather_scatter import SegmentPlan, coo_edge_plans, segment_plan
 from ..utils.device import as_tensor
 
 __all__ = ["SteerableGraph", "DenseEdgeGraph", "CooPlans"]
@@ -93,12 +93,10 @@ class SteerableGraph:
         """The graph's ``CooPlans`` (stable sorts and binary searches on its
         device, no host sync)."""
         n = self.num_nodes
-        recv = self.receivers.long()
+        send, recv_gather, recv = coo_edge_plans(self.senders, self.receivers, n, n)
         return CooPlans(
-            send=segment_plan(torch.clamp(self.senders.long(), 0, n - 1), n),
-            recv_gather=segment_plan(torch.clamp(recv, 0, n - 1), n, indices_are_sorted=True),
-            recv=segment_plan(recv, n, indices_are_sorted=True),
-            attr=segment_plan(torch.where(self.edge_mask, recv, n), n),
+            send=send, recv_gather=recv_gather, recv=recv,
+            attr=segment_plan(torch.where(self.edge_mask, self.receivers.long(), n), n),
             pool=segment_plan(self.node_graph, self.n_graphs),
         )
 

@@ -61,7 +61,11 @@ Message dispatch on a ``DenseEdgeGraph`` (``SEGNNLayer``):
 (``parallel.halo``): the interior and boundary receiver blocks of a
 partition, each through the same dispatch on senders pre-gathered by
 ``take_dense_rev`` (``hs``), which skips the tabled and sym-regather
-entries.
+entries.  ``SEGNNLayer.apply_split`` is the layer of the COO partitioned
+path: the local and the remote edges of a partition, plain PyTorch as
+``apply``.  Each comes in two halves (interior or local, then boundary or
+remote with the update), which the runners call apart so that the halo
+exchange runs during the first.
 
 Rematerialisation, as in the JAX package: ``remat`` checkpoints the plain
 message path and, where an update layer is a generic ``TensorProduct``, the
@@ -91,7 +95,7 @@ from ..kernels.fused_message import (MessageConfig, fused_message_aggregate,
                                      fused_message_aggregate_km, fused_message_aggregate_tabled)
 from ..kernels.fused_message_generic import FusedMessageGeneric
 from ..ops.gate import Gate
-from ..ops.gather_scatter import (gather, gather_coo, gather_km, segment_mean, segment_plan,
+from ..ops.gather_scatter import (coo_edge_plans, gather, gather_coo, gather_km, segment_mean,
                                   segment_sum, take_dense_rev, take_dense_symmetric,
                                   take_dense_symmetric_km)
 from ..ops.linear import O3Linear
@@ -451,6 +455,24 @@ class SEGNNLayer(nn.Module):
         m = torch.where(edge_mask[..., None], m, torch.zeros_like(m))
         return m.sum(dim=1)
 
+    def _coo_messages(self, h_local, h_src, senders, receivers, edge_mask, edge_attr,
+                      edge_dist2, plans=None):
+        """agg [N, F]: the masked messages of the [E] edges from senders in
+        ``h_src`` to receivers in ``h_local`` (sorted; padding = N, the trash
+        segment), both gathers clipped, summed per receiver.  ``plans``: the
+        edges' ``coo_edge_plans``, made here when not given."""
+        n = h_local.shape[0]
+        if plans is None:
+            plans = coo_edge_plans(senders, receivers, n, h_src.shape[0])
+        send_p, recv_gather_p, recv_p = plans
+        m = torch.cat([gather_coo(h_src, senders, send_p),
+                       gather_coo(h_local, receivers, recv_gather_p),
+                       edge_dist2[:, None].to(h_local.dtype)], dim=-1)
+        for layer in self.message_layers:
+            m = layer(m, edge_attr)
+        m = torch.where(edge_mask[:, None], m, torch.zeros_like(m))
+        return segment_sum(m, receivers, n, plan=recv_p)
+
     def apply(self, h_local, h_ext, senders, receivers, edge_attr, node_attr, edge_dist2,
               edge_mask, node_mask, plans: Optional[CooPlans] = None):
         """COO message -> aggregate -> update (the JAX ``apply``): messages of
@@ -461,23 +483,11 @@ class SEGNNLayer(nn.Module):
         device: ``h_ext`` is ``h_local``.  ``plans``: the graph's
         ``CooPlans`` (its ``send`` plan then indexes ``h_ext``), made here
         when not given."""
-        n, n_ext = h_local.shape[0], h_ext.shape[0]
-        if plans is None:
-            recv = receivers.long()
-            send_p = segment_plan(torch.clamp(senders.long(), 0, n_ext - 1), n_ext)
-            recv_gather_p = segment_plan(torch.clamp(recv, 0, n - 1), n, indices_are_sorted=True)
-            recv_p = segment_plan(recv, n, indices_are_sorted=True)
-        else:
-            send_p, recv_gather_p, recv_p = plans.send, plans.recv_gather, plans.recv
+        plans = None if plans is None else (plans.send, plans.recv_gather, plans.recv)
 
         def messages_and_aggregate(h_local_, h_ext_):
-            m = torch.cat([gather_coo(h_ext_, senders, send_p),
-                           gather_coo(h_local_, receivers, recv_gather_p),
-                           edge_dist2[:, None].to(h_local_.dtype)], dim=-1)
-            for layer in self.message_layers:
-                m = layer(m, edge_attr)
-            m = torch.where(edge_mask[:, None], m, torch.zeros_like(m))
-            return segment_sum(m, receivers, n, plan=recv_p)
+            return self._coo_messages(h_local_, h_ext_, senders, receivers, edge_mask,
+                                      edge_attr, edge_dist2, plans)
 
         if self.remat:
             agg = _checkpoint(self.message_layers, messages_and_aggregate, h_local, h_ext)
@@ -485,6 +495,36 @@ class SEGNNLayer(nn.Module):
             agg = messages_and_aggregate(h_local, h_ext)
         out = h_local + self._update_u(h_local, agg, node_attr)
         return torch.where(node_mask[:, None], out, torch.zeros_like(out))
+
+    def apply_split_local(self, h_local, loc_edges, plans=None):
+        """The local half of ``apply_split``: agg [N, F] of the local edges
+        (``loc_edges`` = (senders, receivers, mask, edge_attr, dist2), senders
+        local rows), which reads no halo."""
+        return self._coo_messages(h_local, h_local, *loc_edges, plans=plans)
+
+    def apply_split_remote(self, h_local, h_ext, agg_local, rem_edges, node_attr, node_mask,
+                           plans=None):
+        """The remote half of ``apply_split``: ``agg_local`` plus the
+        messages of the remote edges (senders in ``h_ext``, the halo slots),
+        then the update layers, the residual and the node mask."""
+        agg = agg_local + self._coo_messages(h_local, h_ext, *rem_edges, plans=plans)
+        out = h_local + self._update_u(h_local, agg, node_attr)
+        return torch.where(node_mask[:, None], out, torch.zeros_like(out))
+
+    def apply_split(self, h_local, h_ext, loc_edges, rem_edges, node_attr, node_mask,
+                    loc_plans=None, rem_plans=None):
+        """One layer of a partition of the COO partitioned path (the JAX
+        ``apply_split``; ``parallel.partition.PartitionedGraph``): the local
+        edges' aggregation reads only ``h_local`` [N, F], the remote edges'
+        ``h_ext`` [N + H, F] (local rows, then the halo slots); ``agg = local
+        + remote``, in that order, then the update.  ``loc_edges`` and
+        ``rem_edges``: (senders, receivers, mask, edge_attr, dist2); the
+        plans: their ``coo_edge_plans`` (made here when not given).  The
+        partitioned runners call the two halves apart, so that the halo
+        exchange runs during the local one."""
+        agg = self.apply_split_local(h_local, loc_edges, loc_plans)
+        return self.apply_split_remote(h_local, h_ext, agg, rem_edges, node_attr, node_mask,
+                                       rem_plans)
 
     def forward(self, h, graph, edge_attr, node_attr, edge_dist2, edge_geo=None):
         """h [N, F] -> [N, F] on ``graph``, dispatched on its type.
@@ -556,6 +596,40 @@ class SEGNNLayer(nn.Module):
                                         edge_mask, reverse_slot, edge_geo)
         return self._plain_messages(h_ext, h_local, senders, edge_attr, edge_dist2, edge_mask)
 
+    def _dense_block(self, h_r, h_src, edges):
+        """agg [Nb, F] of one receiver block of the dense partitioned path:
+        ``edges`` = (senders [Nb, K] into ``h_src``, attr, dist2, mask[,
+        rev]); a block without rows gives zeros and launches nothing."""
+        pallas = self.use_pallas or self.use_pallas_generic
+
+        def msgs(h_r, h_src, senders, eattr, d2, mask, rev=None):
+            if h_r.shape[0] == 0:
+                return h_r.new_zeros((0, h_r.shape[-1]))
+            hs = None if rev is None else take_dense_rev(h_src, senders, rev)
+            if self.use_pallas:
+                return self._fused_messages(h_r, h_src, senders, eattr, d2, mask, hs=hs)
+            if self.use_pallas_generic:
+                return self._fused_messages_generic(h_r, h_src, senders, eattr, d2, mask, hs=hs)
+            return self._plain_messages(h_src, h_r, senders, eattr, d2, mask, hs=hs)
+
+        if (self.remat and not pallas) or (self.remat_kernel and pallas):
+            return _checkpoint(self.message_layers, msgs, h_r, h_src, *edges)
+        return msgs(h_r, h_src, *edges)
+
+    def apply_dense_interior(self, h_local, int_edges):
+        """The interior half of ``apply_dense_split``: agg [NI, F] of the
+        interior block, which reads only ``h_local``."""
+        return self._dense_block(h_local[:int_edges[0].shape[0]], h_local, int_edges)
+
+    def apply_dense_boundary(self, h_local, h_ext, agg_int, bnd_edges, node_attr, node_mask):
+        """The boundary half of ``apply_dense_split``: the boundary block's
+        agg on ``h_ext`` after ``agg_int``, then the update layers, the
+        residual and the node mask."""
+        agg = torch.cat([agg_int, self._dense_block(h_local[agg_int.shape[0]:], h_ext,
+                                                    bnd_edges)])
+        out = h_local + self._update_u(h_local, agg, node_attr)
+        return torch.where(node_mask[:, None], out, torch.zeros_like(out))
+
     def apply_dense_split(self, h_local, h_ext, int_edges, bnd_edges, node_attr, node_mask):
         """One layer of a partition of the dense partitioned path (the JAX
         ``apply_dense_split``; ``parallel.partition.DensePartitionedGraph``).
@@ -568,30 +642,13 @@ class SEGNNLayer(nn.Module):
         through the dispatch the layer was built for; a block without rows
         gives zeros and launches nothing.  With the fifth entry (the block's
         transpose table) the sender gather is ``take_dense_rev``, whose
-        gradient is a gather.  The update layers and the node mask follow."""
-        ni = int_edges[0].shape[0]
-        f = h_local.shape[-1]
-        pallas = self.use_pallas or self.use_pallas_generic
-
-        def msgs(h_r, h_src, senders, eattr, d2, mask, rev=None):
-            if h_r.shape[0] == 0:
-                return h_local.new_zeros((0, f))
-            hs = None if rev is None else take_dense_rev(h_src, senders, rev)
-            if self.use_pallas:
-                return self._fused_messages(h_r, h_src, senders, eattr, d2, mask, hs=hs)
-            if self.use_pallas_generic:
-                return self._fused_messages_generic(h_r, h_src, senders, eattr, d2, mask, hs=hs)
-            return self._plain_messages(h_src, h_r, senders, eattr, d2, mask, hs=hs)
-
-        def block(h_r, h_src, edges):
-            if (self.remat and not pallas) or (self.remat_kernel and pallas):
-                return _checkpoint(self.message_layers, msgs, h_r, h_src, *edges)
-            return msgs(h_r, h_src, *edges)
-
-        agg = torch.cat([block(h_local[:ni], h_local, int_edges),
-                         block(h_local[ni:], h_ext, bnd_edges)])
-        out = h_local + self._update_u(h_local, agg, node_attr)
-        return torch.where(node_mask[:, None], out, torch.zeros_like(out))
+        gradient is a gather.  The update layers and the node mask follow.
+        The partitioned runners call the two halves apart
+        (``apply_dense_interior``, ``apply_dense_boundary``), so that the halo
+        exchange runs during the interior block."""
+        agg_int = self.apply_dense_interior(h_local, int_edges)
+        return self.apply_dense_boundary(h_local, h_ext, agg_int, bnd_edges, node_attr,
+                                         node_mask)
 
     def _update_u(self, h, agg, node_attr):
         u = torch.cat([h, agg], dim=-1)

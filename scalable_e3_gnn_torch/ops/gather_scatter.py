@@ -35,7 +35,8 @@ import torch
 
 __all__ = ["gather", "gather_km", "take_dense_symmetric", "take_dense_symmetric_km",
            "take_dense_rev", "reverse_slot_gather_sum", "reverse_slot_gather_sum_km",
-           "rev_gather_sum", "SegmentPlan", "segment_plan", "gather_coo", "segment_sum",
+           "rev_gather_sum", "SegmentPlan", "segment_plan", "coo_edge_plans", "gather_coo",
+           "segment_sum",
            "segment_mean", "segment_max", "scatter_sum", "spmm", "sddmm"]
 
 
@@ -199,6 +200,18 @@ def segment_plan(segment_ids, num_segments: int, indices_are_sorted: bool = Fals
         ids, order = torch.sort(ids, stable=True)
     bounds = torch.arange(num_segments + 1, dtype=ids.dtype, device=ids.device)
     return SegmentPlan(order, torch.searchsorted(ids.contiguous(), bounds))
+
+
+def coo_edge_plans(senders, receivers, n: int, n_src: int):
+    """The three ``SegmentPlan``s of an [E] edge list that the COO messages
+    read: the clipped senders into ``n_src`` rows (the sender gather's
+    gradient), the clipped receivers (the receiver gather's gradient) and
+    the receivers (the aggregation; the trash id ``n`` drops), both into
+    ``n`` rows, the receivers sorted."""
+    recv = receivers.long()
+    return (segment_plan(torch.clamp(senders.long(), 0, n_src - 1), n_src),
+            segment_plan(torch.clamp(recv, 0, n - 1), n, indices_are_sorted=True),
+            segment_plan(recv, n, indices_are_sorted=True))
 
 
 def _reduce(data, plan: SegmentPlan, reduce: str):

@@ -9,7 +9,10 @@ at the rank boundaries.
 The JAX module's ``make_hosts_mesh`` and ``global_put`` have no counterpart: a
 process group takes the mesh's place, and each rank builds and holds only its
 own partitions (``parallel.halo.shard_partitioned_dense``), never a global
-array.  With one process everything degenerates to the single-process path.
+array.  Data parallelism over clouds lays the ranks out dp-major, as JAX's
+``(dp, graph)`` mesh: rank ``d * G + g`` is graph rank g of dp row d, and
+each row exchanges halos within a process group of its own
+(``dp_graph_group``).  With one process everything degenerates to the single-process path.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
-__all__ = ["init_distributed", "local_shard_slice", "rank_device", "world_size_and_rank"]
+__all__ = ["init_distributed", "dp_graph_group", "local_shard_slice", "rank_device",
+           "world_size_and_rank"]
 
 DEFAULT_TIMEOUT_S = 60.0  # a dead peer fails a collective instead of hanging it
 
@@ -55,6 +59,24 @@ def init_distributed(init_method: Optional[str] = None, world_size: Optional[int
     dist.init_process_group(backend, init_method=init_method, world_size=world_size,
                             rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
     return True
+
+
+def dp_graph_group(graph_ranks: int, timeout_s: float = DEFAULT_TIMEOUT_S):
+    """``(group, row)``: the gloo process group of this rank's dp row (ranks
+    ``row * graph_ranks`` to ``(row + 1) * graph_ranks - 1``) and the row.
+    Every rank creates every row's group, in row order, as
+    ``torch.distributed.new_group`` requires."""
+    world, rank = world_size_and_rank()
+    if graph_ranks < 1 or world % graph_ranks:
+        raise ValueError(f"{world} ranks do not form rows of {graph_ranks}")
+    mine = None
+    for row in range(world // graph_ranks):
+        ranks = list(range(row * graph_ranks, (row + 1) * graph_ranks))
+        pg = dist.new_group(ranks, backend="gloo",
+                            timeout=datetime.timedelta(seconds=timeout_s))
+        if rank in ranks:
+            mine = pg
+    return mine, rank // graph_ranks
 
 
 def world_size_and_rank(process_group=None) -> Tuple[int, int]:

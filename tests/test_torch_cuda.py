@@ -23,7 +23,10 @@ main-path shapes, odd widths and an unaligned base; the halo ring (#15)
 against its plain version bit for bit at P = 1-8 (odd H and F, and F = 80
 in both dtypes), its gradient and wrapper checks, and a 4-way partitioned
 SEGNN on the card (both exchange backends) against the unpartitioned plain
-path.
+path; the COO partitioned path on the card (both backends) against the
+unpartitioned COO model, the dense dp step (2 clouds x 4 partitions) through
+#3/#5 against the plain path's mean of the clouds' losses, and the
+overlapped exchange against the serialized one, bit for bit.
 
 These tests need a CUDA card and skip without one.  They import no JAX, so
 they run on a machine without it (``--noconftest`` skips the JAX-only
@@ -32,13 +35,14 @@ conftest):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import copy
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from scalable_e3_gnn_torch.graph.container import DenseEdgeGraph
+from scalable_e3_gnn_torch.graph.container import DenseEdgeGraph, SteerableGraph
 from scalable_e3_gnn_torch.graph.octree import build_octree
 from scalable_e3_gnn_torch.graph.radius import radius_graph_cell, suggest_cell_capacity
 from scalable_e3_gnn_torch.kernels import fused_message as fm
@@ -47,7 +51,8 @@ from scalable_e3_gnn_torch.kernels import halo_ring as hr
 from scalable_e3_gnn_torch.models import segnn as segnn_mod
 from scalable_e3_gnn_torch.models.segnn import SEGNN, SEGNNLayer
 from scalable_e3_gnn_torch.parallel import halo as dist
-from scalable_e3_gnn_torch.parallel.partition import partition_graph_dense
+from scalable_e3_gnn_torch.parallel.partition import (partition_graph, partition_graph_dense,
+                                                      shared_caps)
 
 pytestmark = pytest.mark.cuda
 
@@ -1189,3 +1194,132 @@ def test_dist_segnn_on_card_matches_plain_path(dev, backend):
     full = torch.zeros_like(ref)
     full[gids.reshape(-1)[keep]] = flat[keep]
     assert bool(((full - ref).abs() <= 1e-4 * ref.abs().clamp(min=1.0)).all())
+
+
+def _coo_graph(dev, n, k, radius, seed=0):
+    """A cell radius graph on the card as the receiver-sorted COO graph, and
+    its host arrays for ``partition_graph``."""
+    pts = np.random.default_rng(seed).random((n, 3)).astype(np.float32)
+    tree = build_octree(pts, LO, HI, num_levels=5, device=dev)
+    cap = suggest_cell_capacity(tree, radius, LO, HI)
+    e = radius_graph_cell(tree, radius, LO, HI, max_neighbors=k, cell_capacity=cap)
+    feats = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (n, 5)).astype(np.float32)).to(dev)
+    g = SteerableGraph(nodes=feats, positions=tree.points, senders=e.senders,
+                       receivers=e.receivers, node_graph=torch.zeros(n, dtype=torch.int32,
+                                                                     device=dev),
+                       node_mask=torch.ones(n, dtype=torch.bool, device=dev), edge_mask=e.mask)
+    arrays = tuple(x.cpu().numpy() for x in (tree.points, feats, e.senders, e.receivers, e.mask))
+    return g.with_plans(), arrays
+
+
+@pytest.mark.parametrize("backend", ["all_gather", "ring"])
+def test_coo_dist_on_card_matches_unpartitioned(dev, backend):
+    """The COO partitioned path at P=4 on the card: the forward against the
+    unpartitioned COO model (2e-5 * max(1, max|ref|)), #15 once per layer
+    under ring and nothing else, ring equal to all_gather bit for bit; the
+    step's MSE gradients within 5e-5 * max|ref| per parameter, the loss
+    within 1e-6 relative."""
+    n = 3000
+    g, arrays = _coo_graph(dev, n, 24, 0.1)
+    model = SEGNN("2x0e+1x1o", "32x0e+16x1o", "1x1o", num_layers=2, lmax_attr=1, device=dev,
+                  generator=torch.Generator().manual_seed(21))
+    ref_model = SEGNN("2x0e+1x1o", "32x0e+16x1o", "1x1o", num_layers=2, device=dev)
+    ref_model.load_state_dict(model.state_dict())
+    part = partition_graph(*arrays, num_parts=4)
+    group = dist.PartitionGroup(4, dev)
+    shards = dist.shard_partitioned(part, group)
+    with torch.no_grad():
+        ref = ref_model(g)
+        before = {kern.name: kern.launches for kern in fm.KERNELS + fmg.KERNELS + hr.KERNELS}
+        out = dist.make_dist_forward(model, group, backend)(shards)
+        torch.cuda.synchronize()
+        moved = {kern.name: kern.launches - before[kern.name]
+                 for kern in fm.KERNELS + fmg.KERNELS + hr.KERNELS}
+        other = dist.make_dist_forward(model, group, "all_gather")(shards)
+    assert moved == {k: (2 if backend == "ring" and k == hr.RING.name else 0) for k in moved}
+    assert torch.equal(out, other)
+    got = out.reshape(-1, 3)[:n]
+    assert float((got - ref).abs().max()) <= 2e-5 * max(1.0, float(ref.abs().max()))
+    target = torch.randn((n, 3), generator=torch.Generator(device=dev).manual_seed(22),
+                         device=dev)
+    gids = torch.as_tensor(part.global_ids, device=dev).long().clamp(min=0)
+    step = dist.make_dist_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0), group,
+                                     backend)
+    loss = step(shards, target[gids])["loss"]
+    ref_loss = ((ref_model(g) - target) ** 2).mean()
+    ref_loss.backward()
+    torch.testing.assert_close(loss, ref_loss.detach(), rtol=1e-6, atol=0)
+    for (name, a), b in zip(model.named_parameters(), ref_model.parameters(), strict=True):
+        err = float((a.grad - b.grad).abs().max())
+        assert err <= 5e-5 * float(b.grad.abs().max()), (name, err)
+
+
+def _dp_dense(dev, use_pallas, seeds=(0, 1), n=2000):
+    """Two clouds at config 3's width partitioned 4 ways under shared caps,
+    a model, the group and the clouds' shards, targets and graphs."""
+    clouds = [_graph(dev, n, 24, 0.12, 160, seed=s)[0] for s in seeds]
+    host = lambda g: [x.cpu().numpy() for x in (g.positions, g.nodes, g.senders, g.edge_mask)]
+    parts = [partition_graph_dense(*host(g), num_parts=4) for g in clouds]
+    caps = shared_caps(parts)
+    parts = [partition_graph_dense(*host(g), num_parts=4, **caps) for g in clouds]
+    model = SEGNN("2x0e+1x1o", "32x0e+16x1o", "1x1o", num_layers=2, layout="cm",
+                  use_pallas=use_pallas, device=dev, generator=torch.Generator().manual_seed(23))
+    group = dist.PartitionGroup(4, dev)
+    shards = [dist.shard_partitioned_dense(p, group) for p in parts]
+    gen = torch.Generator(device=dev).manual_seed(24)
+    targets = [torch.randn((n, 3), generator=gen, device=dev) for _ in clouds]
+    stacked = torch.stack([t[torch.as_tensor(p.global_ids, device=dev).long().clamp(min=0)]
+                           for t, p in zip(targets, parts)])
+    return clouds, model, group, shards, targets, stacked
+
+
+def test_dense_dp_on_card_matches_plain_path(dev):
+    """dp 2 x graph 4 through #3/#5: 2 clouds x 4 partitions x 2 blocks x 2
+    layers of each and of the reduction per step; the gradients within 1e-4
+    * max|ref| per parameter of the plain path's mean of the clouds' MSEs."""
+    clouds, model, group, shards, targets, stacked = _dp_dense(dev, True)
+    plain = SEGNN("2x0e+1x1o", "32x0e+16x1o", "1x1o", num_layers=2, layout="cm",
+                  use_pallas=False, device=dev)
+    plain.load_state_dict(model.state_dict())
+    step = dist.make_dist_train_step_dense(model, torch.optim.SGD(model.parameters(), lr=0.0),
+                                           group, dp=dist.CloudGroup(2, group))
+    kerns = (fm.KM_FWD, fm.KM_BWD, fm.TAB_BWD_REDUCE)
+    before = [kern.launches for kern in kerns]
+    loss = step(shards, stacked)["loss"]
+    moved = [kern.launches - b for kern, b in zip(kerns, before)]
+    assert moved == [2 * 4 * 2 * 2] * 3, moved
+    ref = sum(((plain(g) - t) ** 2).mean() for g, t in zip(clouds, targets)) / 2
+    ref.backward()
+    torch.testing.assert_close(loss, ref.detach(), rtol=1e-5, atol=0)
+    for (name, a), b in zip(model.named_parameters(), plain.parameters(), strict=True):
+        err = float((a.grad - b.grad).abs().max())
+        assert err <= 1e-4 * float(b.grad.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("backend", ["all_gather", "ring"])
+def test_overlap_equals_serialized_on_card(dev, backend):
+    """The bf16 dense dp step through the kernels, overlapped and
+    serialized: the same forward, losses and parameters after 2 Adam steps,
+    bit for bit."""
+    runs = []
+    for serialize in (False, True):
+        _, model, group, shards, _, stacked = _dp_dense(dev, True)
+        bf = torch.bfloat16
+        attrs = [[tuple(a.to(bf) for a in at) for at in dist.make_dist_geometry_dense(
+            model, group)(s)] for s in shards]
+        shards = [[sh._replace(nodes=sh.nodes.to(bf), positions_ext=sh.positions_ext.to(bf))
+                   for sh in s] for s in shards]
+        with torch.no_grad():
+            fwd = dist.make_dist_forward_dense(copy.deepcopy(model).to(bf), group, backend,
+                                               _serialize_exchange=serialize)
+            out = fwd(shards[0], attrs[0])
+        step = dist.make_dist_train_step_dense(
+            model, torch.optim.Adam(model.parameters(), lr=1e-3), group, backend,
+            compute_dtype=bf, dp=dist.CloudGroup(2, group), _serialize_exchange=serialize)
+        losses = [step(shards, stacked, attrs)["loss"].item() for _ in range(2)]
+        runs.append((out, losses, [p.detach().clone() for p in model.parameters()]))
+    (f0, l0, p0), (f1, l1, p1) = runs
+    assert torch.equal(f0, f1) and l0 == l1
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+

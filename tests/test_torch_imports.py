@@ -3,6 +3,7 @@ worker it spawns for the multi-process path, and its GPU check script
 ``chip_smoke.py`` refuses to run without a GPU or without the package beside
 it."""
 
+import json
 import os
 import pathlib
 import shutil
@@ -117,3 +118,32 @@ def test_chip_smoke_fails_without_the_package(tmp_path):
                          env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"})
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_spawned_worker_runs_coo_clouds_without_jax(tmp_path):
+    """The worker on the COO layout with two clouds and the serialized
+    exchange, run as it is spawned, with JAX blocked."""
+    from scalable_e3_gnn_torch import SEGNN, radius_graph_brute
+    from scalable_e3_gnn_torch.parallel.dense_worker import write_inputs
+
+    rng = np.random.default_rng(0)
+    pts = torch.from_numpy(rng.standard_normal((2, 48, 3)).astype(np.float32))
+    edges = [radius_graph_brute(p, 1.0, 6, device="cpu") for p in pts]
+    stack = lambda f: torch.stack([getattr(e, f) for e in edges])
+    kw = dict(input_irreps="2x0e+1x1o", hidden_irreps="4x0e+2x1o", output_irreps="1x1o",
+              num_layers=1)
+    write_inputs(tmp_path / "in", pts, torch.ones(2, 48, 5), stack("senders"),
+                 stack("mask"), torch.zeros(2, 48, 3), kw,
+                 SEGNN(**kw, device="cpu").state_dict(), receivers=stack("receivers"),
+                 num_parts=2, steps=1, lr=0.1, compute_dtype="float32", layout="coo",
+                 num_clouds=2, serialize_exchange=True)
+    env = {k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK")}
+    out = subprocess.run([sys.executable, "-c", _WORKER_RUN, str(tmp_path / "in"),
+                          str(tmp_path / "out")], cwd=REPO, capture_output=True, text=True,
+                         timeout=120, env={**env, "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "NO_JAX" in out.stdout
+    line = next(ln for ln in out.stdout.splitlines() if ln.startswith("DENSE_WORKER "))
+    res = json.loads(line[len("DENSE_WORKER "):])
+    assert (res["layout"], res["serialize_exchange"], res["clouds"]) == ("coo", True, [0, 2])
+    assert np.load(tmp_path / "out" / "rank0.npz")["forward"].shape[:2] == (2, 2)
