@@ -217,6 +217,20 @@ Phases, each printing one JSON line:
                  forward, losses and final parameters bit for bit the
                  overlapped run's; step ms per rank and host ms in collectives
                  per step both ways.
+49f. ring_procs -- kernel #15 between processes on the card (``IpcRing``:
+                 publish and gather kernels over CUDA IPC): a 2-process stress
+                 world (200 exchanges of config 3's [2, H, 80] in bf16 and fp32
+                 and of odd [2, 37, 13], every pool bit for bit gloo's
+                 all-gather; a skipped publish raising on every rank within
+                 its bound); dist_procs's world under ring (forwards bit for
+                 bit the one-process one, losses and final parameters bit for
+                 bit the all_gather world's, 4 publishes and 4 gathers per
+                 rank and step beside 16 of #3, #5 and the reduction, the
+                 restart after a kill bit for bit); dp_dense's 4-process world
+                 under ring (bit for bit its all_gather world); the COO P=4
+                 graph as 2 processes under ring (forward bit for bit the
+                 one-process all_gather forward); step ms, gloo host ms, the
+                 kernels' device ms and bounds.
 50. coo_nbody, coo_qm9 -- configs 1 and 2 of the evaluation ladder on the COO
                  path (no hand kernel: every count must stay 0), through
                  ``train.runners``: ``run_nbody`` (256 graphs) and ``run_qm9``
@@ -294,6 +308,7 @@ from scalable_e3_gnn_torch.ops.gather_scatter import gather_km
 from scalable_e3_gnn_torch.data import native_loader
 from scalable_e3_gnn_torch.parallel import dense_worker
 from scalable_e3_gnn_torch.parallel import halo as dist
+from scalable_e3_gnn_torch.parallel import ring_stress
 from scalable_e3_gnn_torch.parallel.partition import (partition_graph, partition_graph_dense,
                                                       shared_caps)
 from scalable_e3_gnn_torch.train.pipeline import make_train_step, mse_loss
@@ -397,8 +412,13 @@ GENERIC_TPU_FILE = "scalable_e3_gnn_tpu/kernels/fused_message_generic.py"
 ALL_KERNELS = fm.KERNELS + fmg.KERNELS + hr.KERNELS
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line of a phase, with ``t_s``: seconds since the script began."""
+    print(json.dumps({"phase": phase, "t_s": round(time.perf_counter() - _T0, 3), **kw}),
+          flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -3166,7 +3186,8 @@ def dist_procs_phase(card: str, graph3) -> dict:
     rank (CUDA events) beside the one-process step, the host ms in
     collectives per step, the supervisor's detection-to-resumed seconds.
     Returns the launches per kernel that rank 0 measured in its last step
-    (equal on both ranks)."""
+    (equal on both ranks), and what ``ring_procs_phase`` reuses: the inputs,
+    the one-process forward and the fault-free world's results."""
     dev = torch.device(DEVICE)
     bf = torch.bfloat16
     n = N_POINTS
@@ -3203,25 +3224,10 @@ def dist_procs_phase(card: str, graph3) -> dict:
         dense_worker.write_inputs(
             tmp / "in", *arrays, target, model_kw, weights, num_parts=DIST_PARTS,
             steps=DIST_PROCS_STEPS, lr=LEARNING_RATE, compute_dtype="bfloat16")
-        runs = {}
-        for label, env in (("fault_free", None),
-                           ("rank1_killed", {"E3GNN_DIE_AT_STEP": str(DIST_PROCS_DIE_AT),
-                                             "E3GNN_DIE_PROCESS": "1"})):
-            t0 = time.perf_counter()
-            report, res = dense_worker.run_world(tmp / "in", tmp / label, DIST_PROCS_WORLD,
-                                                 env=env, heartbeat_timeout_s=120.0,
-                                                 startup_timeout_s=240.0, wall_timeout_s=420.0)
-            wall = time.perf_counter() - t0
-            logs = "\n".join(f"{p.name}: {p.read_text()[-1500:]}"
-                             for p in sorted((tmp / label).glob("log_*.txt")))
-            files = {r: dict(np.load(tmp / label / f"rank{r}.npz")) for r in res}
-            runs[label] = dict(report=report, res=res, files=files, wall=wall)
-            want_restarts = 0 if env is None else 1
-            check(report.ok and report.restarts == want_restarts
-                  and sorted(res) == list(range(DIST_PROCS_WORLD)),
-                  f"dist_procs {label}: {report}\n{logs}")
-
-    clean, killed = runs["fault_free"], runs["rank1_killed"]
+        clean = world_run(card, tmp / "in", tmp / "fault_free", DIST_PROCS_WORLD)
+        killed = world_run(card, tmp / "in", tmp / "rank1_killed", DIST_PROCS_WORLD, 1,
+                           env={"E3GNN_DIE_AT_STEP": str(DIST_PROCS_DIE_AT),
+                                "E3GNN_DIE_PROCESS": "1"})
     res = clean["res"]
     sha = dense_worker.partition_digest(part)
     fwd_equal = {}
@@ -3281,7 +3287,10 @@ def dist_procs_phase(card: str, graph3) -> dict:
     measured = res[0]["launches_per_step"][-1]
     check(all(res[r]["launches_per_step"][-1] == measured for r in res),
           "the ranks launched different kernels in the last step")
-    return measured
+    ctx = dict(arrays=arrays, target=target.cpu().numpy(), model_kw=model_kw, weights=weights,
+               ref_fwd=ref_fwd, halo_cap=part.halo_cap, per_rank=per_rank, res=res,
+               files=clean["files"], wall=clean["wall"])
+    return measured, ctx
 
 
 def dist_lmax2_phase(card: str) -> None:
@@ -3602,6 +3611,8 @@ def coo_dist_phase(card: str) -> dict:
             check(bool(torch.isfinite(out).all()), f"COO {backend}: non-finite output")
             check(err <= TOL_COO_DIST_FWD * scale, f"COO {backend}: forward off by {err}")
         same = torch.equal(outs["ring"], outs["all_gather"])
+    coo_fwd = outs["all_gather"].cpu().numpy()
+    coo_weights = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     del outs, ref, g
     # #15 at this path's shape: the fp32 exports [P, H, 80]
     x = torch.randn((DIST_PARTS, part.halo_cap, port.Irreps(HIDDEN).dim),
@@ -3625,7 +3636,8 @@ def coo_dist_phase(card: str) -> dict:
          dp_points_per_cloud=dp["points_per_cloud"], dp_step_ms_host=dp["step_ms_host"],
          dp_peak_mem_gb=dp["peak_mem_gb"], ring_ms_per_launch=ring_ms)
     return {"launches_per_step": st["launches_per_step"].get(hr.RING.name, 0),
-            "ring_ms_fp32": ring_ms}
+            "ring_ms_fp32": ring_ms, "arrays": arrays, "forward": coo_fwd,
+            "weights": coo_weights, "halo_cap": part.halo_cap}
 
 
 def dense_cloud(seed: int):
@@ -3635,20 +3647,22 @@ def dense_cloud(seed: int):
     return build_graph(pts, tables=False)[3]
 
 
-def world_run(card: str, in_dir: Path, out_dir: Path) -> dict:
-    """``dense_worker.run_world`` with DP_WORLD ranks on the card: the report
-    and results, every rank's file, the wall time; fails unless it ran clean."""
+def world_run(card: str, in_dir: Path, out_dir: Path, world: int = DP_WORLD,
+              restarts: int = 0, env=None) -> dict:
+    """``dense_worker.run_world`` with ``world`` ranks on the card (``env``
+    added to theirs): the report and results, every rank's file, the wall
+    time; fails unless it ran with exactly ``restarts`` restarts."""
     t0 = time.perf_counter()
-    report, res = dense_worker.run_world(in_dir, out_dir, DP_WORLD, heartbeat_timeout_s=120.0,
-                                         startup_timeout_s=240.0, wall_timeout_s=420.0,
-                                         max_restarts=0)
+    report, res = dense_worker.run_world(in_dir, out_dir, world, env=env,
+                                         heartbeat_timeout_s=120.0, startup_timeout_s=240.0,
+                                         wall_timeout_s=420.0, max_restarts=restarts)
     wall = time.perf_counter() - t0
     logs = "\n".join(f"{p.name}: {p.read_text()[-1500:]}"
                      for p in sorted(out_dir.glob("log_*.txt")))
-    check(report.ok and report.restarts == 0 and sorted(res) == list(range(DP_WORLD)),
+    check(report.ok and report.restarts == restarts and sorted(res) == list(range(world)),
           f"{out_dir.name}: {report}\n{logs}")
     files = {r: dict(np.load(out_dir / f"rank{r}.npz")) for r in res}
-    return dict(res=res, files=files, wall=wall)
+    return dict(report=report, res=res, files=files, wall=wall)
 
 
 def dp_phases(card: str) -> dict:
@@ -3672,7 +3686,7 @@ def dp_phases(card: str) -> dict:
         for bit.  Read: step ms per rank and host ms in collectives per step,
         both ways.
     Returns the launches per step of #3, #5 and the reduction, one process
-    and per rank."""
+    and per rank, and what ``ring_procs_phase`` reuses (``ctx``)."""
     dev = torch.device(DEVICE)
     bf = torch.bfloat16
     clouds = [dense_cloud(SEED + d) for d in range(DP_CLOUDS)]
@@ -3801,7 +3815,226 @@ def dp_phases(card: str) -> dict:
     check(same_fwd and same_losses and same_final,
           f"overlapped and serialized differ: forward {same_fwd}, losses {same_losses}, "
           f"parameters {same_final}")
-    return dict(one_process=ref["launches_per_step"], per_rank=res[0]["launches_per_step"][-1])
+    ctx = dict(arrays=arrays, targets=np.stack([t.cpu().numpy() for t in targets]),
+               model_kw=model_kw, weights=weights, common=common, per_rank=per_rank,
+               res=res, files=files, wall=clean["wall"])
+    return dict(one_process=ref["launches_per_step"], per_rank=res[0]["launches_per_step"][-1],
+                ctx=ctx)
+
+
+# kernel #15 between processes on the one card (kernels/halo_ring.py::IpcRing)
+RING_STRESS_EXCHANGES = 200
+RING_SKIP_AT = 5  # the stress world's last rank skips the publish of its 5th fault exchange
+RING_FAULT_TIMEOUT_S = 2.0  # the wait bound of that check (the runners' is RING_WAIT_S)
+RING_COO_STEPS = 1
+
+
+def same_files(a: dict, b: dict, prefix: str) -> bool:
+    """Every array of ``a``'s and ``b``'s files whose key starts with
+    ``prefix`` equal bit for bit, rank by rank."""
+    return all(k in b[r] and a[r][k].tobytes() == b[r][k].tobytes()
+               for r in a for k in a[r] if k.startswith(prefix))
+
+
+def ring_procs_phase(card: str, procs: dict, dpc: dict, cooc: dict) -> dict:
+    """Phase 49f, ring_procs: kernel #15 between processes that share the
+    card (``IpcRing``: a publish kernel into the rank's IPC-mapped staging
+    buffer, a gather kernel from every rank's), on both partitioned paths.
+
+    (a) stress: ``parallel.ring_stress`` with 2 processes, 200 exchanges
+        each of config 3's [2, H, 80] exports in bf16 and fp32 and of [2,
+        37, 13] bf16, back to back with random device delays; every pool bit
+        for bit gloo's all-gather of the same exports; then the last rank
+        skips a publish and every rank raises within the bound, naming it.
+    (b) dist_procs's config-3 P=4 world (``procs``) with ``"backend":
+        "ring"``: each rank's forward bit for bit the one-process forward,
+        the losses and final parameters bit for bit the all_gather world's
+        of this call; per rank and step 16 of #3, #5 and the reduction and 4
+        each of the publish and the gather; then rank 1 killed after step
+        3's checkpoint: one restart, the final parameters bit for bit.
+    (c) dp_dense's 4-process world (``dpc``: 2 dp rows x 2 graph ranks, each
+        row a ring of its own) under ring: forward, losses and final
+        parameters bit for bit the all_gather world's.
+    (d) coo_dist's P=4 graph (``cooc``) as 2 processes under ring, one fp32
+        step: each rank's forward bit for bit the one-process all_gather
+        forward (which the all_gather worlds equal bit for bit), 4 publishes
+        and 4 gathers a step.
+    Read: per-rank step ms and gloo host ms beside the all_gather worlds',
+    the gather's and the publish's device ms per step (CUDA events, the
+    wait included), the kernels' device ms alone and their bounds, gloo's
+    host ms for the same exports.  Returns the two kernels' rows of the
+    ``kernels`` line and #15's readings."""
+    mean = lambda xs: sum(xs) / len(xs)
+    pub, gat = hr.IPC_PUBLISH.name, hr.IPC_GATHER.name
+    ring_per_step = {pub: NUM_LAYERS, gat: NUM_LAYERS}
+    hcap = procs["halo_cap"]
+
+    # ---- (a) the stress world and the skipped publish
+    shapes = f"2x{hcap}x80:bfloat16,2x{hcap}x80:float32,2x37x13:bfloat16"
+    stress = ring_stress.run_world(world=DIST_PROCS_WORLD, exchanges=RING_STRESS_EXCHANGES,
+                                   shapes=shapes, skip_at=RING_SKIP_AT,
+                                   timeout_s=RING_FAULT_TIMEOUT_S, wall_timeout_s=300.0)
+    ranks = stress["ranks"]
+    emit("ring_stress", card=card, world=DIST_PROCS_WORLD, exchanges=RING_STRESS_EXCHANGES,
+         shapes=shapes, wall_s=stress["wall_s"], fails=stress["fails"],
+         per_rank={r: dict(shapes=o["shapes"], fault=o.get("fault"), launches=o["launches"])
+                   for r, o in ranks.items()})
+    check(not stress["fails"], f"ring stress: {stress['fails']}")
+    main_shape = [o["shapes"][0] for o in ranks.values()]  # config 3's bf16 [2, H, 80]
+    stage = main_shape[0]["bytes_per_rank"]
+    # bounds: publish reads P_local chunks and writes them; gather reads P
+    # chunks (every rank's buffer) and writes P
+    pub_bound, pub_by, _, _ = bound(2 * stage, 0)
+    gat_bound, gat_by, _, _ = bound(2 * DIST_PROCS_WORLD * stage, 0)
+    stress_row = dict(
+        publish_ms=max(o["publish_ms_median"] for o in main_shape),
+        gather_copy_ms=max(o["gather_copy_ms_median"] for o in main_shape),
+        gather_in_situ_ms_median=max(o["gather_ms_median"] for o in main_shape),
+        gather_in_situ_ms_max=max(o["gather_ms_max"] for o in main_shape),
+        gloo_ms=max(o["gloo_all_gather_host_ms_median"] for o in main_shape),
+        torch_copy_ms=max(o["torch_copy_ms"] for o in main_shape),
+        max_abs_err=max(s_["max_abs_err"] for o in ranks.values() for s_ in o["shapes"]))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # ---- (b) dist_procs's world under ring, fault-free and rank 1 killed
+        dense_worker.write_inputs(
+            tmp / "in_dist", *procs["arrays"], procs["target"], procs["model_kw"],
+            procs["weights"], num_parts=DIST_PARTS, steps=DIST_PROCS_STEPS, lr=LEARNING_RATE,
+            compute_dtype="bfloat16", backend="ring")
+        clean = world_run(card, tmp / "in_dist", tmp / "dist", DIST_PROCS_WORLD)
+        killed = world_run(card, tmp / "in_dist", tmp / "dist_killed", DIST_PROCS_WORLD, 1,
+                           env={"E3GNN_DIE_AT_STEP": str(DIST_PROCS_DIE_AT),
+                                "E3GNN_DIE_PROCESS": "1"})
+        # ---- (c) dp_dense's world under ring
+        stack = lambda i: np.stack([a[i] for a in dpc["arrays"]])
+        dense_worker.write_inputs(
+            tmp / "in_dp", stack(0), stack(1), stack(2), stack(3), dpc["targets"],
+            dpc["model_kw"], dpc["weights"], **dpc["common"], backend="ring")
+        dpr = world_run(card, tmp / "in_dp", tmp / "dp")
+        # ---- (d) the COO graph as 2 processes under ring
+        coo_arrays = cooc["arrays"]
+        coo_kw = dict(input_irreps="2x0e+1x1o", hidden_irreps=HIDDEN, output_irreps="1x1o",
+                      num_layers=NUM_LAYERS, lmax_attr=1)
+        coo_target = np.random.default_rng(SEED + 2).standard_normal(
+            (coo_arrays[0].shape[0], 3)).astype(np.float32)
+        dense_worker.write_inputs(
+            tmp / "in_coo", coo_arrays[0], coo_arrays[1], coo_arrays[2], coo_arrays[4],
+            coo_target, coo_kw, cooc["weights"], receivers=coo_arrays[3], num_parts=DIST_PARTS,
+            steps=RING_COO_STEPS, lr=LEARNING_RATE, compute_dtype="float32", layout="coo",
+            backend="ring")
+        coo = world_run(card, tmp / "in_coo", tmp / "coo", DIST_PROCS_WORLD)
+
+    # ---- (b) checks and readings
+    res, ares = clean["res"], procs["res"]
+    fwd_equal = {}
+    for r in range(DIST_PROCS_WORLD):
+        lo, hi = res[r]["partitions"]
+        got, want = clean["files"][r]["forward"], procs["ref_fwd"][lo:hi]
+        fwd_equal[r] = got.shape == want.shape and got.tobytes() == want.tobytes()
+    want_rank = {**procs["per_rank"], **ring_per_step}
+    launches_ok = all(ls == want_rank for r in res for ls in res[r]["launches_per_step"])
+    losses_equal = all(res[r]["losses"] == ares[r]["losses"] for r in res)
+    params_equal = same_files(procs["files"], clean["files"], "param/")
+    restart_equal = same_files(clean["files"], killed["files"], "param/")
+    rank_ms = {r: res[r]["step_ms"][1:] for r in res}
+    gather_ms = {r: [m["gather"] for m in res[r]["ring_ms_per_step"][1:]] for r in res}
+    publish_ms = {r: [m["publish"] for m in res[r]["ring_ms_per_step"][1:]] for r in res}
+    kres = killed["res"]
+    detect_s = max(kres[r]["resumed_at"] for r in kres) - killed["report"].failed_at[0]
+    emit("ring_procs_dist", card=card, points=N_POINTS, num_parts=DIST_PARTS,
+         world=DIST_PROCS_WORLD, backend="ring (IpcRing: #15 between processes)",
+         devices=[res[r]["device"] for r in res], forward_bitwise_one_process=fwd_equal,
+         losses={r: res[r]["losses"] for r in res}, losses_equal_all_gather_world=losses_equal,
+         final_params_bitwise_all_gather_world=params_equal,
+         launches_per_rank_step={r: res[r]["launches_per_step"][-1] for r in res},
+         step_ms_per_rank=rank_ms, step_ms_mean_per_rank={r: mean(v) for r, v in rank_ms.items()},
+         all_gather_step_ms_mean_per_rank={r: mean(ares[r]["step_ms"][1:]) for r in ares},
+         collective_host_ms_mean={r: mean(res[r]["comm_ms"][1:]) for r in res},
+         all_gather_collective_host_ms_mean={r: mean(ares[r]["comm_ms"][1:]) for r in ares},
+         gather_device_ms_per_step=gather_ms, publish_device_ms_per_step=publish_ms,
+         gather_device_ms_per_launch_mean={r: mean(v) / NUM_LAYERS for r, v in gather_ms.items()},
+         gather_bound_ms=gat_bound, world_wall_s=clean["wall"],
+         all_gather_world_wall_s=procs["wall"],
+         killed=dict(restarts=killed["report"].restarts, events=killed["report"].events,
+                     resumed_from_step={r: kres[r]["start_step"] for r in kres},
+                     final_params_bitwise_fault_free=restart_equal,
+                     detect_to_resumed_s=detect_s, world_wall_s=killed["wall"]))
+    check(all(fwd_equal.values()), f"ring world: forward not the one-process one: {fwd_equal}")
+    check(losses_equal and params_equal,
+          "ring world: losses or parameters differ from the all_gather world's")
+    check(launches_ok, f"ring world launches {[res[r]['launches_per_step'] for r in res]}, "
+                       f"expected {want_rank} per rank and step")
+    check(restart_equal and all(kres[r]["state_sha"] == res[0]["state_sha"] for r in kres),
+          "ring world: the restart did not end on the fault-free parameters")
+
+    # ---- (c) checks
+    dres, dares = dpr["res"], dpc["res"]
+    dp_want = {**dpc["per_rank"], **ring_per_step}
+    dp_fwd = same_files(dpc["files"], dpr["files"], "forward")
+    dp_params = same_files(dpc["files"], dpr["files"], "param/")
+    dp_losses = all(dres[r]["losses"] == dares[r]["losses"] for r in dres)
+    dp_launch = all(ls == dp_want for r in dres for ls in dres[r]["launches_per_step"])
+    dp_ms = {r: mean(dres[r]["step_ms"][1:]) for r in dres}
+    emit("ring_procs_dp", card=card, world=DP_WORLD, layout="2 dp rows x 2 graph ranks, a ring "
+         "per row", forward_bitwise=dp_fwd, losses_equal=dp_losses, final_params_bitwise=dp_params,
+         launches_per_rank_step={r: dres[r]["launches_per_step"][-1] for r in dres},
+         step_ms_mean_per_rank=dp_ms,
+         all_gather_step_ms_mean_per_rank={r: mean(dares[r]["step_ms"][1:]) for r in dares},
+         collective_host_ms_mean={r: mean(dres[r]["comm_ms"][1:]) for r in dres},
+         all_gather_collective_host_ms_mean={r: mean(dares[r]["comm_ms"][1:]) for r in dares},
+         gather_device_ms_per_step={r: [m["gather"] for m in dres[r]["ring_ms_per_step"][1:]]
+                                    for r in dres},
+         world_wall_s=dpr["wall"], all_gather_world_wall_s=dpc["wall"])
+    check(dp_fwd and dp_losses and dp_params,
+          f"dp ring world: forward {dp_fwd}, losses {dp_losses}, parameters {dp_params}")
+    check(dp_launch, f"dp ring world launches {[dres[r]['launches_per_step'] for r in dres]}")
+
+    # ---- (d) checks
+    cres = coo["res"]
+    coo_fwd = {}
+    for r in range(DIST_PROCS_WORLD):
+        lo, hi = cres[r]["partitions"]
+        got, want = coo["files"][r]["forward"], cooc["forward"][lo:hi]
+        coo_fwd[r] = got.shape == want.shape and got.tobytes() == want.tobytes()
+    coo_launch = all(ls == ring_per_step for r in cres for ls in cres[r]["launches_per_step"])
+    emit("ring_procs_coo", card=card, points=coo_arrays[0].shape[0], cut=False,
+         num_parts=DIST_PARTS, world=DIST_PROCS_WORLD, halo_cap=cooc["halo_cap"],
+         forward_bitwise_one_process_all_gather=coo_fwd,
+         losses={r: cres[r]["losses"] for r in cres},
+         launches_per_rank_step={r: cres[r]["launches_per_step"][-1] for r in cres},
+         step_ms={r: cres[r]["step_ms"] for r in cres},
+         gather_device_ms_per_step={r: [m["gather"] for m in cres[r]["ring_ms_per_step"]]
+                                    for r in cres},
+         world_wall_s=coo["wall"])
+    check(all(coo_fwd.values()), f"COO ring world: forward not the all_gather one: {coo_fwd}")
+    check(coo_launch and all(math.isfinite(x) for r in cres for x in cres[r]["losses"]),
+          f"COO ring world: launches {[cres[r]['launches_per_step'] for r in cres]}")
+
+    launches = res[0]["launches_per_step"][-1]
+    gat_step = mean([x for v in gather_ms.values() for x in v])
+    pub_step = mean([x for v in publish_ms.values() for x in v])
+    rows = {
+        pub: dict(launches=launches.get(pub, 0), max_abs_err=stress_row["max_abs_err"],
+                  ms=stress_row["publish_ms"], plain_ms=stress_row["torch_copy_ms"],
+                  bound_ms=pub_bound, bound_by=pub_by, library_ms=stress_row["torch_copy_ms"],
+                  shape=[2, hcap, 80], dtype="bfloat16",
+                  times="device time by CUDA events around the launch (ring_stress)",
+                  ms_per_launch_in_dist_procs=pub_step / NUM_LAYERS,
+                  library_call="exports copied by Tensor.copy_"),
+        gat: dict(launches=launches.get(gat, 0), max_abs_err=stress_row["max_abs_err"],
+                  ms=stress_row["gather_copy_ms"], plain_ms=stress_row["gloo_ms"],
+                  bound_ms=gat_bound, bound_by=gat_by, library_ms=stress_row["gloo_ms"],
+                  shape=[DIST_PARTS, hcap, 80], dtype="bfloat16",
+                  times="device time by CUDA events, every flag up (the copy alone); "
+                        "plain and library: gloo all_gather of the same exports, host ms",
+                  ms_in_situ_stress_median=stress_row["gather_in_situ_ms_median"],
+                  ms_per_launch_in_dist_procs=gat_step / NUM_LAYERS,
+                  launches_per_rank_step_dp=dres[0]["launches_per_step"][-1].get(gat, 0),
+                  launches_per_rank_step_coo=cres[0]["launches_per_step"][-1].get(gat, 0)),
+    }
+    return dict(rows=rows, launches_per_rank_step=launches.get(gat, 0),
+                ms_between_processes=stress_row["gather_copy_ms"])
 
 
 # configs 1 and 2 on the COO path (train/runners.py)
@@ -4650,7 +4883,7 @@ def main() -> int:
     # ---- 44-49. the dense partitioned path (#3/#5, #11/#12 per block) and
     #      the halo ring #15
     dr = dist_phases(card, graph)
-    dp = dist_procs_phase(card, graph)
+    dp, procs_ctx = dist_procs_phase(card, graph)
     del graph
     dist_lmax2_phase(card)
 
@@ -4658,6 +4891,10 @@ def main() -> int:
     #      path (one process and 4 processes), the overlapped exchange
     cd = coo_dist_phase(card)
     dpl = dp_phases(card)
+
+    # ---- 49f. kernel #15 between processes on the card, on both paths
+    rp = ring_procs_phase(card, procs_ctx, dpl.pop("ctx"), cd)
+    del procs_ctx
 
     # ---- 50-51. configs 1 and 2 on the COO path, through the runners
     for which in ("nbody", "qm9"):
@@ -4728,7 +4965,13 @@ def main() -> int:
       + [{"name": hr.RING.name, "route": "cuda", "source": src(hr.RING),
           "replaces": f"{HALO_TPU_FILE}:43", **dr[hr.RING.name],
           "launches_per_step_coo_dist": cd["launches_per_step"],
-          "ms_coo_dist_fp32": cd["ring_ms_fp32"]}]
+          "ms_coo_dist_fp32": cd["ring_ms_fp32"],
+          "launches_per_rank_step_ring_procs": rp["launches_per_rank_step"],
+          "ms_ring_procs": rp["ms_between_processes"]}]
+      + [{"name": kern.name, "route": "cuda", "source": src(kern),
+          "replaces": f"{HALO_TPU_FILE}:43", **rp["rows"][kern.name],
+          "launches_per_rank_step_ring_procs": rp["rows"][kern.name]["launches"]}
+         for kern in (hr.IPC_PUBLISH, hr.IPC_GATHER)]
     }), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

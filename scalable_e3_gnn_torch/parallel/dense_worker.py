@@ -21,11 +21,14 @@ written once by ``write_inputs``:
   ``steps``, Adam's ``lr``, ``compute_dtype`` (``"float32"`` or
   ``"bfloat16"``: bf16 compute on fp32 master weights; the COO layout is
   fp32 only), and optionally ``layout`` (``"dense"``, the default, or
-  ``"coo"``), ``num_clouds`` (1 by default) and ``serialize_exchange``
-  (false by default: the exchange overlaps the interior work).
+  ``"coo"``), ``num_clouds`` (1 by default), ``serialize_exchange``
+  (false by default: the exchange overlaps the interior work) and
+  ``backend`` (``"all_gather"``, the default, or ``"ring"``).
 
-The exchange is the process group's all-gather (``backend="all_gather"``;
-the ring raises across processes) and the optimizer is Adam.  With several
+The exchange is the process group's all-gather (``backend="all_gather"``)
+or kernel #15 between the processes of a graph group that share one card
+(``backend="ring"``: ``kernels.halo_ring.IpcRing``; on the CPU its plain
+version, the all-gather), and the optimizer is Adam.  With several
 clouds the ranks are laid out dp-major over ``gcd(world, num_clouds)`` dp
 rows (rank = row * G + g for G = world / rows graph ranks): each row owns a
 contiguous range of the clouds and exchanges halos within its own process
@@ -42,7 +45,10 @@ forward outputs as fp32, [P_local, Np, F_out], with a leading local-cloud
 axis when there are several clouds; its final parameters) and prints one
 line ``DENSE_WORKER {json}`` with its readings: the losses, step times
 (CUDA events on the card), host seconds in collectives, kernel launches per
-step, and digests of the partition and of the final state.
+step (#15's publish and gather under ``"ring"``), the ring's publish and
+gather device ms per step (CUDA events around each launch, the gather's
+wait for the peers included), and digests of the partition and of the
+final state.
 """
 
 from __future__ import annotations
@@ -159,6 +165,10 @@ class Rank:
     def serialize(self) -> bool:
         return bool(self.run.get("serialize_exchange", False))
 
+    @property
+    def backend(self) -> str:
+        return self.run.get("backend", "all_gather")
+
     def clouds(self):
         """The local clouds' (shards, attrs) pairs."""
         if self.dp is None:
@@ -225,6 +235,7 @@ def setup(in_dir, device=None) -> Rank:
     with np.load(in_dir / "weights.npz") as w:
         model.load_state_dict({k: torch.from_numpy(w[k]) for k in w.files})
     serialize = bool(run.get("serialize_exchange", False))
+    backend = run.get("backend", "all_gather")
     opt = torch.optim.Adam(model.parameters(), lr=run["lr"])
     if dense:
         attrs = [make_dist_geometry_dense(model, group)(s) for s in shards]
@@ -234,11 +245,12 @@ def setup(in_dir, device=None) -> Rank:
                       for s in shards]
             attrs = [[tuple(a.to(dtype) for a in at) for at in ats] for ats in attrs]
         step = make_dist_train_step_dense(
-            model, opt, group, compute_dtype=None if dtype == torch.float32 else dtype, dp=dp,
-            _serialize_exchange=serialize)
+            model, opt, group, backend, compute_dtype=None if dtype == torch.float32 else dtype,
+            dp=dp, _serialize_exchange=serialize)
     else:
         attrs = [None] * len(shards)
-        coo_step = make_dist_train_step(model, opt, group, dp=dp, _serialize_exchange=serialize)
+        coo_step = make_dist_train_step(model, opt, group, backend, dp=dp,
+                                        _serialize_exchange=serialize)
         step = lambda shards_, targets_, attrs_=None: coo_step(shards_, targets_)
     if dp is None:
         shards, attrs, targets = shards[0], attrs[0], targets[0]
@@ -260,7 +272,7 @@ def main(argv=None) -> int:
     world, rank = world_size_and_rank()
     result = dict(rank=rank, world=world, device=str(group.device),
                   incarnation=int(os.environ.get("E3GNN_INCARNATION", "0")),
-                  layout=r.layout, serialize_exchange=r.serialize,
+                  layout=r.layout, serialize_exchange=r.serialize, backend=r.backend,
                   partitions=[group.lo, group.hi],
                   clouds=[r.dp.lo, r.dp.hi] if r.dp is not None else [0, 1],
                   partition_sha=r.partition_sha, start_step=start)
@@ -269,9 +281,11 @@ def main(argv=None) -> int:
         with torch.no_grad():
             fwd_model = copy.deepcopy(r.model).to(r.dtype)
             if r.layout == "dense":
-                fwd = make_dist_forward_dense(fwd_model, group, _serialize_exchange=r.serialize)
+                fwd = make_dist_forward_dense(fwd_model, group, r.backend,
+                                              _serialize_exchange=r.serialize)
             else:
-                coo = make_dist_forward(fwd_model, group, _serialize_exchange=r.serialize)
+                coo = make_dist_forward(fwd_model, group, r.backend,
+                                        _serialize_exchange=r.serialize)
                 fwd = lambda shards, attrs: coo(shards)
             outs = [fwd(s, a).float().cpu().numpy() for s, a in r.clouds()]
             saved["forward"] = np.stack(outs) if r.dp is not None else outs[0]
@@ -279,7 +293,10 @@ def main(argv=None) -> int:
 
     hb = Heartbeat(str(out_dir / "hb"), rank)
     cuda = group.device.type == "cuda"
-    losses, step_ms, comm_ms, launches = [], [], [], []
+    ring = group.ipc_ring() if cuda and r.backend == "ring" and group.world > 1 else None
+    if ring is not None:
+        ring.events = []
+    losses, step_ms, comm_ms, launches, ring_ms = [], [], [], [], []
     result["resumed_at"] = time.time()
     for s in range(start, run["steps"]):
         hb.beat(s)
@@ -300,17 +317,22 @@ def main(argv=None) -> int:
         comm_ms.append((r.comm_seconds() - comm0) * 1e3)
         now = _launches()
         launches.append({k: v - before[k] for k, v in now.items() if v != before[k]})
+        if ring is not None:
+            ring_ms.append({kind: sum(a.elapsed_time(b) for k, a, b in ring.events if k == kind)
+                            for kind in ("publish", "gather")})
+            ring.events.clear()
         state.step = s + 1
         save_checkpoint(str(out_dir / "ckpt"), s + 1, state)
         inject_failure(s)
 
     result.update(losses=losses, step_ms=step_ms, comm_ms=comm_ms, launches_per_step=launches,
-                  state_sha=_state_digest(state))
+                  ring_ms_per_step=ring_ms, state_sha=_state_digest(state))
     saved.update({f"param/{nm}": p.detach().cpu().numpy()
                   for nm, p in r.model.named_parameters()})
     np.savez(out_dir / f"rank{rank}.npz", **saved)
     print(RESULT_PREFIX + json.dumps(result), flush=True)
     hb.done()
+    group.close()
     if world > 1:
         dist.destroy_process_group()
     return 0

@@ -61,8 +61,18 @@ Two exchange backends, as in JAX, which differ in how the pool is built:
 - ``"all_gather"`` (JAX ``"xla"``, the default): the pool is the stack of
   the exports, in PyTorch (across processes, the process group's
   all-gather);
-- ``"ring"`` (JAX ``"rdma"``): the pools built by kernel #15
-  (``kernels.halo_ring``), one pool per partition, in one process only.
+- ``"ring"`` (JAX ``"rdma"``): kernel #15 (``kernels.halo_ring``).  In one
+  process one launch builds every partition's pool.  Across processes that
+  share one card the group's ``IpcRing`` does: the publish kernel where the
+  gather starts (step 1), the gather kernel where it is waited on (step 3),
+  the pool the same bytes as the all-gather's.  The runners check at
+  construction that the group's ranks share one card
+  (``multihost.card_identities``; distinct cards raise
+  ``NotImplementedError``), and read the ring's error word before every
+  gather and, after a synchronisation of the stream, at the end of every
+  forward (a peer that stopped publishing raises ``RuntimeError``, in a
+  forward alone as in a train step); on CPU tensors the ring across
+  processes is its plain version, the group's all-gather.
 Both share one backward (``_HaloExchange``), the JAX
 ``_exchange_halo_xla_bwd``: the halo cotangents scattered into each
 partition's pool, the reduce-scatter ``d_bound[p] = sum_q d_pool_q[p]`` in
@@ -80,11 +90,11 @@ import torch.distributed as dist
 from torch import nn
 
 from ..core.spherical import spherical_harmonics
-from ..kernels.halo_ring import ring_all_gather_fwd
+from ..kernels.halo_ring import IpcRing, ring_all_gather_fwd
 from ..models.segnn import SEGNN
 from ..ops.gather_scatter import coo_edge_plans, segment_sum
 from ..utils.device import resolve_device
-from .multihost import local_shard_slice, world_size_and_rank
+from .multihost import card_identities, check_one_card, local_shard_slice, world_size_and_rank
 from .partition import DensePartitionedGraph, PartitionedGraph
 
 __all__ = ["PartitionGroup", "CloudGroup", "CooShard", "DenseShard", "exchange_halo",
@@ -93,9 +103,6 @@ __all__ = ["PartitionGroup", "CloudGroup", "CooShard", "DenseShard", "exchange_h
            "make_dist_forward_dense", "make_dist_train_step_dense", "BACKENDS"]
 
 BACKENDS = ("all_gather", "ring")
-_RING_ACROSS_PROCESSES = (
-    "the ring (#15) between processes needs CUDA IPC on one card or peer-mapped pools "
-    "across cards, which the port does not have yet; use backend='all_gather'")
 
 
 class _Ranks:
@@ -164,7 +171,8 @@ class PartitionGroup(_Ranks):
     ``CloudGroup``, the train step) gathers across its ranks.  Only gloo is
     supported: it stages a card's tensors through host memory, so ranks may
     share a card.  ``comm_seconds`` adds up the host time spent in those
-    collectives."""
+    collectives.  Under ``backend="ring"`` on a card the group holds one
+    ``IpcRing`` (``ipc_ring``), shared by its runners; ``close`` frees it."""
 
     def __init__(self, num_parts: int, device=None, process_group=None) -> None:
         if num_parts < 1:
@@ -173,10 +181,35 @@ class PartitionGroup(_Ranks):
         self.num_parts = num_parts
         self.device = resolve_device(device)
         self.lo, self.hi = local_shard_slice(num_parts, self.world, self.rank)
+        self._ring: Optional[IpcRing] = None
 
     @property
     def num_local(self) -> int:
         return self.hi - self.lo
+
+    def ipc_ring(self) -> IpcRing:
+        """The group's ring between processes, made at the first call after
+        checking that every rank is on this rank's card (a collective of the
+        group: ``NotImplementedError`` for distinct cards)."""
+        if self._ring is None:
+            check_one_card(card_identities(self.device, self.process_group))
+            self._ring = IpcRing(self.process_group, self.world, self.rank, self.device)
+        return self._ring
+
+    def raise_if_exchange_failed(self) -> None:
+        """``RuntimeError`` when a gather of the ring waited past its bound:
+        waits for this rank's stream, so every gather launched on it has
+        ended and written the error word, then reads the word."""
+        if self._ring is not None:
+            torch.cuda.current_stream(self.device).synchronize()
+            self._ring.raise_if_failed()
+
+    def close(self) -> None:
+        """Free the ring's memory and handles (a collective of the group when
+        it has a ring)."""
+        if self._ring is not None:
+            self._ring.close()
+            self._ring = None
 
 
 class CloudGroup(_Ranks):
@@ -303,25 +336,37 @@ class _Exchange:
     """One layer's halo exchange, started: the exports of the local
     partitions (detached: the exchange's gradient is ``_HaloExchange``'s) and
     their pools, built at once in one process, or across processes the
-    group's asynchronous all-gather in flight.  ``wait`` ends the gather;
-    ``finish`` waits, then builds every partition's extended features."""
+    ring's publish launched (``backend="ring"`` on a card) or the group's
+    asynchronous all-gather in flight.  ``wait`` ends the gather (the ring's
+    gather kernel); ``finish`` waits, then builds every partition's extended
+    features."""
 
     def __init__(self, hs, bidx, hmap, backend: str, group: Optional[PartitionGroup]) -> None:
         self.bidx, self.hmap, self.group, self.n = bidx, hmap, group, len(hs)
         exports = torch.stack([h.detach()[b] for h, b in zip(hs, bidx)])  # [P_local, H, F]
         self.f = exports.shape[-1]
-        self.work = None
-        if backend == "ring":
-            self.pools = tuple(ring_all_gather_fwd(exports).reshape(self.n, -1, self.f))
-        elif group is None:
-            self.pools = (exports.reshape(-1, self.f),) * self.n
+        self.work = self.ring = None
+        if group is None:
+            if backend == "ring":
+                self.pools = tuple(ring_all_gather_fwd(exports).reshape(self.n, -1, self.f))
+            else:
+                self.pools = (exports.reshape(-1, self.f),) * self.n
+        elif backend == "ring" and exports.device.type == "cuda":
+            self.ring = group.ipc_ring()
+            self.epoch = self.ring.begin()
+            self.ring.publish(exports, self.epoch)
+            self.shape = (*exports.shape, exports.dtype)
         else:
             # the exports stay referenced until the gather is waited on
             self.exports = exports
             self.pool, self.work = group.all_gather_start(exports)
 
     def wait(self) -> None:
-        if self.work is not None:
+        if self.ring is not None:
+            pool = self.ring.gather(self.epoch, self.shape)
+            self.ring = None
+            self.pools = (pool.reshape(-1, self.f),) * self.n
+        elif self.work is not None:
             self.group.wait(self.work)
             self.work, self.exports = None, None
             self.pools = (self.pool.reshape(-1, self.f),) * self.n
@@ -332,13 +377,15 @@ class _Exchange:
 
 
 def _exchange_group(backend: str, group: Optional[PartitionGroup]) -> Optional[PartitionGroup]:
-    """The group an exchange gathers over: None in one process."""
+    """The group an exchange gathers over: None in one process.  The ring
+    across processes on a card makes the group's ``IpcRing`` here, which
+    checks that the ranks share the card."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, not {backend!r}")
     if group is not None and group.world == 1:
         group = None
-    if backend == "ring" and group is not None:
-        raise NotImplementedError(_RING_ACROSS_PROCESSES)
+    if backend == "ring" and group is not None and group.device.type == "cuda":
+        group.ipc_ring()
     return group
 
 
@@ -351,9 +398,10 @@ def exchange_halo(hs: Sequence[torch.Tensor], boundary_idx: torch.Tensor,
     ``hs``: the local partitions' tensors [Np, F]; ``boundary_idx``,
     ``halo_map``: [P_local, H] (the partitions' export rows and the pool index
     of each halo slot).  ``backend``: ``"all_gather"`` (the JAX ``"xla"``) or
-    ``"ring"`` (the JAX ``"rdma"``: kernel #15 on a CUDA tensor, one process
-    only).  ``group``: the partitions' group when it spans several processes
-    (``hs`` then holds only this rank's partitions); None in one process."""
+    ``"ring"`` (the JAX ``"rdma"``: kernel #15 on a CUDA tensor; across
+    processes the group's ``IpcRing``, its ranks on one card).  ``group``:
+    the partitions' group when it spans several processes (``hs`` then holds
+    only this rank's partitions); None in one process."""
     group = _exchange_group(backend, group)
     return _Exchange(hs, boundary_idx, halo_map, backend, group).finish(hs)
 
@@ -538,6 +586,9 @@ class _DistRunner(nn.Module):
         for h, sh, na in zip(hs, shards, node_attrs):
             out = model.head(model.pre_head(h, na))
             outs.append(torch.where(sh.node_mask[:, None], out, torch.zeros_like(out)))
+        if self.exchange_group is not None:
+            # a gather that gave up on a peer left NaN in its pool: raise here
+            self.exchange_group.raise_if_exchange_failed()
         return torch.stack(outs)
 
 

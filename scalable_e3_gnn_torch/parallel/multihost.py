@@ -25,7 +25,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["init_distributed", "dp_graph_group", "local_shard_slice", "rank_device",
-           "world_size_and_rank"]
+           "world_size_and_rank", "card_identity", "card_identities", "check_one_card"]
 
 DEFAULT_TIMEOUT_S = 60.0  # a dead peer fails a collective instead of hanging it
 
@@ -116,3 +116,33 @@ def rank_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
     local = int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", "0")))
     return torch.device("cuda", local % torch.cuda.device_count())
+
+
+def card_identity(device) -> str:
+    """The UUID of ``device``'s card (``torch.cuda.get_device_properties``),
+    which names one physical card whatever the process's device numbering."""
+    return str(torch.cuda.get_device_properties(torch.device(device)).uuid)
+
+
+def card_identities(device, process_group=None) -> list:
+    """Every rank's ``card_identity``, gathered over ``process_group`` (the
+    default group when None) in rank order; a collective of the group."""
+    world, _ = world_size_and_rank(process_group)
+    mine = card_identity(device)
+    if world == 1:
+        return [mine]
+    out = [None] * world
+    dist.all_gather_object(out, mine, group=process_group)
+    return out
+
+
+def check_one_card(identities) -> None:
+    """Raise ``NotImplementedError`` unless every rank names the same card:
+    the halo ring between processes maps its peers' memory on one card; across
+    cards it needs peer-mapped pools (ROADMAP.md section 2, A3b)."""
+    cards = sorted(set(identities))
+    if len(cards) > 1:
+        raise NotImplementedError(
+            f"the ring (#15) between processes runs on one card shared by the ranks; these "
+            f"ranks are on {len(cards)} cards ({cards}), which needs peer-mapped pools across "
+            "cards (ROADMAP.md section 2, A3b); use backend='all_gather'")

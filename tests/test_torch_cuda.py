@@ -21,7 +21,11 @@ plain versions at p = 2, 3, 4 and three widths, their determinism, and
 weight-gradient reduction bit for bit against the in-order fold at its three
 main-path shapes, odd widths and an unaligned base; the halo ring (#15)
 against its plain version bit for bit at P = 1-8 (odd H and F, and F = 80
-in both dtypes), its gradient and wrapper checks, and a 4-way partitioned
+in both dtypes), its gradient and wrapper checks, #15 between two processes
+on the card bit for bit gloo's all-gather (and a skipped publish raising),
+the worker's two-rank ring worlds (dense and COO) bit for bit its all_gather
+worlds, a forward alone raising on both ranks when one skips a publish,
+and a 4-way partitioned
 SEGNN on the card (both exchange backends) against the unpartitioned plain
 path; the COO partitioned path on the card (both backends) against the
 unpartitioned COO model, the dense dp step (2 clouds x 4 partitions) through
@@ -1149,6 +1153,150 @@ def test_ring_gradient_and_wrapper_checks(dev):
         hr.ring_all_gather_fwd(torch.zeros((2, 4, 4), dtype=torch.float16, device=dev))
     with pytest.raises(ValueError):
         hr.ring_all_gather_fwd(torch.zeros((2, 4, 8), device=dev)[:, :, ::2])
+
+
+def test_ring_between_processes_equals_gloo_bitwise(dev):
+    """#15 between two processes on the card (``parallel.ring_stress``): 20
+    exchanges a shape back to back (config 3's [2, H, 80] in bf16 and fp32,
+    odd H and F), every pool bit for bit gloo's all-gather of the same
+    exports; then the last rank skips a publish and every rank raises
+    within the bound, naming it."""
+    from scalable_e3_gnn_torch.parallel import ring_stress
+
+    got = ring_stress.run_world(world=2, exchanges=20, skip_at=3, timeout_s=2.0,
+                                wall_timeout_s=240.0)
+    assert not got["fails"], got["fails"]
+    for out in got["ranks"].values():
+        assert out["launches"]["halo_ipc_publish"] == 3 * 20
+        assert out["launches"]["halo_ipc_gather"] == 3 * (20 + 20)  # and the re-gathers
+        assert out["fault"]["nan_slots"] == [1]
+
+
+@pytest.mark.parametrize("layout", ["dense", "coo"])
+def test_ring_worker_world_equals_all_gather_world(dev, tmp_path, layout):
+    """``dense_worker.run_world`` with two ranks on the card under each
+    backend (fp32, P=4, 2 Adam steps): the ring world's forward, losses and
+    final parameters bit for bit the all_gather world's; per rank and step
+    one publish and one gather a layer."""
+    from scalable_e3_gnn_torch.parallel import dense_worker
+
+    n = 2000
+    kw = dict(input_irreps="2x0e+1x1o", hidden_irreps="32x0e+16x1o", output_irreps="1x1o",
+              num_layers=2)
+    if layout == "dense":
+        g, _ = _graph(dev, n, 24, 0.12, 160)
+        arrays = [g.positions, g.nodes, g.senders, g.edge_mask]
+        extra, kw = {}, dict(kw, layout="cm", use_pallas=True)
+    else:
+        g, host = _coo_graph(dev, n, 24, 0.1)
+        arrays = [host[0], host[1], host[2], host[4]]
+        extra = dict(receivers=host[3], layout="coo")
+    model = SEGNN(**kw, device="cpu", generator=torch.Generator().manual_seed(31))
+    target = np.random.default_rng(32).standard_normal((n, 3)).astype(np.float32)
+    runs = {}
+    for backend in ("all_gather", "ring"):
+        dense_worker.write_inputs(tmp_path / f"in_{backend}", *arrays, target, kw,
+                                  model.state_dict(), num_parts=4, steps=2, lr=1e-3,
+                                  compute_dtype="float32", backend=backend, **extra)
+        report, res = dense_worker.run_world(tmp_path / f"in_{backend}", tmp_path / backend, 2,
+                                             wall_timeout_s=300.0, max_restarts=0)
+        assert report.ok and sorted(res) == [0, 1], report
+        runs[backend] = res, {r: dict(np.load(tmp_path / backend / f"rank{r}.npz"))
+                              for r in range(2)}
+    (res_a, files_a), (res_r, files_r) = runs["all_gather"], runs["ring"]
+    for r in range(2):
+        assert res_r[r]["backend"] == "ring" and res_r[r]["losses"] == res_a[r]["losses"]
+        assert files_r[r].keys() == files_a[r].keys()
+        for k in files_a[r]:
+            assert files_r[r][k].tobytes() == files_a[r][k].tobytes(), (r, k)
+        for per_step in res_r[r]["launches_per_step"]:
+            assert per_step["halo_ipc_publish"] == per_step["halo_ipc_gather"] == 2
+        assert all(m["gather"] > 0 for m in res_r[r]["ring_ms_per_step"])
+
+
+_FORWARD_FAULT_RANK = """
+import json, sys, time
+import torch
+from scalable_e3_gnn_torch.parallel import halo
+from scalable_e3_gnn_torch.parallel.dense_worker import setup
+
+r = setup(sys.argv[1])
+group = r.group
+ring = group.ipc_ring()
+ring.timeout_s = float(sys.argv[2])
+fwd = halo.make_dist_forward_dense(r.model, group, "ring")
+layers = len(r.model.layers)
+with torch.no_grad():
+    clean = fwd(r.shards, r.attrs)
+    torch.cuda.synchronize()
+    if group.rank == 1:  # skip the publish of the next forward's first exchange
+        publish = ring.publish
+        ring.publish = lambda x, e: None if e == layers + 1 else publish(x, e)
+    t0, raised = time.perf_counter(), None
+    try:
+        fwd(r.shards, r.attrs)
+    except RuntimeError as err:
+        raised = str(err)
+print("FAULT " + json.dumps(dict(rank=group.rank, clean_finite=bool(torch.isfinite(clean).all()),
+                                 raised=raised, seconds=time.perf_counter() - t0)), flush=True)
+"""
+
+
+def test_ring_forward_alone_raises_when_a_peer_skips_a_publish(dev, tmp_path):
+    """Two ranks on the card run the dense partitioned forward under ring
+    (no train step), then a second forward in which rank 1 does not publish
+    its first exchange: that forward raises ``RuntimeError`` on both ranks,
+    naming rank 1 and the exchange, within the wait bound plus a margin,
+    instead of returning the NaN the gather left in the pool."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from scalable_e3_gnn_torch.parallel import dense_worker
+
+    n, layers, bound_s = 2000, 2, 2.0
+    kw = dict(input_irreps="2x0e+1x1o", hidden_irreps="32x0e+16x1o", output_irreps="1x1o",
+              num_layers=layers, layout="cm", use_pallas=True)
+    g, _ = _graph(dev, n, 24, 0.12, 160)
+    model = SEGNN(**kw, device="cpu", generator=torch.Generator().manual_seed(31))
+    target = np.random.default_rng(32).standard_normal((n, 3)).astype(np.float32)
+    dense_worker.write_inputs(tmp_path / "in", g.positions, g.nodes, g.senders, g.edge_mask,
+                              target, kw, model.state_dict(), num_parts=4, steps=1, lr=1e-3,
+                              compute_dtype="float32", backend="ring")
+    script = tmp_path / "rank.py"
+    script.write_text(_FORWARD_FAULT_RANK)
+    root = str(Path(__file__).resolve().parents[1])
+    port = dense_worker._free_port()
+    procs = []
+    for rank in range(2):
+        env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+               "WORLD_SIZE": "2", "RANK": str(rank), "LOCAL_RANK": "0",
+               "PYTHONPATH": os.pathsep.join([root, os.environ.get("PYTHONPATH", "")])}
+        procs.append(subprocess.Popen(
+            [sys.executable, str(script), str(tmp_path / "in"), str(bound_s)], env=env,
+            cwd=root, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+    res = {}
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=240)
+            assert p.returncode == 0, err[-3000:]
+            for ln in out.splitlines():
+                if ln.startswith("FAULT "):
+                    got = json.loads(ln[len("FAULT "):])
+                    res[got["rank"]] = got
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert sorted(res) == [0, 1]
+    for r, got in res.items():
+        assert got["clean_finite"], r
+        assert got["raised"] is not None, f"rank {r}'s forward returned without raising"
+        assert f"rank 1's exchange {layers + 1}" in got["raised"], got["raised"]
+        assert got["seconds"] <= layers * bound_s + 10.0, got
 
 
 @pytest.mark.parametrize("backend", ["all_gather", "ring"])

@@ -18,7 +18,7 @@ COO path reads the same ``SEGNN`` parameters as the unpartitioned model):
   of the mean of the two clouds' losses within 5e-5;
 - a ``vel_attr`` model's forward with velocities against JAX's
   ``_local_forward`` with them: 2e-5;
-- ``ring`` across processes raises.
+- ``ring`` across processes on distinct cards raises.
 """
 
 import functools
@@ -301,11 +301,15 @@ def test_vel_attr_forward_matches_jax():
     assert np.abs(got - still).max() > 1e-3  # the velocities do reach the output
 
 
-def test_ring_raises_across_processes():
+def test_ring_raises_across_processes(monkeypatch):
+    """Ranks on distinct cards: the COO runners raise when built (the ring
+    between processes maps its peers' memory on one card)."""
     tm = SEGNN("2x0e+1x1o", HIDDEN, "1x1o", num_layers=1, device="cpu")
     group = halo.PartitionGroup(4, "cpu")
     group.world = 2  # as a two-rank group would be
-    with pytest.raises(NotImplementedError, match="CUDA IPC"):
+    group.device = torch.device("cuda", 0)  # as the ranks' cards would be
+    monkeypatch.setattr(halo, "card_identities", lambda dev, pg: ["GPU-0aaa", "GPU-1bbb"])
+    with pytest.raises(NotImplementedError, match="A3b"):
         halo.make_dist_forward(tm, group, "ring")
-    with pytest.raises(NotImplementedError, match="CUDA IPC"):
+    with pytest.raises(NotImplementedError, match="A3b"):
         halo.make_dist_train_step(tm, torch.optim.SGD(tm.parameters(), lr=0.1), group, "ring")

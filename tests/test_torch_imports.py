@@ -93,6 +93,34 @@ def test_spawned_worker_runs_without_jax(tmp_path):
     assert "DENSE_WORKER " in out.stdout and "NO_JAX" in out.stdout
 
 
+def test_spawned_worker_runs_ring_without_jax(tmp_path):
+    """The worker with ``"backend": "ring"`` in ``run.json``, run as it is
+    spawned, with JAX blocked: the forward and a step through the ring's
+    plain version, and the backend in its readings."""
+    from scalable_e3_gnn_torch import DenseEdgeGraph, SEGNN, radius_graph_brute
+    from scalable_e3_gnn_torch.parallel.dense_worker import write_inputs
+
+    rng = np.random.default_rng(1)
+    pts = torch.from_numpy(rng.standard_normal((48, 3)).astype(np.float32))
+    g = DenseEdgeGraph.from_radius_edges(torch.ones(48, 5), pts,
+                                         radius_graph_brute(pts, 1.0, 6, device="cpu"))
+    kw = dict(input_irreps="2x0e+1x1o", hidden_irreps="4x0e+2x1o", output_irreps="1x1o",
+              num_layers=1)
+    write_inputs(tmp_path / "in", g.positions, g.nodes, g.senders, g.edge_mask,
+                 torch.zeros(48, 3), kw, SEGNN(**kw, device="cpu").state_dict(), num_parts=2,
+                 steps=1, lr=0.1, compute_dtype="float32", backend="ring")
+    env = {k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK")}
+    out = subprocess.run([sys.executable, "-c", _WORKER_RUN, str(tmp_path / "in"),
+                          str(tmp_path / "out")], cwd=REPO, capture_output=True, text=True,
+                         timeout=120, env={**env, "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "NO_JAX" in out.stdout
+    line = next(ln for ln in out.stdout.splitlines() if ln.startswith("DENSE_WORKER "))
+    res = json.loads(line[len("DENSE_WORKER "):])
+    assert res["backend"] == "ring" and len(res["losses"]) == 1
+    assert res["ring_ms_per_step"] == []  # no ring kernel on the CPU
+
+
 def test_port_sources_name_no_jax_import():
     import re
 

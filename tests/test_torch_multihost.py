@@ -110,15 +110,21 @@ def test_rank_device(monkeypatch):
         mh.rank_device()
 
 
-def test_ring_raises_across_processes():
+def test_ring_raises_across_processes(monkeypatch):
+    """The ring between processes runs on one card shared by the ranks: a
+    group whose ranks name distinct cards raises when its runner is built
+    (peer-mapped pools across cards are ROADMAP.md section 2, A3b)."""
     model = SEGNN(**MODEL, device="cpu")
     group = halo.PartitionGroup(PARTS, "cpu")
     group.world = 2  # as a two-rank group would be
-    with pytest.raises(NotImplementedError, match="CUDA IPC"):
+    group.device = torch.device("cuda", 0)  # as the ranks' cards would be
+    monkeypatch.setattr(halo, "card_identities", lambda dev, pg: ["GPU-0aaa", "GPU-1bbb"])
+    with pytest.raises(NotImplementedError, match="A3b"):
         halo.make_dist_forward_dense(model, group, "ring")
-    with pytest.raises(NotImplementedError, match="CUDA IPC"):
+    with pytest.raises(NotImplementedError, match="A3b"):
         halo.make_dist_train_step_dense(model, torch.optim.SGD(model.parameters(), lr=0.1),
                                         group, "ring")
+    assert group._ring is None
 
 
 # ---------------------------------------------------------------------------
