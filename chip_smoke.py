@@ -7,7 +7,9 @@ Phases, each printing one JSON line:
 
 1. device     -- require CUDA; print the card's name and power limit
                  (``nvidia-smi --query-gpu=name,power.limit``); TF32 off.
-2. build      -- compile every CUDA source of the package with nvcc, all at once.
+2. build      -- compile every CUDA source of the package with nvcc, all at once
+                 (the two generic sources once per gate activation); each
+                 library's registers and spills.
 3. graph      -- the config-3 main path up to the model: 100k uniform points,
                  octree (6 levels), radius graph (r=0.04, K=24), symmetrized,
                  gather tables (tile 160), sh attributes; timed; checked
@@ -159,6 +161,17 @@ Phases, each printing one JSON line:
                  against their plain versions (bf16), fp32 gradients of the
                  lmax_attr=5 model at 20k points against the plain path; the
                  times.
+43b. act_lmax2 -- #8-#14 under SEGNN's other gate activations (tanh,
+                 gelu_tanh, relu, softplus: one library of each generic source
+                 per activation): every route of every activation against its
+                 plain version at 20k points in fp32 and bf16 (every template
+                 instance launched); #8 and #9 of each at the 250k shapes;
+                 under tanh #10 at 1M, #11/#12 at 250k, #11/#13 at the 1M
+                 sym-regather shapes, #14 at 250k and #11/#14 at A=36; fp32
+                 gradients of each activation's model at 20k points against
+                 the plain path; bench.py's 250k model under tanh and silu
+                 (forward and step ms, in turns), the 1M remat_kernel step
+                 under tanh, counted; #8/#9 times under tanh beside silu's.
 44. dist_partition -- the dense partitioner on config 3's 100k graph at P = 1
                  and 4: host ms, NI/NB/H, both transpose tables' q; every
                  valid edge of the input found once over the partitions.
@@ -288,6 +301,7 @@ import hashlib
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -304,6 +318,7 @@ from scalable_e3_gnn_torch.kernels import fused_message_generic as fmg
 from scalable_e3_gnn_torch.kernels import halo_ring as hr
 from scalable_e3_gnn_torch.kernels.build import build_libraries
 from scalable_e3_gnn_torch.models.segnn import SEGNNLayer
+from scalable_e3_gnn_torch.ops.gate import ACTIVATIONS
 from scalable_e3_gnn_torch.ops.gather_scatter import gather_km
 from scalable_e3_gnn_torch.data import native_loader
 from scalable_e3_gnn_torch.parallel import dense_worker
@@ -1089,7 +1104,7 @@ def train_run(model, graph, attrs, target, steps, card, phase, want, hidden=L2_H
     check(all(s == want for s in per_step),
           f"{phase}: launches per step {per_step}, expected {want}")
     check(masters, "master weights are not all fp32")
-    step.step_ms = step_ms
+    step.step_ms, step.losses = step_ms, losses
     return step
 
 
@@ -1278,6 +1293,7 @@ def lmax2_train_phases(card: str, ctx: dict) -> dict:
                        gtab1.numel() * cfg1m.f * 2, 3 * kern1m.flops_per_slot() * n_valid_1m)
     del kern1m, args1m, d_agg1m, d_hr1m, h1, geo1, loc1, gtab1, ws1, sels1, tabs1m
     ctx["g1m"] = g1m  # the untabled sym-regather phases train on it again
+    ctx["step_ms_1m"] = step_ms_1m  # silu's, beside tanh's in phase 43b
 
     # ---- 19. fp32 gradients through #9 and through #10 against the plain path
     pts = np.random.default_rng(SEED + 12).random((GC2_POINTS, 3)).astype(np.float32)
@@ -1468,10 +1484,13 @@ def untabled_inputs(kern, senders, edge_geo, h_ext, lo, hi, dtype, gen):
     return cfg, args, n_valid
 
 
-def untabled_check(label, kern, cfg, args, n_valid, d_agg, times: bool) -> dict:
+def untabled_check(label, kern, cfg, args, n_valid, d_agg, times: bool,
+                   same_y: bool = False) -> dict:
     """#11 (without and with save), #12 and #13 (whole: chain, weight
     gradients, reduction) against their plain versions on one set of
-    inputs; #12 against #13 bitwise; two runs of each bitwise equal.  With
+    inputs (with ``same_y`` the plain backward reads #11's saved ys: see
+    ``act_phases``); #12 against #13 bitwise; two runs of each bitwise
+    equal.  With
     ``times``, CUDA-event times of each and of its plain version, device
     times per launch of the kernels (torch.profiler), and the bounds.  Emits a ``kernel_untabled`` line; returns its numbers."""
     fp32 = args[1].dtype == torch.float32
@@ -1492,7 +1511,7 @@ def untabled_check(label, kern, cfg, args, n_valid, d_agg, times: bool) -> dict:
         identical = all(torch.equal(x, y) for x, y in zip(
             res, flat(fmg.generic_bwd_kernels(cfg, *args, d_agg, ys=ys)))) and all(
             torch.equal(x, y) for x, y in zip(rep, flat(fmg.generic_bwd_kernels(cfg, *args, d_agg))))
-        ref = flat(fmg.generic_bwd_plain(cfg, *args, d_agg))
+        ref = flat(fmg.generic_bwd_plain(cfg, *args, d_agg, ys=ys if same_y else None))
         for (nm, el), x, y, z in zip(UNTAB_OUTPUTS, res, rep, ref):
             cmp[f"res.{nm}"] = bwd_compare(x, z, el, fp32)
             cmp[f"rep.{nm}"] = bwd_compare(y, z, el, fp32)
@@ -1609,7 +1628,7 @@ def untabled_phases(card: str, ctx: dict) -> dict:
     del step, model, target
     # ---- 22. 1M, remat_kernel, sym-regather
     n1 = L1M_POINTS
-    g1m = ctx.pop("g1m")._replace(**NO_TABLES)
+    g1m = ctx["g1m"]._replace(**NO_TABLES)
     model = lmax2_model(dev, remat=True, remat_kernel=True)
     check(all(layer._sym_regather_eligible(n1, g1m.reverse_slot is not None)
               and not layer._tab_eligible(n1, g1m) for layer in model.layers),
@@ -2510,10 +2529,12 @@ def vjp_launches(model, n: int, tile: int) -> dict:
             fm.TAB_BWD_REDUCE.name: NUM_LAYERS * groups}
 
 
-def vjp_check(label, kern, cfg, args, n_valid, d_agg, bwd_tile: int, times: bool) -> dict:
+def vjp_check(label, kern, cfg, args, n_valid, d_agg, bwd_tile: int, times: bool,
+              ys=None) -> dict:
     """#14 whole (the vjp chain, the per-tile weight-gradient kernel, the
-    reduction) against its plain version on one set of inputs; two runs
-    bitwise equal.  With ``times``, CUDA-event times of #14, of its chain, of
+    reduction) against its plain version on one set of inputs (reading the
+    saved ``ys`` when given: see ``act_phases``); two runs bitwise equal.
+    With ``times``, CUDA-event times of #14, of its chain, of
     one weight-gradient launch (a group of tiles) and of their plain versions,
     and the bounds.  Emits a ``kernel_vjp`` line; returns its numbers."""
     fp32 = args[1].dtype == torch.float32
@@ -2525,7 +2546,7 @@ def vjp_check(label, kern, cfg, args, n_valid, d_agg, bwd_tile: int, times: bool
         torch.cuda.synchronize()
         identical = all(torch.equal(x, y) for x, y in zip(got, again))
         del again
-        ref = flat(fmg.generic_bwd_vjp_plain(cfg, *args, d_agg, bwd_tile))
+        ref = flat(fmg.generic_bwd_vjp_plain(cfg, *args, d_agg, bwd_tile, ys=ys))
         cmp = {nm: bwd_compare(x, y, el, fp32) for (nm, el), x, y in zip(UNTAB_OUTPUTS, got, ref)}
         c = cmp["d_hs"]
         if not fp32 and c["over_ulps"]:
@@ -2717,7 +2738,7 @@ def vjp_phases(card: str, ctx: dict) -> dict:
     t14 = kv[(bf, VJP_TILES[0])]["times"]
     # ---- 40. the 1M remat_kernel step with replay_bwd=False
     n1 = L1M_POINTS
-    g1m = ctx.pop("g1m_untabled")
+    g1m = ctx["g1m_untabled"]
     model = lmax2_model(dev, remat=True, remat_kernel=True, replay_bwd=False)
     layer = model.layers[0]
     check(layer._pick_bwd_tile(n1) == VJP_TILES[1] and not layer._tab_eligible(n1, g1m)
@@ -2819,6 +2840,345 @@ def vjp_phases(card: str, ctx: dict) -> dict:
             ms=fwd36["ms"], plain_ms=fwd36["plain_ms"], bound_ms=fwd36["bound_ms"],
             bound_by=fwd36["bound_by"], library_ms=None, instance="A=36 (lmax_attr=5)"),
     }
+
+
+ACT_NAMES = tuple(act.name for act in ACTIVATIONS[1:])  # the gate activations besides silu
+ACT_MAIN = "tanh"  # the activation of the full-size checks and of the timed models
+# activations whose derivative jumps (relu's at 0): their backward kernels are
+# held to the plain backward at the kernel's own saved ys, since a y that the
+# other fp32 sum order puts on the other side of the jump changes dy by the
+# whole cotangent (the forwards and the ys are held to the plain ones as for
+# every activation; #9 = #10 bitwise shows the replay's y is the saved one)
+ACT_JUMPS = ("relu",)
+ACT_KERNELS = (fmg.GENERIC_TAB_FWD, fmg.GENERIC_TAB_BWD_RES, fmg.GENERIC_TAB_BWD_REP,
+               fmg.GENERIC_TAB_BWD_WGRAD, fmg.GENERIC_FWD, fmg.GENERIC_BWD_RES,
+               fmg.GENERIC_BWD_REP, fmg.GENERIC_BWD_VJP, fmg.GENERIC_BWD_VJP_WGRAD)
+
+
+def ptxas_summary(log: str) -> dict:
+    """ptxas -v of one library: its kernel instances, the most registers any
+    uses, the spill bytes of all, and (the generic sources) each instance's
+    registers and spills."""
+    rows = []
+    for entry in re.split(r"Compiling entry function", log)[1:]:
+        regs = re.search(r"Used (\d+) registers", entry)
+        sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
+        fn = entry.split("'")[1]
+        short = re.search(r"([a-z][a-z_]*_kernel)I(.*?)EEv", fn)  # the template, its arguments
+        rows.append((f"{short.group(1)}<{short.group(2)}>" if short else fn,
+                     int(regs.group(1)) if regs else 0, *(map(int, sp.groups()) if sp else (0, 0))))
+    out = dict(kernels=len(rows), max_registers=max((r[1] for r in rows), default=0),
+               spill_stores=sum(r[2] for r in rows), spill_loads=sum(r[3] for r in rows),
+               spilling=[r[0] for r in rows if r[2] or r[3]])
+    if "fused_message_generic" in log:
+        out["instances"] = {r[0]: r[1:] for r in rows}
+    return out
+
+
+def act_tab_check(label, cfg, args, n_valid, d_agg, same_y: bool = False) -> dict:
+    """#8 (with and without save), #9 and #10 whole (chain, weight
+    gradients, table sum, reduction) against their plain versions at cfg's
+    activation (with ``same_y`` the plain backward reads #8's saved ys: see
+    ``act_phases``); #9 = #10 bitwise.  Emits a ``kernel_act`` line;
+    returns its numbers."""
+    fp32 = args[0].dtype == torch.float32
+    with torch.no_grad():
+        agg = fmg.generic_tab_fwd(cfg, *args)
+        agg_s, ys = fmg.generic_tab_fwd(cfg, *args, save=True)
+        p_agg, p_ys = fmg.generic_tab_fwd_plain(cfg, *args, save=True)
+        # #8's agg at its own limit, the save mode's ys at kernel_bwd_lmax2's
+        cmp = {"agg": bwd_compare(agg, p_agg, True, fp32, ulps_limit=TOL_GENERIC_BF16_ULPS)}
+        cmp.update({nm: bwd_compare(x, y, True, fp32)
+                    for nm, x, y in (("y1", ys[0], p_ys[0]), ("y2", ys[1], p_ys[1]))})
+        save_same = torch.equal(agg, agg_s)
+        del agg_s, p_agg, p_ys
+        flat = lambda r: [r[0], r[1], *r[2]]
+        res = flat(fmg.generic_tab_bwd_kernels(cfg, *args, d_agg, ys=ys))
+        rep = flat(fmg.generic_tab_bwd_kernels(cfg, *args, d_agg))
+        torch.cuda.synchronize()
+        res_eq_rep = all(torch.equal(x, y) for x, y in zip(res, rep))
+        ref = flat(fmg.generic_tab_bwd_plain(cfg, *args, d_agg, ys=ys if same_y else None))
+        for (nm, x, el), y in zip(bwd_outputs((res[0], res[1], res[2:])), ref):
+            cmp[f"bwd.{nm}"] = bwd_compare(x, y, el, fp32)
+        del res, rep, ref
+    out = dict(label=label, act=ACTIVATIONS[cfg.act].name,
+               dtype=str(args[0].dtype).replace("torch.", ""), rows=args[0].shape[0],
+               valid_slots=n_valid, plain_reads_saved_ys=same_y, compared=cmp,
+               save_agg_equal=save_same,
+               res_bitwise_equal_rep=res_eq_rep,
+               max_abs_err=max(v["max_abs_err"] for v in cmp.values()))
+    emit("kernel_act", **out, tolerance=(
+        f"{TOL_BWD_FP32} * max(1, |ref|) elementwise for agg, ys, d_hu, d_hr; {TOL_BWD_FP32} * "
+        "max|ref| for dW'") if fp32 else (
+        f"agg: {TOL_GENERIC_BF16_ULPS} bf16 ulps of max(|ref|, mean|ref|) (kernel_lmax2's); the "
+        f"saved ys, d_hu, d_hr, dW': {TOL_GENERIC_BWD_BF16_ULPS} (kernel_bwd_lmax2's); each with at "
+        f"most {TOL_GENERIC_BWD_BF16_OVER_1ULP} of the elements over 1 ulp (the silu gate's "
+        "limits: the same rounding points)"))
+    bad = {nm: v for nm, v in cmp.items() if v["over"] or not v["finite"]}
+    check(not bad, f"{label}: #8-#10 vs plain under {out['act']} in {out['dtype']}: {bad}")
+    check(save_same and res_eq_rep, f"{label}: save {save_same}, #9 = #10 {res_eq_rep}")
+    return out
+
+
+def act_grad_check(dev, g_gc, t_gc, name: str) -> dict:
+    """fp32 gradients of every parameter of the lmax=2 model under the
+    activation, through #8/#9 on the tabled 20k graph, against autograd
+    through the plain path."""
+    fn = ACTIVATIONS[[a.name for a in ACTIVATIONS].index(name)].fn
+    m_p = lmax2_model(dev, use_pallas=False, act=fn)
+    attrs = geo_only(m_p, g_gc, torch.float32)
+    loss_p = mse_loss(m_p(g_gc, attrs=attrs), t_gc)
+    loss_p.backward()
+    m_k = lmax2_model(dev, act=fn)
+    m_k.load_state_dict(m_p.state_dict())
+    before = fmg.GENERIC_TAB_BWD_RES.launches
+    loss_k = mse_loss(m_k(g_gc, attrs=attrs), t_gc)
+    loss_k.backward()
+    worst, worst_name = 0.0, ""
+    for (nm, a), b in zip(m_k.named_parameters(), m_p.parameters(), strict=True):
+        rel = float((a.grad - b.grad).abs().max()) / max(float(b.grad.abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, nm
+    launches = fmg.GENERIC_TAB_BWD_RES.launches - before
+    check(launches == NUM_LAYERS, f"gradient check under {name}: {launches} launches of #9")
+    check(worst <= TOL_GRAD_FP32, f"fp32 gradients under {name}: {worst_name} off by {worst}")
+    check(abs(loss_k.item() - loss_p.item()) <= 1e-5 * loss_p.item(), f"losses under {name}")
+    return dict(loss_kernel=loss_k.item(), loss_plain=loss_p.item(), worst_param=worst_name,
+                worst_rel_err=worst, launches_9=launches)
+
+
+def act_phases(card: str, ctx: dict) -> dict:
+    """Phase 43b, act_lmax2: the generic kernels #8-#14 under the gate
+    activations besides silu (``ops/gate.py`` ACTIVATIONS; each its own
+    build of both generic sources).  Returns the numbers of the ``kernels``
+    line: the activations checked and #8/#9's times under tanh and silu.
+
+    - kernel_act / kernel_untabled / kernel_vjp at 20k points (the 250k
+      density, tables at tile 200), each activation in fp32 and bf16: #8
+      (and save), #9, #10, #11 (and save), #12, #13 and #14 against their
+      plain versions at the silu gate's limits (relu's backwards against the
+      plain backward at the kernel's saved ys: ``ACT_JUMPS``); every kernel
+      of every activation's library launched in both types.
+    - kernel_act at bench.py's 250k lmax=2 shapes (bf16): #8 and #9 of every
+      activation; their times under tanh beside silu's, in turns.
+    - under tanh at full size (bf16): #8 and #10 at 1M, #11/#12 at 250k
+      without tables, #11/#13 at the 1M sym-regather shapes, #14 at 250k
+      (backward tile 200) and #11/#14 at A=36 (``lmax_attr=5``).
+    - grad_check_act: fp32 gradients of each activation's model at 20k.
+    - train_act_250k, train_act_1m: bench.py's 250k model (``remat``, #8/#9)
+      under tanh and silu, counted steps, then forward and step ms by CUDA
+      events in turns (silu, tanh, tanh, silu); the 1M ``remat_kernel`` step
+      (#8/#10) under tanh, counted, then one timed step beside silu's of
+      phase 18."""
+    dev = torch.device(DEVICE)
+    bf = torch.bfloat16
+    t_phase = time.perf_counter()
+    code = {a.name: a.code for a in ACTIVATIONS}
+    fn = {a.name: a.fn for a in ACTIVATIONS}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    # ---- every route of every activation at 20k points, fp32 and bf16
+    pts = np.random.default_rng(SEED + 61).random((GC2_POINTS, 3)).astype(np.float32)
+    tile = SEGNNLayer._pick_generic_tile(GC2_POINTS)
+    levels = max(4, search_level_for_radius(GC2_RADIUS, LO, HI) + 1)
+    _, _, _, g20, _ = build_graph(pts, radius=GC2_RADIUS, levels=levels, k=L2_NEIGHBORS,
+                                  tile=tile)
+    model = lmax2_model(dev)
+    kern20 = fmg.FusedMessageGeneric(model.layers[0].message_layers, L2_NEIGHBORS, tile,
+                                     residual_bwd=False, replay_bwd=False)
+    geo20 = geo_only(model, g20, torch.float32)[3]
+    n20 = GC2_POINTS
+    small, launched = {}, {}
+    for dtype in (torch.float32, bf):
+        cfg_t, args_t, nv_t = generic_kernel_inputs(kern20, g20, geo20, dtype, gen)
+        h_ext = torch.randn((n20, cfg_t.f), generator=gen, device=dev)
+        cfg_u, args_u, nv_u = untabled_inputs(kern20, g20.senders, geo20, h_ext, 0, n20, dtype,
+                                              gen)
+        del h_ext
+        d_agg = torch.randn((n20, cfg_t.out_dim), generator=gen, device=dev).to(dtype)
+        for name in ACT_NAMES:
+            before = launch_counts()
+            lab = f"act_{name}_20k"
+            c_t = dataclasses.replace(cfg_t, act=code[name])
+            c_u = dataclasses.replace(cfg_u, act=code[name])
+            same_y = name in ACT_JUMPS
+            with torch.no_grad():
+                ys_u = fmg.generic_fwd(c_u, *args_u, save=True)[1] if same_y else None
+            small[(name, str(dtype))] = dict(
+                tabled=act_tab_check(lab, c_t, args_t, nv_t, d_agg, same_y)["max_abs_err"],
+                untabled=untabled_check(lab, kern20, c_u, args_u, nv_u, d_agg, times=False,
+                                        same_y=same_y)["max_abs_err"],
+                vjp=vjp_check(lab, kern20, c_u, args_u, nv_u, d_agg, VJP_TILES[1],
+                              times=False, ys=ys_u)["max_abs_err"])
+            del ys_u
+            moved = {k_.name: k_.launches - before[k_.name] for k_ in ACT_KERNELS}
+            launched[(name, str(dtype))] = moved
+            check(all(v > 0 for v in moved.values()),
+                  f"{lab} {dtype}: a kernel of the library was not launched: {moved}")
+        del cfg_t, args_t, cfg_u, args_u, d_agg
+    del model, kern20, geo20
+    # ---- fp32 gradients of each activation's model at 20k points
+    t_gc = torch.from_numpy(np.random.default_rng(SEED + 62).standard_normal(
+        (n20, 3)).astype(np.float32)).to(dev)
+    gc = {name: act_grad_check(dev, g20, t_gc, name) for name in ACT_NAMES}
+    emit("grad_check_act", points=n20, k=L2_NEIGHBORS, tile=tile, layers=NUM_LAYERS,
+         dtype="float32", backward="residual (#8 save, #9)", activations=gc,
+         tolerance=f"{TOL_GRAD_FP32} * max|ref| per parameter; fp32 sums in another order")
+    del g20, t_gc
+    # ---- #8 and #9 of every activation at the 250k shapes; tanh's times
+    graph, kern = ctx["graph"], ctx["kern"]
+    geo250 = geo_only(lmax2_model(dev), graph, torch.float32)[3]
+    cfg, args, n_valid = generic_kernel_inputs(kern, graph, geo250, bf, gen)
+    d_agg = torch.randn((L2_POINTS, cfg.out_dim), generator=gen, device=dev).to(bf)
+    big = {}
+    for name in ACT_NAMES:
+        big[name] = act_tab_check(f"act_{name}_250k", dataclasses.replace(cfg, act=code[name]),
+                                  args, n_valid, d_agg, name in ACT_JUMPS)["max_abs_err"]
+    cfgs = {nm: dataclasses.replace(cfg, act=code[nm]) for nm in ("silu", ACT_MAIN)}
+    with torch.no_grad():
+        ys = {nm: fmg.generic_tab_fwd(c, *args, save=True)[1] for nm, c in cfgs.items()}
+        tab_t = {nm: dict(fwd_ms=[], bwd9_ms=[], chain9_ms=[]) for nm in cfgs}
+        for nm in ("silu", ACT_MAIN, ACT_MAIN, "silu"):
+            c = cfgs[nm]
+            tab_t[nm]["fwd_ms"].append(event_ms(lambda: fmg.generic_tab_fwd(c, *args), iters=3,
+                                                warmup=1))
+            tab_t[nm]["bwd9_ms"].append(event_ms(lambda: fmg.generic_tab_bwd_kernels(
+                c, *args, d_agg, ys=ys[nm]), iters=3, warmup=1))
+            tab_t[nm]["chain9_ms"].append(event_ms(lambda: fmg.generic_tab_bwd_chain(
+                c, *args, d_agg, ys[nm]), iters=3, warmup=1))
+        del ys
+    tab_t = {nm: {k_: sum(v) / len(v) for k_, v in t.items()} for nm, t in tab_t.items()}
+    ratio = {k_: tab_t[ACT_MAIN][k_] / tab_t["silu"][k_] for k_ in tab_t["silu"]}
+    emit("times_act_250k", card=card, points=L2_POINTS, act=ACT_MAIN, times=tab_t,
+         ratio_to_silu=ratio, order="silu, tanh, tanh, silu; each the mean of its two readings",
+         valid_slots=n_valid)
+    del cfg, args, d_agg
+    # ---- under tanh at full size: #8/#10 at 1M, #11/#12 at 250k, #11/#13 at
+    # the 1M sym-regather shapes, #14 at 250k, #11/#14 at A=36
+    main = {}
+    g1m = ctx.pop("g1m")
+    model = lmax2_model(dev)
+    kern1m = fmg.FusedMessageGeneric(model.layers[0].message_layers, L2_NEIGHBORS,
+                                     SEGNNLayer._pick_generic_tile(L1M_POINTS),
+                                     residual_bwd=False)
+    geo1m = geo_only(model, g1m, torch.float32)[3]
+    cfg, args, n_valid = generic_kernel_inputs(kern1m, g1m, geo1m, bf, gen)
+    cfg = dataclasses.replace(cfg, act=code[ACT_MAIN])
+    d_agg = torch.randn((L1M_POINTS, cfg.out_dim), generator=gen, device=dev).to(bf)
+    with torch.no_grad():
+        got = fmg.generic_tab_bwd_kernels(cfg, *args, d_agg)
+        torch.cuda.synchronize()
+        ref = fmg.generic_tab_bwd_plain(cfg, *args, d_agg)
+        cmp = {nm: bwd_compare(x, y, el, False) for (nm, x, el), (_, y, _) in
+               zip(bwd_outputs(got), bwd_outputs(ref))}
+        del got, ref
+        cmp["agg"] = bwd_compare(fmg.generic_tab_fwd(cfg, *args),
+                                 fmg.generic_tab_fwd_plain(cfg, *args), True, False,
+                                 ulps_limit=TOL_GENERIC_BF16_ULPS)
+    emit("kernel_act", label="act_tanh_1m", act=ACT_MAIN, dtype="bfloat16", rows=L1M_POINTS,
+         valid_slots=n_valid, compared=cmp, kernels=[fmg.GENERIC_TAB_FWD.name,
+                                                     fmg.GENERIC_TAB_BWD_REP.name],
+         tolerance="as kernel_bwd_1m")
+    bad = {nm: v for nm, v in cmp.items() if v["over"] or not v["finite"]}
+    check(not bad, f"1M: #8 / #10 vs plain under {ACT_MAIN}: {bad}")
+    main["10_1m"] = max(v["max_abs_err"] for v in cmp.values())
+    del cfg, args, d_agg, geo1m
+    g1u = ctx.pop("g1m_untabled")
+    g250 = graph._replace(**NO_TABLES)
+    for label, g, n in (("act_tanh_untabled_250k", g250, L2_POINTS),
+                        ("act_tanh_sym_1m", g1u, L1M_POINTS)):
+        geo = geo_only(model, g, torch.float32)[3]
+        h_ext = torch.randn((n, kern1m.config(9, 0).f), generator=gen, device=dev)
+        cfg, args, n_valid = untabled_inputs(kern1m, g.senders, geo, h_ext, 0, n, bf, gen)
+        del h_ext, geo
+        cfg = dataclasses.replace(cfg, act=code[ACT_MAIN])
+        d_agg = torch.randn((n, cfg.out_dim), generator=gen, device=dev).to(bf)
+        main[label] = untabled_check(label, kern1m, cfg, args, n_valid, d_agg,
+                                     times=False)["max_abs_err"]
+        if g is g250:
+            main["act_tanh_vjp_250k"] = vjp_check("act_tanh_vjp_250k", kern1m, cfg, args, n_valid,
+                                                  d_agg, VJP_TILES[0], times=False)["max_abs_err"]
+        del cfg, args, d_agg
+    del g1u, kern1m, model
+    model5 = port.SEGNN("2x0e+1x1o", L2_HIDDEN, "1x1o", lmax_attr=SPARSE_LMAX_ATTR,
+                        num_layers=NUM_LAYERS, layout="cm", use_pallas=True, act=fn[ACT_MAIN],
+                        device=dev, generator=torch.Generator().manual_seed(SEED))
+    kern5 = fmg.FusedMessageGeneric(model5.layers[0].message_layers, L2_NEIGHBORS,
+                                    SEGNNLayer._pick_generic_tile(L2_POINTS))
+    geo5 = geo_only(model5, g250, torch.float32)[3]
+    h_ext = torch.randn((L2_POINTS, kern5.config(36, 0).f), generator=gen, device=dev)
+    cfg5, args5, nv5 = untabled_inputs(kern5, g250.senders, geo5, h_ext, 0, L2_POINTS, bf, gen)
+    check(cfg5.act == code[ACT_MAIN] and cfg5.a == 36, "A=36: the tanh config")
+    del h_ext, geo5
+    d_agg5 = torch.randn((L2_POINTS, cfg5.out_dim), generator=gen, device=dev).to(bf)
+    with torch.no_grad():
+        fwd5 = bwd_compare(fmg.generic_fwd(cfg5, *args5), fmg.generic_fwd_plain(cfg5, *args5),
+                           True, False)
+    check(not fwd5["over"] and fwd5["finite"], f"#11 at A=36 under tanh vs plain: {fwd5}")
+    main["attr36_fwd"] = fwd5["max_abs_err"]
+    main["attr36_vjp"] = vjp_check("act_tanh_vjp_attr36", kern5, cfg5, args5, nv5, d_agg5,
+                                   VJP_TILES[0], times=False)["max_abs_err"]
+    del model5, kern5, cfg5, args5, d_agg5, g250
+    # ---- bench.py's 250k model under tanh and silu; the 1M step
+    per_layer = {fmg.GENERIC_TAB_FWD.name: NUM_LAYERS, fmg.GENERIC_TAB_BWD_WGRAD.name: NUM_LAYERS,
+                 fmg.GENERIC_TAB_BWD_TABLE.name: NUM_LAYERS, fm.TAB_BWD_REDUCE.name: NUM_LAYERS}
+    steps, fwd_ms, step_ms = {}, {}, {("1m", "silu"): [ctx.pop("step_ms_1m")]}
+    for which, pts_n, g, kw, bwd_kern, n_steps in (
+            ("250k", L2_POINTS, graph, dict(remat=True), fmg.GENERIC_TAB_BWD_RES, L2_TRAIN_STEPS),
+            ("1m", L1M_POINTS, g1m, dict(remat=True, remat_kernel=True), fmg.GENERIC_TAB_BWD_REP,
+             L1M_TRAIN_STEPS)):
+        g_bf = g._replace(nodes=g.nodes.to(bf))
+        target = torch.from_numpy(np.random.default_rng(SEED + 63).standard_normal(
+            (pts_n, 3)).astype(np.float32)).to(dev)
+        runs = {}
+        # at 1M silu's step is phase 18's, on the same graph in this call
+        for nm in (ACT_MAIN, "silu") if which == "250k" else (ACT_MAIN,):
+            model = lmax2_model(dev, act=fn[nm], **kw)
+            check(all(layer._tab_eligible(pts_n, g) for layer in model.layers),
+                  f"{which}: not the tabled path")
+            attrs = geo_only(model, g, bf)
+            step = train_run(model, g_bf, attrs, target, n_steps, card, f"train_act_{which}",
+                             expected({**per_layer, bwd_kern.name: NUM_LAYERS}), points=pts_n,
+                             act=nm, **kw)
+            losses = step.losses
+            check(losses[-1] < losses[0], f"{which} under {nm}: losses not falling {losses}")
+            p_bf = {k_: w.to(bf) for k_, w in model.named_parameters()}
+            fwd = (lambda m=model, p=p_bf, a=attrs: torch.func.functional_call(
+                m, p, (g_bf,), {"attrs": a}))
+            with torch.no_grad():
+                reset_launches()
+                fwd()
+                torch.cuda.synchronize()
+                check(launch_counts() == expected({fmg.GENERIC_TAB_FWD.name: NUM_LAYERS}),
+                      f"{which} forward under {nm}: {nonzero(launch_counts())}")
+            runs[nm] = (step, fwd, attrs)
+            steps[(which, nm)] = dict(losses=losses, step_ms_counted=step.step_ms)
+        order = ("silu", ACT_MAIN, ACT_MAIN, "silu") if which == "250k" else (ACT_MAIN,)
+        for nm in order:
+            step, fwd, attrs = runs[nm]
+            if which == "250k":
+                with torch.no_grad():
+                    fwd_ms.setdefault((which, nm), []).append(event_ms(fwd, iters=2, warmup=1))
+            step_ms.setdefault((which, nm), []).append(
+                event_ms(lambda: step(g_bf, attrs, target), iters=2 if which == "250k" else 1,
+                         warmup=0))
+        del runs, step, fwd, attrs, g_bf, target, model
+    del g1m
+    mean = lambda v: sum(v) / len(v)
+    emit("act_times", card=card, act=ACT_MAIN,
+         forward_ms={f"{w}_{nm}": mean(v) for (w, nm), v in fwd_ms.items()},
+         step_ms={f"{w}_{nm}": mean(v) for (w, nm), v in step_ms.items()},
+         readings=dict(forward_ms={f"{w}_{nm}": v for (w, nm), v in fwd_ms.items()},
+                       step_ms={f"{w}_{nm}": v for (w, nm), v in step_ms.items()}),
+         counted_steps={f"{w}_{nm}": v for (w, nm), v in steps.items()},
+         order="250k: silu, tanh, tanh, silu (2 timed steps a reading); 1M: tanh's one timed "
+               "step beside silu's of phase 18 (train_times_lmax2 step_ms_1m)",
+         phase_seconds=time.perf_counter() - t_phase)
+    emit("act_lmax2", activations=list(ACT_NAMES), main_activation=ACT_MAIN,
+         max_abs_err_20k={f"{nm}_{dt}": v for (nm, dt), v in small.items()},
+         max_abs_err_250k=big, max_abs_err_main=main,
+         launches_20k={f"{nm}_{dt}": v for (nm, dt), v in launched.items()},
+         phase_seconds=time.perf_counter() - t_phase)
+    return dict(activations=["silu", *ACT_NAMES], tab_times=tab_t, ratio=ratio)
 
 
 DIST_PARTS = 4  # the partitioned runs' P (and 1, the degenerate halo)
@@ -4561,12 +4921,13 @@ def main() -> int:
 
     # ---- 2. build every kernel source
     t0 = time.perf_counter()
-    built = build_libraries(sorted({kern.source_name for kern in ALL_KERNELS}))
+    built = build_libraries(sorted({nm for kern in ALL_KERNELS for nm in kern.library_names}))
     ptxas = [ln.strip() for b in built.values() for ln in b["log"].splitlines()
              if "registers" in ln or "spill" in ln or "Function properties" in ln
              or "Compiling entry function" in ln]
     emit("build", seconds=round(time.perf_counter() - t0, 3),
-         per_source={k: round(v["seconds"], 3) for k, v in built.items()}, ptxas=ptxas)
+         per_source={k: round(v["seconds"], 3) for k, v in built.items()}, ptxas=ptxas,
+         spills={k: ptxas_summary(v["log"]) for k, v in built.items()})
 
     # ---- 3. the config-3 graph
     pts = np.random.default_rng(SEED).random((N_POINTS, 3)).astype(np.float32)
@@ -4867,6 +5228,9 @@ def main() -> int:
     # ---- 38-43. the fallback backward #14: replay_bwd=False at 250k and 1M,
     #      the lmax_attr=5 model
     vj = vjp_phases(card, l2ctx)
+
+    # ---- 43b. #8-#14 under the other gate activations
+    act = act_phases(card, l2ctx)
     del l2ctx
 
     # ---- 24-27. config 5: 10M points, edge_chunks, remat_layers (#11, #13)
@@ -4907,7 +5271,7 @@ def main() -> int:
                                   for nm in names}
 
     src = lambda kern: str(kern.source.relative_to(Path(__file__).resolve().parent))
-    print(json.dumps({"kernels": [
+    rows = ([
         {"name": fm.TAB_FWD.name, "route": "cuda", "source": src(fm.TAB_FWD),
          "replaces": f"{TPU_FILE}:401", "launches": train_launches[fm.TAB_FWD.name],
          "max_abs_err": kb["max_abs_err"], "ms": kern_ms, "plain_ms": plain_ms,
@@ -4971,8 +5335,18 @@ def main() -> int:
       + [{"name": kern.name, "route": "cuda", "source": src(kern),
           "replaces": f"{HALO_TPU_FILE}:43", **rp["rows"][kern.name],
           "launches_per_rank_step_ring_procs": rp["rows"][kern.name]["launches"]}
-         for kern in (hr.IPC_PUBLISH, hr.IPC_GATHER)]
-    }), flush=True)
+         for kern in (hr.IPC_PUBLISH, hr.IPC_GATHER)])
+    # #8-#14: the gate activations they were checked under (phase 43b), and
+    # #8's and #9's times at 250k under tanh beside silu's of that phase
+    generic = {kern.name for kern in fmg.KERNELS}
+    for row in rows:
+        if row["name"] in generic:
+            row["activations_checked"] = act["activations"]
+        key = {fmg.GENERIC_TAB_FWD.name: "fwd_ms", fmg.GENERIC_TAB_BWD_RES.name: "bwd9_ms"}.get(
+            row["name"])
+        if key:
+            row["ms_250k_by_activation"] = {nm: t[key] for nm, t in act["tab_times"].items()}
+    print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -26,7 +26,8 @@
 // type; the gate VJP as JAX's AD computes it (dout * multiplier and dout * y
 // rounded; the selection transpose summed in fp32 and rounded; the sigmoid's
 // VJP g * (s * (1 - s)) in fp32 and rounded; the two branches added and
-// rounded); dya_c = dy * attr_c rounded; the products in fp32; dm rounded; the
+// rounded; under another activation than silu, GENERIC_ACT of gate_act.cuh,
+// the concat form's: see gate_vjp); dya_c = dy * attr_c rounded; the products in fp32; dm rounded; the
 // d_hu and d_hr sums in fp32 of rounded terms, rounded once.  #14 rounds as
 // JAX's AD of the layer: dya_c stays fp32; each component's dm_c is rounded
 // and the components are added in the data type, the last first; dW_l[c] is
@@ -93,6 +94,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gate_act.cuh"
 #include "generic_mma.cuh"
 
 // GENERIC_WGRAD_CLOCKS (a profiling build of kernels/generic_ab.py, never the
@@ -446,9 +448,13 @@ __device__ void layer_bwd_fma(const T* __restrict__ W, int c1, int dd, const Dim
 // The gate and its VJP (Gate.fast_apply: out_j = y_j * sigmoid(y)[sel_j]).
 
 // the forward gate of lane j from a row of y in the data type (kernel #8's
-// gate_out)
-template <typename T>
+// gate_out: under another activation than silu a scalar lane, sel[j] == j,
+// is rnd(act(y_j)))
+template <typename T, int ACT = gact::kAct>
 __device__ __forceinline__ float gate_out(const T* yrow, const int* sel, int j) {
+  if constexpr (ACT != gact::kSilu) {
+    if (sel[j] == j) return rnd<T>(gact::act_f<ACT>(to_f(yrow[j])));
+  }
   const float s = rnd<T>(sigmoid_f(to_f(yrow[sel[j]])));
   return rnd<T>(__fmul_rn(to_f(yrow[j]), s));
 }
@@ -459,8 +465,18 @@ __device__ __forceinline__ float gate_out(const T* yrow, const int* sel, int j) 
 //   dsg_s    = rnd(fp32 sum of dmlt_j over the lanes j with sel_j = s)
 //   dsig_s   = rnd(dsg_s * (sig_s * (1 - sig_s))),  sig_s = sigmoid(y_s) in fp32
 //   dy_s     = rnd(direct_s + dsig_s) for s < dk, dsig_s after; zero to dpad.
+// Under another activation (ACT != silu) as JAX's AD differentiates the
+// concat-form gate, Gate.__call__:
+//   dy_j     = rnd(act_vjp(y_j, dout_j)) on a scalar lane (sel_j = j),
+//              direct_j on a gated lane (j < dk);
+//   dsg_s    = the cotangent of gate s's concatenated copies, dmlt_j over the
+//              lanes j with sel_j = s in component (ascending lane) order,
+//              each partial sum rounded to the data type (JAX's backward pass
+//              adds a variable's cotangents one at a time, and XLA rounds
+//              each add in bf16: not the fp32 sum above);
+//   dy_s     = rnd(dsg_s * (sig_s * (1 - sig_s))) for s >= dk.
 // invs/invl: for each sigmoid lane s, the lanes j (ascending) with sel_j = s.
-template <typename T, typename Dout>
+template <typename T, typename Dout, int ACT = gact::kAct>
 __device__ void gate_vjp(T* Y, int dd, int dk, const int* sel, const int* invs, const int* invl,
                          float* scratch, const Dims& d, Dout dout) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -475,8 +491,13 @@ __device__ void gate_vjp(T* Y, int dd, int dk, const int* sel, const int* invs, 
       direct[q] = 0.f;
       if (j < dk) {
         const float o = dout(r, j);
-        const float m = rnd<T>(sigmoid_f(to_f(y[sel[j]])));
-        direct[q] = rnd<T>(__fmul_rn(o, m));
+        const int sj = sel[j];
+        if (ACT != gact::kSilu && sj == j) {
+          direct[q] = rnd<T>(gact::act_vjp<ACT>(to_f(y[j]), o));
+        } else {
+          const float m = rnd<T>(sigmoid_f(to_f(y[sj])));
+          direct[q] = rnd<T>(__fmul_rn(o, m));
+        }
         dml[j] = rnd<T>(__fmul_rn(o, to_f(y[j])));
       }
     }
@@ -487,11 +508,21 @@ __device__ void gate_vjp(T* Y, int dd, int dk, const int* sel, const int* invs, 
       if (s < dpad) {
         float v = 0.f;
         if (s < dd) {
-          float sum = 0.f;
-          for (int p = invs[s]; p < invs[s + 1]; ++p) sum = __fadd_rn(sum, dml[invl[p]]);
-          const float sg = sigmoid_f(to_f(y[s]));
-          const float dsig = rnd<T>(__fmul_rn(rnd<T>(sum), __fmul_rn(sg, __fsub_rn(1.f, sg))));
-          v = s < dk ? rnd<T>(__fadd_rn(direct[q], dsig)) : dsig;
+          if (ACT == gact::kSilu || s >= dk) {
+            float sum = 0.f;
+            if constexpr (ACT == gact::kSilu) {
+              for (int p = invs[s]; p < invs[s + 1]; ++p) sum = __fadd_rn(sum, dml[invl[p]]);
+            } else {
+              for (int p = invs[s]; p < invs[s + 1]; ++p)
+                sum = rnd<T>(__fadd_rn(sum, dml[invl[p]]));
+            }
+            const float sg = sigmoid_f(to_f(y[s]));
+            const float dsig =
+                rnd<T>(__fmul_rn(rnd<T>(sum), __fmul_rn(sg, __fsub_rn(1.f, sg))));
+            v = s < dk ? rnd<T>(__fadd_rn(direct[q], dsig)) : dsig;
+          } else {
+            v = direct[q];
+          }
         }
         y[s] = from_f<T>(v);
       }

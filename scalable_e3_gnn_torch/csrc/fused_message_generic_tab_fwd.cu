@@ -12,6 +12,10 @@
 //   m_l+1  = y_l[:, :dk_l] * sigmoid(y_l)[:, sel_l]                   (l = 0, 1)
 //   agg[i] = sum_k mask[i,k] * m_2
 //
+// (the gate as written is silu's selection form; under another activation,
+// GENERIC_ACT of gate_act.cuh, the scalar lanes, sel_l[j] == j, take
+// rnd(act(y_l[:, j])) instead: JAX's concat-form gate, Gate.__call__)
+//
 // with the sender row x_s = h[gtab[i / tile, loc[i,k]]] (tabled, #8; loc == U
 // means no sender: a zero row) or x_s = hs[k, i] (untabled, #11; every slot is
 // read, masked slots carry some real row and their mask zeroes the message).
@@ -69,6 +73,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gate_act.cuh"
 #include "generic_mma.cuh"
 
 // GENERIC_FWD_CLOCKS (a profiling build of generic_ab.py, never the
@@ -255,9 +260,13 @@ __device__ void layer_fma(const T* __restrict__ W, int c1, int dd, const Dims& d
 }
 
 // the gate output of a row, lane j: y_j * sigmoid(y_s), s = sel[j] (the
-// lane's selection, held in a register), in the data type
-template <typename T>
+// lane's selection, held in a register), in the data type; under another
+// activation than silu a scalar lane (s == j) is act(y_j) in fp32, rounded
+template <typename T, int ACT = gact::kAct>
 __device__ __forceinline__ float gate_out(const T* yrow, int s, int j) {
+  if constexpr (ACT != gact::kSilu) {
+    if (s == j) return round_dt<T>(gact::act_f<ACT>(round_dt<T>(to_f(yrow[j]))));
+  }
   const float y = round_dt<T>(to_f(yrow[j]));
   const float sg = round_dt<T>(sigmoid_f(round_dt<T>(to_f(yrow[s]))));
   return round_dt<T>(y * sg);

@@ -12,7 +12,7 @@ gradients by the reverse-slot gather-sum).  Per receiver i and slot k:
 
     m_0    = [x_s || h[i] || d2[i,k]]                                 (C1 = 2F+1)
     y_l    = sum_c (m_l @ W'_l,c) * attr_c[i,k]                       (C2 = A)
-    m_l+1  = y_l[:, :dk] * sigmoid(y_l)[:, sel_l]                     (fast gate)
+    m_l+1  = y_l[:, :dk] * sigmoid(y_l)[:, sel_l]                     (silu gate)
     agg[i] = sum_k mask[i,k] * m_L
 
 with the sender row ``x_s = h[gtab[i // tile, loc[i,k]]]`` (tabled) or
@@ -22,6 +22,18 @@ CG-folded weight matrix (``TensorProduct.fold_params``, fp32) with its columns p
 sigmoid lane that multiplies each output lane.  ``loc == U`` means no sender
 (a zero row).  The geometry rides the node-major packed stream ``geo2``
 [N, K*(A+2)] (per slot ``attr || d2 || mask``).
+
+The gate's scalar activation is ``cfg.act``, a code of ``ops/gate.py``'s
+``ACTIVATIONS`` (silu, tanh, gelu in JAX's default tanh form, relu,
+softplus), and a compile-time constant of the CUDA libraries: each source is
+built once per activation (``GENERIC_ACT``, ``csrc/gate_act.cuh``).  Silu
+keeps the selection form above on every lane, as JAX's kernels do for
+silu/sigmoid (``Gate.fast_apply``).  Any other activation takes JAX's concat
+form (``Gate.__call__``, which JAX's kernels apply then): the scalar lanes
+(``sel_l[j] == j``: a gated lane selects a gate column past dk) are
+rnd(act(y) in fp32), the gated lanes as above.  The weights keep the
+``scalars || gated || gates`` permutation for every activation: only the
+outputs have to match JAX's, and JAX permutes nothing for a concat gate.
 
 Non-foldable message layers (attributes wider than 32, ``lmax_attr >= 5``, or
 ``TensorProduct(mode="sparse")``) take the same kernels on their CG-folded
@@ -38,12 +50,14 @@ dtype; the K-sum in fp32; the output cast to the dtype.  The save mode also
 returns every layer's pre-gate ``y`` [N*K, D] (node-major slot rows).
 
 Backward rounding points of #9-#13 (``_transpose_chain`` with the VJP of
-``Gate.fast_apply`` as JAX's AD computes it): dm_L = (K-repeat of d_agg in
-fp32) * mask cast to the dtype; per layer, last to first, dy = the gate's VJP
-at y (products in the dtype, the sigmoid branch in fp32, the selection
-transpose summed in fp32, each cast to the dtype, the two branches added in
-the dtype); dya_c = dy * attr_c in the dtype; dW'_c = m^T dya_c summed in
-fp32; dm = sum_c dya_c W'_c^T in fp32 cast to the dtype.  d_hu (per tile,
+the gate as JAX's AD computes it): dm_L = (K-repeat of d_agg in fp32) * mask
+cast to the dtype; per layer, last to first, dy = the gate's VJP at y
+(``_gate_vjp``; silu: products in the dtype, the sigmoid branch in fp32, the
+selection transpose summed in fp32, each cast to the dtype, the two branches
+added in the dtype; another activation: the scalar lanes its fp32 VJP
+rounded once, each gate's copies summed in the dtype one at a time); dya_c
+= dy * attr_c in the dtype; dW'_c = m^T dya_c summed in fp32; dm = sum_c
+dya_c W'_c^T in fp32 cast to the dtype.  d_hu (per tile,
 per table entry) and d_hr (per receiver) are fp32 sums of dm_0's rounded
 sender and receiver columns, cast to the dtype; untabled, d_hs [K, N, F] is
 dm_0's rounded sender columns, one row per slot.  #14 (JAX's AD of the tile
@@ -84,8 +98,8 @@ from dataclasses import dataclass, field
 from typing import Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
+from ..ops.gate import ACTIVATIONS, activation
 from ..ops.gather_scatter import gather_km, reverse_slot_gather_sum_km
 from ..ops.tensor_product import TensorProduct
 from .build import CudaKernel
@@ -122,9 +136,19 @@ _FWD_SIGS = {
     # dk1, c1b, db, dk2, the two forward streams' chunks, stream
     "fused_message_generic_fwd": (_I, [_I] + [_P] * 13 + [_I] * 12 + [_P]),
 }
+# one library of each source per gate activation: the activation is a
+# compile-time constant (GENERIC_ACT, csrc/gate_act.cuh), silu's the plain build
+_ACT_VARIANTS = tuple(() if act.code == 0 else (f"GENERIC_ACT={act.code}",)
+                      for act in ACTIVATIONS)
+
+
+def _kernel(name: str, sigs: dict, source: str) -> CudaKernel:
+    return CudaKernel(name, sigs, source_name=source, variants=_ACT_VARIANTS)
+
+
 # kernel #8 (tabled) and #11 (untabled): one source, one kernel template
-GENERIC_TAB_FWD = CudaKernel("fused_message_generic_tab_fwd", _FWD_SIGS, source_name=_FWD_SRC)
-GENERIC_FWD = CudaKernel("fused_message_generic_fwd", _FWD_SIGS, source_name=_FWD_SRC)
+GENERIC_TAB_FWD = _kernel("fused_message_generic_tab_fwd", _FWD_SIGS, _FWD_SRC)
+GENERIC_FWD = _kernel("fused_message_generic_fwd", _FWD_SIGS, _FWD_SRC)
 _BWD_SRC = "fused_message_generic_tab_bwd"
 _BWD_SIGS = {
     # dtype, k, a, c1a, da, c1b, db -> bytes of the chain kernel (negative: not taken)
@@ -153,21 +177,16 @@ _BWD_SIGS = {
 # source, one chain kernel template; all four share the weight-gradient
 # kernel and the lmax=1 backward's fixed-order reduction, the tabled two
 # also the table sum
-GENERIC_TAB_BWD_RES = CudaKernel("fused_message_generic_tab_bwd_res", _BWD_SIGS,
-                                 source_name=_BWD_SRC)
-GENERIC_TAB_BWD_REP = CudaKernel("fused_message_generic_tab_bwd_rep", _BWD_SIGS,
-                                 source_name=_BWD_SRC)
-GENERIC_TAB_BWD_WGRAD = CudaKernel("fused_message_generic_tab_bwd_wgrad", _BWD_SIGS,
-                                   source_name=_BWD_SRC)
-GENERIC_TAB_BWD_TABLE = CudaKernel("fused_message_generic_tab_bwd_table", _BWD_SIGS,
-                                   source_name=_BWD_SRC)
-GENERIC_BWD_RES = CudaKernel("fused_message_generic_bwd_res", _BWD_SIGS, source_name=_BWD_SRC)
-GENERIC_BWD_REP = CudaKernel("fused_message_generic_bwd_rep", _BWD_SIGS, source_name=_BWD_SRC)
+GENERIC_TAB_BWD_RES = _kernel("fused_message_generic_tab_bwd_res", _BWD_SIGS, _BWD_SRC)
+GENERIC_TAB_BWD_REP = _kernel("fused_message_generic_tab_bwd_rep", _BWD_SIGS, _BWD_SRC)
+GENERIC_TAB_BWD_WGRAD = _kernel("fused_message_generic_tab_bwd_wgrad", _BWD_SIGS, _BWD_SRC)
+GENERIC_TAB_BWD_TABLE = _kernel("fused_message_generic_tab_bwd_table", _BWD_SIGS, _BWD_SRC)
+GENERIC_BWD_RES = _kernel("fused_message_generic_bwd_res", _BWD_SIGS, _BWD_SRC)
+GENERIC_BWD_REP = _kernel("fused_message_generic_bwd_rep", _BWD_SIGS, _BWD_SRC)
 # kernel #14 (the JAX fallback backward): the chain in its vjp mode, the
 # per-tile weight-gradient kernel, then the fixed-order reduction
-GENERIC_BWD_VJP = CudaKernel("fused_message_generic_bwd_vjp", _BWD_SIGS, source_name=_BWD_SRC)
-GENERIC_BWD_VJP_WGRAD = CudaKernel("fused_message_generic_bwd_vjp_wgrad", _BWD_SIGS,
-                                   source_name=_BWD_SRC)
+GENERIC_BWD_VJP = _kernel("fused_message_generic_bwd_vjp", _BWD_SIGS, _BWD_SRC)
+GENERIC_BWD_VJP_WGRAD = _kernel("fused_message_generic_bwd_vjp_wgrad", _BWD_SIGS, _BWD_SRC)
 
 KERNELS = (GENERIC_TAB_FWD, GENERIC_TAB_BWD_RES, GENERIC_TAB_BWD_REP, GENERIC_TAB_BWD_WGRAD,
            GENERIC_TAB_BWD_TABLE, GENERIC_FWD, GENERIC_BWD_RES, GENERIC_BWD_REP,
@@ -181,6 +200,10 @@ class GenericConfig:
     u: int  # compact sender-table size
     a: int  # attribute width (C2 = (lmax+1)^2)
     widths: Tuple[Tuple[int, int, int], ...]  # per message layer (C1, D, dk)
+    # the gate's scalar activation: its code in ops/gate.py ACTIVATIONS (0
+    # silu: the selection form; else the concat form), a compile-time
+    # constant of the CUDA libraries (GENERIC_ACT)
+    act: int = 0
     # the folded weights' nonzero tiles (kernels/tile_plan.py); None: every
     # tile, for weights of unknown structure
     plan: Optional[TilePlan] = field(default=None, compare=False, repr=False)
@@ -282,25 +305,81 @@ def _layer_y(m, w, attr, c1: int, a: int):
     return acc.to(m.dtype)
 
 
-def _gate(y, sel, dk: int):
+def _scalar_lanes(sel, dk: int):
+    """The gate's scalar lanes (bool [dk]): on the permuted columns a scalar
+    lane j selects itself (sel_j = j) and a gated lane selects a gate column
+    (sel_j >= dk), so the selection alone tells them apart."""
+    return sel[:dk] == torch.arange(dk, device=sel.device)
+
+
+def _gate(y, sel, dk: int, act: int = 0):
+    """The gate on permuted pre-gate y: silu (``act`` 0) in the selection
+    form ``y[:, :dk] * rnd(sigmoid(y))[:, sel]`` (``Gate.fast_apply``);
+    any other activation of ``ACTIVATIONS`` in JAX's concat form
+    (``Gate.__call__``): the scalar lanes rnd(act(y) in fp32), the gated lanes
+    as silu's, y * rnd(sigmoid(y_gate)) in the dtype."""
     sg = torch.sigmoid(y.float()).to(y.dtype)
-    return y[:, :dk] * sg[:, sel]
+    out = y[:, :dk] * sg[:, sel]
+    if act == 0:
+        return out
+    scal = ACTIVATIONS[act].fn(y[:, :dk].float()).to(y.dtype)
+    return torch.where(_scalar_lanes(sel, dk), scal, out)
 
 
-def _gate_vjp(y, dout, sel, dk: int):
-    """dy of ``out = y[:, :dk] * sigmoid(y)[:, sel]`` (``Gate.fast_apply``) as
-    JAX's AD computes it in y's dtype: the direct branch dout * multiplier in
-    the dtype; the selection transpose of dout * y summed in fp32 and cast;
-    the sigmoid's VJP g * (s * (1 - s)) in fp32 and cast; the two branches
-    added in the dtype."""
+def _gate_copies(sel, dk: int):
+    """Per copy index c, the gated lanes that hold the c-th copy of their
+    gate (ascending lanes: the c-th component in the cm layout) and those
+    gates' columns, as two int64 tensors; c = 0 first."""
+    sl = sel[:dk].tolist()
+    seen: dict = {}
+    lanes: list = []
+    for j, s in enumerate(sl):
+        if s == j:  # a scalar lane
+            continue
+        c = seen[s] = seen.get(s, -1) + 1
+        if c == len(lanes):
+            lanes.append(([], []))
+        lanes[c][0].append(j)
+        lanes[c][1].append(s)
+    return [(torch.tensor(ls, device=sel.device), torch.tensor(gs, device=sel.device))
+            for ls, gs in lanes]
+
+
+def _gate_vjp(y, dout, sel, dk: int, act: int = 0):
+    """dy of ``_gate`` at y for the cotangent ``dout`` [rows, dk], as JAX's AD
+    computes it in y's dtype.
+
+    Silu (``Gate.fast_apply``): the direct branch dout * multiplier in the
+    dtype; the selection transpose of dout * y summed in fp32 and cast; the
+    sigmoid's VJP g * (s * (1 - s)) in fp32 and cast; the two branches added
+    in the dtype.
+
+    Any other activation (the concat form, ``Gate.__call__``): the scalar
+    lanes rnd(act's VJP in fp32 at y, dout) (``Activation.vjp``); the gated
+    lanes dout * rnd(sigmoid(y_gate)) in the dtype; each gate column the
+    cotangent of its d concatenated copies, dout * y in the dtype, summed
+    over the copies in component order with every partial sum rounded to the
+    dtype (the order in which JAX's backward pass accumulates a variable's
+    cotangents: XLA on the CPU rounds each of these adds in bf16, unlike the
+    fp32 sum of the selection transpose), then times s (1 - s) in fp32 and
+    cast."""
     dt = y.dtype
     sig = torch.sigmoid(y.float())
     mlt = sig.to(dt)[:, sel]
     d_direct = dout * mlt
-    d_mlt = (dout * y[:, :dk]).float()
-    d_sg = torch.zeros_like(sig).index_add_(1, sel, d_mlt).to(dt)
-    d_sig = (d_sg.float() * (sig * (1.0 - sig))).to(dt)
-    return torch.cat([d_direct + d_sig[:, :dk], d_sig[:, dk:]], dim=-1)
+    if act == 0:
+        d_mlt = (dout * y[:, :dk]).float()
+        d_sg = torch.zeros_like(sig).index_add_(1, sel, d_mlt).to(dt)
+        d_sig = (d_sg.float() * (sig * (1.0 - sig))).to(dt)
+        return torch.cat([d_direct + d_sig[:, :dk], d_sig[:, dk:]], dim=-1)
+    d_scal = ACTIVATIONS[act].vjp(y[:, :dk].float(), dout.float()).to(dt)
+    d_lanes = torch.where(_scalar_lanes(sel, dk), d_scal, d_direct)
+    d_cp = dout * y[:, :dk]
+    d_g = torch.zeros_like(y)
+    for c, (lanes, gates) in enumerate(_gate_copies(sel, dk)):
+        d_g[:, gates] = d_cp[:, lanes] if c == 0 else d_g[:, gates] + d_cp[:, lanes]
+    d_sig = (d_g.float() * (sig * (1.0 - sig))).to(dt)
+    return torch.cat([d_lanes, d_sig[:, dk:]], dim=-1)
 
 
 def _rows_fwd(cfg: GenericConfig, m, attr, wts, sels, last_gate: bool = True):
@@ -311,7 +390,7 @@ def _rows_fwd(cfg: GenericConfig, m, attr, wts, sels, last_gate: bool = True):
         y = _layer_y(ms[-1], w, attr, c1, cfg.a)
         ys.append(y)
         if last_gate or i + 1 < len(wts):
-            ms.append(_gate(y, sel, dk))
+            ms.append(_gate(y, sel, dk, cfg.act))
     return ms, ys
 
 
@@ -340,13 +419,13 @@ def _rows_bwd(cfg: GenericConfig, m0, attr, mask, wts, sels, d_agg, ys, dws, dys
     if ys is None:
         ms, ys = _rows_fwd(cfg, m0, attr, wts, sels, last_gate=False)
     else:
-        ms = [m0] + [_gate(y, sel, dk) for y, sel, (_, _, dk)
+        ms = [m0] + [_gate(y, sel, dk, cfg.act) for y, sel, (_, _, dk)
                      in zip(ys[:-1], sels, cfg.widths)]
     attr_dt = attr.to(dt)
     dm = (d_agg.float().repeat_interleave(cfg.k, dim=0) * mask.float()).to(dt)
     for i in range(len(wts) - 1, -1, -1):
         c1, _, dk = cfg.widths[i]
-        dy = _gate_vjp(ys[i], dm, sels[i], dk)
+        dy = _gate_vjp(ys[i], dm, sels[i], dk, cfg.act)
         if dys is not None:
             dys.insert(0, dy)
         dm = _layer_dm(dy, attr_dt, wts[i], c1, cfg.a, ms[i], dws[i])
@@ -476,10 +555,10 @@ def _widths2(cfg: GenericConfig):
 
 
 def _fwd_lib(kernel: CudaKernel, cfg: GenericConfig, x):
-    """The forward source's library, after checking that its kernel takes the
-    widths in x's dtype."""
+    """The forward source's library for cfg's gate activation, after
+    checking that its kernel takes the widths in x's dtype."""
     (c1a, da, _), (c1b, db, _) = cfg.widths
-    lib = kernel.lib()
+    lib = kernel.lib(_ACT_VARIANTS[cfg.act])
     smem = lib.fused_message_generic_tab_fwd_smem_bytes(_DTYPE_CODE[x.dtype], cfg.k, cfg.a,
                                                          c1a, da, c1b, db)
     if smem < 0:
@@ -537,10 +616,10 @@ def _wgrad_splits(cfg: GenericConfig, rows: int, sms: int) -> int:
 
 
 def _bwd_lib(cfg: GenericConfig, x):
-    """The backward source's library, after checking that its kernels take
-    the widths in x's dtype."""
+    """The backward source's library for cfg's gate activation, after
+    checking that its kernels take the widths in x's dtype."""
     (c1a, da, _), (c1b, db, _) = _widths2(cfg)
-    lib = GENERIC_TAB_BWD_RES.lib()
+    lib = GENERIC_TAB_BWD_RES.lib(_ACT_VARIANTS[cfg.act])
     smem = lib.fused_message_generic_tab_bwd_smem_bytes(_DTYPE_CODE[x.dtype], cfg.k, cfg.a,
                                                          c1a, da, c1b, db)
     if smem < 0:
@@ -953,7 +1032,8 @@ def _layer_vjp(dy, attr, w, m, c1: int, a: int, tile_rows: int):
 
 
 def generic_bwd_vjp_plain(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Sequence, d_agg,
-                          bwd_tile: int, chunk_rows: int = 1 << 17):
+                          bwd_tile: int, chunk_rows: int = 1 << 17,
+                          ys: Optional[Sequence] = None):
     """Kernel #14's function by PyTorch ops (any device): ``(d_hs [K, N, F],
     d_hr [N, F], [dW'_1, dW'_2] fp32)`` as ``generic_bwd_plain`` returns them,
     with the rounding of JAX's AD of the tile forward: the forward replayed;
@@ -963,9 +1043,12 @@ def generic_bwd_vjp_plain(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: S
     ``bwd_tile`` receivers, N a multiple of it), each rounded to the dtype,
     added in fp32 in tile order.  In fp32 every rounding is the identity and
     this is #13's function.  Receivers go in chunks of whole tiles, about
-    ``chunk_rows`` slot rows each."""
+    ``chunk_rows`` slot rows each.  ``ys``: saved pre-gate ys (the forward's
+    save mode) read in place of the replay, to hold the kernel at its own y
+    (a derivative that jumps, relu's at 0, turns a y that another fp32 sum
+    order puts on the other side into a different dy)."""
     _check_untab_inputs(cfg, hs, h, geo2, ws, sels)
-    _check_bwd_inputs(cfg, h, d_agg, None)
+    _check_bwd_inputs(cfg, h, d_agg, ys)
     _check_bwd_tile(h, bwd_tile)
     dt = h.dtype
     n, f = h.shape
@@ -979,11 +1062,16 @@ def generic_bwd_vjp_plain(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: S
     for s in range(0, n, step):
         e = min(n, s + step)
         m0, attr, mask = _slot_rows_km(cfg, hs, h, geo2, s, e)
-        ms, ys = _rows_fwd(cfg, m0, attr, wts, sels, last_gate=False)
+        if ys is None:
+            ms, yc = _rows_fwd(cfg, m0, attr, wts, sels, last_gate=False)
+        else:
+            yc = [y[s * k:e * k] for y in ys]
+            ms = [m0] + [_gate(y, sel, dk, cfg.act) for y, sel, (_, _, dk)
+                         in zip(yc[:-1], sels, cfg.widths)]
         dm = (d_agg[s:e].float().repeat_interleave(k, dim=0) * mask.float()).to(dt)
         for i in range(len(wts) - 1, -1, -1):
             c1, _, dk = cfg.widths[i]
-            dy = _gate_vjp(ys[i], dm, sels[i], dk)
+            dy = _gate_vjp(yc[i], dm, sels[i], dk, cfg.act)
             dm, parts = _layer_vjp(dy, attr, wts[i], ms[i], c1, cfg.a, bwd_tile * k)
             for part in parts:  # the TPU grid's order
                 dws[i] += part
@@ -1229,7 +1317,10 @@ class FusedMessageGenericSym(torch.autograd.Function):
 class FusedMessageGeneric:
     """Fused message MLP + masked K-slot aggregation for one SEGNN layer's
     message layers (``O3TensorProductGate`` with a generic 'cm'
-    ``TensorProduct`` and a silu/sigmoid gate): on a graph with gather tables
+    ``TensorProduct``, the scalars gated by one activation of
+    ``ops/gate.py``'s ``ACTIVATIONS`` and the gates by sigmoid; any other
+    callable raises ``ValueError`` naming the set, on any device, where JAX's
+    kernels take any callable): on a graph with gather tables
     built at ``tile`` (``geo_call_tab``), on a gathered slot-major sender
     operand (``geo_call``) or on a symmetric graph with the gather inside
     (``geo_call_sym``).
@@ -1247,7 +1338,11 @@ class FusedMessageGeneric:
     forward #11 and the backward #14, the folded product and the selection
     gate where the JAX kernel evaluates the layer component-wise with the
     concat gate.  Both compute the same function; in bf16 they round at other
-    places (the gate's silu once more, the sparse TP per output component)."""
+    places (the gate's silu once more, the sparse TP per output component).
+
+    Silu runs the selection gate, as JAX's kernels do; another activation
+    runs JAX's concat-form gate in the same kernels, every route (#8-#14),
+    the folded weights permuted as for silu (``_gate``, ``_gate_vjp``)."""
 
     def __init__(self, layers: Sequence, k: int, tile: int, bwd_tile: int = 0,
                  residual_bwd: bool = True, replay_bwd: bool = True) -> None:
@@ -1260,13 +1355,18 @@ class FusedMessageGeneric:
         self.residual_bwd = residual_bwd and foldable
         self.replay_bwd = replay_bwd and foldable
         self._gate_fast = []
+        acts = set()
         for layer in self.layers:
             g = getattr(layer, "gate", None)
-            if not (g is not None and g.layout == "cm" and g.act_scalars is F.silu
-                    and g.act_gates is torch.sigmoid and isinstance(layer.tp, TensorProduct)):
+            if not (g is not None and g.layout == "cm" and g.act_gates is torch.sigmoid
+                    and isinstance(layer.tp, TensorProduct)):
                 raise ValueError("the generic kernels run generic TensorProduct message layers "
-                                 "with the silu/sigmoid gate in the cm layout")
+                                 "gated in the cm layout, the gates by sigmoid")
+            acts.add(activation(g.act_scalars).code)
             self._gate_fast.append(g.fast_tables())
+        if len(acts) != 1:
+            raise ValueError("the generic kernels take one activation for all message layers")
+        (self.act,) = acts
         self.out_dim = self.layers[-1].gate.irreps_out.dim
         self._sels = {}
         self._plan: Optional[TilePlan] = None
@@ -1288,7 +1388,8 @@ class FusedMessageGeneric:
         widths = tuple((layer.tp.in1_dim, layer.tp.out_dim, dk)
                        for layer, (_, _, dk) in zip(self.layers, self._gate_fast))
         plan = self.tile_plan() if a == self.layers[0].tp.in2_dim else None
-        return GenericConfig(k=self.k, tile=self.tile, u=u, a=a, widths=widths, plan=plan)
+        return GenericConfig(k=self.k, tile=self.tile, u=u, a=a, widths=widths, act=self.act,
+                             plan=plan)
 
     def flops_per_slot(self) -> int:
         """Multiply-adds x 2 that one slot needs: the nonzeros of every

@@ -1,7 +1,9 @@
 """Before/after A/B of the untabled generic message kernels #11 and #13 at one
-config-5 node block, for two checkouts of the port on one card.
+config-5 node block, for two checkouts of the port on one card, or of two
+gate activations of one checkout.
 
     python scalable_e3_gnn_torch/kernels/generic_ab.py [--repo DIR] [--tag NAME]
+        [--act NAME] [--tabled]
 
 Imports ``scalable_e3_gnn_torch`` from DIR (default: the checkout holding
 this file), makes the same bf16 inputs from a seed on the card (400,000
@@ -14,6 +16,17 @@ the hashes agree), the device time per launch of every kernel by
 torch.profiler, CUDA-event times per call, peak memory, and the card's name
 and power limit.  Compare two checkouts only within one call, in turns
 (parent, change, change, parent).
+
+``--act`` builds the message layers with another gate activation of
+``ops/gate.py``'s ACTIVATIONS (``silu``, the default, ``tanh``,
+``gelu_tanh``, ``relu``, ``softplus``; checkouts without the table take
+silu only), so two activations are timed at the same shapes, in turns.
+``--tabled`` times the tabled kernels instead, #8 (without and with save)
+and #9 (whole: chain, weight gradients, table sum, reduction; and its
+chain), on bench.py's 250k lmax=2 graph (uniform points from the seed, r =
+0.04 * (100000 / 250000)^(1/3), K=16, octree 7 levels, cell capacity 64,
+symmetrized, gather tables at tile 200), random features, attributes of the
+graph with extra masked slots.
 
 ``--clocks`` (this checkout's sources only) builds both sources once more
 with ``GENERIC_FWD_CLOCKS`` / ``GENERIC_WGRAD_CLOCKS`` into a scratch
@@ -161,11 +174,61 @@ def phase_clocks(fmg, cfg, hs, h, geo2, ws, sels, out_dir: Path) -> dict:
                 fwd_out_equal=bool(torch.equal(out, fmg.generic_fwd(cfg, hs, h, geo2, ws, sels))))
 
 
+def tabled(fmg, model, dev) -> dict:
+    """#8 and #9 on bench.py's 250k lmax=2 graph with tables (``--tabled``):
+    SHA-256 digests of the outputs, CUDA-event ms and device ms per launch."""
+    import numpy as np
+
+    from scalable_e3_gnn_torch.graph.container import DenseEdgeGraph
+    from scalable_e3_gnn_torch.graph.octree import build_octree
+    from scalable_e3_gnn_torch.graph.radius import radius_graph_cell
+
+    n, lo, hi, bf = 250_000, (0.0,) * 3, (1.0,) * 3, torch.bfloat16
+    pts = np.random.default_rng(SEED).random((n, 3)).astype(np.float32)
+    tree = build_octree(pts, lo, hi, num_levels=7, device=dev)
+    edges = radius_graph_cell(tree, 0.04 * (100_000 / n) ** (1 / 3), lo, hi, max_neighbors=K,
+                              cell_capacity=64)
+    feats = np.zeros((n, 5), np.float32)
+    graph = DenseEdgeGraph.from_radius_edges(feats, tree.points, edges, symmetrize=True)
+    graph = graph.with_gather_tables(tile=200)
+    kern = fmg.FusedMessageGeneric(model.layers[0].message_layers, K, 200)
+    with torch.no_grad():
+        geo = model.compute_attributes_dense(graph)[3].reshape(n, K, -1).clone()
+    a = geo.shape[-1] - 2
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    geo[..., a + 1] *= (torch.rand((n, K), generator=gen, device=dev) > 0.1).float()
+    cfg = kern.config(a, graph.gather_tab.shape[1])
+    h = torch.randn((n, cfg.f), generator=gen, device=dev).to(bf)
+    d_agg = torch.randn((n, cfg.out_dim), generator=gen, device=dev).to(bf)
+    args = (h, geo.reshape(n, -1).to(bf).contiguous(), graph.gather_loc, graph.gather_tab,
+            [w.contiguous() for w in kern.fold(bf)], kern.selections(dev))
+    with torch.no_grad():
+        agg, ys = fmg.generic_tab_fwd(cfg, *args, save=True)
+        d_hu, d_hr, dws = fmg.generic_tab_bwd_kernels(cfg, *args, d_agg, ys=ys)
+        torch.cuda.synchronize()
+        digests = {nm: _digest(t) for nm, t in (("agg", agg), ("y1", ys[0]), ("y2", ys[1]),
+                                                 ("d_hu", d_hu), ("d_hr", d_hr), ("dw1", dws[0]),
+                                                 ("dw2", dws[1]))}
+        times = dict(
+            fwd_ms=_events(lambda: fmg.generic_tab_fwd(cfg, *args), 5),
+            save_ms=_events(lambda: fmg.generic_tab_fwd(cfg, *args, save=True), 3),
+            bwd9_ms=_events(lambda: fmg.generic_tab_bwd_kernels(cfg, *args, d_agg, ys=ys), 3),
+            chain9_ms=_events(lambda: fmg.generic_tab_bwd_chain(cfg, *args, d_agg, ys), 3))
+        device = dict(fwd=_device(lambda: fmg.generic_tab_fwd(cfg, *args), 5),
+                      bwd9=_device(lambda: fmg.generic_tab_bwd_kernels(cfg, *args, d_agg, ys=ys),
+                                   3))
+    return dict(points=n, k=K, tile=200, valid_slots=int((geo[..., a + 1] > 0).sum()),
+                edges_symmetrized=int(graph.edge_mask.sum()), digests=digests, times=times,
+                device=device, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repo", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--tag", default="")
     ap.add_argument("--clocks", default="", help="scratch directory for the profiling build")
+    ap.add_argument("--act", default="silu", help="the gate activation (ops/gate.py)")
+    ap.add_argument("--tabled", action="store_true", help="#8 and #9 at the 250k graph")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.repo).resolve()))
     import scalable_e3_gnn_torch
@@ -179,8 +242,18 @@ def main() -> int:
     dev, bf = torch.device("cuda"), torch.bfloat16
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
+    act = {}
+    if args.act != "silu":
+        from scalable_e3_gnn_torch.ops.gate import ACTIVATIONS
+
+        act = dict(act={a.name: a.fn for a in ACTIVATIONS}[args.act])
     model = SEGNN("2x0e+1x1o", HIDDEN, "1x1o", lmax_attr=2, num_layers=1, layout="cm",
-                  use_pallas=True, device=dev, generator=torch.Generator().manual_seed(0))
+                  use_pallas=True, device=dev, generator=torch.Generator().manual_seed(0), **act)
+    if args.tabled:
+        out = tabled(fmg, model, dev)
+        print(json.dumps(dict(tag=args.tag, act=args.act, package=scalable_e3_gnn_torch.__file__,
+                              card=card, **out)), flush=True)
+        return 0
     kern = fmg.FusedMessageGeneric(model.layers[0].message_layers, K, 200, residual_bwd=False)
     cfg = kern.config(9, 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -235,7 +308,8 @@ def main() -> int:
                       wgrad=wgrad_clocks(fmg, cfg, hs, h, geo2, m1, dy1, dy2, splits,
                                          Path(args.clocks))) if args.clocks else None
     print(json.dumps(dict(
-        tag=args.tag, package=scalable_e3_gnn_torch.__file__, card=card, block=n, k=K,
+        tag=args.tag, act=args.act, package=scalable_e3_gnn_torch.__file__, card=card, block=n,
+        k=K,
         splits=splits, valid_slots=int((geo2.view(n, K, -1)[..., -1] > 0).sum()),
         plan_tiles=dict(fwd=cfg.plan.counts("fwd"), dm=cfg.plan.counts("dm"))
         if getattr(cfg, "plan", None) is not None else None,

@@ -218,7 +218,12 @@ class SEGNNLayer(nn.Module):
                 O3TensorProductGate(cur, a, h, layout_in=layout, layout_out=layout, **kw))
             cur = h
         # the generic fused kernel: any hidden irreps / attribute order, cm
-        # layout, generic TensorProduct message layers, each gated
+        # layout, generic TensorProduct message layers, each gated.  As in
+        # JAX it does not depend on ``act``: silu runs the kernels' selection
+        # gate, tanh / gelu_tanh / relu / softplus (ops/gate.py ACTIVATIONS)
+        # their concat-form gate, and any other callable raises ValueError
+        # when the layer builds its FusedMessageGeneric (JAX's kernels take
+        # any callable)
         self.use_pallas_generic = (
             use_pallas and not self.use_pallas and layout == "cm"
             and all(isinstance(m.tp, TensorProduct) and m.gate is not None

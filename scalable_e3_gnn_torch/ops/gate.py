@@ -5,11 +5,17 @@ layout ``scalars || gates || gated``: scalars pass through ``act_scalars``, one
 l=0 gate per non-scalar irrep copy is squashed by ``act_gates`` and multiplies
 its copy channelwise.  ``fast_tables``/``fast_apply`` are the selection form
 the generic fused message kernel uses on column-permuted TP outputs.
+
+``ACTIVATIONS`` lists the scalar activations the generic kernels take (the
+``act=`` of ``SEGNN``): each torch callable with its code (the CUDA sources'
+``GENERIC_ACT``) and the cotangent that JAX's AD gives its JAX counterpart.
+Adding one means an entry here and one in ``csrc/gate_act.cuh``.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from dataclasses import dataclass
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -18,7 +24,84 @@ from torch import nn
 
 from ..core.irreps import Irreps
 
-__all__ = ["Gate"]
+__all__ = ["Gate", "Activation", "ACTIVATIONS", "activation", "gelu_tanh", "softplus"]
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` as JAX defaults it (``approximate=True``): x/2 (1 +
+    tanh(sqrt(2/pi) (x + 0.044715 x^3))); not ``F.gelu``'s default erf form."""
+    return F.gelu(x, approximate="tanh")
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, JAX's ``logaddexp(x, 0)``: max(x, 0) +
+    log1p(exp(-|x|)) (``F.softplus`` returns x past its threshold of 20)."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
+# The cotangents below follow JAX's AD of its own function, operation by
+# operation, on fp32 x and the fp32 cotangent g.
+
+def _tanh_vjp(x, g):
+    # tanh's JVP (g + g t)(1 - t), transposed: c = g (1 - t), c + c t
+    t = torch.tanh(x)
+    c = g * (1.0 - t)
+    return c + c * t
+
+
+_GELU_S = float(np.float32(np.sqrt(2.0 / np.pi)))
+
+
+def _gelu_tanh_vjp(x, g):
+    # x * cdf, cdf = 0.5 (1 + tanh(s (x + 0.044715 x^3))), transposed from
+    # the output back: the product's two branches, tanh's as above, the
+    # cubic's 3 x^2
+    t = torch.tanh(_GELU_S * (x + 0.044715 * (x * x * x)))
+    q = 0.5 * (x * g) * (1.0 - t)
+    du = _GELU_S * (q + q * t)
+    return g * (0.5 * (1.0 + t)) + du + (0.044715 * du) * (3.0 * (x * x))
+
+
+def _relu_vjp(x, g):
+    # jax.nn.relu's custom JVP: g where x > 0, else 0 (0 at 0)
+    return torch.where(x > 0, g, torch.zeros_like(g))
+
+
+def _softplus_vjp(x, g):
+    # logaddexp's custom JVP: g exp(x - logaddexp(x, 0))
+    return g * torch.exp(x - softplus(x))
+
+
+@dataclass(frozen=True)
+class Activation:
+    """A scalar activation of the generic kernels' gate: its name, its code
+    (``GENERIC_ACT`` of the CUDA sources), the torch callable ``SEGNN(act=)``
+    takes, and ``vjp(x, g)``, JAX's AD cotangent in fp32 (None for silu,
+    whose gate keeps the selection form, ``Gate.fast_apply``)."""
+    name: str
+    code: int
+    fn: Callable
+    vjp: Optional[Callable]
+
+
+ACTIVATIONS = (
+    Activation("silu", 0, F.silu, None),
+    Activation("tanh", 1, torch.tanh, _tanh_vjp),
+    Activation("gelu_tanh", 2, gelu_tanh, _gelu_tanh_vjp),
+    Activation("relu", 3, torch.relu, _relu_vjp),
+    Activation("softplus", 4, softplus, _softplus_vjp),
+)
+assert all(act.code == i for i, act in enumerate(ACTIVATIONS))  # ACTIVATIONS[code]
+
+
+def activation(fn) -> Activation:
+    """The table's entry of a torch callable, by identity.  Raises
+    ``ValueError`` naming the set for any other callable."""
+    for act in ACTIVATIONS:
+        if fn is act.fn:
+            return act
+    names = ", ".join(f"{a.name} ({a.fn.__module__}.{a.fn.__name__})" for a in ACTIVATIONS)
+    raise ValueError(f"the generic kernels take the activations {names}, not {fn!r}")
 
 
 class Gate(nn.Module):

@@ -25,7 +25,10 @@ in both dtypes), its gradient and wrapper checks, #15 between two processes
 on the card bit for bit gloo's all-gather (and a skipped publish raising),
 the worker's two-rank ring worlds (dense and COO) bit for bit its all_gather
 worlds, a forward alone raising on both ranks when one skips a publish,
-and a 4-way partitioned
+the generic kernels #8-#14 under the gate activations besides silu (every
+route against its plain version in fp32 and bf16, lmax=2 SEGNN gradients
+against the plain path, the raise outside the set, no spill in any
+activation's build beyond silu's), and a 4-way partitioned
 SEGNN on the card (both exchange backends) against the unpartitioned plain
 path; the COO partitioned path on the card (both backends) against the
 unpartitioned COO model, the dense dp step (2 clouds x 4 partitions) through
@@ -54,11 +57,14 @@ from scalable_e3_gnn_torch.kernels import fused_message_generic as fmg
 from scalable_e3_gnn_torch.kernels import halo_ring as hr
 from scalable_e3_gnn_torch.models import segnn as segnn_mod
 from scalable_e3_gnn_torch.models.segnn import SEGNN, SEGNNLayer
+from scalable_e3_gnn_torch.ops.gate import ACTIVATIONS
 from scalable_e3_gnn_torch.parallel import halo as dist
 from scalable_e3_gnn_torch.parallel.partition import (partition_graph, partition_graph_dense,
                                                       shared_caps)
 
 pytestmark = pytest.mark.cuda
+
+ACTS = {act.name: act for act in ACTIVATIONS}
 
 LO, HI = (0.0,) * 3, (1.0,) * 3
 
@@ -812,6 +818,154 @@ def test_vjp_segnn_gradients_kernel_match_plain_path(dev, name):
     for (nm, a), b in zip(m_k.named_parameters(), m_p.parameters(), strict=True):
         err = float((a.grad - b.grad).abs().max())
         assert err <= 1e-4 * float(b.grad.abs().max()), (nm, err)
+
+
+# ---- #8-#14 under the other gate activations (tanh, gelu, relu, softplus:
+# one library of each generic source per activation)
+
+ACT_NAMES = [act.name for act in ACTIVATIONS[1:]]
+
+
+@pytest.fixture(scope="module")
+def generic_act_libs():
+    """Every activation's library of both generic sources, built at once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scalable_e3_gnn_torch.kernels.build import build_libraries
+
+    return build_libraries(sorted({nm for kern in fmg.KERNELS for nm in kern.library_names}))
+
+
+def _act_problem(dev, name, dtype, n=2000, k=16, hidden="24x0e+12x1o+6x2e"):
+    """#8's and #11's arguments (the masked tail, extra masked slots) of a
+    model gated by the activation, at the lmax=2 config's width."""
+    tile = SEGNNLayer._pick_generic_tile(n)
+    g, gt = _graph(dev, n, k, 0.25, tile)
+    model = SEGNN("2x0e+1x1o", hidden, "1x1o", lmax_attr=2, num_layers=1, layout="cm",
+                  use_pallas=True, act=ACTS[name].fn, device=dev,
+                  generator=torch.Generator().manual_seed(13))
+    kern = fmg.FusedMessageGeneric(model.layers[0].message_layers, k, tile)
+    geo = model.compute_attributes_dense(gt)[3].reshape(n, k, -1).clone()
+    a = geo.shape[-1] - 2
+    gen = torch.Generator(device=dev).manual_seed(14)
+    geo[..., a + 1] *= (torch.rand((n, k), generator=gen, device=dev) > 0.1).float()
+    geo[n - 37:, :, a + 1] = 0.0
+    cfg = kern.config(a, gt.gather_tab.shape[1])
+    assert cfg.act == ACTS[name].code
+    loc = gt.gather_loc.clone()
+    loc[n - 37:] = cfg.u
+    h = torch.randn((n, cfg.f), generator=gen, device=dev)
+    h[n - 37:] = 0.0
+    hs = h[torch.clamp(g.senders.t(), max=n - 1).long()].contiguous()
+    d_agg = torch.randn((n, cfg.out_dim), generator=gen, device=dev).to(dtype)
+    ws, sels = [w.contiguous() for w in kern.fold(dtype)], kern.selections(dev)
+    geo2 = geo.reshape(n, -1).to(dtype).contiguous()
+    tab = (h.to(dtype), geo2, loc, gt.gather_tab, ws, sels)
+    untab = (hs.to(dtype), h.to(dtype), geo2, ws, sels)
+    return cfg, dataclasses.replace(cfg, u=0), tab, untab, d_agg
+
+
+@pytest.mark.parametrize("name", ACT_NAMES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_act_kernels_match_plain(dev, generic_act_libs, name, dtype):
+    """Under each activation every route against its plain version, at the
+    limits of the silu gate's tests: #8 (and save), #9, #10, #11 (and save),
+    #12, #13 and #14; each kernel launched once per call."""
+    cfg, ucfg, tab, untab, d_agg = _act_problem(dev, name, dtype)
+    counted = (fmg.GENERIC_TAB_FWD, fmg.GENERIC_TAB_BWD_RES, fmg.GENERIC_TAB_BWD_REP,
+               fmg.GENERIC_FWD, fmg.GENERIC_BWD_RES, fmg.GENERIC_BWD_REP, fmg.GENERIC_BWD_VJP)
+    before = [kern.launches for kern in counted]
+    with torch.no_grad():
+        agg, ys = fmg.generic_tab_fwd(cfg, *tab, save=True)
+        ref_agg, ref_ys = fmg.generic_tab_fwd_plain(cfg, *tab, save=True)
+        for got, ref in [(fmg.generic_tab_fwd(cfg, *tab), ref_agg), (agg, ref_agg),
+                         *zip(ys, ref_ys)]:
+            _check_generic(got, ref, dtype)
+        for y in (ys, None):
+            _check_bwd(fmg.generic_tab_bwd(cfg, *tab, d_agg, ys=y),
+                       fmg.generic_tab_bwd_plain(cfg, *tab, d_agg, ys=y), dtype)
+        uagg, uys = fmg.generic_fwd(ucfg, *untab, save=True)
+        ref_uagg, ref_uys = fmg.generic_fwd_plain(ucfg, *untab, save=True)
+        for got, ref in [(fmg.generic_fwd(ucfg, *untab), ref_uagg), (uagg, ref_uagg),
+                         *zip(uys, ref_uys)]:
+            _check_generic(got, ref, dtype)
+        for y in (uys, None):
+            _check_bwd(fmg.generic_bwd(ucfg, *untab, d_agg, ys=y),
+                       fmg.generic_bwd_plain(ucfg, *untab, d_agg, ys=y), dtype)
+        _check_bwd(fmg.generic_bwd_vjp(ucfg, *untab, d_agg, 80),
+                   fmg.generic_bwd_vjp_plain(ucfg, *untab, d_agg, 80), dtype)
+    torch.cuda.synchronize()
+    assert [kern.launches - b for kern, b in zip(counted, before)] == [2, 1, 1, 2, 1, 1, 1]
+    assert (agg[-37:] == 0).all() and (uagg[-37:] == 0).all()
+
+
+@pytest.mark.parametrize("name", ACT_NAMES)
+def test_act_segnn_gradients_kernel_match_plain_path(dev, generic_act_libs, name):
+    """fp32 MSE gradients of every parameter of a 2-layer lmax=2
+    ``SEGNN(act=...)`` through #8 and #9 against autograd of the plain path:
+    1e-4 * max|ref| per parameter, the forward 1e-4 * max(1, max|ref|)."""
+    n = 2000
+    g, gt = _graph(dev, n, 16, 0.12, SEGNNLayer._pick_generic_tile(n))
+    kw = dict(lmax_attr=2, num_layers=2, layout="cm", act=ACTS[name].fn, device=dev)
+    m_k = SEGNN("2x0e+1x1o", "24x0e+12x1o+6x2e", "1x1o", use_pallas=True,
+                generator=torch.Generator().manual_seed(6), **kw)
+    m_p = SEGNN("2x0e+1x1o", "24x0e+12x1o+6x2e", "1x1o", use_pallas=False, **kw)
+    m_p.load_state_dict(m_k.state_dict())
+    target = torch.randn((n, 3), generator=torch.Generator(device=dev).manual_seed(8),
+                         device=dev)
+    before = [fmg.GENERIC_TAB_FWD.launches, fmg.GENERIC_TAB_BWD_RES.launches]
+    out_k, out_p = m_k(gt), m_p(g)
+    ((out_k - target) ** 2).mean().backward()
+    ((out_p - target) ** 2).mean().backward()
+    assert [fmg.GENERIC_TAB_FWD.launches, fmg.GENERIC_TAB_BWD_RES.launches] == \
+        [before[0] + 2, before[1] + 2]
+    out_k, out_p = out_k.detach(), out_p.detach()
+    assert float((out_k - out_p).abs().max()) <= 1e-4 * max(1.0, float(out_p.abs().max()))
+    for (nm, a), b in zip(m_k.named_parameters(), m_p.parameters(), strict=True):
+        err = float((a.grad - b.grad).abs().max())
+        assert err <= 1e-4 * float(b.grad.abs().max()), (nm, err)
+
+
+def test_act_outside_the_set_raises_on_the_card(dev):
+    """An activation the kernels do not take raises ``ValueError`` naming the
+    set on the card too; no kernel is launched and no plain gate runs."""
+    n = 480
+    _, gt = _graph(dev, n, 8, 0.25, SEGNNLayer._pick_generic_tile(n))
+    m = SEGNN("2x0e+1x1o", "4x0e+2x1o+2x2e", "1x1o", lmax_attr=2, num_layers=1, layout="cm",
+              use_pallas=True, act=torch.sigmoid, device=dev)
+    before = fmg.GENERIC_TAB_FWD.launches
+    with pytest.raises(ValueError, match="activations silu"):
+        with torch.no_grad():
+            m(gt)
+    assert fmg.GENERIC_TAB_FWD.launches == before
+
+
+def test_generic_act_variants_spill_no_more_than_silu(dev, tmp_path):
+    """ptxas of every activation's build of both generic sources: per kernel
+    instance no more spill stores or loads than the silu build's."""
+    import re
+    import subprocess
+
+    from scalable_e3_gnn_torch.kernels import build
+
+    procs = {}
+    for src in ("fused_message_generic_tab_fwd", "fused_message_generic_tab_bwd"):
+        for act in ACTIVATIONS:
+            cmd = [build._nvcc(), *build.NVCC_FLAGS, f"-DGENERIC_ACT={act.code}",
+                   "-o", str(tmp_path / f"{src}-{act.code}.so"), str(build.CSRC / f"{src}.cu")]
+            procs[src, act.code] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.STDOUT, text=True)
+    spills = {}
+    for key, proc in procs.items():
+        log = proc.communicate()[0]
+        assert proc.returncode == 0, log[-2000:]
+        for entry in re.split(r"Compiling entry function", log)[1:]:
+            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
+            spills[key + (entry.split("'")[1],)] = tuple(map(int, sp.groups()))
+    for (src, code, fn), sp in spills.items():
+        silu = spills[src, 0, fn]
+        assert sp[0] <= silu[0] and sp[1] <= silu[1], (src, code, fn, sp, silu)
+    assert len(spills) == 5 * len([k for k in spills if k[1] == 0])
 
 
 # the untabled lmax=1 kernels (#3 forward, #5 backward): (hidden, K, points,

@@ -198,8 +198,9 @@ def test_unported_tensor_product_raises():
     builds and runs without tables, and so does a message layer off the
     folded-GEMM path (``mode="sparse"``: the forward #11 and the fallback
     backward #14 on its CG-folded weights), equal to the folded layer's
-    result within 1e-5.  What is not ported raises: a message layer whose
-    gate is not silu/sigmoid (the kernels evaluate the selection gate)."""
+    result within 1e-5.  A message layer gated by tanh (the concat-form
+    gate) runs the kernels too, equal to its plain path within 1e-5; an
+    activation outside the kernels' set raises."""
     tm = TSEGNN("2x0e+1x1o", "8x0e+4x1o+2x2e", "1x1o", num_layers=1, lmax_attr=2,
                 use_pallas=True, device="cpu")
     assert tm.layers[0].use_pallas_generic
@@ -216,9 +217,18 @@ def test_unported_tensor_product_raises():
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     other = TSEGNN("2x0e+1x1o", "8x0e+4x1o+2x2e", "1x1o", num_layers=1, lmax_attr=2,
                    act=torch.tanh, use_pallas=True, device="cpu")
-    with pytest.raises(ValueError, match="silu/sigmoid"):
+    plain = TSEGNN("2x0e+1x1o", "8x0e+4x1o+2x2e", "1x1o", num_layers=1, lmax_attr=2,
+                   act=torch.tanh, use_pallas=False, device="cpu")
+    plain.load_state_dict(other.state_dict())
+    with torch.no_grad():
+        got = other(tg)
+        assert other.layers[0]._generic_kernels
+        torch.testing.assert_close(got, plain(tg), rtol=0, atol=1e-5)
+    unknown = TSEGNN("2x0e+1x1o", "8x0e+4x1o+2x2e", "1x1o", num_layers=1, lmax_attr=2,
+                     act=torch.sigmoid, use_pallas=True, device="cpu")
+    with pytest.raises(ValueError, match="activations silu"):
         with torch.no_grad():
-            other(tg)
+            unknown(tg)
 
 
 def test_entry_points_without_device_need_a_gpu(monkeypatch):
