@@ -172,6 +172,20 @@ Phases, each printing one JSON line:
                  the plain path; bench.py's 250k model under tanh and silu
                  (forward and step ms, in turns), the 1M remat_kernel step
                  under tanh, counted; #8/#9 times under tanh beside silu's.
+43c. msg_layers -- #8-#14 at one and three message layers per SEGNN layer
+                 (``SEGNNLayer(num_message_layers=L)``, the kernels' layer
+                 table): every route at 20k points in fp32 and bf16 against
+                 its plain version at the two-layer limits (every kernel of
+                 the library launched), at L=3 also under gelu_tanh and on
+                 three A=36 layers (#11, #14); fp32 gradients of the L=1 and
+                 L=3 models at 20k; bench.py's 250k model at L = 1, 3 beside
+                 L=2: a counted forward (4 of #8), 3 counted steps (4 of #8,
+                 4 of #9), the same without tables (4 of #11, 4 of #12), at
+                 L=3 2 steps with neither hand backward (#11, #14), losses
+                 falling, forward and step ms, peak memory; 1M at L=3: 2
+                 counted remat_kernel steps (4 of #8, 4 of #10) and the
+                 sym-regather step (4 of #11, 4 of #13); the kernels' times
+                 per launch at L = 1, 3 with bounds and plain versions.
 44. dist_partition -- the dense partitioner on config 3's 100k graph at P = 1
                  and 4: host ms, NI/NB/H, both transpose tables' q; every
                  valid edge of the input found once over the partitions.
@@ -693,8 +707,7 @@ def reduce_shapes(dev) -> dict:
     model = lmax2_model(dev)
     kern = fmg.FusedMessageGeneric(model.layers[0].message_layers, L2_NEIGHBORS, tile)
     cfg = kern.config(model.attr_irreps.dim, 0)
-    (c1a, da, _), (c1b, db, _) = cfg.widths
-    nw = cfg.a * (c1a * da + c1b * db)
+    nw = cfg.nw
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     ntiles = n // model.layers[0]._pick_bwd_tile(n)
     return {"generic_bwd_res_250k": (fmg._wgrad_splits(cfg, n * L2_NEIGHBORS, sms), nw),
@@ -977,7 +990,7 @@ def explain_d_hs(cfg, args, d_agg, ys, got, ref, vjp: bool = False) -> dict:
     c1, da, _ = cfg.widths[0]
     a = cfg.a
     with torch.no_grad():
-        dy1 = fmg.generic_bwd_chain(cfg, *args, d_agg, ys, vjp=vjp)[2][rows, :da]
+        dy1 = fmg.generic_bwd_chain(cfg, *args, d_agg, ys, vjp=vjp)[2][0][rows, :da]
         attr = geo2.reshape(n * k, a + 2)[rows, :a]
         if vjp:
             refed = fmg._layer_vjp(dy1, attr.float(), ws[0].float(), None, c1, a, 1)[0][:, :f]
@@ -1064,9 +1077,14 @@ def km_d_hs_check(cfg, args, ws, d_agg, got, ref, bwd) -> dict:
 
 
 def bwd_outputs(res) -> list:
-    """(d_hu, d_hr, [dW'_1, dW'_2]) -> [(name, tensor, elementwise)]."""
-    return [("d_hu", res[0], True), ("d_hr", res[1], True), ("dW1", res[2][0], False),
-            ("dW2", res[2][1], False)]
+    """(d_hu, d_hr, [dW'_1 .. dW'_L]) -> [(name, tensor, elementwise)]."""
+    return [("d_hu", res[0], True), ("d_hr", res[1], True)] + [
+        (f"dW{i + 1}", dw, False) for i, dw in enumerate(res[2])]
+
+
+def named_ys(ys, p_ys) -> list:
+    """The save mode's ys beside the plain version's: [(y1, got, ref), ..]."""
+    return [(f"y{i + 1}", x, y) for i, (x, y) in enumerate(zip(ys, p_ys, strict=True))]
 
 
 def train_run(model, graph, attrs, target, steps, card, phase, want, hidden=L2_HIDDEN, **info):
@@ -1163,12 +1181,12 @@ def lmax2_train_phases(card: str, ctx: dict) -> dict:
             cmp["res_vs_rep"] = {nm: bwd_compare(x, y, el, True) for (nm, x, el), (_, y, _) in
                                  zip(bwd_outputs(got["res"]), bwd_outputs(got["rep"]))}
             # each piece against its own plain version, on the chain's outputs
-            d_hs, d_hr, dy1, dy2, m0, m1 = fmg.generic_tab_bwd_chain(cfg, *args, d_agg, ys)
+            d_hs, d_hr, dys, ms = fmg.generic_tab_bwd_chain(cfg, *args, d_agg, ys)
             splits = fmg._wgrad_splits(cfg, h.shape[0] * cfg.k,
                                        torch.cuda.get_device_properties(dev).multi_processor_count)
-            part = fmg.generic_tab_bwd_wgrad(cfg, geo2, m0, m1, dy1, dy2, splits)
+            part = fmg.generic_tab_bwd_wgrad(cfg, geo2, ms, dys, splits)
             cmp["wgrad"] = {"partials": bwd_compare(part, fmg.generic_tab_bwd_wgrad_plain(
-                cfg, geo2, m0, m1, dy1, dy2, splits), False, fp32)}
+                cfg, geo2, ms, dys, splits), False, fp32)}
             d_hu = fmg.generic_tab_bwd_table(cfg, d_hs, loc)
             cmp["table"] = {"d_hu": bwd_compare(d_hu, fmg.generic_tab_bwd_table_plain(
                 cfg, d_hs, loc), True, fp32)}
@@ -1200,8 +1218,8 @@ def lmax2_train_phases(card: str, ctx: dict) -> dict:
             # the bf16 inputs and outputs stay for the times (phase 20)
             bwd[dtype] = dict(cmp=cmp) if fp32 else dict(
                 cfg=cfg, args=args, d_agg=d_agg, ys=ys, part=part,
-                chain=(d_hs, d_hr, dy1, dy2, m0, m1), got=got["res"], cmp=cmp)
-            del got, ref, d_h, dw, d_hs, d_hr, dy1, dy2, m0, m1, part, ys, d_hu
+                chain=(d_hs, d_hr, dys, ms), got=got["res"], cmp=cmp)
+            del got, ref, d_h, dw, d_hs, d_hr, dys, ms, part, ys, d_hu
 
     # ---- 17. the 250k bf16 train step (bench.py:223-257), 3 steps, counted
     l2 = L2_POINTS
@@ -1345,7 +1363,7 @@ def lmax2_train_phases(card: str, ctx: dict) -> dict:
     b = bwd[bf]
     cfg, args, d_agg, ys, part = b["cfg"], b["args"], b["d_agg"], b["ys"], b["part"]
     h, geo2, loc, gtab, ws, sels = args
-    d_hs, d_hr, dy1, dy2, m0, m1 = b["chain"]
+    d_hs, d_hr, dys, ms = b["chain"]
     splits = part.shape[0]
     n_valid = kres[bf]["n_valid"]
     with torch.no_grad():
@@ -1357,7 +1375,7 @@ def lmax2_train_phases(card: str, ctx: dict) -> dict:
             rep_ms=event_ms(lambda: fmg.generic_tab_bwd_chain(cfg, *args, d_agg), iters=3,
                             warmup=1),
             wgrad_ms=event_ms(lambda: fmg.generic_tab_bwd_wgrad(
-                cfg, geo2, m0, m1, dy1, dy2, splits), iters=3, warmup=1),
+                cfg, geo2, ms, dys, splits), iters=3, warmup=1),
             table_ms=event_ms(lambda: fmg.generic_tab_bwd_table(cfg, d_hs, loc), iters=5),
             reduce_ms=event_ms(lambda: fm.tab_bwd_reduce(part), iters=10),
             reduce_plain_ms=event_ms(lambda: fm.tab_bwd_reduce_plain(part), iters=10),
@@ -1372,7 +1390,7 @@ def lmax2_train_phases(card: str, ctx: dict) -> dict:
             plain_rep_ms=event_ms(lambda: fmg.generic_tab_bwd_plain(cfg, *args, d_agg),
                                   iters=2, warmup=1),
             wgrad_plain_ms=event_ms(lambda: fmg.generic_tab_bwd_wgrad_plain(
-                cfg, geo2, m0, m1, dy1, dy2, splits), iters=2, warmup=1),
+                cfg, geo2, ms, dys, splits), iters=2, warmup=1),
             table_plain_ms=event_ms(lambda: fmg.generic_tab_bwd_table_plain(cfg, d_hs, loc),
                                     iters=3, warmup=1),
             # the one PyTorch call that computes the table sum: index_add_
@@ -1386,9 +1404,9 @@ def lmax2_train_phases(card: str, ctx: dict) -> dict:
     # bf16 tensor-core peak; the dense folded GEMMs beside them
     fps, dense = kern.flops_per_slot(), cfg.dense_flops_per_slot()
     wsz = nbytes(*ws, *sels)
-    res_bytes = nbytes(h, geo2, loc, gtab, *ys, d_agg, d_hs, d_hr, dy1, dy2, m0, m1) + wsz
-    rep_bytes = nbytes(h, geo2, loc, gtab, d_agg, d_hs, d_hr, dy1, dy2, m0, m1) + wsz
-    wgrad_bytes = nbytes(geo2, m0, m1, dy1, dy2, part)
+    res_bytes = nbytes(h, geo2, loc, gtab, *ys, d_agg, d_hs, d_hr, *dys, *ms) + wsz
+    rep_bytes = nbytes(h, geo2, loc, gtab, d_agg, d_hs, d_hr, *dys, *ms) + wsz
+    wgrad_bytes = nbytes(geo2, *ms, *dys, part)
     table_bytes = nbytes(d_hs, loc) + gtab.numel() * cfg.f * 2
     bounds = {  # the pieces as designed, each from the rows it reads and writes
         "chain_res": bound(res_bytes, fps * n_valid),
@@ -1460,7 +1478,11 @@ def lmax2_train_phases(card: str, ctx: dict) -> dict:
 
 NO_TABLES = dict(gather_loc=None, gather_tab=None, gather_rev=None, gather_tile=0,
                  gather_rev_dense=None, gather_rem_pos=None, gather_rem_node=None)
-UNTAB_OUTPUTS = (("d_hs", True), ("d_hr", True), ("dW1", False), ("dW2", False))
+def untab_outputs(cfg) -> list:
+    """The untabled backwards' outputs (d_hs, d_hr, dW'_1 .. dW'_L): (name,
+    elementwise)."""
+    return [("d_hs", True), ("d_hr", True)] + [(f"dW{i + 1}", False)
+                                               for i in range(len(cfg.widths))]
 
 
 def untabled_inputs(kern, senders, edge_geo, h_ext, lo, hi, dtype, gen):
@@ -1501,7 +1523,7 @@ def untabled_check(label, kern, cfg, args, n_valid, d_agg, times: bool,
         save_same = torch.equal(agg, agg_s)
         p_agg, p_ys = fmg.generic_fwd_plain(cfg, *args, save=True)
         cmp = {nm: bwd_compare(x, y, True, fp32)
-               for nm, x, y in (("agg", agg, p_agg), ("y1", ys[0], p_ys[0]), ("y2", ys[1], p_ys[1]))}
+               for nm, x, y in (("agg", agg, p_agg), *named_ys(ys, p_ys))}
         del agg_s, p_agg, p_ys
         flat = lambda r: [r[0], r[1], *r[2]]
         res = flat(fmg.generic_bwd_kernels(cfg, *args, d_agg, ys=ys))
@@ -1512,7 +1534,7 @@ def untabled_check(label, kern, cfg, args, n_valid, d_agg, times: bool,
             res, flat(fmg.generic_bwd_kernels(cfg, *args, d_agg, ys=ys)))) and all(
             torch.equal(x, y) for x, y in zip(rep, flat(fmg.generic_bwd_kernels(cfg, *args, d_agg))))
         ref = flat(fmg.generic_bwd_plain(cfg, *args, d_agg, ys=ys if same_y else None))
-        for (nm, el), x, y, z in zip(UNTAB_OUTPUTS, res, rep, ref):
+        for (nm, el), x, y, z in zip(untab_outputs(cfg), res, rep, ref, strict=True):
             cmp[f"res.{nm}"] = bwd_compare(x, z, el, fp32)
             cmp[f"rep.{nm}"] = bwd_compare(y, z, el, fp32)
         for mode, got, ys_m in (("res", res[0], ys), ("rep", rep[0], None)):
@@ -1526,13 +1548,15 @@ def untabled_check(label, kern, cfg, args, n_valid, d_agg, times: bool,
                valid_slots=n_valid, compared=cmp, save_agg_equal=save_same,
                res_bitwise_equal_rep=res_eq_rep, bit_identical_reruns=identical,
                max_abs_err=dict(fwd=cmp["agg"]["max_abs_err"],
-                                res=max(cmp[f"res.{nm}"]["max_abs_err"] for nm, _ in UNTAB_OUTPUTS),
-                                rep=max(cmp[f"rep.{nm}"]["max_abs_err"] for nm, _ in UNTAB_OUTPUTS)))
+                                res=max(cmp[f"res.{nm}"]["max_abs_err"]
+                                        for nm, _ in untab_outputs(cfg)),
+                                rep=max(cmp[f"rep.{nm}"]["max_abs_err"]
+                                        for nm, _ in untab_outputs(cfg))))
     if times:
         with torch.no_grad():
-            _, _, dy1, dy2, _, m1 = fmg.generic_bwd_chain(cfg, *args, d_agg)
-            rows = (m1, dy1, dy2)
-            splits = fmg._wgrad_splits(cfg, m1.shape[0], torch.cuda.get_device_properties(
+            _, _, dys, ms = fmg.generic_bwd_chain(cfg, *args, d_agg)
+            rows = (ms, dys)
+            splits = fmg._wgrad_splits(cfg, dys[0].shape[0], torch.cuda.get_device_properties(
                 h.device).multi_processor_count)
             t = dict(
                 fwd_ms=event_ms(lambda: fmg.generic_fwd(cfg, *args), iters=5, warmup=1),
@@ -1560,7 +1584,7 @@ def untabled_check(label, kern, cfg, args, n_valid, d_agg, times: bool,
                 dict(fwd=("generic_fwd_kernel",), rep_chain=("chain_kernel", "Mode)1"),
                      res_chain=("chain_kernel", "Mode)0"), wgrad=("wgrad_kernel",),
                      reduce=("tab_bwd_reduce",)))
-            del rows, dy1, dy2, m1
+            del rows, dys, ms
         # bounds: each input read once, each output written once; 1 (#11), 2
         # (#12) and 3 (#13) passes of the folded weights' nonzeros per valid
         # slot at the bf16 tensor-core peak
@@ -2547,7 +2571,8 @@ def vjp_check(label, kern, cfg, args, n_valid, d_agg, bwd_tile: int, times: bool
         identical = all(torch.equal(x, y) for x, y in zip(got, again))
         del again
         ref = flat(fmg.generic_bwd_vjp_plain(cfg, *args, d_agg, bwd_tile, ys=ys))
-        cmp = {nm: bwd_compare(x, y, el, fp32) for (nm, el), x, y in zip(UNTAB_OUTPUTS, got, ref)}
+        cmp = {nm: bwd_compare(x, y, el, fp32)
+               for (nm, el), x, y in zip(untab_outputs(cfg), got, ref, strict=True)}
         c = cmp["d_hs"]
         if not fp32 and c["over_ulps"]:
             c["explained"] = explain_d_hs(cfg, args, d_agg, None, got[0], ref[0], vjp=True)
@@ -2563,18 +2588,19 @@ def vjp_check(label, kern, cfg, args, n_valid, d_agg, bwd_tile: int, times: bool
     if times:
         g = out["group"]
         with torch.no_grad():
-            rows = fmg.generic_bwd_chain(cfg, *args, d_agg, vjp=True)[2:]
+            dys, ms = fmg.generic_bwd_chain(cfg, *args, d_agg, vjp=True)[2:]
+            rows = (*ms, *dys)
             t = dict(
                 ms=event_ms(lambda: fmg.generic_bwd_vjp_kernels(cfg, *args, d_agg, bwd_tile),
                             iters=3, warmup=1),
                 chain_ms=event_ms(lambda: fmg.generic_bwd_chain(cfg, *args, d_agg, vjp=True),
                                   iters=3, warmup=1),
                 wgrad_ms=event_ms(lambda: fmg.generic_bwd_vjp_wgrad(
-                    cfg, geo2, *rows, bwd_tile * k, 0, g), iters=3, warmup=1),
+                    cfg, geo2, ms, dys, bwd_tile * k, 0, g), iters=3, warmup=1),
                 plain_ms=event_ms(lambda: fmg.generic_bwd_vjp_plain(cfg, *args, d_agg, bwd_tile),
                                   iters=1, warmup=1),
                 wgrad_plain_ms=event_ms(lambda: fmg.generic_bwd_vjp_wgrad_plain(
-                    cfg, geo2, *rows, bwd_tile * k, 0, g), iters=1, warmup=1))
+                    cfg, geo2, ms, dys, bwd_tile * k, 0, g), iters=1, warmup=1))
         # bounds: each input read once, each output written once; #14 whole
         # makes 3 passes of the folded weights' nonzeros per valid slot (the
         # replay, dm, dW'), as #13; its chain 2 (the replay, dm) against the
@@ -2596,7 +2622,7 @@ def vjp_check(label, kern, cfg, args, n_valid, d_agg, bwd_tile: int, times: bool
                             row_bytes(geo2, g * bwd_tile) + g * dws, fps * valid_g)))}
         t["valid_slots_group"] = valid_g
         out["times"] = t
-        del rows
+        del rows, dys, ms
     emit("kernel_vjp", kernels=[fmg.GENERIC_BWD_VJP.name, fmg.GENERIC_BWD_VJP_WGRAD.name,
                                 fm.TAB_BWD_REDUCE.name], **out,
          tolerance=(f"{TOL_BWD_FP32} * max(1, |ref|) elementwise for d_hs, d_hr; "
@@ -2875,7 +2901,8 @@ def ptxas_summary(log: str) -> dict:
     return out
 
 
-def act_tab_check(label, cfg, args, n_valid, d_agg, same_y: bool = False) -> dict:
+def act_tab_check(label, cfg, args, n_valid, d_agg, same_y: bool = False,
+                  line: str = "kernel_act") -> dict:
     """#8 (with and without save), #9 and #10 whole (chain, weight
     gradients, table sum, reduction) against their plain versions at cfg's
     activation (with ``same_y`` the plain backward reads #8's saved ys: see
@@ -2888,8 +2915,7 @@ def act_tab_check(label, cfg, args, n_valid, d_agg, same_y: bool = False) -> dic
         p_agg, p_ys = fmg.generic_tab_fwd_plain(cfg, *args, save=True)
         # #8's agg at its own limit, the save mode's ys at kernel_bwd_lmax2's
         cmp = {"agg": bwd_compare(agg, p_agg, True, fp32, ulps_limit=TOL_GENERIC_BF16_ULPS)}
-        cmp.update({nm: bwd_compare(x, y, True, fp32)
-                    for nm, x, y in (("y1", ys[0], p_ys[0]), ("y2", ys[1], p_ys[1]))})
+        cmp.update({nm: bwd_compare(x, y, True, fp32) for nm, x, y in named_ys(ys, p_ys)})
         save_same = torch.equal(agg, agg_s)
         del agg_s, p_agg, p_ys
         flat = lambda r: [r[0], r[1], *r[2]]
@@ -2907,7 +2933,7 @@ def act_tab_check(label, cfg, args, n_valid, d_agg, same_y: bool = False) -> dic
                save_agg_equal=save_same,
                res_bitwise_equal_rep=res_eq_rep,
                max_abs_err=max(v["max_abs_err"] for v in cmp.values()))
-    emit("kernel_act", **out, tolerance=(
+    emit(line, **out, tolerance=(
         f"{TOL_BWD_FP32} * max(1, |ref|) elementwise for agg, ys, d_hu, d_hr; {TOL_BWD_FP32} * "
         "max|ref| for dW'") if fp32 else (
         f"agg: {TOL_GENERIC_BF16_ULPS} bf16 ulps of max(|ref|, mean|ref|) (kernel_lmax2's); the "
@@ -3055,7 +3081,7 @@ def act_phases(card: str, ctx: dict) -> dict:
     # ---- under tanh at full size: #8/#10 at 1M, #11/#12 at 250k, #11/#13 at
     # the 1M sym-regather shapes, #14 at 250k, #11/#14 at A=36
     main = {}
-    g1m = ctx.pop("g1m")
+    g1m = ctx["g1m"]  # phase 43c trains on both 1M graphs again
     model = lmax2_model(dev)
     kern1m = fmg.FusedMessageGeneric(model.layers[0].message_layers, L2_NEIGHBORS,
                                      SEGNNLayer._pick_generic_tile(L1M_POINTS),
@@ -3082,7 +3108,7 @@ def act_phases(card: str, ctx: dict) -> dict:
     check(not bad, f"1M: #8 / #10 vs plain under {ACT_MAIN}: {bad}")
     main["10_1m"] = max(v["max_abs_err"] for v in cmp.values())
     del cfg, args, d_agg, geo1m
-    g1u = ctx.pop("g1m_untabled")
+    g1u = ctx["g1m_untabled"]
     g250 = graph._replace(**NO_TABLES)
     for label, g, n in (("act_tanh_untabled_250k", g250, L2_POINTS),
                         ("act_tanh_sym_1m", g1u, L1M_POINTS)):
@@ -3179,6 +3205,357 @@ def act_phases(card: str, ctx: dict) -> dict:
          launches_20k={f"{nm}_{dt}": v for (nm, dt), v in launched.items()},
          phase_seconds=time.perf_counter() - t_phase)
     return dict(activations=["silu", *ACT_NAMES], tab_times=tab_t, ratio=ratio)
+
+
+MSG_LAYER_COUNTS = (1, 3)  # SEGNNLayer(num_message_layers=L) besides the default 2
+MSG_ACT = "gelu_tanh"  # the concat-form activation checked at three message layers
+
+
+def msg_layers_model(dev, n_msg: int, use_pallas: bool = True, lmax_attr: int = 2, **kw):
+    """bench.py's lmax=2 model whose 4 layers each run ``n_msg`` gated
+    message layers, built as a user of the JAX package would: the model's
+    layers replaced by ``SEGNNLayer(..., num_message_layers=n_msg)``; the
+    weights from the seed."""
+    model = port.SEGNN("2x0e+1x1o", L2_HIDDEN, "1x1o", lmax_attr=lmax_attr, num_layers=NUM_LAYERS,
+                       layout="cm", use_pallas=use_pallas, device=dev,
+                       generator=torch.Generator().manual_seed(SEED), **kw)
+    gen = torch.Generator().manual_seed(SEED + 70)
+    model.layers = torch.nn.ModuleList(
+        SEGNNLayer(model.hidden_irreps, model.attr_irreps, num_message_layers=n_msg, layout="cm",
+                   use_pallas=use_pallas, device=dev, generator=gen, **kw)
+        for _ in range(NUM_LAYERS))
+    return model
+
+
+def msg_grad_check(dev, g_gc, t_gc, n_msg: int) -> dict:
+    """fp32 gradients of every parameter of the ``n_msg``-message-layer
+    model through #8/#9 on the tabled 20k graph against autograd through the
+    plain path."""
+    m_p = msg_layers_model(dev, n_msg, use_pallas=False)
+    attrs = geo_only(m_p, g_gc, torch.float32)
+    loss_p = mse_loss(m_p(g_gc, attrs=attrs), t_gc)
+    loss_p.backward()
+    m_k = msg_layers_model(dev, n_msg)
+    m_k.load_state_dict(m_p.state_dict())
+    before = fmg.GENERIC_TAB_BWD_RES.launches
+    loss_k = mse_loss(m_k(g_gc, attrs=attrs), t_gc)
+    loss_k.backward()
+    worst, worst_name = 0.0, ""
+    for (nm, a), b in zip(m_k.named_parameters(), m_p.parameters(), strict=True):
+        rel = float((a.grad - b.grad).abs().max()) / max(float(b.grad.abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, nm
+    launches = fmg.GENERIC_TAB_BWD_RES.launches - before
+    check(launches == NUM_LAYERS, f"gradient check at L={n_msg}: {launches} launches of #9")
+    check(worst <= TOL_GRAD_FP32, f"fp32 gradients at L={n_msg}: {worst_name} off by {worst}")
+    check(abs(loss_k.item() - loss_p.item()) <= 1e-5 * loss_p.item(), f"losses at L={n_msg}")
+    return dict(loss_kernel=loss_k.item(), loss_plain=loss_p.item(), worst_param=worst_name,
+                worst_rel_err=worst, launches_9=launches)
+
+
+def msg_time(fn, plain, n_bytes: int, flops: float, dense_flops: float, iters: int = 2) -> dict:
+    """CUDA-event ms per call of ``fn`` (and of its plain version, one call),
+    its bound from the folded nonzeros' flops and the dense folded GEMMs'."""
+    b, d = bound(n_bytes, flops), bound(n_bytes, dense_flops)
+    return dict(ms=event_ms(fn, iters=iters, warmup=1),
+                plain_ms=event_ms(plain, iters=1, warmup=0) if plain is not None else None,
+                bound_ms=b[0], bound_by=b[1], dense_bound_ms=d[0], dense_bound_by=d[1])
+
+
+def msg_layers_phases(card: str, ctx: dict) -> dict:
+    """Phase 43c, msg_layers: the generic kernels #8-#14 with one and three
+    message layers per SEGNN layer (``SEGNNLayer(num_message_layers=L)``;
+    the kernels' layer table, one CUDA build).  Returns the ``kernels``
+    line's numbers per kernel and L.
+
+    - kernel_msg / kernel_untabled / kernel_vjp at 20k points (the 250k
+      density, tables at tile 200), L = 1 and 3, fp32 and bf16: #8 (and
+      save), #9, #10, #11 (and save), #12, #13 and #14 against their plain
+      versions at the two-layer limits; every kernel of the silu library
+      launched in both types; at L=3 the same under gelu_tanh (the concat
+      form) and #11/#14 on three A=36 (``lmax_attr=5``) layers.
+    - grad_check_msg: fp32 gradients of the L=1 and L=3 models at 20k.
+    - train_msg: bench.py's 250k model at L = 1, 3 (and 2, the reference):
+      a counted forward (4 of #8), 3 counted ``remat`` steps (4 of #8 and 4
+      of #9 a step), the same without tables (4 of #11 save, 4 of #12), at
+      L=3 2 steps with neither hand-structured backward (``residual_bwd``
+      and ``replay_bwd`` off: #11, #14); losses falling;
+      forward and step ms beside the L=2 model's; peak memory.  At 1M, L=3:
+      2 counted ``remat_kernel`` steps (4 of #8, 4 of #10), then the
+      sym-regather step (4 of #11, 4 of #13); peak memory.
+    - msg_times: #8, #9, #11, #12, #14 per launch at the 250k shapes, #10
+      and #13 at 1M, at L = 1 and 3, with their bounds and plain versions."""
+    dev = torch.device(DEVICE)
+    bf = torch.bfloat16
+    t_phase = time.perf_counter()
+    code = {a.name: a.code for a in ACTIVATIONS}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 70)
+    # ---- every route at 20k points, L = 1 and 3, fp32 and bf16
+    pts = np.random.default_rng(SEED + 71).random((GC2_POINTS, 3)).astype(np.float32)
+    tile = SEGNNLayer._pick_generic_tile(GC2_POINTS)
+    levels = max(4, search_level_for_radius(GC2_RADIUS, LO, HI) + 1)
+    _, _, _, g20, _ = build_graph(pts, radius=GC2_RADIUS, levels=levels, k=L2_NEIGHBORS,
+                                  tile=tile)
+    n20 = GC2_POINTS
+    small, launched, rows = {}, {}, {}
+    for n_msg in MSG_LAYER_COUNTS:
+        model = msg_layers_model(dev, n_msg)
+        kern20 = fmg.FusedMessageGeneric(model.layers[0].message_layers, L2_NEIGHBORS, tile,
+                                         residual_bwd=False, replay_bwd=False)
+        geo20 = geo_only(model, g20, torch.float32)[3]
+        for dtype in (torch.float32, bf):
+            cfg_t, args_t, nv_t = generic_kernel_inputs(kern20, g20, geo20, dtype, gen)
+            check(len(cfg_t.widths) == n_msg, f"{n_msg} message layers: {cfg_t.widths}")
+            h_ext = torch.randn((n20, cfg_t.f), generator=gen, device=dev)
+            cfg_u, args_u, nv_u = untabled_inputs(kern20, g20.senders, geo20, h_ext, 0, n20,
+                                                  dtype, gen)
+            del h_ext
+            d_agg = torch.randn((n20, cfg_t.out_dim), generator=gen, device=dev).to(dtype)
+            for act in ("silu", MSG_ACT) if n_msg == 3 else ("silu",):
+                c_t = dataclasses.replace(cfg_t, act=code[act])
+                c_u = dataclasses.replace(cfg_u, act=code[act])
+                lab = f"msg{n_msg}_{act}_20k"
+                before = launch_counts()
+                small[(n_msg, act, str(dtype).replace("torch.", ""))] = dict(
+                    tabled=act_tab_check(lab, c_t, args_t, nv_t, d_agg,
+                                         line="kernel_msg")["max_abs_err"],
+                    untabled=untabled_check(lab, kern20, c_u, args_u, nv_u, d_agg,
+                                            times=False)["max_abs_err"],
+                    vjp=vjp_check(lab, kern20, c_u, args_u, nv_u, d_agg, VJP_TILES[1],
+                                  times=False)["max_abs_err"])
+                moved = {k_.name: k_.launches - before[k_.name] for k_ in ACT_KERNELS}
+                launched[(n_msg, act, str(dtype).replace("torch.", ""))] = moved
+                check(all(v > 0 for v in moved.values()),
+                      f"{lab} {dtype}: a kernel of the library was not launched: {moved}")
+            del cfg_t, args_t, cfg_u, args_u, d_agg
+        del model, kern20, geo20
+    # three A=36 (lmax_attr=5) layers: #11 and #14 (the non-foldable dispatch)
+    model5 = msg_layers_model(dev, 3, lmax_attr=SPARSE_LMAX_ATTR)
+    kern5 = fmg.FusedMessageGeneric(model5.layers[0].message_layers, L2_NEIGHBORS, tile)
+    check(not (kern5.residual_bwd or kern5.replay_bwd), "A=36: the layers fold")
+    geo5 = geo_only(model5, g20, torch.float32)[3]
+    attr36 = {}
+    for dtype in (torch.float32, bf):
+        h_ext = torch.randn((n20, kern5.config(36, 0).f), generator=gen, device=dev)
+        cfg5, args5, nv5 = untabled_inputs(kern5, g20.senders, geo5, h_ext, 0, n20, dtype, gen)
+        check(cfg5.a == 36 and len(cfg5.widths) == 3, "A=36: three message layers")
+        del h_ext
+        d_agg5 = torch.randn((n20, cfg5.out_dim), generator=gen, device=dev).to(dtype)
+        with torch.no_grad():
+            fwd5 = bwd_compare(fmg.generic_fwd(cfg5, *args5), fmg.generic_fwd_plain(cfg5, *args5),
+                               True, dtype == torch.float32)
+        check(not fwd5["over"] and fwd5["finite"], f"#11 at A=36, L=3, {dtype}: {fwd5}")
+        v5 = vjp_check("msg3_attr36_20k", kern5, cfg5, args5, nv5, d_agg5, VJP_TILES[1],
+                       times=dtype == bf)
+        attr36[str(dtype).replace("torch.", "")] = dict(fwd=fwd5["max_abs_err"],
+                                                        vjp=v5["max_abs_err"])
+        if dtype == bf:
+            t5 = v5["times"]
+            with torch.no_grad():
+                rows["attr36_3"] = dict(
+                    fwd=msg_time(lambda: fmg.generic_fwd(cfg5, *args5),
+                                 lambda: fmg.generic_fwd_plain(cfg5, *args5),
+                                 nbytes(*args5[:3], *args5[3], *args5[4]) + 2 * n20 * cfg5.out_dim,
+                                 kern5.flops_per_slot() * nv5, cfg5.dense_flops_per_slot() * nv5),
+                    vjp=dict(ms=t5["ms"], plain_ms=t5["plain_ms"],
+                             bound_ms=t5["bounds"]["whole"]["bound_ms"],
+                             bound_by=t5["bounds"]["whole"]["bound_by"]))
+        del cfg5, args5, d_agg5
+    del model5, kern5, geo5
+    # ---- fp32 gradients of the L=1 and L=3 models at 20k points
+    t_gc = torch.from_numpy(np.random.default_rng(SEED + 72).standard_normal(
+        (n20, 3)).astype(np.float32)).to(dev)
+    gc = {n_msg: msg_grad_check(dev, g20, t_gc, n_msg) for n_msg in MSG_LAYER_COUNTS}
+    emit("grad_check_msg", points=n20, k=L2_NEIGHBORS, tile=tile, layers=NUM_LAYERS,
+         dtype="float32", backward="residual (#8 save, #9)",
+         message_layers={str(k_): v for k_, v in gc.items()},
+         tolerance=f"{TOL_GRAD_FP32} * max|ref| per parameter; fp32 sums in another order")
+    del g20, t_gc
+    t_small = time.perf_counter() - t_phase
+    # ---- bench.py's 250k model at L = 2 (reference), 1, 3
+    graph = ctx["graph"]
+    g250u = graph._replace(**NO_TABLES)
+    n = L2_POINTS
+    target = torch.from_numpy(np.random.default_rng(SEED + 73).standard_normal(
+        (n, 3)).astype(np.float32)).to(dev)
+    per_tab = {fmg.GENERIC_TAB_FWD.name: NUM_LAYERS, fmg.GENERIC_TAB_BWD_RES.name: NUM_LAYERS,
+               fmg.GENERIC_TAB_BWD_WGRAD.name: NUM_LAYERS,
+               fmg.GENERIC_TAB_BWD_TABLE.name: NUM_LAYERS, fm.TAB_BWD_REDUCE.name: NUM_LAYERS}
+    per_untab = {fmg.GENERIC_FWD.name: NUM_LAYERS, fmg.GENERIC_BWD_RES.name: NUM_LAYERS,
+                 fmg.GENERIC_TAB_BWD_WGRAD.name: NUM_LAYERS, fm.TAB_BWD_REDUCE.name: NUM_LAYERS}
+    fwd_ms, step_ms, losses, peak = {}, {}, {}, {}
+    g_bf, gu_bf = graph._replace(nodes=graph.nodes.to(bf)), g250u._replace(nodes=g250u.nodes.to(bf))
+    for n_msg in (2, *MSG_LAYER_COUNTS):
+        model = msg_layers_model(dev, n_msg, remat=True)
+        check(all(layer._tab_eligible(n, graph) for layer in model.layers),
+              f"250k, L={n_msg}: not the tabled path")
+        attrs = geo_only(model, graph, bf)
+        p_bf = {k_: w.to(bf) for k_, w in model.named_parameters()}
+        fwd = lambda m=model, p=p_bf, a=attrs: torch.func.functional_call(m, p, (g_bf,),
+                                                                           {"attrs": a})
+        with torch.no_grad():
+            reset_launches()
+            out = fwd()
+            torch.cuda.synchronize()
+            check(launch_counts() == expected({fmg.GENERIC_TAB_FWD.name: NUM_LAYERS}),
+                  f"250k forward at L={n_msg}: {nonzero(launch_counts())}")
+            check(tuple(out.shape) == (n, 3) and bool(torch.isfinite(out).all()),
+                  f"250k forward at L={n_msg}: {tuple(out.shape)}")
+            fwd_ms[n_msg] = event_ms(fwd, iters=2, warmup=0)
+        del out, p_bf, fwd
+        step = train_run(model, g_bf, attrs, target, L2_TRAIN_STEPS, card, "train_msg",
+                         expected(per_tab), points=n, message_layers=n_msg, tables=True,
+                         remat=True)
+        losses[(n_msg, "tabled")] = step.losses
+        peak[(n_msg, "tabled")] = torch.cuda.max_memory_allocated() / 1e9
+        check(step.losses[-1] < step.losses[0], f"250k L={n_msg}: losses {step.losses}")
+        step_ms[n_msg] = event_ms(lambda: step(g_bf, attrs, target), iters=2, warmup=0)
+        del step, model, attrs
+        if n_msg == 2:
+            continue
+        modes = [("untabled", dict(remat=True), expected(per_untab))]
+        if n_msg == 3:
+            m_v = msg_layers_model(dev, 3, remat=True, residual_bwd=False, replay_bwd=False)
+            modes.append(("vjp", dict(remat=True, residual_bwd=False, replay_bwd=False), expected({
+                fmg.GENERIC_FWD.name: NUM_LAYERS, **vjp_launches(m_v, n, 200)})))
+            del m_v
+        for mode, kw, want in modes:
+            model = msg_layers_model(dev, n_msg, **kw)
+            attrs = geo_only(model, g250u, bf)
+            step = train_run(model, gu_bf, attrs, target, L2_TRAIN_STEPS if mode == "untabled"
+                             else 2, card, "train_msg", want, points=n, message_layers=n_msg,
+                             tables=False, **kw)
+            losses[(n_msg, mode)] = step.losses
+            peak[(n_msg, mode)] = torch.cuda.max_memory_allocated() / 1e9
+            check(step.losses[-1] < step.losses[0], f"250k L={n_msg} {mode}: {step.losses}")
+            del step, model, attrs
+    del g_bf, gu_bf, target
+    # ---- 1M at L=3: remat_kernel (#8, #10), then the sym-regather step (#11, #13)
+    g1m, g1u = ctx["g1m"], ctx["g1m_untabled"]
+    n1 = L1M_POINTS
+    target = torch.from_numpy(np.random.default_rng(SEED + 74).standard_normal(
+        (n1, 3)).astype(np.float32)).to(dev)
+    for mode, g, want in (
+            ("remat_kernel", g1m, {fmg.GENERIC_TAB_FWD.name: NUM_LAYERS,
+                                   fmg.GENERIC_TAB_BWD_REP.name: NUM_LAYERS,
+                                   fmg.GENERIC_TAB_BWD_WGRAD.name: NUM_LAYERS,
+                                   fmg.GENERIC_TAB_BWD_TABLE.name: NUM_LAYERS,
+                                   fm.TAB_BWD_REDUCE.name: NUM_LAYERS}),
+            ("sym", g1u, {fmg.GENERIC_FWD.name: NUM_LAYERS, fmg.GENERIC_BWD_REP.name: NUM_LAYERS,
+                          fmg.GENERIC_TAB_BWD_WGRAD.name: NUM_LAYERS,
+                          fm.TAB_BWD_REDUCE.name: NUM_LAYERS})):
+        model = msg_layers_model(dev, 3, remat=True, remat_kernel=True)
+        check(all((layer._tab_eligible(n1, g) if mode == "remat_kernel" else
+                   layer._sym_regather_eligible(n1, True) and not layer._tab_eligible(n1, g))
+                  for layer in model.layers), f"1M L=3: not the {mode} path")
+        attrs = geo_only(model, g, bf)
+        g_bf = g._replace(nodes=g.nodes.to(bf))
+        step = train_run(model, g_bf, attrs, target, L1M_TRAIN_STEPS if mode == "remat_kernel"
+                         else 1, card, "train_msg", expected(want), points=n1, message_layers=3,
+                         tables=mode == "remat_kernel", remat=True, remat_kernel=True)
+        losses[(3, f"1m_{mode}")] = step.losses
+        peak[(3, f"1m_{mode}")] = torch.cuda.max_memory_allocated() / 1e9
+        step_ms[f"3_1m_{mode}"] = step.step_ms[-1]
+        if mode == "remat_kernel":
+            check(step.losses[-1] < step.losses[0], f"1M L=3: losses {step.losses}")
+        check(peak[(3, f"1m_{mode}")] < 80, f"1M L=3 {mode}: {peak[(3, f'1m_{mode}')]} GB")
+        del step, model, attrs, g_bf
+    del target
+    emit("train_msg_summary", card=card, forward_ms={str(k_): v for k_, v in fwd_ms.items()},
+         step_ms={str(k_): v for k_, v in step_ms.items()},
+         step_ratio_to_l2={str(k_): step_ms[k_] / step_ms[2] for k_ in MSG_LAYER_COUNTS},
+         forward_ratio_to_l2={str(k_): fwd_ms[k_] / fwd_ms[2] for k_ in MSG_LAYER_COUNTS},
+         losses={f"{a}_{b}": v for (a, b), v in losses.items()},
+         peak_mem_gb={f"{a}_{b}": v for (a, b), v in peak.items()},
+         order="L = 2, 1, 3 at 250k (2 timed after the counted steps); 1M at L=3 the last "
+               "counted step")
+    # ---- the kernels per launch at L = 1 and 3: 250k (#8, #9, #11, #12, #14), 1M (#10, #13)
+    geo_m = geo_only(lmax2_model(dev), graph, torch.float32)[3]
+    geo_1m = geo_only(lmax2_model(dev), g1m, torch.float32)[3]
+    for n_msg in MSG_LAYER_COUNTS:
+        model = msg_layers_model(dev, n_msg)
+        mls = model.layers[0].message_layers
+        kern = fmg.FusedMessageGeneric(mls, L2_NEIGHBORS, SEGNNLayer._pick_generic_tile(n))
+        fps = kern.flops_per_slot()
+        cfg, args, nv = generic_kernel_inputs(kern, graph, geo_m, bf, gen)
+        dense = cfg.dense_flops_per_slot()
+        d_agg = torch.randn((n, cfg.out_dim), generator=gen, device=dev).to(bf)
+        out_b = nbytes(args[0]) // args[0].shape[1] * cfg.out_dim
+        dws = 4 * cfg.nw
+        r = {}
+        with torch.no_grad():
+            ys = fmg.generic_tab_fwd(cfg, *args, save=True)[1]
+            ab = nbytes(*args[:4], *args[4], *args[5])
+            r[fmg.GENERIC_TAB_FWD.name] = msg_time(
+                lambda: fmg.generic_tab_fwd(cfg, *args), lambda: fmg.generic_tab_fwd_plain(
+                    cfg, *args), ab + out_b, fps * nv, dense * nv)
+            r[fmg.GENERIC_TAB_BWD_RES.name] = msg_time(
+                lambda: fmg.generic_tab_bwd_kernels(cfg, *args, d_agg, ys=ys),
+                lambda: fmg.generic_tab_bwd_plain(cfg, *args, d_agg, ys=ys),
+                ab + nbytes(d_agg, *ys) + 2 * nbytes(args[0]) + dws, 2 * fps * nv, 2 * dense * nv)
+            del ys, cfg, args
+            h_ext = torch.randn((n, kern.config(9, 0).f), generator=gen, device=dev)
+            cfg, args, nv = untabled_inputs(kern, graph.senders, geo_m, h_ext, 0, n, bf, gen)
+            del h_ext
+            ab = nbytes(*args[:3], *args[3], *args[4])
+            ys = fmg.generic_fwd(cfg, *args, save=True)[1]
+            r[fmg.GENERIC_FWD.name] = msg_time(
+                lambda: fmg.generic_fwd(cfg, *args), lambda: fmg.generic_fwd_plain(cfg, *args),
+                ab + out_b, fps * nv, dense * nv)
+            r[fmg.GENERIC_BWD_RES.name] = msg_time(
+                lambda: fmg.generic_bwd_kernels(cfg, *args, d_agg, ys=ys),
+                lambda: fmg.generic_bwd_plain(cfg, *args, d_agg, ys=ys),
+                ab + nbytes(d_agg, *ys) + nbytes(args[0], args[1]) + dws, 2 * fps * nv,
+                2 * dense * nv)
+            del ys
+            r[fmg.GENERIC_BWD_VJP.name] = msg_time(
+                lambda: fmg.generic_bwd_vjp_kernels(cfg, *args, d_agg, VJP_TILES[0]),
+                lambda: fmg.generic_bwd_vjp_plain(cfg, *args, d_agg, VJP_TILES[0]),
+                ab + nbytes(d_agg) + nbytes(args[0], args[1]) + dws, 3 * fps * nv,
+                3 * dense * nv)
+            del cfg, args, d_agg
+            # 1M: #10 (tables) and #13 (the sym-regather shapes)
+            kern1 = fmg.FusedMessageGeneric(mls, L2_NEIGHBORS, SEGNNLayer._pick_generic_tile(n1),
+                                            residual_bwd=False)
+            cfg, args, nv1 = generic_kernel_inputs(kern1, g1m, geo_1m, bf, gen)
+            d_agg = torch.randn((n1, cfg.out_dim), generator=gen, device=dev).to(bf)
+            ab = nbytes(*args[:4], *args[4], *args[5])
+            r[fmg.GENERIC_TAB_BWD_REP.name] = msg_time(
+                lambda: fmg.generic_tab_bwd_kernels(cfg, *args, d_agg),
+                lambda: fmg.generic_tab_bwd_plain(cfg, *args, d_agg),
+                ab + nbytes(d_agg) + 2 * nbytes(args[0]) + dws, 3 * fps * nv1, 3 * dense * nv1,
+                iters=1)
+            del cfg, args
+            h_ext = torch.randn((n1, kern1.config(9, 0).f), generator=gen, device=dev)
+            cfg, args, nv1 = untabled_inputs(kern1, g1u.senders, geo_1m, h_ext, 0, n1, bf, gen)
+            del h_ext
+            ab = nbytes(*args[:3], *args[3], *args[4])
+            r[fmg.GENERIC_BWD_REP.name] = msg_time(
+                lambda: fmg.generic_bwd_kernels(cfg, *args, d_agg),
+                lambda: fmg.generic_bwd_plain(cfg, *args, d_agg),
+                ab + nbytes(d_agg) + nbytes(args[0], args[1]) + dws, 3 * fps * nv1,
+                3 * dense * nv1, iters=1)
+            del cfg, args, d_agg
+        rows[n_msg] = r
+        del model, kern, kern1
+    del geo_m, geo_1m, g1m, g1u
+    ctx.pop("g1m")
+    ctx.pop("g1m_untabled")
+    per_step = {  # launches per 250k step (#10, #13: per 1M step), each model at L
+        fmg.GENERIC_TAB_FWD.name: NUM_LAYERS, fmg.GENERIC_TAB_BWD_RES.name: NUM_LAYERS,
+        fmg.GENERIC_TAB_BWD_REP.name: NUM_LAYERS, fmg.GENERIC_FWD.name: NUM_LAYERS,
+        fmg.GENERIC_BWD_RES.name: NUM_LAYERS, fmg.GENERIC_BWD_REP.name: NUM_LAYERS,
+        fmg.GENERIC_BWD_VJP.name: NUM_LAYERS}
+    emit("msg_times", card=card,
+         kernels={f"{nm}_L{k_}": v for k_ in MSG_LAYER_COUNTS for nm, v in rows[k_].items()},
+         attr36_L3=rows.get("attr36_3"), launches_per_step=per_step,
+         shapes="#8, #9, #11, #12, #14 at 250k (backward tile 200); #10, #13 at 1M; bf16")
+    seconds = time.perf_counter() - t_phase
+    emit("msg_layers", message_layers=list(MSG_LAYER_COUNTS), activations=["silu", MSG_ACT],
+         max_abs_err_20k={f"L{a}_{b}_{c}": v for (a, b, c), v in small.items()},
+         attr36_L3=attr36, launches_20k={f"L{a}_{b}_{c}": v for (a, b, c), v in launched.items()},
+         seconds_20k=t_small, phase_seconds=seconds)
+    return dict(rows=rows, per_step=per_step, small=small)
 
 
 DIST_PARTS = 4  # the partitioned runs' P (and 1, the degenerate halo)
@@ -5231,6 +5608,9 @@ def main() -> int:
 
     # ---- 43b. #8-#14 under the other gate activations
     act = act_phases(card, l2ctx)
+
+    # ---- 43c. #8-#14 at one and three message layers
+    msg = msg_layers_phases(card, l2ctx)
     del l2ctx
 
     # ---- 24-27. config 5: 10M points, edge_chunks, remat_layers (#11, #13)
@@ -5346,6 +5726,9 @@ def main() -> int:
             row["name"])
         if key:
             row["ms_250k_by_activation"] = {nm: t[key] for nm, t in act["tab_times"].items()}
+        if row["name"] in generic:  # phase 43c's per-launch times at L = 1 and 3
+            row["message_layers"] = {f"L{k_}": msg["rows"][k_].get(row["name"])
+                                     for k_ in MSG_LAYER_COUNTS}
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

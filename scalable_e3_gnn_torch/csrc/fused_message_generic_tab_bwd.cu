@@ -9,11 +9,13 @@
 // transpose chain _transpose_chain with the VJP of Gate.fast_apply, and the
 // fallback _bwd_call (#14: an in-kernel jax.vjp of the tile forward, the same
 // chain with the rounding of JAX's AD, see below).  Given the cotangent
-// d_agg [N, dk2] of
+// d_agg [N, dk_L] of
 //
 //   m0 = [x_s || h[i] || d2],  y_l = sum_c (m_l W_l[c]) attr_c,
-//   m_l+1 = y_l[:, :dk_l] * sigmoid(y_l)[:, sel_l],   agg[i] = sum_k mask * m_2,
+//   m_l+1 = y_l[:, :dk_l] * sigmoid(y_l)[:, sel_l],   agg[i] = sum_k mask * m_L,
 //
+// for any number L >= 1 of message layers (the widths from the wrapper's
+// layer table, generic_mma.cuh LayerField; L is a runtime value),
 // (x_s = h[gtab[i / tile, loc[i,k]]] tabled, hs[k, i] untabled) per slot and
 // layer, last to first: dy = VJP of the gate at y; dya_c = dy attr_c;
 // dW_l[c] += m_l^T dya_c; dm_l-1 = sum_c dya_c W_l[c]^T.  Outputs: the sender
@@ -22,7 +24,7 @@
 // d_hr [N, F] (receiver cotangents summed over the K slots) and the fp32
 // weight gradients.
 //
-// Rounding points (the TPU kernel's): dm_2 = d_agg * mask rounded to the data
+// Rounding points (the TPU kernel's): dm_L = d_agg * mask rounded to the data
 // type; the gate VJP as JAX's AD computes it (dout * multiplier and dout * y
 // rounded; the selection transpose summed in fp32 and rounded; the sigmoid's
 // VJP g * (s * (1 - s)) in fp32 and rounded; the two branches added and
@@ -40,17 +42,20 @@
 //    by a flag).  One block owns whole receivers
 //    (64 slot rows: 4 warps, two blocks an SM, in bf16; 8 warps in fp32), as
 //    kernel #8 does, and runs the
-//    chain for its rows: in replay mode the two forward GEMMs of #8 (the same
+//    chain for its rows: in replay mode the forward GEMMs of #8 (the same
 //    engine, csrc/generic_mma.cuh, so both modes give bitwise the same y), in
-//    residual mode a load of the saved y; then per layer the gate VJP (a warp
-//    per row, in place over y) and the dm GEMM.  In bf16 every GEMM runs on
+//    residual mode a load of the saved y; then per layer, last first, the
+//    gate VJP (a warp per row, in place over y) and the dm GEMM.  Two y
+//    buffers serve any L: a replayed y_l waits in the block's own dy_l rows
+//    in global memory (L2-resident) until its VJP, and is read back while the
+//    dm GEMM above it runs.  In bf16 every GEMM runs on
 //    that engine: mma.sync over only the 16x8 weight tiles that hold a
 //    structural nonzero (the forward's tiles for the replay, a second tiling
 //    of W^T for dm, components last first for #14), streamed by cp.async.bulk
 //    through a 4-stage mbarrier ring that runs across the GEMMs (the next
 //    GEMM's tiles load during the gate VJP).  It writes, per slot row, each
-//    layer's dy and m_1 (for the weight gradients; m_0 only where a kernel
-//    reads it: tabled, and #14), the rounded sender cotangent d_hs (tabled:
+//    layer's dy and m_1 .. m_L-1 (for the weight gradients; m_0 only where a
+//    kernel reads it: tabled, and #14), the rounded sender cotangent d_hs (tabled:
 //    [N*K, F] node-major, for the table sum; untabled: [K, N, F], the
 //    kernel's output), and per receiver d_hr.
 // 2. wgrad.  dW_l[c] = m_l^T (dy_l attr_c) sums over all N*K slot rows: 1.05
@@ -165,15 +170,16 @@ __host__ __device__ inline long align16(long bytes) { return (bytes + 15) / 16 *
 
 struct Dims {
   int n, f, k, a, tile, u;
-  int c1a, da, dk1, c1b, db, dk2;
+  int nl;          // message layers
+  int dk_last;     // the cotangent's width (the last layer's gate outputs)
   int rows, rb;    // chain: slot rows per block, receivers per block
   int ldm;         // m / dm row stride (elements)
   int ldy;         // y / dy row stride (elements)
   int ldw, wbuf;   // fp32: weight-slice row stride, elements per weight buffer
   int nbuf;        // fp32: one weight buffer (bf16: none, the engine's ring)
   int gs;          // geometry per slot: a + 2
-  int ldg1, ldg2;  // dy rows in global memory (D rounded up to 8)
-  int kp0, kp1;    // m_0 / m_1 rows in global memory (C1 rounded up to 16)
+  int gate_ints;   // chain: every layer's selections and inverse tables (2 dk + D + 1 each)
+  long nw;         // weight-gradient entries of every layer: A sum C1 D
   int splits;      // wgrad: row ranges
   int ldz;         // wgrad: dya row stride
   int trows, tile0;  // wgrad, per tile (#14): slot rows per tile, the first tile
@@ -181,13 +187,24 @@ struct Dims {
   int nmasks;        // chain, bf16: the plan's masks (A x (C1/16 + D/16) per layer)
 };
 
+// w3: the layers' (C1, D, dk), nl of them (host memory)
 __host__ __device__ inline Dims make_dims(bool mma, int n, int f, int k, int a, int tile, int u,
-                                          int c1a, int da, int dk1, int c1b, int db, int dk2) {
+                                          int nl, const int* w3) {
   Dims d;
   d.n = n; d.f = f; d.k = k; d.a = a; d.tile = tile; d.u = u;
-  d.c1a = c1a; d.da = da; d.dk1 = dk1; d.c1b = c1b; d.db = db; d.dk2 = dk2;
-  const int c1max = c1a > c1b ? c1a : c1b;
-  const int dmax = da > db ? da : db;
+  d.nl = nl;
+  int c1max = 0, dmax = 0, steps = 0;
+  d.gate_ints = 0;
+  d.nw = 0;
+  for (int l = 0; l < nl; ++l) {
+    const int c1 = w3[3 * l], dd = w3[3 * l + 1], dk = w3[3 * l + 2];
+    c1max = c1 > c1max ? c1 : c1max;
+    dmax = dd > dmax ? dd : dmax;
+    steps += (c1 + 15) / 16 + (dd + 15) / 16;
+    d.gate_ints += 2 * dk + dd + 1;
+    d.nw += (long)a * c1 * dd;
+  }
+  d.dk_last = nl > 0 ? w3[3 * nl - 1] : 0;
   d.rows = mma ? kRowsMma : kRowsFma;
   d.rb = k > 0 ? d.rows / k : 0;
   // row strides: 16-byte rows whose 16-byte count is odd (conflict-free
@@ -205,23 +222,19 @@ __host__ __device__ inline Dims make_dims(bool mma, int n, int f, int k, int a, 
     d.nbuf = 1;
   }
   d.gs = a + 2;
-  d.ldg1 = round_up(da, 8);
-  d.ldg2 = round_up(db, 8);
-  d.kp0 = round_up(c1a, 16);
-  d.kp1 = round_up(c1b, 16);
   d.splits = 1;
   d.trows = 0;
   d.tile0 = 0;
   d.stages = 0;
-  d.nmasks = a * ((c1a + 15) / 16 + (c1b + 15) / 16 + (da + 15) / 16 + (db + 15) / 16);
+  d.nmasks = a * steps;
   return d;
 }
 
-// chain shared memory: geometry, ints (senders, receivers, selections and
-// their inverse tables), the per-warp gate scratch, m, y_1, y_2, weights
-__host__ __device__ inline long chain_ints(const Dims& d) {
-  return 2L * d.rows + 2L * d.dk1 + 2L * d.dk2 + d.da + d.db + 2;
-}
+// chain shared memory: geometry, ints (senders, receivers, every layer's
+// selections and inverse tables), the per-warp gate scratch, m, and two y
+// buffers (the layer whose VJP runs and the one below it, whose y comes
+// back from global memory while the dm product runs), weights
+__host__ __device__ inline long chain_ints(const Dims& d) { return 2L * d.rows + d.gate_ints; }
 template <typename T>
 __host__ __device__ inline long chain_rows_smem(const Dims& d) {
   return align16((long)sizeof(T) * d.rows * d.gs) + align16(4L * chain_ints(d)) +
@@ -531,7 +544,7 @@ __device__ void gate_vjp(T* Y, int dd, int dk, const int* sel, const int* invs, 
   }
 }
 
-// the inverse selection of both layers: counts in parallel, the prefix sum
+// the inverse selection of one layer: counts in parallel, the prefix sum
 // on one thread, the lists in parallel (each in ascending lane order)
 __device__ void build_inverse(const int* sel, int dk, int dd, int* invs, int* invl) {
   for (int s = threadIdx.x; s < dd; s += blockDim.x) {
@@ -599,73 +612,111 @@ __device__ __forceinline__ void store_rows(T* __restrict__ out, int width, const
   }
 }
 
-// ---------------------------------------------------------------------------
+// one layer's y rows (dd wide, lds elements apart in global memory from the
+// block's first slot row e0) into Y [rows][ldy]: 4-byte cp.async where the
+// rows align (the caller waits, cp_async_wait_all, then its block barrier),
+// else plain loads; rows past the receivers are zero (only columns < dd are
+// read before the gate VJP writes the row)
+template <typename T>
+__device__ void load_y_rows(T* Y, const T* __restrict__ src, int dd, int lds, const int* rnode,
+                            long e0, const Dims& d) {
+  constexpr int E = sizeof(T) == 4 ? 1 : 2;  // elements per 4-byte word
+  const bool words = E == 1 || (dd % 2 == 0 && lds % 2 == 0);
+  const int per = words ? dd / E : dd;
+  const int step = words ? E : 1;
+  for (int w = threadIdx.x; w < d.rows * per; w += blockDim.x) {
+    const int r = w / per, j = (w % per) * step;
+    T* dst = Y + r * d.ldy + j;
+    if (rnode[r] < 0) {
+      dst[0] = from_f<T>(0.f);
+      if (step == 2) dst[1] = from_f<T>(0.f);
+    } else if (words) {
+      gmma::cp_async4(dst, src + (e0 + r) * lds + j);
+    } else {
+      dst[0] = src[(e0 + r) * lds + j];
+    }
+  }
+}
+
 // 1. The chain: kernel #9 (Mode::kResidual) and #10 (Mode::kReplay) with TAB
 // (senders through loc/gtab, rows of h; d_hs node-major), #12, #13 and #14
 // (Mode::kVjp) without (slot k of receiver i reads row k*N + i of hs [K, N, F]
 // and writes d_hs there).  kVjp replays as kReplay and differs in the dm
 // GEMMs' rounding (gmma::gemm_dm_vjp); in fp32 that rounding is the identity,
 // so the fp32 instance of kVjp is kReplay's.  bf16 weight streams, in the
-// order the chain takes them: layer 1's and layer 2's forward tiles (replay
-// modes only), then layer 2's and layer 1's dm tiles.  m0g may be null (the
-// untabled weight gradients of #12 / #13 rebuild m_0).
+// order the chain takes them: every layer's forward tiles, first to last
+// (replay modes only), then the dm tiles, last layer first.
+//
+// Any number of layers L, two y buffers: the forward pass (the replay of
+// kernel #8's layers, or the saved ys read back) keeps only the layer at
+// hand; in replay modes each y_l but the last is parked in the block's own
+// rows of dy_l in global memory (the rows the VJP later overwrites with
+// dy_l), and the backward reads y_l-1 back into the other buffer while
+// layer l's dm product runs.  Shared memory does not grow with L but for the
+// gate tables (2 dk + D + 1 ints a layer) and the plan's masks.
+//
+// w (fp32): the layers' flat weights; sel: the layers' selections; layers:
+// the wrapper's layer table; yin (#9, #12): the saved ys, the layers' [N*K,
+// D_l] one after the other; dy: every layer's dy rows [N*K, D_l rounded up to
+// 8], one after the other; m0g: null (the untabled weight gradients of #12 /
+// #13 rebuild m_0) or m_0 [N*K, C1_0 rounded up to 16]; mg: m_1 .. m_L-1
+// likewise, one after the other.
 enum class Mode { kResidual, kReplay, kVjp };
 
 template <typename T, bool MMA, Mode MODE, bool TAB>
 __global__ void __launch_bounds__(MMA ? kThreadsChainMma : kThreads, MMA ? 2 : 1)
 chain_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* __restrict__ geo2,
              const int* __restrict__ loc, const int* __restrict__ gtab,
-             const T* __restrict__ w1, const int* __restrict__ sel1g,
-             const T* __restrict__ w2, const int* __restrict__ sel2g, const T* __restrict__ y1in,
-             const T* __restrict__ y2in, const T* __restrict__ dagg, T* __restrict__ dhs,
-             T* __restrict__ dhr, T* __restrict__ dy1g, T* __restrict__ dy2g,
-             T* __restrict__ m0g, T* __restrict__ m1g, const bf16* __restrict__ wpk,
-             const uint32_t* __restrict__ masks, const int* __restrict__ chunks,
-             gmma::Streams streams, Dims d) {
+             const T* __restrict__ w, const int* __restrict__ selg,
+             const int* __restrict__ layers, const T* __restrict__ yin,
+             const T* __restrict__ dagg, T* __restrict__ dhs, T* __restrict__ dhr,
+             T* __restrict__ dyg, T* __restrict__ m0g, T* __restrict__ mg,
+             const bf16* __restrict__ wpk, const uint32_t* __restrict__ masks,
+             const int* __restrict__ chunks, int nstreams, int nq, Dims d) {
+  using gmma::layer_field;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* p = smem_raw;
   T* geo = reinterpret_cast<T*>(p);  // [rows][a+2]: attr, d2, mask
   p += align16((long)sizeof(T) * d.rows * d.gs);
   int* snd = reinterpret_cast<int*>(p);
   int* rnode = snd + d.rows;
-  int* sel1 = rnode + d.rows;
-  int* sel2 = sel1 + d.dk1;
-  int* inv1s = sel2 + d.dk2;
-  int* inv1l = inv1s + d.da + 1;
-  int* inv2s = inv1l + d.dk1;
-  int* inv2l = inv2s + d.db + 1;
+  int* gates = rnode + d.rows;  // per layer at kGateOff: sel [dk], invs [D + 1], invl [dk]
   p += align16(4L * chain_ints(d));
   float* scratch = reinterpret_cast<float*>(p);  // [warps][kMaxD]
   p += align16(4L * kWarps * kMaxD);
   T* M = reinterpret_cast<T*>(p);  // [rows][ldm]: m, then dm
   p += align16((long)sizeof(T) * d.rows * d.ldm);
-  T* Y1 = reinterpret_cast<T*>(p);  // [rows][ldy]: y_1, then dy_1
+  T* Yc = reinterpret_cast<T*>(p);  // [rows][ldy]: the current layer's y, then its dy
   p += align16((long)sizeof(T) * d.rows * d.ldy);
-  T* Y2 = reinterpret_cast<T*>(p);  // [rows][ldy]: y_2, then dy_2
+  T* Yo = reinterpret_cast<T*>(p);  // [rows][ldy]: the layer below's y, read back
   p += align16((long)sizeof(T) * d.rows * d.ldy);
   T* Wsl = reinterpret_cast<T*>(p);  // fp32: one component's weight slice
   constexpr bool kReplays = MODE != Mode::kResidual;
   gmma::Ring ring;  // bf16: the engine's ring of weight tiles
-  // bf16: the plan's masks (forward layers 1, 2, dm layers 1, 2), then its
-  // chunk table, in shared memory past the ring
-  uint32_t* mf1 = reinterpret_cast<uint32_t*>(p + gmma::ring_bytes(chain_stages(d)));
+  // bf16: the plan's masks (every layer's forward masks, then every layer's
+  // dm masks), then its chunk table, in shared memory past the ring
+  uint32_t* masks_s = reinterpret_cast<uint32_t*>(p + gmma::ring_bytes(chain_stages(d)));
   if constexpr (MMA) {
-    gmma::load_tables(masks, d.nmasks, chunks, gmma::total_chunks(streams), mf1);
+    gmma::load_tables(masks, d.nmasks, chunks + nstreams + 1, nq, masks_s);
     __syncthreads();
-    ring.setup(p, chain_stages(d), wpk, reinterpret_cast<const int*>(mf1 + d.nmasks), streams);
+    ring.setup(p, chain_stages(d), wpk, reinterpret_cast<const int*>(masks_s + d.nmasks),
+               chunks, nq);
     ring.start(blockDim.x >> 5);  // the first GEMM's tiles load during the gathers
   }
-  const int s_dm2 = kReplays ? 2 : 0, s_dm1 = s_dm2 + 1;  // stream of each GEMM
-  const int ks1 = (d.c1a + 15) / 16, ks2 = (d.c1b + 15) / 16;
-  const uint32_t* mf2 = mf1 + d.a * ks1;
-  const uint32_t* md1 = mf2 + d.a * ks2;
-  const uint32_t* md2 = md1 + d.a * ((d.da + 15) / 16);
+  const int nl = d.nl;
+  // the stream of each GEMM: layer l's forward l (replay modes), its dm
+  // product after every forward, last layer first
+  auto dm_stream = [&](int l) { return (kReplays ? nl : 0) + nl - 1 - l; };
 
   const int node0 = blockIdx.x * d.rb;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int a = d.a, f = d.f;
-  for (int j = threadIdx.x; j < d.dk1; j += blockDim.x) sel1[j] = sel1g[j];
-  for (int j = threadIdx.x; j < d.dk2; j += blockDim.x) sel2[j] = sel2g[j];
+  for (int l = 0; l < nl; ++l) {
+    const int dk = layer_field(layers, l, gmma::kDk);
+    const int* sl = selg + layer_field(layers, l, gmma::kSelOff);
+    int* gs = gates + layer_field(layers, l, gmma::kGateOff);
+    for (int j = threadIdx.x; j < dk; j += blockDim.x) gs[j] = sl[j];
+  }
   // ---- per-row receiver, sender and geometry
   for (int r = threadIdx.x; r < d.rows; r += blockDim.x) {
     const int node = node0 + r / d.k;
@@ -697,68 +748,92 @@ chain_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* __restr
     }
   }
   __syncthreads();
-  build_inverse(sel1, d.dk1, d.da, inv1s, inv1l);
-  build_inverse(sel2, d.dk2, d.db, inv2s, inv2l);
-  const long e0 = (long)node0 * d.k;  // the block's first slot row
-  if constexpr (!kReplays) {
-    // ---- the saved y of both layers (zero rows past the receivers, zero pad)
-    const int p1 = round_up(d.da, 16), p2 = round_up(d.db, 16);
-    for (int w = threadIdx.x; w < d.rows * p1; w += blockDim.x) {
-      const int r = w / p1, j = w % p1;
-      Y1[r * d.ldy + j] = (rnode[r] >= 0 && j < d.da) ? y1in[(e0 + r) * d.da + j] : from_f<T>(0.f);
-    }
-    for (int w = threadIdx.x; w < d.rows * p2; w += blockDim.x) {
-      const int r = w / p2, j = w % p2;
-      Y2[r * d.ldy + j] = (rnode[r] >= 0 && j < d.db) ? y2in[(e0 + r) * d.db + j] : from_f<T>(0.f);
-    }
+  for (int l = 0; l < nl; ++l) {
+    const int dd = layer_field(layers, l, gmma::kD), dk = layer_field(layers, l, gmma::kDk);
+    int* gs = gates + layer_field(layers, l, gmma::kGateOff);
+    build_inverse(gs, dk, dd, gs + dk, gs + dk + dd + 1);
   }
-  // ---- m_0 and m_1 of every slot row, for the weight-gradient kernel (and,
-  // in replay mode, the forward of kernel #8 for these rows: y_1, y_2)
+  const long e0 = (long)node0 * d.k;  // the block's first slot row
+  const long nk = (long)d.n * d.k;    // slot rows of one layer's per-slot buffer
+  // ---- m_0 of every slot row, for the weight-gradient kernel where it
+  // reads m_0 (tabled, #14); then the forward: each layer's y (replayed as
+  // kernel #8 computes it, or read back from the saved ys), its gate into
+  // the next layer's m rows (for the weight-gradient kernel)
   const int nwarps = blockDim.x >> 5;
   for (int r = warp; r < d.rows; r += nwarps)
     m0_row<T>(hs, h, f, snd[r], rnode[r], to_f(geo[r * d.gs + a]), M + r * d.ldm, d.ldm - 8,
               lane);
   if (sizeof(T) == 2 && f % 2 == 0) gmma::cp_async_wait_all();
   __syncthreads();
-  if (m0g != nullptr) store_rows<T>(m0g, d.kp0, M, d.ldm, rnode, e0, d);
-  if constexpr (kReplays) {
-    if constexpr (MMA) layer_fwd_mma(ring, 0, mf1, d.c1a, d.da, d, M, Y1, geo);
-    else layer_fwd_fma<T>(w1, d.c1a, d.da, d, M, Wsl, Y1, geo);
+  if (m0g != nullptr)
+    store_rows<T>(m0g, round_up(layer_field(layers, 0, gmma::kC1), 16), M, d.ldm, rnode, e0, d);
+  for (int l = 0; l < nl; ++l) {
+    const int c1 = layer_field(layers, l, gmma::kC1), dd = layer_field(layers, l, gmma::kD);
+    if constexpr (kReplays) {
+      if constexpr (MMA)
+        layer_fwd_mma(ring, l, masks_s + layer_field(layers, l, gmma::kMaskFwd), c1, dd, d, M,
+                      Yc, geo);
+      else layer_fwd_fma<T>(w + layer_field(layers, l, gmma::kWOff), c1, dd, d, M, Wsl, Yc, geo);
+    } else {
+      load_y_rows<T>(Yc, yin + nk * layer_field(layers, l, gmma::kYOff), dd, dd, rnode, e0, d);
+      gmma::cp_async_wait_all();
+    }
+    __syncthreads();
+    if (l + 1 == nl) break;
+    const int dk = layer_field(layers, l, gmma::kDk);
+    const int* gs = gates + layer_field(layers, l, gmma::kGateOff);
+    if constexpr (kReplays)  // y_l waits in the block's dy_l rows for the backward
+      store_rows<T>(dyg + nk * layer_field(layers, l, gmma::kDyOff), round_up(dd, 8), Yc, d.ldy,
+                    rnode, e0, d);
+    for (int r = warp; r < d.rows; r += nwarps) {
+      for (int j = lane; j < d.ldm - 8; j += 32)
+        M[r * d.ldm + j] = from_f<T>(j < dk ? gate_out<T>(Yc + r * d.ldy, gs, j) : 0.f);
+    }
+    __syncthreads();
+    store_rows<T>(mg + nk * layer_field(layers, l + 1, gmma::kMOff), round_up(dk, 16), M, d.ldm,
+                  rnode, e0, d);
   }
-  __syncthreads();
-  for (int r = warp; r < d.rows; r += nwarps) {
-    for (int j = lane; j < d.ldm - 8; j += 32)
-      M[r * d.ldm + j] = from_f<T>(j < d.dk1 ? gate_out<T>(Y1 + r * d.ldy, sel1, j) : 0.f);
+  // ---- the backward, last layer first: dm_L = rnd(d_agg * mask); per layer
+  // the gate VJP in place (dy_l), its rows stored, y_l-1 read back into the
+  // other buffer while the dm product dy_l -> dm_l-1 runs
+  for (int l = nl - 1; l >= 0; --l) {
+    const int c1 = layer_field(layers, l, gmma::kC1), dd = layer_field(layers, l, gmma::kD);
+    const int dk = layer_field(layers, l, gmma::kDk);
+    const int* gs = gates + layer_field(layers, l, gmma::kGateOff);
+    if (l + 1 == nl) {
+      gate_vjp<T>(Yc, dd, dk, gs, gs + dk, gs + dk + dd + 1, scratch, d, [&](int r, int j) {
+        const int rn = rnode[r];
+        return rn < 0 ? 0.f
+                      : rnd<T>(__fmul_rn(to_f(dagg[(long)rn * d.dk_last + j]),
+                                         to_f(geo[r * d.gs + a + 1])));
+      });
+    } else {
+      gate_vjp<T>(Yc, dd, dk, gs, gs + dk, gs + dk + dd + 1, scratch, d,
+                  [&](int r, int j) { return to_f(M[r * d.ldm + j]); });
+    }
+    __syncthreads();
+    store_rows<T>(dyg + nk * layer_field(layers, l, gmma::kDyOff), round_up(dd, 8), Yc, d.ldy,
+                  rnode, e0, d);
+    if (l > 0) {  // y_l-1 back: from the saved ys, or from its dy rows (replay)
+      const int db = layer_field(layers, l - 1, gmma::kD);
+      if constexpr (kReplays)
+        load_y_rows<T>(Yo, dyg + nk * layer_field(layers, l - 1, gmma::kDyOff), db,
+                       round_up(db, 8), rnode, e0, d);
+      else
+        load_y_rows<T>(Yo, yin + nk * layer_field(layers, l - 1, gmma::kYOff), db, db, rnode, e0,
+                       d);
+    }
+    if constexpr (MMA)
+      layer_bwd_mma<MODE == Mode::kVjp>(ring, dm_stream(l),
+                                        masks_s + layer_field(layers, l, gmma::kMaskDm), c1, dd,
+                                        d, Yc, M, geo);
+    else layer_bwd_fma<T>(w + layer_field(layers, l, gmma::kWOff), c1, dd, d, Yc, Wsl, M, geo);
+    if (l > 0) gmma::cp_async_wait_all();
+    __syncthreads();
+    T* t = Yc;
+    Yc = Yo;
+    Yo = t;
   }
-  __syncthreads();
-  store_rows<T>(m1g, d.kp1, M, d.ldm, rnode, e0, d);
-  if constexpr (kReplays) {
-    if constexpr (MMA) layer_fwd_mma(ring, 1, mf2, d.c1b, d.db, d, M, Y2, geo);
-    else layer_fwd_fma<T>(w2, d.c1b, d.db, d, M, Wsl, Y2, geo);
-  }
-  __syncthreads();
-  // ---- layer 2: dm_2 = rnd(d_agg * mask), the gate VJP in place, dm_1
-  gate_vjp<T>(Y2, d.db, d.dk2, sel2, inv2s, inv2l, scratch, d, [&](int r, int j) {
-    const int rn = rnode[r];
-    return rn < 0 ? 0.f
-                  : rnd<T>(__fmul_rn(to_f(dagg[(long)rn * d.dk2 + j]),
-                                     to_f(geo[r * d.gs + a + 1])));
-  });
-  __syncthreads();
-  store_rows<T>(dy2g, d.ldg2, Y2, d.ldy, rnode, e0, d);
-  if constexpr (MMA)
-    layer_bwd_mma<MODE == Mode::kVjp>(ring, s_dm2, md2, d.c1b, d.db, d, Y2, M, geo);
-  else layer_bwd_fma<T>(w2, d.c1b, d.db, d, Y2, Wsl, M, geo);
-  __syncthreads();
-  // ---- layer 1: the gate VJP at y_1 with dout = dm_1, then dm_0
-  gate_vjp<T>(Y1, d.da, d.dk1, sel1, inv1s, inv1l, scratch, d,
-              [&](int r, int j) { return to_f(M[r * d.ldm + j]); });
-  __syncthreads();
-  store_rows<T>(dy1g, d.ldg1, Y1, d.ldy, rnode, e0, d);
-  if constexpr (MMA)
-    layer_bwd_mma<MODE == Mode::kVjp>(ring, s_dm1, md1, d.c1a, d.da, d, Y1, M, geo);
-  else layer_bwd_fma<T>(w1, d.c1a, d.da, d, Y1, Wsl, M, geo);
-  __syncthreads();
   // ---- the sender cotangent of every slot, and the receivers' K-sums
   for (int w = threadIdx.x; w < d.rows * f; w += blockDim.x) {
     const int r = w / f, j = w % f;
@@ -776,8 +851,9 @@ chain_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* __restr
 // ---------------------------------------------------------------------------
 // 2. The weight gradients: block (group, range, layer) sums m_l^T rnd(dy_l
 // attr_c) over its slot rows for the G components c = G group .. into the
-// fp32 tiles [C1][D] of partials[range].  The chain wrote dy_l and m_1 per
-// slot row (and m_0 where REBUILD is off); chunks of 64 rows stream in by
+// fp32 tiles [C1][D] of partials[range] (layer l's W' at kWOff).  The chain
+// wrote every layer's dy rows and m_1 .. m_L-1 per slot row (and m_0 where
+// REBUILD is off); chunks of 64 rows stream in by
 // cp.async into NB buffers (NB - 1 chunks load while one multiplies), each
 // read once for all G components.  bf16 (G = kGroup): dy stays unscaled
 // in shared memory and each B fragment is scaled by attr_c in registers;
@@ -802,9 +878,9 @@ using gmma::cp_async4;
 
 template <typename T, bool MMA, bool TILES, int G, bool REBUILD>
 __global__ void __launch_bounds__(kThreads, 1)
-wgrad_kernel(const T* __restrict__ geo2, const T* __restrict__ m0g, const T* __restrict__ m1g,
-             const T* __restrict__ dy1, const T* __restrict__ dy2, const T* __restrict__ hs,
-             const T* __restrict__ h, float* __restrict__ partials, Dims d) {
+wgrad_kernel(const T* __restrict__ geo2, const T* __restrict__ m0g, const T* __restrict__ mg,
+             const T* __restrict__ dyg, const T* __restrict__ hs, const T* __restrict__ h,
+             const int* __restrict__ layers, float* __restrict__ partials, Dims d) {
   static_assert(G == 1 || (MMA && !TILES), "groups of components: bf16, one range each");
   constexpr int NB = MMA && !TILES ? kWgradBufs : 2;  // chunk buffers
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -819,14 +895,15 @@ wgrad_kernel(const T* __restrict__ geo2, const T* __restrict__ m0g, const T* __r
 
   const int c0 = blockIdx.x * G, sp = blockIdx.y, layer = blockIdx.z;
   const int ng = d.a - c0 < G ? d.a - c0 : G;  // components of this block
-  const int c1 = layer ? d.c1b : d.c1a, dd = layer ? d.db : d.da;
-  const int kp = layer ? d.kp1 : d.kp0;
-  const T* mg = layer ? m1g : m0g;
-  const T* dy = layer ? dy2 : dy1;
-  const int ldg = layer ? d.ldg2 : d.ldg1;
+  const int c1 = gmma::layer_field(layers, layer, gmma::kC1);
+  const int dd = gmma::layer_field(layers, layer, gmma::kD);
+  const int kp = round_up(c1, 16);
+  const long rows_total = (long)d.n * d.k;
+  const T* mgl = layer ? mg + rows_total * gmma::layer_field(layers, layer, gmma::kMOff) : m0g;
+  const T* dy = dyg + rows_total * gmma::layer_field(layers, layer, gmma::kDyOff);
+  const int ldg = round_up(dd, 8);
   const bool rebuild = REBUILD && layer == 0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long rows_total = (long)d.n * d.k;
   long r0, r1;  // this block's slot rows
   if constexpr (TILES) {
     r0 = (long)(d.tile0 + sp) * d.trows;
@@ -896,7 +973,7 @@ wgrad_kernel(const T* __restrict__ geo2, const T* __restrict__ m0g, const T* __r
     } else {
       for (int w = threadIdx.x; w < kChunk * (kp / V); w += blockDim.x) {
         const int r = w / (kp / V), q = (w % (kp / V)) * V;
-        if (e0 + r < r1) cp_async16(M + r * d.ldm + q, mg + (e0 + r) * kp + q);
+        if (e0 + r < r1) cp_async16(M + r * d.ldm + q, mgl + (e0 + r) * kp + q);
         else *reinterpret_cast<uint4*>(M + r * d.ldm + q) = make_uint4(0, 0, 0, 0);
       }
     }
@@ -1051,11 +1128,10 @@ wgrad_kernel(const T* __restrict__ geo2, const T* __restrict__ m0g, const T* __r
     WG_CLOCK(2);      // the other warps' multiplies
   }
   // ---- this range's tiles of dW_layer[c] (rows c*C1 + m of W' [A*C1, D])
-  const long nw = (long)d.a * ((long)d.c1a * d.da + (long)d.c1b * d.db);
 #pragma unroll
   for (int gi = 0; gi < G; ++gi) {
     if (gi >= ng) continue;
-    float* out = partials + sp * nw + (layer ? (long)d.a * d.c1a * d.da : 0L) +
+    float* out = partials + sp * d.nw + gmma::layer_field(layers, layer, gmma::kWOff) +
                  (long)(c0 + gi) * c1 * dd;
     if constexpr (MMA) {
 #pragma unroll
@@ -1155,11 +1231,14 @@ table_kernel(const T* __restrict__ dhs, const int* __restrict__ loc, T* __restri
 
 // -1 for shapes the kernels do not take, else the chain's and the weight-
 // gradient kernel's shared memory, the larger
-long smem_for(int dtype, int k, int a, int c1a, int da, int c1b, int db) {
-  if (k < 1 || a < 1 || c1a < 1 || c1b < 1 || da < 1 || db < 1) return -1;
-  if (c1a > kMaxC1 || c1b > kMaxC1 || da > kMaxD || db > kMaxD) return -1;
+long smem_for(int dtype, int k, int a, int nl, const int* w3) {
+  if (k < 1 || a < 1 || nl < 1 || w3 == nullptr) return -1;
+  for (int l = 0; l < nl; ++l) {
+    const int c1 = w3[3 * l], dd = w3[3 * l + 1];
+    if (c1 < 1 || dd < 1 || c1 > kMaxC1 || dd > kMaxD) return -1;
+  }
   if (dtype != 0 && dtype != 1) return -1;
-  const Dims d = make_dims(dtype == 1, 1, 0, k, a, 1, 1, c1a, da, da, c1b, db, db);
+  const Dims d = make_dims(dtype == 1, 1, 0, k, a, 1, 1, nl, w3);
   if (d.rb < 1) return -1;
   const long cs = dtype == 1 ? chain_smem<bf16>(d) : chain_smem<float>(d);
   const long ws = dtype == 1 ? (wgrad_smem<bf16>(d, 2, true) > wgrad_smem<bf16>(d, kWgradBufs, false)
@@ -1169,24 +1248,39 @@ long smem_for(int dtype, int k, int a, int c1a, int da, int c1b, int db) {
   return cs > ws ? cs : ws;
 }
 
+// the layers' widths chain (C1_0 = 2F+1, C1_l+1 = dk_l <= D_l)
+bool widths_ok(int f, int nl, const int* w3) {
+  if (w3[0] != 2 * f + 1) return false;
+  for (int l = 0; l < nl; ++l) {
+    if (w3[3 * l + 2] < 1 || w3[3 * l + 2] > w3[3 * l + 1]) return false;
+    if (l + 1 < nl && w3[3 * (l + 1)] != w3[3 * l + 2]) return false;
+  }
+  return true;
+}
+
 template <typename K>
 cudaError_t set_smem(K kern, long smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 // the chain's bf16 weight streams (kernels/tile_plan.py): wpk the packed
-// tiles, masks the plan's bit masks, the chunk table, the streams' chunks in
-// the order the chain takes them
+// tiles, masks the plan's bit masks, chunks the streams' first chunks then
+// the chunk table, the streams and chunks in the order the chain takes them
 struct Packed {
   const void* wpk;
   const void* masks;
   const void* chunks;
-  gmma::Streams streams;
+  int nstreams, nq;
+};
+
+// the chain's arguments (null where a mode or an addressing takes none)
+struct ChainArgs {
+  const void *hs, *h, *geo2, *loc, *gtab, *w, *sel, *layers, *yin, *dagg;
+  void *dhs, *dhr, *dy, *m0, *m;
 };
 
 template <typename T, bool MMA, Mode MODE, bool TAB>
-int launch_chain(const Dims& d, const void* const* in, void* const* out, const Packed& pk,
-                 cudaStream_t st) {
+int launch_chain(const Dims& d, const ChainArgs& c, const Packed& pk, cudaStream_t st) {
   const long smem = chain_smem<T>(d);
   auto kern = chain_kernel<T, MMA, MODE, TAB>;
   cudaError_t err = set_smem(kern, smem);
@@ -1194,42 +1288,34 @@ int launch_chain(const Dims& d, const void* const* in, void* const* out, const P
   const int grid = (d.n + d.rb - 1) / d.rb;
   if (grid < 1) return 0;
   kern<<<grid, MMA ? kThreadsChainMma : kThreads, smem, st>>>(
-      static_cast<const T*>(in[0]), static_cast<const T*>(in[1]), static_cast<const T*>(in[2]),
-      static_cast<const int*>(in[3]), static_cast<const int*>(in[4]),
-      static_cast<const T*>(in[5]), static_cast<const int*>(in[6]),
-      static_cast<const T*>(in[7]), static_cast<const int*>(in[8]),
-      static_cast<const T*>(in[9]), static_cast<const T*>(in[10]),
-      static_cast<const T*>(in[11]), static_cast<T*>(out[0]),
-      static_cast<T*>(out[1]), static_cast<T*>(out[2]), static_cast<T*>(out[3]),
-      static_cast<T*>(out[4]), static_cast<T*>(out[5]), static_cast<const bf16*>(pk.wpk),
-      static_cast<const uint32_t*>(pk.masks), static_cast<const int*>(pk.chunks), pk.streams, d);
+      static_cast<const T*>(c.hs), static_cast<const T*>(c.h), static_cast<const T*>(c.geo2),
+      static_cast<const int*>(c.loc), static_cast<const int*>(c.gtab),
+      static_cast<const T*>(c.w), static_cast<const int*>(c.sel),
+      static_cast<const int*>(c.layers), static_cast<const T*>(c.yin),
+      static_cast<const T*>(c.dagg), static_cast<T*>(c.dhs), static_cast<T*>(c.dhr),
+      static_cast<T*>(c.dy), static_cast<T*>(c.m0), static_cast<T*>(c.m),
+      static_cast<const bf16*>(pk.wpk), static_cast<const uint32_t*>(pk.masks),
+      static_cast<const int*>(pk.chunks), pk.nstreams, pk.nq, d);
   return (int)cudaGetLastError();
 }
 
-// the chain's streams: the forward tiles of both layers (replay modes), then
-// the dm tiles of layer 2 and layer 1; chunks of each
-Packed chain_packed(bool replays, const void* wpk, const void* masks, const void* chunks,
-                    int qf1, int qf2, int qd1, int qd2) {
-  Packed pk;
-  pk.wpk = wpk;
-  pk.masks = masks;
-  pk.chunks = chunks;
-  const int q[4] = {qf1, qf2, qd2, qd1};
-  pk.streams.n = replays ? 4 : 2;
-  for (int i = 0; i < 4; ++i) pk.streams.chunks[i] = i < pk.streams.n ? q[replays ? i : i + 2] : 0;
-  return pk;
-}
-
-// (a chunk holds at least one row: no more chunks than masks)
-bool packed_ok(int dtype, const Packed& pk, const Dims& d) {
-  if (dtype != 1) return true;
-  for (int i = 0; i < pk.streams.n; ++i)
-    if (pk.streams.chunks[i] < 0) return false;
+// bf16: the forward streams of every layer (replay modes), then every
+// layer's dm stream; fp32: the flat weights.  (A chunk holds at least one
+// row: no more chunks than masks.)
+bool packed_ok(int dtype, const Packed& pk, const Dims& d, bool replays, const void* w) {
+  if (dtype != 1) return w != nullptr;
   return pk.wpk != nullptr && pk.masks != nullptr && pk.chunks != nullptr &&
-         gmma::total_chunks(pk.streams) <= d.nmasks;
+         pk.nstreams == (replays ? 2 : 1) * d.nl && pk.nq >= 0 && pk.nq <= d.nmasks;
 }
 
-// in: geo2, m0, m1, dy1, dy2, hs, h (hs non-null: m_0 rebuilt from hs, h)
+// the chain's checks shared by both addressings
+bool chain_ok(int dtype, const Dims& d, const ChainArgs& c, const Packed& pk, bool replays) {
+  return c.sel != nullptr && c.layers != nullptr && c.dagg != nullptr && c.dy != nullptr &&
+         (replays || c.yin != nullptr) && (d.nl == 1 || c.m != nullptr) &&
+         packed_ok(dtype, pk, d, replays, c.w);
+}
+
+// in: geo2, m0, m (layers 1..), dy, hs, h, layers (hs non-null: m_0 rebuilt from hs, h)
 template <typename T, bool MMA, bool TILES, int G, bool REBUILD>
 int launch_wgrad_as(const Dims& d, const void* const* in, float* partials, cudaStream_t st) {
   const long smem = wgrad_smem<T>(d, MMA && !TILES ? kWgradBufs : 2, TILES);
@@ -1237,16 +1323,16 @@ int launch_wgrad_as(const Dims& d, const void* const* in, float* partials, cudaS
   cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   if ((long)d.n * d.k < 1 || d.splits < 1) return 0;
-  kern<<<dim3((d.a + G - 1) / G, d.splits, 2), kThreads, smem, st>>>(
+  kern<<<dim3((d.a + G - 1) / G, d.splits, d.nl), kThreads, smem, st>>>(
       static_cast<const T*>(in[0]), static_cast<const T*>(in[1]), static_cast<const T*>(in[2]),
       static_cast<const T*>(in[3]), static_cast<const T*>(in[4]), static_cast<const T*>(in[5]),
-      static_cast<const T*>(in[6]), partials, d);
+      static_cast<const int*>(in[6]), partials, d);
   return (int)cudaGetLastError();
 }
 
 template <typename T, bool MMA, bool TILES, int G>
 int launch_wgrad(const Dims& d, const void* const* in, float* partials, cudaStream_t st) {
-  return in[5] != nullptr ? launch_wgrad_as<T, MMA, TILES, G, true>(d, in, partials, st)
+  return in[4] != nullptr ? launch_wgrad_as<T, MMA, TILES, G, true>(d, in, partials, st)
                           : launch_wgrad_as<T, MMA, TILES, G, false>(d, in, partials, st);
 }
 
@@ -1270,96 +1356,98 @@ extern "C" {
 
 // Shared memory one block of the chain or weight-gradient kernel needs
 // (bytes, the larger), or -1 for shapes the kernels do not take (C1 > 192 or
-// D > 128 among them); the wrapper checks it against the card's limit.
-long fused_message_generic_tab_bwd_smem_bytes(int dtype, int k, int a, int c1a, int da, int c1b,
-                                              int db) {
-  return smem_for(dtype, k, a, c1a, da, c1b, db);
+// D > 128 among them); widths: the nl layers' (C1, D, dk) in host memory.
+// The wrapper checks it against the card's limit.
+long fused_message_generic_tab_bwd_smem_bytes(int dtype, int k, int a, int nl,
+                                              const int* widths) {
+  return smem_for(dtype, k, a, nl, widths);
 }
 
-// The chain: kernel #10 (replay = 1: y recomputed) or #9 (replay = 0:
-// y1in/y2in are the saved [N*K, D] ys).  dtype: 0 = float32 (FMA engine,
-// weights w1, w2 [A*C1][D]), 1 = bfloat16 (the engine of generic_mma.cuh:
-// wpk the listed 16x8 tiles of the streams the chain takes, forward layer 1
-// (qf1 chunks) and layer 2 (qf2) in replay mode, then dm layer 2 (qd2) and
-// layer 1 (qd1), chunks [total + 1] their first tiles; masks the plan's bit
-// masks; w1, w2 unused).  Outputs d_hs
-// [N*K, F], d_hr [N, F], dy1/dy2 [N*K, D rounded up to 8] and, for the
-// weight-gradient kernel, m0/m1 [N*K, C1 rounded up to 16] (zero-padded).
-// Returns cudaGetLastError() after the launch.
+// The chain: kernel #10 (replay = 1: y recomputed) or #9 (replay = 0: yin the
+// saved ys, [N*K, D_l] per layer one after the other).  dtype: 0 = float32
+// (FMA engine, w the layers' flat weights [A*C1][D]), 1 = bfloat16 (the
+// engine of generic_mma.cuh: wpk the listed 16x8 tiles of the streams the
+// chain takes, every layer's forward tiles first to last in replay mode, then
+// every layer's dm tiles last to first, in nq chunks; chunks the streams'
+// first chunks then every chunk's first tile; masks the plan's bit masks; w
+// unused).  sel: the layers' selections one after the other; layers: the
+// layer table (device memory, generic_mma.cuh LayerField); widths: the
+// layers' (C1, D, dk) (host memory).  Outputs d_hs [N*K, F], d_hr [N, F],
+// dy (every layer's [N*K, D rounded up to 8], one after the other) and, for
+// the weight-gradient kernel, m0 [N*K, C1_0 rounded up to 16] and m (m_1 ..
+// m_L-1 likewise; null at one layer), zero-padded.  Returns
+// cudaGetLastError() after the launch.
 int fused_message_generic_tab_bwd_chain(int dtype, int replay, const void* h, const void* geo2,
-                                        const void* loc, const void* gtab, const void* w1,
-                                        const void* sel1, const void* w2, const void* sel2,
-                                        const void* y1in, const void* y2in, const void* dagg,
-                                        void* dhs, void* dhr, void* dy1, void* dy2, void* m0,
-                                        void* m1, const void* wpk, const void* masks,
+                                        const void* loc, const void* gtab, const void* w,
+                                        const void* sel, const void* layers, const void* yin,
+                                        const void* dagg, void* dhs, void* dhr, void* dy,
+                                        void* m0, void* m, const void* wpk, const void* masks,
                                         const void* chunks, int n, int f, int k, int a, int tile,
-                                        int u, int c1a, int da, int dk1, int c1b, int db, int dk2,
-                                        int qf1, int qf2, int qd1, int qd2, void* stream) {
-  if (smem_for(dtype, k, a, c1a, da, c1b, db) < 0) return (int)cudaErrorInvalidValue;
-  if (dk1 > da || dk2 > db || dk1 != c1b || 2 * f + 1 != c1a) return (int)cudaErrorInvalidValue;
-  if (!replay && (y1in == nullptr || y2in == nullptr)) return (int)cudaErrorInvalidValue;
-  const Packed pk = chain_packed(replay != 0, wpk, masks, chunks, qf1, qf2, qd1, qd2);
-  const Dims d = make_dims(dtype == 1, n, f, k, a, tile, u, c1a, da, dk1, c1b, db, dk2);
-  if (!packed_ok(dtype, pk, d) || m0 == nullptr) return (int)cudaErrorInvalidValue;
-  const void* in[12] = {h, h, geo2, loc, gtab, w1, sel1, w2, sel2, y1in, y2in, dagg};
-  void* out[6] = {dhs, dhr, dy1, dy2, m0, m1};
+                                        int u, int nl, const int* widths, int nq, void* stream) {
+  if (smem_for(dtype, k, a, nl, widths) < 0 || !widths_ok(f, nl, widths))
+    return (int)cudaErrorInvalidValue;
+  const Packed pk{wpk, masks, chunks, (replay ? 2 : 1) * nl, nq};
+  const ChainArgs c{h, h, geo2, loc, gtab, w, sel, layers, yin, dagg, dhs, dhr, dy, m0, m};
+  const Dims d = make_dims(dtype == 1, n, f, k, a, tile, u, nl, widths);
+  if (!chain_ok(dtype, d, c, pk, replay != 0) || m0 == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return replay ? launch_chain<float, false, Mode::kReplay, true>(d, in, out, pk, st)
-                  : launch_chain<float, false, Mode::kResidual, true>(d, in, out, pk, st);
-  return replay ? launch_chain<bf16, true, Mode::kReplay, true>(d, in, out, pk, st)
-                : launch_chain<bf16, true, Mode::kResidual, true>(d, in, out, pk, st);
+    return replay ? launch_chain<float, false, Mode::kReplay, true>(d, c, pk, st)
+                  : launch_chain<float, false, Mode::kResidual, true>(d, c, pk, st);
+  return replay ? launch_chain<bf16, true, Mode::kReplay, true>(d, c, pk, st)
+                : launch_chain<bf16, true, Mode::kResidual, true>(d, c, pk, st);
 }
 
-// The untabled chain: kernel #12 (mode = 0, y1in/y2in the saved ys), #13
-// (mode = 1, replay) or #14's chain (mode = 2, replay with JAX's AD rounding
-// of the dm GEMMs; its dm streams hold the components last first).  hs [K,
-// N, F] slot-major sender rows, h [N, F] the receivers; d_hs comes out [K, N,
-// F], the other outputs as above; m0 may be null (the weight gradients
-// rebuild it).
+// The untabled chain: kernel #12 (mode = 0, yin the saved ys), #13 (mode = 1,
+// replay) or #14's chain (mode = 2, replay with JAX's AD rounding of the dm
+// GEMMs; its dm streams hold the components last first).  hs [K, N, F]
+// slot-major sender rows, h [N, F] the receivers; d_hs comes out [K, N, F],
+// the other outputs as above; m0 may be null (the weight gradients rebuild
+// it).
 int fused_message_generic_bwd_chain(int dtype, int mode, const void* hs, const void* h,
-                                    const void* geo2, const void* w1, const void* sel1,
-                                    const void* w2, const void* sel2, const void* y1in,
-                                    const void* y2in, const void* dagg, void* dhs, void* dhr,
-                                    void* dy1, void* dy2, void* m0, void* m1, const void* wpk,
-                                    const void* masks, const void* chunks, int n, int f, int k,
-                                    int a, int c1a, int da, int dk1, int c1b, int db, int dk2,
-                                    int qf1, int qf2, int qd1, int qd2, void* stream) {
-  if (smem_for(dtype, k, a, c1a, da, c1b, db) < 0) return (int)cudaErrorInvalidValue;
-  if (dk1 > da || dk2 > db || dk1 != c1b || 2 * f + 1 != c1a) return (int)cudaErrorInvalidValue;
+                                    const void* geo2, const void* w, const void* sel,
+                                    const void* layers, const void* yin, const void* dagg,
+                                    void* dhs, void* dhr, void* dy, void* m0, void* m,
+                                    const void* wpk, const void* masks, const void* chunks,
+                                    int n, int f, int k, int a, int nl, const int* widths, int nq,
+                                    void* stream) {
+  if (smem_for(dtype, k, a, nl, widths) < 0 || !widths_ok(f, nl, widths))
+    return (int)cudaErrorInvalidValue;
   if (mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
-  if (mode == 0 && (y1in == nullptr || y2in == nullptr)) return (int)cudaErrorInvalidValue;
   if ((long)k * n > 2147483647L) return (int)cudaErrorInvalidValue;
-  const Packed pk = chain_packed(mode != 0, wpk, masks, chunks, qf1, qf2, qd1, qd2);
-  const Dims d = make_dims(dtype == 1, n, f, k, a, 1, 0, c1a, da, dk1, c1b, db, dk2);
-  if (!packed_ok(dtype, pk, d)) return (int)cudaErrorInvalidValue;
-  const void* in[12] = {hs, h, geo2, nullptr, nullptr, w1, sel1, w2, sel2, y1in, y2in, dagg};
-  void* out[6] = {dhs, dhr, dy1, dy2, m0, m1};
+  const Packed pk{wpk, masks, chunks, (mode != 0 ? 2 : 1) * nl, nq};
+  const ChainArgs c{hs, h, geo2, nullptr, nullptr, w, sel, layers, yin, dagg, dhs, dhr, dy, m0, m};
+  const Dims d = make_dims(dtype == 1, n, f, k, a, 1, 0, nl, widths);
+  if (!chain_ok(dtype, d, c, pk, mode != 0)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return mode ? launch_chain<float, false, Mode::kReplay, false>(d, in, out, pk, st)
-                : launch_chain<float, false, Mode::kResidual, false>(d, in, out, pk, st);
-  if (mode == 2) return launch_chain<bf16, true, Mode::kVjp, false>(d, in, out, pk, st);
-  return mode ? launch_chain<bf16, true, Mode::kReplay, false>(d, in, out, pk, st)
-              : launch_chain<bf16, true, Mode::kResidual, false>(d, in, out, pk, st);
+    return mode ? launch_chain<float, false, Mode::kReplay, false>(d, c, pk, st)
+                : launch_chain<float, false, Mode::kResidual, false>(d, c, pk, st);
+  if (mode == 2) return launch_chain<bf16, true, Mode::kVjp, false>(d, c, pk, st);
+  return mode ? launch_chain<bf16, true, Mode::kReplay, false>(d, c, pk, st)
+              : launch_chain<bf16, true, Mode::kResidual, false>(d, c, pk, st);
 }
 
-// The weight gradients: partials [splits, NW] fp32, NW = A (C1a Da + C1b Db),
-// each row the sum over one range of slot rows (W' layouts [A*C1, D] one after
-// the other), from the chain's m1, dy1/dy2, the attributes in geo2 and m0:
-// the chain's rows, or (hs non-null, untabled) rebuilt from hs [K, N, F] and
-// h [N, F].  group: the components per block, the kernel's (bf16 2, fp32 1).
+// The weight gradients: partials [splits, NW] fp32, NW = A sum_l C1_l D_l,
+// each row the sum over one range of slot rows (W' layouts [A*C1, D] one
+// after the other), from the chain's m (layers 1..) and dy, the attributes in
+// geo2 and m0: the chain's rows, or (hs non-null, untabled) rebuilt from hs
+// [K, N, F] and h [N, F].  group: the components per block, the kernel's
+// (bf16 2, fp32 1).
 int fused_message_generic_tab_bwd_wgrad(int dtype, const void* geo2, const void* m0,
-                                        const void* m1, const void* dy1, const void* dy2,
-                                        const void* hs, const void* h, void* partials, int n,
-                                        int f, int k, int a, int c1a, int da, int c1b, int db,
+                                        const void* m, const void* dy, const void* hs,
+                                        const void* h, const void* layers, void* partials, int n,
+                                        int f, int k, int a, int nl, const int* widths,
                                         int splits, int group, void* stream) {
-  if (smem_for(dtype, k, a, c1a, da, c1b, db) < 0 || splits < 1) return (int)cudaErrorInvalidValue;
-  if (group != (dtype == 1 ? kGroup : 1) || 2 * f + 1 != c1a) return (int)cudaErrorInvalidValue;
+  if (smem_for(dtype, k, a, nl, widths) < 0 || splits < 1) return (int)cudaErrorInvalidValue;
+  if (group != (dtype == 1 ? kGroup : 1) || !widths_ok(f, nl, widths))
+    return (int)cudaErrorInvalidValue;
   if (hs == nullptr ? m0 == nullptr : h == nullptr) return (int)cudaErrorInvalidValue;
-  Dims d = make_dims(dtype == 1, n, f, k, a, 1, 1, c1a, da, da, c1b, db, db);
+  if (layers == nullptr || dy == nullptr || (nl > 1 && m == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Dims d = make_dims(dtype == 1, n, f, k, a, 1, 1, nl, widths);
   d.splits = splits;
-  const void* in[7] = {geo2, m0, m1, dy1, dy2, hs, h};
+  const void* in[7] = {geo2, m0, m, dy, hs, h, layers};
   float* part = static_cast<float*>(partials);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_wgrad<float, false, false, 1>(d, in, part, st);
@@ -1371,19 +1459,21 @@ int fused_message_generic_tab_bwd_wgrad(int dtype, const void* geo2, const void*
 // may be short) of m_l^T (dy_l attr_c), dya in fp32, rounded to the data type;
 // layouts as above (m0 from the chain).
 int fused_message_generic_bwd_wgrad_tiles(int dtype, const void* geo2, const void* m0,
-                                          const void* m1, const void* dy1, const void* dy2,
-                                          void* partials, int n, int k, int a, int c1a, int da,
-                                          int c1b, int db, int tile_rows, int tile0, int ntiles,
-                                          void* stream) {
-  if (smem_for(dtype, k, a, c1a, da, c1b, db) < 0 || tile_rows < 1 || tile0 < 0 || ntiles < 0)
+                                          const void* m, const void* dy, const void* layers,
+                                          void* partials, int n, int k, int a, int nl,
+                                          const int* widths, int tile_rows, int tile0,
+                                          int ntiles, void* stream) {
+  if (smem_for(dtype, k, a, nl, widths) < 0 || tile_rows < 1 || tile0 < 0 || ntiles < 0)
     return (int)cudaErrorInvalidValue;
   if ((long)(tile0 + ntiles - 1) * tile_rows >= (long)n * k && ntiles > 0)
     return (int)cudaErrorInvalidValue;
-  Dims d = make_dims(dtype == 1, n, 0, k, a, 1, 1, c1a, da, da, c1b, db, db);
+  if (m0 == nullptr || layers == nullptr || dy == nullptr || (nl > 1 && m == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Dims d = make_dims(dtype == 1, n, 0, k, a, 1, 1, nl, widths);
   d.splits = ntiles;
   d.trows = tile_rows;
   d.tile0 = tile0;
-  const void* in[7] = {geo2, m0, m1, dy1, dy2, nullptr, nullptr};
+  const void* in[7] = {geo2, m0, m, dy, nullptr, nullptr, layers};
   float* part = static_cast<float*>(partials);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_wgrad_as<float, false, true, 1, false>(d, in, part, st);

@@ -9,8 +9,12 @@
 //
 //   m0     = [x_s || h[i] || d2[i,k]]                                 (C1 = 2F+1)
 //   y_l    = sum_c (m_l @ W_l[c]) * attr_c[i,k]                       (c < A)
-//   m_l+1  = y_l[:, :dk_l] * sigmoid(y_l)[:, sel_l]                   (l = 0, 1)
-//   agg[i] = sum_k mask[i,k] * m_2
+//   m_l+1  = y_l[:, :dk_l] * sigmoid(y_l)[:, sel_l]                   (l < L)
+//   agg[i] = sum_k mask[i,k] * m_L
+//
+// for any number L >= 1 of message layers (SEGNNLayer's num_message_layers;
+// the per-layer widths come from the wrapper's layer table, generic_mma.cuh
+// LayerField; the layer count is a runtime value)
 //
 // (the gate as written is silu's selection form; under another activation,
 // GENERIC_ACT of gate_act.cuh, the scalar lanes, sel_l[j] == j, take
@@ -20,13 +24,15 @@
 // means no sender: a zero row) or x_s = hs[k, i] (untabled, #11; every slot is
 // read, masked slots carry some real row and their mask zeroes the message).
 //
-// With y1/y2 given (the save mode, for the residual backward) the kernel also
+// With y given (the save mode, for the residual backward) the kernel also
 // writes each layer's pre-gate y_l, rounded to the data type, one row per
-// slot: y_l[i*K + k] (node-major [N*K, D_l], in both modes; the TPU kernel #11
-// writes [K, N, D_l], a layout only its own backward reads).
+// slot: y_l[i*K + k] (node-major [N*K, D_l], in both modes, the layers one
+// after the other in y; the TPU kernel #11 writes [K, N, D_l], a layout only
+// its own backward reads).
 //
 // W_l [A*C1_l, D_l] are the CG-folded weights with their columns permuted to
-// scalars || gated || gates, sel_l [dk_l] the sigmoid lane of each gate output
+// scalars || gated || gates (fp32: the layers' flat weights one after the
+// other), sel_l [dk_l] the sigmoid lane of each gate output (all layers' in one array)
 // (the TPU kernel's 0/1 selection matmul with psel, as a lookup: one 1 per
 // column, so the result is bitwise the same).  The TPU kernel #8 expands a
 // per-tile table hu = h[gtab] to slot rows with a one-hot matmul; here each
@@ -56,7 +62,7 @@
 //   lmax=2 config, 14% at A = 36), packed by the wrapper in the order the
 //   warps take them and streamed by cp.async.bulk into a 4-stage ring with
 //   mbarriers (no block barrier per component; layer 1's first chunks load
-//   while the rows are gathered, layer 2's while the gate runs).  Skipped
+//   while the rows are gathered, each next layer's while the gate runs).  Skipped
 //   tiles add exactly 0, so y is bitwise the dense product's, and the
 //   backward's replay gives bitwise the same y.
 // - fp32 (the check path): 64 rows, each thread a 4 x 4 fp32 FMA tile per work
@@ -134,23 +140,30 @@ __host__ __device__ inline long align16(long bytes) { return (bytes + 15) / 16 *
 
 struct Dims {
   int n, f, k, a, tile, u;
-  int c1a, da, dk1, c1b, db, dk2;
+  int nl;              // message layers
+  int dk_last;         // the output width (the last layer's gate outputs)
   int rows, rb;  // slot rows per block, receivers per block (rb * k <= rows)
   int c1p, ldm;  // padded layer-input width, its row stride
   int dp, ldw;   // padded layer-output width, the weight slice's row stride
   int ldy, gs;   // y row stride, geometry row width (a + 2)
   int wrows;     // rows of the weight slice(s) in shared memory
   int stages;    // bf16: the depth of the engine's ring
-  int nmasks;    // bf16: the plan's masks of both layers (A x C1/16 each)
+  int nmasks;    // bf16: the plan's forward masks of every layer (A x C1/16 each)
 };
 
+// w3: the layers' (C1, D, dk), nl of them (host memory)
 __host__ __device__ inline Dims make_dims(bool mma, int n, int f, int k, int a, int tile, int u,
-                                          int c1a, int da, int dk1, int c1b, int db, int dk2) {
+                                          int nl, const int* w3) {
   Dims d;
   d.n = n; d.f = f; d.k = k; d.a = a; d.tile = tile; d.u = u;
-  d.c1a = c1a; d.da = da; d.dk1 = dk1; d.c1b = c1b; d.db = db; d.dk2 = dk2;
-  const int c1max = c1a > c1b ? c1a : c1b;
-  const int dmax = da > db ? da : db;
+  d.nl = nl;
+  int c1max = 0, dmax = 0, ks = 0;
+  for (int l = 0; l < nl; ++l) {
+    c1max = w3[3 * l] > c1max ? w3[3 * l] : c1max;
+    dmax = w3[3 * l + 1] > dmax ? w3[3 * l + 1] : dmax;
+    ks += (w3[3 * l] + 15) / 16;
+  }
+  d.dk_last = nl > 0 ? w3[3 * nl - 1] : 0;
   d.rows = mma ? kRowsMma : kRowsFma;
   d.rb = k > 0 ? d.rows / k : 0;
   if (mma) {
@@ -169,7 +182,7 @@ __host__ __device__ inline Dims make_dims(bool mma, int n, int f, int k, int a, 
   d.ldy = d.dp;
   d.gs = a + 2;
   d.stages = 0;
-  d.nmasks = a * ((c1a + 15) / 16 + (c1b + 15) / 16);
+  d.nmasks = a * ks;
   if (mma)  // as deep a ring as leaves two blocks an SM
     d.stages = gmma::ring_stages(align16(2L * d.rows * d.ldy) + align16(4L * d.rows * d.gs) +
                                  align16(2L * d.rows * d.ldm) + align16(8L * d.rows) +
@@ -284,16 +297,17 @@ __device__ __forceinline__ void save_y(T* __restrict__ y, int dd, const T* Ys,
 }
 
 // TAB: senders through loc/gtab (#8), rows of h; otherwise (#11) slot k of
-// receiver i reads row k*N + i of hs [K, N, F]
+// receiver i reads row k*N + i of hs [K, N, F].  w (fp32): the layers' flat
+// weights; sel: the layers' selections; layers: the wrapper's layer table;
+// y: null, or the save mode's ys, the layers' [N*K, D_l] one after the other.
 template <typename T, bool MMA, bool TAB>
 __global__ void __launch_bounds__(MMA ? kThreadsMma : kThreadsFma, MMA ? 2 : 1)
 generic_fwd_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* __restrict__ geo2,
                        const int* __restrict__ loc, const int* __restrict__ gtab,
-                       const T* __restrict__ w1, const int* __restrict__ sel1,
-                       const T* __restrict__ w2, const int* __restrict__ sel2,
-                       T* __restrict__ out, T* __restrict__ y1, T* __restrict__ y2,
+                       const T* __restrict__ w, const int* __restrict__ sel,
+                       const int* __restrict__ layers, T* __restrict__ out, T* __restrict__ y,
                        const __nv_bfloat16* __restrict__ wpk, const uint32_t* __restrict__ masks,
-                       const int* __restrict__ chunks, gmma::Streams streams, Dims d) {
+                       const int* __restrict__ chunks, int nstreams, int nq, Dims d) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* p = smem_raw;
   T* Ys = reinterpret_cast<T*>(p);  // [rows][ldy] y (bf16: rounded; fp32: the sums)
@@ -322,10 +336,10 @@ generic_fwd_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* _
   long long phase_t0 = clock64();
 #endif
   if constexpr (MMA) {
-    gmma::load_tables(masks, d.nmasks, chunks, gmma::total_chunks(streams), masks_s);
+    gmma::load_tables(masks, d.nmasks, chunks + nstreams + 1, nq, masks_s);
     __syncthreads();
-    ring.setup(ring_p, d.stages, wpk, reinterpret_cast<const int*>(masks_s + d.nmasks),
-               streams);
+    ring.setup(ring_p, d.stages, wpk, reinterpret_cast<const int*>(masks_s + d.nmasks), chunks,
+               nq);
     ring.start(blockDim.x >> 5);  // layer 1's first chunks load during the gather
   }
   // ---- per-row receiver, sender and geometry
@@ -406,60 +420,71 @@ generic_fwd_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* _
   }
   if (words) gmma::cp_async_wait_all();  // layer 1 starts with a block barrier
   PHASE(1);  // rows, geometry and the gather
-  // ---- layer 1
-  if constexpr (MMA) layer_mma(ring, 0, masks_s, d.c1a, d.da, d, Ms, Ys, geo);
-  else layer_fma<T>(w1, d.c1a, d.da, d, Ms, Wsl, Ys, geo);
-  __syncthreads();
-  PHASE(2);
-  if (y1 != nullptr) save_y<T>(y1, d.da, Ys, rnode, node0, d);
-  // ---- layer-1 gate -> layer-2 input rows, zero-padded to c1p (a warp per
-  // row; bf16: each lane's selections in registers, two rows at a time)
-  if constexpr (MMA) {
-    constexpr int kLanes = kMaxKS * 16 / 32;  // columns per lane, c1p <= 192
-    int s1[kLanes];
-#pragma unroll
-    for (int q = 0; q < kLanes; ++q) {
-      const int j = lane + 32 * q;
-      s1[q] = j < d.dk1 ? sel1[j] : 0;
-    }
-#pragma unroll 2
-    for (int r = warp; r < d.rows; r += nwarps) {
-      const T* yrow = Ys + r * d.ldy;
-      T* mrow = Ms + r * d.ldm;
+  const long nk = (long)d.n * d.k;  // slot rows of one layer's saved y
+  for (int l = 0; l < d.nl; ++l) {
+    using gmma::layer_field;
+    const int c1 = layer_field(layers, l, gmma::kC1), dd = layer_field(layers, l, gmma::kD);
+    const int dk = layer_field(layers, l, gmma::kDk);
+    const int* sl = sel + layer_field(layers, l, gmma::kSelOff);
+    T* yl = y == nullptr ? nullptr : y + nk * layer_field(layers, l, gmma::kYOff);
+    // ---- layer l
+    if constexpr (MMA)
+      layer_mma(ring, l, masks_s + layer_field(layers, l, gmma::kMaskFwd), c1, dd, d, Ms, Ys, geo);
+    else layer_fma<T>(w + layer_field(layers, l, gmma::kWOff), c1, dd, d, Ms, Wsl, Ys, geo);
+    __syncthreads();
+    if (l + 1 == d.nl) break;
+    PHASE(2);
+    if (yl != nullptr) save_y<T>(yl, dd, Ys, rnode, node0, d);
+    // ---- layer-l gate -> layer-(l+1) input rows, zero-padded to c1p (a warp
+    // per row; bf16: each lane's selections in registers, two rows at a time)
+    if constexpr (MMA) {
+      constexpr int kLanes = kMaxKS * 16 / 32;  // columns per lane, c1p <= 192
+      int s1[kLanes];
 #pragma unroll
       for (int q = 0; q < kLanes; ++q) {
         const int j = lane + 32 * q;
-        if (j < d.c1p) mrow[j] = from_f<T>(j < d.dk1 ? gate_out<T>(yrow, s1[q], j) : 0.f);
+        s1[q] = j < dk ? sl[j] : 0;
+      }
+#pragma unroll 2
+      for (int r = warp; r < d.rows; r += nwarps) {
+        const T* yrow = Ys + r * d.ldy;
+        T* mrow = Ms + r * d.ldm;
+#pragma unroll
+        for (int q = 0; q < kLanes; ++q) {
+          const int j = lane + 32 * q;
+          if (j < d.c1p) mrow[j] = from_f<T>(j < dk ? gate_out<T>(yrow, s1[q], j) : 0.f);
+        }
+      }
+    } else {
+      for (int r = warp; r < d.rows; r += nwarps) {
+        const T* yrow = Ys + r * d.ldy;
+        T* mrow = Ms + r * d.ldm;
+        for (int j = lane; j < d.c1p; j += 32)
+          mrow[j] = from_f<T>(j < dk ? gate_out<T>(yrow, sl[j], j) : 0.f);
       }
     }
-  } else {
-    for (int r = warp; r < d.rows; r += nwarps) {
-      const T* yrow = Ys + r * d.ldy;
-      T* mrow = Ms + r * d.ldm;
-      for (int j = lane; j < d.c1p; j += 32)
-        mrow[j] = from_f<T>(j < d.dk1 ? gate_out<T>(yrow, sel1[j], j) : 0.f);
-    }
+    PHASE(3);  // save, gate
   }
-  PHASE(3);  // save, gate
-  // ---- layer 2
-  if constexpr (MMA)
-    layer_mma(ring, 1, masks_s + d.a * ((d.c1a + 15) / 16), d.c1b, d.db, d, Ms, Ys, geo);
-  else layer_fma<T>(w2, d.c1b, d.db, d, Ms, Wsl, Ys, geo);
-  __syncthreads();
-  PHASE(4);
-  if (y2 != nullptr) save_y<T>(y2, d.db, Ys, rnode, node0, d);
-  // ---- layer-2 gate, mask, fp32 sum over K in slot order (a warp per receiver)
-  for (int i = warp; i < d.rb && node0 + i < d.n; i += nwarps) {
-    for (int j = lane; j < d.dk2; j += 32) {
-      const int s2 = sel2[j];
-      float acc = 0.f;
+  PHASE(4);  // the last layer
+  {
+    const int last = d.nl - 1;
+    const int dd = gmma::layer_field(layers, last, gmma::kD);
+    const int* sl = sel + gmma::layer_field(layers, last, gmma::kSelOff);
+    if (y != nullptr)
+      save_y<T>(y + nk * gmma::layer_field(layers, last, gmma::kYOff), dd, Ys, rnode, node0, d);
+    // ---- the last gate, mask, fp32 sum over K in slot order (a warp per receiver)
+    for (int i = warp; i < d.rb && node0 + i < d.n; i += nwarps) {
+      for (int j = lane; j < d.dk_last; j += 32) {
+        const int s2 = sl[j];
+        float acc = 0.f;
 #pragma unroll 4
-      for (int kk = 0; kk < d.k; ++kk) {
-        const int r = i * d.k + kk;
-        const float m = gate_out<T>(Ys + r * d.ldy, s2, j);
-        acc += round_dt<T>(m * geo[r * d.gs + a + 1]);
+        for (int kk = 0; kk < d.k; ++kk) {
+          const int r = i * d.k + kk;
+          const float m = gate_out<T>(Ys + r * d.ldy, s2, j);
+          acc += round_dt<T>(m * geo[r * d.gs + a + 1]);
+        }
+        out[(long)(node0 + i) * d.dk_last + j] = from_f<T>(acc);
       }
-      out[(long)(node0 + i) * d.dk2 + j] = from_f<T>(acc);
     }
   }
   PHASE(5);  // gate, mask, K-sum, store
@@ -467,31 +492,45 @@ generic_fwd_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* _
 
 // bytes of shared memory, or -1 for shapes the kernel does not take (bf16
 // widths past the tensor-core engine's limits among them)
-long smem_for(int dtype, int k, int a, int c1a, int da, int c1b, int db) {
-  if (k < 1 || a < 1 || c1a < 1 || c1b < 1 || da < 1 || db < 1) return -1;
-  if (dtype == 1 && (c1a > 16 * kMaxKS || c1b > 16 * kMaxKS || da > 8 * kMaxNT ||
-                     db > 8 * kMaxNT))
-    return -1;
-  const Dims d = make_dims(dtype == 1, 1, 0, k, a, 1, 1, c1a, da, 0, c1b, db, 0);
+long smem_for(int dtype, int k, int a, int nl, const int* w3) {
+  if (k < 1 || a < 1 || nl < 1 || w3 == nullptr) return -1;
+  for (int l = 0; l < nl; ++l) {
+    const int c1 = w3[3 * l], dd = w3[3 * l + 1];
+    if (c1 < 1 || dd < 1) return -1;
+    if (dtype == 1 && (c1 > 16 * kMaxKS || dd > 8 * kMaxNT)) return -1;
+  }
+  const Dims d = make_dims(dtype == 1, 1, 0, k, a, 1, 1, nl, w3);
   if (d.rb < 1) return -1;
   if (dtype == 0) return smem_bytes<float>(d);
   if (dtype == 1) return smem_bytes<__nv_bfloat16>(d);
   return -1;
 }
 
-// the weight tiles of both layers (bf16): the packed streams, the plan's
-// masks, the chunk table, the chunks of each stream
+// the layers' widths chain (C1_0 = 2F+1, C1_l+1 = dk_l <= D_l): the kernel
+// gates layer l's output into layer l+1's input rows
+bool widths_ok(int f, int nl, const int* w3) {
+  if (w3[0] != 2 * f + 1) return false;
+  for (int l = 0; l < nl; ++l) {
+    if (w3[3 * l + 2] < 1 || w3[3 * l + 2] > w3[3 * l + 1]) return false;
+    if (l + 1 < nl && w3[3 * (l + 1)] != w3[3 * l + 2]) return false;
+  }
+  return true;
+}
+
+// the weight tiles of every layer (bf16): the packed streams, the plan's
+// masks, the streams' first chunks then the chunk table, the streams and
+// chunks
 struct Packed {
   const void* wpk;
   const void* masks;
   const void* chunks;
-  gmma::Streams streams;
+  int nstreams, nq;
 };
 
 template <typename T, bool MMA, bool TAB>
 int launch(const Dims& d, const void* hs, const void* h, const void* geo2, const int* loc,
-           const int* gtab, const void* w1, const int* sel1, const void* w2, const int* sel2,
-           void* out, void* y1, void* y2, const Packed& pk, cudaStream_t stream) {
+           const int* gtab, const void* w, const int* sel, const int* layers, void* out, void* y,
+           const Packed& pk, cudaStream_t stream) {
   const long smem = smem_bytes<T>(d);
   auto kern = generic_fwd_kernel<T, MMA, TAB>;
   cudaError_t err =
@@ -501,20 +540,18 @@ int launch(const Dims& d, const void* hs, const void* h, const void* geo2, const
   if (grid < 1) return 0;
   kern<<<grid, MMA ? kThreadsMma : kThreadsFma, smem, stream>>>(
       static_cast<const T*>(hs), static_cast<const T*>(h), static_cast<const T*>(geo2), loc, gtab,
-      static_cast<const T*>(w1), sel1, static_cast<const T*>(w2), sel2, static_cast<T*>(out),
-      static_cast<T*>(y1), static_cast<T*>(y2), static_cast<const __nv_bfloat16*>(pk.wpk),
-      static_cast<const uint32_t*>(pk.masks), static_cast<const int*>(pk.chunks), pk.streams, d);
+      static_cast<const T*>(w), sel, layers, static_cast<T*>(out), static_cast<T*>(y),
+      static_cast<const __nv_bfloat16*>(pk.wpk), static_cast<const uint32_t*>(pk.masks),
+      static_cast<const int*>(pk.chunks), pk.nstreams, pk.nq, d);
   return (int)cudaGetLastError();
 }
 
-// the bf16 weight streams: layer 1's forward tiles (q1 chunks), then layer
-// 2's (q2)
+// bf16: one forward stream per layer; fp32: the flat weights
 // (a chunk holds at least one row: no more chunks than masks)
-bool packed_ok(int dtype, const Packed& pk, int a, int c1a, int c1b) {
-  return dtype != 1 ||
-         (pk.wpk != nullptr && pk.masks != nullptr && pk.chunks != nullptr &&
-          pk.streams.chunks[0] >= 0 && pk.streams.chunks[1] >= 0 &&
-          gmma::total_chunks(pk.streams) <= a * ((c1a + 15) / 16 + (c1b + 15) / 16));
+bool packed_ok(int dtype, const Packed& pk, const Dims& d, const void* w) {
+  if (dtype != 1) return w != nullptr;
+  return pk.wpk != nullptr && pk.masks != nullptr && pk.chunks != nullptr &&
+         pk.nstreams == d.nl && pk.nq >= 0 && pk.nq <= d.nmasks;
 }
 
 }  // namespace
@@ -522,71 +559,72 @@ bool packed_ok(int dtype, const Packed& pk, int a, int c1a, int c1b) {
 extern "C" {
 
 // Shared memory one block needs (bytes), or -1 for shapes the kernel does not
-// take; the wrapper checks it against the card's limit before launching.
-long fused_message_generic_tab_fwd_smem_bytes(int dtype, int k, int a, int c1a, int da, int c1b,
-                                              int db) {
-  return smem_for(dtype, k, a, c1a, da, c1b, db);
+// take; widths: the nl layers' (C1, D, dk) in host memory.  The wrapper checks
+// it against the card's limit before launching.
+long fused_message_generic_tab_fwd_smem_bytes(int dtype, int k, int a, int nl,
+                                              const int* widths) {
+  return smem_for(dtype, k, a, nl, widths);
 }
 
-// dtype: 0 = float32 (the FMA engine, weights w1, w2 [A*C1][D]), 1 = bfloat16
-// (the tensor-core engine of generic_mma.cuh: wpk the listed 16x8 tiles of
-// both layers' forward GEMMs in fragment order, in q1 then q2 chunks whose
-// first tiles chunks [q1 + q2 + 1] gives; masks the plan's bit masks,
-// [A][C1/16] per layer (kernels/tile_plan.py); w1, w2 unused).  y1, y2: null, or the save mode's [N*K, D_l] outputs.  Returns
-// cudaGetLastError() after the launch (0 on success).
+// dtype: 0 = float32 (the FMA engine, w the layers' flat weights [A*C1][D]
+// one after the other), 1 = bfloat16 (the tensor-core engine of
+// generic_mma.cuh: wpk the listed 16x8 tiles of every layer's forward GEMM in
+// fragment order, one stream per layer, in nq chunks; chunks the streams'
+// first chunks [nl + 1] then every chunk's first tile [nq + 1]; masks the
+// plan's bit masks, [A][C1/16] per layer (kernels/tile_plan.py); w unused).
+// sel: the layers' selections one after the other; layers: the layer table
+// (device memory, generic_mma.cuh LayerField); widths: the layers' (C1, D,
+// dk) (host memory).  y: null, or the save mode's [N*K, D_l] outputs, the
+// layers one after the other.  Returns cudaGetLastError() after the launch
+// (0 on success).
 int fused_message_generic_tab_fwd(int dtype, const void* h, const void* geo2, const void* loc,
-                                  const void* gtab, const void* w1, const void* sel1,
-                                  const void* w2, const void* sel2, void* out, void* y1,
-                                  void* y2, const void* wpk, const void* masks,
-                                  const void* chunks, int n, int f, int k, int a, int tile, int u,
-                                  int c1a, int da, int dk1, int c1b, int db, int dk2, int q1,
-                                  int q2, void* stream) {
-  const Packed pk{wpk, masks, chunks, {2, {q1, q2, 0, 0}}};
-  if (smem_for(dtype, k, a, c1a, da, c1b, db) < 0) return (int)cudaErrorInvalidValue;
-  if (!packed_ok(dtype, pk, a, c1a, c1b)) return (int)cudaErrorInvalidValue;
+                                  const void* gtab, const void* w, const void* sel,
+                                  const void* layers, void* out, void* y, const void* wpk,
+                                  const void* masks, const void* chunks, int n, int f, int k,
+                                  int a, int tile, int u, int nl, const int* widths, int nq,
+                                  void* stream) {
+  if (smem_for(dtype, k, a, nl, widths) < 0 || !widths_ok(f, nl, widths))
+    return (int)cudaErrorInvalidValue;
+  if (sel == nullptr || layers == nullptr) return (int)cudaErrorInvalidValue;
+  const Packed pk{wpk, masks, chunks, nl, nq};
   const int* loc_i = static_cast<const int*>(loc);
   const int* gtab_i = static_cast<const int*>(gtab);
-  const int* s1 = static_cast<const int*>(sel1);
-  const int* s2 = static_cast<const int*>(sel2);
+  const int* s = static_cast<const int*>(sel);
+  const int* lt = static_cast<const int*>(layers);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    const Dims d = make_dims(false, n, f, k, a, tile, u, c1a, da, dk1, c1b, db, dk2);
-    return launch<float, false, true>(d, h, h, geo2, loc_i, gtab_i, w1, s1, w2, s2, out, y1, y2,
-                                      pk, st);
-  }
-  if (dtype == 1) {
-    const Dims d = make_dims(true, n, f, k, a, tile, u, c1a, da, dk1, c1b, db, dk2);
-    return launch<__nv_bfloat16, true, true>(d, h, h, geo2, loc_i, gtab_i, w1, s1, w2, s2, out,
-                                             y1, y2, pk, st);
-  }
+  const Dims d = make_dims(dtype == 1, n, f, k, a, tile, u, nl, widths);
+  if (!packed_ok(dtype, pk, d, w)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch<float, false, true>(d, h, h, geo2, loc_i, gtab_i, w, s, lt, out, y, pk, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, true, true>(d, h, h, geo2, loc_i, gtab_i, w, s, lt, out, y, pk,
+                                             st);
   return (int)cudaErrorInvalidValue;
 }
 
 // The untabled kernel (#11): hs [K, N, F] slot-major sender rows, h [N, F] the
 // receivers; otherwise as above.  Returns cudaGetLastError() after the launch.
 int fused_message_generic_fwd(int dtype, const void* hs, const void* h, const void* geo2,
-                              const void* w1, const void* sel1, const void* w2,
-                              const void* sel2, void* out, void* y1, void* y2, const void* wpk,
-                              const void* masks, const void* chunks, int n, int f, int k, int a,
-                              int c1a, int da, int dk1, int c1b, int db, int dk2, int q1, int q2,
+                              const void* w, const void* sel, const void* layers, void* out,
+                              void* y, const void* wpk, const void* masks, const void* chunks,
+                              int n, int f, int k, int a, int nl, const int* widths, int nq,
                               void* stream) {
-  const Packed pk{wpk, masks, chunks, {2, {q1, q2, 0, 0}}};
-  if (smem_for(dtype, k, a, c1a, da, c1b, db) < 0) return (int)cudaErrorInvalidValue;
-  if (!packed_ok(dtype, pk, a, c1a, c1b)) return (int)cudaErrorInvalidValue;
+  if (smem_for(dtype, k, a, nl, widths) < 0 || !widths_ok(f, nl, widths))
+    return (int)cudaErrorInvalidValue;
+  if (sel == nullptr || layers == nullptr) return (int)cudaErrorInvalidValue;
   if ((long)k * n > 2147483647L) return (int)cudaErrorInvalidValue;
-  const int* s1 = static_cast<const int*>(sel1);
-  const int* s2 = static_cast<const int*>(sel2);
+  const Packed pk{wpk, masks, chunks, nl, nq};
+  const int* s = static_cast<const int*>(sel);
+  const int* lt = static_cast<const int*>(layers);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    const Dims d = make_dims(false, n, f, k, a, 1, 0, c1a, da, dk1, c1b, db, dk2);
-    return launch<float, false, false>(d, hs, h, geo2, nullptr, nullptr, w1, s1, w2, s2, out,
-                                       y1, y2, pk, st);
-  }
-  if (dtype == 1) {
-    const Dims d = make_dims(true, n, f, k, a, 1, 0, c1a, da, dk1, c1b, db, dk2);
-    return launch<__nv_bfloat16, true, false>(d, hs, h, geo2, nullptr, nullptr, w1, s1, w2, s2,
-                                              out, y1, y2, pk, st);
-  }
+  const Dims d = make_dims(dtype == 1, n, f, k, a, 1, 0, nl, widths);
+  if (!packed_ok(dtype, pk, d, w)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch<float, false, false>(d, hs, h, geo2, nullptr, nullptr, w, s, lt, out, y, pk,
+                                       st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, true, false>(d, hs, h, geo2, nullptr, nullptr, w, s, lt, out,
+                                              y, pk, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -13,11 +13,13 @@
 // output is bitwise that of the dense per-component product (the tensor
 // cores' accumulation of the listed tiles runs in the same k-order).
 //
-// The ring.  The streams a kernel consumes (its GEMMs in order) are one
-// sequence of chunks of at most kChunk tiles (16 KB).  A chunk holds whole
-// rows (a row: the tiles of one (c, outer) mask) and never spans two
-// streams; the wrapper lays the chunks out and passes their first tiles
-// (chunks [Q + 1], offsets at src).  Thread 0 copies chunks by
+// The ring.  The streams a kernel consumes (its GEMMs in order: one or two
+// per message layer, any number of layers) are one sequence of chunks of at
+// most kChunk tiles (16 KB).  A chunk holds whole rows (a row: the tiles of
+// one (c, outer) mask) and never spans two streams; the wrapper lays the
+// chunks out and passes, in one device array, each stream's first chunk
+// (q_base [S + 1], the last entry the chunk count Q) and then every chunk's
+// first tile (chunks [Q + 1], offsets at src).  Thread 0 copies chunks by
 // cp.async.bulk into a ring of stages (as many as leave two blocks an SM,
 // 2 to 8), each with a full mbarrier
 // (the copy's bytes) and an empty one (a lane of every warp arrives when its
@@ -50,7 +52,6 @@ constexpr int kMinStages = 2, kMaxStages = 8;
 constexpr int kChunk = 64;                    // tiles per chunk
 constexpr int kTileBytes = 256;               // 16 x 8 bf16
 constexpr int kStageBytes = kChunk * kTileBytes;
-constexpr int kMaxStreams = 4;
 // shared memory a block may take so that two blocks share an SM (228 KB an
 // SM, 1 KB of it reserved per block)
 constexpr long kTwoBlockSmem = 115712;
@@ -160,17 +161,20 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-// The streams of one kernel launch, in the order it consumes them: chunks
-// per stream (0: unused).
-struct Streams {
-  int n;
-  int chunks[kMaxStreams];
+// The wrapper's layer table (kernels/fused_message_generic.py::_layer_table,
+// device memory): kLayer ints per message layer, in layer order.  The
+// offsets are prefix sums over the layers before it: of the forward and the
+// dm masks (words of the plan's mask array), of W' (elements of the layers'
+// flat [A*C1, D] weights, and of the weight-gradient partials' rows), of the
+// selections (dk), and, in units of N*K slot rows, of the per-slot buffers
+// that hold one block of rows per layer (y: D wide; dy: D rounded up to 8;
+// m: C1 rounded up to 16).
+enum LayerField {
+  kC1, kD, kDk, kMaskFwd, kMaskDm, kWOff, kSelOff, kYOff, kDyOff, kMOff, kGateOff, kLayer
 };
 
-__host__ __device__ inline int total_chunks(const Streams& s) {
-  int q = 0;
-  for (int i = 0; i < s.n && i < kMaxStreams; ++i) q += s.chunks[i];
-  return q;
+__device__ __forceinline__ int layer_field(const int* __restrict__ layers, int l, int f) {
+  return __ldg(layers + l * kLayer + f);
 }
 
 // Bytes of shared memory for the plan's tables: nmasks bit masks and a
@@ -192,30 +196,28 @@ __host__ __device__ inline int ring_stages(long other) {
 struct Ring {
   const bf16* src;        // the packed tiles of every stream
   const int* chunk0;      // [Q + 1] (shared): each chunk's first tile at src, then the end
+  const int* q_base;      // [S + 1] (global): first chunk of each stream, then Q
   unsigned char* stage;   // [stages][kStageBytes]
   uint64_t* full;         // [stages]
   uint64_t* empty;        // [stages]
   int stages;
-  int q_base[kMaxStreams + 1];  // first chunk of each stream in the sequence
+  int nq;                 // chunks of every stream: Q
 
   // carve a ring of n stages out of shared memory at p (16-byte aligned),
-  // take the chunk table at chunks (shared); every thread calls it
+  // take the chunk table at chunks (shared) and the streams' first chunks
+  // at qb (global, nq = Q); every thread calls it
   __device__ void setup(unsigned char* p, int n, const bf16* w, const int* chunks,
-                        const Streams& s) {
+                        const int* qb, int q) {
     src = w;
     chunk0 = chunks;
+    q_base = qb;
     stage = p;
     stages = n;
+    nq = q;
     full = reinterpret_cast<uint64_t*>(p + (long)n * kStageBytes);
     empty = full + n;
-    int q = 0;
-    for (int i = 0; i < kMaxStreams; ++i) {
-      q_base[i] = q;
-      q += i < s.n ? s.chunks[i] : 0;
-    }
-    q_base[kMaxStreams] = q;
   }
-  __device__ int chunks() const { return q_base[kMaxStreams]; }
+  __device__ int chunks() const { return nq; }
 
   // thread 0 copies chunk q into its stage, once every warp has released the
   // chunk that stage held (q - stages)
@@ -276,7 +278,7 @@ struct Cursor {
 
 __device__ __forceinline__ Cursor open(const Ring& r, int stream) {
   Cursor c;
-  c.q0 = c.q = r.q_base[stream];
+  c.q0 = c.q = __ldg(r.q_base + stream);
   c.i = c.cs = c.ce = r.chunk0[c.q];
   c.cur = nullptr;
   return c;

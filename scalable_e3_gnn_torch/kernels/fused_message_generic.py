@@ -15,6 +15,11 @@ gradients by the reverse-slot gather-sum).  Per receiver i and slot k:
     m_l+1  = y_l[:, :dk] * sigmoid(y_l)[:, sel_l]                     (silu gate)
     agg[i] = sum_k mask[i,k] * m_L
 
+for any number L >= 1 of message layers (``SEGNNLayer(num_message_layers=L)``,
+as JAX's kernels take any count): the CUDA routes get the layers' widths
+from a per-config layer table (``layer_table``, ``csrc/generic_mma.cuh``
+``LayerField``) and run the layers in a loop, L a runtime value.
+
 with the sender row ``x_s = h[gtab[i // tile, loc[i,k]]]`` (tabled) or
 ``x_s = hs[k, i]`` (untabled).  ``W'_l`` [A*C1, D] is the message layer's
 CG-folded weight matrix (``TensorProduct.fold_params``, fp32) with its columns permuted to
@@ -47,7 +52,9 @@ in the data dtype; each component's GEMM accumulated in fp32 and scaled by
 attr_c in fp32, summed over c in fp32, cast to the data dtype (y); sigmoid in
 fp32 cast to the dtype; the gate product in the dtype; ``msg * mask`` in the
 dtype; the K-sum in fp32; the output cast to the dtype.  The save mode also
-returns every layer's pre-gate ``y`` [N*K, D] (node-major slot rows).
+returns every layer's pre-gate ``y`` [N*K, D] (node-major slot rows; on the
+card views of one buffer, the layers one after the other, which the
+residual backward reads in place).
 
 Backward rounding points of #9-#13 (``_transpose_chain`` with the VJP of
 the gate as JAX's AD computes it): dm_L = (K-repeat of d_agg in fp32) * mask
@@ -97,6 +104,7 @@ import math
 from dataclasses import dataclass, field
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..ops.gate import ACTIVATIONS, activation
@@ -122,19 +130,20 @@ __all__ = ["GenericConfig", "FusedMessageGeneric", "FusedMessageGenericTabled",
            "GENERIC_BWD_VJP", "GENERIC_BWD_VJP_WGRAD", "KERNELS", "vjp_group"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_W = ctypes.POINTER(ctypes.c_int)  # the layers' (C1, D, dk), host memory
 _FWD_SRC = "fused_message_generic_tab_fwd"
 _FWD_SIGS = {
-    # dtype, k, a, c1a, da, c1b, db -> bytes (negative: widths not taken)
-    "fused_message_generic_tab_fwd_smem_bytes": (ctypes.c_long, [_I] * 7),
-    # dtype, 14 pointers (h, geo2, loc, gtab, w1, sel1, w2, sel2, out, y1, y2;
-    # y1/y2 null: no save; bf16: the packed tiles, the plan's masks, the chunk
-    # table), n, f, k, a, tile, u, c1a, da, dk1, c1b, db, dk2, the two forward
-    # streams' chunks, stream
-    "fused_message_generic_tab_fwd": (_I, [_I] + [_P] * 14 + [_I] * 14 + [_P]),
-    # dtype, 13 pointers (hs, h, geo2, w1, sel1, w2, sel2, out, y1, y2; y1/y2
-    # null: no save; packed tiles, masks, chunk table), n, f, k, a, c1a, da,
-    # dk1, c1b, db, dk2, the two forward streams' chunks, stream
-    "fused_message_generic_fwd": (_I, [_I] + [_P] * 13 + [_I] * 12 + [_P]),
+    # dtype, k, a, layers, widths -> bytes (negative: widths not taken)
+    "fused_message_generic_tab_fwd_smem_bytes": (ctypes.c_long, [_I] * 4 + [_W]),
+    # dtype, 12 pointers (h, geo2, loc, gtab, the flat fp32 weights, the flat
+    # selections, the layer table, out, the save mode's flat ys (null: no
+    # save); bf16: the packed tiles, the plan's masks, the chunks), n, f, k,
+    # a, tile, u, layers, widths, chunks of every stream, stream
+    "fused_message_generic_tab_fwd": (_I, [_I] + [_P] * 12 + [_I] * 7 + [_W, _I, _P]),
+    # dtype, 11 pointers (hs, h, geo2, weights, selections, layer table, out,
+    # ys; packed tiles, masks, chunks), n, f, k, a, layers, widths, chunks,
+    # stream
+    "fused_message_generic_fwd": (_I, [_I] + [_P] * 11 + [_I] * 5 + [_W, _I, _P]),
 }
 # one library of each source per gate activation: the activation is a
 # compile-time constant (GENERIC_ACT, csrc/gate_act.cuh), silu's the plain build
@@ -151,27 +160,28 @@ GENERIC_TAB_FWD = _kernel("fused_message_generic_tab_fwd", _FWD_SIGS, _FWD_SRC)
 GENERIC_FWD = _kernel("fused_message_generic_fwd", _FWD_SIGS, _FWD_SRC)
 _BWD_SRC = "fused_message_generic_tab_bwd"
 _BWD_SIGS = {
-    # dtype, k, a, c1a, da, c1b, db -> bytes of the chain kernel (negative: not taken)
-    "fused_message_generic_tab_bwd_smem_bytes": (ctypes.c_long, [_I] * 7),
-    # dtype, replay, 20 pointers (h, geo2, loc, gtab, w1, sel1, w2, sel2, y1 in,
-    # y2 in, d_agg, d_hs, d_hr, dy1, dy2, m0, m1, packed tiles, masks, chunk
-    # table), n, f, k, a, tile, u, c1a, da, dk1, c1b, db, dk2, chunks of the
-    # forward streams of layers 1 and 2 and of the dm streams of layers 1 and
-    # 2, stream
-    "fused_message_generic_tab_bwd_chain": (_I, [_I, _I] + [_P] * 20 + [_I] * 16 + [_P]),
-    # dtype, 8 pointers (geo2, m0, m1, dy1, dy2, hs, h, partials; hs, h null:
-    # m0 read), n, f, k, a, c1a, da, c1b, db, splits, group, stream
-    "fused_message_generic_tab_bwd_wgrad": (_I, [_I] + [_P] * 8 + [_I] * 10 + [_P]),
+    # dtype, k, a, layers, widths -> bytes of the chain kernel (negative: not taken)
+    "fused_message_generic_tab_bwd_smem_bytes": (ctypes.c_long, [_I] * 4 + [_W]),
+    # dtype, replay, 17 pointers (h, geo2, loc, gtab, flat fp32 weights, flat
+    # selections, layer table, the flat saved ys in, d_agg, d_hs, d_hr, the
+    # flat dy rows, m_0, m_1.. flat, packed tiles, masks, chunks), n, f, k,
+    # a, tile, u, layers, widths, chunks of every stream, stream
+    "fused_message_generic_tab_bwd_chain": (_I, [_I, _I] + [_P] * 17 + [_I] * 7 + [_W, _I, _P]),
+    # dtype, 8 pointers (geo2, m_0, m_1.. flat, dy flat, hs, h, layer table,
+    # partials; hs, h null: m_0 read), n, f, k, a, layers, widths, splits,
+    # group, stream
+    "fused_message_generic_tab_bwd_wgrad": (_I, [_I] + [_P] * 8 + [_I] * 5 + [_W, _I, _I, _P]),
     # dtype, d_hs, loc, d_hu, n, f, k, tile, u, stream
     "fused_message_generic_tab_bwd_table": (_I, [_I, _P, _P, _P] + [_I] * 5 + [_P]),
-    # dtype, mode (0 residual, 1 replay, 2 vjp), 19 pointers (hs, h, geo2, w1,
-    # sel1, w2, sel2, y1 in, y2 in, d_agg, d_hs, d_hr, dy1, dy2, m0 (null: not
-    # written), m1, packed tiles, masks, chunk table), n, f, k, a, c1a, da,
-    # dk1, c1b, db, dk2, the four streams' chunks as the tabled chain, stream
-    "fused_message_generic_bwd_chain": (_I, [_I, _I] + [_P] * 19 + [_I] * 14 + [_P]),
-    # dtype, 6 pointers (geo2, m0, m1, dy1, dy2, partials), n, k, a, c1a, da, c1b,
-    # db, tile_rows, tile0, ntiles, stream
-    "fused_message_generic_bwd_wgrad_tiles": (_I, [_I] + [_P] * 6 + [_I] * 10 + [_P]),
+    # dtype, mode (0 residual, 1 replay, 2 vjp), 16 pointers (hs, h, geo2,
+    # weights, selections, layer table, ys in, d_agg, d_hs, d_hr, dy, m_0
+    # (null: not written), m_1.., packed tiles, masks, chunks), n, f, k, a,
+    # layers, widths, chunks, stream
+    "fused_message_generic_bwd_chain": (_I, [_I, _I] + [_P] * 16 + [_I] * 5 + [_W, _I, _P]),
+    # dtype, 6 pointers (geo2, m_0, m_1.., dy, layer table, partials), n, k,
+    # a, layers, widths, tile_rows, tile0, ntiles, stream
+    "fused_message_generic_bwd_wgrad_tiles": (_I, [_I] + [_P] * 6 + [_I] * 4 + [_W] + [_I] * 3
+                                              + [_P]),
 }
 # kernels #9 / #12 (residual) and #10 / #13 (replay), tabled / untabled: one
 # source, one chain kernel template; all four share the weight-gradient
@@ -220,6 +230,12 @@ class GenericConfig:
         """Multiply-adds x 2 of the dense folded GEMMs for one slot, as the
         kernel runs them (most of W' is structural zeros)."""
         return 2 * sum(self.a * c1 * d for c1, d, _ in self.widths)
+
+    @property
+    def nw(self) -> int:
+        """Entries of every layer's W' [A*C1, D], one after the other: the
+        weight-gradient partials' row."""
+        return sum(self.a * c1 * d for c1, d, _ in self.widths)
 
 
 def _check_inputs(cfg: GenericConfig, h, geo2, loc, gtab, ws, sels):
@@ -435,7 +451,7 @@ def _rows_bwd(cfg: GenericConfig, m0, attr, mask, wts, sels, d_agg, ys, dws, dys
 def generic_tab_fwd_plain(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence, sels: Sequence,
                           chunk_rows: int = 1 << 18, save: bool = False):
     """agg [N, dk_last] in h's dtype, by PyTorch ops (any device); with
-    ``save``, ``(agg, [y_1, y_2])``, each y the pre-gate layer output [N*K, D]
+    ``save``, ``(agg, [y_1 .. y_L])``, each y the pre-gate layer output [N*K, D]
     in h's dtype, one row per slot (node-major).
 
     h [N, F] cm-layout node features, N a multiple of cfg.tile; geo2
@@ -506,7 +522,10 @@ def _mma_layout(w, a: int, c1: int, d: int, dmul: int = 8):
 
 
 _DENSE_PLANS: dict = {}
-_FWD_STREAMS = (("fwd", 0, False), ("fwd", 1, False))
+_LAYER_TABLES: dict = {}
+# the layer table's fields, per layer (csrc/generic_mma.cuh LayerField)
+_LAYER_FIELDS = ("c1", "d", "dk", "mask_fwd", "mask_dm", "w_off", "sel_off", "y_off", "dy_off",
+                 "m_off", "gate_off")
 
 
 def _tile_plan(cfg: GenericConfig) -> TilePlan:
@@ -523,44 +542,108 @@ def _tile_plan(cfg: GenericConfig) -> TilePlan:
     return plan
 
 
+def layer_table(cfg: GenericConfig) -> "np.ndarray":
+    """int32 [L, 11]: per message layer the kernels' descriptor
+    (``_LAYER_FIELDS``, ``csrc/generic_mma.cuh`` LayerField): C1, D, dk; the
+    first word of its forward and of its dm masks in the plan's mask array
+    (every layer's forward masks, then every layer's dm masks); the first
+    element of its W' [A*C1, D] in the layers' flat weights (and of the
+    weight-gradient partials' row); of its selections; in units of N*K slot
+    rows, the first row block of its y (D wide), of its dy (D rounded up to
+    8) and, from layer 1 on, of its m (C1 rounded up to 16; m_0 lives
+    apart); and of its gate tables in the chain's shared memory (2 dk + D +
+    1 ints a layer)."""
+    a = cfg.a
+    fwd_total = sum(a * (-(-c1 // 16)) for c1, _, _ in cfg.widths)
+    rows, acc = [], dict(fw=0, dm=0, w=0, sel=0, y=0, dy=0, m=0, gate=0)
+    for i, (c1, d, dk) in enumerate(cfg.widths):
+        rows.append([c1, d, dk, acc["fw"], fwd_total + acc["dm"], acc["w"], acc["sel"], acc["y"],
+                     acc["dy"], acc["m"], acc["gate"]])
+        acc["fw"] += a * (-(-c1 // 16))
+        acc["dm"] += a * (-(-d // 16))
+        acc["w"] += a * c1 * d
+        acc["sel"] += dk
+        acc["y"] += d
+        acc["dy"] += -(-d // 8) * 8
+        acc["m"] += -(-c1 // 16) * 16 if i else 0
+        acc["gate"] += 2 * dk + d + 1
+    return np.array(rows, np.int32).reshape(len(cfg.widths), len(_LAYER_FIELDS))
+
+
+def _layers(cfg: GenericConfig, device):
+    """(L, the layers' (C1, D, dk) as a host ctypes array, ``layer_table``
+    on ``device``), built once per (A, widths, device)."""
+    key = (cfg.a, cfg.widths, str(device))
+    if key not in _LAYER_TABLES:
+        flat = [v for w in cfg.widths for v in w]
+        _LAYER_TABLES[key] = (len(cfg.widths), (ctypes.c_int * len(flat))(*flat),
+                              torch.from_numpy(layer_table(cfg)).to(device))
+    return _LAYER_TABLES[key]
+
+
+def _fwd_streams(cfg: GenericConfig) -> tuple:
+    """The forward kernel's weight streams: every layer's forward tiles."""
+    return tuple(("fwd", i, False) for i in range(len(cfg.widths)))
+
+
+def _chain_streams(cfg: GenericConfig, replay: bool, vjp: bool = False) -> tuple:
+    """The chain's weight streams in the order it takes them: every layer's
+    forward tiles, first to last (replay only), then every layer's dm tiles,
+    last first (components last first for #14's ``vjp``)."""
+    dm = tuple(("dm", i, vjp) for i in reversed(range(len(cfg.widths))))
+    return (_fwd_streams(cfg) if replay else ()) + dm
+
+
+def _flat(ts):
+    """One flat tensor of the tensors ``ts`` one after the other: their own
+    storage when they already lie so (views of one buffer, as the kernels'
+    outputs do), else a copy."""
+    ts = list(ts)
+    if (len({t.untyped_storage().data_ptr() for t in ts}) == 1
+            and len({t.dtype for t in ts}) == 1 and all(t.is_contiguous() for t in ts)
+            and all(a.data_ptr() + a.numel() * a.element_size() == b.data_ptr()
+                    for a, b in zip(ts[:-1], ts[1:]))):
+        return ts[0].as_strided((sum(t.numel() for t in ts),), (1,))
+    return torch.cat([t.reshape(-1) for t in ts])
+
+
+def _views(flat, shapes):
+    """``flat`` cut into consecutive views of the given shapes."""
+    out, o = [], 0
+    for shape in shapes:
+        n = math.prod(shape)
+        out.append(flat[o:o + n].view(shape))
+        o += n
+    return out
+
+
 def _fwd_weights(cfg: GenericConfig, ws):
-    """The forward kernel's weight arguments (w1, w2, packed tiles, masks,
-    chunk table, chunks of each layer's stream): fp32 the weights as they
-    are, bf16 the plan's forward tiles of both layers."""
+    """The forward kernel's weight arguments (the flat weights, packed
+    tiles, masks, chunks, chunk count): fp32 the layers' weights one after
+    the other, bf16 the plan's forward tiles of every layer."""
     if ws[0].dtype != torch.bfloat16:
-        return ws[0], ws[1], None, None, None, 0, 0
-    wpk, masks, table, per = _tile_plan(cfg).args(ws, _FWD_STREAMS)
-    return None, None, wpk, masks, table, *per
+        return _flat(ws), None, None, None, 0
+    wpk, masks, chunks, per = _tile_plan(cfg).args(ws, _fwd_streams(cfg))
+    return None, wpk, masks, chunks, sum(per)
 
 
 def _chain_weights(cfg: GenericConfig, ws, replay: bool, vjp: bool = False):
-    """The chain kernel's weight arguments (w1, w2, packed tiles, masks,
-    chunk table, chunks of the forward streams of both layers and of the dm
-    streams of both): bf16 the streams in the chain's order, the forward
-    tiles of both layers (replay only), then the dm tiles of layer 2 and
-    layer 1 (components last first for #14's ``vjp``)."""
+    """The chain kernel's weight arguments (flat weights, packed tiles,
+    masks, chunks, chunk count): bf16 the streams in the chain's order
+    (``_chain_streams``)."""
     if ws[0].dtype != torch.bfloat16:
-        return ws[0], ws[1], None, None, None, 0, 0, 0, 0
-    streams = (_FWD_STREAMS if replay else ()) + (("dm", 1, vjp), ("dm", 0, vjp))
-    wpk, masks, table, per = _tile_plan(cfg).args(ws, streams)
-    qf = per[:2] if replay else (0, 0)
-    qd2, qd1 = per[-2:]
-    return None, None, wpk, masks, table, *qf, qd1, qd2
-
-
-def _widths2(cfg: GenericConfig):
-    if len(cfg.widths) != 2:
-        raise NotImplementedError(f"the CUDA kernels run two message layers, not {len(cfg.widths)}")
-    return cfg.widths
+        return _flat(ws), None, None, None, 0
+    wpk, masks, chunks, per = _tile_plan(cfg).args(ws, _chain_streams(cfg, replay, vjp))
+    return None, wpk, masks, chunks, sum(per)
 
 
 def _fwd_lib(kernel: CudaKernel, cfg: GenericConfig, x):
     """The forward source's library for cfg's gate activation, after
     checking that its kernel takes the widths in x's dtype."""
-    (c1a, da, _), (c1b, db, _) = cfg.widths
+    nl, widths, _ = _layers(cfg, x.device)
     lib = kernel.lib(_ACT_VARIANTS[cfg.act])
-    smem = lib.fused_message_generic_tab_fwd_smem_bytes(_DTYPE_CODE[x.dtype], cfg.k, cfg.a,
-                                                         c1a, da, c1b, db)
+    smem = lib.fused_message_generic_tab_fwd_smem_bytes(_DTYPE_CODE[x.dtype], cfg.k, cfg.a, nl,
+                                                         widths)
     if smem < 0:
         raise ValueError(f"the kernel does not take K={cfg.k}, widths {cfg.widths} in {x.dtype}")
     if smem > _MAX_SMEM:
@@ -568,35 +651,37 @@ def _fwd_lib(kernel: CudaKernel, cfg: GenericConfig, x):
     return lib
 
 
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
 def generic_tab_fwd(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence, sels: Sequence,
                     save: bool = False):
-    """agg [N, dk_last] (with ``save``, ``(agg, [y_1, y_2])``): the hand-written
-    CUDA kernel for CUDA tensors (two message layers), the plain version for
-    CPU tensors.  Arguments as in the plain version."""
+    """agg [N, dk_last] (with ``save``, ``(agg, [y_1 .. y_L])``): the hand-
+    written CUDA kernel for CUDA tensors (any number of message layers), the
+    plain version for CPU tensors.  Arguments as in the plain version."""
     if h.device.type == "cpu":
         return generic_tab_fwd_plain(cfg, h, geo2, loc, gtab, ws, sels, save=save)
     _check_inputs(cfg, h, geo2, loc, gtab, ws, sels)
     _cuda_args(h, (h, geo2, loc, gtab, *ws, *sels))
-    (c1a, da, dk1), (c1b, db, dk2) = _widths2(cfg)
     n, f = h.shape
     code = _DTYPE_CODE[h.dtype]
     lib = _fwd_lib(GENERIC_TAB_FWD, cfg, h)
-    w1, w2, wpk, masks, chunks, q1, q2 = _fwd_weights(cfg, ws)
-    out = torch.empty((n, dk2), dtype=h.dtype, device=h.device)
-    ys = [torch.empty((n * cfg.k, d), dtype=h.dtype, device=h.device) for d in (da, db)] \
-        if save else None
+    nl, widths, table = _layers(cfg, h.device)
+    w, wpk, masks, chunks, nq = _fwd_weights(cfg, ws)
+    out = torch.empty((n, cfg.out_dim), dtype=h.dtype, device=h.device)
+    shapes = [(n * cfg.k, d) for _, d, _ in cfg.widths]
+    yflat = h.new_empty((sum(r * d for r, d in shapes),)) if save else None
     stream = torch.cuda.current_stream(h.device).cuda_stream
-    ptr = lambda x: None if x is None else x.data_ptr()
-    ptrs = [ptr(x) for x in (h, geo2, loc, gtab, w1, sels[0], w2, sels[1], out)]
-    ptrs += [y.data_ptr() for y in ys] if save else [None, None]
     with torch.cuda.device(h.device):
         rc = lib.fused_message_generic_tab_fwd(
-            code, *ptrs, ptr(wpk), ptr(masks), ptr(chunks), n, f, cfg.k, cfg.a, cfg.tile, cfg.u,
-            c1a, da, dk1, c1b, db, dk2, q1, q2, stream)
+            code, *(_ptr(x) for x in (h, geo2, loc, gtab, w, _flat(sels), table, out, yflat, wpk,
+                                      masks, chunks)),
+            n, f, cfg.k, cfg.a, cfg.tile, cfg.u, nl, widths, nq, stream)
     if rc != 0:
         raise RuntimeError(f"fused_message_generic_tab_fwd launch failed with CUDA error {rc}")
     GENERIC_TAB_FWD.launches += 1
-    return (out, ys) if save else out
+    return (out, _views(yflat, shapes)) if save else out
 
 
 # attribute components per block of the weight-gradient kernel (the CUDA
@@ -607,10 +692,10 @@ WGRAD_GROUP = {torch.bfloat16: 2, torch.float32: 1}
 def _wgrad_splits(cfg: GenericConfig, rows: int, sms: int) -> int:
     """Row ranges of the weight-gradient kernel (its partials' leading dim):
     the fewest that make layers x A x ranges whole waves of ``sms``, at most
-    one per 1024 slot rows (A=9 on 132 SMs: 22 ranges).  The ranges do not
-    depend on how many components a block takes (two in bf16: 220 blocks at
-    A=9), so each range's partial sums, and dW', are bitwise those of one
-    component a block."""
+    one per 1024 slot rows (two layers at A=9 on 132 SMs: 22 ranges).  The
+    ranges do not depend on how many components a block takes (two in
+    bf16: 220 blocks at two layers, A=9), so each range's partial sums, and
+    dW', are bitwise those of one component a block."""
     per_range = len(cfg.widths) * cfg.a
     return max(1, min(math.lcm(per_range, sms) // per_range, rows // 1024))
 
@@ -618,10 +703,10 @@ def _wgrad_splits(cfg: GenericConfig, rows: int, sms: int) -> int:
 def _bwd_lib(cfg: GenericConfig, x):
     """The backward source's library for cfg's gate activation, after
     checking that its kernels take the widths in x's dtype."""
-    (c1a, da, _), (c1b, db, _) = _widths2(cfg)
+    nl, widths, _ = _layers(cfg, x.device)
     lib = GENERIC_TAB_BWD_RES.lib(_ACT_VARIANTS[cfg.act])
-    smem = lib.fused_message_generic_tab_bwd_smem_bytes(_DTYPE_CODE[x.dtype], cfg.k, cfg.a,
-                                                         c1a, da, c1b, db)
+    smem = lib.fused_message_generic_tab_bwd_smem_bytes(_DTYPE_CODE[x.dtype], cfg.k, cfg.a, nl,
+                                                         widths)
     if smem < 0:
         raise ValueError(f"the kernel does not take K={cfg.k}, widths {cfg.widths} in {x.dtype}")
     if smem > _MAX_SMEM:
@@ -635,62 +720,70 @@ def _launched(name: str, rc: int) -> None:
 
 
 def _chain_buffers(cfg: GenericConfig, h, m0: bool = True):
-    """The chain's outputs but d_hs: d_hr [N, F], dy_1/dy_2 [N*K, D rounded up
-    to 8] and m_0 (None without ``m0``)/m_1 [N*K, C1 rounded up to 16], in h's
-    dtype."""
-    (c1a, da, _), (c1b, db, _) = cfg.widths
+    """The chain's outputs but d_hs: d_hr [N, F], every layer's dy [N*K, D
+    rounded up to 8] (views of one buffer, layer order), m_0 [N*K, C1
+    rounded up to 16] (None without ``m0``) and m_1 .. m_L-1 likewise (views
+    of one buffer, None at one layer), in h's dtype; then the two flat
+    buffers (dy, m_1..)."""
     n, f = h.shape
     rows = n * cfg.k
     new = lambda *shape: torch.empty(shape, dtype=h.dtype, device=h.device)
-    return (new(n, f), new(rows, -(-da // 8) * 8), new(rows, -(-db // 8) * 8),
-            new(rows, -(-c1a // 16) * 16) if m0 else None, new(rows, -(-c1b // 16) * 16))
+    dy_shapes = [(rows, -(-d // 8) * 8) for _, d, _ in cfg.widths]
+    m_shapes = [(rows, -(-c1 // 16) * 16) for c1, _, _ in cfg.widths[1:]]
+    dy = new(sum(r * c for r, c in dy_shapes))
+    m = new(sum(r * c for r, c in m_shapes)) if m_shapes else None
+    ms = [new(rows, -(-cfg.widths[0][0] // 16) * 16) if m0 else None]
+    ms += _views(m, m_shapes) if m is not None else []
+    return new(n, f), _views(dy, dy_shapes), ms, dy, m
 
 
 def generic_tab_bwd_chain(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence, sels: Sequence,
                           d_agg, ys: Optional[Sequence] = None):
     """The chain kernel: #9 with the saved ``ys``, #10 (replay) without.
-    Returns ``(d_hs [N*K, F], d_hr [N, F], dy_1, dy_2, m_0, m_1)``: the
-    rounded sender cotangent of every slot, the receivers' K-sums, and for
-    the weight-gradient kernel each layer's dy ([N*K, D rounded up to 8]) and
-    input m ([N*K, C1 rounded up to 16]) per slot, zero-padded."""
+    Returns ``(d_hs [N*K, F], d_hr [N, F], dys, ms)``: the rounded sender
+    cotangent of every slot, the receivers' K-sums, and for the
+    weight-gradient kernel each layer's dy ([N*K, D rounded up to 8]) and
+    input m ([N*K, C1 rounded up to 16]) per slot, zero-padded, first layer
+    first."""
     _check_inputs(cfg, h, geo2, loc, gtab, ws, sels)
     _check_bwd_inputs(cfg, h, d_agg, ys)
     _cuda_args(h, (h, geo2, loc, gtab, *ws, *sels, d_agg, *(ys or ())))
     lib = _bwd_lib(cfg, h)
-    (c1a, da, dk1), (c1b, db, dk2) = cfg.widths
+    nl, widths, table = _layers(cfg, h.device)
     n, f = h.shape
     replay = ys is None
-    w1, w2, wpk, masks, chunks, *nchunks = _chain_weights(cfg, ws, replay)
+    w, wpk, masks, chunks, nq = _chain_weights(cfg, ws, replay)
     dev, dt = h.device, h.dtype
     d_hs = torch.empty((n * cfg.k, f), dtype=dt, device=dev)
-    d_hr, dy1, dy2, m0, m1 = _chain_buffers(cfg, h)
-    y_in = (None, None) if replay else tuple(y.data_ptr() for y in ys)
-    ptr = lambda x: None if x is None else x.data_ptr()
+    d_hr, dys, ms, dy, m = _chain_buffers(cfg, h)
+    y_in = None if replay else _flat(ys)
     with torch.cuda.device(dev):
         rc = lib.fused_message_generic_tab_bwd_chain(
             _DTYPE_CODE[dt], int(replay),
-            *(ptr(x) for x in (h, geo2, loc, gtab, w1, sels[0], w2, sels[1])), *y_in,
-            *(x.data_ptr() for x in (d_agg, d_hs, d_hr, dy1, dy2, m0, m1)), ptr(wpk), ptr(masks),
-            ptr(chunks), n, f, cfg.k, cfg.a, cfg.tile, cfg.u,
-            c1a, da, dk1, c1b, db, dk2, *nchunks, torch.cuda.current_stream(dev).cuda_stream)
+            *(_ptr(x) for x in (h, geo2, loc, gtab, w, _flat(sels), table, y_in, d_agg, d_hs,
+                                d_hr, dy, ms[0], m, wpk, masks, chunks)),
+            n, f, cfg.k, cfg.a, cfg.tile, cfg.u, nl, widths, nq,
+            torch.cuda.current_stream(dev).cuda_stream)
     _launched("fused_message_generic_tab_bwd_chain", rc)
     (GENERIC_TAB_BWD_REP if replay else GENERIC_TAB_BWD_RES).launches += 1
-    return d_hs, d_hr, dy1, dy2, m0, m1
+    return d_hs, d_hr, dys, ms
 
 
-def generic_tab_bwd_wgrad_plain(cfg: GenericConfig, geo2, m0, m1, dy1, dy2, splits: int):
+def generic_tab_bwd_wgrad_plain(cfg: GenericConfig, geo2, ms: Sequence, dys: Sequence,
+                                splits: int):
     """The weight-gradient kernel's function by PyTorch ops: partials
     [splits, NW] fp32, row ``r`` the sum over the r-th range of slot rows
-    (chunks of 64 rows split evenly) of m_l^T (dy_l * attr_c rounded), the
-    W' of both layers flattened one after the other."""
-    rows = m0.shape[0]
+    (chunks of 64 rows split evenly) of m_l^T (dy_l * attr_c rounded), every
+    layer's W' flattened one after the other.  ``ms``, ``dys``: each layer's
+    input and dy rows, as the chain writes them."""
+    rows = ms[0].shape[0]
     attr = geo2.reshape(rows, cfg.a + 2)[:, :cfg.a]
     nch = -(-rows // 64)
     out = []
     for sp in range(splits):
         s, e = nch * sp // splits * 64, min(rows, nch * (sp + 1) // splits * 64)
         parts = []
-        for m, dy, (c1, d, _) in zip((m0, m1), (dy1, dy2), cfg.widths):
+        for m, dy, (c1, d, _) in zip(ms, dys, cfg.widths, strict=True):
             mf, dyr = m[s:e, :c1].float(), dy[s:e, :d]
             for cc in range(cfg.a):
                 parts.append((mf.T @ (dyr * attr[s:e, cc:cc + 1]).float()).reshape(-1))
@@ -698,32 +791,34 @@ def generic_tab_bwd_wgrad_plain(cfg: GenericConfig, geo2, m0, m1, dy1, dy2, spli
     return torch.stack(out)
 
 
-def _wgrad_launch(cfg: GenericConfig, geo2, m0, m1, dy1, dy2, hs, h, splits: int):
-    """The weight-gradient kernel on CUDA tensors: m_0 from the chain, or
-    (``hs`` given) rebuilt from hs and h.  Partials [splits, NW] fp32."""
-    _cuda_args(geo2, tuple(x for x in (geo2, m0, m1, dy1, dy2, hs, h) if x is not None))
+def _wgrad_launch(cfg: GenericConfig, geo2, ms: Sequence, dys: Sequence, hs, h, splits: int):
+    """The weight-gradient kernel on CUDA tensors: m_0 from the chain
+    (``ms[0]``), or (``hs`` given) rebuilt from hs and h.  Partials [splits,
+    NW] fp32."""
+    m0 = ms[0] if hs is None else None
+    _cuda_args(geo2, tuple(x for x in (geo2, m0, *ms[1:], *dys, hs, h) if x is not None))
     lib = _bwd_lib(cfg, geo2)
-    (c1a, da, _), (c1b, db, _) = cfg.widths
-    rows = m1.shape[0]
-    partials = torch.empty((splits, cfg.a * (c1a * da + c1b * db)), dtype=torch.float32,
-                           device=geo2.device)
-    ptr = lambda x: None if x is None else x.data_ptr()
+    nl, widths, table = _layers(cfg, geo2.device)
+    rows = dys[0].shape[0]
+    partials = torch.empty((splits, cfg.nw), dtype=torch.float32, device=geo2.device)
+    m = _flat(ms[1:]) if nl > 1 else None
     with torch.cuda.device(geo2.device):
         rc = lib.fused_message_generic_tab_bwd_wgrad(
-            _DTYPE_CODE[geo2.dtype], *(ptr(x) for x in (geo2, m0, m1, dy1, dy2, hs, h, partials)),
-            rows // cfg.k, cfg.f, cfg.k, cfg.a, c1a, da, c1b, db, splits,
-            WGRAD_GROUP[geo2.dtype], torch.cuda.current_stream(geo2.device).cuda_stream)
+            _DTYPE_CODE[geo2.dtype],
+            *(_ptr(x) for x in (geo2, m0, m, _flat(dys), hs, h, table, partials)),
+            rows // cfg.k, cfg.f, cfg.k, cfg.a, nl, widths, splits, WGRAD_GROUP[geo2.dtype],
+            torch.cuda.current_stream(geo2.device).cuda_stream)
     _launched("fused_message_generic_tab_bwd_wgrad", rc)
     GENERIC_TAB_BWD_WGRAD.launches += 1
     return partials
 
 
-def generic_tab_bwd_wgrad(cfg: GenericConfig, geo2, m0, m1, dy1, dy2, splits: int):
+def generic_tab_bwd_wgrad(cfg: GenericConfig, geo2, ms: Sequence, dys: Sequence, splits: int):
     """The weight-gradient kernel (CUDA tensors; the plain version for CPU
     tensors): partials [splits, NW] fp32 from the chain's outputs."""
     if geo2.device.type == "cpu":
-        return generic_tab_bwd_wgrad_plain(cfg, geo2, m0, m1, dy1, dy2, splits)
-    return _wgrad_launch(cfg, geo2, m0, m1, dy1, dy2, None, None, splits)
+        return generic_tab_bwd_wgrad_plain(cfg, geo2, ms, dys, splits)
+    return _wgrad_launch(cfg, geo2, ms, dys, None, None, splits)
 
 
 def _m0_rows(cfg: GenericConfig, hs, h, geo2):
@@ -741,21 +836,23 @@ def _m0_rows(cfg: GenericConfig, hs, h, geo2):
     return m0
 
 
-def generic_bwd_wgrad_plain(cfg: GenericConfig, hs, h, geo2, m1, dy1, dy2, splits: int):
+def generic_bwd_wgrad_plain(cfg: GenericConfig, hs, h, geo2, ms: Sequence, dys: Sequence,
+                            splits: int):
     """The untabled weight-gradient kernel's function by PyTorch ops: m_0
-    rebuilt from hs, h and geo2 (``_m0_rows``), then as
-    ``generic_tab_bwd_wgrad_plain``."""
-    return generic_tab_bwd_wgrad_plain(cfg, geo2, _m0_rows(cfg, hs, h, geo2), m1, dy1, dy2,
+    rebuilt from hs, h and geo2 (``_m0_rows``; ``ms[0]`` is not read), then
+    as ``generic_tab_bwd_wgrad_plain``."""
+    return generic_tab_bwd_wgrad_plain(cfg, geo2, [_m0_rows(cfg, hs, h, geo2), *ms[1:]], dys,
                                        splits)
 
 
-def generic_bwd_wgrad(cfg: GenericConfig, hs, h, geo2, m1, dy1, dy2, splits: int):
+def generic_bwd_wgrad(cfg: GenericConfig, hs, h, geo2, ms: Sequence, dys: Sequence, splits: int):
     """The untabled weight-gradient kernel (CUDA tensors; the plain version
-    for CPU tensors): partials [splits, NW] fp32 from the chain's m_1 and dy
-    rows, m_0 rebuilt from hs [K, N, F] and h [N, F] (#12, #13)."""
+    for CPU tensors): partials [splits, NW] fp32 from the chain's m_1 ..
+    m_L-1 and dy rows, m_0 rebuilt from hs [K, N, F] and h [N, F] (#12, #13;
+    ``ms[0]`` is not read)."""
     if geo2.device.type == "cpu":
-        return generic_bwd_wgrad_plain(cfg, hs, h, geo2, m1, dy1, dy2, splits)
-    return _wgrad_launch(cfg, geo2, None, m1, dy1, dy2, hs, h, splits)
+        return generic_bwd_wgrad_plain(cfg, hs, h, geo2, ms, dys, splits)
+    return _wgrad_launch(cfg, geo2, ms, dys, hs, h, splits)
 
 
 def generic_tab_bwd_table_plain(cfg: GenericConfig, d_hs, loc):
@@ -795,17 +892,16 @@ def generic_tab_bwd_kernels(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence
     results): the chain kernel (#9 with ``ys``, #10 without), the weight-
     gradient kernel, the table sum, then the fixed-order reduction of the
     weight-gradient partials."""
-    d_hs, d_hr, dy1, dy2, m0, m1 = generic_tab_bwd_chain(cfg, h, geo2, loc, gtab, ws, sels,
-                                                         d_agg, ys)
-    dws = _reduce_wgrad(cfg, geo2, m0, m1, dy1, dy2)
-    del m0, m1, dy1, dy2
+    d_hs, d_hr, dys, ms = generic_tab_bwd_chain(cfg, h, geo2, loc, gtab, ws, sels, d_agg, ys)
+    dws = _reduce_wgrad(cfg, geo2, ms, dys)
+    del ms, dys
     return generic_tab_bwd_table(cfg, d_hs, loc), d_hr, dws
 
 
 def generic_tab_bwd(cfg: GenericConfig, h, geo2, loc, gtab, ws: Sequence, sels: Sequence,
                     d_agg, ys: Optional[Sequence] = None):
-    """``(d_hu, d_hr, [dW'_1, dW'_2] fp32)``: the hand-written CUDA kernels for
-    CUDA tensors, the plain version for CPU tensors.  Arguments as in
+    """``(d_hu, d_hr, [dW'_1 .. dW'_L] fp32)``: the hand-written CUDA kernels
+    for CUDA tensors, the plain version for CPU tensors.  Arguments as in
     ``generic_tab_bwd_plain``."""
     if h.device.type == "cpu":
         return generic_tab_bwd_plain(cfg, h, geo2, loc, gtab, ws, sels, d_agg, ys)
@@ -842,7 +938,7 @@ def _slot_rows_km(cfg: GenericConfig, hs, h, geo2, s: int, e: int):
 def generic_fwd_plain(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Sequence,
                       chunk_rows: int = 1 << 18, save: bool = False):
     """Kernel #11's function by PyTorch ops (any device): agg [N, dk_last] in
-    h's dtype; with ``save``, ``(agg, [y_1, y_2])``, each y the pre-gate layer
+    h's dtype; with ``save``, ``(agg, [y_1 .. y_L])``, each y the pre-gate layer
     output [N*K, D] in h's dtype, one row per slot (node-major).
 
     hs [K, N, F] the slot-major sender rows (``h[senders.T]``), h [N, F] the
@@ -871,7 +967,7 @@ def generic_fwd_plain(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Seque
 def generic_bwd_plain(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Sequence, d_agg,
                       ys: Optional[Sequence] = None, chunk_rows: int = 1 << 18):
     """The untabled backward by PyTorch ops (any device): ``(d_hs [K, N, F],
-    d_hr [N, F], [dW'_1, dW'_2] fp32)`` for the cotangent ``d_agg`` [N,
+    d_hr [N, F], [dW'_1 .. dW'_L] fp32)`` for the cotangent ``d_agg`` [N,
     dk_last] in h's dtype: d_hs the rounded sender cotangent of every slot,
     d_hr the receivers' fp32 K-sums rounded once.  ``ys=None`` replays the
     forward (kernel #13's function); the saved ys of
@@ -899,30 +995,29 @@ def generic_bwd_plain(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Seque
 
 def generic_fwd(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Sequence,
                 save: bool = False):
-    """agg [N, dk_last] (with ``save``, ``(agg, [y_1, y_2])``): kernel #11,
-    hand-written in CUDA, for CUDA tensors (two message layers), the plain
-    version for CPU tensors.  Arguments as in the plain version."""
+    """agg [N, dk_last] (with ``save``, ``(agg, [y_1 .. y_L])``): kernel #11,
+    hand-written in CUDA, for CUDA tensors (any number of message layers),
+    the plain version for CPU tensors.  Arguments as in the plain version."""
     if h.device.type == "cpu":
         return generic_fwd_plain(cfg, hs, h, geo2, ws, sels, save=save)
     _check_untab_inputs(cfg, hs, h, geo2, ws, sels)
     _cuda_args(h, (hs, h, geo2, *ws, *sels))
-    (c1a, da, dk1), (c1b, db, dk2) = _widths2(cfg)
     n, f = h.shape
     lib = _fwd_lib(GENERIC_FWD, cfg, h)
-    w1, w2, wpk, masks, chunks, q1, q2 = _fwd_weights(cfg, ws)
-    out = torch.empty((n, dk2), dtype=h.dtype, device=h.device)
-    ys = [torch.empty((n * cfg.k, d), dtype=h.dtype, device=h.device) for d in (da, db)] \
-        if save else None
-    ptr = lambda x: None if x is None else x.data_ptr()
-    ptrs = [ptr(x) for x in (hs, h, geo2, w1, sels[0], w2, sels[1], out)]
-    ptrs += [y.data_ptr() for y in ys] if save else [None, None]
+    nl, widths, table = _layers(cfg, h.device)
+    w, wpk, masks, chunks, nq = _fwd_weights(cfg, ws)
+    out = torch.empty((n, cfg.out_dim), dtype=h.dtype, device=h.device)
+    shapes = [(n * cfg.k, d) for _, d, _ in cfg.widths]
+    yflat = h.new_empty((sum(r * d for r, d in shapes),)) if save else None
     with torch.cuda.device(h.device):
         rc = lib.fused_message_generic_fwd(
-            _DTYPE_CODE[h.dtype], *ptrs, ptr(wpk), ptr(masks), ptr(chunks), n, f, cfg.k, cfg.a,
-            c1a, da, dk1, c1b, db, dk2, q1, q2, torch.cuda.current_stream(h.device).cuda_stream)
+            _DTYPE_CODE[h.dtype],
+            *(_ptr(x) for x in (hs, h, geo2, w, _flat(sels), table, out, yflat, wpk, masks,
+                                chunks)),
+            n, f, cfg.k, cfg.a, nl, widths, nq, torch.cuda.current_stream(h.device).cuda_stream)
     _launched("fused_message_generic_fwd", rc)
     GENERIC_FWD.launches += 1
-    return (out, ys) if save else out
+    return (out, _views(yflat, shapes)) if save else out
 
 
 def generic_bwd_chain(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Sequence, d_agg,
@@ -931,49 +1026,49 @@ def generic_bwd_chain(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Seque
     without, #14's chain with ``vjp`` (replay, then the dm GEMMs rounded as
     JAX's AD of the layer: fp32 dya, each component's dm rounded, the
     components added in the dtype).  Returns ``(d_hs [K, N, F], d_hr [N, F],
-    dy_1, dy_2, m_0, m_1)``, the last four per slot row for the
-    weight-gradient kernel, as the tabled chain writes them; m_0 only for
-    ``vjp`` (else None: #12's and #13's weight gradients rebuild it)."""
+    dys, ms)``, the last two per layer and slot row for the weight-gradient
+    kernel, as the tabled chain writes them; m_0 only for ``vjp`` (else
+    ``ms[0]`` is None: #12's and #13's weight gradients rebuild it)."""
     _check_untab_inputs(cfg, hs, h, geo2, ws, sels)
     _check_bwd_inputs(cfg, h, d_agg, ys)
     if vjp and ys is not None:
         raise ValueError("the vjp chain replays the forward: no saved ys")
     _cuda_args(h, (hs, h, geo2, *ws, *sels, d_agg, *(ys or ())))
     lib = _bwd_lib(cfg, h)
-    (c1a, da, dk1), (c1b, db, dk2) = cfg.widths
+    nl, widths, table = _layers(cfg, h.device)
     n, f = h.shape
     replay = ys is None
     mode = 2 if vjp else int(replay)
-    w1, w2, wpk, masks, chunks, *nchunks = _chain_weights(cfg, ws, replay, vjp)
+    w, wpk, masks, chunks, nq = _chain_weights(cfg, ws, replay, vjp)
     d_hs = torch.empty((cfg.k, n, f), dtype=h.dtype, device=h.device)
-    d_hr, dy1, dy2, m0, m1 = _chain_buffers(cfg, h, m0=vjp)
-    y_in = (None, None) if replay else tuple(y.data_ptr() for y in ys)
-    ptr = lambda x: None if x is None else x.data_ptr()
+    d_hr, dys, ms, dy, m = _chain_buffers(cfg, h, m0=vjp)
+    y_in = None if replay else _flat(ys)
     with torch.cuda.device(h.device):
         rc = lib.fused_message_generic_bwd_chain(
             _DTYPE_CODE[h.dtype], mode,
-            *(ptr(x) for x in (hs, h, geo2, w1, sels[0], w2, sels[1])), *y_in,
-            *(ptr(x) for x in (d_agg, d_hs, d_hr, dy1, dy2, m0, m1, wpk, masks, chunks)),
-            n, f, cfg.k, cfg.a, c1a, da, dk1, c1b, db, dk2, *nchunks,
-            torch.cuda.current_stream(h.device).cuda_stream)
+            *(_ptr(x) for x in (hs, h, geo2, w, _flat(sels), table, y_in, d_agg, d_hs, d_hr, dy,
+                                ms[0], m, wpk, masks, chunks)),
+            n, f, cfg.k, cfg.a, nl, widths, nq, torch.cuda.current_stream(h.device).cuda_stream)
     _launched("fused_message_generic_bwd_chain", rc)
     (GENERIC_BWD_VJP if vjp else GENERIC_BWD_REP if replay else GENERIC_BWD_RES).launches += 1
-    return d_hs, d_hr, dy1, dy2, m0, m1
+    return d_hs, d_hr, dys, ms
 
 
-def _reduce_wgrad(cfg: GenericConfig, geo2, m0, m1, dy1, dy2, hs=None, h=None):
-    """[dW'_1, dW'_2] fp32 from the chain's rows (m_0 rebuilt from ``hs`` and
-    ``h`` when given): the weight-gradient kernel at whole waves on the
+def _split_dw(cfg: GenericConfig, dw):
+    """The flat dW' [NW] cut into every layer's [A*C1, D]."""
+    return _views(dw, [(cfg.a * c1, d) for c1, d, _ in cfg.widths])
+
+
+def _reduce_wgrad(cfg: GenericConfig, geo2, ms: Sequence, dys: Sequence, hs=None, h=None):
+    """[dW'_1 .. dW'_L] fp32 from the chain's rows (m_0 rebuilt from ``hs``
+    and ``h`` when given): the weight-gradient kernel at whole waves on the
     card's SMs, then the fixed-order reduction of
     ``csrc/fused_message_tab_bwd.cu``."""
     sms = torch.cuda.get_device_properties(geo2.device).multi_processor_count
-    splits = _wgrad_splits(cfg, m1.shape[0], sms)
-    partials = (generic_tab_bwd_wgrad(cfg, geo2, m0, m1, dy1, dy2, splits) if hs is None
-                else generic_bwd_wgrad(cfg, hs, h, geo2, m1, dy1, dy2, splits))
-    dw = tab_bwd_reduce(partials)
-    (c1a, da, _), (c1b, db, _) = cfg.widths
-    n1 = cfg.a * c1a * da
-    return [dw[:n1].view(cfg.a * c1a, da), dw[n1:].view(cfg.a * c1b, db)]
+    splits = _wgrad_splits(cfg, dys[0].shape[0], sms)
+    partials = (generic_tab_bwd_wgrad(cfg, geo2, ms, dys, splits) if hs is None
+                else generic_bwd_wgrad(cfg, hs, h, geo2, ms, dys, splits))
+    return _split_dw(cfg, tab_bwd_reduce(partials))
 
 
 def generic_bwd_kernels(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Sequence, d_agg,
@@ -982,14 +1077,14 @@ def generic_bwd_kernels(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Seq
     results): the untabled chain (#12 with ``ys``, #13 without), the weight-
     gradient kernel (m_0 rebuilt from hs and h), then the fixed-order
     reduction."""
-    d_hs, d_hr, dy1, dy2, _, m1 = generic_bwd_chain(cfg, hs, h, geo2, ws, sels, d_agg, ys)
-    return d_hs, d_hr, _reduce_wgrad(cfg, geo2, None, m1, dy1, dy2, hs, h)
+    d_hs, d_hr, dys, ms = generic_bwd_chain(cfg, hs, h, geo2, ws, sels, d_agg, ys)
+    return d_hs, d_hr, _reduce_wgrad(cfg, geo2, ms, dys, hs, h)
 
 
 def generic_bwd(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Sequence, d_agg,
                 ys: Optional[Sequence] = None):
-    """``(d_hs, d_hr, [dW'_1, dW'_2] fp32)``: the hand-written CUDA kernels for
-    CUDA tensors, the plain version for CPU tensors.  Arguments as in
+    """``(d_hs, d_hr, [dW'_1 .. dW'_L] fp32)``: the hand-written CUDA kernels
+    for CUDA tensors, the plain version for CPU tensors.  Arguments as in
     ``generic_bwd_plain``."""
     if h.device.type == "cpu":
         return generic_bwd_plain(cfg, hs, h, geo2, ws, sels, d_agg, ys)
@@ -1035,7 +1130,7 @@ def generic_bwd_vjp_plain(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: S
                           bwd_tile: int, chunk_rows: int = 1 << 17,
                           ys: Optional[Sequence] = None):
     """Kernel #14's function by PyTorch ops (any device): ``(d_hs [K, N, F],
-    d_hr [N, F], [dW'_1, dW'_2] fp32)`` as ``generic_bwd_plain`` returns them,
+    d_hr [N, F], [dW'_1 .. dW'_L] fp32)`` as ``generic_bwd_plain`` returns them,
     with the rounding of JAX's AD of the tile forward: the forward replayed;
     per layer the gate's VJP (``_gate_vjp``), then ``_layer_vjp``; d_hs the
     rounded sender columns of dm_0, d_hr the fp32 K-sum of its rounded
@@ -1080,45 +1175,47 @@ def generic_bwd_vjp_plain(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: S
     return d_hs, d_hr, dws
 
 
-def generic_bwd_vjp_wgrad_plain(cfg: GenericConfig, geo2, m0, m1, dy1, dy2, tile_rows: int,
-                                tile0: int, ntiles: int):
+def generic_bwd_vjp_wgrad_plain(cfg: GenericConfig, geo2, ms: Sequence, dys: Sequence,
+                                tile_rows: int, tile0: int, ntiles: int):
     """The per-tile weight-gradient kernel's function by PyTorch ops:
     partials [ntiles, NW] fp32, row t over the slot rows of backward tile
     tile0 + t of m_l^T (dy_l * attr_c in fp32), rounded to the dtype; the
     chain's row layouts and W' order as ``generic_tab_bwd_wgrad_plain``."""
-    rows = m0.shape[0]
+    rows = ms[0].shape[0]
     attr = geo2.reshape(rows, cfg.a + 2)[:, :cfg.a].float()
     out = []
     for t in range(tile0, tile0 + ntiles):
         s, e = t * tile_rows, min(rows, (t + 1) * tile_rows)
         parts = []
-        for m, dy, (c1, d, _) in zip((m0, m1), (dy1, dy2), cfg.widths):
+        for m, dy, (c1, d, _) in zip(ms, dys, cfg.widths, strict=True):
             mf, dyf = m[s:e, :c1].float(), dy[s:e, :d].float()
             for cc in range(cfg.a):
-                parts.append((mf.T @ (dyf * attr[s:e, cc:cc + 1])).to(m0.dtype).reshape(-1))
+                parts.append((mf.T @ (dyf * attr[s:e, cc:cc + 1])).to(ms[0].dtype).reshape(-1))
         out.append(torch.cat(parts).float())
     return torch.stack(out)
 
 
-def generic_bwd_vjp_wgrad(cfg: GenericConfig, geo2, m0, m1, dy1, dy2, tile_rows: int,
+def generic_bwd_vjp_wgrad(cfg: GenericConfig, geo2, ms: Sequence, dys: Sequence, tile_rows: int,
                           tile0: int, ntiles: int, out=None):
     """The per-tile weight-gradient kernel (CUDA tensors; the plain version for
     CPU tensors): partials [ntiles, NW] fp32 (on the card into ``out`` when
     given)."""
     if geo2.device.type == "cpu":
-        return generic_bwd_vjp_wgrad_plain(cfg, geo2, m0, m1, dy1, dy2, tile_rows, tile0, ntiles)
-    _cuda_args(geo2, (geo2, m0, m1, dy1, dy2))
+        return generic_bwd_vjp_wgrad_plain(cfg, geo2, ms, dys, tile_rows, tile0, ntiles)
+    _cuda_args(geo2, (geo2, *ms, *dys))
     lib = _bwd_lib(cfg, geo2)
-    (c1a, da, _), (c1b, db, _) = cfg.widths
-    nw = cfg.a * (c1a * da + c1b * db)
+    nl, widths, table = _layers(cfg, geo2.device)
     if out is None:
-        out = torch.empty((ntiles, nw), dtype=torch.float32, device=geo2.device)
-    if tuple(out.shape) != (ntiles, nw) or out.dtype != torch.float32 or not out.is_contiguous():
-        raise ValueError(f"out must be contiguous float32 {(ntiles, nw)}")
+        out = torch.empty((ntiles, cfg.nw), dtype=torch.float32, device=geo2.device)
+    if (tuple(out.shape) != (ntiles, cfg.nw) or out.dtype != torch.float32
+            or not out.is_contiguous()):
+        raise ValueError(f"out must be contiguous float32 {(ntiles, cfg.nw)}")
+    m = _flat(ms[1:]) if nl > 1 else None
     with torch.cuda.device(geo2.device):
         rc = lib.fused_message_generic_bwd_wgrad_tiles(
-            _DTYPE_CODE[geo2.dtype], *(x.data_ptr() for x in (geo2, m0, m1, dy1, dy2, out)),
-            m0.shape[0] // cfg.k, cfg.k, cfg.a, c1a, da, c1b, db, tile_rows, tile0, ntiles,
+            _DTYPE_CODE[geo2.dtype],
+            *(_ptr(x) for x in (geo2, ms[0], m, _flat(dys), table, out)),
+            ms[0].shape[0] // cfg.k, cfg.k, cfg.a, nl, widths, tile_rows, tile0, ntiles,
             torch.cuda.current_stream(geo2.device).cuda_stream)
     _launched("fused_message_generic_bwd_wgrad_tiles", rc)
     GENERIC_BWD_VJP_WGRAD.launches += 1
@@ -1126,16 +1223,14 @@ def generic_bwd_vjp_wgrad(cfg: GenericConfig, geo2, m0, m1, dy1, dy2, tile_rows:
 
 
 # bytes of per-tile partials held at once (one group of tiles; 1.05 MB per
-# tile at the lmax=2 config, 4.2 MB at lmax_attr=5)
+# tile at the two-layer lmax=2 config, 4.2 MB at lmax_attr=5)
 _VJP_PARTIAL_BYTES = 1 << 27
 
 
 def vjp_group(cfg: GenericConfig, ntiles: int) -> int:
     """Backward tiles per launch of #14's weight-gradient kernel: as many
     per-tile partials [NW] fp32 as fit in ``_VJP_PARTIAL_BYTES``."""
-    (c1a, da, _), (c1b, db, _) = cfg.widths
-    nw = cfg.a * (c1a * da + c1b * db)
-    return max(1, min(ntiles, _VJP_PARTIAL_BYTES // (4 * nw)))
+    return max(1, min(ntiles, _VJP_PARTIAL_BYTES // (4 * cfg.nw)))
 
 
 def generic_bwd_vjp_kernels(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Sequence,
@@ -1146,27 +1241,22 @@ def generic_bwd_vjp_kernels(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels:
     first row is the running sum: every tile's rounded partial is added in
     fp32 in tile order, and only one group's partials are held."""
     _check_bwd_tile(h, bwd_tile)
-    d_hs, d_hr, dy1, dy2, m0, m1 = generic_bwd_chain(cfg, hs, h, geo2, ws, sels, d_agg,
-                                                     vjp=True)
-    (c1a, da, _), (c1b, db, _) = cfg.widths
-    nw = cfg.a * (c1a * da + c1b * db)
+    d_hs, d_hr, dys, ms = generic_bwd_chain(cfg, hs, h, geo2, ws, sels, d_agg, vjp=True)
     ntiles = h.shape[0] // bwd_tile
     group = vjp_group(cfg, ntiles)
-    buf = torch.zeros((group + 1, nw), dtype=torch.float32, device=h.device)
+    buf = torch.zeros((group + 1, cfg.nw), dtype=torch.float32, device=h.device)
     dw = buf[0]
     for t0 in range(0, ntiles, group):
         g = min(group, ntiles - t0)
-        generic_bwd_vjp_wgrad(cfg, geo2, m0, m1, dy1, dy2, bwd_tile * cfg.k, t0, g,
-                              out=buf[1:1 + g])
+        generic_bwd_vjp_wgrad(cfg, geo2, ms, dys, bwd_tile * cfg.k, t0, g, out=buf[1:1 + g])
         dw = tab_bwd_reduce(buf[:1 + g])
         buf[0].copy_(dw)
-    n1 = cfg.a * c1a * da
-    return d_hs, d_hr, [dw[:n1].view(cfg.a * c1a, da), dw[n1:].view(cfg.a * c1b, db)]
+    return d_hs, d_hr, _split_dw(cfg, dw)
 
 
 def generic_bwd_vjp(cfg: GenericConfig, hs, h, geo2, ws: Sequence, sels: Sequence, d_agg,
                     bwd_tile: int):
-    """``(d_hs, d_hr, [dW'_1, dW'_2] fp32)`` of kernel #14: the hand-written
+    """``(d_hs, d_hr, [dW'_1 .. dW'_L] fp32)`` of kernel #14: the hand-written
     CUDA kernels for CUDA tensors, the plain version for CPU tensors.
     Arguments as in ``generic_bwd_vjp_plain``."""
     if h.device.type == "cpu":
@@ -1398,12 +1488,13 @@ class FusedMessageGeneric:
         return 2 * sum(layer.tp.fold_nonzeros() for layer in self.layers)
 
     def selections(self, device) -> tuple:
-        """Per layer the int32 sigmoid-lane index of each gate output lane."""
+        """Per layer the int32 sigmoid-lane index of each gate output lane
+        (views of one buffer, layer order: the kernels read it whole)."""
         key = str(device)
         if key not in self._sels:
-            self._sels[key] = tuple(
-                layer.gate.fast_select(psel).to(device=device, dtype=torch.int32)
-                for layer, (_, psel, _) in zip(self.layers, self._gate_fast))
+            sels = [layer.gate.fast_select(psel).to(dtype=torch.int32)
+                    for layer, (_, psel, _) in zip(self.layers, self._gate_fast)]
+            self._sels[key] = tuple(_views(torch.cat(sels).to(device), [s.shape for s in sels]))
         return self._sels[key]
 
     def fold(self, dtype) -> list:

@@ -3,7 +3,7 @@ config-5 node block, for two checkouts of the port on one card, or of two
 gate activations of one checkout.
 
     python scalable_e3_gnn_torch/kernels/generic_ab.py [--repo DIR] [--tag NAME]
-        [--act NAME] [--tabled]
+        [--act NAME] [--tabled] [--dtype float32]
 
 Imports ``scalable_e3_gnn_torch`` from DIR (default: the checkout holding
 this file), makes the same bf16 inputs from a seed on the card (400,000
@@ -26,7 +26,11 @@ and #9 (whole: chain, weight gradients, table sum, reduction; and its
 chain), on bench.py's 250k lmax=2 graph (uniform points from the seed, r =
 0.04 * (100000 / 250000)^(1/3), K=16, octree 7 levels, cell capacity 64,
 symmetrized, gather tables at tile 200), random features, attributes of the
-graph with extra masked slots.
+graph with extra masked slots, and #14 whole (backward tile 200) on the same
+graph without its tables.  ``--dtype float32`` runs the fp32 instances and
+prints the digests only.  Checkouts whose chain returns ``(d_hs, d_hr, dy1,
+dy2, m0, m1)`` (two message layers) and those whose chain returns ``(d_hs,
+d_hr, dys, ms)`` (any count) are both driven.
 
 ``--clocks`` (this checkout's sources only) builds both sources once more
 with ``GENERIC_FWD_CLOCKS`` / ``GENERIC_WGRAD_CLOCKS`` into a scratch
@@ -103,7 +107,22 @@ def _profiling_lib(name: str, macro: str, out_dir: Path):
     return ctypes.CDLL(str(lib_path))
 
 
-def wgrad_clocks(fmg, cfg, hs, h, geo2, m1, dy1, dy2, splits: int, out_dir: Path) -> dict:
+def _chain_rows(out):
+    """(dys, ms) of a chain's result: a list per layer (this checkout) or
+    the two-layer tuple (d_hs, d_hr, dy1, dy2, m0, m1) of an older one."""
+    return (list(out[2:4]), list(out[4:6])) if len(out) == 6 else (out[2], out[3])
+
+
+def _wgrad_untabled(fmg, cfg, hs, h, geo2, dys, ms, splits):
+    """The untabled weight-gradient kernel through either checkout's API."""
+    import inspect
+
+    if len(inspect.signature(fmg.generic_bwd_wgrad).parameters) == 7:
+        return fmg.generic_bwd_wgrad(cfg, hs, h, geo2, ms, dys, splits)
+    return fmg.generic_bwd_wgrad(cfg, hs, h, geo2, ms[1], dys[0], dys[1], splits)
+
+
+def wgrad_clocks(fmg, cfg, hs, h, geo2, dys, ms, splits: int, out_dir: Path) -> dict:
     """The untabled weight-gradient kernel's cycles per block, from the
     profiling build: waiting for chunks, thread 0's multiplies, the barrier
     after them."""
@@ -114,14 +133,14 @@ def wgrad_clocks(fmg, cfg, hs, h, geo2, m1, dy1, dy2, splits: int, out_dir: Path
     fn.restype, fn.argtypes = fmg._BWD_SIGS["fused_message_generic_tab_bwd_wgrad"]
     lib.generic_wgrad_cycles.restype = ctypes.c_int
     lib.generic_wgrad_cycles.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
-    (c1a, da, _), (c1b, db, _) = cfg.widths
-    rows = m1.shape[0]
-    part = torch.empty((splits, cfg.a * (c1a * da + c1b * db)), dtype=torch.float32,
-                       device=h.device)
-    call = lambda: fn(1, geo2.data_ptr(), None, m1.data_ptr(), dy1.data_ptr(), dy2.data_ptr(),
-                      hs.data_ptr(), h.data_ptr(), part.data_ptr(), rows // cfg.k, cfg.f, cfg.k,
-                      cfg.a, c1a, da, c1b, db, splits, fmg.WGRAD_GROUP[torch.bfloat16],
-                      torch.cuda.current_stream().cuda_stream)
+    nl, widths, table = fmg._layers(cfg, h.device)
+    rows = dys[0].shape[0]
+    part = torch.empty((splits, cfg.nw), dtype=torch.float32, device=h.device)
+    m = fmg._flat(ms[1:]) if nl > 1 else None
+    call = lambda: fn(1, geo2.data_ptr(), None, fmg._ptr(m), fmg._flat(dys).data_ptr(),
+                      hs.data_ptr(), h.data_ptr(), table.data_ptr(), part.data_ptr(),
+                      rows // cfg.k, cfg.f, cfg.k, cfg.a, nl, widths, splits,
+                      fmg.WGRAD_GROUP[torch.bfloat16], torch.cuda.current_stream().cuda_stream)
     cyc = (ctypes.c_ulonglong * 4)()
     assert call() == 0
     torch.cuda.synchronize()
@@ -129,13 +148,13 @@ def wgrad_clocks(fmg, cfg, hs, h, geo2, m1, dy1, dy2, splits: int, out_dir: Path
     assert call() == 0
     torch.cuda.synchronize()
     assert lib.generic_wgrad_cycles(cyc) == 0
-    blocks = 2 * -(-cfg.a // fmg.WGRAD_GROUP[torch.bfloat16]) * splits
+    blocks = nl * -(-cfg.a // fmg.WGRAD_GROUP[torch.bfloat16]) * splits
     chunks = -(-rows // 64)
     names = ("wait", "multiply", "barrier")
     return dict(cycles_per_block={names[i]: cyc[i] / blocks for i in range(3)},
                 chunks_per_block=chunks / splits,
                 partials_equal=bool(torch.equal(part, fmg.generic_bwd_wgrad(
-                    cfg, hs, h, geo2, m1, dy1, dy2, splits))))
+                    cfg, hs, h, geo2, ms, dys, splits))))
 
 
 def phase_clocks(fmg, cfg, hs, h, geo2, ws, sels, out_dir: Path) -> dict:
@@ -148,17 +167,16 @@ def phase_clocks(fmg, cfg, hs, h, geo2, ws, sels, out_dir: Path) -> dict:
         restype, argtypes
     lib.generic_fwd_phase_cycles.restype = ctypes.c_int
     lib.generic_fwd_phase_cycles.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
-    (c1a, da, dk1), (c1b, db, dk2) = cfg.widths
     n, f = h.shape
-    _, _, wpk, masks, chunks, q1, q2 = fmg._fwd_weights(cfg, ws)
-    out = torch.empty((n, dk2), dtype=h.dtype, device=h.device)
+    nl, widths, table = fmg._layers(cfg, h.device)
+    _, wpk, masks, chunks, nq = fmg._fwd_weights(cfg, ws)
+    out = torch.empty((n, cfg.out_dim), dtype=h.dtype, device=h.device)
     cyc = (ctypes.c_ulonglong * 8)()
-    ptrs = [hs.data_ptr(), h.data_ptr(), geo2.data_ptr(), None, sels[0].data_ptr(), None,
-            sels[1].data_ptr(), out.data_ptr(), None, None, wpk.data_ptr(), masks.data_ptr(),
+    ptrs = [hs.data_ptr(), h.data_ptr(), geo2.data_ptr(), None, fmg._flat(sels).data_ptr(),
+            table.data_ptr(), out.data_ptr(), None, wpk.data_ptr(), masks.data_ptr(),
             chunks.data_ptr()]
     call = lambda: lib.fused_message_generic_fwd(
-        1, *ptrs, n, f, cfg.k, cfg.a, c1a, da, dk1, c1b, db, dk2, q1, q2,
-        torch.cuda.current_stream().cuda_stream)
+        1, *ptrs, n, f, cfg.k, cfg.a, nl, widths, nq, torch.cuda.current_stream().cuda_stream)
     assert call() == 0
     torch.cuda.synchronize()
     lib.generic_fwd_phase_cycles(cyc)  # drop the warm-up
@@ -168,22 +186,23 @@ def phase_clocks(fmg, cfg, hs, h, geo2, ws, sels, out_dir: Path) -> dict:
     torch.cuda.synchronize()
     assert lib.generic_fwd_phase_cycles(cyc) == 0
     blocks = iters * -(-n // (64 // cfg.k))
-    names = ("", "rows_gather", "layer1", "gate1", "layer2", "ksum_store")
+    names = ("", "rows_gather", "layers_but_last", "gates", "last_layer", "ksum_store")
     per_block = {names[i]: cyc[i] / blocks for i in range(1, 6)}
     return dict(cycles_per_block=per_block, total=sum(per_block.values()),
                 fwd_out_equal=bool(torch.equal(out, fmg.generic_fwd(cfg, hs, h, geo2, ws, sels))))
 
 
-def tabled(fmg, model, dev) -> dict:
-    """#8 and #9 on bench.py's 250k lmax=2 graph with tables (``--tabled``):
-    SHA-256 digests of the outputs, CUDA-event ms and device ms per launch."""
+def tabled(fmg, model, dev, dtype, times: bool) -> dict:
+    """#8 and #9 on bench.py's 250k lmax=2 graph with tables, #14 on it
+    without (``--tabled``): SHA-256 digests of the outputs, CUDA-event ms and
+    device ms per launch (``times``)."""
     import numpy as np
 
     from scalable_e3_gnn_torch.graph.container import DenseEdgeGraph
     from scalable_e3_gnn_torch.graph.octree import build_octree
     from scalable_e3_gnn_torch.graph.radius import radius_graph_cell
 
-    n, lo, hi, bf = 250_000, (0.0,) * 3, (1.0,) * 3, torch.bfloat16
+    n, lo, hi, bf = 250_000, (0.0,) * 3, (1.0,) * 3, dtype
     pts = np.random.default_rng(SEED).random((n, 3)).astype(np.float32)
     tree = build_octree(pts, lo, hi, num_levels=7, device=dev)
     edges = radius_graph_cell(tree, 0.04 * (100_000 / n) ** (1 / 3), lo, hi, max_neighbors=K,
@@ -205,10 +224,21 @@ def tabled(fmg, model, dev) -> dict:
     with torch.no_grad():
         agg, ys = fmg.generic_tab_fwd(cfg, *args, save=True)
         d_hu, d_hr, dws = fmg.generic_tab_bwd_kernels(cfg, *args, d_agg, ys=ys)
+        from scalable_e3_gnn_torch.ops.gather_scatter import gather_km
+
+        ucfg = kern.config(a, 0)
+        hs = gather_km(h, graph.senders)
+        v_hs, v_hr, v_dws = fmg.generic_bwd_vjp_kernels(ucfg, hs, *args[:2], *args[4:], d_agg,
+                                                        200)
         torch.cuda.synchronize()
         digests = {nm: _digest(t) for nm, t in (("agg", agg), ("y1", ys[0]), ("y2", ys[1]),
                                                  ("d_hu", d_hu), ("d_hr", d_hr), ("dw1", dws[0]),
-                                                 ("dw2", dws[1]))}
+                                                 ("dw2", dws[1]), ("vjp_d_hs", v_hs),
+                                                 ("vjp_d_hr", v_hr), ("vjp_dw1", v_dws[0]),
+                                                 ("vjp_dw2", v_dws[1]))}
+        del hs, v_hs, v_hr, v_dws
+        if not times:
+            return dict(points=n, k=K, tile=200, digests=digests)
         times = dict(
             fwd_ms=_events(lambda: fmg.generic_tab_fwd(cfg, *args), 5),
             save_ms=_events(lambda: fmg.generic_tab_fwd(cfg, *args, save=True), 3),
@@ -229,6 +259,8 @@ def main() -> int:
     ap.add_argument("--clocks", default="", help="scratch directory for the profiling build")
     ap.add_argument("--act", default="silu", help="the gate activation (ops/gate.py)")
     ap.add_argument("--tabled", action="store_true", help="#8 and #9 at the 250k graph")
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"),
+                    help="float32: the fp32 instances, digests only")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.repo).resolve()))
     import scalable_e3_gnn_torch
@@ -239,7 +271,8 @@ def main() -> int:
         print("needs a CUDA card", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    dev, bf = torch.device("cuda"), torch.bfloat16
+    dev, bf = torch.device("cuda"), getattr(torch, args.dtype)
+    times = args.dtype == "bfloat16"
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     act = {}
@@ -250,9 +283,10 @@ def main() -> int:
     model = SEGNN("2x0e+1x1o", HIDDEN, "1x1o", lmax_attr=2, num_layers=1, layout="cm",
                   use_pallas=True, device=dev, generator=torch.Generator().manual_seed(0), **act)
     if args.tabled:
-        out = tabled(fmg, model, dev)
-        print(json.dumps(dict(tag=args.tag, act=args.act, package=scalable_e3_gnn_torch.__file__,
-                              card=card, **out)), flush=True)
+        out = tabled(fmg, model, dev, bf, times)
+        print(json.dumps(dict(tag=args.tag, act=args.act, dtype=args.dtype,
+                              package=scalable_e3_gnn_torch.__file__, card=card, **out)),
+              flush=True)
         return 0
     kern = fmg.FusedMessageGeneric(model.layers[0].message_layers, K, 200, residual_bwd=False)
     cfg = kern.config(9, 0)
@@ -274,28 +308,27 @@ def main() -> int:
     sels = kern.selections(dev)
     a = (hs, h, geo2, ws, sels)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    new = hasattr(fmg, "generic_bwd_wgrad")
     splits = fmg._wgrad_splits(cfg, n * K, sms)
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
         agg = fmg.generic_fwd(cfg, *a)
         agg_s, ys = fmg.generic_fwd(cfg, *a, save=True)
         d_hs, d_hr, dws = fmg.generic_bwd_kernels(cfg, *a, d_agg)
-        _, _, dy1, dy2, m0, m1 = fmg.generic_bwd_chain(cfg, *a, d_agg)
-
-        def wgrad():
-            if new:
-                return fmg.generic_bwd_wgrad(cfg, hs, h, geo2, m1, dy1, dy2, splits)
-            return fmg.generic_tab_bwd_wgrad(cfg, geo2, m0, m1, dy1, dy2, splits)
-
+        dys, ms = _chain_rows(fmg.generic_bwd_chain(cfg, *a, d_agg))
+        wgrad = lambda: _wgrad_untabled(fmg, cfg, hs, h, geo2, dys, ms, splits)
         part = wgrad()
         torch.cuda.synchronize()
         digests = {nm: _digest(t) for nm, t in (
             ("agg", agg), ("agg_save", agg_s), ("y1", ys[0]), ("y2", ys[1]), ("d_hs", d_hs),
-            ("d_hr", d_hr), ("dw1", dws[0]), ("dw2", dws[1]), ("dy1", dy1), ("dy2", dy2),
-            ("m1", m1))}
+            ("d_hr", d_hr), ("dw1", dws[0]), ("dw2", dws[1]), ("dy1", dys[0]), ("dy2", dys[1]),
+            ("m1", ms[1]))}
         digests["wgrad_sum"] = _digest(part.sum(0))
         del agg_s, ys, d_hs, d_hr, dws
+        if not times:
+            print(json.dumps(dict(tag=args.tag, act=args.act, dtype=args.dtype, card=card,
+                                  package=scalable_e3_gnn_torch.__file__, block=n, k=K,
+                                  digests=digests)), flush=True)
+            return 0
         times = dict(
             fwd_ms=_events(lambda: fmg.generic_fwd(cfg, *a), 5),
             save_ms=_events(lambda: fmg.generic_fwd(cfg, *a, save=True), 3),
@@ -305,10 +338,11 @@ def main() -> int:
         device = dict(fwd=_device(lambda: fmg.generic_fwd(cfg, *a), 5),
                       rep=_device(lambda: fmg.generic_bwd_kernels(cfg, *a, d_agg), 3))
         clocks = dict(fwd=phase_clocks(fmg, cfg, *a, Path(args.clocks)),
-                      wgrad=wgrad_clocks(fmg, cfg, hs, h, geo2, m1, dy1, dy2, splits,
+                      wgrad=wgrad_clocks(fmg, cfg, hs, h, geo2, dys, ms, splits,
                                          Path(args.clocks))) if args.clocks else None
     print(json.dumps(dict(
-        tag=args.tag, act=args.act, package=scalable_e3_gnn_torch.__file__, card=card, block=n,
+        tag=args.tag, act=args.act, dtype=args.dtype, package=scalable_e3_gnn_torch.__file__,
+        card=card, block=n,
         k=K,
         splits=splits, valid_slots=int((geo2.view(n, K, -1)[..., -1] > 0).sum()),
         plan_tiles=dict(fwd=cfg.plan.counts("fwd"), dm=cfg.plan.counts("dm"))

@@ -18,7 +18,10 @@ their B fragments (lane L = 4 g + t: ``b0 = B[2t, g], B[2t+1, g]``, ``b1 =
 B[2t+8, g], B[2t+9, g]``), through a gather index built once; a call costs
 one gather and no host sync.  ``chunk_table`` cuts the streams into the
 engine's bulk copies: at most ``CHUNK_TILES`` tiles, whole rows (the tiles of
-one mask) each, a stream's first chunk starting fresh.  Skipping a zero tile
+one mask) each, a stream's first chunk starting fresh; ``args`` hands the
+engine each stream's first chunk, then the chunk table, in one device array.
+A plan serves any number of message layers (one forward and one dm stream
+each).  Skipping a zero tile
 adds exactly 0 to an fp32 accumulator, so the engine's outputs are bitwise
 those of the dense product.
 
@@ -99,7 +102,7 @@ def fold_structure(layers: Sequence, perms: Sequence, seed: int = 0) -> list:
 
 
 class TilePlan:
-    """The listed tiles of a two-layer message block and their gather index.
+    """The listed tiles of a message block's layers and their gather index.
 
     ``nonzero``: per layer the bool map [A*C1, D] of W' (``fold_structure``),
     or None for every tile (``TilePlan.dense``)."""
@@ -171,18 +174,21 @@ class TilePlan:
 
     def args(self, ws: Sequence[torch.Tensor], streams: Sequence[Tuple[str, int, bool]]):
         """The engine's weight arguments for the named streams: (packed tiles,
-        masks, chunk table, chunks per stream), on the weights' device."""
+        masks, chunks, chunks per stream), on the weights' device.  ``chunks``
+        is int32 [S + 1 + Q + 1]: each stream's first chunk and then the count
+        Q (the ring's ``q_base``), then ``chunk_table``'s first tiles."""
         dev = ws[0].device
         key = ("chunks", tuple(streams), str(dev))
         if key not in self._dev:
             table, per = self.chunk_table(streams)
-            self._dev[key] = (torch.from_numpy(table).to(dev), per)
-        table, per = self._dev[key]
-        return self.pack(ws, streams), self.masks(dev), table, per
+            qbase = np.concatenate([[0], np.cumsum(per, dtype=np.int64)]).astype(np.int32)
+            self._dev[key] = (torch.from_numpy(np.concatenate([qbase, table])).to(dev), per)
+        chunks, per = self._dev[key]
+        return self.pack(ws, streams), self.masks(dev), chunks, per
 
     def masks(self, device) -> torch.Tensor:
-        """int32 [sum of A*KS_l + A*DS_l]: the forward masks of both layers,
-        then the dm masks of both (the bits of a uint32 each)."""
+        """int32 [sum of A*KS_l + A*DS_l]: the forward masks of every layer,
+        then the dm masks of every layer (the bits of a uint32 each)."""
         key = ("masks", str(device))
         if key not in self._dev:
             flat = np.concatenate([m.reshape(-1) for m in self.fwd_masks + self.dm_masks])

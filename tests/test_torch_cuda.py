@@ -33,7 +33,11 @@ SEGNN on the card (both exchange backends) against the unpartitioned plain
 path; the COO partitioned path on the card (both backends) against the
 unpartitioned COO model, the dense dp step (2 clouds x 4 partitions) through
 #3/#5 against the plain path's mean of the clouds' losses, and the
-overlapped exchange against the serialized one, bit for bit.
+overlapped exchange against the serialized one, bit for bit; and #8-#14 at
+one and three message layers (``SEGNNLayer(num_message_layers=L)``: every
+route against its plain version in fp32 and bf16, three A=36 layers, lmax=2
+SEGNN gradients through the residual, replay and vjp backwards against the
+plain path; ``-k msg_layers``).
 
 These tests need a CUDA card and skip without one.  They import no JAX, so
 they run on a machine without it (``--noconftest`` skips the JAX-only
@@ -655,11 +659,11 @@ def test_wgrad_rebuilt_m0_equals_the_chains_bitwise(dev, hidden, k, n, dtype):
     cfg, args, d_agg = _vjp_problem(dev, hidden, k, n, dtype)
     hs, h, geo2 = args[:3]
     with torch.no_grad():
-        _, _, dy1, dy2, m0, m1 = fmg.generic_bwd_chain(cfg, *args, d_agg, vjp=True)
-        assert torch.equal(fmg._m0_rows(cfg, hs, h, geo2), m0)
+        _, _, dys, ms = fmg.generic_bwd_chain(cfg, *args, d_agg, vjp=True)
+        assert torch.equal(fmg._m0_rows(cfg, hs, h, geo2), ms[0])
         for splits in (1, 5):
-            got = fmg.generic_bwd_wgrad(cfg, hs, h, geo2, m1, dy1, dy2, splits)
-            ref = fmg.generic_tab_bwd_wgrad(cfg, geo2, m0, m1, dy1, dy2, splits)
+            got = fmg.generic_bwd_wgrad(cfg, hs, h, geo2, ms, dys, splits)
+            ref = fmg.generic_tab_bwd_wgrad(cfg, geo2, ms, dys, splits)
             torch.cuda.synchronize()
             assert torch.equal(got, ref), splits
 
@@ -1625,3 +1629,187 @@ def test_overlap_equals_serialized_on_card(dev, backend):
     assert torch.equal(f0, f1) and l0 == l1
     assert all(torch.equal(a, b) for a, b in zip(p0, p1))
 
+
+
+# ---- #8-#14 at other counts of message layers (SEGNNLayer(num_message_layers=L))
+
+def _msg_layers_model(dev, hidden, lmax_attr, num_layers, n_msg, seed=0, **kw):
+    """An lmax=2 SEGNN whose layers each run ``n_msg`` gated message layers,
+    built as a user would: the model's layers replaced by SEGNNLayers of
+    that count."""
+    kw.setdefault("use_pallas", True)
+    model = SEGNN("2x0e+1x1o", hidden, "1x1o", lmax_attr=lmax_attr, num_layers=num_layers,
+                  layout="cm", device=dev, generator=torch.Generator().manual_seed(seed), **kw)
+    gen = torch.Generator().manual_seed(seed + 1)
+    model.layers = torch.nn.ModuleList(
+        SEGNNLayer(model.hidden_irreps, model.attr_irreps, num_message_layers=n_msg, layout="cm",
+                   device=dev, generator=gen, **kw)
+        for _ in range(num_layers))
+    return model
+
+
+def _msg_layers_problem(dev, n_msg, dtype, lmax_attr=2, hidden="24x0e+12x1o+6x2e", k=16,
+                        n=2000):
+    """The tabled and untabled kernels' arguments for one layer of
+    ``n_msg`` message layers on a real graph, kernel #8's masked tail and
+    extra masked slots, and a cotangent."""
+    tile = SEGNNLayer._pick_generic_tile(n)
+    g, gt = _graph(dev, n, k, 0.25, tile)
+    model = _msg_layers_model(dev, hidden, lmax_attr, 1, n_msg, seed=5)
+    kern = fmg.FusedMessageGeneric(model.layers[0].message_layers, k, tile)
+    geo = model.compute_attributes_dense(gt)[3].reshape(n, k, -1).clone()
+    a = geo.shape[-1] - 2
+    gen = torch.Generator(device=dev).manual_seed(6)
+    geo[..., a + 1] *= (torch.rand((n, k), generator=gen, device=dev) > 0.1).float()
+    geo[n - 37:, :, a + 1] = 0.0
+    cfg = kern.config(a, gt.gather_tab.shape[1])
+    loc = gt.gather_loc.clone()
+    loc[n - 37:] = cfg.u
+    h = torch.randn((n, cfg.f), generator=gen, device=dev)
+    h[n - 37:] = 0.0
+    hs = h[torch.clamp(g.senders.t(), max=n - 1).long()].contiguous()
+    ws, sels = [w.contiguous() for w in kern.fold(dtype)], kern.selections(dev)
+    geo2 = geo.reshape(n, -1).to(dtype).contiguous()
+    d_agg = torch.randn((n, cfg.out_dim), generator=gen, device=dev).to(dtype)
+    tab = (h.to(dtype), geo2, loc, gt.gather_tab, ws, sels)
+    ucfg = dataclasses.replace(cfg, u=0)
+    return cfg, tab, ucfg, (hs.to(dtype), h.to(dtype), geo2, ws, sels), d_agg
+
+
+MSG_LAYERS = [1, 3]
+
+
+@pytest.mark.parametrize("n_msg", MSG_LAYERS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_msg_layers_tabled_match_plain(dev, n_msg, dtype):
+    """#8 (and its save mode: every layer's y), #9 and #10 at one and three
+    message layers against their plain versions, at the two-layer limits
+    (``_check_generic``, ``_check_bwd``); #9 = #10 bitwise."""
+    cfg, args, _, _, d_agg = _msg_layers_problem(dev, n_msg, dtype)
+    assert len(cfg.widths) == n_msg
+    before = [kern.launches for kern in fmg.KERNELS[:5]]
+    with torch.no_grad():
+        agg, ys = fmg.generic_tab_fwd(cfg, *args, save=True)
+        ref_agg, ref_ys = fmg.generic_tab_fwd_plain(cfg, *args, save=True)
+        assert torch.equal(agg, fmg.generic_tab_fwd(cfg, *args)) and len(ys) == n_msg
+        for got, ref in [(agg, ref_agg), *zip(ys, ref_ys, strict=True)]:
+            _check_generic(got, ref, dtype)
+        res = fmg.generic_tab_bwd(cfg, *args, d_agg, ys=ys)
+        rep = fmg.generic_tab_bwd(cfg, *args, d_agg)
+        torch.cuda.synchronize()
+        _check_bwd(res, fmg.generic_tab_bwd_plain(cfg, *args, d_agg), dtype)
+    assert len(res[2]) == n_msg
+    assert all(torch.equal(x, y) for x, y in zip([res[0], res[1], *res[2]],
+                                                 [rep[0], rep[1], *rep[2]], strict=True))
+    moved = [kern.launches - b for kern, b in zip(fmg.KERNELS[:5], before)]
+    assert moved == [2, 1, 1, 2, 2], moved
+
+
+@pytest.mark.parametrize("n_msg", MSG_LAYERS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_msg_layers_untabled_match_plain(dev, n_msg, dtype):
+    """#11 (and save), #12 and #13 at one and three message layers against
+    their plain versions (``_check_generic``, ``_check_bwd``); #12 = #13
+    bitwise, reruns bitwise."""
+    _, _, cfg, args, d_agg = _msg_layers_problem(dev, n_msg, dtype)
+    with torch.no_grad():
+        agg, ys = fmg.generic_fwd(cfg, *args, save=True)
+        ref_agg, ref_ys = fmg.generic_fwd_plain(cfg, *args, save=True)
+        assert torch.equal(agg, fmg.generic_fwd(cfg, *args)) and len(ys) == n_msg
+        for got, ref in [(agg, ref_agg), *zip(ys, ref_ys, strict=True)]:
+            _check_generic(got, ref, dtype)
+        runs = [fmg.generic_bwd(cfg, *args, d_agg, ys=y) for y in (ys, None, ys)]
+        torch.cuda.synchronize()
+        _check_bwd(runs[0], fmg.generic_bwd_plain(cfg, *args, d_agg), dtype)
+    flat = [[r[0], r[1], *r[2]] for r in runs]
+    for other in flat[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(flat[0], other, strict=True))
+
+
+def _check_vjp(cfg, args, d_agg, got, ref, dtype):
+    """#14 against its plain version as ``_check_bwd``, except for bf16
+    d_hs elements over 8 ulps: such an element passes only where its slot
+    row is explained (``PERF.md`` section 2, ``chip_smoke.explain_d_hs``):
+    #14's own last stage (``_layer_vjp``, JAX's AD rounding), fed the
+    kernel's dy_0 of that row, gives the kernel's d_hs row within one ulp,
+    so the excess comes from a dy_0 that an fp32 sum upstream, in another
+    order, rounded across a bf16 step.  At most 1% of d_hs over 1 ulp."""
+    if dtype == torch.float32:
+        return _check_bwd(got, ref, dtype)
+    d_hs, r_hs = got[0].float(), ref[0].float()
+    r = r_hs.abs()
+    ulp = torch.exp2(torch.floor(torch.log2(r.clamp(min=float(r.mean())))) - 7)
+    ulps = (d_hs - r_hs).abs() / ulp
+    assert torch.isfinite(d_hs).all() and float((ulps > 1).float().mean()) <= 0.01
+    over = ulps > 8
+    if over.any():
+        k, n, f = d_hs.shape
+        kk, ii = torch.nonzero(over.any(dim=-1), as_tuple=True)
+        c1, d0, _ = cfg.widths[0]
+        hs, h, geo2, ws, sels = args
+        with torch.no_grad():
+            dy0 = fmg.generic_bwd_chain(cfg, *args, d_agg, vjp=True)[2][0][ii * k + kk, :d0]
+            attr = geo2.reshape(n * k, cfg.a + 2)[ii * k + kk, :cfg.a].float()
+            refed = fmg._layer_vjp(dy0, attr, ws[0].float(), None, c1, cfg.a, 1)[0][:, :f]
+        r_ulps = (d_hs[kk, ii] - refed.float()).abs() / ulp[kk, ii]
+        assert not bool((over[kk, ii] & (r_ulps > 1)).any()), float(r_ulps[over[kk, ii]].max())
+    _check_bwd((ref[0], got[1], got[2]), ref, dtype)
+
+
+@pytest.mark.parametrize("n_msg", MSG_LAYERS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_msg_layers_vjp_match_plain(dev, n_msg, dtype):
+    """#14 (the vjp chain, the per-tile weight gradients, the reduction) at
+    one and three message layers against its plain version at backward tile
+    80 (``_check_vjp``), reruns bitwise; the chain's dy and m rows are every
+    layer's."""
+    _, _, cfg, args, d_agg = _msg_layers_problem(dev, n_msg, dtype)
+    with torch.no_grad():
+        got = fmg.generic_bwd_vjp(cfg, *args, d_agg, 80)
+        again = fmg.generic_bwd_vjp(cfg, *args, d_agg, 80)
+        _, _, dys, ms = fmg.generic_bwd_chain(cfg, *args, d_agg, vjp=True)
+        torch.cuda.synchronize()
+        _check_vjp(cfg, args, d_agg, got, fmg.generic_bwd_vjp_plain(cfg, *args, d_agg, 80), dtype)
+    assert len(dys) == len(ms) == n_msg and all(m is not None for m in ms)
+    assert all(torch.equal(x, y) for x, y in zip([got[0], got[1], *got[2]],
+                                                 [again[0], again[1], *again[2]], strict=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_msg_layers_attr36_match_plain(dev, dtype):
+    """Three non-foldable message layers (``lmax_attr=5``, A=36, few
+    irreps): #11 and #14 against their plain versions."""
+    _, _, cfg, args, d_agg = _msg_layers_problem(dev, 3, dtype, lmax_attr=5,
+                                                 hidden="8x0e+4x1o+2x2e", k=8, n=480)
+    assert cfg.a == 36 and len(cfg.widths) == 3
+    with torch.no_grad():
+        _check_generic(fmg.generic_fwd(cfg, *args), fmg.generic_fwd_plain(cfg, *args), dtype)
+        got = fmg.generic_bwd_vjp(cfg, *args, d_agg, 80)
+        torch.cuda.synchronize()
+        _check_vjp(cfg, args, d_agg, got, fmg.generic_bwd_vjp_plain(cfg, *args, d_agg, 80), dtype)
+
+
+@pytest.mark.parametrize("n_msg", MSG_LAYERS)
+@pytest.mark.parametrize("mode", ["residual", "replay", "vjp"])
+def test_msg_layers_segnn_gradients_match_plain(dev, n_msg, mode):
+    """fp32 gradients of every parameter of a two-layer lmax=2 model of
+    ``n_msg`` message layers through the kernels (tabled #8/#9, tabled
+    #8/#10 under ``remat_kernel``, untabled #11/#14 with neither
+    hand-structured backward) against the plain path: 1e-4 * max|ref|."""
+    n = 2000
+    kw = dict(residual=dict(), replay=dict(remat_kernel=True),
+              vjp=dict(residual_bwd=False, replay_bwd=False))[mode]
+    m_k = _msg_layers_model(dev, "24x0e+12x1o+6x2e", 2, 2, n_msg, seed=9, **kw)
+    m_p = _msg_layers_model(dev, "24x0e+12x1o+6x2e", 2, 2, n_msg, seed=9, use_pallas=False)
+    m_p.load_state_dict(m_k.state_dict())
+    g, gt = _graph(dev, n, 16, 0.12, SEGNNLayer._pick_generic_tile(n))
+    target = torch.randn((n, 3), generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    want = dict(residual=fmg.GENERIC_TAB_BWD_RES, replay=fmg.GENERIC_TAB_BWD_REP,
+                vjp=fmg.GENERIC_BWD_VJP)[mode]
+    before = want.launches
+    ((m_k(gt if mode != "vjp" else g) - target) ** 2).mean().backward()
+    ((m_p(g) - target) ** 2).mean().backward()
+    assert want.launches - before == 2
+    for (name, a), b in zip(m_k.named_parameters(), m_p.parameters(), strict=True):
+        err = float((a.grad - b.grad).abs().max())
+        assert err <= 1e-4 * float(b.grad.abs().max()), (name, err)

@@ -325,7 +325,7 @@ def test_wgrad_and_table_plain_versions_match_the_plain_backward(splits):
     with torch.no_grad():
         d_hu, d_hr, dws = fmg.generic_tab_bwd_plain(cfg, *args, d_agg)
         d_hs, c_hr, dy1, dy2, m0, m1 = _chain_outputs(cfg, *args, d_agg)
-        part = fmg.generic_tab_bwd_wgrad(cfg, args[1], m0, m1, dy1, dy2, splits)
+        part = fmg.generic_tab_bwd_wgrad(cfg, args[1], [m0, m1], [dy1, dy2], splits)
         table = fmg.generic_tab_bwd_table(cfg, d_hs, args[2])
     assert torch.equal(c_hr, d_hr) and torch.equal(table, d_hu)
     assert part.shape == (splits, sum(w.numel() for w in dws))

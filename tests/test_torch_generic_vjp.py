@@ -193,7 +193,7 @@ def test_vjp_wgrad_plain_is_the_per_tile_sum():
     (c1a, da, _), (c1b, db, _) = cfg.widths
     rows = (pad(ms[0], -(-c1a // 16) * 16), pad(ms[1], -(-c1b // 16) * 16),
             pad(dys[0], -(-da // 8) * 8), pad(dys[1], -(-db // 8) * 8))
-    parts = fmg.generic_bwd_vjp_wgrad(cfg, geo2, *rows, bt * k, 0, 6)
+    parts = fmg.generic_bwd_vjp_wgrad(cfg, geo2, rows[:2], rows[2:], bt * k, 0, 6)
     acc = torch.zeros(parts.shape[1])
     for row in parts:
         acc += row
@@ -201,7 +201,7 @@ def test_vjp_wgrad_plain_is_the_per_tile_sum():
     n1 = cfg.a * c1a * da
     assert torch.equal(acc[:n1].view_as(want[0]), want[0])
     assert torch.equal(acc[n1:].view_as(want[1]), want[1])
-    short = fmg.generic_bwd_vjp_wgrad(cfg, geo2, *rows, 7 * bt * k // 8, 7, 2)
+    short = fmg.generic_bwd_vjp_wgrad(cfg, geo2, rows[:2], rows[2:], 7 * bt * k // 8, 7, 2)
     assert short.shape[0] == 2 and torch.isfinite(short).all()
 
 

@@ -331,8 +331,8 @@ def test_rebuilt_m0_rows_equal_the_chains_m0(hidden):
     assert torch.equal(got[:, :2 * f + 1], ref) and (got[:, 2 * f + 1:] == 0).all()
     # the untabled weight-gradient wrapper's plain version reads those rows
     m1, dy1, dy2 = mk(n * k, 96), mk(n * k, 112), mk(n * k, 112)
-    assert torch.equal(fmg.generic_bwd_wgrad(cfg, hs, h, geo2, m1, dy1, dy2, 3),
-                       fmg.generic_tab_bwd_wgrad_plain(cfg, geo2, got, m1, dy1, dy2, 3))
+    assert torch.equal(fmg.generic_bwd_wgrad(cfg, hs, h, geo2, [None, m1], [dy1, dy2], 3),
+                       fmg.generic_tab_bwd_wgrad_plain(cfg, geo2, [got, m1], [dy1, dy2], 3))
 
 
 def test_config_carries_the_plan_only_at_its_attribute_width():
