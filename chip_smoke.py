@@ -105,7 +105,7 @@ Phases, each printing one JSON line:
                  device times per launch of #11, the chains, the weight
                  gradients and the reduction.
 26. train_config5, config5 -- the 10M train step (edge_chunks=25, remat,
-                 remat_kernel, remat_layers=2), a warm-up and a timed step:
+                 remat_kernel, remat_layers=2), one counted, timed step:
                  per step 300 of #11, 100 of #13 (derived in
                  ``config5_phases``); peak memory, loss.
 27. grad_check_config5 -- fp32 gradients of the chunked model (4 blocks,
@@ -186,6 +186,22 @@ Phases, each printing one JSON line:
                  counted remat_kernel steps (4 of #8, 4 of #10) and the
                  sym-regather step (4 of #11, 4 of #13); the kernels' times
                  per launch at L = 1, 3 with bounds and plain versions.
+43d. wide     -- #8-#14 at hidden widths past the bench configs' (C1 > 192,
+                 D > 128; the engine's column blocks): every route at 20k
+                 points in fp32 and bf16 at 40x0e+20x1o+10x2e,
+                 46x0e+14x1o+8x2e, 64x0e+32x1o+18x2e and 48x0e+24x1o+12x2e
+                 (the bench model at twice its multiplicities) against its
+                 plain version at the bench widths' limits, at
+                 64x0e+32x1o+18x2e in bf16 under all five activations
+                 (every kernel of the library launched); fp32 gradients
+                 of 48x0e+24x1o+12x2e at 20k; that model on the 250k
+                 graph: a counted forward (4 of #8), 3 counted
+                 remat steps (#8, #9), 2 each without tables (#11 save, #12),
+                 under remat_kernel with tables (#8, #10) and without (#11,
+                 #13), and with neither hand backward (#11, #14), losses
+                 falling, forward and step ms beside the bench width's, peak
+                 memory; #8-#14 per launch at the wide 250k shapes with
+                 bounds and plain versions (the kernels line's ``wide``).
 44. dist_partition -- the dense partitioner on config 3's 100k graph at P = 1
                  and 4: host ms, NI/NB/H, both transpose tables' q; every
                  valid edge of the input found once over the partitions.
@@ -382,7 +398,7 @@ C5_RADIUS = RADIUS * (N_POINTS / C5_POINTS) ** (1 / 3)
 C5_SEGMENTS = 10  # radius_graph_cell_segments(num_segments=points // 1M)
 C5_CHUNKS = 25  # bench_scaling.py --chunks default: 400k-node blocks
 C5_REMAT_LAYERS = 2
-C5_TRAIN_STEPS = 2  # one warm-up step, one timed
+C5_TRAIN_STEPS = 1  # one counted step, timed cold (a second step reads within 1% of it)
 # its gradient check's cloud: 20k points at the 10M density, 4 node blocks
 GC5_POINTS = 20_000
 GC5_RADIUS = C5_RADIUS * (C5_POINTS / GC5_POINTS) ** (1 / 3)
@@ -655,18 +671,23 @@ def kernel_device_ms(fn, iters: int = 50, warmup: int = 5, one: bool = True) -> 
     ``fn`` launches, from a torch.profiler trace of ``iters`` calls: the mean
     over the launches the trace holds (it may hold fewer than ``iters``),
     without the host time between them.  ``one=False`` (a library call): the
-    sum of each kernel's mean, and the fewest launches traced of any."""
+    sum of each kernel's mean, and the fewest launches traced of any.  A
+    trace that holds no kernel at all (torch.profiler's CUDA activity can
+    come back empty) is taken again, up to three windows in all."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    evs = [ev for ev in prof.key_averages()
-           if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0]
+    for _ in range(3):  # a window traced with no kernel at all is traced again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.key_averages() if ev.device_type ==
+               torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0]
+        if evs:
+            break
     check(len(evs) == 1 or (not one and evs), f"one kernel per call expected, traced "
           f"{[ev.key for ev in evs]}")
     return (sum(ev.self_device_time_total / 1e3 / ev.count for ev in evs),
@@ -1759,8 +1780,9 @@ def config5_phases(card: str) -> dict:
         tile 200, senders anywhere in the 10M graph), fp32 and bf16, with
         the times of #11 and #13 and their bounds.
     26. train_config5 -- edge_chunks=25, remat, remat_kernel, remat_layers=2;
-        bf16 compute on fp32 masters, MSE, Adam 1e-3; one warm-up and one
-        timed step (CUDA events); loss, peak memory.  Launches per step,
+        bf16 compute on fp32 masters, MSE, Adam 1e-3; one counted step,
+        timed with no warm-up step before it (CUDA events); loss, peak
+        memory.  Launches per step,
         with L = 4 layers and C = 25 node blocks: the replay backward #13
         once per layer and block, L C = 100; the forward #11 three times per
         layer and block, 3 L C = 300: once in the forward, once when the
@@ -1831,7 +1853,7 @@ def config5_phases(card: str) -> dict:
                      remat_layers=C5_REMAT_LAYERS, remat=True, remat_kernel=True,
                      backward="replay (#13)", selection="sort")
     launches = launch_counts()
-    emit("config5", card=card, step_ms=step.step_ms[-1], warmup_step_ms=step.step_ms[0],
+    emit("config5", card=card, step_ms=step.step_ms[0], step_timed="the first, no warm-up",
          graph_build_ms=sum(gt.values()), edges=n_edges,
          kernel_ms_per_step_estimate=dict(
              fwd=3 * per_step * t["fwd_ms"], rep=per_step * t["rep_ms"]))
@@ -2271,7 +2293,7 @@ def km_phases(card: str, graph3) -> dict:
     with torch.no_grad():
         attrs = tuple(a.to(bf) for a in model.compute_attributes_dense(g1m))
     g1_bf = g1m._replace(nodes=g1m.nodes.to(bf))
-    step = train_run(model, g1_bf, attrs, y1m, 1 + L1M_TRAIN_STEPS, card, "train_km_1m",
+    step = train_run(model, g1_bf, attrs, y1m, L1M_TRAIN_STEPS, card, "train_km_1m",
                      expected({fm.KM_FWD.name: 2 * NUM_LAYERS * chunks,
                                fm.KM_BWD.name: NUM_LAYERS * chunks,
                                fm.TAB_BWD_REDUCE.name: NUM_LAYERS * chunks}),
@@ -3555,7 +3577,288 @@ def msg_layers_phases(card: str, ctx: dict) -> dict:
          max_abs_err_20k={f"L{a}_{b}_{c}": v for (a, b, c), v in small.items()},
          attr36_L3=attr36, launches_20k={f"L{a}_{b}_{c}": v for (a, b, c), v in launched.items()},
          seconds_20k=t_small, phase_seconds=seconds)
-    return dict(rows=rows, per_step=per_step, small=small)
+    return dict(rows=rows, per_step=per_step, small=small, fwd_ms=fwd_ms, step_ms=step_ms)
+
+
+# #8-#14 at hidden widths past the bench configs' (layer 1's C1 = 2F+1 >
+# 192, D > 128): C1 / D of layer 1 (301, 180), (257, 150) (SEGNN's QM9
+# width, F = 128) and (501, 300)
+WIDE_WIDTHS = ("40x0e+20x1o+10x2e", "46x0e+14x1o+8x2e", "64x0e+32x1o+18x2e")
+WIDE_HIDDEN = "48x0e+24x1o+12x2e"  # bench.py's lmax=2 model at twice its multiplicities
+WIDE_ACT_HIDDEN = WIDE_WIDTHS[2]  # checked in bf16 under every activation (three column blocks)
+WIDE_STEPS = 2  # counted 250k steps of each route but the tabled remat one (L2_TRAIN_STEPS)
+
+
+def wide_model(dev, hidden: str = WIDE_HIDDEN, use_pallas: bool = True, **kw):
+    """bench.py's lmax=2 model (4 layers, lmax_attr 2) at ``hidden``; the
+    weights from the seed."""
+    return port.SEGNN("2x0e+1x1o", hidden, "1x1o", lmax_attr=2, num_layers=NUM_LAYERS,
+                      layout="cm", use_pallas=use_pallas, device=dev,
+                      generator=torch.Generator().manual_seed(SEED + 80), **kw)
+
+
+def wide_grad_check(dev, g_gc, t_gc) -> dict:
+    """fp32 gradients of every parameter of the wide model through #8/#9 on
+    the tabled 20k graph against autograd through the plain path."""
+    m_p = wide_model(dev, use_pallas=False)
+    attrs = geo_only(m_p, g_gc, torch.float32)
+    loss_p = mse_loss(m_p(g_gc, attrs=attrs), t_gc)
+    loss_p.backward()
+    m_k = wide_model(dev)
+    m_k.load_state_dict(m_p.state_dict())
+    before = fmg.GENERIC_TAB_BWD_RES.launches
+    loss_k = mse_loss(m_k(g_gc, attrs=attrs), t_gc)
+    loss_k.backward()
+    worst, worst_name = 0.0, ""
+    for (nm, a), b in zip(m_k.named_parameters(), m_p.parameters(), strict=True):
+        rel = float((a.grad - b.grad).abs().max()) / max(float(b.grad.abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, nm
+    launches = fmg.GENERIC_TAB_BWD_RES.launches - before
+    check(launches == NUM_LAYERS, f"wide gradient check: {launches} launches of #9")
+    check(worst <= TOL_GRAD_FP32, f"wide fp32 gradients: {worst_name} off by {worst}")
+    check(abs(loss_k.item() - loss_p.item()) <= 1e-5 * loss_p.item(), "wide losses")
+    return dict(loss_kernel=loss_k.item(), loss_plain=loss_p.item(), worst_param=worst_name,
+                worst_rel_err=worst, launches_9=launches)
+
+
+def wide_small(dev) -> dict:
+    """Phase 43d's checks at 20k points (the 250k density, tables at tile
+    200): every route (#8 and save, #9, #10, #11 and save, #12, #13, #14)
+    at WIDE_WIDTHS and WIDE_HIDDEN, fp32 and bf16, against its plain version
+    at the bench widths' limits (``explain_d_hs``); at WIDE_ACT_HIDDEN in
+    bf16 the same under every other activation (relu's backwards against
+    the plain backward at the kernel's saved ys, as ``act_phases``; fp32
+    under them: tests/test_torch_cuda.py -k wide_act); every kernel of
+    the library launched in each; then the fp32 gradients of the
+    WIDE_HIDDEN model.  Returns the errors per (width, activation, dtype),
+    the launches, WIDE_HIDDEN's bf16 error per kernel and the gradients'."""
+    bf = torch.bfloat16
+    code = {a.name: a.code for a in ACTIVATIONS}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 81)
+    pts = np.random.default_rng(SEED + 82).random((GC2_POINTS, 3)).astype(np.float32)
+    tile = SEGNNLayer._pick_generic_tile(GC2_POINTS)
+    levels = max(4, search_level_for_radius(GC2_RADIUS, LO, HI) + 1)
+    _, _, _, g20, _ = build_graph(pts, radius=GC2_RADIUS, levels=levels, k=L2_NEIGHBORS,
+                                  tile=tile)
+    n20 = GC2_POINTS
+    small, launched, err = {}, {}, {}
+    for hidden in (*WIDE_WIDTHS, WIDE_HIDDEN):
+        model = wide_model(dev, hidden)
+        kern20 = fmg.FusedMessageGeneric(model.layers[0].message_layers, L2_NEIGHBORS, tile,
+                                         residual_bwd=False, replay_bwd=False)
+        geo20 = geo_only(model, g20, torch.float32)[3]
+        for dtype in (torch.float32, bf):
+            dt = str(dtype).replace("torch.", "")
+            cfg_t, args_t, nv_t = generic_kernel_inputs(kern20, g20, geo20, dtype, gen)
+            check(cfg_t.widths[0][0] > 192 and cfg_t.widths[0][1] > 128,
+                  f"{hidden}: not past the bench widths: {cfg_t.widths}")
+            h_ext = torch.randn((n20, cfg_t.f), generator=gen, device=dev)
+            cfg_u, args_u, nv_u = untabled_inputs(kern20, g20.senders, geo20, h_ext, 0, n20,
+                                                  dtype, gen)
+            del h_ext
+            d_agg = torch.randn((n20, cfg_t.out_dim), generator=gen, device=dev).to(dtype)
+            for act in ("silu", *ACT_NAMES) if (hidden, dtype) == (WIDE_ACT_HIDDEN, bf) else (
+                    "silu",):
+                c_t = dataclasses.replace(cfg_t, act=code[act])
+                c_u = dataclasses.replace(cfg_u, act=code[act])
+                same_y = act in ACT_JUMPS
+                with torch.no_grad():
+                    ys_u = fmg.generic_fwd(c_u, *args_u, save=True)[1] if same_y else None
+                lab = f"wide_{hidden}_{act}_20k"
+                before = launch_counts()
+                small[(hidden, act, dt)] = sm = dict(
+                    widths=cfg_t.widths,
+                    tabled=act_tab_check(lab, c_t, args_t, nv_t, d_agg, same_y,
+                                         line="kernel_wide")["max_abs_err"],
+                    untabled=untabled_check(lab, kern20, c_u, args_u, nv_u, d_agg, times=False,
+                                            same_y=same_y)["max_abs_err"],
+                    vjp=vjp_check(lab, kern20, c_u, args_u, nv_u, d_agg, VJP_TILES[1],
+                                  times=False, ys=ys_u)["max_abs_err"])
+                del ys_u
+                moved = {k_.name: k_.launches - before[k_.name] for k_ in ACT_KERNELS}
+                launched[(hidden, act, dt)] = moved
+                check(all(v > 0 for v in moved.values()),
+                      f"{lab} {dtype}: a kernel of the library was not launched: {moved}")
+                if hidden == WIDE_HIDDEN and dtype == bf:  # the 250k rows' own width
+                    err = {fmg.GENERIC_TAB_FWD.name: sm["tabled"],
+                           fmg.GENERIC_TAB_BWD_RES.name: sm["tabled"],
+                           fmg.GENERIC_TAB_BWD_REP.name: sm["tabled"],
+                           fmg.GENERIC_FWD.name: sm["untabled"]["fwd"],
+                           fmg.GENERIC_BWD_RES.name: sm["untabled"]["res"],
+                           fmg.GENERIC_BWD_REP.name: sm["untabled"]["rep"],
+                           fmg.GENERIC_BWD_VJP.name: sm["vjp"]}
+            del cfg_t, args_t, cfg_u, args_u, d_agg
+        del model, kern20, geo20
+    t_gc = torch.from_numpy(np.random.default_rng(SEED + 83).standard_normal(
+        (n20, 3)).astype(np.float32)).to(dev)
+    gc = wide_grad_check(dev, g20, t_gc)
+    emit("grad_check_wide", points=n20, k=L2_NEIGHBORS, tile=tile, layers=NUM_LAYERS,
+         hidden=WIDE_HIDDEN, dtype="float32", backward="residual (#8 save, #9)", **gc,
+         tolerance=f"{TOL_GRAD_FP32} * max|ref| per parameter; fp32 sums in another order")
+    return dict(small=small, launched=launched, err=err, grad=gc)
+
+
+def wide_phases(card: str, ctx: dict, base: dict) -> dict:
+    """Phase 43d, wide: the generic kernels #8-#14 at hidden widths past the
+    bench configs' (the engine walks a GEMM's columns in blocks; one build).
+    ``base``: msg_layers_phases' result (the bench-width model's 250k forward
+    and step ms, L=2).  Returns the ``kernels`` line's wide rows.
+
+    - kernel_wide / kernel_untabled / kernel_vjp, grad_check_wide: the 20k
+      checks of ``wide_small``.
+    - train_wide: the WIDE_HIDDEN model on bench.py's 250k graph: a counted
+      forward (4 of #8), 3 counted ``remat`` steps with tables (#8, #9),
+      then 2 each without tables (#11 save, #12), under ``remat_kernel``
+      with tables (#8, #10) and without (the sym-regather entry: #11, #13),
+      and with neither hand-structured backward (#11, #14); losses falling;
+      forward and step ms beside the bench-width model's; peak memory.
+    - wide_times: #8-#14 per launch at the wide 250k shapes, with their
+      bounds (folded nonzeros) and plain versions; each row's max_abs_err
+      is WIDE_HIDDEN's own bf16 check at 20k."""
+    dev = torch.device(DEVICE)
+    bf = torch.bfloat16
+    t_phase = time.perf_counter()
+    sm = wide_small(dev)
+    err = sm["err"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 85)
+    t_small = time.perf_counter() - t_phase
+    # ---- the wide model at 250k: a forward and the five step routes, counted
+    graph = ctx["graph"]
+    g250u = graph._replace(**NO_TABLES)
+    n = L2_POINTS
+    target = torch.from_numpy(np.random.default_rng(SEED + 84).standard_normal(
+        (n, 3)).astype(np.float32)).to(dev)
+    tab = {fmg.GENERIC_TAB_BWD_WGRAD.name: NUM_LAYERS, fm.TAB_BWD_REDUCE.name: NUM_LAYERS}
+    routes = [
+        ("tabled", graph, dict(remat=True), L2_TRAIN_STEPS, {
+            fmg.GENERIC_TAB_FWD.name: NUM_LAYERS, fmg.GENERIC_TAB_BWD_RES.name: NUM_LAYERS,
+            fmg.GENERIC_TAB_BWD_TABLE.name: NUM_LAYERS, **tab}),
+        ("untabled", g250u, dict(remat=True), WIDE_STEPS, {
+            fmg.GENERIC_FWD.name: NUM_LAYERS, fmg.GENERIC_BWD_RES.name: NUM_LAYERS, **tab}),
+        ("remat_kernel", graph, dict(remat=True, remat_kernel=True), WIDE_STEPS, {
+            fmg.GENERIC_TAB_FWD.name: NUM_LAYERS, fmg.GENERIC_TAB_BWD_REP.name: NUM_LAYERS,
+            fmg.GENERIC_TAB_BWD_TABLE.name: NUM_LAYERS, **tab}),
+        ("sym", g250u, dict(remat=True, remat_kernel=True), WIDE_STEPS, {
+            fmg.GENERIC_FWD.name: NUM_LAYERS, fmg.GENERIC_BWD_REP.name: NUM_LAYERS, **tab}),
+        ("vjp", g250u, dict(remat=True, residual_bwd=False, replay_bwd=False), WIDE_STEPS, None),
+    ]
+    losses, peak, step_ms = {}, {}, {}
+    for route, g, kw, steps, want in routes:
+        model = wide_model(dev, **kw)
+        if want is None:
+            want = {fmg.GENERIC_FWD.name: NUM_LAYERS, **vjp_launches(model, n, 200)}
+        attrs = geo_only(model, g, bf)
+        g_bf = g._replace(nodes=g.nodes.to(bf))
+        if route == "tabled":
+            check(all(layer._tab_eligible(n, g) for layer in model.layers),
+                  "250k wide: not the tabled path")
+            p_bf = {k_: w.to(bf) for k_, w in model.named_parameters()}
+            fwd = lambda m=model, p=p_bf, a=attrs, gg=g_bf: torch.func.functional_call(
+                m, p, (gg,), {"attrs": a})
+            torch.cuda.reset_peak_memory_stats()
+            with torch.no_grad():
+                reset_launches()
+                out = fwd()
+                torch.cuda.synchronize()
+                check(launch_counts() == expected({fmg.GENERIC_TAB_FWD.name: NUM_LAYERS}),
+                      f"250k wide forward: {nonzero(launch_counts())}")
+                check(tuple(out.shape) == (n, 3) and bool(torch.isfinite(out).all()),
+                      f"250k wide forward: {tuple(out.shape)}")
+                fwd_ms = event_ms(fwd, iters=2, warmup=0)
+            peak["forward"] = torch.cuda.max_memory_allocated() / 1e9
+            del out, p_bf, fwd
+        if route == "sym":
+            check(all(layer._sym_regather_eligible(n, True) and not layer._tab_eligible(n, g)
+                      for layer in model.layers), "250k wide: not the sym-regather path")
+        step = train_run(model, g_bf, attrs, target, steps, card, "train_wide", expected(want),
+                         hidden=WIDE_HIDDEN, points=n, route=route, **kw)
+        losses[route] = step.losses
+        peak[route] = torch.cuda.max_memory_allocated() / 1e9
+        step_ms[route] = step.step_ms[-1]
+        check(step.losses[-1] < step.losses[0], f"250k wide {route}: losses {step.losses}")
+        check(peak[route] < 80, f"250k wide {route}: {peak[route]} GB")
+        del step, model, attrs, g_bf
+    del target
+    emit("train_wide_summary", card=card, hidden=WIDE_HIDDEN, points=n,
+         forward_ms=fwd_ms, forward_ms_bench_width=base["fwd_ms"][2],
+         forward_ratio=fwd_ms / base["fwd_ms"][2], step_ms=step_ms,
+         step_ms_bench_width=base["step_ms"][2],
+         step_ratio=step_ms["tabled"] / base["step_ms"][2], losses=losses,
+         peak_mem_gb=peak, bench_width="24x0e+12x1o+6x2e, L=2 (phase msg_layers, same call)",
+         order="the forward (2 timed after the counted one), then each route's counted steps; "
+               "step_ms: each route's last counted step (CUDA events)")
+    # ---- the kernels per launch at the wide 250k shapes
+    rows = {}
+    model = wide_model(dev)
+    mls = model.layers[0].message_layers
+    geo_w = geo_only(model, graph, torch.float32)[3]
+    kern = fmg.FusedMessageGeneric(mls, L2_NEIGHBORS, SEGNNLayer._pick_generic_tile(n))
+    fps = kern.flops_per_slot()
+    cfg, args, nv = generic_kernel_inputs(kern, graph, geo_w, bf, gen)
+    dense = cfg.dense_flops_per_slot()
+    d_agg = torch.randn((n, cfg.out_dim), generator=gen, device=dev).to(bf)
+    out_b = nbytes(args[0]) // args[0].shape[1] * cfg.out_dim
+    dws = 4 * cfg.nw
+    with torch.no_grad():
+        ys = fmg.generic_tab_fwd(cfg, *args, save=True)[1]
+        ab = nbytes(*args[:4], *args[4], *args[5])
+        rows[fmg.GENERIC_TAB_FWD.name] = msg_time(
+            lambda: fmg.generic_tab_fwd(cfg, *args), lambda: fmg.generic_tab_fwd_plain(cfg, *args),
+            ab + out_b, fps * nv, dense * nv)
+        rows[fmg.GENERIC_TAB_BWD_RES.name] = msg_time(
+            lambda: fmg.generic_tab_bwd_kernels(cfg, *args, d_agg, ys=ys),
+            lambda: fmg.generic_tab_bwd_plain(cfg, *args, d_agg, ys=ys),
+            ab + nbytes(d_agg, *ys) + 2 * nbytes(args[0]) + dws, 2 * fps * nv, 2 * dense * nv)
+        del ys
+        rows[fmg.GENERIC_TAB_BWD_REP.name] = msg_time(
+            lambda: fmg.generic_tab_bwd_kernels(cfg, *args, d_agg),
+            lambda: fmg.generic_tab_bwd_plain(cfg, *args, d_agg),
+            ab + nbytes(d_agg) + 2 * nbytes(args[0]) + dws, 3 * fps * nv, 3 * dense * nv)
+        del cfg, args
+        h_ext = torch.randn((n, kern.config(9, 0).f), generator=gen, device=dev)
+        cfg, args, nv = untabled_inputs(kern, graph.senders, geo_w, h_ext, 0, n, bf, gen)
+        del h_ext
+        ab = nbytes(*args[:3], *args[3], *args[4])
+        ys = fmg.generic_fwd(cfg, *args, save=True)[1]
+        rows[fmg.GENERIC_FWD.name] = msg_time(
+            lambda: fmg.generic_fwd(cfg, *args), lambda: fmg.generic_fwd_plain(cfg, *args),
+            ab + out_b, fps * nv, dense * nv)
+        rows[fmg.GENERIC_BWD_RES.name] = msg_time(
+            lambda: fmg.generic_bwd_kernels(cfg, *args, d_agg, ys=ys),
+            lambda: fmg.generic_bwd_plain(cfg, *args, d_agg, ys=ys),
+            ab + nbytes(d_agg, *ys) + nbytes(args[0], args[1]) + dws, 2 * fps * nv,
+            2 * dense * nv)
+        del ys
+        rows[fmg.GENERIC_BWD_REP.name] = msg_time(
+            lambda: fmg.generic_bwd_kernels(cfg, *args, d_agg),
+            lambda: fmg.generic_bwd_plain(cfg, *args, d_agg),
+            ab + nbytes(d_agg) + nbytes(args[0], args[1]) + dws, 3 * fps * nv, 3 * dense * nv)
+        rows[fmg.GENERIC_BWD_VJP.name] = msg_time(
+            lambda: fmg.generic_bwd_vjp_kernels(cfg, *args, d_agg, VJP_TILES[0]),
+            lambda: fmg.generic_bwd_vjp_plain(cfg, *args, d_agg, VJP_TILES[0]),
+            ab + nbytes(d_agg) + nbytes(args[0], args[1]) + dws, 3 * fps * nv, 3 * dense * nv)
+        del cfg, args, d_agg
+    del model, kern, geo_w
+    per_step = {  # launches per wide 250k step of the route that runs each kernel
+        fmg.GENERIC_TAB_FWD.name: NUM_LAYERS, fmg.GENERIC_TAB_BWD_RES.name: NUM_LAYERS,
+        fmg.GENERIC_TAB_BWD_REP.name: NUM_LAYERS, fmg.GENERIC_FWD.name: NUM_LAYERS,
+        fmg.GENERIC_BWD_RES.name: NUM_LAYERS, fmg.GENERIC_BWD_REP.name: NUM_LAYERS,
+        fmg.GENERIC_BWD_VJP.name: NUM_LAYERS}
+    for nm, r in rows.items():
+        r.update(launches=per_step[nm], max_abs_err=err[nm], library_ms=None,
+                 hidden=WIDE_HIDDEN, shape=f"250k points, K={L2_NEIGHBORS}, bf16",
+                 max_abs_err_at=f"20k, {WIDE_HIDDEN}, bf16 (wide_small)")
+    emit("wide_times", card=card, hidden=WIDE_HIDDEN, kernels=rows,
+         shapes="#8-#14 at 250k (backward tile 200), bf16; bounds from the folded nonzeros "
+                "(dense_bound_ms: the dense folded GEMMs)")
+    seconds = time.perf_counter() - t_phase
+    emit("wide", widths=list(WIDE_WIDTHS), hidden_250k=WIDE_HIDDEN,
+         activations_at={f"{WIDE_ACT_HIDDEN}, bfloat16": ["silu", *ACT_NAMES]},
+         max_abs_err_20k={"_".join(k_): v for k_, v in sm["small"].items()},
+         launches_20k={"_".join(k_): v for k_, v in sm["launched"].items()},
+         seconds_20k=t_small, phase_seconds=seconds)
+    return dict(rows=rows, small=sm["small"])
 
 
 DIST_PARTS = 4  # the partitioned runs' P (and 1, the degenerate halo)
@@ -3839,7 +4142,7 @@ def dist_phases(card: str, graph3) -> dict:
         masters = all(q.dtype == torch.float32 for q in m.parameters())
         # where the device time of a step goes, at each P and backend
         emit("dist_profile", card=card, points=n, num_parts=p, backend=backend,
-             **profile_steps(step, (shards, targets, attrs), host_top=12))
+             **profile_steps(step, (shards, targets, attrs), steps=1, host_top=12))
         emit("dist_train", points=n, num_parts=p, backend=backend, layers=NUM_LAYERS,
              compute_dtype="bfloat16", master_dtype="float32" if masters else "mixed",
              optimizer=f"Adam(lr={LEARNING_RATE}, betas=(0.9, 0.999), eps=1e-8)",
@@ -4999,7 +5302,7 @@ def coo_gates(card: str) -> dict:
 
 
 # the user entry points (python -m scalable_e3_gnn_torch), driven in-process
-CLI_STEPS = {"cloud100k": 5, "cloud1m": 3, "cloud10m": 3, "nbody": 3, "qm9": 3}
+CLI_STEPS = {"cloud100k": 5, "cloud1m": 3, "cloud10m": 2, "nbody": 3, "qm9": 3}
 CLI_EVAL_FILES = 40  # tests/test_qm9.py's synthetic dsgdb9nsd download
 CLI_EVAL_ARGS = ["--steps", "4", "--batch-size", "8"]
 CLOUD_RESULT_KEYS = ["config", "final_loss", "steps", "edges"]  # + eval_mse to 500k points
@@ -5611,6 +5914,9 @@ def main() -> int:
 
     # ---- 43c. #8-#14 at one and three message layers
     msg = msg_layers_phases(card, l2ctx)
+
+    # ---- 43d. #8-#14 at hidden widths past the bench configs'
+    wide = wide_phases(card, l2ctx, msg)
     del l2ctx
 
     # ---- 24-27. config 5: 10M points, edge_chunks, remat_layers (#11, #13)
@@ -5729,6 +6035,8 @@ def main() -> int:
         if row["name"] in generic:  # phase 43c's per-launch times at L = 1 and 3
             row["message_layers"] = {f"L{k_}": msg["rows"][k_].get(row["name"])
                                      for k_ in MSG_LAYER_COUNTS}
+        if row["name"] in wide["rows"] and "wide" not in row:  # phase 43d's wide rows
+            row["wide"] = wide["rows"][row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -83,9 +83,15 @@
 // 3. table (tabled only).  One block per gather tile sums each table entry's
 //    d_hs rows in slot order (a counting sort of loc in shared memory): d_hu.
 // fp32 (the check path) runs the GEMMs on the FMA units, dense.  Widths are
-// runtime arguments up to C1 <= 192 and D <= 128; the chain keeps the
-// geometry in the data type in shared memory, so A = 36 (lmax_attr = 5, 38
-// values per slot) fits a block at the lmax=2 widths.
+// runtime arguments, any that fit a block's shared memory: the chain's GEMMs
+// walk their columns in blocks (generic_mma.cuh: 128 of D, 192 of C1), the
+// gate VJP any row width (the direct branch parked in the other y buffer),
+// the FMA GEMMs their work items in passes (their weight slice staged where
+// it fits, else read from global memory; fp32 chain blocks of 32 or 16 rows
+// where 64 do not fit), and each weight-gradient block one window of at most
+// 192 x 128 of dW_l[c] (its rows' m and dy columns of that window only).
+// The chain keeps the geometry in the data type in shared memory, so A = 36
+// (lmax_attr = 5, 38 values per slot) fits a block at the lmax=2 widths.
 //
 // Work and bound.  Per valid slot the function needs 2 x the folded nonzeros
 // for the dW and the dm products (#9: 120,960 flops at the lmax=2 config) and
@@ -132,16 +138,14 @@ constexpr int kWarps = kThreads / 32;  // the most warps of a block
 constexpr int kThreadsChainMma = 128;  // chain, bf16: 4 warps x 16 rows, two blocks an SM
 constexpr int kRowsMma = 64;
 constexpr int kRowsFma = 64;   // chain, fp32
-constexpr int kMaxC1 = 192;    // widths taken: C1 <= 192, D <= 128
-constexpr int kMaxD = 128;
-constexpr int kMaxNT = kMaxD / 8;    // replay GEMM: n-tiles over D
-constexpr int kMaxCT = kMaxC1 / 8;   // dm GEMM: n-tiles over C1
-constexpr int kMaxLanes = kMaxD / 32;  // gate VJP: columns per lane
+constexpr int kScratchD = 128;       // gate VJP: the least width of a warp's scratch row
 constexpr int kRT = 4, kCT = 4;        // FMA engine: rows x columns per work item
 constexpr int kItChain = 3;            // FMA chain: work items per thread
 constexpr int kItW = 6;                // FMA wgrad: work items per thread
 constexpr int kChunk = 64;             // wgrad: slot rows per chunk
 constexpr int kWMT = 3, kWNT = 8;      // wgrad mma: m-tiles x n-tiles per warp
+constexpr int kWinM = 4 * kWMT * 16;   // wgrad: a block's window of dW_l[c], 192 rows (C1) ...
+constexpr int kWinN = 2 * kWNT * 8;    // ... by 128 columns (D); fma: 6 x 256 4x4 items
 constexpr int kGroup = 2;              // wgrad, bf16: attribute components per block
 constexpr int kWgradBufs = 4;          // wgrad, bf16: chunks in shared memory (3 in flight)
 
@@ -175,16 +179,19 @@ struct Dims {
   int rows, rb;    // chain: slot rows per block, receivers per block
   int ldm;         // m / dm row stride (elements)
   int ldy;         // y / dy row stride (elements)
+  int lsc;         // gate VJP: a warp's scratch row (floats)
   int ldw, wbuf;   // fp32: weight-slice row stride, elements per weight buffer
   int nbuf;        // fp32: one weight buffer (bf16: none, the engine's ring)
   int gs;          // geometry per slot: a + 2
   int gate_ints;   // chain: every layer's selections and inverse tables (2 dk + D + 1 each)
   long nw;         // weight-gradient entries of every layer: A sum C1 D
   int splits;      // wgrad: row ranges
-  int ldz;         // wgrad: dya row stride
+  int ldz;         // wgrad: dya row stride (a window's)
+  int wldm;        // wgrad: m row stride (a window's)
+  int nwin;        // wgrad: windows of the widest layer's dW_l[c]
   int trows, tile0;  // wgrad, per tile (#14): slot rows per tile, the first tile
   int stages;        // chain, bf16: the depth of the engine's ring
-  int nmasks;        // chain, bf16: the plan's masks (A x (C1/16 + D/16) per layer)
+  int nmasks;        // chain, bf16: the plan's masks (A x (C1/16 + D/16) x blocks per layer)
 };
 
 // w3: the layers' (C1, D, dk), nl of them (host memory)
@@ -196,11 +203,15 @@ __host__ __device__ inline Dims make_dims(bool mma, int n, int f, int k, int a, 
   int c1max = 0, dmax = 0, steps = 0;
   d.gate_ints = 0;
   d.nw = 0;
+  d.nwin = 1;
   for (int l = 0; l < nl; ++l) {
     const int c1 = w3[3 * l], dd = w3[3 * l + 1], dk = w3[3 * l + 2];
     c1max = c1 > c1max ? c1 : c1max;
     dmax = dd > dmax ? dd : dmax;
-    steps += (c1 + 15) / 16 + (dd + 15) / 16;
+    steps += (c1 + 15) / 16 * gmma::fwd_blocks(dd) + (dd + 15) / 16 * gmma::dm_blocks(c1);
+    const int win =
+        (round_up(c1, 16) + kWinM - 1) / kWinM * ((round_up(dd, 16) + kWinN - 1) / kWinN);
+    d.nwin = win > d.nwin ? win : d.nwin;
     d.gate_ints += 2 * dk + dd + 1;
     d.nw += (long)a * c1 * dd;
   }
@@ -211,14 +222,16 @@ __host__ __device__ inline Dims make_dims(bool mma, int n, int f, int k, int a, 
   // fragment loads and ldmatrix)
   d.ldm = round_up(c1max, 16) + 8;
   d.ldy = round_up(dmax, 16) + 8;
-  d.ldz = d.ldy;
+  d.lsc = dmax > kScratchD ? round_up(dmax, 32) : kScratchD;
+  d.wldm = (round_up(c1max, 16) < kWinM ? round_up(c1max, 16) : kWinM) + 8;
+  d.ldz = (round_up(dmax, 16) < kWinN ? round_up(dmax, 16) : kWinN) + 8;
   if (mma) {
     d.ldw = 0;                         // the weights stream through the engine's ring
     d.wbuf = 0;
     d.nbuf = 0;
   } else {
-    d.ldw = round_up(dmax, 4);         // slices [C1][ldw], D contiguous
-    d.wbuf = c1max * d.ldw;
+    d.ldw = round_up(dmax, 4);         // slices [C1][ldw], D contiguous (nbuf 0: read
+    d.wbuf = c1max * d.ldw;            // from global memory)
     d.nbuf = 1;
   }
   d.gs = a + 2;
@@ -238,7 +251,7 @@ __host__ __device__ inline long chain_ints(const Dims& d) { return 2L * d.rows +
 template <typename T>
 __host__ __device__ inline long chain_rows_smem(const Dims& d) {
   return align16((long)sizeof(T) * d.rows * d.gs) + align16(4L * chain_ints(d)) +
-         align16(4L * kWarps * kMaxD) + align16((long)sizeof(T) * d.rows * d.ldm) +
+         align16(4L * kWarps * d.lsc) + align16((long)sizeof(T) * d.rows * d.ldm) +
          2 * align16((long)sizeof(T) * d.rows * d.ldy);
 }
 // bf16: as deep a ring as leaves two blocks an SM beside the rows and the
@@ -256,9 +269,9 @@ __host__ __device__ inline long chain_smem(const Dims& d) {
 // dya buffer, the low halves of dya in bf16)
 template <typename T>
 __host__ __device__ inline long wgrad_smem(const Dims& d, int nbufs, bool tiles) {
-  return nbufs * align16((long)sizeof(T) * kChunk * d.ldm) +
+  return nbufs * align16((long)sizeof(T) * kChunk * d.wldm) +
          (nbufs + (tiles ? 1 : 0)) * align16((long)sizeof(T) * kChunk * d.ldz) +
-         4L * nbufs * kChunk * kGroup;
+         4L * nbufs * kChunk * kGroup + 16;  // attributes, the window
 }
 
 // ---------------------------------------------------------------------------
@@ -270,62 +283,78 @@ __host__ __device__ inline long wgrad_smem(const Dims& d, int nbufs, bool tiles)
 // with a block barrier (its input rows complete) and writes its bf16 output
 // into shared memory.
 
-// y = sum_c attr_c * (M @ W[c]), rounded to bf16 into Y (columns up to D
-// rounded to 16; the pad is zero): the arithmetic of kernel #8's layer_mma,
-// so the replay gives bitwise the forward's y.
+// y = sum_c attr_c * (M @ W[c]), one column block of D at a time, rounded
+// to bf16 into Y (columns up to D rounded to 16; the pad is zero): the
+// arithmetic of kernel #8's layer_mma, so the replay gives bitwise the
+// forward's y.
 __device__ void layer_fwd_mma(gmma::Ring& ring, int stream, const uint32_t* masks, int c1,
                               int dd, const Dims& d, const bf16* M, bf16* Y, const bf16* geo) {
+  constexpr int NT = gmma::kBlockNT;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int r0 = warp * 16;
-  const int nt_n = round_up(dd, 16) / 8;
+  const int nt_n = round_up(dd, 16) / 8, ks_n = (c1 + 15) / 16, nb = gmma::fwd_blocks(dd);
   __syncthreads();
-  float acc[kMaxNT][4];
-  gmma::gemm_fwd<kMaxNT>(ring, stream, masks, d.a, (c1 + 15) / 16, M, d.ldm, geo, d.gs, acc);
+  gmma::Cursor cur = gmma::open(ring, stream);
+  for (int b = 0; b < nb; ++b) {
+    float acc[NT][4];
+    gmma::gemm_fwd<NT>(ring, cur, masks + b * d.a * ks_n, d.a, ks_n, M, d.ldm, geo, d.gs, acc);
+    if (b + 1 == nb) gmma::close(ring, cur, lane);
 #pragma unroll
-  for (int nt = 0; nt < kMaxNT; ++nt) {
-    if (nt < nt_n) {
-      const int col = nt * 8 + t4 * 2;
-      *reinterpret_cast<__nv_bfloat162*>(Y + (r0 + g) * d.ldy + col) =
-          __floats2bfloat162_rn(acc[nt][0], acc[nt][1]);
-      *reinterpret_cast<__nv_bfloat162*>(Y + (r0 + g + 8) * d.ldy + col) =
-          __floats2bfloat162_rn(acc[nt][2], acc[nt][3]);
+    for (int nt = 0; nt < NT; ++nt) {
+      if (b * NT + nt < nt_n) {
+        const int col = (b * NT + nt) * 8 + t4 * 2;
+        *reinterpret_cast<__nv_bfloat162*>(Y + (r0 + g) * d.ldy + col) =
+            __floats2bfloat162_rn(acc[nt][0], acc[nt][1]);
+        *reinterpret_cast<__nv_bfloat162*>(Y + (r0 + g + 8) * d.ldy + col) =
+            __floats2bfloat162_rn(acc[nt][2], acc[nt][3]);
+      }
     }
   }
 }
 
-// dm = sum_c (dy * attr_c, rounded to bf16) @ W[c]^T, rounded to bf16 into
-// Out (columns up to C1 rounded to 8); with VJP kernel #14's rounding
-// (gmma::gemm_dm_vjp: per component dm_c rounded, added in bf16, last first).
+// dm = sum_c (dy * attr_c, rounded to bf16) @ W[c]^T, one column block of C1
+// at a time, rounded to bf16 into Out (columns up to C1 rounded to 8); with
+// VJP kernel #14's rounding (gmma::gemm_dm_vjp: per component dm_c rounded,
+// added in bf16, last first).
 template <bool VJP>
 __device__ void layer_bwd_mma(gmma::Ring& ring, int stream, const uint32_t* masks, int c1,
                               int dd, const Dims& d, const bf16* DY, bf16* Out, const bf16* geo) {
+  constexpr int CT = gmma::kBlockCT;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int r0 = warp * 16;
-  const int ct_n = (c1 + 7) / 8, ds_n = round_up(dd, 16) / 16;
+  const int ct_n = (c1 + 7) / 8, ds_n = round_up(dd, 16) / 16, nb = gmma::dm_blocks(c1);
   __syncthreads();
-  float acc[kMaxCT][4];
-  if constexpr (VJP)
-    gmma::gemm_dm_vjp<kMaxCT>(ring, stream, masks, d.a, ds_n, DY, d.ldy, geo, d.gs, acc);
-  else
-    gmma::gemm_dm<kMaxCT>(ring, stream, masks, d.a, ds_n, DY, d.ldy, geo, d.gs, acc);
+  gmma::Cursor cur = gmma::open(ring, stream);
+  for (int b = 0; b < nb; ++b) {
+    float acc[CT][4];
+    const uint32_t* mb = masks + b * d.a * ds_n;
+    if constexpr (VJP)
+      gmma::gemm_dm_vjp<CT>(ring, cur, mb, d.a, ds_n, DY, d.ldy, geo, d.gs, acc);
+    else
+      gmma::gemm_dm<CT>(ring, cur, mb, d.a, ds_n, DY, d.ldy, geo, d.gs, acc);
+    if (b + 1 == nb) gmma::close(ring, cur, lane);
 #pragma unroll
-  for (int ct = 0; ct < kMaxCT; ++ct) {
-    if (ct < ct_n) {
-      const int col = ct * 8 + t4 * 2;
-      *reinterpret_cast<__nv_bfloat162*>(Out + (r0 + g) * d.ldm + col) =
-          __floats2bfloat162_rn(acc[ct][0], acc[ct][1]);
-      *reinterpret_cast<__nv_bfloat162*>(Out + (r0 + g + 8) * d.ldm + col) =
-          __floats2bfloat162_rn(acc[ct][2], acc[ct][3]);
+    for (int ct = 0; ct < CT; ++ct) {
+      if (b * CT + ct < ct_n) {
+        const int col = (b * CT + ct) * 8 + t4 * 2;
+        *reinterpret_cast<__nv_bfloat162*>(Out + (r0 + g) * d.ldm + col) =
+            __floats2bfloat162_rn(acc[ct][0], acc[ct][1]);
+        *reinterpret_cast<__nv_bfloat162*>(Out + (r0 + g + 8) * d.ldm + col) =
+            __floats2bfloat162_rn(acc[ct][2], acc[ct][3]);
+      }
     }
   }
 }
 
 // the natural-layout slice W[c] [C1][D] into Ws [C1][ldw], zero past D
+// (staged: d.nbuf > 0), or nothing (the FMA GEMMs read W[c] from global
+// memory); between two block barriers
 template <typename T>
 __device__ __forceinline__ void stage_slice_fma(const T* __restrict__ W, int c, int c1, int dd,
                                                 const Dims& d, T* Ws) {
+  if (d.nbuf == 0) return;
   const T* Wc = W + (long)c * c1 * dd;
   for (int idx = threadIdx.x; idx < c1 * d.ldw; idx += blockDim.x) {
     const int kk = idx / d.ldw, nn = idx % d.ldw;
@@ -333,69 +362,80 @@ __device__ __forceinline__ void stage_slice_fma(const T* __restrict__ W, int c, 
   }
 }
 
+// W[c][kk][nn] from the staged slice, or from global memory; zero past D
+template <typename T>
+__device__ __forceinline__ float w_at(const T* __restrict__ W, const T* Ws, int c, int c1, int dd,
+                                      int kk, int nn, const Dims& d) {
+  if (d.nbuf > 0) return to_f(Ws[kk * d.ldw + nn]);
+  return nn < dd ? to_f(W[((long)c * c1 + kk) * dd + nn]) : 0.f;
+}
+
 // y = sum_c attr_c * (M @ W[c]) on the FMA units, the arithmetic of kernel
 // #8's layer_fma (the sum over c in registers here), rounded into Y (columns
-// up to D rounded to 16; the pad is zero).
+// up to D rounded to 16; the pad is zero).  The work items go in passes of
+// kItChain per thread (one pass up to D = 192 at 64 rows).
 template <typename T>
 __device__ void layer_fwd_fma(const T* __restrict__ W, int c1, int dd, const Dims& d,
                               const T* M, T* Ws, T* Y, const T* geo) {
   const int cg_n = (dd + kCT - 1) / kCT;
   const int items = (d.rows / kRT) * cg_n;
-  float y[kItChain][kRT][kCT];
+  for (int base = 0; base < items; base += kItChain * blockDim.x) {
+    float y[kItChain][kRT][kCT];
 #pragma unroll
-  for (int it = 0; it < kItChain; ++it)
+    for (int it = 0; it < kItChain; ++it)
 #pragma unroll
-    for (int i = 0; i < kRT; ++i)
+      for (int i = 0; i < kRT; ++i)
 #pragma unroll
-      for (int j = 0; j < kCT; ++j) y[it][i][j] = 0.f;
-  for (int c = 0; c < d.a; ++c) {
-    __syncthreads();
-    stage_slice_fma<T>(W, c, c1, dd, d, Ws);
-    __syncthreads();
+        for (int j = 0; j < kCT; ++j) y[it][i][j] = 0.f;
+    for (int c = 0; c < d.a; ++c) {
+      __syncthreads();
+      stage_slice_fma<T>(W, c, c1, dd, d, Ws);
+      __syncthreads();
+#pragma unroll
+      for (int it = 0; it < kItChain; ++it) {
+        const int item = base + threadIdx.x + it * blockDim.x;
+        if (item < items) {
+          const int r0 = (item / cg_n) * kRT, j0 = (item % cg_n) * kCT;
+          float t[kRT][kCT];
+#pragma unroll
+          for (int i = 0; i < kRT; ++i)
+#pragma unroll
+            for (int j = 0; j < kCT; ++j) t[i][j] = 0.f;
+          for (int kk = 0; kk < c1; ++kk) {
+            float w[kCT];
+#pragma unroll
+            for (int j = 0; j < kCT; ++j) w[j] = w_at<T>(W, Ws, c, c1, dd, kk, j0 + j, d);
+#pragma unroll
+            for (int i = 0; i < kRT; ++i) {
+              const float x = to_f(M[(r0 + i) * d.ldm + kk]);
+#pragma unroll
+              for (int j = 0; j < kCT; ++j) t[i][j] = fmaf(x, w[j], t[i][j]);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < kRT; ++i) {
+            const float at = to_f(geo[(r0 + i) * d.gs + c]);
+#pragma unroll
+            for (int j = 0; j < kCT; ++j)
+              y[it][i][j] = c == 0 ? __fmul_rn(at, t[i][j])
+                                   : __fadd_rn(y[it][i][j], __fmul_rn(at, t[i][j]));
+          }
+        }
+      }
+    }
 #pragma unroll
     for (int it = 0; it < kItChain; ++it) {
-      const int item = threadIdx.x + it * blockDim.x;
+      const int item = base + threadIdx.x + it * blockDim.x;
       if (item < items) {
         const int r0 = (item / cg_n) * kRT, j0 = (item % cg_n) * kCT;
-        float t[kRT][kCT];
 #pragma unroll
         for (int i = 0; i < kRT; ++i)
 #pragma unroll
-          for (int j = 0; j < kCT; ++j) t[i][j] = 0.f;
-        for (int kk = 0; kk < c1; ++kk) {
-          float w[kCT];
-#pragma unroll
-          for (int j = 0; j < kCT; ++j) w[j] = to_f(Ws[kk * d.ldw + j0 + j]);
-#pragma unroll
-          for (int i = 0; i < kRT; ++i) {
-            const float x = to_f(M[(r0 + i) * d.ldm + kk]);
-#pragma unroll
-            for (int j = 0; j < kCT; ++j) t[i][j] = fmaf(x, w[j], t[i][j]);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < kRT; ++i) {
-          const float at = to_f(geo[(r0 + i) * d.gs + c]);
-#pragma unroll
-          for (int j = 0; j < kCT; ++j)
-            y[it][i][j] = c == 0 ? __fmul_rn(at, t[i][j])
-                                 : __fadd_rn(y[it][i][j], __fmul_rn(at, t[i][j]));
-        }
+          for (int j = 0; j < kCT; ++j) Y[(r0 + i) * d.ldy + j0 + j] = from_f<T>(y[it][i][j]);
       }
     }
   }
   const int dpl = round_up(dd, 16);
-#pragma unroll
-  for (int it = 0; it < kItChain; ++it) {
-    const int item = threadIdx.x + it * blockDim.x;
-    if (item < items) {
-      const int r0 = (item / cg_n) * kRT, j0 = (item % cg_n) * kCT;
-#pragma unroll
-      for (int i = 0; i < kRT; ++i)
-#pragma unroll
-        for (int j = 0; j < kCT; ++j) Y[(r0 + i) * d.ldy + j0 + j] = from_f<T>(y[it][i][j]);
-    }
-  }
   for (int w = threadIdx.x; w < d.rows * dpl; w += blockDim.x) {  // zero pad past D4
     const int r = w / dpl, j = w % dpl;
     if (j >= cg_n * kCT) Y[r * d.ldy + j] = from_f<T>(0.f);
@@ -403,56 +443,58 @@ __device__ void layer_fwd_fma(const T* __restrict__ W, int c1, int dd, const Dim
 }
 
 // dm = sum_c (dy * attr_c, rounded) @ W[c]^T on the FMA units, rounded into
-// Out (columns up to C1 rounded to 4).
+// Out (columns up to C1 rounded to 4); the work items in passes as above.
 template <typename T>
 __device__ void layer_bwd_fma(const T* __restrict__ W, int c1, int dd, const Dims& d,
                               const T* DY, T* Ws, T* Out, const T* geo) {
   const int cq_n = (c1 + kCT - 1) / kCT;
   const int items = (d.rows / kRT) * cq_n;
-  float acc[kItChain][kRT][kCT];
+  for (int base = 0; base < items; base += kItChain * blockDim.x) {
+    float acc[kItChain][kRT][kCT];
 #pragma unroll
-  for (int it = 0; it < kItChain; ++it)
-#pragma unroll
-    for (int i = 0; i < kRT; ++i)
-#pragma unroll
-      for (int j = 0; j < kCT; ++j) acc[it][i][j] = 0.f;
-  for (int c = 0; c < d.a; ++c) {
-    __syncthreads();
-    stage_slice_fma<T>(W, c, c1, dd, d, Ws);
-    __syncthreads();
-#pragma unroll
-    for (int it = 0; it < kItChain; ++it) {
-      const int item = threadIdx.x + it * blockDim.x;
-      if (item < items) {
-        const int r0 = (item / cq_n) * kRT, k0 = (item % cq_n) * kCT;
-        float at[kRT];
-#pragma unroll
-        for (int i = 0; i < kRT; ++i) at[i] = to_f(geo[(r0 + i) * d.gs + c]);
-        for (int dd_ = 0; dd_ < dd; ++dd_) {
-          float z[kRT], w[kCT];
-#pragma unroll
-          for (int i = 0; i < kRT; ++i)
-            z[i] = rnd<T>(__fmul_rn(to_f(DY[(r0 + i) * d.ldy + dd_]), at[i]));
-#pragma unroll
-          for (int j = 0; j < kCT; ++j)
-            w[j] = k0 + j < c1 ? to_f(Ws[(k0 + j) * d.ldw + dd_]) : 0.f;
-#pragma unroll
-          for (int i = 0; i < kRT; ++i)
-#pragma unroll
-            for (int j = 0; j < kCT; ++j) acc[it][i][j] = fmaf(z[i], w[j], acc[it][i][j]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int it = 0; it < kItChain; ++it) {
-    const int item = threadIdx.x + it * blockDim.x;
-    if (item < items) {
-      const int r0 = (item / cq_n) * kRT, k0 = (item % cq_n) * kCT;
+    for (int it = 0; it < kItChain; ++it)
 #pragma unroll
       for (int i = 0; i < kRT; ++i)
 #pragma unroll
-        for (int j = 0; j < kCT; ++j) Out[(r0 + i) * d.ldm + k0 + j] = from_f<T>(acc[it][i][j]);
+        for (int j = 0; j < kCT; ++j) acc[it][i][j] = 0.f;
+    for (int c = 0; c < d.a; ++c) {
+      __syncthreads();
+      stage_slice_fma<T>(W, c, c1, dd, d, Ws);
+      __syncthreads();
+#pragma unroll
+      for (int it = 0; it < kItChain; ++it) {
+        const int item = base + threadIdx.x + it * blockDim.x;
+        if (item < items) {
+          const int r0 = (item / cq_n) * kRT, k0 = (item % cq_n) * kCT;
+          float at[kRT];
+#pragma unroll
+          for (int i = 0; i < kRT; ++i) at[i] = to_f(geo[(r0 + i) * d.gs + c]);
+          for (int dd_ = 0; dd_ < dd; ++dd_) {
+            float z[kRT], w[kCT];
+#pragma unroll
+            for (int i = 0; i < kRT; ++i)
+              z[i] = rnd<T>(__fmul_rn(to_f(DY[(r0 + i) * d.ldy + dd_]), at[i]));
+#pragma unroll
+            for (int j = 0; j < kCT; ++j)
+              w[j] = k0 + j < c1 ? w_at<T>(W, Ws, c, c1, dd, k0 + j, dd_, d) : 0.f;
+#pragma unroll
+            for (int i = 0; i < kRT; ++i)
+#pragma unroll
+              for (int j = 0; j < kCT; ++j) acc[it][i][j] = fmaf(z[i], w[j], acc[it][i][j]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < kItChain; ++it) {
+      const int item = base + threadIdx.x + it * blockDim.x;
+      if (item < items) {
+        const int r0 = (item / cq_n) * kRT, k0 = (item % cq_n) * kCT;
+#pragma unroll
+        for (int i = 0; i < kRT; ++i)
+#pragma unroll
+          for (int j = 0; j < kCT; ++j) Out[(r0 + i) * d.ldm + k0 + j] = from_f<T>(acc[it][i][j]);
+      }
     }
   }
 }
@@ -489,56 +531,51 @@ __device__ __forceinline__ float gate_out(const T* yrow, const int* sel, int j) 
 //              each add in bf16: not the fp32 sum above);
 //   dy_s     = rnd(dsg_s * (sig_s * (1 - sig_s))) for s >= dk.
 // invs/invl: for each sigmoid lane s, the lanes j (ascending) with sel_j = s.
+// The direct branch (a value of the data type) waits in the same row of Dir,
+// a free [rows][ldy] buffer, between the two passes: each lane reads back
+// only its own columns, so the row may be any width.
 template <typename T, typename Dout, int ACT = gact::kAct>
-__device__ void gate_vjp(T* Y, int dd, int dk, const int* sel, const int* invs, const int* invl,
-                         float* scratch, const Dims& d, Dout dout) {
+__device__ void gate_vjp(T* Y, T* Dir, int dd, int dk, const int* sel, const int* invs,
+                         const int* invl, float* scratch, const Dims& d, Dout dout) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* dml = scratch + warp * kMaxD;
+  float* dml = scratch + warp * d.lsc;
   const int dpad = round_up(dd, 16);
   for (int r = warp; r < d.rows; r += blockDim.x >> 5) {
     T* y = Y + r * d.ldy;
-    float direct[kMaxLanes];
-#pragma unroll
-    for (int q = 0; q < kMaxLanes; ++q) {
-      const int j = lane + 32 * q;
-      direct[q] = 0.f;
-      if (j < dk) {
-        const float o = dout(r, j);
-        const int sj = sel[j];
-        if (ACT != gact::kSilu && sj == j) {
-          direct[q] = rnd<T>(gact::act_vjp<ACT>(to_f(y[j]), o));
-        } else {
-          const float m = rnd<T>(sigmoid_f(to_f(y[sj])));
-          direct[q] = rnd<T>(__fmul_rn(o, m));
-        }
-        dml[j] = rnd<T>(__fmul_rn(o, to_f(y[j])));
+    T* direct = Dir + r * d.ldy;
+    for (int j = lane; j < dk; j += 32) {
+      const float o = dout(r, j);
+      const int sj = sel[j];
+      float dj;
+      if (ACT != gact::kSilu && sj == j) {
+        dj = rnd<T>(gact::act_vjp<ACT>(to_f(y[j]), o));
+      } else {
+        const float m = rnd<T>(sigmoid_f(to_f(y[sj])));
+        dj = rnd<T>(__fmul_rn(o, m));
       }
+      direct[j] = from_f<T>(dj);
+      dml[j] = rnd<T>(__fmul_rn(o, to_f(y[j])));
     }
     __syncwarp();
-#pragma unroll
-    for (int q = 0; q < kMaxLanes; ++q) {
-      const int s = lane + 32 * q;
-      if (s < dpad) {
-        float v = 0.f;
-        if (s < dd) {
-          if (ACT == gact::kSilu || s >= dk) {
-            float sum = 0.f;
-            if constexpr (ACT == gact::kSilu) {
-              for (int p = invs[s]; p < invs[s + 1]; ++p) sum = __fadd_rn(sum, dml[invl[p]]);
-            } else {
-              for (int p = invs[s]; p < invs[s + 1]; ++p)
-                sum = rnd<T>(__fadd_rn(sum, dml[invl[p]]));
-            }
-            const float sg = sigmoid_f(to_f(y[s]));
-            const float dsig =
-                rnd<T>(__fmul_rn(rnd<T>(sum), __fmul_rn(sg, __fsub_rn(1.f, sg))));
-            v = s < dk ? rnd<T>(__fadd_rn(direct[q], dsig)) : dsig;
+    for (int s = lane; s < dpad; s += 32) {
+      float v = 0.f;
+      if (s < dd) {
+        if (ACT == gact::kSilu || s >= dk) {
+          float sum = 0.f;
+          if constexpr (ACT == gact::kSilu) {
+            for (int p = invs[s]; p < invs[s + 1]; ++p) sum = __fadd_rn(sum, dml[invl[p]]);
           } else {
-            v = direct[q];
+            for (int p = invs[s]; p < invs[s + 1]; ++p)
+              sum = rnd<T>(__fadd_rn(sum, dml[invl[p]]));
           }
+          const float sg = sigmoid_f(to_f(y[s]));
+          const float dsig = rnd<T>(__fmul_rn(rnd<T>(sum), __fmul_rn(sg, __fsub_rn(1.f, sg))));
+          v = s < dk ? rnd<T>(__fadd_rn(to_f(direct[s]), dsig)) : dsig;
+        } else {
+          v = to_f(direct[s]);
         }
-        y[s] = from_f<T>(v);
       }
+      y[s] = from_f<T>(v);
     }
     __syncwarp();
   }
@@ -682,8 +719,8 @@ chain_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* __restr
   int* rnode = snd + d.rows;
   int* gates = rnode + d.rows;  // per layer at kGateOff: sel [dk], invs [D + 1], invl [dk]
   p += align16(4L * chain_ints(d));
-  float* scratch = reinterpret_cast<float*>(p);  // [warps][kMaxD]
-  p += align16(4L * kWarps * kMaxD);
+  float* scratch = reinterpret_cast<float*>(p);  // [warps][lsc]
+  p += align16(4L * kWarps * d.lsc);
   T* M = reinterpret_cast<T*>(p);  // [rows][ldm]: m, then dm
   p += align16((long)sizeof(T) * d.rows * d.ldm);
   T* Yc = reinterpret_cast<T*>(p);  // [rows][ldy]: the current layer's y, then its dy
@@ -801,14 +838,14 @@ chain_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* __restr
     const int dk = layer_field(layers, l, gmma::kDk);
     const int* gs = gates + layer_field(layers, l, gmma::kGateOff);
     if (l + 1 == nl) {
-      gate_vjp<T>(Yc, dd, dk, gs, gs + dk, gs + dk + dd + 1, scratch, d, [&](int r, int j) {
+      gate_vjp<T>(Yc, Yo, dd, dk, gs, gs + dk, gs + dk + dd + 1, scratch, d, [&](int r, int j) {
         const int rn = rnode[r];
         return rn < 0 ? 0.f
                       : rnd<T>(__fmul_rn(to_f(dagg[(long)rn * d.dk_last + j]),
                                          to_f(geo[r * d.gs + a + 1])));
       });
     } else {
-      gate_vjp<T>(Yc, dd, dk, gs, gs + dk, gs + dk + dd + 1, scratch, d,
+      gate_vjp<T>(Yc, Yo, dd, dk, gs, gs + dk, gs + dk + dd + 1, scratch, d,
                   [&](int r, int j) { return to_f(M[r * d.ldm + j]); });
     }
     __syncthreads();
@@ -849,9 +886,11 @@ chain_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* __restr
 }
 
 // ---------------------------------------------------------------------------
-// 2. The weight gradients: block (group, range, layer) sums m_l^T rnd(dy_l
-// attr_c) over its slot rows for the G components c = G group .. into the
-// fp32 tiles [C1][D] of partials[range] (layer l's W' at kWOff).  The chain
+// 2. The weight gradients: block (group x window, range, layer) sums m_l^T
+// rnd(dy_l attr_c) over its slot rows for the G components c = G group ..
+// into one window (at most kWinM x kWinN: rows mw0.., columns nw0..) of the
+// fp32 tiles [C1][D] of partials[range] (layer l's W' at kWOff); it reads
+// only that window's columns of m and dy (one window: the whole rows).  The chain
 // wrote every layer's dy rows and m_1 .. m_L-1 per slot row (and m_0 where
 // REBUILD is off); chunks of 64 rows stream in by
 // cp.async into NB buffers (NB - 1 chunks load while one multiplies), each
@@ -885,23 +924,31 @@ wgrad_kernel(const T* __restrict__ geo2, const T* __restrict__ m0g, const T* __r
   constexpr int NB = MMA && !TILES ? kWgradBufs : 2;  // chunk buffers
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* p = smem_raw;
-  T* Mb = reinterpret_cast<T*>(p);  // [NB][kChunk][ldm]: m_l rows
-  p += NB * align16((long)sizeof(T) * kChunk * d.ldm);
+  T* Mb = reinterpret_cast<T*>(p);  // [NB][kChunk][wldm]: m_l rows (the window's columns)
+  p += NB * align16((long)sizeof(T) * kChunk * d.wldm);
   T* Zb = reinterpret_cast<T*>(p);  // [NB][kChunk][ldz]: dy rows (fp32 / TILES: then scaled)
   p += NB * align16((long)sizeof(T) * kChunk * d.ldz);
   T* Zlo = reinterpret_cast<T*>(p);  // TILES, bf16: [kChunk][ldz] the low halves
   if (TILES) p += align16((long)sizeof(T) * kChunk * d.ldz);
   float* att = reinterpret_cast<float*>(p);  // [NB][kChunk][G]: attr_c per row and component
+  int* wgeo = reinterpret_cast<int*>(att + NB * kChunk * G);  // [4]: the window, below
 
-  const int c0 = blockIdx.x * G, sp = blockIdx.y, layer = blockIdx.z;
+  const int c0 = blockIdx.x / d.nwin * G, sp = blockIdx.y, layer = blockIdx.z;
   const int ng = d.a - c0 < G ? d.a - c0 : G;  // components of this block
   const int c1 = gmma::layer_field(layers, layer, gmma::kC1);
   const int dd = gmma::layer_field(layers, layer, gmma::kD);
-  const int kp = round_up(c1, 16);
+  const int kpl = round_up(c1, 16), dpl = round_up(dd, 16);
+  const int wnn = (dpl + kWinN - 1) / kWinN;  // this layer's windows: (kpl / kWinM) x wnn
+  const int win = blockIdx.x % d.nwin;
+  if (win >= (kpl + kWinM - 1) / kWinM * wnn) return;  // past this layer's windows
+  const int mw0 = win / wnn * kWinM, nw0 = win % wnn * kWinN;
+  const int kp = kpl - mw0 < kWinM ? kpl - mw0 : kWinM;  // the window's m columns
+  const int c1w = c1 - mw0 < kWinM ? c1 - mw0 : kWinM, ddw = dd - nw0 < kWinN ? dd - nw0 : kWinN;
   const long rows_total = (long)d.n * d.k;
   const T* mgl = layer ? mg + rows_total * gmma::layer_field(layers, layer, gmma::kMOff) : m0g;
   const T* dy = dyg + rows_total * gmma::layer_field(layers, layer, gmma::kDyOff);
-  const int ldg = round_up(dd, 8);
+  const int ldgl = round_up(dd, 8);  // dy's global row
+  const int ldg = ldgl - nw0 < kWinN ? ldgl - nw0 : kWinN;  // the window's dy columns there
   const bool rebuild = REBUILD && layer == 0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   long r0, r1;  // this block's slot rows
@@ -916,28 +963,39 @@ wgrad_kernel(const T* __restrict__ geo2, const T* __restrict__ m0g, const T* __r
   }
   constexpr bool kSplit = TILES && MMA;            // dya as hi + lo
   constexpr bool kRegScale = MMA && !TILES;        // dy scaled in registers
-  const int dpl = round_up(dd, 16);
-  const long mbuf = align16((long)sizeof(T) * kChunk * d.ldm) / sizeof(T);
+  const int dplw = dpl - nw0 < kWinN ? dpl - nw0 : kWinN;  // the window's dy columns, padded
+  const long mbuf = align16((long)sizeof(T) * kChunk * d.wldm) / sizeof(T);
   const long zbuf = align16((long)sizeof(T) * kChunk * d.ldz) / sizeof(T);
   constexpr int V = 16 / sizeof(T);
   const int f = d.f;
-  // m_0 words of 4 bytes per feature row when they align (F even in bf16)
+  // m_0 words of 4 bytes per feature row when they align (F even in bf16;
+  // a window starts at an even column)
   const bool words = sizeof(T) == 4 || f % 2 == 0;
-  const int fw = sizeof(T) == 4 ? f : f / 2;
+  constexpr int E = sizeof(T) == 4 ? 1 : 2;  // elements per word
+  // the rebuild's window (its first column, its width, the end of its
+  // feature columns: features [mw0, fe), d2 at 2F) in shared memory, read
+  // back where a row is rebuilt: held in registers through the multiply,
+  // the bf16 instance spilled
+  if (threadIdx.x == 0) {
+    wgeo[0] = mw0;
+    wgeo[1] = kp;
+    wgeo[2] = mw0 + kp < 2 * f ? mw0 + kp : 2 * f;
+  }
 
-  // dy columns past its global row (ldg .. D16) stay zero in every buffer;
+  // dy columns past its global row (ldg .. dplw) stay zero in every buffer;
   // rebuilt m_0 rows: the columns past 2F+1 too
   const int nz = kSplit ? NB + 1 : NB;
-  for (int w = threadIdx.x; w < nz * kChunk * (dpl - ldg); w += blockDim.x) {
-    const int b = w / (kChunk * (dpl - ldg)), x = w % (kChunk * (dpl - ldg));
+  for (int w = threadIdx.x; w < nz * kChunk * (dplw - ldg); w += blockDim.x) {
+    const int b = w / (kChunk * (dplw - ldg)), x = w % (kChunk * (dplw - ldg));
     T* Z = b < NB ? Zb + b * zbuf : Zlo;
-    Z[(x / (dpl - ldg)) * d.ldz + ldg + x % (dpl - ldg)] = from_f<T>(0.f);
+    Z[(x / (dplw - ldg)) * d.ldz + ldg + x % (dplw - ldg)] = from_f<T>(0.f);
   }
   if (rebuild) {
-    const int tail = kp - (2 * f + 1);
+    const int t0 = 2 * f + 1 > mw0 ? 2 * f + 1 - mw0 : 0;  // the window's zero tail
+    const int tail = kp > t0 ? kp - t0 : 0;
     for (int w = threadIdx.x; w < NB * kChunk * tail; w += blockDim.x) {
       const int b = w / (kChunk * tail), x = w % (kChunk * tail);
-      Mb[b * mbuf + (x / tail) * d.ldm + 2 * f + 1 + x % tail] = from_f<T>(0.f);
+      Mb[b * mbuf + (x / tail) * d.wldm + t0 + x % tail] = from_f<T>(0.f);
     }
   }
   // the chunk of rows from e0 into buffer b: its m and dy rows by cp.async
@@ -948,38 +1006,45 @@ wgrad_kernel(const T* __restrict__ geo2, const T* __restrict__ m0g, const T* __r
     if (rebuild) {  // a warp per row: [hs[k*N + i] || h[i] || d2] (the tail is zero)
       for (int r = warp; r < kChunk; r += kWarps) {
         const long e = e0 + r;
-        T* mrow = M + r * d.ldm;
+        const int w0 = wgeo[0], wk = wgeo[1], fe = wgeo[2];
+        T* mrow = M + r * d.wldm;  // column j of m_0 at mrow[j - w0]
         if (e < r1) {
           const long node = e / d.k, kk = e % d.k;
           const T* xs = hs + (kk * d.n + node) * f;
           const T* xr = h + node * f;
+          // the sender's columns [w0, w0 + ns) and the receiver's [fr, fr + nr),
+          // a word (an element) of each per step
+          const int fr = w0 > f ? w0 : f;
+          const int ns = (fe < f ? fe : f) - w0, nr = fe - fr, nq = ns > nr ? ns : nr;
+          T* mr = mrow + fr - w0;
+          const T* xw = xs + w0;
+          const T* xq = xr + fr - f;
           if (words) {
-            for (int q = lane; q < fw; q += 32) {
-              const int el = sizeof(T) == 4 ? q : 2 * q;  // the word's first element
-              cp_async4(mrow + el, xs + el);
-              cp_async4(mrow + f + el, xr + el);
+            for (int q = E * lane; q < nq; q += 32 * E) {
+              if (q < ns) cp_async4(mrow + q, xw + q);
+              if (q < nr) cp_async4(mr + q, xq + q);
             }
           } else {
-            for (int j = lane; j < f; j += 32) {
-              mrow[j] = xs[j];
-              mrow[f + j] = xr[j];
+            for (int q = lane; q < nq; q += 32) {
+              if (q < ns) mrow[q] = xw[q];
+              if (q < nr) mr[q] = xq[q];
             }
           }
-          if (lane == 0) mrow[2 * f] = geo2[e * d.gs + d.a];
+          if (lane == 0 && 2 * f >= w0 && 2 * f < w0 + wk) mrow[2 * f - w0] = geo2[e * d.gs + d.a];
         } else {
-          for (int j = lane; j <= 2 * f; j += 32) mrow[j] = from_f<T>(0.f);
+          for (int j = w0 + lane; j <= 2 * f && j < w0 + wk; j += 32) mrow[j - w0] = from_f<T>(0.f);
         }
       }
     } else {
       for (int w = threadIdx.x; w < kChunk * (kp / V); w += blockDim.x) {
         const int r = w / (kp / V), q = (w % (kp / V)) * V;
-        if (e0 + r < r1) cp_async16(M + r * d.ldm + q, mgl + (e0 + r) * kp + q);
-        else *reinterpret_cast<uint4*>(M + r * d.ldm + q) = make_uint4(0, 0, 0, 0);
+        if (e0 + r < r1) cp_async16(M + r * d.wldm + q, mgl + (e0 + r) * kpl + mw0 + q);
+        else *reinterpret_cast<uint4*>(M + r * d.wldm + q) = make_uint4(0, 0, 0, 0);
       }
     }
     for (int w = threadIdx.x; w < kChunk * (ldg / V); w += blockDim.x) {
       const int r = w / (ldg / V), q = (w % (ldg / V)) * V;
-      if (e0 + r < r1) cp_async16(Z + r * d.ldz + q, dy + (e0 + r) * ldg + q);
+      if (e0 + r < r1) cp_async16(Z + r * d.ldz + q, dy + (e0 + r) * ldgl + nw0 + q);
       else *reinterpret_cast<uint4*>(Z + r * d.ldz + q) = make_uint4(0, 0, 0, 0);
     }
     cp_async_commit();
@@ -993,12 +1058,12 @@ wgrad_kernel(const T* __restrict__ geo2, const T* __restrict__ m0g, const T* __r
     return w < kChunk * G && e < r1 && w % G < ng ? to_f(geo2[e * d.gs + c0 + w % G]) : 0.f;
   };
 
-  // mma: warps 4 (C1) x 2 (D); fma: 4 x 4 work items over [C1][D]
-  const int mt_n = kp / 16, nt_n = dpl / 8;
+  // mma: warps 4 (C1) x 2 (D); fma: 4 x 4 work items over the window
+  const int mt_n = kp / 16, nt_n = dplw / 8;
   const int mtw = (mt_n + 3) / 4, ntw = (nt_n + 1) / 2;
   const int wm = warp & 3, wn = warp >> 2;
   const int g = lane >> 2, t4 = lane & 3;
-  const int mq_n = (c1 + 3) / 4, nq_n = (dd + 3) / 4, items = mq_n * nq_n;
+  const int mq_n = (c1w + 3) / 4, nq_n = (ddw + 3) / 4, items = mq_n * nq_n;
   float acc[G][MMA ? kWMT : kItW][MMA ? kWNT : kRT][MMA ? 4 : kCT];
 #pragma unroll
   for (int gi = 0; gi < G; ++gi)
@@ -1058,7 +1123,7 @@ wgrad_kernel(const T* __restrict__ geo2, const T* __restrict__ m0g, const T* __r
           const int mt = wm * mtw + mi;
           if (mi < mtw && mt < mt_n) {
             const int q = lane >> 3, i = lane & 7;
-            ldsm_x4_t(af[mi], M + (ks * 16 + i + (q >> 1) * 8) * d.ldm + mt * 16 + (q & 1) * 8);
+            ldsm_x4_t(af[mi], M + (ks * 16 + i + (q >> 1) * 8) * d.wldm + mt * 16 + (q & 1) * 8);
           }
         }
         // this lane's B rows: ks*16 + 2 t4 (+1) in b0, + 8 (+1) in b1
@@ -1111,7 +1176,7 @@ wgrad_kernel(const T* __restrict__ geo2, const T* __restrict__ m0g, const T* __r
           for (int r = 0; r < kChunk; ++r) {
             float x[kRT], z[kCT];
 #pragma unroll
-            for (int i = 0; i < kRT; ++i) x[i] = to_f(M[r * d.ldm + m0 + i]);
+            for (int i = 0; i < kRT; ++i) x[i] = to_f(M[r * d.wldm + m0 + i]);
 #pragma unroll
             for (int j = 0; j < kCT; ++j) z[j] = to_f(Z[r * d.ldz + n0 + j]);
 #pragma unroll
@@ -1132,7 +1197,7 @@ wgrad_kernel(const T* __restrict__ geo2, const T* __restrict__ m0g, const T* __r
   for (int gi = 0; gi < G; ++gi) {
     if (gi >= ng) continue;
     float* out = partials + sp * d.nw + gmma::layer_field(layers, layer, gmma::kWOff) +
-                 (long)(c0 + gi) * c1 * dd;
+                 (long)(c0 + gi) * c1 * dd + (long)mw0 * dd + nw0;  // the window's corner
     if constexpr (MMA) {
 #pragma unroll
       for (int mi = 0; mi < kWMT; ++mi) {
@@ -1144,8 +1209,8 @@ wgrad_kernel(const T* __restrict__ geo2, const T* __restrict__ m0g, const T* __r
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
               const int m = mt * 16 + g + (q >> 1) * 8, n = nt * 8 + t4 * 2 + (q & 1);
-              if (m < c1 && n < dd) out[(long)m * dd + n] = TILES ? rnd<T>(acc[gi][mi][ni][q])
-                                                                   : acc[gi][mi][ni][q];
+              if (m < c1w && n < ddw) out[(long)m * dd + n] = TILES ? rnd<T>(acc[gi][mi][ni][q])
+                                                                     : acc[gi][mi][ni][q];
             }
           }
         }
@@ -1160,7 +1225,7 @@ wgrad_kernel(const T* __restrict__ geo2, const T* __restrict__ m0g, const T* __r
           for (int i = 0; i < kRT; ++i)
 #pragma unroll
             for (int j = 0; j < kCT; ++j)
-              if (m0 + i < c1 && n0 + j < dd)
+              if (m0 + i < c1w && n0 + j < ddw)
                 out[(long)(m0 + i) * dd + n0 + j] = TILES ? rnd<T>(acc[gi][it][i][j])
                                                           : acc[gi][it][i][j];
         }
@@ -1229,16 +1294,35 @@ table_kernel(const T* __restrict__ dhs, const int* __restrict__ loc, T* __restri
 // ---------------------------------------------------------------------------
 // Host side.
 
+// fp32: the chain's weight slice in shared memory where it fits beside the
+// rows, else read from global memory; then the rows halved (down to K) until
+// the block fits.  Past that the block needs more than the card has, and the
+// wrapper raises.
+Dims fit_fma(Dims d) {
+  if (chain_smem<float>(d) > gmma::kMaxSmem) d.nbuf = 0;
+  while (chain_smem<float>(d) > gmma::kMaxSmem && d.rows / 2 >= d.k) {
+    d.rows /= 2;
+    d.rb = d.rows / d.k;
+  }
+  return d;
+}
+
+Dims dims_for(int dtype, int n, int f, int k, int a, int tile, int u, int nl, const int* w3) {
+  const Dims d = make_dims(dtype == 1, n, f, k, a, tile, u, nl, w3);
+  return dtype == 1 ? d : fit_fma(d);
+}
+
 // -1 for shapes the kernels do not take, else the chain's and the weight-
-// gradient kernel's shared memory, the larger
+// gradient kernel's shared memory, the larger (more than the card has for
+// widths past what fits)
 long smem_for(int dtype, int k, int a, int nl, const int* w3) {
   if (k < 1 || a < 1 || nl < 1 || w3 == nullptr) return -1;
   for (int l = 0; l < nl; ++l) {
     const int c1 = w3[3 * l], dd = w3[3 * l + 1];
-    if (c1 < 1 || dd < 1 || c1 > kMaxC1 || dd > kMaxD) return -1;
+    if (c1 < 1 || dd < 1) return -1;
   }
   if (dtype != 0 && dtype != 1) return -1;
-  const Dims d = make_dims(dtype == 1, 1, 0, k, a, 1, 1, nl, w3);
+  const Dims d = dims_for(dtype, 1, 0, k, a, 1, 1, nl, w3);
   if (d.rb < 1) return -1;
   const long cs = dtype == 1 ? chain_smem<bf16>(d) : chain_smem<float>(d);
   const long ws = dtype == 1 ? (wgrad_smem<bf16>(d, 2, true) > wgrad_smem<bf16>(d, kWgradBufs, false)
@@ -1323,7 +1407,7 @@ int launch_wgrad_as(const Dims& d, const void* const* in, float* partials, cudaS
   cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   if ((long)d.n * d.k < 1 || d.splits < 1) return 0;
-  kern<<<dim3((d.a + G - 1) / G, d.splits, d.nl), kThreads, smem, st>>>(
+  kern<<<dim3((d.a + G - 1) / G * d.nwin, d.splits, d.nl), kThreads, smem, st>>>(
       static_cast<const T*>(in[0]), static_cast<const T*>(in[1]), static_cast<const T*>(in[2]),
       static_cast<const T*>(in[3]), static_cast<const T*>(in[4]), static_cast<const T*>(in[5]),
       static_cast<const int*>(in[6]), partials, d);
@@ -1354,10 +1438,14 @@ int launch_table(const void* dhs, const int* loc, void* dhu, int n, int f, int k
 
 extern "C" {
 
+// The shared memory one block may take (bytes): the limit the fp32 chain's
+// dims fit into and the wrapper checks smem_bytes against.
+long fused_message_generic_tab_bwd_max_smem() { return gmma::kMaxSmem; }
+
 // Shared memory one block of the chain or weight-gradient kernel needs
-// (bytes, the larger), or -1 for shapes the kernels do not take (C1 > 192 or
-// D > 128 among them); widths: the nl layers' (C1, D, dk) in host memory.
-// The wrapper checks it against the card's limit.
+// (bytes, the larger), or -1 for shapes the kernels do not take; widths: the
+// nl layers' (C1, D, dk) in host memory.  The wrapper checks it against
+// max_smem (past it the widths do not fit a block).
 long fused_message_generic_tab_bwd_smem_bytes(int dtype, int k, int a, int nl,
                                               const int* widths) {
   return smem_for(dtype, k, a, nl, widths);
@@ -1388,7 +1476,7 @@ int fused_message_generic_tab_bwd_chain(int dtype, int replay, const void* h, co
     return (int)cudaErrorInvalidValue;
   const Packed pk{wpk, masks, chunks, (replay ? 2 : 1) * nl, nq};
   const ChainArgs c{h, h, geo2, loc, gtab, w, sel, layers, yin, dagg, dhs, dhr, dy, m0, m};
-  const Dims d = make_dims(dtype == 1, n, f, k, a, tile, u, nl, widths);
+  const Dims d = dims_for(dtype, n, f, k, a, tile, u, nl, widths);
   if (!chain_ok(dtype, d, c, pk, replay != 0) || m0 == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
@@ -1417,7 +1505,7 @@ int fused_message_generic_bwd_chain(int dtype, int mode, const void* hs, const v
   if ((long)k * n > 2147483647L) return (int)cudaErrorInvalidValue;
   const Packed pk{wpk, masks, chunks, (mode != 0 ? 2 : 1) * nl, nq};
   const ChainArgs c{hs, h, geo2, nullptr, nullptr, w, sel, layers, yin, dagg, dhs, dhr, dy, m0, m};
-  const Dims d = make_dims(dtype == 1, n, f, k, a, 1, 0, nl, widths);
+  const Dims d = dims_for(dtype, n, f, k, a, 1, 0, nl, widths);
   if (!chain_ok(dtype, d, c, pk, mode != 0)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

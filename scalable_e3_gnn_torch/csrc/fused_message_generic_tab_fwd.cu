@@ -54,20 +54,27 @@
 // config), so the block keeps its slot rows m_l resident in shared memory and
 // streams the weights through it; the fp32 sum over c stays in registers
 // (bf16) or shared memory (fp32).
-// - bf16 (C1 <= 192, D <= 128; wider bf16 widths are not taken): 4 warps x 16
-//   rows = 64 rows, two blocks an SM (one block's gathers and barriers
-//   overlap the other's products), on the engine of csrc/generic_mma.cuh,
+// - bf16 (any width whose rows fit a block's shared memory): 4 warps x 16
+//   rows = 64 rows, two blocks an SM where the shared memory allows (one
+//   block's gathers and barriers overlap the other's products), on the
+//   engine of csrc/generic_mma.cuh,
 //   shared with the backward: mma.sync m16n8k16 (bf16 in, fp32 accumulate) over only the
 //   16x8 tiles of W_l[c] that hold a structural nonzero (31% of them at the
 //   lmax=2 config, 14% at A = 36), packed by the wrapper in the order the
 //   warps take them and streamed by cp.async.bulk into a 4-stage ring with
 //   mbarriers (no block barrier per component; layer 1's first chunks load
-//   while the rows are gathered, each next layer's while the gate runs).  Skipped
+//   while the rows are gathered, each next layer's while the gate runs).
+//   A layer's D is walked in column blocks of 128 (generic_mma.cuh), and the
+//   gate in blocks of 192 columns, so no register array grows with the
+//   width (past D = 128 or C1 = 192 the ring is two stages, one block an
+//   SM).  Skipped
 //   tiles add exactly 0, so y is bitwise the dense product's, and the
 //   backward's replay gives bitwise the same y.
 // - fp32 (the check path): 64 rows, each thread a 4 x 4 fp32 FMA tile per work
 //   item, W_l[c] [C1][D] in shared memory, the sum over c in a shared
-//   [rows][D] fp32 buffer.
+//   [rows][D] fp32 buffer.  Where the slice does not fit beside the rows the
+//   weights are read from global memory (L2), and where the rows do not fit
+//   either a block takes 32 or 16 rows (at least K): the same sums.
 //
 // Work.  The dense GEMMs would run 2 A (C1_0 D_0 + C1_1 D_1) = 526,824 flops
 // per valid slot at the lmax=2 config (A=9, C1 = 181 / 90, D = 108); the
@@ -108,8 +115,7 @@ constexpr int kThreadsMma = 128;  // bf16: 4 warps x 16 rows, two blocks an SM
 constexpr int kThreadsFma = 256;
 constexpr int kRowsMma = 64;
 constexpr int kRowsFma = 64;
-constexpr int kMaxKS = 12;  // mma engine: C1 <= 12 x 16 = 192
-constexpr int kMaxNT = 16;  // mma engine: D <= 16 x 8 = 128
+constexpr int kGateCols = 192;  // mma engine: gate columns a warp's lanes hold per block
 constexpr int kRT = 4, kCT = 4;  // fma engine: rows x columns per work item
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -146,9 +152,9 @@ struct Dims {
   int c1p, ldm;  // padded layer-input width, its row stride
   int dp, ldw;   // padded layer-output width, the weight slice's row stride
   int ldy, gs;   // y row stride, geometry row width (a + 2)
-  int wrows;     // rows of the weight slice(s) in shared memory
+  int wrows;     // rows of the weight slice in shared memory (fp32; 0: read from global)
   int stages;    // bf16: the depth of the engine's ring
-  int nmasks;    // bf16: the plan's forward masks of every layer (A x C1/16 each)
+  int nmasks;    // bf16: the plan's forward masks of every layer (blocks x A x C1/16 each)
 };
 
 // w3: the layers' (C1, D, dk), nl of them (host memory)
@@ -161,7 +167,7 @@ __host__ __device__ inline Dims make_dims(bool mma, int n, int f, int k, int a, 
   for (int l = 0; l < nl; ++l) {
     c1max = w3[3 * l] > c1max ? w3[3 * l] : c1max;
     dmax = w3[3 * l + 1] > dmax ? w3[3 * l + 1] : dmax;
-    ks += (w3[3 * l] + 15) / 16;
+    ks += (w3[3 * l] + 15) / 16 * gmma::fwd_blocks(w3[3 * l + 1]);
   }
   d.dk_last = nl > 0 ? w3[3 * nl - 1] : 0;
   d.rows = mma ? kRowsMma : kRowsFma;
@@ -203,42 +209,51 @@ __host__ __device__ inline long smem_bytes(const Dims& d) {
 }
 
 // y = sum_c attr_c * (M @ W[c]) on the engine of generic_mma.cuh over the
-// layer's weight stream, rounded to bf16 into Ys (columns up to D rounded to
-// 8).  Starts with a block barrier (M complete).
+// layer's weight stream, one column block of D at a time, rounded to bf16
+// into Ys (columns up to D rounded to 8).  Starts with a block barrier (M
+// complete).
 __device__ void layer_mma(gmma::Ring& ring, int stream, const uint32_t* masks, int c1, int dd,
                           const Dims& d, const __nv_bfloat16* Ms, __nv_bfloat16* Ys,
                           const float* geo) {
+  constexpr int NT = gmma::kBlockNT;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int r0 = warp * 16;
-  const int nt_n = (dd + 7) / 8;
+  const int nt_n = (dd + 7) / 8, ks_n = (c1 + 15) / 16, nb = gmma::fwd_blocks(dd);
   __syncthreads();
-  float acc[kMaxNT][4];
-  gmma::gemm_fwd<kMaxNT>(ring, stream, masks, d.a, (c1 + 15) / 16, Ms, d.ldm, geo, d.gs, acc);
+  gmma::Cursor cur = gmma::open(ring, stream);
+  for (int b = 0; b < nb; ++b) {
+    float acc[NT][4];
+    gmma::gemm_fwd<NT>(ring, cur, masks + b * d.a * ks_n, d.a, ks_n, Ms, d.ldm, geo, d.gs, acc);
+    if (b + 1 == nb) gmma::close(ring, cur, lane);
 #pragma unroll
-  for (int nt = 0; nt < kMaxNT; ++nt) {
-    if (nt < nt_n) {
-      const int col = nt * 8 + t4 * 2;
-      *reinterpret_cast<__nv_bfloat162*>(Ys + (r0 + g) * d.ldy + col) =
-          __floats2bfloat162_rn(acc[nt][0], acc[nt][1]);
-      *reinterpret_cast<__nv_bfloat162*>(Ys + (r0 + g + 8) * d.ldy + col) =
-          __floats2bfloat162_rn(acc[nt][2], acc[nt][3]);
+    for (int nt = 0; nt < NT; ++nt) {
+      if (b * NT + nt < nt_n) {
+        const int col = (b * NT + nt) * 8 + t4 * 2;
+        *reinterpret_cast<__nv_bfloat162*>(Ys + (r0 + g) * d.ldy + col) =
+            __floats2bfloat162_rn(acc[nt][0], acc[nt][1]);
+        *reinterpret_cast<__nv_bfloat162*>(Ys + (r0 + g + 8) * d.ldy + col) =
+            __floats2bfloat162_rn(acc[nt][2], acc[nt][3]);
+      }
     }
   }
 }
 
 // y = sum_c attr_c * (M @ W[c]) on the FMA units; leaves the fp32 sum in Ys
-// (the reader rounds it).  Starts with a block barrier (M complete).
+// (the reader rounds it).  W[c] is staged in shared memory (Ws) where it fits
+// (d.wrows > 0), else read from global memory.  Starts with a block barrier
+// (M complete).
 template <typename T>
 __device__ void layer_fma(const T* __restrict__ W, int c1, int dd, const Dims& d,
                           const T* Ms, T* Ws, float* Ys, const float* geo) {
   const int cg_n = (dd + kCT - 1) / kCT;
   const int dp = cg_n * kCT;
   const int items = (d.rows / kRT) * cg_n;
+  const bool staged = d.wrows > 0;
   for (int c = 0; c < d.a; ++c) {
     __syncthreads();  // M complete / every thread is done with the previous slice
     const T* Wc = W + (long)c * c1 * dd;
-    for (int idx = threadIdx.x; idx < c1 * dp; idx += blockDim.x) {
+    for (int idx = threadIdx.x; staged && idx < c1 * dp; idx += blockDim.x) {
       const int kk = idx / dp, nn = idx % dp;
       Ws[kk * d.ldw + nn] = nn < dd ? Wc[(long)kk * dd + nn] : from_f<T>(0.f);
     }
@@ -252,7 +267,12 @@ __device__ void layer_fma(const T* __restrict__ W, int c1, int dd, const Dims& d
         for (int j = 0; j < kCT; ++j) t[i][j] = 0.f;
       for (int kk = 0; kk < c1; ++kk) {
         float w[kCT];
-        load4f(Ws + kk * d.ldw + j0, w);
+        if (staged) {
+          load4f(Ws + kk * d.ldw + j0, w);
+        } else {
+#pragma unroll
+          for (int j = 0; j < kCT; ++j) w[j] = j0 + j < dd ? to_f(Wc[(long)kk * dd + j0 + j]) : 0.f;
+        }
 #pragma unroll
         for (int i = 0; i < kRT; ++i) {
           const float x = to_f(Ms[(r0 + i) * d.ldm + kk]);
@@ -438,21 +458,23 @@ generic_fwd_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* _
     // ---- layer-l gate -> layer-(l+1) input rows, zero-padded to c1p (a warp
     // per row; bf16: each lane's selections in registers, two rows at a time)
     if constexpr (MMA) {
-      constexpr int kLanes = kMaxKS * 16 / 32;  // columns per lane, c1p <= 192
-      int s1[kLanes];
-#pragma unroll
-      for (int q = 0; q < kLanes; ++q) {
-        const int j = lane + 32 * q;
-        s1[q] = j < dk ? sl[j] : 0;
-      }
-#pragma unroll 2
-      for (int r = warp; r < d.rows; r += nwarps) {
-        const T* yrow = Ys + r * d.ldy;
-        T* mrow = Ms + r * d.ldm;
+      constexpr int kLanes = kGateCols / 32;  // columns per lane in a block of the gate
+      for (int j0 = 0; j0 < d.c1p; j0 += kGateCols) {
+        int s1[kLanes];
 #pragma unroll
         for (int q = 0; q < kLanes; ++q) {
-          const int j = lane + 32 * q;
-          if (j < d.c1p) mrow[j] = from_f<T>(j < dk ? gate_out<T>(yrow, s1[q], j) : 0.f);
+          const int j = j0 + lane + 32 * q;
+          s1[q] = j < dk ? sl[j] : 0;
+        }
+#pragma unroll 2
+        for (int r = warp; r < d.rows; r += nwarps) {
+          const T* yrow = Ys + r * d.ldy;
+          T* mrow = Ms + r * d.ldm;
+#pragma unroll
+          for (int q = 0; q < kLanes; ++q) {
+            const int j = j0 + lane + 32 * q;
+            if (j < d.c1p) mrow[j] = from_f<T>(j < dk ? gate_out<T>(yrow, s1[q], j) : 0.f);
+          }
         }
       }
     } else {
@@ -490,16 +512,34 @@ generic_fwd_kernel(const T* __restrict__ hs, const T* __restrict__ h, const T* _
   PHASE(5);  // gate, mask, K-sum, store
 }
 
-// bytes of shared memory, or -1 for shapes the kernel does not take (bf16
-// widths past the tensor-core engine's limits among them)
+// fp32: the weight slice in shared memory where it fits beside the rows,
+// else read from global memory; then the rows halved (down to K) until the
+// block fits.  Past that the block needs more than the card has, and the
+// wrapper raises.
+Dims fit_fma(Dims d) {
+  if (smem_bytes<float>(d) > gmma::kMaxSmem) d.wrows = d.ldw = 0;
+  while (smem_bytes<float>(d) > gmma::kMaxSmem && d.rows / 2 >= d.k) {
+    d.rows /= 2;
+    d.rb = d.rows / d.k;
+  }
+  return d;
+}
+
+Dims dims_for(int dtype, int n, int f, int k, int a, int tile, int u, int nl, const int* w3) {
+  const Dims d = make_dims(dtype == 1, n, f, k, a, tile, u, nl, w3);
+  return dtype == 1 ? d : fit_fma(d);
+}
+
+// bytes of shared memory (more than the card has for widths past what fits),
+// or -1 for shapes the kernel does not take
 long smem_for(int dtype, int k, int a, int nl, const int* w3) {
   if (k < 1 || a < 1 || nl < 1 || w3 == nullptr) return -1;
   for (int l = 0; l < nl; ++l) {
     const int c1 = w3[3 * l], dd = w3[3 * l + 1];
     if (c1 < 1 || dd < 1) return -1;
-    if (dtype == 1 && (c1 > 16 * kMaxKS || dd > 8 * kMaxNT)) return -1;
   }
-  const Dims d = make_dims(dtype == 1, 1, 0, k, a, 1, 1, nl, w3);
+  if (dtype != 0 && dtype != 1) return -1;
+  const Dims d = dims_for(dtype, 1, 0, k, a, 1, 1, nl, w3);
   if (d.rb < 1) return -1;
   if (dtype == 0) return smem_bytes<float>(d);
   if (dtype == 1) return smem_bytes<__nv_bfloat16>(d);
@@ -558,9 +598,14 @@ bool packed_ok(int dtype, const Packed& pk, const Dims& d, const void* w) {
 
 extern "C" {
 
+// The shared memory one block may take (bytes): the limit the fp32 engine's
+// dims fit into and the wrapper checks smem_bytes against.
+long fused_message_generic_tab_fwd_max_smem() { return gmma::kMaxSmem; }
+
 // Shared memory one block needs (bytes), or -1 for shapes the kernel does not
 // take; widths: the nl layers' (C1, D, dk) in host memory.  The wrapper checks
-// it against the card's limit before launching.
+// it against max_smem before launching (past it the widths do not fit a
+// block).
 long fused_message_generic_tab_fwd_smem_bytes(int dtype, int k, int a, int nl,
                                               const int* widths) {
   return smem_for(dtype, k, a, nl, widths);
@@ -571,7 +616,8 @@ long fused_message_generic_tab_fwd_smem_bytes(int dtype, int k, int a, int nl,
 // generic_mma.cuh: wpk the listed 16x8 tiles of every layer's forward GEMM in
 // fragment order, one stream per layer, in nq chunks; chunks the streams'
 // first chunks [nl + 1] then every chunk's first tile [nq + 1]; masks the
-// plan's bit masks, [A][C1/16] per layer (kernels/tile_plan.py); w unused).
+// plan's bit masks, [fwd_blocks(D)][A][C1/16] per layer (kernels/tile_plan.py);
+// w unused).
 // sel: the layers' selections one after the other; layers: the layer table
 // (device memory, generic_mma.cuh LayerField); widths: the layers' (C1, D,
 // dk) (host memory).  y: null, or the save mode's [N*K, D_l] outputs, the
@@ -592,7 +638,7 @@ int fused_message_generic_tab_fwd(int dtype, const void* h, const void* geo2, co
   const int* s = static_cast<const int*>(sel);
   const int* lt = static_cast<const int*>(layers);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dims d = make_dims(dtype == 1, n, f, k, a, tile, u, nl, widths);
+  const Dims d = dims_for(dtype, n, f, k, a, tile, u, nl, widths);
   if (!packed_ok(dtype, pk, d, w)) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch<float, false, true>(d, h, h, geo2, loc_i, gtab_i, w, s, lt, out, y, pk, st);
@@ -617,7 +663,7 @@ int fused_message_generic_fwd(int dtype, const void* hs, const void* h, const vo
   const int* s = static_cast<const int*>(sel);
   const int* lt = static_cast<const int*>(layers);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dims d = make_dims(dtype == 1, n, f, k, a, 1, 0, nl, widths);
+  const Dims d = dims_for(dtype, n, f, k, a, 1, 0, nl, widths);
   if (!packed_ok(dtype, pk, d, w)) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch<float, false, false>(d, hs, h, geo2, nullptr, nullptr, w, s, lt, out, y, pk,

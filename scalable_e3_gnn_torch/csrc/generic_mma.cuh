@@ -6,17 +6,18 @@
 // The weights.  The wrapper (kernels/tile_plan.py) lists, per layer and
 // attribute component c, the 16x8 B tiles of W[c] that hold any structural
 // nonzero, and packs them into streams: one contiguous run per GEMM, in the
-// order the engine walks them (c, then the outer tile index, then the inner),
-// each tile 128 bf16 in fragment order (lane L's b0, b1 at 8 L bytes: one
-// 8-byte shared load per mma).  A mask per (c, outer) holds a bit per inner
-// tile.  An all-zero k-step adds exactly 0 to an fp32 accumulator, so every
-// output is bitwise that of the dense per-component product (the tensor
-// cores' accumulation of the listed tiles runs in the same k-order).
+// order the engine walks them (column block, then c, then the outer tile
+// index, then the inner), each tile 128 bf16 in fragment order (lane L's b0,
+// b1 at 8 L bytes: one 8-byte shared load per mma).  A mask per (block, c,
+// outer) holds a bit per inner tile of the block.  An all-zero k-step adds
+// exactly 0 to an fp32 accumulator, so every output is bitwise that of the
+// dense per-component product (the tensor cores' accumulation of the listed
+// tiles runs in the same k-order).
 //
 // The ring.  The streams a kernel consumes (its GEMMs in order: one or two
 // per message layer, any number of layers) are one sequence of chunks of at
 // most kChunk tiles (16 KB).  A chunk holds whole rows (a row: the tiles of
-// one (c, outer) mask) and never spans two streams; the wrapper lays the
+// one (block, c, outer) mask) and never spans two streams; the wrapper lays the
 // chunks out and passes, in one device array, each stream's first chunk
 // (q_base [S + 1], the last entry the chunk count Q) and then every chunk's
 // first tile (chunks [Q + 1], offsets at src).  Thread 0 copies chunks by
@@ -31,10 +32,20 @@
 // runs a gate, and the first chunks at kernel start while the rows are
 // gathered.
 //
-// Each warp owns 16 slot rows and every column; the component sum stays in
-// registers (t per component, acc over components: the TPU kernel's
-// rounding, each product in fp32, scaled by attr_c in fp32, summed over c in
-// fp32).
+// Each warp owns 16 slot rows and one column block at a time; the component
+// sum stays in registers (t per component, acc over components: the TPU
+// kernel's rounding, each product in fp32, scaled by attr_c in fp32, summed
+// over c in fp32).
+//
+// Column blocks.  A GEMM's output columns are walked in blocks of at most
+// kBlockNT (forward: 128 columns of D) or kBlockCT (dm: 192 columns of C1)
+// n-tiles, so each register array keeps one size at any width; the masks and
+// the stream hold the blocks one after the other (block, then c, then the
+// outer tile index, then the inner), and each block re-reads the warp's
+// input rows from shared memory.  An output element is summed over the same
+// k-steps in the same order in any block, so the blocks change no bit; at
+// D <= 128 and C1 <= 192 there is one block and the walk is the unblocked
+// one.
 //
 // The fragment, ldmatrix and cp.async helpers below also serve the lmax=1
 // engine (lmax1_mma.cuh).
@@ -49,6 +60,10 @@ namespace gmma {
 typedef __nv_bfloat16 bf16;
 
 constexpr int kMinStages = 2, kMaxStages = 8;
+constexpr int kBlockNT = 16;                  // forward GEMM: n-tiles per column block
+constexpr int kBlockCT = 24;                  // dm GEMM: n-tiles per column block
+// shared memory one block may take (227 KB, the H100's opt-in limit)
+constexpr long kMaxSmem = 232448;
 constexpr int kChunk = 64;                    // tiles per chunk
 constexpr int kTileBytes = 256;               // 16 x 8 bf16
 constexpr int kStageBytes = kChunk * kTileBytes;
@@ -164,7 +179,8 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
 // The wrapper's layer table (kernels/fused_message_generic.py::_layer_table,
 // device memory): kLayer ints per message layer, in layer order.  The
 // offsets are prefix sums over the layers before it: of the forward and the
-// dm masks (words of the plan's mask array), of W' (elements of the layers'
+// dm masks (words of the plan's mask array: fwd_blocks(D) x A x C1/16 and
+// dm_blocks(C1) x A x D/16 a layer), of W' (elements of the layers'
 // flat [A*C1, D] weights, and of the weight-gradient partials' rows), of the
 // selections (dk), and, in units of N*K slot rows, of the per-slot buffers
 // that hold one block of rows per layer (y: D wide; dy: D rounded up to 8;
@@ -188,6 +204,14 @@ __host__ __device__ constexpr long ring_bytes(int n) { return (long)n * (kStageB
 
 // the deepest ring (kMinStages .. kMaxStages) that leaves a block of `other`
 // bytes of shared memory beside it two blocks an SM
+// column blocks of a layer's forward GEMM (over D) and of its dm GEMM (over C1)
+__host__ __device__ constexpr int fwd_blocks(int d) {
+  return (d + 8 * kBlockNT - 1) / (8 * kBlockNT);
+}
+__host__ __device__ constexpr int dm_blocks(int c1) {
+  return (c1 + 8 * kBlockCT - 1) / (8 * kBlockCT);
+}
+
 __host__ __device__ inline int ring_stages(long other) {
   long n = (kTwoBlockSmem - other) / (kStageBytes + 16);
   return n < kMinStages ? kMinStages : n > kMaxStages ? kMaxStages : (int)n;
@@ -310,18 +334,22 @@ __device__ __forceinline__ void close(Ring& r, const Cursor& c, int lane) {
 }
 
 // ---------------------------------------------------------------------------
-// The three products.  M / DY are [rows][ld] bf16 in shared memory, the warp's
-// rows r0 .. r0+15; geo [rows][gs] holds attr_c at column c (G: float or
-// bf16).  masks: the GEMM's [A][k-steps] bit masks over its n-tiles (in
-// shared memory: a load per row on the critical path).  A row is one (c, k-step): a runtime loop over the k-steps,
-// the n-tiles unrolled (their accumulators stay in registers).
+// The three products, each over one column block.  M / DY are [rows][ld]
+// bf16 in shared memory, the warp's rows r0 .. r0+15; geo [rows][gs] holds
+// attr_c at column c (G: float or bf16).  masks: the block's [A][k-steps]
+// bit masks over its n-tiles (in shared memory: a load per row on the
+// critical path).  A row is one (c, k-step): a runtime loop over the k-steps,
+// the n-tiles unrolled (their accumulators stay in registers).  The caller
+// opens the GEMM's stream (open) before its first block and closes it
+// (close) after its last: the cursor runs on from block to block.
 
 // y = sum_c attr_c * (M @ W[c]): k-steps ks over C1 (ks_n), n-tiles nt over
-// D; acc[nt] ends as the fp32 sum (columns nt*8 + 2 t4 (+1), rows g and g+8).
+// the block's columns of D; acc[nt] ends as the fp32 sum (columns nt*8 +
+// 2 t4 (+1) of the block, rows g and g+8).
 template <int MAX_NT, typename G>
-__device__ __forceinline__ void gemm_fwd(Ring& r, int stream, const uint32_t* masks,
-                                         int a, int ks_n, const bf16* M, int ldm, const G* geo,
-                                         int gs, float (&acc)[MAX_NT][4]) {
+__device__ __forceinline__ void gemm_fwd(Ring& r, Cursor& cur, const uint32_t* masks, int a,
+                                         int ks_n, const bf16* M, int ldm, const G* geo, int gs,
+                                         float (&acc)[MAX_NT][4]) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int r0 = warp * 16;
@@ -329,7 +357,6 @@ __device__ __forceinline__ void gemm_fwd(Ring& r, int stream, const uint32_t* ma
   for (int nt = 0; nt < MAX_NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
   const bf16* a0 = M + (r0 + g) * ldm + t4 * 2;
   const bf16* a1 = a0 + 8 * ldm;
-  Cursor cur = open(r, stream);
   for (int c = 0; c < a; ++c) {
     float t[MAX_NT][4];
 #pragma unroll
@@ -360,16 +387,15 @@ __device__ __forceinline__ void gemm_fwd(Ring& r, int stream, const uint32_t* ma
       acc[nt][3] = __fadd_rn(acc[nt][3], __fmul_rn(at1, t[nt][3]));
     }
   }
-  close(r, cur, lane);
 }
 
 // dm = sum_c (dy * attr_c, rounded to bf16) @ W[c]^T: k-steps ds over D
-// (ds_n), n-tiles ct over C1; acc[ct] the fp32 sum, its products in (c, ds)
-// order.
+// (ds_n), n-tiles ct over the block's columns of C1; acc[ct] the fp32 sum,
+// its products in (c, ds) order.
 template <int MAX_CT, typename G>
-__device__ __forceinline__ void gemm_dm(Ring& r, int stream, const uint32_t* masks,
-                                        int a, int ds_n, const bf16* DY, int ldy, const G* geo,
-                                        int gs, float (&acc)[MAX_CT][4]) {
+__device__ __forceinline__ void gemm_dm(Ring& r, Cursor& cur, const uint32_t* masks, int a,
+                                        int ds_n, const bf16* DY, int ldy, const G* geo, int gs,
+                                        float (&acc)[MAX_CT][4]) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int r0 = warp * 16;
@@ -377,7 +403,6 @@ __device__ __forceinline__ void gemm_dm(Ring& r, int stream, const uint32_t* mas
   for (int ct = 0; ct < MAX_CT; ++ct) acc[ct][0] = acc[ct][1] = acc[ct][2] = acc[ct][3] = 0.f;
   const bf16* a0 = DY + (r0 + g) * ldy + t4 * 2;
   const bf16* a1 = a0 + 8 * ldy;
-  Cursor cur = open(r, stream);
   for (int c = 0; c < a; ++c) {
     const float at0 = to_f(geo[(r0 + g) * gs + c]), at1 = to_f(geo[(r0 + g + 8) * gs + c]);
     for (int ds = 0; ds < ds_n; ++ds) {
@@ -398,19 +423,17 @@ __device__ __forceinline__ void gemm_dm(Ring& r, int stream, const uint32_t* mas
       }
     }
   }
-  close(r, cur, lane);
 }
 
 // Kernel #14's dm (JAX's AD of the layer in bf16): components last first;
 // per component and column tile, dm_c = attr_c * (dy @ W[c]^T) over the
 // listed k-steps in a fresh fp32 accumulator t[ct], rounded to bf16 and
 // added to the running bf16 sum (held in fp32 in acc).  The stream holds
-// the components last first.
+// each block's components last first.
 template <int MAX_CT, typename G>
-__device__ __forceinline__ void gemm_dm_vjp(Ring& r, int stream,
-                                            const uint32_t* masks, int a, int ds_n,
-                                            const bf16* DY, int ldy, const G* geo, int gs,
-                                            float (&acc)[MAX_CT][4]) {
+__device__ __forceinline__ void gemm_dm_vjp(Ring& r, Cursor& cur, const uint32_t* masks, int a,
+                                            int ds_n, const bf16* DY, int ldy, const G* geo,
+                                            int gs, float (&acc)[MAX_CT][4]) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int r0 = warp * 16;
@@ -418,7 +441,6 @@ __device__ __forceinline__ void gemm_dm_vjp(Ring& r, int stream,
   const bf16* a1 = a0 + 8 * ldy;
 #pragma unroll
   for (int ct = 0; ct < MAX_CT; ++ct) acc[ct][0] = acc[ct][1] = acc[ct][2] = acc[ct][3] = 0.f;
-  Cursor cur = open(r, stream);
   for (int i = 0; i < a; ++i) {
     const int c = a - 1 - i;
     float t[MAX_CT][4];
@@ -451,7 +473,6 @@ __device__ __forceinline__ void gemm_dm_vjp(Ring& r, int stream,
       }
     }
   }
-  close(r, cur, lane);
 }
 
 }  // namespace gmma

@@ -111,8 +111,8 @@ from ..ops.gate import ACTIVATIONS, activation
 from ..ops.gather_scatter import gather_km, reverse_slot_gather_sum_km
 from ..ops.tensor_product import TensorProduct
 from .build import CudaKernel
-from .fused_message import _DTYPE_CODE, _MAX_SMEM, _cuda_args, tab_bwd_reduce
-from .tile_plan import TilePlan, fold_structure
+from .fused_message import _DTYPE_CODE, _cuda_args, tab_bwd_reduce
+from .tile_plan import TilePlan, dm_blocks, fold_structure, fwd_blocks
 
 __all__ = ["GenericConfig", "FusedMessageGeneric", "FusedMessageGenericTabled",
            "fused_message_generic_tabled", "generic_tab_fwd", "generic_tab_fwd_plain",
@@ -135,6 +135,8 @@ _FWD_SRC = "fused_message_generic_tab_fwd"
 _FWD_SIGS = {
     # dtype, k, a, layers, widths -> bytes (negative: widths not taken)
     "fused_message_generic_tab_fwd_smem_bytes": (ctypes.c_long, [_I] * 4 + [_W]),
+    # -> the shared memory a block may take (bytes; csrc/generic_mma.cuh kMaxSmem)
+    "fused_message_generic_tab_fwd_max_smem": (ctypes.c_long, []),
     # dtype, 12 pointers (h, geo2, loc, gtab, the flat fp32 weights, the flat
     # selections, the layer table, out, the save mode's flat ys (null: no
     # save); bf16: the packed tiles, the plan's masks, the chunks), n, f, k,
@@ -162,6 +164,8 @@ _BWD_SRC = "fused_message_generic_tab_bwd"
 _BWD_SIGS = {
     # dtype, k, a, layers, widths -> bytes of the chain kernel (negative: not taken)
     "fused_message_generic_tab_bwd_smem_bytes": (ctypes.c_long, [_I] * 4 + [_W]),
+    # -> the shared memory a block may take (bytes; csrc/generic_mma.cuh kMaxSmem)
+    "fused_message_generic_tab_bwd_max_smem": (ctypes.c_long, []),
     # dtype, replay, 17 pointers (h, geo2, loc, gtab, flat fp32 weights, flat
     # selections, layer table, the flat saved ys in, d_agg, d_hs, d_hr, the
     # flat dy rows, m_0, m_1.. flat, packed tiles, masks, chunks), n, f, k,
@@ -546,7 +550,8 @@ def layer_table(cfg: GenericConfig) -> "np.ndarray":
     """int32 [L, 11]: per message layer the kernels' descriptor
     (``_LAYER_FIELDS``, ``csrc/generic_mma.cuh`` LayerField): C1, D, dk; the
     first word of its forward and of its dm masks in the plan's mask array
-    (every layer's forward masks, then every layer's dm masks); the first
+    (every layer's forward block masks, ``fwd_blocks(D)`` x A x C1/16 words,
+    then every layer's dm block masks, ``dm_blocks(C1)`` x A x D/16); the first
     element of its W' [A*C1, D] in the layers' flat weights (and of the
     weight-gradient partials' row); of its selections; in units of N*K slot
     rows, the first row block of its y (D wide), of its dy (D rounded up to
@@ -554,13 +559,13 @@ def layer_table(cfg: GenericConfig) -> "np.ndarray":
     apart); and of its gate tables in the chain's shared memory (2 dk + D +
     1 ints a layer)."""
     a = cfg.a
-    fwd_total = sum(a * (-(-c1 // 16)) for c1, _, _ in cfg.widths)
+    fwd_total = sum(fwd_blocks(d) * a * (-(-c1 // 16)) for c1, d, _ in cfg.widths)
     rows, acc = [], dict(fw=0, dm=0, w=0, sel=0, y=0, dy=0, m=0, gate=0)
     for i, (c1, d, dk) in enumerate(cfg.widths):
         rows.append([c1, d, dk, acc["fw"], fwd_total + acc["dm"], acc["w"], acc["sel"], acc["y"],
                      acc["dy"], acc["m"], acc["gate"]])
-        acc["fw"] += a * (-(-c1 // 16))
-        acc["dm"] += a * (-(-d // 16))
+        acc["fw"] += fwd_blocks(d) * a * (-(-c1 // 16))
+        acc["dm"] += dm_blocks(c1) * a * (-(-d // 16))
         acc["w"] += a * c1 * d
         acc["sel"] += dk
         acc["y"] += d
@@ -639,15 +644,19 @@ def _chain_weights(cfg: GenericConfig, ws, replay: bool, vjp: bool = False):
 
 def _fwd_lib(kernel: CudaKernel, cfg: GenericConfig, x):
     """The forward source's library for cfg's gate activation, after
-    checking that its kernel takes the widths in x's dtype."""
+    checking that its kernel takes the widths in x's dtype: any width whose
+    block fits the card's shared memory (``ValueError`` naming the bytes
+    otherwise, before any launch)."""
     nl, widths, _ = _layers(cfg, x.device)
     lib = kernel.lib(_ACT_VARIANTS[cfg.act])
     smem = lib.fused_message_generic_tab_fwd_smem_bytes(_DTYPE_CODE[x.dtype], cfg.k, cfg.a, nl,
                                                          widths)
     if smem < 0:
         raise ValueError(f"the kernel does not take K={cfg.k}, widths {cfg.widths} in {x.dtype}")
-    if smem > _MAX_SMEM:
-        raise ValueError(f"widths need {smem} bytes of shared memory per block (max {_MAX_SMEM})")
+    limit = lib.fused_message_generic_tab_fwd_max_smem()
+    if smem > limit:
+        raise ValueError(f"widths {cfg.widths} need {smem} bytes of shared memory per block "
+                         f"in {x.dtype} (max {limit})")
     return lib
 
 
@@ -702,15 +711,18 @@ def _wgrad_splits(cfg: GenericConfig, rows: int, sms: int) -> int:
 
 def _bwd_lib(cfg: GenericConfig, x):
     """The backward source's library for cfg's gate activation, after
-    checking that its kernels take the widths in x's dtype."""
+    checking that its kernels take the widths in x's dtype (as
+    ``_fwd_lib``)."""
     nl, widths, _ = _layers(cfg, x.device)
     lib = GENERIC_TAB_BWD_RES.lib(_ACT_VARIANTS[cfg.act])
     smem = lib.fused_message_generic_tab_bwd_smem_bytes(_DTYPE_CODE[x.dtype], cfg.k, cfg.a, nl,
                                                          widths)
     if smem < 0:
         raise ValueError(f"the kernel does not take K={cfg.k}, widths {cfg.widths} in {x.dtype}")
-    if smem > _MAX_SMEM:
-        raise ValueError(f"widths need {smem} bytes of shared memory per block (max {_MAX_SMEM})")
+    limit = lib.fused_message_generic_tab_bwd_max_smem()
+    if smem > limit:
+        raise ValueError(f"widths {cfg.widths} need {smem} bytes of shared memory per block "
+                         f"in {x.dtype} (max {limit})")
     return lib
 
 

@@ -9,8 +9,9 @@ Imports ``scalable_e3_gnn_torch`` from DIR (default: the checkout holding
 this file), makes the same bf16 inputs from a seed on the card (400,000
 receivers of a 10M-node cloud, K=16, the lmax=2 message layers of
 ``chip_smoke.py``'s config 5, random senders, attributes and masks, the last
-37 receivers without a valid slot), runs #11 (without and with save) and
-#13 (whole; its chain; its weight gradients) and prints one JSON line: a
+37 receivers without a valid slot), runs #11 (without and with save),
+#13 (whole; its chain; its weight gradients) and #12 (from the saved ys)
+and prints one JSON line: a
 SHA-256 of every output's bytes (two checkouts computed the same bits where
 the hashes agree), the device time per launch of every kernel by
 torch.profiler, CUDA-event times per call, peak memory, and the card's name
@@ -23,7 +24,8 @@ and power limit.  Compare two checkouts only within one call, in turns
 silu only), so two activations are timed at the same shapes, in turns.
 ``--tabled`` times the tabled kernels instead, #8 (without and with save)
 and #9 (whole: chain, weight gradients, table sum, reduction; and its
-chain), on bench.py's 250k lmax=2 graph (uniform points from the seed, r =
+chain), and takes the digests of #10 (whole) too, on bench.py's 250k lmax=2
+graph (uniform points from the seed, r =
 0.04 * (100000 / 250000)^(1/3), K=16, octree 7 levels, cell capacity 64,
 symmetrized, gather tables at tile 200), random features, attributes of the
 graph with extra masked slots, and #14 whole (backward tile 200) on the same
@@ -224,6 +226,7 @@ def tabled(fmg, model, dev, dtype, times: bool) -> dict:
     with torch.no_grad():
         agg, ys = fmg.generic_tab_fwd(cfg, *args, save=True)
         d_hu, d_hr, dws = fmg.generic_tab_bwd_kernels(cfg, *args, d_agg, ys=ys)
+        r_hu, r_hr, r_dws = fmg.generic_tab_bwd_kernels(cfg, *args, d_agg)
         from scalable_e3_gnn_torch.ops.gather_scatter import gather_km
 
         ucfg = kern.config(a, 0)
@@ -233,10 +236,12 @@ def tabled(fmg, model, dev, dtype, times: bool) -> dict:
         torch.cuda.synchronize()
         digests = {nm: _digest(t) for nm, t in (("agg", agg), ("y1", ys[0]), ("y2", ys[1]),
                                                  ("d_hu", d_hu), ("d_hr", d_hr), ("dw1", dws[0]),
-                                                 ("dw2", dws[1]), ("vjp_d_hs", v_hs),
+                                                 ("dw2", dws[1]), ("rep_d_hu", r_hu),
+                                                 ("rep_d_hr", r_hr), ("rep_dw1", r_dws[0]),
+                                                 ("rep_dw2", r_dws[1]), ("vjp_d_hs", v_hs),
                                                  ("vjp_d_hr", v_hr), ("vjp_dw1", v_dws[0]),
                                                  ("vjp_dw2", v_dws[1]))}
-        del hs, v_hs, v_hr, v_dws
+        del hs, v_hs, v_hr, v_dws, r_hu, r_hr, r_dws
         if not times:
             return dict(points=n, k=K, tile=200, digests=digests)
         times = dict(
@@ -314,6 +319,7 @@ def main() -> int:
         agg = fmg.generic_fwd(cfg, *a)
         agg_s, ys = fmg.generic_fwd(cfg, *a, save=True)
         d_hs, d_hr, dws = fmg.generic_bwd_kernels(cfg, *a, d_agg)
+        res_hs, res_hr, res_dws = fmg.generic_bwd_kernels(cfg, *a, d_agg, ys=ys)
         dys, ms = _chain_rows(fmg.generic_bwd_chain(cfg, *a, d_agg))
         wgrad = lambda: _wgrad_untabled(fmg, cfg, hs, h, geo2, dys, ms, splits)
         part = wgrad()
@@ -321,9 +327,10 @@ def main() -> int:
         digests = {nm: _digest(t) for nm, t in (
             ("agg", agg), ("agg_save", agg_s), ("y1", ys[0]), ("y2", ys[1]), ("d_hs", d_hs),
             ("d_hr", d_hr), ("dw1", dws[0]), ("dw2", dws[1]), ("dy1", dys[0]), ("dy2", dys[1]),
-            ("m1", ms[1]))}
+            ("m1", ms[1]), ("res_d_hs", res_hs), ("res_d_hr", res_hr), ("res_dw1", res_dws[0]),
+            ("res_dw2", res_dws[1]))}
         digests["wgrad_sum"] = _digest(part.sum(0))
-        del agg_s, ys, d_hs, d_hr, dws
+        del agg_s, ys, d_hs, d_hr, dws, res_hs, res_hr, res_dws
         if not times:
             print(json.dumps(dict(tag=args.tag, act=args.act, dtype=args.dtype, card=card,
                                   package=scalable_e3_gnn_torch.__file__, block=n, k=K,

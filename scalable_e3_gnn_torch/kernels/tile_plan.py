@@ -12,6 +12,13 @@ the kernels run:
 - the dm GEMM ``dm += dya @ W[c]^T``: B tiles of 16 rows of D (a k-step
   ``ds``) by 8 columns of C1 (``ct``); a mask per (c, ds) over ct.
 
+The engine walks each GEMM's output columns in blocks of ``FWD_BLOCK``
+n-tiles (128 columns of D) or ``DM_BLOCK`` (192 columns of C1), so its
+register arrays keep one size at any width: the kernels' masks are per
+(block, c, outer) over the block's inner tiles (``block_masks``), and a
+stream lists its tiles block by block.  At D <= 128 and C1 <= 192 there is
+one block, and the masks and streams are the unblocked ones.
+
 ``pack`` gathers the listed tiles of the weights into one contiguous run per
 GEMM (a stream), each tile 128 values in the order the engine's lanes read
 their B fragments (lane L = 4 g + t: ``b0 = B[2t, g], B[2t+1, g]``, ``b1 =
@@ -38,9 +45,22 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["TilePlan", "fold_structure", "CHUNK_TILES"]
+__all__ = ["TilePlan", "fold_structure", "CHUNK_TILES", "FWD_BLOCK", "DM_BLOCK", "fwd_blocks",
+           "dm_blocks"]
 
 CHUNK_TILES = 64  # tiles per bulk copy of the engine's ring (csrc/generic_mma.cuh kChunk)
+FWD_BLOCK = 16  # forward n-tiles per column block (csrc/generic_mma.cuh kBlockNT)
+DM_BLOCK = 24  # dm n-tiles per column block (kBlockCT)
+
+
+def fwd_blocks(d: int) -> int:
+    """Column blocks of a layer's forward GEMM (over D)."""
+    return -(-d // (8 * FWD_BLOCK))
+
+
+def dm_blocks(c1: int) -> int:
+    """Column blocks of a layer's dm GEMM (over C1)."""
+    return -(-c1 // (8 * DM_BLOCK))
 
 
 def _fwd_index(a: int, c1: int, d: int) -> np.ndarray:
@@ -75,13 +95,28 @@ def _dm_index(a: int, c1: int, d: int) -> np.ndarray:
     return np.where((col < c1) & (row < d), flat, -1)
 
 
-def _tiles(index: np.ndarray, nonzero: np.ndarray):
-    """(masks [A, outer] uint32 over the inner tile, the listed tiles'
-    indices [A, outer, inner] bool) for a tile index and a flat nonzero map."""
+def _listed(index: np.ndarray, nonzero: np.ndarray) -> np.ndarray:
+    """Which tiles of a tile index [..., 128] hold a structural nonzero of
+    the flat map ``nonzero`` (bool [...])."""
     nz = np.append(nonzero.reshape(-1), False)
-    listed = nz[index].any(axis=-1)  # -1 reads the appended False
-    bits = (listed.astype(np.uint64) << np.arange(listed.shape[2], dtype=np.uint64)).sum(axis=-1)
-    return bits.astype(np.uint32), listed
+    return nz[index].any(axis=-1)  # -1 reads the appended False
+
+
+def _bits(listed: np.ndarray) -> np.ndarray:
+    """uint32 bit masks over the last axis (at most 32 tiles) of a bool
+    array."""
+    return (listed.astype(np.uint64) << np.arange(listed.shape[-1], dtype=np.uint64)).sum(
+        axis=-1).astype(np.uint32)
+
+
+def _blocked(index: np.ndarray, block: int) -> np.ndarray:
+    """A tile index [A, outer, inner, 128] cut into column blocks of ``block``
+    inner tiles: [blocks, A, outer, block, 128], -1 past the last tile."""
+    a, outer, inner, v = index.shape
+    nb = -(-inner // block)
+    pad = np.full((a, outer, nb * block - inner, v), -1, index.dtype)
+    return np.concatenate([index, pad], axis=2).reshape(a, outer, nb, block, v).transpose(
+        2, 0, 1, 3, 4)
 
 
 def fold_structure(layers: Sequence, perms: Sequence, seed: int = 0) -> list:
@@ -111,20 +146,24 @@ class TilePlan:
                  nonzero: Optional[Sequence[np.ndarray]] = None) -> None:
         self.a = a
         self.widths = tuple((int(c1), int(d)) for c1, d in widths)
-        self.fwd_masks, self.dm_masks, self._streams = [], [], {}
+        self._streams = {}
+        self.block_masks: Dict[tuple, np.ndarray] = {}
         for i, (c1, d) in enumerate(self.widths):
             nz = np.ones((a * c1, d), bool) if nonzero is None else np.asarray(nonzero[i], bool)
             if nz.shape != (a * c1, d):
                 raise ValueError(f"layer {i}: nonzero map {nz.shape}, wants {(a * c1, d)}")
-            for kind, index in (("fwd", _fwd_index(a, c1, d)), ("dm", _dm_index(a, c1, d))):
-                masks, listed = _tiles(index, nz)
-                (self.fwd_masks if kind == "fwd" else self.dm_masks).append(masks)
-                tiles = index[listed]  # [ntiles, 128] in (c, outer, inner) order
+            for kind, index, block in (("fwd", _fwd_index(a, c1, d), FWD_BLOCK),
+                                       ("dm", _dm_index(a, c1, d), DM_BLOCK)):
+                bidx = _blocked(index, block)
+                listed = _listed(bidx, nz)  # [blocks, A, outer, block]
+                self.block_masks[(kind, i)] = _bits(listed)
+                tiles = bidx[listed]  # [ntiles, 128] in (block, c, outer, inner) order
                 self._streams[(kind, i, False)] = tiles
-                if kind == "dm":  # the vjp walks the components last first
-                    per_c = listed.reshape(a, -1).sum(axis=1)
-                    runs = np.split(tiles, np.cumsum(per_c)[:-1])
-                    self._streams[(kind, i, True)] = np.concatenate(runs[::-1])
+                if kind == "dm":  # the vjp walks each block's components last first
+                    per = listed.reshape(listed.shape[0], a, -1).sum(axis=2)
+                    runs = np.split(tiles, np.cumsum(per.reshape(-1))[:-1])
+                    order = [b * a + c for b in range(per.shape[0]) for c in range(a - 1, -1, -1)]
+                    self._streams[(kind, i, True)] = np.concatenate([runs[j] for j in order])
         self._dev: Dict[tuple, torch.Tensor] = {}
 
     @classmethod
@@ -149,10 +188,11 @@ class TilePlan:
         return np.concatenate(parts) if parts else np.zeros(0, np.int64)
 
     def _rows(self, kind: str, i: int, rev: bool) -> np.ndarray:
-        """Listed tiles of each row of a stream, in the engine's order."""
-        masks = (self.fwd_masks if kind == "fwd" else self.dm_masks)[i]
-        counts = np.array([[bin(int(m)).count("1") for m in row] for row in masks])
-        return (counts[::-1] if rev else counts).reshape(-1)
+        """Listed tiles of each row of a stream, in the engine's order (each
+        block's components last first for the vjp)."""
+        masks = self.block_masks[(kind, i)]
+        counts = np.vectorize(lambda m: bin(int(m)).count("1"), otypes=[np.int64])(masks)
+        return (counts[:, ::-1] if rev else counts).reshape(-1)
 
     def chunk_table(self, streams: Sequence[Tuple[str, int, bool]]):
         """(first tile of every chunk of the named streams, then the end
@@ -164,6 +204,8 @@ class TilePlan:
             for n in self._rows(*stream):
                 if n == 0:
                     continue
+                if n > CHUNK_TILES:  # never: a row holds at most one block's tiles
+                    raise ValueError(f"a row of {n} tiles is longer than a chunk")
                 if fill + n > CHUNK_TILES:
                     starts.append(t)
                     fill = 0
@@ -187,11 +229,14 @@ class TilePlan:
         return self.pack(ws, streams), self.masks(dev), chunks, per
 
     def masks(self, device) -> torch.Tensor:
-        """int32 [sum of A*KS_l + A*DS_l]: the forward masks of every layer,
-        then the dm masks of every layer (the bits of a uint32 each)."""
+        """int32 [sum of the layers' fwd_blocks(D_l)*A*KS_l, then of their
+        dm_blocks(C1_l)*A*DS_l]: the forward block masks of every layer, then
+        the dm block masks of every layer (the bits of a uint32 each)."""
         key = ("masks", str(device))
         if key not in self._dev:
-            flat = np.concatenate([m.reshape(-1) for m in self.fwd_masks + self.dm_masks])
+            n = len(self.widths)
+            flat = np.concatenate([self.block_masks[(kind, i)].reshape(-1)
+                                   for kind in ("fwd", "dm") for i in range(n)])
             self._dev[key] = torch.from_numpy(flat.view(np.int32).copy()).to(device)
         return self._dev[key]
 

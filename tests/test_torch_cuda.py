@@ -37,7 +37,12 @@ overlapped exchange against the serialized one, bit for bit; and #8-#14 at
 one and three message layers (``SEGNNLayer(num_message_layers=L)``: every
 route against its plain version in fp32 and bf16, three A=36 layers, lmax=2
 SEGNN gradients through the residual, replay and vjp backwards against the
-plain path; ``-k msg_layers``).
+plain path; ``-k msg_layers``); and #8-#14 at hidden widths past the bench
+configs' (C1 > 192, D > 128: every route against its plain version in fp32
+and bf16 at three widths, the blocked walks over the plan's tiles bitwise
+over every tile, #11/#14 at A=36, SEGNN gradients against the plain path,
+the raise past the shared-memory bound, no spill in the silu builds;
+``-k wide``).
 
 These tests need a CUDA card and skip without one.  They import no JAX, so
 they run on a machine without it (``--noconftest`` skips the JAX-only
@@ -345,15 +350,25 @@ def test_generic_kernel_matches_plain(dev, hidden, k, n, dtype):
     assert (got[n - 37:] == 0).all()  # no valid slot: an exact zero
 
 
+# a width whose bf16 blocks need more shared memory than the card has
+# (C1 = 961, D = 576: the forward 268,576 bytes, the backward 397,008)
+PAST_SMEM = "128x0e+64x1o+32x2e"
+
+
 def test_generic_kernel_wide_bf16_raises(dev):
-    """bf16 widths past the tensor-core engine (C1 > 192, D > 128) are not
-    taken: the wrapper raises before any launch."""
-    cfg, args = _generic_problem(dev, "40x0e+20x1o+10x2e", 8, 480, torch.bfloat16)
+    """Past the shared-memory bound (a block's rows do not fit) the bf16
+    wrappers raise, naming the bytes, before any launch, the tabled and the
+    untabled forward alike."""
+    cfg, args = _generic_problem(dev, PAST_SMEM, 8, 480, torch.bfloat16)
     assert cfg.widths[0][0] > 192 and cfg.widths[0][1] > 128
-    before = fmg.GENERIC_TAB_FWD.launches
-    with pytest.raises(ValueError, match="does not take"):
+    before = fmg.GENERIC_TAB_FWD.launches, fmg.GENERIC_FWD.launches
+    with pytest.raises(ValueError, match="bytes of shared memory"):
         fmg.generic_tab_fwd(cfg, *args)
-    assert fmg.GENERIC_TAB_FWD.launches == before
+    h = args[0]
+    hs = h[None].expand(cfg.k, *h.shape).contiguous()
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        fmg.generic_fwd(dataclasses.replace(cfg, u=0), hs, h, *args[1:2], *args[4:])
+    assert (fmg.GENERIC_TAB_FWD.launches, fmg.GENERIC_FWD.launches) == before
 
 
 def test_generic_segnn_forward_kernel_matches_plain_path(dev):
@@ -479,10 +494,11 @@ def test_generic_bwd_wrapper_rejects_what_the_kernel_does_not_take(dev):
         fmg.generic_tab_bwd(cfg, *args, strided)
     with pytest.raises(ValueError, match="must be on"):
         fmg.generic_tab_bwd(cfg, h, geo2, loc, gtab, ws, sels, d_agg.cpu())
-    wide_cfg, wide_args, wide_d = _generic_bwd_problem(dev, "40x0e+20x1o+10x2e", 8, 480,
-                                                       torch.bfloat16)
-    with pytest.raises(ValueError, match="does not take"):
+    wide_cfg, wide_args, wide_d = _generic_bwd_problem(dev, PAST_SMEM, 8, 480, torch.bfloat16)
+    before = fmg.GENERIC_TAB_BWD_REP.launches
+    with pytest.raises(ValueError, match="bytes of shared memory"):
         fmg.generic_tab_bwd(wide_cfg, *wide_args, wide_d)
+    assert fmg.GENERIC_TAB_BWD_REP.launches == before
 
 
 @pytest.mark.parametrize("mode", ["residual", "remat_kernel"])
@@ -869,13 +885,12 @@ def _act_problem(dev, name, dtype, n=2000, k=16, hidden="24x0e+12x1o+6x2e"):
     return cfg, dataclasses.replace(cfg, u=0), tab, untab, d_agg
 
 
-@pytest.mark.parametrize("name", ACT_NAMES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_act_kernels_match_plain(dev, generic_act_libs, name, dtype):
-    """Under each activation every route against its plain version, at the
-    limits of the silu gate's tests: #8 (and save), #9, #10, #11 (and save),
-    #12, #13 and #14; each kernel launched once per call."""
-    cfg, ucfg, tab, untab, d_agg = _act_problem(dev, name, dtype)
+def _act_routes_match_plain(dev, name, dtype, explain_vjp=False, **problem):
+    """Every route of ``_act_problem(dev, name, dtype, **problem)`` against
+    its plain version at the limits of the silu gate's tests (with
+    ``explain_vjp``, #14 at ``_check_vjp``'s, as the wide silu tests hold
+    it); each kernel launched once per call."""
+    cfg, ucfg, tab, untab, d_agg = _act_problem(dev, name, dtype, **problem)
     counted = (fmg.GENERIC_TAB_FWD, fmg.GENERIC_TAB_BWD_RES, fmg.GENERIC_TAB_BWD_REP,
                fmg.GENERIC_FWD, fmg.GENERIC_BWD_RES, fmg.GENERIC_BWD_REP, fmg.GENERIC_BWD_VJP)
     before = [kern.launches for kern in counted]
@@ -896,11 +911,25 @@ def test_act_kernels_match_plain(dev, generic_act_libs, name, dtype):
         for y in (uys, None):
             _check_bwd(fmg.generic_bwd(ucfg, *untab, d_agg, ys=y),
                        fmg.generic_bwd_plain(ucfg, *untab, d_agg, ys=y), dtype)
-        _check_bwd(fmg.generic_bwd_vjp(ucfg, *untab, d_agg, 80),
-                   fmg.generic_bwd_vjp_plain(ucfg, *untab, d_agg, 80), dtype)
+        got = fmg.generic_bwd_vjp(ucfg, *untab, d_agg, 80)
+        moved = [kern.launches - b for kern, b in zip(counted, before)]  # _check_vjp launches
+        ref = fmg.generic_bwd_vjp_plain(ucfg, *untab, d_agg, 80)
+        if explain_vjp:
+            _check_vjp(ucfg, untab, d_agg, got, ref, dtype)
+        else:
+            _check_bwd(got, ref, dtype)
     torch.cuda.synchronize()
-    assert [kern.launches - b for kern, b in zip(counted, before)] == [2, 1, 1, 2, 1, 1, 1]
+    assert moved == [2, 1, 1, 2, 1, 1, 1], moved
     assert (agg[-37:] == 0).all() and (uagg[-37:] == 0).all()
+
+
+@pytest.mark.parametrize("name", ACT_NAMES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_act_kernels_match_plain(dev, generic_act_libs, name, dtype):
+    """Under each activation every route against its plain version, at the
+    limits of the silu gate's tests: #8 (and save), #9, #10, #11 (and save),
+    #12, #13 and #14; each kernel launched once per call."""
+    _act_routes_match_plain(dev, name, dtype)
 
 
 @pytest.mark.parametrize("name", ACT_NAMES)
@@ -1813,3 +1842,181 @@ def test_msg_layers_segnn_gradients_match_plain(dev, n_msg, mode):
     for (name, a), b in zip(m_k.named_parameters(), m_p.parameters(), strict=True):
         err = float((a.grad - b.grad).abs().max())
         assert err <= 1e-4 * float(b.grad.abs().max()), (name, err)
+
+
+# ---- #8-#14 at hidden widths past the bench configs' (C1 > 192, D > 128)
+
+# (hidden irreps, K, points): C1 / D of layer 1 (301, 180), (257, 150)
+# (SEGNN's QM9 width, F = 128) and (501, 300)
+WIDE = [("40x0e+20x1o+10x2e", 8, 480), ("46x0e+14x1o+8x2e", 16, 960),
+        ("64x0e+32x1o+18x2e", 8, 480)]
+
+
+def _wide_problem(dev, hidden, k, n, dtype, lmax_attr=2):
+    cfg, tab, ucfg, untab, d_agg = _msg_layers_problem(dev, 2, dtype, lmax_attr=lmax_attr,
+                                                       hidden=hidden, k=k, n=n)
+    assert cfg.widths[0][0] > 192 and cfg.widths[0][1] > 128
+    return cfg, tab, ucfg, untab, d_agg
+
+
+@pytest.mark.parametrize("hidden,k,n", WIDE)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_tabled_match_plain(dev, hidden, k, n, dtype):
+    """#8 (and its save mode), #9 and #10 at the wide widths against their
+    plain versions at the bench widths' limits (``_check_generic``,
+    ``_check_bwd``); #9 = #10 bitwise; each kernel launched."""
+    cfg, args, _, _, d_agg = _wide_problem(dev, hidden, k, n, dtype)
+    before = [kern.launches for kern in fmg.KERNELS[:5]]
+    with torch.no_grad():
+        agg, ys = fmg.generic_tab_fwd(cfg, *args, save=True)
+        ref_agg, ref_ys = fmg.generic_tab_fwd_plain(cfg, *args, save=True)
+        assert torch.equal(agg, fmg.generic_tab_fwd(cfg, *args))
+        for got, ref in [(agg, ref_agg), *zip(ys, ref_ys, strict=True)]:
+            _check_generic(got, ref, dtype)
+        res = fmg.generic_tab_bwd(cfg, *args, d_agg, ys=ys)
+        rep = fmg.generic_tab_bwd(cfg, *args, d_agg)
+        torch.cuda.synchronize()
+        _check_bwd(res, fmg.generic_tab_bwd_plain(cfg, *args, d_agg), dtype)
+    assert all(torch.equal(x, y) for x, y in zip([res[0], res[1], *res[2]],
+                                                 [rep[0], rep[1], *rep[2]], strict=True))
+    moved = [kern.launches - b for kern, b in zip(fmg.KERNELS[:5], before)]
+    assert moved == [2, 1, 1, 2, 2], moved
+    assert (agg[n - 37:] == 0).all()
+
+
+@pytest.mark.parametrize("hidden,k,n", WIDE)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_untabled_match_plain(dev, hidden, k, n, dtype):
+    """#11 (and save), #12 and #13 at the wide widths against their plain
+    versions; #12 = #13 bitwise, reruns bitwise."""
+    _, _, cfg, args, d_agg = _wide_problem(dev, hidden, k, n, dtype)
+    before = [kern.launches for kern in (fmg.GENERIC_FWD, fmg.GENERIC_BWD_RES,
+                                         fmg.GENERIC_BWD_REP)]
+    with torch.no_grad():
+        agg, ys = fmg.generic_fwd(cfg, *args, save=True)
+        ref_agg, ref_ys = fmg.generic_fwd_plain(cfg, *args, save=True)
+        assert torch.equal(agg, fmg.generic_fwd(cfg, *args))
+        for got, ref in [(agg, ref_agg), *zip(ys, ref_ys, strict=True)]:
+            _check_generic(got, ref, dtype)
+        runs = [fmg.generic_bwd(cfg, *args, d_agg, ys=y) for y in (ys, None, ys)]
+        torch.cuda.synchronize()
+        _check_bwd(runs[0], fmg.generic_bwd_plain(cfg, *args, d_agg), dtype)
+    flat = [[r[0], r[1], *r[2]] for r in runs]
+    for other in flat[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(flat[0], other, strict=True))
+    moved = [kern.launches - b for kern, b in zip(
+        (fmg.GENERIC_FWD, fmg.GENERIC_BWD_RES, fmg.GENERIC_BWD_REP), before)]
+    assert moved == [2, 2, 1], moved
+
+
+@pytest.mark.parametrize("hidden,k,n", WIDE)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_vjp_match_plain(dev, hidden, k, n, dtype):
+    """#14 at the wide widths against its plain version at backward tile 80
+    (``_check_vjp``), reruns bitwise."""
+    _, _, cfg, args, d_agg = _wide_problem(dev, hidden, k, n, dtype)
+    before = fmg.GENERIC_BWD_VJP.launches, fmg.GENERIC_BWD_VJP_WGRAD.launches
+    with torch.no_grad():
+        got = fmg.generic_bwd_vjp(cfg, *args, d_agg, 80)
+        again = fmg.generic_bwd_vjp(cfg, *args, d_agg, 80)
+        torch.cuda.synchronize()
+        _check_vjp(cfg, args, d_agg, got, fmg.generic_bwd_vjp_plain(cfg, *args, d_agg, 80), dtype)
+    assert all(torch.equal(x, y) for x, y in zip([got[0], got[1], *got[2]],
+                                                 [again[0], again[1], *again[2]], strict=True))
+    assert (fmg.GENERIC_BWD_VJP.launches - before[0],
+            fmg.GENERIC_BWD_VJP_WGRAD.launches - before[1]) == (2, 2)
+
+
+@pytest.mark.parametrize("name", ACT_NAMES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_act_kernels_match_plain(dev, generic_act_libs, name, dtype):
+    """At 64x0e+32x1o+18x2e (three column blocks of each GEMM, the gate in
+    three blocks) under each activation but silu: every route against its
+    plain version at the limits of the wide silu tests
+    (``_act_routes_match_plain``; #14 by ``_check_vjp``)."""
+    hidden, k, n = WIDE[2]
+    _act_routes_match_plain(dev, name, dtype, explain_vjp=True, hidden=hidden, k=k, n=n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_attr36_match_plain(dev, dtype):
+    """At lmax_attr=5 (A = 36) and 40x0e+20x1o+10x2e: #11 and #14 against
+    their plain versions."""
+    _, _, cfg, args, d_agg = _wide_problem(dev, *WIDE[0], dtype, lmax_attr=5)
+    assert cfg.a == 36
+    with torch.no_grad():
+        _check_generic(fmg.generic_fwd(cfg, *args), fmg.generic_fwd_plain(cfg, *args), dtype)
+        got = fmg.generic_bwd_vjp(cfg, *args, d_agg, 80)
+        torch.cuda.synchronize()
+        _check_vjp(cfg, args, d_agg, got, fmg.generic_bwd_vjp_plain(cfg, *args, d_agg, 80), dtype)
+
+
+@pytest.mark.parametrize("hidden,k,n", WIDE)
+def test_wide_sparse_tiles_equal_every_tile_bitwise(dev, hidden, k, n):
+    """bf16 at the wide widths: the blocked walks over the plan's nonzero
+    tiles (#8 with save, #10, #11, #12, #14) are bitwise the same kernels over
+    every tile (a skipped tile adds exactly 0, in any column block)."""
+    cfg, targs, ucfg, uargs, d_agg = _wide_problem(dev, hidden, k, n, torch.bfloat16)
+    outs = []
+    with torch.no_grad():
+        for tc, uc in ((cfg, ucfg), (dataclasses.replace(cfg, plan=None),
+                                     dataclasses.replace(ucfg, plan=None))):
+            agg, ys = fmg.generic_tab_fwd(tc, *targs, save=True)
+            rep = fmg.generic_tab_bwd(tc, *targs, d_agg)
+            uys = fmg.generic_fwd(uc, *uargs, save=True)[1]
+            res = fmg.generic_bwd(uc, *uargs, d_agg, ys=uys)
+            vjp = fmg.generic_bwd_vjp(uc, *uargs, d_agg, 80)
+            outs.append([agg, *ys, rep[0], rep[1], *rep[2], *uys, res[0], res[1], *res[2],
+                         vjp[0], vjp[1], *vjp[2]])
+        torch.cuda.synchronize()
+    assert sum(cfg.plan.counts("fwd")) < sum(fmg._tile_plan(
+        dataclasses.replace(cfg, plan=None)).counts("fwd"))
+    assert all(torch.equal(x, y) for x, y in zip(*outs, strict=True))
+
+
+@pytest.mark.parametrize("mode", ["residual", "replay", "vjp"])
+def test_wide_segnn_gradients_match_plain(dev, mode):
+    """fp32 gradients of every parameter of a two-layer model at
+    40x0e+20x1o+10x2e through the kernels (tabled #8/#9, tabled #8/#10
+    under ``remat_kernel``, untabled #11/#14 with neither hand-structured
+    backward) against the plain path: 1e-4 * max|ref|."""
+    n = 2000
+    kw = dict(residual=dict(), replay=dict(remat_kernel=True),
+              vjp=dict(residual_bwd=False, replay_bwd=False))[mode]
+    m_k = _msg_layers_model(dev, WIDE[0][0], 2, 2, 2, seed=9, **kw)
+    m_p = _msg_layers_model(dev, WIDE[0][0], 2, 2, 2, seed=9, use_pallas=False)
+    m_p.load_state_dict(m_k.state_dict())
+    g, gt = _graph(dev, n, 16, 0.12, SEGNNLayer._pick_generic_tile(n))
+    target = torch.randn((n, 3), generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    want = dict(residual=fmg.GENERIC_TAB_BWD_RES, replay=fmg.GENERIC_TAB_BWD_REP,
+                vjp=fmg.GENERIC_BWD_VJP)[mode]
+    before = want.launches
+    ((m_k(gt if mode != "vjp" else g) - target) ** 2).mean().backward()
+    ((m_p(g) - target) ** 2).mean().backward()
+    assert want.launches - before == 2
+    for (name, a), b in zip(m_k.named_parameters(), m_p.parameters(), strict=True):
+        err = float((a.grad - b.grad).abs().max())
+        assert err <= 1e-4 * float(b.grad.abs().max()), (name, err)
+
+
+def test_wide_generic_builds_do_not_spill(dev, tmp_path):
+    """ptxas of the silu builds of both generic sources (every kernel
+    instance): no spill stores or loads; with
+    ``test_generic_act_variants_spill_no_more_than_silu``, no build of any
+    activation spills."""
+    import re
+    import subprocess
+
+    from scalable_e3_gnn_torch.kernels import build
+
+    seen = 0
+    for src in ("fused_message_generic_tab_fwd", "fused_message_generic_tab_bwd"):
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(tmp_path / f"{src}.so"),
+               str(build.CSRC / f"{src}.cu")]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        assert proc.returncode == 0, proc.stdout[-2000:]
+        for entry in re.split(r"Compiling entry function", proc.stdout)[1:]:
+            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
+            assert sp is not None and sp.groups() == ("0", "0"), entry[:300]
+            seen += 1
+    assert seen >= 20

@@ -187,8 +187,10 @@ def test_tile_plan_covers_every_nonzero_of_the_fold(lmax_attr, seed):
         assert rows.numel() > 0
         c, k = (rows // c1).numpy(), (rows % c1).numpy()
         n = cols.numpy()
-        assert ((plan.fwd_masks[i][c, k // 16] >> (n // 8)) & 1).all()
-        assert ((plan.dm_masks[i][c, n // 16] >> (k // 8)) & 1).all()
+        fb, db = tp_mod.FWD_BLOCK, tp_mod.DM_BLOCK
+        fwd, dm = plan.block_masks[("fwd", i)], plan.block_masks[("dm", i)]
+        assert ((fwd[n // 8 // fb, c, k // 16] >> (n // 8 % fb)) & 1).all()
+        assert ((dm[k // 8 // db, c, n // 16] >> (k // 8 % db)) & 1).all()
     assert plan.a == (36 if lmax_attr == 5 else 9)
 
 
@@ -208,21 +210,25 @@ def test_pack_then_unpack_is_the_mma_layout(kind):
         assert torch.equal(fmg._mma_layout(plan.unpack(packed, kind, i), 9, c1, d),
                            fmg._mma_layout(ws[i], 9, c1, d))
         if kind == "dm":
-            per_c = [sum(bin(int(m)).count("1") for m in row) for row in plan.dm_masks[i]]
+            (masks,) = plan.block_masks[("dm", i)]  # one column block at this width
+            per_c = [sum(bin(int(m)).count("1") for m in row) for row in masks]
             runs = list(packed.split([128 * x for x in per_c]))
             assert torch.equal(plan.pack(ws, [("dm", i, True)]), torch.cat(runs[::-1]))
 
 
 def _stream_order(plan, kind, layer):
     """(c, k-step, n-tile) -> the tile's place in its stream, walking the
-    stream as the engine does: rows (c, k-step), each row's n-tiles."""
-    masks = (plan.fwd_masks if kind == "fwd" else plan.dm_masks)[layer]
+    stream as the engine does: column blocks, then rows (c, k-step), each
+    row's n-tiles in the block."""
+    masks = plan.block_masks[(kind, layer)]
+    width = tp_mod.FWD_BLOCK if kind == "fwd" else tp_mod.DM_BLOCK
     order = {}
-    for c in range(plan.a):
-        for ks in range(masks.shape[1]):
-            for nt in range(32):
-                if (int(masks[c, ks]) >> nt) & 1:
-                    order[(c, ks, nt)] = len(order)
+    for b in range(masks.shape[0]):
+        for c in range(plan.a):
+            for ks in range(masks.shape[2]):
+                for j in range(width):
+                    if (int(masks[b, c, ks]) >> j) & 1:
+                        order[(c, ks, b * width + j)] = len(order)
     return order
 
 

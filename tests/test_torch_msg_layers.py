@@ -118,12 +118,13 @@ def _problem(n_msg, lmax_attr=2, hidden=HIDDEN, seed=0):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_routes(n_msg):
-    """The JAX kernels' results for every route of ``_problem(n_msg)``, from
-    one compiled call in interpret mode: the tabled forward with save and
-    its two backwards, the untabled forward with save and its two
-    backwards, and ``_bwd_call`` (#14) at backward tiles 64 and 32."""
-    p = _problem(n_msg)
+def _jax_routes(n_msg, hidden=HIDDEN):
+    """The JAX kernels' results for every route of ``_problem(n_msg,
+    hidden=hidden)``, from one compiled call in interpret mode: the tabled
+    forward with save and its two backwards, the untabled forward with save
+    and its two backwards, and ``_bwd_call`` (#14) at backward tiles 64 and
+    32."""
+    p = _problem(n_msg, hidden=hidden)
     jk, loc = p["jk"], p["jgt"].gather_loc
     vjp = {bt: JFMG(p["jm"].layers[0].message_layers, p["k"], tile=p["tile"], bwd_tile=bt)
            for bt in VJP_TILES}
@@ -385,7 +386,8 @@ def test_two_layers_keep_the_fixed_stream_layout():
         table, _ = plan.chunk_table(streams)
         assert chunks[len(streams) + 1:].tolist() == table.tolist()
     # the masks: both layers' forward masks, then both layers' dm masks
-    flat = np.concatenate([m.reshape(-1) for m in plan.fwd_masks + plan.dm_masks])
+    flat = np.concatenate([plan.block_masks[(kind, i)].reshape(-1)
+                           for kind in ("fwd", "dm") for i in range(2)])
     assert plan.masks("cpu").numpy().tolist() == flat.view(np.int32).tolist()
     assert plan.counts("fwd") == (483, 228) and plan.counts("dm") == (456, 219)
     w3 = [181, 108, 90, 90, 108, 90]
@@ -421,7 +423,7 @@ def _c_entries(source: str) -> dict:
     out = {}
     for m in re.finditer(r"^(int|long) (\w+)\(([^)]*)\)\s*\{", text, re.M):
         params = [re.sub(r"\s+", "", p.rsplit(" ", 1)[0] + ("*" if "*" in p else ""))
-                  .replace("**", "*") for p in m.group(3).split(",")]
+                  .replace("**", "*") for p in m.group(3).split(",") if p.strip()]
         out[m.group(2)] = ({"int": ctypes.c_int, "long": ctypes.c_long}[m.group(1)],
                            [kinds[p] for p in params])
     return out
