@@ -141,6 +141,14 @@ Phases, each printing one JSON line:
                  points against the plain path and against pack 1 (#3/#5),
                  symmetrized and with edge_chunks=4; the kernels' times,
                  bounds and the step times.
+37b. wide_l1  -- #1-#7 at 64x0e+32x1o (past the Bench kernels' 32x0e+16x1o,
+                 on the Wide kernels) on the 100k graph: #1/#2, #3/#5 and #6/#7
+                 against their plain versions in fp32 and bf16 under the bench
+                 width's limits, reruns bitwise; a counted forward (4 of #1),
+                 3 counted steps with tables, without, and at pack 2; fp32
+                 gradients of each route against the plain path at 20k
+                 points; per launch ms, bound and plain ms (the kernels line's
+                 ``wide_l1`` rows).
 38. graph_vjp, train_vjp_250k -- tools/exp_residual_bwd.py's A/B of the
                  three generic backwards on its 250k graph (no tables, bf16,
                  remat; run after phase 23): replay_bwd=False (4 of #11 and 4
@@ -214,7 +222,7 @@ Phases, each printing one JSON line:
                  against the unpartitioned fp32 plain path, bit for bit the
                  unpartitioned bf16 kernel forward, ring = all_gather
                  bitwise, launches of #3 (2 blocks x P x 4 layers) and #15 (4).
-47. dist_train -- bench_scaling.py's measure: 5 timed bf16 steps after a
+47. dist_train -- bench_scaling.py's measure: 3 timed bf16 steps after a
                  warm-up at P=1 and at P=4 with each backend, launches per
                  step, peak memory, the single-card untabled step beside, a
                  profile of two steps at each P and backend.
@@ -629,11 +637,14 @@ def profile_steps(step, batch, steps: int = 2, top: int = 14, host_top: int = 0)
     per step, the device's busy share of the wall time and the kernel
     launches per step (every kernel the trace holds); with
     ``host_top``, that many host operators by their own host time per step
-    (the CPU-side rows, without their children)."""
+    (the CPU-side rows, without their children).  Without ``host_top`` the
+    trace records the CUDA activity alone: a third of the cost of a trace
+    with the host operators at 45k launches, the same device rows."""
     from torch.profiler import ProfilerActivity, profile
 
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_top else [])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             step(*batch)
@@ -1921,9 +1932,10 @@ def config5_phases(card: str) -> dict:
     }
 
 
-def km_model(dev, **kw):
-    """Config 3's SEGNN (weights from the seed), on the untabled lmax=1 path."""
-    return port.SEGNN("2x0e+1x1o", HIDDEN, "1x1o", num_layers=NUM_LAYERS, layout="cm",
+def km_model(dev, hidden=HIDDEN, **kw):
+    """Config 3's SEGNN (weights from the seed; ``hidden``: its width), on
+    the untabled lmax=1 path, or the tabled one on a graph with tables."""
+    return port.SEGNN("2x0e+1x1o", hidden, "1x1o", num_layers=NUM_LAYERS, layout="cm",
                       use_pallas=True, device=dev, generator=torch.Generator().manual_seed(SEED),
                       **kw)
 
@@ -2103,18 +2115,19 @@ def example_graph(n: int, dev):
     return graph, target, info, build_ms
 
 
-def km_grad_check(dev, graph, pack: int = 1, **kw) -> dict:
+def km_grad_check(dev, graph, pack: int = 1, hidden=HIDDEN, **kw) -> dict:
     """fp32 gradients of every parameter of config 3's model through the
-    untabled lmax=1 kernels (#3/#5; at ``pack`` > 1 #6/#7) against autograd
-    through the plain message path on ``graph`` (no tables), and at pack > 1
+    untabled lmax=1 kernels (#3/#5; at ``pack`` > 1 #6/#7; on a graph with
+    tables the tabled #1/#2) against autograd through the plain message path
+    on ``graph``, and at pack > 1
     also against the same model at pack 1 (#3/#5), elementwise; ``kw``: the
     model's ladder settings.  Returns the readings and the launches of the
     kernel model's forward and backward."""
-    models = {"kernel": km_model(dev, pack=pack, **kw),
-              "plain": port.SEGNN("2x0e+1x1o", HIDDEN, "1x1o", num_layers=NUM_LAYERS,
+    models = {"kernel": km_model(dev, hidden, pack=pack, **kw),
+              "plain": port.SEGNN("2x0e+1x1o", hidden, "1x1o", num_layers=NUM_LAYERS,
                                   layout="cm", use_pallas=False, device=dev)}
     if pack > 1:
-        models["pack1"] = km_model(dev, **kw)
+        models["pack1"] = km_model(dev, hidden, **kw)
     for m in list(models.values())[1:]:
         m.load_state_dict(models["kernel"].state_dict())
     with torch.no_grad():
@@ -2533,6 +2546,278 @@ def pack_phases(card: str, graph3) -> dict:
             bound_by=b["bwd"]["bound_by"], library_ms=None, main_kernel_ms=t["bwd_main_ms"],
             pack=PACK_MAIN),
     }
+
+
+WIDE_L1_HIDDEN = "64x0e+32x1o"  # twice config 3's multiplicities (F = 160): past both caps
+WIDE_L1_STEPS = 3  # counted steps of each route
+
+
+TAB_PART_NAMES = ("d_hu", "d_hr", "dW0a", "dW1Sa", "dW1Va", "dW0b", "dW1Sb", "dW1Vb")
+TAB_BWD_NAMES = ("d_h", "d_w0e1", "d_w1o1", "d_w0e2", "d_w1o2")
+
+
+def tab_bwd_check(cfg, args, ws, d_agg, tabs) -> dict:
+    """#2 against its plain versions on one set of inputs: the main kernel's
+    own outputs (``d_hu``, ``d_hr`` and the reduced weight blocks) against
+    ``tab_bwd_plain``, the reduction against its plain version, and the
+    whole backward (kernels and epilogue) against the plain backward, run
+    twice, bitwise.  Readings are (max abs err, elements over tolerance,
+    max |ref|) under TOL_BWD_FP32 (d_h, d_hu, d_hr elementwise x max(1,
+    |ref|)) or TOL_BWD_BF16 (x max|ref|), the reduction under TOL_REDUCE;
+    ``outputs`` are the main kernel's (d_hu, d_hr, partials)."""
+    fp32 = args[0].dtype == torch.float32
+    tol = TOL_BWD_FP32 if fp32 else TOL_BWD_BF16
+
+    def scale(nm, y):
+        if fp32 and nm in ("d_h", "d_hu", "d_hr"):
+            return torch.clamp(y.float().abs(), min=1.0)
+        return float(y.float().abs().max())
+
+    ws6 = fm.split_weights(cfg, *ws)
+    d_hu, d_hr, partials = fm.tab_bwd_kernel(cfg, *args, ws6, d_agg)
+    dw = fm.tab_bwd_reduce(partials)
+    torch.cuda.synchronize()
+    dw_ref = fm.tab_bwd_reduce_plain(partials)
+    red = compare(dw, dw_ref, float(dw_ref.abs().max()), TOL_REDUCE)
+    del dw_ref
+    pieces, off = [], 0
+    for a, b in cfg.weight_shapes():
+        pieces.append(dw[off:off + a * b].view(a, b))
+        off += a * b
+    ref_parts = fm.tab_bwd_plain(cfg, *args, ws6, d_agg)
+    ref_parts = [*ref_parts[:2], *ref_parts[2]]
+    parts = {nm: compare(x, y, scale(nm, y), tol)
+             for nm, x, y in zip(TAB_PART_NAMES, [d_hu, d_hr, *pieces], ref_parts, strict=True)}
+    got = fm.fused_message_aggregate_tabled_bwd(cfg, *args, *tabs, *ws, d_agg)
+    again = fm.fused_message_aggregate_tabled_bwd(cfg, *args, *tabs, *ws, d_agg)
+    torch.cuda.synchronize()
+    identical = all(torch.equal(x, y) for x, y in zip(got, again, strict=True))
+    del again
+    ref = fm.fused_message_aggregate_tabled_bwd_plain(cfg, *args, *tabs, *ws, d_agg)
+    full = {nm: compare(x, y, scale(nm, y), tol)
+            for nm, x, y in zip(TAB_BWD_NAMES, got, ref, strict=True)}
+    finite = all(bool(torch.isfinite(x).all()) for x in (*got, d_hu, d_hr, dw))
+    ulps = None if fp32 else {
+        nm: ulps_reading(x, y) for nm, x, y in
+        zip((*TAB_PART_NAMES, *TAB_BWD_NAMES), (d_hu, d_hr, *pieces, *got), (*ref_parts, *ref))}
+    return dict(kernel_outputs=parts, reduction=red, with_epilogue=full, identical=identical,
+                finite=finite, ulps=ulps, outputs=(d_hu, d_hr, partials))
+
+
+def tab_check(label, cfg, args, ws, n_valid, d_agg, tabs, times: bool) -> dict:
+    """The tabled kernels #1 and #2 against their plain versions on one set
+    of inputs: the forward, and ``tab_bwd_check`` (the main kernel's own
+    outputs, the reduction, the whole backward twice bitwise); with
+    ``times``, their CUDA-event times, the plain versions' and the bounds,
+    and the reduction's device time beside ``torch.sum``'s (torch.profiler).
+    Emits a ``kernel_tabled`` line."""
+    fp32 = args[0].dtype == torch.float32
+    ws6 = fm.split_weights(cfg, *ws)
+    readings = lambda v: dict(zip(("max_abs_err", "over_tolerance", "max_abs_ref"), v))
+    with torch.no_grad():
+        agg = fm.fused_message_aggregate_tabled_fwd(cfg, *args, *ws)
+        ref = fm.fused_message_aggregate_tabled_plain(cfg, *args, *ws)
+        fwd = compare(agg, ref, torch.clamp(ref.float().abs(), min=1.0) if fp32 else
+                      float(ref.float().abs().max()), TOL_KERNEL_FP32 if fp32 else TOL_KERNEL_BF16)
+        del ref
+        r = tab_bwd_check(cfg, args, ws, d_agg, tabs)
+    d_hu, d_hr, part = r["outputs"]
+    parts, red, bwd = r["kernel_outputs"], r["reduction"], r["with_epilogue"]
+    finite = r["finite"] and bool(torch.isfinite(agg).all())
+    out = dict(label=label, dtype=str(args[0].dtype).replace("torch.", ""), hs=cfg.hs, hv=cfg.hv,
+               rows=args[0].shape[0], k=cfg.k, tile=cfg.tile, u=cfg.u, valid_slots=n_valid,
+               fwd=readings(fwd), kernel_outputs={k_: readings(v) for k_, v in parts.items()},
+               reduction=readings(red),
+               with_epilogue={k_: readings(v) for k_, v in bwd.items()},
+               bit_identical_reruns=r["identical"], finite=finite, bf16_ulps=r["ulps"],
+               max_abs_err=dict(fwd=fwd[0], bwd=max(v[0] for v in parts.values()),
+                                bwd_with_epilogue=max(v[0] for v in bwd.values()), reduce=red[0]))
+    if times:
+        with torch.no_grad():
+            t = dict(
+                fwd_ms=event_ms(lambda: fm.fused_message_aggregate_tabled_fwd(cfg, *args, *ws),
+                                iters=3, warmup=1),
+                fwd_plain_ms=event_ms(lambda: fm.fused_message_aggregate_tabled_plain(
+                    cfg, *args, *ws), iters=1, warmup=0),
+                bwd_main_ms=event_ms(lambda: fm.tab_bwd_kernel(cfg, *args, ws6, d_agg), iters=3,
+                                     warmup=1),
+                reduce_ms=event_ms(lambda: fm.tab_bwd_reduce(part), iters=5, warmup=1),
+                reduce_plain_ms=event_ms(lambda: fm.tab_bwd_reduce_plain(part), iters=5,
+                                         warmup=1),
+                bwd_ms=event_ms(lambda: fm.fused_message_aggregate_tabled_bwd(
+                    cfg, *args, *tabs, *ws, d_agg), iters=1, warmup=0),
+                bwd_plain_ms=event_ms(lambda: fm.fused_message_aggregate_tabled_bwd_plain(
+                    cfg, *args, *tabs, *ws, d_agg), iters=1, warmup=0))
+        # bounds as km_check's: the inputs read once, the outputs written
+        # once, the valid slots' multiply-adds at the bf16 tensor-core peak
+        flops = 2 * messages_per_slot(cfg) * n_valid
+        io = nbytes(*args, *ws)
+        dws = 4 * sum(a * b for a, b in cfg.weight_shapes())
+        t["bounds"] = {k_: dict(zip(("bound_ms", "bound_by", "bytes_ms", "ops_ms"), v)) for k_, v in (
+            ("fwd", bound(io + nbytes(agg), flops)),
+            ("bwd", bound(io + nbytes(d_agg, d_hu, d_hr) + dws, 3 * flops)),
+            ("reduce", bound(nbytes(part) + dws, part.numel())))}
+        # the reduction's device time at this shape beside torch.sum's
+        # (reduce_phase's reading, for the partials of this width)
+        t["reduce_device_ms"], _ = kernel_device_ms(lambda: fm.tab_bwd_reduce(part))
+        t["reduce_torch_sum_device_ms"], _ = kernel_device_ms(
+            lambda: fm.tab_bwd_reduce_plain(part), one=False)
+        t["reduce_shape"] = list(part.shape)
+        out["times"] = t
+    emit("kernel_tabled", kernels=[fm.TAB_FWD.name, fm.TAB_BWD.name, fm.TAB_BWD_REDUCE.name],
+         **out, tolerance=(f"agg {TOL_KERNEL_FP32}, d_h {TOL_BWD_FP32} * max(1, |ref|) "
+                           f"elementwise, weights {TOL_BWD_FP32} * max|ref|") if fp32 else
+         (f"agg {TOL_KERNEL_BF16}, the backward's outputs {TOL_BWD_BF16} * max|ref|; the "
+          f"reduction {TOL_REDUCE} * max|ref|"))
+    bad = {k_: v for k_, v in (("fwd", fwd), ("reduce", red), *parts.items(), *bwd.items())
+           if v[1]}
+    check(not bad and finite, f"{label}: tabled kernels vs plain in {args[0].dtype}: {bad}")
+    check(r["identical"], f"{label}: two tabled backward runs differ")
+    return out
+
+
+def wide_l1_phase(card: str, graph3) -> dict:
+    """Phase 37b, wide_l1: the lmax=1 kernels #1-#7 past 32x0e+16x1o, at
+    WIDE_L1_HIDDEN on the Wide kernels (csrc/lmax1_mma.cuh), config 3's
+    SEGNN otherwise (4 layers, weights from the seed), on bench.py's 100k
+    graph (with its tables, and with them dropped):
+
+    - kernel_tabled, kernel_km, kernel_flat: #1/#2, #3/#5 and #6/#7 (p = 2)
+      against their plain versions in fp32 (the FMA check path) and bf16
+      under the bench width's limits, reruns bitwise; in bf16 their times,
+      the plain versions' and the bounds;
+    - forward_wide_l1: one bf16 forward, counted: exactly 4 of #1;
+    - train_wide_l1: WIDE_L1_STEPS counted bf16 steps of each route (tables,
+      none, pack 2): per step 4 launches of its forward, of its backward and
+      of the reduction, nothing else; losses finite and falling;
+    - grad_check_wide_l1: fp32 gradients through each route's kernels
+      against the plain path at 20k points (GC_RADIUS), at pack 2 also
+      against pack 1 (TOL_PACK_VS_KM).
+
+    Returns the kernels line's ``wide_l1`` rows (per launch at the 100k
+    shapes: ms, bound, plain ms; launches per step of the route)."""
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    bf = torch.bfloat16
+    n = N_POINTS
+    model = km_model(dev, WIDE_L1_HIDDEN)
+    with torch.no_grad():
+        attrs32 = model.compute_attributes_dense(graph3)
+    tabs = (graph3.gather_rev_dense, graph3.gather_rem_pos, graph3.gather_rem_node)
+    g100 = graph3._replace(**NO_TABLES)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    # ---- the kernels against their plain versions at the 100k shapes
+    chk = {}
+    for dtype in (torch.float32, bf):
+        cfg, args, ws, n_valid = kernel_inputs(graph3, attrs32, model.layers[0], dtype, gen)
+        d_agg = torch.randn(args[0].shape, generator=gen, device=dev).to(dtype)
+        chk[("tab", dtype)] = tab_check(f"wide_l1_{WIDE_L1_HIDDEN}", cfg, args, ws, n_valid,
+                                        d_agg, tabs, times=dtype == bf)
+        del cfg, args, d_agg
+        h_ext = torch.randn((n, model.hidden_irreps.dim), generator=gen, device=dev)
+        for form in ("km", "flat"):
+            if form == "km":
+                cfg, args, ws, n_valid = km_inputs(model, g100.senders, attrs32[3], h_ext, 0, n,
+                                                   dtype, gen)
+            else:
+                cfg, args, ws, n_valid = flat_inputs(model, g100.senders, attrs32[3], h_ext, 0,
+                                                     n, PACK_MAIN, dtype, gen)
+            d_agg = torch.randn(args[1].shape, generator=gen, device=dev).to(dtype)
+            chk[(form, dtype)] = km_check(f"wide_l1_{WIDE_L1_HIDDEN}", cfg, args, ws, n_valid,
+                                          d_agg, times=dtype == bf, form=form)
+            del cfg, args, d_agg
+        del h_ext
+    t_kernels = time.perf_counter() - t_phase
+
+    # ---- one counted bf16 forward, and WIDE_L1_STEPS counted steps a route
+    target = torch.from_numpy(np.random.default_rng(SEED + 2).standard_normal(
+        (n, 3)).astype(np.float32)).to(dev)
+    attrs_bf = tuple(a.to(bf) for a in attrs32)
+    g_bf = graph3._replace(nodes=graph3.nodes.to(bf))
+    model_bf = copy.deepcopy(model).to(bf)
+    with torch.no_grad():
+        reset_launches()
+        out = model_bf(g_bf, attrs=attrs_bf)
+        torch.cuda.synchronize()
+        fwd_launches = launch_counts()
+    emit("forward_wide_l1", points=n, hidden=WIDE_L1_HIDDEN, layers=NUM_LAYERS, dtype="bfloat16",
+         shape=list(out.shape), launches=nonzero(fwd_launches),
+         finite=bool(torch.isfinite(out).all()))
+    check(fwd_launches == expected({fm.TAB_FWD.name: NUM_LAYERS}),
+          f"wide_l1 forward: {nonzero(fwd_launches)}")
+    check(tuple(out.shape) == (n, 3) and bool(torch.isfinite(out).all()),
+          f"wide_l1 forward: shape {tuple(out.shape)} or non-finite")
+    del out, model_bf, model
+    routes = {"tabled": (g_bf, {}, (fm.TAB_FWD, fm.TAB_BWD)),
+              "untabled": (g_bf._replace(**NO_TABLES), {}, (fm.KM_FWD, fm.KM_BWD)),
+              f"pack{PACK_MAIN}": (g_bf._replace(**NO_TABLES), dict(pack=PACK_MAIN),
+                                   (fm.FLAT_FWD, fm.FLAT_BWD))}
+    per_step = {}
+    for route, (g, kw, kerns) in routes.items():
+        m = km_model(dev, WIDE_L1_HIDDEN, **kw)
+        want = {kerns[0].name: NUM_LAYERS, kerns[1].name: NUM_LAYERS,
+                fm.TAB_BWD_REDUCE.name: NUM_LAYERS}
+        step = train_run(m, g, attrs_bf, target, WIDE_L1_STEPS, card, "train_wide_l1",
+                         expected(want), hidden=WIDE_L1_HIDDEN, points=n, route=route)
+        check(step.losses[-1] < step.losses[0], f"wide_l1 {route}: losses {step.losses}")
+        per_step.update(want)
+        del step, m
+    del attrs_bf, g_bf, target
+
+    # ---- fp32 gradients of each route at 20k points against the plain path
+    pts_gc = np.random.default_rng(SEED + 3).random((GC_POINTS, 3)).astype(np.float32)
+    _, _, _, g_gc, _ = build_graph(pts_gc, GC_RADIUS)
+    grads = {}
+    for route, g, kw, kerns in (("tabled", g_gc, {}, (fm.TAB_FWD, fm.TAB_BWD)),
+                                ("untabled", g_gc._replace(**NO_TABLES), {},
+                                 (fm.KM_FWD, fm.KM_BWD)),
+                                (f"pack{PACK_MAIN}", g_gc._replace(**NO_TABLES),
+                                 dict(pack=PACK_MAIN), (fm.FLAT_FWD, fm.FLAT_BWD))):
+        r = km_grad_check(dev, g, hidden=WIDE_L1_HIDDEN, **kw)
+        grads[route] = r
+        want = expected({kerns[0].name: NUM_LAYERS, kerns[1].name: NUM_LAYERS,
+                         fm.TAB_BWD_REDUCE.name: NUM_LAYERS})
+        check(r["launches"] == want, f"grad_check_wide_l1 {route}: {nonzero(r['launches'])}")
+        check(r["worst_rel_err"] <= TOL_GRAD_FP32,
+              f"wide_l1 fp32 gradients ({route}): {r['worst_param']} off by {r['worst_rel_err']}")
+        check(abs(r["loss_kernel"] - r["loss_plain"]) <= 1e-5 * r["loss_plain"],
+              f"wide_l1 losses differ ({route})")
+        if "worst_err_vs_pack1" in r:  # pack 2 against the same model at pack 1 (#3/#5)
+            check(r["worst_err_vs_pack1"] <= TOL_PACK_VS_KM,
+                  f"wide_l1 pack {PACK_MAIN} vs pack 1: {r['worst_param_vs_pack1']} off by "
+                  f"{r['worst_err_vs_pack1']}")
+        r["launches"] = nonzero(r["launches"])
+    emit("grad_check_wide_l1", points=GC_POINTS, radius=GC_RADIUS, k=MAX_NEIGHBORS,
+         hidden=WIDE_L1_HIDDEN, layers=NUM_LAYERS, dtype="float32", routes=grads,
+         tolerance=f"{TOL_GRAD_FP32} * max|ref| per parameter; fp32 sums in another order")
+    del g_gc
+
+    # ---- the kernels line's rows: per launch at the 100k shapes (bf16)
+    rows = {}
+    for kern, (form, which) in ((fm.TAB_FWD, ("tab", "fwd")), (fm.TAB_BWD, ("tab", "bwd")),
+                                (fm.TAB_BWD_REDUCE, ("tab", "reduce")),
+                                (fm.KM_FWD, ("km", "fwd")), (fm.KM_BWD, ("km", "bwd")),
+                                (fm.FLAT_FWD, ("flat", "fwd")), (fm.FLAT_BWD, ("flat", "bwd"))):
+        c = chk[(form, bf)]
+        t = c["times"]
+        ms = {"fwd": "fwd_ms", "bwd": "bwd_main_ms", "reduce": "reduce_ms"}[which]
+        plain = {"fwd": "fwd_plain_ms", "bwd": "bwd_plain_ms", "reduce": "reduce_plain_ms"}[which]
+        rows[kern.name] = dict(
+            hidden=WIDE_L1_HIDDEN, launches=per_step[kern.name],
+            max_abs_err=c["max_abs_err"][which], ms=t[ms], plain_ms=t[plain],
+            bound_ms=t["bounds"][which]["bound_ms"], bound_by=t["bounds"][which]["bound_by"],
+            library_ms=t[plain] if which == "reduce" else None,
+            whole_bwd_ms=t["bwd_ms"] if which == "bwd" else None,
+            **(dict(shape=t["reduce_shape"], device_ms=t["reduce_device_ms"],
+                    library_device_ms=t["reduce_torch_sum_device_ms"])
+               if which == "reduce" else {}),
+            launches_are="per step of the route's counted bf16 train step (train_wide_l1)",
+            times=f"CUDA events, bf16, {n} points, K = {MAX_NEIGHBORS}"
+                  + (f", pack {PACK_MAIN}" if form == "flat" else ""))
+    seconds = time.perf_counter() - t_phase
+    emit("wide_l1", card=card, hidden=WIDE_L1_HIDDEN, points=n, rows=rows,
+         seconds_kernels=t_kernels, phase_seconds=seconds)
+    return dict(rows=rows, seconds=seconds)
 
 
 VJP_TILES = (200, 80)  # #14's backward tiles: the 250k step's (= the tile) and under
@@ -3275,7 +3560,7 @@ def msg_grad_check(dev, g_gc, t_gc, n_msg: int) -> dict:
                 worst_rel_err=worst, launches_9=launches)
 
 
-def msg_time(fn, plain, n_bytes: int, flops: float, dense_flops: float, iters: int = 2) -> dict:
+def msg_time(fn, plain, n_bytes: int, flops: float, dense_flops: float, iters: int = 1) -> dict:
     """CUDA-event ms per call of ``fn`` (and of its plain version, one call),
     its bound from the folded nonzeros' flops and the dense folded GEMMs'."""
     b, d = bound(n_bytes, flops), bound(n_bytes, dense_flops)
@@ -3862,6 +4147,7 @@ def wide_phases(card: str, ctx: dict, base: dict) -> dict:
 
 
 DIST_PARTS = 4  # the partitioned runs' P (and 1, the degenerate halo)
+DIST_TRAIN_STEPS = 3  # timed partitioned steps after the warm-up
 DIST_LMAX2_STEPS = 2
 # (P, H, F): odd H and F, F=80 of config 3, and P=1
 RING_SMALL = ((1, 37, 13), (2, 37, 13), (4, 129, 80), (8, 61, 7))
@@ -4025,7 +4311,7 @@ def dist_phases(card: str, graph3) -> dict:
         equal; per forward 2 blocks x P partitions x 4 layers of #3, and 4 of
         #15 under ring (one per layer).
     47. dist_train -- bench_scaling.py's measure at P=1 and at P=4 with each
-        backend: a warm-up and 5 timed bf16 steps (fp32 masters, Adam 1e-3,
+        backend: a warm-up and 3 timed bf16 steps (fp32 masters, Adam 1e-3,
         precomputed geometry, the float shard arrays and attributes in
         bf16); per step 2 P 4 of #3, of #5 and of the reduction, and 4 of #15
         under ring; peak memory; the single-card untabled step timed beside;
@@ -4136,7 +4422,7 @@ def dist_phases(card: str, graph3) -> dict:
                          fm.TAB_BWD_REDUCE.name: 2 * p * NUM_LAYERS,
                          hr.RING.name: NUM_LAYERS if backend == "ring" else 0})
         warm = dist_train_run(step, shards, targets, attrs, 1, want)
-        r = dist_train_run(step, shards, targets, attrs, TRAIN_STEPS, want)
+        r = dist_train_run(step, shards, targets, attrs, DIST_TRAIN_STEPS, want)
         r["step_ms_mean"] = sum(r["step_ms"]) / len(r["step_ms"])
         train[f"P{p}_{backend}"] = r
         masters = all(q.dtype == torch.float32 for q in m.parameters())
@@ -5079,7 +5365,7 @@ def ring_procs_phase(card: str, procs: dict, dpc: dict, cooc: dict) -> dict:
 
 # configs 1 and 2 on the COO path (train/runners.py)
 COO_STEPS = 25  # runner steps on the card (the configs train 2,000 and 5,000)
-COO_TIMED = 20  # CUDA-event steps after a warm-up
+COO_TIMED = 10  # CUDA-event steps after a warm-up
 COO_CPU_STEPS = 5  # steps run on the card and on the CPU from the same weights
 COO_RESUME = 4  # N of the resume check: 2N steps = N, save, restore, N
 COO_RESUME_SIZE = dict(nbody=dict(graphs=64), qm9=dict(molecules=128))  # full widths
@@ -5346,7 +5632,8 @@ def cli_run(argv, profile_step: int = -1) -> dict:
     every launch count zeroed just before and read just after; the runner's
     pieces wrapped to read, without changing what they compute: each train
     step (CUDA events around it, its launches; step ``profile_step`` under
-    torch.profiler, read by ``profile_summary``), each cloud graph build
+    torch.profiler, the CUDA activity alone, read by ``profile_summary``),
+    each cloud graph build
     (host clock around synchronised work, the graph kept), the cloud model's
     ladder.  The CLI's output is captured (its last line is the result)."""
     from torch.profiler import ProfilerActivity, profile
@@ -5369,7 +5656,7 @@ def cli_run(argv, profile_step: int = -1) -> dict:
             traced = len(steps) == profile_step
             if traced:
                 torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     t0 = time.perf_counter()
                     m = step(*batch)
                     torch.cuda.synchronize()
@@ -5662,56 +5949,20 @@ def main() -> int:
         del got, ref, err
 
     # ---- 5. backward kernels vs plain, same inputs and a random cotangent
-    names = ("d_h", "d_w0e1", "d_w1o1", "d_w0e2", "d_w1o2")
-    part_names = ("d_hu", "d_hr", "dW0a", "dW1Sa", "dW1Va", "dW0b", "dW1Sb", "dW1Vb")
     with torch.no_grad():
         for dtype in (torch.float32, bf):
             kr = kres[dtype]
             cfg, args, ws = kr["cfg"], kr["args"], kr["ws"]
-            ws6 = fm.split_weights(cfg, *ws)
             d_agg = torch.randn(args[0].shape, generator=gen, device=dev).to(dtype)
             kr["d_agg"] = d_agg
-            fp32 = dtype == torch.float32
-            # the kernels' own outputs: d_hu, d_hr and the reduced weight blocks
-            d_hu, d_hr, partials = fm.tab_bwd_kernel(cfg, *args, ws6, d_agg)
-            dw = fm.tab_bwd_reduce(partials)
-            torch.cuda.synchronize()
-            dw_ref = fm.tab_bwd_reduce_plain(partials)
-            red = compare(dw, dw_ref, float(dw_ref.abs().max()), TOL_REDUCE)
-            check(red[1] == 0, f"weight-gradient reduction vs plain: {red}")
-            pieces, off = [], 0
-            for a, b in cfg.weight_shapes():
-                pieces.append(dw[off:off + a * b].view(a, b))
-                off += a * b
-            ref_parts = fm.tab_bwd_plain(cfg, *args, ws6, d_agg)
-            ref_parts = list(ref_parts[:2]) + list(ref_parts[2])
-            parts = {}
-            for nm, x, y in zip(part_names, [d_hu, d_hr, *pieces], ref_parts, strict=True):
-                ym = float(y.float().abs().max())
-                scale = (torch.clamp(y.float().abs(), min=1.0) if fp32 and nm in ("d_hu", "d_hr")
-                         else ym)
-                parts[nm] = compare(x, y, scale, TOL_BWD_FP32 if fp32 else TOL_BWD_BF16)
-            # the full backward: kernels + epilogue against the plain backward
-            got = fm.fused_message_aggregate_tabled_bwd(cfg, *args, *tabs, *ws, d_agg)
-            again = fm.fused_message_aggregate_tabled_bwd(cfg, *args, *tabs, *ws, d_agg)
-            torch.cuda.synchronize()
-            identical = all(torch.equal(x, y) for x, y in zip(got, again))
-            ref = fm.fused_message_aggregate_tabled_bwd_plain(cfg, *args, *tabs, *ws, d_agg)
-            full = {}
-            for nm, x, y in zip(names, got, ref, strict=True):
-                ym = float(y.float().abs().max())
-                scale = torch.clamp(y.float().abs(), min=1.0) if fp32 and nm == "d_h" else ym
-                full[nm] = compare(x, y, scale, TOL_BWD_FP32 if fp32 else TOL_BWD_BF16)
-            finite = all(bool(torch.isfinite(x).all()) for x in (*got, d_hu, d_hr, dw))
-            readings = None if fp32 else {
-                nm: ulps_reading(x, y) for nm, x, y in
-                zip((*part_names, *names), (d_hu, d_hr, *pieces, *got), (*ref_parts, *ref))}
+            b = tab_bwd_check(cfg, args, ws, d_agg, tabs)
+            parts, red, full = b["kernel_outputs"], b["reduction"], b["with_epilogue"]
             kr["bwd_max_abs_err"] = max(v[0] for v in parts.values())
             kr["reduce_max_abs_err"] = red[0]
-            kr["bwd_parts"] = (d_hu, d_hr, partials)
+            kr["bwd_parts"] = b["outputs"]
             emit("kernel_bwd", kernels=[fm.TAB_BWD.name, fm.TAB_BWD_REDUCE.name],
                  dtype=str(dtype).replace("torch.", ""), rows=args[0].shape[0],
-                 valid_slots=kr["n_valid"], blocks=partials.shape[0],
+                 valid_slots=kr["n_valid"], blocks=b["outputs"][2].shape[0],
                  kernel_outputs={k: dict(max_abs_err=v[0], over_tolerance=v[1], max_abs_ref=v[2])
                                  for k, v in parts.items()},
                  reduction=dict(max_abs_err=red[0], over_tolerance=red[1], max_abs_ref=red[2],
@@ -5721,13 +5972,14 @@ def main() -> int:
                                 for k, v in full.items()},
                  tolerance=(f"d_h, d_hu, d_hr: {TOL_BWD_FP32} * max(1, |ref|) elementwise; "
                             f"weights: {TOL_BWD_FP32} * max|ref| (fp32 sums over 2.4M slots "
-                            "in another order)") if fp32 else
+                            "in another order)") if dtype == torch.float32 else
                  f"{TOL_BWD_BF16} * max|ref|; bf16 rounding of the cotangent intermediates",
-                 bit_identical_reruns=identical, finite=finite, bf16_ulps=readings)
+                 bit_identical_reruns=b["identical"], finite=b["finite"], bf16_ulps=b["ulps"])
+            check(red[1] == 0, f"weight-gradient reduction vs plain: {red}")
             bad = {k: v[1] for k, v in {**parts, **full}.items() if v[1]}
-            check(not bad and finite, f"backward kernels vs plain in {dtype}: {bad}")
-            check(identical, f"two backward runs differ in {dtype}")
-            del got, again, ref, ref_parts
+            check(not bad and b["finite"], f"backward kernels vs plain in {dtype}: {bad}")
+            check(b["identical"], f"two backward runs differ in {dtype}")
+            del b
 
     # ---- 6. the config-3 forward through the kernel (bf16), counted
     model_bf = copy.deepcopy(model).to(bf)
@@ -5930,6 +6182,9 @@ def main() -> int:
     #      without tables
     pk = pack_phases(card, graph)
 
+    # ---- 37b. #1-#7 past 32x0e+16x1o, on the Wide kernels
+    wl1 = wide_l1_phase(card, graph)
+
     # ---- 44-49. the dense partitioned path (#3/#5, #11/#12 per block) and
     #      the halo ring #15
     dr = dist_phases(card, graph)
@@ -6037,6 +6292,8 @@ def main() -> int:
                                      for k_ in MSG_LAYER_COUNTS}
         if row["name"] in wide["rows"] and "wide" not in row:  # phase 43d's wide rows
             row["wide"] = wide["rows"][row["name"]]
+        if row["name"] in wl1["rows"] and "wide_l1" not in row:  # phase 37b's rows
+            row["wide_l1"] = wl1["rows"][row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -68,6 +68,8 @@
 // values split into hi + lo bf16 (exact), in registers for the block's whole
 // run.  Per 16 rows: about 450 mma.  The table sum fetches a bucket's scratch
 // rows 8 at a time, several table rows a warp.
+// Past 32x0e+16x1o the Wide kernel (below) runs the same rounds a column
+// block at a time, with its weight gradients in global memory.
 // fp32 (the check path): the first form, kept: one block walks groups of G
 // receivers (G*K slot rows, 48 at K=24), stages the layer-1 inputs, runs
 // the small GEMMs of both layers forward and backward from shared memory on
@@ -75,7 +77,9 @@
 // GEMMs of one phase share one work list), keeps the residuals of both
 // layers for the VJP, and accumulates the weight gradients in shared memory,
 // each entry owned by one thread.  Weights sit in shared memory with an odd
-// row stride, so the transposed reads of the VJP are conflict-free.
+// row stride, so the transposed reads of the VJP are conflict-free.  A wide
+// layer takes fewer receivers a group, then keeps its weight gradients (the
+// block's partials row) and then its weights in global memory.
 //
 // Bound.  Per slot the recompute costs 10,816 multiply-adds at Hs=32, Hv=16
 // and the VJP twice that (an input-gradient and a weight-gradient product for
@@ -99,7 +103,9 @@
 // cycles of each phase of its rounds to bwd_phase_cycles[] (and the rounds
 // to its last entry), read back by lmax1_bwd_phase_cycles.  No barrier is
 // added: the phases are thread 0's (warp 0's tile, then the block's
-// barriers and its share of the weight gradients).
+// barriers and its share of the weight gradients).  The Bench and the Wide
+// kernels mark the same phases; the Wide kernel's last one also holds the
+// writing of its weight-gradient accumulators.
 #ifdef LMAX1_BWD_CLOCKS
 __device__ unsigned long long bwd_phase_cycles[12];
 #define BWD_CLOCK(i)                                                           \
@@ -116,9 +122,15 @@ __device__ unsigned long long bwd_phase_cycles[12];
   } while (0)
 #endif
 
+// LMAX1_WIDE=1: the library of the Wide kernels (see launch_dtype)
+#ifndef LMAX1_WIDE
+#define LMAX1_WIDE 0
+#endif
+
 namespace {
 
 using l1mma::Addr;
+constexpr bool kWideLibrary = LMAX1_WIDE != 0;
 
 constexpr float kCG110 = 0.57735026918962576451f;  // 1/sqrt(3)
 constexpr float kCG011 = 0.57735026918962576451f;  // 1/sqrt(3)
@@ -143,26 +155,31 @@ struct Dims {
   int hs, hv, k, g, rows, rows_p;  // rows = g*k, rows_p = rows rounded to kMT
   int s1, v1, c0, f;               // 2hs+1, 2hv, hs+hv, hs+3hv
   int tile, u;
-  int ld0a, ld1a, ld0b, ld1b;      // odd row strides of the weights in shared memory
-  long wts, nw;                    // floats: padded weights, dense weight gradients
+  int ld0a, ld1a, ld0b, ld1b;      // row strides of the weights (shared: odd; global: dense)
+  bool gdw, gw;                    // the weight gradients, the weights in global memory
+  long wts, nw;                    // floats: weights in shared memory, dense weight gradients
   long reg_a, reg_b;               // per-row floats of the two row regions
   long region;                     // floats of the whole row region (also the CSR ints)
 };
 
-// tile = u = 0: the untabled kernels (KM, FLAT), which have no table
-__host__ __device__ inline Dims make_dims(int hs, int hv, int k, int tile, int u) {
-  Dims d;
-  d.hs = hs; d.hv = hv; d.k = k; d.tile = tile; d.u = u;
-  d.g = k >= kTargetRows ? 1 : kTargetRows / k;
-  if (tile > 0 && d.g > tile) d.g = tile;
+// shared memory: weights, weight gradients, the row region, sender ids
+__host__ __device__ inline long smem_bytes(const Dims& d) {
+  return sizeof(float) * (d.wts + (d.gdw ? 0 : d.nw) + d.region) + sizeof(int) * d.rows_p;
+}
+
+// the row region and the weights' strides of d's group size and modes
+__host__ __device__ inline void layout(Dims& d) {
+  const int hs = d.hs, hv = d.hv, k = d.k;
   d.rows = d.g * k;
   d.rows_p = (d.rows + kMT - 1) / kMT * kMT;
-  d.s1 = 2 * hs + 1; d.v1 = 2 * hv; d.c0 = hs + hv; d.f = hs + 3 * hv;
-  d.ld0a = odd(d.c0); d.ld1a = odd(hv); d.ld0b = odd(d.c0); d.ld1b = odd(hv);
-  d.wts = (long)(d.s1 + d.v1) * d.ld0a + (long)d.s1 * d.ld1a + (long)d.v1 * d.ld1a +
-          (long)d.c0 * d.ld0b + (long)hs * d.ld1b + (long)hv * d.ld1b;
-  d.nw = (long)(d.s1 + d.v1) * d.c0 + (long)d.s1 * hv + (long)d.v1 * hv + (long)d.c0 * d.c0 +
-         (long)hs * hv + (long)hv * hv;
+  if (d.gw) {
+    d.ld0a = d.c0; d.ld1a = hv; d.ld0b = d.c0; d.ld1b = hv;
+    d.wts = 0;
+  } else {
+    d.ld0a = odd(d.c0); d.ld1a = odd(hv); d.ld0b = odd(d.c0); d.ld1b = odd(hv);
+    d.wts = (long)(d.s1 + d.v1) * d.ld0a + (long)d.s1 * d.ld1a + (long)d.v1 * d.ld1a +
+            (long)d.c0 * d.ld0b + (long)hs * d.ld1b + (long)hv * d.ld1b;
+  }
   // A: XS1 [s1], X01 [s1+v1], XV1 [3 v1], O01 [c0], O11 [3 hv]; then OA [hv], GEO [5]
   d.reg_a = d.s1 + (d.s1 + d.v1) + 3L * d.v1 + d.c0 + 3L * hv;
   // B, layer 2: XS2 [hs], X02 [c0], XV2 [3hv], O02 [c0], O12 [3hv], DXV2 [3hv], DXS2 [hs], DF02 [c0]
@@ -171,14 +188,34 @@ __host__ __device__ inline Dims make_dims(int hs, int hv, int k, int tile, int u
   const long b1 = 3L * d.v1 + 2L * hs + (d.s1 + d.v1);
   d.reg_b = b2 > b1 ? b2 : b1;
   const long rows_region = d.rows_p * (d.reg_a + hv + 5 + d.reg_b) + (long)d.g * d.f;
-  const long csr = (long)tile * k + 2L * u + 1;  // PERM, START, CUR (ints)
+  const long csr = (long)d.tile * k + 2L * d.u + 1;  // PERM, START, CUR (ints)
   d.region = rows_region > csr ? rows_region : csr;
-  return d;
 }
 
-// shared memory: weights, weight gradients, the row region, sender ids
-__host__ inline size_t smem_bytes(const Dims& d) {
-  return sizeof(float) * (d.wts + d.nw + d.region) + sizeof(int) * d.rows_p;
+// tile = u = 0: the untabled kernels (KM, FLAT), which have no table.  A
+// group holds G receivers (48 slot rows at most); past the shared memory
+// of a wide layer, fewer, then the weight gradients and then the weights
+// move to global memory (the block's partials row; the weight blocks as
+// given).
+__host__ __device__ inline Dims make_dims(int hs, int hv, int k, int tile, int u) {
+  Dims d;
+  d.hs = hs; d.hv = hv; d.k = k; d.tile = tile; d.u = u;
+  d.s1 = 2 * hs + 1; d.v1 = 2 * hv; d.c0 = hs + hv; d.f = hs + 3 * hv;
+  d.nw = (long)(d.s1 + d.v1) * d.c0 + (long)d.s1 * hv + (long)d.v1 * hv + (long)d.c0 * d.c0 +
+         (long)hs * hv + (long)hv * hv;
+  d.gdw = d.gw = false;
+  d.g = k >= kTargetRows ? 1 : kTargetRows / k;
+  if (tile > 0 && d.g > tile) d.g = tile;
+  for (;; --d.g) {
+    layout(d);
+    if (d.g == 1 || smem_bytes(d) <= gmma::kMaxSmem) break;
+  }
+  if (smem_bytes(d) > gmma::kMaxSmem) d.gdw = true;
+  if (smem_bytes(d) > gmma::kMaxSmem) {
+    d.gw = true;
+    layout(d);
+  }
+  return d;
 }
 
 // Y[m][n] (+)= sum_kk A(m, kk) B(kk, n), A(m, kk) = a[m*sam + kk*sak],
@@ -260,21 +297,27 @@ fused_message_tab_bwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
   const T* __restrict__ hsrc = TAB ? h : hsp;  // where SND rows point
   const int R = d.rows_p, s1 = d.s1, v1 = d.v1, c0 = d.c0, f = d.f;
   extern __shared__ float smem[];
-  // weights (padded rows) and the weight gradients (dense, in the partials' order)
+  // weights (padded rows) and the weight gradients (dense, in the partials'
+  // order), in shared memory unless the widths move them to global memory
   float* W0a = smem;                        // [s1+v1][ld0a]
   float* W1Sa = W0a + (s1 + v1) * d.ld0a;   // [s1][ld1a]
   float* W1Va = W1Sa + s1 * d.ld1a;         // [v1][ld1a]
   float* W0b = W1Va + v1 * d.ld1a;          // [c0][ld0b]
   float* W1Sb = W0b + c0 * d.ld0b;          // [hs][ld1b]
   float* W1Vb = W1Sb + hs * d.ld1b;         // [hv][ld1b]
-  float* DW = W1Vb + hv * d.ld1b;
+  if (d.gw) {  // as given (fp32: T is float)
+    W0a = const_cast<float*>(w0a); W1Sa = const_cast<float*>(w1sa);
+    W1Va = const_cast<float*>(w1va); W0b = const_cast<float*>(w0b);
+    W1Sb = const_cast<float*>(w1sb); W1Vb = const_cast<float*>(w1vb);
+  }
+  float* DW = d.gdw ? partials + (long)blockIdx.x * d.nw : smem + d.wts;
   float* dW0a = DW;
   float* dW1Sa = dW0a + (s1 + v1) * c0;
   float* dW1Va = dW1Sa + s1 * hv;
   float* dW0b = dW1Va + v1 * hv;
   float* dW1Sb = dW0b + c0 * c0;
   float* dW1Vb = dW1Sb + hs * hv;
-  float* RG = DW + d.nw;
+  float* RG = smem + d.wts + (d.gdw ? 0 : d.nw);
   int* SND = reinterpret_cast<int*>(RG + d.region);  // [R] sender row in hsrc, or -1
   // region A: the layer-1 residuals (later the receiver cotangents RHR)
   float* XS1 = RG;                 // [R][s1]      xs = [h_s || h_r || d2]
@@ -311,7 +354,7 @@ fused_message_tab_bwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
     const int nr[6] = {s1 + v1, s1, v1, c0, hs, hv};
     const int nc[6] = {c0, hv, hv, c0, hv, hv};
     const int ld[6] = {d.ld0a, d.ld1a, d.ld1a, d.ld0b, d.ld1b, d.ld1b};
-    for (int m = 0; m < 6; ++m)
+    for (int m = 0; m < 6 && !d.gw; ++m)
       for (int i = threadIdx.x; i < nr[m] * nc[m]; i += blockDim.x)
         dst[m][(i / nc[m]) * ld[m] + i % nc[m]] = to_f(src[m][i]);
     for (long i = threadIdx.x; i < d.nw; i += blockDim.x) DW[i] = 0.0f;
@@ -666,7 +709,7 @@ fused_message_tab_bwd_kernel(const T* __restrict__ h, const T* __restrict__ d2,
     __syncthreads();
   }
 
-  for (long i = threadIdx.x; i < d.nw; i += blockDim.x)
+  for (long i = threadIdx.x; i < d.nw && !d.gdw; i += blockDim.x)
     partials[(long)blockIdx.x * d.nw + i] = DW[i];
 }
 
@@ -790,7 +833,7 @@ using l1mma::kW2s; using l1mma::kW2v; using l1mma::kWRows; using l1mma::layer1;
 using l1mma::layer2; using l1mma::ldsm_x2_t; using l1mma::ldsm_x4_t; using l1mma::mma_bf16_16816; using l1mma::mma_pairT;
 using l1mma::pack; using l1mma::rnd; using l1mma::row_geo; using l1mma::RowGeo; using l1mma::sigm;
 using l1mma::stage_weights; using l1mma::TileRef; using l1mma::unit_recv; using l1mma::unit_tiles;
-using l1mma::weight_bytes; using l1mma::zero;
+using l1mma::store_a; using l1mma::weight_bytes; using l1mma::zero;
 
 // A block: eight warps, one an SM.  The 72 16x8 weight-gradient tiles
 // spread over them, 9 a warp (36 registers held through the tile phase;
@@ -831,19 +874,6 @@ __device__ __forceinline__ void split2(uint32_t v, float s0, float s1, uint32_t&
   const float2 hf = __bfloat1622float2(h);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack(p0 - hf.x, p1 - hf.y);
-}
-
-// an A fragment (k-step of 16 columns from col0) back to row-major rows
-// r0 + g, r0 + g + 8 of a staging array
-__device__ __forceinline__ void store_a(bf16* Y, int ld, int r0, int col0, const uint32_t (&a)[4],
-                                        int lane) {
-  const int g = lane >> 2, t4 = lane & 3;
-  uint32_t* p0 = reinterpret_cast<uint32_t*>(Y + (r0 + g) * ld + col0 + 2 * t4);
-  uint32_t* p1 = reinterpret_cast<uint32_t*>(Y + (r0 + g + 8) * ld + col0 + 2 * t4);
-  p0[0] = a[0];
-  p1[0] = a[1];
-  p0[4] = a[2];
-  p1[4] = a[3];
 }
 
 // The VJP of a gate layer on C fragments: the pre-gate o0 [6 n-tiles], A [2]
@@ -898,6 +928,69 @@ __device__ __forceinline__ void gate_vjp(const float (&o0)[6][4], const float (&
       put(h, kYa + 8 * i, xa[2 * h], xa[2 * h + 1]);
 #pragma unroll
       for (int c = 0; c < 3; ++c) put(h, kY1 + kHV * c + 8 * i, x1[c][2 * h], x1[c][2 * h + 1]);
+    }
+  }
+}
+
+// The gate VJP of one Wide column block (gate_vjp's arithmetic): a scalar
+// block's d_o0 at staging columns col0 ..; a vector block's d_o0 (its gate
+// columns), d_a and d_o1_c, into rows r0 .. r0+15 of Y [..][ld] ([d_o0 (c0) |
+// d_a (hvp) | d_o1_0 | d_o1_1 | d_o1_2])
+template <typename DM>
+__device__ __forceinline__ void gvjp_s(const float (&o)[4][4], DM dm, bf16* Y, int ld, int r0,
+                                       int col0, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    float x[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float v = o[nt][q], sg = sigm(v);
+      x[q] = dm(col0 + nt * 8 + 2 * t4 + (q & 1), q >> 1) * (sg * (1.0f + v * (1.0f - sg)));
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<__nv_bfloat162*>(Y + (r0 + g + 8 * h) * ld + col0 + nt * 8 + 2 * t4) =
+          __floats2bfloat162_rn(x[2 * h], x[2 * h + 1]);
+  }
+}
+template <class S, typename DM>
+__device__ __forceinline__ void gvjp_v(const S& sh, const float (&og)[2][4],
+                                       const float (&oa)[2][4], const float (&ob)[3][2][4], DM dm,
+                                       const RowGeo& rg, bf16* Y, int ld, int r0, int blk,
+                                       int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+  auto put = [&](int h, int col, float x0, float x1) {
+    *reinterpret_cast<__nv_bfloat162*>(Y + (r0 + g + 8 * h) * ld + col + 2 * t4) =
+        __floats2bfloat162_rn(x0, x1);
+  };
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float xg[4], xa[4], x1[3][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int h = q >> 1;
+      const float gv = sigm(og[i][q]);
+      float d_g = 0.f, d_a = 0.f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float d = dm(sh.hsp() + sh.hvp() * c + 16 * blk + 8 * i + 2 * t4 + (q & 1), h);
+        d_g = fmaf(d, kCG * fmaf(rg.v(h, c), oa[i][q], ob[c][i][q]), d_g);
+        const float d_o1 = rnd(d * gv);
+        x1[c][q] = d_o1;
+        d_a = fmaf(d_o1, rg.v(h, c), d_a);
+      }
+      xg[q] = d_g * (gv * (1.0f - gv));
+      xa[q] = kCG * d_a;
+    }
+    const int col = 16 * blk + 8 * i;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      put(h, sh.hsp() + col, xg[2 * h], xg[2 * h + 1]);
+      put(h, sh.c0() + col, xa[2 * h], xa[2 * h + 1]);
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        put(h, sh.c0() + sh.hvp() * (1 + c) + col, x1[c][2 * h], x1[c][2 * h + 1]);
     }
   }
 }
@@ -978,13 +1071,10 @@ __device__ __forceinline__ void wg_v(float (&acc)[4], const uint32_t (&a)[4], co
   mma_bf16_16816(acc, a, l0, l1);
 }
 
-// the D tiles of n-tiles N0 .. N0+NN: acc[j] += dot^T d_o0, the dot (sum_c
-// xv_c v_c, fp32) of the three component fragments split into three bf16
-// parts
-template <int N0, int NN>
-__device__ __forceinline__ void wg_d(float (*acc)[4], const uint32_t (&x)[3][4], const bf16* Y,
-                                     int row0, const KRows& kr, int lane) {
-  uint32_t ap[3][4];
+// the dot lanes (sum_c xv_c v_c, fp32) of the three component fragments x
+// of a k-step, split into three bf16 parts (A fragments)
+__device__ __forceinline__ void dot_parts(uint32_t (&ap)[3][4], const uint32_t (&x)[3][4],
+                                          const KRows& kr) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     // register j holds rows (j < 2 ? 2 t4 : 2 t4 + 8) and + 1
@@ -1003,6 +1093,15 @@ __device__ __forceinline__ void wg_d(float (*acc)[4], const uint32_t (&x)[3][4],
     ap[1][j] = pack(m0, m1);
     ap[2][j] = pack(d[0] - h0 - m0, d[1] - h1 - m1);
   }
+}
+
+// the D tiles of n-tiles N0 .. N0+NN: acc[j] += dot^T d_o0, the dot of the
+// three component fragments split into three bf16 parts
+template <int N0, int NN>
+__device__ __forceinline__ void wg_d(float (*acc)[4], const uint32_t (&x)[3][4], const bf16* Y,
+                                     int row0, const KRows& kr, int lane) {
+  uint32_t ap[3][4];
+  dot_parts(ap, x, kr);
   const bf16* p = Y + (row0 + (lane & 15)) * kLdY + kY0;
 #pragma unroll
   for (int j = 0; j < NN; ++j) {
@@ -1020,7 +1119,8 @@ __device__ __forceinline__ void wg_d(float (*acc)[4], const uint32_t (&x)[3][4],
 // column.  A bucket's rows are fetched kBatch at a time before their adds.
 template <int V>
 __device__ __forceinline__ void table_rows(const bf16* dhs, bf16* dhu_t, const int* PERM,
-                                           const int* START, int u, int f, int warp, int lane) {
+                                           const int* START, int u, int f, int warp, int lane,
+                                           int nwarps = kWarps) {
   constexpr int kBatch = 8;
   typedef typename std::conditional<V == 8, uint4, typename std::conditional<V == 4, uint2,
                                     unsigned short>::type>::type Word;
@@ -1031,7 +1131,7 @@ __device__ __forceinline__ void table_rows(const bf16* dhs, bf16* dhu_t, const i
   const int per = V == 1 ? 1 : 32 / (f / V);  // rows a warp at once
   const int lanes = V == 1 ? 32 : f / V;      // lanes a row
   const int r = lane / lanes;
-  for (int i0 = warp * per; i0 < u; i0 += kWarps * per) {
+  for (int i0 = warp * per; i0 < u; i0 += nwarps * per) {
     const int i = i0 + r;
     const bool on = r < per && i < u;
     const int q0 = on ? START[i] : 0, q1 = on ? START[i + 1] : 0;
@@ -1061,6 +1161,55 @@ __device__ __forceinline__ void table_rows(const bf16* dhs, bf16* dhu_t, const i
   }
 }
 
+// The table sum of a gather tile (TAB, after the block's rounds): d_hu_t[i]
+// = the sum of the d_hs scratch rows of the tile's slots with loc == i, in
+// slot order.  A counting sort of loc into PERM (each bucket then sorted by
+// slot), then table_rows: a table row per f / V lanes, V = 8 (16-byte loads)
+// or 4 columns a lane (32 V / f rows a warp at once), else a warp per row and
+// a lane per column; a bucket's rows are fetched kBatch at a time before
+// their adds, which run in slot order.
+__device__ void table_sum(const int* tloc, const bf16* dhs, bf16* dhu_t, int* PERM, int* START,
+                          int* CUR, int slots, int u, int f, int warp, int lane, int nwarps) {
+  for (int i = threadIdx.x; i < u; i += blockDim.x) CUR[i] = 0;
+  __syncthreads();
+  for (int sl = threadIdx.x; sl < slots; sl += blockDim.x) {
+    const int l = tloc[sl];
+    if (l < u) atomicAdd(&CUR[l], 1);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int run = 0;
+    for (int i = 0; i < u; ++i) {
+      START[i] = run;
+      run += CUR[i];
+      CUR[i] = 0;
+    }
+    START[u] = run;
+  }
+  __syncthreads();
+  for (int sl = threadIdx.x; sl < slots; sl += blockDim.x) {
+    const int l = tloc[sl];
+    if (l < u) PERM[START[l] + atomicAdd(&CUR[l], 1)] = sl;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < u; i += blockDim.x) {  // each bucket in slot order
+    for (int q = START[i] + 1; q < START[i + 1]; ++q) {
+      const int x = PERM[q];
+      int y = q - 1;
+      while (y >= START[i] && PERM[y] > x) {
+        PERM[y + 1] = PERM[y];
+        --y;
+      }
+      PERM[y + 1] = x;
+    }
+  }
+  __syncthreads();
+  if (f % 8 == 0 && f <= 256) table_rows<8>(dhs, dhu_t, PERM, START, u, f, warp, lane, nwarps);
+  else if (f % 4 == 0 && f <= 128) table_rows<4>(dhs, dhu_t, PERM, START, u, f, warp, lane, nwarps);
+  else table_rows<1>(dhs, dhu_t, PERM, START, u, f, warp, lane, nwarps);
+  __syncthreads();
+}
+
 // Kernel arguments beyond the gather's
 struct BwdArgs {
   bf16* dhu;       // TAB: [ntiles*U, F]
@@ -1068,6 +1217,7 @@ struct BwdArgs {
   bf16* scratch;   // TAB: [grid][tile*K][F]
   bf16* dhsp;      // KM: [K, N, F]; FLAT: [N*K, F]
   float* partials; // [grid][NW]
+  float* wacc;     // Wide: the weight-gradient accumulators [grid][jobs * 1024]
   int pack;
 };
 
@@ -1104,7 +1254,7 @@ fused_message_bwd_mma(GatherArgs ga, const bf16* __restrict__ w0a, const bf16* _
   for (long x = lane; x < 2 * bb / 16; x += 32)
     reinterpret_cast<uint4*>(wp)[x] = make_uint4(0u, 0u, 0u, 0u);
   for (int x = lane; x < kN; x += 32) d2acc[warp * kN + x] = 0.f;
-  stage_weights<false>(W, d2w, w0a, w1sa, w1va, w0b, w1sb, w1vb, hs, hv);
+  stage_weights<false>(l1mma::Bench(), W, d2w, w0a, w1sa, w1va, w0b, w1sb, w1vb, hs, hv);
   __syncthreads();
 
   // the block's items: gather tiles (TAB), or groups of kWarps units; R
@@ -1306,13 +1456,13 @@ fused_message_bwd_mma(GatherArgs ga, const bf16* __restrict__ w0a, const bf16* _
     auto put = [&](int h, int pc, float x0, float x1) {
       bf16* row = hrow[h];
       if (row == nullptr) return;
-      const int fc = l1mma::feat_col(pc, hs, hv);
+      const int fc = l1mma::feat_col(l1mma::Bench(), pc, hs, hv);
       if (fc < 0) return;
       if (pairs) {
         *reinterpret_cast<__nv_bfloat162*>(row + fc) = __floats2bfloat162_rn(x0, x1);
       } else {
         row[fc] = __float2bfloat16(x0);
-        const int fc1 = l1mma::feat_col(pc + 1, hs, hv);
+        const int fc1 = l1mma::feat_col(l1mma::Bench(), pc + 1, hs, hv);
         if (fc1 >= 0) row[fc1] = __float2bfloat16(x1);
       }
     };
@@ -1459,7 +1609,7 @@ fused_message_bwd_mma(GatherArgs ga, const bf16* __restrict__ w0a, const bf16* _
         if (m >= nvalid) continue;
         const int i = rowbase + m;
         int o, jj;
-        l1mma::out_col(nt * 8 + 2 * t4 + (q & 1), hs, hv, o, jj);
+        l1mma::out_col(l1mma::Bench(), nt * 8 + 2 * t4 + (q & 1), hs, hv, o, jj);
         if (o >= 0) w0[i * c0 + o] = acc[nt][q];
         else if (jj >= 0) w1[i * hv + jj] = acc[nt][q];
       }
@@ -1473,7 +1623,7 @@ fused_message_bwd_mma(GatherArgs ga, const bf16* __restrict__ w0a, const bf16* _
         const int m = g + 8 * (q >> 1);
         if (j >= nn || m >= hv) continue;
         int o, jj;
-        l1mma::out_col((n0 + j) * 8 + 2 * t4 + (q & 1), hs, hv, o, jj);
+        l1mma::out_col(l1mma::Bench(), (n0 + j) * 8 + 2 * t4 + (q & 1), hs, hv, o, jj);
         if (o >= 0) w0[(rowbase + m) * c0 + o] = kCG * acc[j][q];
       }
   };
@@ -1500,7 +1650,7 @@ fused_message_bwd_mma(GatherArgs ga, const bf16* __restrict__ w0a, const bf16* _
     float acc = 0.f;
     for (int w = 0; w < kWarps; ++w) acc += d2acc[w * kN + col];
     int o, jj;
-    l1mma::out_col(col, hs, hv, o, jj);
+    l1mma::out_col(l1mma::Bench(), col, hs, hv, o, jj);
     if (o >= 0) o_w0a[2 * hs * c0 + o] = acc;
     else if (jj >= 0) o_w1sa[2 * hs * hv + jj] = acc;
   }
@@ -1514,54 +1664,592 @@ fused_message_bwd_mma(GatherArgs ga, const bf16* __restrict__ w0a, const bf16* _
   __syncthreads();  // the staging region becomes the table sum's ints
   for (int j = 0; j < my_items; ++j) {
     const long tl = blockIdx.x + (long)j * gridDim.x;  // the gather tile
-    const int slots = tile * k;
-    const int* tloc = ga.loc + tl * slots;
-    const bf16* dhs = ba.scratch + tl * slots * f;
-    for (int i = threadIdx.x; i < u; i += blockDim.x) CUR[i] = 0;
-    __syncthreads();
-    for (int sl = threadIdx.x; sl < slots; sl += blockDim.x) {
-      const int l = tloc[sl];
-      if (l < u) atomicAdd(&CUR[l], 1);
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int run = 0;
-      for (int i = 0; i < u; ++i) {
-        START[i] = run;
-        run += CUR[i];
-        CUR[i] = 0;
-      }
-      START[u] = run;
-    }
-    __syncthreads();
-    for (int sl = threadIdx.x; sl < slots; sl += blockDim.x) {
-      const int l = tloc[sl];
-      if (l < u) PERM[START[l] + atomicAdd(&CUR[l], 1)] = sl;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < u; i += blockDim.x) {  // each bucket in slot order
-      for (int q = START[i] + 1; q < START[i + 1]; ++q) {
-        const int x = PERM[q];
-        int y = q - 1;
-        while (y >= START[i] && PERM[y] > x) {
-          PERM[y + 1] = PERM[y];
-          --y;
-        }
-        PERM[y + 1] = x;
-      }
-    }
-    __syncthreads();
-    // a table row per f / V lanes, V = 8 (16-byte loads) or 4 columns a
-    // lane (32 V / f rows a warp at once), else a warp per row and a lane
-    // per column; a bucket's rows are fetched kBatch at a time before their
-    // adds, which run in slot order
-    bf16* dhu_t = ba.dhu + tl * u * f;
-    if (f % 8 == 0) table_rows<8>(dhs, dhu_t, PERM, START, u, f, warp, lane);
-    else if (f % 4 == 0) table_rows<4>(dhs, dhu_t, PERM, START, u, f, warp, lane);
-    else table_rows<1>(dhs, dhu_t, PERM, START, u, f, warp, lane);
-    __syncthreads();
+    table_sum(ga.loc + tl * tile * k, ba.scratch + tl * tile * k * f, ba.dhu + tl * u * f, PERM,
+              START, CUR, tile * k, u, f, warp, lane, kWarps);
     BWD_CLOCK(10);  // the tile's table sum
   }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 past 32x0e+16x1o: the Wide kernel.  The rounds, the per-warp tile
+// work and its rounding are the Bench kernel's, walked a column block at a
+// time (lmax1_mma.cuh: sblock, vblock); the layer-2 inputs are read back
+// from the round's staging X2; the input-cotangent products run over every
+// k-step of the padded widths.  The weight gradients are too many tiles for
+// registers (288 16x8 tiles at 64x0e+32x1o), so they are cut into jobs (an
+// m-tile of one GEMM's dW = X^T dY against up to 8 n-tiles), job j owned by
+// warp j % warps, and each job's accumulators live in the block's rows of
+// global memory (wacc): every round a warp loads a job's 32 values a lane,
+// adds the round's k-steps (the warps' rows, in warp order: the Bench
+// kernel's order) and stores them back.  So each value is summed in a fixed
+// order and reruns are bit-identical.  The warps a block are as many as
+// shared memory holds beside the weights (at most kWarps; eight at
+// 32x0e+16x1o, where every output is the Bench kernel's bit for bit).
+using l1mma::fits_wide; using l1mma::gate_s; using l1mma::gate_v; using l1mma::KSumN;
+using l1mma::kWideCols; using l1mma::LayerIn; using l1mma::sblock; using l1mma::vblock;
+using l1mma::Wide; using l1mma::wide_shape;
+
+// staged cotangent rows [d_o0 (c0) | d_a (hvp) | d_o1 (3 hvp)]
+__host__ __device__ inline int ldy(const Wide& sh) { return sh.c0() + 4 * sh.hvp() + 8; }
+__host__ __device__ inline int y1(const Wide& sh) { return sh.c0() + sh.hvp(); }
+
+__host__ __device__ inline long wide_warp_bytes(const Wide& sh, int k) {
+  return 2 * buf_bytes(sh, k, true) + align16(2L * 16 * sh.ldk());
+}
+__host__ __device__ inline long wide_staging_bytes(const Wide& sh, int warps) {
+  return align16(2L * 16 * warps * sh.ldf()) + 2 * align16(2L * 16 * warps * ldy(sh));
+}
+// shared memory: the weights; the per-warp gather and K-sum buffers; the d2
+// rows' per-warp sums [warps][n]; the round's staging (aliased by the table
+// sum's ints)
+__host__ __device__ inline long wide_smem_bytes(const Wide& sh, int k, int tile, int u,
+                                                int warps) {
+  const long st = wide_staging_bytes(sh, warps), csr = tile > 0 ? csr_bytes(k, tile, u) : 0;
+  return weight_bytes(sh) + warps * wide_warp_bytes(sh, k) + align16(4L * warps * sh.n()) +
+         (st > csr ? st : csr);
+}
+// the warps a block (0: none fits)
+__host__ inline int wide_warps(const Wide& sh, int k, int tile, int u) {
+  int w = kWarps;
+  while (w > 0 && wide_smem_bytes(sh, k, tile, u, w) > gmma::kMaxSmem) --w;
+  return w;
+}
+
+// The weight-gradient jobs, in this order: S (scalar inputs x [s d_o0 |
+// d_a]) of layer 1 (4 ns m-tiles: sender, receiver) and layer 2 (2 ns: m0);
+// V (vector lanes x s d_o1_c) of layer 1 (2 nv) and 2 (nv); D (dot lanes x
+// d_o0) of layer 1 (2 nv) and 2 (nv).  Each m-tile's n-tiles in groups of 8.
+struct Job {
+  int kind, layer, mt, nt0, nn;  // kind 0 S, 1 V, 2 D
+};
+__host__ __device__ inline int n_groups(int ntiles) { return (ntiles + 7) / 8; }
+__host__ __device__ inline int wide_jobs(const Wide& sh) {
+  return 6 * sh.ns * n_groups(sh.n() / 8) + 3 * sh.nv * n_groups(sh.hvp() / 8) +
+         3 * sh.nv * n_groups(sh.c0() / 8);
+}
+__host__ __device__ inline long wide_wacc_floats(const Wide& sh) { return wide_jobs(sh) * 1024L; }
+__device__ inline Job job_of(const Wide& sh, int q) {
+  const int mts[6] = {4 * sh.ns, 2 * sh.ns, 2 * sh.nv, sh.nv, 2 * sh.nv, sh.nv};
+  const int nts[3] = {sh.n() / 8, sh.hvp() / 8, sh.c0() / 8};
+  Job jb;
+  for (int seg = 0; seg < 6; ++seg) {
+    const int kind = seg / 2, ng = n_groups(nts[kind]);
+    if (q < mts[seg] * ng) {
+      jb.kind = kind;
+      jb.layer = 1 + seg % 2;
+      jb.mt = q / ng;
+      jb.nt0 = q % ng * 8;
+      jb.nn = nts[kind] - jb.nt0 < 8 ? nts[kind] - jb.nt0 : 8;
+      return jb;
+    }
+    q -= mts[seg] * ng;
+  }
+  jb.kind = -1;
+  return jb;
+}
+
+template <Addr A>
+__global__ void __launch_bounds__(kThreads)
+fused_message_bwd_wide_mma(GatherArgs ga, const bf16* __restrict__ w0a,
+                           const bf16* __restrict__ w1sa, const bf16* __restrict__ w1va,
+                           const bf16* __restrict__ w0b, const bf16* __restrict__ w1sb,
+                           const bf16* __restrict__ w1vb, BwdArgs ba) {
+  constexpr bool TAB = A == Addr::kTab, KM = A == Addr::kKm, FLAT = A == Addr::kFlat;
+  const Wide sh = wide_shape(ga.hs, ga.hv);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int k = ga.k, hs = ga.hs, hv = ga.hv, f = hs + 3 * hv;
+  const int tile = ga.tile, u = ga.u, npad = ga.npad;
+  const int hsp = sh.hsp(), hvp = sh.hvp(), c0p = sh.c0(), np_ = sh.n();
+  const int ldf = sh.ldf(), ldk = sh.ldk(), ldw = sh.ldw(), ly = ldy(sh), yv = y1(sh);
+  unsigned char* p = smem_raw;
+  bf16* W = reinterpret_cast<bf16*>(p);
+  float* d2w = reinterpret_cast<float*>(p + align16(2L * sh.wrows() * ldw));
+  p += weight_bytes(sh);
+  const long bb = buf_bytes(sh, k, true), wb = wide_warp_bytes(sh, k);
+  unsigned char* wbase = p;  // warp w's buffers at wbase + w * wb
+  p += nwarps * wb;
+  float* d2acc = reinterpret_cast<float*>(p);  // [nwarps][n]
+  p += align16(4L * nwarps * np_);
+  const int rows = 16 * nwarps;
+  bf16* X2 = reinterpret_cast<bf16*>(p);  // [rows][ldf]: m0 | m1_0 | m1_1 | m1_2
+  bf16* Y2 = reinterpret_cast<bf16*>(p + align16(2L * rows * ldf));  // [rows][ldy]
+  bf16* Y1 = Y2 + align16(2L * rows * ly) / 2;
+  int* PERM = reinterpret_cast<int*>(p);  // TAB, after a tile's rounds
+  int* START = PERM + tile * k;
+  int* CUR = START + u + 1;
+  unsigned char* wp = wbase + warp * wb;
+  bf16* kbuf = reinterpret_cast<bf16*>(wp + 2 * bb);  // [16][ldk]
+  const int njobs = wide_jobs(sh);
+  float* wacc = ba.wacc + (long)blockIdx.x * wide_wacc_floats(sh);
+
+  for (long x = lane; x < 2 * bb / 16; x += 32)
+    reinterpret_cast<uint4*>(wp)[x] = make_uint4(0u, 0u, 0u, 0u);
+  for (int x = lane; x < np_; x += 32) d2acc[warp * np_ + x] = 0.f;
+  for (int q = warp; q < njobs; q += nwarps)
+    for (int x = lane; x < 256; x += 32)
+      reinterpret_cast<float4*>(wacc + (long)q * 1024)[x] = make_float4(0.f, 0.f, 0.f, 0.f);
+  stage_weights<false>(sh, W, d2w, w0a, w1sa, w1va, w0b, w1sb, w1vb, hs, hv);
+  __syncthreads();
+
+  // the block's items and rounds: as the Bench kernel's, nwarps units a round
+  const int G = unit_recv(k, TAB ? tile : 0), T = unit_tiles(k, TAB ? tile : 0);
+  const int units = TAB ? (tile + G - 1) / G : (npad + G - 1) / G;
+  const int items = TAB ? npad / tile : (units + nwarps - 1) / nwarps;
+  const int R = TAB ? (units + nwarps - 1) / nwarps * T : T;
+  const int my_items =
+      (int)blockIdx.x < items ? (items - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x : 0;
+  const int nit = my_items * R;
+  auto item_of = [&](int it) { return (int)blockIdx.x + it / R * (int)gridDim.x; };
+  auto ref = [&](int it, int w) {
+    const int item = item_of(it), rr = it % R;
+    TileRef tr;
+    tr.q0 = rr % T * 16;
+    if (TAB) {
+      const int un = rr / T * nwarps + w;
+      tr.node0 = item * tile + un * G;
+      tr.nrecv = un < units ? (tile - un * G < G ? tile - un * G : G) : 0;
+      tr.slot0 = (item * tile + un * G) * k;  // (npad K < 2^31)
+    } else {
+      const int un = item * nwarps + w;
+      tr.node0 = un * G;
+      tr.nrecv = un < units ? (npad - tr.node0 < G ? npad - tr.node0 : G) : 0;
+      tr.slot0 = 0;
+    }
+    return tr;
+  };
+  const bool pairs = ga.mode != kCopy2;  // even widths: bf16 pairs of d_hs at once
+  KSumN<kWideCols> ks;
+  ksum_init(ks);
+  const int ar = lane & 15, ac = (lane >> 4) * 8;
+  const int nko = c0p / 16, nka = sh.nv;  // k-steps over the d_o0 and the d_a (d_o1_c) columns
+
+  if (nit > 0) {
+    gather_tile<A>(carve_buf(sh, wp, k, true), ref(0, warp), ga, lane, sh);
+    cp_async_commit();
+  }
+#ifdef LMAX1_BWD_CLOCKS
+  long long clock_t0 = clock64();
+#endif
+  for (int it = 0; it < nit; ++it) {
+    if (it + 1 < nit) {
+      gather_tile<A>(carve_buf(sh, wp + ((it + 1) & 1) * bb, k, true), ref(it + 1, warp), ga,
+                     lane, sh);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+#ifdef LMAX1_BWD_CLOCKS
+    if (threadIdx.x == 0) atomicAdd(&bwd_phase_cycles[11], 1ull);
+#endif
+    BWD_CLOCK(0);  // the next tile's gather issued, this one's awaited
+    const Buf b = carve_buf(sh, wp + (it & 1) * bb, k, true);
+    const TileRef tr = ref(it, warp);
+    const RowGeo rg = row_geo(b.geo, g);
+    const int wr = warp * 16;  // this warp's rows in the round's staging
+    const LayerIn l1{b.s + ar * ldf + ac, b.r + b.ri[ar] * ldf + ac, sh.w1s(), sh.w1v(), true};
+    const LayerIn l2{X2 + (wr + ar) * ldf + ac, nullptr, sh.w2s(), sh.w2v(), false};
+    // ---- layer 1 and its gates: the layer-2 inputs, staged in X2
+    for (int blk = 0; blk < sh.ns; ++blk) {
+      float o[4][4];
+      sblock(sh, W, d2w, l1, rg, kCG, lane, blk, o);
+      gate_s(o, X2, ldf, wr, 32 * blk, lane);
+    }
+    for (int blk = 0; blk < sh.nv; ++blk) {
+      float og[2][4], oa[2][4], ob[3][2][4];
+      vblock(sh, W, d2w, l1, rg, kCG, lane, blk, og, oa, ob);
+      gate_v<false>(sh, og, oa, ob, rg, X2, ldf, wr, blk, lane);
+    }
+    __syncwarp();
+    BWD_CLOCK(1);  // layer 1, its gates, the staged layer-2 inputs
+    // ---- layer 2 and the VJP of its gates, d_m = d_agg * mask (rounded)
+    {
+      const bf16* dr0 = b.d + b.ri[g] * ldf;
+      const bf16* dr1 = b.d + b.ri[g + 8] * ldf;
+      auto dm = [&](int pc, int h) { return rnd(bf((h ? dr1 : dr0)[pc]) * rg.mk(h)); };
+      for (int blk = 0; blk < sh.ns; ++blk) {
+        float o[4][4];
+        sblock(sh, W, d2w, l2, rg, kCG, lane, blk, o);
+        gvjp_s(o, dm, Y2, ly, wr, 32 * blk, lane);
+      }
+      for (int blk = 0; blk < sh.nv; ++blk) {
+        float og[2][4], oa[2][4], ob[3][2][4];
+        vblock(sh, W, d2w, l2, rg, kCG, lane, blk, og, oa, ob);
+        gvjp_v(sh, og, oa, ob, dm, rg, Y2, ly, wr, blk, lane);
+      }
+    }
+    __syncwarp();
+    BWD_CLOCK(2);  // layer 2 and its gates' VJP
+    auto a_frag = [&](uint32_t (&a)[4], const bf16* Y, int col) {
+      ldsm_x4(a, Y + (wr + ar) * ly + ac + col);
+    };
+    // ---- layer-2 input cotangents -> the layer-1 d_m0, d_m1 (bf16 values),
+    //      kept in the K-sum buffer until the layer-1 VJP reads them
+    for (int pr = 0; pr < 2 * sh.ns + sh.nv; ++pr) {  // pairs of input rows: m0, then m1
+      const bool m0 = pr < 2 * sh.ns;
+      const int wrow = m0 ? sh.w2s() + 16 * pr : sh.w2v() + 16 * (pr - 2 * sh.ns);
+      float df[2][4];
+      zero(df);
+      for (int kx = 0; kx < nko; ++kx) {
+        uint32_t a[4];
+        a_frag(a, Y2, 16 * kx);
+        mma_pairT(df, a, W, wrow, 16 * kx, lane, ldw);
+      }
+      if (m0) {
+        float dx[2][4];
+        zero(dx);
+        for (int kx = 0; kx < nka; ++kx) {
+          uint32_t a[4];
+          a_frag(a, Y2, c0p + 16 * kx);
+          mma_pairT(dx, a, W, wrow, c0p + 16 * kx, lane, ldw);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float s = rg.s(h);
+            const float x0 = rnd(dx[j][2 * h] + rnd(df[j][2 * h]) * s);
+            const float x1 = rnd(dx[j][2 * h + 1] + rnd(df[j][2 * h + 1]) * s);
+            *reinterpret_cast<__nv_bfloat162*>(kbuf + (g + 8 * h) * ldk + 16 * pr + 8 * j +
+                                               2 * t4) = __floats2bfloat162_rn(x0, x1);
+          }
+      } else {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          float dv[2][4];
+          zero(dv);
+          for (int kx = 0; kx < nka; ++kx) {
+            uint32_t a[4];
+            a_frag(a, Y2, yv + hvp * c + 16 * kx);
+            mma_pairT(dv, a, W, wrow, c0p + 16 * kx, lane, ldw);
+          }
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float s = rg.s(h), v = rg.v(h, c);
+              const float x0 = rnd(rnd(kCG * dv[i][2 * h]) * s + kCG * rnd(df[i][2 * h]) * v);
+              const float x1 =
+                  rnd(rnd(kCG * dv[i][2 * h + 1]) * s + kCG * rnd(df[i][2 * h + 1]) * v);
+              *reinterpret_cast<__nv_bfloat162*>(
+                  kbuf + (g + 8 * h) * ldk + hsp + hvp * c + 16 * (pr - 2 * sh.ns) + 8 * i +
+                  2 * t4) = __floats2bfloat162_rn(x0, x1);
+            }
+        }
+      }
+    }
+    __syncwarp();
+    BWD_CLOCK(3);  // layer 2's input cotangents
+    // ---- the VJP of the layer-1 gates, on layer 1 recomputed
+    {
+      auto dm = [&](int pc, int h) { return bf(kbuf[(g + 8 * h) * ldk + pc]); };
+      for (int blk = 0; blk < sh.ns; ++blk) {
+        float o[4][4];
+        sblock(sh, W, d2w, l1, rg, kCG, lane, blk, o);
+        gvjp_s(o, dm, Y1, ly, wr, 32 * blk, lane);
+      }
+      for (int blk = 0; blk < sh.nv; ++blk) {
+        float og[2][4], oa[2][4], ob[3][2][4];
+        vblock(sh, W, d2w, l1, rg, kCG, lane, blk, og, oa, ob);
+        gvjp_v(sh, og, oa, ob, dm, rg, Y1, ly, wr, blk, lane);
+      }
+    }
+    __syncwarp();  // Y1's rows are read across lanes, the K-sum buffer written again
+    // the d2 rows of dW0a (d2 s d_o0) and dW1Sa (d2 d_a): this lane's rows,
+    // then the warp's rows (lanes g = 0 hold the sums of their columns)
+    {
+      const float ds0 = rg.d2(0) * rg.s(0), ds1 = rg.d2(1) * rg.s(1);
+      const bf16* r0p = Y1 + (wr + g) * ly + 2 * t4;
+      const bf16* r1p = r0p + 8 * ly;
+      for (int blk = 0; blk < np_ / 8; ++blk) {  // columns blk*8 + 2 t4 (+1): d_o0, then d_a
+        const float2 x0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(r0p + blk * 8));
+        const float2 x1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(r1p + blk * 8));
+        const bool o0c = blk < c0p / 8;
+        const float f0 = o0c ? ds0 : rg.d2(0), f1 = o0c ? ds1 : rg.d2(1);
+        float pw[2] = {fmaf(f1, x1.x, f0 * x0.x), fmaf(f1, x1.y, f0 * x0.y)};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          pw[e] += __shfl_xor_sync(0xffffffffu, pw[e], 4);
+          pw[e] += __shfl_xor_sync(0xffffffffu, pw[e], 8);
+          pw[e] += __shfl_xor_sync(0xffffffffu, pw[e], 16);
+        }
+        if (g == 0) {
+          d2acc[warp * np_ + blk * 8 + 2 * t4] += pw[0];
+          d2acc[warp * np_ + blk * 8 + 2 * t4 + 1] += pw[1];
+        }
+      }
+    }
+    BWD_CLOCK(4);  // layer 1 again, its gates' VJP, the d2 rows
+    // ---- layer-1 input cotangents: sender parts -> d_hs, receiver parts
+    //      -> the K-sum buffer
+    const int qa = tr.q0 + g, qb = qa + 8;
+    const int live = tr.nrecv * k;
+    auto dhs_row = [&](int q) -> bf16* {
+      if (q >= live) return nullptr;
+      const int rel = q / k, kk = q % k;
+      const long node = tr.node0 + rel;
+      if (TAB) return ba.scratch + ((long)tr.slot0 + q) * f;
+      if (KM) return ba.dhsp + ((long)kk * npad + node) * f;
+      return ba.dhsp + (node * k + kk) * f;
+    };
+    bf16* hrow[2] = {dhs_row(qa), dhs_row(qb)};
+    auto put = [&](int h, int pc, float x0, float x1) {
+      bf16* row = hrow[h];
+      if (row == nullptr) return;
+      const int fc = l1mma::feat_col(sh, pc, hs, hv);
+      if (fc < 0) return;
+      if (pairs) {
+        *reinterpret_cast<__nv_bfloat162*>(row + fc) = __floats2bfloat162_rn(x0, x1);
+      } else {
+        row[fc] = __float2bfloat16(x0);
+        const int fc1 = l1mma::feat_col(sh, pc + 1, hs, hv);
+        if (fc1 >= 0) row[fc1] = __float2bfloat16(x1);
+      }
+    };
+    auto put_k = [&](int h, int pc, float x0, float x1) {
+      *reinterpret_cast<__nv_bfloat162*>(kbuf + (g + 8 * h) * ldk + pc) =
+          __floats2bfloat162_rn(x0, x1);
+    };
+    // the scalar rows (sender, then receiver), a pair of 16 at a time
+    for (int pr = 0; pr < 4 * sh.ns; ++pr) {
+      const int wrow = sh.w1s() + 16 * pr;
+      const bool snd = pr < 2 * sh.ns;
+      float df[2][4], dx[2][4];
+      zero(df);
+      zero(dx);
+      for (int kx = 0; kx < nko; ++kx) {
+        uint32_t a[4];
+        a_frag(a, Y1, 16 * kx);
+        mma_pairT(df, a, W, wrow, 16 * kx, lane, ldw);
+      }
+      for (int kx = 0; kx < nka; ++kx) {
+        uint32_t a[4];
+        a_frag(a, Y1, c0p + 16 * kx);
+        mma_pairT(dx, a, W, wrow, c0p + 16 * kx, lane, ldw);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float s = rg.s(h);
+          const float x0 = rnd(dx[j][2 * h] + rnd(df[j][2 * h]) * s);
+          const float x1 = rnd(dx[j][2 * h + 1] + rnd(df[j][2 * h + 1]) * s);
+          const int pc = 16 * (snd ? pr : pr - 2 * sh.ns) + 8 * j + 2 * t4;
+          if (snd) put(h, pc, x0, x1);
+          else put_k(h, pc, x0, x1);
+        }
+    }
+    // the vector lanes (sender, then receiver)
+    for (int pr = 0; pr < 2 * sh.nv; ++pr) {
+      const int wrow = sh.w1v() + 16 * pr;
+      const bool snd = pr < sh.nv;
+      float df[2][4];
+      zero(df);
+      for (int kx = 0; kx < nko; ++kx) {
+        uint32_t a[4];
+        a_frag(a, Y1, 16 * kx);
+        mma_pairT(df, a, W, wrow, 16 * kx, lane, ldw);
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        float dx[2][4];
+        zero(dx);
+        for (int kx = 0; kx < nka; ++kx) {
+          uint32_t a[4];
+          a_frag(a, Y1, yv + hvp * c + 16 * kx);
+          mma_pairT(dx, a, W, wrow, c0p + 16 * kx, lane, ldw);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float s = rg.s(h), v = rg.v(h, c);
+            const float x0 = rnd(rnd(kCG * dx[j][2 * h]) * s + kCG * rnd(df[j][2 * h]) * v);
+            const float x1 =
+                rnd(rnd(kCG * dx[j][2 * h + 1]) * s + kCG * rnd(df[j][2 * h + 1]) * v);
+            const int pc = hsp + hvp * c + 16 * (snd ? pr : pr - sh.nv) + 8 * j + 2 * t4;
+            if (snd) put(h, pc, x0, x1);
+            else put_k(h, pc, x0, x1);
+          }
+      }
+    }
+    __syncwarp();
+    BWD_CLOCK(5);  // layer 1's input cotangents, d_hs written
+    ksum_tile<FLAT>(ks, kbuf, tr, k, ba.pack, hs, hv, ba.dhr, lane, sh);
+    BWD_CLOCK(6);  // the K-sum of d_hr
+
+    // ---- the round's weight gradients: this warp's jobs over the round's
+    //      k-steps (the warps' rows, in warp order)
+    __syncthreads();
+    BWD_CLOCK(7);  // waiting for the other warps' tiles
+    for (int q = warp; q < njobs; q += nwarps) {
+      const Job jb = job_of(sh, q);
+      float acc[8][4];
+      float4* slot = reinterpret_cast<float4*>(wacc + (long)q * 1024) + lane;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 x = slot[32 * j];
+        acc[j][0] = x.x; acc[j][1] = x.y; acc[j][2] = x.z; acc[j][3] = x.w;
+      }
+      const bf16* Y = jb.layer == 1 ? Y1 : Y2;
+#pragma unroll 1
+      for (int kw = 0; kw < nwarps; ++kw) {
+        const Buf bk = carve_buf(sh, wbase + kw * wb + (it & 1) * bb, k, true);
+        const KRows kr = k_rows(bk.geo, t4);
+        const int r0 = kw * 16;
+        const bf16* xs_s = bk.s + a_row(lane) * ldf + a_col(lane);           // sender features
+        const bf16* xs_r = bk.r + bk.ri[a_row(lane)] * ldf + a_col(lane);    // receiver features
+        const bf16* x2 = X2 + (r0 + a_row(lane)) * ldf + a_col(lane);       // m0 | m1
+        const bf16* yrow = Y + (r0 + (lane & 15)) * ly + (lane >> 4) * 8;
+        // the job's vector rows of component c (V, D)
+        auto xv = [&](int c) {
+          const int off = hsp + hvp * c;
+          if (jb.layer == 2) return x2 + off + 16 * jb.mt;
+          return (jb.mt < sh.nv ? xs_s + 16 * jb.mt : xs_r + 16 * (jb.mt - sh.nv)) + off;
+        };
+        if (jb.kind == 0) {
+          uint32_t a[4];
+          const bf16* xrow = jb.layer == 2 ? x2 + 16 * jb.mt
+                             : jb.mt < 2 * sh.ns ? xs_s + 16 * jb.mt
+                                                 : xs_r + 16 * (jb.mt - 2 * sh.ns);
+          ldsm_x4_t(a, xrow);
+#pragma unroll
+          for (int pp = 0; pp < 4; ++pp) {
+            if (2 * pp >= jb.nn) continue;
+            const int nt = jb.nt0 + 2 * pp;
+            uint32_t r[4];
+            ldsm_x4_t(r, yrow + 8 * nt);
+            if (8 * nt < c0p) {  // s d_o0, split
+#pragma unroll
+              for (int jj = 0; jj < 2; ++jj) {
+                uint32_t h0, l0, h1, l1;
+                split2(r[2 * jj], kr.s[0], kr.s[1], h0, l0);
+                split2(r[2 * jj + 1], kr.s[2], kr.s[3], h1, l1);
+                mma_bf16_16816(acc[2 * pp + jj], a, h0, h1);
+                mma_bf16_16816(acc[2 * pp + jj], a, l0, l1);
+              }
+            } else {  // d_a
+              mma_bf16_16816(acc[2 * pp], a, r[0], r[1]);
+              mma_bf16_16816(acc[2 * pp + 1], a, r[2], r[3]);
+            }
+          }
+        } else if (jb.kind == 1) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            uint32_t a[4];
+            ldsm_x4_t(a, xv(c));
+#pragma unroll
+            for (int pp = 0; pp < 4; ++pp) {
+              if (2 * pp >= jb.nn) continue;
+              uint32_t r[4];
+              ldsm_x4_t(r, yrow + yv + hvp * c + 8 * (jb.nt0 + 2 * pp));
+#pragma unroll
+              for (int jj = 0; jj < 2; ++jj) {
+                uint32_t h0, l0, h1, l1;
+                split2(r[2 * jj], kr.s[0], kr.s[1], h0, l0);
+                split2(r[2 * jj + 1], kr.s[2], kr.s[3], h1, l1);
+                mma_bf16_16816(acc[2 * pp + jj], a, h0, h1);
+                mma_bf16_16816(acc[2 * pp + jj], a, l0, l1);
+              }
+            }
+          }
+        } else {
+          uint32_t x[3][4];
+#pragma unroll
+          for (int c = 0; c < 3; ++c) ldsm_x4_t(x[c], xv(c));
+          uint32_t ap[3][4];
+          dot_parts(ap, x, kr);
+#pragma unroll
+          for (int pp = 0; pp < 4; ++pp) {
+            if (2 * pp >= jb.nn) continue;
+            uint32_t r[4];
+            ldsm_x4_t(r, yrow + 8 * (jb.nt0 + 2 * pp));
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+              for (int pt = 0; pt < 3; ++pt)
+                mma_bf16_16816(acc[2 * pp + jj], ap[pt], r[2 * jj], r[2 * jj + 1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) slot[32 * j] = make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+    }
+    BWD_CLOCK(8);  // warp 0's weight-gradient jobs over the round's rows
+    __syncthreads();
+    BWD_CLOCK(9);  // waiting for the other warps' weight gradients
+  }
+
+  // ---- this block's weight gradients, once: partials[block] in the six
+  //      blocks' dense layout (W0a, W1Sa, W1Va, W0b, W1Sb, W1Vb)
+  const int s1 = 2 * hs + 1, v1 = 2 * hv, c0 = hs + hv;
+  float* out = ba.partials + (long)blockIdx.x * ((long)(s1 + v1) * c0 + (long)s1 * hv +
+                                                 (long)v1 * hv + (long)c0 * c0 + (long)hs * hv +
+                                                 (long)hv * hv);
+  float* o_w0a = out;
+  float* o_w1sa = o_w0a + (s1 + v1) * c0;
+  float* o_w1va = o_w1sa + s1 * hv;
+  float* o_w0b = o_w1va + v1 * hv;
+  float* o_w1sb = o_w0b + c0 * c0;
+  float* o_w1vb = o_w1sb + hs * hv;
+  for (int q = warp; q < njobs; q += nwarps) {
+    const Job jb = job_of(sh, q);
+    const float4* slot = reinterpret_cast<const float4*>(wacc + (long)q * 1024) + lane;
+    for (int j = 0; j < jb.nn; ++j) {
+      const float4 x = slot[32 * j];
+      const float acc[4] = {x.x, x.y, x.z, x.w};
+      const int nt = jb.nt0 + j;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = g + 8 * (e >> 1), col = 8 * nt + 2 * t4 + (e & 1);
+        if (jb.kind == 0) {  // rows of the scalar inputs x [O0 -> w0 | OA -> w1s]
+          const bool rcv = jb.layer == 1 && jb.mt >= 2 * sh.ns;
+          const int pr = 16 * (rcv ? jb.mt - 2 * sh.ns : jb.mt) + m;
+          if (pr >= hs) continue;
+          const int i = (rcv ? hs : 0) + pr;
+          int o, jj;
+          l1mma::out_col(sh, col, hs, hv, o, jj);
+          float* w0 = jb.layer == 1 ? o_w0a : o_w0b;
+          float* w1 = jb.layer == 1 ? o_w1sa : o_w1sb;
+          if (o >= 0) w0[i * c0 + o] = acc[e];
+          else if (jj >= 0) w1[i * hv + jj] = acc[e];
+        } else {
+          const bool rcv = jb.layer == 1 && jb.mt >= sh.nv;
+          const int pr = 16 * (rcv ? jb.mt - sh.nv : jb.mt) + m;
+          if (pr >= hv) continue;
+          if (jb.kind == 1) {  // w1v's rows (times CG011)
+            if (col < hv) (jb.layer == 1 ? o_w1va : o_w1vb)[((rcv ? hv : 0) + pr) * hv + col] =
+                kCG * acc[e];
+          } else {  // w0's dot rows (times CG110)
+            int o, jj;
+            l1mma::out_col(sh, col, hs, hv, o, jj);
+            const int i = jb.layer == 1 ? s1 + (rcv ? hv : 0) + pr : hs + pr;
+            if (o >= 0) (jb.layer == 1 ? o_w0a : o_w0b)[i * c0 + o] = kCG * acc[e];
+          }
+        }
+      }
+    }
+  }
+  // the d2 rows: the warps' sums in warp order
+  for (int col = threadIdx.x; col < np_; col += blockDim.x) {
+    float acc = 0.f;
+    for (int w = 0; w < nwarps; ++w) acc += d2acc[w * np_ + col];
+    int o, jj;
+    l1mma::out_col(sh, col, hs, hv, o, jj);
+    if (o >= 0) o_w0a[2 * hs * c0 + o] = acc;
+    else if (jj >= 0) o_w1sa[2 * hs * hv + jj] = acc;
+  }
+  if (!TAB) return;
+  __syncthreads();  // the staging region becomes the table sum's ints
+  for (int j = 0; j < my_items; ++j) {
+    const long tl = blockIdx.x + (long)j * gridDim.x;  // the gather tile
+    table_sum(ga.loc + tl * tile * k, ba.scratch + tl * tile * k * f, ba.dhu + tl * u * f,
+              PERM, START, CUR, tile * k, u, f, warp, lane, nwarps);
+  }
+  BWD_CLOCK(10);  // the block's weight gradients written, its tiles' table sums
 }
 
 template <Addr A>
@@ -1581,26 +2269,84 @@ long grid(int k, int tile, int u, long items) {
   return gr < items ? gr : items;
 }
 
-// the block count of a launch over n receivers (TAB: tiles of tile)
 template <Addr A>
+long grid_wide(const Wide& sh, int k, int tile, int u, long items) {
+  const int warps = wide_warps(sh, k, tile, u);
+  if (warps < 1) return -(long)cudaErrorInvalidValue;
+  const long smem = wide_smem_bytes(sh, k, tile, u, warps);
+  auto kern = fused_message_bwd_wide_mma<A>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return -(long)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, 32 * warps, smem);
+  if (err != cudaSuccess) return -(long)err;
+  if (per_sm < 1) return -(long)cudaErrorInvalidConfiguration;
+  const long gr = (long)sms * per_sm;
+  return gr < items ? gr : items;
+}
+
+// the block count of a launch over n receivers (TAB: tiles of tile) on the
+// Bench kernel, or (WIDE) the Wide kernel
+template <Addr A, bool WIDE>
 long grid_for(int hs, int hv, int k, int tile, int u, long n) {
-  if (!fits(hs, hv)) return -(long)cudaErrorInvalidValue;
-  if (A == Addr::kTab) return grid<A>(k, tile, u, n / tile);
-  const int G = unit_recv(k, 0);
-  const long units = (n + G - 1) / G;
-  return grid<A>(k, 0, 0, (units + kWarps - 1) / kWarps);
+  if constexpr (WIDE) {
+    if (!fits_wide(hs, hv)) return -(long)cudaErrorInvalidValue;
+    const Wide sh = wide_shape(hs, hv);
+    if (A == Addr::kTab) return grid_wide<A>(sh, k, tile, u, n / tile);
+    const int warps = wide_warps(sh, k, 0, 0);
+    if (warps < 1) return -(long)cudaErrorInvalidValue;
+    const int G = unit_recv(k, 0);
+    const long units = (n + G - 1) / G;
+    return grid_wide<A>(sh, k, 0, 0, (units + warps - 1) / warps);
+  } else {
+    if (!fits(hs, hv)) return -(long)cudaErrorInvalidValue;
+    if (A == Addr::kTab) return grid<A>(k, tile, u, n / tile);
+    const int G = unit_recv(k, 0);
+    const long units = (n + G - 1) / G;
+    return grid<A>(k, 0, 0, (units + kWarps - 1) / kWarps);
+  }
+}
+
+// shared memory a block of this library's bf16 main kernel takes (the Wide
+// kernel past the card: the bytes of one warp), and the floats of the Wide
+// kernel's weight-gradient accumulators a block
+__host__ inline long bf16_smem_bytes(int hs, int hv, int k, int tile, int u) {
+  if (!kWideLibrary) return smem_bytes(k, tile, u);
+  const Wide sh = wide_shape(hs, hv);
+  const int warps = wide_warps(sh, k, tile, u);
+  return wide_smem_bytes(sh, k, tile, u, warps > 0 ? warps : 1);
+}
+__host__ inline long bf16_wacc_floats(int hs, int hv) {
+  return kWideLibrary ? wide_wacc_floats(wide_shape(hs, hv)) : 0;
+}
+// where the Wide kernel's accumulators start past partials [grid][NW]: a
+// multiple of 4 floats (16-byte loads)
+__host__ inline long wacc_offset(int hs, int hv, int grid) {
+  const long nw = (2L * hs + 1 + 2L * hv) * (hs + hv) + (2L * hs + 1) * hv + 2L * hv * hv +
+                  (long)(hs + hv) * (hs + hv) + (long)hs * hv + (long)hv * hv;
+  return ((long)grid * nw + 3) / 4 * 4;
 }
 
 // in: h, d2, attr, maskf, loc, gtab, hs3 or hs, geo2, six weights, d_agg
 // (the unused ones null); out: d_hu, d_hr, d_hs scratch, d_hs (KM, FLAT)
-template <Addr A>
+template <Addr A, bool WIDE>
 int launch(const void* const* in, void* const* out, float* partials, int npad, int hs, int hv,
            int k, int tile, int u, int pack, int grid, cudaStream_t stream) {
-  if (!fits(hs, hv) || grid < 1 || (A == Addr::kTab && npad % tile != 0) || pack < 1 ||
-      k % pack != 0)
+  if (!(WIDE ? fits_wide(hs, hv) : fits(hs, hv)) || grid < 1 ||
+      (A == Addr::kTab && npad % tile != 0) || pack < 1 || k % pack != 0)
     return (int)cudaErrorInvalidValue;
-  const long smem = smem_bytes(k, A == Addr::kTab ? tile : 0, u);
-  auto kern = fused_message_bwd_mma<A>;
+  const int tl = A == Addr::kTab ? tile : 0;
+  const Wide sh = wide_shape(hs, hv);
+  const int warps = WIDE ? wide_warps(sh, k, tl, u) : kWarps;
+  if (warps < 1) return (int)cudaErrorInvalidValue;
+  const long smem = WIDE ? wide_smem_bytes(sh, k, tl, u, warps) : smem_bytes(k, tl, u);
+  auto kern = [] {
+    if constexpr (WIDE) return fused_message_bwd_wide_mma<A>;
+    else return fused_message_bwd_mma<A>;
+  }();
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1622,9 +2368,10 @@ int launch(const void* const* in, void* const* out, float* partials, int npad, i
   ba.scratch = static_cast<bf16*>(out[2]);
   ba.dhsp = static_cast<bf16*>(out[3]);
   ba.partials = partials;
+  ba.wacc = partials + wacc_offset(hs, hv, grid);
   ba.pack = pack;
   auto wt = [in](int i) { return static_cast<const bf16*>(in[i]); };
-  kern<<<grid, kThreads, smem, stream>>>(ga, wt(8), wt(9), wt(10), wt(11), wt(12), wt(13), ba);
+  kern<<<grid, 32 * warps, smem, stream>>>(ga, wt(8), wt(9), wt(10), wt(11), wt(12), wt(13), ba);
   return (int)cudaGetLastError();
 }
 
@@ -1633,7 +2380,8 @@ int launch(const void* const* in, void* const* out, float* partials, int npad, i
 // blocks: SMs x resident blocks, at most one per unit (tile, or group)
 template <typename T, Addr A>
 int grid_for(const Dims& d, int units) {
-  const size_t smem = smem_bytes(d);
+  const long smem = smem_bytes(d);
+  if (smem > gmma::kMaxSmem) return -(int)cudaErrorInvalidValue;
   auto kern = fused_message_tab_bwd_kernel<T, A>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1654,7 +2402,7 @@ template <typename T, Addr A>
 int launch(const void* const* in, void* const* out, float* partials, int npad, int hs,
            int hv, int k, int tile, int u, int pack, int grid, cudaStream_t stream) {
   const Dims d = make_dims(hs, hv, k, tile, u);
-  const size_t smem = smem_bytes(d);
+  const long smem = smem_bytes(d);
   auto kern = fused_message_tab_bwd_kernel<T, A>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1670,30 +2418,70 @@ int launch(const void* const* in, void* const* out, float* partials, int npad, i
   return (int)cudaGetLastError();
 }
 
+// The library's launch and grid of a dtype: built plain, fp32 on the FMA
+// kernel and bf16 on the Bench kernel (up to 32x0e+16x1o); built with
+// LMAX1_WIDE=1 (a second library of this source, compiled beside the
+// first), bf16 on the Wide kernel at any width.  The wrapper picks the
+// library by the widths.
+template <Addr A>
+int launch_dtype(int dtype, const void* const* in, void* const* out, float* partials, int npad,
+                 int hs, int hv, int k, int tile, int u, int pack, int grid, cudaStream_t st) {
+  if constexpr (kWideLibrary) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return mma::launch<A, true>(in, out, partials, npad, hs, hv, k, tile, u, pack, grid, st);
+  } else {
+    if (dtype == 0)
+      return launch<float, A>(in, out, partials, npad, hs, hv, k, tile, u, pack, grid, st);
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return mma::launch<A, false>(in, out, partials, npad, hs, hv, k, tile, u, pack, grid, st);
+  }
+}
+
+template <Addr A>
+long grid_dtype(int dtype, int hs, int hv, int k, int tile, int u, long n) {
+  if constexpr (kWideLibrary) {
+    if (dtype != 1) return -(long)cudaErrorInvalidValue;
+    return mma::grid_for<A, true>(hs, hv, k, tile, u, n);
+  } else {
+    const Dims d = make_dims(hs, hv, k, A == Addr::kTab ? tile : 0, A == Addr::kTab ? u : 0);
+    const int units = A == Addr::kTab ? (int)(n / tile) : (int)((n + d.g - 1) / d.g);
+    if (dtype == 0) return grid_for<float, A>(d, units);
+    if (dtype != 1) return -(long)cudaErrorInvalidValue;
+    return mma::grid_for<A, false>(hs, hv, k, tile, u, n);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block of the main kernel needs (bytes; dtype 0 =
-// float32, 1 = bfloat16); the wrapper checks it against the card's limit
-// before launching.
+// Shared memory one block of the main kernel needs in this library (bytes;
+// dtype 0 = float32, 1 = bfloat16); the wrapper checks it against the
+// card's limit before launching.
 long fused_message_tab_bwd_smem_bytes(int dtype, int hs, int hv, int k, int tile, int u) {
-  return dtype == 1 ? mma::smem_bytes(k, tile, u) : (long)smem_bytes(make_dims(hs, hv, k, tile, u));
+  return dtype == 0 ? smem_bytes(make_dims(hs, hv, k, tile, u))
+                    : mma::bf16_smem_bytes(hs, hv, k, tile, u);
+}
+
+// The floats of the buffer the main kernel's partials [grid][NW] start (fp32,
+// 16-byte aligned): the partials, then (the Wide kernel) its weight-gradient
+// accumulators [grid][jobs * 1024] from the next multiple of 4 floats.
+long fused_message_bwd_partials_floats(int dtype, int hs, int hv, int grid) {
+  const long wacc = dtype == 0 ? 0 : mma::bf16_wacc_floats(hs, hv);
+  return mma::wacc_offset(hs, hv, grid) + grid * wacc;
 }
 
 // Blocks of the main kernel (SMs x resident blocks, at most one per tile),
 // which sizes the per-block scratch and partials; negative: -(CUDA error).
 int fused_message_tab_bwd_grid(int dtype, int hs, int hv, int k, int tile, int u, int ntiles) {
-  if (dtype == 0) return grid_for<float, Addr::kTab>(make_dims(hs, hv, k, tile, u), ntiles);
-  if (dtype == 1) return (int)mma::grid_for<Addr::kTab>(hs, hv, k, tile, u, (long)ntiles * tile);
-  return -(int)cudaErrorInvalidValue;
+  return (int)grid_dtype<Addr::kTab>(dtype, hs, hv, k, tile, u, (long)ntiles * tile);
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  Inputs h, d2, attr, maskf, loc, gtab,
 // the six weight blocks and d_agg; outputs d_hu, d_hr; scratch (data type;
 // float32 [grid][tile*k][F], bfloat16 [Npad*k][F]) and partials [grid][NW]
-// (fp32).  Returns cudaGetLastError()
-// after the launch (0 on success).
+// (fp32, in a buffer of fused_message_bwd_partials_floats).  Returns
+// cudaGetLastError() after the launch (0 on success).
 int fused_message_tab_bwd(int dtype, const void* h, const void* d2, const void* attr,
                           const void* maskf, const void* loc, const void* gtab,
                           const void* w0a, const void* w1sa, const void* w1va,
@@ -1704,26 +2492,18 @@ int fused_message_tab_bwd(int dtype, const void* h, const void* d2, const void* 
   const void* in[15] = {h,   d2,   attr, maskf, loc,  gtab, nullptr, nullptr,
                         w0a, w1sa, w1va, w0b,   w1sb, w1vb, dagg};
   void* const out[4] = {dhu, dhr, scratch, nullptr};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* part = static_cast<float*>(partials);
-  if (dtype == 0)
-    return launch<float, Addr::kTab>(in, out, part, npad, hs, hv, k, tile, u, 1, grid, st);
-  if (dtype == 1)
-    return mma::launch<Addr::kTab>(in, out, part, npad, hs, hv, k, tile, u, 1, grid, st);
-  return (int)cudaErrorInvalidValue;
+  return launch_dtype<Addr::kTab>(dtype, in, out, static_cast<float*>(partials), npad, hs, hv, k,
+                                  tile, u, 1, grid, static_cast<cudaStream_t>(stream));
 }
 
 // The untabled (km) backward's main kernel.
 long fused_message_km_bwd_smem_bytes(int dtype, int hs, int hv, int k) {
-  return dtype == 1 ? mma::smem_bytes(k, 0, 0) : (long)smem_bytes(make_dims(hs, hv, k, 0, 0));
+  return dtype == 0 ? smem_bytes(make_dims(hs, hv, k, 0, 0))
+                    : mma::bf16_smem_bytes(hs, hv, k, 0, 0);
 }
 
 int fused_message_km_bwd_grid(int dtype, int hs, int hv, int k, int n) {
-  const Dims d = make_dims(hs, hv, k, 0, 0);
-  const int groups = (n + d.g - 1) / d.g;
-  if (dtype == 0) return grid_for<float, Addr::kKm>(d, groups);
-  if (dtype == 1) return (int)mma::grid_for<Addr::kKm>(hs, hv, k, 0, 0, n);
-  return -(int)cudaErrorInvalidValue;
+  return (int)grid_dtype<Addr::kKm>(dtype, hs, hv, k, 0, 0, n);
 }
 
 // Inputs hs3 [K, N, F], hr [N, F], geo2 [N, K*6], the six weight blocks and
@@ -1737,23 +2517,14 @@ int fused_message_km_bwd(int dtype, const void* hs3, const void* hr, const void*
   const void* in[15] = {hr,  nullptr, nullptr, nullptr, nullptr, nullptr, hs3, geo2,
                         w0a, w1sa,    w1va,    w0b,     w1sb,    w1vb,    dagg};
   void* const out[4] = {nullptr, dhr, nullptr, dhs};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* part = static_cast<float*>(partials);
-  if (dtype == 0)
-    return launch<float, Addr::kKm>(in, out, part, n, hs, hv, k, 0, 0, 1, grid, st);
-  if (dtype == 1)
-    return mma::launch<Addr::kKm>(in, out, part, n, hs, hv, k, 0, 0, 1, grid, st);
-  return (int)cudaErrorInvalidValue;
+  return launch_dtype<Addr::kKm>(dtype, in, out, static_cast<float*>(partials), n, hs, hv, k, 0,
+                                 0, 1, grid, static_cast<cudaStream_t>(stream));
 }
 
 // The packed node-major backward's main kernel (#7); its shared memory is
 // the km kernel's (fused_message_km_bwd_smem_bytes).
 int fused_message_flat_bwd_grid(int dtype, int hs, int hv, int k, int n) {
-  const Dims d = make_dims(hs, hv, k, 0, 0);
-  const int groups = (n + d.g - 1) / d.g;
-  if (dtype == 0) return grid_for<float, Addr::kFlat>(d, groups);
-  if (dtype == 1) return (int)mma::grid_for<Addr::kFlat>(hs, hv, k, 0, 0, n);
-  return -(int)cudaErrorInvalidValue;
+  return (int)grid_dtype<Addr::kFlat>(dtype, hs, hv, k, 0, 0, n);
 }
 
 // Inputs hs [N*K, F] (the TPU's [N*K/p, p*F]), hr [N, F], d2 [N*K], attr
@@ -1769,13 +2540,8 @@ int fused_message_flat_bwd(int dtype, const void* hs_rows, const void* hr, const
   const void* in[15] = {hr,  d2,   attr, maskf, nullptr, nullptr, hs_rows, nullptr,
                         w0a, w1sa, w1va, w0b,   w1sb,    w1vb,    dagg};
   void* const out[4] = {nullptr, dhr, nullptr, dhs};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* part = static_cast<float*>(partials);
-  if (dtype == 0)
-    return launch<float, Addr::kFlat>(in, out, part, n, hs, hv, k, 0, 0, pack, grid, st);
-  if (dtype == 1)
-    return mma::launch<Addr::kFlat>(in, out, part, n, hs, hv, k, 0, 0, pack, grid, st);
-  return (int)cudaErrorInvalidValue;
+  return launch_dtype<Addr::kFlat>(dtype, in, out, static_cast<float*>(partials), n, hs, hv, k,
+                                   0, 0, pack, grid, static_cast<cudaStream_t>(stream));
 }
 
 #ifdef LMAX1_BWD_CLOCKS

@@ -43,8 +43,12 @@
 // 16 rows that is 120 mma (1.42x the counted work: the dot lanes run as
 // three products).  Each warp fetches its next tile's rows by cp.async while
 // it multiplies the current one.  Three blocks of four warps share an SM.
+// Past 32x0e+16x1o the Wide kernel walks the same units a column block at a
+// time, stages the layer-1 outputs in shared memory (the layer-2 A rows) and
+// runs as many warps a block as shared memory holds beside the weights.
 // fp32 (the check path): the first form, kept: one block walks groups of G
-// receivers, stages the layer-1 inputs of every slot row in shared memory
+// receivers (fewer where a wide layer's rows would not fit beside its
+// weights), stages the layer-1 inputs of every slot row in shared memory
 // and runs the small GEMMs of each layer on the fp32 FMA units (each thread
 // a 4-row x 1-column accumulator tile), with block barriers between the
 // phases.
@@ -65,9 +69,15 @@
 
 #include "lmax1_mma.cuh"
 
+// LMAX1_WIDE=1: the library of the Wide kernels (see launch_dtype)
+#ifndef LMAX1_WIDE
+#define LMAX1_WIDE 0
+#endif
+
 namespace {
 
 using l1mma::Addr;
+constexpr bool kWideLibrary = LMAX1_WIDE != 0;
 
 constexpr float kCG110 = 0.57735026918962576451f;  // 1/sqrt(3)
 constexpr float kCG011 = 0.57735026918962576451f;  // 1/sqrt(3)
@@ -97,16 +107,6 @@ struct Dims {
   int s1, v1, c0, f;               // 2hs+1, 2hv, hs+hv, hs+3hv
 };
 
-__host__ __device__ inline Dims make_dims(int hs, int hv, int k) {
-  Dims d;
-  d.hs = hs; d.hv = hv; d.k = k;
-  d.g = k >= kTargetRows ? 1 : kTargetRows / k;
-  d.rows = d.g * k;
-  d.rows_p = (d.rows + kRowTile - 1) / kRowTile * kRowTile;
-  d.s1 = 2 * hs + 1; d.v1 = 2 * hv; d.c0 = hs + hv; d.f = hs + 3 * hv;
-  return d;
-}
-
 __host__ __device__ inline long weight_floats(const Dims& d) {
   return (long)(d.s1 + d.v1) * d.c0 + (long)d.s1 * d.hv + (long)d.v1 * d.hv +
          (long)d.c0 * d.c0 + (long)d.hs * d.hv + (long)d.hv * d.hv;
@@ -117,9 +117,22 @@ __host__ __device__ inline long row_floats(const Dims& d) {
   return (long)(d.s1 + d.v1) + d.s1 + 3L * d.v1 + d.c0 + d.hv + 3L * d.hv + 5;
 }
 
-__host__ inline size_t smem_bytes(const Dims& d) {
+__host__ __device__ inline long smem_bytes(const Dims& d) {
   return sizeof(float) * (weight_floats(d) + row_floats(d) * d.rows_p) +
          sizeof(int) * d.rows_p;
+}
+
+// G receivers a group: 48 slot rows at most, fewer where a wide layer's
+// rows would not fit shared memory beside its weights
+__host__ __device__ inline Dims make_dims(int hs, int hv, int k) {
+  Dims d;
+  d.hs = hs; d.hv = hv; d.k = k;
+  d.s1 = 2 * hs + 1; d.v1 = 2 * hv; d.c0 = hs + hv; d.f = hs + 3 * hv;
+  for (d.g = k >= kTargetRows ? 1 : kTargetRows / k;; --d.g) {
+    d.rows = d.g * k;
+    d.rows_p = (d.rows + kRowTile - 1) / kRowTile * kRowTile;
+    if (d.g == 1 || smem_bytes(d) <= gmma::kMaxSmem) return d;
+  }
 }
 
 // Y[r][j] = sum_i X[r][i] W[i][j] for r < nrows (a multiple of kRowTile)
@@ -406,7 +419,7 @@ fused_message_fwd_mma(GatherArgs ga, const bf16* __restrict__ w0a, const bf16* _
   // the padded lanes of both buffers stay zero
   for (long x = lane; x < 2 * bb / 16; x += 32)
     reinterpret_cast<uint4*>(wp)[x] = make_uint4(0u, 0u, 0u, 0u);
-  stage_weights<KM>(W, d2w, w0a, w1sa, w1va, w0b, w1sb, w1vb, ga.hs, ga.hv);
+  stage_weights<KM>(l1mma::Bench(), W, d2w, w0a, w1sa, w1va, w0b, w1sb, w1vb, ga.hs, ga.hv);
   __syncthreads();
 
   // (npad K < 2^31, checked by the wrapper: int arithmetic throughout)
@@ -509,6 +522,190 @@ int launch(const GatherArgs& ga, const void* const* w, void* out, int pack, cuda
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 past 32x0e+16x1o: the Wide kernel, the same walk over units and tiles
+// with the layers a column block at a time (lmax1_mma.cuh: sblock, vblock).
+// The layer-1 gates go into a per-warp staging M [16][ldf] (the layer-2 A
+// rows, read back by ldmatrix), the layer-2 messages into the K-sum buffer
+// [16][ldk] fp32; the warps a block are as many as shared memory holds
+// beside the weights (at most kWideWarps).
+using l1mma::gate_s; using l1mma::gate_v; using l1mma::KSumN; using l1mma::kWideCols;
+using l1mma::LayerIn; using l1mma::sblock; using l1mma::vblock; using l1mma::Wide;
+using l1mma::wide_shape;
+
+constexpr int kWideWarps = 4;
+
+__host__ __device__ inline long wide_warp_bytes(const Wide& sh, int k) {
+  return 2 * buf_bytes(sh, k, false) + align16(2L * 16 * sh.ldf()) + align16(4L * 16 * sh.ldk());
+}
+__host__ inline long wide_smem_bytes(const Wide& sh, int k, int warps) {
+  return weight_bytes(sh) + warps * wide_warp_bytes(sh, k);
+}
+// the warps a block (0: none fits)
+__host__ inline int wide_warps(const Wide& sh, int k) {
+  int w = kWideWarps;
+  while (w > 0 && wide_smem_bytes(sh, k, w) > gmma::kMaxSmem) --w;
+  return w;
+}
+
+template <Addr A>
+__global__ void __launch_bounds__(32 * kWideWarps)
+fused_message_fwd_wide_mma(GatherArgs ga, const bf16* __restrict__ w0a,
+                           const bf16* __restrict__ w1sa, const bf16* __restrict__ w1va,
+                           const bf16* __restrict__ w0b, const bf16* __restrict__ w1sb,
+                           const bf16* __restrict__ w1vb, bf16* __restrict__ out, int pack) {
+  constexpr bool KM = A == Addr::kKm, FLAT = A == Addr::kFlat;
+  const Wide sh = wide_shape(ga.hs, ga.hv);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* W = reinterpret_cast<bf16*>(smem_raw);
+  float* d2w = reinterpret_cast<float*>(smem_raw + align16(2L * sh.wrows() * sh.ldw()));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int k = ga.k, ldf = sh.ldf(), ldk = sh.ldk();
+  const long bb = buf_bytes(sh, k, false);
+  unsigned char* wp = smem_raw + weight_bytes(sh) + warp * wide_warp_bytes(sh, k);
+  bf16* M = reinterpret_cast<bf16*>(wp + 2 * bb);  // [16][ldf]: m0 | m1_0 | m1_1 | m1_2
+  float* kbuf = reinterpret_cast<float*>(wp + 2 * bb + align16(2L * 16 * ldf));
+  for (long x = lane; x < 2 * bb / 16; x += 32)
+    reinterpret_cast<uint4*>(wp)[x] = make_uint4(0u, 0u, 0u, 0u);
+  stage_weights<KM>(sh, W, d2w, w0a, w1sa, w1va, w0b, w1sb, w1vb, ga.hs, ga.hv);
+  __syncthreads();
+
+  const int G = unit_recv(k, 0), T = unit_tiles(k, 0);
+  const int units = (ga.npad + G - 1) / G;
+  const int first = blockIdx.x * warps + warp, stride = gridDim.x * warps;
+  const int nit = first < units ? (units - first + stride - 1) / stride * T : 0;
+  auto ref = [&](int it) {
+    const int un = first + it / T * stride;
+    TileRef tr;
+    tr.node0 = un * G;
+    tr.nrecv = ga.npad - tr.node0 < G ? ga.npad - tr.node0 : G;
+    tr.q0 = it % T * 16;
+    tr.slot0 = 0;
+    return tr;
+  };
+  const float cgd = KM ? 1.0f : kCG;
+  KSumN<kWideCols> ks;
+  ksum_init(ks);
+  if (nit > 0) {
+    gather_tile<A>(carve_buf(sh, wp, k, false), ref(0), ga, lane, sh);
+    cp_async_commit();
+  }
+  for (int it = 0; it < nit; ++it) {
+    if (it + 1 < nit) {
+      gather_tile<A>(carve_buf(sh, wp + ((it + 1) & 1) * bb, k, false), ref(it + 1), ga, lane, sh);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+    const Buf b = carve_buf(sh, wp + (it & 1) * bb, k, false);
+    const TileRef tr = ref(it);
+    const RowGeo rg = row_geo(b.geo, g);
+    const int ar = lane & 15, ac = (lane >> 4) * 8;
+    // ---- layer 1, its gates into M
+    const LayerIn l1{b.s + ar * ldf + ac, b.r + b.ri[ar] * ldf + ac, sh.w1s(), sh.w1v(), true};
+    for (int blk = 0; blk < sh.ns; ++blk) {
+      float o[4][4];
+      sblock(sh, W, d2w, l1, rg, cgd, lane, blk, o);
+      gate_s(o, M, ldf, 0, 32 * blk, lane);
+    }
+    for (int blk = 0; blk < sh.nv; ++blk) {
+      float og[2][4], oa[2][4], ob[3][2][4];
+      vblock(sh, W, d2w, l1, rg, cgd, lane, blk, og, oa, ob);
+      gate_v<KM>(sh, og, oa, ob, rg, M, ldf, 0, blk, lane);
+    }
+    __syncwarp();
+    // ---- layer 2 on M, its gates and the mask: each slot's message (TAB,
+    //      KM rounded to bf16; FLAT in fp32, rounded per group in the K-sum)
+    const LayerIn l2{M + ar * ldf + ac, nullptr, sh.w2s(), sh.w2v(), false};
+    auto msg = [&](float m, int h) {
+      const float mk = rg.mk(h);
+      return mk != 0.f ? (FLAT ? m * mk : rnd(m * mk)) : 0.f;
+    };
+    for (int blk = 0; blk < sh.ns; ++blk) {
+      float o[4][4];
+      sblock(sh, W, d2w, l2, rg, cgd, lane, blk, o);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* row = kbuf + (g + 8 * h) * ldk + 32 * blk + 2 * t4;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const float x0 = o[nt][2 * h], x1 = o[nt][2 * h + 1];
+          *reinterpret_cast<float2*>(row + nt * 8) =
+              make_float2(msg(x0 * sigm(x0), h), msg(x1 * sigm(x1), h));
+        }
+      }
+    }
+    for (int blk = 0; blk < sh.nv; ++blk) {
+      float og[2][4], oa[2][4], ob[3][2][4];
+      vblock(sh, W, d2w, l2, rg, cgd, lane, blk, og, oa, ob);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* row = kbuf + (g + 8 * h) * ldk + sh.hsp() + 16 * blk + 2 * t4;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float m[3][2];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int q = 2 * h + j;
+            const float gt = KM ? rnd(sigm(og[i][q])) : sigm(og[i][q]);
+            const float a = KM ? rnd(oa[i][q]) : oa[i][q];
+#pragma unroll
+            for (int c = 0; c < 3; ++c)
+              m[c][j] = msg(kCG * fmaf(rg.v(h, c), a, ob[c][i][q]) * gt, h);
+          }
+#pragma unroll
+          for (int c = 0; c < 3; ++c)
+            *reinterpret_cast<float2*>(row + sh.hvp() * c + 8 * i) = make_float2(m[c][0], m[c][1]);
+        }
+      }
+    }
+    __syncwarp();
+    ksum_tile<FLAT>(ks, kbuf, tr, k, pack, ga.hs, ga.hv, out, lane, sh);
+    __syncwarp();
+  }
+}
+
+template <Addr A>
+int launch_wide(const GatherArgs& ga, const void* const* w, void* out, int pack,
+                cudaStream_t stream) {
+  if (!l1mma::fits_wide(ga.hs, ga.hv) || pack < 1 || ga.k % pack != 0)
+    return (int)cudaErrorInvalidValue;
+  const Wide sh = wide_shape(ga.hs, ga.hv);
+  const int warps = wide_warps(sh, ga.k);
+  if (warps < 1) return (int)cudaErrorInvalidValue;
+  const long smem = wide_smem_bytes(sh, ga.k, warps);
+  auto kern = fused_message_fwd_wide_mma<A>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, 32 * warps, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int G = unit_recv(ga.k, 0);
+  const long units = (ga.npad + G - 1) / G;
+  long grid = (long)sms * per_sm;
+  if (grid > (units + warps - 1) / warps) grid = (units + warps - 1) / warps;
+  if (grid < 1) grid = 1;
+  auto wt = [w](int i) { return static_cast<const bf16*>(w[i]); };
+  kern<<<(int)grid, 32 * warps, smem, stream>>>(ga, wt(0), wt(1), wt(2), wt(3), wt(4), wt(5),
+                                                static_cast<bf16*>(out), pack);
+  return (int)cudaGetLastError();
+}
+
+// shared memory a block of the Wide kernel takes (past the card: the bytes
+// of one warp)
+__host__ inline long wide_bytes(int hs, int hv, int k) {
+  const Wide sh = wide_shape(hs, hv);
+  const int warps = wide_warps(sh, k);
+  return wide_smem_bytes(sh, k, warps > 0 ? warps : 1);
+}
+
 inline GatherArgs gather_args(const void* h, const void* hsp, const void* d2, const void* attr,
                               const void* maskf, const void* loc, const void* gtab,
                               const void* geo2, int npad, int hs, int hv, int k, int tile, int u) {
@@ -538,8 +735,8 @@ int launch_fma(const void* h, const void* d2, const void* attr, const void* mask
                int tile, int u, int pack, cudaStream_t stream) {
   typedef float T;
   const Dims d = make_dims(hs, hv, k);
-  const size_t smem = smem_bytes(d);
-  if (pack < 1 || k % pack != 0) return (int)cudaErrorInvalidValue;
+  const long smem = smem_bytes(d);
+  if (pack < 1 || k % pack != 0 || smem > gmma::kMaxSmem) return (int)cudaErrorInvalidValue;
   auto kern = fused_message_tab_fwd_kernel<T, A>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -564,15 +761,42 @@ int launch_fma(const void* h, const void* d2, const void* attr, const void* mask
   return (int)cudaGetLastError();
 }
 
+// The library's launch of a dtype: built plain, fp32 on the FMA kernel and
+// bf16 on the Bench kernel (up to 32x0e+16x1o); built with LMAX1_WIDE=1
+// (a second library of this source, compiled beside the first), bf16 on the
+// Wide kernel at any width.  The wrapper picks the library by the widths.
+template <Addr A>
+int launch_dtype(int dtype, const void* h, const void* hsp, const void* d2, const void* attr,
+                 const void* maskf, const void* loc, const void* gtab, const void* geo2,
+                 const void* const* w, void* out, int npad, int hs, int hv, int k, int tile,
+                 int u, int pack, cudaStream_t st) {
+  if constexpr (kWideLibrary) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return mma::launch_wide<A>(
+        mma::gather_args(h, hsp, d2, attr, maskf, loc, gtab, geo2, npad, hs, hv, k, tile, u), w,
+        out, pack, st);
+  } else {
+    if (dtype == 0)
+      return launch_fma<A>(h, d2, attr, maskf, static_cast<const int*>(loc),
+                           static_cast<const int*>(gtab), hsp, geo2, w[0], w[1], w[2], w[3], w[4],
+                           w[5], out, npad, hs, hv, k, tile, u, pack, st);
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return mma::launch<A>(
+        mma::gather_args(h, hsp, d2, attr, maskf, loc, gtab, geo2, npad, hs, hv, k, tile, u), w,
+        out, pack, st);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // Shared memory one block needs for these widths (bytes; dtype 0 = float32,
-// 1 = bfloat16); the wrapper checks it against the card's limit before
-// launching.
+// 1 = bfloat16) in this library; the wrapper checks it against the card's
+// limit before launching.
 long fused_message_tab_fwd_smem_bytes(int dtype, int hs, int hv, int k) {
-  return dtype == 1 ? mma::smem_bytes(k) : (long)smem_bytes(make_dims(hs, hv, k));
+  if (dtype == 0) return smem_bytes(make_dims(hs, hv, k));
+  return kWideLibrary ? mma::wide_bytes(hs, hv, k) : mma::smem_bytes(k);
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
@@ -582,19 +806,9 @@ int fused_message_tab_fwd(int dtype, const void* h, const void* d2, const void* 
                           const void* w0a, const void* w1sa, const void* w1va,
                           const void* w0b, const void* w1sb, const void* w1vb, void* out,
                           int npad, int hs, int hv, int k, int tile, int u, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_fma<Addr::kTab>(h, d2, attr, maskf, static_cast<const int*>(loc),
-                                  static_cast<const int*>(gtab), nullptr, nullptr, w0a, w1sa,
-                                  w1va, w0b, w1sb, w1vb, out, npad, hs, hv, k, tile, u, 1, st);
-  if (dtype == 1) {
-    const void* w[6] = {w0a, w1sa, w1va, w0b, w1sb, w1vb};
-    return mma::launch<Addr::kTab>(
-        mma::gather_args(h, nullptr, d2, attr, maskf, loc, gtab, nullptr, npad, hs, hv, k,
-                         tile, u),
-        w, out, 1, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  const void* w[6] = {w0a, w1sa, w1va, w0b, w1sb, w1vb};
+  return launch_dtype<Addr::kTab>(dtype, h, nullptr, d2, attr, maskf, loc, gtab, nullptr, w, out,
+                                  npad, hs, hv, k, tile, u, 1, static_cast<cudaStream_t>(stream));
 }
 
 // The untabled (km) forward: hs3 [K, N, F], hr [N, F], geo2 [N, K*6], the six
@@ -603,19 +817,10 @@ int fused_message_km_fwd(int dtype, const void* hs3, const void* hr, const void*
                          const void* w0a, const void* w1sa, const void* w1va,
                          const void* w0b, const void* w1sb, const void* w1vb, void* out,
                          int n, int hs, int hv, int k, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_fma<Addr::kKm>(hr, nullptr, nullptr, nullptr, nullptr, nullptr, hs3, geo2,
-                                 w0a, w1sa, w1va, w0b, w1sb, w1vb, out, n, hs, hv, k, n, 0, 1,
-                                 st);
-  if (dtype == 1) {
-    const void* w[6] = {w0a, w1sa, w1va, w0b, w1sb, w1vb};
-    return mma::launch<Addr::kKm>(
-        mma::gather_args(hr, hs3, nullptr, nullptr, nullptr, nullptr, nullptr, geo2, n, hs, hv,
-                         k, n, 0),
-        w, out, 1, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  const void* w[6] = {w0a, w1sa, w1va, w0b, w1sb, w1vb};
+  return launch_dtype<Addr::kKm>(dtype, hr, hs3, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                 geo2, w, out, n, hs, hv, k, n, 0, 1,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 // The packed node-major forward (#6): hs [N*K, F] (the TPU's [N*K/p, p*F]),
@@ -626,19 +831,10 @@ int fused_message_flat_fwd(int dtype, const void* hs_rows, const void* hr, const
                            const void* w1sa, const void* w1va, const void* w0b,
                            const void* w1sb, const void* w1vb, void* out, int n, int hs,
                            int hv, int k, int pack, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_fma<Addr::kFlat>(hr, d2, attr, maskf, nullptr, nullptr, hs_rows, nullptr,
-                                   w0a, w1sa, w1va, w0b, w1sb, w1vb, out, n, hs, hv, k, n, 0,
-                                   pack, st);
-  if (dtype == 1) {
-    const void* w[6] = {w0a, w1sa, w1va, w0b, w1sb, w1vb};
-    return mma::launch<Addr::kFlat>(
-        mma::gather_args(hr, hs_rows, d2, attr, maskf, nullptr, nullptr, nullptr, n, hs, hv, k,
-                         n, 0),
-        w, out, pack, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  const void* w[6] = {w0a, w1sa, w1va, w0b, w1sb, w1vb};
+  return launch_dtype<Addr::kFlat>(dtype, hr, hs_rows, d2, attr, maskf, nullptr, nullptr,
+                                   nullptr, w, out, n, hs, hv, k, n, 0, pack,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -16,11 +16,20 @@
 // engine rounds where the TPU kernel rounds; its fp32 sums run in another
 // order.
 //
-// Padded widths.  Scalars pad to kHS = 32 lanes and vectors to kHV = 16 a
-// component (zero weights and zero inputs in the pads), so every GEMM has a
-// fixed shape: each layer's columns are [O0 (32 scalar + 16 gate) | OA or OB
-// (16)] = 64, four 16-column pairs of n-tiles.  Widths beyond those raise in
-// the wrappers.
+// Padded widths.  Scalars pad to multiples of 32 lanes and vectors to
+// multiples of 16 a component (zero weights and zero inputs in the pads).
+// Each layer's columns are [O0 (scalars | gates) | OA or OB]; a column block
+// is either 32 scalar columns (silu) or 16 vector channels with their 16
+// gate columns and 16 OA (or OB) columns, so that a channel's gate, A and
+// B_c sit in one block.  At 32x0e+16x1o (the Bench shape, fixed at compile
+// time) there is one block of each, [O0 (32 + 16) | OA (16)] = 64 columns,
+// and the kernels hold a tile's whole layer in registers.  Wider layers (the
+// Wide shape, counted at run time) run the wide kernels, which walk the
+// blocks one at a time (a column block changes no column's fp32 sum: each
+// is summed over the same k-steps in the same order), pass the layer-1
+// outputs to layer 2 through shared memory, and, backward, keep the weight
+// gradients in global memory (see the backward source); they are each
+// source's second library (built with LMAX1_WIDE=1).
 //
 // Shape of the work.  A warp owns 16-row mma tiles of slot rows and walks
 // units of G whole receivers (G K rows rounded up to 16), so the K-sums run
@@ -63,7 +72,7 @@ enum class Addr {
 };
 
 constexpr float kCG = 0.57735026918962576451f;  // CG110 = CG011 = 1/sqrt(3)
-constexpr int kHS = 32, kHV = 16;   // padded scalar / vector widths
+constexpr int kHS = 32, kHV = 16;   // the Bench shape's padded scalar / vector widths
 constexpr int kC0 = kHS + kHV;      // 48: O0 columns
 constexpr int kN = kC0 + kHV;       // 64: a layer GEMM's columns [O0 | OA or OB]
 constexpr int kFP = kHS + 3 * kHV;  // 80: a padded feature row [s | v0 | v1 | v2]
@@ -80,8 +89,57 @@ constexpr int kW2v = 128;  // 16: m1 -> [O0 dot | OB]
 constexpr int kWRows = 144;
 constexpr int kTargetRows = 48;  // slot rows per unit (G = max(1, 48 / K))
 
+// ---------------------------------------------------------------------------
+// The padded shapes: ns scalar blocks of 32 lanes, nv vector blocks of 16
+// channels.  Bench fixes them at one each (the constants above); Wide counts
+// them at run time.  Shape<B> derives every width, stride and weight row
+// from them (at Bench each equals its constant above).
+struct BenchBlocks {
+  static constexpr int ns = 1, nv = 1;
+};
+struct WideBlocks {
+  int ns, nv;
+};
+
+template <class B> struct Shape : B {
+  __host__ __device__ constexpr int hsp() const { return 32 * this->ns; }  // padded scalars
+  __host__ __device__ constexpr int hvp() const { return 16 * this->nv; }  // padded vectors
+  __host__ __device__ constexpr int c0() const { return hsp() + hvp(); }   // O0 columns
+  __host__ __device__ constexpr int n() const { return c0() + hvp(); }     // [O0 | OA or OB]
+  __host__ __device__ constexpr int fp() const { return hsp() + 3 * hvp(); }  // [s | v0 | v1 | v2]
+  __host__ __device__ constexpr int chunks() const { return fp() / 8; }
+  // row strides (elements): 8 past a multiple of 16, an odd count of 16-byte
+  // chunks (conflict-free ldmatrix)
+  __host__ __device__ constexpr int ldf() const { return fp() + 8; }  // feature rows
+  __host__ __device__ constexpr int ldw() const { return n() + 8; }   // weight rows
+  __host__ __device__ constexpr int ldk() const { return fp() + 8; }  // K-sum rows
+  // the weight rows: [in][n] per GEMM: layer 1's sender | receiver scalars,
+  // its sender | receiver vector lanes, layer 2's m0, its m1
+  __host__ __device__ constexpr int w1s() const { return 0; }
+  __host__ __device__ constexpr int w1v() const { return 2 * hsp(); }
+  __host__ __device__ constexpr int w2s() const { return 2 * hsp() + 2 * hvp(); }
+  __host__ __device__ constexpr int w2v() const { return 3 * hsp() + 2 * hvp(); }
+  __host__ __device__ constexpr int wrows() const { return 3 * hsp() + 3 * hvp(); }
+};
+typedef Shape<BenchBlocks> Bench;
+typedef Shape<WideBlocks> Wide;
+
+__host__ __device__ inline Wide wide_shape(int hs, int hv) {
+  Wide s;
+  s.ns = hs <= 32 ? 1 : (hs + 31) / 32;
+  s.nv = hv <= 16 ? 1 : (hv + 15) / 16;
+  return s;
+}
+
+// the widths the Bench kernels take
 __host__ __device__ inline bool fits(int hs, int hv) {
   return hs >= 1 && hs <= kHS && hv >= 0 && hv <= kHV;
+}
+// the K-sum's columns a lane at most (Wide: a padded row of up to 384
+// columns; every width whose weights fit shared memory is narrower)
+constexpr int kWideCols = 12;
+__host__ __device__ inline bool fits_wide(int hs, int hv) {
+  return hs >= 1 && hv >= 0 && wide_shape(hs, hv).fp() <= 32 * kWideCols;
 }
 // receivers per unit and 16-row tiles per unit
 __host__ __device__ inline int unit_recv(int k, int tile) {
@@ -96,15 +154,17 @@ __host__ __device__ inline int unit_tiles(int k, int tile) {
 __host__ __device__ inline int tile_recv(int k) { return (15 + k - 1) / k + 1; }
 
 __host__ __device__ inline long align16(long b) { return (b + 15) / 16 * 16; }
-__host__ __device__ inline long weight_bytes() {
-  return align16(2L * kWRows * kLdW) + align16(4L * kN);
+template <class S> __host__ __device__ inline long weight_bytes(const S& sh) {
+  return align16(2L * sh.wrows() * sh.ldw()) + align16(4L * sh.n());
 }
+__host__ __device__ inline long weight_bytes() { return weight_bytes(Bench()); }
 // one warp's gather buffer: sender rows, receiver rows (and, backward,
 // d_agg rows), geometry [16][8] fp32, receiver index [16], sender id [16]
-__host__ __device__ inline long buf_bytes(int k, bool dagg) {
-  return align16(2L * 16 * kLdF) + (dagg ? 2 : 1) * align16(2L * tile_recv(k) * kLdF) +
+template <class S> __host__ __device__ inline long buf_bytes(const S& sh, int k, bool dagg) {
+  return align16(2L * 16 * sh.ldf()) + (dagg ? 2 : 1) * align16(2L * tile_recv(k) * sh.ldf()) +
          align16(4L * 16 * 8) + align16(4L * 16) + align16(4L * 16);
 }
+__host__ __device__ inline long buf_bytes(int k, bool dagg) { return buf_bytes(Bench(), k, dagg); }
 
 __device__ __forceinline__ float bf(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float bf(float x) { return x; }
@@ -119,52 +179,55 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 // the padded column pc of a feature row -> the feature column, or -1
-__device__ __forceinline__ int feat_col(int pc, int hs, int hv) {
-  if (pc < kHS) return pc < hs ? pc : -1;
-  const int c = (pc - kHS) / kHV, j = (pc - kHS) % kHV;
+template <class S>
+__device__ __forceinline__ int feat_col(const S& sh, int pc, int hs, int hv) {
+  if (pc < sh.hsp()) return pc < hs ? pc : -1;
+  const int c = (pc - sh.hsp()) / sh.hvp(), j = (pc - sh.hsp()) % sh.hvp();
   return c < 3 && j < hv ? hs + c * hv + j : -1;
 }
-// the padded output column of a layer (< kN) -> O0 column (o) or OA/OB
+// the padded output column of a layer (< n) -> O0 column (o) or OA/OB
 // column (jj), the other -1
-__device__ __forceinline__ void out_col(int col, int hs, int hv, int& o, int& jj) {
+template <class S>
+__device__ __forceinline__ void out_col(const S& sh, int col, int hs, int hv, int& o, int& jj) {
   o = jj = -1;
-  if (col < kHS) { if (col < hs) o = col; }
-  else if (col < kC0) { if (col - kHS < hv) o = hs + col - kHS; }
-  else if (col < kN) { if (col - kC0 < hv) jj = col - kC0; }
+  if (col < sh.hsp()) { if (col < hs) o = col; }
+  else if (col < sh.c0()) { if (col - sh.hsp() < hv) o = hs + col - sh.hsp(); }
+  else if (col < sh.n()) { if (col - sh.c0() < hv) jj = col - sh.c0(); }
 }
 
 // ---------------------------------------------------------------------------
 // The weights, once per block: the six folded blocks (the TPU kernel's,
-// reference row layout split) into W [kWRows][kLdW] bf16 and the d2 rows of
-// W0a and W1Sa into d2w [kN] fp32.  KM: the W0 vector rows are CG110 times
+// reference row layout split) into W [wrows][ldw] bf16 and the d2 rows of
+// W0a and W1Sa into d2w [n] fp32.  KM: the W0 vector rows are CG110 times
 // the weight, rounded (the km2 form's w0v).
-template <bool KM>
-__device__ void stage_weights(bf16* W, float* d2w, const bf16* w0a, const bf16* w1sa,
-                              const bf16* w1va, const bf16* w0b, const bf16* w1sb,
-                              const bf16* w1vb, int hs, int hv) {
+template <bool KM, class S>
+__device__ void stage_weights(const S& sh, bf16* W, float* d2w, const bf16* w0a,
+                              const bf16* w1sa, const bf16* w1va, const bf16* w0b,
+                              const bf16* w1sb, const bf16* w1vb, int hs, int hv) {
   const int s1 = 2 * hs + 1, c0 = hs + hv;
+  const int hsp = sh.hsp(), hvp = sh.hvp(), ldw = sh.ldw();
   const float cg_t = rnd(kCG);
-  for (int x = threadIdx.x; x < kWRows * kLdW; x += blockDim.x) {
-    const int r = x / kLdW, col = x % kLdW;
+  for (int x = threadIdx.x; x < sh.wrows() * ldw; x += blockDim.x) {
+    const int r = x / ldw, col = x % ldw;
     int o, jj;
-    out_col(col, hs, hv, o, jj);
+    out_col(sh, col, hs, hv, o, jj);
     const bf16 *src0 = nullptr, *src1 = nullptr;
     int i0 = 0, i1 = 0, w1 = hv;
     bool vec = false;
-    if (r < kW1v) {
-      const int p = r & 31;
-      if (p < hs) { i0 = i1 = r < 32 ? p : hs + p; src0 = w0a; src1 = w1sa; }
-    } else if (r < kW2s) {
-      const int p = (r - kW1v) & 15;
+    if (r < sh.w1v()) {
+      const int p = r % hsp;
+      if (p < hs) { i0 = i1 = r < hsp ? p : hs + p; src0 = w0a; src1 = w1sa; }
+    } else if (r < sh.w2s()) {
+      const int p = (r - sh.w1v()) % hvp;
       if (p < hv) {
-        const int l = r - kW1v < 16 ? p : hv + p;
+        const int l = r - sh.w1v() < hvp ? p : hv + p;
         i0 = s1 + l; i1 = l; src0 = w0a; src1 = w1va; vec = true;
       }
-    } else if (r < kW2v) {
-      const int p = r - kW2s;
+    } else if (r < sh.w2v()) {
+      const int p = r - sh.w2s();
       if (p < hs) { i0 = i1 = p; src0 = w0b; src1 = w1sb; }
     } else {
-      const int p = r - kW2v;
+      const int p = r - sh.w2v();
       if (p < hv) { i0 = hs + p; i1 = p; src0 = w0b; src1 = w1vb; vec = true; }
     }
     float v = 0.f;
@@ -178,9 +241,9 @@ __device__ void stage_weights(bf16* W, float* d2w, const bf16* w0a, const bf16* 
     }
     W[x] = __float2bfloat16(v);
   }
-  for (int col = threadIdx.x; col < kN; col += blockDim.x) {
+  for (int col = threadIdx.x; col < sh.n(); col += blockDim.x) {
     int o, jj;
-    out_col(col, hs, hv, o, jj);
+    out_col(sh, col, hs, hv, o, jj);
     d2w[col] = o >= 0 ? bf(w0a[2 * hs * c0 + o]) : jj >= 0 ? bf(w1sa[2 * hs * hv + jj]) : 0.f;
   }
 }
@@ -196,29 +259,33 @@ struct TileRef {
 
 // one warp's buffer in shared memory
 struct Buf {
-  bf16* s;     // [16][kLdF] sender rows (zeros: no sender)
-  bf16* r;     // [tile_recv][kLdF] receiver rows
-  bf16* d;     // [tile_recv][kLdF] d_agg rows (backward)
+  bf16* s;     // [16][ldf] sender rows (zeros: no sender)
+  bf16* r;     // [tile_recv][ldf] receiver rows
+  bf16* d;     // [tile_recv][ldf] d_agg rows (backward)
   float* geo;  // [16][8]: s, vx, vy, vz, mask, d2
   int* ri;     // [16] each row's receiver row in r
   int* snd;    // [16] each row's sender row (-1: none)
 };
 
-__device__ inline Buf carve_buf(unsigned char* p, int k, bool dagg) {
+template <class S>
+__device__ inline Buf carve_buf(const S& sh, unsigned char* p, int k, bool dagg) {
   Buf b;
   const int rw = tile_recv(k);
   b.s = reinterpret_cast<bf16*>(p);
-  p += align16(2L * 16 * kLdF);
+  p += align16(2L * 16 * sh.ldf());
   b.r = reinterpret_cast<bf16*>(p);
-  p += align16(2L * rw * kLdF);
+  p += align16(2L * rw * sh.ldf());
   b.d = reinterpret_cast<bf16*>(p);
-  if (dagg) p += align16(2L * rw * kLdF);
+  if (dagg) p += align16(2L * rw * sh.ldf());
   b.geo = reinterpret_cast<float*>(p);
   p += align16(4L * 16 * 8);
   b.ri = reinterpret_cast<int*>(p);
   p += align16(4L * 16);
   b.snd = reinterpret_cast<int*>(p);
   return b;
+}
+__device__ inline Buf carve_buf(unsigned char* p, int k, bool dagg) {
+  return carve_buf(Bench(), p, k, dagg);
 }
 
 // How a feature row is copied: 16-byte chunks (widths multiples of 8, rows
@@ -227,15 +294,16 @@ enum CopyMode { kCopy16 = 0, kCopy4 = 1, kCopy2 = 2 };
 
 // chunk ch (8 padded columns) of a feature row: src row of F features
 // (null: zeros) into the padded dst row; padded lanes stay as they are (zero)
-__device__ __forceinline__ void copy_chunk(bf16* dst, const bf16* src, int ch, int hs, int hv,
-                                           int mode) {
+template <class S>
+__device__ __forceinline__ void copy_chunk(const S& sh, bf16* dst, const bf16* src, int ch,
+                                           int hs, int hv, int mode) {
   const int pc = ch * 8;
   int fc, n;
-  if (pc < kHS) {
+  if (pc < sh.hsp()) {
     fc = pc;
     n = hs - pc;
   } else {
-    const int c = (pc - kHS) / kHV, j = (pc - kHS) % kHV;
+    const int c = (pc - sh.hsp()) / sh.hvp(), j = (pc - sh.hsp()) % sh.hvp();
     fc = hs + c * hv + j;
     n = hv - j;
   }
@@ -279,8 +347,9 @@ struct GatherArgs {
 
 // the warp gathers tile tr into b (asynchronously: the caller commits and
 // waits); lanes 0-15 own a row's ids and geometry
-template <Addr A>
-__device__ void gather_tile(const Buf& b, const TileRef& tr, const GatherArgs& ga, int lane) {
+template <Addr A, class S = Bench>
+__device__ void gather_tile(const Buf& b, const TileRef& tr, const GatherArgs& ga, int lane,
+                            const S& sh = S()) {
   const int k = ga.k, f = ga.hs + 3 * ga.hv;
   const int rel0 = tr.q0 / k;
   if (lane < 16) {
@@ -323,22 +392,23 @@ __device__ void gather_tile(const Buf& b, const TileRef& tr, const GatherArgs& g
   }
   __syncwarp();
   const bf16* hsrc = A == Addr::kTab ? ga.h : ga.hsp;
-  for (int x = lane; x < 16 * kChunks; x += 32) {
-    const int row = x / kChunks, ch = x % kChunks;
+  const int chunks = sh.chunks(), ldf = sh.ldf();
+  for (int x = lane; x < 16 * chunks; x += 32) {
+    const int row = x / chunks, ch = x % chunks;
     const int snd = b.snd[row];
-    copy_chunk(b.s + row * kLdF, snd >= 0 ? hsrc + (long)snd * f : nullptr, ch, ga.hs, ga.hv,
-               ga.mode);
+    copy_chunk(sh, b.s + row * ldf, snd >= 0 ? hsrc + (long)snd * f : nullptr, ch, ga.hs,
+               ga.hv, ga.mode);
   }
   const int rw = tile_recv(k);
   const int nrow = ga.dagg != nullptr ? 2 * rw : rw;
-  for (int x = lane; x < nrow * kChunks; x += 32) {
-    const int j = x / kChunks, ch = x % kChunks;
+  for (int x = lane; x < nrow * chunks; x += 32) {
+    const int j = x / chunks, ch = x % chunks;
     const bool dg = j >= rw;
     const int jr = dg ? j - rw : j;
     const bool live = rel0 + jr < tr.nrecv;
     const long node = tr.node0 + rel0 + jr;
     const bf16* src = live ? (dg ? ga.dagg : ga.h) + node * f : nullptr;
-    copy_chunk((dg ? b.d : b.r) + jr * kLdF, src, ch, ga.hs, ga.hv, ga.mode);
+    copy_chunk(sh, (dg ? b.d : b.r) + jr * ldf, src, ch, ga.hs, ga.hv, ga.mode);
   }
 }
 
@@ -347,9 +417,10 @@ __device__ void gather_tile(const Buf& b, const TileRef& tr, const GatherArgs& g
 // live): acc[2][4] += A @ W[wrow .. wrow+16][col0 .. col0+16), the weights
 // by ldmatrix.trans
 __device__ __forceinline__ void mma_pair(float (&acc)[2][4], const uint32_t (&a)[4],
-                                         const bf16* W, int wrow, int col0, int lane) {
+                                         const bf16* W, int wrow, int col0, int lane,
+                                         int ldw = kLdW) {
   uint32_t b[4];
-  ldsm_x4_t(b, W + (wrow + (lane & 15)) * kLdW + col0 + (lane >> 4) * 8);
+  ldsm_x4_t(b, W + (wrow + (lane & 15)) * ldw + col0 + (lane >> 4) * 8);
   mma_bf16_16816(acc[0], a, b[0], b[1]);
   mma_bf16_16816(acc[1], a, b[2], b[3]);
 }
@@ -357,9 +428,10 @@ __device__ __forceinline__ void mma_pair(float (&acc)[2][4], const uint32_t (&a)
 // The VJP's products: acc[2][4] += A @ W[nrow .. nrow+16][kcol .. kcol+16)^T
 // (n-tiles of input rows), the weights by plain ldmatrix
 __device__ __forceinline__ void mma_pairT(float (&acc)[2][4], const uint32_t (&a)[4],
-                                          const bf16* W, int nrow, int kcol, int lane) {
+                                          const bf16* W, int nrow, int kcol, int lane,
+                                          int ldw = kLdW) {
   uint32_t b[4];
-  ldsm_x4(b, W + (nrow + (lane & 7) + (lane >> 4) * 8) * kLdW + kcol + ((lane >> 3) & 1) * 8);
+  ldsm_x4(b, W + (nrow + (lane & 7) + (lane >> 4) * 8) * ldw + kcol + ((lane >> 3) & 1) * 8);
   mma_bf16_16816(acc[0], a, b[0], b[1]);
   mma_bf16_16816(acc[1], a, b[2], b[3]);
 }
@@ -511,40 +583,218 @@ __device__ __forceinline__ void gate1(const float (&o0)[6][4], const float (&oa)
   }
 }
 
-// ---------------------------------------------------------------------------
-// The K-sum of a tile's rows held in a per-warp buffer [16][kLdK] (padded
-// columns): the lanes walk the rows in slot order, lane l owns padded columns
-// l, l + 32, l + 64, and each receiver's sum (its K slots in fp32, FLAT in
-// groups of pack rounded once) is written to out [N, F] when its last slot
-// is added.  The running sums carry over the unit's tiles.
-struct KSum {
-  float acc[3], grp[3];
-};
-
-__device__ __forceinline__ void ksum_init(KSum& ks) {
-#pragma unroll
-  for (int j = 0; j < 3; ++j) ks.acc[j] = ks.grp[j] = 0.f;
+// an A fragment (k-step of 16 columns from col0) back to row-major rows
+// r0 + g, r0 + g + 8 of a staging array
+__device__ __forceinline__ void store_a(bf16* Y, int ld, int r0, int col0, const uint32_t (&a)[4],
+                                        int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+  uint32_t* p0 = reinterpret_cast<uint32_t*>(Y + (r0 + g) * ld + col0 + 2 * t4);
+  uint32_t* p1 = reinterpret_cast<uint32_t*>(Y + (r0 + g + 8) * ld + col0 + 2 * t4);
+  p0[0] = a[0];
+  p1[0] = a[1];
+  p0[4] = a[2];
+  p1[4] = a[3];
 }
 
-template <bool FLAT, typename KT>
-__device__ __forceinline__ void ksum_tile(KSum& ks, const KT* buf, const TileRef& tr, int k,
-                                          int pack_, int hs, int hv, bf16* out, int lane) {
-  const int f = hs + 3 * hv;
-  int col[3];  // the feature column of each owned padded column, or -1
+// ---------------------------------------------------------------------------
+// The Wide kernels' layers, a column block at a time.  A layer's inputs are
+// this lane's ldmatrix rows (row lane & 15, column (lane >> 4) * 8): layer 1
+// the gathered sender and receiver rows and the d2 lane, layer 2 the staged
+// layer-1 outputs [m0 | m1_0 | m1_1 | m1_2].  Every output column is summed
+// over the k-steps of the Bench layers' order (scalars: sender, then
+// receiver; each component's vector lanes: sender, then receiver), so at
+// 32x0e+16x1o each value is the Bench layers' bit for bit.
+struct LayerIn {
+  const bf16* x0;  // sender rows (layer 2: the layer-1 outputs)
+  const bf16* x1;  // receiver rows (layer 2: unused)
+  int ws, wv;      // the first weight row of the scalar and the vector inputs
+  bool l1;         // layer 1: two sources and the d2 lane
+};
+
+// t = the scalar inputs times the weight columns col0 .. col0+15
+template <class S>
+__device__ __forceinline__ void scal_pair(const S& sh, const bf16* W, const LayerIn& in, int col0,
+                                          int lane, float (&t)[2][4]) {
+  zero(t);
+  const int nk = 2 * sh.ns;
+  for (int src = 0; src < (in.l1 ? 2 : 1); ++src)
+    for (int ks = 0; ks < nk; ++ks) {
+      uint32_t a[4];
+      ldsm_x4(a, (src ? in.x1 : in.x0) + 16 * ks);
+      mma_pair(t, a, W, in.ws + (src * nk + ks) * 16, col0, lane, sh.ldw());
+    }
+}
+// t = component c's vector inputs times the weight columns col0 .. col0+15
+template <class S>
+__device__ __forceinline__ void vec_pair(const S& sh, const bf16* W, const LayerIn& in, int c,
+                                         int col0, int lane, float (&t)[2][4]) {
+  zero(t);
+  const int off = sh.hsp() + sh.hvp() * c;
+  for (int src = 0; src < (in.l1 ? 2 : 1); ++src)
+    for (int j = 0; j < sh.nv; ++j) {
+      uint32_t a[4];
+      ldsm_x4(a, (src ? in.x1 : in.x0) + off + 16 * j);
+      mma_pair(t, a, W, in.wv + (src * sh.nv + j) * 16, col0, lane, sh.ldw());
+    }
+}
+
+// Scalar block blk: o = O0 columns 32 blk .. 32 blk + 31 (4 n-tiles),
+// s (xs W0s + d2 w0_d2) + cgd sum_c v_c (xv_c W0v)
+template <class S>
+__device__ __forceinline__ void sblock(const S& sh, const bf16* W, const float* d2w,
+                                       const LayerIn& in, const RowGeo& rg, float cgd, int lane,
+                                       int blk, float (&o)[4][4]) {
+  const int t4 = lane & 3;
 #pragma unroll
-  for (int j = 0; j < 3; ++j) col[j] = lane + 32 * j < kFP ? feat_col(lane + 32 * j, hs, hv) : -1;
+  for (int hp = 0; hp < 2; ++hp) {
+    const int col0 = 32 * blk + 16 * hp;
+    float t[2][4];
+    scal_pair(sh, W, in, col0, lane, t);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int h = q >> 1, col = col0 + 8 * j + 2 * t4 + (q & 1);
+        const float x = in.l1 ? fmaf(rg.d2(h), d2w[col], t[j][q]) : t[j][q];
+        o[2 * hp + j][q] = rg.s(h) * x;
+      }
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+#pragma unroll
+    for (int hp = 0; hp < 2; ++hp) {
+      float t[2][4];
+      vec_pair(sh, W, in, c, 32 * blk + 16 * hp, lane, t);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          o[2 * hp + j][q] = fmaf(cgd * rg.v(q >> 1, c), t[j][q], o[2 * hp + j][q]);
+    }
+}
+
+// Vector block blk: og = the O0 gate columns hsp + 16 blk .. (2 n-tiles), oa
+// = the OA columns c0 + 16 blk .., ob[c] = the OB columns of component c
+template <class S>
+__device__ __forceinline__ void vblock(const S& sh, const bf16* W, const float* d2w,
+                                       const LayerIn& in, const RowGeo& rg, float cgd, int lane,
+                                       int blk, float (&og)[2][4], float (&oa)[2][4],
+                                       float (&ob)[3][2][4]) {
+  const int t4 = lane & 3;
+  const int cg0 = sh.hsp() + 16 * blk, ca0 = sh.c0() + 16 * blk;
+#pragma unroll
+  for (int part = 0; part < 2; ++part) {  // the gate columns, then OA
+    const int col0 = part ? ca0 : cg0;
+    float t[2][4];
+    scal_pair(sh, W, in, col0, lane, t);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int h = q >> 1, col = col0 + 8 * j + 2 * t4 + (q & 1);
+        const float x = in.l1 ? fmaf(rg.d2(h), d2w[col], t[j][q]) : t[j][q];
+        if (part) oa[j][q] = x;
+        else og[j][q] = rg.s(h) * x;
+      }
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float t[2][4];
+    vec_pair(sh, W, in, c, cg0, lane, t);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) og[j][q] = fmaf(cgd * rg.v(q >> 1, c), t[j][q], og[j][q]);
+    vec_pair(sh, W, in, c, ca0, lane, t);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) ob[c][j][q] = rg.s(q >> 1) * t[j][q];
+  }
+}
+
+// The layer-1 gates of a block, rounded to bf16 and stored into rows r0 ..
+// r0 + 15 of M [..][ld] (padded feature rows): m0 = silu(o0) at columns 32
+// blk ..; m1_c = CG011 (v_c A + B_c) sigmoid(o0v) at hsp + c hvp + 16 blk ..
+// (KM rounds A and the sigmoid first, the km2 form)
+__device__ __forceinline__ void gate_s(const float (&o)[4][4], bf16* M, int ld, int r0, int col0,
+                                       int lane) {
+  uint32_t am[2][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    float m[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) m[q] = o[nt][q] * sigm(o[nt][q]);
+    am[nt >> 1][(nt & 1) * 2 + 0] = pack(m[0], m[1]);
+    am[nt >> 1][(nt & 1) * 2 + 1] = pack(m[2], m[3]);
+  }
+  store_a(M, ld, r0, col0, am[0], lane);
+  store_a(M, ld, r0, col0 + 16, am[1], lane);
+}
+template <bool KM, class S>
+__device__ __forceinline__ void gate_v(const S& sh, const float (&og)[2][4],
+                                       const float (&oa)[2][4], const float (&ob)[3][2][4],
+                                       const RowGeo& rg, bf16* M, int ld, int r0, int blk,
+                                       int lane) {
+  uint32_t am[3][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float m[3][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int h = q >> 1;
+      const float g = KM ? rnd(sigm(og[i][q])) : sigm(og[i][q]);
+      const float a = KM ? rnd(oa[i][q]) : oa[i][q];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) m[c][q] = kCG * fmaf(rg.v(h, c), a, ob[c][i][q]) * g;
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      am[c][i * 2 + 0] = pack(m[c][0], m[c][1]);
+      am[c][i * 2 + 1] = pack(m[c][2], m[c][3]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) store_a(M, ld, r0, sh.hsp() + sh.hvp() * c + 16 * blk, am[c], lane);
+}
+
+// ---------------------------------------------------------------------------
+// The K-sum of a tile's rows held in a per-warp buffer [16][ldk] (padded
+// columns): the lanes walk the rows in slot order, lane l owns padded columns
+// l, l + 32, l + 64, ... (at most C), and each receiver's sum (its K slots in
+// fp32, FLAT in groups of pack rounded once) is written to out [N, F] when its
+// last slot is added.  The running sums carry over the unit's tiles.
+template <int C> struct KSumN {
+  float acc[C], grp[C];
+};
+typedef KSumN<3> KSum;  // Bench: 80 padded columns
+
+template <int C> __device__ __forceinline__ void ksum_init(KSumN<C>& ks) {
+#pragma unroll
+  for (int j = 0; j < C; ++j) ks.acc[j] = ks.grp[j] = 0.f;
+}
+
+template <bool FLAT, typename KT, int C, class S = Bench>
+__device__ __forceinline__ void ksum_tile(KSumN<C>& ks, const KT* buf, const TileRef& tr, int k,
+                                          int pack_, int hs, int hv, bf16* out, int lane,
+                                          const S& sh = S()) {
+  const int f = hs + 3 * hv, ldk = sh.ldk();
+  int col[C];  // the feature column of each owned padded column, or -1
+#pragma unroll
+  for (int j = 0; j < C; ++j)
+    col[j] = lane + 32 * j < sh.fp() ? feat_col(sh, lane + 32 * j, hs, hv) : -1;
   const int live = tr.nrecv * k - tr.q0;
   for (int i = 0; i < 16 && i < live; ++i) {
     const int q = tr.q0 + i;
     const int kk = q % k;
     if (kk == 0) {
 #pragma unroll
-      for (int j = 0; j < 3; ++j) ks.acc[j] = ks.grp[j] = 0.f;
+      for (int j = 0; j < C; ++j) ks.acc[j] = ks.grp[j] = 0.f;
     }
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
+    for (int j = 0; j < C; ++j) {
       if (col[j] < 0) continue;
-      const float x = bf(buf[i * kLdK + lane + 32 * j]);
+      const float x = bf(buf[i * ldk + lane + 32 * j]);
       if (FLAT) {
         ks.grp[j] += x;
         if ((kk + 1) % pack_ == 0) {
@@ -558,7 +808,7 @@ __device__ __forceinline__ void ksum_tile(KSum& ks, const KT* buf, const TileRef
     if (kk == k - 1) {
       const long node = tr.node0 + q / k;
 #pragma unroll
-      for (int j = 0; j < 3; ++j)
+      for (int j = 0; j < C; ++j)
         if (col[j] >= 0) out[node * f + col[j]] = __float2bfloat16(ks.acc[j]);
     }
   }

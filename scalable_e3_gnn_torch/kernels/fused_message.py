@@ -36,8 +36,14 @@ Backward (the counterpart of ``_vjp_bwd_tab``), likewise:
   order), the plain version for CPU tensors.
 
 In bf16 every kernel of this module (#1-#7) runs on the tensor-core engine
-``csrc/lmax1_mma.cuh``, which pads the layers to 32x0e+16x1o (wider bf16
-layers raise); in fp32 (the check path) on the FMA units.
+``csrc/lmax1_mma.cuh``: up to 32x0e+16x1o on its Bench kernels (the layers
+padded to that width, held in registers), wider on its Wide kernels
+(scalars padded to a multiple of 32, vectors to a multiple of 16, walked a
+column block at a time; a width whose blocks do not fit shared memory
+raises, naming the bytes, before any launch); in fp32 (the check path) on
+the FMA units.  Each source builds two libraries: the plain one (fp32, the
+Bench kernels) and ``LMAX1_WIDE=1`` (the Wide kernels), compiled side by
+side; the wrappers pick one by the widths (``_variant``).
 
 Both backward forms end in the same PyTorch epilogue, the split reverse-table
 gather-sum ``d_h = d_hr + sum_q d_hu[revd[:, q]] + segment_sum(d_hu[remp],
@@ -105,13 +111,17 @@ CG011 = 1.0 / math.sqrt(3.0)
 _MAX_SMEM = 232_448
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# the two libraries of each lmax=1 source: the plain build and the Wide
+# kernels' (see ``_variant``)
+WIDE_BUILD = ("LMAX1_WIDE=1",)
+_VARIANTS = ((), WIDE_BUILD)
 TAB_FWD = CudaKernel("fused_message_tab_fwd", {
     # dtype, hs, hv, k
     "fused_message_tab_fwd_smem_bytes": (ctypes.c_long, [_I] * 4),
     # dtype, 13 pointers (h, d2, attr, maskf, loc, gtab, 6 weights, out),
     # npad, hs, hv, k, tile, u, stream
     "fused_message_tab_fwd": (_I, [_I] + [_P] * 13 + [_I] * 6 + [_P]),
-})
+}, variants=_VARIANTS)
 TAB_BWD = CudaKernel("fused_message_tab_bwd", {
     # dtype, hs, hv, k, tile, u
     "fused_message_tab_bwd_smem_bytes": (ctypes.c_long, [_I] * 6),
@@ -121,7 +131,9 @@ TAB_BWD = CudaKernel("fused_message_tab_bwd", {
     # 4 outputs/scratch (d_hu, d_hr, d_hs scratch, weight partials),
     # npad, hs, hv, k, tile, u, grid, stream
     "fused_message_tab_bwd": (_I, [_I] + [_P] * 17 + [_I] * 7 + [_P]),
-})
+    # dtype, hs, hv, grid: the floats of the partials' buffer
+    "fused_message_bwd_partials_floats": (ctypes.c_long, [_I] * 4),
+}, variants=_VARIANTS)
 # the same source's reduction: the fixed-order sum of the per-block
 # weight-gradient partials ([nblocks, nw] -> [nw] fp32)
 TAB_BWD_REDUCE = CudaKernel("fused_message_tab_bwd_reduce", {
@@ -141,7 +153,7 @@ KM_FWD = CudaKernel("fused_message_km_fwd", {
     "fused_message_tab_fwd_smem_bytes": (ctypes.c_long, [_I] * 4),
     # dtype, 10 pointers (hs3, hr, geo2, 6 weights, out), n, hs, hv, k, stream
     "fused_message_km_fwd": (_I, [_I] + [_P] * 10 + [_I] * 4 + [_P]),
-}, source_name="fused_message_tab_fwd")
+}, source_name="fused_message_tab_fwd", variants=_VARIANTS)
 KM_BWD = CudaKernel("fused_message_km_bwd", {
     # dtype, hs, hv, k
     "fused_message_km_bwd_smem_bytes": (ctypes.c_long, [_I] * 4),
@@ -150,7 +162,8 @@ KM_BWD = CudaKernel("fused_message_km_bwd", {
     # dtype, 10 inputs (hs3, hr, geo2, 6 weights, d_agg), 3 outputs (d_hs,
     # d_hr, weight partials), n, hs, hv, k, grid, stream
     "fused_message_km_bwd": (_I, [_I] + [_P] * 13 + [_I] * 5 + [_P]),
-}, source_name="fused_message_tab_bwd")
+    "fused_message_bwd_partials_floats": (ctypes.c_long, [_I] * 4),
+}, source_name="fused_message_tab_bwd", variants=_VARIANTS)
 
 # the packed node-major kernels #6 and #7: the same two sources, the senders
 # read from hs [N*K, F] (row i*K + k) and the geometry from the flat d2,
@@ -160,7 +173,7 @@ FLAT_FWD = CudaKernel("fused_message_flat_fwd", {
     # dtype, 12 pointers (hs, hr, d2, attr, maskf, 6 weights, out), n, hs, hv,
     # k, pack, stream
     "fused_message_flat_fwd": (_I, [_I] + [_P] * 12 + [_I] * 5 + [_P]),
-}, source_name="fused_message_tab_fwd")
+}, source_name="fused_message_tab_fwd", variants=_VARIANTS)
 FLAT_BWD = CudaKernel("fused_message_flat_bwd", {
     "fused_message_km_bwd_smem_bytes": (ctypes.c_long, [_I] * 4),
     # dtype, hs, hv, k, n: blocks of the main kernel
@@ -168,7 +181,8 @@ FLAT_BWD = CudaKernel("fused_message_flat_bwd", {
     # dtype, 12 inputs (hs, hr, d2, attr, maskf, 6 weights, d_agg), 3 outputs
     # (d_hs, d_hr, weight partials), n, hs, hv, k, pack, grid, stream
     "fused_message_flat_bwd": (_I, [_I] + [_P] * 15 + [_I] * 6 + [_P]),
-}, source_name="fused_message_tab_bwd")
+    "fused_message_bwd_partials_floats": (ctypes.c_long, [_I] * 4),
+}, source_name="fused_message_tab_bwd", variants=_VARIANTS)
 
 KERNELS = (TAB_FWD, TAB_BWD, TAB_BWD_REDUCE, KM_FWD, KM_BWD, FLAT_FWD, FLAT_BWD)
 
@@ -456,20 +470,39 @@ def fused_message_aggregate_tabled_bwd_plain(cfg: MessageConfig, h, d2, attr, ma
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-# the bf16 kernels' tensor-core engine (csrc/lmax1_mma.cuh) pads every layer
-# to these widths
-ENGINE_HS, ENGINE_HV = 32, 16
+# the widths the Bench kernels take (csrc/lmax1_mma.cuh: fits)
+BENCH_HS, BENCH_HV = 32, 16
 
 
-def _cuda_args(h, args, cfg=None):
+def _variant(x, cfg: MessageConfig) -> tuple:
+    """The library of a launch on ``x``: the Wide kernels' for bf16 past the
+    Bench widths, else the plain one."""
+    wide = cfg.hs > BENCH_HS or cfg.hv > BENCH_HV
+    return WIDE_BUILD if x.dtype == torch.bfloat16 and wide else ()
+
+
+def _check_smem(smem: int) -> None:
+    """Raise, naming the bytes, where a block needs more shared memory than
+    the card has (before any launch)."""
+    if smem > _MAX_SMEM:
+        raise ValueError(f"widths need {smem} bytes of shared memory per block (max {_MAX_SMEM})")
+
+
+def _partials(lib, cfg: MessageConfig, code: int, grid: int, device):
+    """The per-block weight-gradient partials [grid, NW] fp32, a view of the
+    buffer the main kernel takes (the Wide kernels keep their accumulators
+    past it)."""
+    nw = sum(a * b for a, b in cfg.weight_shapes())
+    total = lib.fused_message_bwd_partials_floats(code, cfg.hs, cfg.hv, grid)
+    buf = torch.empty((total,), dtype=torch.float32, device=device)
+    return buf[:grid * nw].view(grid, nw)
+
+
+def _cuda_args(h, args):
     if h.device.type != "cuda":
         raise ValueError(f"no kernel for device {h.device}")
     if h.dtype not in _DTYPE_CODE:
         raise TypeError(f"the kernel takes float32 or bfloat16, not {h.dtype}")
-    if cfg is not None and h.dtype == torch.bfloat16 and (cfg.hs > ENGINE_HS or
-                                                          cfg.hv > ENGINE_HV):
-        raise ValueError(f"the bf16 kernels take at most {ENGINE_HS}x0e+{ENGINE_HV}x1o, not "
-                         f"{cfg.hs}x0e+{cfg.hv}x1o")
     for x in args:
         if x.device != h.device:
             raise ValueError(f"all inputs must be on {h.device}, found {x.device}")
@@ -487,17 +520,17 @@ def fused_message_aggregate_tabled_fwd(cfg: MessageConfig, h, d2, attr, maskf, l
     ws = split_weights(cfg, w0e1, w1o1, w0e2, w1o2)
     _check_inputs(cfg, h, d2, attr, maskf, loc, gtab, ws)
     args = (h, d2, attr, maskf, loc, gtab, *ws)
-    _cuda_args(h, args, cfg)
+    _cuda_args(h, args)
     _check_slot_rows(h.shape[0], cfg.k)
-    lib = TAB_FWD.lib()
-    smem = lib.fused_message_tab_fwd_smem_bytes(_DTYPE_CODE[h.dtype], cfg.hs, cfg.hv, cfg.k)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"widths need {smem} bytes of shared memory per block (max {_MAX_SMEM})")
+    lib = TAB_FWD.lib(_variant(h, cfg))
+    code = _DTYPE_CODE[h.dtype]
+    smem = lib.fused_message_tab_fwd_smem_bytes(code, cfg.hs, cfg.hv, cfg.k)
+    _check_smem(smem)
     out = torch.empty_like(h)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     with torch.cuda.device(h.device):
         rc = lib.fused_message_tab_fwd(
-            _DTYPE_CODE[h.dtype], *(x.data_ptr() for x in args), out.data_ptr(),
+            code, *(x.data_ptr() for x in args), out.data_ptr(),
             h.shape[0], cfg.hs, cfg.hv, cfg.k, cfg.tile, cfg.u, stream)
     if rc != 0:
         raise RuntimeError(f"fused_message_tab_fwd launch failed with CUDA error {rc}")
@@ -513,20 +546,19 @@ def tab_bwd_kernel(cfg: MessageConfig, h, d2, attr, maskf, loc, gtab, ws, d_agg)
     _check_inputs(cfg, h, d2, attr, maskf, loc, gtab, ws)
     _check_d_agg(h, d_agg)
     args = (h, d2, attr, maskf, loc, gtab, *ws, d_agg)
-    _cuda_args(h, args, cfg)
+    _cuda_args(h, args)
     _check_slot_rows(h.shape[0], cfg.k)
-    lib = TAB_BWD.lib()
+    lib = TAB_BWD.lib(_variant(h, cfg))
+    code = _DTYPE_CODE[h.dtype]
     dims = (cfg.hs, cfg.hv, cfg.k, cfg.tile, cfg.u)
-    smem = lib.fused_message_tab_bwd_smem_bytes(_DTYPE_CODE[h.dtype], *dims)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"widths need {smem} bytes of shared memory per block (max {_MAX_SMEM})")
+    smem = lib.fused_message_tab_bwd_smem_bytes(code, *dims)
+    _check_smem(smem)
     npad, f = h.shape
     ntiles = npad // cfg.tile
     with torch.cuda.device(h.device):
-        grid = lib.fused_message_tab_bwd_grid(_DTYPE_CODE[h.dtype], *dims, ntiles)
+        grid = lib.fused_message_tab_bwd_grid(code, *dims, ntiles)
     if grid < 1:
         raise RuntimeError(f"fused_message_tab_bwd: no launch configuration (code {grid})")
-    nw = sum(a * b for a, b in cfg.weight_shapes())
     d_hu = torch.empty((ntiles * cfg.u, f), dtype=h.dtype, device=h.device)
     d_hr = torch.empty_like(h)
     # the d_hs rows the table sums read (data dtype): the fp32 kernel's per
@@ -535,11 +567,11 @@ def tab_bwd_kernel(cfg: MessageConfig, h, d2, attr, maskf, loc, gtab, ws, d_agg)
     # partial sums
     rows = npad * cfg.k if h.dtype == torch.bfloat16 else grid * cfg.tile * cfg.k
     dhs_scratch = torch.empty((rows, f), dtype=h.dtype, device=h.device)
-    partials = torch.empty((grid, nw), dtype=torch.float32, device=h.device)
+    partials = _partials(lib, cfg, code, grid, h.device)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     with torch.cuda.device(h.device):
         rc = lib.fused_message_tab_bwd(
-            _DTYPE_CODE[h.dtype], *(x.data_ptr() for x in args), d_hu.data_ptr(),
+            code, *(x.data_ptr() for x in args), d_hu.data_ptr(),
             d_hr.data_ptr(), dhs_scratch.data_ptr(), partials.data_ptr(), npad, *dims,
             grid, stream)
     if rc != 0:
@@ -772,16 +804,16 @@ def fused_message_aggregate_km_fwd(cfg: MessageConfig, hs3, hr, geo2, w0e1, w1o1
     ws = split_weights(cfg, w0e1, w1o1, w0e2, w1o2)
     _check_km(cfg, hs3, hr, geo2, ws)
     args = (hs3, hr, geo2, *ws)
-    _cuda_args(hr, args, cfg)
+    _cuda_args(hr, args)
     _check_slot_rows(hr.shape[0], cfg.k)
-    lib = KM_FWD.lib()
-    smem = lib.fused_message_tab_fwd_smem_bytes(_DTYPE_CODE[hr.dtype], cfg.hs, cfg.hv, cfg.k)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"widths need {smem} bytes of shared memory per block (max {_MAX_SMEM})")
+    lib = KM_FWD.lib(_variant(hr, cfg))
+    code = _DTYPE_CODE[hr.dtype]
+    smem = lib.fused_message_tab_fwd_smem_bytes(code, cfg.hs, cfg.hv, cfg.k)
+    _check_smem(smem)
     out = torch.empty_like(hr)
     stream = torch.cuda.current_stream(hr.device).cuda_stream
     with torch.cuda.device(hr.device):
-        rc = lib.fused_message_km_fwd(_DTYPE_CODE[hr.dtype], *(x.data_ptr() for x in args),
+        rc = lib.fused_message_km_fwd(code, *(x.data_ptr() for x in args),
                                       out.data_ptr(), hr.shape[0], cfg.hs, cfg.hv, cfg.k, stream)
     if rc != 0:
         raise RuntimeError(f"fused_message_km_fwd launch failed with CUDA error {rc}")
@@ -797,25 +829,24 @@ def km_bwd_kernel(cfg: MessageConfig, hs3, hr, geo2, ws, d_agg):
     _check_km(cfg, hs3, hr, geo2, ws)
     _check_d_agg(hr, d_agg)
     args = (hs3, hr, geo2, *ws, d_agg)
-    _cuda_args(hr, args, cfg)
+    _cuda_args(hr, args)
     _check_slot_rows(hr.shape[0], cfg.k)
-    lib = KM_BWD.lib()
+    lib = KM_BWD.lib(_variant(hr, cfg))
+    code = _DTYPE_CODE[hr.dtype]
     dims = (cfg.hs, cfg.hv, cfg.k)
-    smem = lib.fused_message_km_bwd_smem_bytes(_DTYPE_CODE[hr.dtype], *dims)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"widths need {smem} bytes of shared memory per block (max {_MAX_SMEM})")
+    smem = lib.fused_message_km_bwd_smem_bytes(code, *dims)
+    _check_smem(smem)
     n = hr.shape[0]
     with torch.cuda.device(hr.device):
-        grid = lib.fused_message_km_bwd_grid(_DTYPE_CODE[hr.dtype], *dims, n)
+        grid = lib.fused_message_km_bwd_grid(code, *dims, n)
     if grid < 1:
         raise RuntimeError(f"fused_message_km_bwd: no launch configuration (code {grid})")
-    nw = sum(a * b for a, b in cfg.weight_shapes())
     d_hs = torch.empty_like(hs3)
     d_hr = torch.empty_like(hr)
-    partials = torch.empty((grid, nw), dtype=torch.float32, device=hr.device)
+    partials = _partials(lib, cfg, code, grid, hr.device)
     stream = torch.cuda.current_stream(hr.device).cuda_stream
     with torch.cuda.device(hr.device):
-        rc = lib.fused_message_km_bwd(_DTYPE_CODE[hr.dtype], *(x.data_ptr() for x in args),
+        rc = lib.fused_message_km_bwd(code, *(x.data_ptr() for x in args),
                                       d_hs.data_ptr(), d_hr.data_ptr(), partials.data_ptr(), n,
                                       *dims, grid, stream)
     if rc != 0:
@@ -993,16 +1024,16 @@ def fused_message_aggregate_fwd(cfg: MessageConfig, hs, hr, d2, attr, maskf, w0e
     ws = split_weights(cfg, w0e1, w1o1, w0e2, w1o2)
     _check_flat(cfg, hs, hr, d2, attr, maskf, ws)
     args = (hs, hr, d2, attr, maskf, *ws)
-    _cuda_args(hr, args, cfg)
+    _cuda_args(hr, args)
     _check_slot_rows(hr.shape[0], cfg.k)
-    lib = FLAT_FWD.lib()
-    smem = lib.fused_message_tab_fwd_smem_bytes(_DTYPE_CODE[hr.dtype], cfg.hs, cfg.hv, cfg.k)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"widths need {smem} bytes of shared memory per block (max {_MAX_SMEM})")
+    lib = FLAT_FWD.lib(_variant(hr, cfg))
+    code = _DTYPE_CODE[hr.dtype]
+    smem = lib.fused_message_tab_fwd_smem_bytes(code, cfg.hs, cfg.hv, cfg.k)
+    _check_smem(smem)
     out = torch.empty_like(hr)
     stream = torch.cuda.current_stream(hr.device).cuda_stream
     with torch.cuda.device(hr.device):
-        rc = lib.fused_message_flat_fwd(_DTYPE_CODE[hr.dtype], *(x.data_ptr() for x in args),
+        rc = lib.fused_message_flat_fwd(code, *(x.data_ptr() for x in args),
                                         out.data_ptr(), hr.shape[0], cfg.hs, cfg.hv, cfg.k,
                                         cfg.pack, stream)
     if rc != 0:
@@ -1019,25 +1050,24 @@ def flat_bwd_kernel(cfg: MessageConfig, hs, hr, d2, attr, maskf, ws, d_agg):
     _check_flat(cfg, hs, hr, d2, attr, maskf, ws)
     _check_d_agg(hr, d_agg)
     args = (hs, hr, d2, attr, maskf, *ws, d_agg)
-    _cuda_args(hr, args, cfg)
+    _cuda_args(hr, args)
     _check_slot_rows(hr.shape[0], cfg.k)
-    lib = FLAT_BWD.lib()
+    lib = FLAT_BWD.lib(_variant(hr, cfg))
+    code = _DTYPE_CODE[hr.dtype]
     dims = (cfg.hs, cfg.hv, cfg.k)
-    smem = lib.fused_message_km_bwd_smem_bytes(_DTYPE_CODE[hr.dtype], *dims)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"widths need {smem} bytes of shared memory per block (max {_MAX_SMEM})")
+    smem = lib.fused_message_km_bwd_smem_bytes(code, *dims)
+    _check_smem(smem)
     n = hr.shape[0]
     with torch.cuda.device(hr.device):
-        grid = lib.fused_message_flat_bwd_grid(_DTYPE_CODE[hr.dtype], *dims, n)
+        grid = lib.fused_message_flat_bwd_grid(code, *dims, n)
     if grid < 1:
         raise RuntimeError(f"fused_message_flat_bwd: no launch configuration (code {grid})")
-    nw = sum(a * b for a, b in cfg.weight_shapes())
     d_hs = torch.empty_like(hs)
     d_hr = torch.empty_like(hr)
-    partials = torch.empty((grid, nw), dtype=torch.float32, device=hr.device)
+    partials = _partials(lib, cfg, code, grid, hr.device)
     stream = torch.cuda.current_stream(hr.device).cuda_stream
     with torch.cuda.device(hr.device):
-        rc = lib.fused_message_flat_bwd(_DTYPE_CODE[hr.dtype], *(x.data_ptr() for x in args),
+        rc = lib.fused_message_flat_bwd(code, *(x.data_ptr() for x in args),
                                         d_hs.data_ptr(), d_hr.data_ptr(), partials.data_ptr(), n,
                                         *dims, cfg.pack, grid, stream)
     if rc != 0:

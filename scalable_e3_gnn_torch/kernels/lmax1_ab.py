@@ -2,36 +2,46 @@
 checkouts of the port on one card.
 
     python scalable_e3_gnn_torch/kernels/lmax1_ab.py [--repo DIR] [--tag NAME]
+        [--hidden IRREPS] [--wide] [--clocks DIR]
 
 Imports ``scalable_e3_gnn_torch`` from DIR (default: the checkout holding
 this file), builds config 3's graph on the card (100k uniform points from
 seed 0, r = 0.04, K = 24, octree 6 levels, symmetrized, gather tables at
-tile 160), takes layer 0 of config 3's SEGNN (32x0e+16x1o, weights from
-seed 0) and makes bf16 inputs as ``chip_smoke.py`` does (random features,
-extra masked slots, the last 37 receivers without a valid slot), then runs
-the tabled forward #1 and backward #2 (main kernel, the reduction, the whole
-backward with its epilogue), and the untabled #3 and #5 on the same graph
-without its tables, and prints one JSON line: device ms per launch of every
-kernel by torch.profiler, CUDA-event ms per call, the kernels' bf16 ulps
-against their plain versions (max, and the share of elements over 1 ulp, of
-max(|ref|, mean|ref|)), #2's partials shape, and the card's name and power
-limit.  Compare two checkouts only within one call, in turns (parent,
-change, change, parent).
+tile 160), takes layer 0 of a SEGNN at ``--hidden`` (default config 3's
+32x0e+16x1o; weights from seed 0) and makes bf16 inputs as ``chip_smoke.py``
+does (random features, extra masked slots, the last 37 receivers without a
+valid slot), then runs the tabled forward #1 and backward #2 (main kernel,
+the reduction, the whole backward with its epilogue), the untabled #3 and
+#5 on the same graph without its tables, and the packed #6 and #7 at pack =
+2, and prints one JSON line: device ms per launch of every kernel by
+torch.profiler, CUDA-event ms per call, the kernels' bf16 ulps against
+their plain versions (max, and the share of elements over 1 ulp, of
+max(|ref|, mean|ref|)), a SHA-256 of every output (each forward's agg; each
+backward's sender and receiver cotangents and its per-block weight-gradient
+partials), #2's partials shape, and the card's name and power limit.
+Compare two checkouts only within one call, in turns (parent, change,
+change, parent); equal digests are bit-identical outputs.  ``--wide``
+(this checkout only) sends the bf16 launches to the Wide kernels at every
+width, as past 32x0e+16x1o (``fused_message.BENCH_HS`` set to 0 in this
+process): at the Bench widths their digests equal the Bench kernels'.
 
 ``--clocks DIR`` (this checkout's sources only) builds the backward source
-once more with ``LMAX1_BWD_CLOCKS`` into DIR and prints #2's cycles per
-round in each phase, read by ``clock64`` on thread 0 of every block: the
-gather, layer 1, layer 2 with its gates' VJP, layer 2's input cotangents,
-layer 1 again with its gates' VJP, layer 1's input cotangents, the K-sum,
-the wait at the round's first barrier, warp 0's weight gradients, the wait
-at the second barrier, and the table sums after the rounds (spread per
-round).
+once more with ``LMAX1_BWD_CLOCKS`` into DIR (with ``LMAX1_WIDE=1`` where
+the wrappers pick the Wide kernels at this width) and prints #2's cycles
+per round in each phase, read by ``clock64`` on thread 0 of every block:
+the gather, layer 1, layer 2 with its gates' VJP, layer 2's input
+cotangents, layer 1 again with its gates' VJP, layer 1's input cotangents,
+the K-sum, the wait at the round's first barrier, warp 0's weight
+gradients, the wait at the second barrier, and the table sums after the
+rounds (spread per round; the Wide kernel's also write its weight-gradient
+accumulators).
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import subprocess
 import sys
@@ -81,6 +91,14 @@ def _device(fn, iters: int) -> dict:
     return out
 
 
+def _digest(x) -> str:
+    """SHA-256 of a tensor's bytes (bf16 read as int16)."""
+    x = x.detach().contiguous()
+    if x.dtype == torch.bfloat16:
+        x = x.view(torch.int16)
+    return hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()
+
+
 def _ulps(got, ref) -> dict:
     """|got - ref| in bf16 ulps of max(|ref|, mean|ref|): the max and the
     share of elements over 1 ulp (``chip_smoke.bf16_ulps``)."""
@@ -91,12 +109,16 @@ def _ulps(got, ref) -> dict:
 
 
 def bwd_clocks(fm, ta, ws, d_agg, out_dir: Path) -> dict:
-    """#2's cycles per round in each phase, from the profiling build."""
+    """#2's cycles per round in each phase, from the profiling build of the
+    library the wrappers pick at this width."""
     from scalable_e3_gnn_torch.kernels import build
 
+    cfg, h = ta[0], ta[1]
+    variant = fm._variant(h, cfg)
     out_dir.mkdir(parents=True, exist_ok=True)
-    path = out_dir / "libfused_message_tab_bwd-clocks.so"
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-DLMAX1_BWD_CLOCKS", "-o", str(path),
+    path = out_dir / f"libfused_message_tab_bwd-clocks{'-wide' if variant else ''}.so"
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, *(f"-D{d}" for d in variant),
+                    "-DLMAX1_BWD_CLOCKS", "-o", str(path),
                     str(build.CSRC / "fused_message_tab_bwd.cu")], check=True,
                    capture_output=True)
     lib = ctypes.CDLL(str(path))
@@ -104,15 +126,13 @@ def bwd_clocks(fm, ta, ws, d_agg, out_dir: Path) -> dict:
         getattr(lib, fn).restype, getattr(lib, fn).argtypes = restype, argtypes
     lib.lmax1_bwd_phase_cycles.restype = ctypes.c_int
     lib.lmax1_bwd_phase_cycles.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
-    cfg, h = ta[0], ta[1]
     npad, f = h.shape
     dims = (cfg.hs, cfg.hv, cfg.k, cfg.tile, cfg.u)
     grid = lib.fused_message_tab_bwd_grid(1, *dims, npad // cfg.tile)
-    nw = sum(a * b for a, b in cfg.weight_shapes())
     d_hu = torch.empty((npad // cfg.tile * cfg.u, f), dtype=h.dtype, device=h.device)
     d_hr = torch.empty_like(h)
     scratch = torch.empty((npad * cfg.k, f), dtype=h.dtype, device=h.device)
-    part = torch.empty((grid, nw), dtype=torch.float32, device=h.device)
+    part = fm._partials(lib, cfg, 1, grid, h.device)
     args = (*ta[1:], *ws, d_agg)
     call = lambda: lib.fused_message_tab_bwd(
         1, *(x.data_ptr() for x in args), d_hu.data_ptr(), d_hr.data_ptr(), scratch.data_ptr(),
@@ -130,8 +150,9 @@ def bwd_clocks(fm, ta, ws, d_agg, out_dir: Path) -> dict:
     names = ("gather", "layer1", "layer2_vjp", "layer2_cotangents", "layer1_again_vjp",
              "layer1_cotangents", "ksum", "barrier1", "wgrad", "barrier2", "table_sum")
     per_round = {nm: cyc[i] / rounds for i, nm in enumerate(names)}
-    return dict(cycles_per_round=per_round, total=sum(per_round.values()),
-                rounds_per_block=rounds / iters / grid, blocks=grid)
+    return dict(library="wide" if variant else "bench", cycles_per_round=per_round,
+                total=sum(per_round.values()), rounds_per_block=rounds / iters / grid,
+                blocks=grid)
 
 
 def main() -> int:
@@ -139,6 +160,8 @@ def main() -> int:
     ap.add_argument("--repo", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--tag", default="")
     ap.add_argument("--clocks", default="", help="scratch directory for the profiling build")
+    ap.add_argument("--hidden", default=HIDDEN, help="the layer's hidden irreps")
+    ap.add_argument("--wide", action="store_true", help="the Wide kernels at every width")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.repo).resolve()))
     import scalable_e3_gnn_torch
@@ -148,6 +171,8 @@ def main() -> int:
     from scalable_e3_gnn_torch.kernels import fused_message as fm
     from scalable_e3_gnn_torch.models.segnn import SEGNN
 
+    if args.wide:
+        fm.BENCH_HS = 0
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
@@ -162,7 +187,7 @@ def main() -> int:
     feats = np.random.default_rng(SEED + 1).standard_normal((N_POINTS, 5)).astype(np.float32)
     graph = DenseEdgeGraph.from_radius_edges(feats, tree.points, edges, symmetrize=True)
     graph = graph.with_gather_tables(tile=TILE)
-    model = SEGNN("2x0e+1x1o", HIDDEN, "1x1o", num_layers=4, layout="cm", use_pallas=True,
+    model = SEGNN("2x0e+1x1o", args.hidden, "1x1o", num_layers=4, layout="cm", use_pallas=True,
                   device=dev, generator=torch.Generator().manual_seed(SEED))
     layer = model.layers[0]
     attrs = model.compute_attributes_dense(graph)
@@ -199,6 +224,14 @@ def main() -> int:
     hs3 = torch.cat([h[:n][senders.t()], h.new_zeros((k, npad - n, cfg.f))], 1).contiguous()
     geo2 = pad(geo.reshape(n, k * 6)).to(bf).contiguous()
     ka = (kcfg, hs3, h, geo2)
+    # the packed inputs at pack 2 (chip_smoke.flat_inputs): node-major sender
+    # rows [Npad*K/2, 2F], the flat geometry with the same masks
+    p = 2
+    fcfg = fm.MessageConfig(hs=cfg.hs, hv=cfg.hv, k=k, tile=TILE, pack=p)
+    r = npad * k // p
+    hsf = torch.cat([h[:n][senders], h.new_zeros((npad - n, k, cfg.f))]).reshape(r, p * cfg.f)
+    fa = (fcfg, hsf.contiguous(), h, d2.reshape(r, p), attr.reshape(r, 4 * p),
+          maskf.reshape(r, p))
 
     with torch.no_grad():
         agg = fm.fused_message_aggregate_tabled_fwd(*ta, *w4)
@@ -207,36 +240,55 @@ def main() -> int:
         kagg = fm.fused_message_aggregate_km_fwd(*ka, *w4)
         k_hs, k_hr, kpart = fm.km_bwd_kernel(*ka, ws, d_agg)
         kdws = fm._split_partials(cfg, fm.tab_bwd_reduce(kpart))
+        fagg = fm.fused_message_aggregate_fwd(*fa, *w4)
+        f_hs, f_hr, fpart = fm.flat_bwd_kernel(*fa, ws, d_agg)
+        fdws = fm._split_partials(cfg, fm.tab_bwd_reduce(fpart))
         torch.cuda.synchronize()
+        digests = {"#1 agg": _digest(agg), "#2 d_hu": _digest(d_hu), "#2 d_hr": _digest(d_hr),
+                   "#2 partials": _digest(part), "#3 agg": _digest(kagg),
+                   "#5 d_hs": _digest(k_hs), "#5 d_hr": _digest(k_hr),
+                   "#5 partials": _digest(kpart), "#6 agg": _digest(fagg),
+                   "#7 d_hs": _digest(f_hs), "#7 d_hr": _digest(f_hr),
+                   "#7 partials": _digest(fpart)}
         r_agg = fm.fused_message_aggregate_tabled_plain(*ta, *w4)
         r_hu, r_hr, r_dws = fm.tab_bwd_plain(*ta, ws, d_agg)
         r_kagg = fm.fused_message_aggregate_km_plain(*ka, *w4)
         rk_hs, rk_hr, rk_dws = fm.km_bwd_plain(*ka, ws, d_agg)
+        r_fagg = fm.fused_message_aggregate_plain(*fa, *w4)
+        rf_hs, rf_hr, rf_dws = fm.flat_bwd_plain(*fa, ws, d_agg)
         names = ("W0a", "W1Sa", "W1Va", "W0b", "W1Sb", "W1Vb")
         ulps = {"#1 agg": _ulps(agg, r_agg), "#2 d_hu": _ulps(d_hu, r_hu),
                 "#2 d_hr": _ulps(d_hr, r_hr), "#3 agg": _ulps(kagg, r_kagg),
-                "#5 d_hs": _ulps(k_hs, rk_hs), "#5 d_hr": _ulps(k_hr, rk_hr)}
+                "#5 d_hs": _ulps(k_hs, rk_hs), "#5 d_hr": _ulps(k_hr, rk_hr),
+                "#6 agg": _ulps(fagg, r_fagg), "#7 d_hs": _ulps(f_hs, rf_hs),
+                "#7 d_hr": _ulps(f_hr, rf_hr)}
         for nm, a, b in zip(names, dws, r_dws):
             ulps[f"#2 {nm}"] = _ulps(a, b)
         for nm, a, b in zip(names, kdws, rk_dws):
             ulps[f"#5 {nm}"] = _ulps(a, b)
+        for nm, a, b in zip(names, fdws, rf_dws):
+            ulps[f"#7 {nm}"] = _ulps(a, b)
         rerun = fm.tab_bwd_kernel(*ta, ws, d_agg)
         bitwise = dict(tab_bwd=all(torch.equal(x, y) for x, y in zip((d_hu, d_hr, part), rerun)))
-        del r_agg, r_hu, r_hr, r_kagg, rk_hs, rk_hr, rerun
+        del r_agg, r_hu, r_hr, r_kagg, rk_hs, rk_hr, r_fagg, rf_hs, rf_hr, rerun
         calls = {
             "#1": lambda: fm.fused_message_aggregate_tabled_fwd(*ta, *w4),
             "#2 main": lambda: fm.tab_bwd_kernel(*ta, ws, d_agg),
             "#2 whole": lambda: fm.fused_message_aggregate_tabled_bwd(*ta, *tabs, *w4, d_agg),
             "#3": lambda: fm.fused_message_aggregate_km_fwd(*ka, *w4),
             "#5 main": lambda: fm.km_bwd_kernel(*ka, ws, d_agg),
+            "#6": lambda: fm.fused_message_aggregate_fwd(*fa, *w4),
+            "#7 main": lambda: fm.flat_bwd_kernel(*fa, ws, d_agg),
         }
         times = {nm: _events(fn, 10) for nm, fn in calls.items()}
         device = {nm: _device(fn, 10) for nm, fn in calls.items()}
         clocks = bwd_clocks(fm, ta, ws, d_agg, Path(args.clocks)) if args.clocks else None
     print(json.dumps(dict(
-        tag=args.tag, package=scalable_e3_gnn_torch.__file__, card=card, receivers=n, npad=npad,
+        tag=args.tag, package=scalable_e3_gnn_torch.__file__, card=card, hidden=args.hidden,
+        wide=args.wide,
+        receivers=n, npad=npad,
         valid_slots=int(mask.sum()), u=cfg.u, partials=list(part.shape), event_ms=times,
-        device=device, ulps=ulps, bitwise=bitwise, phase_clocks=clocks,
+        device=device, ulps=ulps, bitwise=bitwise, digests=digests, phase_clocks=clocks,
         sm_clock_mhz=subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
                                      "--format=csv,noheader"], capture_output=True, text=True,
                                     timeout=60).stdout.strip())), flush=True)

@@ -42,7 +42,11 @@ configs' (C1 > 192, D > 128: every route against its plain version in fp32
 and bf16 at three widths, the blocked walks over the plan's tiles bitwise
 over every tile, #11/#14 at A=36, SEGNN gradients against the plain path,
 the raise past the shared-memory bound, no spill in the silu builds;
-``-k wide``).
+``-k wide``); and the lmax=1 kernels #1-#7 in bf16 past 32x0e+16x1o on
+the Wide kernels (every addressing, forward and backward, against its
+plain version at four widths, their determinism, the Wide kernels bit for
+bit the Bench kernels at the Bench widths, the raise past the
+shared-memory bound; ``-k lmax1_wide``).
 
 These tests need a CUDA card and skip without one.  They import no JAX, so
 they run on a machine without it (``--noconftest`` skips the JAX-only
@@ -112,9 +116,10 @@ WIDTHS = [("16x0e+8x1o", 8, 200, 32), ("8x0e+12x1o", 13, 1000, 64),
           ("32x0e+16x1o", 24, 3000, 160), ("32x0e+16x1o", 20, 2000, 160)]
 
 
-def _layer_args(dev, monkeypatch, hidden, k, n, tile, dtype):
+def _layer_args(dev, monkeypatch, hidden, k, n, tile, dtype, run=True):
     """The arguments the model hands the tabled kernel (cfg, h, geometry,
-    tables, folded weights), captured from one layer's dispatch."""
+    tables, folded weights), captured from one layer's dispatch (run: the
+    kernel runs on them, else zeros stand for its result)."""
     g, gt = _graph(dev, n, k, 0.25, tile)
     model = SEGNN("2x0e+1x1o", hidden, "1x1o", num_layers=1, layout="cm", use_pallas=True,
                   device=dev, generator=torch.Generator().manual_seed(1))
@@ -125,7 +130,7 @@ def _layer_args(dev, monkeypatch, hidden, k, n, tile, dtype):
     calls = []
     real = fm.fused_message_aggregate_tabled
     monkeypatch.setattr(segnn_mod, "fused_message_aggregate_tabled",
-                        lambda *a: calls.append(a) or real(*a))
+                        lambda *a: calls.append(a) or (real(*a) if run else torch.zeros_like(a[1])))
     with torch.no_grad():
         layer._fused_messages_tabled(h, attrs[0].to(dtype), attrs[2].to(dtype), gt.edge_mask, gt)
     (args,) = calls
@@ -157,9 +162,9 @@ def test_kernel_matches_plain(dev, monkeypatch, hidden, k, n, tile, dtype):
         assert float(err.max()) <= 3e-2 * float(ref.abs().max())
 
 
-def _bwd_problem(dev, monkeypatch, hidden, k, n, tile, dtype):
+def _bwd_problem(dev, monkeypatch, hidden, k, n, tile, dtype, run=True):
     """Kernel arguments with extra masked slots and a random cotangent."""
-    args = list(_layer_args(dev, monkeypatch, hidden, k, n, tile, dtype))
+    args = list(_layer_args(dev, monkeypatch, hidden, k, n, tile, dtype, run))
     gen = torch.Generator(device=dev).manual_seed(3)
     maskf = args[4]
     args[4] = (maskf * (torch.rand(maskf.shape, generator=gen, device=dev) > 0.1)).to(dtype)
@@ -254,38 +259,210 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         fm.fused_message_aggregate_tabled_bwd(*args, *tabs, *ws, torch.zeros_like(h))
 
 
-def test_lmax1_bf16_wide_widths_raise(dev):
-    """The bf16 engine pads to 32x0e+16x1o; wider bf16 layers raise (fp32
-    takes any width)."""
-    for hidden, k in (("48x0e+16x1o", 8), ("32x0e+24x1o", 8)):
-        cfg, args, ws, d_agg = _km_problem(dev, hidden, k, 256, 1, torch.bfloat16)
-        with pytest.raises(ValueError, match="at most 32x0e"):
-            fm.fused_message_aggregate_km_fwd(cfg, *args, *ws)
-        with pytest.raises(ValueError, match="at most 32x0e"):
-            fm.km_bwd_kernel(cfg, *args, fm.split_weights(cfg, *ws), d_agg)
+# the lmax=1 kernels past the Bench kernels' widths (#1-#7 on the Wide
+# kernels, ``-k lmax1_wide``): each multiplicity past its cap alone, neither
+# a multiple of the padding, and twice the bench width in both
+L1_WIDE = ["48x0e+16x1o", "32x0e+24x1o", "40x0e+20x1o", "64x0e+32x1o"]
+# a width whose bf16 blocks need more shared memory than the card has (the
+# forward's weights alone 304,128 bytes)
+L1_PAST_SMEM = "128x0e+64x1o"
+
+
+@pytest.mark.parametrize("hidden", L1_WIDE)
+def test_lmax1_wide_tabled_matches_plain(dev, monkeypatch, hidden):
+    """#1, and #2 with the reduction and the epilogue, in bf16 at a wide
+    width against the plain versions under the bench width's limits (3e-2
+    and 5e-2 of max|ref|)."""
+    args, d_agg = _bwd_problem(dev, monkeypatch, hidden, 24, 3000, 160, torch.bfloat16)
+    before = (fm.TAB_FWD.launches, fm.TAB_BWD.launches, fm.TAB_BWD_REDUCE.launches)
+    with torch.no_grad():
+        got = fm.fused_message_aggregate_tabled_fwd(*_fwd_args(args)).float()
+        ref = fm.fused_message_aggregate_tabled_plain(*_fwd_args(args)).float()
+    bgot = fm.fused_message_aggregate_tabled_bwd(*args, d_agg)
+    bref = fm.fused_message_aggregate_tabled_bwd_plain(*args, d_agg)
+    torch.cuda.synchronize()
+    assert (fm.TAB_FWD.launches, fm.TAB_BWD.launches, fm.TAB_BWD_REDUCE.launches) == tuple(
+        b + 1 for b in before)
+    assert torch.isfinite(got).all()
+    assert float((got - ref).abs().max()) <= 3e-2 * float(ref.abs().max())
+    for i, (x, y) in enumerate(zip(bgot, bref, strict=True)):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        x, y = x.float(), y.float()
+        assert torch.isfinite(x).all(), i
+        assert float((x - y).abs().max()) <= 5e-2 * float(y.abs().max()), i
+
+
+@pytest.mark.parametrize("hidden", L1_WIDE)
+def test_lmax1_wide_km_matches_plain(dev, hidden):
+    """#3 and #5 (+ the reduction) in bf16 at a wide width against their
+    plain versions under the bench width's limits (_check_generic,
+    _check_bwd); receivers without a valid slot give exact zeros."""
+    cfg, args, ws, d_agg = _km_problem(dev, hidden, 24, 2000, 2, torch.bfloat16)
+    before = (fm.KM_FWD.launches, fm.KM_BWD.launches)
+    with torch.no_grad():
+        got = fm.fused_message_aggregate_km_fwd(cfg, *args, *ws)
+        ref = fm.fused_message_aggregate_km_plain(cfg, *args, *ws)
+        ws6 = fm.split_weights(cfg, *ws)
+        bgot = fm.km_bwd_kernels(cfg, *args, ws6, d_agg)
+        bref = fm.km_bwd_plain(cfg, *args, ws6, d_agg)
+    torch.cuda.synchronize()
+    assert (fm.KM_FWD.launches, fm.KM_BWD.launches) == (before[0] + 1, before[1] + 1)
+    _check_generic(got, ref, torch.bfloat16)
+    assert (got[1000 - 37:1000] == 0).all()
+    _check_bwd(bgot, bref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("hidden", L1_WIDE)
+def test_lmax1_wide_flat_matches_plain(dev, hidden):
+    """#6 and #7 (+ the reduction) at p = 2 in bf16 at a wide width against
+    their plain versions, as test_lmax1_wide_km_matches_plain."""
+    cfg, args, ws, d_agg = _flat_problem(dev, hidden, 24, 2000, 2, 2, torch.bfloat16)
+    before = (fm.FLAT_FWD.launches, fm.FLAT_BWD.launches)
+    with torch.no_grad():
+        got = fm.fused_message_aggregate_fwd(cfg, *args, *ws)
+        ref = fm.fused_message_aggregate_plain(cfg, *args, *ws)
+        ws6 = fm.split_weights(cfg, *ws)
+        bgot = fm.flat_bwd_kernels(cfg, *args, ws6, d_agg)
+        bref = fm.flat_bwd_plain(cfg, *args, ws6, d_agg)
+    torch.cuda.synchronize()
+    assert (fm.FLAT_FWD.launches, fm.FLAT_BWD.launches) == (before[0] + 1, before[1] + 1)
+    _check_generic(got, ref, torch.bfloat16)
+    assert (got[1000 - 37:1000] == 0).all()
+    _check_bwd(bgot, bref, torch.bfloat16)
+
+
+def test_lmax1_wide_fp32_matches_plain(dev, monkeypatch):
+    """The fp32 kernels (the FMA check path) at 64x0e+32x1o, where their
+    rows and weights do not fit shared memory beside each other: smaller
+    groups, the backward's weight gradients and weights in global memory.
+    Every addressing against its plain version: 1e-4 * max(1, |ref|)
+    elementwise (agg, d_h, d_hs, d_hr), 1e-4 * max|ref| per weight block."""
+    hidden = L1_WIDE[-1]
+    args, d_agg = _bwd_problem(dev, monkeypatch, hidden, 24, 3000, 160, torch.float32)
+    cfg, a, ws, k_agg = _km_problem(dev, hidden, 24, 2000, 2, torch.float32)
+    fcfg, fa, fws, f_agg = _flat_problem(dev, hidden, 24, 2000, 2, 2, torch.float32)
+    with torch.no_grad():
+        pairs = [
+            (fm.fused_message_aggregate_tabled_fwd(*_fwd_args(args)),
+             fm.fused_message_aggregate_tabled_plain(*_fwd_args(args))),
+            (fm.fused_message_aggregate_km_fwd(cfg, *a, *ws),
+             fm.fused_message_aggregate_km_plain(cfg, *a, *ws)),
+            (fm.fused_message_aggregate_fwd(fcfg, *fa, *fws),
+             fm.fused_message_aggregate_plain(fcfg, *fa, *fws))]
+        bwds = [(fm.fused_message_aggregate_tabled_bwd(*args, d_agg),
+                 fm.fused_message_aggregate_tabled_bwd_plain(*args, d_agg)),
+                (fm.fused_message_aggregate_km_bwd(cfg, *a, *ws, k_agg),
+                 fm.fused_message_aggregate_km_bwd_plain(cfg, *a, *ws, k_agg)),
+                (fm.fused_message_aggregate_bwd(fcfg, *fa, *fws, f_agg),
+                 fm.fused_message_aggregate_bwd_plain(fcfg, *fa, *fws, f_agg))]
+    torch.cuda.synchronize()
+    for got, ref in pairs:
+        assert torch.isfinite(got).all()
+        assert ((got - ref).abs() <= 1e-4 * ref.abs().clamp(min=1.0)).all()
+    for got, ref in bwds:
+        n_act = 1 if len(got) == 5 else 2  # the tabled d_h, or d_hs and d_hr
+        for i, (x, y) in enumerate(zip(got, ref, strict=True)):
+            err = (x - y).abs()
+            if i < n_act:
+                assert (err <= 1e-4 * y.abs().clamp(min=1.0)).all(), (i, float(err.max()))
+            else:
+                assert float(err.max()) <= 1e-4 * float(y.abs().max()), (i, float(err.max()))
+
+
+def _lmax1_routes(dev, monkeypatch, hidden):
+    """Every lmax=1 route's forward and backward outputs in bf16 at a width
+    (the backward's per-block partials, before the reduction)."""
+    out = {}
+    args, d_agg = _bwd_problem(dev, monkeypatch, hidden, 24, 3000, 160, torch.bfloat16)
+    cfg = args[0]
+    ws6 = fm.split_weights(cfg, *args[10:])
+    with torch.no_grad():
+        out["tab"] = (fm.fused_message_aggregate_tabled_fwd(*_fwd_args(args)),
+                      *fm.tab_bwd_kernel(cfg, *args[1:7], ws6, d_agg))
+        cfg, a, ws, d_agg = _km_problem(dev, hidden, 24, 2000, 2, torch.bfloat16)
+        out["km"] = (fm.fused_message_aggregate_km_fwd(cfg, *a, *ws),
+                     *fm.km_bwd_kernel(cfg, *a, fm.split_weights(cfg, *ws), d_agg))
+        cfg, a, ws, d_agg = _flat_problem(dev, hidden, 24, 2000, 2, 2, torch.bfloat16)
+        out["flat"] = (fm.fused_message_aggregate_fwd(cfg, *a, *ws),
+                       *fm.flat_bwd_kernel(cfg, *a, fm.split_weights(cfg, *ws), d_agg))
+    torch.cuda.synchronize()
+    return out
+
+
+def test_lmax1_wide_is_deterministic(dev, monkeypatch):
+    """Two runs of every route at 64x0e+32x1o are bitwise equal: the Wide
+    backward's weight-gradient jobs each sum in a fixed order."""
+    one = _lmax1_routes(dev, monkeypatch, L1_WIDE[-1])
+    two = _lmax1_routes(dev, monkeypatch, L1_WIDE[-1])
+    for route in one:
+        for x, y in zip(one[route], two[route], strict=True):
+            assert torch.equal(x, y), route
+
+
+@pytest.mark.parametrize("hidden", ["32x0e+16x1o", "16x0e+8x1o"])
+def test_lmax1_wide_kernels_are_bench_bitwise(dev, monkeypatch, hidden):
+    """The Wide kernels' block walk at widths the Bench kernels take (the
+    Bench bound set to 0 sends bf16 to the Wide library): one block of each
+    kind over the Bench order of k-steps, so every output, the backward's
+    partials among them, is the Bench kernels' bit for bit."""
+    bench = _lmax1_routes(dev, monkeypatch, hidden)
+    monkeypatch.setattr(fm, "BENCH_HS", 0)
+    wide = _lmax1_routes(dev, monkeypatch, hidden)
+    for route in bench:
+        for i, (x, y) in enumerate(zip(wide[route], bench[route], strict=True)):
+            assert torch.equal(x, y), (route, i)
+
+
+def test_lmax1_wide_past_smem_raises(dev, monkeypatch):
+    """Past the shared-memory bound the bf16 wrappers raise before any
+    launch, naming the bytes, every route forward and backward."""
+    args, t_agg = _bwd_problem(dev, monkeypatch, L1_PAST_SMEM, 8, 256, 32, torch.bfloat16,
+                               run=False)
+    t_ws6 = fm.split_weights(args[0], *args[10:])
+    cfg, a, ws, d_agg = _km_problem(dev, L1_PAST_SMEM, 8, 256, 1, torch.bfloat16)
+    ws6 = fm.split_weights(cfg, *ws)
+    fa = _flat_problem(dev, L1_PAST_SMEM, 8, 256, 1, 2, torch.bfloat16)
+    kerns = (fm.TAB_FWD, fm.TAB_BWD, fm.KM_FWD, fm.KM_BWD, fm.FLAT_FWD, fm.FLAT_BWD)
+    before = [kern.launches for kern in kerns]
+    calls = (lambda: fm.fused_message_aggregate_tabled_fwd(*_fwd_args(args)),
+             lambda: fm.tab_bwd_kernel(args[0], *args[1:7], t_ws6, t_agg),
+             lambda: fm.fused_message_aggregate_km_fwd(cfg, *a, *ws),
+             lambda: fm.km_bwd_kernel(cfg, *a, ws6, d_agg),
+             lambda: fm.fused_message_aggregate_fwd(fa[0], *fa[1], *fa[2]),
+             lambda: fm.flat_bwd_kernel(fa[0], *fa[1], fm.split_weights(fa[0], *fa[2]), fa[3]))
+    for call in calls:
+        with pytest.raises(ValueError, match="bytes of shared memory"):
+            call()
+    assert [kern.launches for kern in kerns] == before
 
 
 def test_lmax1_bf16_kernels_do_not_spill(dev, tmp_path):
-    """The bf16 engine's kernels (#1-#7: fused_message_fwd_mma and
-    fused_message_bwd_mma, each addressing): ptxas reports no spill."""
+    """Every bf16 engine kernel the two lmax=1 builds hold (#1-#7 on the
+    Bench and the Wide kernels, each addressing): ptxas reports no spill."""
     import re
     import subprocess
 
     from scalable_e3_gnn_torch.kernels import build
 
-    seen = 0
-    for name in ("fused_message_tab_fwd", "fused_message_tab_bwd"):
-        out = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(tmp_path / f"{name}.so"),
+    seen = []
+    # each source's plain build and its Wide kernels' (LMAX1_WIDE=1)
+    for name, defines in [(nm, d) for nm in ("fused_message_tab_fwd", "fused_message_tab_bwd")
+                          for d in fm._VARIANTS]:
+        out = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, *(f"-D{d}" for d in defines),
+                              "-o", str(tmp_path / f"{name}{len(defines)}.so"),
                               str(build.CSRC / f"{name}.cu")], capture_output=True, text=True,
                              check=True)
         log = out.stdout + out.stderr
         for entry in re.split(r"Compiling entry function", log)[1:]:
-            if "_mma" not in entry.split("'")[1]:
+            fn = entry.split("'")[1]
+            if "_mma" not in fn:
                 continue
-            seen += 1
+            seen.append(fn)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
             assert spill is not None and spill.groups() == ("0", "0"), entry[:300]
-    assert seen == 6  # three addressings, forward and backward
+    # the Bench and the Wide kernels, forward and backward, are among them
+    for kern in ("fwd_mma", "bwd_mma", "fwd_wide_mma", "bwd_wide_mma"):
+        assert any(f"fused_message_{kern}" in fn for fn in seen), (kern, seen)
 
 
 # (hidden irreps, K, points): tiles 160, 192 and 200 (_pick_generic_tile);

@@ -39,8 +39,11 @@ from scalable_e3_gnn_torch.kernels import fused_message as fm
 CG = 1.0 / math.sqrt(3.0)
 BF = torch.bfloat16
 
-# (hs, hv, K, receivers, tile): the widths of tests/test_torch_cuda.py::WIDTHS
-WIDTHS = [(16, 8, 8, 96, 32), (8, 12, 13, 128, 64), (32, 16, 24, 160, 160)]
+# (hs, hv, K, receivers, tile): the widths of tests/test_torch_cuda.py::WIDTHS,
+# then two past the Bench kernels' 32x0e+16x1o that the Wide kernels take
+# (their column blocks change no column's sum, so the emulation is the same)
+WIDTHS = [(16, 8, 8, 96, 32), (8, 12, 13, 128, 64), (32, 16, 24, 160, 160),
+          (40, 20, 8, 128, 32), (64, 32, 8, 128, 32)]
 
 
 @pytest.fixture(autouse=True)
@@ -272,7 +275,12 @@ def test_engine_km_forward_matches_km2_plain(hs, hv, k, n, tile):
 def test_engine_backward_matches_plain(hs, hv, k, n, tile):
     """d_hr, the sender rows and the six weight gradients against
     ``tab_bwd_plain`` (whose sender rows the kernel folds into d_hu; the
-    rows are compared here, the fold is a sum of them)."""
+    rows are compared here, the fold is a sum of them).  Past 32x0e+16x1o
+    the flips grow with the sums' length (at 64x0e+32x1o the rows read 4.25
+    ulps on 2e-4 of the elements, the weight gradients 3.4e-4 of max|ref|),
+    so there the rows are held to the card's limit for these kernels (8
+    ulps, at most 1e-3 of the elements over 1 ulp) and the weight gradients
+    to 1e-3 of max|ref|."""
     cfg, (h, d2, attr, maskf, loc, gtab), rw = _problem(hs, hv, k, n, tile, seed=2)
     rng = np.random.default_rng(7)
     d_agg = torch.from_numpy(rng.standard_normal(h.shape)).float().to(BF)
@@ -281,15 +289,17 @@ def test_engine_backward_matches_plain(hs, hv, k, n, tile):
     d_rows = d_agg.float().repeat_interleave(k, dim=0)
     r_hs, r_hrr, r_dws = fm._rows_bwd(cfg, xs, xv, s, v, maskf, ws, d_rows, BF)
     g_hs, g_hrr, g_dws = _eng_backward(cfg, xs, xv, s, v, maskf.float(), ws, d_rows)
+    wide = hs > 32 or hv > 16
+    limit, share, dw_limit = (8, 1e-3, 1e-3) if wide else (1, 0, 2e-4)
     for got, ref in ((g_hs, r_hs), (_ksum(g_hrr, n, k), _ksum(r_hrr, n, k))):
         worst, over = ulps(got.to(BF), ref.to(BF))
-        assert worst <= 1 and over == 0, (worst, over)
+        assert worst <= limit and over <= share, (worst, over)
     _, r_hr, _ = fm.tab_bwd_plain(cfg, h, d2, attr, maskf, loc, gtab, ws, d_agg)
     worst, over = ulps(_ksum(g_hrr, n, k).to(BF), r_hr)
-    assert worst <= 1 and over == 0, (worst, over)
+    assert worst <= limit and over <= share, (worst, over)
     for got, ref in zip(g_dws, r_dws, strict=True):
         assert got.shape == ref.shape
-        assert float((got - ref).abs().max()) <= 2e-4 * float(ref.abs().max())
+        assert float((got - ref).abs().max()) <= dw_limit * float(ref.abs().max())
 
 
 def test_dot_forms_against_fp64():
