@@ -8,8 +8,9 @@ Phases, each printing one JSON line:
 1. device     -- require CUDA; print the card's name and power limit
                  (``nvidia-smi --query-gpu=name,power.limit``); TF32 off.
 2. build      -- compile every CUDA source of the package with nvcc, all at once
-                 (the two generic sources once per gate activation); each
-                 library's registers and spills.
+                 (the two generic sources once per gate activation, the two
+                 lmax=1 sources once more per Wide instance); each library's
+                 registers and spills.
 3. graph      -- the config-3 main path up to the model: 100k uniform points,
                  octree (6 levels), radius graph (r=0.04, K=24), symmetrized,
                  gather tables (tile 160), sh attributes; timed; checked
@@ -148,7 +149,10 @@ Phases, each printing one JSON line:
                  3 counted steps with tables, without, and at pack 2; fp32
                  gradients of each route against the plain path at 20k
                  points; per launch ms, bound and plain ms (the kernels line's
-                 ``wide_l1`` rows).
+                 ``wide_l1`` rows); at 96x0e+48x1o and 128x0e+64x1o (the Wide
+                 kernels' instances m = 3, 4) every route's bf16 kernels
+                 against their plain versions at 20k points, with their ms,
+                 bounds and launch shapes (``wide_l1_instances``).
 38. graph_vjp, train_vjp_250k -- tools/exp_residual_bwd.py's A/B of the
                  three generic backwards on its 250k graph (no tables, bf16,
                  remat; run after phase 23): replay_bwd=False (4 of #11 and 4
@@ -241,8 +245,9 @@ Phases, each printing one JSON line:
                  3e-4 of the one-process curve, parameters equal across the
                  ranks, per rank and step 16 of #3, #5 and the reduction;
                  then rank 1 killed after step 3's checkpoint: one restart,
-                 the final parameters bit for bit the fault-free run's;
-                 step ms per rank, collective host ms, detection to resume.
+                 the final parameters bit for bit the fault-free run's (the
+                 two worlds run at the same time); step ms per rank,
+                 collective host ms, detection to resume.
 49c. coo_dist  -- config 3 as a COO graph (the 100k cell radius graph, K=24,
                  not symmetrized; fp32, plain PyTorch) partitioned by
                  ``partition_graph`` at P=4: every valid edge in one partition;
@@ -280,7 +285,8 @@ Phases, each printing one JSON line:
                  restart after a kill bit for bit); dp_dense's 4-process world
                  under ring (bit for bit its all_gather world); the COO P=4
                  graph as 2 processes under ring (forward bit for bit the
-                 one-process all_gather forward); step ms, gloo host ms, the
+                 one-process all_gather forward); these four worlds at the same
+                 time, after the stress world; step ms, gloo host ms, the
                  kernels' device ms and bounds.
 50. coo_nbody, coo_qm9 -- configs 1 and 2 of the evaluation ladder on the COO
                  path (no hand kernel: every count must stay 0), through
@@ -333,6 +339,7 @@ exits non-zero as well without a GPU or without the package beside it.
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import dataclasses
 import hashlib
@@ -2550,6 +2557,9 @@ def pack_phases(card: str, graph3) -> dict:
 
 WIDE_L1_HIDDEN = "64x0e+32x1o"  # twice config 3's multiplicities (F = 160): past both caps
 WIDE_L1_STEPS = 3  # counted steps of each route
+# the Wide kernels' larger instances (m = 3, 4), checked at the 20k gradient
+# check's graph
+WIDE_L1_INSTANCES = ("96x0e+48x1o", "128x0e+64x1o")
 
 
 TAB_PART_NAMES = ("d_hu", "d_hr", "dW0a", "dW1Sa", "dW1Va", "dW0b", "dW1Sb", "dW1Vb")
@@ -2790,7 +2800,42 @@ def wide_l1_phase(card: str, graph3) -> dict:
     emit("grad_check_wide_l1", points=GC_POINTS, radius=GC_RADIUS, k=MAX_NEIGHBORS,
          hidden=WIDE_L1_HIDDEN, layers=NUM_LAYERS, dtype="float32", routes=grads,
          tolerance=f"{TOL_GRAD_FP32} * max|ref| per parameter; fp32 sums in another order")
-    del g_gc
+
+    # ---- the Wide kernels' instances m = 3, 4: every route's bf16 kernels
+    #      against their plain versions on the 20k graph
+    inst = {}
+    g_gc_nt = g_gc._replace(**NO_TABLES)
+    for hidden in WIDE_L1_INSTANCES:
+        m = km_model(dev, hidden)
+        with torch.no_grad():
+            a_gc = m.compute_attributes_dense(g_gc)
+        c = {}
+        cfg, args, ws, n_valid = kernel_inputs(g_gc, a_gc, m.layers[0], bf, gen)
+        d_agg = torch.randn(args[0].shape, generator=gen, device=dev).to(bf)
+        c["tab"] = tab_check(f"wide_l1_{hidden}", cfg, args, ws, n_valid, d_agg,
+                             (g_gc.gather_rev_dense, g_gc.gather_rem_pos, g_gc.gather_rem_node),
+                             times=True)
+        c["tab"]["occupancy"] = {d: fm.wide_occupancy(cfg, "tab", d == "bwd", args[0].shape[0])
+                                 for d in ("fwd", "bwd")}
+        del cfg, args, d_agg
+        h_ext = torch.randn((GC_POINTS, m.hidden_irreps.dim), generator=gen, device=dev)
+        for form in ("km", "flat"):
+            if form == "km":
+                cfg, args, ws, n_valid = km_inputs(m, g_gc_nt.senders, a_gc[3], h_ext, 0,
+                                                   GC_POINTS, bf, gen)
+            else:
+                cfg, args, ws, n_valid = flat_inputs(m, g_gc_nt.senders, a_gc[3], h_ext, 0,
+                                                     GC_POINTS, PACK_MAIN, bf, gen)
+            d_agg = torch.randn(args[1].shape, generator=gen, device=dev).to(bf)
+            c[form] = km_check(f"wide_l1_{hidden}", cfg, args, ws, n_valid, d_agg, times=True,
+                               form=form)
+            c[form]["occupancy"] = {d: fm.wide_occupancy(cfg, form, d == "bwd",
+                                                         args[1].shape[0])
+                                    for d in ("fwd", "bwd")}
+            del cfg, args, d_agg
+        inst[hidden] = c
+        del m, a_gc, h_ext
+    del g_gc, g_gc_nt
 
     # ---- the kernels line's rows: per launch at the 100k shapes (bf16)
     rows = {}
@@ -2814,9 +2859,27 @@ def wide_l1_phase(card: str, graph3) -> dict:
             launches_are="per step of the route's counted bf16 train step (train_wide_l1)",
             times=f"CUDA events, bf16, {n} points, K = {MAX_NEIGHBORS}"
                   + (f", pack {PACK_MAIN}" if form == "flat" else ""))
+    # ... and the instances' rows: per launch at the 20k shapes
+    inst_rows = {}
+    for hidden, c in inst.items():
+        for kern, (form, which) in ((fm.TAB_FWD, ("tab", "fwd")), (fm.TAB_BWD, ("tab", "bwd")),
+                                    (fm.KM_FWD, ("km", "fwd")), (fm.KM_BWD, ("km", "bwd")),
+                                    (fm.FLAT_FWD, ("flat", "fwd")),
+                                    (fm.FLAT_BWD, ("flat", "bwd"))):
+            t = c[form]["times"]
+            ms = {"fwd": "fwd_ms", "bwd": "bwd_main_ms"}[which]
+            plain = {"fwd": "fwd_plain_ms", "bwd": "bwd_plain_ms"}[which]
+            inst_rows.setdefault(kern.name, {})[hidden] = dict(
+                max_abs_err=c[form]["max_abs_err"][which], ms=t[ms], plain_ms=t[plain],
+                bound_ms=t["bounds"][which]["bound_ms"], bound_by=t["bounds"][which]["bound_by"],
+                library_ms=None, occupancy=c[form]["occupancy"][which],
+                times=f"CUDA events, bf16, {GC_POINTS} points, K = {MAX_NEIGHBORS}"
+                      + (f", pack {PACK_MAIN}" if form == "flat" else ""))
+    for name, by_width in inst_rows.items():
+        rows[name]["instances"] = by_width
     seconds = time.perf_counter() - t_phase
     emit("wide_l1", card=card, hidden=WIDE_L1_HIDDEN, points=n, rows=rows,
-         seconds_kernels=t_kernels, phase_seconds=seconds)
+         instances=list(WIDE_L1_INSTANCES), seconds_kernels=t_kernels, phase_seconds=seconds)
     return dict(rows=rows, seconds=seconds)
 
 
@@ -4497,9 +4560,9 @@ def dist_procs_phase(card: str, graph3) -> dict:
     once (``parallel.dense_worker.write_inputs``), runs the one-process P=4
     reference (the bf16 forward, a warm-up and 5 timed bf16 steps, fp32
     masters, Adam 1e-3), and launches the workers through
-    ``dense_worker.run_world`` (the ``Supervisor``) twice: fault-free, and
-    with rank 1 killed (``inject_failure``) after the checkpoint of step
-    3.  The kernel libraries are already built (phase 2).  Each rank
+    ``dense_worker.run_world`` (the ``Supervisor``) twice at the same time
+    (``world_runs``): fault-free, and with rank 1 killed
+    (``inject_failure``) after the checkpoint of step 3.  The kernel libraries are already built (phase 2).  Each rank
     partitions the whole graph, keeps its two partitions, runs their bf16
     forward, then the steps with a heartbeat and its own checkpoint each.
     Checked: the ranks' partition equals this process's (digest); each rank's
@@ -4550,10 +4613,12 @@ def dist_procs_phase(card: str, graph3) -> dict:
         dense_worker.write_inputs(
             tmp / "in", *arrays, target, model_kw, weights, num_parts=DIST_PARTS,
             steps=DIST_PROCS_STEPS, lr=LEARNING_RATE, compute_dtype="bfloat16")
-        clean = world_run(card, tmp / "in", tmp / "fault_free", DIST_PROCS_WORLD)
-        killed = world_run(card, tmp / "in", tmp / "rank1_killed", DIST_PROCS_WORLD, 1,
-                           env={"E3GNN_DIE_AT_STEP": str(DIST_PROCS_DIE_AT),
-                                "E3GNN_DIE_PROCESS": "1"})
+        worlds = world_runs(card, {
+            "clean": ((tmp / "in", tmp / "fault_free", DIST_PROCS_WORLD), {}),
+            "killed": ((tmp / "in", tmp / "rank1_killed", DIST_PROCS_WORLD, 1),
+                       dict(env={"E3GNN_DIE_AT_STEP": str(DIST_PROCS_DIE_AT),
+                                 "E3GNN_DIE_PROCESS": "1"}))})
+    clean, killed = worlds["clean"], worlds["killed"]
     res = clean["res"]
     sha = dense_worker.partition_digest(part)
     fwd_equal = {}
@@ -4598,6 +4663,7 @@ def dist_procs_phase(card: str, graph3) -> dict:
                      resumed_from_step={r: kres[r]["start_step"] for r in kres},
                      detect_to_resumed_s=detect_s, world_wall_s=killed["wall"],
                      final_params_bitwise_fault_free=restart_equal),
+         worlds_at_once="the fault-free and the killed world ran at the same time (world_runs)",
          scaling="none computed: the two processes time-slice one card")
     check(all(res[r]["partition_sha"] == sha for r in res), "the ranks' partitions differ")
     check(all(fwd_equal.values()), f"forward not the one-process P=4 forward: {fwd_equal}")
@@ -4991,6 +5057,19 @@ def world_run(card: str, in_dir: Path, out_dir: Path, world: int = DP_WORLD,
     return dict(report=report, res=res, files=files, wall=wall)
 
 
+def world_runs(card: str, runs: dict) -> dict:
+    """``world_run`` of every entry of ``runs`` (label: its arguments after
+    ``card``, and its keywords) at once, one thread each: the worlds are
+    independent, and most of a world's wall time is its processes' start
+    (the interpreter, the card's context, the partitioning).  They share the
+    card and the host's cores, so their step times are read under one
+    another's load.  Returns ``{label: world_run's result}``."""
+    with concurrent.futures.ThreadPoolExecutor(len(runs)) as pool:
+        futs = {label: pool.submit(world_run, card, *args, **kw)
+                for label, (args, kw) in runs.items()}
+        return {label: fut.result() for label, fut in futs.items()}
+
+
 def dp_phases(card: str) -> dict:
     """Phases 49d-49e: the dense path with data parallelism over clouds, bf16
     on fp32 masters, Adam 1e-3, the kernels on (remat), on two config-3
@@ -5185,6 +5264,8 @@ def ring_procs_phase(card: str, procs: dict, dpc: dict, cooc: dict) -> dict:
         step: each rank's forward bit for bit the one-process all_gather
         forward (which the all_gather worlds equal bit for bit), 4 publishes
         and 4 gathers a step.
+    The worlds of (b), (c) and (d) run at the same time (``world_runs``),
+    after (a).
     Read: per-rank step ms and gloo host ms beside the all_gather worlds',
     the gather's and the publish's device ms per step (CUDA events, the
     wait included), the kernels' device ms alone and their bounds, gloo's
@@ -5228,16 +5309,11 @@ def ring_procs_phase(card: str, procs: dict, dpc: dict, cooc: dict) -> dict:
             tmp / "in_dist", *procs["arrays"], procs["target"], procs["model_kw"],
             procs["weights"], num_parts=DIST_PARTS, steps=DIST_PROCS_STEPS, lr=LEARNING_RATE,
             compute_dtype="bfloat16", backend="ring")
-        clean = world_run(card, tmp / "in_dist", tmp / "dist", DIST_PROCS_WORLD)
-        killed = world_run(card, tmp / "in_dist", tmp / "dist_killed", DIST_PROCS_WORLD, 1,
-                           env={"E3GNN_DIE_AT_STEP": str(DIST_PROCS_DIE_AT),
-                                "E3GNN_DIE_PROCESS": "1"})
         # ---- (c) dp_dense's world under ring
         stack = lambda i: np.stack([a[i] for a in dpc["arrays"]])
         dense_worker.write_inputs(
             tmp / "in_dp", stack(0), stack(1), stack(2), stack(3), dpc["targets"],
             dpc["model_kw"], dpc["weights"], **dpc["common"], backend="ring")
-        dpr = world_run(card, tmp / "in_dp", tmp / "dp")
         # ---- (d) the COO graph as 2 processes under ring
         coo_arrays = cooc["arrays"]
         coo_kw = dict(input_irreps="2x0e+1x1o", hidden_irreps=HIDDEN, output_irreps="1x1o",
@@ -5249,7 +5325,16 @@ def ring_procs_phase(card: str, procs: dict, dpc: dict, cooc: dict) -> dict:
             coo_target, coo_kw, cooc["weights"], receivers=coo_arrays[3], num_parts=DIST_PARTS,
             steps=RING_COO_STEPS, lr=LEARNING_RATE, compute_dtype="float32", layout="coo",
             backend="ring")
-        coo = world_run(card, tmp / "in_coo", tmp / "coo", DIST_PROCS_WORLD)
+        # ---- (b), (c) and (d): the four worlds at once
+        worlds = world_runs(card, {
+            "clean": ((tmp / "in_dist", tmp / "dist", DIST_PROCS_WORLD), {}),
+            "killed": ((tmp / "in_dist", tmp / "dist_killed", DIST_PROCS_WORLD, 1),
+                       dict(env={"E3GNN_DIE_AT_STEP": str(DIST_PROCS_DIE_AT),
+                                 "E3GNN_DIE_PROCESS": "1"})),
+            "dp": ((tmp / "in_dp", tmp / "dp"), {}),
+            "coo": ((tmp / "in_coo", tmp / "coo", DIST_PROCS_WORLD), {})})
+    clean, killed, dpr, coo = (worlds[k] for k in ("clean", "killed", "dp", "coo"))
+    at_once = "the worlds of (b), (c) and (d) ran at the same time (world_runs)"
 
     # ---- (b) checks and readings
     res, ares = clean["res"], procs["res"]
@@ -5285,7 +5370,8 @@ def ring_procs_phase(card: str, procs: dict, dpc: dict, cooc: dict) -> dict:
          killed=dict(restarts=killed["report"].restarts, events=killed["report"].events,
                      resumed_from_step={r: kres[r]["start_step"] for r in kres},
                      final_params_bitwise_fault_free=restart_equal,
-                     detect_to_resumed_s=detect_s, world_wall_s=killed["wall"]))
+                     detect_to_resumed_s=detect_s, world_wall_s=killed["wall"]),
+         worlds_at_once=at_once)
     check(all(fwd_equal.values()), f"ring world: forward not the one-process one: {fwd_equal}")
     check(losses_equal and params_equal,
           "ring world: losses or parameters differ from the all_gather world's")
@@ -5311,7 +5397,7 @@ def ring_procs_phase(card: str, procs: dict, dpc: dict, cooc: dict) -> dict:
          all_gather_collective_host_ms_mean={r: mean(dares[r]["comm_ms"][1:]) for r in dares},
          gather_device_ms_per_step={r: [m["gather"] for m in dres[r]["ring_ms_per_step"][1:]]
                                     for r in dres},
-         world_wall_s=dpr["wall"], all_gather_world_wall_s=dpc["wall"])
+         world_wall_s=dpr["wall"], all_gather_world_wall_s=dpc["wall"], worlds_at_once=at_once)
     check(dp_fwd and dp_losses and dp_params,
           f"dp ring world: forward {dp_fwd}, losses {dp_losses}, parameters {dp_params}")
     check(dp_launch, f"dp ring world launches {[dres[r]['launches_per_step'] for r in dres]}")
@@ -5332,7 +5418,7 @@ def ring_procs_phase(card: str, procs: dict, dpc: dict, cooc: dict) -> dict:
          step_ms={r: cres[r]["step_ms"] for r in cres},
          gather_device_ms_per_step={r: [m["gather"] for m in cres[r]["ring_ms_per_step"]]
                                     for r in cres},
-         world_wall_s=coo["wall"])
+         world_wall_s=coo["wall"], worlds_at_once=at_once)
     check(all(coo_fwd.values()), f"COO ring world: forward not the all_gather one: {coo_fwd}")
     check(coo_launch and all(math.isfinite(x) for r in cres for x in cres[r]["losses"]),
           f"COO ring world: launches {[cres[r]['launches_per_step'] for r in cres]}")

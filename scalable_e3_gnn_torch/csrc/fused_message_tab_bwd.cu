@@ -68,8 +68,10 @@
 // values split into hi + lo bf16 (exact), in registers for the block's whole
 // run.  Per 16 rows: about 450 mma.  The table sum fetches a bucket's scratch
 // rows 8 at a time, several table rows a warp.
-// Past 32x0e+16x1o the Wide kernel (below) runs the same rounds a column
-// block at a time, with its weight gradients in global memory.
+// Past 32x0e+16x1o the Wide kernel (below; an instance per count m of
+// scalar and vector blocks, m = 1..4) runs the same rounds a column block at
+// a time, its weights streamed through a ring of chunks, the layer-1 outputs
+// in registers, its weight gradients in global memory.
 // fp32 (the check path): the first form, kept: one block walks groups of G
 // receivers (G*K slot rows, 48 at K=24), stages the layer-1 inputs, runs
 // the small GEMMs of both layers forward and backward from shared memory on
@@ -96,8 +98,6 @@
 
 #include <type_traits>
 
-#include "lmax1_mma.cuh"
-
 // LMAX1_BWD_CLOCKS (a profiling build of kernels/lmax1_ab.py, never the
 // package's library): thread 0 of each block of the bf16 engine adds the
 // cycles of each phase of its rounds to bwd_phase_cycles[] (and the rounds
@@ -105,9 +105,12 @@
 // added: the phases are thread 0's (warp 0's tile, then the block's
 // barriers and its share of the weight gradients).  The Bench and the Wide
 // kernels mark the same phases; the Wide kernel's last one also holds the
-// writing of its weight-gradient accumulators.
+// writing of its weight-gradient accumulators, and it marks three more
+// (12-14: the wait before layer 2's jobs, warp 0's jobs of layer 2, the wait
+// after them; its 8 is warp 0's jobs of layer 1) and adds thread 0's waits
+// on the ring's mbarriers (inside the phases) to entry 15.
 #ifdef LMAX1_BWD_CLOCKS
-__device__ unsigned long long bwd_phase_cycles[12];
+__device__ unsigned long long bwd_phase_cycles[16];
 #define BWD_CLOCK(i)                                                           \
   do {                                                                         \
     if (threadIdx.x == 0) {                                                    \
@@ -122,7 +125,10 @@ __device__ unsigned long long bwd_phase_cycles[12];
   } while (0)
 #endif
 
-// LMAX1_WIDE=1: the library of the Wide kernels (see launch_dtype)
+#include "lmax1_mma.cuh"
+
+// LMAX1_WIDE=1: a library of the Wide kernels, of the instance LMAX1_WIDE_M
+// (see launch_dtype)
 #ifndef LMAX1_WIDE
 #define LMAX1_WIDE 0
 #endif
@@ -932,69 +938,6 @@ __device__ __forceinline__ void gate_vjp(const float (&o0)[6][4], const float (&
   }
 }
 
-// The gate VJP of one Wide column block (gate_vjp's arithmetic): a scalar
-// block's d_o0 at staging columns col0 ..; a vector block's d_o0 (its gate
-// columns), d_a and d_o1_c, into rows r0 .. r0+15 of Y [..][ld] ([d_o0 (c0) |
-// d_a (hvp) | d_o1_0 | d_o1_1 | d_o1_2])
-template <typename DM>
-__device__ __forceinline__ void gvjp_s(const float (&o)[4][4], DM dm, bf16* Y, int ld, int r0,
-                                       int col0, int lane) {
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    float x[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float v = o[nt][q], sg = sigm(v);
-      x[q] = dm(col0 + nt * 8 + 2 * t4 + (q & 1), q >> 1) * (sg * (1.0f + v * (1.0f - sg)));
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<__nv_bfloat162*>(Y + (r0 + g + 8 * h) * ld + col0 + nt * 8 + 2 * t4) =
-          __floats2bfloat162_rn(x[2 * h], x[2 * h + 1]);
-  }
-}
-template <class S, typename DM>
-__device__ __forceinline__ void gvjp_v(const S& sh, const float (&og)[2][4],
-                                       const float (&oa)[2][4], const float (&ob)[3][2][4], DM dm,
-                                       const RowGeo& rg, bf16* Y, int ld, int r0, int blk,
-                                       int lane) {
-  const int g = lane >> 2, t4 = lane & 3;
-  auto put = [&](int h, int col, float x0, float x1) {
-    *reinterpret_cast<__nv_bfloat162*>(Y + (r0 + g + 8 * h) * ld + col + 2 * t4) =
-        __floats2bfloat162_rn(x0, x1);
-  };
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float xg[4], xa[4], x1[3][4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int h = q >> 1;
-      const float gv = sigm(og[i][q]);
-      float d_g = 0.f, d_a = 0.f;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float d = dm(sh.hsp() + sh.hvp() * c + 16 * blk + 8 * i + 2 * t4 + (q & 1), h);
-        d_g = fmaf(d, kCG * fmaf(rg.v(h, c), oa[i][q], ob[c][i][q]), d_g);
-        const float d_o1 = rnd(d * gv);
-        x1[c][q] = d_o1;
-        d_a = fmaf(d_o1, rg.v(h, c), d_a);
-      }
-      xg[q] = d_g * (gv * (1.0f - gv));
-      xa[q] = kCG * d_a;
-    }
-    const int col = 16 * blk + 8 * i;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      put(h, sh.hsp() + col, xg[2 * h], xg[2 * h + 1]);
-      put(h, sh.c0() + col, xa[2 * h], xa[2 * h + 1]);
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        put(h, sh.c0() + sh.hvp() * (1 + c) + col, x1[c][2 * h], x1[c][2 * h + 1]);
-    }
-  }
-}
-
 __device__ __forceinline__ float lo_of(uint32_t v) {
   return __bfloat162float(reinterpret_cast<const __nv_bfloat162*>(&v)->x);
 }
@@ -1671,72 +1614,157 @@ fused_message_bwd_mma(GatherArgs ga, const bf16* __restrict__ w0a, const bf16* _
 }
 
 // ---------------------------------------------------------------------------
-// bf16 past 32x0e+16x1o: the Wide kernel.  The rounds, the per-warp tile
-// work and its rounding are the Bench kernel's, walked a column block at a
-// time (lmax1_mma.cuh: sblock, vblock); the layer-2 inputs are read back
-// from the round's staging X2; the input-cotangent products run over every
-// k-step of the padded widths.  The weight gradients are too many tiles for
-// registers (288 16x8 tiles at 64x0e+32x1o), so they are cut into jobs (an
-// m-tile of one GEMM's dW = X^T dY against up to 8 n-tiles), job j owned by
-// warp j % warps, and each job's accumulators live in the block's rows of
-// global memory (wacc): every round a warp loads a job's 32 values a lane,
-// adds the round's k-steps (the warps' rows, in warp order: the Bench
-// kernel's order) and stores them back.  So each value is summed in a fixed
-// order and reruns are bit-identical.  The warps a block are as many as
-// shared memory holds beside the weights (at most kWarps; eight at
-// 32x0e+16x1o, where every output is the Bench kernel's bit for bit).
-using l1mma::fits_wide; using l1mma::gate_s; using l1mma::gate_v; using l1mma::KSumN;
-using l1mma::kWideCols; using l1mma::LayerIn; using l1mma::sblock; using l1mma::vblock;
-using l1mma::Wide; using l1mma::wide_shape;
+// bf16 past 32x0e+16x1o: the Wide kernel, instance M (lmax1_mma.cuh: "The
+// Wide kernels").  The rounds, the per-warp tile work and its rounding are
+// the Bench kernel's, a column block at a time, the weights of each block
+// (and, for the input-cotangent products, each 16 input rows) through the
+// block's ring; the layer-1 outputs pass to layer 2 in registers, and layer
+// 2's input cotangents (layer 1's d_m) to layer 1's gate VJP in registers up
+// to m = 2, past it through the K-sum buffer (BwdWide::kDmRegs).
+// The weight gradients are too many tiles for registers (288 16x8 tiles at
+// m = 2), so they are cut into jobs (an m-tile of one GEMM's dW = X^T dY
+// against up to 8 n-tiles), and each job's accumulators live in the block's
+// rows of global memory (wacc): a warp loads a job's 32 values a lane, adds
+// the round's k-steps (the warps' rows, in warp order: the Bench kernel's
+// order) and stores them back.  Layer 2's jobs run after its input
+// cotangents, layer 1's after the K-sum, each between two block barriers, so
+// the staging of layer 1's cotangents (Y1) reuses that of layer 2's inputs
+// and cotangents (X2, Y2).  Each value is summed in a fixed order, so reruns
+// are bit-identical.  A block holds as many warps as shared memory takes
+// (at most kWarps; eight at m = 1, with the Bench kernel's rounds and grid,
+// where every output is the Bench kernel's bit for bit).
+using l1mma::ChunkLane; using l1mma::chunk_lane; using l1mma::KSumN; using l1mma::l1_sblk;
+using l1mma::l1_vblk; using l1mma::l2_sblk; using l1mma::l2_vblk; using l1mma::layer1_wide;
+using l1mma::mma_rc; using l1mma::wide_m; using l1mma::WidePack; using l1mma::WideS;
+using l1mma::WRing;
 
-// staged cotangent rows [d_o0 (c0) | d_a (hvp) | d_o1 (3 hvp)]
-__host__ __device__ inline int ldy(const Wide& sh) { return sh.c0() + 4 * sh.hvp() + 8; }
-__host__ __device__ inline int y1(const Wide& sh) { return sh.c0() + sh.hvp(); }
+template <Addr A, int M> struct BwdWide {
+  typedef WRing<M, true> Ring;
+  static constexpr int kHsp = 32 * M, kHvp = 16 * M, kC0 = 48 * M, kN = 64 * M;
+  static constexpr int kLdF = 80 * M + 8, kLdK = 80 * M + 8;
+  // the staged cotangent rows [d_o0 (c0) | d_a (hvp) | d_o1 (3 hvp)], and
+  // where d_o1 starts
+  static constexpr int kLdY = kC0 + 4 * kHvp + 8, kY1 = kC0 + kHvp;
+  static constexpr int kCols = (80 * M + 31) / 32;  // the K-sum's columns a lane
+  // Layer 1's d_m, from layer 2's input cotangents to layer 1's gate VJP:
+  // in registers up to m = 2 (20 m a lane fit beside the rest), so that the
+  // K-sum buffer can take the staging's tail once layer 2's jobs are done
+  // (one warp more an SM at m = 2); past m = 2 both in a per-warp buffer
+  static constexpr bool kDmRegs = M <= 2;
+  // per warp: two gather buffers (with the d_agg rows), the K-sum buffer
+  // (past m = 2), the d2 rows' sums [n] fp32
+  __host__ __device__ static long warp_bytes(int k) {
+    return 2 * buf_bytes(WideS<M>(), k, true) + (kDmRegs ? 0 : align16(2L * 16 * kLdK)) +
+           4L * kN;
+  }
+  // the round's staging: X2 [rows][ldf], Y2 [rows][ldy] (Y1 [rows][ldy] at
+  // its start)
+  __host__ __device__ static long staging_bytes(int warps) {
+    return align16(2L * 16 * warps * kLdF) + align16(2L * 16 * warps * kLdY);
+  }
+  __host__ __device__ static constexpr long fixed_bytes() {
+    return (Ring::kBytes + 15) / 16 * 16 + 4L * kN;
+  }
+  // shared memory: the ring, d2w; the per-warp buffers; the staging (aliased
+  // by the table sum's ints)
+  __host__ __device__ static long smem_bytes(int k, int tile, int u, int warps) {
+    const long st = staging_bytes(warps), csr = tile > 0 ? csr_bytes(k, tile, u) : 0;
+    return fixed_bytes() + warps * warp_bytes(k) + (st > csr ? st : csr);
+  }
+  __host__ static int warps(int k, int tile, int u) {
+    int w = kWarps;
+    while (w > 0 && smem_bytes(k, tile, u, w) > gmma::kMaxSmem) --w;
+    return w;
+  }
+};
 
-__host__ __device__ inline long wide_warp_bytes(const Wide& sh, int k) {
-  return 2 * buf_bytes(sh, k, true) + align16(2L * 16 * sh.ldk());
+// The gate VJP of one Wide column block (gate_vjp's arithmetic), d_m from
+// dm(n-tile, e, h) (padded column 8 n-tile + 2 t4 + e of the lane's row g + 8
+// h): a scalar block's d_o0 at staging columns 32 cb ..; a vector block's
+// d_o0 (its gate columns), d_a and d_o1_c, into rows r0 .. r0+15 of Y [..][ld]
+// ([d_o0 (c0) | d_a (hvp) | d_o1_0 | d_o1_1 | d_o1_2])
+template <typename DM>
+__device__ __forceinline__ void wvjp_s(const float (&o)[4][4], DM dm, bf16* Y, int ld, int r0,
+                                       int cb, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    float x[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float v = o[nt][q], sg = sigm(v);
+      x[q] = dm(4 * cb + nt, q & 1, q >> 1) * (sg * (1.0f + v * (1.0f - sg)));
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<__nv_bfloat162*>(Y + (r0 + g + 8 * h) * ld + 32 * cb + nt * 8 + 2 * t4) =
+          __floats2bfloat162_rn(x[2 * h], x[2 * h + 1]);
+  }
 }
-__host__ __device__ inline long wide_staging_bytes(const Wide& sh, int warps) {
-  return align16(2L * 16 * warps * sh.ldf()) + 2 * align16(2L * 16 * warps * ldy(sh));
-}
-// shared memory: the weights; the per-warp gather and K-sum buffers; the d2
-// rows' per-warp sums [warps][n]; the round's staging (aliased by the table
-// sum's ints)
-__host__ __device__ inline long wide_smem_bytes(const Wide& sh, int k, int tile, int u,
-                                                int warps) {
-  const long st = wide_staging_bytes(sh, warps), csr = tile > 0 ? csr_bytes(k, tile, u) : 0;
-  return weight_bytes(sh) + warps * wide_warp_bytes(sh, k) + align16(4L * warps * sh.n()) +
-         (st > csr ? st : csr);
-}
-// the warps a block (0: none fits)
-__host__ inline int wide_warps(const Wide& sh, int k, int tile, int u) {
-  int w = kWarps;
-  while (w > 0 && wide_smem_bytes(sh, k, tile, u, w) > gmma::kMaxSmem) --w;
-  return w;
+template <int M, typename DM>
+__device__ __forceinline__ void wvjp_v(const float (&og)[2][4], const float (&oa)[2][4],
+                                       const float (&ob)[3][2][4], DM dm, const RowGeo& rg,
+                                       bf16* Y, int ld, int r0, int v, int lane) {
+  constexpr int HSP = 32 * M, HVP = 16 * M, C0 = 48 * M;
+  const int g = lane >> 2, t4 = lane & 3;
+  auto put = [&](int h, int col, float x0, float x1) {
+    *reinterpret_cast<__nv_bfloat162*>(Y + (r0 + g + 8 * h) * ld + col + 2 * t4) =
+        __floats2bfloat162_rn(x0, x1);
+  };
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float xg[4], xa[4], x1[3][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int h = q >> 1;
+      const float gv = sigm(og[i][q]);
+      float d_g = 0.f, d_a = 0.f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float d = dm((HSP + HVP * c + 16 * v) / 8 + i, q & 1, h);
+        d_g = fmaf(d, kCG * fmaf(rg.v(h, c), oa[i][q], ob[c][i][q]), d_g);
+        const float d_o1 = rnd(d * gv);
+        x1[c][q] = d_o1;
+        d_a = fmaf(d_o1, rg.v(h, c), d_a);
+      }
+      xg[q] = d_g * (gv * (1.0f - gv));
+      xa[q] = kCG * d_a;
+    }
+    const int col = 16 * v + 8 * i;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      put(h, HSP + col, xg[2 * h], xg[2 * h + 1]);
+      put(h, C0 + col, xa[2 * h], xa[2 * h + 1]);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) put(h, C0 + HVP * (1 + c) + col, x1[c][2 * h], x1[c][2 * h + 1]);
+    }
+  }
 }
 
-// The weight-gradient jobs, in this order: S (scalar inputs x [s d_o0 |
-// d_a]) of layer 1 (4 ns m-tiles: sender, receiver) and layer 2 (2 ns: m0);
-// V (vector lanes x s d_o1_c) of layer 1 (2 nv) and 2 (nv); D (dot lanes x
-// d_o0) of layer 1 (2 nv) and 2 (nv).  Each m-tile's n-tiles in groups of 8.
+// The weight-gradient jobs, in this order: layer 1's S (scalar inputs x [s
+// d_o0 | d_a]: 4 m m-tiles, sender then receiver), V (vector lanes x s
+// d_o1_c: 2 m) and D (dot lanes x d_o0: 2 m), then layer 2's S (2 m: m0), V
+// (m) and D (m).  Each m-tile's n-tiles in groups of 8.
 struct Job {
   int kind, layer, mt, nt0, nn;  // kind 0 S, 1 V, 2 D
 };
 __host__ __device__ inline int n_groups(int ntiles) { return (ntiles + 7) / 8; }
-__host__ __device__ inline int wide_jobs(const Wide& sh) {
-  return 6 * sh.ns * n_groups(sh.n() / 8) + 3 * sh.nv * n_groups(sh.hvp() / 8) +
-         3 * sh.nv * n_groups(sh.c0() / 8);
+template <int M> __host__ __device__ inline int wide_jobs(int layer) {
+  const int ns = n_groups(8 * M), nv = n_groups(2 * M), nd = n_groups(6 * M);
+  return layer == 1 ? 4 * M * ns + 2 * M * nv + 2 * M * nd : 2 * M * ns + M * nv + M * nd;
 }
-__host__ __device__ inline long wide_wacc_floats(const Wide& sh) { return wide_jobs(sh) * 1024L; }
-__device__ inline Job job_of(const Wide& sh, int q) {
-  const int mts[6] = {4 * sh.ns, 2 * sh.ns, 2 * sh.nv, sh.nv, 2 * sh.nv, sh.nv};
-  const int nts[3] = {sh.n() / 8, sh.hvp() / 8, sh.c0() / 8};
+template <int M> __host__ __device__ inline long wide_wacc_floats() {
+  return (wide_jobs<M>(1) + wide_jobs<M>(2)) * 1024L;
+}
+template <int M> __device__ inline Job job_of(int q) {
+  const int mts[6] = {4 * M, 2 * M, 2 * M, 2 * M, M, M};
+  const int nts[3] = {8 * M, 2 * M, 6 * M};
   Job jb;
   for (int seg = 0; seg < 6; ++seg) {
-    const int kind = seg / 2, ng = n_groups(nts[kind]);
+    const int kind = seg % 3, ng = n_groups(nts[kind]);
     if (q < mts[seg] * ng) {
       jb.kind = kind;
-      jb.layer = 1 + seg % 2;
+      jb.layer = 1 + seg / 3;
       jb.mt = q / ng;
       jb.nt0 = q % ng * 8;
       jb.nn = nts[kind] - jb.nt0 < 8 ? nts[kind] - jb.nt0 : 8;
@@ -1748,50 +1776,157 @@ __device__ inline Job job_of(const Wide& sh, int q) {
   return jb;
 }
 
-template <Addr A>
-__global__ void __launch_bounds__(kThreads)
-fused_message_bwd_wide_mma(GatherArgs ga, const bf16* __restrict__ w0a,
-                           const bf16* __restrict__ w1sa, const bf16* __restrict__ w1va,
-                           const bf16* __restrict__ w0b, const bf16* __restrict__ w1sb,
-                           const bf16* __restrict__ w1vb, BwdArgs ba) {
+// The round's weight-gradient jobs of one layer: jobs q0 .. q1, job q by warp
+// (q - q0) % nwarps, each over the round's k-steps (the warps' rows, in warp
+// order).  X: layer 1 the gather buffers' rows, layer 2 X2; Y: the layer's
+// staged cotangents.
+template <int M>
+__device__ __noinline__ void wgrad_jobs(float* wacc, int q0, int q1, const unsigned char* wbase,
+                                           long wb, long boff, int k, const bf16* X2,
+                                           const bf16* Y, int warp, int nwarps, int lane) {
+  typedef BwdWide<Addr::kTab, M> B;
+  constexpr int HSP = B::kHsp, HVP = B::kHvp, C0 = B::kC0, LDF = B::kLdF, LDY = B::kLdY;
+  const WideS<M> sh{};
+  const int t4 = lane & 3;
+  for (int q = q0 + warp; q < q1; q += nwarps) {
+    const Job jb = job_of<M>(q);
+    float acc[8][4];
+    float4* slot = reinterpret_cast<float4*>(wacc + (long)q * 1024) + lane;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 x = slot[32 * j];
+      acc[j][0] = x.x; acc[j][1] = x.y; acc[j][2] = x.z; acc[j][3] = x.w;
+    }
+#pragma unroll 1
+    for (int kw = 0; kw < nwarps; ++kw) {
+      const Buf bk = carve_buf(sh, const_cast<unsigned char*>(wbase) + kw * wb + boff, k, true);
+      const KRows kr = k_rows(bk.geo, t4);
+      const int r0 = kw * 16;
+      const bf16* xs_s = bk.s + a_row(lane) * LDF + a_col(lane);         // sender features
+      const bf16* xs_r = bk.r + bk.ri[a_row(lane)] * LDF + a_col(lane);  // receiver features
+      const bf16* x2 = X2 + (r0 + a_row(lane)) * LDF + a_col(lane);      // m0 | m1
+      const bf16* yrow = Y + (r0 + (lane & 15)) * LDY + (lane >> 4) * 8;
+      // the job's vector rows of component c (V, D)
+      auto xv = [&](int c) {
+        const int off = HSP + HVP * c;
+        if (jb.layer == 2) return x2 + off + 16 * jb.mt;
+        return (jb.mt < M ? xs_s + 16 * jb.mt : xs_r + 16 * (jb.mt - M)) + off;
+      };
+      if (jb.kind == 0) {
+        uint32_t a[4];
+        const bf16* xrow = jb.layer == 2 ? x2 + 16 * jb.mt
+                           : jb.mt < 2 * M ? xs_s + 16 * jb.mt
+                                           : xs_r + 16 * (jb.mt - 2 * M);
+        ldsm_x4_t(a, xrow);
+#pragma unroll
+        for (int pp = 0; pp < 4; ++pp) {
+          if (2 * pp >= jb.nn) continue;
+          const int nt = jb.nt0 + 2 * pp;
+          uint32_t r[4];
+          ldsm_x4_t(r, yrow + 8 * nt);
+          if (8 * nt < C0) {  // s d_o0, split
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj) {
+              uint32_t h0, l0, h1, l1;
+              split2(r[2 * jj], kr.s[0], kr.s[1], h0, l0);
+              split2(r[2 * jj + 1], kr.s[2], kr.s[3], h1, l1);
+              mma_bf16_16816(acc[2 * pp + jj], a, h0, h1);
+              mma_bf16_16816(acc[2 * pp + jj], a, l0, l1);
+            }
+          } else {  // d_a
+            mma_bf16_16816(acc[2 * pp], a, r[0], r[1]);
+            mma_bf16_16816(acc[2 * pp + 1], a, r[2], r[3]);
+          }
+        }
+      } else if (jb.kind == 1) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          uint32_t a[4];
+          ldsm_x4_t(a, xv(c));
+#pragma unroll
+          for (int pp = 0; pp < 4; ++pp) {
+            if (2 * pp >= jb.nn) continue;
+            uint32_t r[4];
+            ldsm_x4_t(r, yrow + B::kY1 + HVP * c + 8 * (jb.nt0 + 2 * pp));
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj) {
+              uint32_t h0, l0, h1, l1;
+              split2(r[2 * jj], kr.s[0], kr.s[1], h0, l0);
+              split2(r[2 * jj + 1], kr.s[2], kr.s[3], h1, l1);
+              mma_bf16_16816(acc[2 * pp + jj], a, h0, h1);
+              mma_bf16_16816(acc[2 * pp + jj], a, l0, l1);
+            }
+          }
+        }
+      } else {
+        uint32_t x[3][4];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) ldsm_x4_t(x[c], xv(c));
+        uint32_t ap[3][4];
+        dot_parts(ap, x, kr);
+#pragma unroll
+        for (int pp = 0; pp < 4; ++pp) {
+          if (2 * pp >= jb.nn) continue;
+          uint32_t r[4];
+          ldsm_x4_t(r, yrow + 8 * (jb.nt0 + 2 * pp));
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+            for (int pt = 0; pt < 3; ++pt)
+              mma_bf16_16816(acc[2 * pp + jj], ap[pt], r[2 * jj], r[2 * jj + 1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) slot[32 * j] = make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+  }
+}
+
+template <Addr A, int M>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_message_bwd_wide_mma(GatherArgs ga, const unsigned char* __restrict__ wpk, BwdArgs ba) {
   constexpr bool TAB = A == Addr::kTab, KM = A == Addr::kKm, FLAT = A == Addr::kFlat;
-  const Wide sh = wide_shape(ga.hs, ga.hv);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  typedef BwdWide<A, M> B;
+  typedef typename B::Ring Ring;
+  constexpr int HSP = B::kHsp, HVP = B::kHvp, C0 = B::kC0, NP = B::kN;
+  constexpr int LDF = B::kLdF, LDK = B::kLdK, LY = B::kLdY, YV = B::kY1;
+  constexpr int PER = Ring::kPerTile;
+  const WideS<M> sh{};
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int k = ga.k, hs = ga.hs, hv = ga.hv, f = hs + 3 * hv;
   const int tile = ga.tile, u = ga.u, npad = ga.npad;
-  const int hsp = sh.hsp(), hvp = sh.hvp(), c0p = sh.c0(), np_ = sh.n();
-  const int ldf = sh.ldf(), ldk = sh.ldk(), ldw = sh.ldw(), ly = ldy(sh), yv = y1(sh);
-  unsigned char* p = smem_raw;
-  bf16* W = reinterpret_cast<bf16*>(p);
-  float* d2w = reinterpret_cast<float*>(p + align16(2L * sh.wrows() * ldw));
-  p += weight_bytes(sh);
-  const long bb = buf_bytes(sh, k, true), wb = wide_warp_bytes(sh, k);
-  unsigned char* wbase = p;  // warp w's buffers at wbase + w * wb
-  p += nwarps * wb;
-  float* d2acc = reinterpret_cast<float*>(p);  // [nwarps][n]
-  p += align16(4L * nwarps * np_);
+  float* d2w = reinterpret_cast<float*>(smem_raw + (Ring::kBytes + 15) / 16 * 16);
+  const long bb = buf_bytes(sh, k, true), wb = B::warp_bytes(k);
+  unsigned char* wbase = smem_raw + B::fixed_bytes();  // warp w's buffers at wbase + w * wb
+  unsigned char* wp = wbase + warp * wb;
+  const long d2off = 2 * bb + (B::kDmRegs ? 0 : align16(2L * 16 * LDK));
+  float* d2acc = reinterpret_cast<float*>(wp + d2off);  // [n]
+  unsigned char* p = wbase + nwarps * wb;
   const int rows = 16 * nwarps;
+  // [16][ldk]: layer 1's d_m (past m = 2), then the receiver parts of its
+  // input cotangents (up to m = 2 in the staging's tail, past Y1)
+  bf16* kbuf = B::kDmRegs
+      ? reinterpret_cast<bf16*>(p + align16(2L * rows * LY)) + warp * 16 * LDK
+      : reinterpret_cast<bf16*>(wp + 2 * bb);
   bf16* X2 = reinterpret_cast<bf16*>(p);  // [rows][ldf]: m0 | m1_0 | m1_1 | m1_2
-  bf16* Y2 = reinterpret_cast<bf16*>(p + align16(2L * rows * ldf));  // [rows][ldy]
-  bf16* Y1 = Y2 + align16(2L * rows * ly) / 2;
+  bf16* Y2 = reinterpret_cast<bf16*>(p + align16(2L * rows * LDF));  // [rows][ldy]
+  bf16* Y1 = X2;  // [rows][ldy], after layer 2's weight gradients
   int* PERM = reinterpret_cast<int*>(p);  // TAB, after a tile's rounds
   int* START = PERM + tile * k;
   int* CUR = START + u + 1;
-  unsigned char* wp = wbase + warp * wb;
-  bf16* kbuf = reinterpret_cast<bf16*>(wp + 2 * bb);  // [16][ldk]
-  const int njobs = wide_jobs(sh);
-  float* wacc = ba.wacc + (long)blockIdx.x * wide_wacc_floats(sh);
+  const int nj1 = wide_jobs<M>(1), njobs = nj1 + wide_jobs<M>(2);
+  float* wacc = ba.wacc + (long)blockIdx.x * wide_wacc_floats<M>();
 
   for (long x = lane; x < 2 * bb / 16; x += 32)
     reinterpret_cast<uint4*>(wp)[x] = make_uint4(0u, 0u, 0u, 0u);
-  for (int x = lane; x < np_; x += 32) d2acc[warp * np_ + x] = 0.f;
+  for (int x = lane; x < NP; x += 32) d2acc[x] = 0.f;
   for (int q = warp; q < njobs; q += nwarps)
     for (int x = lane; x < 256; x += 32)
       reinterpret_cast<float4*>(wacc + (long)q * 1024)[x] = make_float4(0.f, 0.f, 0.f, 0.f);
-  stage_weights<false>(sh, W, d2w, w0a, w1sa, w1va, w0b, w1sb, w1vb, hs, hv);
-  __syncthreads();
+  for (int c = threadIdx.x; c < NP; c += blockDim.x)
+    d2w[c] = reinterpret_cast<const float*>(wpk + WidePack<M>::D2W_OFF)[c];
 
   // the block's items and rounds: as the Bench kernel's, nwarps units a round
   const int G = unit_recv(k, TAB ? tile : 0), T = unit_tiles(k, TAB ? tile : 0);
@@ -1801,6 +1936,9 @@ fused_message_bwd_wide_mma(GatherArgs ga, const bf16* __restrict__ w0a,
   const int my_items =
       (int)blockIdx.x < items ? (items - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x : 0;
   const int nit = my_items * R;
+  Ring ring;
+  ring.setup(smem_raw, wpk, nit * PER, nwarps);
+  ring.start();  // (its block barrier also orders d2w, the buffers and wacc)
   auto item_of = [&](int it) { return (int)blockIdx.x + it / R * (int)gridDim.x; };
   auto ref = [&](int it, int w) {
     const int item = item_of(it), rr = it % R;
@@ -1820,10 +1958,10 @@ fused_message_bwd_wide_mma(GatherArgs ga, const bf16* __restrict__ w0a,
     return tr;
   };
   const bool pairs = ga.mode != kCopy2;  // even widths: bf16 pairs of d_hs at once
-  KSumN<kWideCols> ks;
+  KSumN<B::kCols> ks;
   ksum_init(ks);
   const int ar = lane & 15, ac = (lane >> 4) * 8;
-  const int nko = c0p / 16, nka = sh.nv;  // k-steps over the d_o0 and the d_a (d_o1_c) columns
+  const ChunkLane cl = chunk_lane(lane);
 
   if (nit > 0) {
     gather_tile<A>(carve_buf(sh, wp, k, true), ref(0, warp), ga, lane, sh);
@@ -1850,61 +1988,74 @@ fused_message_bwd_wide_mma(GatherArgs ga, const bf16* __restrict__ w0a,
     const TileRef tr = ref(it, warp);
     const RowGeo rg = row_geo(b.geo, g);
     const int wr = warp * 16;  // this warp's rows in the round's staging
-    const LayerIn l1{b.s + ar * ldf + ac, b.r + b.ri[ar] * ldf + ac, sh.w1s(), sh.w1v(), true};
-    const LayerIn l2{X2 + (wr + ar) * ldf + ac, nullptr, sh.w2s(), sh.w2v(), false};
-    // ---- layer 1 and its gates: the layer-2 inputs, staged in X2
-    for (int blk = 0; blk < sh.ns; ++blk) {
-      float o[4][4];
-      sblock(sh, W, d2w, l1, rg, kCG, lane, blk, o);
-      gate_s(o, X2, ldf, wr, 32 * blk, lane);
-    }
-    for (int blk = 0; blk < sh.nv; ++blk) {
-      float og[2][4], oa[2][4], ob[3][2][4];
-      vblock(sh, W, d2w, l1, rg, kCG, lane, blk, og, oa, ob);
-      gate_v<false>(sh, og, oa, ob, rg, X2, ldf, wr, blk, lane);
-    }
-    __syncwarp();
-    BWD_CLOCK(1);  // layer 1, its gates, the staged layer-2 inputs
-    // ---- layer 2 and the VJP of its gates, d_m = d_agg * mask (rounded)
+    const int q = it * PER;    // the tile's first chunk
+    const bf16* xs = b.s + ar * LDF + ac;
+    const bf16* xr = b.r + b.ri[ar] * LDF + ac;
     {
-      const bf16* dr0 = b.d + b.ri[g] * ldf;
-      const bf16* dr1 = b.d + b.ri[g + 8] * ldf;
-      auto dm = [&](int pc, int h) { return rnd(bf((h ? dr1 : dr0)[pc]) * rg.mk(h)); };
-      for (int blk = 0; blk < sh.ns; ++blk) {
+      // ---- layer 1 and its gates: layer 2's A fragments, staged in X2 for
+      //      its weight gradients
+      uint32_t am0[2 * M][4], am1[M][3][4];
+      layer1_wide<M, false>(ring, q, lane, cl, xs, xr, d2w, rg, kCG, am0, am1);
+#pragma unroll
+      for (int ks2 = 0; ks2 < 2 * M; ++ks2) store_a(X2, LDF, wr, 16 * ks2, am0[ks2], lane);
+#pragma unroll
+      for (int v = 0; v < M; ++v)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) store_a(X2, LDF, wr, HSP + HVP * c + 16 * v, am1[v][c], lane);
+      BWD_CLOCK(1);  // layer 1, its gates, the staged layer-2 inputs
+      // ---- layer 2 and the VJP of its gates, d_m = d_agg * mask (rounded)
+      const bf16* dr0 = b.d + b.ri[g] * LDF;
+      const bf16* dr1 = b.d + b.ri[g + 8] * LDF;
+      auto dm = [&](int nt, int e, int h) {
+        return rnd(bf((h ? dr1 : dr0)[nt * 8 + 2 * t4 + e]) * rg.mk(h));
+      };
+#pragma unroll
+      for (int cb = 0; cb < M; ++cb) {
         float o[4][4];
-        sblock(sh, W, d2w, l2, rg, kCG, lane, blk, o);
-        gvjp_s(o, dm, Y2, ly, wr, 32 * blk, lane);
+        l2_sblk<M>(ring, q + 4 * M + cb, lane, cl, am0, am1, rg, kCG, o);
+        wvjp_s(o, dm, Y2, LY, wr, cb, lane);
       }
-      for (int blk = 0; blk < sh.nv; ++blk) {
+#pragma unroll
+      for (int v = 0; v < M; ++v) {
         float og[2][4], oa[2][4], ob[3][2][4];
-        vblock(sh, W, d2w, l2, rg, kCG, lane, blk, og, oa, ob);
-        gvjp_v(sh, og, oa, ob, dm, rg, Y2, ly, wr, blk, lane);
+        l2_vblk<M>(ring, q + 5 * M + v, lane, cl, am0, am1, rg, kCG, v, og, oa, ob);
+        wvjp_v<M>(og, oa, ob, dm, rg, Y2, LY, wr, v, lane);
       }
     }
     __syncwarp();
     BWD_CLOCK(2);  // layer 2 and its gates' VJP
     auto a_frag = [&](uint32_t (&a)[4], const bf16* Y, int col) {
-      ldsm_x4(a, Y + (wr + ar) * ly + ac + col);
+      ldsm_x4(a, Y + (wr + ar) * LY + ac + col);
     };
-    // ---- layer-2 input cotangents -> the layer-1 d_m0, d_m1 (bf16 values),
-    //      kept in the K-sum buffer until the layer-1 VJP reads them
-    for (int pr = 0; pr < 2 * sh.ns + sh.nv; ++pr) {  // pairs of input rows: m0, then m1
-      const bool m0 = pr < 2 * sh.ns;
-      const int wrow = m0 ? sh.w2s() + 16 * pr : sh.w2v() + 16 * (pr - 2 * sh.ns);
+    // ---- layer 2's input cotangents (its row chunks: m0 rows, then m1) ->
+    //      layer 1's d_m0, d_m1 (bf16 values), kept until the layer-1 VJP
+    //      reads them: n-tile nt of the padded feature columns, row g + 8 h
+    uint32_t dmr[B::kDmRegs ? 10 * M : 1][2];
+    auto put_dm = [&](int nt, int h, float x0, float x1) {
+      if constexpr (B::kDmRegs)
+        dmr[nt][h] = l1mma::pack(x0, x1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(kbuf + (g + 8 * h) * LDK + nt * 8 + 2 * t4) =
+            __floats2bfloat162_rn(x0, x1);
+    };
+    auto l2_cotangents = [&](int pr) {
+      const bf16* ch = ring.acquire(q + 6 * M + pr);
       float df[2][4];
       zero(df);
-      for (int kx = 0; kx < nko; ++kx) {
+#pragma unroll
+      for (int kx = 0; kx < 3 * M; ++kx) {
         uint32_t a[4];
         a_frag(a, Y2, 16 * kx);
-        mma_pairT(df, a, W, wrow, 16 * kx, lane, ldw);
+        mma_rc(df, a, ch, 16 * kx, cl);
       }
-      if (m0) {
+      if (pr < 2 * M) {  // the m0 rows
         float dx[2][4];
         zero(dx);
-        for (int kx = 0; kx < nka; ++kx) {
+#pragma unroll
+        for (int kx = 0; kx < M; ++kx) {
           uint32_t a[4];
-          a_frag(a, Y2, c0p + 16 * kx);
-          mma_pairT(dx, a, W, wrow, c0p + 16 * kx, lane, ldw);
+          a_frag(a, Y2, C0 + 16 * kx);
+          mma_rc(dx, a, ch, C0 + 16 * kx, cl);
         }
 #pragma unroll
         for (int j = 0; j < 2; ++j)
@@ -1913,18 +2064,18 @@ fused_message_bwd_wide_mma(GatherArgs ga, const bf16* __restrict__ w0a,
             const float s = rg.s(h);
             const float x0 = rnd(dx[j][2 * h] + rnd(df[j][2 * h]) * s);
             const float x1 = rnd(dx[j][2 * h + 1] + rnd(df[j][2 * h + 1]) * s);
-            *reinterpret_cast<__nv_bfloat162*>(kbuf + (g + 8 * h) * ldk + 16 * pr + 8 * j +
-                                               2 * t4) = __floats2bfloat162_rn(x0, x1);
+            put_dm(2 * pr + j, h, x0, x1);
           }
-      } else {
+      } else {  // the m1 rows
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
           float dv[2][4];
           zero(dv);
-          for (int kx = 0; kx < nka; ++kx) {
+#pragma unroll
+          for (int kx = 0; kx < M; ++kx) {
             uint32_t a[4];
-            a_frag(a, Y2, yv + hvp * c + 16 * kx);
-            mma_pairT(dv, a, W, wrow, c0p + 16 * kx, lane, ldw);
+            a_frag(a, Y2, YV + HVP * c + 16 * kx);
+            mma_rc(dv, a, ch, C0 + 16 * kx, cl);
           }
 #pragma unroll
           for (int i = 0; i < 2; ++i)
@@ -1934,27 +2085,56 @@ fused_message_bwd_wide_mma(GatherArgs ga, const bf16* __restrict__ w0a,
               const float x0 = rnd(rnd(kCG * dv[i][2 * h]) * s + kCG * rnd(df[i][2 * h]) * v);
               const float x1 =
                   rnd(rnd(kCG * dv[i][2 * h + 1]) * s + kCG * rnd(df[i][2 * h + 1]) * v);
-              *reinterpret_cast<__nv_bfloat162*>(
-                  kbuf + (g + 8 * h) * ldk + hsp + hvp * c + 16 * (pr - 2 * sh.ns) + 8 * i +
-                  2 * t4) = __floats2bfloat162_rn(x0, x1);
+              put_dm((HSP + HVP * c) / 8 + 2 * (pr - 2 * M) + i, h, x0, x1);
             }
         }
       }
+      ring.release(q + 6 * M + pr, lane);
+    };
+    if constexpr (B::kDmRegs) {  // (unrolled: dmr's indices at compile time)
+#pragma unroll
+      for (int pr = 0; pr < 3 * M; ++pr) l2_cotangents(pr);
+    } else {
+#pragma unroll 1
+      for (int pr = 0; pr < 3 * M; ++pr) l2_cotangents(pr);
     }
-    __syncwarp();
     BWD_CLOCK(3);  // layer 2's input cotangents
+    __syncwarp();  // the layer-1 d_m rows are read across lanes
+    // ---- layer 2's weight gradients over the round's rows (X2, Y2)
+    __syncthreads();
+    BWD_CLOCK(12);  // waiting for the other warps' layer 2
+    wgrad_jobs<M>(wacc, nj1, njobs, wbase, wb, (it & 1) * bb, k, X2, Y2, warp, nwarps, lane);
+    BWD_CLOCK(13);  // warp 0's jobs of layer 2
+    __syncthreads();  // X2 and Y2 free: Y1 takes their place
+    BWD_CLOCK(14);  // waiting for the other warps' jobs of layer 2
     // ---- the VJP of the layer-1 gates, on layer 1 recomputed
     {
-      auto dm = [&](int pc, int h) { return bf(kbuf[(g + 8 * h) * ldk + pc]); };
-      for (int blk = 0; blk < sh.ns; ++blk) {
+      auto dm = [&](int nt, int e, int h) {
+        if constexpr (B::kDmRegs)
+          return e ? hi_of(dmr[nt][h]) : lo_of(dmr[nt][h]);
+        else
+          return bf(kbuf[(g + 8 * h) * LDK + nt * 8 + 2 * t4 + e]);
+      };
+      auto sblk = [&](int cb) {
         float o[4][4];
-        sblock(sh, W, d2w, l1, rg, kCG, lane, blk, o);
-        gvjp_s(o, dm, Y1, ly, wr, 32 * blk, lane);
-      }
-      for (int blk = 0; blk < sh.nv; ++blk) {
+        l1_sblk<M>(ring, q + 9 * M + 2 * cb, lane, cl, xs, xr, d2w, rg, kCG, cb, o);
+        wvjp_s(o, dm, Y1, LY, wr, cb, lane);
+      };
+      auto vblk = [&](int v) {
         float og[2][4], oa[2][4], ob[3][2][4];
-        vblock(sh, W, d2w, l1, rg, kCG, lane, blk, og, oa, ob);
-        gvjp_v(sh, og, oa, ob, dm, rg, Y1, ly, wr, blk, lane);
+        l1_vblk<M>(ring, q + 9 * M + 2 * (M + v), lane, cl, xs, xr, d2w, rg, kCG, v, og, oa, ob);
+        wvjp_v<M>(og, oa, ob, dm, rg, Y1, LY, wr, v, lane);
+      };
+      if constexpr (B::kDmRegs) {  // (unrolled: dmr's indices at compile time)
+#pragma unroll
+        for (int cb = 0; cb < M; ++cb) sblk(cb);
+#pragma unroll
+        for (int v = 0; v < M; ++v) vblk(v);
+      } else {
+#pragma unroll 1
+        for (int cb = 0; cb < M; ++cb) sblk(cb);
+#pragma unroll 1
+        for (int v = 0; v < M; ++v) vblk(v);
       }
     }
     __syncwarp();  // Y1's rows are read across lanes, the K-sum buffer written again
@@ -1962,12 +2142,13 @@ fused_message_bwd_wide_mma(GatherArgs ga, const bf16* __restrict__ w0a,
     // then the warp's rows (lanes g = 0 hold the sums of their columns)
     {
       const float ds0 = rg.d2(0) * rg.s(0), ds1 = rg.d2(1) * rg.s(1);
-      const bf16* r0p = Y1 + (wr + g) * ly + 2 * t4;
-      const bf16* r1p = r0p + 8 * ly;
-      for (int blk = 0; blk < np_ / 8; ++blk) {  // columns blk*8 + 2 t4 (+1): d_o0, then d_a
+      const bf16* r0p = Y1 + (wr + g) * LY + 2 * t4;
+      const bf16* r1p = r0p + 8 * LY;
+#pragma unroll 4
+      for (int blk = 0; blk < NP / 8; ++blk) {  // columns blk*8 + 2 t4 (+1): d_o0, then d_a
         const float2 x0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(r0p + blk * 8));
         const float2 x1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(r1p + blk * 8));
-        const bool o0c = blk < c0p / 8;
+        const bool o0c = blk < C0 / 8;
         const float f0 = o0c ? ds0 : rg.d2(0), f1 = o0c ? ds1 : rg.d2(1);
         float pw[2] = {fmaf(f1, x1.x, f0 * x0.x), fmaf(f1, x1.y, f0 * x0.y)};
 #pragma unroll
@@ -1977,21 +2158,21 @@ fused_message_bwd_wide_mma(GatherArgs ga, const bf16* __restrict__ w0a,
           pw[e] += __shfl_xor_sync(0xffffffffu, pw[e], 16);
         }
         if (g == 0) {
-          d2acc[warp * np_ + blk * 8 + 2 * t4] += pw[0];
-          d2acc[warp * np_ + blk * 8 + 2 * t4 + 1] += pw[1];
+          d2acc[blk * 8 + 2 * t4] += pw[0];
+          d2acc[blk * 8 + 2 * t4 + 1] += pw[1];
         }
       }
     }
     BWD_CLOCK(4);  // layer 1 again, its gates' VJP, the d2 rows
-    // ---- layer-1 input cotangents: sender parts -> d_hs, receiver parts
-    //      -> the K-sum buffer
+    // ---- layer-1 input cotangents (its row chunks): sender parts -> d_hs,
+    //      receiver parts -> the K-sum buffer
     const int qa = tr.q0 + g, qb = qa + 8;
     const int live = tr.nrecv * k;
-    auto dhs_row = [&](int q) -> bf16* {
-      if (q >= live) return nullptr;
-      const int rel = q / k, kk = q % k;
+    auto dhs_row = [&](int qq) -> bf16* {
+      if (qq >= live) return nullptr;
+      const int rel = qq / k, kk = qq % k;
       const long node = tr.node0 + rel;
-      if (TAB) return ba.scratch + ((long)tr.slot0 + q) * f;
+      if (TAB) return ba.scratch + ((long)tr.slot0 + qq) * f;
       if (KM) return ba.dhsp + ((long)kk * npad + node) * f;
       return ba.dhsp + (node * k + kk) * f;
     };
@@ -2010,26 +2191,30 @@ fused_message_bwd_wide_mma(GatherArgs ga, const bf16* __restrict__ w0a,
       }
     };
     auto put_k = [&](int h, int pc, float x0, float x1) {
-      *reinterpret_cast<__nv_bfloat162*>(kbuf + (g + 8 * h) * ldk + pc) =
+      *reinterpret_cast<__nv_bfloat162*>(kbuf + (g + 8 * h) * LDK + pc) =
           __floats2bfloat162_rn(x0, x1);
     };
-    // the scalar rows (sender, then receiver), a pair of 16 at a time
-    for (int pr = 0; pr < 4 * sh.ns; ++pr) {
-      const int wrow = sh.w1s() + 16 * pr;
-      const bool snd = pr < 2 * sh.ns;
+    // the scalar rows (sender, then receiver), 16 a chunk
+#pragma unroll 1
+    for (int pr = 0; pr < 4 * M; ++pr) {
+      const bf16* ch = ring.acquire(q + 13 * M + pr);
+      const bool snd = pr < 2 * M;
       float df[2][4], dx[2][4];
       zero(df);
       zero(dx);
-      for (int kx = 0; kx < nko; ++kx) {
+#pragma unroll
+      for (int kx = 0; kx < 3 * M; ++kx) {
         uint32_t a[4];
         a_frag(a, Y1, 16 * kx);
-        mma_pairT(df, a, W, wrow, 16 * kx, lane, ldw);
+        mma_rc(df, a, ch, 16 * kx, cl);
       }
-      for (int kx = 0; kx < nka; ++kx) {
+#pragma unroll
+      for (int kx = 0; kx < M; ++kx) {
         uint32_t a[4];
-        a_frag(a, Y1, c0p + 16 * kx);
-        mma_pairT(dx, a, W, wrow, c0p + 16 * kx, lane, ldw);
+        a_frag(a, Y1, C0 + 16 * kx);
+        mma_rc(dx, a, ch, C0 + 16 * kx, cl);
       }
+      ring.release(q + 13 * M + pr, lane);
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -2037,30 +2222,33 @@ fused_message_bwd_wide_mma(GatherArgs ga, const bf16* __restrict__ w0a,
           const float s = rg.s(h);
           const float x0 = rnd(dx[j][2 * h] + rnd(df[j][2 * h]) * s);
           const float x1 = rnd(dx[j][2 * h + 1] + rnd(df[j][2 * h + 1]) * s);
-          const int pc = 16 * (snd ? pr : pr - 2 * sh.ns) + 8 * j + 2 * t4;
+          const int pc = 16 * (snd ? pr : pr - 2 * M) + 8 * j + 2 * t4;
           if (snd) put(h, pc, x0, x1);
           else put_k(h, pc, x0, x1);
         }
     }
     // the vector lanes (sender, then receiver)
-    for (int pr = 0; pr < 2 * sh.nv; ++pr) {
-      const int wrow = sh.w1v() + 16 * pr;
-      const bool snd = pr < sh.nv;
+#pragma unroll 1
+    for (int pr = 0; pr < 2 * M; ++pr) {
+      const bf16* ch = ring.acquire(q + 17 * M + pr);
+      const bool snd = pr < M;
       float df[2][4];
       zero(df);
-      for (int kx = 0; kx < nko; ++kx) {
+#pragma unroll
+      for (int kx = 0; kx < 3 * M; ++kx) {
         uint32_t a[4];
         a_frag(a, Y1, 16 * kx);
-        mma_pairT(df, a, W, wrow, 16 * kx, lane, ldw);
+        mma_rc(df, a, ch, 16 * kx, cl);
       }
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         float dx[2][4];
         zero(dx);
-        for (int kx = 0; kx < nka; ++kx) {
+#pragma unroll
+        for (int kx = 0; kx < M; ++kx) {
           uint32_t a[4];
-          a_frag(a, Y1, yv + hvp * c + 16 * kx);
-          mma_pairT(dx, a, W, wrow, c0p + 16 * kx, lane, ldw);
+          a_frag(a, Y1, YV + HVP * c + 16 * kx);
+          mma_rc(dx, a, ch, C0 + 16 * kx, cl);
         }
 #pragma unroll
         for (int j = 0; j < 2; ++j)
@@ -2070,117 +2258,26 @@ fused_message_bwd_wide_mma(GatherArgs ga, const bf16* __restrict__ w0a,
             const float x0 = rnd(rnd(kCG * dx[j][2 * h]) * s + kCG * rnd(df[j][2 * h]) * v);
             const float x1 =
                 rnd(rnd(kCG * dx[j][2 * h + 1]) * s + kCG * rnd(df[j][2 * h + 1]) * v);
-            const int pc = hsp + hvp * c + 16 * (snd ? pr : pr - sh.nv) + 8 * j + 2 * t4;
+            const int pc = HSP + HVP * c + 16 * (snd ? pr : pr - M) + 8 * j + 2 * t4;
             if (snd) put(h, pc, x0, x1);
             else put_k(h, pc, x0, x1);
           }
       }
+      ring.release(q + 17 * M + pr, lane);
     }
     __syncwarp();
     BWD_CLOCK(5);  // layer 1's input cotangents, d_hs written
     ksum_tile<FLAT>(ks, kbuf, tr, k, ba.pack, hs, hv, ba.dhr, lane, sh);
     BWD_CLOCK(6);  // the K-sum of d_hr
 
-    // ---- the round's weight gradients: this warp's jobs over the round's
-    //      k-steps (the warps' rows, in warp order)
+    // ---- layer 1's weight gradients over the round's rows (the gather
+    //      buffers, Y1)
     __syncthreads();
     BWD_CLOCK(7);  // waiting for the other warps' tiles
-    for (int q = warp; q < njobs; q += nwarps) {
-      const Job jb = job_of(sh, q);
-      float acc[8][4];
-      float4* slot = reinterpret_cast<float4*>(wacc + (long)q * 1024) + lane;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float4 x = slot[32 * j];
-        acc[j][0] = x.x; acc[j][1] = x.y; acc[j][2] = x.z; acc[j][3] = x.w;
-      }
-      const bf16* Y = jb.layer == 1 ? Y1 : Y2;
-#pragma unroll 1
-      for (int kw = 0; kw < nwarps; ++kw) {
-        const Buf bk = carve_buf(sh, wbase + kw * wb + (it & 1) * bb, k, true);
-        const KRows kr = k_rows(bk.geo, t4);
-        const int r0 = kw * 16;
-        const bf16* xs_s = bk.s + a_row(lane) * ldf + a_col(lane);           // sender features
-        const bf16* xs_r = bk.r + bk.ri[a_row(lane)] * ldf + a_col(lane);    // receiver features
-        const bf16* x2 = X2 + (r0 + a_row(lane)) * ldf + a_col(lane);       // m0 | m1
-        const bf16* yrow = Y + (r0 + (lane & 15)) * ly + (lane >> 4) * 8;
-        // the job's vector rows of component c (V, D)
-        auto xv = [&](int c) {
-          const int off = hsp + hvp * c;
-          if (jb.layer == 2) return x2 + off + 16 * jb.mt;
-          return (jb.mt < sh.nv ? xs_s + 16 * jb.mt : xs_r + 16 * (jb.mt - sh.nv)) + off;
-        };
-        if (jb.kind == 0) {
-          uint32_t a[4];
-          const bf16* xrow = jb.layer == 2 ? x2 + 16 * jb.mt
-                             : jb.mt < 2 * sh.ns ? xs_s + 16 * jb.mt
-                                                 : xs_r + 16 * (jb.mt - 2 * sh.ns);
-          ldsm_x4_t(a, xrow);
-#pragma unroll
-          for (int pp = 0; pp < 4; ++pp) {
-            if (2 * pp >= jb.nn) continue;
-            const int nt = jb.nt0 + 2 * pp;
-            uint32_t r[4];
-            ldsm_x4_t(r, yrow + 8 * nt);
-            if (8 * nt < c0p) {  // s d_o0, split
-#pragma unroll
-              for (int jj = 0; jj < 2; ++jj) {
-                uint32_t h0, l0, h1, l1;
-                split2(r[2 * jj], kr.s[0], kr.s[1], h0, l0);
-                split2(r[2 * jj + 1], kr.s[2], kr.s[3], h1, l1);
-                mma_bf16_16816(acc[2 * pp + jj], a, h0, h1);
-                mma_bf16_16816(acc[2 * pp + jj], a, l0, l1);
-              }
-            } else {  // d_a
-              mma_bf16_16816(acc[2 * pp], a, r[0], r[1]);
-              mma_bf16_16816(acc[2 * pp + 1], a, r[2], r[3]);
-            }
-          }
-        } else if (jb.kind == 1) {
-#pragma unroll
-          for (int c = 0; c < 3; ++c) {
-            uint32_t a[4];
-            ldsm_x4_t(a, xv(c));
-#pragma unroll
-            for (int pp = 0; pp < 4; ++pp) {
-              if (2 * pp >= jb.nn) continue;
-              uint32_t r[4];
-              ldsm_x4_t(r, yrow + yv + hvp * c + 8 * (jb.nt0 + 2 * pp));
-#pragma unroll
-              for (int jj = 0; jj < 2; ++jj) {
-                uint32_t h0, l0, h1, l1;
-                split2(r[2 * jj], kr.s[0], kr.s[1], h0, l0);
-                split2(r[2 * jj + 1], kr.s[2], kr.s[3], h1, l1);
-                mma_bf16_16816(acc[2 * pp + jj], a, h0, h1);
-                mma_bf16_16816(acc[2 * pp + jj], a, l0, l1);
-              }
-            }
-          }
-        } else {
-          uint32_t x[3][4];
-#pragma unroll
-          for (int c = 0; c < 3; ++c) ldsm_x4_t(x[c], xv(c));
-          uint32_t ap[3][4];
-          dot_parts(ap, x, kr);
-#pragma unroll
-          for (int pp = 0; pp < 4; ++pp) {
-            if (2 * pp >= jb.nn) continue;
-            uint32_t r[4];
-            ldsm_x4_t(r, yrow + 8 * (jb.nt0 + 2 * pp));
-#pragma unroll
-            for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-              for (int pt = 0; pt < 3; ++pt)
-                mma_bf16_16816(acc[2 * pp + jj], ap[pt], r[2 * jj], r[2 * jj + 1]);
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) slot[32 * j] = make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
-    }
-    BWD_CLOCK(8);  // warp 0's weight-gradient jobs over the round's rows
+    wgrad_jobs<M>(wacc, 0, nj1, wbase, wb, (it & 1) * bb, k, X2, Y1, warp, nwarps, lane);
+    BWD_CLOCK(8);  // warp 0's jobs of layer 1
     __syncthreads();
-    BWD_CLOCK(9);  // waiting for the other warps' weight gradients
+    BWD_CLOCK(9);  // waiting for the other warps' jobs of layer 1
   }
 
   // ---- this block's weight gradients, once: partials[block] in the six
@@ -2196,7 +2293,7 @@ fused_message_bwd_wide_mma(GatherArgs ga, const bf16* __restrict__ w0a,
   float* o_w1sb = o_w0b + c0 * c0;
   float* o_w1vb = o_w1sb + hs * hv;
   for (int q = warp; q < njobs; q += nwarps) {
-    const Job jb = job_of(sh, q);
+    const Job jb = job_of<M>(q);
     const float4* slot = reinterpret_cast<const float4*>(wacc + (long)q * 1024) + lane;
     for (int j = 0; j < jb.nn; ++j) {
       const float4 x = slot[32 * j];
@@ -2206,8 +2303,8 @@ fused_message_bwd_wide_mma(GatherArgs ga, const bf16* __restrict__ w0a,
       for (int e = 0; e < 4; ++e) {
         const int m = g + 8 * (e >> 1), col = 8 * nt + 2 * t4 + (e & 1);
         if (jb.kind == 0) {  // rows of the scalar inputs x [O0 -> w0 | OA -> w1s]
-          const bool rcv = jb.layer == 1 && jb.mt >= 2 * sh.ns;
-          const int pr = 16 * (rcv ? jb.mt - 2 * sh.ns : jb.mt) + m;
+          const bool rcv = jb.layer == 1 && jb.mt >= 2 * M;
+          const int pr = 16 * (rcv ? jb.mt - 2 * M : jb.mt) + m;
           if (pr >= hs) continue;
           const int i = (rcv ? hs : 0) + pr;
           int o, jj;
@@ -2217,8 +2314,8 @@ fused_message_bwd_wide_mma(GatherArgs ga, const bf16* __restrict__ w0a,
           if (o >= 0) w0[i * c0 + o] = acc[e];
           else if (jj >= 0) w1[i * hv + jj] = acc[e];
         } else {
-          const bool rcv = jb.layer == 1 && jb.mt >= sh.nv;
-          const int pr = 16 * (rcv ? jb.mt - sh.nv : jb.mt) + m;
+          const bool rcv = jb.layer == 1 && jb.mt >= M;
+          const int pr = 16 * (rcv ? jb.mt - M : jb.mt) + m;
           if (pr >= hv) continue;
           if (jb.kind == 1) {  // w1v's rows (times CG011)
             if (col < hv) (jb.layer == 1 ? o_w1va : o_w1vb)[((rcv ? hv : 0) + pr) * hv + col] =
@@ -2234,9 +2331,10 @@ fused_message_bwd_wide_mma(GatherArgs ga, const bf16* __restrict__ w0a,
     }
   }
   // the d2 rows: the warps' sums in warp order
-  for (int col = threadIdx.x; col < np_; col += blockDim.x) {
+  __syncthreads();
+  for (int col = threadIdx.x; col < NP; col += blockDim.x) {
     float acc = 0.f;
-    for (int w = 0; w < nwarps; ++w) acc += d2acc[w * np_ + col];
+    for (int w = 0; w < nwarps; ++w) acc += reinterpret_cast<const float*>(wbase + w * wb + d2off)[col];
     int o, jj;
     l1mma::out_col(sh, col, hs, hv, o, jj);
     if (o >= 0) o_w0a[2 * hs * c0 + o] = acc;
@@ -2269,12 +2367,19 @@ long grid(int k, int tile, int u, long items) {
   return gr < items ? gr : items;
 }
 
-template <Addr A>
-long grid_wide(const Wide& sh, int k, int tile, int u, long items) {
-  const int warps = wide_warps(sh, k, tile, u);
+// The Wide kernel's instance M over n receivers (TAB: tiles of tile): its
+// block count (SMs x resident blocks, at most one per item), and its warps a
+// block and blocks an SM where asked; negative: -(CUDA error)
+template <Addr A, int M>
+long grid_wide_m(int k, int tile, int u, long n, int* warps_out = nullptr,
+                 int* per_sm_out = nullptr) {
+  typedef BwdWide<A, M> B;
+  const int tl = A == Addr::kTab ? tile : 0, uu = A == Addr::kTab ? u : 0;
+  const int warps = B::warps(k, tl, uu);
+  if (warps_out != nullptr) *warps_out = warps;
   if (warps < 1) return -(long)cudaErrorInvalidValue;
-  const long smem = wide_smem_bytes(sh, k, tile, u, warps);
-  auto kern = fused_message_bwd_wide_mma<A>;
+  const long smem = B::smem_bytes(k, tl, uu, warps);
+  auto kern = fused_message_bwd_wide_mma<A, M>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return -(long)err;
@@ -2283,9 +2388,26 @@ long grid_wide(const Wide& sh, int k, int tile, int u, long items) {
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, 32 * warps, smem);
   if (err != cudaSuccess) return -(long)err;
+  if (per_sm_out != nullptr) *per_sm_out = per_sm;
   if (per_sm < 1) return -(long)cudaErrorInvalidConfiguration;
+  long items;
+  if (A == Addr::kTab) {
+    items = n / tile;
+  } else {
+    const int G = unit_recv(k, 0);
+    items = ((n + G - 1) / G + warps - 1) / warps;
+  }
   const long gr = (long)sms * per_sm;
   return gr < items ? gr : items;
+}
+template <Addr A>
+long grid_wide(int hs, int hv, int k, int tile, int u, long n, int* warps_out = nullptr,
+               int* per_sm_out = nullptr) {
+  if (hs < 1 || hv < 0) return -(long)cudaErrorInvalidValue;
+#define CALL(m) return grid_wide_m<A, m>(k, tile, u, n, warps_out, per_sm_out)
+  switch (wide_m(hs, hv)) { LMAX1_WIDE_CASES(CALL) }
+#undef CALL
+  return -(long)cudaErrorInvalidValue;
 }
 
 // the block count of a launch over n receivers (TAB: tiles of tile) on the
@@ -2293,14 +2415,7 @@ long grid_wide(const Wide& sh, int k, int tile, int u, long items) {
 template <Addr A, bool WIDE>
 long grid_for(int hs, int hv, int k, int tile, int u, long n) {
   if constexpr (WIDE) {
-    if (!fits_wide(hs, hv)) return -(long)cudaErrorInvalidValue;
-    const Wide sh = wide_shape(hs, hv);
-    if (A == Addr::kTab) return grid_wide<A>(sh, k, tile, u, n / tile);
-    const int warps = wide_warps(sh, k, 0, 0);
-    if (warps < 1) return -(long)cudaErrorInvalidValue;
-    const int G = unit_recv(k, 0);
-    const long units = (n + G - 1) / G;
-    return grid_wide<A>(sh, k, 0, 0, (units + warps - 1) / warps);
+    return grid_wide<A>(hs, hv, k, tile, u, n);
   } else {
     if (!fits(hs, hv)) return -(long)cudaErrorInvalidValue;
     if (A == Addr::kTab) return grid<A>(k, tile, u, n / tile);
@@ -2310,17 +2425,33 @@ long grid_for(int hs, int hv, int k, int tile, int u, long n) {
   }
 }
 
-// shared memory a block of this library's bf16 main kernel takes (the Wide
-// kernel past the card: the bytes of one warp), and the floats of the Wide
-// kernel's weight-gradient accumulators a block
+// Of this library's bf16 main kernel: the shared memory a block takes (the
+// Wide kernels: the instance's; past the largest, one past the limit); and of
+// the Wide kernels' buffer past the partials, the floats a block of the
+// weight-gradient accumulators and the floats of the packed weights
 __host__ inline long bf16_smem_bytes(int hs, int hv, int k, int tile, int u) {
   if (!kWideLibrary) return smem_bytes(k, tile, u);
-  const Wide sh = wide_shape(hs, hv);
-  const int warps = wide_warps(sh, k, tile, u);
-  return wide_smem_bytes(sh, k, tile, u, warps > 0 ? warps : 1);
+#define CALL(m)                                                               \
+  return BwdWide<Addr::kTab, m>::smem_bytes(                                  \
+      k, tile, u, BwdWide<Addr::kTab, m>::warps(k, tile, u) > 0               \
+                      ? BwdWide<Addr::kTab, m>::warps(k, tile, u) : 1)
+  switch (wide_m(hs, hv)) { LMAX1_WIDE_CASES(CALL) }
+#undef CALL
+  return gmma::kMaxSmem + 1;
 }
 __host__ inline long bf16_wacc_floats(int hs, int hv) {
-  return kWideLibrary ? wide_wacc_floats(wide_shape(hs, hv)) : 0;
+  if (!kWideLibrary) return 0;
+#define CALL(m) return wide_wacc_floats<m>()
+  switch (wide_m(hs, hv)) { LMAX1_WIDE_CASES(CALL) }
+#undef CALL
+  return 0;
+}
+__host__ inline long bf16_pack_floats(int hs, int hv) {
+  if (!kWideLibrary) return 0;
+#define CALL(m) return (WidePack<m>::BYTES + 15) / 16 * 4
+  switch (wide_m(hs, hv)) { LMAX1_WIDE_CASES(CALL) }
+#undef CALL
+  return 0;
 }
 // where the Wide kernel's accumulators start past partials [grid][NW]: a
 // multiple of 4 floats (16-byte loads)
@@ -2330,26 +2461,41 @@ __host__ inline long wacc_offset(int hs, int hv, int grid) {
   return ((long)grid * nw + 3) / 4 * 4;
 }
 
+// The Wide kernel's instance M: the packed weights (after the accumulators),
+// then the main kernel
+template <Addr A, int M>
+int launch_wide_m(const GatherArgs& ga, BwdArgs ba, const void* const* w, int grid,
+                  cudaStream_t stream) {
+  typedef BwdWide<A, M> B;
+  const int tl = A == Addr::kTab ? ga.tile : 0, uu = A == Addr::kTab ? ga.u : 0;
+  const int warps = B::warps(ga.k, tl, uu);
+  if (warps < 1) return (int)cudaErrorInvalidValue;
+  const long smem = B::smem_bytes(ga.k, tl, uu, warps);
+  auto kern = fused_message_bwd_wide_mma<A, M>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  unsigned char* pk = reinterpret_cast<unsigned char*>(ba.wacc + (long)grid * wide_wacc_floats<M>());
+  auto wt = [w](int i) { return static_cast<const bf16*>(w[i]); };
+  l1mma::lmax1_wide_pack<false, M><<<sms, 256, 0, stream>>>(pk, wt(0), wt(1), wt(2), wt(3), wt(4),
+                                                            wt(5), ga.hs, ga.hv);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, 32 * warps, smem, stream>>>(ga, pk, ba);
+  return (int)cudaGetLastError();
+}
+
 // in: h, d2, attr, maskf, loc, gtab, hs3 or hs, geo2, six weights, d_agg
 // (the unused ones null); out: d_hu, d_hr, d_hs scratch, d_hs (KM, FLAT)
 template <Addr A, bool WIDE>
 int launch(const void* const* in, void* const* out, float* partials, int npad, int hs, int hv,
            int k, int tile, int u, int pack, int grid, cudaStream_t stream) {
-  if (!(WIDE ? fits_wide(hs, hv) : fits(hs, hv)) || grid < 1 ||
+  if (hs < 1 || hv < 0 || (!WIDE && !fits(hs, hv)) || grid < 1 ||
       (A == Addr::kTab && npad % tile != 0) || pack < 1 || k % pack != 0)
     return (int)cudaErrorInvalidValue;
-  const int tl = A == Addr::kTab ? tile : 0;
-  const Wide sh = wide_shape(hs, hv);
-  const int warps = WIDE ? wide_warps(sh, k, tl, u) : kWarps;
-  if (warps < 1) return (int)cudaErrorInvalidValue;
-  const long smem = WIDE ? wide_smem_bytes(sh, k, tl, u, warps) : smem_bytes(k, tl, u);
-  auto kern = [] {
-    if constexpr (WIDE) return fused_message_bwd_wide_mma<A>;
-    else return fused_message_bwd_mma<A>;
-  }();
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   GatherArgs ga;
   ga.h = static_cast<const bf16*>(in[0]);
   ga.d2 = static_cast<const bf16*>(in[1]);
@@ -2370,9 +2516,22 @@ int launch(const void* const* in, void* const* out, float* partials, int npad, i
   ba.partials = partials;
   ba.wacc = partials + wacc_offset(hs, hv, grid);
   ba.pack = pack;
-  auto wt = [in](int i) { return static_cast<const bf16*>(in[i]); };
-  kern<<<grid, 32 * warps, smem, stream>>>(ga, wt(8), wt(9), wt(10), wt(11), wt(12), wt(13), ba);
-  return (int)cudaGetLastError();
+  if constexpr (WIDE) {
+#define CALL(m) return launch_wide_m<A, m>(ga, ba, in + 8, grid, stream)
+    switch (wide_m(hs, hv)) { LMAX1_WIDE_CASES(CALL) }
+#undef CALL
+    return (int)cudaErrorInvalidValue;
+  } else {
+    const int tl = A == Addr::kTab ? tile : 0;
+    const long smem = smem_bytes(k, tl, u);
+    auto kern = fused_message_bwd_mma<A>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    auto wt = [in](int i) { return static_cast<const bf16*>(in[i]); };
+    kern<<<grid, kThreads, smem, stream>>>(ga, wt(8), wt(9), wt(10), wt(11), wt(12), wt(13), ba);
+    return (int)cudaGetLastError();
+  }
 }
 
 }  // namespace mma
@@ -2420,9 +2579,9 @@ int launch(const void* const* in, void* const* out, float* partials, int npad, i
 
 // The library's launch and grid of a dtype: built plain, fp32 on the FMA
 // kernel and bf16 on the Bench kernel (up to 32x0e+16x1o); built with
-// LMAX1_WIDE=1 (a second library of this source, compiled beside the
-// first), bf16 on the Wide kernel at any width.  The wrapper picks the
-// library by the widths.
+// LMAX1_WIDE=1 and LMAX1_WIDE_M=m (a library of this source for each
+// instance, compiled beside the first), bf16 on the Wide kernel's instance
+// m.  The wrapper picks the library by the widths.
 template <Addr A>
 int launch_dtype(int dtype, const void* const* in, void* const* out, float* partials, int npad,
                  int hs, int hv, int k, int tile, int u, int pack, int grid, cudaStream_t st) {
@@ -2465,10 +2624,12 @@ long fused_message_tab_bwd_smem_bytes(int dtype, int hs, int hv, int k, int tile
 
 // The floats of the buffer the main kernel's partials [grid][NW] start (fp32,
 // 16-byte aligned): the partials, then (the Wide kernel) its weight-gradient
-// accumulators [grid][jobs * 1024] from the next multiple of 4 floats.
+// accumulators [grid][jobs * 1024] from the next multiple of 4 floats, then
+// its packed weights.
 long fused_message_bwd_partials_floats(int dtype, int hs, int hv, int grid) {
-  const long wacc = dtype == 0 ? 0 : mma::bf16_wacc_floats(hs, hv);
-  return mma::wacc_offset(hs, hv, grid) + grid * wacc;
+  if (dtype == 0) return mma::wacc_offset(hs, hv, grid);
+  return mma::wacc_offset(hs, hv, grid) + grid * mma::bf16_wacc_floats(hs, hv) +
+         mma::bf16_pack_floats(hs, hv);
 }
 
 // Blocks of the main kernel (SMs x resident blocks, at most one per tile),
@@ -2544,13 +2705,31 @@ int fused_message_flat_bwd(int dtype, const void* hs_rows, const void* hr, const
                                    0, 0, pack, grid, static_cast<cudaStream_t>(stream));
 }
 
+// The Wide kernel of an addressing (0 tabled, 1 km, 2 flat) at these widths
+// over n receivers: out[0] its warps a block, out[1] its blocks an SM (the
+// occupancy query); returns its shared memory a block (bytes), or -1 (no
+// instance, or not the Wide library).
+long lmax1_wide_bwd_config(int addr, int hs, int hv, int k, int tile, int u, int n, int* out) {
+  out[0] = out[1] = 0;
+#if !LMAX1_WIDE
+  return -1;
+#else
+  long g;
+  if (addr == 0) g = mma::grid_wide<Addr::kTab>(hs, hv, k, tile, u, n, out, out + 1);
+  else if (addr == 1) g = mma::grid_wide<Addr::kKm>(hs, hv, k, 0, 0, n, out, out + 1);
+  else g = mma::grid_wide<Addr::kFlat>(hs, hv, k, 0, 0, n, out, out + 1);
+  if (g < 0) return -1;
+  return mma::bf16_smem_bytes(hs, hv, k, addr == 0 ? tile : 0, addr == 0 ? u : 0);
+#endif
+}
+
 #ifdef LMAX1_BWD_CLOCKS
 // the bf16 engine's phases' cycles (thread 0 of every block) and rounds,
 // summed since the last call (then 0)
 int lmax1_bwd_phase_cycles(unsigned long long* out) {
   cudaError_t err = cudaMemcpyFromSymbol(out, bwd_phase_cycles, sizeof(bwd_phase_cycles));
   if (err != cudaSuccess) return (int)err;
-  static const unsigned long long zero[12] = {};
+  static const unsigned long long zero[16] = {};
   return (int)cudaMemcpyToSymbol(bwd_phase_cycles, zero, sizeof(zero));
 }
 #endif

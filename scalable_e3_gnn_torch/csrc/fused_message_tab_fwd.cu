@@ -43,9 +43,13 @@
 // 16 rows that is 120 mma (1.42x the counted work: the dot lanes run as
 // three products).  Each warp fetches its next tile's rows by cp.async while
 // it multiplies the current one.  Three blocks of four warps share an SM.
-// Past 32x0e+16x1o the Wide kernel walks the same units a column block at a
-// time, stages the layer-1 outputs in shared memory (the layer-2 A rows) and
-// runs as many warps a block as shared memory holds beside the weights.
+// Past 32x0e+16x1o the Wide kernel (an instance per count m of 32-lane
+// scalar and 16-channel vector blocks, m = 1..4) walks the same units a
+// column block at a time: the layer-1 outputs pass to layer 2 in registers
+// (20 m registers a lane), the weights stream through a ring of column-block
+// chunks shared by the block's warps (cp.async.bulk against mbarriers; no
+// block holds a whole width's weights), and the K-sum buffer is bf16 (TAB,
+// KM), so eight warps an SM fit up to 64x0e+32x1o.
 // fp32 (the check path): the first form, kept: one block walks groups of G
 // receivers (fewer where a wide layer's rows would not fit beside its
 // weights), stages the layer-1 inputs of every slot row in shared memory
@@ -67,9 +71,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "lmax1_mma.cuh"
 
-// LMAX1_WIDE=1: the library of the Wide kernels (see launch_dtype)
+// LMAX1_WIDE=1: a library of the Wide kernels, of the instance LMAX1_WIDE_M
+// (see launch_dtype)
 #ifndef LMAX1_WIDE
 #define LMAX1_WIDE 0
 #endif
@@ -523,69 +530,96 @@ int launch(const GatherArgs& ga, const void* const* w, void* out, int pack, cuda
 }
 
 // ---------------------------------------------------------------------------
-// bf16 past 32x0e+16x1o: the Wide kernel, the same walk over units and tiles
-// with the layers a column block at a time (lmax1_mma.cuh: sblock, vblock).
-// The layer-1 gates go into a per-warp staging M [16][ldf] (the layer-2 A
-// rows, read back by ldmatrix), the layer-2 messages into the K-sum buffer
-// [16][ldk] fp32; the warps a block are as many as shared memory holds
-// beside the weights (at most kWideWarps).
-using l1mma::gate_s; using l1mma::gate_v; using l1mma::KSumN; using l1mma::kWideCols;
-using l1mma::LayerIn; using l1mma::sblock; using l1mma::vblock; using l1mma::Wide;
-using l1mma::wide_shape;
+// bf16 past 32x0e+16x1o: the Wide kernel, instance M (lmax1_mma.cuh: "The
+// Wide kernels").  The same walk over units and tiles; layer 1 on the
+// gathered rows and its gates into layer 2's A fragments (registers), layer 2
+// a column block at a time, the weights of each block through the block's
+// ring; the layer-2 messages go into the K-sum buffer [16][ldk] (bf16 for TAB
+// and KM: each of their slot messages is rounded to bf16 before its fp32
+// K-sum; fp32 for FLAT, whose p messages of a group are summed before they
+// round).  A block's warps walk the same number of tiles (a warp past its
+// units walks empty ones: every warp takes every chunk), as many warps as
+// shared memory holds beside the ring (at most kWideWarps).
+using l1mma::ChunkLane; using l1mma::chunk_lane; using l1mma::KSumN;
+using l1mma::l2_sblk; using l1mma::l2_vblk; using l1mma::layer1_wide; using l1mma::wide_m;
+using l1mma::WidePack; using l1mma::WideS; using l1mma::WRing;
 
-constexpr int kWideWarps = 4;
+constexpr int kWideWarps = 8;
 
-__host__ __device__ inline long wide_warp_bytes(const Wide& sh, int k) {
-  return 2 * buf_bytes(sh, k, false) + align16(2L * 16 * sh.ldf()) + align16(4L * 16 * sh.ldk());
+template <Addr A, int M> struct FwdWide {
+  typedef WRing<M, false> Ring;
+  typedef typename std::conditional<A == Addr::kFlat, float, bf16>::type KT;
+  static constexpr int kLdF = 80 * M + 8, kLdK = 80 * M + 8;
+  static constexpr int kCols = (80 * M + 31) / 32;  // the K-sum's columns a lane
+  // per warp: two gather buffers and the K-sum buffer
+  __host__ __device__ static long warp_bytes(int k) {
+    return 2 * buf_bytes(WideS<M>(), k, false) + align16((long)sizeof(KT) * 16 * kLdK);
+  }
+  // the ring, then d2w [n] fp32
+  __host__ __device__ static constexpr long fixed_bytes() {
+    return (Ring::kBytes + 15) / 16 * 16 + 4L * 64 * M;
+  }
+  __host__ __device__ static long smem_bytes(int k, int warps) {
+    return fixed_bytes() + warps * warp_bytes(k);
+  }
+  __host__ static int warps(int k) {
+    int w = kWideWarps;
+    while (w > 0 && smem_bytes(k, w) > gmma::kMaxSmem) --w;
+    return w;
+  }
+};
+
+__device__ __forceinline__ void put2(float* p, float x0, float x1) {
+  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
 }
-__host__ inline long wide_smem_bytes(const Wide& sh, int k, int warps) {
-  return weight_bytes(sh) + warps * wide_warp_bytes(sh, k);
-}
-// the warps a block (0: none fits)
-__host__ inline int wide_warps(const Wide& sh, int k) {
-  int w = kWideWarps;
-  while (w > 0 && wide_smem_bytes(sh, k, w) > gmma::kMaxSmem) --w;
-  return w;
+__device__ __forceinline__ void put2(bf16* p, float x0, float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
 }
 
-template <Addr A>
-__global__ void __launch_bounds__(32 * kWideWarps)
-fused_message_fwd_wide_mma(GatherArgs ga, const bf16* __restrict__ w0a,
-                           const bf16* __restrict__ w1sa, const bf16* __restrict__ w1va,
-                           const bf16* __restrict__ w0b, const bf16* __restrict__ w1sb,
-                           const bf16* __restrict__ w1vb, bf16* __restrict__ out, int pack) {
+template <Addr A, int M>
+__global__ void __launch_bounds__(32 * kWideWarps, 1)
+fused_message_fwd_wide_mma(GatherArgs ga, const unsigned char* __restrict__ wpk,
+                           bf16* __restrict__ out, int pack) {
   constexpr bool KM = A == Addr::kKm, FLAT = A == Addr::kFlat;
-  const Wide sh = wide_shape(ga.hs, ga.hv);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* W = reinterpret_cast<bf16*>(smem_raw);
-  float* d2w = reinterpret_cast<float*>(smem_raw + align16(2L * sh.wrows() * sh.ldw()));
+  typedef FwdWide<A, M> F;
+  typedef typename F::KT KT;
+  constexpr int HSP = 32 * M, HVP = 16 * M, LDF = F::kLdF, LDK = F::kLdK;
+  const WideS<M> sh{};
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
   const int g = lane >> 2, t4 = lane & 3;
-  const int k = ga.k, ldf = sh.ldf(), ldk = sh.ldk();
+  const int k = ga.k;
+  float* d2w = reinterpret_cast<float*>(smem_raw + (F::Ring::kBytes + 15) / 16 * 16);
   const long bb = buf_bytes(sh, k, false);
-  unsigned char* wp = smem_raw + weight_bytes(sh) + warp * wide_warp_bytes(sh, k);
-  bf16* M = reinterpret_cast<bf16*>(wp + 2 * bb);  // [16][ldf]: m0 | m1_0 | m1_1 | m1_2
-  float* kbuf = reinterpret_cast<float*>(wp + 2 * bb + align16(2L * 16 * ldf));
+  unsigned char* wp = smem_raw + F::fixed_bytes() + warp * F::warp_bytes(k);
+  KT* kbuf = reinterpret_cast<KT*>(wp + 2 * bb);
+  // the padded lanes of both buffers stay zero
   for (long x = lane; x < 2 * bb / 16; x += 32)
     reinterpret_cast<uint4*>(wp)[x] = make_uint4(0u, 0u, 0u, 0u);
-  stage_weights<KM>(sh, W, d2w, w0a, w1sa, w1va, w0b, w1sb, w1vb, ga.hs, ga.hv);
-  __syncthreads();
+  for (int c = threadIdx.x; c < 64 * M; c += blockDim.x)
+    d2w[c] = reinterpret_cast<const float*>(wpk + WidePack<M>::D2W_OFF)[c];
 
+  // (npad K < 2^31, checked by the wrapper: int arithmetic throughout)
   const int G = unit_recv(k, 0), T = unit_tiles(k, 0);
   const int units = (ga.npad + G - 1) / G;
   const int first = blockIdx.x * warps + warp, stride = gridDim.x * warps;
-  const int nit = first < units ? (units - first + stride - 1) / stride * T : 0;
+  const int first0 = blockIdx.x * warps;  // warp 0's first unit: warp 0 has the most
+  const int nit = first0 < units ? (units - first0 + stride - 1) / stride * T : 0;
+  typename F::Ring ring;
+  ring.setup(smem_raw, wpk, nit * F::Ring::kPerTile, warps);
+  ring.start();  // (its block barrier also orders d2w and the zeroed buffers)
   auto ref = [&](int it) {
     const int un = first + it / T * stride;
     TileRef tr;
     tr.node0 = un * G;
-    tr.nrecv = ga.npad - tr.node0 < G ? ga.npad - tr.node0 : G;
+    tr.nrecv = un < units ? (ga.npad - tr.node0 < G ? ga.npad - tr.node0 : G) : 0;
     tr.q0 = it % T * 16;
     tr.slot0 = 0;
     return tr;
   };
   const float cgd = KM ? 1.0f : kCG;
-  KSumN<kWideCols> ks;
+  const ChunkLane cl = chunk_lane(lane);
+  KSumN<F::kCols> ks;
   ksum_init(ks);
   if (nit > 0) {
     gather_tile<A>(carve_buf(sh, wp, k, false), ref(0), ga, lane, sh);
@@ -604,61 +638,52 @@ fused_message_fwd_wide_mma(GatherArgs ga, const bf16* __restrict__ w0a,
     const TileRef tr = ref(it);
     const RowGeo rg = row_geo(b.geo, g);
     const int ar = lane & 15, ac = (lane >> 4) * 8;
-    // ---- layer 1, its gates into M
-    const LayerIn l1{b.s + ar * ldf + ac, b.r + b.ri[ar] * ldf + ac, sh.w1s(), sh.w1v(), true};
-    for (int blk = 0; blk < sh.ns; ++blk) {
-      float o[4][4];
-      sblock(sh, W, d2w, l1, rg, cgd, lane, blk, o);
-      gate_s(o, M, ldf, 0, 32 * blk, lane);
-    }
-    for (int blk = 0; blk < sh.nv; ++blk) {
-      float og[2][4], oa[2][4], ob[3][2][4];
-      vblock(sh, W, d2w, l1, rg, cgd, lane, blk, og, oa, ob);
-      gate_v<KM>(sh, og, oa, ob, rg, M, ldf, 0, blk, lane);
-    }
-    __syncwarp();
-    // ---- layer 2 on M, its gates and the mask: each slot's message (TAB,
-    //      KM rounded to bf16; FLAT in fp32, rounded per group in the K-sum)
-    const LayerIn l2{M + ar * ldf + ac, nullptr, sh.w2s(), sh.w2v(), false};
+    const int q = it * F::Ring::kPerTile;
+    // ---- layer 1 and its gates: layer 2's A fragments
+    uint32_t am0[2 * M][4], am1[M][3][4];
+    layer1_wide<M, KM>(ring, q, lane, cl, b.s + ar * LDF + ac, b.r + b.ri[ar] * LDF + ac, d2w,
+                       rg, cgd, am0, am1);
+    // ---- layer 2, its gates and the mask: each slot's message (TAB, KM
+    //      rounded to bf16; FLAT in fp32, rounded per group in the K-sum)
     auto msg = [&](float m, int h) {
       const float mk = rg.mk(h);
       return mk != 0.f ? (FLAT ? m * mk : rnd(m * mk)) : 0.f;
     };
-    for (int blk = 0; blk < sh.ns; ++blk) {
+#pragma unroll
+    for (int cb = 0; cb < M; ++cb) {
       float o[4][4];
-      sblock(sh, W, d2w, l2, rg, cgd, lane, blk, o);
+      l2_sblk<M>(ring, q + 4 * M + cb, lane, cl, am0, am1, rg, cgd, o);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        float* row = kbuf + (g + 8 * h) * ldk + 32 * blk + 2 * t4;
+        KT* row = kbuf + (g + 8 * h) * LDK + 32 * cb + 2 * t4;
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
           const float x0 = o[nt][2 * h], x1 = o[nt][2 * h + 1];
-          *reinterpret_cast<float2*>(row + nt * 8) =
-              make_float2(msg(x0 * sigm(x0), h), msg(x1 * sigm(x1), h));
+          put2(row + nt * 8, msg(x0 * sigm(x0), h), msg(x1 * sigm(x1), h));
         }
       }
     }
-    for (int blk = 0; blk < sh.nv; ++blk) {
+#pragma unroll
+    for (int v = 0; v < M; ++v) {
       float og[2][4], oa[2][4], ob[3][2][4];
-      vblock(sh, W, d2w, l2, rg, cgd, lane, blk, og, oa, ob);
+      l2_vblk<M>(ring, q + 5 * M + v, lane, cl, am0, am1, rg, cgd, v, og, oa, ob);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        float* row = kbuf + (g + 8 * h) * ldk + sh.hsp() + 16 * blk + 2 * t4;
+        KT* row = kbuf + (g + 8 * h) * LDK + HSP + 16 * v + 2 * t4;
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           float m[3][2];
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
-            const int q = 2 * h + j;
-            const float gt = KM ? rnd(sigm(og[i][q])) : sigm(og[i][q]);
-            const float a = KM ? rnd(oa[i][q]) : oa[i][q];
+            const int qq = 2 * h + j;
+            const float gt = KM ? rnd(sigm(og[i][qq])) : sigm(og[i][qq]);
+            const float a = KM ? rnd(oa[i][qq]) : oa[i][qq];
 #pragma unroll
             for (int c = 0; c < 3; ++c)
-              m[c][j] = msg(kCG * fmaf(rg.v(h, c), a, ob[c][i][q]) * gt, h);
+              m[c][j] = msg(kCG * fmaf(rg.v(h, c), a, ob[c][i][qq]) * gt, h);
           }
 #pragma unroll
-          for (int c = 0; c < 3; ++c)
-            *reinterpret_cast<float2*>(row + sh.hvp() * c + 8 * i) = make_float2(m[c][0], m[c][1]);
+          for (int c = 0; c < 3; ++c) put2(row + HVP * c + 8 * i, m[c][0], m[c][1]);
         }
       }
     }
@@ -668,16 +693,15 @@ fused_message_fwd_wide_mma(GatherArgs ga, const bf16* __restrict__ w0a,
   }
 }
 
-template <Addr A>
-int launch_wide(const GatherArgs& ga, const void* const* w, void* out, int pack,
-                cudaStream_t stream) {
-  if (!l1mma::fits_wide(ga.hs, ga.hv) || pack < 1 || ga.k % pack != 0)
-    return (int)cudaErrorInvalidValue;
-  const Wide sh = wide_shape(ga.hs, ga.hv);
-  const int warps = wide_warps(sh, ga.k);
-  if (warps < 1) return (int)cudaErrorInvalidValue;
-  const long smem = wide_smem_bytes(sh, ga.k, warps);
-  auto kern = fused_message_fwd_wide_mma<A>;
+// The launch of instance M: the packed weights into scratch, then the kernel
+template <Addr A, int M>
+int launch_wide_m(const GatherArgs& ga, const void* const* w, void* out, void* scratch, int pack,
+                  cudaStream_t stream) {
+  typedef FwdWide<A, M> F;
+  const int warps = F::warps(ga.k);
+  if (warps < 1 || scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const long smem = F::smem_bytes(ga.k, warps);
+  auto kern = fused_message_fwd_wide_mma<A, M>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -693,17 +717,50 @@ int launch_wide(const GatherArgs& ga, const void* const* w, void* out, int pack,
   if (grid > (units + warps - 1) / warps) grid = (units + warps - 1) / warps;
   if (grid < 1) grid = 1;
   auto wt = [w](int i) { return static_cast<const bf16*>(w[i]); };
-  kern<<<(int)grid, 32 * warps, smem, stream>>>(ga, wt(0), wt(1), wt(2), wt(3), wt(4), wt(5),
+  l1mma::lmax1_wide_pack<A == Addr::kKm, M><<<sms, 256, 0, stream>>>(
+      static_cast<unsigned char*>(scratch), wt(0), wt(1), wt(2), wt(3), wt(4), wt(5), ga.hs, ga.hv);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  kern<<<(int)grid, 32 * warps, smem, stream>>>(ga, static_cast<const unsigned char*>(scratch),
                                                 static_cast<bf16*>(out), pack);
   return (int)cudaGetLastError();
 }
 
-// shared memory a block of the Wide kernel takes (past the card: the bytes
-// of one warp)
-__host__ inline long wide_bytes(int hs, int hv, int k) {
-  const Wide sh = wide_shape(hs, hv);
-  const int warps = wide_warps(sh, k);
-  return wide_smem_bytes(sh, k, warps > 0 ? warps : 1);
+template <Addr A>
+int launch_wide(const GatherArgs& ga, const void* const* w, void* out, void* scratch, int pack,
+                cudaStream_t stream) {
+  if (ga.hs < 1 || ga.hv < 0 || pack < 1 || ga.k % pack != 0) return (int)cudaErrorInvalidValue;
+#define CALL(m) return launch_wide_m<A, m>(ga, w, out, scratch, pack, stream)
+  switch (wide_m(ga.hs, ga.hv)) { LMAX1_WIDE_CASES(CALL) }
+#undef CALL
+  return (int)cudaErrorInvalidValue;
+}
+
+// shared memory a block of the Wide kernel's instance M takes, its warps and
+// its blocks an SM (the occupancy query)
+template <Addr A, int M>
+long wide_config_m(int k, int* warps_out, int* per_sm_out) {
+  typedef FwdWide<A, M> F;
+  const int warps = F::warps(k);
+  const long smem = F::smem_bytes(k, warps > 0 ? warps : 1);
+  if (warps_out != nullptr) *warps_out = warps;
+  if (per_sm_out != nullptr) {
+    *per_sm_out = 0;
+    auto kern = fused_message_fwd_wide_mma<A, M>;
+    if (warps > 0 &&
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) ==
+            cudaSuccess)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm_out, kern, 32 * warps, smem);
+  }
+  return smem;
+}
+// ... at these widths (-1: no instance)
+template <Addr A>
+long wide_config(int hs, int hv, int k, int* warps_out, int* per_sm_out) {
+#define CALL(m) return wide_config_m<A, m>(k, warps_out, per_sm_out)
+  switch (wide_m(hs, hv)) { LMAX1_WIDE_CASES(CALL) }
+#undef CALL
+  return -1;
 }
 
 inline GatherArgs gather_args(const void* h, const void* hsp, const void* d2, const void* attr,
@@ -762,19 +819,21 @@ int launch_fma(const void* h, const void* d2, const void* attr, const void* mask
 }
 
 // The library's launch of a dtype: built plain, fp32 on the FMA kernel and
-// bf16 on the Bench kernel (up to 32x0e+16x1o); built with LMAX1_WIDE=1
-// (a second library of this source, compiled beside the first), bf16 on the
-// Wide kernel at any width.  The wrapper picks the library by the widths.
+// bf16 on the Bench kernel (up to 32x0e+16x1o); built with LMAX1_WIDE=1 and
+// LMAX1_WIDE_M=m (a library of this source for each instance, compiled
+// beside the first), bf16 on the Wide kernel's instance m (scratch: the packed weights, of
+// fused_message_fwd_scratch_bytes).  The wrapper picks the library by the
+// widths.
 template <Addr A>
 int launch_dtype(int dtype, const void* h, const void* hsp, const void* d2, const void* attr,
                  const void* maskf, const void* loc, const void* gtab, const void* geo2,
-                 const void* const* w, void* out, int npad, int hs, int hv, int k, int tile,
-                 int u, int pack, cudaStream_t st) {
+                 const void* const* w, void* out, void* scratch, int npad, int hs, int hv, int k,
+                 int tile, int u, int pack, cudaStream_t st) {
   if constexpr (kWideLibrary) {
     if (dtype != 1) return (int)cudaErrorInvalidValue;
     return mma::launch_wide<A>(
         mma::gather_args(h, hsp, d2, attr, maskf, loc, gtab, geo2, npad, hs, hv, k, tile, u), w,
-        out, pack, st);
+        out, scratch, pack, st);
   } else {
     if (dtype == 0)
       return launch_fma<A>(h, d2, attr, maskf, static_cast<const int*>(loc),
@@ -793,22 +852,56 @@ extern "C" {
 
 // Shared memory one block needs for these widths (bytes; dtype 0 = float32,
 // 1 = bfloat16) in this library; the wrapper checks it against the card's
-// limit before launching.
+// limit before launching.  (The Wide kernels: their tabled instance's; past
+// the largest instance, one past the limit.)
 long fused_message_tab_fwd_smem_bytes(int dtype, int hs, int hv, int k) {
   if (dtype == 0) return smem_bytes(make_dims(hs, hv, k));
-  return kWideLibrary ? mma::wide_bytes(hs, hv, k) : mma::smem_bytes(k);
+#if LMAX1_WIDE
+  const long smem = mma::wide_config<Addr::kTab>(hs, hv, k, nullptr, nullptr);
+  return smem < 0 ? gmma::kMaxSmem + 1 : smem;
+#else
+  return mma::smem_bytes(k);
+#endif
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 on success).
+// Bytes of the scratch buffer a launch of this library takes (the Wide
+// kernels' packed weights; 0: none)
+long fused_message_fwd_scratch_bytes(int dtype, int hs, int hv) {
+  if (!kWideLibrary || dtype != 1) return 0;
+  switch (l1mma::wide_m(hs, hv)) {
+#define CALL(m) return l1mma::WidePack<m>::BYTES
+    LMAX1_WIDE_CASES(CALL)
+#undef CALL
+  }
+  return 0;
+}
+
+// The Wide kernel of an addressing (0 tabled, 1 km, 2 flat) at these widths:
+// out[0] its warps a block, out[1] its blocks an SM (the occupancy query);
+// returns its shared memory a block (bytes), or -1 (no instance, or not the
+// Wide library).
+long lmax1_wide_fwd_config(int addr, int hs, int hv, int k, int* out) {
+#if LMAX1_WIDE
+  if (addr == 0) return mma::wide_config<Addr::kTab>(hs, hv, k, out, out + 1);
+  if (addr == 1) return mma::wide_config<Addr::kKm>(hs, hv, k, out, out + 1);
+  return mma::wide_config<Addr::kFlat>(hs, hv, k, out, out + 1);
+#else
+  return -1;
+#endif
+}
+
+// dtype: 0 = float32, 1 = bfloat16; scratch: fused_message_fwd_scratch_bytes
+// (null where 0).  Returns cudaGetLastError() after the launch (0 on success).
 int fused_message_tab_fwd(int dtype, const void* h, const void* d2, const void* attr,
                           const void* maskf, const void* loc, const void* gtab,
                           const void* w0a, const void* w1sa, const void* w1va,
                           const void* w0b, const void* w1sb, const void* w1vb, void* out,
-                          int npad, int hs, int hv, int k, int tile, int u, void* stream) {
+                          void* scratch, int npad, int hs, int hv, int k, int tile, int u,
+                          void* stream) {
   const void* w[6] = {w0a, w1sa, w1va, w0b, w1sb, w1vb};
   return launch_dtype<Addr::kTab>(dtype, h, nullptr, d2, attr, maskf, loc, gtab, nullptr, w, out,
-                                  npad, hs, hv, k, tile, u, 1, static_cast<cudaStream_t>(stream));
+                                  scratch, npad, hs, hv, k, tile, u, 1,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 // The untabled (km) forward: hs3 [K, N, F], hr [N, F], geo2 [N, K*6], the six
@@ -816,10 +909,10 @@ int fused_message_tab_fwd(int dtype, const void* h, const void* d2, const void* 
 int fused_message_km_fwd(int dtype, const void* hs3, const void* hr, const void* geo2,
                          const void* w0a, const void* w1sa, const void* w1va,
                          const void* w0b, const void* w1sb, const void* w1vb, void* out,
-                         int n, int hs, int hv, int k, void* stream) {
+                         void* scratch, int n, int hs, int hv, int k, void* stream) {
   const void* w[6] = {w0a, w1sa, w1va, w0b, w1sb, w1vb};
   return launch_dtype<Addr::kKm>(dtype, hr, hs3, nullptr, nullptr, nullptr, nullptr, nullptr,
-                                 geo2, w, out, n, hs, hv, k, n, 0, 1,
+                                 geo2, w, out, scratch, n, hs, hv, k, n, 0, 1,
                                  static_cast<cudaStream_t>(stream));
 }
 
@@ -829,11 +922,11 @@ int fused_message_km_fwd(int dtype, const void* hs3, const void* hr, const void*
 int fused_message_flat_fwd(int dtype, const void* hs_rows, const void* hr, const void* d2,
                            const void* attr, const void* maskf, const void* w0a,
                            const void* w1sa, const void* w1va, const void* w0b,
-                           const void* w1sb, const void* w1vb, void* out, int n, int hs,
-                           int hv, int k, int pack, void* stream) {
+                           const void* w1sb, const void* w1vb, void* out, void* scratch, int n,
+                           int hs, int hv, int k, int pack, void* stream) {
   const void* w[6] = {w0a, w1sa, w1va, w0b, w1sb, w1vb};
   return launch_dtype<Addr::kFlat>(dtype, hr, hs_rows, d2, attr, maskf, nullptr, nullptr,
-                                   nullptr, w, out, n, hs, hv, k, n, 0, pack,
+                                   nullptr, w, out, scratch, n, hs, hv, k, n, 0, pack,
                                    static_cast<cudaStream_t>(stream));
 }
 

@@ -23,20 +23,19 @@
 // gate columns and 16 OA (or OB) columns, so that a channel's gate, A and
 // B_c sit in one block.  At 32x0e+16x1o (the Bench shape, fixed at compile
 // time) there is one block of each, [O0 (32 + 16) | OA (16)] = 64 columns,
-// and the kernels hold a tile's whole layer in registers.  Wider layers (the
-// Wide shape, counted at run time) run the wide kernels, which walk the
-// blocks one at a time (a column block changes no column's fp32 sum: each
-// is summed over the same k-steps in the same order), pass the layer-1
-// outputs to layer 2 through shared memory, and, backward, keep the weight
-// gradients in global memory (see the backward source); they are each
-// source's second library (built with LMAX1_WIDE=1).
+// and the kernels hold a tile's whole layer in registers.  Wider layers run
+// the Wide kernels (see "The Wide kernels" below): instances compiled for m
+// scalar and m vector blocks, the layer-1 outputs passed to layer 2 in
+// registers, the weights streamed through a ring of column-block chunks;
+// each instance is a library of each source (built with LMAX1_WIDE=1 and
+// LMAX1_WIDE_M=m).
 //
 // Shape of the work.  A warp owns 16-row mma tiles of slot rows and walks
 // units of G whole receivers (G K rows rounded up to 16), so the K-sums run
 // inside the warp: its lanes walk a tile's rows in slot order from a shared
 // buffer, each lane three columns, keeping the running receiver sums in
-// registers across the unit's tiles.  The weights sit in shared memory once
-// per block, bf16, row-major [in][out] (144 rows): ldmatrix.trans reads them
+// registers across the unit's tiles.  The Bench kernels' weights sit in
+// shared memory once per block, bf16, row-major [in][out] (144 rows): ldmatrix.trans reads them
 // as the forward's B fragments and plain ldmatrix as the VJP's (W^T), so no
 // transposed copy is kept.  Each warp gathers its next tile's sender rows
 // (through the table, or pre-gathered), receiver rows and geometry by
@@ -135,12 +134,6 @@ __host__ __device__ inline Wide wide_shape(int hs, int hv) {
 __host__ __device__ inline bool fits(int hs, int hv) {
   return hs >= 1 && hs <= kHS && hv >= 0 && hv <= kHV;
 }
-// the K-sum's columns a lane at most (Wide: a padded row of up to 384
-// columns; every width whose weights fit shared memory is narrower)
-constexpr int kWideCols = 12;
-__host__ __device__ inline bool fits_wide(int hs, int hv) {
-  return hs >= 1 && hv >= 0 && wide_shape(hs, hv).fp() <= 32 * kWideCols;
-}
 // receivers per unit and 16-row tiles per unit
 __host__ __device__ inline int unit_recv(int k, int tile) {
   int g = k >= kTargetRows ? 1 : kTargetRows / k;
@@ -196,56 +189,67 @@ __device__ __forceinline__ void out_col(const S& sh, int col, int hs, int hv, in
 }
 
 // ---------------------------------------------------------------------------
-// The weights, once per block: the six folded blocks (the TPU kernel's,
-// reference row layout split) into W [wrows][ldw] bf16 and the d2 rows of
-// W0a and W1Sa into d2w [n] fp32.  KM: the W0 vector rows are CG110 times
+// The weights: the six folded blocks (the TPU kernel's, reference row layout
+// split) as W [wrows][n] bf16 (padded row r, layer column col) and the d2 rows
+// of W0a and W1Sa as d2w [n] fp32.  KM: the W0 vector rows are CG110 times
 // the weight, rounded (the km2 form's w0v).
+template <bool KM, class S>
+__device__ __forceinline__ float weight_at(const S& sh, int r, int col, const bf16* w0a,
+                                           const bf16* w1sa, const bf16* w1va, const bf16* w0b,
+                                           const bf16* w1sb, const bf16* w1vb, int hs, int hv) {
+  const int s1 = 2 * hs + 1, c0 = hs + hv;
+  const int hsp = sh.hsp(), hvp = sh.hvp();
+  int o, jj;
+  out_col(sh, col, hs, hv, o, jj);
+  const bf16 *src0 = nullptr, *src1 = nullptr;
+  int i0 = 0, i1 = 0, w1 = hv;
+  bool vec = false;
+  if (r < sh.w1v()) {
+    const int p = r % hsp;
+    if (p < hs) { i0 = i1 = r < hsp ? p : hs + p; src0 = w0a; src1 = w1sa; }
+  } else if (r < sh.w2s()) {
+    const int p = (r - sh.w1v()) % hvp;
+    if (p < hv) {
+      const int l = r - sh.w1v() < hvp ? p : hv + p;
+      i0 = s1 + l; i1 = l; src0 = w0a; src1 = w1va; vec = true;
+    }
+  } else if (r < sh.w2v()) {
+    const int p = r - sh.w2s();
+    if (p < hs) { i0 = i1 = p; src0 = w0b; src1 = w1sb; }
+  } else {
+    const int p = r - sh.w2v();
+    if (p < hv) { i0 = hs + p; i1 = p; src0 = w0b; src1 = w1vb; vec = true; }
+  }
+  float v = 0.f;
+  if (src0 != nullptr) {
+    if (o >= 0) {
+      v = bf(src0[i0 * c0 + o]);
+      if (KM && vec) v = rnd(rnd(kCG) * v);
+    } else if (jj >= 0) {
+      v = bf(src1[i1 * w1 + jj]);
+    }
+  }
+  return v;
+}
+template <class S>
+__device__ __forceinline__ float d2_at(const S& sh, int col, const bf16* w0a, const bf16* w1sa,
+                                       int hs, int hv) {
+  const int c0 = hs + hv;
+  int o, jj;
+  out_col(sh, col, hs, hv, o, jj);
+  return o >= 0 ? bf(w0a[2 * hs * c0 + o]) : jj >= 0 ? bf(w1sa[2 * hs * hv + jj]) : 0.f;
+}
+// ... once per block into shared memory (the Bench kernels: W [wrows][ldw])
 template <bool KM, class S>
 __device__ void stage_weights(const S& sh, bf16* W, float* d2w, const bf16* w0a,
                               const bf16* w1sa, const bf16* w1va, const bf16* w0b,
                               const bf16* w1sb, const bf16* w1vb, int hs, int hv) {
-  const int s1 = 2 * hs + 1, c0 = hs + hv;
-  const int hsp = sh.hsp(), hvp = sh.hvp(), ldw = sh.ldw();
-  const float cg_t = rnd(kCG);
-  for (int x = threadIdx.x; x < sh.wrows() * ldw; x += blockDim.x) {
-    const int r = x / ldw, col = x % ldw;
-    int o, jj;
-    out_col(sh, col, hs, hv, o, jj);
-    const bf16 *src0 = nullptr, *src1 = nullptr;
-    int i0 = 0, i1 = 0, w1 = hv;
-    bool vec = false;
-    if (r < sh.w1v()) {
-      const int p = r % hsp;
-      if (p < hs) { i0 = i1 = r < hsp ? p : hs + p; src0 = w0a; src1 = w1sa; }
-    } else if (r < sh.w2s()) {
-      const int p = (r - sh.w1v()) % hvp;
-      if (p < hv) {
-        const int l = r - sh.w1v() < hvp ? p : hv + p;
-        i0 = s1 + l; i1 = l; src0 = w0a; src1 = w1va; vec = true;
-      }
-    } else if (r < sh.w2v()) {
-      const int p = r - sh.w2s();
-      if (p < hs) { i0 = i1 = p; src0 = w0b; src1 = w1sb; }
-    } else {
-      const int p = r - sh.w2v();
-      if (p < hv) { i0 = hs + p; i1 = p; src0 = w0b; src1 = w1vb; vec = true; }
-    }
-    float v = 0.f;
-    if (src0 != nullptr) {
-      if (o >= 0) {
-        v = bf(src0[i0 * c0 + o]);
-        if (KM && vec) v = rnd(cg_t * v);
-      } else if (jj >= 0) {
-        v = bf(src1[i1 * w1 + jj]);
-      }
-    }
-    W[x] = __float2bfloat16(v);
-  }
-  for (int col = threadIdx.x; col < sh.n(); col += blockDim.x) {
-    int o, jj;
-    out_col(sh, col, hs, hv, o, jj);
-    d2w[col] = o >= 0 ? bf(w0a[2 * hs * c0 + o]) : jj >= 0 ? bf(w1sa[2 * hs * hv + jj]) : 0.f;
-  }
+  const int ldw = sh.ldw();
+  for (int x = threadIdx.x; x < sh.wrows() * ldw; x += blockDim.x)
+    W[x] = __float2bfloat16(
+        weight_at<KM>(sh, x / ldw, x % ldw, w0a, w1sa, w1va, w0b, w1sb, w1vb, hs, hv));
+  for (int col = threadIdx.x; col < sh.n(); col += blockDim.x)
+    d2w[col] = d2_at(sh, col, w0a, w1sa, hs, hv);
 }
 
 // ---------------------------------------------------------------------------
@@ -417,10 +421,9 @@ __device__ void gather_tile(const Buf& b, const TileRef& tr, const GatherArgs& g
 // live): acc[2][4] += A @ W[wrow .. wrow+16][col0 .. col0+16), the weights
 // by ldmatrix.trans
 __device__ __forceinline__ void mma_pair(float (&acc)[2][4], const uint32_t (&a)[4],
-                                         const bf16* W, int wrow, int col0, int lane,
-                                         int ldw = kLdW) {
+                                         const bf16* W, int wrow, int col0, int lane) {
   uint32_t b[4];
-  ldsm_x4_t(b, W + (wrow + (lane & 15)) * ldw + col0 + (lane >> 4) * 8);
+  ldsm_x4_t(b, W + (wrow + (lane & 15)) * kLdW + col0 + (lane >> 4) * 8);
   mma_bf16_16816(acc[0], a, b[0], b[1]);
   mma_bf16_16816(acc[1], a, b[2], b[3]);
 }
@@ -428,10 +431,9 @@ __device__ __forceinline__ void mma_pair(float (&acc)[2][4], const uint32_t (&a)
 // The VJP's products: acc[2][4] += A @ W[nrow .. nrow+16][kcol .. kcol+16)^T
 // (n-tiles of input rows), the weights by plain ldmatrix
 __device__ __forceinline__ void mma_pairT(float (&acc)[2][4], const uint32_t (&a)[4],
-                                          const bf16* W, int nrow, int kcol, int lane,
-                                          int ldw = kLdW) {
+                                          const bf16* W, int nrow, int kcol, int lane) {
   uint32_t b[4];
-  ldsm_x4(b, W + (nrow + (lane & 7) + (lane >> 4) * 8) * ldw + kcol + ((lane >> 3) & 1) * 8);
+  ldsm_x4(b, W + (nrow + (lane & 7) + (lane >> 4) * 8) * kLdW + kcol + ((lane >> 3) & 1) * 8);
   mma_bf16_16816(acc[0], a, b[0], b[1]);
   mma_bf16_16816(acc[1], a, b[2], b[3]);
 }
@@ -597,146 +599,490 @@ __device__ __forceinline__ void store_a(bf16* Y, int ld, int r0, int col0, const
 }
 
 // ---------------------------------------------------------------------------
-// The Wide kernels' layers, a column block at a time.  A layer's inputs are
-// this lane's ldmatrix rows (row lane & 15, column (lane >> 4) * 8): layer 1
-// the gathered sender and receiver rows and the d2 lane, layer 2 the staged
-// layer-1 outputs [m0 | m1_0 | m1_1 | m1_2].  Every output column is summed
-// over the k-steps of the Bench layers' order (scalars: sender, then
-// receiver; each component's vector lanes: sender, then receiver), so at
-// 32x0e+16x1o each value is the Bench layers' bit for bit.
-struct LayerIn {
-  const bf16* x0;  // sender rows (layer 2: the layer-1 outputs)
-  const bf16* x1;  // receiver rows (layer 2: unused)
-  int ws, wv;      // the first weight row of the scalar and the vector inputs
-  bool l1;         // layer 1: two sources and the d2 lane
+// The Wide kernels (bf16 past 32x0e+16x1o).
+//
+// Instances.  The kernels are templates on m, the count of scalar blocks (32
+// lanes) and of vector blocks (16 channels) alike (WideS<m>), built for m = 1
+// .. LMAX1_WIDE_MAX_M.  A width of ns scalar and nv vector blocks (wide_shape) runs
+// the instance m = max(ns, nv); its missing blocks are zero-padded as the
+// lanes within a block are (zero inputs, zero weights), and a zero k-step
+// adds an exact 0 to every fp32 sum.  Every loop over blocks and k-steps
+// unrolls.  Each output column is summed over the k-steps of the Bench
+// layers' order (scalars: sender, then receiver; each component's vector
+// lanes: sender, then receiver), so at m = 1 every value is the Bench
+// layers' bit for bit.
+//
+// Layer 1 to layer 2 in registers.  Layer 1's gated outputs m0 | m1_c go
+// from C fragments into layer 2's A fragments (as the Bench kernels' gate1):
+// 2m k-steps of m0 and m of each m1_c, 20 m registers a lane.
+//
+// The weights, streamed by column block.  The launch's first kernel
+// (wide_pack) lays the weights out in device memory as chunks.  Column block
+// cb (32 columns: scalar block cb < m, else vector block cb - m, its 16 gate
+// and 16 OA columns) has three: layer 1's scalar-input rows, its vector-input
+// rows, and layer 2's rows.  The backward's transposed products read row
+// chunks (16 input rows x every column).  A chunk's rows are 64 bytes (a row
+// chunk: panels of 32 columns), the 16-byte units of row r swizzled by (r >>
+// 1) & 3, so that ldmatrix and ldmatrix.trans read them without bank
+// conflicts.  A block's warps walk one sequence of chunks, tile by tile, and
+// share a ring of stages of 4096 m bytes in shared memory: a chunk is copied
+// by cp.async.bulk against its stage's full mbarrier (generic_mma.cuh's ring
+// pattern), and the last warp to release a stage copies the next chunk into
+// it.  No block holds a whole width's weights.  (A profiling build of the
+// backward, LMAX1_BWD_CLOCKS, adds thread 0's waits on the mbarriers to
+// bwd_phase_cycles[15].)
+template <int M> struct WideM {
+  static constexpr int ns = M, nv = M;
+};
+template <int M> using WideS = Shape<WideM<M>>;
+// the instances built: m = 1 .. LMAX1_WIDE_MAX_M (kernels/fused_message.py:
+// WIDE_MAX_M), each in a library of its own (LMAX1_WIDE_M=m), so that the
+// instances compile side by side; LMAX1_WIDE_CASES(CALL) is a switch's case
+// of the library's instance (another width's falls through to the default)
+#define LMAX1_WIDE_MAX_M 4
+#ifndef LMAX1_WIDE_M
+#define LMAX1_WIDE_M 1
+#endif
+#if LMAX1_WIDE_M < 1 || LMAX1_WIDE_M > LMAX1_WIDE_MAX_M
+#error "LMAX1_WIDE_M: one of the instances 1 .. LMAX1_WIDE_MAX_M"
+#endif
+#define LMAX1_WIDE_CASES(CALL) \
+  case LMAX1_WIDE_M: CALL(LMAX1_WIDE_M);
+// the instance a width runs
+__host__ __device__ inline int wide_m(int hs, int hv) {
+  const Wide s = wide_shape(hs, hv);
+  return s.ns > s.nv ? s.ns : s.nv;
+}
+// ring stages: four up to m = 2, two past it (shared memory for warps)
+template <int M> __host__ __device__ constexpr int wide_stages() { return M <= 2 ? 4 : 2; }
+
+// The packed weights of instance M (bytes): per column block the layer-1
+// scalar and vector chunks, then per column block the layer-2 chunk, then the
+// row chunks of layer 2 (3m: m0 rows, m1 rows) and of layer 1 (6m: sender,
+// receiver scalars; sender, receiver vector lanes), then d2w [n] fp32.
+template <int M> struct WidePack {
+  static constexpr int HSP = 32 * M, HVP = 16 * M, C0 = 48 * M, NC = 64 * M;
+  static constexpr long L1S = 64L * 2 * HSP, L1V = 64L * 2 * HVP, L2 = 64L * (HSP + HVP);
+  static constexpr long ROW = 2L * 16 * NC;
+  static constexpr long STAGE = L1S;  // the largest chunk
+  static constexpr long L2_OFF = 2L * M * (L1S + L1V);
+  static constexpr long L2T_OFF = L2_OFF + 2L * M * L2;
+  static constexpr long L1T_OFF = L2T_OFF + 3L * M * ROW;
+  static constexpr long D2W_OFF = L1T_OFF + 6L * M * ROW;
+  static constexpr long BYTES = D2W_OFF + 4L * NC;
+  // a tile's chunks: forward layer 1 (4m), layer 2 (2m); backward also layer
+  // 2's row chunks (3m), layer 1 again (4m), layer 1's row chunks (6m)
+  static constexpr int FWD_CHUNKS = 6 * M, BWD_CHUNKS = 19 * M;
+  __host__ __device__ static void chunk(bool bwd, int j, long& off, int& bytes) {
+    if (bwd && j >= 6 * M) {
+      if (j < 9 * M) {
+        off = L2T_OFF + (j - 6 * M) * ROW;
+        bytes = (int)ROW;
+        return;
+      }
+      if (j >= 13 * M) {
+        off = L1T_OFF + (j - 13 * M) * ROW;
+        bytes = (int)ROW;
+        return;
+      }
+      j -= 9 * M;
+    }
+    if (j < 4 * M) {
+      off = (j >> 1) * (L1S + L1V) + (j & 1) * L1S;
+      bytes = (int)((j & 1) ? L1V : L1S);
+    } else {
+      off = L2_OFF + (j - 4 * M) * L2;
+      bytes = (int)L2;
+    }
+  }
+  // column c of column block cb -> the layer's column
+  __host__ __device__ static int col_of(int cb, int c) {
+    if (cb < M) return 32 * cb + c;
+    return c < 16 ? HSP + 16 * (cb - M) + c : C0 + 16 * (cb - M) + c - 16;
+  }
 };
 
-// t = the scalar inputs times the weight columns col0 .. col0+15
-template <class S>
-__device__ __forceinline__ void scal_pair(const S& sh, const bf16* W, const LayerIn& in, int col0,
-                                          int lane, float (&t)[2][4]) {
-  zero(t);
-  const int nk = 2 * sh.ns;
-  for (int src = 0; src < (in.l1 ? 2 : 1); ++src)
-    for (int ks = 0; ks < nk; ++ks) {
-      uint32_t a[4];
-      ldsm_x4(a, (src ? in.x1 : in.x0) + 16 * ks);
-      mma_pair(t, a, W, in.ws + (src * nk + ks) * 16, col0, lane, sh.ldw());
-    }
-}
-// t = component c's vector inputs times the weight columns col0 .. col0+15
-template <class S>
-__device__ __forceinline__ void vec_pair(const S& sh, const bf16* W, const LayerIn& in, int c,
-                                         int col0, int lane, float (&t)[2][4]) {
-  zero(t);
-  const int off = sh.hsp() + sh.hvp() * c;
-  for (int src = 0; src < (in.l1 ? 2 : 1); ++src)
-    for (int j = 0; j < sh.nv; ++j) {
-      uint32_t a[4];
-      ldsm_x4(a, (src ? in.x1 : in.x0) + off + 16 * j);
-      mma_pair(t, a, W, in.wv + (src * sh.nv + j) * 16, col0, lane, sh.ldw());
-    }
+// A chunk's element p (panels of `rows` rows x 32 columns, 64-byte rows,
+// 16-byte units swizzled by (row >> 1) & 3) -> (row, col)
+__host__ __device__ inline void unswz(int p, int rows, int& row, int& col) {
+  const int panel = p / (rows * 32), rem = p % (rows * 32);
+  row = rem / 32;
+  col = panel * 32 + ((((rem >> 3) & 3) ^ ((row >> 1) & 3)) << 3) + (rem & 7);
 }
 
-// Scalar block blk: o = O0 columns 32 blk .. 32 blk + 31 (4 n-tiles),
-// s (xs W0s + d2 w0_d2) + cgd sum_c v_c (xv_c W0v)
-template <class S>
-__device__ __forceinline__ void sblock(const S& sh, const bf16* W, const float* d2w,
-                                       const LayerIn& in, const RowGeo& rg, float cgd, int lane,
-                                       int blk, float (&o)[4][4]) {
-  const int t4 = lane & 3;
+// The packed weights of instance M into dst (WidePack<M>::BYTES), from the
+// six blocks (stage_weights' values; KM: the W0 vector rows CG110-scaled).
+template <bool KM, int M>
+__global__ void __launch_bounds__(256)
+lmax1_wide_pack(unsigned char* __restrict__ dst, const bf16* __restrict__ w0a,
+                const bf16* __restrict__ w1sa, const bf16* __restrict__ w1va,
+                const bf16* __restrict__ w0b, const bf16* __restrict__ w1sb,
+                const bf16* __restrict__ w1vb, int hs, int hv) {
+  typedef WidePack<M> P;
+  const WideS<M> sh{};
+  bf16* out = reinterpret_cast<bf16*>(dst);
+  const int n = (int)(P::D2W_OFF / 2), step = gridDim.x * blockDim.x;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n; e += step) {
+    long o = 2L * e;
+    int r, col, lr, lc;
+    if (o < P::L2_OFF) {
+      const int cb = (int)(o / (P::L1S + P::L1V));
+      o -= cb * (P::L1S + P::L1V);
+      const bool vec = o >= P::L1S;
+      if (vec) o -= P::L1S;
+      unswz((int)(o / 2), vec ? 2 * P::HVP : 2 * P::HSP, lr, lc);
+      r = (vec ? sh.w1v() : sh.w1s()) + lr;
+      col = P::col_of(cb, lc);
+    } else if (o < P::L2T_OFF) {
+      o -= P::L2_OFF;
+      const int cb = (int)(o / P::L2);
+      unswz((int)((o - cb * P::L2) / 2), P::HSP + P::HVP, lr, lc);
+      r = sh.w2s() + lr;
+      col = P::col_of(cb, lc);
+    } else {
+      const bool l1 = o >= P::L1T_OFF;
+      o -= l1 ? P::L1T_OFF : P::L2T_OFF;
+      const int p = (int)(o / P::ROW);
+      unswz((int)((o - p * P::ROW) / 2), 16, lr, lc);
+      r = (l1 ? sh.w1s() : sh.w2s()) + 16 * p + lr;
+      col = lc;
+    }
+    out[e] = __float2bfloat16(weight_at<KM>(sh, r, col, w0a, w1sa, w1va, w0b, w1sb, w1vb, hs, hv));
+  }
+  float* d2w = reinterpret_cast<float*>(dst + P::D2W_OFF);
+  for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < P::NC; c += step)
+    d2w[c] = d2_at(sh, c, w0a, w1sa, hs, hv);
+}
+
+// The ring of weight chunks (see above): stage i at stage + i STAGE, its full
+// mbarrier (the copy's bytes) and its release count; chunk q of the block's
+// sequence is chunk q % per-tile of a tile.  Every warp acquires and
+// releases every chunk in order.  A chunk's warps release it by counting:
+// the last of them (its count reaching a multiple of the warps) copies the
+// chunk kS later into the stage, so no warp waits for another to refill.
+template <int M, bool BWD> struct WRing {
+  typedef WidePack<M> P;
+  static constexpr int kS = wide_stages<M>();
+  static constexpr int kPerTile = BWD ? P::BWD_CHUNKS : P::FWD_CHUNKS;
+  static constexpr long kBytes = kS * (P::STAGE + 16);  // shared memory: stages, barriers
+  const unsigned char* src;
+  unsigned char* stage;
+  uint64_t* full;
+  unsigned* count;
+  int total, nwarps;
+
+  __device__ void setup(unsigned char* p, const unsigned char* w, int n, int warps) {
+    src = w;
+    stage = p;
+    full = reinterpret_cast<uint64_t*>(p + kS * P::STAGE);
+    count = reinterpret_cast<unsigned*>(full + kS);
+    total = n;
+    nwarps = warps;
+  }
+  // one thread copies chunk q into its stage (every warp has released the
+  // chunk that stage held, q - kS)
+  __device__ void issue(int q) {
+    if (q >= total) return;
+    const int st = q % kS;
+    long off;
+    int bytes;
+    P::chunk(BWD, q % kPerTile, off, bytes);
+    gmma::mbar_expect_tx(full + st, (uint32_t)bytes);
+    gmma::bulk_copy(stage + st * P::STAGE, src + off, (uint32_t)bytes, full + st);
+  }
+  // barriers initialised, the first chunks on their way; ends with a block
+  // barrier
+  __device__ void start() {
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < kS; ++i) {
+        gmma::mbar_init(full + i, 1);
+        count[i] = 0;
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      for (int q = 0; q < kS; ++q) issue(q);
+    }
+    __syncthreads();
+  }
+  // chunk q, once it has landed
+  __device__ const bf16* acquire(int q) const {
+    const int st = q % kS;
+#ifdef LMAX1_BWD_CLOCKS
+    const long long t0 = clock64();
+#endif
+    gmma::mbar_wait(full + st, (uint32_t)((q / kS) & 1));
+#ifdef LMAX1_BWD_CLOCKS
+    if (threadIdx.x == 0) atomicAdd(&bwd_phase_cycles[15], (unsigned long long)(clock64() - t0));
+#endif
+    return reinterpret_cast<const bf16*>(stage + st * P::STAGE);
+  }
+  // the warp is done with chunk q (its reads of the stage before the count;
+  // the last warp's copy after it)
+  __device__ void release(int q, int lane) {
+    __syncwarp();
+    if (lane == 0) {
+      __threadfence_block();
+      const unsigned n = atomicAdd(count + q % kS, 1u);
+      if (n % nwarps == nwarps - 1) {
+        __threadfence_block();
+        issue(q + kS);
+      }
+    }
+    __syncwarp();
+  }
+};
+
+// This lane's ldmatrix offsets into a column chunk (elements; row lane & 15,
+// columns 16 hp + (lane >> 4) 8, for hp = 0, 1) and into a row chunk (row (lane
+// & 7) + (lane >> 4) 8, columns ((lane >> 3) & 1) 8 of a 32-column panel's
+// first or second half)
+struct ChunkLane {
+  int c[2], r[2];
+};
+__device__ __forceinline__ ChunkLane chunk_lane(int lane) {
+  ChunkLane cl;
+  const int rc = lane & 15, rr = (lane & 7) + ((lane >> 4) << 3);
 #pragma unroll
   for (int hp = 0; hp < 2; ++hp) {
-    const int col0 = 32 * blk + 16 * hp;
-    float t[2][4];
-    scal_pair(sh, W, in, col0, lane, t);
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int h = q >> 1, col = col0 + 8 * j + 2 * t4 + (q & 1);
-        const float x = in.l1 ? fmaf(rg.d2(h), d2w[col], t[j][q]) : t[j][q];
-        o[2 * hp + j][q] = rg.s(h) * x;
-      }
+    cl.c[hp] = rc * 32 + (((2 * hp + (lane >> 4)) ^ ((rc >> 1) & 3)) << 3);
+    cl.r[hp] = rr * 32 + (((2 * hp + ((lane >> 3) & 1)) ^ ((rr >> 1) & 3)) << 3);
   }
+  return cl;
+}
+// acc[hp] += a @ chunk[kr .. kr+16)[16 hp .. 16 hp + 16), hp = 0, 1 (the
+// column chunk's 32 columns as two n-tile pairs)
+__device__ __forceinline__ void mma_cc(float (&acc)[2][2][4], const uint32_t (&a)[4],
+                                       const bf16* ch, int kr, const ChunkLane& cl) {
 #pragma unroll
-  for (int c = 0; c < 3; ++c)
+  for (int hp = 0; hp < 2; ++hp) {
+    uint32_t b[4];
+    ldsm_x4_t(b, ch + kr * 32 + cl.c[hp]);
+    mma_bf16_16816(acc[hp][0], a, b[0], b[1]);
+    mma_bf16_16816(acc[hp][1], a, b[2], b[3]);
+  }
+}
+// acc += a @ chunk[0 .. 16)[kc .. kc+16)^T: the row chunk's 16 input rows as
+// an n-tile pair, k-step kc (a multiple of 16) of its columns
+__device__ __forceinline__ void mma_rc(float (&acc)[2][4], const uint32_t (&a)[4],
+                                       const bf16* ch, int kc, const ChunkLane& cl) {
+  uint32_t b[4];
+  ldsm_x4(b, ch + (kc >> 5) * 512 + cl.r[(kc >> 4) & 1]);
+  mma_bf16_16816(acc[0], a, b[0], b[1]);
+  mma_bf16_16816(acc[1], a, b[2], b[3]);
+}
+
+template <int N> __device__ __forceinline__ void zero2(float (&x)[2][N][4]) {
 #pragma unroll
-    for (int hp = 0; hp < 2; ++hp) {
-      float t[2][4];
-      vec_pair(sh, W, in, c, 32 * blk + 16 * hp, lane, t);
+  for (int i = 0; i < 2; ++i) zero(x[i]);
+}
+
+// A column block's scalar-input part on its chunk: t[hp] = sum over the
+// sources (layer 1: sender, receiver; layer 2: m0) and their 2m k-steps of
+// A(src, ks) times the chunk's rows (src 2m + ks) 16 .., columns 16 hp ..
+template <int M, int NSRC, class FA>
+__device__ __forceinline__ void part_s(const bf16* ch, const ChunkLane& cl, FA fa,
+                                       float (&t)[2][2][4]) {
+  zero2(t);
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+  for (int src = 0; src < NSRC; ++src)
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          o[2 * hp + j][q] = fmaf(cgd * rg.v(q >> 1, c), t[j][q], o[2 * hp + j][q]);
+    for (int ks = 0; ks < 2 * M; ++ks) {
+      uint32_t a[4];
+      fa(src, ks, a);
+      mma_cc(t, a, ch, (src * 2 * M + ks) * 16, cl);
+    }
+}
+// its vector-input part of component c: the sources' m k-steps from chunk
+// row row0 (layer 1: sender, receiver lanes; layer 2: m1_c)
+template <int M, int NSRC, class FA>
+__device__ __forceinline__ void part_v(const bf16* ch, int row0, const ChunkLane& cl, FA fa,
+                                       float (&t)[2][2][4]) {
+  zero2(t);
+#pragma unroll
+  for (int src = 0; src < NSRC; ++src)
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      uint32_t a[4];
+      fa(src, j, a);
+      mma_cc(t, a, ch, row0 + (src * M + j) * 16, cl);
     }
 }
 
-// Vector block blk: og = the O0 gate columns hsp + 16 blk .. (2 n-tiles), oa
-// = the OA columns c0 + 16 blk .., ob[c] = the OB columns of component c
-template <class S>
-__device__ __forceinline__ void vblock(const S& sh, const bf16* W, const float* d2w,
-                                       const LayerIn& in, const RowGeo& rg, float cgd, int lane,
-                                       int blk, float (&og)[2][4], float (&oa)[2][4],
-                                       float (&ob)[3][2][4]) {
-  const int t4 = lane & 3;
-  const int cg0 = sh.hsp() + 16 * blk, ca0 = sh.c0() + 16 * blk;
+// Scalar block cb's O0 columns from the scalar part: o[n-tile] = s (t + d2
+// d2w) (layer 2: s t); then each component's vector part: o += cgd v_c t
+template <bool L1>
+__device__ __forceinline__ void sblk_s(const float (&t)[2][2][4], const float* d2w, int col0,
+                                       const RowGeo& rg, int t4, float (&o)[4][4]) {
 #pragma unroll
-  for (int part = 0; part < 2; ++part) {  // the gate columns, then OA
-    const int col0 = part ? ca0 : cg0;
-    float t[2][4];
-    scal_pair(sh, W, in, col0, lane, t);
+  for (int hp = 0; hp < 2; ++hp)
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const int h = q >> 1, col = col0 + 8 * j + 2 * t4 + (q & 1);
-        const float x = in.l1 ? fmaf(rg.d2(h), d2w[col], t[j][q]) : t[j][q];
-        if (part) oa[j][q] = x;
-        else og[j][q] = rg.s(h) * x;
+        const int h = q >> 1, col = col0 + 16 * hp + 8 * j + 2 * t4 + (q & 1);
+        const float x = L1 ? fmaf(rg.d2(h), d2w[col], t[hp][j][q]) : t[hp][j][q];
+        o[2 * hp + j][q] = rg.s(h) * x;
       }
-  }
+}
+__device__ __forceinline__ void sblk_v(const float (&t)[2][2][4], float cgd, int c,
+                                       const RowGeo& rg, float (&o)[4][4]) {
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    float t[2][4];
-    vec_pair(sh, W, in, c, cg0, lane, t);
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) og[j][q] = fmaf(cgd * rg.v(q >> 1, c), t[j][q], og[j][q]);
-    vec_pair(sh, W, in, c, ca0, lane, t);
+  for (int hp = 0; hp < 2; ++hp)
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) ob[c][j][q] = rg.s(q >> 1) * t[j][q];
-  }
+      for (int q = 0; q < 4; ++q)
+        o[2 * hp + j][q] = fmaf(cgd * rg.v(q >> 1, c), t[hp][j][q], o[2 * hp + j][q]);
+}
+// Vector block v's gate columns og and OA columns oa from the scalar part (t[0]
+// the gate columns, t[1] OA); then each component's vector part: og += cgd
+// v_c t[0], ob[c] = s t[1]
+template <int M, bool L1>
+__device__ __forceinline__ void vblk_s(const float (&t)[2][2][4], const float* d2w, int v,
+                                       const RowGeo& rg, int t4, float (&og)[2][4],
+                                       float (&oa)[2][4]) {
+  constexpr int HSP = 32 * M, C0 = 48 * M;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int h = q >> 1, col = 16 * v + 8 * j + 2 * t4 + (q & 1);
+      og[j][q] = rg.s(h) * (L1 ? fmaf(rg.d2(h), d2w[HSP + col], t[0][j][q]) : t[0][j][q]);
+      oa[j][q] = L1 ? fmaf(rg.d2(h), d2w[C0 + col], t[1][j][q]) : t[1][j][q];
+    }
+}
+__device__ __forceinline__ void vblk_v(const float (&t)[2][2][4], float cgd, int c,
+                                       const RowGeo& rg, float (&og)[2][4],
+                                       float (&ob)[3][2][4]) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      og[j][q] = fmaf(cgd * rg.v(q >> 1, c), t[0][j][q], og[j][q]);
+      ob[c][j][q] = rg.s(q >> 1) * t[1][j][q];
+    }
 }
 
-// The layer-1 gates of a block, rounded to bf16 and stored into rows r0 ..
-// r0 + 15 of M [..][ld] (padded feature rows): m0 = silu(o0) at columns 32
-// blk ..; m1_c = CG011 (v_c A + B_c) sigmoid(o0v) at hsp + c hvp + 16 blk ..
-// (KM rounds A and the sigmoid first, the km2 form)
-__device__ __forceinline__ void gate_s(const float (&o)[4][4], bf16* M, int ld, int r0, int col0,
-                                       int lane) {
-  uint32_t am[2][4];
+// Layer 1 on the gather buffer (xs, xr: this lane's ldmatrix rows of the
+// sender and receiver features): a scalar block's o (cb < M) or a vector
+// block's og, oa, ob (cb >= M), on the block's two chunks from the ring
+// (chunks q, q + 1)
+template <int M, class R>
+__device__ __forceinline__ void l1_sblk(R& ring, int q, int lane, const ChunkLane& cl,
+                                        const bf16* xs, const bf16* xr, const float* d2w,
+                                        const RowGeo& rg, float cgd, int cb, float (&o)[4][4]) {
+  constexpr int HSP = 32 * M, HVP = 16 * M;
+  float t[2][2][4];
+  const bf16* ch = ring.acquire(q);
+  part_s<M, 2>(ch, cl, [&](int src, int ks, uint32_t (&a)[4]) {
+    ldsm_x4(a, (src ? xr : xs) + 16 * ks);
+  }, t);
+  ring.release(q, lane);
+  sblk_s<true>(t, d2w, 32 * cb, rg, lane & 3, o);
+  ch = ring.acquire(q + 1);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    part_v<M, 2>(ch, 0, cl, [&](int src, int j, uint32_t (&a)[4]) {
+      ldsm_x4(a, (src ? xr : xs) + HSP + HVP * c + 16 * j);
+    }, t);
+    sblk_v(t, cgd, c, rg, o);
+  }
+  ring.release(q + 1, lane);
+}
+template <int M, class R>
+__device__ __forceinline__ void l1_vblk(R& ring, int q, int lane, const ChunkLane& cl,
+                                        const bf16* xs, const bf16* xr, const float* d2w,
+                                        const RowGeo& rg, float cgd, int v, float (&og)[2][4],
+                                        float (&oa)[2][4], float (&ob)[3][2][4]) {
+  constexpr int HSP = 32 * M, HVP = 16 * M;
+  float t[2][2][4];
+  const bf16* ch = ring.acquire(q);
+  part_s<M, 2>(ch, cl, [&](int src, int ks, uint32_t (&a)[4]) {
+    ldsm_x4(a, (src ? xr : xs) + 16 * ks);
+  }, t);
+  ring.release(q, lane);
+  vblk_s<M, true>(t, d2w, v, rg, lane & 3, og, oa);
+  ch = ring.acquire(q + 1);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    part_v<M, 2>(ch, 0, cl, [&](int src, int j, uint32_t (&a)[4]) {
+      ldsm_x4(a, (src ? xr : xs) + HSP + HVP * c + 16 * j);
+    }, t);
+    vblk_v(t, cgd, c, rg, og, ob);
+  }
+  ring.release(q + 1, lane);
+}
+// Layer 2 on the A fragments am0 [2m] (m0) and am1 [m][3] (m1_c), one chunk
+// (q) a column block
+template <int M, class R>
+__device__ __forceinline__ void l2_sblk(R& ring, int q, int lane, const ChunkLane& cl,
+                                        const uint32_t (&am0)[2 * M][4],
+                                        const uint32_t (&am1)[M][3][4], const RowGeo& rg,
+                                        float cgd, float (&o)[4][4]) {
+  float t[2][2][4];
+  const bf16* ch = ring.acquire(q);
+  part_s<M, 1>(ch, cl, [&](int, int ks, uint32_t (&a)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = am0[ks][i];
+  }, t);
+  sblk_s<false>(t, nullptr, 0, rg, lane & 3, o);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    part_v<M, 1>(ch, 32 * M, cl, [&](int, int j, uint32_t (&a)[4]) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = am1[j][c][i];
+    }, t);
+    sblk_v(t, cgd, c, rg, o);
+  }
+  ring.release(q, lane);
+}
+template <int M, class R>
+__device__ __forceinline__ void l2_vblk(R& ring, int q, int lane, const ChunkLane& cl,
+                                        const uint32_t (&am0)[2 * M][4],
+                                        const uint32_t (&am1)[M][3][4], const RowGeo& rg,
+                                        float cgd, int v, float (&og)[2][4], float (&oa)[2][4],
+                                        float (&ob)[3][2][4]) {
+  float t[2][2][4];
+  const bf16* ch = ring.acquire(q);
+  part_s<M, 1>(ch, cl, [&](int, int ks, uint32_t (&a)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = am0[ks][i];
+  }, t);
+  vblk_s<M, false>(t, nullptr, v, rg, lane & 3, og, oa);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    part_v<M, 1>(ch, 32 * M, cl, [&](int, int j, uint32_t (&a)[4]) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = am1[j][c][i];
+    }, t);
+    vblk_v(t, cgd, c, rg, og, ob);
+  }
+  ring.release(q, lane);
+}
+
+// The layer-1 gates as layer 2's A fragments: a scalar block's m0 = silu(o)
+// (k-steps 2 cb, 2 cb + 1 of m0), a vector block's m1_c = CG011 (v_c A + B_c)
+// sigmoid(og) (k-step v of each m1_c; KM rounds A and the sigmoid first, the
+// km2 form), each rounded to bf16
+__device__ __forceinline__ void gate_s(const float (&o)[4][4], uint32_t (&a0)[4],
+                                       uint32_t (&a1)[4]) {
 #pragma unroll
   for (int nt = 0; nt < 4; ++nt) {
     float m[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) m[q] = o[nt][q] * sigm(o[nt][q]);
-    am[nt >> 1][(nt & 1) * 2 + 0] = pack(m[0], m[1]);
-    am[nt >> 1][(nt & 1) * 2 + 1] = pack(m[2], m[3]);
+    if (nt < 2) {
+      a0[(nt & 1) * 2 + 0] = pack(m[0], m[1]);
+      a0[(nt & 1) * 2 + 1] = pack(m[2], m[3]);
+    } else {
+      a1[(nt & 1) * 2 + 0] = pack(m[0], m[1]);
+      a1[(nt & 1) * 2 + 1] = pack(m[2], m[3]);
+    }
   }
-  store_a(M, ld, r0, col0, am[0], lane);
-  store_a(M, ld, r0, col0 + 16, am[1], lane);
 }
-template <bool KM, class S>
-__device__ __forceinline__ void gate_v(const S& sh, const float (&og)[2][4],
-                                       const float (&oa)[2][4], const float (&ob)[3][2][4],
-                                       const RowGeo& rg, bf16* M, int ld, int r0, int blk,
-                                       int lane) {
-  uint32_t am[3][4];
+template <bool KM>
+__device__ __forceinline__ void gate_v(const float (&og)[2][4], const float (&oa)[2][4],
+                                       const float (&ob)[3][2][4], const RowGeo& rg,
+                                       uint32_t (&am)[3][4]) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float m[3][4];
@@ -754,8 +1100,27 @@ __device__ __forceinline__ void gate_v(const S& sh, const float (&og)[2][4],
       am[c][i * 2 + 1] = pack(m[c][2], m[c][3]);
     }
   }
+}
+
+// Layer 1 of a tile and its gates: the layer-2 A fragments
+template <int M, bool KM, class R>
+__device__ __forceinline__ void layer1_wide(R& ring, int q, int lane, const ChunkLane& cl,
+                                            const bf16* xs, const bf16* xr, const float* d2w,
+                                            const RowGeo& rg, float cgd,
+                                            uint32_t (&am0)[2 * M][4],
+                                            uint32_t (&am1)[M][3][4]) {
 #pragma unroll
-  for (int c = 0; c < 3; ++c) store_a(M, ld, r0, sh.hsp() + sh.hvp() * c + 16 * blk, am[c], lane);
+  for (int cb = 0; cb < M; ++cb) {
+    float o[4][4];
+    l1_sblk<M>(ring, q + 2 * cb, lane, cl, xs, xr, d2w, rg, cgd, cb, o);
+    gate_s(o, am0[2 * cb], am0[2 * cb + 1]);
+  }
+#pragma unroll
+  for (int v = 0; v < M; ++v) {
+    float og[2][4], oa[2][4], ob[3][2][4];
+    l1_vblk<M>(ring, q + 2 * (M + v), lane, cl, xs, xr, d2w, rg, cgd, v, og, oa, ob);
+    gate_v<KM>(og, oa, ob, rg, am1[v]);
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -37,13 +37,18 @@ Backward (the counterpart of ``_vjp_bwd_tab``), likewise:
 
 In bf16 every kernel of this module (#1-#7) runs on the tensor-core engine
 ``csrc/lmax1_mma.cuh``: up to 32x0e+16x1o on its Bench kernels (the layers
-padded to that width, held in registers), wider on its Wide kernels
-(scalars padded to a multiple of 32, vectors to a multiple of 16, walked a
-column block at a time; a width whose blocks do not fit shared memory
-raises, naming the bytes, before any launch); in fp32 (the check path) on
-the FMA units.  Each source builds two libraries: the plain one (fp32, the
-Bench kernels) and ``LMAX1_WIDE=1`` (the Wide kernels), compiled side by
-side; the wrappers pick one by the widths (``_variant``).
+padded to that width, held in registers), wider on its Wide kernels, built
+as instances m = 1 .. ``WIDE_MAX_M`` of m scalar blocks (32 lanes) and m
+vector blocks (16 channels); a width runs ``wide_instance(hs, hv)``, its
+missing blocks zero-padded, walked a column block at a time with the
+weights streamed through shared memory, and a width past the largest
+instance raises before any launch.  The Wide forward takes a scratch buffer
+for its packed weights (``fused_message_fwd_scratch_bytes``); the Wide
+backward keeps them past its partials.  In fp32 (the check path) on the
+FMA units.  Each source builds a library for the plain kernels (fp32, the
+Bench kernels) and one for each Wide instance (``LMAX1_WIDE=1`` with
+``LMAX1_WIDE_M=m``), all compiled side by side; the wrappers pick one by
+the widths (``_variant``).
 
 Both backward forms end in the same PyTorch epilogue, the split reverse-table
 gather-sum ``d_h = d_hr + sum_q d_hu[revd[:, q]] + segment_sum(d_hu[remp],
@@ -102,7 +107,7 @@ __all__ = ["MessageConfig", "FusedMessageTabled", "fused_message_aggregate_table
            "fused_message_aggregate_bwd_plain", "flat_bwd_plain", "flat_bwd_kernel",
            "flat_bwd_kernels",
            "TAB_FWD", "TAB_BWD", "TAB_BWD_REDUCE", "KM_FWD", "KM_BWD", "FLAT_FWD", "FLAT_BWD",
-           "KERNELS"]
+           "KERNELS", "WIDE_MAX_M", "wide_instance", "wide_occupancy"]
 
 CG110 = 1.0 / math.sqrt(3.0)
 CG011 = 1.0 / math.sqrt(3.0)
@@ -111,16 +116,25 @@ CG011 = 1.0 / math.sqrt(3.0)
 _MAX_SMEM = 232_448
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# the two libraries of each lmax=1 source: the plain build and the Wide
-# kernels' (see ``_variant``)
-WIDE_BUILD = ("LMAX1_WIDE=1",)
-_VARIANTS = ((), WIDE_BUILD)
+# the Wide kernels' instances (csrc/lmax1_mma.cuh: LMAX1_WIDE_MAX_M): m scalar
+# blocks of 32 lanes and m vector blocks of 16 channels, m = 1 .. WIDE_MAX_M
+WIDE_MAX_M = 4
+# the libraries of each lmax=1 source: the plain build and one library of the
+# Wide kernels an instance (``LMAX1_WIDE_M``), so that the instances compile
+# side by side (see ``_variant``)
+WIDE_BUILDS = {m: ("LMAX1_WIDE=1", f"LMAX1_WIDE_M={m}") for m in range(1, WIDE_MAX_M + 1)}
+_VARIANTS = ((), *WIDE_BUILDS.values())
 TAB_FWD = CudaKernel("fused_message_tab_fwd", {
     # dtype, hs, hv, k
     "fused_message_tab_fwd_smem_bytes": (ctypes.c_long, [_I] * 4),
-    # dtype, 13 pointers (h, d2, attr, maskf, loc, gtab, 6 weights, out),
-    # npad, hs, hv, k, tile, u, stream
-    "fused_message_tab_fwd": (_I, [_I] + [_P] * 13 + [_I] * 6 + [_P]),
+    # dtype, 14 pointers (h, d2, attr, maskf, loc, gtab, 6 weights, out,
+    # scratch), npad, hs, hv, k, tile, u, stream
+    "fused_message_tab_fwd": (_I, [_I] + [_P] * 14 + [_I] * 6 + [_P]),
+    # dtype, hs, hv: the bytes of the scratch a launch takes (0: none)
+    "fused_message_fwd_scratch_bytes": (ctypes.c_long, [_I] * 3),
+    # addressing (0 tabled, 1 km, 2 flat), hs, hv, k, out [2] (warps a
+    # block, blocks an SM): the Wide kernel's shared memory a block
+    "lmax1_wide_fwd_config": (ctypes.c_long, [_I] * 4 + [_P]),
 }, variants=_VARIANTS)
 TAB_BWD = CudaKernel("fused_message_tab_bwd", {
     # dtype, hs, hv, k, tile, u
@@ -133,6 +147,9 @@ TAB_BWD = CudaKernel("fused_message_tab_bwd", {
     "fused_message_tab_bwd": (_I, [_I] + [_P] * 17 + [_I] * 7 + [_P]),
     # dtype, hs, hv, grid: the floats of the partials' buffer
     "fused_message_bwd_partials_floats": (ctypes.c_long, [_I] * 4),
+    # addressing, hs, hv, k, tile, u, n, out [2] (warps a block, blocks an
+    # SM): the Wide kernel's shared memory a block
+    "lmax1_wide_bwd_config": (ctypes.c_long, [_I] * 7 + [_P]),
 }, variants=_VARIANTS)
 # the same source's reduction: the fixed-order sum of the per-block
 # weight-gradient partials ([nblocks, nw] -> [nw] fp32)
@@ -145,14 +162,21 @@ TAB_BWD_REDUCE = CudaKernel("fused_message_tab_bwd_reduce", {
 # four columns a thread in blocks of COL_THREADS, COL_ROWS rows a batch
 STRIP_COLS, STRIP_THREADS, STRIP_ROWS = 32, 256, 136
 COL_THREADS, COL_ROWS = 64, 16
+# where the partials' rows fill at least half a strip stage, the column
+# kernel's blocks an SM at the least: with fewer, the strips were faster
+# (H100 device ms, strips against columns, kernels/lmax1_ab.py: [132, 36992]
+# 0.00538-0.00569 / 0.00677-0.00685, [132, 83136] 0.01697 / 0.01813)
+COL_BLOCKS_PER_SM = 4
 
 # the untabled (km) kernels #3/#4 and #5: the same two sources, the senders
 # read from the slot-major hs3 [K, N, F] (row k*N + i) and the geometry from
 # the node-major geo2 [N, K*6]
 KM_FWD = CudaKernel("fused_message_km_fwd", {
     "fused_message_tab_fwd_smem_bytes": (ctypes.c_long, [_I] * 4),
-    # dtype, 10 pointers (hs3, hr, geo2, 6 weights, out), n, hs, hv, k, stream
-    "fused_message_km_fwd": (_I, [_I] + [_P] * 10 + [_I] * 4 + [_P]),
+    # dtype, 11 pointers (hs3, hr, geo2, 6 weights, out, scratch), n, hs,
+    # hv, k, stream
+    "fused_message_km_fwd": (_I, [_I] + [_P] * 11 + [_I] * 4 + [_P]),
+    "fused_message_fwd_scratch_bytes": (ctypes.c_long, [_I] * 3),
 }, source_name="fused_message_tab_fwd", variants=_VARIANTS)
 KM_BWD = CudaKernel("fused_message_km_bwd", {
     # dtype, hs, hv, k
@@ -170,9 +194,10 @@ KM_BWD = CudaKernel("fused_message_km_bwd", {
 # attr, maskf rows; pack sets where the K-sum and d_hr round
 FLAT_FWD = CudaKernel("fused_message_flat_fwd", {
     "fused_message_tab_fwd_smem_bytes": (ctypes.c_long, [_I] * 4),
-    # dtype, 12 pointers (hs, hr, d2, attr, maskf, 6 weights, out), n, hs, hv,
-    # k, pack, stream
-    "fused_message_flat_fwd": (_I, [_I] + [_P] * 12 + [_I] * 5 + [_P]),
+    # dtype, 13 pointers (hs, hr, d2, attr, maskf, 6 weights, out, scratch),
+    # n, hs, hv, k, pack, stream
+    "fused_message_flat_fwd": (_I, [_I] + [_P] * 13 + [_I] * 5 + [_P]),
+    "fused_message_fwd_scratch_bytes": (ctypes.c_long, [_I] * 3),
 }, source_name="fused_message_tab_fwd", variants=_VARIANTS)
 FLAT_BWD = CudaKernel("fused_message_flat_bwd", {
     "fused_message_km_bwd_smem_bytes": (ctypes.c_long, [_I] * 4),
@@ -472,13 +497,56 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # the widths the Bench kernels take (csrc/lmax1_mma.cuh: fits)
 BENCH_HS, BENCH_HV = 32, 16
+def wide_instance(hs: int, hv: int) -> int:
+    """The Wide kernels' instance m that a width runs: max(ns, nv), ns =
+    ceil(hs / 32) scalar blocks and nv = ceil(hv / 16) vector blocks (at
+    least one each; the missing blocks zero-padded).  Raises ValueError,
+    naming the widths and the largest instance, past WIDE_MAX_M."""
+    m = max(1, -(-hs // 32), -(-hv // 16))
+    if m > WIDE_MAX_M:
+        raise ValueError(
+            f"widths {hs}x0e+{hv}x1o need the Wide kernels' instance m = {m}; the largest "
+            f"instance built is m = {WIDE_MAX_M} ({32 * WIDE_MAX_M}x0e+{16 * WIDE_MAX_M}x1o)")
+    return m
 
 
 def _variant(x, cfg: MessageConfig) -> tuple:
-    """The library of a launch on ``x``: the Wide kernels' for bf16 past the
-    Bench widths, else the plain one."""
+    """The library of a launch on ``x``: the Wide kernels' instance for bf16
+    past the Bench widths (raising past the largest instance), else the
+    plain one."""
     wide = cfg.hs > BENCH_HS or cfg.hv > BENCH_HV
-    return WIDE_BUILD if x.dtype == torch.bfloat16 and wide else ()
+    if x.dtype == torch.bfloat16 and wide:
+        return WIDE_BUILDS[wide_instance(cfg.hs, cfg.hv)]
+    return ()
+
+
+def _fwd_scratch(lib, cfg: MessageConfig, code: int, device):
+    """The scratch a forward launch takes (the Wide kernels' packed weights),
+    or None."""
+    nbytes = lib.fused_message_fwd_scratch_bytes(code, cfg.hs, cfg.hv)
+    return torch.empty((nbytes,), dtype=torch.uint8, device=device) if nbytes > 0 else None
+
+
+def _ptr(x) -> int:
+    return 0 if x is None else x.data_ptr()
+
+
+def wide_occupancy(cfg: MessageConfig, form: str, backward: bool, n: int) -> dict:
+    """The Wide kernel's launch at ``cfg``'s widths on the current card
+    (``form`` "tab", "km" or "flat"; ``n`` receivers): its instance, warps a
+    block, blocks an SM (the occupancy query), warps an SM and shared memory
+    a block (bytes)."""
+    addr = {"tab": 0, "km": 1, "flat": 2}[form]
+    m = wide_instance(cfg.hs, cfg.hv)
+    out = (ctypes.c_int * 2)()
+    if backward:
+        smem = TAB_BWD.lib(WIDE_BUILDS[m]).lmax1_wide_bwd_config(
+            addr, cfg.hs, cfg.hv, cfg.k, cfg.tile, cfg.u, n, ctypes.addressof(out))
+    else:
+        smem = TAB_FWD.lib(WIDE_BUILDS[m]).lmax1_wide_fwd_config(
+            addr, cfg.hs, cfg.hv, cfg.k, ctypes.addressof(out))
+    return dict(instance=m, warps_per_block=out[0],
+                blocks_per_sm=out[1], warps_per_sm=out[0] * out[1], smem_bytes_per_block=smem)
 
 
 def _check_smem(smem: int) -> None:
@@ -527,10 +595,11 @@ def fused_message_aggregate_tabled_fwd(cfg: MessageConfig, h, d2, attr, maskf, l
     smem = lib.fused_message_tab_fwd_smem_bytes(code, cfg.hs, cfg.hv, cfg.k)
     _check_smem(smem)
     out = torch.empty_like(h)
+    scratch = _fwd_scratch(lib, cfg, code, h.device)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     with torch.cuda.device(h.device):
         rc = lib.fused_message_tab_fwd(
-            code, *(x.data_ptr() for x in args), out.data_ptr(),
+            code, *(x.data_ptr() for x in args), out.data_ptr(), _ptr(scratch),
             h.shape[0], cfg.hs, cfg.hv, cfg.k, cfg.tile, cfg.u, stream)
     if rc != 0:
         raise RuntimeError(f"fused_message_tab_fwd launch failed with CUDA error {rc}")
@@ -590,10 +659,13 @@ def reduce_plan(nblocks: int, nw: int, ptrs, sms: int) -> dict:
     ``ptrs`` (partials, out) on a card of ``sms`` SMs: the column kernel
     (``cols``, four columns a thread, one 16-byte load a row) where nw is a
     multiple of 4, every base 16-byte aligned and nw / 4 columns give each SM
-    a block of COL_THREADS; else the strip kernel (any nw and alignment).
-    ``grid`` blocks of ``threads``; ``batches`` trips over ``rows`` rows each
-    (the rows a block has in flight at once)."""
-    if nw % 4 == 0 and all(p % 16 == 0 for p in ptrs) and nw >= 4 * COL_THREADS * sms:
+    a block of COL_THREADS (COL_BLOCKS_PER_SM blocks where the rows fill half
+    a strip stage); else the strip kernel (any nw and alignment).  Both fold
+    each column in block order: the same bits.  ``grid`` blocks of
+    ``threads``; ``batches`` trips over ``rows`` rows each (the rows a block
+    has in flight at once)."""
+    per_sm = 1 if 2 * nblocks < STRIP_ROWS else COL_BLOCKS_PER_SM
+    if nw % 4 == 0 and all(p % 16 == 0 for p in ptrs) and nw >= 4 * COL_THREADS * per_sm * sms:
         return dict(cols=True, threads=COL_THREADS, grid=-(-nw // (4 * COL_THREADS)),
                     rows=COL_ROWS, batches=-(-nblocks // COL_ROWS))
     return dict(cols=False, threads=STRIP_THREADS, grid=-(-nw // STRIP_COLS), rows=STRIP_ROWS,
@@ -811,10 +883,11 @@ def fused_message_aggregate_km_fwd(cfg: MessageConfig, hs3, hr, geo2, w0e1, w1o1
     smem = lib.fused_message_tab_fwd_smem_bytes(code, cfg.hs, cfg.hv, cfg.k)
     _check_smem(smem)
     out = torch.empty_like(hr)
+    scratch = _fwd_scratch(lib, cfg, code, hr.device)
     stream = torch.cuda.current_stream(hr.device).cuda_stream
     with torch.cuda.device(hr.device):
-        rc = lib.fused_message_km_fwd(code, *(x.data_ptr() for x in args),
-                                      out.data_ptr(), hr.shape[0], cfg.hs, cfg.hv, cfg.k, stream)
+        rc = lib.fused_message_km_fwd(code, *(x.data_ptr() for x in args), out.data_ptr(),
+                                      _ptr(scratch), hr.shape[0], cfg.hs, cfg.hv, cfg.k, stream)
     if rc != 0:
         raise RuntimeError(f"fused_message_km_fwd launch failed with CUDA error {rc}")
     KM_FWD.launches += 1
@@ -1031,11 +1104,12 @@ def fused_message_aggregate_fwd(cfg: MessageConfig, hs, hr, d2, attr, maskf, w0e
     smem = lib.fused_message_tab_fwd_smem_bytes(code, cfg.hs, cfg.hv, cfg.k)
     _check_smem(smem)
     out = torch.empty_like(hr)
+    scratch = _fwd_scratch(lib, cfg, code, hr.device)
     stream = torch.cuda.current_stream(hr.device).cuda_stream
     with torch.cuda.device(hr.device):
         rc = lib.fused_message_flat_fwd(code, *(x.data_ptr() for x in args),
-                                        out.data_ptr(), hr.shape[0], cfg.hs, cfg.hv, cfg.k,
-                                        cfg.pack, stream)
+                                        out.data_ptr(), _ptr(scratch), hr.shape[0], cfg.hs,
+                                        cfg.hv, cfg.k, cfg.pack, stream)
     if rc != 0:
         raise RuntimeError(f"fused_message_flat_fwd launch failed with CUDA error {rc}")
     FLAT_FWD.launches += 1

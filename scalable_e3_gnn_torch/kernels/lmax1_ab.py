@@ -25,16 +25,30 @@ change, parent); equal digests are bit-identical outputs.  ``--wide``
 width, as past 32x0e+16x1o (``fused_message.BENCH_HS`` set to 0 in this
 process): at the Bench widths their digests equal the Bench kernels'.
 
+Where the wrappers pick the Wide kernels (past 32x0e+16x1o, or ``--wide``)
+the line also gives each Wide kernel's launch (``occupancy``: its instance,
+warps a block, blocks an SM by the occupancy query, warps an SM, shared
+memory a block), where the checkout has ``fused_message.wide_occupancy``
+(null otherwise).  ``reduce`` times the reduction's two kernels (the column
+kernel and the strips) at #2's partials shape, device ms by torch.profiler.
+``--reduce-shapes NBxNW,...`` (this checkout only) times them instead on
+random partials of each shape, beside ``torch.sum`` and the plan's choice,
+and prints only that.
+
 ``--clocks DIR`` (this checkout's sources only) builds the backward source
-once more with ``LMAX1_BWD_CLOCKS`` into DIR (with ``LMAX1_WIDE=1`` where
-the wrappers pick the Wide kernels at this width) and prints #2's cycles
+once more with ``LMAX1_BWD_CLOCKS`` into DIR (with the Wide instance's
+defines where the wrappers pick the Wide kernels at this width) and prints #2's cycles
 per round in each phase, read by ``clock64`` on thread 0 of every block:
 the gather, layer 1, layer 2 with its gates' VJP, layer 2's input
 cotangents, layer 1 again with its gates' VJP, layer 1's input cotangents,
 the K-sum, the wait at the round's first barrier, warp 0's weight
 gradients, the wait at the second barrier, and the table sums after the
 rounds (spread per round; the Wide kernel's also write its weight-gradient
-accumulators).
+accumulators).  The Wide kernel runs layer 2's weight gradients after its
+input cotangents: the wait before them, warp 0's jobs of layer 2 and the
+wait after them are three more phases (its ``wgrad`` is then layer 1's
+jobs); and thread 0's waits on the weight ring's mbarriers, inside the
+phases, are given apart (``ring_wait``).
 """
 
 from __future__ import annotations
@@ -137,7 +151,7 @@ def bwd_clocks(fm, ta, ws, d_agg, out_dir: Path) -> dict:
     call = lambda: lib.fused_message_tab_bwd(
         1, *(x.data_ptr() for x in args), d_hu.data_ptr(), d_hr.data_ptr(), scratch.data_ptr(),
         part.data_ptr(), npad, *dims, grid, torch.cuda.current_stream().cuda_stream)
-    cyc = (ctypes.c_ulonglong * 12)()
+    cyc = (ctypes.c_ulonglong * 16)()
     assert call() == 0
     torch.cuda.synchronize()
     lib.lmax1_bwd_phase_cycles(cyc)  # drop the warm-up
@@ -149,10 +163,49 @@ def bwd_clocks(fm, ta, ws, d_agg, out_dir: Path) -> dict:
     rounds = cyc[11]
     names = ("gather", "layer1", "layer2_vjp", "layer2_cotangents", "layer1_again_vjp",
              "layer1_cotangents", "ksum", "barrier1", "wgrad", "barrier2", "table_sum")
-    per_round = {nm: cyc[i] / rounds for i, nm in enumerate(names)}
-    return dict(library="wide" if variant else "bench", cycles_per_round=per_round,
-                total=sum(per_round.values()), rounds_per_block=rounds / iters / grid,
-                blocks=grid)
+    if variant:
+        names += (None, "barrier_l2", "wgrad_l2", "barrier_l2_after")
+    per_round = {nm: cyc[i] / rounds for i, nm in enumerate(names) if nm}
+    out = dict(library="wide" if variant else "bench", cycles_per_round=per_round,
+               total=sum(per_round.values()), rounds_per_block=rounds / iters / grid,
+               blocks=grid)
+    if variant:
+        out["ring_wait_per_round"] = cyc[15] / rounds
+    return out
+
+
+def reduce_shapes(fm, shapes: str) -> list:
+    """``reduce_times`` on random fp32 partials of each shape ("NBxNW,...")."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = []
+    for shape in shapes.split(","):
+        nb, nw = (int(x) for x in shape.split("x"))
+        out.append(reduce_times(fm, torch.randn((nb, nw), generator=gen, device="cuda")))
+    return out
+
+
+def reduce_times(fm, part) -> dict:
+    """Device ms of the reduction's column kernel and strip kernel at the
+    partials' shape (the column kernel only where nw % 4 == 0), and of
+    torch.sum, by torch.profiler; both kernels fold each column in block
+    order, so their outputs are bitwise equal."""
+    nblocks, nw = part.shape
+    lib = fm.TAB_BWD_REDUCE.lib()
+    out = {}
+    stream = torch.cuda.current_stream().cuda_stream
+    for cols in ((0, 1) if nw % 4 == 0 else (0,)):
+        o = torch.empty((nw,), dtype=torch.float32, device=part.device)
+        call = lambda: lib.fused_message_tab_bwd_reduce(part.data_ptr(), o.data_ptr(), nblocks,
+                                                        nw, cols, stream)
+        dev = _device(call, 20)
+        out["cols" if cols else "strips"] = sum(v["ms"] * v["per_call"] for v in dev.values())
+        out[f"{'cols' if cols else 'strips'}_digest"] = _digest(o)
+    dev = _device(lambda: part.sum(dim=0), 20)
+    out["torch_sum"] = sum(v["ms"] * v["per_call"] for v in dev.values())
+    sms = torch.cuda.get_device_properties(part.device).multi_processor_count
+    out["plan_cols"] = bool(fm.reduce_plan(nblocks, nw, (part.data_ptr(), 0), sms)["cols"])
+    out["shape"] = [nblocks, nw]
+    return out
 
 
 def main() -> int:
@@ -162,6 +215,7 @@ def main() -> int:
     ap.add_argument("--clocks", default="", help="scratch directory for the profiling build")
     ap.add_argument("--hidden", default=HIDDEN, help="the layer's hidden irreps")
     ap.add_argument("--wide", action="store_true", help="the Wide kernels at every width")
+    ap.add_argument("--reduce-shapes", default="", help="time the reduction alone at NBxNW,...")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.repo).resolve()))
     import scalable_e3_gnn_torch
@@ -180,6 +234,10 @@ def main() -> int:
     dev, bf = torch.device("cuda"), torch.bfloat16
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
+    if args.reduce_shapes:
+        print(json.dumps(dict(tag=args.tag, card=card, reduce=reduce_shapes(fm, args.reduce_shapes))),
+              flush=True)
+        return 0
     pts = np.random.default_rng(SEED).random((N_POINTS, 3)).astype(np.float32)
     tree = build_octree(pts, LO, HI, num_levels=LEVELS, device=dev)
     cap = suggest_cell_capacity(tree, RADIUS, LO, HI)
@@ -250,27 +308,28 @@ def main() -> int:
                    "#5 partials": _digest(kpart), "#6 agg": _digest(fagg),
                    "#7 d_hs": _digest(f_hs), "#7 d_hr": _digest(f_hr),
                    "#7 partials": _digest(fpart)}
-        r_agg = fm.fused_message_aggregate_tabled_plain(*ta, *w4)
-        r_hu, r_hr, r_dws = fm.tab_bwd_plain(*ta, ws, d_agg)
-        r_kagg = fm.fused_message_aggregate_km_plain(*ka, *w4)
-        rk_hs, rk_hr, rk_dws = fm.km_bwd_plain(*ka, ws, d_agg)
-        r_fagg = fm.fused_message_aggregate_plain(*fa, *w4)
-        rf_hs, rf_hr, rf_dws = fm.flat_bwd_plain(*fa, ws, d_agg)
+        # the plain versions a route at a time (their fp32 rows of the widest
+        # widths do not fit the card together)
         names = ("W0a", "W1Sa", "W1Va", "W0b", "W1Sb", "W1Vb")
-        ulps = {"#1 agg": _ulps(agg, r_agg), "#2 d_hu": _ulps(d_hu, r_hu),
-                "#2 d_hr": _ulps(d_hr, r_hr), "#3 agg": _ulps(kagg, r_kagg),
-                "#5 d_hs": _ulps(k_hs, rk_hs), "#5 d_hr": _ulps(k_hr, rk_hr),
-                "#6 agg": _ulps(fagg, r_fagg), "#7 d_hs": _ulps(f_hs, rf_hs),
-                "#7 d_hr": _ulps(f_hr, rf_hr)}
-        for nm, a, b in zip(names, dws, r_dws):
-            ulps[f"#2 {nm}"] = _ulps(a, b)
-        for nm, a, b in zip(names, kdws, rk_dws):
-            ulps[f"#5 {nm}"] = _ulps(a, b)
-        for nm, a, b in zip(names, fdws, rf_dws):
-            ulps[f"#7 {nm}"] = _ulps(a, b)
+        ulps = {}
+        for (fn, bn), fwd_plain, bwd_plain, inputs, got in (
+                (("#1 agg", "#2"), fm.fused_message_aggregate_tabled_plain, fm.tab_bwd_plain,
+                 ta, (agg, d_hu, d_hr, dws)),
+                (("#3 agg", "#5"), fm.fused_message_aggregate_km_plain, fm.km_bwd_plain, ka,
+                 (kagg, k_hs, k_hr, kdws)),
+                (("#6 agg", "#7"), fm.fused_message_aggregate_plain, fm.flat_bwd_plain, fa,
+                 (fagg, f_hs, f_hr, fdws))):
+            ulps[fn] = _ulps(got[0], fwd_plain(*inputs, *w4))
+            r_s, r_r, r_dws = bwd_plain(*inputs, ws, d_agg)
+            ulps[f"{bn} {'d_hu' if bn == '#2' else 'd_hs'}"] = _ulps(got[1], r_s)
+            ulps[f"{bn} d_hr"] = _ulps(got[2], r_r)
+            for nm, a, b in zip(names, got[3], r_dws):
+                ulps[f"{bn} {nm}"] = _ulps(a, b)
+            del r_s, r_r, r_dws
+            torch.cuda.empty_cache()
         rerun = fm.tab_bwd_kernel(*ta, ws, d_agg)
         bitwise = dict(tab_bwd=all(torch.equal(x, y) for x, y in zip((d_hu, d_hr, part), rerun)))
-        del r_agg, r_hu, r_hr, r_kagg, rk_hs, rk_hr, r_fagg, rf_hs, rf_hr, rerun
+        del rerun
         calls = {
             "#1": lambda: fm.fused_message_aggregate_tabled_fwd(*ta, *w4),
             "#2 main": lambda: fm.tab_bwd_kernel(*ta, ws, d_agg),
@@ -283,12 +342,21 @@ def main() -> int:
         times = {nm: _events(fn, 10) for nm, fn in calls.items()}
         device = {nm: _device(fn, 10) for nm, fn in calls.items()}
         clocks = bwd_clocks(fm, ta, ws, d_agg, Path(args.clocks)) if args.clocks else None
+        reduce = reduce_times(fm, part)
+        occupancy = None
+        if fm._variant(h, cfg) and hasattr(fm, "wide_occupancy"):
+            occupancy = {f"{nm} {d}": fm.wide_occupancy(c, form, d == "bwd", rows)
+                         for nm, c, form, rows in (("#1/#2", cfg, "tab", npad),
+                                                   ("#3/#5", kcfg, "km", npad),
+                                                   ("#6/#7", fcfg, "flat", npad))
+                         for d in ("fwd", "bwd")}
     print(json.dumps(dict(
         tag=args.tag, package=scalable_e3_gnn_torch.__file__, card=card, hidden=args.hidden,
         wide=args.wide,
         receivers=n, npad=npad,
         valid_slots=int(mask.sum()), u=cfg.u, partials=list(part.shape), event_ms=times,
         device=device, ulps=ulps, bitwise=bitwise, digests=digests, phase_clocks=clocks,
+        occupancy=occupancy, reduce=reduce,
         sm_clock_mhz=subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
                                      "--format=csv,noheader"], capture_output=True, text=True,
                                     timeout=60).stdout.strip())), flush=True)

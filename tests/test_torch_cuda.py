@@ -261,11 +261,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
 
 # the lmax=1 kernels past the Bench kernels' widths (#1-#7 on the Wide
 # kernels, ``-k lmax1_wide``): each multiplicity past its cap alone, neither
-# a multiple of the padding, and twice the bench width in both
-L1_WIDE = ["48x0e+16x1o", "32x0e+24x1o", "40x0e+20x1o", "64x0e+32x1o"]
-# a width whose bf16 blocks need more shared memory than the card has (the
-# forward's weights alone 304,128 bytes)
-L1_PAST_SMEM = "128x0e+64x1o"
+# a multiple of the padding, twice the bench width in both, and the
+# instances m = 3 and m = 4
+L1_WIDE = ["48x0e+16x1o", "32x0e+24x1o", "40x0e+20x1o", "64x0e+32x1o", "96x0e+48x1o",
+           "128x0e+64x1o"]
+# twice the bench width (the fp32 check path's and the reruns' width)
+L1_TWICE = "64x0e+32x1o"
+# a width past the Wide kernels' largest instance (m = 5)
+L1_PAST_SMEM = "160x0e+80x1o"
 
 
 @pytest.mark.parametrize("hidden", L1_WIDE)
@@ -337,7 +340,7 @@ def test_lmax1_wide_fp32_matches_plain(dev, monkeypatch):
     groups, the backward's weight gradients and weights in global memory.
     Every addressing against its plain version: 1e-4 * max(1, |ref|)
     elementwise (agg, d_h, d_hs, d_hr), 1e-4 * max|ref| per weight block."""
-    hidden = L1_WIDE[-1]
+    hidden = L1_TWICE
     args, d_agg = _bwd_problem(dev, monkeypatch, hidden, 24, 3000, 160, torch.float32)
     cfg, a, ws, k_agg = _km_problem(dev, hidden, 24, 2000, 2, torch.float32)
     fcfg, fa, fws, f_agg = _flat_problem(dev, hidden, 24, 2000, 2, 2, torch.float32)
@@ -392,8 +395,8 @@ def _lmax1_routes(dev, monkeypatch, hidden):
 def test_lmax1_wide_is_deterministic(dev, monkeypatch):
     """Two runs of every route at 64x0e+32x1o are bitwise equal: the Wide
     backward's weight-gradient jobs each sum in a fixed order."""
-    one = _lmax1_routes(dev, monkeypatch, L1_WIDE[-1])
-    two = _lmax1_routes(dev, monkeypatch, L1_WIDE[-1])
+    one = _lmax1_routes(dev, monkeypatch, L1_TWICE)
+    two = _lmax1_routes(dev, monkeypatch, L1_TWICE)
     for route in one:
         for x, y in zip(one[route], two[route], strict=True):
             assert torch.equal(x, y), route
@@ -414,8 +417,9 @@ def test_lmax1_wide_kernels_are_bench_bitwise(dev, monkeypatch, hidden):
 
 
 def test_lmax1_wide_past_smem_raises(dev, monkeypatch):
-    """Past the shared-memory bound the bf16 wrappers raise before any
-    launch, naming the bytes, every route forward and backward."""
+    """Past the Wide kernels' largest instance the bf16 wrappers raise before
+    any launch, naming the widths and the largest instance, every route
+    forward and backward."""
     args, t_agg = _bwd_problem(dev, monkeypatch, L1_PAST_SMEM, 8, 256, 32, torch.bfloat16,
                                run=False)
     t_ws6 = fm.split_weights(args[0], *args[10:])
@@ -431,7 +435,7 @@ def test_lmax1_wide_past_smem_raises(dev, monkeypatch):
              lambda: fm.fused_message_aggregate_fwd(fa[0], *fa[1], *fa[2]),
              lambda: fm.flat_bwd_kernel(fa[0], *fa[1], fm.split_weights(fa[0], *fa[2]), fa[3]))
     for call in calls:
-        with pytest.raises(ValueError, match="bytes of shared memory"):
+        with pytest.raises(ValueError, match="the largest instance built is m = 4"):
             call()
     assert [kern.launches for kern in kerns] == before
 

@@ -6,7 +6,8 @@ their wrappers decide before a launch is plain Python and is tested here:
 - the weight-gradient reduction (``kernels.fused_message.reduce_plan``):
   the column kernel, four columns a thread (16-byte loads), where NW is a
   multiple of 4, both bases are 16-byte aligned and NW / 4 columns give
-  every SM a block; else strips of 32 columns staged through shared memory
+  every SM a block (four where the rows fill half a strip stage); else
+  strips of 32 columns staged through shared memory
   (any NW, any alignment); rows in batches or stages;
 - the halo all-gather #15 (``kernels.halo_ring.ring_plan``): the widest
   word that divides a chunk's bytes and both bases (the tail path for odd
@@ -74,6 +75,15 @@ def _one_torch_thread():
     # either side of one block per SM at four columns a thread
     (64, 4 * 64 * H100_SMS, ALIGNED, dict(C4, grid=H100_SMS, batches=4)),
     (64, 4 * 64 * H100_SMS - 4, ALIGNED, dict(S, grid=1056, batches=1)),
+    # rows that fill half a strip stage: either side of COL_BLOCKS_PER_SM
+    # blocks per SM
+    (132, 4 * 4 * 64 * H100_SMS, ALIGNED, dict(C4, grid=4 * H100_SMS, batches=9)),
+    (132, 4 * 4 * 64 * H100_SMS - 4, ALIGNED, dict(S, grid=4224, batches=1)),
+    # the Wide #2's partials: 64x0e+32x1o and 96x0e+48x1o (strips, as timed),
+    # 128x0e+64x1o (columns)
+    (132, 36992, ALIGNED, dict(S, grid=1156, batches=1)),
+    (132, 83136, ALIGNED, dict(S, grid=2598, batches=1)),
+    (132, 147712, ALIGNED, dict(C4, grid=577, batches=9)),
 ])
 def test_reduce_plan(nblocks, nw, ptrs, want):
     plan = fm.reduce_plan(nblocks, nw, ptrs, H100_SMS)

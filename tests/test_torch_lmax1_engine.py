@@ -318,3 +318,127 @@ def test_dot_forms_against_fp64():
     scale = float(exact.abs().max())
     for form in (form_a, form_b):
         assert float((form.double() - exact).abs().max()) <= 2.0 ** -20 * scale
+
+
+# ---- the Wide kernels' instances: a width runs m = max(ns, nv) blocks of
+# each kind (csrc/lmax1_mma.cuh), its missing blocks zero-padded
+
+@pytest.mark.parametrize("hs,hv,m", [
+    (48, 16, 2), (32, 24, 2), (40, 20, 2), (64, 32, 2), (96, 48, 3), (128, 64, 4),
+    (32, 16, 1), (16, 8, 1), (1, 0, 1), (33, 1, 2), (96, 16, 3), (32, 64, 4), (100, 50, 4)])
+def test_wide_instance(hs, hv, m):
+    assert fm.wide_instance(hs, hv) == m
+
+
+@pytest.mark.parametrize("hs,hv", [(160, 80), (129, 0), (8, 65)])
+def test_wide_instance_past_the_largest_raises(hs, hv):
+    with pytest.raises(ValueError, match=r"160x0e\+80x1o|129x0e|65x1o") as e:
+        fm.wide_instance(hs, hv)
+    assert f"the largest instance built is m = {fm.WIDE_MAX_M}" in str(e.value)
+
+
+def test_wide_instances_match_the_source():
+    """The wrapper's largest instance is the one the CUDA source builds."""
+    import re
+
+    src = (fm.TAB_FWD.source.parent / "lmax1_mma.cuh").read_text()
+    assert int(re.search(r"#define LMAX1_WIDE_MAX_M (\d+)", src).group(1)) == fm.WIDE_MAX_M
+
+
+def _padded_w(ws, hs, hv, ns, nv):
+    """The engine's padded weights (lmax1_mma.cuh: weight_at) at ns scalar
+    and nv vector blocks: rows [sender | receiver scalars (32 ns each) |
+    sender | receiver vector lanes (16 nv each) | m0 (32 ns) | m1 (16 nv)],
+    columns [O0 scalars (32 ns) | gates (16 nv) | OA or OB (16 nv)], fp32."""
+    w0a, w1sa, w1va, w0b, w1sb, w1vb = (w.float() for w in ws)
+    hsp, hvp = 32 * ns, 16 * nv
+    c0p, n = hsp + hvp, hsp + 2 * hvp
+    s1 = 2 * hs + 1
+    ocol = list(range(hs + hv))  # O0 features -> their padded columns
+    opad = list(range(hs)) + [hsp + j for j in range(hv)]
+    W = torch.zeros(3 * hsp + 3 * hvp, n)
+
+    rows = []  # (padded row, w0 block, w0 row, w1 block, w1 row)
+    for p in range(hs):
+        rows += [(p, w0a, p, w1sa, p), (hsp + p, w0a, hs + p, w1sa, hs + p)]
+    for p in range(hv):
+        rows += [(2 * hsp + p, w0a, s1 + p, w1va, p),
+                 (2 * hsp + hvp + p, w0a, s1 + hv + p, w1va, hv + p)]
+    for p in range(hs):
+        rows.append((2 * hsp + 2 * hvp + p, w0b, p, w1sb, p))
+    for p in range(hv):
+        rows.append((3 * hsp + 2 * hvp + p, w0b, hs + p, w1vb, p))
+    for r, w0, i0, w1, i1 in rows:
+        W[r, opad] = w0[i0, ocol]
+        W[r, c0p:c0p + hv] = w1[i1]
+    return W
+
+
+def _kstep_sum(a, w):
+    """[R, K] x [K, N] as the engine sums it: 16-wide k-steps in order, each
+    k-step's products summed exactly and rounded once, the k-steps added in
+    fp32."""
+    acc = torch.zeros((a.shape[0], w.shape[1]), dtype=torch.float32)
+    for ks in range(0, a.shape[1], 16):
+        acc = acc + (a[:, ks:ks + 16].double() @ w[ks:ks + 16].double()).float()
+    return acc
+
+
+def _padded_sums(hs, hv, ns, nv, xs, xv, m0, m1, d_o0, d_a, ws):
+    """Every fp32 sum the engine forms at ns, nv blocks, indexed by feature:
+    both layers' products (layer 1: scalars, each component's vector lanes;
+    layer 2 likewise), the transposed products of the input cotangents, and
+    the weight gradients (sums over the slot rows)."""
+    hsp, hvp = 32 * ns, 16 * nv
+    c0p = hsp + hvp
+    W = _padded_w(ws, hs, hv, ns, nv)
+    out_cols = list(range(hs)) + [hsp + j for j in range(hv)] + [c0p + j for j in range(hv)]
+    r = xs.shape[0]
+
+    def pad(x, width):
+        return torch.cat([x, x.new_zeros((r, width - x.shape[1]))], 1)
+
+    a1s = torch.cat([pad(xs[:, :hs], hsp), pad(xs[:, hs:], hsp)], 1)
+    sums = {"l1s": _kstep_sum(a1s, W[:2 * hsp])[:, out_cols]}
+    w1v = W[2 * hsp:2 * hsp + 2 * hvp]
+    for c in range(3):
+        a1v = torch.cat([pad(xv[:, c, :hv], hvp), pad(xv[:, c, hv:], hvp)], 1)
+        sums[f"l1v{c}"] = _kstep_sum(a1v, w1v)[:, out_cols]
+    w2 = W[2 * hsp + 2 * hvp:]
+    sums["l2s"] = _kstep_sum(pad(m0, hsp), w2[:hsp])[:, out_cols]
+    for c in range(3):
+        sums[f"l2v{c}"] = _kstep_sum(pad(m1[:, c], hvp), w2[hsp:])[:, out_cols]
+    # d_x = [d_o0 | d_a] W^T over the padded columns: k-steps of d_o0's
+    # scalar and gate columns, then of d_a's
+    dy = torch.cat([pad(d_o0[:, :hs], hsp), pad(d_o0[:, hs:], hvp), pad(d_a, hvp)], 1)
+    in_rows = list(range(hs)) + [hsp + p for p in range(hs)]
+    sums["dx_l1s"] = _kstep_sum(dy, W[:2 * hsp].T)[:, in_rows]
+    sums["dx_l2s"] = _kstep_sum(dy, w2[:hsp].T)[:, :hs]
+    # the weight gradients: X^T dY over the slot rows
+    sums["dw_l1s"] = _kstep_sum(a1s.T, dy)[in_rows][:, out_cols]
+    sums["dw_l2s"] = _kstep_sum(pad(m0, hsp).T, dy)[:hs][:, out_cols]
+    return sums
+
+
+@pytest.mark.parametrize("hs,hv", [(48, 16), (32, 24), (64, 8), (96, 16), (32, 40)])
+def test_wide_padding_to_the_instance_is_bitwise(hs, hv):
+    """A lopsided width padded to its instance's m blocks of each kind gives
+    every fp32 sum of both layers, of the input cotangents' products and of
+    the weight gradients bitwise as at its own ns, nv blocks: the pads are
+    zero k-steps (zero inputs, zero weights), each adding an exact 0."""
+    rng = np.random.default_rng(hs * 100 + hv)
+    r = 48
+    ns, nv = max(1, -(-hs // 32)), max(1, -(-hv // 16))
+    m = fm.wide_instance(hs, hv)
+    assert (ns, nv) != (m, m)
+    cfg = fm.MessageConfig(hs=hs, hv=hv, k=8)
+    ws = [torch.from_numpy(rng.standard_normal(s) / math.sqrt(s[0])).float().to(BF)
+          for s in cfg.weight_shapes()]
+    bf = lambda *shape: torch.from_numpy(rng.standard_normal(shape)).float().to(BF).float()
+    xs, xv, m0, m1 = bf(r, 2 * hs), bf(r, 3, 2 * hv), bf(r, hs), bf(r, 3, hv)
+    d_o0, d_a = bf(r, hs + hv), bf(r, hv)
+    own = _padded_sums(hs, hv, ns, nv, xs, xv, m0, m1, d_o0, d_a, ws)
+    inst = _padded_sums(hs, hv, m, m, xs, xv, m0, m1, d_o0, d_a, ws)
+    for name in own:
+        assert torch.equal(own[name], inst[name]), name
+        assert bool((own[name] != 0).any()), name
